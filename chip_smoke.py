@@ -26,7 +26,8 @@ Phases, each of which makes the script exit non-zero when it fails:
    three times over (median wall reported); the launch counts are set to
    0 just before and read just after, and
    the kernel must have launched at C=1 and C=256 with no call of the
-   plain version;
+   plain version; one more batch under torch.profiler gives the device's
+   busy time and idle share;
 6. timing: CUDA events around each launch (a GPU sleep queued first so
    host overhead is not counted), L2 flushed before each, median of 20
    after warm-up, for the kernel, its plain version and
@@ -285,6 +286,7 @@ def phase_serve(torch, M, pa, card):
         launches = dict(pa.paged_attention.launches_by_chunk)
         plain_calls = pa.paged_attention_plain.calls
         st = eng.stats()
+        trace = traced_batch(torch, eng, prompts, n_tok)
     finally:
         eng.shutdown()
     for o, n in zip(outs, n_tok):
@@ -302,12 +304,54 @@ def phase_serve(torch, M, pa, card):
         f"prefill_chunks={chunks} per run [{card}]")
     log(f"  paged_attention launches by chunk width: {launches}; plain "
         f"calls: {plain_calls}")
+    log(f"  traced batch (torch.profiler, not in tokens/s): {trace}")
     if launches.get(1, 0) == 0 or launches.get(256, 0) == 0:
         raise AssertionError(f"kernel not launched on both paths: {launches}")
     if plain_calls:
         raise AssertionError(f"plain version called {plain_calls} times on "
                              "the card's main path")
     return launches
+
+
+def traced_batch(torch, eng, prompts, n_tok) -> str:
+    """One more serving batch under torch.profiler: the device's busy time
+    (union of kernel intervals), the batch's host wall inside the trace,
+    the idle share, and the kernels with the most device time. A reading
+    only: a profiler that cannot trace on this machine is reported, not
+    fatal."""
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for r in [eng.submit(p, n) for p, n in zip(prompts, n_tok)]:
+                r.result(timeout=900)
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+        dev = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    except Exception as e:  # a measurement aid, not part of the port
+        return f"device busy share not measured ({type(e).__name__}: {e})"
+    if not dev:
+        return "device busy share not measured (no device events traced)"
+    busy, end = 0.0, None
+    per_name: dict = {}
+    for ev in sorted(dev, key=lambda ev: ev.time_range.start):
+        a, b = ev.time_range.start, ev.time_range.end
+        per_name[ev.name] = per_name.get(ev.name, 0.0) + (b - a)
+        if end is None or a > end:
+            busy += b - a
+        elif b > end:
+            busy += b - end
+        end = b if end is None else max(end, b)
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:5]
+    short = [n.replace("void ", "").replace("(anonymous namespace)::", "")
+             .split("(")[0][:72] for n, _ in top]
+    return (f"device busy {busy / 1e3:.1f} ms of {wall_us / 1e3:.1f} ms "
+            f"wall, idle share {100 * (1 - busy / wall_us):.1f}%; top "
+            "kernels by device ms: " + "; ".join(
+                f"{n} {t / 1e3:.1f}" for n, (_, t) in zip(short, top)))
 
 
 def phase_timing(torch, pa, launches):
