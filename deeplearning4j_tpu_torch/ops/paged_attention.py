@@ -33,7 +33,11 @@ from deeplearning4j_tpu_torch.ops.attention import (
     paged_gather,
 )
 
-TOLERANCE = {torch.float32: 2e-4, torch.bfloat16: 2e-2}  # atol = rtol
+# atol = rtol of the kernel against `paged_attention_plain` computed in f32
+# on the same inputs (bf16 inputs cast up exactly). The kernel keeps scores,
+# softmax state and accumulator in f32, so in bf16 it differs from that
+# reference by the output's rounding (at most 2^-9 relative) and little else.
+TOLERANCE = {torch.float32: 2e-4, torch.bfloat16: 4e-3}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -221,9 +221,9 @@ def _card():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_paged_attention_kernel_matches_plain(dtype):
     """MHA and GQA, decode (C=1) and chunk (C=64) widths, shuffled page
-    tables, an inactive lane; one launch counted per call. Tolerance
-    atol = rtol = 2e-4 (f32) / 2e-2 (bf16), the JAX package's own probe
-    tolerances."""
+    tables, an inactive lane; one launch counted per call. The reference
+    is the plain version in f32 on the same (cast up) inputs; tolerance
+    atol = rtol = 2e-4 (f32) / 4e-3 (bf16, the output's rounding)."""
     _card()
     dt = getattr(torch, dtype)
     tol = pa.TOLERANCE[dt]
@@ -246,11 +246,11 @@ def test_paged_attention_kernel_matches_plain(dtype):
         act = torch.from_numpy(active).cuda()
         launches = pa.paged_attention.launches
         got = pa.paged_attention(q_t, kp, vp, pt_t, pos_t, active=act)
-        ref = pa.paged_attention_plain(q_t, kp, vp, pt_t, pos_t, act)
+        ref = pa.paged_attention_plain(q_t.float(), kp.float(), vp.float(),
+                                       pt_t, pos_t, act)
         torch.cuda.synchronize()
         assert pa.paged_attention.launches == launches + 1
-        torch.testing.assert_close(got.float(), ref.float(), atol=tol,
-                                   rtol=tol)
+        torch.testing.assert_close(got.float(), ref, atol=tol, rtol=tol)
         if S > 1:
             assert (got[0] == 0).all()
 
