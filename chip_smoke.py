@@ -2,40 +2,64 @@
 """Smoke run of the PyTorch/CUDA port (`deeplearning4j_tpu_torch`) on one
 NVIDIA card.
 
-    python3 chip_smoke.py            # every phase, about 2-4 minutes on an H100
+    python3 chip_smoke.py            # every phase, about 3-5 minutes on an H100
 
 Phases, each of which makes the script exit non-zero when it fails:
 
 1. card: `nvidia-smi` name and power limit, torch and CUDA versions;
-2. build: every CUDA kernel of the serving path from `csrc/` with nvcc
-   (one process per source, started together), build seconds;
-3. kernels: each kernel against its plain PyTorch version on the card,
-   TF32 off, at the serving shapes (decode C=1 with S=8 slots, 8 heads,
-   head_dim 128, page 128, 34 pages per slot; prefill chunks C=256; GQA
-   with 2 KV heads; f32 and bf16; shuffled page tables, the trash page,
-   stale pages past the limit, an inactive lane); the reference is the
-   plain version computed in f32 on the same inputs (bf16 cast up), and
-   the tolerance atol = rtol = 2e-4 (f32) / 4e-3 (bf16, the output's
-   rounding);
-4. parity: a 2-layer, full-width (d_model 1024) f32 GPT; the
+2. build: every CUDA source of the port (`csrc/paged_attention.cu`,
+   `csrc/flash_attention.cu`) with nvcc, one process per source, started
+   together; build seconds and ptxas' registers and spills;
+3. paged kernels: the paged-attention kernel against its plain PyTorch
+   version on the card, TF32 off, at the serving shapes (decode C=1 with
+   S=8 slots, 8 heads, head_dim 128, page 128, 34 pages per slot;
+   prefill chunks C=256; GQA with 2 KV heads; f32 and bf16; shuffled page
+   tables, the trash page, stale pages past the limit, an inactive lane);
+   the reference is the plain version computed in f32 on the same inputs
+   (bf16 cast up), tolerance atol = rtol = 2e-4 (f32) / 4e-3 (bf16);
+4. flash kernels: forward (O and L), dQ and dK/dV against the plain
+   versions computed in f32 on the same inputs, f32 and bf16, causal and
+   not, D = 128 and 256, T = 512 and 4096, and a GQA call through
+   `multi_head_attention` with autograd against the same call on the
+   CPU; error bound `flash_attention.TOLERANCE` (1e-4 f32, 2e-2 bf16)
+   times the reference's largest magnitude;
+5. parity: a 2-layer, full-width (d_model 1024) f32 GPT; the
    `DecodeEngine`'s greedy tokens on the card must equal whole-batch
    `generate` on the card for the same prompts (one-shot and chunked
    prefill);
-5. serve: the full-width 8-layer bf16 GPT (vocab 256, d_model 1024,
-   8 heads, max_length 4224) behind `DecodeEngine(n_slots=8,
-   page_size=128, prefill_chunk=256, prompt_buckets=(128,))` answers
-   four 128-token and two 4096-token prompts with 32-128 output tokens,
-   three times over (median wall reported); the launch counts are set to
-   0 just before and read just after, and
-   the kernel must have launched at C=1 and C=256 with no call of the
-   plain version; one more batch under torch.profiler gives the device's
-   busy time and idle share;
-6. timing: CUDA events around each launch (a GPU sleep queued first so
+6. training parity: a 1-layer full-width f32 GPT (d_model 1024, 8 heads,
+   T=1024, attention_block_size=512, B=2) from one seed takes 3 Adam
+   steps on the card through the flash kernels and 3 on the CPU through
+   the plain versions: per-step losses within rtol 1e-5, parameters
+   within rtol 1e-5 + atol 3e-5 (a tenth of the learning rate: Adam moves
+   an element whose gradient is noise by up to lr whatever its size);
+   one step with remat=True equals one with remat=False (atol 1e-6);
+7. serve (main path 1): the full-width 8-layer bf16 GPT (vocab 256,
+   d_model 1024, 8 heads, max_length 4224) behind `DecodeEngine(n_slots=8,
+   page_size=128, prefill_chunk=256, prompt_buckets=(128,))` answers four
+   128-token and two 4096-token prompts with 32-128 output tokens, three
+   times over (median wall reported); the launch counts are set to 0 just
+   before and read just after, and the kernel must have launched at C=1
+   and C=256 with no call of the plain version; one more batch under
+   torch.profiler gives the device's busy time and idle share;
+8. train (main path 2): the full-width bf16 `gpt_long` network (vocab 256,
+   d_model 1024, 8 heads of 128, 8 layers, max_length 4096,
+   attention_block_size 512, Adam 3e-4, f32 masters) fed B=8 x T=4096
+   batches made with numpy from a seed through `MultiLayerNetwork.fit`:
+   1 warm-up step, then 5 timed steps (step ms, tokens/s, each loss, which
+   must be finite, peak device memory); the flash launch counts are set
+   to 0 just before the timed steps and read just after: 8 forward, 8 dQ
+   and 8 dK/dV launches per step and no call of a plain version; one more
+   step under torch.profiler gives the busy time, idle share and top
+   kernels;
+9. timing: CUDA events around each launch (a GPU sleep queued first so
    host overhead is not counted), L2 flushed before each, median of 20
-   after warm-up, for the kernel, its plain version and
-   `torch.nn.functional.scaled_dot_product_attention` on the gathered
-   dense view (the yardstick; the port never calls it), beside the
-   bound max(flops / 989 TFLOP/s, bytes / 3.35 TB/s) of this run's data.
+   after warm-up, for each kernel, its plain version and a library call
+   (`scaled_dot_product_attention` on the gathered dense view for paged
+   attention; SDPA's forward, and SDPA's forward+backward minus its
+   forward for the two backward kernels together; the yardsticks, which
+   the port never calls), beside the bound max(flops / 989 TFLOP/s,
+   bytes / 3.35 TB/s) of this run's data.
 
 Prints one JSON line of per-kernel numbers, then the card's
 `nvidia-smi` line, then as the last line
@@ -52,14 +76,24 @@ import sys
 import time
 import traceback
 
-KERNEL_SOURCES = ("paged_attention",)
+KERNEL_SOURCES = ("paged_attention", "flash_attention")
 REPLACES = "deeplearning4j_tpu/ops/pallas_paged_attention.py:77"
+FLASH_SOURCE = "deeplearning4j_tpu_torch/csrc/flash_attention.cu"
+FLASH_REPLACES = {
+    "flash_attention_fwd": "deeplearning4j_tpu/ops/pallas_attention.py:97",
+    "flash_attention_bwd_dq": "deeplearning4j_tpu/ops/pallas_attention.py:153",
+    "flash_attention_bwd_dkv":
+        "deeplearning4j_tpu/ops/pallas_attention.py:183"}
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12     # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 SERVE_REPEATS = 3          # the serving batch runs this many times
 SERVE = dict(vocab_size=256, d_model=1024, n_heads=8, n_layers=8,
              max_length=4224)
+# bench.py gpt_long (bench.py:563-568)
+TRAIN = dict(vocab_size=256, d_model=1024, n_heads=8, n_layers=8,
+             max_length=4096, attention_block_size=512, dropout=0.0)
+TRAIN_B, TRAIN_T, TRAIN_STEPS = 8, 4096, 5
 
 
 def log(*a):
@@ -324,12 +358,22 @@ def phase_serve(torch, M, pa, card):
 
 
 def traced_batch(torch, eng, prompts, n_tok) -> str:
-    """One more serving batch under torch.profiler: the device's busy time
-    (union of kernel intervals), the batch's host wall inside the trace,
-    the idle share, and the kernels with the most device time. The
-    profiler is a reading only: one that cannot trace on this machine is
-    reported, not fatal. The serving batch itself is part of the main path:
-    an engine failure or timeout propagates."""
+    """One more serving batch under torch.profiler (see `traced`). The
+    serving batch itself is part of the main path: an engine failure or
+    timeout propagates."""
+    def run():
+        for r in [eng.submit(p, n) for p, n in zip(prompts, n_tok)]:
+            r.result(timeout=900)
+
+    return traced(torch, run)
+
+
+def traced(torch, run) -> str:
+    """`run()` under torch.profiler: the device's busy time (union of
+    kernel intervals), the host wall inside the trace, the idle share and
+    the kernels with the most device time. The profiler is a reading
+    only: one that cannot trace on this machine is reported, not fatal;
+    a failure of `run` propagates."""
     from torch.profiler import ProfilerActivity, profile
 
     def not_measured(e):
@@ -342,8 +386,7 @@ def traced_batch(torch, eng, prompts, n_tok) -> str:
     except Exception as e:  # a measurement aid, not part of the port
         return not_measured(e)
     t0 = time.perf_counter()
-    for r in [eng.submit(p, n) for p, n in zip(prompts, n_tok)]:
-        r.result(timeout=900)
+    run()
     torch.cuda.synchronize()
     wall_us = 1e6 * (time.perf_counter() - t0)
     try:
@@ -364,7 +407,7 @@ def traced_batch(torch, eng, prompts, n_tok) -> str:
         elif b > end:
             busy += b - end
         end = b if end is None else max(end, b)
-    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:5]
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:6]
     short = [n.replace("void ", "").replace("(anonymous namespace)::", "")
              .split("(")[0][:72] for n, _ in top]
     return (f"device busy {busy / 1e3:.1f} ms of {wall_us / 1e3:.1f} ms "
@@ -434,6 +477,288 @@ def phase_timing(torch, pa, launches):
     return rows
 
 
+# ----------------------------------------------------- flash attention
+def flash_check(torch, fa, got, ref, dtype, what,
+                names=("O", "L", "dQ", "dK", "dV")):
+    """Max abs error of each output against its f32 reference, within
+    `fa.TOLERANCE[dtype]` times the reference's largest magnitude."""
+    errs = []
+    for name, g, r in zip(names, got, ref):
+        err = (g.float() - r.float()).abs().max().item()
+        scale = r.float().abs().max().item()
+        ok = bool(torch.isfinite(g.float()).all()) \
+            and err <= fa.TOLERANCE[dtype] * scale
+        errs.append((name, err, scale, ok))
+    log(f"  {what:<40} " + " ".join(f"{n} {e:.2e}/{sc:.1e}"
+                                    for n, e, sc, _ in errs)
+        + (" ok" if all(o for *_, o in errs) else " FAIL"))
+    if not all(o for *_, o in errs):
+        raise AssertionError(f"flash kernels disagree with plain: {what}")
+    return max(e for _, e, _, _ in errs)
+
+
+def flash_inputs(torch, B, T, H, D, dtype, seed):
+    """q, k, v and dO, (B, T, H, D), from a seed."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn((B, T, H, D), generator=g, device="cuda").to(dtype)
+            for _ in range(4)]
+
+
+def flash_run(fa, q, k, v, do, causal):
+    """The three kernels as the autograd function calls them."""
+    o, lse = fa.flash_forward(q, k, v, causal, None, with_lse=True)
+    dsum = fa._dsum(o, do)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, dsum, causal, None)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, dsum, causal, None)
+    return o, lse, dq, dk, dv
+
+
+def flash_plain_f32(fa, q, k, v, do, causal):
+    """The plain versions in f32 on the same (cast up) inputs."""
+    q, k, v, do = (t.float() for t in (q, k, v, do))
+    o, lse = fa.flash_attention_plain_fwd(q, k, v, causal)
+    return (o, lse) + fa.flash_attention_plain_bwd(q, k, v, o, lse, do,
+                                                   causal)
+
+
+def phase_flash(torch, fa):
+    """Flash kernels against their plain versions, and GQA through
+    `multi_head_attention` (flash route, autograd) against the CPU."""
+    from deeplearning4j_tpu_torch.ops.attention import multi_head_attention
+
+    errs = {}
+    cases = [(B, T, H, D, dt, causal)
+             for dt in (torch.float32, torch.bfloat16)
+             for D in (128, 256) for causal in (False, True)
+             for (B, T, H) in ((2, 512, 2),)]
+    cases += [(1, 4096, 2, 128, dt, True)
+              for dt in (torch.float32, torch.bfloat16)]
+    cases += [(1, 4096, 2, 256, torch.bfloat16, False)]
+    for i, (B, T, H, D, dt, causal) in enumerate(cases):
+        q, k, v, do = flash_inputs(torch, B, T, H, D, dt, seed=40 + i)
+        got = flash_run(fa, q, k, v, do, causal)
+        ref = flash_plain_f32(fa, q, k, v, do, causal)
+        torch.cuda.synchronize()
+        what = (f"B={B} T={T} H={H} D={D} {str(dt)[6:]} "
+                f"{'causal' if causal else 'full'}")
+        errs[dt] = max(errs.get(dt, 0.0), flash_check(torch, fa, got, ref,
+                                                      dt, what))
+    for dt in (torch.float32, torch.bfloat16):
+        g = torch.Generator(device="cuda").manual_seed(77)
+        q = torch.randn((1, 1024, 8, 128), generator=g, device="cuda")
+        k, v = (torch.randn((1, 1024, 2, 128), generator=g, device="cuda")
+                for _ in range(2))
+        do = torch.randn((1, 1024, 8, 128), generator=g, device="cuda")
+        outs = []
+        for dev, cast in (("cuda", dt), ("cpu", torch.float32)):
+            leaves = [t.detach().to(dev, cast).requires_grad_()
+                      for t in (q, k, v)]
+            fa.reset_counts()
+            o = multi_head_attention(*leaves, causal=True, block_size=512)
+            o.backward(do.to(dev, cast))
+            counts = (fa.flash_forward.launches, fa.flash_bwd_dq.launches,
+                      fa.flash_bwd_dkv.launches,
+                      fa.flash_attention_plain_fwd.calls)
+            outs.append([o.detach().cpu()] + [t.grad.cpu() for t in leaves])
+            if dev == "cuda" and counts != (1, 1, 1, 0):
+                raise AssertionError(f"GQA flash route launches {counts}")
+        flash_check(torch, fa, outs[0], outs[1], dt,
+                    f"GQA H=8 Hkv=2 T=1024 {str(dt)[6:]} via MHA",
+                    names=("O", "dQ", "dK", "dV"))
+    return errs
+
+
+# ------------------------------------------------------------- training
+def gpt_batches(np, vocab, B, T, n, seed):
+    ids = np.random.default_rng(seed).integers(0, vocab, (n, B, T + 1))
+    return [(ids[i, :, :-1].astype(np.int32), ids[i, :, 1:].astype(np.int32))
+            for i in range(n)]
+
+
+def phase_train_parity(torch, M):
+    """f32, 1 layer at full width: 3 Adam steps on the card (kernels)
+    against 3 on the CPU (plain versions), from one seed; then one
+    remat=True step against one remat=False step on the card."""
+    import numpy as np
+
+    kw = dict(vocab_size=256, d_model=1024, n_heads=8, n_layers=1,
+              max_length=1024, attention_block_size=512, seed=5)
+    batches = gpt_batches(np, 256, 2, 1024, 3, seed=5)
+    cpu = M["MultiLayerNetwork"](M["gpt_configuration"](**kw), device="cpu")
+    cpu.init()
+    card = M["MultiLayerNetwork"](M["gpt_configuration"](**kw),
+                                  device="cuda")
+    card.set_param_tree([{k: v.clone() for k, v in p.items()}
+                         for p in cpu._params])
+    fa = M["fa"]
+    fa.reset_counts()
+    losses = {"cuda": [], "cpu": []}
+    for x, y in batches:
+        for net in (card, cpu):
+            net.fit(M["DataSet"](x, y))
+            losses[net.device.type].append(net.score_value)
+    counts = (fa.flash_forward.launches, fa.flash_bwd_dq.launches,
+              fa.flash_bwd_dkv.launches, fa.flash_attention_plain_fwd.calls,
+              fa.flash_attention_plain_bwd.calls)
+    log(f"  losses card {losses['cuda']}")
+    log(f"         cpu  {losses['cpu']}")
+    log(f"  launches (fwd, dQ, dK/dV, plain fwd, plain bwd): {counts}")
+    if counts != (3, 3, 3, 3, 3):
+        raise AssertionError(f"expected 3 kernel launches on the card and 3 "
+                             f"plain calls on the CPU, got {counts}")
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)
+    worst = 0.0
+    for a, b in zip(card._params, cpu._params):
+        for k in a:
+            d = (a[k].cpu() - b[k]).abs()
+            worst = max(worst, d.max().item())
+            if not bool((d <= 3e-5 + 1e-5 * b[k].abs()).all()):
+                raise AssertionError(f"param {k} differs card vs CPU by "
+                                     f"{d.max().item()}")
+    log(f"  params after 3 steps: max abs diff card vs CPU {worst:.3e} "
+        "(rtol 1e-5 + atol 3e-5)")
+    nets = []
+    for remat in (False, True):
+        net = M["MultiLayerNetwork"](M["gpt_configuration"](
+            **{**kw, "remat": remat}), device="cuda")
+        net.set_param_tree([{k: v.clone() for k, v in p.items()}
+                            for p in cpu._params])
+        net.fit(M["DataSet"](*batches[0]))
+        nets.append(net)
+    d = (nets[0].params() - nets[1].params()).abs().max().item()
+    log(f"  remat step: loss {nets[0].score_value} vs {nets[1].score_value}"
+        f", max param diff {d:.3e} (atol 1e-6)")
+    if abs(nets[0].score_value - nets[1].score_value) > 1e-6 * abs(
+            nets[0].score_value) or d > 1e-6:
+        raise AssertionError("remat=True differs from remat=False")
+
+
+def phase_train(torch, M, card):
+    """Main path 2: full-width bf16 gpt_long training steps via fit."""
+    import numpy as np
+
+    fa = M["fa"]
+    conf = M["gpt_configuration"](**TRAIN, seed=13)
+    net = M["MultiLayerNetwork"](conf, dtype=torch.float32,
+                                 compute_dtype=torch.bfloat16, device="cuda")
+    net.init()
+    batches = [M["DataSet"](x, y) for x, y in gpt_batches(
+        np, TRAIN["vocab_size"], TRAIN_B, TRAIN_T, TRAIN_STEPS + 2, seed=13)]
+    net.fit(batches[0])  # warm-up: cuBLAS handles, allocator, build
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_counts()
+    step_ms, losses = [], []
+    for ds in batches[1:TRAIN_STEPS + 1]:
+        t0 = time.perf_counter()
+        net.fit(ds)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(net.score_value)
+    counts = {"fwd": fa.flash_forward.launches,
+              "dq": fa.flash_bwd_dq.launches,
+              "dkv": fa.flash_bwd_dkv.launches}
+    plain = (fa.flash_attention_plain_fwd.calls,
+             fa.flash_attention_plain_bwd.calls)
+    peak = torch.cuda.max_memory_allocated()
+    trace = traced(torch, lambda: net.fit(batches[-1]))
+    med = sorted(step_ms)[len(step_ms) // 2]
+    tokens = TRAIN_B * TRAIN_T
+    log(f"  {TRAIN_STEPS} steps of B={TRAIN_B} x T={TRAIN_T}: step ms "
+        f"{[round(t, 2) for t in step_ms]}; median {med:.2f} ms, "
+        f"{tokens / med * 1e3:.1f} train tokens/s [{card}]")
+    log(f"  losses {losses}; peak device memory "
+        f"{peak / 2**30:.2f} GiB ({peak} bytes)")
+    log(f"  flash launches over the timed steps {counts}, plain calls "
+        f"(fwd, bwd) {plain}")
+    log(f"  traced step (torch.profiler, not in the step times): {trace}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    want = TRAIN["n_layers"] * TRAIN_STEPS
+    if any(c != want for c in counts.values()) or any(plain):
+        raise AssertionError(f"expected {want} launches of each flash kernel "
+                             f"and no plain call, got {counts}, {plain}")
+    del net
+    torch.cuda.empty_cache()
+    return counts
+
+
+def flash_work(B, H, T, D, kind):
+    """FLOPs and bytes of one causal launch at (B, H, T, D) bf16: the
+    T(T+1)/2 visible (query, key) pairs per head, 2*D flops per pair and
+    product (2 products forward, 3 for dQ, 4 for dK/dV); each input read
+    once and each output written once (L and dsum f32)."""
+    pairs = B * H * T * (T + 1) // 2
+    slab = B * H * T * D * 2
+    stats = B * H * T * 4
+    if kind == "fwd":
+        return 2 * 2 * D * pairs, 3 * slab + slab + stats
+    if kind == "dq":
+        return 3 * 2 * D * pairs, 4 * slab + 2 * stats + slab
+    return 4 * 2 * D * pairs, 4 * slab + 2 * stats + 2 * slab
+
+
+def phase_flash_timing(torch, fa, counts):
+    """Flash kernels, plain versions and SDPA at the training shape."""
+    import torch.nn.functional as F
+
+    B, H, T, D = TRAIN_B, TRAIN["n_heads"], TRAIN_T, \
+        TRAIN["d_model"] // TRAIN["n_heads"]
+    q, k, v, do = flash_inputs(torch, B, T, H, D, torch.bfloat16, seed=9)
+    o, lse, dq, dk, dv = flash_run(fa, q, k, v, do, True)
+    dsum = fa._dsum(o, do)
+    ref = flash_plain_f32(fa, q, k, v, do, True)
+    torch.cuda.synchronize()
+    err = flash_check(torch, fa, (o, lse, dq, dk, dv), ref, torch.bfloat16,
+                      f"B={B} T={T} H={H} D={D} bf16 causal (timed shape)")
+    del ref
+    torch.cuda.empty_cache()
+    ms = {"fwd": time_ms(torch, lambda: fa.flash_forward(q, k, v, True, None,
+                                                         with_lse=True)),
+          "dq": time_ms(torch, lambda: fa.flash_bwd_dq(q, k, v, do, lse, dsum,
+                                                       True, None)),
+          "dkv": time_ms(torch, lambda: fa.flash_bwd_dkv(q, k, v, do, lse,
+                                                         dsum, True, None))}
+    plain_fwd = time_ms(torch, lambda: fa.flash_attention_plain_fwd(
+        q, k, v, True), iters=10)
+    plain_bwd = time_ms(torch, lambda: fa.flash_attention_plain_bwd(
+        q, k, v, o, lse, do, True), iters=10)
+    torch.cuda.empty_cache()
+    qt, kt, vt, dot = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True))
+    leaves = [t.clone().requires_grad_() for t in (qt, kt, vt)]
+
+    def sdpa_fwd_bwd():
+        F.scaled_dot_product_attention(*leaves, is_causal=True).backward(dot)
+
+    lib_bwd = time_ms(torch, sdpa_fwd_bwd) - lib_fwd
+    rows = []
+    for kind, name in (("fwd", "flash_attention_fwd"),
+                       ("dq", "flash_attention_bwd_dq"),
+                       ("dkv", "flash_attention_bwd_dkv")):
+        flops, nbytes = flash_work(B, H, T, D, kind)
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+        b_ms = 1e3 * max(t_ops, t_bytes)
+        row = {"name": name, "route": "cuda", "source": FLASH_SOURCE,
+               "replaces": FLASH_REPLACES[name],
+               "launches": int(counts[kind]), "max_abs_err": err,
+               "ms": ms[kind],
+               "plain_ms": plain_fwd if kind == "fwd" else plain_bwd,
+               "bound_ms": b_ms,
+               "bound_by": "operations" if t_ops > t_bytes else "bytes",
+               "library_ms": lib_fwd if kind == "fwd" else lib_bwd}
+        what = ("plain: the whole plain backward; library: SDPA fwd+bwd "
+                "minus fwd, both backward kernels together") \
+            if kind != "fwd" else "library: SDPA causal forward"
+        log(f"  {name}: kernel {ms[kind]:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({row['bound_by']}), "
+            f"{flops / ms[kind] / 1e9:.1f} TFLOP/s achieved ({what})")
+        rows.append(row)
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -441,43 +766,54 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
     from deeplearning4j_tpu_torch.models.transformer import (
         generate,
         gpt_configuration,
     )
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
     from deeplearning4j_tpu_torch.ops import cuda_build
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
     from deeplearning4j_tpu_torch.ops import paged_attention as pa
     from deeplearning4j_tpu_torch.serving.decode_engine import DecodeEngine
 
     M = dict(generate=generate, gpt_configuration=gpt_configuration,
-             MultiLayerNetwork=MultiLayerNetwork, DecodeEngine=DecodeEngine)
+             MultiLayerNetwork=MultiLayerNetwork, DecodeEngine=DecodeEngine,
+             DataSet=DataSet, fa=fa)
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     card = nvidia_smi_line()
-    log(f"[1/6] card: {card}; {torch.cuda.get_device_name(0)}; torch "
+    log(f"[1/9] card: {card}; {torch.cuda.get_device_name(0)}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}; "
         f"{torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     built = cuda_build.build(KERNEL_SOURCES)
-    log(f"[2/6] build: {time.perf_counter() - t0:.1f} s for "
+    log(f"[2/9] build: {time.perf_counter() - t0:.1f} s for "
         f"{len(built)} source(s)")
     for name, res in built.items():
         for line in res.log.splitlines():
             if "ptxas info" in line and ("Used" in line or "spill" in line):
                 log(f"  {name}: {line.strip()}")
 
-    log("[3/6] kernels against their plain versions (TF32 off)")
+    log("[3/9] paged kernels against their plain versions (TF32 off)")
     phase_kernels(torch, pa)
-    log("[4/6] f32 DecodeEngine vs generate, 2 layers, d_model 1024")
+    log("[4/9] flash kernels against their plain versions (TF32 off)")
+    phase_flash(torch, fa)
+    log("[5/9] f32 DecodeEngine vs generate, 2 layers, d_model 1024")
     phase_parity(torch, M)
-    log("[5/6] serving the 8-layer bf16 GPT at full width")
+    log("[6/9] f32 training, card (kernels) vs CPU (plain), 1 layer, "
+        "d_model 1024, T=1024")
+    phase_train_parity(torch, M)
+    log("[7/9] serving the 8-layer bf16 GPT at full width")
     launches = phase_serve(torch, M, pa, card)
-    log("[6/6] timing at the serving shapes (bf16)")
+    log("[8/9] training the 8-layer bf16 gpt_long GPT at full width")
+    flash_counts = phase_train(torch, M, card)
+    log("[9/9] timing at the serving and training shapes (bf16)")
     rows = phase_timing(torch, pa, launches)
+    rows += phase_flash_timing(torch, fa, flash_counts)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -1,12 +1,16 @@
-"""Layer configurations with their parameter init and forward
+"""Layer configurations with their parameter init, forward and loss
 (counterpart of `deeplearning4j_tpu/nn/conf/layers.py`, for the layers
-of the GPT serving path).
+of the GPT path).
 
 Each config is a dataclass whose fields, field order and JSON encoding
 are the JAX package's, so a configuration written by either package
 parses in the other and re-serializes equal. `init_params` draws from an
-explicit `torch.Generator`; `forward` is inference only (no dropout, no
-layer state).
+explicit `torch.Generator`. `forward(params, x, train=, rng=, mask=)`
+serves inference and training; none of these layers carries layer
+state. Dropout is inverted dropout drawn from a `torch.Generator` seeded
+from `rng`, a tuple of ints (the configuration's seed, the iteration,
+the layer index and the dropout site): deterministic per seed, never
+equal to the JAX package's threefry draws.
 
 Layout conventions are the JAX package's: FF activations (B, F), RNN
 activations (B, T, F).
@@ -15,8 +19,9 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -35,6 +40,28 @@ from deeplearning4j_tpu_torch.ops.kernel_dispatch import stat_dtype
 from deeplearning4j_tpu_torch.ops.losses import LossFunction
 
 Params = Dict[str, torch.Tensor]
+Rng = Optional[Tuple[int, ...]]
+
+
+def fold_in(rng: Rng, i: int) -> Rng:
+    """A new dropout key derived from `rng` and `i` (None stays None)."""
+    return None if rng is None else tuple(rng) + (int(i),)
+
+
+def _generator(rng: Tuple[int, ...], device) -> torch.Generator:
+    seed = int(np.random.SeedSequence(list(rng)).generate_state(
+        1, np.uint64)[0])
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def dropout(x: torch.Tensor, p: float, rng: Tuple[int, ...]) -> torch.Tensor:
+    """Inverted dropout: zero each element with probability p, scale the
+    kept ones by 1 / (1 - p), the mask drawn from `rng`."""
+    keep = 1.0 - p
+    m = torch.rand(x.shape, generator=_generator(rng, x.device),
+                   device=x.device) < keep
+    return torch.where(m, x / keep, torch.zeros((), dtype=x.dtype,
+                                                device=x.device))
 
 # ---------------------------------------------------------------------------
 # serde registry
@@ -134,8 +161,23 @@ class Layer:
                     dtype=torch.float32) -> Params:
         return {}
 
-    def forward(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, params: Params, x: torch.Tensor, *, train=False,
+                rng: Rng = None, mask=None) -> torch.Tensor:
         raise NotImplementedError
+
+    def param_flags(self, name: str) -> Dict[str, bool]:
+        """is_bias: bias learning rate and bias l1/l2 apply; regularizable:
+        l1/l2 apply."""
+        is_bias = name in ("b", "vb", "beta")
+        return {"is_bias": is_bias,
+                "regularizable": not is_bias and name != "gamma"}
+
+    def _maybe_dropout(self, x, train, rng: Rng):
+        """Input dropout at train time (DL4J's inverted dropout)."""
+        p = self.dropout or 0.0
+        if not train or p <= 0.0 or rng is None:
+            return x
+        return dropout(x, p, rng)
 
     def _act(self):
         return activation_fn(self.activation or Activation.IDENTITY)
@@ -179,20 +221,45 @@ class DenseLayer(FeedForwardLayer):
                        dtype=dtype, device=gen.device)
         return {"W": W, "b": b}
 
-    def pre_output(self, params, x):
+    def pre_output(self, params, x, *, train=False, rng: Rng = None):
+        if self.use_drop_connect and train and (self.dropout or 0.0) > 0 \
+                and rng is not None:
+            raise NotImplementedError(
+                "DropConnect (use_drop_connect=True with dropout > 0) is not "
+                "ported yet (ROADMAP queue A9: the rest of nn/)")
+        x = self._maybe_dropout(x, train, rng)
         return x @ params["W"] + params["b"]
 
-    def forward(self, params, x):
-        return self._act()(self.pre_output(params, x))
+    def forward(self, params, x, *, train=False, rng: Rng = None, mask=None):
+        return self._act()(self.pre_output(params, x, train=train, rng=rng))
 
 
 @register_layer
 @dataclass
 class OutputLayer(DenseLayer):
-    """Dense + loss head; the loss is configuration only here."""
+    """Dense + loss head."""
 
     TYPE = "output"
     loss: LossFunction = LossFunction.MCXENT
+
+    def loss_score(self, params, x, labels, *, train=False, rng: Rng = None,
+                   mask=None):
+        """Mean loss over (unmasked) rows; time-distributed (B, T, F)
+        outputs are flattened to B*T rows."""
+        from deeplearning4j_tpu_torch.ops.losses import loss_score
+
+        pre = self.pre_output(params, x, train=train, rng=rng)
+        if pre.ndim == 3:
+            B, T, F_ = pre.shape
+            pre = pre.reshape(B * T, F_)
+            # sparse int labels are (B, T); dense targets keep a feature axis
+            labels = (labels.reshape(B * T)
+                      if labels.ndim == 2 and not labels.is_floating_point()
+                      else labels.reshape(B * T, -1))
+            if mask is not None:
+                mask = mask.reshape(B * T)
+        return loss_score(self.loss, self.activation or Activation.IDENTITY,
+                          labels, pre, mask)
 
 
 @register_layer
@@ -235,7 +302,7 @@ class LayerNormalization(FeedForwardLayer):
         return {"gamma": torch.ones((nf,), dtype=dtype, device=gen.device),
                 "beta": torch.zeros((nf,), dtype=dtype, device=gen.device)}
 
-    def forward(self, params, x):
+    def forward(self, params, x, *, train=False, rng: Rng = None, mask=None):
         return layer_norm(x, params["gamma"], params["beta"], self.eps)
 
 
@@ -279,7 +346,7 @@ class TokenEmbedding(FeedForwardLayer):
                                  device=gen.device)
         return {"W": tok, "P": pos}
 
-    def forward(self, params, x):
+    def forward(self, params, x, *, train=False, rng: Rng = None, mask=None):
         idx = x.long()
         if idx.ndim == 3:  # (B, T, 1) convenience
             idx = idx[..., 0]
@@ -290,14 +357,17 @@ class TokenEmbedding(FeedForwardLayer):
         y = params["W"][idx]
         if self.positional:
             y = y + params["P"][:T]
-        return y
+        return self._maybe_dropout(y, train, rng)
+
+    def param_flags(self, name):
+        # positional table: neither a bias nor weight-decayed
+        if name == "P":
+            return {"is_bias": False, "regularizable": False}
+        return super().param_flags(name)
 
 
 _NOT_PORTED_MOE = ("TransformerBlock(moe_experts>0) is not ported yet "
                    "(ROADMAP queue A9: MoELayer with ops/aux_loss)")
-_NOT_PORTED_REMAT = ("TransformerBlock(remat=True) is not ported yet "
-                     "(ROADMAP: GPT training slice; remat only matters for "
-                     "the backward pass)")
 
 
 @register_layer
@@ -358,8 +428,6 @@ class TransformerBlock(FeedForwardLayer):
     def _check_ported(self):
         if self.moe_experts > 0:
             raise NotImplementedError(_NOT_PORTED_MOE)
-        if self.remat:
-            raise NotImplementedError(_NOT_PORTED_REMAT)
 
     def output_type(self, it: InputType) -> InputType:
         return it
@@ -391,12 +459,26 @@ class TransformerBlock(FeedForwardLayer):
         params["b2"] = const(d, 0.0)
         return params
 
-    def forward(self, params, x):
+    def forward(self, params, x, *, train=False, rng: Rng = None,
+                mask=None):
+        """x + MHA(LN1(x)), then + FFN(LN2(x)); `mask` (B, T) is the key
+        mask. With `remat` the training forward is recomputed in the
+        backward (`torch.utils.checkpoint`, non-reentrant) instead of
+        keeping its activations; dropout masks come from `rng`, so the
+        recomputation draws the same ones."""
+        self._check_ported()
+        if self.remat and train and torch.is_grad_enabled():
+            from torch.utils.checkpoint import checkpoint
+
+            return checkpoint(self._block_body, params, x, rng, mask, train,
+                              use_reentrant=False)
+        return self._block_body(params, x, rng, mask, train)
+
+    def _block_body(self, params, x, rng, mask, train):
         from deeplearning4j_tpu_torch.ops.attention import (
             multi_head_attention,
         )
 
-        self._check_ported()
         B, T, d = x.shape
         H, Hkv = self.n_heads, self._kv_heads
         hd = d // H
@@ -417,9 +499,17 @@ class TransformerBlock(FeedForwardLayer):
             q = rope_rotate(q, cos, sin)
             k = rope_rotate(k, cos, sin)
         att = multi_head_attention(q, k, v, causal=self.causal,
-                                   block_size=self.block_size)
-        x = x + (att.reshape(B, T, d) @ params["Wo"] + params["bo"])
-        return x + ffn(self, params, x)
+                                   key_mask=mask, block_size=self.block_size)
+        att = att.reshape(B, T, d) @ params["Wo"] + params["bo"]
+        x = x + self._maybe_dropout(att, train, rng)
+        return x + self._maybe_dropout(ffn(self, params, x), train,
+                                       fold_in(rng, 1))
+
+    def param_flags(self, name):
+        is_bias = name.startswith("b") or name.endswith("_b")
+        norm_scale = name.endswith("_g")
+        return {"is_bias": is_bias,
+                "regularizable": not is_bias and not norm_scale}
 
 
 def ffn(layer: TransformerBlock, p: Params, x: torch.Tensor) -> torch.Tensor:

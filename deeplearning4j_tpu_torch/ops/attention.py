@@ -6,13 +6,19 @@ attention; the decode layouts K (B, Hkv, D, L) and V (B, Hkv, L, D) for
 cached attention; the paged pools K (P+1, Hkv, D, page) and
 V (P+1, Hkv, page, D), page 0 the trash page, for paged attention.
 
-The `*_auto` functions are the serving path's entry to paged attention.
-They dispatch on the tensors' device, with no probe and no fallback: a
-CPU tensor runs the plain PyTorch version, a CUDA tensor launches the
-hand-written kernel (`ops/paged_attention.py`) or raises.
+`multi_head_attention` is the layers' entry to whole-sequence attention
+and decides its route from shape and mask alone, as the JAX package
+does: flash attention (`ops/flash_attention.py`) for unmasked sequences
+longer than `block_size` that its kernels take, blockwise attention for
+the other long sequences, full attention otherwise. The `*_auto`
+functions are the serving path's entry to paged attention. Both dispatch
+on the tensors' device, with no probe and no fallback: a CPU tensor runs
+the plain PyTorch version, a CUDA tensor launches the hand-written
+kernel or raises.
 """
 from __future__ import annotations
 
+from contextlib import contextmanager
 from typing import Optional
 
 import torch
@@ -72,20 +78,146 @@ def full_attention_grouped(q, k, v, bias: Optional[torch.Tensor] = None,
     return att.reshape(B, Tq, H, D)
 
 
-def multi_head_attention(q, k, v, *, causal=False,
+def mask_bias(key_mask: torch.Tensor) -> torch.Tensor:
+    """(B, Tk) 1=valid key mask -> additive (B, 1, 1, Tk) attention bias."""
+    keep = key_mask[:, None, None, :] > 0
+    return torch.where(keep, 0.0, NEG_INF).to(
+        key_mask.dtype if key_mask.is_floating_point() else torch.float32)
+
+
+def attention_block_accum(carry, q, k, v, bias: Optional[torch.Tensor]):
+    """One online-softmax step against a KV block. carry = (o, l, m): the
+    running unnormalised output (B, Tq, H, D), softmax denominator
+    (B, H, Tq) and row max (B, H, Tq); the attention output is o / l."""
+    o, l, m = carry
+    d = q.shape[-1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) / _sqrt_d(d, q.dtype)
+    if bias is not None:
+        s = s + bias.to(s.dtype)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    corr = torch.exp(m - m_new)
+    p = torch.exp(s - m_new[..., None])
+    # rows masked so far sit at m ~ NEG_INF: zero their weights so l stays
+    # 0 and attention_finalize maps them to 0
+    p = p.masked_fill(s <= NEG_INF / 2, 0.0)
+    l_new = l * corr + p.sum(dim=-1)
+    o_new = o * corr.transpose(1, 2)[..., None] \
+        + torch.einsum("bhqk,bkhd->bqhd", p, v)
+    return o_new, l_new, m_new
+
+
+def _accum_init(q):
+    B, Tq, H, D = q.shape
+    o = torch.zeros((B, Tq, H, D), dtype=q.dtype, device=q.device)
+    l = torch.zeros((B, H, Tq), dtype=q.dtype, device=q.device)
+    m = torch.full((B, H, Tq), NEG_INF, dtype=q.dtype, device=q.device)
+    return o, l, m
+
+
+def attention_finalize(o, l):
+    """o / l with fully-masked rows (l == 0) mapped to 0, not NaN."""
+    l_t = l.transpose(1, 2)[..., None]
+    return torch.where(l_t > 0, o / torch.where(l_t > 0, l_t, 1.0), 0.0)
+
+
+def blockwise_attention(q, k, v, *, causal: bool = False,
+                        key_mask: Optional[torch.Tensor] = None,
+                        block_size: int = 512) -> torch.Tensor:
+    """Exact attention by the online-softmax recurrence over KV blocks of
+    `block_size` (a Python loop where the JAX package scans): scores
+    O(Tq * block) at a time. q/k/v (B, T, H, D); key_mask (B, Tk), 1 =
+    valid. Tq != Tk aligns the queries to the end of the keys."""
+    B, Tk, H, D = k.shape
+    Tq = q.shape[1]
+    blk = min(block_size, Tk)
+    if key_mask is None:
+        key_mask = torch.ones((B, Tk), dtype=q.dtype, device=q.device)
+    if Tk % blk:  # pad keys to a block multiple; padded keys masked off
+        pad = blk - Tk % blk
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        key_mask = torch.nn.functional.pad(key_mask, (0, pad))
+    iq = torch.arange(Tq, device=q.device)
+    causal_off = Tk - Tq  # the unpadded Tk, as full_attention
+    carry = _accum_init(q)
+    for j in range(k.shape[1] // blk):
+        sl = slice(j * blk, (j + 1) * blk)
+        bias = mask_bias(key_mask[:, sl])
+        if causal:
+            ik = j * blk + torch.arange(blk, device=q.device)
+            keep = ik[None, :] <= iq[:, None] + causal_off
+            bias = bias + torch.where(keep, 0.0, NEG_INF).to(bias.dtype)
+        carry = attention_block_accum(carry, q, k[:, sl], v[:, sl], bias)
+    o, l, _ = carry
+    return attention_finalize(o, l)
+
+
+_SEQ_PARALLEL: list = []
+
+
+@contextmanager
+def sequence_parallel_scope(mesh, axis_name: str = "seq",
+                            batch_axis: Optional[str] = None):
+    """Ring attention over a sequence-sharded mesh: not ported. Inside
+    this scope `multi_head_attention` raises (ROADMAP queue A12)."""
+    _SEQ_PARALLEL.append((mesh, axis_name, batch_axis))
+    try:
+        yield
+    finally:
+        _SEQ_PARALLEL.pop()
+
+
+def _flash_route(q, k, causal: bool) -> bool:
+    """The JAX package's shape and dtype test for the flash kernels:
+    T a multiple of 128 (the smallest tile of its ladder), D % 128 == 0,
+    f32 or bf16, causal only with Tq == Tk."""
+    Tq, D = q.shape[1], q.shape[3]
+    Tk = k.shape[1]
+    return (Tq % 128 == 0 and Tk % 128 == 0 and D % 128 == 0
+            and q.dtype in (torch.float32, torch.bfloat16)
+            and (not causal or Tq == Tk))
+
+
+def multi_head_attention(q, k, v, *, causal=False, key_mask=None,
                          block_size: Optional[int] = None):
-    """Whole-sequence attention for the layer forward, unmasked. The port
-    carries the full-attention branch of the JAX dispatch; sequences
-    longer than `block_size` go to the flash-attention kernel in the JAX
-    package, which arrives with the training slice."""
-    if block_size is not None and k.shape[1] > block_size:
+    """Whole-sequence attention for the layer forward. Long sequences
+    (longer than `block_size`) with no key mask go to `flash_attention`
+    when its shape test passes (the kernels on a CUDA tensor, the plain
+    version on a CPU tensor), other long sequences to
+    `blockwise_attention`, short ones to full attention.
+
+    GQA: `k`/`v` may carry fewer heads than `q`. Full attention groups
+    them; the flash and blockwise routes widen them with
+    `repeat_interleave`, and autograd sums dK/dV over each group."""
+    H, Hkv = q.shape[2], k.shape[2]
+    if _SEQ_PARALLEL:
         raise NotImplementedError(
-            f"sequence length {k.shape[1]} > block_size {block_size} needs "
-            "the flash-attention kernel, which is not ported yet "
-            "(ROADMAP: GPT training slice, kernel rows 2-4)")
-    if k.shape[2] != q.shape[2]:
-        return full_attention_grouped(q, k, v, causal=causal)
-    return full_attention(q, k, v, causal=causal)
+            "sequence-parallel (ring) attention is not ported yet "
+            "(ROADMAP queue A12: parallel training)")
+
+    def widened():
+        if Hkv == H:
+            return k, v
+        g = H // Hkv
+        return (torch.repeat_interleave(k, g, dim=2),
+                torch.repeat_interleave(v, g, dim=2))
+
+    long_seq = block_size is not None and k.shape[1] > block_size
+    if long_seq and key_mask is None and _flash_route(q, k, causal):
+        from deeplearning4j_tpu_torch.ops.flash_attention import (
+            flash_attention,
+        )
+
+        kf, vf = widened()
+        return flash_attention(q, kf, vf, causal=causal)
+    if long_seq:
+        kf, vf = widened()
+        return blockwise_attention(q, kf, vf, causal=causal,
+                                   key_mask=key_mask, block_size=block_size)
+    bias = None if key_mask is None else mask_bias(key_mask)
+    if Hkv != H:
+        return full_attention_grouped(q, k, v, bias=bias, causal=causal)
+    return full_attention(q, k, v, bias=bias, causal=causal)
 
 
 def cached_attention_step(q, k_cache, v_cache, pos) -> torch.Tensor:

@@ -1,12 +1,14 @@
-"""Checkpoint reading (counterpart of the read side of
-`deeplearning4j_tpu/util/serialization.py`).
+"""Checkpoint zips (counterpart of `deeplearning4j_tpu/util/serialization.py`).
 
-A checkpoint written by the JAX package is a zip holding
-`configuration.json`, `coefficients.npy` (the flat parameter vector in
-`ravel_pytree` order: layer order, then sorted dict keys, each leaf in C
-order) and `meta.json` (dtype, model type). Updater and layer state are
-training-side and are not read here. The write side comes with the
-training slice.
+The zip holds `configuration.json`, `coefficients.npy` (the flat
+parameter vector in `ravel_pytree` order: layer order, then sorted dict
+keys, each leaf in C order), `updaterState.npy` (the optimizer state in
+the same order: layer, then sorted parameter name, then sorted state
+name), `layerState.npy` (empty: no ported layer carries state) and
+`meta.json` (iteration, epoch, dtype, model type). Either package reads
+what the other writes. `write_model` commits through
+`checkpoint_store.atomic_write`; zip-level damage on restore raises the
+typed `CheckpointCorruptError`.
 """
 from __future__ import annotations
 
@@ -21,17 +23,23 @@ from typing import Dict, List, Union
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.util.checkpoint_store import (
+    CheckpointCorruptError,
+    atomic_write,
+)
+
 CONFIG_JSON = "configuration.json"
 COEFFICIENTS = "coefficients.npy"
+UPDATER_STATE = "updaterState.npy"
+LAYER_STATE = "layerState.npy"
 META_JSON = "meta.json"
 
 _ZIP_DAMAGE = (zipfile.BadZipFile, KeyError, EOFError, zlib.error,
                struct.error)
 
-
-class CheckpointCorruptError(RuntimeError):
-    """A checkpoint is truncated, fails its CRC or misses an entry
-    (copied from `deeplearning4j_tpu/util/checkpoint_store.py`)."""
+__all__ = ["CheckpointCorruptError", "params_from_jax",
+           "updater_state_from_jax", "write_model",
+           "restore_multi_layer_network"]
 
 
 def params_from_jax(conf, params) -> List[Dict[str, torch.Tensor]]:
@@ -46,6 +54,58 @@ def params_from_jax(conf, params) -> List[Dict[str, torch.Tensor]]:
              for k, v in p.items()} for p in params]
 
 
+def updater_state_from_jax(conf, upd_state):
+    """The JAX network's `_upd_state` (layer -> parameter name -> state
+    name -> array) as CPU tensors. Load it with
+    `MultiLayerNetwork.set_updater_state`."""
+    if len(upd_state) != len(conf.layers):
+        raise ValueError(f"{len(upd_state)} updater-state dicts for "
+                         f"{len(conf.layers)} layers")
+    return [{k: {sk: torch.from_numpy(np.array(a, copy=True))
+                 for sk, a in st.items()} for k, st in layer.items()}
+            for layer in upd_state]
+
+
+def _flat_updater_state(upd_state) -> np.ndarray:
+    leaves = [layer[k][sk].detach().reshape(-1).cpu()
+              for layer in upd_state for k in sorted(layer)
+              for sk in sorted(layer[k])]
+    if not leaves:
+        return np.zeros((0,), np.float32)
+    return torch.cat(leaves).numpy()
+
+
+def _np_bytes(a: np.ndarray) -> bytes:
+    buf = io.BytesIO()
+    np.save(buf, a)
+    return buf.getvalue()
+
+
+def _np_load(b: bytes) -> np.ndarray:
+    return np.load(io.BytesIO(b))
+
+
+def write_model(net, path: Union[str, Path]) -> None:
+    """Save a MultiLayerNetwork as the JAX package's zip, with its
+    optimizer state, committed atomically."""
+    net._ensure_init()
+    with atomic_write(path) as tmp:
+        with zipfile.ZipFile(tmp, "w", zipfile.ZIP_DEFLATED) as z:
+            z.writestr(CONFIG_JSON, net.conf.to_json())
+            z.writestr(COEFFICIENTS,
+                       _np_bytes(net.params().detach().cpu().numpy()))
+            z.writestr(UPDATER_STATE,
+                       _np_bytes(_flat_updater_state(net._upd_state)))
+            z.writestr(LAYER_STATE, _np_bytes(np.zeros((0,), np.float32)))
+            z.writestr(META_JSON, json.dumps({
+                "iteration": net.iteration,
+                "epoch": net.epoch,
+                "dtype": str(net.dtype).replace("torch.", ""),
+                "model_type": "MultiLayerNetwork",
+                "format": "deeplearning4j_tpu/model/v1",
+            }))
+
+
 def _torch_dtype(name: str) -> torch.dtype:
     dt = getattr(torch, str(np.dtype(name)), None)
     if not isinstance(dt, torch.dtype):
@@ -53,10 +113,12 @@ def _torch_dtype(name: str) -> torch.dtype:
     return dt
 
 
-def restore_multi_layer_network(path: Union[str, Path], device="cuda"):
-    """Rebuild a `MultiLayerNetwork` from a zip the JAX package wrote
-    (`write_model`), on `device` (the card by default). Zip-level damage
-    raises the typed `CheckpointCorruptError`."""
+def restore_multi_layer_network(path: Union[str, Path],
+                                load_updater: bool = True, device="cuda"):
+    """Rebuild a `MultiLayerNetwork` from a zip written by either package,
+    on `device` (the card by default): parameters, and with
+    `load_updater` the optimizer state, the iteration and the epoch, so
+    training goes on exactly where it stopped."""
     from deeplearning4j_tpu_torch.nn.conf.neural_net_configuration import (
         MultiLayerConfiguration,
     )
@@ -68,7 +130,10 @@ def restore_multi_layer_network(path: Union[str, Path], device="cuda"):
         with zipfile.ZipFile(path, "r") as z:
             meta = json.loads(z.read(META_JSON).decode())
             cfg_json = z.read(CONFIG_JSON).decode()
-            flat = np.load(io.BytesIO(z.read(COEFFICIENTS)))
+            flat = _np_load(z.read(COEFFICIENTS))
+            upd = (_np_load(z.read(UPDATER_STATE))
+                   if load_updater and UPDATER_STATE in z.namelist()
+                   else None)
     except _ZIP_DAMAGE as e:
         raise CheckpointCorruptError(
             f"checkpoint {path} is corrupt or truncated "
@@ -83,4 +148,25 @@ def restore_multi_layer_network(path: Union[str, Path], device="cuda"):
                             device=device)
     net.init()
     net.set_params(flat)
+    if upd is not None:
+        _load_updater_state(net, upd)
+    net.iteration = meta.get("iteration", 0)
+    net.epoch = meta.get("epoch", 0)
     return net
+
+
+def _load_updater_state(net, flat: np.ndarray) -> None:
+    slots = [(layer, k, sk) for layer in net._upd_state
+             for k in sorted(layer) for sk in sorted(layer[k])]
+    n = sum(layer[k][sk].numel() for layer, k, sk in slots)
+    if flat.shape != (n,):
+        raise ValueError(
+            f"checkpoint updater state has {flat.size} values but the "
+            f"rebuilt network expects {n} — corrupted checkpoint or config "
+            "drift (pass load_updater=False to restore params only)")
+    t = torch.from_numpy(flat).to(device=net.device, dtype=net.dtype)
+    off = 0
+    for layer, k, sk in slots:
+        m = layer[k][sk].numel()
+        layer[k][sk] = t[off:off + m].reshape(layer[k][sk].shape).clone()
+        off += m

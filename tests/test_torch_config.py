@@ -4,6 +4,7 @@ either package parses in the other and re-serializes to the same text,
 for the gelu/MHA stack and the swiglu + RoPE + GQA stack."""
 import json
 
+import numpy as np
 import pytest
 
 pytest.importorskip("jax")
@@ -60,14 +61,21 @@ def test_unported_layer_type_is_refused_by_name():
         MultiLayerConfiguration.from_json(lenet_configuration().to_json())
 
 
-@pytest.mark.parametrize("kw,match", [({"moe_experts": 2}, "A9"),
-                                      ({"remat": True}, "training slice")])
+@pytest.mark.parametrize("kw,match", [
+    ({"moe_experts": 2}, "A9"),
+    pytest.param({"remat": True}, None, id="kw1-training slice")])
 def test_unported_block_options_parse_but_refuse_to_run(kw, match):
-    """moe_experts > 0 and remat=True configurations round-trip, and
-    raise NotImplementedError naming the ROADMAP item when built."""
+    """moe_experts > 0 and remat=True configurations round-trip; MoE
+    raises NotImplementedError naming its ROADMAP item when built, remat
+    (ported with the training slice) builds and runs."""
     text = jax_gpt_configuration(vocab_size=16, d_model=16, n_heads=2,
                                  n_layers=1, max_length=8, **kw).to_json()
     conf = MultiLayerConfiguration.from_json(text)
     assert json.loads(conf.to_json()) == json.loads(text)
+    net = MultiLayerNetwork(conf, device="cpu")
+    if match is None:
+        net.init()
+        assert net.output(np.zeros((1, 8), np.int32)).shape == (1, 8, 16)
+        return
     with pytest.raises(NotImplementedError, match=match):
-        MultiLayerNetwork(conf, device="cpu").init()
+        net.init()

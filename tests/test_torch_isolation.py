@@ -1,5 +1,7 @@
-"""The port stands alone: importing `deeplearning4j_tpu_torch` and serving
-from it loads neither `jax` nor any module of `deeplearning4j_tpu`, and
+"""The port stands alone: importing `deeplearning4j_tpu_torch`, serving
+from it and training with it (fit through the flash-attention route, a
+checkpoint written and restored) loads neither `jax` nor any module of
+`deeplearning4j_tpu`, and
 its entry points run on the card by default, raising where there is
 none rather than carrying on quietly on the CPU."""
 import os
@@ -48,6 +50,29 @@ _SCRIPT = textwrap.dedent("""
     want = generate(net, (np.arange(12) % 16)[None], 3, temperature=0.0,
                     device="cpu")[0]
     assert (got == want).all(), (got, want)
+
+    import os
+    import tempfile
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterators import ListDataSetIterator
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.util.serialization import (
+        restore_multi_layer_network, write_model)
+
+    tnet = MultiLayerNetwork(gpt_configuration(16, d_model=128, n_heads=1,
+                                               n_layers=1, max_length=256,
+                                               attention_block_size=128),
+                             device="cpu")
+    ids = np.arange(2 * 257).reshape(2, 257) % 16
+    data = DataSet(ids[:, :-1].astype(np.int32), ids[:, 1:].astype(np.int32))
+    tnet.fit(ListDataSetIterator([data]), epochs=2)
+    assert tnet.iteration == 2 and np.isfinite(tnet.score_value)
+    assert fa.flash_attention_plain_bwd.calls == 2
+    with tempfile.TemporaryDirectory() as d:
+        write_model(tnet, os.path.join(d, "m.zip"))
+        back = restore_multi_layer_network(os.path.join(d, "m.zip"),
+                                           device="cpu")
+    assert back.iteration == 2
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")
                     or m == "deeplearning4j_tpu"
