@@ -165,6 +165,24 @@ def test_causal_flash_needs_equal_lengths():
         fa.flash_attention(q, q[:, :128], q[:, :128], causal=True)
 
 
+def test_error_in_tolerances_holds_each_row_to_its_scale():
+    """The kernels' check: an exact copy reads 0; bf16 rounding of the
+    outputs stays within the bound; an output that left out the last
+    64-key tile is caught in O (row by row) and in L (absolute)."""
+    q, k, v, _ = (torch.from_numpy(x) for x in _inputs(5, (1, 1024, 1, 128)))
+    o, lse = fa.flash_attention_plain_fwd(q, k, v)
+    for dt in (torch.float32, torch.bfloat16):
+        assert fa.error_in_tolerances("O", o.clone(), o, dt) == 0.0
+        assert fa.error_in_tolerances("L", lse.clone(), lse, dt) == 0.0
+    assert fa.error_in_tolerances("O", o.bfloat16(), o, torch.bfloat16) <= 1
+    o_cut, lse_cut = fa.flash_attention_plain_fwd(q, k[:, :-64], v[:, :-64])
+    assert fa.error_in_tolerances("O", o_cut, o, torch.bfloat16) > 1
+    assert fa.error_in_tolerances("L", lse_cut, lse, torch.bfloat16) > 1
+    bad = o.clone()
+    bad[0, 0, 0, 0] = float("nan")
+    assert fa.error_in_tolerances("O", bad, o, torch.float32) == float("inf")
+
+
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
@@ -176,9 +194,9 @@ def _card():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_kernels_match_plain(dtype):
     """O, L, dQ, dK, dV of the kernels against the plain versions in f32
-    on the same (cast up) inputs, causal and not, D = 128 and 256; the
-    error bound is `fa.TOLERANCE` times the reference's largest
-    magnitude. One launch of each kernel per call."""
+    on the same (cast up) inputs, causal and not, D = 128 and 256, within
+    `fa.error_in_tolerances` (O, dQ, dK, dV row by row, L absolute). One
+    launch of each kernel per call."""
     _card()
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(3)
@@ -197,8 +215,10 @@ def test_flash_kernels_match_plain(dtype):
                     fa.flash_bwd_dkv.launches) == (1, 1, 1)
             ro, rl = fa.flash_attention_plain_fwd(q.float(), k.float(),
                                                   v.float(), causal)
+            # the backward on its own inputs: the forward kernel's O and L
             ref = (ro, rl) + fa.flash_attention_plain_bwd(
-                q.float(), k.float(), v.float(), ro, rl, do.float(), causal)
-            for got, want in zip((o, lse, dq, dk, dv), ref):
-                bound = fa.TOLERANCE[dt] * want.abs().max().item()
-                assert (got.float() - want).abs().max().item() <= bound
+                q.float(), k.float(), v.float(), o.float(), lse, do.float(),
+                causal)
+            for name, got, want in zip(("O", "L", "dQ", "dK", "dV"),
+                                       (o, lse, dq, dk, dv), ref):
+                assert fa.error_in_tolerances(name, got, want, dt) <= 1.0
