@@ -1,20 +1,27 @@
 #!/usr/bin/env python3
-"""Mutation check of the flash-attention kernels' correctness check on one
-NVIDIA card: does `chip_smoke.py`'s comparison against the plain versions
-catch a kernel that is wrong?
+"""Mutation check of the kernels' correctness checks on one NVIDIA card:
+does `chip_smoke.py`'s comparison against the plain versions catch a
+kernel that is wrong?
 
-    python3 chip_fault_check.py      # about 2 minutes on an H100
+    python3 chip_fault_check.py      # about 3 minutes on an H100
 
-For the unchanged source and for each planted fault below, the script
+For the unchanged sources and for each planted fault below, the script
 copies `deeplearning4j_tpu_torch/` into a temporary directory, plants the
-fault in the copy's `csrc/flash_attention.cu` (the checkout is never
-changed), builds every copy with nvcc in parallel, and then runs, in one
-process per copy, the bf16 forward, dQ and dK/dV kernels on the cases
-below and holds them to the plain versions in f32 with
-`flash_attention.error_in_tolerances` (O, dQ, dK, dV row by row; L
-absolute), as `chip_smoke.py` does. Beside it, each case is also read
-against the earlier bound (the largest absolute error within 2e-2 of the
-reference's largest magnitude), to show what that bound let through.
+fault in the copy's `csrc/flash_attention.cu` or `csrc/paged_attention.cu`
+(the checkout is never changed), builds every copy with nvcc in parallel,
+and then runs the faulted kernel family's check in one process per copy
+(the unchanged copy runs both):
+
+- flash: the bf16 forward, dQ and dK/dV kernels on the cases below, held
+  to the plain versions in f32 with `flash_attention.error_in_tolerances`
+  (O, dQ, dK, dV row by row; L absolute), as `chip_smoke.py` does. Beside
+  it, each case is also read against the earlier bound (the largest
+  absolute error within 2e-2 of the reference's largest magnitude), to
+  show what that bound let through;
+- paged: every case of `chip_smoke.paged_cases` (dense and int8 pools,
+  decode, verify and chunk widths, the ragged row tiles), read in units
+  of the tolerance atol + rtol * |ref|; a non-finite output or a written
+  inactive lane counts as infinite.
 
 Prints a table and, as the last line, one JSON object
 `{"control_ok": ..., "mutants": [{"name", "caught", "caught_by_old_bound",
@@ -33,47 +40,62 @@ import tempfile
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PKG = "deeplearning4j_tpu_torch"
-SOURCE = os.path.join(PKG, "csrc", "flash_attention.cu")
+FLASH, PAGED = "flash_attention", "paged_attention"
 # (B, T, H, D, causal), bf16: the training path's kernels at D = 128 and
 # the same templates at D = 256
 CASES = [(2, 512, 2, 128, False), (2, 512, 2, 128, True),
          (1, 4096, 2, 128, True), (2, 512, 2, 256, True),
          (1, 4096, 2, 256, False)]
 OLD_BOUND = 2e-2
-# (name, anchor, text, replacement): the first `text` after `anchor`
+# (name, source, anchor, text, replacement): the first `text` after `anchor`
 FWD = "flash_fwd_mma_kernel(const Args a) {"
 DQ = "flash_bwd_dq_mma_kernel(const Args a) {"
 DKV = "flash_bwd_dkv_mma_kernel(const Args a) {"
+WALK = "for (int j = 0; j < n_live; ++j) {"
+PV = "// acc (TR, hd) = acc * corr + P . V"
 MUTATIONS = [
-    ("forward skips the last K/V tile", FWD,
+    ("forward skips the last K/V tile", FLASH, FWD,
      "const int nk = a.causal ? qi + 1 : a.Tk / BLK;",
      "const int nk = a.causal ? qi : a.Tk / BLK - 1;"),
-    ("forward drops P.V of the last K/V tile (L intact)", FWD,
+    ("forward drops P.V of the last K/V tile (L intact)", FLASH, FWD,
      "warp_pb<NO, 4, LD>(o, s, V);",
      "if (kj + 1 < nk) warp_pb<NO, 4, LD>(o, s, V);"),
-    ("forward drops P.V of the second-to-last K/V tile (L intact)", FWD,
+    ("forward drops P.V of the second-to-last K/V tile (L intact)", FLASH, FWD,
      "warp_pb<NO, 4, LD>(o, s, V);",
      "if (kj + 2 != nk) warp_pb<NO, 4, LD>(o, s, V);"),
     # far from the diagonal: only rows that see more than 2560 keys (the
     # T=4096 cases) lose 64 of them, a small change to rows of small values
-    ("forward drops P.V of K/V tile 40 (L intact)", FWD,
+    ("forward drops P.V of K/V tile 40 (L intact)", FLASH, FWD,
      "warp_pb<NO, 4, LD>(o, s, V);",
      "if (kj != 40) warp_pb<NO, 4, LD>(o, s, V);"),
-    ("dQ drops dS.K of K/V tile 40", DQ,
+    ("dQ drops dS.K of K/V tile 40", FLASH, DQ,
      "warp_pb<NO, 4, LD>(dq, s, K + c0);",
      "if (kj != 40) warp_pb<NO, 4, LD>(dq, s, K + c0);"),
-    ("dV drops P^T.dO of Q tile 40", DKV,
+    ("dV drops P^T.dO of Q tile 40", FLASH, DKV,
      "warp_pb<NO, 4, LD>(dv, s, dO + c0);",
      "if (qi != 40) warp_pb<NO, 4, LD>(dv, s, dO + c0);"),
-    ("dQ skips the last K/V tile", DQ,
+    ("dQ skips the last K/V tile", FLASH, DQ,
      "const int nk = a.causal ? qi + 1 : a.Tk / BLK;",
      "const int nk = a.causal ? qi : a.Tk / BLK - 1;"),
-    ("dK/dV skips the last Q tile", DKV,
+    ("dK/dV skips the last Q tile", FLASH, DKV,
      "const int nq = a.Tq / BLK;",
      "const int nq = a.Tq / BLK - 1;"),
-    ("dK drops the dsum term", DKV,
+    ("dK drops the dsum term", FLASH, DKV,
      "s[j][e] *= dp[j][e] - Ds[8 * j + 2 * t + (e & 1)];",
      "s[j][e] *= dp[j][e];"),
+    ("int8: V dequantized with the K scales", PAGED, PV,
+     "if constexpr (kQuant) vsc = cVs[kk];",
+     "if constexpr (kQuant) vsc = cKs[kk];"),
+    ("int8: the other page buffer's K scale row", PAGED, WALK,
+     "const float* cKs = sKs + buf * page;",
+     "const float* cKs = sKs + (STAGES == 2 ? buf ^ 1 : buf) * page;"),
+    ("int8: one page's K scales skipped", PAGED, WALK,
+     "if constexpr (kQuant) ksc = cKs[kk];",
+     "if constexpr (kQuant) ksc = j == 3 ? 1.f : cKs[kk];"),
+    ("paged: the last row of a ragged row tile never written", PAGED, WALK,
+     "for (int i = tid; i < tr * hd; i += blockDim.x) {\n    const float l",
+     "for (int i = tid; i < (tr == TR ? tr : tr - 1) * hd; i += blockDim.x)"
+     " {\n    const float l"),
 ]
 
 
@@ -92,34 +114,63 @@ def make_copy(root: str, mutation) -> str:
     shutil.copytree(os.path.join(REPO, PKG), os.path.join(root, PKG),
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     if mutation is not None:
-        path = os.path.join(root, SOURCE)
+        path = os.path.join(root, PKG, "csrc", mutation[1] + ".cu")
         with open(path) as f:
             src = f.read()
         with open(path, "w") as f:
-            f.write(mutate(src, *mutation[1:]))
+            f.write(mutate(src, *mutation[2:]))
     return root
 
 
-def child_cmd(root: str, what: str):
+def families(mutation):
+    """The kernel families a copy builds and checks."""
+    return (FLASH, PAGED) if mutation is None else (mutation[1],)
+
+
+def child_cmd(root: str, what: str, sources):
     code = (f"import sys; sys.path[:0] = [{root!r}, {REPO!r}]; "
-            f"import chip_fault_check as c; c.{what}()")
+            f"import chip_fault_check as c; c.{what}({tuple(sources)!r})")
     return [sys.executable, "-c", code]
 
 
-def build() -> None:
+def build(sources) -> None:
     from deeplearning4j_tpu_torch.ops import cuda_build
 
-    cuda_build.build(["flash_attention"])
+    cuda_build.build(sources)
 
 
-def check() -> None:
-    """In a copy's process: run the cases, print one JSON line."""
+def check(sources) -> None:
+    """In a copy's process: run the families' cases, print one JSON line."""
     import torch
 
-    import chip_smoke as cs
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    cases = []
+    if FLASH in sources:
+        cases += flash_cases(torch, fa)
+    if PAGED in sources:
+        cases += paged_cases(torch)
+    print(json.dumps({"package": fa.__file__, "cases": cases}), flush=True)
+
+
+def paged_cases(torch):
+    import chip_smoke as cs
+    from deeplearning4j_tpu_torch.ops import paged_attention as pa
+
+    cases = []
+    for i, (name, kw) in enumerate(cs.paged_cases(torch)):
+        _, units, clean = cs.paged_case_error(torch, pa, kw, seed=100 + i)
+        if not clean or units != units:
+            units = float("inf")
+        cases.append({"case": f"paged {name} {str(kw['dtype'])[6:]}",
+                      "units": {"out": units}, "old_units": None})
+    return cases
+
+
+def flash_cases(torch, fa):
+    import chip_smoke as cs
+
     cases = []
     for i, (B, T, H, D, causal) in enumerate(CASES):
         q, k, v, do = cs.flash_inputs(torch, B, T, H, D, torch.bfloat16,
@@ -137,7 +188,7 @@ def check() -> None:
                               f"{'causal' if causal else 'full'}",
                       "units": {n: u for n, _, u in errs},
                       "old_units": max(old)})
-    print(json.dumps({"package": fa.__file__, "cases": cases}), flush=True)
+    return cases
 
 
 def main() -> int:
@@ -147,21 +198,21 @@ def main() -> int:
         print("chip_fault_check: no CUDA device available", file=sys.stderr)
         return 2
     runs = [("unchanged", None)] + [(m[0], m) for m in MUTATIONS]
-    base = tempfile.mkdtemp(prefix="flash_fault_")
+    base = tempfile.mkdtemp(prefix="kernel_fault_")
     try:
         roots = [make_copy(os.path.join(base, str(i)), m)
                  for i, (_, m) in enumerate(runs)]
-        builds = [subprocess.Popen(child_cmd(r, "build"), cwd=r,
+        builds = [subprocess.Popen(child_cmd(r, "build", families(m)), cwd=r,
                                    stdout=subprocess.PIPE,
                                    stderr=subprocess.STDOUT, text=True)
-                  for r in roots]
+                  for r, (_, m) in zip(roots, runs)]
         for (name, _), p in zip(runs, builds):
             out, _ = p.communicate()
             if p.returncode != 0:
                 raise RuntimeError(f"build of '{name}' failed:\n{out}")
         results = []
-        for (name, _), root in zip(runs, roots):
-            p = subprocess.run(child_cmd(root, "check"), cwd=root,
+        for (name, m), root in zip(runs, roots):
+            p = subprocess.run(child_cmd(root, "check", families(m)), cwd=root,
                                capture_output=True, text=True, timeout=600)
             if p.returncode != 0:
                 log(f"{name}: the check process failed (exit "
@@ -183,13 +234,15 @@ def main() -> int:
                             "caught_by_old_bound": True, "worst": None})
             continue
         for c in cases:
-            log(f"  {c['case']:<28} " + " ".join(
+            log(f"  {c['case']:<40} " + " ".join(
                 f"{n} {u:.3g}" for n, u in c["units"].items())
-                + f" | old bound {c['old_units']:.3g}")
+                + ("" if c["old_units"] is None
+                   else f" | old bound {c['old_units']:.3g}"))
         worst = max(max(c["units"].values()) for c in cases)
         summary.append({"name": name, "caught": worst > 1.0,
                         "caught_by_old_bound": any(
-                            c["old_units"] > 1.0 for c in cases),
+                            c["old_units"] is not None
+                            and c["old_units"] > 1.0 for c in cases),
                         "worst": worst})
     control = summary[0]
     ok = not control["caught"] and all(m["caught"] for m in summary[1:])

@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (`deeplearning4j_tpu_torch`) on one
 NVIDIA card.
 
-    python3 chip_smoke.py            # every phase, about 3-5 minutes on an H100
+    python3 chip_smoke.py            # every phase, about 1-2 minutes on an H100
 
 Phases, each of which makes the script exit non-zero when it fails:
 
@@ -16,7 +16,14 @@ Phases, each of which makes the script exit non-zero when it fails:
    prefill chunks C=256; GQA with 2 KV heads; f32 and bf16; shuffled page
    tables, the trash page, stale pages past the limit, an inactive lane);
    the reference is the plain version computed in f32 on the same inputs
-   (bf16 cast up), tolerance atol = rtol = 2e-4 (f32) / 4e-3 (bf16);
+   (bf16 cast up), tolerance atol = rtol = 2e-4 (f32) / 4e-3 (bf16); also
+   the ragged row tiles, C=5 and C=3 x 4 query heads per KV head, where
+   the last tile of a block holds fewer rows than its width; then the
+   int8 kernel on int8 pools with f32 scale pools (scales drawn in
+   0.005-0.02) at decode C=1, verify C=5, chunks C=128 and C=256 and GQA
+   at C=1 and C=3, q in f32 and bf16, against the plain version in f32
+   that rounds the dequantized K/V to q's type as the kernel does, same
+   tolerances;
 4. flash kernels: forward (O and L), dQ and dK/dV against the plain
    versions computed in f32 on the same inputs (the backward's include
    the O and L the forward kernel gave), f32 and bf16, causal and not,
@@ -29,7 +36,10 @@ Phases, each of which makes the script exit non-zero when it fails:
 5. parity: a 2-layer, full-width (d_model 1024) f32 GPT; the
    `DecodeEngine`'s greedy tokens on the card must equal whole-batch
    `generate` on the card for the same prompts (one-shot and chunked
-   prefill);
+   prefill); the engine with `prefix_cache=True, speculative={"draft":
+   "self", "k": 4}` must give the same, cold and on a prefix hit; the
+   same engine with `quantize={"kv": "int8"}` on the card is held to
+   itself on the CPU (argmax drift at most 0.2, printed);
 6. training parity: a 1-layer full-width f32 GPT (d_model 1024, 8 heads,
    T=1024, attention_block_size=512, B=2) from one seed takes 3 Adam
    steps on the card through the flash kernels and 3 on the CPU through
@@ -40,12 +50,21 @@ Phases, each of which makes the script exit non-zero when it fails:
 7. serve (main path 1): the full-width 8-layer bf16 GPT (vocab 256,
    d_model 1024, 8 heads, max_length 4224) behind `DecodeEngine(n_slots=8,
    page_size=128, prefill_chunk=256, prompt_buckets=(128,))` answers four
-   128-token and two 4096-token prompts with 32-128 output tokens, three
-   times over (median wall reported); the launch counts are set to 0 just
-   before and read just after, and the kernel must have launched at C=1
-   and C=256 with no call of the plain version; one more batch under
+   128-token and two 4096-token prompts with 32-128 output tokens; the
+   launch counts are set to 0 just before and read just after, and the
+   dense kernel must have launched at C=1 and C=256 with no call of the
+   plain version and no int8 launch; one more batch under
    torch.profiler gives the device's busy time and idle share;
-8. train (main path 2): the full-width bf16 `gpt_long` network (vocab 256,
+8. serve (main path 3): the same network behind the same engine with
+   `quantize={"kv": "int8"}, prefix_cache=True, speculative={"draft":
+   "self", "k": 4}` serves shared-prefix chat traffic (one 1024-token
+   prefix plus a unique 64-token tail per request, 32 or 64 output
+   tokens): the first request alone, cold, then eight in one closed
+   batch, which hit its pages; counts set to 0 before and read after:
+   the int8 kernel must have launched at C=1 (draft steps), C=5 (verify)
+   and at a prefill chunk width, the dense kernel and the plain version
+   not at all; `prefix_hit_tokens_pct` > 0, `spec_tokens_per_step` > 1;
+9. train (main path 2): the full-width bf16 `gpt_long` network (vocab 256,
    d_model 1024, 8 heads of 128, 8 layers, max_length 4096,
    attention_block_size 512, Adam 3e-4, f32 masters) fed B=8 x T=4096
    batches made with numpy from a seed through `MultiLayerNetwork.fit`:
@@ -55,16 +74,17 @@ Phases, each of which makes the script exit non-zero when it fails:
    and 8 dK/dV launches per step and no call of a plain version; one more
    step under torch.profiler gives the busy time, idle share and top
    kernels;
-9. timing: the flash kernels are first held to their plain versions at
+10. timing: the flash kernels are first held to their plain versions at
    the training shape twice: on q/k/v sliced from one fused qkv tensor,
    as the training path passes them, and on contiguous ones; then CUDA
    events around each launch (a GPU sleep queued first so
    host overhead is not counted), L2 flushed before each, median of 20
    after warm-up, for each kernel, its plain version and a library call
    (`scaled_dot_product_attention` on the gathered dense view for paged
-   attention; SDPA's forward, and SDPA's forward+backward minus its
-   forward for the two backward kernels together; the yardsticks, which
-   the port never calls), beside the bound max(flops / 989 TFLOP/s,
+   attention, for int8 pools with the dequantization inside the timed
+   region, since the kernel does it too; SDPA's forward, and SDPA's
+   forward+backward minus its forward for the two backward kernels
+   together; the yardsticks, which the port never calls), beside the bound max(flops / 989 TFLOP/s,
    bytes / 3.35 TB/s) of this run's data.
 
 Prints one JSON line of per-kernel numbers, then the card's
@@ -94,7 +114,8 @@ FLASH_REPLACES = {
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12     # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
-SERVE_REPEATS = 3          # the serving batch runs this many times
+SERVE_REPEATS = 1          # the serving batch runs this many times
+SHARED_PREFIX, SHARED_TAIL, SHARED_REQUESTS = 1024, 64, 8
 SERVE = dict(vocab_size=256, d_model=1024, n_heads=8, n_layers=8,
              max_length=4224)
 # bench.py gpt_long (bench.py:563-568)
@@ -116,26 +137,43 @@ def nvidia_smi_line() -> str:
 
 # --------------------------------------------------------------- inputs
 def paged_inputs(torch, *, S, C, H, Hkv, hd, page, n_pages, dtype, seed,
-                 positions, inactive=(), garbage=True):
+                 positions, inactive=(), garbage=True, int8=False):
     """Pools, a shuffled page table, positions and an active mask. Pages
     past each slot's last live page are either remapped to the trash
     page 0 (odd slots) or left pointing at stale pages (even slots);
     both, and page 0, hold large garbage that must never reach an
-    output."""
+    output. `int8`: int8 pools drawn from -127..127 with f32 scale pools
+    drawn from 0.005..0.02 (garbage pages: +-127 under scales of 1e3)."""
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(seed)
     P = S * n_pages + 3
-    k_pool = torch.randn((P + 1, Hkv, hd, page), generator=g, device=dev)
-    v_pool = torch.randn((P + 1, Hkv, page, hd), generator=g, device=dev)
+    scales = {}
+    if int8:
+        k_pool, v_pool = (
+            torch.randint(-127, 128, shape, generator=g, device=dev,
+                          dtype=torch.int8)
+            for shape in ((P + 1, Hkv, hd, page), (P + 1, Hkv, page, hd)))
+        for name in ("k_scale", "v_scale"):
+            scales[name] = 0.005 + 0.015 * torch.rand(
+                (P + 1, Hkv, page), generator=g, device=dev)
+        junk = ((127, -127), (127, -127))
+    else:
+        k_pool = torch.randn((P + 1, Hkv, hd, page), generator=g, device=dev)
+        v_pool = torch.randn((P + 1, Hkv, page, hd), generator=g, device=dev)
+        junk = ((1e4, -1e4), (3e3, -3e3))
     perm = torch.randperm(P, generator=g, device=dev)[:S * n_pages] + 1
     pt = perm.reshape(S, n_pages).to(torch.int32)
     if garbage:
-        k_pool[0], v_pool[0] = 1e4, -1e4
+        k_pool[0], v_pool[0] = junk[0]
+        for sc in scales.values():
+            sc[0] = 1e3
         for s in range(S):
             last = min(n_pages - 1, (positions[s] + C - 1) // page)
             tail = pt[s, last + 1:]
             if tail.numel():
-                k_pool[tail.long()], v_pool[tail.long()] = 3e3, -3e3
+                k_pool[tail.long()], v_pool[tail.long()] = junk[1]
+                for sc in scales.values():
+                    sc[tail.long()] = 1e3
                 if s % 2:
                     pt[s, last + 1:] = 0
     q = torch.randn((S, C, H, hd), generator=g, device=dev)
@@ -143,9 +181,16 @@ def paged_inputs(torch, *, S, C, H, Hkv, hd, page, n_pages, dtype, seed,
     for s in inactive:
         active[s] = False
     pos = torch.tensor(positions, dtype=torch.int32, device=dev)
-    return dict(q=q.to(dtype).contiguous(), k_pool=k_pool.to(dtype),
-                v_pool=v_pool.to(dtype), page_table=pt.contiguous(),
-                positions=pos, active=active)
+    if not int8:
+        k_pool, v_pool = k_pool.to(dtype), v_pool.to(dtype)
+    return dict(q=q.to(dtype).contiguous(), k_pool=k_pool, v_pool=v_pool,
+                page_table=pt.contiguous(), positions=pos, active=active,
+                **scales)
+
+
+def scale_kw(inp) -> dict:
+    """The scale pools of int8 inputs as keywords; none for dense pools."""
+    return {k: inp[k] for k in ("k_scale", "v_scale") if k in inp}
 
 
 def work(inp):
@@ -154,12 +199,14 @@ def work(inp):
     per MAC). Bytes: of each active slot, the K and V entries
     0..min(positions[s]+C-1, L-1) of every KV head, the page-table entries
     of the pages holding them and its q rows, each read once; the whole
-    output written once; positions and the active mask."""
+    output written once; positions and the active mask. int8 pools: 1
+    byte per K/V element plus 4 per (KV head, position) scale of K and of
+    V."""
     q, kp = inp["q"], inp["k_pool"]
     S, C, H, hd = q.shape
     Hkv, page = kp.shape[1], kp.shape[3]
     L = inp["page_table"].shape[1] * page
-    isz = q.element_size()
+    isz, kvsz = q.element_size(), kp.element_size()
     pos = inp["positions"].tolist()
     act = inp["active"].tolist()
     flops = 0
@@ -170,7 +217,9 @@ def work(inp):
         for c in range(C):
             flops += 4 * H * hd * (min(pos[s] + c, L - 1) + 1)
         last = min(pos[s] + C - 1, L - 1)
-        nbytes += 2 * (last + 1) * Hkv * hd * isz   # K and V entries
+        nbytes += 2 * (last + 1) * Hkv * hd * kvsz  # K and V entries
+        if "k_scale" in inp:
+            nbytes += 2 * (last + 1) * Hkv * 4        # their scales
         nbytes += 4 * (last // page + 1)              # page-table entries
         nbytes += C * H * hd * isz                    # q rows
     return flops, nbytes
@@ -249,53 +298,77 @@ def host_us(torch, fn, n=50):
 # --------------------------------------------------------------- phases
 def plain_f32(pa, inp):
     """The plain version in f32 on the call's inputs (bf16 cast up
-    exactly): the reference the kernel is held to."""
+    exactly): the reference the kernel is held to. int8 pools are
+    dequantized in f32 and rounded to q's type, as the kernel rounds
+    them, before the f32 products."""
     return pa.paged_attention_plain(
-        inp["q"].float(), inp["k_pool"].float(), inp["v_pool"].float(),
-        inp["page_table"], inp["positions"], inp["active"])
+        inp["q"].float(), inp["k_pool"] if "k_scale" in inp
+        else inp["k_pool"].float(), inp["v_pool"] if "k_scale" in inp
+        else inp["v_pool"].float(), inp["page_table"], inp["positions"],
+        inp["active"], kv_dtype=inp["q"].dtype, **scale_kw(inp))
+
+
+def paged_cases(torch):
+    """The kernel checks: (name, keywords of `paged_inputs`). Dense pools
+    at the serving widths and at the ragged row tiles; int8 pools at the
+    decode, verify and chunk widths, MHA and GQA."""
+    base = dict(H=8, hd=128, page=128, n_pages=34)
+    decode_pos = [0, 1, 127, 128, 1000, 2047, 4222, 4351]
+    verify_pos = [0, 1, 125, 128, 1000, 2047, 4222, 4347]
+    shapes = [
+        ("decode C=1 MHA", dict(S=8, C=1, Hkv=8, positions=decode_pos,
+                                inactive=(5,))),
+        ("chunk C=256 MHA", dict(S=1, C=256, Hkv=8, positions=[3840])),
+        ("decode C=1 GQA Hkv=2", dict(S=8, C=1, Hkv=2, positions=decode_pos,
+                                      inactive=(2,))),
+        ("chunk C=256 GQA Hkv=2", dict(S=1, C=256, Hkv=2, positions=[1000])),
+        # ragged row tiles: 5 rows in tiles of 4, 12 rows in tiles of 8
+        ("verify C=5 MHA", dict(S=8, C=5, Hkv=8, positions=verify_pos,
+                                inactive=(5,))),
+        ("verify C=3 GQA Hkv=2", dict(S=8, C=3, Hkv=2, positions=verify_pos,
+                                      inactive=(2,))),
+    ]
+    int8_only = [
+        ("chunk C=128 MHA", dict(S=1, C=128, Hkv=8, positions=[1024])),
+    ]
+    cases = []
+    for int8 in (False, True):
+        for dtype in (torch.float32, torch.bfloat16):
+            for name, kw in shapes + (int8_only if int8 else []):
+                cases.append((f"{'int8 ' if int8 else ''}{name}",
+                              dict(base, dtype=dtype, int8=int8, **kw)))
+    return cases
+
+
+def paged_case_error(torch, pa, kw, seed):
+    """One kernel call against the plain version: (largest absolute
+    error, largest error in units of atol + rtol * |ref| with the
+    dtype's tolerance, whether finite and every inactive lane zero)."""
+    inp = paged_inputs(torch, seed=seed, **kw)
+    out = pa.paged_attention(inp["q"], inp["k_pool"], inp["v_pool"],
+                             inp["page_table"], inp["positions"],
+                             active=inp["active"], **scale_kw(inp))
+    ref = plain_f32(pa, inp)
+    torch.cuda.synchronize()
+    t = pa.TOLERANCE[kw["dtype"]]
+    diff = (out.float() - ref).abs()
+    clean = bool(torch.isfinite(out.float()).all()) and all(
+        bool((out[s] == 0).all()) for s in kw.get("inactive", ()))
+    return (diff.max().item(), (diff / (t + t * ref.abs())).max().item(),
+            clean)
 
 
 def phase_kernels(torch, pa):
-    """Kernel against plain at the serving shapes."""
-    tol = pa.TOLERANCE
-    base = dict(H=8, hd=128, page=128, n_pages=34)
-    decode_pos = [0, 1, 127, 128, 1000, 2047, 4222, 4351]
-    cases = []
-    for dtype in (torch.float32, torch.bfloat16):
-        cases += [
-            dict(name="decode C=1 MHA", S=8, C=1, Hkv=8, positions=decode_pos,
-                 inactive=(5,)),
-            dict(name="chunk C=256 MHA", S=1, C=256, Hkv=8,
-                 positions=[3840]),
-            dict(name="decode C=1 GQA Hkv=2", S=8, C=1, Hkv=2,
-                 positions=decode_pos, inactive=(2,)),
-            dict(name="chunk C=256 GQA Hkv=2", S=1, C=256, Hkv=2,
-                 positions=[1000]),
-        ]
-        for c in cases[-4:]:
-            c["dtype"] = dtype
-    for i, c in enumerate(cases):
-        inp = paged_inputs(torch, S=c["S"], C=c["C"], H=base["H"],
-                           Hkv=c["Hkv"], hd=base["hd"], page=base["page"],
-                           n_pages=base["n_pages"], dtype=c["dtype"],
-                           seed=100 + i, positions=c["positions"],
-                           inactive=c.get("inactive", ()))
-        out = pa.paged_attention(inp["q"], inp["k_pool"], inp["v_pool"],
-                                 inp["page_table"], inp["positions"],
-                                 active=inp["active"])
-        ref = plain_f32(pa, inp)
-        torch.cuda.synchronize()
-        t = tol[c["dtype"]]
-        err = (out.float() - ref).abs().max().item()
-        ok = bool(torch.isfinite(out.float()).all()) and torch.allclose(
-            out.float(), ref, atol=t, rtol=t)
-        inactive_zero = all(bool((out[s] == 0).all())
-                            for s in c.get("inactive", ()))
-        log(f"  {c['name']:<24} {str(c['dtype']):<15} max_abs_err={err:.3e} "
-            f"tol={t} {'ok' if ok and inactive_zero else 'FAIL'}")
-        if not (ok and inactive_zero):
-            raise AssertionError(f"kernel disagrees with plain: {c['name']} "
-                                 f"{c['dtype']} max_abs_err={err}")
+    """Kernels against plain at the serving shapes."""
+    for i, (name, kw) in enumerate(paged_cases(torch)):
+        err, units, clean = paged_case_error(torch, pa, kw, seed=100 + i)
+        ok = clean and units <= 1.0
+        log(f"  {name:<30} q {str(kw['dtype'])[6:]:<9} max_abs_err={err:.3e} "
+            f"({units:.3f} of tolerance {pa.TOLERANCE[kw['dtype']]}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"kernel disagrees with plain: {name} "
+                                 f"{kw['dtype']} max_abs_err={err}")
 
 
 def phase_parity(torch, M):
@@ -329,6 +402,65 @@ def phase_parity(torch, M):
         raise AssertionError(f"expected chunked prefill, stats {st}")
     log(f"  f32 parity ok: {len(prompts)} prompts, decode_steps="
         f"{st['decode_steps']}, prefill_chunks={st['prefill_chunks']}")
+    phase_parity_tier(torch, M, net, rng)
+
+
+def phase_parity_tier(torch, M, net, rng):
+    """The latency and quantization tier on the same f32 network: prefix
+    cache + self-speculation give `generate`'s greedy tokens, cold and on
+    a prefix hit; with int8 KV the card is held to the CPU."""
+    import numpy as np
+
+    V = SERVE["vocab_size"]
+    prefix = rng.integers(0, V, 256)
+    prompts = [np.concatenate([prefix, rng.integers(0, V, 40)])
+               for _ in range(3)] + [rng.integers(0, V, 100)]
+    n_tok = 12
+    kw = dict(n_slots=4, page_size=128, prefill_chunk=256,
+              prompt_buckets=(128,), max_len=1024, prefix_cache=True,
+              speculative={"draft": "self", "k": 4})
+
+    def serve(engine_net, device, **extra):
+        eng = M["DecodeEngine"](engine_net, device=device, **kw, **extra)
+        try:
+            first = eng.generate(prompts[0], n_tok)     # cold: fills the cache
+            reqs = [eng.submit(p, n_tok) for p in prompts[1:]]
+            return [first] + [r.result(timeout=300) for r in reqs], \
+                eng.stats()
+        finally:
+            eng.shutdown()
+
+    got, st = serve(net, "cuda")
+    for p, g in zip(prompts, got):
+        exp = M["generate"](net, p[None], n_tok, temperature=0.0,
+                            device="cuda")[0]
+        if not np.array_equal(g, exp):
+            raise AssertionError(
+                f"prefix + speculative engine tokens differ from generate "
+                f"for the {len(p)}-token prompt: {g.tolist()} vs "
+                f"{exp.tolist()}")
+    pc = st["prefix_cache"]
+    if pc["hits"] < 2 or st["spec_tokens_per_step"] <= 1:
+        raise AssertionError(f"expected prefix hits and multi-token verify "
+                             f"steps, stats {st}")
+    log(f"  prefix cache + self-speculation (k=4) == generate on "
+        f"{len(prompts)} prompts: hits {pc['hits']}, misses {pc['misses']}, "
+        f"spec_accept_rate {st['spec_accept_rate']}, spec_tokens_per_step "
+        f"{st['spec_tokens_per_step']}")
+    cpu = M["MultiLayerNetwork"](net.conf, device="cpu")
+    cpu.set_param_tree([{k: v.cpu() for k, v in p.items()}
+                        for p in net._params])
+    card_toks, st8 = serve(net, "cuda", quantize={"kv": "int8"})
+    cpu_toks, _ = serve(cpu, "cpu", quantize={"kv": "int8"})
+    drift = float(np.mean([np.mean(a != b)
+                           for a, b in zip(card_toks, cpu_toks)]))
+    log(f"  int8 KV + prefix + speculation, card vs CPU: argmax drift "
+        f"{drift:.4f} (bound 0.2), kv_bytes_per_token "
+        f"{st8['kv_bytes_per_token']}, spec_accept_rate "
+        f"{st8['spec_accept_rate']}")
+    if drift > 0.2 or st8["kv_quant_bits"] != 8:
+        raise AssertionError(f"int8 engine on the card drifts {drift} from "
+                             "the CPU")
 
 
 def phase_serve(torch, M, pa, card):
@@ -359,7 +491,7 @@ def phase_serve(torch, M, pa, card):
             outs = [r.result(timeout=900) for r in reqs]
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
-        launches = dict(pa.paged_attention.launches_by_chunk)
+        launches = dict(pa.paged_attention.launches_by)
         plain_calls = pa.paged_attention_plain.calls
         st = eng.stats()
         trace = traced_batch(torch, eng, prompts, n_tok)
@@ -381,11 +513,94 @@ def phase_serve(torch, M, pa, card):
     log(f"  paged_attention launches by chunk width: {launches}; plain "
         f"calls: {plain_calls}")
     log(f"  traced batch (torch.profiler, not in tokens/s): {trace}")
-    if launches.get(1, 0) == 0 or launches.get(256, 0) == 0:
+    if launches.get((1, "dense"), 0) == 0 \
+            or launches.get((256, "dense"), 0) == 0:
         raise AssertionError(f"kernel not launched on both paths: {launches}")
-    if plain_calls:
-        raise AssertionError(f"plain version called {plain_calls} times on "
-                             "the card's main path")
+    if plain_calls or any(kind != "dense" for _, kind in launches):
+        raise AssertionError(f"plain version called {plain_calls} times, "
+                             f"launches {launches}, on the card's main path")
+    del eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_serve_tier(torch, M, pa, card):
+    """Main path 3: the same network behind int8 KV, the prefix cache and
+    self-speculation, on shared-prefix chat traffic."""
+    import numpy as np
+
+    conf = M["gpt_configuration"](**SERVE, seed=11)
+    net = M["MultiLayerNetwork"](conf, dtype=torch.float32,
+                                 compute_dtype=torch.bfloat16, device="cuda")
+    net.init()
+    eng = M["DecodeEngine"](net, n_slots=8, page_size=128, prefill_chunk=256,
+                            prompt_buckets=(128,), max_len=4224,
+                            quantize={"kv": "int8"}, prefix_cache=True,
+                            speculative={"draft": "self", "k": 4},
+                            device="cuda")
+    rng = np.random.default_rng(12)
+    V = SERVE["vocab_size"]
+    prefix = rng.integers(0, V, SHARED_PREFIX)
+    prompts = [np.concatenate([prefix, rng.integers(0, V, SHARED_TAIL)])
+               for _ in range(SHARED_REQUESTS + 1)]
+    n_tok = [int(x) for x in rng.choice((32, 64), SHARED_REQUESTS + 1)]
+    try:
+        eng.generate(rng.integers(0, V, 16), 4)  # warm-up: cuBLAS handles
+        torch.cuda.synchronize()
+        before = eng.stats()
+        pa.reset_counts()
+        t0 = time.perf_counter()
+        outs = [eng.generate(prompts[0], n_tok[0], timeout=600)]  # cold
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        reqs = [eng.submit(p, n) for p, n in zip(prompts[1:], n_tok[1:])]
+        outs += [r.result(timeout=900) for r in reqs]
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = dict(pa.paged_attention.launches_by)
+        plain_calls = pa.paged_attention_plain.calls
+        st = eng.stats()
+        trace = traced_batch(torch, eng, prompts[1:], n_tok[1:])
+    finally:
+        eng.shutdown()
+    for o, n in zip(outs, n_tok):
+        if o.shape != (n,) or o.min() < 0 or o.max() >= V:
+            raise AssertionError(f"bad output tokens {o.shape} for n={n}")
+    pc0, pc = before["prefix_cache"], st["prefix_cache"]
+    hit_pct = 100.0 * (pc["hit_tokens"] - pc0["hit_tokens"]) \
+        / (pc["prompt_tokens"] - pc0["prompt_tokens"])
+    sp0, sp = before["speculative"], st["speculative"]
+    steps = sp["verify_steps"] - sp0["verify_steps"]
+    per_step = (sp["emitted"] - sp0["emitted"]) / max(1, steps)
+    accept = 100.0 * (sp["accepted"] - sp0["accepted"]) \
+        / max(1, sp["proposed"] - sp0["proposed"])
+    toks = int(sum(n_tok[1:]))
+    log(f"  cold request ({len(prompts[0])}-token prompt, {n_tok[0]} "
+        f"outputs): wall {t1 - t0:.4f} s; then {SHARED_REQUESTS} requests "
+        f"in one closed batch (outputs {n_tok[1:]}): wall {t2 - t1:.4f} s, "
+        f"{toks / (t2 - t1):.1f} generated tokens/s [{card}]")
+    log(f"  spec_accept_rate {accept:.1f}%, spec_tokens_per_step "
+        f"{per_step:.3f} over {steps} verify steps, prefix_hit_tokens_pct "
+        f"{hit_pct:.1f}, kv_bytes_per_token {st['kv_bytes_per_token']} "
+        f"(kv_quant_bits {st['kv_quant_bits']}), prefill_chunks "
+        f"{st['prefill_chunks'] - before['prefill_chunks']}")
+    log(f"  paged_attention launches by (chunk width, pools): {launches}; "
+        f"plain calls: {plain_calls}")
+    log(f"  traced batch (torch.profiler, not in tokens/s): {trace}")
+    chunk_widths = [c for (c, kind), n in launches.items()
+                    if kind == "int8" and c >= 128 and n > 0]
+    if launches.get((1, "int8"), 0) == 0 \
+            or launches.get((5, "int8"), 0) == 0 or not chunk_widths:
+        raise AssertionError(f"int8 kernel not launched at the draft, verify "
+                             f"and prefill-chunk widths: {launches}")
+    if plain_calls or any(kind != "int8" for _, kind in launches):
+        raise AssertionError(f"plain version called {plain_calls} times, "
+                             f"launches {launches}, on the int8 main path")
+    if not (hit_pct > 0 and per_step > 1):
+        raise AssertionError(f"no prefix hit ({hit_pct}) or no multi-token "
+                             f"verify step ({per_step})")
+    del eng
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -448,26 +663,64 @@ def traced(torch, run) -> str:
                 f"{n} {t / 1e3:.1f}" for n, (_, t) in zip(short, top)))
 
 
-def phase_timing(torch, pa, launches):
-    """Kernel / plain / library times at the serving shapes, bf16."""
+def sdpa_yardstick(torch, inp):
+    """One library call that computes the same function: SDPA on the
+    gathered dense view. For int8 pools the gather and dequantization
+    run inside the timed function, since the kernel does them too."""
     import torch.nn.functional as F
 
+    from deeplearning4j_tpu_torch.ops.attention import (
+        paged_gather,
+        paged_gather_quant,
+    )
+
+    Cq = inp["q"].shape[1]
+    L = inp["page_table"].shape[1] * inp["k_pool"].shape[3]
+    qd = inp["q"].permute(0, 2, 1, 3).contiguous()          # (S, H, C, hd)
+    qpos = inp["positions"][:, None].long() \
+        + torch.arange(Cq, device="cuda")[None, :]
+    mask = (torch.arange(L, device="cuda")[None, None, :]
+            <= qpos[:, :, None])[:, None]                   # (S, 1, C, L)
+    if "k_scale" in inp:
+        def dequantized():
+            kd, vd = paged_gather_quant(
+                inp["k_pool"], inp["v_pool"], inp["k_scale"], inp["v_scale"],
+                inp["page_table"], inp["q"].dtype)
+            return F.scaled_dot_product_attention(
+                qd, kd.transpose(-1, -2), vd, attn_mask=mask)
+
+        return dequantized
+    kd, vd = paged_gather(inp["k_pool"], inp["v_pool"], inp["page_table"])
+    kt = kd.transpose(-1, -2).contiguous()                  # (S, Hkv, L, hd)
+    return lambda: F.scaled_dot_product_attention(qd, kt, vd, attn_mask=mask)
+
+
+def phase_timing(torch, pa, launches):
+    """Kernel / plain / library times at the serving shapes, bf16 q."""
+    serving = dict(H=8, Hkv=8, hd=128, page=128, n_pages=34)
+    decode = dict(S=8, C=1, positions=[4160, 4160, 192, 192, 192, 192, 0, 0],
+                  inactive=(6, 7))
+    chunk = dict(S=1, C=256, positions=[3840])
+    # main path 3's slots: a 1088-token prompt and 32-64 outputs each
+    tier_pos = [1100, 1110, 1120, 1130, 1140, 1100, 1110, 1120]
     shapes = [
-        ("paged_attention_decode", 1,
-         dict(S=8, C=1, H=8, Hkv=8, hd=128, page=128, n_pages=34,
-              positions=[4160, 4160, 192, 192, 192, 192, 0, 0],
-              inactive=(6, 7))),
-        ("paged_attention_prefill_chunk", 256,
-         dict(S=1, C=256, H=8, Hkv=8, hd=128, page=128, n_pages=34,
-              positions=[3840])),
+        ("paged_attention_decode", "dense", decode),
+        ("paged_attention_prefill_chunk", "dense", chunk),
+        ("paged_attention_int8_decode", "int8", dict(S=8, C=1,
+                                                     positions=tier_pos)),
+        ("paged_attention_int8_verify", "int8", dict(S=8, C=5,
+                                                     positions=tier_pos)),
+        ("paged_attention_int8_prefill_chunk", "int8",
+         dict(S=1, C=256, positions=[768])),
     ]
     rows = []
-    for name, C, sh in shapes:
-        inp = paged_inputs(torch, dtype=torch.bfloat16, seed=7, garbage=False,
-                           **sh)
+    for name, kind, sh in shapes:
+        kw = dict(serving, dtype=torch.bfloat16, seed=7, garbage=False, **sh)
+        inp = paged_inputs(torch, int8=kind == "int8", **kw)
         args = (inp["q"], inp["k_pool"], inp["v_pool"], inp["page_table"],
                 inp["positions"])
-        out = pa.paged_attention(*args, active=inp["active"])
+        sc = scale_kw(inp)
+        out = pa.paged_attention(*args, active=inp["active"], **sc)
         ref = plain_f32(pa, inp)
         torch.cuda.synchronize()
         err = (out.float() - ref).abs().max().item()
@@ -476,35 +729,31 @@ def phase_timing(torch, pa, launches):
             raise AssertionError(f"{name}: kernel disagrees with plain, "
                                  f"max_abs_err={err} (tolerance {t})")
         ms = time_ms(torch, lambda: pa.paged_attention(
-            *args, active=inp["active"]))
+            *args, active=inp["active"], **sc))
         plain_ms = time_ms(torch, lambda: pa.paged_attention_plain(
-            *args, inp["active"]))
-        # yardstick: one library call on the gathered dense view
-        from deeplearning4j_tpu_torch.ops.attention import paged_gather
-
-        kd, vd = paged_gather(inp["k_pool"], inp["v_pool"],
-                              inp["page_table"])
-        S, Cq, H, hd = inp["q"].shape
-        L = kd.shape[-1]
-        qd = inp["q"].permute(0, 2, 1, 3).contiguous()      # (S, H, C, hd)
-        kt = kd.transpose(-1, -2).contiguous()             # (S, Hkv, L, hd)
-        qpos = inp["positions"][:, None].long() \
-            + torch.arange(Cq, device="cuda")[None, :]
-        mask = (torch.arange(L, device="cuda")[None, None, :]
-                <= qpos[:, :, None])[:, None]               # (S, 1, C, L)
-        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qd, kt, vd, attn_mask=mask))
+            *args, inp["active"], **sc))
+        lib_ms = time_ms(torch, sdpa_yardstick(torch, inp))
         host = host_us(torch, lambda: pa.paged_attention(
-            *args, active=inp["active"]))
+            *args, active=inp["active"], **sc))
         b_ms, b_by = bound_ms(inp)
         row = {"name": name, "route": "cuda",
                "source": "deeplearning4j_tpu_torch/csrc/paged_attention.cu",
-               "replaces": REPLACES, "launches": int(launches.get(C, 0)),
+               "replaces": REPLACES,
+               "launches": int(launches.get((sh["C"], kind), 0)),
                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+        extra = ""
+        if kind == "int8":  # the dense kernel on bf16 pools, same positions
+            dense = paged_inputs(torch, **kw)
+            dense_ms = time_ms(torch, lambda: pa.paged_attention(
+                dense["q"], dense["k_pool"], dense["v_pool"],
+                dense["page_table"], dense["positions"],
+                active=dense["active"]))
+            extra = f", dense kernel on bf16 pools {dense_ms:.4f} ms"
         log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-            f"max_abs_err {err:.3e}; wrapper host time {host:.1f} us/call")
+            f"max_abs_err {err:.3e}; wrapper host time {host:.1f} us/call"
+            f"{extra}")
         rows.append(row)
     return rows
 
@@ -854,32 +1103,35 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     card = nvidia_smi_line()
-    log(f"[1/9] card: {card}; {torch.cuda.get_device_name(0)}; torch "
+    log(f"[1/10] card: {card}; {torch.cuda.get_device_name(0)}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}; "
         f"{torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     built = cuda_build.build(KERNEL_SOURCES)
-    log(f"[2/9] build: {time.perf_counter() - t0:.1f} s for "
+    log(f"[2/10] build: {time.perf_counter() - t0:.1f} s for "
         f"{len(built)} source(s)")
     for name, res in built.items():
         for line in ptxas_summary(res.log):
             log(f"  {name}: {line}")
 
-    log("[3/9] paged kernels against their plain versions (TF32 off)")
+    log("[3/10] paged kernels against their plain versions (TF32 off)")
     phase_kernels(torch, pa)
-    log("[4/9] flash kernels against their plain versions (TF32 off)")
+    log("[4/10] flash kernels against their plain versions (TF32 off)")
     phase_flash(torch, fa)
-    log("[5/9] f32 DecodeEngine vs generate, 2 layers, d_model 1024")
+    log("[5/10] f32 DecodeEngine vs generate, 2 layers, d_model 1024")
     phase_parity(torch, M)
-    log("[6/9] f32 training, card (kernels) vs CPU (plain), 1 layer, "
+    log("[6/10] f32 training, card (kernels) vs CPU (plain), 1 layer, "
         "d_model 1024, T=1024")
     phase_train_parity(torch, M)
-    log("[7/9] serving the 8-layer bf16 GPT at full width")
+    log("[7/10] serving the 8-layer bf16 GPT at full width")
     launches = phase_serve(torch, M, pa, card)
-    log("[8/9] training the 8-layer bf16 gpt_long GPT at full width")
+    log("[8/10] serving it with int8 KV, the prefix cache and "
+        "self-speculation on shared-prefix traffic")
+    launches.update(phase_serve_tier(torch, M, pa, card))
+    log("[9/10] training the 8-layer bf16 gpt_long GPT at full width")
     flash_counts = phase_train(torch, M, card)
-    log("[9/9] timing at the serving and training shapes (bf16)")
+    log("[10/10] timing at the serving and training shapes (bf16)")
     rows = phase_timing(torch, pa, launches)
     rows += phase_flash_timing(torch, fa, flash_counts)
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -2,7 +2,7 @@
 // chunked-prefill chunk (C = prefill_chunk), on Hopper (sm_90a).
 //
 // Replaces the TPU kernel deeplearning4j_tpu/ops/pallas_paged_attention.py
-// ::_paged_kernel (dense branch). Same contract: q (S, C, H, hd); K pool
+// ::_paged_kernel, both branches. Same contract: q (S, C, H, hd); K pool
 // (P+1, Hkv, hd, page) and V pool (P+1, Hkv, page, hd), page 0 the trash
 // page; page_table (S, n_pages) int32; positions (S,) int32; active (S,)
 // bool or null. Row c of slot s attends to cache entries
@@ -11,6 +11,23 @@
 // tile, as (c, g). Inactive slots and fully masked rows give 0. f32 and
 // bf16; scores, the online-softmax state (m, l) and the accumulator are
 // f32; the output is written in q's type.
+//
+// Dense pools hold q's type. int8 pools (the quantized KV tier) come with
+// two f32 scale pools (P+1, Hkv, page), one scale per (page, head,
+// position): K[d, kk] = k_pool[pt, h, d, kk] * k_scale[pt, h, kk] and
+// V[kk, d] = v_pool[pt, h, kk, d] * v_scale[pt, h, kk]. The int8 kernel is
+// the dense kernel templated on the pool's element type. Where the
+// dequantization goes: each page's int8 K and V tiles and its two scale
+// rows are staged as they are (half the bf16 bytes, and two page buffers
+// fit at any supported shape), and an element is dequantized where the
+// inner loops read it: int8 -> f32, times its position's f32 scale,
+// rounded to q's type, back to f32 for the FMA. That is the rounding point
+// of the TPU kernel (dequantize, cast to the product's feed type, multiply
+// with f32 accumulation) and of the plain version
+// (ops/attention.py::paged_gather_quant), so kernel and plain agree to
+// the order of the sums. Folding the scales into the scores and into P
+// would save the per-element multiply but move that rounding point. int8
+// zeros (the trash page) dequantize to exactly 0 under any scale.
 //
 // Design. One block per (slot, KV head, tile of TR <= 16 query rows). The
 // block reads its own position and active flag (no scalar prefetch) and
@@ -37,6 +54,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -46,6 +65,7 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f32(int8_t v) { return (float)v; }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
@@ -76,20 +96,30 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Issue the copies of one K page and one V page (n elements each) as one
-// group. n * sizeof(T) is a multiple of 16 and every pointer is 16-byte
-// aligned (checked by the wrapper and by the shared-memory layout).
+// Start the copies of two arrays of n elements each (one K page and one V
+// page, or their two scale rows); the caller commits the group.
+// n * sizeof(T) is a multiple of 16 and every pointer is 16-byte aligned
+// (checked by the wrapper and by the shared-memory layout).
 template <typename T>
-__device__ __forceinline__ void stage_page(T* sK, T* sV, const T* k_src,
-                                           const T* v_src, int n) {
+__device__ __forceinline__ void stage_pair(T* dst_a, T* dst_b, const T* src_a,
+                                           const T* src_b, int n) {
   const int nv = n * (int)sizeof(T) / 16;
   for (int i = threadIdx.x; i < nv; i += blockDim.x) {
-    cp_async16(reinterpret_cast<int4*>(sK) + i,
-               reinterpret_cast<const int4*>(k_src) + i);
-    cp_async16(reinterpret_cast<int4*>(sV) + i,
-               reinterpret_cast<const int4*>(v_src) + i);
+    cp_async16(reinterpret_cast<int4*>(dst_a) + i,
+               reinterpret_cast<const int4*>(src_a) + i);
+    cp_async16(reinterpret_cast<int4*>(dst_b) + i,
+               reinterpret_cast<const int4*>(src_b) + i);
   }
-  cp_async_commit();
+}
+
+// One staged K or V element as the products take it: a dense element cast
+// up; an int8 element times its position's scale, rounded to q's type T.
+template <typename T, typename TK>
+__device__ __forceinline__ float kv_value(TK v, float scale) {
+  if constexpr (std::is_same<TK, int8_t>::value)
+    return to_f32(from_f32<T>((float)v * scale));
+  else
+    return to_f32(v);
 }
 
 // TR consecutive floats of shared memory, 16 bytes per load when TR % 4 == 0
@@ -123,25 +153,32 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Dynamic shared memory of one block: `stages` K and V page buffers, then
+// Dynamic shared memory of one block: `stages` K and V page buffers of
+// `elem`-byte elements, for int8 pools `stages` K and V scale rows, then
 // the f32 tiles q^T (hd, TR), scores (TR, page), probabilities^T
 // (page, TR), acc (TR, hd) and the per-row m, l, corr.
-size_t smem_bytes(size_t elem, int tr, int hd, int page, int stages) {
+size_t smem_bytes(size_t elem, bool quant, int tr, int hd, int page,
+                  int stages) {
   return (size_t)stages * 2 * hd * page * elem +
+         (quant ? (size_t)stages * 2 * page * sizeof(float) : 0) +
          ((size_t)2 * tr * hd + (size_t)2 * tr * page + 3 * (size_t)tr) *
              sizeof(float);
 }
 
-template <typename T, int TR, int STAGES>
+// T: the type of q and out; TK: the pools' element type, T or int8_t.
+template <typename T, typename TK, int TR, int STAGES>
 __global__ void __launch_bounds__(kThreads)
     paged_attention_kernel(const T* __restrict__ q,
-                           const T* __restrict__ k_pool,
-                           const T* __restrict__ v_pool,
+                           const TK* __restrict__ k_pool,
+                           const TK* __restrict__ v_pool,
+                           const float* __restrict__ k_scale,
+                           const float* __restrict__ v_scale,
                            const int* __restrict__ page_table,
                            const int* __restrict__ positions,
                            const unsigned char* __restrict__ active,
                            T* __restrict__ out, int C, int H, int Hkv, int hd,
                            int page, int n_pages, float sm_scale) {
+  constexpr bool kQuant = std::is_same<TK, int8_t>::value;
   const int s = blockIdx.x;
   const int h = blockIdx.y;
   const int G = H / Hkv;
@@ -151,9 +188,12 @@ __global__ void __launch_bounds__(kThreads)
   const size_t tile = (size_t)hd * page;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sK = reinterpret_cast<T*>(smem_raw);        // STAGES x (hd, page)
-  T* sV = sK + STAGES * tile;                    // STAGES x (page, hd)
-  float* sQt = reinterpret_cast<float*>(sV + STAGES * tile);  // (hd, TR)
+  TK* sK = reinterpret_cast<TK*>(smem_raw);      // STAGES x (hd, page)
+  TK* sV = sK + STAGES * tile;                   // STAGES x (page, hd)
+  // int8 pools: STAGES x (page,) K scales, then as many V scales
+  float* sKs = reinterpret_cast<float*>(sV + STAGES * tile);
+  float* sVs = sKs + (kQuant ? STAGES * page : 0);
+  float* sQt = sVs + (kQuant ? STAGES * page : 0);  // (hd, TR)
   float* sS = sQt + TR * hd;                     // (TR, page)
   float* sPt = sS + TR * page;                   // (page, TR)
   float* sAcc = sPt + TR * page;                 // (TR, hd)
@@ -179,10 +219,14 @@ __global__ void __launch_bounds__(kThreads)
   const int last_limit = p0 + (r0 + tr - 1) / G;
   const int n_live = min(n_pages, last_limit / page + 1);
   auto stage = [&](int j, int buf) {
-    const size_t src =
-        ((size_t)page_table[(size_t)s * n_pages + j] * Hkv + h) * tile;
-    stage_page(sK + buf * tile, sV + buf * tile, k_pool + src, v_pool + src,
-               (int)tile);
+    // (pool page, KV head) of logical page j: its tiles and scale rows
+    const size_t pg = (size_t)page_table[(size_t)s * n_pages + j] * Hkv + h;
+    stage_pair(sK + buf * tile, sV + buf * tile, k_pool + pg * tile,
+               v_pool + pg * tile, (int)tile);
+    if constexpr (std::is_same<TK, int8_t>::value)
+      stage_pair(sKs + buf * page, sVs + buf * page, k_scale + pg * page,
+                 v_scale + pg * page, page);
+    cp_async_commit();  // one group per page
   };
   stage(0, 0);  // the first page flies while q is staged
 
@@ -206,16 +250,20 @@ __global__ void __launch_bounds__(kThreads)
       cp_async_wait<0>();
     }
     __syncthreads();  // page j staged by every thread; q, m, l initialized
-    const T* cK = sK + buf * tile;
-    const T* cV = sV + buf * tile;
+    const TK* cK = sK + buf * tile;
+    const TK* cV = sV + buf * tile;
+    const float* cKs = sKs + buf * page;  // read only when kQuant
+    const float* cVs = sVs + buf * page;
 
     // scores (TR, page) = q . K * scale, masked by position
     for (int kk = tid; kk < page; kk += blockDim.x) {
       float a[TR];
 #pragma unroll
       for (int rr = 0; rr < TR; ++rr) a[rr] = 0.f;
+      float ksc = 1.f;
+      if constexpr (kQuant) ksc = cKs[kk];
       for (int d = 0; d < hd; ++d) {
-        const float kv = to_f32(cK[d * page + kk]);
+        const float kv = kv_value<T>(cK[d * page + kk], ksc);
         float qv[TR];
         load_row<TR>(qv, sQt + d * TR);
 #pragma unroll
@@ -262,7 +310,9 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int rr = 0; rr < TR; ++rr) a[rr] = sAcc[rr * hd + d] * sCorr[rr];
       for (int kk = 0; kk < page; ++kk) {
-        const float vv = to_f32(cV[kk * hd + d]);
+        float vsc = 1.f;
+        if constexpr (kQuant) vsc = cVs[kk];
+        const float vv = kv_value<T>(cV[kk * hd + d], vsc);
         float pv[TR];
         load_row<TR>(pv, sPt + kk * TR);
 #pragma unroll
@@ -298,93 +348,102 @@ int smem_optin_limit() {
   return limit;
 }
 
-template <typename T, int TR, int STAGES>
-int launch(const void* q, const void* k_pool, const void* v_pool,
-           const int* page_table, const int* positions,
-           const unsigned char* active, void* out, int S, int C, int H,
-           int Hkv, int hd, int page, int n_pages, float sm_scale,
-           cudaStream_t stream) {
-  const size_t smem = smem_bytes(sizeof(T), TR, hd, page, STAGES);
-  auto kern = paged_attention_kernel<T, TR, STAGES>;
+// One call's operands as the C entry points receive them.
+struct Call {
+  const void *q, *k_pool, *v_pool;
+  const float *k_scale, *v_scale;  // null for dense pools
+  const int *page_table, *positions;
+  const unsigned char* active;
+  void* out;
+  int S, C, H, Hkv, hd, page, n_pages;
+  float sm_scale;
+  cudaStream_t stream;
+};
+
+template <typename T, typename TK, int TR, int STAGES>
+int launch(const Call& c) {
+  constexpr bool kQuant = std::is_same<TK, int8_t>::value;
+  const size_t smem = smem_bytes(sizeof(TK), kQuant, TR, c.hd, c.page, STAGES);
+  auto kern = paged_attention_kernel<T, TK, TR, STAGES>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const int rows = C * (H / Hkv);
-  dim3 grid(S, Hkv, (rows + TR - 1) / TR);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), page_table, positions, active,
-      static_cast<T*>(out), C, H, Hkv, hd, page, n_pages, sm_scale);
+  const int rows = c.C * (c.H / c.Hkv);
+  dim3 grid(c.S, c.Hkv, (rows + TR - 1) / TR);
+  kern<<<grid, kThreads, smem, c.stream>>>(
+      static_cast<const T*>(c.q), static_cast<const TK*>(c.k_pool),
+      static_cast<const TK*>(c.v_pool), c.k_scale, c.v_scale, c.page_table,
+      c.positions, c.active, static_cast<T*>(c.out), c.C, c.H, c.Hkv, c.hd,
+      c.page, c.n_pages, c.sm_scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int TR>
-int launch_stages(const void* q, const void* k_pool, const void* v_pool,
-                  const int* page_table, const int* positions,
-                  const unsigned char* active, void* out, int S, int C, int H,
-                  int Hkv, int hd, int page, int n_pages, float sm_scale,
-                  cudaStream_t stream) {
+template <typename T, typename TK, int TR>
+int launch_stages(const Call& c) {
   // two page buffers (prefetch the next page during the current one's
   // math) where they fit, else one
-  if (smem_bytes(sizeof(T), TR, hd, page, 2) <= (size_t)smem_optin_limit())
-    return launch<T, TR, 2>(q, k_pool, v_pool, page_table, positions, active,
-                            out, S, C, H, Hkv, hd, page, n_pages, sm_scale,
-                            stream);
-  return launch<T, TR, 1>(q, k_pool, v_pool, page_table, positions, active,
-                          out, S, C, H, Hkv, hd, page, n_pages, sm_scale,
-                          stream);
+  constexpr bool kQuant = std::is_same<TK, int8_t>::value;
+  if (smem_bytes(sizeof(TK), kQuant, TR, c.hd, c.page, 2) <=
+      (size_t)smem_optin_limit())
+    return launch<T, TK, TR, 2>(c);
+  return launch<T, TK, TR, 1>(c);
 }
 
-template <typename T>
-int dispatch(int tr, const void* q, const void* k_pool, const void* v_pool,
-             const int* page_table, const int* positions,
-             const unsigned char* active, void* out, int S, int C, int H,
-             int Hkv, int hd, int page, int n_pages, float sm_scale,
-             cudaStream_t stream) {
-#define DL4J_PA_LAUNCH(N)                                                    \
-  return launch_stages<T, N>(q, k_pool, v_pool, page_table, positions,       \
-                             active, out, S, C, H, Hkv, hd, page, n_pages,    \
-                             sm_scale, stream)
-  switch (tr) {
-    case 16: DL4J_PA_LAUNCH(16);
-    case 8: DL4J_PA_LAUNCH(8);
-    case 4: DL4J_PA_LAUNCH(4);
-    case 2: DL4J_PA_LAUNCH(2);
-    default: DL4J_PA_LAUNCH(1);
+template <typename T, typename TK>
+int dispatch(const Call& c) {
+  switch (tile_rows(c.C * (c.H / c.Hkv))) {
+    case 16: return launch_stages<T, TK, 16>(c);
+    case 8: return launch_stages<T, TK, 8>(c);
+    case 4: return launch_stages<T, TK, 4>(c);
+    case 2: return launch_stages<T, TK, 2>(c);
+    default: return launch_stages<T, TK, 1>(c);
   }
-#undef DL4J_PA_LAUNCH
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the launch.
+// Dense pools of q's type. dtype: 0 = float32, 1 = bfloat16. Returns the
+// cudaError_t of the launch.
 int dl4j_paged_attention(const void* q, const void* k_pool,
                          const void* v_pool, const int* page_table,
                          const int* positions, const unsigned char* active,
                          void* out, int dtype, int S, int C, int H, int Hkv,
                          int hd, int page, int n_pages, float sm_scale,
                          void* stream) {
-  const int tr = tile_rows(C * (H / Hkv));
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(tr, q, k_pool, v_pool, page_table,
-                                   positions, active, out, S, C, H, Hkv, hd,
-                                   page, n_pages, sm_scale, st);
-  return dispatch<float>(tr, q, k_pool, v_pool, page_table, positions,
-                         active, out, S, C, H, Hkv, hd, page, n_pages,
-                         sm_scale, st);
+  const Call c{q, k_pool, v_pool, nullptr, nullptr, page_table, positions,
+               active, out, S, C, H, Hkv, hd, page, n_pages, sm_scale,
+               static_cast<cudaStream_t>(stream)};
+  if (dtype == 1) return dispatch<__nv_bfloat16, __nv_bfloat16>(c);
+  return dispatch<float, float>(c);
+}
+
+// int8 pools with their f32 scale pools (P+1, Hkv, page); q and out of
+// `dtype` as above. Returns the cudaError_t of the launch.
+int dl4j_paged_attention_int8(const void* q, const void* k_pool,
+                              const void* v_pool, const float* k_scale,
+                              const float* v_scale, const int* page_table,
+                              const int* positions,
+                              const unsigned char* active, void* out,
+                              int dtype, int S, int C, int H, int Hkv, int hd,
+                              int page, int n_pages, float sm_scale,
+                              void* stream) {
+  const Call c{q, k_pool, v_pool, k_scale, v_scale, page_table, positions,
+               active, out, S, C, H, Hkv, hd, page, n_pages, sm_scale,
+               static_cast<cudaStream_t>(stream)};
+  if (dtype == 1) return dispatch<__nv_bfloat16, int8_t>(c);
+  return dispatch<float, int8_t>(c);
 }
 
 // Dynamic shared memory one block of this launch needs at least (one page
-// buffer), in bytes.
-size_t dl4j_paged_attention_smem_bytes(int dtype, int C, int H, int Hkv,
-                                       int hd, int page) {
-  return smem_bytes(dtype == 1 ? 2 : 4, tile_rows(C * (H / Hkv)), hd, page,
-                    1);
+// buffer), in bytes. int8: 1 for int8 pools, 0 for pools of q's type.
+size_t dl4j_paged_attention_smem_bytes(int dtype, int int8, int C, int H,
+                                       int Hkv, int hd, int page) {
+  const size_t elem = int8 ? 1 : dtype == 1 ? 2 : 4;
+  return smem_bytes(elem, int8 != 0, tile_rows(C * (H / Hkv)), hd, page, 1);
 }
 
 }  // extern "C"

@@ -285,6 +285,24 @@ def paged_gather(k_pool, v_pool, page_table):
     return k, v
 
 
+def paged_gather_quant(k_pool, v_pool, k_scale, v_scale, page_table,
+                       dtype: torch.dtype = torch.float32):
+    """`paged_gather` over int8 pools: gather the int8 pages and their
+    per-(head, position) f32 scale pages (`k_scale`/`v_scale`:
+    (P+1, Hkv, page), riding the same page table), dequantize in f32 and
+    return dense caches rounded to `dtype`. int8 zeros (the trash page)
+    dequantize to exactly 0.0 under any scale."""
+    P, Hkv, D, page = k_pool.shape
+    S, n_pages = page_table.shape
+    L = n_pages * page
+    idx = page_table.long()
+    k = k_pool[idx].float() * k_scale[idx][:, :, :, None, :]
+    k = k.permute(0, 2, 3, 1, 4).reshape(S, Hkv, D, L)
+    v = v_pool[idx].float() * v_scale[idx][..., None]
+    v = v.permute(0, 2, 1, 3, 4).reshape(S, Hkv, L, D)
+    return k.to(dtype), v.to(dtype)
+
+
 def paged_attention_step(q, k_pool, v_pool, page_table, pos) -> torch.Tensor:
     """One decode step against a paged pool: gather, then
     `cached_attention_step` on the dense view. Returns (S, H*D)."""
@@ -298,41 +316,35 @@ def _positions(pos, S: int, device) -> torch.Tensor:
     return torch.full((S,), int(pos), dtype=torch.int32, device=device)
 
 
-def _no_int8(k_scale, v_scale):
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "int8 KV pools (k_scale/v_scale) are not ported yet "
-            "(ROADMAP: kernel row 1q, with the quantize tier)")
-
-
 def paged_attention_step_auto(q, k_pool, v_pool, page_table, pos,
                               active=None, k_scale=None,
                               v_scale=None) -> torch.Tensor:
     """Paged decode attention on the serving path: q (S, H, D), per-slot
     positions `pos` (S,) int32, optional `active` (S,) bool (False lanes
-    give zeros). A CUDA tensor goes to the CUDA kernel, a CPU tensor to
-    its plain version. Returns (S, H*D)."""
+    give zeros). int8 pools pass their f32 scale pools as
+    `k_scale`/`v_scale` ((P+1, Hkv, page)). A CUDA tensor goes to the
+    CUDA kernel, a CPU tensor to its plain version. Returns (S, H*D)."""
     from deeplearning4j_tpu_torch.ops.paged_attention import paged_attention
 
-    _no_int8(k_scale, v_scale)
     S, H, D = q.shape
     out = paged_attention(q[:, None].contiguous(), k_pool, v_pool,
                           page_table, _positions(pos, S, q.device),
-                          active=active)
+                          active=active, k_scale=k_scale, v_scale=v_scale)
     return out.reshape(S, H * D)
 
 
 def paged_attention_chunk_auto(q, k_pool, v_pool, page_table, pos0,
                                active=None, k_scale=None,
                                v_scale=None) -> torch.Tensor:
-    """Chunk-width paged attention (chunked prefill): q (S, C, H, D),
-    C contiguous queries per slot from position `pos0[s]`; row c attends
-    to entries <= pos0[s] + c. Dispatches like
-    `paged_attention_step_auto`. Returns (S, C, H*D)."""
+    """Chunk-width paged attention (chunked prefill, speculative
+    verify): q (S, C, H, D), C contiguous queries per slot from position
+    `pos0[s]`; row c attends to entries <= pos0[s] + c. Dispatches and
+    takes int8 pools like `paged_attention_step_auto`. Returns
+    (S, C, H*D)."""
     from deeplearning4j_tpu_torch.ops.paged_attention import paged_attention
 
-    _no_int8(k_scale, v_scale)
     S, C, H, D = q.shape
     out = paged_attention(q.contiguous(), k_pool, v_pool, page_table,
-                          _positions(pos0, S, q.device), active=active)
+                          _positions(pos0, S, q.device), active=active,
+                          k_scale=k_scale, v_scale=v_scale)
     return out.reshape(S, C, H * D)

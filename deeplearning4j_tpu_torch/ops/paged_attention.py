@@ -1,24 +1,27 @@
-"""Paged attention: the hand-written CUDA kernel, its wrapper, and its
-plain PyTorch version.
+"""Paged attention: the hand-written CUDA kernels, their wrapper, and
+their plain PyTorch version.
 
 Counterpart of `deeplearning4j_tpu/ops/pallas_paged_attention.py`: the
 TPU kernel `_paged_kernel` becomes `csrc/paged_attention.cu` (route:
-CUDA C++ for sm_90a, plain C interface, loaded with ctypes). The
-source's header says how it is laid out and what bounds it.
+CUDA C++ for sm_90a, plain C interface, loaded with ctypes), one kernel
+template with two families: dense pools of q's type, and int8 pools
+with f32 scale pools (the quantized KV tier), dequantized inside the
+page walk. The source's header says how it is laid out, where the
+dequantization goes and what bounds it.
 
 `paged_attention` is the one entry point. Given CUDA tensors it checks
 them, allocates the output and launches the kernel on the current
 stream, raising if the launch fails. Given CPU tensors it runs
-`paged_attention_plain`: `paged_gather` followed by the
-`cached_attention_chunk` semantics of the JAX package's CPU path, with
-inactive lanes zeroed so that kernel and plain agree on every row. There
-is no probe, no fallback from the kernel to the plain version and no
-switch to turn the kernel off.
+`paged_attention_plain`: `paged_gather` (or `paged_gather_quant`)
+followed by the `cached_attention_chunk` semantics of the JAX package's
+CPU path, with inactive lanes zeroed so that kernel and plain agree on
+every row. There is no probe, no fallback from the kernel to the plain
+version and no switch to turn the kernel off.
 
 Each function keeps a plain integer count: `paged_attention.launches`
-(kernel launches, and `launches_by_chunk` keyed by the chunk width C)
-and `paged_attention_plain.calls`. A run can set them to 0 and read them
-after to show which path it took.
+(kernel launches; `launches_by` splits them by `(C, kind)`, the chunk
+width and "dense" or "int8") and `paged_attention_plain.calls`. A run
+can set them to 0 and read them after to show which path it took.
 """
 from __future__ import annotations
 
@@ -31,26 +34,39 @@ import torch
 from deeplearning4j_tpu_torch.ops.attention import (
     cached_attention_chunk_batched,
     paged_gather,
+    paged_gather_quant,
 )
 
 # atol = rtol of the kernel against `paged_attention_plain` computed in f32
 # on the same inputs (bf16 inputs cast up exactly). The kernel keeps scores,
 # softmax state and accumulator in f32, so in bf16 it differs from that
 # reference by the output's rounding (at most 2^-9 relative) and little else.
+# The int8 kernel is held to the same numbers against the plain version that
+# rounds the dequantized K/V to q's type, as the kernel does (`kv_dtype`).
 TOLERANCE = {torch.float32: 2e-4, torch.bfloat16: 4e-3}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def paged_attention_plain(q, k_pool, v_pool, page_table, positions,
-                          active=None) -> torch.Tensor:
+                          active=None, k_scale=None, v_scale=None,
+                          kv_dtype: Optional[torch.dtype] = None
+                          ) -> torch.Tensor:
     """Plain PyTorch paged attention: q (S, C, H, hd) against the pools
     through `page_table`, row c of slot s attending to entries
-    <= positions[s] + c; inactive lanes give zeros. Returns
+    <= positions[s] + c; inactive lanes give zeros. int8 pools come with
+    their scale pools and are dequantized by `paged_gather_quant`, the
+    dequantized values rounded to `kv_dtype` (default: q's type, the
+    JAX package's rounding point) before the products. Returns
     (S, C, H, hd) in q's dtype."""
     paged_attention_plain.calls += 1
     S, C, H, hd = q.shape
-    kd, vd = paged_gather(k_pool, v_pool, page_table)
+    if k_scale is not None:
+        kd, vd = paged_gather_quant(k_pool, v_pool, k_scale, v_scale,
+                                    page_table, kv_dtype or q.dtype)
+        kd, vd = kd.to(q.dtype), vd.to(q.dtype)
+    else:
+        kd, vd = paged_gather(k_pool, v_pool, page_table)
     qpos = positions.to(torch.int64)[:, None] \
         + torch.arange(C, device=q.device)[None, :]
     out = cached_attention_chunk_batched(q, kd, vd, qpos).reshape(q.shape)
@@ -62,7 +78,8 @@ def paged_attention_plain(q, k_pool, v_pool, page_table, positions,
 paged_attention_plain.calls = 0
 
 
-def _check(q, k_pool, v_pool, page_table, positions, active):
+def _check(q, k_pool, v_pool, page_table, positions, active, k_scale,
+           v_scale):
     S, C, H, hd = q.shape
     if k_pool.ndim != 4 or v_pool.ndim != 4:
         raise ValueError("k_pool/v_pool must be (P+1, Hkv, hd, page) / "
@@ -83,31 +100,49 @@ def _check(q, k_pool, v_pool, page_table, positions, active):
     if active is not None and tuple(active.shape) != (S,):
         raise ValueError(f"active must be (S={S},), got "
                          f"{tuple(active.shape)}")
-    return S, C, H, hd, Hkv, page, page_table.shape[1]
+    int8 = k_pool.dtype == torch.int8 or v_pool.dtype == torch.int8
+    if int8 != (k_scale is not None) or int8 != (v_scale is not None):
+        raise ValueError("int8 pools need both k_scale and v_scale, and "
+                         "pools of any other type take neither")
+    if int8:
+        if k_pool.dtype != v_pool.dtype:
+            raise TypeError(f"int8 pools must both be int8, got "
+                            f"{k_pool.dtype} / {v_pool.dtype}")
+        for name, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if tuple(sc.shape) != (P1, Hkv, page):
+                raise ValueError(f"{name} must be (P+1, Hkv, page) = "
+                                 f"{(P1, Hkv, page)}, got {tuple(sc.shape)}")
+            if sc.dtype != torch.float32:
+                raise TypeError(f"{name} must be float32, got {sc.dtype}")
+    return S, C, H, hd, Hkv, page, page_table.shape[1], int8
 
 
 def paged_attention(q, k_pool, v_pool, page_table, positions, *,
-                    active: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Paged attention for the decode step (C = 1) and chunked prefill
-    (C = prefill_chunk). `q`: (S, C, H, hd); `k_pool`/`v_pool`:
-    (P+1, Hkv, hd, page) / (P+1, Hkv, page, hd); `page_table`:
-    (S, n_pages) int32; `positions`: (S,) int32; `active`: optional (S,)
-    bool. Returns (S, C, H, hd) in q's dtype."""
-    S, C, H, hd, Hkv, page, n_pages = _check(q, k_pool, v_pool, page_table,
-                                             positions, active)
+                    active: Optional[torch.Tensor] = None,
+                    k_scale: Optional[torch.Tensor] = None,
+                    v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Paged attention for the decode step (C = 1), the speculative
+    verify (C = k + 1) and chunked prefill (C = prefill_chunk). `q`:
+    (S, C, H, hd) f32 or bf16; `k_pool`/`v_pool`: (P+1, Hkv, hd, page) /
+    (P+1, Hkv, page, hd), of q's type, or int8 with `k_scale`/`v_scale`
+    (P+1, Hkv, page) f32; `page_table`: (S, n_pages) int32; `positions`:
+    (S,) int32; `active`: optional (S,) bool. Returns (S, C, H, hd) in
+    q's dtype."""
+    S, C, H, hd, Hkv, page, n_pages, int8 = _check(
+        q, k_pool, v_pool, page_table, positions, active, k_scale, v_scale)
     tensors = [q, k_pool, v_pool, page_table, positions] \
-        + ([] if active is None else [active])
+        + [t for t in (active, k_scale, v_scale) if t is not None]
     if all(t.device.type == "cpu" for t in tensors):
         return paged_attention_plain(q, k_pool, v_pool, page_table,
-                                     positions, active)
+                                     positions, active, k_scale, v_scale)
     if any(t.device != q.device for t in tensors) or q.device.type != "cuda":
         raise ValueError("paged_attention: all tensors must lie on one CUDA "
                          "device, or all on the CPU; got "
                          f"{sorted({str(t.device) for t in tensors})}")
-    if q.dtype not in _DTYPE_CODE or k_pool.dtype != q.dtype \
-            or v_pool.dtype != q.dtype:
+    if q.dtype not in _DTYPE_CODE or not (
+            int8 or (k_pool.dtype == q.dtype and v_pool.dtype == q.dtype)):
         raise TypeError(f"paged_attention kernel takes f32 or bf16 q and "
-                        f"pools of the same type, got {q.dtype} / "
+                        f"pools of the same type or int8, got {q.dtype} / "
                         f"{k_pool.dtype} / {v_pool.dtype}")
     if page_table.dtype != torch.int32 or positions.dtype != torch.int32:
         raise TypeError("page_table and positions must be int32")
@@ -115,41 +150,57 @@ def paged_attention(q, k_pool, v_pool, page_table, positions, *,
         raise TypeError(f"active must be bool, got {active.dtype}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_attention kernel takes contiguous tensors")
-    if (hd * page * q.element_size()) % 16:
-        raise ValueError(f"hd*page*itemsize = {hd * page * q.element_size()} "
-                         "must be a multiple of 16 bytes (16-byte page loads)")
+    # the kernel stages each page tile, and each int8 page's scale row, with
+    # 16-byte copies: every tile and row must start and end on 16 bytes
+    if (hd * page * k_pool.element_size()) % 16:
+        raise ValueError(
+            f"hd*page*itemsize = {hd * page * k_pool.element_size()} "
+            "must be a multiple of 16 bytes (16-byte page loads)")
+    if int8 and (page * 4) % 16:
+        raise ValueError(f"page*4 = {page * 4} bytes per scale row must be a "
+                         "multiple of 16 (16-byte scale-row loads)")
+    if any(t.data_ptr() % 16 for t in (k_pool, v_pool, k_scale, v_scale)
+           if t is not None):
+        raise ValueError("paged_attention kernel takes pools and scale pools "
+                         "that start on a 16-byte boundary")
     lib = _library()
     from deeplearning4j_tpu_torch.ops.kernel_dispatch import smem_limit_bytes
 
     code = _DTYPE_CODE[q.dtype]
-    smem = lib.dl4j_paged_attention_smem_bytes(code, C, H, Hkv, hd, page)
+    smem = lib.dl4j_paged_attention_smem_bytes(code, int(int8), C, H, Hkv,
+                                               hd, page)
     limit = smem_limit_bytes(q.device)
     if smem > limit:
         raise ValueError(
             f"paged_attention kernel needs {smem} bytes of shared memory per "
-            f"block at hd={hd}, page={page}, {q.dtype}; the card allows "
-            f"{limit}")
+            f"block at hd={hd}, page={page}, q {q.dtype}, pools "
+            f"{k_pool.dtype}; the card allows {limit}")
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.dl4j_paged_attention(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            page_table.data_ptr(), positions.data_ptr(),
-            None if active is None else active.data_ptr(), out.data_ptr(),
-            code, S, C, H, Hkv, hd, page, n_pages,
-            1.0 / math.sqrt(hd), stream)
+        head = (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr())
+        tail = (page_table.data_ptr(), positions.data_ptr(),
+                None if active is None else active.data_ptr(), out.data_ptr(),
+                code, S, C, H, Hkv, hd, page, n_pages, 1.0 / math.sqrt(hd),
+                stream)
+        if int8:
+            rc = lib.dl4j_paged_attention_int8(
+                *head, k_scale.data_ptr(), v_scale.data_ptr(), *tail)
+        else:
+            rc = lib.dl4j_paged_attention(*head, *tail)
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA error "
                            f"{rc} (S={S}, C={C}, H={H}, Hkv={Hkv}, hd={hd}, "
-                           f"page={page}, smem={smem})")
+                           f"page={page}, pools {k_pool.dtype}, smem={smem})")
+    key = (C, "int8" if int8 else "dense")
     paged_attention.launches += 1
-    paged_attention.launches_by_chunk[C] = \
-        paged_attention.launches_by_chunk.get(C, 0) + 1
+    paged_attention.launches_by[key] = \
+        paged_attention.launches_by.get(key, 0) + 1
     return out
 
 
 paged_attention.launches = 0
-paged_attention.launches_by_chunk = {}
+paged_attention.launches_by = {}
 
 
 def _library() -> ctypes.CDLL:
@@ -162,8 +213,11 @@ def _library() -> ctypes.CDLL:
         fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
                        ci, ci, ctypes.c_float, vp]
         fn.restype = ci
+        fq = lib.dl4j_paged_attention_int8
+        fq.argtypes = fn.argtypes[:3] + [vp, vp] + fn.argtypes[3:]
+        fq.restype = ci
         sm = lib.dl4j_paged_attention_smem_bytes
-        sm.argtypes = [ci] * 6
+        sm.argtypes = [ci] * 7
         sm.restype = ctypes.c_size_t
     return lib
 
@@ -172,5 +226,5 @@ def reset_counts() -> None:
     """Set the kernel's launch counts and the plain version's call count
     to 0."""
     paged_attention.launches = 0
-    paged_attention.launches_by_chunk = {}
+    paged_attention.launches_by = {}
     paged_attention_plain.calls = 0

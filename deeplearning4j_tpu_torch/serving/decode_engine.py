@@ -15,6 +15,23 @@ over slotted iteration-level scheduling (counterpart of
   returns them at retirement, expiry or failure. Past
   `max_queued_pages` of queued demand, `submit` sheds with the typed
   `OutOfPagesError`.
+- **int8 KV** (`quantize={"kv": "int8"}`, `serving/quantize.py`): the
+  pools hold int8 elements plus f32 scale pools `(P+1, Hkv, page)` riding
+  the same page table; K/V are quantized per (head, position) at every
+  cache write and dequantized at the read site, inside the int8 kernel's
+  page walk on the card.
+- **Prefix cache** (`prefix_cache=True` or a dict of
+  `serving.prefix_cache.PrefixCache` arguments): prompts sharing a
+  page-aligned prefix bind the SAME resident pool pages; a hit request
+  prefills only from its first uncached page boundary, through the
+  chunk path. Cached pages are refcounted, never written, and reclaimed
+  LRU-first when the free list cannot cover an admission.
+- **Speculative decoding** (`speculative={"draft": net | "self" | config
+  dict, "k": 4}`, `serving.speculative.SpeculativeDecoder`): a draft
+  model proposes k tokens per slot and the target verifies them in one
+  (k+1)-wide chunk per slot; greedy emission stays equal to `generate`
+  for any draft. The draft keeps its own pools behind the same page
+  table.
 - **One decode step advances every slot**; per-slot positions and an
   active mask make one step correct for any mix of lengths. With
   `decode_chunk > 1` the scheduler runs up to that many steps back to
@@ -32,10 +49,9 @@ Greedy decode equals whole-batch `models.transformer.generate` (the two
 share the per-block helpers) regardless of admission order, page/slot
 reuse or prefill chunking.
 
-Not ported yet (ROADMAP): prefix cache, speculative decoding, int8 KV,
-tensor parallelism, QoS, KV handoff and migration, logprobs, breaker
-and observability. Passing any of those options raises
-`NotImplementedError`.
+Not ported yet (ROADMAP queue A11): tensor parallelism, QoS, KV handoff
+and migration, logprobs, breaker, observability and `drain_and_swap`.
+Passing any of those options raises `NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -57,14 +73,19 @@ from deeplearning4j_tpu_torch.serving.model_server import (
     ServingError,
     _bucket,
 )
+from deeplearning4j_tpu_torch.serving.quantize import (
+    _write_scale_pages,
+    kv_bytes_per_token,
+    quantize_heads,
+)
+from deeplearning4j_tpu_torch.util.concurrency import assert_owned
 
 logger = logging.getLogger("deeplearning4j_tpu_torch")
 
 # JAX DecodeEngine options this port does not carry yet, with their
 # defaults; any other value raises NotImplementedError
 _UNPORTED_OPTIONS = {
-    "breaker": None, "prefix_cache": None, "speculative": None,
-    "recorder": None, "metrics": None, "quantize": None, "excursion": None,
+    "breaker": None, "recorder": None, "metrics": None, "excursion": None,
     "parallel": None, "qos": None, "role": "both", "handoff_ttl": 30.0,
     "logprobs": 0,
 }
@@ -79,8 +100,8 @@ def _refuse_unported(where: str, given: dict, table: dict) -> None:
                             f"{name!r}")
         if value != table[name]:
             raise NotImplementedError(
-                f"{where}({name}=...) is not ported yet (ROADMAP queue A8 "
-                "latency/quantization tier, A11 serving cluster tier)")
+                f"{where}({name}=...) is not ported yet (ROADMAP queue "
+                "A11: serving cluster tier)")
 
 
 class _GenRequest:
@@ -88,10 +109,15 @@ class _GenRequest:
     prefilled one-shot or chunk by chunk) -> decoding -> (completed |
     expired | failed). `n_pages` is the reservation taken at submit,
     `pages` the pool pages held from admission to retirement,
-    `prefill_pos` the next chunk offset while mid-prefill."""
+    `prefill_pos` the next chunk offset while mid-prefill. With a prefix
+    cache, `hit_len` prompt positions ride shared pages: the first
+    `n_shared` entries of `pages`, refcounted through `nodes`; only
+    `pages[n_shared:]` are this request's to free. `digests` memoizes
+    the prompt's per-page digests."""
 
     __slots__ = ("prompt", "n_tokens", "temperature", "seed", "deadline",
-                 "event", "tokens", "error", "n_pages", "pages", "prefill_pos")
+                 "event", "tokens", "error", "n_pages", "pages", "prefill_pos",
+                 "hit_len", "n_shared", "nodes", "digests")
 
     def __init__(self, prompt: np.ndarray, n_tokens: int,
                  temperature: float, seed: int, deadline: Optional[float]):
@@ -106,6 +132,10 @@ class _GenRequest:
         self.n_pages = 0
         self.pages: Optional[List[int]] = None
         self.prefill_pos: Optional[int] = None
+        self.hit_len = 0
+        self.n_shared = 0
+        self.nodes: Optional[list] = None
+        self.digests: list = []
 
     def expired(self, now: Optional[float] = None) -> bool:
         return self.deadline is not None and \
@@ -150,6 +180,63 @@ def _write_pages(kp, vp, kcol, vrow, wpids, woff: int, page: int) -> None:
         vp[wpids[nfull], :, woff:woff + rem, :] = vrow[0, :, nfull * page:, :]
 
 
+def _new_pools(plan, pool_pages: int, page: int, kv_quant: Optional[str],
+               device) -> list:
+    """Fresh paged pools for every block of `plan`: (K, V) in the compute
+    dtype, or for int8 KV (K, V, K scales, V scales) with int8 payloads
+    and f32 scale pools (P+1, Hkv, page). +1: page 0 is the trash page
+    for masked writes. Scales start at 1.0, so an unwritten entry
+    dequantizes to exactly 0.0 in one multiply, as a real all-zero write
+    would."""
+    P = pool_pages
+    caches = []
+    for hkv, hd in plan.kv_geometry():
+        dt = torch.int8 if kv_quant else plan.cdt
+        cache = (torch.zeros((P + 1, hkv, hd, page), dtype=dt, device=device),
+                 torch.zeros((P + 1, hkv, page, hd), dtype=dt, device=device))
+        if kv_quant:
+            cache += tuple(torch.ones((P + 1, hkv, page), dtype=torch.float32,
+                                      device=device) for _ in range(2))
+        caches.append(cache)
+    return caches
+
+
+def _scales(cache) -> dict:
+    """The scale-pool keywords of one block's pools for the `*_auto`
+    attention entries: empty for dense pools."""
+    return {"k_scale": cache[2], "v_scale": cache[3]} if len(cache) == 4 \
+        else {}
+
+
+def _write_span(cache, kcol, vrow, wpids, woff: int, page: int) -> None:
+    """Write one prefill span into one block's pools, in place
+    (`_write_pages`); int8 pools take the span quantized per (head,
+    position) and its scales (`quantize._write_scale_pages`)."""
+    if len(cache) == 4:
+        kcol, kscol = quantize_heads(kcol, axis=2)
+        vrow, vscol = quantize_heads(vrow, axis=3)
+        _write_scale_pages(cache[2], kscol, wpids, woff, page)
+        _write_scale_pages(cache[3], vscol, wpids, woff, page)
+    _write_pages(cache[0], cache[1], kcol, vrow, wpids, woff, page)
+
+
+def _write_step(cache, pids, loff, k, v) -> None:
+    """Write one position per slot, k/v (S, Hkv, hd), at in-page offsets
+    `loff` of pool pages `pids`, in place (where the JAX package donates
+    the pools through jit). Masked lanes all land on trash page 0:
+    duplicate indices there are harmless, nothing reads page 0 unmasked.
+    int8 pools take the write quantized per head; the scale lands at the
+    SAME (page, head, offset) as the payload, so the trash page masks
+    both together."""
+    if len(cache) == 4:
+        k, ksc = quantize_heads(k)
+        v, vsc = quantize_heads(v)
+        cache[2][pids, :, loff] = ksc
+        cache[3][pids, :, loff] = vsc
+    cache[0][pids, :, :, loff] = k
+    cache[1][pids, :, loff, :] = v
+
+
 def _dispatched(thunk):
     """Run one device dispatch including its host read-back, tagging any
     exception so the caller can tell a failed dispatch (which may have
@@ -174,8 +261,10 @@ class DecodeEngine:
     `eos_token` retires a slot early; `top_k` applies to sampled
     requests; `step_hooks` are called as `hook(phase, info)` around
     prefill and decode dispatches; `decode_chunk` the longest run of
-    decode steps between token read-backs. `device` defaults to the card
-    and must be the network's device."""
+    decode steps between token read-backs (ignored under `speculative`:
+    the verify step is the multi-token dispatch). `prefix_cache`,
+    `speculative` and `quantize` as in the module docstring. `device`
+    defaults to the card and must be the network's device."""
 
     def __init__(self, net, *, n_slots: int = 4,
                  max_len: Optional[int] = None,
@@ -191,6 +280,9 @@ class DecodeEngine:
                  top_k: int = 0,
                  step_hooks: Sequence[Callable] = (),
                  decode_chunk: int = 4,
+                 prefix_cache=None,
+                 speculative: Optional[dict] = None,
+                 quantize: Optional[dict] = None,
                  device="cuda",
                  **options):
         from deeplearning4j_tpu_torch.ops.kernel_dispatch import (
@@ -214,6 +306,18 @@ class DecodeEngine:
             raise ValueError("pool_pages must be >= 1")
         if max_queued_pages is not None and max_queued_pages < 0:
             raise ValueError("max_queued_pages must be >= 0")
+        if quantize is not None:
+            unknown = set(quantize) - {"kv"}
+            if unknown:
+                raise ValueError("unknown quantize keys: %s"
+                                 % sorted(unknown))
+            if quantize.get("kv") not in (None, "int8"):
+                raise ValueError("quantize['kv'] must be 'int8', got %r"
+                                 % (quantize.get("kv"),))
+        self._kv_quant = "int8" if quantize and quantize.get("kv") == "int8" \
+            else None
+        self._prefix_cache_cfg = prefix_cache
+        self._speculative_cfg = dict(speculative) if speculative else None
         self.device = resolve_device(device)
         if net.device != self.device:
             raise ValueError(f"DecodeEngine on {self.device} but the network "
@@ -253,6 +357,15 @@ class DecodeEngine:
         self.active_slot_steps = 0  # guarded by: _cond
         self.tokens_generated = 0  # guarded by: _cond
         self.pages_in_use_peak = 0  # guarded by: _cond
+        # latency-tier counters (prefix cache + speculative decoding)
+        self.prompt_tokens = 0  # guarded by: _cond
+        self.prefix_hits = 0  # guarded by: _cond
+        self.prefix_misses = 0  # guarded by: _cond
+        self.prefix_hit_tokens = 0  # guarded by: _cond
+        self.spec_steps = 0  # guarded by: _cond
+        self.spec_proposed = 0  # guarded by: _cond
+        self.spec_accepted = 0  # guarded by: _cond
+        self.spec_emitted = 0  # guarded by: _cond
         self._build(net)
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="decode-engine-scheduler")
@@ -301,26 +414,54 @@ class DecodeEngine:
         self._L_logical = L_logical
         self.prompt_buckets = buckets
         itemsize = torch.empty((), dtype=plan.cdt).element_size()
-        self._kv_bytes_per_token = sum(2 * hkv * hd * itemsize
-                                       for hkv, hd in plan.kv_geometry())
+        self._kv_quant_bits = 8 if self._kv_quant else 8 * itemsize
+        self._kv_bytes_per_token = kv_bytes_per_token(
+            plan.kv_geometry(), self._kv_quant, itemsize)
         self._rows = torch.arange(S, device=self.device)
+        # latency tier: prefix cache + speculative decoder are built with
+        # the geometry
+        self._prefix_cache = None
+        if self._prefix_cache_cfg is not None \
+                and self._prefix_cache_cfg is not False:
+            from deeplearning4j_tpu_torch.serving.prefix_cache import (
+                PrefixCache,
+            )
+
+            pc_kw = {} if self._prefix_cache_cfg is True \
+                else dict(self._prefix_cache_cfg)
+            self._prefix_cache = PrefixCache(page, **pc_kw) \
+                .bind_guard(self._cond)
+        self._spec = None
+        if self._speculative_cfg is not None:
+            from deeplearning4j_tpu_torch.serving.speculative import (
+                SpeculativeDecoder,
+                resolve_draft_net,
+            )
+
+            cfg = dict(self._speculative_cfg)
+            draft = cfg.pop("draft", None)
+            if draft is None:
+                draft = cfg.pop("net", None)  # alias; both given ->
+                # "net" survives into the unknown-option check below
+            k = int(cfg.pop("k", 4))
+            if cfg:
+                raise ValueError(
+                    f"unknown speculative options {sorted(cfg)}")
+            self._spec = SpeculativeDecoder(
+                target_plan=plan, target_net=net,
+                draft_net=resolve_draft_net(draft, net), k=k, n_slots=S,
+                page=page, L_logical=L_logical, pool_pages=pool_pages,
+                top_k=self.top_k, kv_quant=self._kv_quant,
+                target_bparams=self._bparams)
         self._reset_device_state()
 
     def _reset_device_state(self) -> None:
         """Fresh page pools, page table and per-slot state. Callers
         guarantee no slot holds a request; queued requests keep their
         reservations (they hold no device state)."""
-        plan, S, dev = self._plan, self.n_slots, self.device
-        page, P = self.page_size, self.pool_pages
-        caches = []
-        for hkv, hd in plan.kv_geometry():
-            # +1: page 0 is the trash page for masked writes
-            caches.append(
-                (torch.zeros((P + 1, hkv, hd, page), dtype=plan.cdt,
-                             device=dev),
-                 torch.zeros((P + 1, hkv, page, hd), dtype=plan.cdt,
-                             device=dev)))
-        self._caches = caches
+        S, dev, P = self.n_slots, self.device, self.pool_pages
+        self._caches = _new_pools(self._plan, P, self.page_size,
+                                  self._kv_quant, dev)
         self._page_table = torch.zeros((S, self._n_pages_max),
                                        dtype=torch.int32, device=dev)
         self._tok = torch.zeros((S,), dtype=torch.int64, device=dev)
@@ -330,6 +471,11 @@ class DecodeEngine:
         with self._cond:
             self._free_pages = list(range(P, 0, -1))  # guarded by: _cond
             self._active = np.zeros((S,), bool)  # guarded by: _cond
+            if self._prefix_cache is not None:
+                # the pools just rebuilt: every cached page id is stale
+                self._prefix_cache.clear()
+        if self._spec is not None:
+            self._spec.reset_state()
 
     def _embed(self, ids, positions):
         """Token (+ positional) embedding in the compute dtype; positions
@@ -378,9 +524,8 @@ class DecodeEngine:
             att = _prefill_block_attention(layer, q, k, v)
             x = _block_ffn(layer, p, x + _block_out_proj(
                 p, att.reshape(1, P, -1)))
-            kp, vp = self._caches[bi]
-            _write_pages(kp, vp, k.permute(0, 2, 3, 1), v.permute(0, 2, 1, 3),
-                         wpids, 0, self.page_size)
+            _write_span(self._caches[bi], k.permute(0, 2, 3, 1),
+                        v.permute(0, 2, 1, 3), wpids, 0, self.page_size)
         logits = plan.final_logits(bp, self._params, x[0, t0 - 1][None])
         return self._first_token(slot, req, logits, t0)
 
@@ -410,10 +555,11 @@ class DecodeEngine:
         for bi, i in enumerate(plan.block_is):
             p, layer = bp[i], plan.layers[i]
             q, k, v = _block_heads(layer, p, x, qpos)
-            kp, vp = self._caches[bi]
-            _write_pages(kp, vp, k.permute(0, 2, 3, 1), v.permute(0, 2, 1, 3),
-                         wpids, woff, self.page_size)
-            att = paged_attention_chunk_auto(q, kp, vp, page_row, pos0)
+            cache = self._caches[bi]
+            _write_span(cache, k.permute(0, 2, 3, 1), v.permute(0, 2, 1, 3),
+                        wpids, woff, self.page_size)
+            att = paged_attention_chunk_auto(q, cache[0], cache[1], page_row,
+                                             pos0, **_scales(cache))
             x = _block_ffn(layer, p, x + _block_out_proj(
                 p, att.reshape(1, W, -1)))
         ok = torch.isfinite(x.float()).all()
@@ -452,14 +598,11 @@ class DecodeEngine:
             p, layer = bp[i], plan.layers[i]
             q, k, v = _block_heads(layer, p, x[:, None, :], pos[:, None])
             q, k, v = q[:, 0], k[:, 0], v[:, 0]
-            kp, vp = self._caches[bi]
-            # in place, where the JAX package donates the pools through
-            # jit; inactive lanes all land on trash page 0 (duplicate
-            # indices there are harmless: nothing reads page 0 unmasked)
-            kp[pids, :, :, loff] = k
-            vp[pids, :, loff, :] = v
-            att = paged_attention_step_auto(q, kp, vp, self._page_table, pos,
-                                            active_t)
+            cache = self._caches[bi]
+            _write_step(cache, pids, loff, k, v)
+            att = paged_attention_step_auto(q, cache[0], cache[1],
+                                            self._page_table, pos, active_t,
+                                            **_scales(cache))
             x = _block_ffn(layer, p, x + _block_out_proj(p, att))
         logits = plan.final_logits(bp, self._params, x)
         nxt = torch.argmax(logits, dim=-1)
@@ -494,10 +637,40 @@ class DecodeEngine:
         span = max(self._prefill_width(t0), t0 + n_tokens - 1)
         return -(-span // self.page_size)
 
+    def _pages_for_hit(self, t0: int, n_tokens: int) -> int:
+        """Total LOGICAL pages of a prefix-hit request (shared + owned):
+        the hit path suffix-prefills in chunks whose padded tail never
+        runs past page * ceil(t0 / page), so the span is just the KV the
+        request actually writes — always <= the cold `_pages_for`."""
+        return -(-(t0 + n_tokens - 1) // self.page_size)
+
     def _free_request_pages_locked(self, req: _GenRequest) -> None:
+        """Drop the request's page references: owned pages return to the
+        free list; shared (cached) pages only lose this request's
+        refcount — the cache keeps them resident until LRU reclaim, and a
+        prefix another slot still shares is never freed here."""
+        assert_owned(self._cond, "DecodeEngine._free_request_pages_locked")
+        if req.nodes:
+            self._prefix_cache.release(req.nodes)
+            req.nodes = None
         if req.pages:
-            self._free_pages.extend(req.pages)
+            self._free_pages.extend(req.pages[req.n_shared:])
         req.pages = None
+
+    def _promote_prefix_locked(self, req: _GenRequest) -> None:
+        """After a successful prefill, publish the prompt's fully covered
+        pages into the prefix cache so the NEXT same-prefix request
+        shares them (the request itself keeps decoding on them; page
+        ownership moves to the cache, refcounted)."""
+        assert_owned(self._cond, "DecodeEngine._promote_prefix_locked")
+        if self._prefix_cache is None or req.pages is None:
+            return
+        req.nodes, freed = self._prefix_cache.insert(req.prompt, req.pages,
+                                                     req.nodes or [])
+        req.n_shared = len(req.nodes)
+        # pages evicted to respect the cache's max_pages cap go straight
+        # back to the pool — a cap-driven eviction must never leak
+        self._free_pages.extend(freed)
 
     # -- public surface ----------------------------------------------------
     def submit(self, prompt_ids, n_tokens: int, *,
@@ -612,8 +785,30 @@ class DecodeEngine:
                 100.0 * (1.0 - used_positions / (held * self.page_size)), 1)
             if held else 0.0,
             "prefill_chunk": self.prefill_chunk,
+            "kv_quant_bits": self._kv_quant_bits,
             "kv_bytes_per_token": self._kv_bytes_per_token,
             "prompt_buckets": list(self.prompt_buckets)})
+        with self._cond:
+            if self._prefix_cache is not None:
+                hit_pct = (100.0 * self.prefix_hit_tokens / self.prompt_tokens
+                           if self.prompt_tokens else 0.0)
+                out["prefix_hit_tokens_pct"] = round(hit_pct, 1)
+                out["prefix_cache"] = dict(
+                    self._prefix_cache.stats(),
+                    hits=self.prefix_hits, misses=self.prefix_misses,
+                    hit_tokens=self.prefix_hit_tokens,
+                    prompt_tokens=self.prompt_tokens)
+            if self._spec is not None:
+                rate = (100.0 * self.spec_accepted / self.spec_proposed
+                        if self.spec_proposed else 0.0)
+                per_step = (self.spec_emitted / self.spec_steps
+                            if self.spec_steps else 0.0)
+                out["spec_accept_rate"] = round(rate, 1)
+                out["spec_tokens_per_step"] = round(per_step, 3)
+                out["speculative"] = dict(
+                    self._spec.stats(), verify_steps=self.spec_steps,
+                    proposed=self.spec_proposed, accepted=self.spec_accepted,
+                    emitted=self.spec_emitted)
         return out
 
     def shutdown(self, drain_timeout: float = 10.0) -> bool:
@@ -700,8 +895,13 @@ class DecodeEngine:
     def _admit(self) -> None:
         """Move queued requests (FIFO) into free slots. An expired head is
         shed before any device work; a head the free list cannot cover
-        waits for a retirement. A short prompt prefills one-shot at once;
-        a long one is parked mid-prefill for `_step_prefills`."""
+        waits for a retirement, after unreferenced prefix-cache pages
+        were reclaimed LRU-first (caching never shrinks effective
+        capacity). With a prefix hit, the longest cached chain binds into
+        the slot's page table (refcounts bumped), only the uncached tail
+        takes fresh pages, and prefill starts at the first uncached page
+        boundary. A short cold prompt prefills one-shot at once; a long
+        or prefix-hit one is parked mid-prefill for `_step_prefills`."""
         while True:
             with self._cond:
                 if not self._queue:
@@ -711,8 +911,33 @@ class DecodeEngine:
                 if not free:
                     return
                 head = self._queue[0]
-                if not head.expired() and head.n_pages > len(self._free_pages):
-                    return
+                nodes: list = []
+                need = head.n_pages
+                if not head.expired():
+                    if self._prefix_cache is not None:
+                        # only the scheduler thread mutates the cache, so
+                        # this lookup stays valid through the bind; a
+                        # page-blocked head retries every iteration — its
+                        # chunk digests are memoized on the request
+                        nodes = self._prefix_cache.lookup(head.prompt,
+                                                          head.digests)
+                        if nodes:
+                            need = self._pages_for_hit(
+                                head.prompt.shape[0], head.n_tokens) \
+                                - len(nodes)
+                        if need > len(self._free_pages):
+                            # pool pressure: release idle cached pages
+                            # (LRU, leaf-first) — the head's own hit chain
+                            # is pinned so reclaim cannot eat it
+                            self._prefix_cache.acquire(nodes)
+                            try:
+                                reclaimed = self._prefix_cache.reclaim(
+                                    need - len(self._free_pages))
+                            finally:
+                                self._prefix_cache.release(nodes)
+                            self._free_pages.extend(reclaimed)
+                    if need > len(self._free_pages):
+                        return
                 req = self._queue.popleft()
                 self._pages_demand_queued -= req.n_pages
                 if req.expired():
@@ -722,17 +947,31 @@ class DecodeEngine:
                         "prefill"))
                     continue
                 slot = free[0]
-                req.pages = [self._free_pages.pop()
-                             for _ in range(req.n_pages)]
+                if nodes:
+                    self._prefix_cache.acquire(nodes)
+                    req.nodes = nodes
+                    req.n_shared = len(nodes)
+                    req.hit_len = len(nodes) * self.page_size
+                    self.prefix_hits += 1
+                    self.prefix_hit_tokens += req.hit_len
+                elif self._prefix_cache is not None:
+                    self.prefix_misses += 1
+                self.prompt_tokens += int(req.prompt.shape[0])
+                req.pages = [n.page_id for n in nodes] + \
+                    [self._free_pages.pop() for _ in range(need)]
                 self.pages_in_use_peak = max(
                     self.pages_in_use_peak,
                     self.pool_pages - len(self._free_pages))
             row = np.zeros((self._n_pages_max,), np.int32)
             row[:len(req.pages)] = req.pages
             self._page_table[slot] = torch.from_numpy(row).to(self.device)
-            if self._is_chunked(req.prompt.shape[0]):
+            if req.hit_len or self._is_chunked(req.prompt.shape[0]):
                 with self._cond:
-                    req.prefill_pos = 0
+                    # hit requests always ride the chunk path: suffix
+                    # prefill starts at the first uncached page boundary
+                    # and attends over the shared pages through the
+                    # slot's page row
+                    req.prefill_pos = req.hit_len
                     self._slots[slot] = req  # active once the last chunk lands
                 continue
             try:
@@ -759,10 +998,17 @@ class DecodeEngine:
         if not ok:
             raise InferenceFailedError(
                 "model produced non-finite logits during prefill")
+        if self._spec is not None:
+            # mirror the prompt into the draft's pools (same pages, same
+            # padded ids) so proposing can start from a complete context
+            _dispatched(lambda: self._spec.prefill_one_shot(ids, wpids))
         self._hook("post_prefill", info)
         with self._cond:
             self.prefills += 1
             self.tokens_generated += 1
+            self._promote_prefix_locked(req)
+        if self._spec is not None:
+            self._spec.seed_slot(slot, req.seed)
         req.tokens.append(first)
         if len(req.tokens) >= req.n_tokens or first == self.eos_token:
             self._retire(slot, req, attached=False)
@@ -793,7 +1039,9 @@ class DecodeEngine:
         if not final or C < page:
             W = C
         else:
-            # final chunk padded only to the next page multiple (<= C)
+            # final chunk padded only to the next page multiple (<= C): a
+            # prefix-hit suffix must never write past page * ceil(t0 /
+            # page), which its reservation covers
             W = -(-rem // page) * page
         ids = np.zeros((1, W), np.int64)
         take = min(W, rem)
@@ -821,6 +1069,9 @@ class DecodeEngine:
                 raise InferenceFailedError(
                     "model produced non-finite activations during chunked "
                     "prefill")
+            if self._spec is not None:
+                _dispatched(lambda: self._spec.prefill_chunk(
+                    self._page_table[slot:slot + 1], ids, off, woff, pids))
         except Exception as e:
             self._prefill_failure(slot, req, e, attached=True)
             return
@@ -834,6 +1085,9 @@ class DecodeEngine:
         with self._cond:
             self.prefills += 1
             self.tokens_generated += 1
+            self._promote_prefix_locked(req)
+        if self._spec is not None:
+            self._spec.seed_slot(slot, req.seed)
         req.tokens.append(first)
         if len(req.tokens) >= req.n_tokens or first == self.eos_token:
             self._retire(slot, req)
@@ -870,6 +1124,7 @@ class DecodeEngine:
                     self._slots[s] = None
                     self._active[s] = False
                     r.pages = None  # the pools rebuild wholesale after this
+                    r.nodes = None  # ... and the prefix cache clears
                     r.finish(err)
             self._cond.notify_all()
 
@@ -976,13 +1231,91 @@ class DecodeEngine:
                 self._retire(s, req)
                 return
 
+    def _step_active_spec(self, live) -> bool:
+        """One speculative iteration: the draft proposes k tokens per
+        slot, the target verifies them in one batched chunk — up to k+1
+        tokens per slot. Returns False (the caller takes the plain step)
+        when no live slot has the write budget to speculate."""
+        spec = self._spec
+        k = spec.k
+        # a slot can commit m speculative tokens only while its writes
+        # stay within the reserved span: pos + m <= t0 + n_tokens - 2
+        # (the last token is never written back). With pos = t0 + len - 1
+        # that cap is rem - 1 (rem = tokens still to emit), so a slot
+        # with rem >= 2 can still accept; when EVERY slot is down to its
+        # final token the plain step is strictly cheaper
+        if all(r.n_tokens - len(r.tokens) < 2 for _, r in live):
+            return False
+        wl = np.zeros((self.n_slots,), np.int32)
+        for s, r in live:
+            wl[s] = r.prompt.shape[0] + r.n_tokens - 2
+        info = {"active": len(live), "step": self.decode_steps,
+                "spec": True, "k": k}
+        t0c = time.monotonic()
+        try:
+            self._hook("pre_decode", info)
+
+            def run():
+                active_np = self._active.copy()
+                active_t = torch.from_numpy(active_np).to(self.device)
+                wlimit = torch.from_numpy(wl).to(self.device)
+                props, qd = spec.propose(self._page_table, self._tok,
+                                         self._pos, self._temps, active_t,
+                                         active_np, wlimit)
+                self._tok, self._pos, out, n_emit, oks = spec.verify(
+                    self._bparams, self._params, self._caches,
+                    self._page_table, self._tok, self._pos, self._temps,
+                    self._gens, active_t, active_np, wlimit, props, qd)
+                # the one host read-back of the iteration
+                return (out.cpu().numpy(), n_emit.cpu().numpy(),
+                        oks.cpu().numpy())
+
+            out, n_emit, oks = _dispatched(run)
+            self._hook("post_decode", info)
+            t1c = time.monotonic()
+        except Exception as e:
+            self._decode_failure(live, e)
+            return True
+        emitted = int(sum(max(1, int(n_emit[s])) for s, _ in live))
+        with self._cond:
+            self._step_ewma = (0.8 * self._step_ewma
+                               + 0.2 * (t1c - t0c)
+                               * len(live) / max(1, emitted))
+            self.decode_steps += 1
+            self.active_slot_steps += len(live)
+            self.spec_steps += 1
+            for s, r in live:
+                # proposals that could actually be consumed: the device
+                # cap is m_cap = wlimit - pos = rem - 1, so accepted
+                # (= n_emit - 1 <= m_cap) never exceeds this count and
+                # the accept RATE stays a true <= 100% ratio
+                self.spec_proposed += min(
+                    k, max(0, r.n_tokens - len(r.tokens) - 1))
+                self.spec_accepted += max(0, int(n_emit[s]) - 1)
+        delivered = 0
+        for s, req in live:
+            n = max(1, int(n_emit[s]))
+            before = len(req.tokens)
+            self._retire_or_poison(s, req, out[s, :n], np.repeat(oks[s], n),
+                                   n)
+            delivered += len(req.tokens) - before
+        with self._cond:
+            # spec_tokens_per_step counts DELIVERED tokens: those appended
+            # to requests, not device emissions — a mid-verify EOS's
+            # dropped overshoot must not inflate it
+            self.spec_emitted += delivered
+        return True
+
     def _step_active(self) -> None:
         live = [(s, r) for s, r in enumerate(self._slots)
                 if r is not None and r.prefill_pos is None]
         if not live:
             return
+        if self._spec is not None and self._step_active_spec(live):
+            return
         t0 = time.monotonic()
-        n_steps = self.decode_chunk if self._chunk_eligible(live, t0) else 1
+        n_steps = self.decode_chunk if self._spec is None \
+            and self._chunk_eligible(live, t0) else 1
         info = {"active": len(live), "step": self.decode_steps,
                 "chunk": n_steps}
         try:

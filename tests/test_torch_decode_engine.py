@@ -328,9 +328,11 @@ def test_eos_and_sampled_requests(nets):
 def test_unported_options_are_refused(nets):
     _, pnet = nets
     with pytest.raises(NotImplementedError, match="not ported"):
-        _engine(pnet, prefix_cache=True)
+        _engine(pnet, parallel={"tp": 2})
+    with pytest.raises(NotImplementedError, match="A11"):
+        _engine(pnet, qos={"tenants": {}})
     with pytest.raises(NotImplementedError, match="not ported"):
-        _engine(pnet, quantize={"kv": "int8"})
+        _engine(pnet, logprobs=2)
     with pytest.raises(TypeError, match="unexpected"):
         _engine(pnet, no_such_option=1)
     eng = _engine(pnet, breaker=None)  # the JAX default is accepted

@@ -1,5 +1,6 @@
 """The port stands alone: importing `deeplearning4j_tpu_torch`, serving
-from it and training with it (fit through the flash-attention route, a
+from it (also with int8 KV, the prefix cache and speculative decoding)
+and training with it (fit through the flash-attention route, a
 checkpoint written and restored) loads neither `jax` nor any module of
 `deeplearning4j_tpu`, and
 its entry points run on the card by default, raising where there is
@@ -50,6 +51,24 @@ _SCRIPT = textwrap.dedent("""
     want = generate(net, (np.arange(12) % 16)[None], 3, temperature=0.0,
                     device="cpu")[0]
     assert (got == want).all(), (got, want)
+
+    # the latency and quantization tier: int8 KV, prefix cache, a draft
+    from deeplearning4j_tpu_torch.serving import (  # noqa: F401
+        prefix_cache, quantize, speculative)
+    eng = DecodeEngine(net, n_slots=2, max_len=24, prompt_buckets=(4,),
+                       prefill_chunk=8, page_size=8, device="cpu",
+                       quantize={"kv": "int8"}, prefix_cache=True,
+                       speculative={"draft": "self", "k": 2})
+    try:
+        first = eng.generate(np.arange(12) % 16, 3)
+        again = eng.generate(np.arange(12) % 16, 3)
+        stats = eng.stats()
+    finally:
+        eng.shutdown()
+    assert (first == again).all(), (first, again)
+    assert stats["prefix_cache"]["hits"] == 1, stats
+    assert stats["speculative"]["verify_steps"] >= 1, stats
+    assert stats["kv_quant_bits"] == 8, stats
 
     import os
     import tempfile
