@@ -3,14 +3,14 @@
 does `chip_smoke.py`'s comparison against the plain versions catch a
 kernel that is wrong?
 
-    python3 chip_fault_check.py      # about 3 minutes on an H100
+    python3 chip_fault_check.py      # about 6-7 minutes on an H100
 
 For the unchanged sources and for each planted fault below, the script
 copies `deeplearning4j_tpu_torch/` into a temporary directory, plants the
-fault in the copy's `csrc/flash_attention.cu` or `csrc/paged_attention.cu`
-(the checkout is never changed), builds every copy with nvcc in parallel,
-and then runs the faulted kernel family's check in one process per copy
-(the unchanged copy runs both):
+fault in the copy's `csrc/flash_attention.cu`, `csrc/paged_attention.cu`
+or `csrc/lstm.cu` (the checkout is never changed), builds every copy with
+nvcc in parallel, and then runs the faulted kernel family's check in one
+process per copy (the unchanged copy runs all three):
 
 - flash: the bf16 forward, dQ and dK/dV kernels on the cases below, held
   to the plain versions in f32 with `flash_attention.error_in_tolerances`
@@ -21,7 +21,11 @@ and then runs the faulted kernel family's check in one process per copy
 - paged: every case of `chip_smoke.paged_cases` (dense and int8 pools,
   decode, verify and chunk widths, the ragged row tiles), read in units
   of the tolerance atol + rtol * |ref|; a non-finite output or a written
-  inactive lane counts as infinite.
+  inactive lane counts as infinite;
+- lstm: every case of `chip_smoke.lstm_cases` (forward and backward
+  kernels, f32 and bf16, masked and not, forward and reverse, the ragged
+  H=196 and the main paths' widths), each output held row by row to the
+  plain versions (`lstm.error_in_tolerances`), as phase 10 does.
 
 Prints a table and, as the last line, one JSON object
 `{"control_ok": ..., "mutants": [{"name", "caught", "caught_by_old_bound",
@@ -40,7 +44,7 @@ import tempfile
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PKG = "deeplearning4j_tpu_torch"
-FLASH, PAGED = "flash_attention", "paged_attention"
+FLASH, PAGED, LSTM = "flash_attention", "paged_attention", "lstm"
 # (B, T, H, D, causal), bf16: the training path's kernels at D = 128 and
 # the same templates at D = 256
 CASES = [(2, 512, 2, 128, False), (2, 512, 2, 128, True),
@@ -53,6 +57,9 @@ DQ = "flash_bwd_dq_mma_kernel(const Args a) {"
 DKV = "flash_bwd_dkv_mma_kernel(const Args a) {"
 WALK = "for (int j = 0; j < n_live; ++j) {"
 PV = "// acc (TR, hd) = acc * corr + P . V"
+CELL = "__device__ __forceinline__ void fwd_cell("
+BCELLS = "__device__ __forceinline__ void bwd_cells("
+FWDK = "lstm_fwd_kernel(const FwdArgs a) {"
 MUTATIONS = [
     ("forward skips the last K/V tile", FLASH, FWD,
      "const int nk = a.causal ? qi + 1 : a.Tk / BLK;",
@@ -96,6 +103,19 @@ MUTATIONS = [
      "for (int i = tid; i < tr * hd; i += blockDim.x) {\n    const float l",
      "for (int i = tid; i < (tr == TR ? tr : tr - 1) * hd; i += blockDim.x)"
      " {\n    const float l"),
+    ("lstm: the input gate's peephole term dropped", LSTM, CELL,
+     "const float i = sigm(zi + sm.peep[ul] * c);",
+     "const float i = sigm(zi);"),
+    ("lstm: the masked select taken on the wrong side (c)", LSTM, CELL,
+     "cs = mp ? cn : c;", "cs = mp ? c : cn;"),
+    ("lstm: backward c_prev at the first step not taken from c0", LSTM,
+     BCELLS, "first ? to_f(static_cast<const DT*>(a.c0)[(long long)r * H + u])",
+     "first ? 0.f"),
+    ("lstm: forward skips the grid barrier", LSTM, FWDK,
+     "if (s + 1 < a.T) grid.sync();", "if (s + 1 < a.T && a.T < 0) grid.sync();"),
+    ("lstm: the last unit slice of a ragged H never written", LSTM, CELL,
+     "if (r >= a.B || u >= H) return;",
+     "if (r >= a.B || u >= H || (u | (kUnits - 1)) >= H) return;"),
 ]
 
 
@@ -124,7 +144,7 @@ def make_copy(root: str, mutation) -> str:
 
 def families(mutation):
     """The kernel families a copy builds and checks."""
-    return (FLASH, PAGED) if mutation is None else (mutation[1],)
+    return (FLASH, PAGED, LSTM) if mutation is None else (mutation[1],)
 
 
 def child_cmd(root: str, what: str, sources):
@@ -151,6 +171,8 @@ def check(sources) -> None:
         cases += flash_cases(torch, fa)
     if PAGED in sources:
         cases += paged_cases(torch)
+    if LSTM in sources:
+        cases += lstm_cases(torch)
     print(json.dumps({"package": fa.__file__, "cases": cases}), flush=True)
 
 
@@ -165,6 +187,22 @@ def paged_cases(torch):
             units = float("inf")
         cases.append({"case": f"paged {name} {str(kw['dtype'])[6:]}",
                       "units": {"out": units}, "old_units": None})
+    return cases
+
+
+def lstm_cases(torch):
+    import chip_smoke as cs
+    from deeplearning4j_tpu_torch.ops import lstm as L
+
+    cases = []
+    for i, (T, B, H, dt, masked, rev) in enumerate(cs.lstm_cases(torch)):
+        units, _ = cs.lstm_case_units(torch, L, T, B, H, dt, masked, rev,
+                                      seed=200 + i)
+        units = {k: (float("inf") if v != v else v) for k, v in units.items()}
+        cases.append({"case": f"lstm T={T} B={B} H={H} {str(dt)[6:]} "
+                              f"{'masked' if masked else 'plain'} "
+                              f"{'rev' if rev else 'fwd'}",
+                      "units": units, "old_units": None})
     return cases
 
 

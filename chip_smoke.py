@@ -2,14 +2,15 @@
 """Smoke run of the PyTorch/CUDA port (`deeplearning4j_tpu_torch`) on one
 NVIDIA card.
 
-    python3 chip_smoke.py            # every phase, about 1-2 minutes on an H100
+    python3 chip_smoke.py            # every phase, a few minutes on an H100
 
 Phases, each of which makes the script exit non-zero when it fails:
 
 1. card: `nvidia-smi` name and power limit, torch and CUDA versions;
 2. build: every CUDA source of the port (`csrc/paged_attention.cu`,
-   `csrc/flash_attention.cu`) with nvcc, one process per source, started
-   together; build seconds and ptxas' registers and spills;
+   `csrc/flash_attention.cu`, `csrc/lstm.cu`) with nvcc, one process per
+   source, started together; build seconds and ptxas' registers and
+   spills;
 3. paged kernels: the paged-attention kernel against its plain PyTorch
    version on the card, TF32 off, at the serving shapes (decode C=1 with
    S=8 slots, 8 heads, head_dim 128, page 128, 34 pages per slot;
@@ -74,7 +75,36 @@ Phases, each of which makes the script exit non-zero when it fails:
    and 8 dK/dV launches per step and no call of a plain version; one more
    step under torch.profiler gives the busy time, idle share and top
    kernels;
-10. timing: the flash kernels are first held to their plain versions at
+10. LSTM kernels: the forward (with its training stash) and backward
+   kernels, unmasked and masked, forward and reverse, against the plain
+   versions on the card (TF32 off), f32 and bf16, H = 128, 256, 1024 and
+   a ragged 196, B = 8 and 37, T = 1, 2, 9, 64, and the main paths'
+   B=2048 at H=1024 (bf16) and B=8192 at H=256; nonzero h0, c0 and
+   peepholes; masks with ragged lengths, a row never masked, a row masked
+   from t=0 and a hole; the backward on the forward kernel's own stash;
+   every output held row by row (`lstm.error_in_tolerances`: 1e-4 f32,
+   2^-6 bf16, of the row's largest |ref|); f32 at H=1024, B=2048 must be
+   refused (the backward's shared memory); `lstm_fused` with autograd on
+   the card against the same call on the CPU (out, hT, cT, dx, dW, dRW,
+   db, dpeep, dh0, dc0);
+11. LSTM training parity: a 2-layer f32 char-RNN (vocab 64, H=256, B=16,
+   T=32, RMSPROP lr 0.01) from one set of weights, 3 steps on the card and
+   on the CPU: losses rtol 1e-5, params rtol 1e-5 + atol 1e-4; a tBPTT
+   fit (windows 12, 12 and a masked tail) and a bidirectional fit: losses
+   rtol 1e-5; `rnn_time_step` on the card equals `output` within 1e-5;
+12. train (main path 4): bench.py's `lstm_large` char-RNN at full width
+   (vocab 256, two GravesLSTM(1024), RMSPROP, bf16 compute over f32
+   masters, OneHotEncoder(256) on uint8 ids, B=2048 x T=64, seed 1):
+   1 warm-up step, then 5 timed steps (step ms, samples/s, each loss,
+   finite, peak device memory); counts set to 0 before and read after: 2
+   forward and 2 backward unmasked launches per step, no masked launch,
+   no call of a plain version; one more step under torch.profiler;
+13. train (main path 4b): bench.py's `lstm` char-RNN at full width (vocab
+   64, H=256, B=8192 x T=64) with tBPTT 24, one-hot rows as features:
+   after a warm-up fit, one fit of one batch (wall time); counts: 4
+   unmasked and 2 masked forward launches, the same backward, no plain
+   call; one more fit under torch.profiler;
+14. timing: the flash kernels are first held to their plain versions at
    the training shape twice: on q/k/v sliced from one fused qkv tensor,
    as the training path passes them, and on contiguous ones; then CUDA
    events around each launch (a GPU sleep queued first so
@@ -85,7 +115,14 @@ Phases, each of which makes the script exit non-zero when it fails:
    region, since the kernel does it too; SDPA's forward, and SDPA's
    forward+backward minus its forward for the two backward kernels
    together; the yardsticks, which the port never calls), beside the bound max(flops / 989 TFLOP/s,
-   bytes / 3.35 TB/s) of this run's data.
+   bytes / 3.35 TB/s) of this run's data; the int8 kernel also at a
+   C=128 chunk;
+15. LSTM timing: rows 5-8 at main path 4's shape (T=64, B=2048, H=1024,
+   unmasked) and main path 4b's window (T=24, B=8192, H=256, unmasked and
+   masked), bf16, the same way, beside their plain versions, the bound
+   (2*T*B*H*4H flops; each input read and each output written once) and
+   cuDNN's LSTM as yardstick (`torch.nn.LSTM`: no peepholes, its own input
+   GEMM; forward minus one input matmul, and fwd+bwd minus fwd).
 
 Prints one JSON line of per-kernel numbers, then the card's
 `nvidia-smi` line, then as the last line
@@ -103,7 +140,7 @@ import sys
 import time
 import traceback
 
-KERNEL_SOURCES = ("paged_attention", "flash_attention")
+KERNEL_SOURCES = ("paged_attention", "flash_attention", "lstm")
 REPLACES = "deeplearning4j_tpu/ops/pallas_paged_attention.py:77"
 FLASH_SOURCE = "deeplearning4j_tpu_torch/csrc/flash_attention.cu"
 FLASH_REPLACES = {
@@ -712,6 +749,8 @@ def phase_timing(torch, pa, launches):
                                                      positions=tier_pos)),
         ("paged_attention_int8_prefill_chunk", "int8",
          dict(S=1, C=256, positions=[768])),
+        ("paged_attention_int8_prefill_chunk_c128", "int8",
+         dict(S=1, C=128, positions=[1024])),
     ]
     rows = []
     for name, kind, sh in shapes:
@@ -1077,6 +1116,500 @@ def phase_flash_timing(torch, fa, counts):
     return rows
 
 
+# ----------------------------------------------------------------- LSTM
+LSTM_SOURCE = "deeplearning4j_tpu_torch/csrc/lstm.cu"
+LSTM_REPLACES = {
+    ("fwd", False): "deeplearning4j_tpu/ops/pallas_lstm.py:67",
+    ("bwd", False): "deeplearning4j_tpu/ops/pallas_lstm.py:109",
+    ("fwd", True): "deeplearning4j_tpu/ops/pallas_lstm.py:160",
+    ("bwd", True): "deeplearning4j_tpu/ops/pallas_lstm.py:221"}
+# bench.py lstm_large (bench.py:407-422) and lstm (bench.py:393-404)
+LSTM_LARGE = dict(vocab=256, hidden=1024, B=2048, T=64)
+LSTM_SMALL = dict(vocab=64, hidden=256, B=8192, T=64, tbptt=24)
+LSTM_STEPS = 5
+LSTM_PARITY_ATOL = 1e-4  # lr / 100 at the parity run's lr 0.01
+
+
+def lstm_inputs(torch, T, B, H, dtype, seed, masked):
+    """Projected inputs, RW, peepholes, nonzero h0/c0, cotangents and
+    (masked) a (T, B) mask: ragged lengths, row 0 never masked, row 1
+    masked from t=0, row 2 unmasked but for a hole in the middle."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def r(*shape, sc=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * sc).to(dtype)
+
+    inp = dict(xw=r(T, B, 4 * H), rw=r(H, 4 * H, sc=H ** -0.5),
+               peep=r(3, H, sc=0.3), h0=r(B, H, sc=0.5), c0=r(B, H, sc=0.5),
+               dh=r(T, B, H), dhT=r(B, H), dcT=r(B, H), mask=None)
+    if masked:
+        lens = torch.randint(0, T + 1, (B,), generator=g, device="cuda")
+        m = (torch.arange(T, device="cuda")[:, None] < lens[None]).float()
+        m[:, 0] = 1.0
+        if B > 1:
+            m[:, 1] = 0.0
+        if B > 2:
+            m[:, 2] = 1.0
+            m[T // 2, 2] = 0.0
+        inp["mask"] = m.to(dtype)
+    return inp
+
+
+def lstm_run(L, inp, reverse):
+    """The forward kernel, and the backward kernel on its stash."""
+    m = inp["mask"]
+    got = L.lstm_fwd(inp["xw"], inp["rw"], inp["peep"], inp["h0"],
+                     inp["c0"], m, reverse=reverse)
+    bwd = L.lstm_bwd(got[5], got[4], inp["dh"],
+                     None if m is None else inp["dhT"], inp["dcT"],
+                     inp["rw"], inp["peep"], inp["c0"], m, reverse=reverse)
+    return got, bwd
+
+
+def lstm_plain_ref(L, inp, reverse, got):
+    """The plain versions on the same inputs (math in f32 with the
+    kernels' rounding points); the backward on the forward kernel's own
+    stash."""
+    m = inp["mask"]
+    ref = L.lstm_fwd_plain(inp["xw"], inp["rw"], inp["peep"], inp["h0"],
+                           inp["c0"], m, reverse=reverse)
+    rb = L.lstm_bwd_plain(got[5], got[4], inp["dh"],
+                          None if m is None else inp["dhT"], inp["dcT"],
+                          inp["rw"], inp["peep"], inp["c0"], m,
+                          reverse=reverse)
+    return ref, rb
+
+
+LSTM_OUTS = ("h_out", "hT", "cT", "h_sel", "c", "gates", "dz", "dhc0")
+
+
+def lstm_case_units(torch, L, T, B, H, dtype, masked, reverse, seed):
+    """One forward+backward kernel run against the plain versions:
+    ({output: error in tolerances}, largest absolute error)."""
+    inp = lstm_inputs(torch, T, B, H, dtype, seed, masked)
+    got, bwd = lstm_run(L, inp, reverse)
+    ref, rb = lstm_plain_ref(L, inp, reverse, got)
+    torch.cuda.synchronize()
+    units, err = {}, 0.0
+    for n, a, b in zip(LSTM_OUTS, list(got) + list(bwd), list(ref) + list(rb)):
+        if a is None:
+            continue
+        units[n] = L.error_in_tolerances(a, b, dtype)
+        err = max(err, (a.float() - b.float()).abs().max().item())
+    return units, err
+
+
+def lstm_cases(torch):
+    """(T, B, H, dtype, masked, reverse): every width of the two main
+    paths' shapes and smaller ones, a ragged H (196: not a multiple of the
+    8 units of a block nor of the 16-wide k chunks), T = 1, 2, 64, f32
+    and bf16, masked and not, forward and reverse. f32 at H=1024, B=2048
+    is left out: its backward needs more shared memory than a block has
+    (checked to raise in `phase_lstm_kernels`)."""
+    cases = []
+    for dt in (torch.float32, torch.bfloat16):
+        for (T, B, H) in ((1, 8, 128), (2, 8, 256), (9, 37, 196),
+                          (64, 8, 1024)):
+            for masked in (False, True):
+                for reverse in (False, True):
+                    cases.append((T, B, H, dt, masked, reverse))
+        cases += [(64, 8192, 256, dt, masked, False)
+                  for masked in (False, True)]
+    cases += [(64, 2048, 1024, torch.bfloat16, masked, False)
+              for masked in (False, True)]
+    return cases
+
+
+def phase_lstm_kernels(torch, L, M):
+    """LSTM kernels against their plain versions, and the autograd path
+    end to end (card kernels against the plain path on the CPU)."""
+    errs = {}
+    for i, (T, B, H, dt, masked, reverse) in enumerate(lstm_cases(torch)):
+        units, err = lstm_case_units(torch, L, T, B, H, dt, masked, reverse,
+                                     seed=200 + i)
+        worst = max(units.values())
+        errs[dt] = max(errs.get(dt, 0.0), err)
+        log(f"  T={T:<2} B={B:<4} H={H:<4} {str(dt)[6:]:<8} "
+            f"{'masked' if masked else 'plain '} "
+            f"{'rev' if reverse else 'fwd'} max_abs_err={err:.3e} "
+            f"worst {worst:.3f} of tolerance "
+            f"({max(units, key=units.get)}) {'ok' if worst <= 1 else 'FAIL'}")
+        if worst > 1:
+            raise AssertionError(f"LSTM kernels disagree with plain: {units}")
+    inp = lstm_inputs(torch, 2, 2048, 1024, torch.float32, 9, False)
+    got = L.lstm_fwd(inp["xw"], inp["rw"], inp["peep"], inp["h0"], inp["c0"])
+    try:
+        L.lstm_bwd(got[5], got[4], inp["dh"], None, inp["dcT"], inp["rw"],
+                   inp["peep"], inp["c0"])
+    except ValueError as e:
+        log(f"  f32 backward at H=1024, B=2048 refused as expected: {e}")
+    else:
+        raise AssertionError("f32 backward at H=1024, B=2048 should not fit")
+    phase_lstm_autograd(torch, L)
+    return errs
+
+
+def phase_lstm_autograd(torch, L):
+    """`lstm_fused` with autograd on the card (kernels + batched
+    contractions) against the same call on the CPU (plain versions):
+    out, hT, cT and dx, dW, dRW, db, dpeep, dh0, dc0, row by row."""
+    for dt in (torch.float32, torch.bfloat16):
+        for masked in (False, True):
+            for reverse in (False, True):
+                T, B, NI, H = 12, 40, 64, 196
+                g = torch.Generator().manual_seed(31)
+                mk = lambda *s, sc=1.0: (torch.randn(s, generator=g) * sc).to(dt)
+                vals = [mk(B, T, NI), mk(NI, 4 * H, sc=0.1),
+                        mk(H, 4 * H, sc=H ** -0.5), mk(4 * H, sc=0.1),
+                        mk(H, sc=0.3), mk(H, sc=0.3), mk(H, sc=0.3),
+                        mk(B, H, sc=0.5), mk(B, H, sc=0.5)]
+                wts = mk(B, T, H)
+                mask = None
+                if masked:
+                    mask = (torch.arange(T)[None]
+                            < torch.arange(B)[:, None] % (T + 1)).to(dt)
+                res = []
+                for dev in ("cuda", "cpu"):
+                    leaves = [v.to(dev).requires_grad_() for v in vals]
+                    x, W, RW, b, pI, pF, pO, h0, c0 = leaves
+                    L.reset_counts()
+                    out, (hT, cT) = L.lstm_fused(
+                        x, W, RW, b, (pI, pF, pO), h0, c0, reverse=reverse,
+                        mask=None if mask is None else mask.to(dev))
+                    loss = (out.float() * wts.to(dev).float()).sum() \
+                        + (hT.float() * cT.float()).sum()
+                    loss.backward()
+                    if dev == "cuda" and sum(L.launches.values()) != 2:
+                        raise AssertionError(f"launches {L.launches}")
+                    res.append([out.detach().cpu(), hT.detach().cpu(),
+                                cT.detach().cpu()]
+                               + [t.grad.cpu() for t in leaves])
+                names = ("out", "hT", "cT", "dx", "dW", "dRW", "db", "dpI",
+                         "dpF", "dpO", "dh0", "dc0")
+                units = {n: L.error_in_tolerances(a, b, dt)
+                         for n, a, b in zip(names, *res)}
+                worst = max(units.values())
+                log(f"  autograd {str(dt)[6:]:<8} "
+                    f"{'masked' if masked else 'plain '} "
+                    f"{'rev' if reverse else 'fwd'}: worst {worst:.3f} of "
+                    f"tolerance ({max(units, key=units.get)}) "
+                    f"{'ok' if worst <= 1 else 'FAIL'}")
+                if worst > 1:
+                    raise AssertionError(f"LSTM autograd card vs CPU: {units}")
+
+
+def char_rnn_conf(M, vocab, hidden, seed=1, tbptt=0, bidirectional=False,
+                  lr=0.1):
+    """bench.py's char-RNN (`_lstm_train_bench`, bench.py:311-320):
+    GravesLSTM -> GravesLSTM -> RnnOutputLayer(MCXENT, softmax), RMSPROP
+    lr 0.1."""
+    C, A, LF = M["conf"], M["Activation"], M["LossFunction"]
+    first = C.GravesBidirectionalLSTM if bidirectional else C.GravesLSTM
+    b = (C.NeuralNetConfiguration.Builder().seed(seed).learning_rate(lr)
+         .updater("rmsprop").list()
+         .layer(first(n_in=vocab, n_out=hidden, activation=A.TANH))
+         .layer(C.GravesLSTM(n_out=hidden, activation=A.TANH))
+         .layer(C.RnnOutputLayer(n_out=vocab, loss=LF.MCXENT,
+                                 activation=A.SOFTMAX))
+         .set_input_type(C.InputType.recurrent(vocab)))
+    if tbptt:
+        b = b.t_bptt_forward_length(tbptt)
+    return b.build()
+
+
+def one_hot_batches(np, vocab, B, T, n, seed):
+    """(one-hot f32 features (B, T, vocab), int32 next-char labels)."""
+    ids = np.random.default_rng(seed).integers(0, vocab, (n, B, T + 1))
+    eye = np.eye(vocab, dtype=np.float32)
+    return [(eye[ids[i, :, :-1]], ids[i, :, 1:].astype(np.int32))
+            for i in range(n)]
+
+
+def phase_lstm_train_parity(torch, M):
+    """f32 char-RNN (vocab 64, H=256, B=16, T=32) from one set of weights:
+    3 RMSPROP steps on the card (kernels) against 3 on the CPU (plain);
+    a tBPTT fit (windows 12, 12 and a masked tail); a bidirectional fit;
+    rnn_time_step on the card against output. RMSPROP at lr 0.01: at the
+    bench's 0.1 this batch of 16 diverges (loss 4.2, 9.3, 15.9), and
+    RMSPROP's per-element step (~4.5 lr sign(g) at first) turns the two
+    sides' summation-order differences into parameter differences of
+    order lr * the gradients' relative error, which a diverging run
+    amplifies."""
+    import numpy as np
+
+    L = M["lstm"]
+    net_of = M["MultiLayerNetwork"]
+
+    def pair(**kw):
+        cpu = net_of(char_rnn_conf(M, 64, 256, seed=5, lr=0.01, **kw),
+                     device="cpu")
+        cpu.init()
+        card = net_of(cpu.conf, device="cuda")
+        card.set_param_tree([{k: v.clone() for k, v in p.items()}
+                             for p in cpu._params])
+        return card, cpu
+
+    def train(nets, batches):
+        losses = {"cuda": [], "cpu": []}
+        L.reset_counts()
+        for x, y in batches:
+            for net in nets:
+                net.fit(M["DataSet"](x, y))
+                losses[net.device.type].append(net.score_value)
+        return losses, dict(L.launches), (L.lstm_fwd_plain.calls,
+                                          L.lstm_bwd_plain.calls)
+
+    card, cpu = pair()
+    losses, launches, plain = train((card, cpu),
+                                    one_hot_batches(np, 64, 16, 32, 3, 5))
+    log(f"  3 steps: losses card {losses['cuda']}")
+    log(f"                 cpu  {losses['cpu']}")
+    log(f"  launches {launches}; plain calls (fwd, bwd) on the CPU {plain}")
+    if launches != {("fwd", False, False): 6, ("bwd", False, False): 6} \
+            or plain != (6, 6):
+        raise AssertionError(f"launches {launches}, plain {plain}")
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)
+    worst = 0.0
+    for a, b in zip(card._params, cpu._params):
+        for k in a:
+            d = (a[k].cpu() - b[k]).abs()
+            worst = max(worst, d.max().item())
+            if not bool((d <= LSTM_PARITY_ATOL + 1e-5 * b[k].abs()).all()):
+                raise AssertionError(f"param {k} differs card vs CPU by "
+                                     f"{d.max().item()}")
+    log(f"  params after 3 steps: max abs diff card vs CPU {worst:.3e} "
+        f"(rtol 1e-5 + atol {LSTM_PARITY_ATOL} = lr/100)")
+    for kw, what in (({"tbptt": 12}, "tBPTT 12 (windows 12, 12, 8+4 masked)"),
+                     ({"bidirectional": True}, "bidirectional")):
+        nets = pair(**kw)
+        losses, launches, _ = train(nets, one_hot_batches(np, 64, 16, 32, 1,
+                                                          6))
+        log(f"  {what}: loss card {losses['cuda']} cpu {losses['cpu']}; "
+            f"launches {launches}")
+        np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)
+        if not any(m for (_, m, _) in launches) and "tbptt" in kw \
+                or not any(r for (*_, r) in launches) and "tbptt" not in kw:
+            raise AssertionError(f"expected masked (tBPTT) or reverse "
+                                 f"(bidirectional) launches: {launches}")
+    x, _ = one_hot_batches(np, 64, 16, 32, 1, 7)[0]
+    full = card.output(x)
+    steps = torch.cat([card.rnn_time_step(x[:, :5]),
+                       card.rnn_time_step(x[:, 5:])], dim=1)
+    d = (full - steps).abs().max().item()
+    log(f"  rnn_time_step (5 steps + 27) vs output on the card: max abs diff "
+        f"{d:.3e} (1e-5)")
+    if d > 1e-5:
+        raise AssertionError("rnn_time_step differs from output")
+
+
+def phase_lstm_train(torch, M, card):
+    """Main path 4: bench.py lstm_large at full width (bf16 compute over
+    f32 masters, uint8 ids through the OneHotEncoder)."""
+    import numpy as np
+
+    L = M["lstm"]
+    V, H, B, T = (LSTM_LARGE[k] for k in ("vocab", "hidden", "B", "T"))
+    net = M["MultiLayerNetwork"](char_rnn_conf(M, V, H, seed=1),
+                                 dtype=torch.float32,
+                                 compute_dtype=torch.bfloat16, device="cuda")
+    net.init()
+    net.set_normalizer(M["OneHotEncoder"](V))
+    ids = np.random.default_rng(0).integers(0, V, (LSTM_STEPS + 2, B, T + 1))
+    batches = [M["DataSet"](ids[i, :, :-1].astype(np.uint8),
+                            ids[i, :, 1:].astype(np.int32))
+               for i in range(LSTM_STEPS + 2)]
+    net.fit(batches[0])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    L.reset_counts()
+    step_ms, losses = [], []
+    for ds in batches[1:LSTM_STEPS + 1]:
+        t0 = time.perf_counter()
+        net.fit(ds)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(net.score_value)
+    launches = dict(L.launches)
+    plain = (L.lstm_fwd_plain.calls, L.lstm_bwd_plain.calls)
+    peak = torch.cuda.max_memory_allocated()
+    trace = traced(torch, lambda: net.fit(batches[-1]))
+    med = sorted(step_ms)[len(step_ms) // 2]
+    log(f"  {LSTM_STEPS} steps of B={B} x T={T}, H={H}, vocab {V}: step ms "
+        f"{[round(t, 2) for t in step_ms]}; median {med:.2f} ms, "
+        f"{B / med * 1e3:.1f} samples/s [{card}]")
+    log(f"  losses {losses}; peak device memory {peak / 2**30:.2f} GiB "
+        f"({peak} bytes)")
+    log(f"  LSTM launches over the timed steps {launches}, plain calls "
+        f"(fwd, bwd) {plain}")
+    log(f"  traced step (torch.profiler, not in the step times): {trace}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    want = {("fwd", False, False): 2 * LSTM_STEPS,
+            ("bwd", False, False): 2 * LSTM_STEPS}
+    if launches != want or any(plain):
+        raise AssertionError(f"expected {want} and no plain call, got "
+                             f"{launches}, {plain}")
+    del net
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_lstm_tbptt(torch, M, card):
+    """Main path 4b: bench.py lstm at full width with tBPTT 24. The one-hot
+    rows are fed as (B, T, vocab) features: the JAX package windows 3-D
+    features, not (B, T) ids that a normalizer expands."""
+    import numpy as np
+
+    L = M["lstm"]
+    V, H, B, T, W = (LSTM_SMALL[k] for k in ("vocab", "hidden", "B", "T",
+                                               "tbptt"))
+    net = M["MultiLayerNetwork"](char_rnn_conf(M, V, H, seed=1, tbptt=W),
+                                 dtype=torch.float32,
+                                 compute_dtype=torch.bfloat16, device="cuda")
+    net.init()
+    (x0, y0), (x1, y1) = one_hot_batches(np, V, B, T, 2, 3)
+    net.fit(M["DataSet"](x0, y0))   # warm-up
+    torch.cuda.synchronize()
+    L.reset_counts()
+    t0 = time.perf_counter()
+    net.fit(M["DataSet"](x1, y1))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(L.launches)
+    plain = (L.lstm_fwd_plain.calls, L.lstm_bwd_plain.calls)
+    trace = traced(torch, lambda: net.fit(M["DataSet"](x0, y0)))
+    n_win = -(-T // W)
+    log(f"  one fit of B={B} x T={T} (H={H}, vocab {V}) in {n_win} windows "
+        f"of {W}: wall {1e3 * wall:.2f} ms, {B / wall:.1f} samples/s, loss "
+        f"{net.score_value}, iteration {net.iteration} [{card}]")
+    log(f"  LSTM launches {launches}, plain calls {plain}")
+    log(f"  traced fit (torch.profiler, not in the wall time): {trace}")
+    want = {("fwd", False, False): 4, ("bwd", False, False): 4,
+            ("fwd", True, False): 2, ("bwd", True, False): 2}
+    if launches != want or any(plain) or not np.isfinite(net.score_value):
+        raise AssertionError(f"expected {want}, no plain call and a finite "
+                             f"loss: {launches}, {plain}, {net.score_value}")
+    del net
+    torch.cuda.empty_cache()
+    return launches
+
+
+def lstm_work(kind, masked, T, B, H):
+    """FLOPs and bytes of one bf16 launch: 2*T*B*H*4H flops for the
+    recurrent product (the gate chain's elementwise work is not counted);
+    each input read once, each output written once (dhc0 f32)."""
+    e, G = 2, 4 * H
+    flops = 2 * T * B * H * G
+    rw = H * G * e + 3 * H * e
+    if kind == "fwd":
+        nbytes = T * B * G * e + rw + 2 * B * H * e           # xw, RW, h0, c0
+        nbytes += T * B * H * e + B * H * e                   # h_out, cT
+        nbytes += T * B * G * e + T * B * H * e               # gates, c
+        if masked:
+            nbytes += T * B * e + T * B * H * e + B * H * e   # mask, h_sel, hT
+    else:
+        nbytes = T * B * G * e + 2 * T * B * H * e + rw       # gates, c, dh_out
+        nbytes += B * H * e + B * H * e                       # dcT, c0
+        nbytes += T * B * G * e + 2 * B * H * 4               # dz, dhc0
+        if masked:
+            nbytes += B * H * e + T * B * e                   # dhT, mask
+    return flops, nbytes
+
+
+def cudnn_lstm_ms(torch, T, B, H):
+    """Yardsticks from cuDNN's LSTM (`torch.nn.LSTM`, one layer, input
+    size H, bf16, or fp16 where this torch's cuDNN path refuses bf16),
+    which the port never calls. It has no peepholes and runs its own
+    input GEMM, so it is not the same function: forward = cuDNN's forward
+    minus one (T*B, H) @ (H, 4H) matmul; backward = cuDNN's
+    forward+backward minus its forward. Returns (fwd, bwd, dtype)."""
+    for dt in (torch.bfloat16, torch.float16):
+        lstm = torch.nn.LSTM(H, H).to(device="cuda", dtype=dt)
+        lstm.flatten_parameters()
+        x = torch.zeros((T, B, H), device="cuda", dtype=dt)
+        try:  # a yardstick outside the port: another dtype where refused
+            lstm(x[:1, :8])
+            break
+        except RuntimeError as e:
+            log(f"  cuDNN LSTM in {dt}: {e}")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((T, B, H), generator=g, device="cuda").to(dt)
+    w = torch.randn((H, 4 * H), generator=g, device="cuda").to(dt)
+    with torch.no_grad():
+        fwd = time_ms(torch, lambda: lstm(x))
+    mm = time_ms(torch, lambda: torch.matmul(x.reshape(T * B, H), w))
+    xg = x.clone().requires_grad_()
+    dy = torch.randn((T, B, H), generator=g, device="cuda").to(dt)
+
+    def fwd_bwd():
+        lstm(xg)[0].backward(dy)
+
+    fb = time_ms(torch, fwd_bwd)
+    return fwd - mm, fb - fwd, str(dt)[6:]
+
+
+def phase_lstm_timing(torch, L, counts4, counts4b):
+    """Rows 5-8 at the main paths' shapes (bf16): path 4 runs the
+    unmasked kernels at T=64, B=2048, H=1024; path 4b all four at a
+    window of T=24, B=8192, H=256."""
+    shapes = [(64, 2048, 1024, False, counts4),
+              (LSTM_SMALL["tbptt"], 8192, 256, False, counts4b),
+              (LSTM_SMALL["tbptt"], 8192, 256, True, counts4b)]
+    rows, yard = [], {}
+    for T, B, H, masked, counts in shapes:
+        inp = lstm_inputs(torch, T, B, H, torch.bfloat16, 77, masked)
+        got, bwd = lstm_run(L, inp, False)
+        ref, rb = lstm_plain_ref(L, inp, False, got)
+        torch.cuda.synchronize()
+        err = {"fwd": max((a.float() - b.float()).abs().max().item()
+                          for a, b in zip(got, ref) if a is not None),
+               "bwd": max((a.float() - b.float()).abs().max().item()
+                          for a, b in zip(bwd, rb))}
+        del ref, rb
+        m = inp["mask"]
+        fns = {
+            "fwd": (lambda: L.lstm_fwd(inp["xw"], inp["rw"], inp["peep"],
+                                       inp["h0"], inp["c0"], m),
+                    lambda: L.lstm_fwd_plain(inp["xw"], inp["rw"],
+                                             inp["peep"], inp["h0"],
+                                             inp["c0"], m)),
+            "bwd": (lambda: L.lstm_bwd(got[5], got[4], inp["dh"],
+                                       None if m is None else inp["dhT"],
+                                       inp["dcT"], inp["rw"], inp["peep"],
+                                       inp["c0"], m),
+                    lambda: L.lstm_bwd_plain(got[5], got[4], inp["dh"],
+                                             None if m is None else inp["dhT"],
+                                             inp["dcT"], inp["rw"],
+                                             inp["peep"], inp["c0"], m))}
+        if (T, B, H) not in yard:
+            yard[(T, B, H)] = cudnn_lstm_ms(torch, T, B, H)
+        for j, kind in enumerate(("fwd", "bwd")):
+            ms = time_ms(torch, fns[kind][0])
+            plain_ms = time_ms(torch, fns[kind][1], iters=5, warmup=1)
+            flops, nbytes = lstm_work(kind, masked, T, B, H)
+            t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+            name = (f"lstm_{kind}{'_masked' if masked else ''}"
+                    f"_t{T}_b{B}_h{H}")
+            row = {"name": name, "route": "cuda", "source": LSTM_SOURCE,
+                   "replaces": LSTM_REPLACES[(kind, masked)],
+                   "launches": int(counts.get((kind, masked, False), 0)),
+                   "max_abs_err": err[kind], "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": 1e3 * max(t_ops, t_bytes),
+                   "bound_by": "operations" if t_ops > t_bytes else "bytes",
+                   "library_ms": yard[(T, B, H)][j]}
+            how = "forward minus its input matmul" if kind == "fwd" \
+                else "fwd+bwd minus fwd"
+            log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"cuDNN LSTM {row['library_ms']:.4f} ms ({yard[(T, B, H)][2]},"
+                f" {how}, no peepholes), bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']}), {flops / ms / 1e9:.1f} TFLOP/s, "
+                f"max_abs_err {err[kind]:.3e}, launches {row['launches']}")
+            rows.append(row)
+        del inp, got, bwd
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -1085,55 +1618,73 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.datasets.normalizers import OneHotEncoder
     from deeplearning4j_tpu_torch.models.transformer import (
         generate,
         gpt_configuration,
     )
+    from deeplearning4j_tpu_torch.nn import conf as nn_conf
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
     from deeplearning4j_tpu_torch.ops import cuda_build
+    from deeplearning4j_tpu_torch.ops import lstm as L
+    from deeplearning4j_tpu_torch.ops.activations import Activation
+    from deeplearning4j_tpu_torch.ops.losses import LossFunction
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
     from deeplearning4j_tpu_torch.ops import paged_attention as pa
     from deeplearning4j_tpu_torch.serving.decode_engine import DecodeEngine
 
     M = dict(generate=generate, gpt_configuration=gpt_configuration,
              MultiLayerNetwork=MultiLayerNetwork, DecodeEngine=DecodeEngine,
-             DataSet=DataSet, fa=fa)
+             DataSet=DataSet, fa=fa, lstm=L, conf=nn_conf,
+             OneHotEncoder=OneHotEncoder, Activation=Activation,
+             LossFunction=LossFunction)
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     card = nvidia_smi_line()
-    log(f"[1/10] card: {card}; {torch.cuda.get_device_name(0)}; torch "
+    log(f"[1/15] card: {card}; {torch.cuda.get_device_name(0)}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}; "
         f"{torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     built = cuda_build.build(KERNEL_SOURCES)
-    log(f"[2/10] build: {time.perf_counter() - t0:.1f} s for "
+    log(f"[2/15] build: {time.perf_counter() - t0:.1f} s for "
         f"{len(built)} source(s)")
     for name, res in built.items():
         for line in ptxas_summary(res.log):
             log(f"  {name}: {line}")
 
-    log("[3/10] paged kernels against their plain versions (TF32 off)")
+    log("[3/15] paged kernels against their plain versions (TF32 off)")
     phase_kernels(torch, pa)
-    log("[4/10] flash kernels against their plain versions (TF32 off)")
+    log("[4/15] flash kernels against their plain versions (TF32 off)")
     phase_flash(torch, fa)
-    log("[5/10] f32 DecodeEngine vs generate, 2 layers, d_model 1024")
+    log("[5/15] f32 DecodeEngine vs generate, 2 layers, d_model 1024")
     phase_parity(torch, M)
-    log("[6/10] f32 training, card (kernels) vs CPU (plain), 1 layer, "
+    log("[6/15] f32 training, card (kernels) vs CPU (plain), 1 layer, "
         "d_model 1024, T=1024")
     phase_train_parity(torch, M)
-    log("[7/10] serving the 8-layer bf16 GPT at full width")
+    log("[7/15] serving the 8-layer bf16 GPT at full width")
     launches = phase_serve(torch, M, pa, card)
-    log("[8/10] serving it with int8 KV, the prefix cache and "
+    log("[8/15] serving it with int8 KV, the prefix cache and "
         "self-speculation on shared-prefix traffic")
     launches.update(phase_serve_tier(torch, M, pa, card))
-    log("[9/10] training the 8-layer bf16 gpt_long GPT at full width")
+    log("[9/15] training the 8-layer bf16 gpt_long GPT at full width")
     flash_counts = phase_train(torch, M, card)
-    log("[10/10] timing at the serving and training shapes (bf16)")
+    log("[10/15] LSTM kernels against their plain versions (TF32 off)")
+    phase_lstm_kernels(torch, L, M)
+    log("[11/15] f32 char-RNN training, card (kernels) vs CPU (plain), "
+        "H=256")
+    phase_lstm_train_parity(torch, M)
+    log("[12/15] training the bf16 lstm_large char-RNN at full width")
+    lstm_counts = phase_lstm_train(torch, M, card)
+    log("[13/15] training the bf16 lstm char-RNN with tBPTT 24 at full width")
+    tbptt_counts = phase_lstm_tbptt(torch, M, card)
+    log("[14/15] timing at the serving and training shapes (bf16)")
     rows = phase_timing(torch, pa, launches)
     rows += phase_flash_timing(torch, fa, flash_counts)
+    log("[15/15] timing the LSTM kernels at the char-RNN shapes (bf16)")
+    rows += phase_lstm_timing(torch, L, lstm_counts, tbptt_counts)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -3,6 +3,8 @@
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType  # noqa: F401
 from deeplearning4j_tpu_torch.nn.conf.layers import (  # noqa: F401
     DenseLayer,
+    GravesBidirectionalLSTM,
+    GravesLSTM,
     Layer,
     LayerNormalization,
     OutputLayer,

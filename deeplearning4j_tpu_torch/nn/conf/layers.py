@@ -1,13 +1,15 @@
 """Layer configurations with their parameter init, forward and loss
 (counterpart of `deeplearning4j_tpu/nn/conf/layers.py`, for the layers
-of the GPT path).
+of the GPT and char-RNN paths).
 
 Each config is a dataclass whose fields, field order and JSON encoding
 are the JAX package's, so a configuration written by either package
 parses in the other and re-serializes equal. `init_params` draws from an
 explicit `torch.Generator`. `forward(params, x, train=, rng=, mask=)`
-serves inference and training; none of these layers carries layer
-state. Dropout is inverted dropout drawn from a `torch.Generator` seeded
+serves inference and training. Only the recurrent layers carry state,
+the (h, c) carry of truncated BPTT: a layer with `stateful = True` also
+has `forward_with_state(params, state, x, ...) -> (out, new_state)`,
+which `MultiLayerNetwork` calls with its `_layer_state` slot. Dropout is inverted dropout drawn from a `torch.Generator` seeded
 from `rng`, a tuple of ints (the configuration's seed, the iteration,
 the layer index and the dropout site): deterministic per seed, never
 equal to the JAX package's threefry draws.
@@ -71,6 +73,7 @@ _LAYER_REGISTRY: Dict[str, type] = {}
 # field-name -> decoder applied on from_json
 _FIELD_DECODERS: Dict[str, Callable[[Any], Any]] = {
     "activation": Activation,
+    "gate_activation": Activation,
     "weight_init": WeightInit,
     "dist": Distribution.from_json,
     "loss": LossFunction,
@@ -149,6 +152,7 @@ class Layer:
     bias_learning_rate: Optional[float] = None
 
     input_kind = "any"  # 'ff' | 'cnn' | 'rnn' | 'any'
+    stateful = False    # True: has forward_with_state (layer state)
 
     @property
     def has_params(self) -> bool:
@@ -273,6 +277,116 @@ class RnnOutputLayer(OutputLayer):
     def output_type(self, it: InputType) -> InputType:
         t = it.timeseries_length if isinstance(it, InputTypeRecurrent) else -1
         return InputType.recurrent(self.n_out, t)
+
+
+# ---------------------------------------------------------------------------
+# recurrent
+
+
+@register_layer
+@dataclass
+class GravesLSTM(FeedForwardLayer):
+    """Graves-style peephole LSTM (gate order [i, f, o, g]). The math is
+    `nn/layers/recurrent.py`: the fused LSTM kernels for a sigmoid gate
+    and a tanh cell, the plain time loop otherwise. Layer state: the
+    (h, c) carry {"h", "c"} when the network seeds one (truncated BPTT);
+    empty otherwise."""
+
+    TYPE = "graves_lstm"
+    input_kind = "rnn"
+    stateful = True
+    n_in: int = 0
+    n_out: int = 0
+    gate_activation: Activation = Activation.SIGMOID
+    forget_gate_bias_init: float = 1.0
+
+    def output_type(self, it: InputType) -> InputType:
+        t = it.timeseries_length if isinstance(it, InputTypeRecurrent) else -1
+        return InputType.recurrent(self.n_out, t)
+
+    def init_params(self, gen, it, dtype=torch.float32) -> Params:
+        n_in, n_out = self.n_in, self.n_out
+        W = self._winit(gen, (n_in, 4 * n_out), n_in, n_out, dtype)
+        RW = self._winit(gen, (n_out, 4 * n_out), n_out, n_out, dtype)
+        b = torch.zeros((4 * n_out,), dtype=dtype, device=gen.device)
+        # the forget gate's slice of the bias
+        b[n_out:2 * n_out] = self.forget_gate_bias_init
+        zero = lambda: torch.zeros((n_out,), dtype=dtype, device=gen.device)
+        return {"W": W, "RW": RW, "b": b, "pI": zero(), "pF": zero(),
+                "pO": zero()}
+
+    def param_flags(self, name):
+        return {"is_bias": name == "b", "regularizable": name in ("W", "RW")}
+
+    def _acts(self):
+        return (activation_fn(self.gate_activation),
+                activation_fn(self.activation or Activation.TANH))
+
+    def _act_kinds(self):
+        """Whether the gate is a sigmoid and the cell a tanh: the fused
+        route's condition."""
+        return (self.gate_activation == Activation.SIGMOID,
+                (self.activation or Activation.TANH) == Activation.TANH)
+
+    def _run(self, p, x, h0, c0, mask, reverse):
+        from deeplearning4j_tpu_torch.nn.layers.recurrent import lstm_forward
+
+        gk, ck = self._act_kinds()
+        return lstm_forward(x, p["W"], p["RW"], p["b"],
+                            (p["pI"], p["pF"], p["pO"]), *self._acts(),
+                            h0, c0, mask, reverse=reverse,
+                            gate_is_sigmoid=gk, cell_is_tanh=ck)
+
+    def forward_with_state(self, params, state, x, *, train=False,
+                           rng: Rng = None, mask=None):
+        """(out, new_state): with a seeded state the carry starts from
+        state["h"], state["c"] and the new state is the final carry."""
+        x = self._maybe_dropout(x, train, rng)
+        h0 = state.get("h") if state else None
+        c0 = state.get("c") if state else None
+        out, (hT, cT) = self._run(params, x, h0, c0, mask, False)
+        return out, ({"h": hT, "c": cT} if state else state)
+
+    def forward(self, params, x, *, train=False, rng: Rng = None, mask=None):
+        return self.forward_with_state(params, None, x, train=train, rng=rng,
+                                       mask=mask)[0]
+
+    def step(self, params, x_t, h_prev, c_prev):
+        """One timestep of streaming inference (`rnn_time_step`)."""
+        from deeplearning4j_tpu_torch.nn.layers.recurrent import lstm_step
+
+        peep = (params["pI"], params["pF"], params["pO"])
+        return lstm_step(x_t, params["W"], params["RW"], params["b"], peep,
+                         *self._acts(), h_prev, c_prev)
+
+
+@register_layer
+@dataclass
+class GravesBidirectionalLSTM(GravesLSTM):
+    """Bidirectional Graves LSTM: the sum of a forward and a reversed
+    pass, with parameters `<name>_f` and `<name>_b`. Carries no state."""
+
+    TYPE = "graves_bidirectional_lstm"
+    stateful = False
+
+    def init_params(self, gen, it, dtype=torch.float32) -> Params:
+        f = GravesLSTM.init_params(self, gen, it, dtype)
+        bwd = GravesLSTM.init_params(self, gen, it, dtype)
+        out = {f"{k}_f": v for k, v in f.items()}
+        out.update({f"{k}_b": v for k, v in bwd.items()})
+        return out
+
+    def param_flags(self, name):
+        base = name[:-2]  # strip _f/_b
+        return {"is_bias": base == "b", "regularizable": base in ("W", "RW")}
+
+    def forward(self, params, x, *, train=False, rng: Rng = None, mask=None):
+        x = self._maybe_dropout(x, train, rng)
+        side = lambda s: {k[:-2]: v for k, v in params.items()
+                          if k.endswith(s)}
+        out_f, _ = self._run(side("_f"), x, None, None, mask, False)
+        out_b, _ = self._run(side("_b"), x, None, None, mask, True)
+        return out_f + out_b
 
 
 # ---------------------------------------------------------------------------

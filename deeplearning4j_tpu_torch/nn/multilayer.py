@@ -13,6 +13,12 @@ batch under the mixed-precision boundary of `_loss_pure`, its gradients
 by autograd, then every layer's update applied in place to the f32
 master weights under `torch.no_grad()`. PyTorch runs it eagerly; there
 is no jit and no scan.
+
+Layer state (`_layer_state`, one dict per layer) is empty except while
+truncated BPTT carries the recurrent layers' (h, c) from one window to
+the next (`_fit_tbptt`); `rnn_time_step` keeps its own streaming carry
+(`_rnn_state`). An id-consuming normalizer (`OneHotEncoder`) attached
+with `set_normalizer` expands raw ids on the device before layer 0.
 """
 from __future__ import annotations
 
@@ -42,6 +48,7 @@ from deeplearning4j_tpu_torch.ops.kernel_dispatch import resolve_device
 
 Params = List[Dict[str, torch.Tensor]]
 UpdState = List[Dict[str, Dict[str, torch.Tensor]]]
+LState = List[Dict[str, torch.Tensor]]
 
 logger = logging.getLogger("deeplearning4j_tpu_torch")
 
@@ -66,6 +73,10 @@ class MultiLayerNetwork:
         self.layers: List[Layer] = conf.layers
         self._params: Optional[Params] = None
         self._upd_state: Optional[UpdState] = None
+        self._layer_state: Optional[LState] = None
+        self._rnn_state: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self._rnn_pos = 0
+        self._normalizer = None
         self.iteration = 0
         self.epoch = 0
         self.listeners: List[Any] = []
@@ -89,7 +100,7 @@ class MultiLayerNetwork:
     def init(self) -> None:
         """Draw every layer's parameters from one generator seeded with
         the configuration's seed, on the network's device, and zero the
-        optimizer state."""
+        optimizer state and the layer state."""
         gen = torch.Generator(device=self.device).manual_seed(self.conf.seed)
         self._params = [
             layer.init_params(gen, self._input_types[i], self.dtype)
@@ -99,6 +110,7 @@ class MultiLayerNetwork:
             {name: init_updater_state(layer.updater_cfg, v)
              for name, v in p.items()} if layer.updater_cfg is not None
             else {} for layer, p in zip(self.layers, self._params)]
+        self._layer_state = [{} for _ in self.layers]
 
     def _ensure_init(self):
         if self._params is None:
@@ -119,65 +131,149 @@ class MultiLayerNetwork:
     def score_value(self, v) -> None:
         self._score = v if (v is None or isinstance(v, float)) else float(v)
 
+    # --------------------------------------------------------- normalizer
+    def set_normalizer(self, normalizer) -> None:
+        """Attach an id-consuming normalizer (`OneHotEncoder`) whose
+        expansion runs on the device before layer 0; None detaches.
+        Other normalizers are not ported."""
+        if normalizer is not None:
+            if not getattr(normalizer, "consumes_integer_ids", False):
+                raise _not_ported(f"device-side normalizer "
+                                  f"{type(normalizer).__name__}",
+                                  "queue A14: data")
+            normalizer.check_device_attachable()
+            if self._int_input():
+                raise ValueError(
+                    "cannot attach a normalizer to a network whose first "
+                    "layer consumes integer token ids "
+                    f"({type(self.layers[0]).__name__}): ids are never "
+                    "scaled, so the normalizer would be silently ignored")
+        self._normalizer = normalizer
+
+    def get_normalizer(self):
+        return self._normalizer
+
+    def _feature_wire_mode(self) -> str:
+        """'sink' (an integer-id first layer: ids pass straight through),
+        'ids' (an id-consuming normalizer expands raw ids) or 'float'
+        (cast to the model dtype)."""
+        if self._int_input():
+            return "sink"
+        if self._normalizer is not None \
+                and self._normalizer.consumes_integer_ids:
+            return "ids"
+        return "float"
+
+    def _prep_features(self, features):
+        """Token ids as they are; ids through the attached normalizer and
+        any other features in the model dtype."""
+        mode = self._feature_wire_mode()
+        if mode == "sink":
+            return features
+        if mode == "ids":
+            features = self._normalizer.device_transform(features)
+        return features if features.dtype == self.dtype \
+            else features.to(self.dtype)
+
     # ------------------------------------------------------------- forward
     def _int_input(self) -> bool:
         return bool(getattr(self.layers[0], "integer_input", False))
 
     def _forward_pure(self, params: Params, x, *, train: bool, rng,
-                      fmask=None, upto: Optional[int] = None):
+                      fmask=None, upto: Optional[int] = None,
+                      lstate: Optional[LState] = None):
+        """Every layer up to `upto`: (activations, new layer state). A
+        stateful layer gets its `lstate` slot and returns the next one."""
         n = len(self.layers) if upto is None else upto
+        new_state = list(lstate) if lstate is not None \
+            else [{} for _ in self.layers]
         for i in range(n):
+            layer = self.layers[i]
             mask = fmask if x.ndim == 3 else None
-            x = self.layers[i].forward(params[i], x, train=train,
-                                       rng=fold_in(rng, i), mask=mask)
-        return x
+            if layer.stateful:
+                x, new_state[i] = layer.forward_with_state(
+                    params[i], new_state[i], x, train=train,
+                    rng=fold_in(rng, i), mask=mask)
+            else:
+                x = layer.forward(params[i], x, train=train,
+                                  rng=fold_in(rng, i), mask=mask)
+        return x, new_state
+
+    def _wire_features(self, x):
+        from deeplearning4j_tpu_torch.nn.precision import wire_asarray
+
+        return wire_asarray(x, self.dtype, self.device,
+                            self._feature_wire_mode() != "float")
 
     @torch.no_grad()
     def output(self, x) -> torch.Tensor:
-        """Forward pass of every layer (inference): token ids (B, T) in,
-        (B, T, n_out) activations out, on the network's device."""
-        from deeplearning4j_tpu_torch.nn.precision import wire_asarray
-
+        """Forward pass of every layer (inference): features (token ids
+        (B, T), ids for an attached OneHotEncoder, or (B, T, F) floats)
+        in, (B, T, n_out) activations out, on the network's device."""
         self._ensure_init()
-        x = wire_asarray(x, self.dtype, self.device, self._int_input())
-        return self._forward_pure(self._params, x, train=False, rng=None)
+        x = self._prep_features(self._wire_features(x))
+        return self._forward_pure(self._params, x, train=False, rng=None,
+                                  lstate=self._layer_state)[0]
+
+    @torch.no_grad()
+    def feed_forward(self, x) -> List[torch.Tensor]:
+        """Every layer's activations (inference), in layer order."""
+        self._ensure_init()
+        h = self._prep_features(self._wire_features(x))
+        acts = []
+        for p, layer in zip(self._params, self.layers):
+            h = layer.forward(p, h, train=False, rng=None)
+            acts.append(h)
+        return acts
 
     # ------------------------------------------------------------ training
     def _loss_pure(self, params: Params, features, labels, fmask, lmask,
-                   rng, train: bool = True):
-        """Output-layer loss + L1/L2. Mixed precision: every layer but
-        the output layer runs in the compute dtype (token ids are never
-        cast); the activations return to the parameter dtype before the
-        output layer, which computes the loss, and the penalties, in the
-        parameter dtype."""
-        from deeplearning4j_tpu_torch.nn.precision import tree_cast
+                   rng, train: bool = True, lstate: Optional[LState] = None):
+        """(output-layer loss + L1/L2, new layer state). Mixed precision:
+        every layer but the output layer runs in the compute dtype (token
+        ids are never cast); the activations return to the parameter
+        dtype before the output layer, which computes the loss, and the
+        penalties, in the parameter dtype; carried state keeps its
+        dtype."""
+        from deeplearning4j_tpu_torch.nn.precision import (
+            restore_dtypes,
+            tree_cast,
+        )
 
         params_in = params
+        features = self._prep_features(features)
         if self.compute_dtype is not None:
             params = [tree_cast(p, self.compute_dtype) for p in params]
             if not self._int_input():
                 features = features.to(self.compute_dtype)
         n = len(self.layers)
-        x = self._forward_pure(params, features, train=train, rng=rng,
-                               fmask=fmask, upto=n - 1)
+        x, new_state = self._forward_pure(params, features, train=train,
+                                          rng=rng, fmask=fmask, upto=n - 1,
+                                          lstate=lstate)
         if self.compute_dtype is not None:
             x = x.to(self.dtype)
+            if lstate is not None:
+                new_state = restore_dtypes(new_state, lstate)
         mask = lmask if lmask is not None else (fmask if x.ndim == 3 else None)
         loss = self.layers[-1].loss_score(params_in[-1], x, labels,
                                           train=train, rng=fold_in(rng, n - 1),
                                           mask=mask)
-        return loss + regularization_score(zip(self.layers, params_in))
+        return loss + regularization_score(zip(self.layers, params_in)), \
+            new_state
 
     def _step_core(self, features, labels, fmask, lmask) -> Tuple[
             torch.Tensor, List[Dict[str, torch.Tensor]]]:
         """One training step on one batch: loss, gradients, and every
-        layer's update applied in place. Returns (loss, gradients)."""
+        layer's update applied in place; the new layer state (detached:
+        no gradient crosses batches or tBPTT windows) replaces the old.
+        Returns (loss, gradients)."""
         leaves = [{k: v.detach().requires_grad_(True) for k, v in p.items()}
                   for p in self._params]
         flat = [t for p in leaves for t in p.values()]
         with torch.enable_grad():
-            loss = self._loss_pure(leaves, features, labels, fmask, lmask,
-                                   (self.conf.seed, self.iteration), True)
+            loss, new_state = self._loss_pure(
+                leaves, features, labels, fmask, lmask,
+                (self.conf.seed, self.iteration), True, self._layer_state)
             g_flat = torch.autograd.grad(loss, flat, allow_unused=True)
         grads, it = [], iter(g_flat)
         for p in leaves:
@@ -187,13 +283,15 @@ class MultiLayerNetwork:
             for i, layer in enumerate(self.layers):
                 apply_layer_update(layer, self._upd_state[i], self._params[i],
                                    grads[i], self.iteration)
+        self._layer_state = [{k: v.detach() for k, v in st.items()}
+                             for st in new_state]
         return loss.detach(), grads
 
     def _batch_arrays(self, ds: DataSet):
         from deeplearning4j_tpu_torch.nn.precision import wire_asarray
 
         dev = self.device
-        f = wire_asarray(ds.features, self.dtype, dev, self._int_input())
+        f = self._wire_features(ds.features)
         l = None if ds.labels is None \
             else wire_asarray(ds.labels, self.dtype, dev)
         fm = None if ds.features_mask is None \
@@ -214,8 +312,7 @@ class MultiLayerNetwork:
         if algo != OptimizationAlgorithm.STOCHASTIC_GRADIENT_DESCENT:
             raise _not_ported(f"line-search solvers ({algo.value})",
                               "queue A10: optimize/solvers.py")
-        if self.conf.tbptt_fwd_length > 0:
-            raise _not_ported("truncated BPTT", "queue 3: the recurrent path")
+        tbptt = self.conf.tbptt_fwd_length > 0
         if isinstance(data, (np.ndarray, torch.Tensor)):
             data = DataSet(data, labels)
         iterator = ListDataSetIterator([data]) if isinstance(data, DataSet) \
@@ -227,7 +324,10 @@ class MultiLayerNetwork:
             n_batches = 0
             for ds in iterator:
                 n_batches += 1
-                self._fit_batch(ds)
+                if tbptt and self._tbptt_applicable(ds):
+                    self._fit_tbptt(ds)
+                else:
+                    self._fit_batch(ds)
             if n_batches == 0:
                 logger.warning("fit(): iterator produced no batches this "
                                "epoch")
@@ -247,6 +347,13 @@ class MultiLayerNetwork:
             listener.iteration_done(self, self.iteration)
 
     def _validate_labels(self, ds: DataSet) -> None:
+        from deeplearning4j_tpu_torch.datasets.normalizers import (
+            OneHotEncoder,
+        )
+
+        if isinstance(self._normalizer, OneHotEncoder):
+            # an out-of-range id must fail here, not on the device
+            self._normalizer.check_ids(ds.features)
         if ds.labels is None:
             raise ValueError("fit() requires labels; got DataSet with "
                              "labels=None (pretrain() is not ported)")
@@ -269,6 +376,103 @@ class MultiLayerNetwork:
                 f"{tuple(ds.features.shape)}, labels shape "
                 f"{tuple(labels.shape)})")
 
+    # ------------------------------------------------------ truncated BPTT
+    def _fit_tbptt(self, ds: DataSet) -> None:
+        """Truncated BPTT: the time axis in `tbptt_fwd_length` windows,
+        one training step each, the LSTM (h, c) carried from window to
+        window without a gradient; the score is the windows' mean loss.
+        The windows (and their label checks) are built before the carries
+        are seeded, and the persistent state slots are restored whatever
+        happens."""
+        windows = self._tbptt_windows(ds)
+        saved = self._tbptt_seed_carries(ds.features.shape[0])
+        losses = []
+        try:
+            for window in windows:
+                self._fit_batch(window)
+                losses.append(self._score)
+        finally:
+            self._tbptt_restore_carries(saved)
+        self.score_value = float(np.mean([float(l) for l in losses]))
+
+    def _tbptt_applicable(self, ds) -> bool:
+        """3-D sequences always; (B, T) integer ids only when the first
+        layer consumes id sequences (not ids that a normalizer expands,
+        which the JAX package does not window either)."""
+        f = getattr(ds, "features", None)
+        if f is None:
+            return False
+        nd = np.ndim(f)
+        if nd == 3:
+            return True
+        l0 = self.layers[0]
+        if not (nd == 2 and getattr(l0, "integer_input", False)
+                and l0.input_kind == "rnn"):
+            return False
+        dt = f.dtype if hasattr(f, "dtype") else np.asarray(f).dtype
+        return np.issubdtype(dt, np.integer)
+
+    def _tbptt_seed_carries(self, B: int):
+        """Zero (h, c) carries in every GravesLSTM slot (not the
+        bidirectional one); returns the saved slots."""
+        from deeplearning4j_tpu_torch.nn.conf.layers import GravesLSTM
+
+        saved = {}
+        for i, layer in enumerate(self.layers):
+            if type(layer) is GravesLSTM:
+                zero = torch.zeros((B, layer.n_out), dtype=self.dtype,
+                                   device=self.device)
+                saved[i] = self._layer_state[i]
+                self._layer_state[i] = {"h": zero, "c": zero.clone()}
+        return saved
+
+    def _tbptt_restore_carries(self, saved) -> None:
+        for i, st in saved.items():
+            self._layer_state[i] = st
+
+    def _tbptt_windows(self, ds: DataSet) -> List[DataSet]:
+        """Window batches of `tbptt_fwd_length` steps; a short tail
+        window is padded to the full length and its padding masked."""
+        sparse = (ds.labels is not None
+                  and np.issubdtype(np.asarray(ds.labels).dtype, np.integer)
+                  and np.asarray(ds.labels).ndim == 2)
+        if ds.labels is None or (ds.labels.ndim != 3 and not sparse):
+            raise ValueError(
+                "truncated BPTT requires per-timestep labels: one-hot "
+                "(batch, time, nOut) or sparse int (batch, time); got "
+                f"labels shape "
+                f"{None if ds.labels is None else ds.labels.shape}. For "
+                "sequence-to-one models, train without tBPTT "
+                "(t_bptt_forward_length unset)")
+        fwd_len = self.conf.tbptt_fwd_length
+        B, T = ds.features.shape[:2]
+        n_windows = (T + fwd_len - 1) // fwd_len
+        sl = lambda a, lo, hi: None if a is None else a[:, lo:hi]
+        windows = []
+        for w in range(n_windows):
+            lo, hi = w * fwd_len, min((w + 1) * fwd_len, T)
+            if hi - lo < fwd_len and n_windows > 1:
+                pad = fwd_len - (hi - lo)
+
+                def padded(a):
+                    a = np.asarray(a)
+                    return np.concatenate([a[:, lo:hi],
+                                           np.zeros_like(a[:, :pad])], axis=1)
+
+                m = np.concatenate([np.ones((B, hi - lo), np.float32),
+                                    np.zeros((B, pad), np.float32)], axis=1)
+                fmask = m if ds.features_mask is None \
+                    else padded(ds.features_mask)
+                lmask = m if ds.labels_mask is None \
+                    else padded(ds.labels_mask)
+                windows.append(DataSet(padded(ds.features),
+                                       padded(ds.labels), fmask, lmask))
+            else:
+                windows.append(DataSet(
+                    ds.features[:, lo:hi], ds.labels[:, lo:hi],
+                    sl(ds.features_mask, lo, hi), sl(ds.labels_mask, lo, hi)))
+        return windows
+
     def score(self, ds: DataSet) -> float:
         """Loss on a dataset without updating (no dropout)."""
         self._ensure_init()
@@ -283,7 +487,7 @@ class MultiLayerNetwork:
         f, l, fm, lm = self._batch_arrays(ds)
         with torch.no_grad():
             return float(self._loss_pure(self._params, f, l, fm, lm, None,
-                                         False))
+                                         False, self._layer_state)[0])
 
     def compute_gradient_and_score(self, ds: DataSet
                                    ) -> Tuple[np.ndarray, float]:
@@ -295,16 +499,102 @@ class MultiLayerNetwork:
                   for p in self._params]
         ordered = [p[k] for p in leaves for k in sorted(p)]
         with torch.enable_grad():
-            loss = self._loss_pure(leaves, f, l, fm, lm, None, True)
+            loss = self._loss_pure(leaves, f, l, fm, lm, None, True,
+                                   self._layer_state)[0]
             grads = torch.autograd.grad(loss, ordered, allow_unused=True)
         flat = torch.cat([(g if g is not None else torch.zeros_like(t))
                           .reshape(-1) for g, t in zip(grads, ordered)])
         return flat.detach().cpu().numpy(), float(loss.detach())
 
-    # --------------------------------------------------------- not ported
-    def set_normalizer(self, normalizer) -> None:
-        raise _not_ported("device-side normalizers", "queue A14: data")
+    # --------------------------------------------------------- rnn support
+    @torch.no_grad()
+    def rnn_time_step(self, x) -> torch.Tensor:
+        """Stateful streaming inference: one step ((B, F) features, (B,)
+        ids) or several ((B, T, F), or (B, T) ids into an id-sequence
+        first layer), carrying each GravesLSTM's (h, c) and the stream
+        position between calls. Returns (B, n_out) or (B, T, n_out)."""
+        from deeplearning4j_tpu_torch.nn.conf.layers import (
+            GravesBidirectionalLSTM,
+            GravesLSTM,
+            TokenEmbedding,
+            TransformerBlock,
+        )
 
+        self._ensure_init()
+        for i, layer in enumerate(self.layers):
+            if isinstance(layer, GravesBidirectionalLSTM):
+                raise ValueError(
+                    f"rnn_time_step cannot stream through bidirectional "
+                    f"LSTM layer {i} (the backward pass needs the full "
+                    "sequence)")
+            if isinstance(layer, TransformerBlock):
+                raise ValueError(
+                    f"rnn_time_step cannot stream through attention layer "
+                    f"{i} — use models.transformer.generate (KV-cache "
+                    "sampler)")
+        mode = self._feature_wire_mode()
+        xx = x if isinstance(x, torch.Tensor) \
+            else torch.from_numpy(np.ascontiguousarray(np.asarray(x)))
+        xx = xx.to(self.device)
+        token_seq = mode == "sink" and self.layers[0].input_kind == "rnn"
+        temporal = xx.ndim == 3 or (token_seq and xx.ndim == 2)
+        T = xx.shape[1] if temporal else 1
+        B = xx.shape[0]
+        for i, layer in enumerate(self.layers):
+            if type(layer) is GravesLSTM and i not in self._rnn_state:
+                zero = torch.zeros((B, layer.n_out), dtype=self.dtype,
+                                   device=self.device)
+                self._rnn_state[i] = (zero, zero.clone())
+        outs = []
+        for t in range(T):
+            h = self._prep_features(xx[:, t] if temporal else xx)
+            pos = self._rnn_pos + t
+            for i, layer in enumerate(self.layers):
+                p = self._params[i]
+                if type(layer) is GravesLSTM:
+                    h, self._rnn_state[i] = layer.step(p, h,
+                                                       *self._rnn_state[i])
+                    continue
+                if isinstance(layer, TokenEmbedding):
+                    idx = (h if h.ndim == 1 else h[:, 0]).long()
+                    h = p["W"][idx]
+                    if layer.positional:
+                        h = h + p["P"][min(pos, layer.max_length - 1)]
+                    continue
+                if h.ndim == 1:
+                    h = h[:, None]   # single-step ids -> one timestep
+                elif h.ndim == 2 and layer.input_kind == "rnn" \
+                        and not getattr(layer, "integer_input", False):
+                    h = h[:, None, :]
+                h = layer.forward(p, h, train=False, rng=None)
+                if h.ndim == 3 and h.shape[1] == 1:
+                    h = h[:, 0]
+            outs.append(h)
+        self._rnn_pos += T
+        out = torch.stack(outs, dim=1)
+        return out if temporal else out[:, 0]
+
+    def rnn_clear_previous_state(self) -> None:
+        self._rnn_state = {}
+        self._rnn_pos = 0
+
+    def rnn_get_previous_state(self) -> Dict:
+        """Each streaming LSTM layer's {"h", "c"} as numpy arrays, plus the
+        stream position under the reserved key '__pos__'."""
+        out: Dict = {i: {"h": h.cpu().numpy(), "c": c.cpu().numpy()}
+                     for i, (h, c) in self._rnn_state.items()}
+        out["__pos__"] = self._rnn_pos
+        return out
+
+    def rnn_set_previous_state(self, states: Dict) -> None:
+        states = dict(states)
+        self._rnn_pos = int(states.pop("__pos__", 0))
+        as_t = lambda a: torch.as_tensor(np.asarray(a)).to(
+            device=self.device, dtype=self.dtype)
+        self._rnn_state = {int(i): (as_t(st["h"]), as_t(st["c"]))
+                           for i, st in states.items()}
+
+    # --------------------------------------------------------- not ported
     def set_health_sentinel(self, sentinel) -> None:
         raise _not_ported("the training health sentinel",
                           "queue A10: optimize/health.py")

@@ -1,0 +1,450 @@
+"""The fused Graves LSTM: the hand-written CUDA forward and backward
+kernels, their wrappers, their plain PyTorch versions and the
+`torch.autograd.Function`s that tie them together.
+
+Counterpart of `deeplearning4j_tpu/ops/pallas_lstm.py`: the TPU kernels
+`_lstm_fwd_kernel`, `_lstm_bwd_kernel`, `_lstm_fwd_kernel_masked` and
+`_lstm_bwd_kernel_masked` become `csrc/lstm.cu` (route: CUDA C++ for
+sm_90a, plain C interface, loaded with ctypes): one persistent cooperative
+launch per layer, direction and pass, the time loop inside it. The
+source's header says how it is laid out and what bounds it.
+
+`lstm_fused(x, W, RW, b, peephole, h0, c0, mask=, reverse=)` is the entry
+point (the JAX package's `lstm_fused_or_none` without the `None`): the
+time-major input projection `xw = x W + b` runs outside the kernels, as a
+PyTorch matmul; the kernels run the recurrence. Given CPU tensors the
+wrappers `lstm_fwd`/`lstm_bwd` run the plain versions; given CUDA tensors
+they launch the kernels or raise. There is no probe, no fallback and no
+kill switch: the JAX package's `DL4J_TPU_NO_PALLAS_LSTM` and
+`DL4J_TPU_LSTM_UNROLL` switches and its TPU-only shape preconditions are
+not carried over. The kernels take any H and B, T >= 1, f32 or bf16.
+
+Rounding points are the Pallas kernels': carries and the gate chain in
+the statistic type (f32; f64 for f64 input on the CPU), product operands
+in the operand type (`mxu_dtype`: h rounded before its product, never
+carried rounded), h_out, c, gates and dz stored in xw's type, dh0 and dc0
+in the statistic type. The plain versions round at the same points, so
+kernel and plain version differ only in the order of their f32 sums.
+
+Counts: `launches[("fwd" | "bwd", masked, reverse)]` (kernel launches),
+`lstm_fwd_plain.calls` and `lstm_bwd_plain.calls`.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from deeplearning4j_tpu_torch.ops.kernel_dispatch import mxu_dtype, stat_dtype
+
+# Tolerance of the kernels against the plain versions computed in f32 on
+# the same inputs (bf16 cast up exactly), held row by row (one row = one
+# (t, b) over the hidden units or the 4H gate columns; see
+# `error_in_tolerances`): the row's largest error within TOLERANCE[dtype]
+# times the row's largest reference magnitude (or the median row's, where
+# larger). f32: the two sum in another order. bf16: both round every
+# stored value to bf16 (2^-8 relative), and a value that lands near a
+# rounding boundary may round the other way and carry into later steps
+# through the rounded h; a row stays within about 2^-7, held at 2^-6.
+TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_UNITS = 8  # hidden units per block (csrc/lstm.cu kUnits)
+
+launches: Dict[Tuple[str, bool, bool], int] = {}
+
+
+def error_in_tolerances(got: torch.Tensor, ref: torch.Tensor,
+                        dtype: torch.dtype) -> float:
+    """How far `got` lies from its f32 reference `ref`, in units of
+    TOLERANCE[dtype] (the kernel passes at <= 1): the largest over rows
+    (the last axis) of the row's largest error over the row's scale, its
+    largest |ref| or the median of those, where larger. Non-finite output
+    gives inf."""
+    g, r = got.float(), ref.float()
+    if not bool(torch.isfinite(g).all()):
+        return math.inf
+    err = (g - r).abs().reshape(-1, g.shape[-1])
+    scale = r.abs().reshape(-1, r.shape[-1]).amax(dim=-1)
+    bound = TOLERANCE[dtype] * torch.maximum(scale, scale.median())
+    row = err.amax(dim=-1)
+    return torch.where(row == 0, 0.0, row / bound).max().item()
+
+
+def _order(T: int, reverse: bool):
+    """Time indices in the order the forward processes them."""
+    return [T - 1 - s if reverse else s for s in range(T)]
+
+
+# ------------------------------------------------------------------ plain
+def lstm_fwd_plain(xw, rw, peep, h0, c0, mask=None, *, reverse=False,
+                   with_stash=True):
+    """Plain forward over xw (T, B, 4H), RW (H, 4H), peep (3, H), h0/c0
+    (B, H), mask (T, B) or None, all of one dtype: (h_out (T, B, H), hT
+    (B, H) masked else None, cT, h_sel (T, B, H) masked with stash else
+    None, c (c_sel) (T, B, H) or None, gates (T, B, 4H) or None)."""
+    lstm_fwd_plain.calls += 1
+    T, B, G = xw.shape
+    H = G // 4
+    sdt, dt = stat_dtype(xw.dtype), mxu_dtype(xw.dtype)
+    rwf = rw.to(dt).to(sdt)
+    pI, pF, pO = (peep[j].to(sdt) for j in range(3))
+    h, c = h0.to(sdt), c0.to(sdt)
+    new = lambda *s: torch.empty(s, dtype=xw.dtype, device=xw.device)
+    h_out = new(T, B, H)
+    c_st = new(T, B, H) if with_stash else None
+    h_st = new(T, B, H) if with_stash and mask is not None else None
+    gates = new(T, B, G) if with_stash else None
+    for t in _order(T, reverse):
+        z = xw[t].to(sdt) + h.to(dt).to(sdt) @ rwf
+        i = torch.sigmoid(z[:, :H] + pI * c)
+        f = torch.sigmoid(z[:, H:2 * H] + pF * c)
+        g = torch.tanh(z[:, 3 * H:])
+        cn = f * c + i * g
+        o = torch.sigmoid(z[:, 2 * H:3 * H] + pO * cn)
+        hn = o * torch.tanh(cn)
+        if mask is None:
+            h, c, out = hn, cn, hn
+        else:
+            m = mask[t].to(sdt)[:, None]
+            # hard select on m > 0; the output scales by m
+            h = torch.where(m > 0, hn, h)
+            c = torch.where(m > 0, cn, c)
+            out = h * m
+        h_out[t] = out
+        if with_stash:
+            c_st[t] = c
+            gates[t] = torch.cat([i, f, o, g], dim=1)
+            if h_st is not None:
+                h_st[t] = h
+    hT = None if mask is None else h.to(xw.dtype)
+    return h_out, hT, c.to(xw.dtype), h_st, c_st, gates
+
+
+lstm_fwd_plain.calls = 0
+
+
+def lstm_bwd_plain(gates, c_st, dh_out, dhT, dcT, rw, peep, c0, mask=None,
+                   *, reverse=False):
+    """Plain backward from the forward's stash: (dz (T, B, 4H) in the
+    gates' type, dhc0 (2, B, H) = (dh0, dc0) in the statistic type).
+    `c_st` is the c stash (c_sel when masked); `dhT` is None unmasked."""
+    lstm_bwd_plain.calls += 1
+    T, B, G = gates.shape
+    H = G // 4
+    sdt, dt = stat_dtype(gates.dtype), mxu_dtype(gates.dtype)
+    rwf = rw.to(dt).to(sdt)
+    pI, pF, pO = (peep[j].to(sdt) for j in range(3))
+    dh = torch.zeros((B, H), dtype=sdt, device=gates.device) \
+        if dhT is None else dhT.to(sdt)
+    dc = dcT.to(sdt)
+    dz = torch.empty_like(gates)
+    order = _order(T, reverse)
+    for k in range(T - 1, -1, -1):
+        t = order[k]
+        gt = gates[t].to(sdt)
+        i, f, o, g = gt[:, :H], gt[:, H:2 * H], gt[:, 2 * H:3 * H], gt[:, 3 * H:]
+        c_prev = (c0 if k == 0 else c_st[order[k - 1]]).to(sdt)
+        if mask is None:
+            c_t = c_st[t].to(sdt)
+            dh_new = dh_out[t].to(sdt) + dh
+            dc_new = dc
+            byp_h = byp_c = 0.0
+        else:
+            m = mask[t].to(sdt)[:, None]
+            c_t = f * c_prev + i * g   # the candidate: the stash holds c_sel
+            d_hsel = m * dh_out[t].to(sdt) + dh
+            zero = torch.zeros_like(d_hsel)
+            dh_new = torch.where(m > 0, d_hsel, zero)
+            byp_h = torch.where(m > 0, zero, d_hsel)
+            dc_new = torch.where(m > 0, dc, zero)
+            byp_c = torch.where(m > 0, zero, dc)
+        tc = torch.tanh(c_t)
+        dzo = dh_new * tc * o * (1.0 - o)
+        dct = dh_new * o * (1.0 - tc * tc) + dc_new + dzo * pO
+        dzg = dct * i * (1.0 - g * g)
+        dzi = dct * g * i * (1.0 - i)
+        dzf = dct * c_prev * f * (1.0 - f)
+        dz_t = torch.cat([dzi, dzf, dzo, dzg], dim=1)
+        dz[t] = dz_t
+        dh = dz_t.to(dt).to(sdt) @ rwf.T + byp_h
+        dc = dct * f + dzi * pI + dzf * pF + byp_c
+    return dz, torch.stack([dh, dc])
+
+
+lstm_bwd_plain.calls = 0
+
+
+# --------------------------------------------------------------- kernels
+def _library() -> ctypes.CDLL:
+    from deeplearning4j_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.load("lstm")
+    if lib.dl4j_lstm_fwd.argtypes is None:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        # dtype, T, B, H, reverse, stream
+        dims = [ci] * 5 + [vp]
+        lib.dl4j_lstm_fwd.argtypes = [vp] * 12 + dims
+        lib.dl4j_lstm_bwd.argtypes = [vp] * 11 + dims
+        lib.dl4j_lstm_fwd.restype = ci
+        lib.dl4j_lstm_bwd.restype = ci
+        lib.dl4j_lstm_plan.argtypes = [ci] * 5 + [ctypes.POINTER(ci)]
+        lib.dl4j_lstm_plan.restype = ctypes.c_size_t
+    return lib
+
+
+def plan(kind: str, dtype: torch.dtype, masked: bool, B: int, H: int):
+    """The kernel's launch plan on the current card: (shared memory bytes
+    per block, unit slices, batch splits, rows per split, blocks that can
+    be resident at once)."""
+    lib = _library()
+    out = (ctypes.c_int * 4)()
+    smem = lib.dl4j_lstm_plan(0 if kind == "fwd" else 1, _DTYPE_CODE[dtype],
+                              int(masked), B, H, out)
+    if smem == 0:
+        raise RuntimeError(f"lstm {kind}: planning the launch failed")
+    return (int(smem),) + tuple(out)
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _check_cuda(kind, ts, dtype, B, H, masked):
+    """Preconditions of the kernels: one CUDA device, f32 or bf16, one
+    type, contiguous; the block's shared memory within the card's
+    limit."""
+    dev = ts[0].device
+    for t in ts:
+        if t.device != dev:
+            raise ValueError(f"lstm {kind}: tensors on {t.device} and {dev}")
+        if t.dtype != dtype:
+            raise TypeError(f"lstm {kind}: the kernels take tensors of one "
+                            f"type, f32 or bf16; got {t.dtype} and {dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"lstm {kind}: a non-contiguous tensor of shape "
+                             f"{tuple(t.shape)}")
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"lstm {kind}: the kernels take f32 or bf16, got "
+                        f"{dtype}")
+    from deeplearning4j_tpu_torch.ops.kernel_dispatch import smem_limit_bytes
+
+    limit = smem_limit_bytes(dev)
+    with torch.cuda.device(dev):
+        smem, gu, gb, rows, cap = plan(kind, dtype, masked, B, H)
+    if smem > limit:
+        raise ValueError(
+            f"lstm {kind} kernel needs {smem} bytes of shared memory per "
+            f"block at H={H}, B={B}, {dtype} (the RW slice of {_UNITS} "
+            f"units plus the f32 carries of {rows} rows); the card allows "
+            f"{limit}")
+    return _library(), (smem, gu, gb, rows, cap)
+
+
+def _raise_on(rc, kind, shape, p):
+    if rc == 720:  # cudaErrorCooperativeLaunchTooLarge
+        raise RuntimeError(
+            f"lstm {kind} kernel launch refused: CUDA error 720 (cooperative "
+            f"launch too large): a grid of {p[1]} x {p[2]} blocks at "
+            f"{p[0]} bytes of shared memory each, {p[4]} can be resident "
+            f"(shape {shape})")
+    if rc != 0:
+        raise RuntimeError(f"lstm {kind} kernel launch failed: CUDA error "
+                           f"{rc} (shape {shape})")
+
+
+def _count(kind, masked, reverse):
+    key = (kind, bool(masked), bool(reverse))
+    launches[key] = launches.get(key, 0) + 1
+
+
+def lstm_fwd(xw, rw, peep, h0, c0, mask=None, *, reverse=False,
+             with_stash=True):
+    """The forward: `lstm_fwd_plain`'s contract. CPU tensors run the plain
+    version; CUDA tensors launch the kernel (rows 5 and 7) or raise."""
+    if xw.device.type == "cpu":
+        return lstm_fwd_plain(xw, rw, peep, h0, c0, mask, reverse=reverse,
+                              with_stash=with_stash)
+    T, B, G = xw.shape
+    H = G // 4
+    masked = mask is not None
+    ins = [xw, rw, peep, h0, c0] + ([mask] if masked else [])
+    lib, p = _check_cuda("fwd", ins, xw.dtype, B, H, masked)
+    new = lambda *s: torch.empty(s, dtype=xw.dtype, device=xw.device)
+    hbuf = torch.zeros((2, -(-B // 16) * 16, -(-H // 16) * 16),
+                       dtype=xw.dtype, device=xw.device)
+    hbuf[0, :B, :H] = h0
+    h_out, cT = new(T, B, H), new(B, H)
+    hT = new(B, H) if masked else None
+    c_st = new(T, B, H) if with_stash else None
+    h_st = new(T, B, H) if with_stash and masked else None
+    gates = new(T, B, G) if with_stash else None
+    with torch.cuda.device(xw.device):
+        rc = lib.dl4j_lstm_fwd(
+            xw.data_ptr(), rw.data_ptr(), peep.data_ptr(), c0.data_ptr(),
+            _ptr(mask), hbuf.data_ptr(), h_out.data_ptr(), _ptr(hT),
+            cT.data_ptr(), _ptr(h_st), _ptr(c_st), _ptr(gates),
+            _DTYPE_CODE[xw.dtype], T, B, H, int(reverse),
+            torch.cuda.current_stream(xw.device).cuda_stream)
+    _raise_on(rc, "fwd", tuple(xw.shape), p)
+    _count("fwd", masked, reverse)
+    return h_out, hT, cT, h_st, c_st, gates
+
+
+def lstm_bwd(gates, c_st, dh_out, dhT, dcT, rw, peep, c0, mask=None, *,
+             reverse=False):
+    """The backward: `lstm_bwd_plain`'s contract. CPU tensors run the
+    plain version; CUDA tensors launch the kernel (rows 6 and 8) or
+    raise."""
+    if gates.device.type == "cpu":
+        return lstm_bwd_plain(gates, c_st, dh_out, dhT, dcT, rw, peep, c0,
+                              mask, reverse=reverse)
+    T, B, G = gates.shape
+    H = G // 4
+    masked = mask is not None
+    ins = [gates, c_st, dh_out, dcT, rw, peep, c0] \
+        + ([dhT, mask] if masked else [])
+    lib, p = _check_cuda("bwd", ins, gates.dtype, B, H, masked)
+    dz = torch.empty_like(gates)
+    dhc0 = torch.empty((2, B, H), dtype=torch.float32, device=gates.device)
+    with torch.cuda.device(gates.device):
+        rc = lib.dl4j_lstm_bwd(
+            gates.data_ptr(), c_st.data_ptr(), dh_out.data_ptr(), _ptr(dhT),
+            dcT.data_ptr(), _ptr(mask), rw.data_ptr(), peep.data_ptr(),
+            c0.data_ptr(), dz.data_ptr(), dhc0.data_ptr(),
+            _DTYPE_CODE[gates.dtype], T, B, H, int(reverse),
+            torch.cuda.current_stream(gates.device).cuda_stream)
+    _raise_on(rc, "bwd", tuple(gates.shape), p)
+    _count("bwd", masked, reverse)
+    return dz, dhc0
+
+
+# ---------------------------------------------------------- autograd
+def _shifted(src, first, reverse):
+    """The previous carry of every step: `first` (B, H) at the first
+    processed step, the stash of the step processed before otherwise."""
+    if reverse:
+        return torch.cat([src[1:], first[None]], dim=0)
+    return torch.cat([first[None], src[:-1]], dim=0)
+
+
+def _batched_grads(dz, h_src, c_src, h0, c0, rw, peep, reverse,
+                   gates=None):
+    """The contractions over the whole (T*B) slab, outside the kernels:
+    dRW = h_prev^T dz in the operand type (f32 accumulation), and the
+    peephole sums in the statistic type. dpO's cell state is c (c_src)
+    unmasked; masked (`gates` given) it is the candidate f c_prev + i g,
+    rebuilt from the gates, since the stash keeps the selected carry."""
+    T, B, G = dz.shape
+    H = G // 4
+    sdt, dt = stat_dtype(dz.dtype), mxu_dtype(dz.dtype)
+    h_prev = _shifted(h_src, h0, reverse)
+    drw = torch.matmul(h_prev.reshape(T * B, H).to(dt).T,
+                       dz.reshape(T * B, G).to(dt))
+    c_prev = _shifted(c_src, c0, reverse).to(sdt)
+    if gates is None:
+        c_o = c_src.to(sdt)
+    else:
+        c_o = gates[..., H:2 * H].to(sdt) * c_prev \
+            + gates[..., :H].to(sdt) * gates[..., 3 * H:].to(sdt)
+    dpeep = torch.stack([(dz[..., :H].to(sdt) * c_prev).sum(dim=(0, 1)),
+                         (dz[..., H:2 * H].to(sdt) * c_prev).sum(dim=(0, 1)),
+                         (dz[..., 2 * H:3 * H].to(sdt) * c_o).sum(dim=(0, 1))])
+    return drw.to(rw.dtype), dpeep.to(peep.dtype)
+
+
+class _LSTMCore(torch.autograd.Function):
+    """(T, B, 4H) projected inputs -> (h_out (T, B, H), cT (B, H)); the
+    backward runs the backward kernel, then the batched contractions."""
+
+    @staticmethod
+    def forward(ctx, xw, rw, peep, h0, c0, reverse):
+        h_out, _, cT, _, c_st, gates = lstm_fwd(xw, rw, peep, h0, c0,
+                                                reverse=reverse)
+        ctx.save_for_backward(gates, c_st, h_out, rw, peep, h0, c0)
+        ctx.reverse = reverse
+        return h_out, cT
+
+    @staticmethod
+    def backward(ctx, dh_out, dcT):
+        gates, c_st, h_out, rw, peep, h0, c0 = ctx.saved_tensors
+        dz, dhc0 = lstm_bwd(gates, c_st, dh_out.contiguous(), None,
+                            dcT.to(gates.dtype).contiguous(), rw, peep, c0,
+                            reverse=ctx.reverse)
+        drw, dpeep = _batched_grads(dz, h_out, c_st, h0, c0, rw, peep,
+                                    ctx.reverse)
+        return (dz, drw, dpeep, dhc0[0].to(h0.dtype), dhc0[1].to(c0.dtype),
+                None)
+
+
+class _LSTMCoreMasked(torch.autograd.Function):
+    """Masked variant: -> (masked outputs (T, B, H), hT, cT). The stash
+    keeps the selected carries; the mask has no gradient."""
+
+    @staticmethod
+    def forward(ctx, xw, rw, peep, h0, c0, mask, reverse):
+        h_out, hT, cT, h_st, c_st, gates = lstm_fwd(xw, rw, peep, h0, c0,
+                                                    mask, reverse=reverse)
+        ctx.save_for_backward(gates, h_st, c_st, mask, rw, peep, h0, c0)
+        ctx.reverse = reverse
+        return h_out, hT, cT
+
+    @staticmethod
+    def backward(ctx, dh_out, dhT, dcT):
+        gates, h_st, c_st, mask, rw, peep, h0, c0 = ctx.saved_tensors
+        dt = gates.dtype
+        dz, dhc0 = lstm_bwd(gates, c_st, dh_out.contiguous(),
+                            dhT.to(dt).contiguous(), dcT.to(dt).contiguous(),
+                            rw, peep, c0, mask, reverse=ctx.reverse)
+        drw, dpeep = _batched_grads(dz, h_st, c_st, h0, c0, rw, peep,
+                                    ctx.reverse, gates)
+        return (dz, drw, dpeep, dhc0[0].to(h0.dtype), dhc0[1].to(c0.dtype),
+                None, None)
+
+
+def lstm_fused(x, W, RW, b, peephole, h0, c0, *, mask=None,
+               reverse: bool = False):
+    """The LSTM over x (B, T, nIn) with W (nIn, 4H), RW (H, 4H), b (4H,),
+    peephole (pI, pF, pO) or None, h0/c0 (B, H) or None, mask (B, T) or
+    None: (out (B, T, H), (hT, cT)). hT is the last processed step's
+    carry (`reverse` walks T-1..0). Differentiable in everything but the
+    mask; without a gradient the forward writes no stash."""
+    B, T, _ = x.shape
+    H = RW.shape[0]
+    # time-major input projection: one big matmul outside the kernels
+    xw = (torch.einsum("bti,ig->tbg", x, W) + b).contiguous()
+    if peephole is None:
+        peep = torch.zeros((3, H), dtype=x.dtype, device=x.device)
+    else:
+        peep = torch.stack(list(peephole)).to(x.dtype)
+    zh = torch.zeros((B, H), dtype=x.dtype, device=x.device)
+    h0 = zh if h0 is None else h0.to(x.dtype)
+    c0 = zh if c0 is None else c0.to(x.dtype)
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (xw, RW, peep, h0, c0))
+    if mask is not None:
+        m = mask.transpose(0, 1).to(x.dtype).contiguous()
+        if grad:
+            h_tbh, hT, cT = _LSTMCoreMasked.apply(xw, RW, peep, h0, c0, m,
+                                                  reverse)
+        else:
+            h_tbh, hT, cT, *_ = lstm_fwd(xw, RW, peep, h0, c0, m,
+                                         reverse=reverse, with_stash=False)
+    else:
+        if grad:
+            h_tbh, cT = _LSTMCore.apply(xw, RW, peep, h0, c0, reverse)
+        else:
+            h_tbh, _, cT, *_ = lstm_fwd(xw, RW, peep, h0, c0,
+                                        reverse=reverse, with_stash=False)
+        hT = h_tbh[0] if reverse else h_tbh[-1]
+    return h_tbh.transpose(0, 1), (hT, cT)
+
+
+def reset_counts() -> None:
+    """Set the kernels' launch counts and the plain versions' call counts
+    to 0."""
+    launches.clear()
+    lstm_fwd_plain.calls = 0
+    lstm_bwd_plain.calls = 0

@@ -4,9 +4,11 @@ The zip holds `configuration.json`, `coefficients.npy` (the flat
 parameter vector in `ravel_pytree` order: layer order, then sorted dict
 keys, each leaf in C order), `updaterState.npy` (the optimizer state in
 the same order: layer, then sorted parameter name, then sorted state
-name), `layerState.npy` (empty: no ported layer carries state) and
-`meta.json` (iteration, epoch, dtype, model type). Either package reads
-what the other writes. `write_model` commits through
+name), `layerState.npy` (empty: the only layer state, tBPTT's LSTM carry,
+lives for one batch), `meta.json` (iteration, epoch, dtype, model type)
+and, when one is given, `normalizer.bin` (`OneHotEncoder` only; the
+statistics normalizers are queue A14). Either package reads what the
+other writes. `write_model` commits through
 `checkpoint_store.atomic_write`; zip-level damage on restore raises the
 typed `CheckpointCorruptError`.
 """
@@ -33,13 +35,14 @@ COEFFICIENTS = "coefficients.npy"
 UPDATER_STATE = "updaterState.npy"
 LAYER_STATE = "layerState.npy"
 META_JSON = "meta.json"
+NORMALIZER = "normalizer.bin"
 
 _ZIP_DAMAGE = (zipfile.BadZipFile, KeyError, EOFError, zlib.error,
                struct.error)
 
 __all__ = ["CheckpointCorruptError", "params_from_jax",
            "updater_state_from_jax", "write_model",
-           "restore_multi_layer_network"]
+           "restore_multi_layer_network", "restore_normalizer"]
 
 
 def params_from_jax(conf, params) -> List[Dict[str, torch.Tensor]]:
@@ -85,9 +88,10 @@ def _np_load(b: bytes) -> np.ndarray:
     return np.load(io.BytesIO(b))
 
 
-def write_model(net, path: Union[str, Path]) -> None:
+def write_model(net, path: Union[str, Path], normalizer=None) -> None:
     """Save a MultiLayerNetwork as the JAX package's zip, with its
-    optimizer state, committed atomically."""
+    optimizer state (and `normalizer` as `normalizer.bin`), committed
+    atomically."""
     net._ensure_init()
     with atomic_write(path) as tmp:
         with zipfile.ZipFile(tmp, "w", zipfile.ZIP_DEFLATED) as z:
@@ -97,6 +101,8 @@ def write_model(net, path: Union[str, Path]) -> None:
             z.writestr(UPDATER_STATE,
                        _np_bytes(_flat_updater_state(net._upd_state)))
             z.writestr(LAYER_STATE, _np_bytes(np.zeros((0,), np.float32)))
+            if normalizer is not None:
+                z.writestr(NORMALIZER, normalizer.to_bytes())
             z.writestr(META_JSON, json.dumps({
                 "iteration": net.iteration,
                 "epoch": net.epoch,
@@ -170,3 +176,23 @@ def _load_updater_state(net, flat: np.ndarray) -> None:
         m = layer[k][sk].numel()
         layer[k][sk] = t[off:off + m].reshape(layer[k][sk].shape).clone()
         off += m
+
+
+def restore_normalizer(path: Union[str, Path]):
+    """The `normalizer.bin` of a checkpoint written by either package, or
+    None without one. Only `OneHotEncoder` is ported; another kind raises
+    NotImplementedError naming queue A14."""
+    from deeplearning4j_tpu_torch.datasets.normalizers import (
+        DataNormalization,
+    )
+
+    try:
+        with zipfile.ZipFile(path, "r") as z:
+            if NORMALIZER not in z.namelist():
+                return None
+            blob = z.read(NORMALIZER)
+    except _ZIP_DAMAGE as e:
+        raise CheckpointCorruptError(
+            f"checkpoint {path} is corrupt or truncated "
+            f"({type(e).__name__}: {e})") from e
+    return DataNormalization.from_bytes(blob)

@@ -1,7 +1,9 @@
 """The port stands alone: importing `deeplearning4j_tpu_torch`, serving
-from it (also with int8 KV, the prefix cache and speculative decoding)
-and training with it (fit through the flash-attention route, a
-checkpoint written and restored) loads neither `jax` nor any module of
+from it (also with int8 KV, the prefix cache and speculative decoding),
+training with it (fit through the flash-attention route, a checkpoint
+written and restored) and running the recurrent path (a GravesLSTM
+char-RNN fit with truncated BPTT, then streamed with rnn_time_step on
+uint8 ids through the OneHotEncoder) loads neither `jax` nor any module of
 `deeplearning4j_tpu`, and
 its entry points run on the card by default, raising where there is
 none rather than carrying on quietly on the CPU."""
@@ -92,6 +94,28 @@ _SCRIPT = textwrap.dedent("""
         back = restore_multi_layer_network(os.path.join(d, "m.zip"),
                                            device="cpu")
     assert back.iteration == 2
+
+    from deeplearning4j_tpu_torch.datasets.normalizers import OneHotEncoder
+    from deeplearning4j_tpu_torch.nn import conf as C
+    from deeplearning4j_tpu_torch.ops import lstm
+    from deeplearning4j_tpu_torch.ops.activations import Activation
+    from deeplearning4j_tpu_torch.ops.losses import LossFunction
+
+    rconf = (C.NeuralNetConfiguration.Builder().seed(1).learning_rate(0.1)
+             .updater("rmsprop").list()
+             .layer(C.GravesLSTM(n_in=8, n_out=16, activation=Activation.TANH))
+             .layer(C.RnnOutputLayer(n_out=8, loss=LossFunction.MCXENT,
+                                     activation=Activation.SOFTMAX))
+             .set_input_type(C.InputType.recurrent(8))
+             .t_bptt_forward_length(3).build())
+    rnet = MultiLayerNetwork(rconf, device="cpu")
+    ids = np.arange(2 * 8).reshape(2, 8) % 8
+    rnet.fit(DataSet(np.eye(8, dtype=np.float32)[ids[:, :-1]],
+                     ids[:, 1:].astype(np.int32)))   # 3 tBPTT windows
+    assert rnet.iteration == 3 and np.isfinite(rnet.score_value)
+    assert lstm.lstm_bwd_plain.calls == 3
+    rnet.set_normalizer(OneHotEncoder(8))             # uint8 ids from here
+    assert rnet.rnn_time_step(ids[:, 0].astype(np.uint8)).shape == (2, 8)
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")
                     or m == "deeplearning4j_tpu"
