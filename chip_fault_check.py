@@ -3,7 +3,7 @@
 does `chip_smoke.py`'s comparison against the plain versions catch a
 kernel that is wrong?
 
-    python3 chip_fault_check.py      # about 6-7 minutes on an H100
+    python3 chip_fault_check.py      # about 8-10 minutes on an H100
 
 For the unchanged sources and for each planted fault below, the script
 copies `deeplearning4j_tpu_torch/` into a temporary directory, plants the
@@ -12,7 +12,8 @@ or `csrc/lstm.cu` (the checkout is never changed), builds every copy with
 nvcc in parallel, and then runs the faulted kernel family's check in one
 process per copy (the unchanged copy runs all three):
 
-- flash: the bf16 forward, dQ and dK/dV kernels on the cases below, held
+- flash: the bf16 forward (at D = 128 the wgmma kernel), dQ and dK/dV
+  kernels on the cases below, held
   to the plain versions in f32 with `flash_attention.error_in_tolerances`
   (O, dQ, dK, dV row by row; L absolute), as `chip_smoke.py` does. Beside
   it, each case is also read against the earlier bound (the largest
@@ -24,8 +25,17 @@ process per copy (the unchanged copy runs all three):
   inactive lane counts as infinite;
 - lstm: every case of `chip_smoke.lstm_cases` (forward and backward
   kernels, f32 and bf16, masked and not, forward and reverse, the ragged
-  H=196 and the main paths' widths), each output held row by row to the
-  plain versions (`lstm.error_in_tolerances`), as phase 10 does.
+  H=196, B=37 and 300, H=384 and the main paths' widths), each output
+  held row by row to the plain versions (`lstm.error_in_tolerances`), as
+  phase 10 does.
+
+The faults (`MUTATIONS`) drop tiles, terms or rows, and break each
+mechanism of the Hopper kernels: the forward's diagonal mask on the wrong
+tile and a K/V ring stage refilled before its release; the bf16 LSTM
+backward's cluster barrier between its two phases, and its row tile
+reading dz from the next tile's rows. A fault that makes the kernel trap
+(an mbarrier wait that times out) fails its check process, which counts
+as caught.
 
 Prints a table and, as the last line, one JSON object
 `{"control_ok": ..., "mutants": [{"name", "caught", "caught_by_old_bound",
@@ -51,71 +61,89 @@ CASES = [(2, 512, 2, 128, False), (2, 512, 2, 128, True),
          (1, 4096, 2, 128, True), (2, 512, 2, 256, True),
          (1, 4096, 2, 256, False)]
 OLD_BOUND = 2e-2
-# (name, source, anchor, text, replacement): the first `text` after `anchor`
-FWD = "flash_fwd_mma_kernel(const Args a) {"
+# (name, source, anchor, edits): each edit (text, replacement) replaces the
+# first `text` after `anchor`, in order
+FWD = "void flash_fwd_consumer(WgFwdSmem& sm,"
+FWDP = "flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,"
 DQ = "flash_bwd_dq_mma_kernel(const Args a) {"
 DKV = "flash_bwd_dkv_mma_kernel(const Args a) {"
 WALK = "for (int j = 0; j < n_live; ++j) {"
 PV = "// acc (TR, hd) = acc * corr + P . V"
 CELL = "__device__ __forceinline__ void fwd_cell("
-BCELLS = "__device__ __forceinline__ void bwd_cells("
+CONS = "__device__ void cluster_consumer(ClusterSmem& sm,"
+PROD = "__device__ void cluster_producer(ClusterSmem& sm,"
 FWDK = "lstm_fwd_kernel(const FwdArgs a) {"
 MUTATIONS = [
-    ("forward skips the last K/V tile", FLASH, FWD,
-     "const int nk = a.causal ? qi + 1 : a.Tk / BLK;",
-     "const int nk = a.causal ? qi : a.Tk / BLK - 1;"),
-    ("forward drops P.V of the last K/V tile (L intact)", FLASH, FWD,
-     "warp_pb<NO, 4, LD>(o, s, V);",
-     "if (kj + 1 < nk) warp_pb<NO, 4, LD>(o, s, V);"),
-    ("forward drops P.V of the second-to-last K/V tile (L intact)", FLASH, FWD,
-     "warp_pb<NO, 4, LD>(o, s, V);",
-     "if (kj + 2 != nk) warp_pb<NO, 4, LD>(o, s, V);"),
+    ("forward skips the last K/V tile", FLASH, FWDP, [
+        ("const int nk = a.causal ? qi + 1 : a.Tk / kWgRows;",
+         "const int nk = a.causal ? qi : a.Tk / kWgRows - 1;")]),
+    ("forward drops P.V of the last K/V tile (L intact)", FLASH, FWD, [
+        ("issue_pv(o, p, sm, s);", "if (j + 1 < nk) issue_pv(o, p, sm, s);")]),
+    ("forward drops P.V of the second-to-last K/V tile (L intact)", FLASH,
+     FWD, [("issue_pv(o, p, sm, s);",
+            "if (j + 2 != nk) issue_pv(o, p, sm, s);")]),
     # far from the diagonal: only rows that see more than 2560 keys (the
-    # T=4096 cases) lose 64 of them, a small change to rows of small values
-    ("forward drops P.V of K/V tile 40 (L intact)", FLASH, FWD,
-     "warp_pb<NO, 4, LD>(o, s, V);",
-     "if (kj != 40) warp_pb<NO, 4, LD>(o, s, V);"),
-    ("dQ drops dS.K of K/V tile 40", FLASH, DQ,
-     "warp_pb<NO, 4, LD>(dq, s, K + c0);",
-     "if (kj != 40) warp_pb<NO, 4, LD>(dq, s, K + c0);"),
-    ("dV drops P^T.dO of Q tile 40", FLASH, DKV,
-     "warp_pb<NO, 4, LD>(dv, s, dO + c0);",
-     "if (qi != 40) warp_pb<NO, 4, LD>(dv, s, dO + c0);"),
-    ("dQ skips the last K/V tile", FLASH, DQ,
-     "const int nk = a.causal ? qi + 1 : a.Tk / BLK;",
-     "const int nk = a.causal ? qi : a.Tk / BLK - 1;"),
-    ("dK/dV skips the last Q tile", FLASH, DKV,
-     "const int nq = a.Tq / BLK;",
-     "const int nq = a.Tq / BLK - 1;"),
-    ("dK drops the dsum term", FLASH, DKV,
-     "s[j][e] *= dp[j][e] - Ds[8 * j + 2 * t + (e & 1)];",
-     "s[j][e] *= dp[j][e];"),
-    ("int8: V dequantized with the K scales", PAGED, PV,
-     "if constexpr (kQuant) vsc = cVs[kk];",
-     "if constexpr (kQuant) vsc = cKs[kk];"),
-    ("int8: the other page buffer's K scale row", PAGED, WALK,
-     "const float* cKs = sKs + buf * page;",
-     "const float* cKs = sKs + (STAGES == 2 ? buf ^ 1 : buf) * page;"),
-    ("int8: one page's K scales skipped", PAGED, WALK,
-     "if constexpr (kQuant) ksc = cKs[kk];",
-     "if constexpr (kQuant) ksc = j == 3 ? 1.f : cKs[kk];"),
-    ("paged: the last row of a ragged row tile never written", PAGED, WALK,
-     "for (int i = tid; i < tr * hd; i += blockDim.x) {\n    const float l",
-     "for (int i = tid; i < (tr == TR ? tr : tr - 1) * hd; i += blockDim.x)"
-     " {\n    const float l"),
-    ("lstm: the input gate's peephole term dropped", LSTM, CELL,
-     "const float i = sigm(zi + sm.peep[ul] * c);",
-     "const float i = sigm(zi);"),
-    ("lstm: the masked select taken on the wrong side (c)", LSTM, CELL,
-     "cs = mp ? cn : c;", "cs = mp ? c : cn;"),
+    # T=4096 cases) lose 128 of them, a small change to rows of small values
+    ("forward drops P.V of K/V tile 20 (L intact)", FLASH, FWD, [
+        ("issue_pv(o, p, sm, s);", "if (j != 20) issue_pv(o, p, sm, s);")]),
+    ("forward masks the first K/V tile as if diagonal, not the diagonal",
+     FLASH, FWD, [("a.causal && j == nk - 1,", "a.causal && j == 0,")]),
+    ("forward refills a K/V stage before its release (empty waits skipped)",
+     FLASH, FWDP, [("sm90::mbar_wait(&sm.k_empty[s], par);", ""),
+                   ("sm90::mbar_wait(&sm.v_empty[s], par);", "")]),
+    ("dQ drops dS.K of K/V tile 40", FLASH, DQ, [
+        ("warp_pb<NO, 4, LD>(dq, s, K + c0);",
+         "if (kj != 40) warp_pb<NO, 4, LD>(dq, s, K + c0);")]),
+    ("dV drops P^T.dO of Q tile 40", FLASH, DKV, [
+        ("warp_pb<NO, 4, LD>(dv, s, dO + c0);",
+         "if (qi != 40) warp_pb<NO, 4, LD>(dv, s, dO + c0);")]),
+    ("dQ skips the last K/V tile", FLASH, DQ, [
+        ("const int nk = a.causal ? qi + 1 : a.Tk / BLK;",
+         "const int nk = a.causal ? qi : a.Tk / BLK - 1;")]),
+    ("dK/dV skips the last Q tile", FLASH, DKV, [
+        ("const int nq = a.Tq / BLK;", "const int nq = a.Tq / BLK - 1;")]),
+    ("dK drops the dsum term", FLASH, DKV, [
+        ("s[j][e] *= dp[j][e] - Ds[8 * j + 2 * t + (e & 1)];",
+         "s[j][e] *= dp[j][e];")]),
+    ("int8: V dequantized with the K scales", PAGED, PV, [
+        ("if constexpr (kQuant) vsc = cVs[kk];",
+         "if constexpr (kQuant) vsc = cKs[kk];")]),
+    ("int8: the other page buffer's K scale row", PAGED, WALK, [
+        ("const float* cKs = sKs + buf * page;",
+         "const float* cKs = sKs + (STAGES == 2 ? buf ^ 1 : buf) * page;")]),
+    ("int8: one page's K scales skipped", PAGED, WALK, [
+        ("if constexpr (kQuant) ksc = cKs[kk];",
+         "if constexpr (kQuant) ksc = j == 3 ? 1.f : cKs[kk];")]),
+    ("paged: the last row of a ragged row tile never written", PAGED, WALK, [
+        ("for (int i = tid; i < tr * hd; i += blockDim.x) {\n    const float l",
+         "for (int i = tid; i < (tr == TR ? tr : tr - 1) * hd; "
+         "i += blockDim.x) {\n    const float l")]),
+    ("lstm: the input gate's peephole term dropped", LSTM, CELL, [
+        ("const float i = sigm(zi + sm.peep[ul] * c);",
+         "const float i = sigm(zi);")]),
+    ("lstm: the masked select taken on the wrong side (c)", LSTM, CELL, [
+        ("cs = mp ? cn : c;", "cs = mp ? c : cn;")]),
     ("lstm: backward c_prev at the first step not taken from c0", LSTM,
-     BCELLS, "first ? to_f(static_cast<const DT*>(a.c0)[(long long)r * H + u])",
-     "first ? 0.f"),
-    ("lstm: forward skips the grid barrier", LSTM, FWDK,
-     "if (s + 1 < a.T) grid.sync();", "if (s + 1 < a.T && a.T < 0) grid.sync();"),
-    ("lstm: the last unit slice of a ragged H never written", LSTM, CELL,
-     "if (r >= a.B || u >= H) return;",
-     "if (r >= a.B || u >= H || (u | (kUnits - 1)) >= H) return;"),
+     CONS, [("sp.first ? a.c0 + (long long)r * H + u",
+             "sp.first ? a.c + (long long)r * H + u")]),
+    ("lstm: forward skips the grid barrier", LSTM, FWDK, [
+        ("if (s + 1 < a.T) grid.sync();",
+         "if (s + 1 < a.T && a.T < 0) grid.sync();")]),
+    ("lstm: the last unit slice of a ragged H never written", LSTM, CELL, [
+        ("if (r >= a.B || u >= H) return;",
+         "if (r >= a.B || u >= H || (u | (kUnits - 1)) >= H) return;")]),
+    # the consumers meet the cluster at the start of each step instead of
+    # between the cell phase and the product: the barrier between the
+    # phases is skipped, and the products read dz[t] before it is stored
+    ("lstm: backward skips the cluster barrier between the phases", LSTM,
+     CONS, [("    // ---- cell phase: dz[t] of this thread's rows and units",
+             "    sm90::cluster_sync();"),
+            ("    sm90::fence_proxy_async();  // dz[t] is read back by TMA\n"
+             "    sm90::cluster_sync();\n", "")]),
+    ("lstm: backward reads a row tile's dz from the next tile's rows", LSTM,
+     PROD, [("c * kChunk, r0, sp.t);", "c * kChunk, r0 + kTileRows, sp.t);"),
+            ("r0 + rank * slice, sp.t);",
+             "r0 + kTileRows + rank * slice, sp.t);")]),
 ]
 
 
@@ -123,10 +151,12 @@ def log(*a):
     print(*a, flush=True)
 
 
-def mutate(src: str, anchor: str, text: str, new: str) -> str:
-    at = src.index(anchor)
-    i = src.index(text, at)
-    return src[:i] + new + src[i + len(text):]
+def mutate(src: str, anchor: str, edits) -> str:
+    for text, new in edits:
+        at = src.index(anchor)
+        i = src.index(text, at)
+        src = src[:i] + new + src[i + len(text):]
+    return src
 
 
 def make_copy(root: str, mutation) -> str:
@@ -138,7 +168,7 @@ def make_copy(root: str, mutation) -> str:
         with open(path) as f:
             src = f.read()
         with open(path, "w") as f:
-            f.write(mutate(src, *mutation[2:]))
+            f.write(mutate(src, mutation[2], mutation[3]))
     return root
 
 

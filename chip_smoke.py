@@ -8,9 +8,10 @@ Phases, each of which makes the script exit non-zero when it fails:
 
 1. card: `nvidia-smi` name and power limit, torch and CUDA versions;
 2. build: every CUDA source of the port (`csrc/paged_attention.cu`,
-   `csrc/flash_attention.cu`, `csrc/lstm.cu`) with nvcc, one process per
-   source, started together; build seconds and ptxas' registers and
-   spills;
+   `csrc/flash_attention.cu`, `csrc/lstm.cu`, with the shared header
+   `csrc/sm90.cuh`) with nvcc, one process per source, started together;
+   build seconds and ptxas' registers and spills of every kernel, the
+   wgmma kernels included;
 3. paged kernels: the paged-attention kernel against its plain PyTorch
    version on the card, TF32 off, at the serving shapes (decode C=1 with
    S=8 slots, 8 heads, head_dim 128, page 128, 34 pages per slot;
@@ -28,7 +29,8 @@ Phases, each of which makes the script exit non-zero when it fails:
 4. flash kernels: forward (O and L), dQ and dK/dV against the plain
    versions computed in f32 on the same inputs (the backward's include
    the O and L the forward kernel gave), f32 and bf16, causal and not,
-   D = 128 and 256, T = 512 and 4096, and a GQA call through
+   D = 128 and 256, T = 512 and 4096, Tq = 512 with Tk = 1024 (bf16 D =
+   128 runs the wgmma forward), and a GQA call through
    `multi_head_attention` with autograd against the same call on the
    CPU; O, dQ, dK, dV held row by row (a row's largest error within
    `flash_attention.TOLERANCE`, 1e-4 f32 / 2^-6 bf16, of that row's
@@ -78,13 +80,19 @@ Phases, each of which makes the script exit non-zero when it fails:
 10. LSTM kernels: the forward (with its training stash) and backward
    kernels, unmasked and masked, forward and reverse, against the plain
    versions on the card (TF32 off), f32 and bf16, H = 128, 256, 1024 and
-   a ragged 196, B = 8 and 37, T = 1, 2, 9, 64, and the main paths'
-   B=2048 at H=1024 (bf16) and B=8192 at H=256; nonzero h0, c0 and
+   a ragged 196, 384 (a cluster of four 128-unit tiles, one idle), B = 8,
+   37 and 300 (not multiples of the bf16 backward's 128-row tiles), T =
+   1, 2, 3, 9, 64, and the main paths' B=2048 at H=1024 (bf16) and B=8192
+   at H=256; nonzero h0, c0 and
    peepholes; masks with ragged lengths, a row never masked, a row masked
    from t=0 and a hole; the backward on the forward kernel's own stash;
    every output held row by row (`lstm.error_in_tolerances`: 1e-4 f32,
    2^-6 bf16, of the row's largest |ref|); f32 at H=1024, B=2048 must be
-   refused (the backward's shared memory); `lstm_fused` with autograd on
+   refused (the backward's shared memory); the bf16 backward at H=2048 (a
+   cluster of 16) on a stash the plain forward made on the card, held to
+   the plain backward, and refused with its reason at an odd H and at
+   H=2176; the bf16 backward's plan (tile, cluster size, clusters that
+   fit, waves) at the main paths' shapes; `lstm_fused` with autograd on
    the card against the same call on the CPU (out, hT, cT, dx, dW, dRW,
    db, dpeep, dh0, dc0);
 11. LSTM training parity: a 2-layer f32 char-RNN (vocab 64, H=256, B=16,
@@ -115,8 +123,9 @@ Phases, each of which makes the script exit non-zero when it fails:
    region, since the kernel does it too; SDPA's forward, and SDPA's
    forward+backward minus its forward for the two backward kernels
    together; the yardsticks, which the port never calls), beside the bound max(flops / 989 TFLOP/s,
-   bytes / 3.35 TB/s) of this run's data; the int8 kernel also at a
-   C=128 chunk;
+   bytes / 3.35 TB/s) of this run's data, and each flash kernel's
+   achieved TFLOP/s beside the library's; the int8 kernel also at a C=128
+   chunk;
 15. LSTM timing: rows 5-8 at main path 4's shape (T=64, B=2048, H=1024,
    unmasked) and main path 4b's window (T=24, B=8192, H=256, unmasked and
    masked), bf16, the same way, beside their plain versions, the bound
@@ -883,6 +892,17 @@ def phase_flash(torch, fa):
                 f"{'causal' if causal else 'full'}")
         errs[dt] = max(errs.get(dt, 0.0), flash_check(torch, fa, got, ref,
                                                       dt, what))
+    for i, dt in enumerate((torch.float32, torch.bfloat16)):
+        # queries and keys of different lengths: separate tensor maps and
+        # key tiles past the query tiles
+        q, do = flash_inputs(torch, 2, 512, 2, 128, dt, seed=70 + i)[:2]
+        k, v = flash_inputs(torch, 2, 1024, 2, 128, dt, seed=72 + i)[:2]
+        got = flash_run(fa, q, k, v, do, False)
+        ref = flash_plain_f32(fa, q, k, v, do, False, got)
+        torch.cuda.synchronize()
+        errs[dt] = max(errs[dt], flash_check(
+            torch, fa, got, ref, dt,
+            f"B=2 Tq=512 Tk=1024 H=2 D=128 {str(dt)[6:]} full"))
     for dt in (torch.float32, torch.bfloat16):
         g = torch.Generator(device="cuda").manual_seed(77)
         q = torch.randn((1, 1024, 8, 128), generator=g, device="cuda")
@@ -1108,10 +1128,13 @@ def phase_flash_timing(torch, fa, counts):
         what = ("plain: the whole plain backward; library: SDPA fwd+bwd "
                 "minus fwd, both backward kernels together") \
             if kind != "fwd" else "library: SDPA causal forward"
+        lib_flops = flops if kind == "fwd" else sum(
+            flash_work(B, H, T, D, k)[0] for k in ("dq", "dkv"))
         log(f"  {name}: kernel {ms[kind]:.4f} ms, plain "
             f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
             f"bound {b_ms:.4f} ms ({row['bound_by']}), "
-            f"{flops / ms[kind] / 1e9:.1f} TFLOP/s achieved ({what})")
+            f"{flops / ms[kind] / 1e9:.1f} TFLOP/s achieved, library "
+            f"{lib_flops / row['library_ms'] / 1e9:.1f} TFLOP/s ({what})")
         rows.append(row)
     return rows
 
@@ -1202,14 +1225,17 @@ def lstm_case_units(torch, L, T, B, H, dtype, masked, reverse, seed):
 def lstm_cases(torch):
     """(T, B, H, dtype, masked, reverse): every width of the two main
     paths' shapes and smaller ones, a ragged H (196: not a multiple of the
-    8 units of a block nor of the 16-wide k chunks), T = 1, 2, 64, f32
-    and bf16, masked and not, forward and reverse. f32 at H=1024, B=2048
-    is left out: its backward needs more shared memory than a block has
-    (checked to raise in `phase_lstm_kernels`)."""
+    8 units of a forward block, of the 16-wide k chunks or of the bf16
+    backward's 128-unit tiles), B = 37 and 300 (not multiples of the
+    backward's 128-row tiles; 300 gives three row tiles, the last ragged),
+    H = 384 (three unit tiles in a cluster of four, one of them idle), T =
+    1, 2, 3, 9, 64, f32 and bf16, masked and not, forward and reverse. f32
+    at H=1024, B=2048 is left out: its backward needs more shared memory
+    than a block has (checked to raise in `phase_lstm_kernels`)."""
     cases = []
     for dt in (torch.float32, torch.bfloat16):
         for (T, B, H) in ((1, 8, 128), (2, 8, 256), (9, 37, 196),
-                          (64, 8, 1024)):
+                          (3, 300, 384), (64, 8, 1024)):
             for masked in (False, True):
                 for reverse in (False, True):
                     cases.append((T, B, H, dt, masked, reverse))
@@ -1218,6 +1244,58 @@ def lstm_cases(torch):
     cases += [(64, 2048, 1024, torch.bfloat16, masked, False)
               for masked in (False, True)]
     return cases
+
+
+def lstm_bwd_plan_line(L, torch, B, H, masked=False):
+    """The bf16 backward's launch plan at (B, H), as one line: tile,
+    cluster size, clusters that fit at once and waves."""
+    smem, gu, gb, rows, active, cluster, units = L.plan(
+        "bwd", torch.bfloat16, masked, B, H)
+    waves = -(-gb // active) if active else float("inf")
+    return (f"tile {rows} rows x {units} units, cluster of {cluster} "
+            f"blocks, {gb} row tiles (clusters), {active} clusters fit at "
+            f"once, {waves} wave(s), {smem} bytes of shared memory per "
+            f"block")
+
+
+def phase_lstm_edges(torch, L):
+    """The bf16 backward's edges beyond `lstm_cases`: H=2048 (a cluster of
+    16, beyond the portable 8; 7 fit on an H100) held to the plain
+    backward on a stash that the plain forward made on the card (the
+    forward kernel refuses H=2048: its cooperative grid cannot be
+    resident), and the shapes the new design refuses: an odd H and H
+    above 2048."""
+    T, B, H = 3, 256, 2048
+    inp = lstm_inputs(torch, T, B, H, torch.bfloat16, 21, False)
+    ref = L.lstm_fwd_plain(inp["xw"], inp["rw"], inp["peep"], inp["h0"],
+                           inp["c0"])
+    args = (ref[5], ref[4], inp["dh"], None, inp["dcT"], inp["rw"],
+            inp["peep"], inp["c0"])
+    log(f"  H={H} plan: {lstm_bwd_plan_line(L, torch, B, H)}")
+    got = L.lstm_bwd(*args)
+    want = L.lstm_bwd_plain(*args)
+    torch.cuda.synchronize()
+    units = {n: L.error_in_tolerances(a, b, torch.bfloat16)
+             for n, a, b in zip(("dz", "dhc0"), got, want)}
+    worst = max(units.values())
+    log(f"  bf16 backward at H={H}, B={B}, T={T}: worst {worst:.3f} of "
+        f"tolerance ({max(units, key=units.get)}) "
+        f"{'ok' if worst <= 1 else 'FAIL'}")
+    if worst > 1:
+        raise AssertionError(f"LSTM backward at H={H}: {units}")
+    for Hbad, why in ((195, "odd H"), (2176, "H above 2048")):
+        inp = lstm_inputs(torch, 1, 8, Hbad, torch.bfloat16, 22, False)
+        stash = L.lstm_fwd_plain(inp["xw"], inp["rw"], inp["peep"],
+                                 inp["h0"], inp["c0"])
+        try:
+            L.lstm_bwd(stash[5], stash[4], inp["dh"], None, inp["dcT"],
+                       inp["rw"], inp["peep"], inp["c0"])
+        except ValueError as e:
+            log(f"  bf16 backward at H={Hbad} ({why}) refused as expected: "
+                f"{e}")
+        else:
+            raise AssertionError(f"bf16 backward at H={Hbad} should be "
+                                 f"refused ({why})")
 
 
 def phase_lstm_kernels(torch, L, M):
@@ -1245,6 +1323,10 @@ def phase_lstm_kernels(torch, L, M):
         log(f"  f32 backward at H=1024, B=2048 refused as expected: {e}")
     else:
         raise AssertionError("f32 backward at H=1024, B=2048 should not fit")
+    phase_lstm_edges(torch, L)
+    for B, H in ((2048, 1024), (8192, 256)):
+        log(f"  bf16 backward at B={B}, H={H}: "
+            f"{lstm_bwd_plan_line(L, torch, B, H)}")
     phase_lstm_autograd(torch, L)
     return errs
 
@@ -1599,11 +1681,14 @@ def phase_lstm_timing(torch, L, counts4, counts4b):
                    "library_ms": yard[(T, B, H)][j]}
             how = "forward minus its input matmul" if kind == "fwd" \
                 else "fwd+bwd minus fwd"
+            plan = "" if kind == "fwd" else \
+                f"; {lstm_bwd_plan_line(L, torch, B, H, masked)}"
             log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                 f"cuDNN LSTM {row['library_ms']:.4f} ms ({yard[(T, B, H)][2]},"
                 f" {how}, no peepholes), bound {row['bound_ms']:.4f} ms "
                 f"({row['bound_by']}), {flops / ms / 1e9:.1f} TFLOP/s, "
-                f"max_abs_err {err[kind]:.3e}, launches {row['launches']}")
+                f"max_abs_err {err[kind]:.3e}, launches {row['launches']}"
+                f"{plan}")
             rows.append(row)
         del inp, got, bwd
         torch.cuda.empty_cache()

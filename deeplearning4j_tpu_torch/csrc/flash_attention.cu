@@ -19,32 +19,49 @@
 //
 // Design. The Pallas grid's sequential axis (K/V tiles for the forward and
 // dQ, Q tiles for dK/dV) becomes a loop inside one block; the VMEM scratch
-// carried across grid steps (m, l, acc) lives on chip. One block of 4 warps
-// per (b*h, tile of rows), tiles staged with cp.async into rows padded for
-// bank spread, the next streamed tile in flight while this one is
-// computed. Under the causal mask a block visits only the tiles on or below
-// the diagonal (the Pallas kernels' _causal_needed_kv skip). Two families:
-//  - bf16 (D = 128 and 256): each warp owns 16 rows of a 64-row tile and
-//    keeps its scores and accumulators in registers; products are mma.sync
-//    m16n8k16 on the tensor cores fed by ldmatrix, and a score tile's
-//    registers are re-packed as the A operand of the next product without a
-//    trip through shared memory. At D = 256 the backward kernels split
-//    their output columns over two blocks (grid z), each recomputing the
-//    scores, so every thread holds at most 2 x 64 accumulator registers, as
-//    at D = 128;
+// carried across grid steps (m, l, acc) lives on chip. Under the causal
+// mask a block visits only the tiles on or below the diagonal (the Pallas
+// kernels' _causal_needed_kv skip). Which kernel runs which family:
+//  - bf16 D = 128 forward (the training path's): flash_fwd_wgmma_kernel, a
+//    warp-specialized Hopper kernel. A producer warp feeds Q and a ring of
+//    two 128-key K/V stages by TMA (one 4-D tensor map per input over
+//    (D, H, T, B) with the input's own strides, so the fused-qkv slices of
+//    the training path are read in place; 128-byte swizzle, mbarriers);
+//    two consumer warpgroups of 64 query rows run QK^T and PV on wgmma
+//    (P from registers), the softmax in the log2 domain with ex2, and mask
+//    only the diagonal tile. Blocks take the query tiles in reverse, so
+//    under the causal mask the longest rows start first;
+//  - bf16 backward (dQ; dK/dV) at D = 128 and 256, and the forward at
+//    D = 256: 4-warp blocks, each warp 16 rows of a 64-row tile with its
+//    scores and accumulators in registers; mma.sync m16n8k16 fed by
+//    ldmatrix from tiles staged by cp.async (double-buffered), and a score
+//    tile's registers re-packed as the A operand of the next product. At
+//    D = 256 the backward kernels split their output columns over two
+//    blocks (grid z), each recomputing the scores;
 //  - f32 (the parity path; scalar FMAs, TF32 stays off): 32-row tiles, f32
 //    accumulators in shared memory.
 //
 // What bounds it on an H100: at the training shape (T = 4096, D = 128) the
 // work is far above the card's ridge (about 2 * D * T / 2 flops per byte
-// of Q, K, V read), so it is bounded by operations, 989 TFLOP/s in bf16.
-// mma.sync reaches a fraction of that; wgmma with TMA staging into a ring
-// of buffers and warp specialization is the later work.
+// of Q, K, V read), so it is bounded by operations, 989 TFLOP/s in bf16,
+// which only wgmma reaches: the forward's products run there, fed by TMA
+// so no thread spends instructions on staging; the mbarrier waits spin
+// inside PTX, so ptxas sees no divergent branch between wgmma operations
+// and does not serialize them. What still holds it back: each consumer
+// warpgroup runs its two products and its softmax one after the other (the
+// two warpgroups overlap each other only as they drift). Overlapping a
+// warpgroup's softmax with its own previous P V product needs S, O and two
+// P tiles live at once, more than the 168 registers ptxas gives a thread
+// of this 384-thread block (setmaxnreg moves registers at run time only):
+// that schedule spilled and ran slower. The backward kernels' mma.sync is
+// the later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -809,6 +826,235 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ====================================== bf16 D = 128 forward: wgmma + TMA
+// Three warpgroups. Warpgroups 0 and 1 (the consumers) each own 64 of the
+// block's 128 query rows; warpgroup 2 is the producer, one thread of which
+// issues every TMA load: Q once, then K and V tiles of 128 keys into a
+// ring of two stages each, behind full (bytes landed) and empty (every
+// consumer warp done reading) mbarriers. setmaxnreg moves registers from
+// the producer to the consumers at run time. Per K/V tile a consumer runs S = Q K^T
+// as wgmma with both operands in shared memory, the online softmax in
+// registers in the log2 domain (scale * log2(e) folded into one multiply,
+// ex2), rounds P to bf16 in registers, and runs O += P V as wgmma with P
+// as the register A operand and V read MN-major from shared memory.
+constexpr int kWgRows = 128;  // query rows per block, keys per K/V tile
+constexpr int kWgStages = 2;
+constexpr int kWgThreads = 384;
+constexpr uint32_t kWgTileBytes = kWgRows * 128 * 2;  // 128 rows of D = 128
+
+// Every tile is two boxes of 64 columns (128-byte rows, swizzled), at
+// 1024-byte aligned offsets.
+struct WgFwdSmem {
+  bf16 q[2][kWgRows * 64];
+  bf16 k[kWgStages][2][kWgRows * 64];
+  bf16 v[kWgStages][2][kWgRows * 64];
+  uint64_t q_full, k_full[kWgStages], k_empty[kWgStages];
+  uint64_t v_full[kWgStages], v_empty[kWgStages];
+};
+constexpr size_t kWgSmemBytes = sizeof(WgFwdSmem) + 1024;  // + alignment
+
+struct WgFwdArgs {
+  void* o;
+  float* lse;
+  Strides so;
+  int H, Tq, Tk, causal;
+  float scale_log2;  // scale * log2(e)
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// S = Q K^T of tile j into sc (issued, not waited for)
+__device__ __forceinline__ void issue_scores(float (&sc)[64], WgFwdSmem& sm,
+                                             const char* q_tile, int s) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const int box = kk / 4, off = (kk % 4) * 32;
+    sm90::wgmma_m64n128_ss(
+        sc, sm90::desc_sw128(q_tile + box * sizeof(sm.q[0]) + off),
+        sm90::desc_sw128(reinterpret_cast<const char*>(sm.k[s][box]) + off),
+        kk > 0);
+  }
+  sm90::wgmma_commit();
+}
+
+// O += P V of the tile in stage s (issued, not waited for)
+__device__ __forceinline__ void issue_pv(float (&o)[64], const uint32_t (&p)[32],
+                                         WgFwdSmem& sm, int s) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const uint32_t af[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+                            p[4 * kk + 3]};
+    sm90::wgmma_m64n128_rs_mn(
+        o, af,
+        sm90::desc_sw128(reinterpret_cast<const char*>(sm.v[s][0]) + kk * 2048,
+                         sizeof(sm.v[s][0])));
+  }
+  sm90::wgmma_commit();
+}
+
+// The online softmax of one score tile in the log2 domain, in place: the
+// row maxima m and sums lsum updated, sc turned into P = ex2(S - m) in
+// f32; corr is the factor O must be scaled by. Only the diagonal tile
+// masks keys after a row.
+__device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m)[2],
+                                             float (&lsum)[2],
+                                             float (&corr)[2],
+                                             float scale_log2, bool diag,
+                                             int rl, int t) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    float x = sc[i] * scale_log2;
+    if (diag && 8 * (i / 4) + 2 * t + (i & 1) > rl + 8 * ((i >> 1) & 1))
+      x = -INFINITY;
+    sc[i] = x;
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+  }
+  float base[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float mn = fmaxf(m[r], quad_max(mx[r]));
+    base[r] = mn == -INFINITY ? 0.f : mn;  // a row with no key yet
+    corr[r] = ex2(m[r] - base[r]);
+    m[r] = mn;
+    lsum[r] *= corr[r];
+  }
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    sc[i] = ex2(sc[i] - base[(i >> 1) & 1]);
+    lsum[(i >> 1) & 1] += sc[i];
+  }
+}
+
+// P rounded to bf16: p[2n], p[2n + 1] are the m16n8k16 A fragment
+// registers of 8-column block n (rows rl and rl + 8)
+__device__ __forceinline__ void pack_p(uint32_t (&p)[32],
+                                       const float (&sc)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; i += 2) p[i / 2] = pack_bf16(sc[i], sc[i + 1]);
+}
+
+// A consumer warpgroup. Per K/V tile j: S(j) on the tensor cores, its
+// K stage released, the softmax, O rescaled, P(j) packed, O += P(j) V(j),
+// its V stage released. The two warpgroups overlap each other's softmax
+// with their products as they drift; overlapping a warpgroup's own
+// softmax with its previous P V would hold S, O and both P tiles at once,
+// more than the 168 registers ptxas gives a thread of this block.
+__device__ __forceinline__ void flash_fwd_consumer(WgFwdSmem& sm,
+                                                   const WgFwdArgs& a, int wg,
+                                                   int qi, int nk, int b,
+                                                   int h, int bh) {
+  const int l = threadIdx.x % 32, g = l / 4, t = l % 4;
+  const int w = (threadIdx.x % 128) / 32;
+  // this thread's rows in the block's tile: rl and rl + 8 (accumulator
+  // element 4j + e: row rl + 8 (e >> 1), column 8j + 2t + (e & 1))
+  const int rl = wg * 64 + 16 * w + g;
+  float o[64], sc[64], m[2] = {-INFINITY, -INFINITY}, lsum[2] = {0.f, 0.f};
+  float corr[2];
+  uint32_t p[32];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  sm90::mbar_wait(&sm.q_full, 0);
+  const char* q_tile = reinterpret_cast<const char*>(sm.q) + wg * 8192;
+  for (int j = 0; j < nk; ++j) {
+    const int s = j % kWgStages;
+    const uint32_t par = (j / kWgStages) & 1;
+    sm90::mbar_wait(&sm.k_full[s], par);
+    sm90::wgmma_fence();
+    issue_scores(sc, sm, q_tile, s);
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(sc);
+    if (l == 0) sm90::mbar_arrive(&sm.k_empty[s]);
+    softmax_tile(sc, m, lsum, corr, a.scale_log2, a.causal && j == nk - 1,
+                 rl, t);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) o[i] *= corr[(i >> 1) & 1];
+    pack_p(p, sc);
+    sm90::mbar_wait(&sm.v_full[s], par);
+    sm90::fence_regs(o);
+    sm90::wgmma_fence();
+    issue_pv(o, p, sm, s);
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(o);
+    if (l == 0) sm90::mbar_arrive(&sm.v_empty[s]);
+  }
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    lsum[r] = quad_sum(lsum[r]);
+    inv[r] = lsum[r] > 0.f ? 1.f / lsum[r] : 0.f;  // l == 0 gives O = 0
+  }
+  const int q0 = qi * kWgRows;
+  bf16* out = static_cast<bf16*>(a.o) + (long long)b * a.so.b +
+              (long long)h * a.so.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    bf16* row = out + (long long)(q0 + rl + 8 * r) * a.so.t + 2 * t;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) = __floats2bfloat162_rn(
+          o[4 * j + 2 * r] * inv[r], o[4 * j + 2 * r + 1] * inv[r]);
+    if (a.lse != nullptr && t == 0)
+      a.lse[(long long)bh * a.Tq + q0 + rl + 8 * r] =
+          lsum[r] > 0.f ? m[r] * 0.6931471805599453f + logf(lsum[r])
+                        : kNegInf;
+  }
+}
+
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const WgFwdArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  WgFwdSmem& sm = *reinterpret_cast<WgFwdSmem*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int qi = a.Tq / kWgRows - 1 - blockIdx.x;  // longest rows first
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  // K/V tiles strictly above the diagonal are never loaded
+  const int nk = a.causal ? qi + 1 : a.Tk / kWgRows;
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(&sm.q_full, 1);
+    for (int s = 0; s < kWgStages; ++s) {
+      sm90::mbar_init(&sm.k_full[s], 1);
+      sm90::mbar_init(&sm.v_full[s], 1);
+      sm90::mbar_init(&sm.k_empty[s], 8);  // one arrival per consumer warp
+      sm90::mbar_init(&sm.v_empty[s], 8);
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x >= 256) {
+    sm90::setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      const int q0 = qi * kWgRows;
+      sm90::mbar_expect_tx(&sm.q_full, kWgTileBytes);
+      sm90::tma_load_4d(sm.q[0], &tq, &sm.q_full, 0, h, q0, b);
+      sm90::tma_load_4d(sm.q[1], &tq, &sm.q_full, 64, h, q0, b);
+      for (int j = 0; j < nk; ++j) {
+        const int s = j % kWgStages, k0 = j * kWgRows;
+        // a stage is refilled once every consumer warp released it
+        const uint32_t par = ((j / kWgStages) & 1) ^ 1;
+        sm90::mbar_wait(&sm.k_empty[s], par);
+        sm90::mbar_expect_tx(&sm.k_full[s], kWgTileBytes);
+        sm90::tma_load_4d(sm.k[s][0], &tk, &sm.k_full[s], 0, h, k0, b);
+        sm90::tma_load_4d(sm.k[s][1], &tk, &sm.k_full[s], 64, h, k0, b);
+        sm90::mbar_wait(&sm.v_empty[s], par);
+        sm90::mbar_expect_tx(&sm.v_full[s], kWgTileBytes);
+        sm90::tma_load_4d(sm.v[s][0], &tv, &sm.v_full[s], 0, h, k0, b);
+        sm90::tma_load_4d(sm.v[s][1], &tv, &sm.v_full[s], 64, h, k0, b);
+      }
+    }
+  } else {
+    sm90::setmaxnreg_inc<232>();
+    flash_fwd_consumer(sm, a, threadIdx.x / 128, qi, nk, b, h, bh);
+  }
+}
+
 template <int D, int DO>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_mma_kernel(const Args a) {
@@ -962,8 +1208,38 @@ size_t smem_f32(int kind) {
 template <int D>
 size_t smem_bf16(int kind) {
   Carver c{nullptr};
+  if (D == 128 && kind == kFwd) return kWgSmemBytes;
   return kind == kFwd ? MmaFwdSmem<D>::carve(c, nullptr)
                       : MmaBwdSmem<D>::carve(c, nullptr);
+}
+
+// The bf16 D = 128 forward: one 4-D tensor map per input over (D, H, T, B)
+// with the tensor's own strides (16-byte multiples, checked by the
+// wrapper), boxes of 64 x 1 x 128 x 1, built at each call.
+int launch_fwd_wgmma(const Args& a, cudaStream_t st) {
+  CUtensorMap maps[3];
+  const void* ptrs[3] = {a.q, a.k, a.v};
+  const Strides* strides[3] = {&a.sq, &a.sk, &a.sv};
+  const cuuint32_t box[4] = {64, 1, kWgRows, 1};
+  for (int i = 0; i < 3; ++i) {
+    const cuuint64_t dims[4] = {128, (cuuint64_t)a.H,
+                                (cuuint64_t)(i == 0 ? a.Tq : a.Tk),
+                                (cuuint64_t)a.B};
+    const cuuint64_t bytes[3] = {(cuuint64_t)strides[i]->h * 2,
+                                 (cuuint64_t)strides[i]->t * 2,
+                                 (cuuint64_t)strides[i]->b * 2};
+    const int rc = sm90::make_map_bf16(&maps[i], ptrs[i], 4, dims, bytes, box);
+    if (rc) return rc;
+  }
+  const WgFwdArgs w{a.out0, a.lse, a.so0, a.H, a.Tq, a.Tk, a.causal,
+                    a.scale * 1.4426950408889634f};
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kWgSmemBytes);
+  if (e != cudaSuccess) return (int)e;
+  flash_fwd_wgmma_kernel<<<dim3(a.Tq / kWgRows, a.B * a.H), kWgThreads,
+                           kWgSmemBytes, st>>>(maps[0], maps[1], maps[2], w);
+  return (int)cudaGetLastError();
 }
 
 int run(void (*kern)(const Args), size_t smem, dim3 grid, const Args& a,
@@ -989,9 +1265,16 @@ int launch_f32(int kind, const Args& a, cudaStream_t st) {
 template <int D>
 int launch_bf16(int kind, const Args& a, cudaStream_t st) {
   constexpr int DO = kMmaOutCols;
-  void (*kern)(const Args) = kind == kFwd  ? flash_fwd_mma_kernel<D>
-                             : kind == kDq ? flash_bwd_dq_mma_kernel<D, DO>
-                                           : flash_bwd_dkv_mma_kernel<D, DO>;
+  void (*kern)(const Args);
+  if constexpr (D == 128) {
+    if (kind == kFwd) return launch_fwd_wgmma(a, st);
+    kern = kind == kDq ? flash_bwd_dq_mma_kernel<D, DO>
+                       : flash_bwd_dkv_mma_kernel<D, DO>;
+  } else {
+    kern = kind == kFwd  ? flash_fwd_mma_kernel<D>
+           : kind == kDq ? flash_bwd_dq_mma_kernel<D, DO>
+                         : flash_bwd_dkv_mma_kernel<D, DO>;
+  }
   const dim3 grid((kind == kDkv ? a.Tk : a.Tq) / kMmaBlk, a.B * a.H,
                   kind == kFwd ? 1 : D / DO);
   return run(kern, smem_bf16<D>(kind), grid, a, st);
@@ -1065,9 +1348,11 @@ int dl4j_flash_bwd_dkv(const void* q, const void* k, const void* v,
   return dispatch(kDkv, dtype, D, a, static_cast<cudaStream_t>(stream));
 }
 
-// Rows per tile (the sequence lengths must be multiples of it).
+// Rows per tile, the largest over the family's kernels (the sequence
+// lengths must be multiples of it).
 int dl4j_flash_block_rows(int dtype, int D) {
-  return dtype == 1 ? kMmaBlk : kBlk;
+  if (dtype != 1) return kBlk;
+  return D == 128 ? kWgRows : kMmaBlk;
 }
 
 // Dynamic shared memory of one block of kernel `kind` (0 forward, 1 dQ,

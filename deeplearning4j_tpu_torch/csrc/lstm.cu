@@ -1,12 +1,15 @@
 // The Graves LSTM time loop (peepholes, gate order [i, f, o, g]) as one
-// persistent cooperative kernel per layer, direction and pass, on Hopper
-// (sm_90a).
+// persistent kernel per layer, direction and pass, on Hopper (sm_90a).
 //
 // Replaces the TPU kernels of deeplearning4j_tpu/ops/pallas_lstm.py:
-//   lstm_fwd_kernel<DT, false, *>  <- _lstm_fwd_kernel         (glue _fwd_call)
-//   lstm_bwd_kernel<DT, false>     <- _lstm_bwd_kernel         (glue _bwd_call)
-//   lstm_fwd_kernel<DT, true, *>   <- _lstm_fwd_kernel_masked  (_fwd_call_masked)
-//   lstm_bwd_kernel<DT, true>      <- _lstm_bwd_kernel_masked  (_bwd_call_masked)
+//   lstm_fwd_kernel<DT, false, *>       <- _lstm_fwd_kernel  (glue _fwd_call)
+//   lstm_bwd_cluster_kernel<false> (bf16), lstm_bwd_kernel<float, false>
+//                                       <- _lstm_bwd_kernel  (glue _bwd_call)
+//   lstm_fwd_kernel<DT, true, *>        <- _lstm_fwd_kernel_masked
+//                                          (glue _fwd_call_masked)
+//   lstm_bwd_cluster_kernel<true> (bf16), lstm_bwd_kernel<float, true>
+//                                       <- _lstm_bwd_kernel_masked
+//                                          (glue _bwd_call_masked)
 // Same contract. Forward, per step t (walked T-1..0 with `reverse`):
 //   z = xw[t] + h @ RW;  i = sig(zi + pI c);  f = sig(zf + pF c);
 //   g = tanh(zg);  c' = f c + i g;  o = sig(zo + pO c');  h' = o tanh(c').
@@ -22,45 +25,90 @@
 // f32; product operands in the operand type (h rounded before the product,
 // never carried rounded); h_out, c, gates and dz stored in xw's type.
 //
-// Design. The TPU kernel walks a sequential grid axis with the carries and
-// all of RW in VMEM; on Hopper RW (H x 4H) does not fit one block, so the
-// whole loop runs in ONE cooperative launch whose blocks stay resident:
-// block x owns 8 hidden units (kUnits) and keeps their slice of RW in
-// shared memory for the whole launch (forward: the 32 columns of its units'
-// four gates, one 8-wide mma n-tile per gate; backward: its units' 8 rows
-// of RW). Its units' c carry (and dh, dc in the backward) stay in f32 in
-// shared memory. Per step every block reads all of h_{t-1} for its batch
-// rows from a global ping-pong buffer (operand type, zero-padded to
-// (Bp, Hp)), computes its 32 columns of z, applies the gate chain in the
-// mma accumulator's own registers (lane (g, t) holds rows g, g+8 and units
-// 2t, 2t+1 of all four gates), writes its slice of h_t into the other
-// buffer and meets the grid at this_grid().sync(). The backward writes its
+// Forward, and the f32 backward (the parity path). The TPU kernel walks a
+// sequential grid axis with the carries and all of RW in VMEM; on Hopper
+// RW (H x 4H) does not fit one block, so the whole loop runs in ONE
+// cooperative launch whose blocks stay resident: block x owns 8 hidden
+// units (kUnits) and keeps their slice of RW in shared memory for the
+// whole launch (forward: the 32 columns of its units' four gates, one
+// 8-wide mma n-tile per gate; f32 backward: its units' 8 rows of RW). Its
+// units' c carry (and dh, dc in the backward) stay in f32 in shared
+// memory. Per step every block reads all of h_{t-1} for its batch rows from
+// a global ping-pong buffer (operand type, zero-padded to (Bp, Hp)),
+// computes its 32 columns of z, applies the gate chain in the mma
+// accumulator's own registers (lane (g, t) holds rows g, g+8 and units 2t,
+// 2t+1 of all four gates), writes its slice of h_t into the other buffer
+// and meets the grid at this_grid().sync(). The f32 backward writes its
 // units' dz[t], syncs, then reads the whole dz[t] row block to form its
-// units' dh_prev (one sync per step: dz[t] is never rewritten). blockIdx.y
-// splits the batch when the card has room for more blocks than unit slices.
-// The launch is refused (cudaErrorCooperativeLaunchTooLarge) when the grid
-// is larger than the blocks that can be resident at once; there is no spin
-// barrier without that guarantee. bf16 products are mma.sync m16n8k16 with
-// f32 accumulation; the A operand (h or dz rows) is loaded straight from
-// L2 (ld.global.cg: the L1 of another SM may hold a stale line) with one
+// units' dh_prev. blockIdx.y splits the batch when the card has room for
+// more blocks than unit slices. The launch is refused
+// (cudaErrorCooperativeLaunchTooLarge) when the grid is larger than the
+// blocks that can be resident at once; there is no spin barrier without
+// that guarantee. bf16 forward products are mma.sync m16n8k16 with f32
+// accumulation; the A operand (h rows) is loaded straight from L2
+// (ld.global.cg: the L1 of another SM may hold a stale line) with one
 // 8-byte load per lane and row, the k order inside each 16-wide chunk
 // permuted so those 8 bytes are the lane's two A registers, and RW stored
 // in shared memory in the same permuted order. f32 runs FMAs (no TF32).
 //
+// The bf16 backward (lstm_bwd_cluster_kernel) rests on one fact: the
+// recurrence does not couple batch rows (dh_prev of rows m needs dz[t] of
+// rows m only, and dz[t] of rows m the carries of rows m only), so no grid
+// barrier is needed, only one among the blocks that share a row tile. A
+// block owns a tile of 128 batch rows x 128 hidden units and keeps that
+// tile's carries on chip for the whole loop: dc in shared memory, dh as
+// the product's wgmma accumulator (staged in the ring's A stages, idle
+// between products) plus, masked, the select's bypass in registers. The
+// H/128 blocks of a row tile (rounded up to a power of
+// two) form a thread block cluster, launched with cudaLaunchKernelEx;
+// clusters need not be resident together, so the grid runs in waves. Each
+// step has two phases:
+//  1. cell: two consumer warpgroups compute dz[t] of the tile's rows and
+//     its units' four gates from the stash and the carries and store it in
+//     xw's type (the Pallas rounding point: dz is rounded before the
+//     product), then the cluster meets at barrier.cluster (stores fenced
+//     for the async proxy first);
+//  2. product: dh_prev[tile] = dz[t][rows, 0:4H] . RW[units, 0:4H]^T on
+//     wgmma m64n128k16 (bf16 in, f32 accumulate; the first k step zeroes
+//     the accumulator). A producer warp streams K = 4H through a ring of
+//     five shared-memory stages of 64 columns by TMA: RW rows from a 2-D
+//     tensor map (issued ahead, during the cell phase) and dz[t] rows from
+//     a 3-D map (4H, B, T), each block loading 1/C of the row tile's rows
+//     and multicasting them to the whole cluster, so a cluster reads dz[t]
+//     once from L2. A stage is refilled only after every consumer warp of
+//     every block in the cluster released it (remote mbarrier arrivals,
+//     one per consumer warpgroup and block, released at CTA scope: a
+//     cluster-scope release fences all of the thread's earlier stores at
+//     every arrival, which doubled the product's time).
+// A prefetch warp brings the next step's stash (gates, c, dh_out) into L2
+// while the product runs. Rows past B and units past H are zero in the TMA
+// boxes and never written. The f32 backward keeps the cooperative kernel
+// (f32 at H=1024, B=2048 stays refused: its shared memory).
+//
 // What bounds it on an H100: per step the work is 2*B*H*4H flops against
 // B*4H operand bytes in and B*(4H+2H) bytes of stash out; at the training
 // shapes (bf16) the card's bound is the bytes at H=256 and the flops at
-// H=1024 (chip_smoke.py prints both). This kernel is held back instead by
-// its L2 reads of the operand rows: every unit slice reads all of h (B*H)
-// per forward step and all of dz (B*4H) per backward step, so H/8 times the
-// operand bytes cross L2, plus one grid barrier per step. Clusters with
-// multicast, wgmma and wider unit slices are later work.
+// H=1024 (chip_smoke.py prints both). The forward is held back by its L2
+// reads of the operand rows: every unit slice reads all of h (B*H) per
+// step, so H/8 times the operand bytes cross L2, plus one grid barrier per
+// step. The bf16 backward moves (B/128) * |RW| + |dz[t]| through L2 per
+// step (about 150 MB at B=2048, H=1024, against 2.15 GB for a design that
+// re-reads dz once per 8-unit slice). What holds it back (chip_smoke.py
+// phase 15; clock64 readings per phase on the card): the cell phase, about
+// half of each step, whose loads of the stash follow the accumulator's
+// layout (8 rows x 16 bytes per warp load) and wait on L2 latency with few
+// loads in flight under the 168 registers a thread gets (a coalesced
+// mapping spilled and ran slower); per-chunk overhead in the product
+// (about 3x the tensor cores' time); and at B=2048, H=1024 two waves (16
+// clusters of 8, 15 fit at once).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -73,10 +121,9 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kUnits = 8;   // hidden units per block
 constexpr int kRows = 16;   // batch rows per mma tile
 // 16-wide k chunks whose A loads are issued together before their
-// products: the loads come from L2, and enough must be in flight to
-// cover its latency with one or two blocks per SM
+// products (forward): the loads come from L2, and enough must be in
+// flight to cover its latency with one or two blocks per SM
 constexpr int kFwdBatch = 8;
-constexpr int kBwdBatch = 8;
 
 __host__ __device__ constexpr int ceil_to(int x, int m) {
   return (x + m - 1) / m * m;
@@ -152,17 +199,15 @@ struct FwdSmem {
   }
 };
 
-// Backward: RW rows of this block's units [8][K] (K = 4H, padded to 32 for
-// bf16), the peepholes, and the dh and dc carries of its rows.
+// f32 backward: RW rows of this block's units [8][4H], the peepholes, and
+// the dh and dc carries of its rows.
 template <typename DT>
 struct BwdSmem {
   DT* rw;
   float* peep;
   float* dh;
   float* dc;
-  __host__ __device__ static int K(int H) {
-    return sizeof(DT) == 2 ? ceil_to(4 * H, 32) : 4 * H;
-  }
+  __host__ __device__ static int K(int H) { return 4 * H; }
   __host__ __device__ static size_t carve(Carver& cv, BwdSmem* s, int H,
                                           int rows) {
     BwdSmem x;
@@ -196,18 +241,6 @@ __device__ __forceinline__ void ld_b_2n(uint32_t (&b)[4], const bf16* base,
   const int l = threadIdx.x % 32;
   const bf16* p = base + (n0 + l % 8 + 8 * (l / 16)) * ld + k0 +
                   8 * ((l / 8) % 2);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
-      : "r"(smem_addr(p)));
-}
-
-// B operands of one 8-wide n-tile at two chunks (k0, k0 + 16): b[0..1]
-// for k0, b[2..3] for k0 + 16
-__device__ __forceinline__ void ld_b_2k(uint32_t (&b)[4], const bf16* base,
-                                        int ld, int k0) {
-  const int l = threadIdx.x % 32;
-  const bf16* p = base + (l % 8) * ld + k0 + 8 * (l / 8);
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
@@ -529,46 +562,8 @@ __device__ __forceinline__ void bwd_cells(const BwdArgs& a,
   }
 }
 
-// Phase 2: dh carry += dz[t] . RW^T for this block's units (bf16 mma)
-__device__ __forceinline__ void bwd_dh(const BwdArgs& a,
-                                       const BwdSmem<bf16>& sm, int t,
-                                       bool first, int r0, int nrows) {
-  const int warp = threadIdx.x / 32, l = threadIdx.x % 32, g = l / 4,
-            tq = l % 4;
-  const int H = a.H, K = BwdSmem<bf16>::K(H), ld = K + Lay<bf16>::kPad;
-  const bf16* dz = static_cast<const bf16*>(a.dz) + (long long)t * a.B * 4 * H;
-  for (int tile = warp; tile * kRows < nrows; tile += kWarps) {
-    const int rt = r0 + tile * kRows;
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    const bf16* rows = dz + (long long)rt * 4 * H;
-    const int ok0 = rt + g < a.B, ok1 = rt + g + 8 < a.B;
-    for (int kb = 0; kb < K; kb += 16 * kBwdBatch) {
-      uint32_t av[kBwdBatch][4];
-#pragma unroll
-      for (int j = 0; j < kBwdBatch; ++j)
-        ld_a_l2(av[j], rows, 4 * H, ok0, ok1, kb + 16 * j, 4 * H);
-#pragma unroll
-      for (int j = 0; j < kBwdBatch; j += 2) {
-        const int k0 = kb + 16 * j;
-        if (k0 >= K) break;
-        uint32_t b[4];
-        ld_b_2k(b, sm.rw, ld, k0);
-        mma(acc, av[j], b[0], b[1]);
-        mma(acc, av[j + 1], b[2], b[3]);
-      }
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int rl = tile * kRows + g + 8 * (e >> 1), ul = 2 * tq + (e & 1);
-      const int r = r0 + rl, u = blockIdx.x * kUnits + ul;
-      const float v = sm.dh[rl * kUnits + ul] + acc[e];
-      sm.dh[rl * kUnits + ul] = v;
-      if (first && r < a.B && u < H) a.dhc0[(long long)r * H + u] = v;
-    }
-  }
-}
-
-// f32: thread per (row, unit), FMAs over the 4H columns
+// Phase 2 (f32): dh carry += dz[t] . RW^T, thread per (row, unit), FMAs
+// over the 4H columns
 __device__ __forceinline__ void bwd_dh(const BwdArgs& a,
                                        const BwdSmem<float>& sm, int t,
                                        bool first, int r0, int nrows) {
@@ -615,6 +610,307 @@ __global__ void __launch_bounds__(kThreads)
     if (nrows > 0) bwd_dh(a, sm, t, first, r0, nrows);
     __syncthreads();  // the dh carry is read by other threads next step
   }
+}
+
+// ================================================ bf16 backward, clusters
+constexpr int kTileRows = 128;   // batch rows of a block (2 warpgroups x 64)
+constexpr int kTileUnits = 128;  // hidden units of a block (the product's n)
+constexpr int kChunk = 64;       // gate columns per stage: 128-byte rows
+constexpr int kStages = 5;
+// 2 consumer warpgroups, a producer warp and a prefetch warp
+constexpr int kClusterThreads = 320;
+constexpr int kConsumers = 256;
+constexpr int kMaxCluster = 16;
+constexpr uint32_t kChunkBytes = kTileRows * kChunk * 2;  // 16 KB (A or RW)
+
+struct ClusterSmem {
+  bf16 a[kStages][kTileRows * kChunk];   // dz[t][rows, chunk], swizzled
+  bf16 w[kStages][kTileUnits * kChunk];  // RW[units, chunk], swizzled
+  float dc[64][kConsumers];  // the dc carry: element e of consumer thread i
+  float peep[3][kTileUnits];
+  uint64_t full[kStages], empty[kStages];
+};
+static_assert(sizeof(float) * 64 * kConsumers <= sizeof(ClusterSmem::a),
+              "the staged product fits the A stages");
+constexpr size_t kClusterSmemBytes = sizeof(ClusterSmem) + 1024;  // + align
+
+struct ClusterArgs {
+  const bf16 *gates, *c, *dh_out, *dhT, *dcT, *mask, *peep, *c0;
+  bf16* dz;
+  float* dhc0;
+  int T, B, H, reverse, cluster;
+};
+
+// backward step s undoes forward step T-1-s
+struct Step {
+  int t, t_prev;
+  bool first;  // forward step 0: c_prev is c0, dh0 and dc0 are written
+  __device__ Step(const ClusterArgs& a, int s)
+      : t(a.reverse ? s : a.T - 1 - s),
+        t_prev(a.reverse ? s + 1 : a.T - 2 - s),
+        first(s == a.T - 1) {}
+};
+
+__device__ __forceinline__ float2 ld_pair(const bf16* p) {
+  return __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(p)));
+}
+
+__device__ __forceinline__ void st_pair(bf16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+// Producer warp: per step, the RW chunks of the first ring stages (during
+// the cell phase: they do not depend on dz), then after the cluster
+// barrier this block's slice of the dz[t] rows of every chunk, multicast
+// to the cluster, and the remaining RW chunks. A stage is reused once its
+// empty barrier has every consumer warpgroup of every block of the
+// cluster.
+__device__ void cluster_producer(ClusterSmem& sm, const ClusterArgs& a,
+                                 const CUtensorMap* tdz,
+                                 const CUtensorMap* trw, int nch) {
+  const bool leader = threadIdx.x % 32 == 0;
+  const int C = a.cluster, u0 = blockIdx.x * kTileUnits;
+  const int r0 = blockIdx.y * kTileRows;
+  const uint32_t rank = sm90::cluster_rank();
+  const int slice = kTileRows / C;
+  const uint16_t mask = (uint16_t)((1u << C) - 1);
+  const int ahead = nch < kStages ? nch : kStages;
+  auto issue_w = [&](uint32_t q, int c) {
+    const uint32_t st = q % kStages;
+    sm90::mbar_wait_cluster(&sm.empty[st], ((q / kStages) & 1) ^ 1);
+    sm90::mbar_expect_tx(&sm.full[st], 2 * kChunkBytes);
+    sm90::tma_load_2d(sm.w[st], trw, &sm.full[st], c * kChunk, u0);
+  };
+  uint32_t q = 0;  // chunks issued before this step
+  for (int s = 0; s < a.T; ++s) {
+    const Step sp(a, s);
+    if (leader)
+      for (int c = 0; c < ahead; ++c) issue_w(q + c, c);
+    sm90::cluster_sync();  // dz[t] of the row tile stored by every block
+    if (leader)
+      for (int c = 0; c < nch; ++c) {
+        const uint32_t st = (q + c) % kStages;
+        if (c >= ahead) issue_w(q + c, c);
+        bf16* dst = sm.a[st] + rank * slice * kChunk;
+        if (C == 1)
+          sm90::tma_load_3d(dst, tdz, &sm.full[st], c * kChunk, r0, sp.t);
+        else
+          sm90::tma_load_3d_multicast(dst, tdz, &sm.full[st], mask,
+                                      c * kChunk, r0 + rank * slice, sp.t);
+      }
+    q += nch;
+  }
+}
+
+// Prefetch warp: while step s's product runs, bring step s + 1's stash
+// rows of this tile into L2.
+__device__ void cluster_prefetcher(const ClusterArgs& a) {
+  const int H = a.H, u0 = blockIdx.x * kTileUnits;
+  const int r0 = blockIdx.y * kTileRows;
+  const int units = min(kTileUnits, H - u0);
+  const long long G = 4LL * H;
+  for (int s = 0; s < a.T; ++s) {
+    sm90::cluster_sync();
+    if (s + 1 >= a.T || units <= 0) continue;
+    const Step sp(a, s + 1);
+    for (int i = threadIdx.x % 32; i < kTileRows * 7; i += 32) {
+      const int r = r0 + i / 7, seg = i % 7;
+      if (r >= a.B) continue;
+      const long long row = (long long)sp.t * a.B + r;
+      const bf16* p;
+      if (seg < 4) p = a.gates + row * G + seg * H + u0;
+      else if (seg == 4) p = a.dh_out + row * H + u0;
+      else if (seg == 5) p = a.c + row * H + u0;
+      else if (sp.first) p = a.c0 + (long long)r * H + u0;
+      else p = a.c + ((long long)sp.t_prev * a.B + r) * H + u0;
+      const char* b = reinterpret_cast<const char*>(p);
+      for (int off = 0; off < 2 * units; off += 128) sm90::prefetch_l2(b + off);
+      sm90::prefetch_l2(b + 2 * units - 1);
+    }
+  }
+}
+
+// Consumer warpgroup wg (rows 64 wg .. 64 wg + 63 of the tile). Element
+// 4j + e of a thread (warp w, lane 4g + tq) is row
+// r0 + 64 wg + 16 w + g + 8 (e >> 1), unit u0 + 8j + 2tq + (e & 1): the
+// wgmma accumulator's layout. The product accumulates into acc, which
+// only wgmma defines (its first k step zeroes it); the dh carry is the
+// product plus byp (dhT at the start, then the masked select's bypass; 0
+// unmasked), and dc sits in shared memory in the same order.
+template <bool MASKED>
+__device__ void cluster_consumer(ClusterSmem& sm, const ClusterArgs& a,
+                                 int nch) {
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int l = tid % 32, g = l / 4, tq = l % 4, w = (tid % 128) / 32;
+  const int H = a.H, B = a.B, C = a.cluster;
+  const long long G = 4LL * H;
+  const int u0 = blockIdx.x * kTileUnits;
+  const int rbase = blockIdx.y * kTileRows + wg * 64 + 16 * w + g;
+  float acc[64], byp[64];
+  float(*dc)[kConsumers] = sm.dc;
+  // between products the A stages hold the product's result, element e of
+  // thread i at dhs[e][i]: the cell phase reads it back from there and
+  // keeps its registers for the stash loads in flight
+  float(*dhs)[kConsumers] = reinterpret_cast<float(*)[kConsumers]>(sm.a[0]);
+  // thread 8k of a warpgroup releases a stage to block k of the cluster
+  const int wt = tid % 128;
+  const bool releases = wt % 8 == 0 && wt / 8 < C;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int r = rbase + 8 * rr, u = u0 + 8 * j + 2 * tq, e = 4 * j + 2 * rr;
+      float2 c2 = make_float2(0.f, 0.f), h2 = make_float2(0.f, 0.f);
+      if (r < B && u < H) {
+        c2 = ld_pair(a.dcT + (long long)r * H + u);
+        if (MASKED) h2 = ld_pair(a.dhT + (long long)r * H + u);
+      }
+      dc[e][tid] = c2.x, dc[e + 1][tid] = c2.y;
+      byp[e] = h2.x, byp[e + 1] = h2.y;
+    }
+  const char* a_tile = reinterpret_cast<const char*>(sm.a[0]) + wg * 8192;
+  uint32_t q = 0;  // chunks consumed before this step
+  for (int s = 0; s < a.T; ++s) {
+    const Step sp(a, s);
+    // ---- cell phase: dz[t] of this thread's rows and units
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int r = rbase + 8 * rr;
+      if (r >= B) continue;
+      const long long row = (long long)sp.t * B + r;
+      const float m = MASKED ? __bfloat162float(a.mask[row]) : 1.f;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int ul = 8 * j + 2 * tq, u = u0 + ul;
+        if (u >= H) continue;  // H is even: u + 1 < H too
+        const bf16* gt = a.gates + row * G + u;
+        const float2 gi = ld_pair(gt), gf = ld_pair(gt + H),
+                     go = ld_pair(gt + 2 * H), gg = ld_pair(gt + 3 * H);
+        const float2 cp = ld_pair(
+            sp.first ? a.c0 + (long long)r * H + u
+                     : a.c + ((long long)sp.t_prev * B + r) * H + u);
+        const float2 dho = ld_pair(a.dh_out + row * H + u);
+        const float2 c_st = MASKED ? make_float2(0.f, 0.f)
+                                   : ld_pair(a.c + row * H + u);
+        float dzv[4][2];
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const int e = 4 * j + 2 * rr + x;
+          const float i = x ? gi.y : gi.x, f = x ? gf.y : gf.x;
+          const float o = x ? go.y : go.x, gv = x ? gg.y : gg.x;
+          const float c_prev = x ? cp.y : cp.x;
+          const float pI = sm.peep[0][ul + x], pF = sm.peep[1][ul + x],
+                      pO = sm.peep[2][ul + x];
+          const float dhc = (s > 0 ? dhs[e][tid] : 0.f) + byp[e];
+          const float dcc = dc[e][tid];
+          float dhn, dcn, c_t, byp_h = 0.f, byp_c = 0.f;
+          if (MASKED) {
+            const bool mp = m > 0.f;
+            const float d_hsel = m * (x ? dho.y : dho.x) + dhc;
+            dhn = mp ? d_hsel : 0.f;
+            byp_h = mp ? 0.f : d_hsel;
+            dcn = mp ? dcc : 0.f;
+            byp_c = mp ? 0.f : dcc;
+            c_t = f * c_prev + i * gv;  // the candidate: the stash has c_sel
+          } else {
+            dhn = (x ? dho.y : dho.x) + dhc;
+            dcn = dcc;
+            c_t = x ? c_st.y : c_st.x;
+          }
+          const float tc = tanhf(c_t);
+          const float dzo = dhn * tc * o * (1.f - o);
+          const float dct = dhn * o * (1.f - tc * tc) + dcn + dzo * pO;
+          const float dzg = dct * i * (1.f - gv * gv);
+          const float dzi = dct * gv * i * (1.f - i);
+          const float dzf = dct * c_prev * f * (1.f - f);
+          const float dc_prev = dct * f + dzi * pI + dzf * pF + byp_c;
+          dzv[0][x] = dzi, dzv[1][x] = dzf, dzv[2][x] = dzo, dzv[3][x] = dzg;
+          dc[e][tid] = dc_prev;
+          byp[e] = byp_h;  // the product adds dz . RW^T to it
+          if (sp.first)
+            a.dhc0[(long long)B * H + (long long)r * H + u + x] = dc_prev;
+        }
+        bf16* dz = a.dz + row * G + u;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) st_pair(dz + k * H, dzv[k][0], dzv[k][1]);
+      }
+    }
+    sm90::fence_proxy_async();  // dz[t] is read back by TMA
+    sm90::cluster_sync();
+    // ---- product phase: acc = dz[t][rows, :] . RW[units, :]^T
+    for (int c = 0; c < nch; ++c, ++q) {
+      const uint32_t st = q % kStages;
+      sm90::mbar_wait(&sm.full[st], (q / kStages) & 1);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kChunk / 16; ++kk)
+        sm90::wgmma_m64n128_ss(
+            acc, sm90::desc_sw128(a_tile + st * sizeof(sm.a[0]) + kk * 32),
+            sm90::desc_sw128(reinterpret_cast<const char*>(sm.w[st]) +
+                             kk * 32),
+            c > 0 || kk > 0);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<1>();  // the previous chunk's products are done
+      sm90::mbar_arrive_cluster(&sm.empty[(q + kStages - 1) % kStages],
+                                wt / 8, c > 0 && releases);
+    }
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(acc);
+    sm90::mbar_arrive_cluster(&sm.empty[(q - 1) % kStages], wt / 8, releases);
+    // both warpgroups' products are done with the A stages: stage dh
+    asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+#pragma unroll
+    for (int e = 0; e < 64; ++e) dhs[e][tid] = acc[e];
+    if (sp.first) {  // dh0 = this product + the bypass, in f32
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int r = rbase + 8 * rr, u = u0 + 8 * j + 2 * tq;
+          const int e = 4 * j + 2 * rr;
+          if (r < B && u < H) {
+            a.dhc0[(long long)r * H + u] = acc[e] + byp[e];
+            a.dhc0[(long long)r * H + u + 1] = acc[e + 1] + byp[e + 1];
+          }
+        }
+    }
+  }
+}
+
+template <bool MASKED>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+    lstm_bwd_cluster_kernel(const __grid_constant__ CUtensorMap tdz,
+                            const __grid_constant__ CUtensorMap trw,
+                            const ClusterArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  ClusterSmem& sm = *reinterpret_cast<ClusterSmem*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int nch = (4 * a.H + kChunk - 1) / kChunk;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&sm.full[s], 1);
+      // one arrival per consumer warpgroup of every block of the cluster
+      sm90::mbar_init(&sm.empty[s], 2 * a.cluster);
+    }
+    sm90::mbar_fence_init();
+  }
+  const int u0 = blockIdx.x * kTileUnits;
+  for (int i = threadIdx.x; i < 3 * kTileUnits; i += kClusterThreads) {
+    const int k = i / kTileUnits, u = u0 + i % kTileUnits;
+    sm.peep[k][i % kTileUnits] =
+        u < a.H ? __bfloat162float(a.peep[k * a.H + u]) : 0.f;
+  }
+  __syncthreads();
+  // every block's barriers are initialised before any multicast or remote
+  // arrival reaches them
+  sm90::cluster_sync();
+  if (threadIdx.x < kConsumers)
+    cluster_consumer<MASKED>(sm, a, nch);
+  else if (threadIdx.x < kConsumers + 32)
+    cluster_producer(sm, a, &tdz, &trw, nch);
+  else
+    cluster_prefetcher(a);
+  sm90::cluster_sync();  // no block leaves while others may reach it
 }
 
 // ------------------------------------------------------------------ host
@@ -704,6 +1000,97 @@ int launch_bwd(BwdArgs a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+// The bf16 backward's plan at (B, H): C = the H/128 unit tiles rounded up
+// to a power of two (so 128 rows split evenly over the blocks' multicast
+// slices; tiles past H do nothing but their share of the loads), a cluster
+// per row tile of 128, and how many clusters fit on the card at once
+// (0: refused, the wrapper names why: H odd, so a row of dz or RW is not
+// a multiple of 16 bytes as TMA needs; C above 16).
+struct ClusterPlan {
+  int cluster, tiles, active;
+};
+
+inline cudaLaunchConfig_t cluster_config(const ClusterPlan& p,
+                                         cudaLaunchAttribute* attr,
+                                         cudaStream_t st) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.cluster, p.tiles, 1);
+  cfg.blockDim = dim3(kClusterThreads, 1, 1);
+  cfg.dynamicSmemBytes = kClusterSmemBytes;
+  cfg.stream = st;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <bool MASKED>
+int cluster_plan(int B, int H, ClusterPlan* p) {
+  const void* kern = (const void*)lstm_bwd_cluster_kernel<MASKED>;
+  int C = 1;
+  while (C * kTileUnits < H) C *= 2;
+  *p = ClusterPlan{C, (B + kTileRows - 1) / kTileRows, 0};
+  if (H % 2 || C > kMaxCluster) return 0;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kClusterSmemBytes);
+  if (e == cudaSuccess && C > 8)  // 16 blocks: beyond the portable 8
+    e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(*p, attr, nullptr);
+  return (int)cudaOccupancyMaxActiveClusters(&p->active, kern, &cfg);
+}
+
+template <bool MASKED>
+int launch_bwd_cluster(const BwdArgs& a, cudaStream_t st) {
+  ClusterPlan p;
+  int rc = cluster_plan<MASKED>(a.B, a.H, &p);
+  if (rc) return rc;
+  if (p.active < 1) return (int)cudaErrorInvalidConfiguration;
+  const cuuint64_t G = 4ull * a.H;
+  CUtensorMap tdz, trw;
+  {  // dz (T, B, 4H): boxes of 64 columns x (128 / C) rows of one step
+    const cuuint64_t dims[3] = {G, (cuuint64_t)a.B, (cuuint64_t)a.T};
+    const cuuint64_t strides[2] = {G * 2, G * 2 * a.B};
+    const cuuint32_t box[3] = {kChunk, (cuuint32_t)(kTileRows / p.cluster), 1};
+    rc = sm90::make_map_bf16(&tdz, a.dz, 3, dims, strides, box);
+  }
+  if (rc) return rc;
+  {  // RW (H, 4H): boxes of 64 columns x 128 units
+    const cuuint64_t dims[2] = {G, (cuuint64_t)a.H};
+    const cuuint64_t strides[1] = {G * 2};
+    const cuuint32_t box[2] = {kChunk, kTileUnits};
+    rc = sm90::make_map_bf16(&trw, a.rw, 2, dims, strides, box);
+  }
+  if (rc) return rc;
+  const ClusterArgs ca{static_cast<const bf16*>(a.gates),
+                       static_cast<const bf16*>(a.c),
+                       static_cast<const bf16*>(a.dh_out),
+                       static_cast<const bf16*>(a.dhT),
+                       static_cast<const bf16*>(a.dcT),
+                       static_cast<const bf16*>(a.mask),
+                       static_cast<const bf16*>(a.peep),
+                       static_cast<const bf16*>(a.c0),
+                       static_cast<bf16*>(a.dz),
+                       a.dhc0,
+                       a.T,
+                       a.B,
+                       a.H,
+                       a.reverse,
+                       p.cluster};
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(p, attr, st);
+  cudaError_t e =
+      cudaLaunchKernelEx(&cfg, lstm_bwd_cluster_kernel<MASKED>, tdz, trw, ca);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 template <typename DT>
 int fwd_dispatch(const FwdArgs& a, bool masked, bool stash, cudaStream_t st) {
   if (masked)
@@ -722,8 +1109,9 @@ extern "C" {
 // a null `gates` the forward without the training stash (c_stash and hsel
 // unused). `hbuf` is (2, Bp, Hp) zeros with h0 in [0][:B, :H], Bp and Hp
 // B and H rounded up to 16. Each entry returns the cudaError_t of its
-// launch; a grid larger than the co-resident blocks returns
-// cudaErrorCooperativeLaunchTooLarge.
+// launch; a cooperative grid larger than the co-resident blocks returns
+// cudaErrorCooperativeLaunchTooLarge, a bf16 backward whose plan has no
+// cluster that fits cudaErrorInvalidConfiguration.
 int dl4j_lstm_fwd(const void* xw, const void* rw, const void* peep,
                   const void* c0, const void* mask, void* hbuf, void* h_out,
                   void* hT, void* cT, void* hsel, void* c_stash, void* gates,
@@ -752,16 +1140,28 @@ int dl4j_lstm_bwd(const void* gates, const void* c, const void* dh_out,
   a.T = T, a.B = B, a.H = H, a.Bp = ceil_to(B, 16), a.reverse = reverse;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return mask ? launch_bwd<bf16, true>(a, st) : launch_bwd<bf16, false>(a, st);
+    return mask ? launch_bwd_cluster<true>(a, st)
+                : launch_bwd_cluster<false>(a, st);
   return mask ? launch_bwd<float, true>(a, st) : launch_bwd<float, false>(a, st);
 }
 
-// The launch plan of kernel `kind` (0 forward, 1 backward) at (B, H):
-// out = {unit slices, batch splits, rows per split, co-resident blocks at
-// that shared memory}; returns the shared memory of one block in bytes
-// (0 on a CUDA error).
+// The launch plan of kernel `kind` (0 forward, 1 backward) at (B, H),
+// out[0..5]: the cooperative kernels (forward; f32 backward) {unit slices
+// of 8, batch splits, rows per split, blocks that can be resident at that
+// shared memory, 1, 8}; the bf16 backward {unit tiles, row tiles, 128 rows
+// per tile, clusters that fit on the card at once (0: refused), cluster
+// size, 128 units per block}. Returns the shared memory of one block in
+// bytes (0 on a CUDA error).
 size_t dl4j_lstm_plan(int kind, int dtype, int masked, int B, int H,
                       int* out) {
+  if (kind == 1 && dtype == 1) {
+    ClusterPlan c{};
+    if (masked ? cluster_plan<true>(B, H, &c) : cluster_plan<false>(B, H, &c))
+      return 0;
+    out[0] = c.cluster, out[1] = c.tiles, out[2] = kTileRows;
+    out[3] = c.active, out[4] = c.cluster, out[5] = kTileUnits;
+    return kClusterSmemBytes;
+  }
   Plan p{};
   int rc;
   if (kind == 0) {
@@ -772,15 +1172,13 @@ size_t dl4j_lstm_plan(int kind, int dtype, int masked, int B, int H,
                   : (const void*)lstm_fwd_kernel<float, false, true>);
     rc = dtype == 1 ? plan<bf16>(k, 0, B, H, &p) : plan<float>(k, 0, B, H, &p);
   } else {
-    const void* k = dtype == 1
-        ? (masked ? (const void*)lstm_bwd_kernel<bf16, true>
-                  : (const void*)lstm_bwd_kernel<bf16, false>)
-        : (masked ? (const void*)lstm_bwd_kernel<float, true>
-                  : (const void*)lstm_bwd_kernel<float, false>);
-    rc = dtype == 1 ? plan<bf16>(k, 1, B, H, &p) : plan<float>(k, 1, B, H, &p);
+    const void* k = masked ? (const void*)lstm_bwd_kernel<float, true>
+                           : (const void*)lstm_bwd_kernel<float, false>;
+    rc = plan<float>(k, 1, B, H, &p);
   }
   if (rc) return 0;
   out[0] = p.gu, out[1] = p.gb, out[2] = p.rows, out[3] = p.capacity;
+  out[4] = 1, out[5] = kUnits;
   return p.smem;
 }
 

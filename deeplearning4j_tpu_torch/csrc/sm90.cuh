@@ -1,0 +1,292 @@
+// Hopper (sm_90a) building blocks shared by the port's kernels:
+// mbarriers, TMA tensor loads (plain and cluster multicast), cluster
+// barriers, wgmma with shared-memory descriptors, and the host-side
+// construction of TMA tensor maps through the driver entry point (so a
+// library needs no -lcuda).
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums: types only, nothing linked
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace sm90 {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ------------------------------------------------------------- mbarrier
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// makes the initialisations visible to the cluster and to the async proxy
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// arrive on the barrier at the same shared-memory offset in block `cta`
+// of this cluster, when `pred` holds; the predicate stays inside the
+// instruction, so no lane-dependent branch sits between wgmma operations
+// still in flight. The arrival releases at CTA scope (the default): it
+// follows a wgmma wait, so the stage's reads are done, and a release at
+// cluster scope would fence every earlier store of the thread at each
+// arrival
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
+                                                    uint32_t cta,
+                                                    bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b32 remote;\n"
+      "setp.ne.b32 p, %2, 0;\n"
+      "@p mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "@p mbarrier.arrive.shared::cluster.b64 _, [remote];\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(cta), "r"((uint32_t)pred)
+      : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed. The spin loop is
+// inside the PTX, so the compiler sees no divergent branch around it (a C
+// loop there makes ptxas serialize the wgmma in flight). A wait that
+// lasts 4 s means an arrival or a load was lost: the thread traps, so the
+// launch fails with an error instead of hanging the card. CLUSTER waits
+// acquire at cluster scope (arrivals from other blocks).
+#define SM90_MBAR_WAIT(SEM)                                              \
+  asm volatile(                                                          \
+      "{\n.reg .pred p;\n.reg .u64 t0, t1;\n"                           \
+      "mov.u64 t0, %%globaltimer;\n"                                     \
+      "WAIT:\n"                                                          \
+      "mbarrier.try_wait.parity" SEM ".shared::cta.b64 p, [%0], %1;\n"   \
+      "@p bra DONE;\n"                                                   \
+      "mov.u64 t1, %%globaltimer;\n"                                     \
+      "sub.u64 t1, t1, t0;\n"                                            \
+      "setp.gt.u64 p, t1, 4000000000;\n"                                 \
+      "@p trap;\n"                                                       \
+      "bra WAIT;\n"                                                      \
+      "DONE:\n}\n" ::"r"(smem_u32(bar)),                                 \
+      "r"(parity)                                                        \
+      : "memory")
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  SM90_MBAR_WAIT("");
+}
+
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
+                                                  uint32_t parity) {
+  SM90_MBAR_WAIT(".acquire.cluster");
+}
+
+// -------------------------------------------------------------- cluster
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every block of the cluster arrives, then waits; the
+// release/acquire pair orders each block's earlier memory operations
+// before the others' later ones
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// order this thread's generic-proxy writes before later async-proxy
+// (TMA) reads of the same memory
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async;\n" ::: "memory");
+}
+
+// ------------------------------------------------------------------ TMA
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// one box delivered to the same shared-memory offset, and its bytes to
+// the same barrier, in every block of `mask` in this cluster
+__device__ __forceinline__ void tma_load_3d_multicast(void* dst,
+                                                      const CUtensorMap* map,
+                                                      uint64_t* bar,
+                                                      uint16_t mask, int c0,
+                                                      int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes.multicast::cluster [%0], [%1, {%4, %5, %6}], [%2], %3;\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "h"(mask),
+      "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
+// ----------------------------------------------------------------- wgmma
+// Descriptor of a tile written by TMA with a 128-byte swizzle: rows of
+// 128 bytes, 8-row groups 1024 bytes apart (SBO); `lbo` is the distance
+// between 64-element column blocks of an MN-major operand (unused by a
+// K-major one). Tiles start on 1024-byte boundaries; a k step of 16
+// elements inside a row advances the start address by 32 bytes.
+__device__ __forceinline__ uint64_t desc_sw128(const void* tile,
+                                               uint32_t lbo = 16) {
+  const uint32_t a = smem_u32(tile);
+  uint64_t d = (uint64_t)((a & 0x3FFFF) >> 4);
+  d |= (uint64_t)((lbo >> 4) & 0x3FFF) << 16;
+  d |= (uint64_t)(1024 >> 4) << 32;
+  d |= (uint64_t)1 << 62;  // 128-byte swizzle
+  return d;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving accesses of accumulator registers across
+// an asynchronous wgmma's issue or its wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define SM90_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define SM90_D16(i) SM90_D4(i), SM90_D4(i + 4), SM90_D4(i + 8), SM90_D4(i + 12)
+#define SM90_D64 SM90_D16(0), SM90_D16(16), SM90_D16(32), SM90_D16(48)
+#define SM90_R64                                                             \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "   \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "   \
+  "%58, %59, %60, %61, %62, %63}"
+
+// d (64 x 128, f32) (+)= A (64 x 16) . B^T, A and B K-major in shared
+// memory (B stored as 128 rows of k); d is zeroed first when !accumulate.
+// Accumulator layout (warp w of the warpgroup, lane 4g + t): d[4j + e]
+// holds row 16w + g + 8 (e >> 1), column 8j + 2t + (e & 1).
+__device__ __forceinline__ void wgmma_m64n128_ss(float (&d)[64], uint64_t da,
+                                                 uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SM90_R64
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : SM90_D64
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 128) += A (64 x 16, registers: the m16n8k16 A fragment of each
+// warp's 16 rows) . B, B MN-major in shared memory (16 rows of k, 128
+// columns of n in two 64-column swizzled blocks `lbo` bytes apart)
+__device__ __forceinline__ void wgmma_m64n128_rs_mn(float (&d)[64],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SM90_R64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : SM90_D64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <uint32_t N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <uint32_t N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// ------------------------------------------------------------------ host
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault,
+                                         &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A bf16 tensor map of `rank` dimensions (innermost first; strides in
+// bytes of dimensions 1..rank-1), boxes of `box` elements, 128-byte
+// swizzle, out-of-bounds elements read as zero. Returns a cudaError_t.
+inline int make_map_bf16(CUtensorMap* map, const void* base, int rank,
+                         const cuuint64_t* dims, const cuuint64_t* strides,
+                         const cuuint32_t* box) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
+                  const_cast<void*>(base), dims, strides, box, ones,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+}  // namespace sm90

@@ -5,9 +5,12 @@ ctypes.
 A library is built at first use, from the sources in the checkout only,
 with `nvcc -gencode arch=compute_90a,code=sm_90a`, into
 `deeplearning4j_tpu_torch/_build/` (listed in `.gitignore`). Its file
-name carries a digest of the source and the flags, so an edited source
-is rebuilt and an unchanged one is not. `build` starts one nvcc per
-source, all at once, and waits for all of them.
+name carries a digest of the source, the shared headers (`csrc/*.cuh`)
+and the flags, so an edited source is rebuilt and an unchanged one is
+not. `build` starts one nvcc per source, all at once, and waits for all
+of them. The TMA kernels reach the driver's `cuTensorMapEncodeTiled`
+through the runtime's `cudaGetDriverEntryPointByVersion`, so no library
+links `-lcuda`.
 """
 from __future__ import annotations
 
@@ -48,6 +51,8 @@ def find_nvcc() -> str:
 def library_path(name: str) -> Path:
     src = CSRC_DIR / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 

@@ -179,12 +179,16 @@ def _strides(*ts):
 
 
 def _kernel_ready(t: torch.Tensor) -> torch.Tensor:
-    """`t` itself when the kernel can read it through its strides (unit
-    stride along D, 16-byte aligned rows), else a contiguous copy."""
+    """`t` itself when the kernels can read it through its strides (unit
+    stride along D, a 16-byte aligned base, and (b, t, h) strides that are
+    positive multiples of 16 bytes, as TMA tensor maps need), else a
+    contiguous copy in fresh (aligned) memory: `.contiguous()` would hand
+    back a contiguous tensor whose base is misaligned as it is."""
     e = t.element_size()
     ok = (t.stride(3) == 1 and t.data_ptr() % 16 == 0
-          and all((t.stride(i) * e) % 16 == 0 for i in range(3)))
-    return t if ok else t.contiguous()
+          and all(t.stride(i) > 0 and (t.stride(i) * e) % 16 == 0
+                  for i in range(3)))
+    return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
 def _check_cuda(q, k, v, causal):

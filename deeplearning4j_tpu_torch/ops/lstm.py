@@ -5,9 +5,13 @@ kernels, their wrappers, their plain PyTorch versions and the
 Counterpart of `deeplearning4j_tpu/ops/pallas_lstm.py`: the TPU kernels
 `_lstm_fwd_kernel`, `_lstm_bwd_kernel`, `_lstm_fwd_kernel_masked` and
 `_lstm_bwd_kernel_masked` become `csrc/lstm.cu` (route: CUDA C++ for
-sm_90a, plain C interface, loaded with ctypes): one persistent cooperative
-launch per layer, direction and pass, the time loop inside it. The
-source's header says how it is laid out and what bounds it.
+sm_90a, plain C interface, loaded with ctypes): one persistent launch per
+layer, direction and pass, the time loop inside it. The forward (and the
+f32 backward) is one cooperative launch with a grid barrier per step; the
+bf16 backward a launch of thread block clusters, one per tile of 128
+batch rows, that meet only at cluster barriers and run the step's dh
+product on wgmma fed by TMA. The source's header says how each is laid
+out and what bounds it.
 
 `lstm_fused(x, W, RW, b, peephole, h0, c0, mask=, reverse=)` is the entry
 point (the JAX package's `lstm_fused_or_none` without the `None`): the
@@ -17,7 +21,11 @@ wrappers `lstm_fwd`/`lstm_bwd` run the plain versions; given CUDA tensors
 they launch the kernels or raise. There is no probe, no fallback and no
 kill switch: the JAX package's `DL4J_TPU_NO_PALLAS_LSTM` and
 `DL4J_TPU_LSTM_UNROLL` switches and its TPU-only shape preconditions are
-not carried over. The kernels take any H and B, T >= 1, f32 or bf16.
+not carried over. The kernels take B >= 1, T >= 1, f32 or bf16; what the
+card refuses raises before the launch (`plan`): a cooperative grid that
+cannot be resident, shared memory over the card's limit, and for the bf16
+backward an odd H (its TMA boxes need rows of dz and RW that are
+multiples of 16 bytes) or H above 2048 (a cluster above 16 blocks).
 
 Rounding points are the Pallas kernels': carries and the gate chain in
 the statistic type (f32; f64 for f64 input on the CPU), product operands
@@ -51,7 +59,6 @@ from deeplearning4j_tpu_torch.ops.kernel_dispatch import mxu_dtype, stat_dtype
 TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_UNITS = 8  # hidden units per block (csrc/lstm.cu kUnits)
 
 launches: Dict[Tuple[str, bool, bool], int] = {}
 
@@ -197,10 +204,13 @@ def _library() -> ctypes.CDLL:
 
 def plan(kind: str, dtype: torch.dtype, masked: bool, B: int, H: int):
     """The kernel's launch plan on the current card: (shared memory bytes
-    per block, unit slices, batch splits, rows per split, blocks that can
-    be resident at once)."""
+    per block, unit slices or tiles, batch splits or row tiles, rows per
+    split or tile, blocks that can be resident at once (cooperative
+    kernels) or clusters that fit at once (bf16 backward; 0 when refused),
+    blocks per cluster (1 for the cooperative kernels), units per
+    block)."""
     lib = _library()
-    out = (ctypes.c_int * 4)()
+    out = (ctypes.c_int * 6)()
     smem = lib.dl4j_lstm_plan(0 if kind == "fwd" else 1, _DTYPE_CODE[dtype],
                               int(masked), B, H, out)
     if smem == 0:
@@ -214,8 +224,9 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def _check_cuda(kind, ts, dtype, B, H, masked):
     """Preconditions of the kernels: one CUDA device, f32 or bf16, one
-    type, contiguous; the block's shared memory within the card's
-    limit."""
+    type, contiguous; the block's shared memory within the card's limit;
+    for the bf16 backward an even H and a cluster that fits the card.
+    Returns (the library, the plan)."""
     dev = ts[0].device
     for t in ts:
         if t.device != dev:
@@ -233,14 +244,26 @@ def _check_cuda(kind, ts, dtype, B, H, masked):
 
     limit = smem_limit_bytes(dev)
     with torch.cuda.device(dev):
-        smem, gu, gb, rows, cap = plan(kind, dtype, masked, B, H)
+        p = plan(kind, dtype, masked, B, H)
+    smem, gu, gb, rows, cap, cluster, units = p
     if smem > limit:
         raise ValueError(
             f"lstm {kind} kernel needs {smem} bytes of shared memory per "
-            f"block at H={H}, B={B}, {dtype} (the RW slice of {_UNITS} "
-            f"units plus the f32 carries of {rows} rows); the card allows "
-            f"{limit}")
-    return _library(), (smem, gu, gb, rows, cap)
+            f"block at H={H}, B={B}, {dtype} (blocks of {units} units and "
+            f"{rows} rows); the card allows {limit}")
+    if kind == "bwd" and dtype == torch.bfloat16:
+        if H % 2:
+            raise ValueError(
+                f"lstm bwd kernel (bf16) refuses odd H={H}: its TMA boxes "
+                f"read rows of dz and RW of 4H bf16, which must be a "
+                f"multiple of 16 bytes")
+        if cap < 1:
+            raise ValueError(
+                f"lstm bwd kernel (bf16) refuses H={H}: a row tile's "
+                f"cluster of {cluster} blocks of {units} units (at "
+                f"{smem} bytes of shared memory each) does not fit the "
+                f"card (at most 16 blocks per cluster)")
+    return _library(), p
 
 
 def _raise_on(rc, kind, shape, p):

@@ -183,6 +183,60 @@ def test_error_in_tolerances_holds_each_row_to_its_scale():
     assert fa.error_in_tolerances("O", bad, o, torch.float32) == float("inf")
 
 
+@pytest.mark.parametrize("tile", [0, 1])
+def test_causal_rows_ignore_keys_after_their_diagonal_tile(tile):
+    """What the causal forward kernel's skip rests on: with 128-row query
+    tiles, the rows of query tile i are unchanged (O and L, exactly) when
+    every key and value after tile i's diagonal tile is replaced by
+    noise."""
+    q, k, v = (torch.from_numpy(x) for x in _inputs(8, (1, 384, 2, 128), 3))
+    o, lse = fa.flash_attention_plain_fwd(q, k, v, causal=True)
+    cut = 128 * (tile + 1)
+    noise = torch.from_numpy(
+        np.random.default_rng(9).standard_normal((2, 1, 384 - cut, 2, 128))
+        .astype(np.float32) * 50)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, cut:], v2[:, cut:] = noise[0], noise[1]
+    o2, lse2 = fa.flash_attention_plain_fwd(q, k2, v2, causal=True)
+    rows = slice(128 * tile, cut)
+    torch.testing.assert_close(o2[:, rows], o[:, rows], rtol=0, atol=0)
+    torch.testing.assert_close(lse2.reshape(2, 384)[:, rows],
+                               lse.reshape(2, 384)[:, rows], rtol=0, atol=0)
+    assert not torch.equal(o2[:, cut:], o[:, cut:])
+
+
+def test_kernel_ready_passes_qkv_slices_and_copies_the_rest():
+    """The wrapper's stride and alignment check (the forward kernel's TMA
+    maps need a unit D stride, a 16-byte aligned base and positive
+    16-byte multiples for the other strides): q, k, v sliced from one
+    fused qkv projection reach the kernels uncopied; a tensor with a
+    non-unit D stride, a base off by one element, a t stride that is not
+    a 16-byte multiple, or a broadcast (zero) stride is copied."""
+    B, Tn, Hn, Dn = 2, 16, 4, 128
+    qkv = torch.randn(B, Tn, 3 * Hn * Dn, dtype=torch.bfloat16)
+    for i in range(3):
+        t = qkv[..., i * Hn * Dn:(i + 1) * Hn * Dn].reshape(B, Tn, Hn, Dn)
+        assert not t.is_contiguous() and fa._kernel_ready(t) is t
+    plain = torch.randn(B, Tn, Hn, Dn, dtype=torch.bfloat16)
+    assert fa._kernel_ready(plain) is plain
+    flat = torch.randn(B * Tn * Hn * Dn + 8, dtype=torch.bfloat16)
+    odd_t = torch.randn(B, Tn, Hn * Dn + 1, dtype=torch.bfloat16)
+    copied = {
+        "D stride 2": torch.randn(B, Tn, Hn, 2 * Dn,
+                                  dtype=torch.bfloat16)[..., ::2],
+        "base off by one element": flat[1:1 + B * Tn * Hn * Dn]
+        .reshape(B, Tn, Hn, Dn),
+        "t stride not 16-byte aligned": odd_t[..., :Hn * Dn]
+        .reshape(B, Tn, Hn, Dn),
+        "broadcast over t": torch.randn(B, 1, Hn, Dn, dtype=torch.bfloat16)
+        .expand(B, Tn, Hn, Dn),
+    }
+    for what, t in copied.items():
+        got = fa._kernel_ready(t)
+        assert got is not t and got.is_contiguous(), what
+        assert torch.equal(got, t), what
+
+
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
@@ -222,3 +276,26 @@ def test_flash_kernels_match_plain(dtype):
             for name, got, want in zip(("O", "L", "dQ", "dK", "dV"),
                                        (o, lse, dq, dk, dv), ref):
                 assert fa.error_in_tolerances(name, got, want, dt) <= 1.0
+
+
+@pytest.mark.gpu
+def test_wgmma_forward_on_qkv_slices_and_cross_lengths():
+    """The bf16 D=128 forward (wgmma, TMA) against the plain version in
+    f32: on q, k, v sliced from one fused qkv tensor (read through their
+    strides, uncopied), causal; and with Tq != Tk, non-causal."""
+    _card()
+    dt = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(11)
+    qkv = torch.randn((2, 1024, 3 * 4 * 128), generator=g,
+                      device="cuda").to(dt)
+    q, k, v = (qkv[..., i * 512:(i + 1) * 512].reshape(2, 1024, 4, 128)
+               for i in range(3))
+    assert fa._kernel_ready(q) is q
+    kq = torch.randn((2, 256, 4, 128), generator=g, device="cuda").to(dt)
+    for qq, kk, vv, causal in ((q, k, v, True), (kq, k, v, False)):
+        o, lse = fa.flash_forward(qq, kk, vv, causal, None, with_lse=True)
+        ro, rl = fa.flash_attention_plain_fwd(qq.float(), kk.float(),
+                                              vv.float(), causal)
+        torch.cuda.synchronize()
+        assert fa.error_in_tolerances("O", o, ro, dt) <= 1.0
+        assert fa.error_in_tolerances("L", lse, rl, dt) <= 1.0

@@ -158,6 +158,46 @@ def test_error_in_tolerances_reads_rows():
     assert L.error_in_tolerances(off, ref, torch.float32) == float("inf")
 
 
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_backward_rows_are_independent(masked, reverse):
+    """What the bf16 backward kernel's row tiles rest on: the recurrence
+    couples no batch rows, so the plain backward on two halves of the
+    batch equals it on the whole (dz and dh0/dc0 row for row; the halves
+    differ from the whole only in the order of their f32 sums)."""
+    rng = np.random.default_rng(7)
+    Tn, Bn, Hn = 5, 10, 24
+    r = lambda *s, sc=1.0: torch.from_numpy(
+        (rng.standard_normal(s) * sc).astype(np.float32))
+    xw, rw = r(Tn, Bn, 4 * Hn), r(Hn, 4 * Hn, sc=Hn ** -0.5)
+    peep, h0, c0 = r(3, Hn, sc=0.3), r(Bn, Hn, sc=0.5), r(Bn, Hn, sc=0.5)
+    dh, dhT, dcT = r(Tn, Bn, Hn), r(Bn, Hn), r(Bn, Hn)
+    mask = None
+    if masked:
+        lens = np.array([5, 0, 3, 5, 1, 2, 4, 5, 3, 2])
+        mask = torch.from_numpy(
+            (np.arange(Tn)[:, None] < lens[None]).astype(np.float32))
+        mask[2, 3] = 0.0  # a hole
+    _, _, _, _, c_st, gates = L.lstm_fwd_plain(xw, rw, peep, h0, c0, mask,
+                                               reverse=reverse)
+
+    def bwd(rows):
+        return L.lstm_bwd_plain(
+            gates[:, rows], c_st[:, rows], dh[:, rows],
+            None if mask is None else dhT[rows], dcT[rows], rw, peep,
+            c0[rows], None if mask is None else mask[:, rows],
+            reverse=reverse)
+
+    dz, dhc0 = bwd(slice(None))
+    halves = [bwd(slice(0, 4)), bwd(slice(4, None))]
+    np.testing.assert_allclose(
+        torch.cat([h[0] for h in halves], dim=1).numpy(), dz.numpy(),
+        rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(
+        torch.cat([h[1] for h in halves], dim=1).numpy(), dhc0.numpy(),
+        rtol=1e-6, atol=1e-6)
+
+
 # ------------------------------------------------------------ on the card
 def _card():
     if not torch.cuda.is_available():
@@ -169,15 +209,16 @@ def _card():
 def test_kernels_match_plain(dtype):
     """Forward (with its stash) and backward kernels against the plain
     versions on the same inputs, masked and not, forward and reverse, a
-    ragged H; the backward on the forward kernel's own stash; within
-    `L.error_in_tolerances`."""
+    ragged H, B not a multiple of the bf16 backward's 128-row tiles, and
+    H=384 (a cluster of four 128-unit tiles, one idle); the backward on
+    the forward kernel's own stash; within `L.error_in_tolerances`."""
     _card()
     torch.backends.cuda.matmul.allow_tf32 = False
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(4)
     r = lambda *s, sc=1.0: (torch.randn(s, generator=g, device="cuda")
                             * sc).to(dt)
-    for (Tn, Bn, Hn) in ((5, 8, 128), (3, 37, 196)):
+    for (Tn, Bn, Hn) in ((5, 8, 128), (3, 37, 196), (2, 300, 384)):
         xw, rw = r(Tn, Bn, 4 * Hn), r(Hn, 4 * Hn, sc=Hn ** -0.5)
         peep, h0, c0 = r(3, Hn, sc=0.3), r(Bn, Hn, sc=0.5), r(Bn, Hn, sc=0.5)
         dh, dhT, dcT = r(Tn, Bn, Hn), r(Bn, Hn), r(Bn, Hn)
@@ -205,15 +246,52 @@ def test_kernels_match_plain(dtype):
 
 @pytest.mark.gpu
 def test_cooperative_launch_too_large_raises():
-    """A grid larger than the blocks that can be resident is refused at
-    launch (CUDA error 720), and the wrapper raises naming the grid."""
+    """The forward (still one cooperative launch) refuses a grid larger
+    than the blocks that can be resident: CUDA error 720 at launch, and
+    the wrapper raises naming the grid. (The bf16 backward runs this
+    width as clusters: `test_bf16_backward_clusters_and_refusals`.)"""
     _card()
     H2 = 2048
     z = torch.zeros((2, 16, 4 * H2), dtype=torch.bfloat16, device="cuda")
     rw = torch.zeros((H2, 4 * H2), dtype=torch.bfloat16, device="cuda")
     peep = torch.zeros((3, H2), dtype=torch.bfloat16, device="cuda")
     h = torch.zeros((16, H2), dtype=torch.bfloat16, device="cuda")
-    smem, gu, gb, rows, cap = L.plan("fwd", torch.bfloat16, False, 16, H2)
-    assert gu * gb > cap
+    smem, gu, gb, rows, cap, cluster, units = L.plan(
+        "fwd", torch.bfloat16, False, 16, H2)
+    assert gu * gb > cap and cluster == 1
     with pytest.raises(RuntimeError, match="720"):
         L.lstm_fwd(z, rw, peep, h, h)
+
+
+@pytest.mark.gpu
+def test_bf16_backward_clusters_and_refusals():
+    """The bf16 backward runs H=2048 as clusters of 16 blocks (on a stash
+    the plain forward made on the card: the cooperative forward refuses
+    that width) within tolerance, and refuses, naming why, an odd H (TMA
+    rows of 4H bf16 must be 16-byte multiples) and H above 2048 (a
+    cluster above 16 blocks)."""
+    _card()
+    dt = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(6)
+    r = lambda *s, sc=1.0: (torch.randn(s, generator=g, device="cuda")
+                            * sc).to(dt)
+
+    def stash_args(Tn, Bn, Hn):
+        xw, rw = r(Tn, Bn, 4 * Hn), r(Hn, 4 * Hn, sc=Hn ** -0.5)
+        peep, h0, c0 = r(3, Hn, sc=0.3), r(Bn, Hn), r(Bn, Hn)
+        st = L.lstm_fwd_plain(xw, rw, peep, h0, c0)
+        return (st[5], st[4], r(Tn, Bn, Hn), None, r(Bn, Hn), rw, peep, c0)
+
+    smem, gu, gb, rows, active, cluster, units = L.plan(
+        "bwd", dt, False, 256, 2048)
+    assert (cluster, rows, units) == (16, 128, 128) and active >= 1
+    args = stash_args(2, 256, 2048)
+    got = L.lstm_bwd(*args)
+    want = L.lstm_bwd_plain(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert L.error_in_tolerances(a, b, dt) <= 1.0
+    with pytest.raises(ValueError, match="odd H"):
+        L.lstm_bwd(*stash_args(1, 8, 195))
+    with pytest.raises(ValueError, match="16 blocks per cluster"):
+        L.lstm_bwd(*stash_args(1, 8, 2176))
