@@ -3,7 +3,7 @@
 does `chip_smoke.py`'s comparison against the plain versions catch a
 kernel that is wrong?
 
-    python3 chip_fault_check.py      # about 8-10 minutes on an H100
+    python3 chip_fault_check.py      # about 6 minutes on an H100
 
 For the unchanged sources and for each planted fault below, the script
 copies `deeplearning4j_tpu_torch/` into a temporary directory, plants the
@@ -20,22 +20,25 @@ process per copy (the unchanged copy runs all three):
   absolute error within 2e-2 of the reference's largest magnitude), to
   show what that bound let through;
 - paged: every case of `chip_smoke.paged_cases` (dense and int8 pools,
-  decode, verify and chunk widths, the ragged row tiles), read in units
-  of the tolerance atol + rtol * |ref|; a non-finite output or a written
-  inactive lane counts as infinite;
+  decode, verify and chunk widths, the ragged row tiles, head dims 64 to
+  256, pages of 1 to 512), read in units of the tolerance atol + rtol *
+  |ref|; a non-finite output or a written inactive lane counts as
+  infinite;
 - lstm: every case of `chip_smoke.lstm_cases` (forward and backward
-  kernels, f32 and bf16, masked and not, forward and reverse, the ragged
-  H=196, B=37 and 300, H=384 and the main paths' widths), each output
-  held row by row to the plain versions (`lstm.error_in_tolerances`), as
-  phase 10 does.
+  kernels, f32 and bf16, masked and not, forward and reverse, both bf16
+  forward routes, the ragged H=196, odd 195 and 385, B=37 and 300,
+  H=384, 2048 and the main paths' widths), each output held row by row
+  to the plain versions (`lstm.error_in_tolerances`), as phase 10 does.
 
 The faults (`MUTATIONS`) drop tiles, terms or rows, and break each
 mechanism of the Hopper kernels: the forward's diagonal mask on the wrong
-tile and a K/V ring stage refilled before its release; the bf16 LSTM
+tile and a K/V ring stage refilled before its release; the paged walk's
+split merge, key slices and int8 rounding point; the bf16 LSTM
 backward's cluster barrier between its two phases, and its row tile
-reading dz from the next tile's rows. A fault that makes the kernel trap
-(an mbarrier wait that times out) fails its check process, which counts
-as caught.
+reading dz from the next tile's rows; the bf16 LSTM forward's h rows
+loaded before the cluster barrier and its xw tile of the wrong step. A
+fault that makes the kernel trap (an mbarrier wait that times out) fails
+its check process, which counts as caught.
 
 Prints a table and, as the last line, one JSON object
 `{"control_ok": ..., "mutants": [{"name", "caught", "caught_by_old_bound",
@@ -67,12 +70,17 @@ FWD = "void flash_fwd_consumer(WgFwdSmem& sm,"
 FWDP = "flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,"
 DQ = "flash_bwd_dq_mma_kernel(const Args a) {"
 DKV = "flash_bwd_dkv_mma_kernel(const Args a) {"
-WALK = "for (int j = 0; j < n_live; ++j) {"
+SCAL = "paged_attention_kernel(const Call c) {"
 PV = "// acc (TR, hd) = acc * corr + P . V"
+STAGE = "__device__ __forceinline__ void stage_slice("
+KVV = "__device__ __forceinline__ float kv_value("
+MERGE = "paged_merge_kernel(const Call c) {"
 CELL = "__device__ __forceinline__ void fwd_cell("
 CONS = "__device__ void cluster_consumer(ClusterSmem& sm,"
 PROD = "__device__ void cluster_producer(ClusterSmem& sm,"
 FWDK = "lstm_fwd_kernel(const FwdArgs a) {"
+F32F = "lstm_fwd_f32_kernel(const FwdArgs a) {"
+FCONS = "__device__ void fwd_consumer(FwdClusterSmem<ROWS>& sm,"
 MUTATIONS = [
     ("forward skips the last K/V tile", FLASH, FWDP, [
         ("const int nk = a.causal ? qi + 1 : a.Tk / kWgRows;",
@@ -92,32 +100,40 @@ MUTATIONS = [
      FLASH, FWDP, [("sm90::mbar_wait(&sm.k_empty[s], par);", ""),
                    ("sm90::mbar_wait(&sm.v_empty[s], par);", "")]),
     ("dQ drops dS.K of K/V tile 40", FLASH, DQ, [
-        ("warp_pb<NO, 4, LD>(dq, s, K + c0);",
-         "if (kj != 40) warp_pb<NO, 4, LD>(dq, s, K + c0);")]),
+        ("warp_pb<NO, KB / 16, LD>(dq, s, K + c0);",
+         "if (kj != 40) warp_pb<NO, KB / 16, LD>(dq, s, K + c0);")]),
     ("dV drops P^T.dO of Q tile 40", FLASH, DKV, [
-        ("warp_pb<NO, 4, LD>(dv, s, dO + c0);",
-         "if (qi != 40) warp_pb<NO, 4, LD>(dv, s, dO + c0);")]),
+        ("warp_pb<NO, KB / 16, LD>(dv, s, dO + c0);",
+         "if (qi != 40) warp_pb<NO, KB / 16, LD>(dv, s, dO + c0);")]),
     ("dQ skips the last K/V tile", FLASH, DQ, [
-        ("const int nk = a.causal ? qi + 1 : a.Tk / BLK;",
-         "const int nk = a.causal ? qi : a.Tk / BLK - 1;")]),
+        ("const int nk = a.causal ? (q0 + BLK) / KB : a.Tk / KB;",
+         "const int nk = a.causal ? (q0 + BLK) / KB - 1 : a.Tk / KB - 1;")]),
     ("dK/dV skips the last Q tile", FLASH, DKV, [
-        ("const int nq = a.Tq / BLK;", "const int nq = a.Tq / BLK - 1;")]),
+        ("const int nq = a.Tq / KB;", "const int nq = a.Tq / KB - 1;")]),
     ("dK drops the dsum term", FLASH, DKV, [
         ("s[j][e] *= dp[j][e] - Ds[8 * j + 2 * t + (e & 1)];",
          "s[j][e] *= dp[j][e];")]),
     ("int8: V dequantized with the K scales", PAGED, PV, [
-        ("if constexpr (kQuant) vsc = cVs[kk];",
-         "if constexpr (kQuant) vsc = cKs[kk];")]),
-    ("int8: the other page buffer's K scale row", PAGED, WALK, [
-        ("const float* cKs = sKs + buf * page;",
-         "const float* cKs = sKs + (STAGES == 2 ? buf ^ 1 : buf) * page;")]),
-    ("int8: one page's K scales skipped", PAGED, WALK, [
+        ("if constexpr (kQuant) vsc = cVs[kk + x];",
+         "if constexpr (kQuant) vsc = cKs[kk + x];")]),
+    ("int8: the other slice buffer's K scale row", PAGED, SCAL, [
+        ("const float* cKs = sKs + buf * ks;",
+         "const float* cKs = sKs + (buf ^ 1) * ks;")]),
+    ("int8: one slice's K scales skipped", PAGED, SCAL, [
         ("if constexpr (kQuant) ksc = cKs[kk];",
          "if constexpr (kQuant) ksc = j == 3 ? 1.f : cKs[kk];")]),
-    ("paged: the last row of a ragged row tile never written", PAGED, WALK, [
-        ("for (int i = tid; i < tr * hd; i += blockDim.x) {\n    const float l",
-         "for (int i = tid; i < (tr == TR ? tr : tr - 1) * hd; "
-         "i += blockDim.x) {\n    const float l")]),
+    ("paged: the last row of a ragged row tile never walked or written",
+     PAGED, SCAL, [("const int tr = min(TR, R - r0);",
+                    "const int tr = min(TR, R - r0) - (R - r0 < TR);")]),
+    ("paged: a split's partial l dropped from the merge", PAGED, MERGE, [
+        ("const float L = warp_sum(wp * lp);",
+         "const float L = warp_sum(lane == 1 ? 0.f : wp * lp);")]),
+    ("paged: a key slice read from the next page", PAGED, STAGE, [
+        ("c.n_pages + key / page]",
+         "c.n_pages + min(key / page + 1, c.n_pages - 1)]")]),
+    ("paged: the int8 scale applied after the rounding to q's type", PAGED,
+     KVV, [("return to_f32(from_f32<T>((float)v * scale));",
+            "return to_f32(from_f32<T>((float)v)) * scale;")]),
     ("lstm: the input gate's peephole term dropped", LSTM, CELL, [
         ("const float i = sigm(zi + sm.peep[ul] * c);",
          "const float i = sigm(zi);")]),
@@ -129,9 +145,10 @@ MUTATIONS = [
     ("lstm: forward skips the grid barrier", LSTM, FWDK, [
         ("if (s + 1 < a.T) grid.sync();",
          "if (s + 1 < a.T && a.T < 0) grid.sync();")]),
-    ("lstm: the last unit slice of a ragged H never written", LSTM, CELL, [
-        ("if (r >= a.B || u >= H) return;",
-         "if (r >= a.B || u >= H || (u | (kUnits - 1)) >= H) return;")]),
+    # f32 keeps a ragged H (196 = 128 + 68 units in two blocks)
+    ("lstm: the last 4 units of a ragged f32 block never written", LSTM,
+     F32F, [("        if (u >= H) continue;",
+             "        if (u >= (u0 + kF32Units > H ? H - 4 : H)) continue;")]),
     # the consumers meet the cluster at the start of each step instead of
     # between the cell phase and the product: the barrier between the
     # phases is skipped, and the products read dz[t] before it is stored
@@ -144,6 +161,18 @@ MUTATIONS = [
      PROD, [("c * kChunk, r0, sp.t);", "c * kChunk, r0 + kTileRows, sp.t);"),
             ("r0 + rank * slice, sp.t);",
              "r0 + kTileRows + rank * slice, sp.t);")]),
+    # the consumers meet the cluster right after the product, before the
+    # cell phase stores h_t: the producer then loads the h rows before they
+    # are published (and fills the ring while the cell phase uses it)
+    ("lstm: forward cluster reads h[t-1] before the barrier", LSTM, FCONS, [
+        ("    // both warpgroups' products are done with the ring: it holds "
+         "the tiles\n", "    sm90::cluster_sync();\n"),
+        ("    sm90::cluster_sync();\n  }\n  if (tid == 0) "
+         "sm90::bulk_wait<0>();",
+         "  }\n  if (tid == 0) sm90::bulk_wait<0>();")]),
+    ("lstm: forward uses the xw tile of step t+1 at step t", LSTM, FCONS, [
+        ("u0 + 64 * gi, k, r0, t);",
+         "u0 + 64 * gi, k, r0, min(t + 1, a.T - 1));")]),
 ]
 
 

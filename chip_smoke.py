@@ -25,12 +25,16 @@ Phases, each of which makes the script exit non-zero when it fails:
    0.005-0.02) at decode C=1, verify C=5, chunks C=128 and C=256 and GQA
    at C=1 and C=3, q in f32 and bf16, against the plain version in f32
    that rounds the dequantized K/V to q's type as the kernel does, same
-   tolerances;
+   tolerances, and at a decode with sharp scores (q x16: the softmax
+   magnifies any error in the dequantized K); both families also at
+   head_dim 256 with pages of 256 and 128, head_dim 128 with pages of 512,
+   and head_dim 64 and 128 with pages of 1 and 2 positions (decode,
+   verify and chunk widths);
 4. flash kernels: forward (O and L), dQ and dK/dV against the plain
    versions computed in f32 on the same inputs (the backward's include
    the O and L the forward kernel gave), f32 and bf16, causal and not,
-   D = 128 and 256, T = 512 and 4096, Tq = 512 with Tk = 1024 (bf16 D =
-   128 runs the wgmma forward), and a GQA call through
+   D = 128, 256, 384 and 512, T = 512, 2048 and 4096, Tq = 512 with
+   Tk = 1024 (bf16 D = 128 runs the wgmma forward), and a GQA call through
    `multi_head_attention` with autograd against the same call on the
    CPU; O, dQ, dK, dV held row by row (a row's largest error within
    `flash_attention.TOLERANCE`, 1e-4 f32 / 2^-6 bf16, of that row's
@@ -79,22 +83,18 @@ Phases, each of which makes the script exit non-zero when it fails:
    kernels;
 10. LSTM kernels: the forward (with its training stash) and backward
    kernels, unmasked and masked, forward and reverse, against the plain
-   versions on the card (TF32 off), f32 and bf16, H = 128, 256, 1024 and
-   a ragged 196, 384 (a cluster of four 128-unit tiles, one idle), B = 8,
-   37 and 300 (not multiples of the bf16 backward's 128-row tiles), T =
-   1, 2, 3, 9, 64, and the main paths' B=2048 at H=1024 (bf16) and B=8192
-   at H=256; nonzero h0, c0 and
-   peepholes; masks with ragged lengths, a row never masked, a row masked
-   from t=0 and a hole; the backward on the forward kernel's own stash;
-   every output held row by row (`lstm.error_in_tolerances`: 1e-4 f32,
-   2^-6 bf16, of the row's largest |ref|); f32 at H=1024, B=2048 must be
-   refused (the backward's shared memory); the bf16 backward at H=2048 (a
-   cluster of 16) on a stash the plain forward made on the card, held to
-   the plain backward, and refused with its reason at an odd H and at
-   H=2176; the bf16 backward's plan (tile, cluster size, clusters that
-   fit, waves) at the main paths' shapes; `lstm_fused` with autograd on
-   the card against the same call on the CPU (out, hT, cT, dx, dW, dRW,
-   db, dpeep, dh0, dc0);
+   versions on the card (TF32 off), f32 and bf16, every case of
+   `lstm_cases` (H = 128 to 2048, a ragged 196 and odd 195 and 385, B = 8
+   to 8192, T = 1 to 64, both bf16 forward routes, f32 at H=1024, B=2048
+   and at H=2048; nonzero h0, c0 and peepholes; masks with ragged
+   lengths, a row never masked, a row masked from t=0 and a hole; the
+   backward on the forward kernel's own stash), every output held row by
+   row (`lstm.error_in_tolerances`: 1e-4 f32, 2^-6 bf16, of the row's
+   largest |ref|); H above 2048 refused before any launch, naming why;
+   the launch plans (route, tile, cluster size, clusters that fit,
+   waves) at the main paths' shapes; `lstm_fused` with autograd on the
+   card against the same call on the CPU (out, hT, cT, dx, dW, dRW, db,
+   dpeep, dh0, dc0);
 11. LSTM training parity: a 2-layer f32 char-RNN (vocab 64, H=256, B=16,
    T=32, RMSPROP lr 0.01) from one set of weights, 3 steps on the card and
    on the CPU: losses rtol 1e-5, params rtol 1e-5 + atol 1e-4; a tBPTT
@@ -124,14 +124,18 @@ Phases, each of which makes the script exit non-zero when it fails:
    forward+backward minus its forward for the two backward kernels
    together; the yardsticks, which the port never calls), beside the bound max(flops / 989 TFLOP/s,
    bytes / 3.35 TB/s) of this run's data, and each flash kernel's
-   achieved TFLOP/s beside the library's; the int8 kernel also at a C=128
-   chunk;
+   achieved TFLOP/s beside the library's, also at head_dim 384 and 512
+   (B=2, H=4, T=2048); the int8 kernel also at a C=128 chunk; each paged
+   case with its launch plan (route, slice, splits);
 15. LSTM timing: rows 5-8 at main path 4's shape (T=64, B=2048, H=1024,
    unmasked) and main path 4b's window (T=24, B=8192, H=256, unmasked and
    masked), bf16, the same way, beside their plain versions, the bound
    (2*T*B*H*4H flops; each input read and each output written once) and
    cuDNN's LSTM as yardstick (`torch.nn.LSTM`: no peepholes, its own input
-   GEMM; forward minus one input matmul, and fwd+bwd minus fwd).
+   GEMM; forward minus one input matmul, and fwd+bwd minus fwd), with
+   each launch plan; the two bf16 forward routes at their boundary (T=64,
+   H=1024, B=128 cooperative and B=129 clusters, with and without the
+   stash); the f32 kernels at T=8, B=2048, H=1024.
 
 Prints one JSON line of per-kernel numbers, then the card's
 `nvidia-smi` line, then as the last line
@@ -183,13 +187,15 @@ def nvidia_smi_line() -> str:
 
 # --------------------------------------------------------------- inputs
 def paged_inputs(torch, *, S, C, H, Hkv, hd, page, n_pages, dtype, seed,
-                 positions, inactive=(), garbage=True, int8=False):
+                 positions, inactive=(), garbage=True, int8=False,
+                 q_scale=1.0):
     """Pools, a shuffled page table, positions and an active mask. Pages
     past each slot's last live page are either remapped to the trash
     page 0 (odd slots) or left pointing at stale pages (even slots);
     both, and page 0, hold large garbage that must never reach an
     output. `int8`: int8 pools drawn from -127..127 with f32 scale pools
-    drawn from 0.005..0.02 (garbage pages: +-127 under scales of 1e3)."""
+    drawn from 0.005..0.02 (garbage pages: +-127 under scales of 1e3).
+    `q_scale` multiplies q (sharp softmaxes: small errors in K show)."""
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(seed)
     P = S * n_pages + 3
@@ -222,7 +228,7 @@ def paged_inputs(torch, *, S, C, H, Hkv, hd, page, n_pages, dtype, seed,
                     sc[tail.long()] = 1e3
                 if s % 2:
                     pt[s, last + 1:] = 0
-    q = torch.randn((S, C, H, hd), generator=g, device=dev)
+    q = torch.randn((S, C, H, hd), generator=g, device=dev) * q_scale
     active = torch.ones((S,), dtype=torch.bool, device=dev)
     for s in inactive:
         active[s] = False
@@ -357,7 +363,8 @@ def plain_f32(pa, inp):
 def paged_cases(torch):
     """The kernel checks: (name, keywords of `paged_inputs`). Dense pools
     at the serving widths and at the ragged row tiles; int8 pools at the
-    decode, verify and chunk widths, MHA and GQA."""
+    decode, verify and chunk widths, MHA and GQA; both at head dims 64 and
+    256 and pages of 1, 2, 256 and 512 positions."""
     base = dict(H=8, hd=128, page=128, n_pages=34)
     decode_pos = [0, 1, 127, 128, 1000, 2047, 4222, 4351]
     verify_pos = [0, 1, 125, 128, 1000, 2047, 4222, 4347]
@@ -374,15 +381,46 @@ def paged_cases(torch):
         ("verify C=3 GQA Hkv=2", dict(S=8, C=3, Hkv=2, positions=verify_pos,
                                       inactive=(2,))),
     ]
+    # pages and head dims the kernels took whole before (shared memory
+    # of whole pages): key slices now
+    shapes += [
+        ("hd=256 page=256 chunk C=256", dict(
+            S=1, C=256, Hkv=8, hd=256, page=256, n_pages=9,
+            positions=[1500])),
+        ("hd=256 page=256 decode GQA", dict(
+            S=4, C=1, Hkv=2, hd=256, page=256, n_pages=9,
+            positions=[0, 300, 1500, 2047], inactive=(1,))),
+        ("hd=128 page=512 chunk C=256 GQA", dict(
+            S=1, C=256, Hkv=2, page=512, n_pages=5, positions=[1800])),
+        ("hd=128 page=512 decode", dict(
+            S=4, C=1, Hkv=8, page=512, n_pages=5,
+            positions=[0, 511, 512, 2000])),
+        ("hd=256 page=128 verify C=5", dict(
+            S=4, C=5, H=4, Hkv=4, hd=256, n_pages=8,
+            positions=[0, 127, 700, 1000])),
+        ("hd=64 page=1 decode GQA", dict(
+            S=3, C=1, H=4, Hkv=2, hd=64, page=1, n_pages=80,
+            positions=[0, 40, 79])),
+        ("hd=64 page=2 verify C=5 GQA", dict(
+            S=3, C=5, H=4, Hkv=2, hd=64, page=2, n_pages=50,
+            positions=[0, 40, 94])),
+        ("hd=128 page=2 chunk C=40", dict(
+            S=1, C=40, H=4, Hkv=4, page=2, n_pages=60, positions=[50])),
+    ]
     int8_only = [
         ("chunk C=128 MHA", dict(S=1, C=128, Hkv=8, positions=[1024])),
+        # scores of std ~14: the softmax magnifies any error in K, so the
+        # rounding point of the dequantized values shows
+        ("decode C=1 MHA sharp (q x16)", dict(
+            S=4, C=1, Hkv=8, n_pages=12, positions=[5, 300, 900, 1400],
+            q_scale=16.0)),
     ]
     cases = []
     for int8 in (False, True):
         for dtype in (torch.float32, torch.bfloat16):
             for name, kw in shapes + (int8_only if int8 else []):
                 cases.append((f"{'int8 ' if int8 else ''}{name}",
-                              dict(base, dtype=dtype, int8=int8, **kw)))
+                              dict(base, **dict(kw, dtype=dtype, int8=int8))))
     return cases
 
 
@@ -798,10 +836,16 @@ def phase_timing(torch, pa, launches):
                 dense["page_table"], dense["positions"],
                 active=dense["active"]))
             extra = f", dense kernel on bf16 pools {dense_ms:.4f} ms"
+        S, C, H, hd = inp["q"].shape
+        Hkv, page = inp["k_pool"].shape[1], inp["k_pool"].shape[3]
+        plan = pa.plan(True, kind == "int8", S, C, H, Hkv, hd, page,
+                       inp["page_table"].shape[1],
+                       torch.cuda.get_device_properties(0)
+                       .multi_processor_count)
         log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
             f"max_abs_err {err:.3e}; wrapper host time {host:.1f} us/call"
-            f"{extra}")
+            f"{extra}; {plan}")
         rows.append(row)
     return rows
 
@@ -883,6 +927,12 @@ def phase_flash(torch, fa):
     cases += [(1, 4096, 2, 128, dt, True)
               for dt in (torch.float32, torch.bfloat16)]
     cases += [(1, 4096, 2, 256, torch.bfloat16, False)]
+    # head dims 384 and 512: the output columns split over blocks, 32-key
+    # streamed tiles (bf16), 16-row tiles (f32)
+    cases += [(1, 512, 2, D, dt, causal)
+              for dt in (torch.float32, torch.bfloat16)
+              for D in (384, 512) for causal in (False, True)]
+    cases += [(1, 2048, 2, 512, torch.bfloat16, True)]
     for i, (B, T, H, D, dt, causal) in enumerate(cases):
         q, k, v, do = flash_inputs(torch, B, T, H, D, dt, seed=40 + i)
         got = flash_run(fa, q, k, v, do, causal)
@@ -1062,8 +1112,6 @@ def flash_work(B, H, T, D, kind):
 
 def phase_flash_timing(torch, fa, counts):
     """Flash kernels, plain versions and SDPA at the training shape."""
-    import torch.nn.functional as F
-
     B, H, T, D = TRAIN_B, TRAIN["n_heads"], TRAIN_T, \
         TRAIN["d_model"] // TRAIN["n_heads"]
     # first as the training path hands them over: slices of the fused qkv
@@ -1080,12 +1128,25 @@ def phase_flash_timing(torch, fa, counts):
         f"B={B} T={T} H={H} D={D} bf16 causal, qkv slices")
     del q, k, v, do, got, ref
     torch.cuda.empty_cache()
-    q, k, v, do = flash_inputs(torch, B, T, H, D, torch.bfloat16, seed=9)
+    rows = flash_rows(torch, fa, B, H, T, D, counts, err_fused, seed=9)
+    # head dims 384 and 512 (no main path takes them): the same, at a
+    # smaller sequence
+    for D in (384, 512):
+        rows += flash_rows(torch, fa, 2, 4, 2048, D, {}, 0.0, seed=D)
+    return rows
+
+
+def flash_rows(torch, fa, B, H, T, D, counts, err, seed):
+    """The three bf16 kernels at (B, H, T, D) causal, held to the plain
+    versions, then timed beside them, SDPA and the bound: one row each."""
+    import torch.nn.functional as F
+
+    q, k, v, do = flash_inputs(torch, B, T, H, D, torch.bfloat16, seed=seed)
     o, lse, dq, dk, dv = flash_run(fa, q, k, v, do, True)
     dsum = fa._dsum(o, do)
     ref = flash_plain_f32(fa, q, k, v, do, True, (o, lse))
     torch.cuda.synchronize()
-    err = max(err_fused, flash_check(
+    err = max(err, flash_check(
         torch, fa, (o, lse, dq, dk, dv), ref, torch.bfloat16,
         f"B={B} T={T} H={H} D={D} bf16 causal (timed shape)"))
     del ref
@@ -1111,15 +1172,16 @@ def phase_flash_timing(torch, fa, counts):
 
     lib_bwd = time_ms(torch, sdpa_fwd_bwd) - lib_fwd
     rows = []
+    suffix = "" if D == 128 else f"_d{D}"
     for kind, name in (("fwd", "flash_attention_fwd"),
                        ("dq", "flash_attention_bwd_dq"),
                        ("dkv", "flash_attention_bwd_dkv")):
         flops, nbytes = flash_work(B, H, T, D, kind)
         t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
         b_ms = 1e3 * max(t_ops, t_bytes)
-        row = {"name": name, "route": "cuda", "source": FLASH_SOURCE,
+        row = {"name": name + suffix, "route": "cuda", "source": FLASH_SOURCE,
                "replaces": FLASH_REPLACES[name],
-               "launches": int(counts[kind]), "max_abs_err": err,
+               "launches": int(counts.get(kind, 0)), "max_abs_err": err,
                "ms": ms[kind],
                "plain_ms": plain_fwd if kind == "fwd" else plain_bwd,
                "bound_ms": b_ms,
@@ -1130,12 +1192,15 @@ def phase_flash_timing(torch, fa, counts):
             if kind != "fwd" else "library: SDPA causal forward"
         lib_flops = flops if kind == "fwd" else sum(
             flash_work(B, H, T, D, k)[0] for k in ("dq", "dkv"))
-        log(f"  {name}: kernel {ms[kind]:.4f} ms, plain "
-            f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
-            f"bound {b_ms:.4f} ms ({row['bound_by']}), "
-            f"{flops / ms[kind] / 1e9:.1f} TFLOP/s achieved, library "
-            f"{lib_flops / row['library_ms'] / 1e9:.1f} TFLOP/s ({what})")
+        log(f"  {row['name']} (B={B} H={H} T={T} D={D}): kernel "
+            f"{ms[kind]:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
+            f"{row['library_ms']:.4f} ms, bound {b_ms:.4f} ms "
+            f"({row['bound_by']}), {flops / ms[kind] / 1e9:.1f} TFLOP/s "
+            f"achieved, library {lib_flops / row['library_ms'] / 1e9:.1f} "
+            f"TFLOP/s ({what})")
         rows.append(row)
+    del q, k, v, do, o, lse, dq, dk, dv, qt, kt, vt, dot, leaves
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -1225,13 +1290,17 @@ def lstm_case_units(torch, L, T, B, H, dtype, masked, reverse, seed):
 def lstm_cases(torch):
     """(T, B, H, dtype, masked, reverse): every width of the two main
     paths' shapes and smaller ones, a ragged H (196: not a multiple of the
-    8 units of a forward block, of the 16-wide k chunks or of the bf16
-    backward's 128-unit tiles), B = 37 and 300 (not multiples of the
-    backward's 128-row tiles; 300 gives three row tiles, the last ragged),
-    H = 384 (three unit tiles in a cluster of four, one of them idle), T =
-    1, 2, 3, 9, 64, f32 and bf16, masked and not, forward and reverse. f32
-    at H=1024, B=2048 is left out: its backward needs more shared memory
-    than a block has (checked to raise in `phase_lstm_kernels`)."""
+    8 units of a cooperative block, of the 16-wide k chunks or of the
+    cluster kernels' 64- and 128-unit tiles), B = 37 and 300 (not
+    multiples of the 128-row tiles; 300 gives three row tiles, the last
+    ragged), H = 384 (a cluster of eight 64-unit forward tiles, two idle,
+    and of four 128-unit backward tiles, one idle), T = 1, 2, 3, 9, 64,
+    f32 and bf16, masked and not, forward and reverse; the widths the
+    kernels refused before: f32 at H=1024, B=2048 and at H=2048, bf16 at
+    H=2048 (clusters of 16 blocks of 128 units, 64-row forward tiles) and
+    an odd H (385 and 195: padded to a multiple of 8 by the wrappers), on
+    both bf16 forward routes; and the cooperative forward's widest batch
+    (B=128) beside the cluster forward's narrowest (B=129)."""
     cases = []
     for dt in (torch.float32, torch.bfloat16):
         for (T, B, H) in ((1, 8, 128), (2, 8, 256), (9, 37, 196),
@@ -1241,61 +1310,67 @@ def lstm_cases(torch):
                     cases.append((T, B, H, dt, masked, reverse))
         cases += [(64, 8192, 256, dt, masked, False)
                   for masked in (False, True)]
-    cases += [(64, 2048, 1024, torch.bfloat16, masked, False)
+    bf = torch.bfloat16
+    cases += [(64, 2048, 1024, bf, masked, False) for masked in (False, True)]
+    cases += [(2, 2048, 1024, torch.float32, masked, False)
               for masked in (False, True)]
+    cases += [(2, 64, 2048, torch.float32, True, True),
+              (3, 256, 2048, bf, False, False), (3, 256, 2048, bf, True, True),
+              (3, 300, 385, bf, False, True), (3, 300, 385, bf, True, False),
+              (3, 8, 195, bf, True, False),
+              (5, 128, 1024, bf, True, False),
+              (5, 129, 1024, bf, False, True)]
     return cases
 
 
-def lstm_bwd_plan_line(L, torch, B, H, masked=False):
-    """The bf16 backward's launch plan at (B, H), as one line: tile,
-    cluster size, clusters that fit at once and waves."""
-    smem, gu, gb, rows, active, cluster, units = L.plan(
-        "bwd", torch.bfloat16, masked, B, H)
-    waves = -(-gb // active) if active else float("inf")
-    return (f"tile {rows} rows x {units} units, cluster of {cluster} "
-            f"blocks, {gb} row tiles (clusters), {active} clusters fit at "
-            f"once, {waves} wave(s), {smem} bytes of shared memory per "
-            f"block")
+def lstm_plan_line(L, torch, kind, B, H, dtype=None, masked=False):
+    """A kernel's launch plan at (B, H), as one line: route, tile, cluster
+    size, clusters that fit at once and waves."""
+    p = L.plan(kind, dtype or torch.bfloat16, masked, B, H)
+    if p.route == "cooperative":
+        return (f"cooperative: {p.gx} unit slices of {p.units} x {p.gy} "
+                f"batch splits of {p.rows} rows, {p.active} blocks resident "
+                f"at once, {p.smem} bytes of shared memory per block")
+    return (f"{p.route}: tile {p.rows} rows x {p.units} units, cluster of "
+            f"{p.cluster} blocks, {p.gy} row tiles (clusters), {p.active} "
+            f"clusters fit at once, {p.waves} wave(s), {p.smem} bytes of "
+            f"dynamic shared memory per block")
 
 
 def phase_lstm_edges(torch, L):
-    """The bf16 backward's edges beyond `lstm_cases`: H=2048 (a cluster of
-    16, beyond the portable 8; 7 fit on an H100) held to the plain
-    backward on a stash that the plain forward made on the card (the
-    forward kernel refuses H=2048: its cooperative grid cannot be
-    resident), and the shapes the new design refuses: an odd H and H
-    above 2048."""
-    T, B, H = 3, 256, 2048
-    inp = lstm_inputs(torch, T, B, H, torch.bfloat16, 21, False)
-    ref = L.lstm_fwd_plain(inp["xw"], inp["rw"], inp["peep"], inp["h0"],
-                           inp["c0"])
-    args = (ref[5], ref[4], inp["dh"], None, inp["dcT"], inp["rw"],
-            inp["peep"], inp["c0"])
-    log(f"  H={H} plan: {lstm_bwd_plan_line(L, torch, B, H)}")
-    got = L.lstm_bwd(*args)
-    want = L.lstm_bwd_plain(*args)
-    torch.cuda.synchronize()
-    units = {n: L.error_in_tolerances(a, b, torch.bfloat16)
-             for n, a, b in zip(("dz", "dhc0"), got, want)}
-    worst = max(units.values())
-    log(f"  bf16 backward at H={H}, B={B}, T={T}: worst {worst:.3f} of "
-        f"tolerance ({max(units, key=units.get)}) "
-        f"{'ok' if worst <= 1 else 'FAIL'}")
-    if worst > 1:
-        raise AssertionError(f"LSTM backward at H={H}: {units}")
-    for Hbad, why in ((195, "odd H"), (2176, "H above 2048")):
-        inp = lstm_inputs(torch, 1, 8, Hbad, torch.bfloat16, 22, False)
+    """The one width the kernels refuse: H above 2048 (the four gates of a
+    unit sit in one thread's accumulator; 16 blocks of 128 units is the
+    most one cluster holds), both passes, f32 and bf16, raised before any
+    launch and naming why; and the launch plans at the main paths'
+    shapes."""
+    for dt in (torch.float32, torch.bfloat16):
+        Hbad = L.MAX_H + 128
+        inp = lstm_inputs(torch, 1, 8, Hbad, dt, 22, False)
         stash = L.lstm_fwd_plain(inp["xw"], inp["rw"], inp["peep"],
                                  inp["h0"], inp["c0"])
-        try:
-            L.lstm_bwd(stash[5], stash[4], inp["dh"], None, inp["dcT"],
-                       inp["rw"], inp["peep"], inp["c0"])
-        except ValueError as e:
-            log(f"  bf16 backward at H={Hbad} ({why}) refused as expected: "
-                f"{e}")
-        else:
-            raise AssertionError(f"bf16 backward at H={Hbad} should be "
-                                 f"refused ({why})")
+        for kind, call in (
+                ("fwd", lambda: L.lstm_fwd(inp["xw"], inp["rw"], inp["peep"],
+                                           inp["h0"], inp["c0"])),
+                ("bwd", lambda: L.lstm_bwd(stash[5], stash[4], inp["dh"],
+                                           None, inp["dcT"], inp["rw"],
+                                           inp["peep"], inp["c0"]))):
+            L.reset_counts()
+            try:
+                call()
+            except ValueError as e:
+                if L.launches:
+                    raise AssertionError(f"{kind} launched before refusing")
+                log(f"  {kind} {str(dt)[6:]} at H={Hbad} refused as expected: "
+                    f"{e}")
+            else:
+                raise AssertionError(f"{kind} {dt} at H={Hbad} should be "
+                                     f"refused")
+    for kind in ("fwd", "bwd"):
+        for B, H in ((2048, 1024), (8192, 256), (256, 1024), (256, 2048)):
+            log(f"  {kind} bf16 B={B}, H={H}: "
+                f"{lstm_plan_line(L, torch, kind, B, H)}")
+        log(f"  {kind} f32 B=2048, H=1024: "
+            f"{lstm_plan_line(L, torch, kind, 2048, 1024, torch.float32)}")
 
 
 def phase_lstm_kernels(torch, L, M):
@@ -1307,26 +1382,17 @@ def phase_lstm_kernels(torch, L, M):
                                      seed=200 + i)
         worst = max(units.values())
         errs[dt] = max(errs.get(dt, 0.0), err)
+        padded = H + (-H % 8 if dt == torch.bfloat16 else 0)
+        route = L.plan("fwd", dt, masked, B, padded).route
         log(f"  T={T:<2} B={B:<4} H={H:<4} {str(dt)[6:]:<8} "
             f"{'masked' if masked else 'plain '} "
             f"{'rev' if reverse else 'fwd'} max_abs_err={err:.3e} "
             f"worst {worst:.3f} of tolerance "
-            f"({max(units, key=units.get)}) {'ok' if worst <= 1 else 'FAIL'}")
+            f"({max(units, key=units.get)}) [{route}] "
+            f"{'ok' if worst <= 1 else 'FAIL'}")
         if worst > 1:
             raise AssertionError(f"LSTM kernels disagree with plain: {units}")
-    inp = lstm_inputs(torch, 2, 2048, 1024, torch.float32, 9, False)
-    got = L.lstm_fwd(inp["xw"], inp["rw"], inp["peep"], inp["h0"], inp["c0"])
-    try:
-        L.lstm_bwd(got[5], got[4], inp["dh"], None, inp["dcT"], inp["rw"],
-                   inp["peep"], inp["c0"])
-    except ValueError as e:
-        log(f"  f32 backward at H=1024, B=2048 refused as expected: {e}")
-    else:
-        raise AssertionError("f32 backward at H=1024, B=2048 should not fit")
     phase_lstm_edges(torch, L)
-    for B, H in ((2048, 1024), (8192, 256)):
-        log(f"  bf16 backward at B={B}, H={H}: "
-            f"{lstm_bwd_plan_line(L, torch, B, H)}")
     phase_lstm_autograd(torch, L)
     return errs
 
@@ -1512,6 +1578,7 @@ def phase_lstm_train(torch, M, card):
         step_ms.append(1e3 * (time.perf_counter() - t0))
         losses.append(net.score_value)
     launches = dict(L.launches)
+    routes = dict(L.launches_by_route)
     plain = (L.lstm_fwd_plain.calls, L.lstm_bwd_plain.calls)
     peak = torch.cuda.max_memory_allocated()
     trace = traced(torch, lambda: net.fit(batches[-1]))
@@ -1521,16 +1588,18 @@ def phase_lstm_train(torch, M, card):
         f"{B / med * 1e3:.1f} samples/s [{card}]")
     log(f"  losses {losses}; peak device memory {peak / 2**30:.2f} GiB "
         f"({peak} bytes)")
-    log(f"  LSTM launches over the timed steps {launches}, plain calls "
-        f"(fwd, bwd) {plain}")
+    log(f"  LSTM launches over the timed steps {launches}, by route "
+        f"{routes}, plain calls (fwd, bwd) {plain}")
     log(f"  traced step (torch.profiler, not in the step times): {trace}")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite training loss: {losses}")
     want = {("fwd", False, False): 2 * LSTM_STEPS,
             ("bwd", False, False): 2 * LSTM_STEPS}
-    if launches != want or any(plain):
-        raise AssertionError(f"expected {want} and no plain call, got "
-                             f"{launches}, {plain}")
+    want_routes = {("fwd", "bf16 clusters"): 2 * LSTM_STEPS,
+                   ("bwd", "bf16 clusters"): 2 * LSTM_STEPS}
+    if launches != want or routes != want_routes or any(plain):
+        raise AssertionError(f"expected {want} ({want_routes}) and no plain "
+                             f"call, got {launches} ({routes}), {plain}")
     del net
     torch.cuda.empty_cache()
     return launches
@@ -1558,37 +1627,45 @@ def phase_lstm_tbptt(torch, M, card):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(L.launches)
+    routes = dict(L.launches_by_route)
     plain = (L.lstm_fwd_plain.calls, L.lstm_bwd_plain.calls)
     trace = traced(torch, lambda: net.fit(M["DataSet"](x0, y0)))
     n_win = -(-T // W)
     log(f"  one fit of B={B} x T={T} (H={H}, vocab {V}) in {n_win} windows "
         f"of {W}: wall {1e3 * wall:.2f} ms, {B / wall:.1f} samples/s, loss "
         f"{net.score_value}, iteration {net.iteration} [{card}]")
-    log(f"  LSTM launches {launches}, plain calls {plain}")
+    log(f"  LSTM launches {launches}, by route {routes}, plain calls "
+        f"{plain}")
     log(f"  traced fit (torch.profiler, not in the wall time): {trace}")
     want = {("fwd", False, False): 4, ("bwd", False, False): 4,
             ("fwd", True, False): 2, ("bwd", True, False): 2}
-    if launches != want or any(plain) or not np.isfinite(net.score_value):
-        raise AssertionError(f"expected {want}, no plain call and a finite "
-                             f"loss: {launches}, {plain}, {net.score_value}")
+    want_routes = {("fwd", "bf16 clusters"): 6, ("bwd", "bf16 clusters"): 6}
+    if launches != want or routes != want_routes or any(plain) \
+            or not np.isfinite(net.score_value):
+        raise AssertionError(f"expected {want} ({want_routes}), no plain "
+                             f"call and a finite loss: {launches} ({routes}), "
+                             f"{plain}, {net.score_value}")
     del net
     torch.cuda.empty_cache()
     return launches
 
 
-def lstm_work(kind, masked, T, B, H):
-    """FLOPs and bytes of one bf16 launch: 2*T*B*H*4H flops for the
-    recurrent product (the gate chain's elementwise work is not counted);
-    each input read once, each output written once (dhc0 f32)."""
-    e, G = 2, 4 * H
+def lstm_work(kind, masked, T, B, H, e=2, stash=True):
+    """FLOPs and bytes of one launch of `e`-byte elements: 2*T*B*H*4H
+    flops for the recurrent product (the gate chain's elementwise work is
+    not counted); each input read once, each output written once (dhc0
+    f32; the forward's gates and c only with the training stash)."""
+    G = 4 * H
     flops = 2 * T * B * H * G
     rw = H * G * e + 3 * H * e
     if kind == "fwd":
         nbytes = T * B * G * e + rw + 2 * B * H * e           # xw, RW, h0, c0
         nbytes += T * B * H * e + B * H * e                   # h_out, cT
-        nbytes += T * B * G * e + T * B * H * e               # gates, c
+        if stash:
+            nbytes += T * B * G * e + T * B * H * e           # gates, c
         if masked:
-            nbytes += T * B * e + T * B * H * e + B * H * e   # mask, h_sel, hT
+            nbytes += T * B * e + B * H * e                   # mask, hT
+            nbytes += T * B * H * e if stash else 0           # h_sel
     else:
         nbytes = T * B * G * e + 2 * T * B * H * e + rw       # gates, c, dh_out
         nbytes += B * H * e + B * H * e                       # dcT, c0
@@ -1598,14 +1675,15 @@ def lstm_work(kind, masked, T, B, H):
     return flops, nbytes
 
 
-def cudnn_lstm_ms(torch, T, B, H):
+def cudnn_lstm_ms(torch, T, B, H, f32=False):
     """Yardsticks from cuDNN's LSTM (`torch.nn.LSTM`, one layer, input
-    size H, bf16, or fp16 where this torch's cuDNN path refuses bf16),
-    which the port never calls. It has no peepholes and runs its own
-    input GEMM, so it is not the same function: forward = cuDNN's forward
-    minus one (T*B, H) @ (H, 4H) matmul; backward = cuDNN's
-    forward+backward minus its forward. Returns (fwd, bwd, dtype)."""
-    for dt in (torch.bfloat16, torch.float16):
+    size H, bf16, or fp16 where this torch's cuDNN path refuses bf16; f32
+    with TF32 off when `f32`), which the port never calls. It has no
+    peepholes and runs its own input GEMM, so it is not the same function:
+    forward = cuDNN's forward minus one (T*B, H) @ (H, 4H) matmul;
+    backward = cuDNN's forward+backward minus its forward. Returns (fwd,
+    bwd, dtype)."""
+    for dt in ((torch.float32,) if f32 else (torch.bfloat16, torch.float16)):
         lstm = torch.nn.LSTM(H, H).to(device="cuda", dtype=dt)
         lstm.flatten_parameters()
         x = torch.zeros((T, B, H), device="cuda", dtype=dt)
@@ -1633,13 +1711,21 @@ def cudnn_lstm_ms(torch, T, B, H):
 def phase_lstm_timing(torch, L, counts4, counts4b):
     """Rows 5-8 at the main paths' shapes (bf16): path 4 runs the
     unmasked kernels at T=64, B=2048, H=1024; path 4b all four at a
-    window of T=24, B=8192, H=256."""
-    shapes = [(64, 2048, 1024, False, counts4),
-              (LSTM_SMALL["tbptt"], 8192, 256, False, counts4b),
-              (LSTM_SMALL["tbptt"], 8192, 256, True, counts4b)]
+    window of T=24, B=8192, H=256. Then the two bf16 forward routes at
+    their boundary (T=64, H=1024: the cooperative kernel at B=128, the
+    cluster kernel at B=129), and the f32 kernels (the parity path) at
+    T=8, B=2048, H=1024."""
+    shapes = [(64, 2048, 1024, False, counts4, torch.bfloat16),
+              (LSTM_SMALL["tbptt"], 8192, 256, False, counts4b,
+               torch.bfloat16),
+              (LSTM_SMALL["tbptt"], 8192, 256, True, counts4b,
+               torch.bfloat16),
+              (64, 128, 1024, False, {}, torch.bfloat16),
+              (64, 129, 1024, False, {}, torch.bfloat16),
+              (8, 2048, 1024, False, {}, torch.float32)]
     rows, yard = [], {}
-    for T, B, H, masked, counts in shapes:
-        inp = lstm_inputs(torch, T, B, H, torch.bfloat16, 77, masked)
+    for T, B, H, masked, counts, dt in shapes:
+        inp = lstm_inputs(torch, T, B, H, dt, 77, masked)
         got, bwd = lstm_run(L, inp, False)
         ref, rb = lstm_plain_ref(L, inp, False, got)
         torch.cuda.synchronize()
@@ -1663,33 +1749,43 @@ def phase_lstm_timing(torch, L, counts4, counts4b):
                                              None if m is None else inp["dhT"],
                                              inp["dcT"], inp["rw"],
                                              inp["peep"], inp["c0"], m))}
-        if (T, B, H) not in yard:
-            yard[(T, B, H)] = cudnn_lstm_ms(torch, T, B, H)
-        for j, kind in enumerate(("fwd", "bwd")):
+        f32 = dt == torch.float32
+        if (T, B, H, f32) not in yard:
+            yard[(T, B, H, f32)] = cudnn_lstm_ms(torch, T, B, H, f32)
+        kinds = ("fwd", "bwd") if B in (2048, 8192) else ("fwd",)
+        for j, kind in enumerate(kinds):
             ms = time_ms(torch, fns[kind][0])
             plain_ms = time_ms(torch, fns[kind][1], iters=5, warmup=1)
-            flops, nbytes = lstm_work(kind, masked, T, B, H)
-            t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+            e = 4 if f32 else 2
+            flops, nbytes = lstm_work(kind, masked, T, B, H, e)
+            peak = PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS
+            t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+            plan = L.plan(kind, dt, masked, B, H)
             name = (f"lstm_{kind}{'_masked' if masked else ''}"
-                    f"_t{T}_b{B}_h{H}")
+                    f"{'_f32' if f32 else ''}_t{T}_b{B}_h{H}")
             row = {"name": name, "route": "cuda", "source": LSTM_SOURCE,
                    "replaces": LSTM_REPLACES[(kind, masked)],
                    "launches": int(counts.get((kind, masked, False), 0)),
                    "max_abs_err": err[kind], "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": 1e3 * max(t_ops, t_bytes),
                    "bound_by": "operations" if t_ops > t_bytes else "bytes",
-                   "library_ms": yard[(T, B, H)][j]}
+                   "library_ms": yard[(T, B, H, f32)][j]}
             how = "forward minus its input matmul" if kind == "fwd" \
                 else "fwd+bwd minus fwd"
-            plan = "" if kind == "fwd" else \
-                f"; {lstm_bwd_plan_line(L, torch, B, H, masked)}"
             log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"cuDNN LSTM {row['library_ms']:.4f} ms ({yard[(T, B, H)][2]},"
-                f" {how}, no peepholes), bound {row['bound_ms']:.4f} ms "
-                f"({row['bound_by']}), {flops / ms / 1e9:.1f} TFLOP/s, "
-                f"max_abs_err {err[kind]:.3e}, launches {row['launches']}"
-                f"{plan}")
+                f"cuDNN LSTM {row['library_ms']:.4f} ms "
+                f"({yard[(T, B, H, f32)][2]}, {how}, no peepholes), bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
+                f"{flops / ms / 1e9:.1f} TFLOP/s, max_abs_err "
+                f"{err[kind]:.3e}, launches {row['launches']}; "
+                f"{lstm_plan_line(L, torch, kind, B, H, dt, masked)}")
             rows.append(row)
+        if B in (128, 129):  # the routes' boundary without the stash too
+            ms = time_ms(torch, lambda: L.lstm_fwd(
+                inp["xw"], inp["rw"], inp["peep"], inp["h0"], inp["c0"],
+                with_stash=False))
+            log(f"  lstm_fwd t{T} b{B} h{H} without the stash (inference): "
+                f"{ms:.4f} ms [{L.plan('fwd', dt, False, B, H).route}]")
         del inp, got, bwd
         torch.cuda.empty_cache()
     return rows

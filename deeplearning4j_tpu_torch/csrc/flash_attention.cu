@@ -31,15 +31,18 @@
 //    (P from registers), the softmax in the log2 domain with ex2, and mask
 //    only the diagonal tile. Blocks take the query tiles in reverse, so
 //    under the causal mask the longest rows start first;
-//  - bf16 backward (dQ; dK/dV) at D = 128 and 256, and the forward at
-//    D = 256: 4-warp blocks, each warp 16 rows of a 64-row tile with its
-//    scores and accumulators in registers; mma.sync m16n8k16 fed by
-//    ldmatrix from tiles staged by cp.async (double-buffered), and a score
-//    tile's registers re-packed as the A operand of the next product. At
-//    D = 256 the backward kernels split their output columns over two
-//    blocks (grid z), each recomputing the scores;
-//  - f32 (the parity path; scalar FMAs, TF32 stays off): 32-row tiles, f32
-//    accumulators in shared memory.
+//  - bf16 backward (dQ; dK/dV) at every D, and the forward at D >= 256:
+//    4-warp blocks, each warp 16 rows of a 64-row tile with its scores and
+//    accumulators in registers; mma.sync m16n8k16 fed by ldmatrix from
+//    tiles staged by cp.async (double-buffered), and a score tile's
+//    registers re-packed as the A operand of the next product. The
+//    backward at D >= 256 and the forward at D > 256 split their output
+//    columns over blocks of 128 (grid z), each recomputing the scores (the
+//    forward's block z = 0 writes L); at D > 256 the streamed tiles hold
+//    32 keys (or queries) instead of 64, and at D = 512 the backward's are
+//    single-buffered, so that the staged tiles fit a block;
+//  - f32 (the parity path; scalar FMAs, TF32 stays off): 32-row tiles (16
+//    at D > 256), f32 accumulators in shared memory.
 //
 // What bounds it on an H100: at the training shape (T = 4096, D = 128) the
 // work is far above the card's ridge (about 2 * D * T / 2 flops per byte
@@ -60,6 +63,8 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "sm90.cuh"
 
@@ -165,11 +170,14 @@ __device__ __forceinline__ void stage(float* dst, const float* src,
 // accumulator rows by four (16-byte aligned for float4 access). Products
 // give one thread per output element, neighbouring threads on neighbouring
 // columns.
-constexpr int kBlk = 32;
+// Rows of a tile: 32, or 16 at D > 256 so that the four staged tiles and
+// the two accumulators of the backward fit a block's shared memory.
+__host__ __device__ constexpr int f32_blk(int D) { return D > 256 ? 16 : 32; }
 constexpr int kAccPad = 4;
 
 template <int D>
 struct FwdSmem {
+  static constexpr int kBlk = f32_blk(D);
   float *q, *k, *v, *p, *s, *o, *m, *l;
   __host__ __device__ static size_t carve(Carver& c, FwdSmem* t) {
     FwdSmem x;
@@ -192,6 +200,7 @@ struct FwdSmem {
 // the per-query-row L and dsum.
 template <int D>
 struct BwdSmem {
+  static constexpr int kBlk = f32_blk(D);
   float *a, *b, *c, *d, *p, *ds, *s, *dp, *acc0, *acc1, *lse, *dsum;
   __host__ __device__ static size_t carve(Carver& c, BwdSmem* t, bool two) {
     BwdSmem x;
@@ -260,44 +269,55 @@ __device__ __forceinline__ void mm_atb_acc(float* C, int ldc, const float* A,
   }
 }
 
-// Row-wise passes (softmax, P and dS) give each row of the tile to kTpr
-// neighbouring threads of one warp, each owning kCpt consecutive columns
-// kept in registers: loads, math and stores of a thread are independent,
-// so their latencies overlap.
-constexpr int kTpr = kThreads / kBlk;
-constexpr int kCpt = kBlk / kTpr;
+// Row-wise passes (softmax, P and dS) give each row of the tile to
+// tpr(BLK) neighbouring threads of one warp, each owning cpt(BLK)
+// consecutive columns kept in registers: loads, math and stores of a
+// thread are independent, so their latencies overlap.
+__host__ __device__ constexpr int tpr(int blk) { return kThreads / blk; }
+__host__ __device__ constexpr int cpt(int blk) { return blk / tpr(blk); }
 
+template <int TPR>
 __device__ __forceinline__ float group_max(float v) {
 #pragma unroll
-  for (int o = kTpr / 2; o > 0; o >>= 1)
+  for (int o = TPR / 2; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 
+template <int TPR>
 __device__ __forceinline__ float group_sum(float v) {
 #pragma unroll
-  for (int o = kTpr / 2; o > 0; o >>= 1)
+  for (int o = TPR / 2; o > 0; o >>= 1)
     v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
-// kCpt consecutive f32 of shared memory (16-byte aligned) into registers
-__device__ __forceinline__ void load_cols(float (&v)[kCpt], const float* p) {
+// N consecutive f32 of shared memory into registers (16 bytes a load when
+// N % 4 == 0, the start then 16-byte aligned)
+template <int N>
+__device__ __forceinline__ void load_cols(float (&v)[N], const float* p) {
+  if constexpr (N % 4 == 0) {
 #pragma unroll
-  for (int j = 0; j < kCpt; j += 4) {
-    const float4 x = *reinterpret_cast<const float4*>(p + j);
-    v[j] = x.x, v[j + 1] = x.y, v[j + 2] = x.z, v[j + 3] = x.w;
+    for (int j = 0; j < N; j += 4) {
+      const float4 x = *reinterpret_cast<const float4*>(p + j);
+      v[j] = x.x, v[j + 1] = x.y, v[j + 2] = x.z, v[j + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < N; ++j) v[j] = p[j];
   }
 }
 
-__device__ __forceinline__ void store_cols(float* p, const float (&v)[kCpt]) {
+template <int N>
+__device__ __forceinline__ void store_cols(float* p, const float (&v)[N]) {
 #pragma unroll
-  for (int j = 0; j < kCpt; ++j) p[j] = v[j];
+  for (int j = 0; j < N; ++j) p[j] = v[j];
 }
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const Args a) {
+  constexpr int kBlk = f32_blk(D), kTpr = tpr(kBlk), kCpt = cpt(kBlk);
   constexpr int ld = D + 1, ldp = kBlk + 1;
   constexpr int lds = kBlk + kAccPad, ldo = D + kAccPad;
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -354,7 +374,7 @@ __global__ void __launch_bounds__(kThreads)
         mx = fmaxf(mx, s);
       }
       const float m_prev = sm.m[r], l_prev = sm.l[r];
-      const float m_new = fmaxf(m_prev, group_max(mx));
+      const float m_new = fmaxf(m_prev, group_max<kTpr>(mx));
       float sum = 0.f;
 #pragma unroll
       for (int j = 0; j < kCpt; ++j) {
@@ -363,7 +383,7 @@ __global__ void __launch_bounds__(kThreads)
         sum += v[j];
       }
       store_cols(sm.p + r * ldp + c0, v);
-      sum = group_sum(sum);  // every thread of the row has read m, l
+      sum = group_sum<kTpr>(sum);  // every thread of the row has read m, l
       const float corr = expf(m_prev - m_new);
       if (part == 0) {
         sm.l[r] = l_prev * corr + sum;
@@ -407,6 +427,7 @@ __global__ void __launch_bounds__(kThreads)
 template <int D>
 __device__ __forceinline__ void p_and_ds(const BwdSmem<D>& sm, const Args& a,
                                          int q0, int k0) {
+  constexpr int kBlk = f32_blk(D), kTpr = tpr(kBlk), kCpt = cpt(kBlk);
   constexpr int ldp = kBlk + 1, lds = kBlk + kAccPad;
   const int r = threadIdx.x / kTpr, c0 = (threadIdx.x % kTpr) * kCpt;
   float p[kCpt], ds[kCpt];
@@ -427,6 +448,7 @@ __device__ __forceinline__ void p_and_ds(const BwdSmem<D>& sm, const Args& a,
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(const Args a) {
+  constexpr int kBlk = f32_blk(D);
   constexpr int ld = D + 1, ldp = kBlk + 1;
   constexpr int lds = kBlk + kAccPad, ldo = D + kAccPad;
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -484,6 +506,7 @@ __global__ void __launch_bounds__(kThreads)
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv_kernel(const Args a) {
+  constexpr int kBlk = f32_blk(D);
   constexpr int ld = D + 1, ldp = kBlk + 1;
   constexpr int lds = kBlk + kAccPad, ldo = D + kAccPad;
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -692,67 +715,93 @@ __device__ __forceinline__ void store_acc(const float (&acc)[NT][4],
   }
 }
 
-template <int D>
+// Keys (or queries) per streamed tile: 64, or 32 at D > 256, where the
+// staged tiles of 64 would not fit a block's shared memory.
+__host__ __device__ constexpr int mma_kb(int D) { return D > 256 ? 32 : 64; }
+// Stages of the streamed tiles in the backward kernels: two (the next
+// tile's copies run during this one's math), or one at D = 512, where two
+// would not fit.
+__host__ __device__ constexpr int mma_bufs(int D) { return D > 384 ? 1 : 2; }
+// Output columns one block accumulates: all of D up to 256 (forward), 128
+// otherwise (the backward at D = 256, everything at D > 256: two 16 x 256
+// accumulators per warp, or one of 16 x 512, would not fit the registers).
+__host__ __device__ constexpr int mma_cols(int kind_fwd, int D) {
+  return kind_fwd && D <= 256 ? D : 128;
+}
+
+// Q, and two stages of K (KB x D) and of V's DO columns (KB x DO).
+template <int D, int DO>
 struct MmaFwdSmem {
+  static constexpr int KB = mma_kb(D);
   bf16 *q, *k[2], *v[2];
   __host__ __device__ static size_t carve(Carver& c, MmaFwdSmem* t) {
     MmaFwdSmem x;
     x.q = c.take<bf16>(kMmaBlk * (D + 8));
     for (int i = 0; i < 2; ++i) {
-      x.k[i] = c.take<bf16>(kMmaBlk * (D + 8));
-      x.v[i] = c.take<bf16>(kMmaBlk * (D + 8));
+      x.k[i] = c.take<bf16>(KB * (D + 8));
+      x.v[i] = c.take<bf16>(KB * (DO + 8));
     }
     if (t) *t = x;
     return c.off;
   }
 };
 
-// The block's own two tiles (a, b) and two buffers of the streamed pair
+// The block's own two tiles (a, b) and the buffers of the streamed pair
 // (c, d) with the streamed rows' L and dsum (dK/dV only).
 template <int D>
 struct MmaBwdSmem {
+  static constexpr int KB = mma_kb(D), NB = mma_bufs(D);
   bf16 *a, *b, *c[2], *d[2];
   float *lse[2], *dsum[2];
   __host__ __device__ static size_t carve(Carver& c, MmaBwdSmem* t) {
     MmaBwdSmem x;
     x.a = c.take<bf16>(kMmaBlk * (D + 8));
     x.b = c.take<bf16>(kMmaBlk * (D + 8));
-    for (int i = 0; i < 2; ++i) {
-      x.c[i] = c.take<bf16>(kMmaBlk * (D + 8));
-      x.d[i] = c.take<bf16>(kMmaBlk * (D + 8));
-      x.lse[i] = c.take<float>(kMmaBlk);
-      x.dsum[i] = c.take<float>(kMmaBlk);
+    for (int i = 0; i < NB; ++i) {
+      x.c[i] = c.take<bf16>(KB * (D + 8));
+      x.d[i] = c.take<bf16>(KB * (D + 8));
+      x.lse[i] = c.take<float>(KB);
+      x.dsum[i] = c.take<float>(KB);
+    }
+    if (NB == 1) {
+      x.c[1] = x.c[0], x.d[1] = x.d[0];
+      x.lse[1] = x.lse[0], x.dsum[1] = x.dsum[0];
     }
     if (t) *t = x;
     return c.off;
   }
 };
 
+template <int N>
 __device__ __forceinline__ void stage_f32_row(float* dst, const float* src) {
-  for (int i = threadIdx.x; i < kMmaBlk / 4; i += kThreads)
+  for (int i = threadIdx.x; i < N / 4; i += kThreads)
     cp_async16(dst + 4 * i, src + 4 * i);
 }
 
-template <int D>
+// Columns DO * blockIdx.z .. + DO of O; at D > 256 each z-block recomputes
+// the scores, and block z = 0 writes L.
+template <int D, int DO>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_mma_kernel(const Args a) {
-  constexpr int BLK = kMmaBlk, LD = D + 8, NO = D / 8;
+  constexpr int BLK = kMmaBlk, KB = mma_kb(D), LD = D + 8, LDV = DO + 8;
+  constexpr int NO = DO / 8, NS = KB / 8;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Carver cv{smem_raw};
-  MmaFwdSmem<D> sm;
-  MmaFwdSmem<D>::carve(cv, &sm);
-  const int qi = blockIdx.x, bh = blockIdx.y;
+  MmaFwdSmem<D, DO> sm;
+  MmaFwdSmem<D, DO>::carve(cv, &sm);
+  const int qi = blockIdx.x, bh = blockIdx.y, c0 = DO * blockIdx.z;
   const int b = bh / a.H, h = bh % a.H, q0 = qi * BLK;
   const int warp = threadIdx.x / 32, l = threadIdx.x % 32;
   const int g = l / 4, t = l % 4, r0 = 16 * warp;
-  const int nk = a.causal ? qi + 1 : a.Tk / BLK;
+  // key tiles strictly above the diagonal contribute nothing
+  const int nk = a.causal ? (q0 + BLK) / KB : a.Tk / KB;
   auto stage_kv = [&](int kj) {
     if (kj < nk) {
-      const int k0 = kj * BLK;
-      stage<BLK, D, LD>(sm.k[kj & 1], row_ptr<bf16>(a.k, a.sk, b, h, k0),
-                        a.sk.t);
-      stage<BLK, D, LD>(sm.v[kj & 1], row_ptr<bf16>(a.v, a.sv, b, h, k0),
-                        a.sv.t);
+      const int k0 = kj * KB;
+      stage<KB, D, LD>(sm.k[kj & 1], row_ptr<bf16>(a.k, a.sk, b, h, k0),
+                       a.sk.t);
+      stage<KB, DO, LDV>(sm.v[kj & 1],
+                         row_ptr<bf16>(a.v, a.sv, b, h, k0) + c0, a.sv.t);
     }
     cp_async_commit();
   };
@@ -766,13 +815,13 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     const bf16* K = sm.k[kj & 1];
     const bf16* V = sm.v[kj & 1];
-    const int k0 = kj * BLK;
-    float s[8][4];
+    const int k0 = kj * KB;
+    float s[NS][4];
     zero_acc(s);
-    warp_abt<8, D, LD>(s, sm.q, r0, K);
+    warp_abt<NS, D, LD>(s, sm.q, r0, K);
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < NS; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float x = s[j][e] * a.scale;
@@ -790,7 +839,7 @@ __global__ void __launch_bounds__(kThreads)
       lsum[i] *= corr[i];
     }
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < NS; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         // masked entries stay exactly 0, also on rows masked so far
@@ -803,7 +852,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < NO; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[j][e] *= corr[e >> 1];
-    warp_pb<NO, 4, LD>(o, s, V);
+    warp_pb<NO, KB / 16, LDV>(o, s, V);
     __syncthreads();  // this buffer is restaged two tiles on
   }
   cp_async_wait<0>();
@@ -817,8 +866,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int j = 0; j < NO; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[j][e] *= inv[e >> 1];  // l == 0 gives 0
-  store_acc(o, 1.f, a.out0, a.so0, b, h, q0 + r0, 0);
-  if (a.lse != nullptr && t == 0) {
+  store_acc(o, 1.f, a.out0, a.so0, b, h, q0 + r0, c0);
+  if (a.lse != nullptr && blockIdx.z == 0 && t == 0) {
 #pragma unroll
     for (int i = 0; i < 2; ++i)
       a.lse[(long long)bh * a.Tq + q0 + r0 + g + 8 * i] =
@@ -1058,7 +1107,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 template <int D, int DO>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_mma_kernel(const Args a) {
-  constexpr int BLK = kMmaBlk, LD = D + 8, NO = DO / 8;
+  constexpr int BLK = kMmaBlk, KB = mma_kb(D), NB = mma_bufs(D);
+  constexpr int LD = D + 8, NO = DO / 8, NS = KB / 8;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Carver cv{smem_raw};
   MmaBwdSmem<D> sm;  // a = Q, b = dO, c = K, d = V
@@ -1067,14 +1117,14 @@ __global__ void __launch_bounds__(kThreads)
   const int b = bh / a.H, h = bh % a.H, q0 = qi * BLK;
   const int warp = threadIdx.x / 32, l = threadIdx.x % 32;
   const int g = l / 4, t = l % 4, r0 = 16 * warp;
-  const int nk = a.causal ? qi + 1 : a.Tk / BLK;
+  const int nk = a.causal ? (q0 + BLK) / KB : a.Tk / KB;
   auto stage_kv = [&](int kj) {
     if (kj < nk) {
-      const int k0 = kj * BLK;
-      stage<BLK, D, LD>(sm.c[kj & 1], row_ptr<bf16>(a.k, a.sk, b, h, k0),
-                        a.sk.t);
-      stage<BLK, D, LD>(sm.d[kj & 1], row_ptr<bf16>(a.v, a.sv, b, h, k0),
-                        a.sv.t);
+      const int k0 = kj * KB;
+      stage<KB, D, LD>(sm.c[kj & 1], row_ptr<bf16>(a.k, a.sk, b, h, k0),
+                       a.sk.t);
+      stage<KB, D, LD>(sm.d[kj & 1], row_ptr<bf16>(a.v, a.sv, b, h, k0),
+                       a.sv.t);
     }
     cp_async_commit();
   };
@@ -1090,19 +1140,23 @@ __global__ void __launch_bounds__(kThreads)
   float dq[NO][4];
   zero_acc(dq);
   for (int kj = 0; kj < nk; ++kj) {
-    stage_kv(kj + 1);
-    cp_async_wait<1>();
+    if constexpr (NB == 2) {
+      stage_kv(kj + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
     __syncthreads();
     const bf16* K = sm.c[kj & 1];
     const bf16* V = sm.d[kj & 1];
-    const int k0 = kj * BLK;
-    float s[8][4], dp[8][4];
+    const int k0 = kj * KB;
+    float s[NS][4], dp[NS][4];
     zero_acc(s);
     zero_acc(dp);
-    warp_abt<8, D, LD>(s, sm.a, r0, K);   // Q K^T
-    warp_abt<8, D, LD>(dp, sm.b, r0, V);  // dO V^T
+    warp_abt<NS, D, LD>(s, sm.a, r0, K);   // Q K^T
+    warp_abt<NS, D, LD>(dp, sm.b, r0, V);  // dO V^T
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < NS; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int i = e >> 1;
@@ -1112,8 +1166,9 @@ __global__ void __launch_bounds__(kThreads)
         const float p = x <= kNegInf * 0.5f ? 0.f : expf(x - lse[i]);
         s[j][e] = p * (dp[j][e] - dsum[i]);  // dS
       }
-    warp_pb<NO, 4, LD>(dq, s, K + c0);  // dS K, this block's columns
+    warp_pb<NO, KB / 16, LD>(dq, s, K + c0);  // dS K, this block's columns
     __syncthreads();
+    if constexpr (NB == 1) stage_kv(kj + 1);
   }
   cp_async_wait<0>();
   store_acc(dq, a.scale, a.out0, a.so0, b, h, q0 + r0, c0);
@@ -1122,7 +1177,8 @@ __global__ void __launch_bounds__(kThreads)
 template <int D, int DO>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_mma_kernel(const Args a) {
-  constexpr int BLK = kMmaBlk, LD = D + 8, NO = DO / 8;
+  constexpr int BLK = kMmaBlk, KB = mma_kb(D), NB = mma_bufs(D);
+  constexpr int LD = D + 8, NO = DO / 8, NS = KB / 8;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Carver cv{smem_raw};
   MmaBwdSmem<D> sm;  // a = K, b = V, c = Q, d = dO
@@ -1131,17 +1187,18 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int b = bh / a.H, h = bh % a.H, k0 = kj * BLK;
   const int warp = threadIdx.x / 32, l = threadIdx.x % 32;
   const int g = l / 4, t = l % 4, r0 = 16 * warp;
-  const int q_first = a.causal ? kj : 0;  // earlier query tiles see none
-  const int nq = a.Tq / BLK;
+  const int q_first = a.causal ? k0 / KB : 0;  // earlier query tiles see none
+  const int nq = a.Tq / KB;
   auto stage_q = [&](int qi) {
     if (qi < nq) {
       const int buf = (qi - q_first) & 1;
-      stage<BLK, D, LD>(sm.c[buf], row_ptr<bf16>(a.q, a.sq, b, h, qi * BLK),
-                        a.sq.t);
-      stage<BLK, D, LD>(sm.d[buf], row_ptr<bf16>(a.dO, a.sdo, b, h, qi * BLK),
-                        a.sdo.t);
-      stage_f32_row(sm.lse[buf], a.lse + (long long)bh * a.Tq + qi * BLK);
-      stage_f32_row(sm.dsum[buf], a.dsum + (long long)bh * a.Tq + qi * BLK);
+      stage<KB, D, LD>(sm.c[buf], row_ptr<bf16>(a.q, a.sq, b, h, qi * KB),
+                       a.sq.t);
+      stage<KB, D, LD>(sm.d[buf], row_ptr<bf16>(a.dO, a.sdo, b, h, qi * KB),
+                       a.sdo.t);
+      stage_f32_row<KB>(sm.lse[buf], a.lse + (long long)bh * a.Tq + qi * KB);
+      stage_f32_row<KB>(sm.dsum[buf],
+                        a.dsum + (long long)bh * a.Tq + qi * KB);
     }
     cp_async_commit();
   };
@@ -1152,23 +1209,27 @@ __global__ void __launch_bounds__(kThreads, 1)
   zero_acc(dk);
   zero_acc(dv);
   for (int qi = q_first; qi < nq; ++qi) {
-    stage_q(qi + 1);
-    cp_async_wait<1>();
+    if constexpr (NB == 2) {
+      stage_q(qi + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
     __syncthreads();
     const int buf = (qi - q_first) & 1;
     const bf16* Q = sm.c[buf];
     const bf16* dO = sm.d[buf];
     const float* Ls = sm.lse[buf];
     const float* Ds = sm.dsum[buf];
-    const int q0 = qi * BLK;
+    const int q0 = qi * KB;
     // rows of these tiles are keys k0 + r0 + (g, g + 8), columns queries
-    float s[8][4], dp[8][4];
+    float s[NS][4], dp[NS][4];
     zero_acc(dp);
-    warp_abt<8, D, LD>(dp, sm.b, r0, dO);  // V dO^T = dP^T
+    warp_abt<NS, D, LD>(dp, sm.b, r0, dO);  // V dO^T = dP^T
     zero_acc(s);
-    warp_abt<8, D, LD>(s, sm.a, r0, Q);    // K Q^T = S^T
+    warp_abt<NS, D, LD>(s, sm.a, r0, Q);    // K Q^T = S^T
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < NS; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = 8 * j + 2 * t + (e & 1);
@@ -1176,14 +1237,15 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (a.causal && k0 + r0 + g + 8 * (e >> 1) > q0 + col) x = kNegInf;
         s[j][e] = x <= kNegInf * 0.5f ? 0.f : expf(x - Ls[col]);  // P^T
       }
-    warp_pb<NO, 4, LD>(dv, s, dO + c0);  // P^T dO, this block's columns
+    warp_pb<NO, KB / 16, LD>(dv, s, dO + c0);  // P^T dO, this block's columns
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < NS; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         s[j][e] *= dp[j][e] - Ds[8 * j + 2 * t + (e & 1)];  // dS^T
-    warp_pb<NO, 4, LD>(dk, s, Q + c0);  // dS^T Q
+    warp_pb<NO, KB / 16, LD>(dk, s, Q + c0);  // dS^T Q
     __syncthreads();
+    if constexpr (NB == 1) stage_q(qi + 1);
   }
   cp_async_wait<0>();
   store_acc(dk, a.scale, a.out0, a.so0, b, h, k0 + r0, c0);
@@ -1192,11 +1254,6 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ------------------------------------------------------------- launches
 enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
-
-// Output columns one bf16 backward block accumulates: all of D = 128, half
-// of D = 256 (two accumulators of 16 x 256 per warp would not fit the
-// 255 registers a thread may hold).
-constexpr int kMmaOutCols = 128;
 
 template <int D>
 size_t smem_f32(int kind) {
@@ -1209,7 +1266,7 @@ template <int D>
 size_t smem_bf16(int kind) {
   Carver c{nullptr};
   if (D == 128 && kind == kFwd) return kWgSmemBytes;
-  return kind == kFwd ? MmaFwdSmem<D>::carve(c, nullptr)
+  return kind == kFwd ? MmaFwdSmem<D, mma_cols(1, D)>::carve(c, nullptr)
                       : MmaBwdSmem<D>::carve(c, nullptr);
 }
 
@@ -1258,37 +1315,44 @@ int launch_f32(int kind, const Args& a, cudaStream_t st) {
   void (*kern)(const Args) = kind == kFwd  ? flash_fwd_kernel<D>
                              : kind == kDq ? flash_bwd_dq_kernel<D>
                                            : flash_bwd_dkv_kernel<D>;
-  const dim3 grid((kind == kDkv ? a.Tk : a.Tq) / kBlk, a.B * a.H);
+  const dim3 grid((kind == kDkv ? a.Tk : a.Tq) / f32_blk(D), a.B * a.H);
   return run(kern, smem_f32<D>(kind), grid, a, st);
 }
 
 template <int D>
 int launch_bf16(int kind, const Args& a, cudaStream_t st) {
-  constexpr int DO = kMmaOutCols;
+  constexpr int DF = mma_cols(1, D), DB = mma_cols(0, D);
   void (*kern)(const Args);
   if constexpr (D == 128) {
     if (kind == kFwd) return launch_fwd_wgmma(a, st);
-    kern = kind == kDq ? flash_bwd_dq_mma_kernel<D, DO>
-                       : flash_bwd_dkv_mma_kernel<D, DO>;
-  } else {
-    kern = kind == kFwd  ? flash_fwd_mma_kernel<D>
-           : kind == kDq ? flash_bwd_dq_mma_kernel<D, DO>
-                         : flash_bwd_dkv_mma_kernel<D, DO>;
   }
+  kern = kind == kFwd  ? flash_fwd_mma_kernel<D, DF>
+         : kind == kDq ? flash_bwd_dq_mma_kernel<D, DB>
+                       : flash_bwd_dkv_mma_kernel<D, DB>;
   const dim3 grid((kind == kDkv ? a.Tk : a.Tq) / kMmaBlk, a.B * a.H,
-                  kind == kFwd ? 1 : D / DO);
+                  D / (kind == kFwd ? DF : DB));
   return run(kern, smem_bf16<D>(kind), grid, a, st);
 }
 
-int dispatch(int kind, int dtype, int D, const Args& a, cudaStream_t st) {
-  if (dtype == 1) {
-    if (D == 128) return launch_bf16<128>(kind, a, st);
-    if (D == 256) return launch_bf16<256>(kind, a, st);
-  } else {
-    if (D == 128) return launch_f32<128>(kind, a, st);
-    if (D == 256) return launch_f32<256>(kind, a, st);
+// The head dims the kernels are built for: the multiples of 128 up to 512.
+template <typename F>
+int with_head_dim(int D, F f) {
+  switch (D) {
+    case 128: return f(std::integral_constant<int, 128>{});
+    case 256: return f(std::integral_constant<int, 256>{});
+    case 384: return f(std::integral_constant<int, 384>{});
+    case 512: return f(std::integral_constant<int, 512>{});
   }
-  return (int)cudaErrorInvalidValue;
+  return -1;
+}
+
+int dispatch(int kind, int dtype, int D, const Args& a, cudaStream_t st) {
+  const int rc = with_head_dim(D, [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    return dtype == 1 ? launch_bf16<kD>(kind, a, st)
+                      : launch_f32<kD>(kind, a, st);
+  });
+  return rc < 0 ? (int)cudaErrorInvalidValue : rc;
 }
 
 Strides strides_at(const long long* s, int i) {
@@ -1299,8 +1363,8 @@ Strides strides_at(const long long* s, int i) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16; D in {128, 256}. `strides` holds the
-// (b, t, h) element strides of each tensor argument in order. Each entry
+// dtype: 0 = float32, 1 = bfloat16; D in {128, 256, 384, 512}. `strides`
+// holds the (b, t, h) element strides of each tensor argument in order. Each entry
 // returns the cudaError_t of its launch.
 
 // O (and L when lse is not null) from q, k, v. strides: q, k, v, o.
@@ -1351,21 +1415,18 @@ int dl4j_flash_bwd_dkv(const void* q, const void* k, const void* v,
 // Rows per tile, the largest over the family's kernels (the sequence
 // lengths must be multiples of it).
 int dl4j_flash_block_rows(int dtype, int D) {
-  if (dtype != 1) return kBlk;
+  if (dtype != 1) return f32_blk(D);
   return D == 128 ? kWgRows : kMmaBlk;
 }
 
 // Dynamic shared memory of one block of kernel `kind` (0 forward, 1 dQ,
 // 2 dK/dV), in bytes; 0 for an unsupported D.
 size_t dl4j_flash_smem_bytes(int kind, int dtype, int D) {
-  if (dtype == 1) {
-    if (D == 128) return smem_bf16<128>(kind);
-    if (D == 256) return smem_bf16<256>(kind);
-  } else {
-    if (D == 128) return smem_f32<128>(kind);
-    if (D == 256) return smem_f32<256>(kind);
-  }
-  return 0;
+  const int rc = with_head_dim(D, [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    return (int)(dtype == 1 ? smem_bf16<kD>(kind) : smem_f32<kD>(kind));
+  });
+  return rc < 0 ? 0 : (size_t)rc;
 }
 
 }  // extern "C"

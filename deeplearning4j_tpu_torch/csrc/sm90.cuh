@@ -163,6 +163,50 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// stores of a swizzled shared-memory box through a tensor map (the async
+// proxy; clipped at the map's bounds); one bulk group per commit
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's bulk groups are pending
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// the same, for their reads of shared memory only
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// order this thread's generic-proxy writes of shared memory before later
+// async-proxy reads of it (a TMA store)
+__device__ __forceinline__ void fence_proxy_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void prefetch_l2(const void* p) {
   asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
 }
@@ -223,6 +267,33 @@ __device__ __forceinline__ void wgmma_m64n128_ss(float (&d)[64], uint64_t da,
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SM90_R64
       ", %64, %65, p, 1, 1, 0, 0;\n}\n"
       : SM90_D64
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+#define SM90_D128 SM90_D64, SM90_D16(64), SM90_D16(80), SM90_D16(96), \
+                  SM90_D16(112)
+#define SM90_R128 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "  \
+  "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "  \
+  "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "  \
+  "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "  \
+  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, "  \
+  "%124, %125, %126, %127}"
+
+// d (64 x 256, f32) (+)= A (64 x 16) . B^T, A and B K-major in shared
+// memory (B stored as 256 rows of k); d is zeroed first when !accumulate.
+// Accumulator layout as wgmma_m64n128_ss's, over 32 column blocks of 8.
+__device__ __forceinline__ void wgmma_m64n256_ss(float (&d)[128], uint64_t da,
+                                                 uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " SM90_R128
+      ", %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : SM90_D128
       : "l"(da), "l"(db), "r"(accumulate));
 }
 

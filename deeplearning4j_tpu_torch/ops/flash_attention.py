@@ -52,7 +52,7 @@ TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
 L_TOLERANCE = 1e-4
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (128, 256)
+_HEAD_DIMS = (128, 256, 384, 512)
 _FWD, _DQ, _DKV = 0, 1, 2
 
 
@@ -207,7 +207,7 @@ def _check_cuda(q, k, v, causal):
                          f"not match q {tuple(q.shape)} (widen GQA K/V first)")
     if D not in _HEAD_DIMS:
         raise ValueError(f"flash_attention kernels take head_dim D in "
-                         f"{_HEAD_DIMS}, got {D} (ROADMAP: D > 256)")
+                         f"{_HEAD_DIMS}, got {D}")
     lib = _library()
     code = _DTYPE_CODE[q.dtype]
     blk = lib.dl4j_flash_block_rows(code, D)
@@ -348,9 +348,9 @@ def flash_attention(q, k, v, *, causal: bool = False,
                     sm_scale: Optional[float] = None) -> torch.Tensor:
     """Exact attention, (B, T, H, D) layout, no key mask, differentiable.
     `sm_scale` defaults to 1/sqrt(D) as a Python float. Causal needs
-    Tq == Tk. On the card the kernels also need D in (128, 256), f32 or
-    bf16, and T a multiple of 128 and of their tile; they raise
-    otherwise."""
+    Tq == Tk. On the card the kernels also need D in (128, 256, 384,
+    512), f32 or bf16, and T a multiple of 128 and of their tile; they
+    raise otherwise."""
     if causal and q.shape[1] != k.shape[1]:
         raise ValueError("causal flash path requires Tq == Tk")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):

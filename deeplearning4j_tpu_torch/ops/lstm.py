@@ -6,12 +6,13 @@ Counterpart of `deeplearning4j_tpu/ops/pallas_lstm.py`: the TPU kernels
 `_lstm_fwd_kernel`, `_lstm_bwd_kernel`, `_lstm_fwd_kernel_masked` and
 `_lstm_bwd_kernel_masked` become `csrc/lstm.cu` (route: CUDA C++ for
 sm_90a, plain C interface, loaded with ctypes): one persistent launch per
-layer, direction and pass, the time loop inside it. The forward (and the
-f32 backward) is one cooperative launch with a grid barrier per step; the
-bf16 backward a launch of thread block clusters, one per tile of 128
-batch rows, that meet only at cluster barriers and run the step's dh
-product on wgmma fed by TMA. The source's header says how each is laid
-out and what bounds it.
+layer, direction and pass, the time loop inside it. A tile of batch rows
+is a thread block cluster whose blocks meet at a cluster barrier once
+per step: the bf16 passes run the step's product on wgmma fed by TMA,
+the f32 passes (the parity path) on FMAs. The bf16 forward at B <= 128
+and H <= 1024 is one cooperative launch with a grid barrier per step
+instead (`plan` reports which a call gets). The source's header says how
+each is laid out and what bounds it.
 
 `lstm_fused(x, W, RW, b, peephole, h0, c0, mask=, reverse=)` is the entry
 point (the JAX package's `lstm_fused_or_none` without the `None`): the
@@ -21,11 +22,10 @@ wrappers `lstm_fwd`/`lstm_bwd` run the plain versions; given CUDA tensors
 they launch the kernels or raise. There is no probe, no fallback and no
 kill switch: the JAX package's `DL4J_TPU_NO_PALLAS_LSTM` and
 `DL4J_TPU_LSTM_UNROLL` switches and its TPU-only shape preconditions are
-not carried over. The kernels take B >= 1, T >= 1, f32 or bf16; what the
-card refuses raises before the launch (`plan`): a cooperative grid that
-cannot be resident, shared memory over the card's limit, and for the bf16
-backward an odd H (its TMA boxes need rows of dz and RW that are
-multiples of 16 bytes) or H above 2048 (a cluster above 16 blocks).
+not carried over. The kernels take B >= 1, T >= 1, f32 or bf16 and H up
+to 2048; above that they raise before the launch (`MAX_H`). The bf16
+kernels take H a multiple of 8: the wrappers pad any other H with zero
+units (`_padded_units`) and cut them off the results.
 
 Rounding points are the Pallas kernels': carries and the gate chain in
 the statistic type (f32; f64 for f64 input on the CPU), product operands
@@ -35,15 +35,17 @@ in the statistic type. The plain versions round at the same points, so
 kernel and plain version differ only in the order of their f32 sums.
 
 Counts: `launches[("fwd" | "bwd", masked, reverse)]` (kernel launches),
-`lstm_fwd_plain.calls` and `lstm_bwd_plain.calls`.
+`launches_by_route[("fwd" | "bwd", route)]` (the same, by `plan`'s
+route), `lstm_fwd_plain.calls` and `lstm_bwd_plain.calls`.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.ops.kernel_dispatch import mxu_dtype, stat_dtype
 
@@ -60,7 +62,13 @@ TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
+# The widest H the kernels take: the four gates of a unit sit in one
+# thread's accumulator, and 16 blocks of 128 units is the most one
+# cluster holds.
+MAX_H = 2048
+
 launches: Dict[Tuple[str, bool, bool], int] = {}
+launches_by_route: Dict[Tuple[str, str], int] = {}
 
 
 def error_in_tolerances(got: torch.Tensor, ref: torch.Tensor,
@@ -193,7 +201,10 @@ def _library() -> ctypes.CDLL:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         # dtype, T, B, H, reverse, stream
         dims = [ci] * 5 + [vp]
-        lib.dl4j_lstm_fwd.argtypes = [vp] * 12 + dims
+        # xw, rw, rwp, Hk, peep, c0, mask, hbuf, Bp, ldh, h_out, hT, cT,
+        # hsel, c_stash, gates
+        lib.dl4j_lstm_fwd.argtypes = [vp, vp, vp, ci, vp, vp, vp, vp, ci, ci] \
+            + [vp] * 6 + dims
         lib.dl4j_lstm_bwd.argtypes = [vp] * 11 + dims
         lib.dl4j_lstm_fwd.restype = ci
         lib.dl4j_lstm_bwd.restype = ci
@@ -202,20 +213,43 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def plan(kind: str, dtype: torch.dtype, masked: bool, B: int, H: int):
-    """The kernel's launch plan on the current card: (shared memory bytes
-    per block, unit slices or tiles, batch splits or row tiles, rows per
-    split or tile, blocks that can be resident at once (cooperative
-    kernels) or clusters that fit at once (bf16 backward; 0 when refused),
-    blocks per cluster (1 for the cooperative kernels), units per
-    block)."""
+ROUTES = ("cooperative", "bf16 clusters", "f32 clusters", "bf16 clusters")
+
+
+class LaunchPlan(NamedTuple):
+    """A kernel's launch on the current card: `route` (one of ROUTES),
+    `smem` bytes of dynamic shared memory per block, `gx` x `gy` blocks
+    (unit slices x batch splits for the cooperative kernel; blocks per
+    cluster x row tiles for the others), `rows` per split or tile,
+    `active` blocks that can be resident at once (cooperative) or
+    clusters that fit at once (0: refused), `cluster` blocks per cluster
+    (1 cooperative), `units` per block."""
+    route: str
+    smem: int
+    gx: int
+    gy: int
+    rows: int
+    active: int
+    cluster: int
+    units: int
+
+    @property
+    def waves(self) -> float:
+        """Waves of clusters at once (inf when none fits)."""
+        return -(-self.gy // self.active) if self.active else math.inf
+
+
+def plan(kind: str, dtype: torch.dtype, masked: bool, B: int,
+         H: int) -> LaunchPlan:
+    """The kernel's launch plan on the current card for (B, H)."""
     lib = _library()
-    out = (ctypes.c_int * 6)()
+    out = (ctypes.c_int * 7)()
     smem = lib.dl4j_lstm_plan(0 if kind == "fwd" else 1, _DTYPE_CODE[dtype],
                               int(masked), B, H, out)
     if smem == 0:
         raise RuntimeError(f"lstm {kind}: planning the launch failed")
-    return (int(smem),) + tuple(out)
+    route, *rest = tuple(out)
+    return LaunchPlan(ROUTES[route], int(smem), *rest)
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -224,9 +258,9 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def _check_cuda(kind, ts, dtype, B, H, masked):
     """Preconditions of the kernels: one CUDA device, f32 or bf16, one
-    type, contiguous; the block's shared memory within the card's limit;
-    for the bf16 backward an even H and a cluster that fits the card.
-    Returns (the library, the plan)."""
+    type, contiguous; H at most MAX_H; the block's shared memory within
+    the card's limit; for the cluster kernels a cluster that fits the
+    card. Returns (the library, the plan)."""
     dev = ts[0].device
     for t in ts:
         if t.device != dev:
@@ -240,29 +274,24 @@ def _check_cuda(kind, ts, dtype, B, H, masked):
     if dtype not in _DTYPE_CODE:
         raise TypeError(f"lstm {kind}: the kernels take f32 or bf16, got "
                         f"{dtype}")
+    if H > MAX_H:
+        raise ValueError(
+            f"lstm {kind} kernels refuse H={H} > {MAX_H}: the four gates of "
+            f"a unit sit in one thread's accumulator, and 16 blocks of 128 "
+            f"units is the most one cluster holds")
     from deeplearning4j_tpu_torch.ops.kernel_dispatch import smem_limit_bytes
 
     limit = smem_limit_bytes(dev)
     with torch.cuda.device(dev):
         p = plan(kind, dtype, masked, B, H)
-    smem, gu, gb, rows, cap, cluster, units = p
-    if smem > limit:
+    if p.smem > limit:
         raise ValueError(
-            f"lstm {kind} kernel needs {smem} bytes of shared memory per "
-            f"block at H={H}, B={B}, {dtype} (blocks of {units} units and "
-            f"{rows} rows); the card allows {limit}")
-    if kind == "bwd" and dtype == torch.bfloat16:
-        if H % 2:
-            raise ValueError(
-                f"lstm bwd kernel (bf16) refuses odd H={H}: its TMA boxes "
-                f"read rows of dz and RW of 4H bf16, which must be a "
-                f"multiple of 16 bytes")
-        if cap < 1:
-            raise ValueError(
-                f"lstm bwd kernel (bf16) refuses H={H}: a row tile's "
-                f"cluster of {cluster} blocks of {units} units (at "
-                f"{smem} bytes of shared memory each) does not fit the "
-                f"card (at most 16 blocks per cluster)")
+            f"lstm {kind} kernel needs {p.smem} bytes of shared memory per "
+            f"block at H={H}, B={B}, {dtype} ({p}); the card allows {limit}")
+    if p.route != "cooperative" and p.active < 1:
+        raise ValueError(
+            f"lstm {kind} kernel refuses H={H}, B={B}, {dtype}: no cluster "
+            f"of {p.cluster} blocks of {p.units} units fits the card ({p})")
     return _library(), p
 
 
@@ -270,17 +299,66 @@ def _raise_on(rc, kind, shape, p):
     if rc == 720:  # cudaErrorCooperativeLaunchTooLarge
         raise RuntimeError(
             f"lstm {kind} kernel launch refused: CUDA error 720 (cooperative "
-            f"launch too large): a grid of {p[1]} x {p[2]} blocks at "
-            f"{p[0]} bytes of shared memory each, {p[4]} can be resident "
-            f"(shape {shape})")
+            f"launch too large): a grid of {p.gx} x {p.gy} blocks at "
+            f"{p.smem} bytes of shared memory each, {p.active} can be "
+            f"resident (shape {shape})")
     if rc != 0:
         raise RuntimeError(f"lstm {kind} kernel launch failed: CUDA error "
-                           f"{rc} (shape {shape})")
+                           f"{rc} (shape {shape}, {p})")
 
 
-def _count(kind, masked, reverse):
+def _count(kind, masked, reverse, route):
     key = (kind, bool(masked), bool(reverse))
     launches[key] = launches.get(key, 0) + 1
+    launches_by_route[(kind, route)] = \
+        launches_by_route.get((kind, route), 0) + 1
+
+
+def _ceil(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _gates_padded(x: torch.Tensor, n: int) -> torch.Tensor:
+    """(..., 4H) -> (..., 4(H+n)): n zero units after each gate's H."""
+    *lead, G = x.shape
+    H = G // 4
+    return F.pad(x.reshape(*lead, 4, H), (0, n)).reshape(*lead, 4 * (H + n))
+
+
+def _gates_cut(x: torch.Tensor, H: int) -> torch.Tensor:
+    """The first H units of each gate of (..., 4H'), contiguous."""
+    *lead, G = x.shape
+    return x.reshape(*lead, 4, G // 4)[..., :H].reshape(*lead, 4 * H)
+
+
+def _padded_units(x: torch.Tensor, what: str, n: int) -> torch.Tensor:
+    """`x` with n zero units appended: `what` "gates" (..., 4H), "units"
+    (..., H), or "rw" (H, 4H). A unit with zero weights, bias, peepholes,
+    carries and cotangents stays at 0 in both passes and adds 0 to every
+    other unit, so the bf16 kernels (whose TMA rows and boxes need H a
+    multiple of 8) run any H as the next multiple of 8."""
+    if what == "rw":
+        return _gates_padded(F.pad(x, (0, 0, 0, n)), n)
+    return _gates_padded(x, n) if what == "gates" else F.pad(x, (0, n))
+
+
+def _units_cut(x: Optional[torch.Tensor], H: int):
+    return None if x is None else x[..., :H].contiguous()
+
+
+def _rw_by_unit_group(rw: torch.Tensor) -> torch.Tensor:
+    """RW (H, 4H) arranged for the bf16 cluster forward: (4 Hu, Hk) with
+    Hu = H rounded up to 64 and Hk to 8, row 256 G + 64 q + j holding
+    column q H + 64 G + j of RW (gate q of unit 64 G + j) over k; zeros
+    past H. One such group's 256 rows are the B operand of one consumer
+    warpgroup's product."""
+    H = rw.shape[0]
+    Hu, Hk = _ceil(H, 64), _ceil(H, 8)
+    out = torch.zeros((Hu // 64, 4, 64, Hk), dtype=rw.dtype,
+                      device=rw.device)
+    r = F.pad(rw.reshape(H, 4, H), (0, Hu - H))    # (k, q, unit)
+    out[..., :H] = r.reshape(H, 4, Hu // 64, 64).permute(2, 1, 3, 0)
+    return out.reshape(4 * Hu, Hk)
 
 
 def lstm_fwd(xw, rw, peep, h0, c0, mask=None, *, reverse=False,
@@ -292,13 +370,23 @@ def lstm_fwd(xw, rw, peep, h0, c0, mask=None, *, reverse=False,
                               with_stash=with_stash)
     T, B, G = xw.shape
     H = G // 4
+    if H % 8 and xw.dtype == torch.bfloat16:
+        n = -H % 8
+        h_out, hT, cT, h_st, c_st, gates = lstm_fwd(
+            _padded_units(xw, "gates", n), _padded_units(rw, "rw", n),
+            *(_padded_units(t, "units", n) for t in (peep, h0, c0)), mask,
+            reverse=reverse, with_stash=with_stash)
+        return (_units_cut(h_out, H), _units_cut(hT, H), _units_cut(cT, H),
+                _units_cut(h_st, H), _units_cut(c_st, H),
+                None if gates is None else _gates_cut(gates, H))
     masked = mask is not None
     ins = [xw, rw, peep, h0, c0] + ([mask] if masked else [])
     lib, p = _check_cuda("fwd", ins, xw.dtype, B, H, masked)
     new = lambda *s: torch.empty(s, dtype=xw.dtype, device=xw.device)
-    hbuf = torch.zeros((2, -(-B // 16) * 16, -(-H // 16) * 16),
-                       dtype=xw.dtype, device=xw.device)
+    Bp, ldh = _ceil(B, 128), _ceil(H, 128)
+    hbuf = torch.zeros((2, Bp, ldh), dtype=xw.dtype, device=xw.device)
     hbuf[0, :B, :H] = h0
+    rwp = _rw_by_unit_group(rw) if p.route == ROUTES[1] else None
     h_out, cT = new(T, B, H), new(B, H)
     hT = new(B, H) if masked else None
     c_st = new(T, B, H) if with_stash else None
@@ -306,13 +394,13 @@ def lstm_fwd(xw, rw, peep, h0, c0, mask=None, *, reverse=False,
     gates = new(T, B, G) if with_stash else None
     with torch.cuda.device(xw.device):
         rc = lib.dl4j_lstm_fwd(
-            xw.data_ptr(), rw.data_ptr(), peep.data_ptr(), c0.data_ptr(),
-            _ptr(mask), hbuf.data_ptr(), h_out.data_ptr(), _ptr(hT),
-            cT.data_ptr(), _ptr(h_st), _ptr(c_st), _ptr(gates),
-            _DTYPE_CODE[xw.dtype], T, B, H, int(reverse),
-            torch.cuda.current_stream(xw.device).cuda_stream)
+            xw.data_ptr(), rw.data_ptr(), _ptr(rwp), _ceil(H, 8),
+            peep.data_ptr(), c0.data_ptr(), _ptr(mask), hbuf.data_ptr(), Bp,
+            ldh, h_out.data_ptr(), _ptr(hT), cT.data_ptr(), _ptr(h_st),
+            _ptr(c_st), _ptr(gates), _DTYPE_CODE[xw.dtype], T, B, H,
+            int(reverse), torch.cuda.current_stream(xw.device).cuda_stream)
     _raise_on(rc, "fwd", tuple(xw.shape), p)
-    _count("fwd", masked, reverse)
+    _count("fwd", masked, reverse, p.route)
     return h_out, hT, cT, h_st, c_st, gates
 
 
@@ -326,6 +414,15 @@ def lstm_bwd(gates, c_st, dh_out, dhT, dcT, rw, peep, c0, mask=None, *,
                               mask, reverse=reverse)
     T, B, G = gates.shape
     H = G // 4
+    if H % 8 and gates.dtype == torch.bfloat16:
+        n = -H % 8
+        c_st, dh_out, dhT, dcT, peep, c0 = (
+            None if t is None else _padded_units(t, "units", n)
+            for t in (c_st, dh_out, dhT, dcT, peep, c0))
+        dz, dhc0 = lstm_bwd(_padded_units(gates, "gates", n), c_st, dh_out,
+                            dhT, dcT, _padded_units(rw, "rw", n), peep, c0,
+                            mask, reverse=reverse)
+        return _gates_cut(dz, H), _units_cut(dhc0, H)
     masked = mask is not None
     ins = [gates, c_st, dh_out, dcT, rw, peep, c0] \
         + ([dhT, mask] if masked else [])
@@ -340,7 +437,7 @@ def lstm_bwd(gates, c_st, dh_out, dhT, dcT, rw, peep, c0, mask=None, *,
             _DTYPE_CODE[gates.dtype], T, B, H, int(reverse),
             torch.cuda.current_stream(gates.device).cuda_stream)
     _raise_on(rc, "bwd", tuple(gates.shape), p)
-    _count("bwd", masked, reverse)
+    _count("bwd", masked, reverse, p.route)
     return dz, dhc0
 
 
@@ -469,5 +566,6 @@ def reset_counts() -> None:
     """Set the kernels' launch counts and the plain versions' call counts
     to 0."""
     launches.clear()
+    launches_by_route.clear()
     lstm_fwd_plain.calls = 0
     lstm_bwd_plain.calls = 0

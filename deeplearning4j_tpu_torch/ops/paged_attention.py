@@ -3,15 +3,18 @@ their plain PyTorch version.
 
 Counterpart of `deeplearning4j_tpu/ops/pallas_paged_attention.py`: the
 TPU kernel `_paged_kernel` becomes `csrc/paged_attention.cu` (route:
-CUDA C++ for sm_90a, plain C interface, loaded with ctypes), one kernel
-template with two families: dense pools of q's type, and int8 pools
-with f32 scale pools (the quantized KV tier), dequantized inside the
-page walk. The source's header says how it is laid out, where the
-dequantization goes and what bounds it.
+CUDA C++ for sm_90a, plain C interface, loaded with ctypes). The key axis
+is walked in slices that never cross a page, split over blocks, the
+partial results merged by a second kernel; a tensor-core kernel takes
+bf16 prefill chunks, a scalar one takes f32, decode and verify; both
+take dense pools of q's type and int8 pools with f32 scale pools (the
+quantized KV tier). The source's header says how they are laid out,
+where the dequantization goes and what bounds them; `plan` says which
+kernel and split a call gets.
 
 `paged_attention` is the one entry point. Given CUDA tensors it checks
-them, allocates the output and launches the kernel on the current
-stream, raising if the launch fails. Given CPU tensors it runs
+them, allocates the output and launches the kernels on the current
+stream, raising if a launch fails. Given CPU tensors it runs
 `paged_attention_plain`: `paged_gather` (or `paged_gather_quant`)
 followed by the `cached_attention_chunk` semantics of the JAX package's
 CPU path, with inactive lanes zeroed so that kernel and plain agree on
@@ -19,15 +22,17 @@ every row. There is no probe, no fallback from the kernel to the plain
 version and no switch to turn the kernel off.
 
 Each function keeps a plain integer count: `paged_attention.launches`
-(kernel launches; `launches_by` splits them by `(C, kind)`, the chunk
-width and "dense" or "int8") and `paged_attention_plain.calls`. A run
-can set them to 0 and read them after to show which path it took.
+(calls that launched the kernels; `launches_by` splits them by
+`(C, kind)`, the chunk width and "dense" or "int8") and
+`paged_attention_plain.calls`. A run can set them to 0 and read them
+after to show which path it took.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -76,6 +81,57 @@ def paged_attention_plain(q, k_pool, v_pool, page_table, positions,
 
 
 paged_attention_plain.calls = 0
+
+
+class Plan(NamedTuple):
+    """How a call is launched: `route` "mma" (the tensor-core kernel) or
+    "scalar"; `ks` keys per slice; `rows` query rows per tile; `tiles`
+    row tiles per (slot, KV head); `splits` blocks that share a tile's
+    keys, each a contiguous range of slices (1: no merge)."""
+    route: str
+    ks: int
+    rows: int
+    tiles: int
+    splits: int
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _tile_rows(rows: int) -> int:
+    """Rows of a scalar tile: `rows` rounded up to a power of two, at most
+    16."""
+    return min(16, 1 << (rows - 1).bit_length())
+
+
+@functools.lru_cache(maxsize=256)
+def plan(bf16: bool, int8: bool, S: int, C: int, H: int, Hkv: int, hd: int,
+         page: int, n_pages: int, sms: int) -> Plan:
+    """The launch of one call on a card of `sms` SMs, from its arguments
+    alone. bf16 q with pages of at least 64 positions, hd in (64, 128,
+    256) and at least 32 (c, g) rows per KV head (prefill chunks, wide
+    GQA groups) take the tensor-core kernel in 64-row tiles and 64-key
+    slices; the rest the scalar kernel in tiles of up to 16 rows and
+    slices of min(page, 64) keys, fewer where a slice of K would pass 32
+    KB. The keys are split so that the grid holds about 2 (tensor-core)
+    or 8 (scalar) blocks per SM, each split at least 4 (tensor-core) or 2
+    (scalar) slices, at most 32 splits (one lane each in the merge): the
+    scalar kernel's tiles are short (decode, verify), and its blocks walk
+    their slices one after another."""
+    rows = C * (H // Hkv)
+    elem = 1 if int8 else 2 if bf16 else 4
+    if bf16 and page >= 64 and hd in (64, 128, 256) and rows >= 32:
+        route, ks, tr, per_sm, least = "mma", 64, 64, 2, 4
+    else:
+        cap = 32768 // (hd * elem)
+        route, ks, tr, per_sm, least = "scalar", min(
+            page, 64, 1 << (cap.bit_length() - 1)), _tile_rows(rows), 8, 2
+    tiles = -(-rows // tr)
+    slices = n_pages * page // ks
+    splits = max(1, min(-(-per_sm * sms // (S * Hkv * tiles)),
+                        slices // least, 32))
+    return Plan(route, ks, tr, tiles, splits)
 
 
 def _check(q, k_pool, v_pool, page_table, positions, active, k_scale,
@@ -150,48 +206,53 @@ def paged_attention(q, k_pool, v_pool, page_table, positions, *,
         raise TypeError(f"active must be bool, got {active.dtype}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_attention kernel takes contiguous tensors")
-    # the kernel stages each page tile, and each int8 page's scale row, with
-    # 16-byte copies: every tile and row must start and end on 16 bytes
-    if (hd * page * k_pool.element_size()) % 16:
+    # the kernels stage K and V rows with 16-byte copies
+    if hd % 8 or (hd * k_pool.element_size()) % 16 or page & (page - 1):
         raise ValueError(
-            f"hd*page*itemsize = {hd * page * k_pool.element_size()} "
-            "must be a multiple of 16 bytes (16-byte page loads)")
-    if int8 and (page * 4) % 16:
-        raise ValueError(f"page*4 = {page * 4} bytes per scale row must be a "
-                         "multiple of 16 (16-byte scale-row loads)")
-    if any(t.data_ptr() % 16 for t in (k_pool, v_pool, k_scale, v_scale)
-           if t is not None):
-        raise ValueError("paged_attention kernel takes pools and scale pools "
-                         "that start on a 16-byte boundary")
+            f"paged_attention kernel takes hd a multiple of 8, hd*itemsize "
+            f"a multiple of 16 bytes and a power-of-two page; got hd={hd}, "
+            f"page={page}, pools {k_pool.dtype}")
+    if any(t.data_ptr() % 16 for t in (k_pool, v_pool)):
+        raise ValueError("paged_attention kernel takes pools that start on "
+                         "a 16-byte boundary")
     lib = _library()
     from deeplearning4j_tpu_torch.ops.kernel_dispatch import smem_limit_bytes
 
     code = _DTYPE_CODE[q.dtype]
-    smem = lib.dl4j_paged_attention_smem_bytes(code, int(int8), C, H, Hkv,
-                                               hd, page)
+    p = plan(q.dtype == torch.bfloat16, int8, S, C, H, Hkv, hd, page,
+             n_pages, torch.cuda.get_device_properties(
+                 q.device).multi_processor_count)
+    route = int(p.route == "mma")
+    smem = lib.dl4j_paged_attention_smem_bytes(code, int(int8), route,
+                                               p.rows, hd, p.ks)
     limit = smem_limit_bytes(q.device)
     if smem > limit:
         raise ValueError(
             f"paged_attention kernel needs {smem} bytes of shared memory per "
             f"block at hd={hd}, page={page}, q {q.dtype}, pools "
-            f"{k_pool.dtype}; the card allows {limit}")
+            f"{k_pool.dtype} ({p}); the card allows {limit}")
     out = torch.empty_like(q)
+    part_acc = part_ml = None
+    if p.splits > 1:
+        rows = (p.splits, S, Hkv, C * (H // Hkv))
+        part_acc = torch.empty(rows + (hd,), dtype=torch.float32,
+                               device=q.device)
+        part_ml = torch.empty(rows + (2,), dtype=torch.float32,
+                              device=q.device)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        head = (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr())
-        tail = (page_table.data_ptr(), positions.data_ptr(),
-                None if active is None else active.data_ptr(), out.data_ptr(),
-                code, S, C, H, Hkv, hd, page, n_pages, 1.0 / math.sqrt(hd),
-                stream)
-        if int8:
-            rc = lib.dl4j_paged_attention_int8(
-                *head, k_scale.data_ptr(), v_scale.data_ptr(), *tail)
-        else:
-            rc = lib.dl4j_paged_attention(*head, *tail)
+        rc = lib.dl4j_paged_attention(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            _ptr(k_scale), _ptr(v_scale), page_table.data_ptr(),
+            positions.data_ptr(), _ptr(active), out.data_ptr(),
+            _ptr(part_acc), _ptr(part_ml), code, int(int8), route, p.ks,
+            p.splits, p.rows, S, C, H, Hkv, hd, page, n_pages,
+            1.0 / math.sqrt(hd),
+            torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA error "
                            f"{rc} (S={S}, C={C}, H={H}, Hkv={Hkv}, hd={hd}, "
-                           f"page={page}, pools {k_pool.dtype}, smem={smem})")
+                           f"page={page}, pools {k_pool.dtype}, {p}, "
+                           f"smem={smem})")
     key = (C, "int8" if int8 else "dense")
     paged_attention.launches += 1
     paged_attention.launches_by[key] = \
@@ -210,14 +271,13 @@ def _library() -> ctypes.CDLL:
     fn = lib.dl4j_paged_attention
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
-                       ci, ci, ctypes.c_float, vp]
+        # q, pools, scales, page table, positions, active, out, partials;
+        # dtype, int8, route, ks, splits, tile, S, C, H, Hkv, hd, page,
+        # n_pages; scale; stream
+        fn.argtypes = [vp] * 11 + [ci] * 13 + [ctypes.c_float, vp]
         fn.restype = ci
-        fq = lib.dl4j_paged_attention_int8
-        fq.argtypes = fn.argtypes[:3] + [vp, vp] + fn.argtypes[3:]
-        fq.restype = ci
         sm = lib.dl4j_paged_attention_smem_bytes
-        sm.argtypes = [ci] * 7
+        sm.argtypes = [ci] * 6
         sm.restype = ctypes.c_size_t
     return lib
 

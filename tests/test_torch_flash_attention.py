@@ -64,6 +64,31 @@ def test_plain_forward_and_gradients_match_jax(causal):
         _close(got.grad, want)
 
 
+@pytest.mark.parametrize("Dh", [384, 512])
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_at_wide_heads_matches_jax(Dh, causal):
+    """Head dims 384 and 512 (the kernels' column-split and 32-key tiles
+    on the card): the plain forward and its gradients against the JAX
+    package's flash path in interpret mode (B=1, T=256, H=2, blocks of
+    128), atol = rtol = 1e-5."""
+    q, k, v, do = _inputs(10 + Dh, shape=(1, T, 2, Dh))
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+
+    def jf(a, b, c):
+        return jflash(a, b, c, causal=causal, block_q=128, block_k=128,
+                      interpret=True)
+
+    ref = jf(jq, jk, jv)
+    jgrads = jax.grad(lambda a, b, c: jnp.sum(jf(a, b, c) * do),
+                      argnums=(0, 1, 2))(jq, jk, jv)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = fa.flash_attention(tq, tk, tv, causal=causal)
+    out.backward(torch.from_numpy(do))
+    _close(out, ref)
+    for got, want in zip((tq, tk, tv), jgrads):
+        _close(got.grad, want)
+
+
 def test_plain_lse_is_the_row_logsumexp():
     """L = logsumexp of the scaled, causally masked scores, (B*H, T)."""
     q, k, v, _ = _inputs(1)
@@ -248,13 +273,13 @@ def _card():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_kernels_match_plain(dtype):
     """O, L, dQ, dK, dV of the kernels against the plain versions in f32
-    on the same (cast up) inputs, causal and not, D = 128 and 256, within
-    `fa.error_in_tolerances` (O, dQ, dK, dV row by row, L absolute). One
-    launch of each kernel per call."""
+    on the same (cast up) inputs, causal and not, D = 128, 256, 384 and
+    512, within `fa.error_in_tolerances` (O, dQ, dK, dV row by row, L
+    absolute). One launch of each kernel per call."""
     _card()
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(3)
-    for Dh in (128, 256):
+    for Dh in (128, 256, 384, 512):
         for causal in (False, True):
             q, k, v, do = (torch.randn((2, 512, 2, Dh), generator=g,
                                        device="cuda").to(dt)

@@ -198,6 +198,92 @@ def test_backward_rows_are_independent(masked, reverse):
         rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_forward_row_tiles_match_pallas_interpret(masked, reverse):
+    """What the cluster kernels' row tiles rest on, forward: `lstm_fused`
+    run on independent tiles of batch rows (3, 3 and a ragged 2) and
+    concatenated equals the JAX package's Pallas forward (interpret mode)
+    on the whole batch, masked and reverse; tolerance 1e-5 (f32)."""
+    a = _inputs(4)
+    mask = _mask() if masked else None
+    jo, (jh, jc) = _jax(a, np.float32, mask, reverse)
+    parts = []
+    for rows in (slice(0, 3), slice(3, 6), slice(6, 8)):
+        tile = dict(a, x=a["x"][rows], h0=a["h0"][rows], c0=a["c0"][rows])
+        parts.append(_port(tile, np.float32,
+                           None if mask is None else mask[rows], reverse))
+    po = torch.cat([o for o, _ in parts], dim=0)
+    ph = torch.cat([hc[0] for _, hc in parts], dim=0)
+    pc = torch.cat([hc[1] for _, hc in parts], dim=0)
+    for got, want in ((po, jo), (ph, jh), (pc, jc)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("n", [1, 5])
+def test_odd_h_padded_by_zero_units(masked, n):
+    """What the wrappers do in bf16 for an H that is not a multiple of 8
+    (`_padded_units`; H = 7 gets n = 1, and n = 5 as for H = 3): the
+    plain forward and backward on H + n units, the extra units' weights,
+    bias, peepholes, carries and cotangents zero, then cut, equal the
+    unpadded ones in f64 (forward outputs, stash, dz, dh0 and dc0; rtol
+    1e-12: the padded units add exact zeros)."""
+    rng = np.random.default_rng(9)
+    Tn, Bn, Hn = 4, 3, 7
+    r = lambda *s, sc=1.0: torch.from_numpy(rng.standard_normal(s) * sc)
+    xw, rw, peep = r(Tn, Bn, 4 * Hn), r(Hn, 4 * Hn, sc=0.4), r(3, Hn, sc=0.3)
+    h0, c0, dh, dhT, dcT = (r(Bn, Hn), r(Bn, Hn), r(Tn, Bn, Hn), r(Bn, Hn),
+                            r(Bn, Hn))
+    mask = None
+    if masked:
+        mask = torch.from_numpy((np.arange(Tn)[:, None]
+                                 < np.array([4, 0, 2])[None]).astype(float))
+
+    def pad(t, what):
+        return L._padded_units(t, what, n)
+
+    fwd = L.lstm_fwd_plain(xw, rw, peep, h0, c0, mask)
+    fwd_p = L.lstm_fwd_plain(pad(xw, "gates"), pad(rw, "rw"),
+                             pad(peep, "units"), pad(h0, "units"),
+                             pad(c0, "units"), mask)
+    for i, (want, got) in enumerate(zip(fwd, fwd_p)):
+        if want is None:
+            continue
+        cut = L._gates_cut(got, Hn) if i == 5 else L._units_cut(got, Hn)
+        np.testing.assert_allclose(cut.numpy(), want.numpy(), rtol=1e-12,
+                                   atol=1e-14)
+    dhT_ = dhT if masked else None
+    want = L.lstm_bwd_plain(fwd[5], fwd[4], dh, dhT_, dcT, rw, peep, c0, mask)
+    got = L.lstm_bwd_plain(fwd_p[5], fwd_p[4], pad(dh, "units"),
+                           None if dhT_ is None else pad(dhT_, "units"),
+                           pad(dcT, "units"), pad(rw, "rw"),
+                           pad(peep, "units"), pad(c0, "units"), mask)
+    np.testing.assert_allclose(L._gates_cut(got[0], Hn).numpy(),
+                               want[0].numpy(), rtol=1e-12, atol=1e-14)
+    np.testing.assert_allclose(L._units_cut(got[1], Hn).numpy(),
+                               want[1].numpy(), rtol=1e-12, atol=1e-14)
+    assert float(got[0].reshape(Tn, Bn, 4, Hn + n)[..., Hn:].abs().max()) == 0
+
+
+def test_rw_by_unit_group_puts_a_units_gates_in_one_operand():
+    """The bf16 cluster forward's B operand (`_rw_by_unit_group`): row
+    256 G + 64 q + j holds column q H + 64 G + j of RW, zeros past H in
+    both axes (H = 100: two unit groups, the second ragged)."""
+    Hn = 100
+    rw = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (Hn, 4 * Hn)))
+    p = L._rw_by_unit_group(rw)
+    assert tuple(p.shape) == (4 * 128, 104)
+    for G in range(2):
+        for q in range(4):
+            for j in range(64):
+                u, row = 64 * G + j, p[256 * G + 64 * q + j]
+                want = rw[:, q * Hn + u] if u < Hn else torch.zeros(Hn)
+                assert torch.equal(row[:Hn], want)
+    assert float(p[:, Hn:].abs().max()) == 0
+
+
 # ------------------------------------------------------------ on the card
 def _card():
     if not torch.cuda.is_available():
@@ -246,30 +332,41 @@ def test_kernels_match_plain(dtype):
 
 @pytest.mark.gpu
 def test_cooperative_launch_too_large_raises():
-    """The forward (still one cooperative launch) refuses a grid larger
-    than the blocks that can be resident: CUDA error 720 at launch, and
-    the wrapper raises naming the grid. (The bf16 backward runs this
-    width as clusters: `test_bf16_backward_clusters_and_refusals`.)"""
+    """The bf16 forward at H=2048, which the cooperative grid could not
+    hold (CUDA error 720 before), now runs as clusters of 16 blocks of
+    128 units and 64 rows, held to the plain version; the cooperative
+    kernel keeps the batches it takes (B <= 128 at H <= 1024), whose grid
+    fits the card."""
     _card()
+    dt = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(8)
+    r = lambda *s, sc=1.0: (torch.randn(s, generator=g, device="cuda")
+                            * sc).to(dt)
     H2 = 2048
-    z = torch.zeros((2, 16, 4 * H2), dtype=torch.bfloat16, device="cuda")
-    rw = torch.zeros((H2, 4 * H2), dtype=torch.bfloat16, device="cuda")
-    peep = torch.zeros((3, H2), dtype=torch.bfloat16, device="cuda")
-    h = torch.zeros((16, H2), dtype=torch.bfloat16, device="cuda")
-    smem, gu, gb, rows, cap, cluster, units = L.plan(
-        "fwd", torch.bfloat16, False, 16, H2)
-    assert gu * gb > cap and cluster == 1
-    with pytest.raises(RuntimeError, match="720"):
-        L.lstm_fwd(z, rw, peep, h, h)
+    p = L.plan("fwd", dt, False, 16, H2)
+    assert (p.route, p.cluster, p.units, p.rows) == ("bf16 clusters", 16,
+                                                     128, 64)
+    assert p.active >= 1
+    xw, rw = r(2, 16, 4 * H2), r(H2, 4 * H2, sc=H2 ** -0.5)
+    peep, h0, c0 = r(3, H2, sc=0.3), r(16, H2, sc=0.5), r(16, H2, sc=0.5)
+    got = L.lstm_fwd(xw, rw, peep, h0, c0)
+    want = L.lstm_fwd_plain(xw, rw, peep, h0, c0)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        if a is not None:
+            assert L.error_in_tolerances(a, b, dt) <= 1.0
+    coop = L.plan("fwd", dt, False, 128, 1024)
+    assert coop.route == "cooperative" and coop.gx * coop.gy <= coop.active
 
 
 @pytest.mark.gpu
 def test_bf16_backward_clusters_and_refusals():
     """The bf16 backward runs H=2048 as clusters of 16 blocks (on a stash
-    the plain forward made on the card: the cooperative forward refuses
-    that width) within tolerance, and refuses, naming why, an odd H (TMA
-    rows of 4H bf16 must be 16-byte multiples) and H above 2048 (a
-    cluster above 16 blocks)."""
+    the plain forward made on the card) and an odd H (195: the wrapper
+    pads it to 200 with zero units, then cuts them off) within tolerance;
+    above 2048 both passes refuse before any launch, naming why (the four
+    gates of a unit in one thread's accumulator, 16 blocks of 128 units
+    the most a cluster holds)."""
     _card()
     dt = torch.bfloat16
     g = torch.Generator(device="cuda").manual_seed(6)
@@ -282,16 +379,18 @@ def test_bf16_backward_clusters_and_refusals():
         st = L.lstm_fwd_plain(xw, rw, peep, h0, c0)
         return (st[5], st[4], r(Tn, Bn, Hn), None, r(Bn, Hn), rw, peep, c0)
 
-    smem, gu, gb, rows, active, cluster, units = L.plan(
-        "bwd", dt, False, 256, 2048)
-    assert (cluster, rows, units) == (16, 128, 128) and active >= 1
-    args = stash_args(2, 256, 2048)
-    got = L.lstm_bwd(*args)
-    want = L.lstm_bwd_plain(*args)
-    torch.cuda.synchronize()
-    for a, b in zip(got, want):
-        assert L.error_in_tolerances(a, b, dt) <= 1.0
-    with pytest.raises(ValueError, match="odd H"):
-        L.lstm_bwd(*stash_args(1, 8, 195))
-    with pytest.raises(ValueError, match="16 blocks per cluster"):
-        L.lstm_bwd(*stash_args(1, 8, 2176))
+    p = L.plan("bwd", dt, False, 256, 2048)
+    assert (p.cluster, p.rows, p.units) == (16, 128, 128) and p.active >= 1
+    for args in (stash_args(2, 256, 2048), stash_args(2, 37, 195)):
+        got = L.lstm_bwd(*args)
+        want = L.lstm_bwd_plain(*args)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert L.error_in_tolerances(a, b, dt) <= 1.0
+    L.reset_counts()
+    args = stash_args(1, 8, 2176)
+    with pytest.raises(ValueError, match="16 blocks of 128"):
+        L.lstm_bwd(*args)
+    with pytest.raises(ValueError, match="16 blocks of 128"):
+        L.lstm_fwd(r(1, 8, 4 * 2176), args[5], args[6], args[7], args[7])
+    assert not L.launches

@@ -210,6 +210,115 @@ def test_cpu_tensors_run_plain_and_count():
               np.array([1, 6], np.int32))
 
 
+def _split_walk(q, k_pool, v_pool, pt, p0, active, ks, splits, tile):
+    """A plain emulation of the kernels' walk (`csrc/paged_attention.cu`)
+    in f64: per (slot, KV head, tile of `tile` (c, g) rows), the keys in
+    slices of `ks` that never cross a page, split into `splits`
+    contiguous ranges of slices; each range runs the online softmax on its
+    own and leaves (m, l, acc); the merge rescales them to the largest m
+    of the ranges that saw a key (l > 0). Inactive slots give 0."""
+    S, C, H, hd = q.shape
+    Hkv, page = k_pool.shape[1], k_pool.shape[3]
+    n_pages, G = pt.shape[1], H // Hkv
+    total = n_pages * page // ks
+    per = -(-total // splits)
+    out = np.zeros((S, C, H, hd))
+    for s in range(S):
+        if active is not None and not active[s]:
+            continue
+        for h in range(Hkv):
+            for r0 in range(0, C * G, tile):
+                rows = np.arange(r0, min(C * G, r0 + tile))
+                qr = q[s, rows // G, h * G + rows % G].astype(np.float64)
+                limit = p0[s] + rows // G
+                live = min(total, (p0[s] + rows[-1] // G) // ks + 1)
+                parts = []
+                for sp in range(splits):
+                    m = np.full(len(rows), -1e30)
+                    l, acc = np.zeros(len(rows)), np.zeros((len(rows), hd))
+                    for j in range(sp * per, min(live, sp * per + per)):
+                        keys = j * ks + np.arange(ks)
+                        pg = pt[s, keys // page]
+                        kk = k_pool[pg, h, :, keys % page]        # (ks, hd)
+                        vv = v_pool[pg, h, keys % page, :]        # (ks, hd)
+                        sc = qr @ kk.T / np.sqrt(hd)
+                        sc = np.where(keys[None] <= limit[:, None], sc, -1e30)
+                        m_new = np.maximum(m, sc.max(axis=1))
+                        pr = np.where(sc <= -5e29, 0.0,
+                                      np.exp(sc - m_new[:, None]))
+                        corr = np.exp(m - m_new)
+                        l = l * corr + pr.sum(axis=1)
+                        acc = acc * corr[:, None] + pr @ vv
+                        m = m_new
+                    parts.append((m, l, acc))
+                M = np.max([np.where(pl > 0, pm, -1e30)
+                            for pm, pl, _ in parts], axis=0)
+                w = [np.where(pl > 0, np.exp(pm - M), 0.0)
+                     for pm, pl, _ in parts]
+                L = sum(wi * pl for wi, (_, pl, _) in zip(w, parts))
+                A = sum(wi[:, None] * pa for wi, (_, _, pa) in zip(w, parts))
+                safe = np.where(L > 0, L, 1.0)[:, None]
+                o = np.where(L[:, None] > 0, A / safe, 0.0)
+                out[s, rows // G, h * G + rows % G] = o
+    return out
+
+
+@pytest.mark.parametrize("page,ks,splits,tile", [
+    (1, 1, 7, 1), (2, 2, 3, 4), (4, 4, 5, 2), (512, 64, 4, 16),
+    (512, 64, 1, 64), (16, 16, 40, 8)])
+def test_split_walk_matches_plain_and_jax_kernel(page, ks, splits, tile):
+    """The kernels' split page walk, emulated in f64, equals the plain
+    version and the JAX kernel (interpret mode): ragged positions (a
+    slot at 0, slots ending mid-slice and mid-page), an inactive slot,
+    GQA (4 query heads on 2 KV heads, C = 3 chunks folded as (c, g)
+    rows), splits that see no live key and tiles whose last rows are
+    ragged. Tolerance 1e-5 (f32 against f64 sums)."""
+    rng = np.random.default_rng(page + 7 * splits)
+    S, C, H, Hkv, hd = 4, 3, 4, 2, 8
+    n_pages = max(2, 1024 // page) if page > 2 else 40 // page
+    q, k_pool, v_pool, pt = _inputs(rng, S, C, H, Hkv, hd, page, n_pages)
+    L = n_pages * page
+    p0 = np.array([0, L // 2 + 1, L - C, 5], np.int32)
+    active = np.array([True, True, True, False])
+    got = _split_walk(q, k_pool, v_pool, pt, p0, active, ks, splits, tile)
+    np.testing.assert_allclose(got, _port(q, k_pool, v_pool, pt, p0, active),
+                               rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(
+        got, _jax_kernel(q, k_pool, v_pool, pt, p0, active), rtol=TOL,
+        atol=TOL)
+
+
+@pytest.mark.parametrize("bf16,int8,S,C,H,Hkv,hd,page,n_pages", [
+    (True, False, 8, 1, 8, 8, 128, 128, 34),     # serve decode
+    (True, False, 1, 256, 8, 8, 128, 128, 34),   # serve prefill chunk
+    (True, True, 8, 5, 8, 8, 128, 128, 34),      # int8 verify
+    (False, False, 1, 64, 4, 4, 256, 128, 8),    # f32, hd 256
+    (True, True, 3, 1, 4, 2, 64, 1, 80),         # int8, page 1
+    (True, False, 1, 256, 8, 2, 128, 512, 5),    # bf16, page 512, GQA
+    (True, False, 1, 1, 1, 1, 128, 16, 512),     # one slot, one head
+])
+def test_plan_covers_every_slice_once(bf16, int8, S, C, H, Hkv, hd, page,
+                                      n_pages):
+    """`plan` (the launch the wrapper gives the kernels): slices divide
+    the page and fit the 32 KB staging budget, the splits' contiguous
+    ranges cover every slice of a slot exactly once, tiles cover every
+    (c, g) row, the tensor-core route is taken only by bf16 q with pages
+    of at least 64 and tiles of 32 rows or more, and the merge's warp
+    holds every split's (m, l) (at most 32 splits)."""
+    p = pa.plan(bf16, int8, S, C, H, Hkv, hd, page, n_pages, 132)
+    elem = 1 if int8 else 2 if bf16 else 4
+    assert page % p.ks == 0 and p.ks * hd * elem <= 32768
+    total = n_pages * page // p.ks
+    per = -(-total // p.splits)
+    covered = [j for sp in range(p.splits)
+               for j in range(sp * per, min(total, sp * per + per))]
+    assert covered == list(range(total))
+    assert p.tiles * p.rows >= C * H // Hkv > (p.tiles - 1) * p.rows
+    assert (p.route == "mma") == (bf16 and page >= 64 and
+                                  C * H // Hkv >= 32)
+    assert 1 <= p.splits <= 32
+
+
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
@@ -270,3 +379,52 @@ def test_paged_attention_kernel_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="one CUDA device"):
         pa.paged_attention(q.float(), kp.float().cpu(), vp.float(), pt, pos)
     assert pa.paged_attention_plain.calls == calls
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pools", ["float32", "bfloat16", "int8"])
+def test_paged_attention_kernel_takes_any_page_and_head_dim(pools):
+    """The shapes whose whole pages did not fit a block's shared memory
+    before (bf16 pools at hd=256/page=256 and hd=128/page=512, f32 pools
+    at hd=256/page=128) and the int8 pools' pages of 1 and 2 positions:
+    the kernels walk key slices and launch at all of them, decode and
+    chunk widths, held to the plain version in f32 (int8: dequantized
+    K/V rounded to q's type), atol = rtol = 2e-4 (f32 q) / 4e-3 (bf16
+    q)."""
+    _card()
+    rng = np.random.default_rng(29)
+    qdt = torch.float32 if pools == "float32" else torch.bfloat16
+    tol = pa.TOLERANCE[qdt]
+    for hd, page, n_pages in ((256, 256, 5), (128, 512, 3), (256, 128, 6),
+                              (64, 1, 70), (64, 2, 40)):
+        for C, S in ((1, 3), (48, 1)):
+            H, Hkv = 4, 2
+            P = S * n_pages
+            q = torch.from_numpy(rng.standard_normal((S, C, H, hd))
+                                 .astype(np.float32)).cuda().to(qdt)
+            pt = torch.from_numpy(rng.permutation(np.arange(1, P + 1))
+                                  .reshape(S, n_pages).astype(np.int32)).cuda()
+            pos = torch.from_numpy(rng.integers(
+                0, n_pages * page - C + 1, S).astype(np.int32)).cuda()
+            kshape, vshape = (P + 1, Hkv, hd, page), (P + 1, Hkv, page, hd)
+            if pools == "int8":
+                kp, vp = (torch.from_numpy(rng.integers(
+                    -127, 128, sh).astype(np.int8)).cuda()
+                    for sh in (kshape, vshape))
+                ks, vs = (torch.from_numpy((0.005 + 0.015 * rng.random(
+                    (P + 1, Hkv, page))).astype(np.float32)).cuda()
+                    for _ in range(2))
+                extra = dict(k_scale=ks, v_scale=vs)
+                kd, vd = kp, vp
+            else:
+                kp, vp = (torch.from_numpy(rng.standard_normal(sh).astype(
+                    np.float32)).cuda().to(qdt) for sh in (kshape, vshape))
+                extra = {}
+                kd, vd = kp.float(), vp.float()
+            launches = pa.paged_attention.launches
+            got = pa.paged_attention(q, kp, vp, pt, pos, **extra)
+            ref = pa.paged_attention_plain(q.float(), kd, vd, pt, pos,
+                                           kv_dtype=qdt, **extra)
+            torch.cuda.synchronize()
+            assert pa.paged_attention.launches == launches + 1
+            torch.testing.assert_close(got.float(), ref, atol=tol, rtol=tol)
