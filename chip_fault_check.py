@@ -12,8 +12,8 @@ or `csrc/lstm.cu` (the checkout is never changed), builds every copy with
 nvcc in parallel, and then runs the faulted kernel family's check in one
 process per copy (the unchanged copy runs all three):
 
-- flash: the bf16 forward (at D = 128 the wgmma kernel), dQ and dK/dV
-  kernels on the cases below, held
+- flash: the bf16 forward, dQ and dK/dV kernels (at D = 128 the wgmma
+  kernels, at D = 256 the mma.sync ones) on the cases below, held
   to the plain versions in f32 with `flash_attention.error_in_tolerances`
   (O, dQ, dK, dV row by row; L absolute), as `chip_smoke.py` does. Beside
   it, each case is also read against the earlier bound (the largest
@@ -32,7 +32,11 @@ process per copy (the unchanged copy runs all three):
 
 The faults (`MUTATIONS`) drop tiles, terms or rows, and break each
 mechanism of the Hopper kernels: the forward's diagonal mask on the wrong
-tile and a K/V ring stage refilled before its release; the paged walk's
+tile and a K/V ring stage refilled before its release; the D = 128
+backward's ring stages refilled before their release, P^T read before its
+barrier, the diagonal mask on the wrong tile, the first visible Q tile off
+by one, L and dsum of the neighbouring Q tile, and a far tile (40)
+skipped; the paged walk's
 split merge, key slices and int8 rounding point; the bf16 LSTM
 backward's cluster barrier between its two phases, and its row tile
 reading dz from the next tile's rows; the bf16 LSTM forward's h rows
@@ -70,6 +74,11 @@ FWD = "void flash_fwd_consumer(WgFwdSmem& sm,"
 FWDP = "flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,"
 DQ = "flash_bwd_dq_mma_kernel(const Args a) {"
 DKV = "flash_bwd_dkv_mma_kernel(const Args a) {"
+DQW = "flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,"
+DKVW = "flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,"
+DQC = "__device__ __forceinline__ void dq_consumer("
+DVC = "__device__ __forceinline__ void dv_consumer("
+DKC = "__device__ __forceinline__ void dk_consumer("
 SCAL = "paged_attention_kernel(const Call c) {"
 PV = "// acc (TR, hd) = acc * corr + P . V"
 STAGE = "__device__ __forceinline__ void stage_slice("
@@ -113,6 +122,32 @@ MUTATIONS = [
     ("dK drops the dsum term", FLASH, DKV, [
         ("s[j][e] *= dp[j][e] - Ds[8 * j + 2 * t + (e & 1)];",
          "s[j][e] *= dp[j][e];")]),
+    ("dQ (wgmma) refills a K/V stage before its release", FLASH, DQW, [
+        ("sm90::mbar_wait(&sm.empty[s], ((j / kBwStages) & 1) ^ 1);", "")]),
+    ("dK/dV (wgmma) refills a Q/dO stage before its release", FLASH, DKVW, [
+        ("sm90::mbar_wait(&sm.empty[s], ((n / kBwStages) & 1) ^ 1);", "")]),
+    ("dK (wgmma) reads P^T before its barrier", FLASH, DKC, [
+        ("sm90::mbar_wait(&sm.p_full[pb], (n >> 1) & 1);", "")]),
+    ("dQ (wgmma) masks the first K/V tile, not the diagonal", FLASH, DQC, [
+        ("const bool diag = a.causal && j == nk_wg - 1;",
+         "const bool diag = a.causal && j == 0;")]),
+    ("dK/dV (wgmma) masks the Q tile after the diagonal", FLASH, DVC, [
+        ("const bool diag = a.causal && qi == kj;",
+         "const bool diag = a.causal && qi == kj + 1;")]),
+    ("dK/dV (wgmma) starts one Q tile after the diagonal", FLASH, DKVW, [
+        ("const int q_first = a.causal ? kj : 0;",
+         "const int q_first = a.causal ? kj + 1 : 0;")]),
+    # tiles 0 <-> 1, 2 <-> 3, ...: always inside the tensor
+    ("dK/dV (wgmma) takes L and dsum of the neighbouring Q tile", FLASH,
+     DKVW, [("sm90::bulk_load(sm.lse[s], lse + r0,",
+             "sm90::bulk_load(sm.lse[s], lse + (r0 ^ kBwRows),"),
+            ("sm90::bulk_load(sm.dsum[s], dsum + r0,",
+             "sm90::bulk_load(sm.dsum[s], dsum + (r0 ^ kBwRows),")]),
+    ("dQ (wgmma) skips K/V tile 40", FLASH, DQC, [
+        ("if (j < nk_wg) {", "if (j < nk_wg && j != 40) {")]),
+    ("dV (wgmma) drops P^T.dO of Q tile 40", FLASH, DVC, [
+        ("issue_pb64(dv, p, sm.dO[st][0]);",
+         "if (qi != 40) issue_pb64(dv, p, sm.dO[st][0]);")]),
     ("int8: V dequantized with the K scales", PAGED, PV, [
         ("if constexpr (kQuant) vsc = cVs[kk + x];",
          "if constexpr (kQuant) vsc = cKs[kk + x];")]),

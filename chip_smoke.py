@@ -33,8 +33,10 @@ Phases, each of which makes the script exit non-zero when it fails:
 4. flash kernels: forward (O and L), dQ and dK/dV against the plain
    versions computed in f32 on the same inputs (the backward's include
    the O and L the forward kernel gave), f32 and bf16, causal and not,
-   D = 128, 256, 384 and 512, T = 512, 2048 and 4096, Tq = 512 with
-   Tk = 1024 (bf16 D = 128 runs the wgmma forward), and a GQA call through
+   D = 128, 256, 384 and 512, T = 128 (bf16 D = 128: one tile), 512, 2048
+   and 4096, Tq = 512 with Tk = 1024 (bf16 D = 128 runs the three wgmma
+   kernels); each backward run twice, with bit-identical dQ, dK and dV
+   (no atomics); and a GQA call through
    `multi_head_attention` with autograd against the same call on the
    CPU; O, dQ, dK, dV held row by row (a row's largest error within
    `flash_attention.TOLERANCE`, 1e-4 f32 / 2^-6 bf16, of that row's
@@ -114,7 +116,8 @@ Phases, each of which makes the script exit non-zero when it fails:
    call; one more fit under torch.profiler;
 14. timing: the flash kernels are first held to their plain versions at
    the training shape twice: on q/k/v sliced from one fused qkv tensor,
-   as the training path passes them, and on contiguous ones; then CUDA
+   as the training path passes them (the backward twice, bit-identical),
+   and on contiguous ones; then CUDA
    events around each launch (a GPU sleep queued first so
    host overhead is not counted), L2 flushed before each, median of 20
    after warm-up, for each kernel, its plain version and a library call
@@ -124,8 +127,10 @@ Phases, each of which makes the script exit non-zero when it fails:
    forward+backward minus its forward for the two backward kernels
    together; the yardsticks, which the port never calls), beside the bound max(flops / 989 TFLOP/s,
    bytes / 3.35 TB/s) of this run's data, and each flash kernel's
-   achieved TFLOP/s beside the library's, also at head_dim 384 and 512
-   (B=2, H=4, T=2048); the int8 kernel also at a C=128 chunk; each paged
+   achieved TFLOP/s beside the library's, also at head_dim 256, 384 and
+   512 (B=2, H=4, T=2048) and for the f32 kernels at phase 6's shape (B=2,
+   H=8, T=1024, D=128; SDPA in f32, TF32 off); the int8 kernel also at a
+   C=128 chunk; each paged
    case with its launch plan (route, slice, splits);
 15. LSTM timing: rows 5-8 at main path 4's shape (T=64, B=2048, H=1024,
    unmasked) and main path 4b's window (T=24, B=8192, H=256, unmasked and
@@ -135,7 +140,13 @@ Phases, each of which makes the script exit non-zero when it fails:
    GEMM; forward minus one input matmul, and fwd+bwd minus fwd), with
    each launch plan; the two bf16 forward routes at their boundary (T=64,
    H=1024, B=128 cooperative and B=129 clusters, with and without the
-   stash); the f32 kernels at T=8, B=2048, H=1024.
+   stash); the f32 kernels at T=8, B=2048, H=1024;
+16. a sigmoid/tanh LSTM wider than the fused kernels take (H=2304 >
+   `ops.lstm.MAX_H`): `lstm_forward` takes its step loop on the card
+   (route counts set to 0 before and read after: loop > 0, fused 0, no
+   kernel launch); one layer's outputs and gradients, f32 and bf16,
+   against the f32 loop on the CPU; a GravesLSTM(2304) network's 2 SGD
+   fit steps against the CPU (losses rtol 1e-5, params atol 1e-5).
 
 Prints one JSON line of per-kernel numbers, then the card's
 `nvidia-smi` line, then as the last line
@@ -874,6 +885,18 @@ def flash_check(torch, fa, got, ref, dtype, what,
     return max(e for _, e, _ in errs)
 
 
+def flash_same_bits(torch, fa, q, k, v, do, causal, got, what):
+    """Run the backward kernels again on the same inputs and require dQ,
+    dK and dV bit for bit equal to `got`'s (no atomics: each block writes
+    its own rows in a fixed order)."""
+    again = flash_run(fa, q, k, v, do, causal)
+    torch.cuda.synchronize()
+    same = [torch.equal(a, b) for a, b in zip(got[2:], again[2:])]
+    if not all(same):
+        raise AssertionError(f"flash backward not bitwise deterministic "
+                             f"(dQ, dK, dV equal: {same}): {what}")
+
+
 def flash_inputs(torch, B, T, H, D, dtype, seed):
     """q, k, v and dO, (B, T, H, D), from a seed."""
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -926,6 +949,9 @@ def phase_flash(torch, fa):
              for (B, T, H) in ((2, 512, 2),)]
     cases += [(1, 4096, 2, 128, dt, True)
               for dt in (torch.float32, torch.bfloat16)]
+    # one 128-row tile: the D = 128 kernels' diagonal tiles alone
+    cases += [(2, 128, 2, 128, torch.bfloat16, causal)
+              for causal in (False, True)]
     cases += [(1, 4096, 2, 256, torch.bfloat16, False)]
     # head dims 384 and 512: the output columns split over blocks, 32-key
     # streamed tiles (bf16), 16-row tiles (f32)
@@ -942,6 +968,7 @@ def phase_flash(torch, fa):
                 f"{'causal' if causal else 'full'}")
         errs[dt] = max(errs.get(dt, 0.0), flash_check(torch, fa, got, ref,
                                                       dt, what))
+        flash_same_bits(torch, fa, q, k, v, do, causal, got, what)
     for i, dt in enumerate((torch.float32, torch.bfloat16)):
         # queries and keys of different lengths: separate tensor maps and
         # key tiles past the query tiles
@@ -950,9 +977,9 @@ def phase_flash(torch, fa):
         got = flash_run(fa, q, k, v, do, False)
         ref = flash_plain_f32(fa, q, k, v, do, False, got)
         torch.cuda.synchronize()
-        errs[dt] = max(errs[dt], flash_check(
-            torch, fa, got, ref, dt,
-            f"B=2 Tq=512 Tk=1024 H=2 D=128 {str(dt)[6:]} full"))
+        what = f"B=2 Tq=512 Tk=1024 H=2 D=128 {str(dt)[6:]} full"
+        errs[dt] = max(errs[dt], flash_check(torch, fa, got, ref, dt, what))
+        flash_same_bits(torch, fa, q, k, v, do, False, got, what)
     for dt in (torch.float32, torch.bfloat16):
         g = torch.Generator(device="cuda").manual_seed(77)
         q = torch.randn((1, 1024, 8, 128), generator=g, device="cuda")
@@ -1095,13 +1122,14 @@ def phase_train(torch, M, card):
     return counts
 
 
-def flash_work(B, H, T, D, kind):
-    """FLOPs and bytes of one causal launch at (B, H, T, D) bf16: the
-    T(T+1)/2 visible (query, key) pairs per head, 2*D flops per pair and
-    product (2 products forward, 3 for dQ, 4 for dK/dV); each input read
-    once and each output written once (L and dsum f32)."""
+def flash_work(B, H, T, D, kind, e=2):
+    """FLOPs and bytes of one causal launch at (B, H, T, D) with elements
+    of `e` bytes: the T(T+1)/2 visible (query, key) pairs per head, 2*D
+    flops per pair and product (2 products forward, 3 for dQ, 4 for
+    dK/dV); each input read once and each output written once (L and
+    dsum f32)."""
     pairs = B * H * T * (T + 1) // 2
-    slab = B * H * T * D * 2
+    slab = B * H * T * D * e
     stats = B * H * T * 4
     if kind == "fwd":
         return 2 * 2 * D * pairs, 3 * slab + slab + stats
@@ -1123,32 +1151,38 @@ def phase_flash_timing(torch, fa, counts):
                              "uncopied")
     got = flash_run(fa, q, k, v, do, True)
     ref = flash_plain_f32(fa, q, k, v, do, True, got)
-    err_fused = flash_check(
-        torch, fa, got, ref, torch.bfloat16,
-        f"B={B} T={T} H={H} D={D} bf16 causal, qkv slices")
+    what = f"B={B} T={T} H={H} D={D} bf16 causal, qkv slices"
+    err_fused = flash_check(torch, fa, got, ref, torch.bfloat16, what)
+    flash_same_bits(torch, fa, q, k, v, do, True, got, what)
     del q, k, v, do, got, ref
     torch.cuda.empty_cache()
     rows = flash_rows(torch, fa, B, H, T, D, counts, err_fused, seed=9)
-    # head dims 384 and 512 (no main path takes them): the same, at a
-    # smaller sequence
-    for D in (384, 512):
+    # families no main path takes, each at a smaller sequence: bf16 head
+    # dims 256, 384 and 512 (the mma.sync kernels), and the f32 (parity)
+    # kernels at phase 6's shape, against SDPA in f32 with TF32 off
+    for D in (256, 384, 512):
         rows += flash_rows(torch, fa, 2, 4, 2048, D, {}, 0.0, seed=D)
+    rows += flash_rows(torch, fa, 2, 8, 1024, 128, {}, 0.0, seed=32,
+                       dtype=torch.float32)
     return rows
 
 
-def flash_rows(torch, fa, B, H, T, D, counts, err, seed):
-    """The three bf16 kernels at (B, H, T, D) causal, held to the plain
-    versions, then timed beside them, SDPA and the bound: one row each."""
+def flash_rows(torch, fa, B, H, T, D, counts, err, seed, dtype=None):
+    """The three kernels at (B, H, T, D) causal in `dtype` (bf16 unless
+    given), held to the plain versions, then timed beside them, SDPA and
+    the bound: one row each."""
     import torch.nn.functional as F
 
-    q, k, v, do = flash_inputs(torch, B, T, H, D, torch.bfloat16, seed=seed)
+    dtype = dtype or torch.bfloat16
+    f32 = dtype == torch.float32
+    q, k, v, do = flash_inputs(torch, B, T, H, D, dtype, seed=seed)
     o, lse, dq, dk, dv = flash_run(fa, q, k, v, do, True)
     dsum = fa._dsum(o, do)
     ref = flash_plain_f32(fa, q, k, v, do, True, (o, lse))
     torch.cuda.synchronize()
     err = max(err, flash_check(
-        torch, fa, (o, lse, dq, dk, dv), ref, torch.bfloat16,
-        f"B={B} T={T} H={H} D={D} bf16 causal (timed shape)"))
+        torch, fa, (o, lse, dq, dk, dv), ref, dtype,
+        f"B={B} T={T} H={H} D={D} {str(dtype)[6:]} causal (timed shape)"))
     del ref
     torch.cuda.empty_cache()
     ms = {"fwd": time_ms(torch, lambda: fa.flash_forward(q, k, v, True, None,
@@ -1172,12 +1206,13 @@ def flash_rows(torch, fa, B, H, T, D, counts, err, seed):
 
     lib_bwd = time_ms(torch, sdpa_fwd_bwd) - lib_fwd
     rows = []
-    suffix = "" if D == 128 else f"_d{D}"
+    suffix = ("" if D == 128 else f"_d{D}") + ("_f32" if f32 else "")
+    peak = PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS
     for kind, name in (("fwd", "flash_attention_fwd"),
                        ("dq", "flash_attention_bwd_dq"),
                        ("dkv", "flash_attention_bwd_dkv")):
-        flops, nbytes = flash_work(B, H, T, D, kind)
-        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+        flops, nbytes = flash_work(B, H, T, D, kind, q.element_size())
+        t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
         b_ms = 1e3 * max(t_ops, t_bytes)
         row = {"name": name + suffix, "route": "cuda", "source": FLASH_SOURCE,
                "replaces": FLASH_REPLACES[name],
@@ -1192,7 +1227,8 @@ def flash_rows(torch, fa, B, H, T, D, counts, err, seed):
             if kind != "fwd" else "library: SDPA causal forward"
         lib_flops = flops if kind == "fwd" else sum(
             flash_work(B, H, T, D, k)[0] for k in ("dq", "dkv"))
-        log(f"  {row['name']} (B={B} H={H} T={T} D={D}): kernel "
+        log(f"  {row['name']} (B={B} H={H} T={T} D={D}, "
+            f"{str(dtype)[6:]}): kernel "
             f"{ms[kind]:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
             f"{row['library_ms']:.4f} ms, bound {b_ms:.4f} ms "
             f"({row['bound_by']}), {flops / ms[kind] / 1e9:.1f} TFLOP/s "
@@ -1550,6 +1586,121 @@ def phase_lstm_train_parity(torch, M):
         raise AssertionError("rnn_time_step differs from output")
 
 
+LSTM_WIDE = 2304  # wider than ops.lstm.MAX_H: the step loop's route
+
+
+def lstm_wide_layer(torch, R, a, device, dtype):
+    """`lstm_forward` of one sigmoid/tanh layer on numpy inputs `a` (cast
+    to `dtype` on `device`): (out, hT, cT) and the gradients of
+    sum(out * dout) in x, W, RW, b, the peepholes, h0 and c0, on the
+    CPU in f32."""
+    t = {k: torch.from_numpy(v).to(device=device, dtype=dtype)
+         .requires_grad_() for k, v in a.items() if k not in ("mask", "dout")}
+    out, (hT, cT) = R.lstm_forward(
+        t["x"], t["W"], t["RW"], t["b"], (t["pI"], t["pF"], t["pO"]),
+        torch.sigmoid, torch.tanh, t["h0"], t["c0"],
+        torch.from_numpy(a["mask"]).to(device=device, dtype=dtype),
+        gate_is_sigmoid=True, cell_is_tanh=True)
+    (out * torch.from_numpy(a["dout"]).to(device=device, dtype=dtype)) \
+        .sum().backward()
+    return [v.detach().float().cpu() for v in (out, hT, cT)] \
+        + [t[k].grad.float().cpu() for k in ("x", "W", "RW", "b", "pI",
+                                              "pF", "pO", "h0", "c0")]
+
+
+def phase_lstm_wide(torch, M):
+    """Queue C1: a sigmoid/tanh LSTM wider than the fused kernels take
+    (H=2304 > MAX_H) runs `lstm_forward`'s step loop on the card, as the
+    JAX package runs its scan, chosen from the arguments: counts set to 0
+    before each card run and read after (loop routes > 0, no fused route,
+    no kernel launch, no plain-kernel call). One layer (B=4, T=3, masked),
+    f32 and bf16: out, hT, cT and every gradient on the card against the
+    f32 call on the CPU, row by row (`lstm.error_in_tolerances`: f32 within
+    1e-4; bf16 within 2^-5, twice the kernels' bound, since the loop
+    rounds every operation's result to bf16: the CPU's bf16 loop lies up
+    to 1.5 x 2^-6 from the f32 one, printed beside the card's). Then a
+    GravesLSTM(2304) -> RnnOutputLayer network,
+    f32, SGD lr 0.1, 2 fit steps (B=8, T=16) on the card against the CPU
+    from one set of weights: losses rtol 1e-5, parameters rtol 1e-5 +
+    atol 1e-5."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.nn.layers import recurrent as R
+
+    L, H = M["lstm"], LSTM_WIDE
+
+    def counted(run):
+        R.lstm_forward.routes.update(fused=0, loop=0)
+        L.reset_counts()
+        res = run()
+        counts = (dict(R.lstm_forward.routes), dict(L.launches),
+                  L.lstm_fwd_plain.calls + L.lstm_bwd_plain.calls)
+        if counts[0]["loop"] < 1 or counts[0]["fused"] or any(counts[1:]):
+            raise AssertionError(f"H={H}: expected only the step loop, got "
+                                 f"routes, launches, plain calls {counts}")
+        return res, counts
+
+    rng = np.random.default_rng(23)
+    r = lambda *s, sc=1.0: (rng.standard_normal(s) * sc).astype(np.float32)
+    Bn, Tn, NI = 4, 3, 16
+    a = dict(x=r(Bn, Tn, NI), W=r(NI, 4 * H, sc=0.3),
+             RW=r(H, 4 * H, sc=H ** -0.5), b=r(4 * H, sc=0.1),
+             pI=r(H, sc=0.1), pF=r(H, sc=0.1), pO=r(H, sc=0.1),
+             h0=r(Bn, H, sc=0.5), c0=r(Bn, H, sc=0.5), dout=r(Bn, Tn, H),
+             mask=(np.arange(Tn)[None] < np.array([3, 2, 3, 1])[:, None])
+             .astype(np.float32))
+    want = lstm_wide_layer(torch, R, a, "cpu", torch.float32)
+    for dt, bound in ((torch.float32, 1.0), (torch.bfloat16, 2.0)):
+        got, counts = counted(lambda: lstm_wide_layer(torch, R, a, "cuda",
+                                                      dt))
+        cpu = lstm_wide_layer(torch, R, a, "cpu", dt)
+        units = [L.error_in_tolerances(g, w, dt) for g, w in zip(got, want)]
+        own = max(L.error_in_tolerances(g, w, dt) for g, w in zip(cpu, want))
+        log(f"  one layer H={H} {str(dt)[6:]}: routes, launches, plain "
+            f"calls {counts}; out, hT, cT and 9 gradients vs the f32 loop on "
+            f"the CPU: card worst {max(units):.3f}, CPU {own:.3f} x "
+            f"{L.TOLERANCE[dt]:.3g} (bound {bound})")
+        if max(units) > bound:
+            raise AssertionError(f"H={H} {dt}: card differs from the f32 "
+                                 f"loop ({units})")
+    C, A, LF = M["conf"], M["Activation"], M["LossFunction"]
+    conf = (C.NeuralNetConfiguration.Builder().seed(9).learning_rate(0.1)
+            .updater("sgd").list()
+            .layer(C.GravesLSTM(n_in=64, n_out=H, activation=A.TANH))
+            .layer(C.RnnOutputLayer(n_out=64, loss=LF.MCXENT,
+                                    activation=A.SOFTMAX))
+            .set_input_type(C.InputType.recurrent(64)).build())
+    cpu = M["MultiLayerNetwork"](conf, device="cpu")
+    cpu.init()
+    card = M["MultiLayerNetwork"](conf, device="cuda")
+    card.set_param_tree([{k: v.clone() for k, v in p.items()}
+                         for p in cpu._params])
+    batches = one_hot_batches(np, 64, 8, 16, 2, seed=9)
+
+    def fit(net):
+        losses = []
+        for x, y in batches:
+            net.fit(M["DataSet"](x, y))
+            losses.append(net.score_value)
+        return losses
+
+    lc, counts = counted(lambda: fit(card))
+    lp = fit(cpu)
+    worst = max((a_.cpu() - b_).abs().max().item()
+                for pa, pb in zip(card._params, cpu._params)
+                for a_, b_ in ((pa[k], pb[k]) for k in pa))
+    log(f"  GravesLSTM({H}) network, 2 SGD steps: losses card {lc} cpu {lp}; "
+        f"routes, launches, plain calls on the card {counts}; params max abs "
+        f"diff {worst:.3e}")
+    np.testing.assert_allclose(lc, lp, rtol=1e-5)
+    for pa, pb in zip(card._params, cpu._params):
+        for k in pa:
+            d = (pa[k].cpu() - pb[k]).abs()
+            if not bool((d <= 1e-5 + 1e-5 * pb[k].abs()).all()):
+                raise AssertionError(f"param {k} differs card vs CPU by "
+                                     f"{d.max().item()}")
+
+
 def phase_lstm_train(torch, M, card):
     """Main path 4: bench.py lstm_large at full width (bf16 compute over
     f32 masters, uint8 ids through the OneHotEncoder)."""
@@ -1824,48 +1975,51 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     card = nvidia_smi_line()
-    log(f"[1/15] card: {card}; {torch.cuda.get_device_name(0)}; torch "
+    log(f"[1/16] card: {card}; {torch.cuda.get_device_name(0)}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}; "
         f"{torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     built = cuda_build.build(KERNEL_SOURCES)
-    log(f"[2/15] build: {time.perf_counter() - t0:.1f} s for "
+    log(f"[2/16] build: {time.perf_counter() - t0:.1f} s for "
         f"{len(built)} source(s)")
     for name, res in built.items():
         for line in ptxas_summary(res.log):
             log(f"  {name}: {line}")
 
-    log("[3/15] paged kernels against their plain versions (TF32 off)")
+    log("[3/16] paged kernels against their plain versions (TF32 off)")
     phase_kernels(torch, pa)
-    log("[4/15] flash kernels against their plain versions (TF32 off)")
+    log("[4/16] flash kernels against their plain versions (TF32 off)")
     phase_flash(torch, fa)
-    log("[5/15] f32 DecodeEngine vs generate, 2 layers, d_model 1024")
+    log("[5/16] f32 DecodeEngine vs generate, 2 layers, d_model 1024")
     phase_parity(torch, M)
-    log("[6/15] f32 training, card (kernels) vs CPU (plain), 1 layer, "
+    log("[6/16] f32 training, card (kernels) vs CPU (plain), 1 layer, "
         "d_model 1024, T=1024")
     phase_train_parity(torch, M)
-    log("[7/15] serving the 8-layer bf16 GPT at full width")
+    log("[7/16] serving the 8-layer bf16 GPT at full width")
     launches = phase_serve(torch, M, pa, card)
-    log("[8/15] serving it with int8 KV, the prefix cache and "
+    log("[8/16] serving it with int8 KV, the prefix cache and "
         "self-speculation on shared-prefix traffic")
     launches.update(phase_serve_tier(torch, M, pa, card))
-    log("[9/15] training the 8-layer bf16 gpt_long GPT at full width")
+    log("[9/16] training the 8-layer bf16 gpt_long GPT at full width")
     flash_counts = phase_train(torch, M, card)
-    log("[10/15] LSTM kernels against their plain versions (TF32 off)")
+    log("[10/16] LSTM kernels against their plain versions (TF32 off)")
     phase_lstm_kernels(torch, L, M)
-    log("[11/15] f32 char-RNN training, card (kernels) vs CPU (plain), "
+    log("[11/16] f32 char-RNN training, card (kernels) vs CPU (plain), "
         "H=256")
     phase_lstm_train_parity(torch, M)
-    log("[12/15] training the bf16 lstm_large char-RNN at full width")
+    log("[12/16] training the bf16 lstm_large char-RNN at full width")
     lstm_counts = phase_lstm_train(torch, M, card)
-    log("[13/15] training the bf16 lstm char-RNN with tBPTT 24 at full width")
+    log("[13/16] training the bf16 lstm char-RNN with tBPTT 24 at full width")
     tbptt_counts = phase_lstm_tbptt(torch, M, card)
-    log("[14/15] timing at the serving and training shapes (bf16)")
+    log("[14/16] timing at the serving and training shapes (bf16)")
     rows = phase_timing(torch, pa, launches)
     rows += phase_flash_timing(torch, fa, flash_counts)
-    log("[15/15] timing the LSTM kernels at the char-RNN shapes (bf16)")
+    log("[15/16] timing the LSTM kernels at the char-RNN shapes (bf16)")
     rows += phase_lstm_timing(torch, L, lstm_counts, tbptt_counts)
+    log(f"[16/16] a GravesLSTM wider than the fused kernels (H={LSTM_WIDE}): "
+        "the step loop, card vs CPU")
+    phase_lstm_wide(torch, M)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -31,7 +31,10 @@
 //    (P from registers), the softmax in the log2 domain with ex2, and mask
 //    only the diagonal tile. Blocks take the query tiles in reverse, so
 //    under the causal mask the longest rows start first;
-//  - bf16 backward (dQ; dK/dV) at every D, and the forward at D >= 256:
+//  - bf16 D = 128 backward: flash_bwd_dq_wgmma_kernel and
+//    flash_bwd_dkv_wgmma_kernel, the same structure (their section below
+//    says how the work is split between the consumer warpgroups);
+//  - bf16 backward (dQ; dK/dV) at D >= 256, and the forward at D >= 256:
 //    4-warp blocks, each warp 16 rows of a 64-row tile with its scores and
 //    accumulators in registers; mma.sync m16n8k16 fed by ldmatrix from
 //    tiles staged by cp.async (double-buffered), and a score tile's
@@ -47,8 +50,8 @@
 // What bounds it on an H100: at the training shape (T = 4096, D = 128) the
 // work is far above the card's ridge (about 2 * D * T / 2 flops per byte
 // of Q, K, V read), so it is bounded by operations, 989 TFLOP/s in bf16,
-// which only wgmma reaches: the forward's products run there, fed by TMA
-// so no thread spends instructions on staging; the mbarrier waits spin
+// which only wgmma reaches: the D = 128 kernels' products run there, fed
+// by TMA so no thread spends instructions on staging; the mbarrier waits spin
 // inside PTX, so ptxas sees no divergent branch between wgmma operations
 // and does not serialize them. What still holds it back: each consumer
 // warpgroup runs its two products and its softmax one after the other (the
@@ -56,8 +59,8 @@
 // warpgroup's softmax with its own previous P V product needs S, O and two
 // P tiles live at once, more than the 168 registers ptxas gives a thread
 // of this 384-thread block (setmaxnreg moves registers at run time only):
-// that schedule spilled and ran slower. The backward kernels' mma.sync is
-// the later work.
+// that schedule spilled and ran slower. The backward kernels likewise run
+// each warpgroup's products and element-wise work one after the other.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1104,6 +1107,397 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   }
 }
 
+// ============================= bf16 D = 128 backward: wgmma + TMA
+// The two backward kernels of the training path, laid out as the forward:
+// three warpgroups, warpgroup 2 the producer (one thread issues every TMA
+// load into a ring of kBwStages stages behind full and empty mbarriers),
+// warpgroups 0 and 1 the consumers, every product on wgmma, the score
+// tiles turned into the register A operand of the next product, and only
+// the diagonal tile masked under the causal mask (tiles above it are
+// never loaded). Streamed tiles hold 64 rows (keys for dQ, queries for
+// dK/dV): a 64 x 64 f32 score tile is 32 registers a thread.
+//  - dQ: a block owns 128 query rows (Q and dO loaded once), each consumer
+//    warpgroup 64 of them; the ring carries 64-key K/V tiles, which both
+//    warpgroups read. Per tile: S = Q K^T and dP = dO V^T (shared-memory
+//    operands, one commit), P = ex2(S * scale * log2(e) - L * log2(e)) and
+//    dS = P * (dP - dsum) in registers (L and dsum of the thread's two rows
+//    stay in registers), dQ += dS K with dS rounded to bf16 as the register
+//    A operand and K read MN-major. Live f32 per thread: dQ 64, S 32, dP 32.
+//  - dK/dV: a block owns 64 keys (K and V loaded once); the ring carries
+//    64-query tiles of Q and dO with their L and dsum rows (bulk copies).
+//    The two accumulators (128 registers) do not fit one warpgroup beside
+//    the score tiles, so the work is split: warpgroup 0 computes S^T = K
+//    Q^T, then P^T (f32), hands P^T to warpgroup 1 through shared memory
+//    (two buffers behind p_full / p_empty mbarriers) and accumulates
+//    dV += P^T dO; warpgroup 1 computes dP^T = V dO^T, reads P^T, forms
+//    dS^T = P^T * (dP^T - dsum) and accumulates dK += dS^T Q. Each holds
+//    64 accumulator and 32 score registers and runs two products a tile.
+// No atomics: each block writes its own rows, so two runs give the same
+// bits. Blocks take their tiles longest first: the grid's x is (b, h), so
+// the first wave holds every head's longest rows (dQ) or columns (dK/dV).
+// What holds them back: a warpgroup's element-wise work sits between its
+// products (only the other warpgroup fills the tensor cores meanwhile),
+// and an m64n64 score product reads its 4 KB of operands a k-step from
+// shared memory in about the time it multiplies them. Schedules that
+// overlap the next tile's scores with the element-wise work, or keep the
+// A operands in registers, made ptxas serialize the wgmma (C7511, C7512,
+// C7515) and ran slower.
+constexpr int kBwRows = 64;  // rows of a streamed tile; keys of a dK/dV block
+constexpr int kBwStages = 4;
+constexpr uint32_t kBwTileBytes = kBwRows * 128 * 2;  // 64 rows of D = 128
+
+struct WgDqSmem {
+  bf16 q[2][kWgRows * 64];  // 128 rows, two boxes of 64 columns
+  bf16 dO[2][kWgRows * 64];
+  bf16 k[kBwStages][2][kBwRows * 64];
+  bf16 v[kBwStages][2][kBwRows * 64];
+  uint64_t own_full, full[kBwStages], empty[kBwStages];
+};
+
+struct WgDkvSmem {
+  bf16 k[2][kBwRows * 64];
+  bf16 v[2][kBwRows * 64];
+  bf16 q[kBwStages][2][kBwRows * 64];
+  bf16 dO[kBwStages][2][kBwRows * 64];
+  float pt[2][kBwRows * kBwRows];  // P^T, in the accumulator's layout
+  float lse[kBwStages][kBwRows], dsum[kBwStages][kBwRows];
+  uint64_t own_full, full[kBwStages], empty[kBwStages];
+  uint64_t p_full[2], p_empty[2];
+};
+constexpr size_t kDqSmemBytes = sizeof(WgDqSmem) + 1024;  // + alignment
+constexpr size_t kDkvSmemBytes = sizeof(WgDkvSmem) + 1024;
+
+struct WgBwdArgs {
+  const float* lse;   // (B*H, Tq)
+  const float* dsum;  // (B*H, Tq)
+  void* out0;         // dQ or dK
+  void* out1;         // dV
+  Strides so0, so1;
+  int H, Tq, Tk, causal;
+  float scale, scale_log2;  // scale, scale * log2(e)
+};
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// acc (64 x 64) = A (64 x 128, K-major tile of two 64-column boxes `a_box`
+// bytes apart) . B^T (B: 64 rows of 128, two boxes of kBwTileBytes / 2);
+// issued, not committed
+__device__ __forceinline__ void issue_s64(float (&acc)[32], const void* a,
+                                          uint32_t a_box, const void* b) {
+  const char* pa = static_cast<const char*>(a);
+  const char* pb = static_cast<const char*>(b);
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const int box = kk / 4, off = (kk % 4) * 32;
+    sm90::wgmma_m64n64_ss(acc, sm90::desc_sw128(pa + box * a_box + off),
+                          sm90::desc_sw128(pb + box * (kBwTileBytes / 2) +
+                                           off),
+                          kk > 0);
+  }
+}
+
+// acc (64 x 128) += P (64 x 64, bf16 A fragments in registers) . B, B a
+// 64-row tile of D = 128 read MN-major; issued and committed
+__device__ __forceinline__ void issue_pb64(float (&acc)[64],
+                                           const uint32_t (&p)[16],
+                                           const void* b) {
+  const char* pb = static_cast<const char*>(b);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint32_t af[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+                            p[4 * kk + 3]};
+    sm90::wgmma_m64n128_rs_mn(
+        acc, af, sm90::desc_sw128(pb + kk * 2048, kBwTileBytes / 2));
+  }
+  sm90::wgmma_commit();
+}
+
+__device__ __forceinline__ void pack16(uint32_t (&p)[16],
+                                       const float (&x)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; i += 2) p[i / 2] = pack_bf16(x[i], x[i + 1]);
+}
+
+// A consumer's 64 x 128 accumulator (times `mul`) as bf16 into rows
+// r0 + rl, r0 + rl + 8 (and their 16-row steps) of a (b, t, h) strided
+// output: element 4j + e is row 16w + g + 8 (e >> 1), column 8j + 2t + (e & 1)
+__device__ __forceinline__ void store_wg(const float (&acc)[64], float mul,
+                                         void* out, const Strides& st, int b,
+                                         int h, int r0, int rl, int t) {
+  bf16* base = static_cast<bf16*>(out) + (long long)b * st.b +
+               (long long)h * st.h + 2 * t;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    bf16* row = base + (long long)(r0 + rl + 8 * r) * st.t;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) = __floats2bfloat162_rn(
+          acc[4 * j + 2 * r] * mul, acc[4 * j + 2 * r + 1] * mul);
+  }
+}
+
+// A dQ consumer warpgroup: query rows q0 .. q0 + 63 of the block's tile.
+__device__ __forceinline__ void dq_consumer(WgDqSmem& sm, const WgBwdArgs& a,
+                                            int wg, int q0, int nk, int b,
+                                            int h, int bh) {
+  const int l = threadIdx.x % 32, g = l / 4, t = l % 4;
+  const int rl = 16 * ((threadIdx.x % 128) / 32) + g;  // rows rl, rl + 8
+  // key tiles past this warpgroup's diagonal tile are masked out whole
+  const int nk_wg = a.causal ? q0 / kBwRows + 1 : nk;
+  float lse2[2], dsum[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const long long i = (long long)bh * a.Tq + q0 + rl + 8 * r;
+    lse2[r] = a.lse[i] * kLog2e;
+    dsum[r] = a.dsum[i];
+  }
+  float dq[64], s[32], dp[32];
+  uint32_t p[16];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dq[i] = 0.f;
+  sm90::mbar_wait(&sm.own_full, 0);
+  const char* q_tile = reinterpret_cast<const char*>(sm.q) + wg * 8192;
+  const char* do_tile = reinterpret_cast<const char*>(sm.dO) + wg * 8192;
+  for (int j = 0; j < nk; ++j) {
+    const int st = j % kBwStages;
+    sm90::mbar_wait(&sm.full[st], (j / kBwStages) & 1);
+    if (j < nk_wg) {
+      sm90::wgmma_fence();
+      issue_s64(s, q_tile, sizeof(sm.q[0]), sm.k[st]);
+      issue_s64(dp, do_tile, sizeof(sm.dO[0]), sm.v[st]);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(s);
+      sm90::fence_regs(dp);
+      const bool diag = a.causal && j == nk_wg - 1;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i >> 1) & 1;
+        const bool masked = diag && 8 * (i / 4) + 2 * t + (i & 1) > rl + 8 * r;
+        const float pv =
+            masked ? 0.f : ex2(fmaf(s[i], a.scale_log2, -lse2[r]));
+        s[i] = pv * (dp[i] - dsum[r]);  // dS
+      }
+      pack16(p, s);
+      sm90::fence_regs(dq);
+      sm90::wgmma_fence();
+      issue_pb64(dq, p, sm.k[st][0]);  // dQ += dS K
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(dq);
+    }
+    if (l == 0) sm90::mbar_arrive(&sm.empty[st]);
+  }
+  store_wg(dq, a.scale, a.out0, a.so0, b, h, q0, rl, t);
+}
+
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tdo,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const WgBwdArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  WgDqSmem& sm = *reinterpret_cast<WgDqSmem*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int qi = a.Tq / kWgRows - 1 - blockIdx.y;  // longest rows first
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const int q0 = qi * kWgRows;
+  // K/V tiles past the block's diagonal are never loaded
+  const int nk = a.causal ? (q0 + kWgRows) / kBwRows : a.Tk / kBwRows;
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(&sm.own_full, 1);
+    for (int s = 0; s < kBwStages; ++s) {
+      sm90::mbar_init(&sm.full[s], 1);
+      sm90::mbar_init(&sm.empty[s], 8);  // one arrival per consumer warp
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x >= 256) {
+    sm90::setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      sm90::mbar_expect_tx(&sm.own_full, 2 * kWgTileBytes);
+      sm90::tma_load_4d(sm.q[0], &tq, &sm.own_full, 0, h, q0, b);
+      sm90::tma_load_4d(sm.q[1], &tq, &sm.own_full, 64, h, q0, b);
+      sm90::tma_load_4d(sm.dO[0], &tdo, &sm.own_full, 0, h, q0, b);
+      sm90::tma_load_4d(sm.dO[1], &tdo, &sm.own_full, 64, h, q0, b);
+      for (int j = 0; j < nk; ++j) {
+        const int s = j % kBwStages, k0 = j * kBwRows;
+        // a stage is refilled once every consumer warp released it
+        sm90::mbar_wait(&sm.empty[s], ((j / kBwStages) & 1) ^ 1);
+        sm90::mbar_expect_tx(&sm.full[s], 2 * kBwTileBytes);
+        sm90::tma_load_4d(sm.k[s][0], &tk, &sm.full[s], 0, h, k0, b);
+        sm90::tma_load_4d(sm.k[s][1], &tk, &sm.full[s], 64, h, k0, b);
+        sm90::tma_load_4d(sm.v[s][0], &tv, &sm.full[s], 0, h, k0, b);
+        sm90::tma_load_4d(sm.v[s][1], &tv, &sm.full[s], 64, h, k0, b);
+      }
+    }
+  } else {
+    sm90::setmaxnreg_inc<232>();
+    const int wg = threadIdx.x / 128;
+    dq_consumer(sm, a, wg, q0 + wg * kBwRows, nk, b, h, bh);
+  }
+}
+
+// dK/dV warpgroup 0: S^T, P^T (handed to warpgroup 1), dV += P^T dO.
+__device__ __forceinline__ void dv_consumer(WgDkvSmem& sm, const WgBwdArgs& a,
+                                            int kj, int q_first, int nq,
+                                            int b, int h) {
+  const int l = threadIdx.x % 32, g = l / 4, t = l % 4;
+  const int tid = threadIdx.x % 128;
+  const int rl = 16 * (tid / 32) + g;  // key rows rl, rl + 8 of the block
+  float dv[64], s[32];
+  uint32_t p[16];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dv[i] = 0.f;
+  sm90::mbar_wait(&sm.own_full, 0);
+  for (int qi = q_first; qi < nq; ++qi) {
+    const int n = qi - q_first, st = n % kBwStages, pb = n & 1;
+    sm90::mbar_wait(&sm.full[st], (n / kBwStages) & 1);
+    sm90::wgmma_fence();
+    issue_s64(s, sm.k, sizeof(sm.k[0]), sm.q[st]);  // S^T = K Q^T
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(s);
+    // P^T = ex2(S^T * scale * log2(e) - L(query) * log2(e)); on the
+    // diagonal tile keys after a query are masked (exactly 0)
+    const bool diag = a.causal && qi == kj;
+    const float* Ls = sm.lse[st];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 lq = *reinterpret_cast<const float2*>(Ls + 8 * j + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * j + e, col = 8 * j + 2 * t + (e & 1);
+        const float L2 = ((e & 1) ? lq.y : lq.x) * kLog2e;
+        const bool masked = diag && rl + 8 * (e >> 1) > col;
+        s[i] = masked ? 0.f : ex2(fmaf(s[i], a.scale_log2, -L2));
+      }
+    }
+    // hand P^T to warpgroup 1 once it read the buffer's previous tile
+    sm90::mbar_wait(&sm.p_empty[pb], ((n >> 1) & 1) ^ 1);
+    float4* pt = reinterpret_cast<float4*>(sm.pt[pb]);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      pt[j * 128 + tid] =
+          make_float4(s[4 * j], s[4 * j + 1], s[4 * j + 2], s[4 * j + 3]);
+    sm90::mbar_arrive(&sm.p_full[pb]);
+    pack16(p, s);
+    sm90::fence_regs(dv);
+    sm90::wgmma_fence();
+    issue_pb64(dv, p, sm.dO[st][0]);  // dV += P^T dO
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(dv);
+    if (l == 0) sm90::mbar_arrive(&sm.empty[st]);
+  }
+  store_wg(dv, 1.f, a.out1, a.so1, b, h, kj * kBwRows, rl, t);
+}
+
+// dK/dV warpgroup 1: dP^T, dS^T = P^T * (dP^T - dsum), dK += dS^T Q.
+__device__ __forceinline__ void dk_consumer(WgDkvSmem& sm, const WgBwdArgs& a,
+                                            int kj, int q_first, int nq,
+                                            int b, int h) {
+  const int l = threadIdx.x % 32, g = l / 4, t = l % 4;
+  const int tid = threadIdx.x % 128;
+  const int rl = 16 * (tid / 32) + g;
+  float dk[64], dp[32];
+  uint32_t p[16];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dk[i] = 0.f;
+  sm90::mbar_wait(&sm.own_full, 0);
+  for (int qi = q_first; qi < nq; ++qi) {
+    const int n = qi - q_first, st = n % kBwStages, pb = n & 1;
+    sm90::mbar_wait(&sm.full[st], (n / kBwStages) & 1);
+    sm90::wgmma_fence();
+    issue_s64(dp, sm.v, sizeof(sm.v[0]), sm.dO[st]);  // dP^T = V dO^T
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(dp);
+    sm90::mbar_wait(&sm.p_full[pb], (n >> 1) & 1);
+    const float4* pt = reinterpret_cast<const float4*>(sm.pt[pb]);
+    const float* Ds = sm.dsum[st];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float4 pv = pt[j * 128 + tid];
+      const float2 d2 = *reinterpret_cast<const float2*>(Ds + 8 * j + 2 * t);
+      dp[4 * j] = pv.x * (dp[4 * j] - d2.x);
+      dp[4 * j + 1] = pv.y * (dp[4 * j + 1] - d2.y);
+      dp[4 * j + 2] = pv.z * (dp[4 * j + 2] - d2.x);
+      dp[4 * j + 3] = pv.w * (dp[4 * j + 3] - d2.y);
+    }
+    sm90::mbar_arrive(&sm.p_empty[pb]);
+    pack16(p, dp);
+    sm90::fence_regs(dk);
+    sm90::wgmma_fence();
+    issue_pb64(dk, p, sm.q[st][0]);  // dK += dS^T Q
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(dk);
+    if (l == 0) sm90::mbar_arrive(&sm.empty[st]);
+  }
+  store_wg(dk, a.scale, a.out0, a.so0, b, h, kj * kBwRows, rl, t);
+}
+
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tdo,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               const WgBwdArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  WgDkvSmem& sm = *reinterpret_cast<WgDkvSmem*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int kj = blockIdx.y;  // under the causal mask: longest columns first
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const int k0 = kj * kBwRows;
+  // query tiles before the diagonal see none of these keys
+  const int q_first = a.causal ? kj : 0;
+  const int nq = a.Tq / kBwRows;
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(&sm.own_full, 1);
+    for (int s = 0; s < kBwStages; ++s) {
+      sm90::mbar_init(&sm.full[s], 1);
+      sm90::mbar_init(&sm.empty[s], 8);  // one arrival per consumer warp
+    }
+    for (int i = 0; i < 2; ++i) {
+      sm90::mbar_init(&sm.p_full[i], 128);   // every thread of warpgroup 0
+      sm90::mbar_init(&sm.p_empty[i], 128);  // every thread of warpgroup 1
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x >= 256) {
+    sm90::setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      sm90::mbar_expect_tx(&sm.own_full, 2 * kBwTileBytes);
+      sm90::tma_load_4d(sm.k[0], &tk, &sm.own_full, 0, h, k0, b);
+      sm90::tma_load_4d(sm.k[1], &tk, &sm.own_full, 64, h, k0, b);
+      sm90::tma_load_4d(sm.v[0], &tv, &sm.own_full, 0, h, k0, b);
+      sm90::tma_load_4d(sm.v[1], &tv, &sm.own_full, 64, h, k0, b);
+      const float* lse = a.lse + (long long)bh * a.Tq;
+      const float* dsum = a.dsum + (long long)bh * a.Tq;
+      for (int qi = q_first; qi < nq; ++qi) {
+        const int n = qi - q_first, s = n % kBwStages, r0 = qi * kBwRows;
+        // a stage is refilled once every consumer warp released it
+        sm90::mbar_wait(&sm.empty[s], ((n / kBwStages) & 1) ^ 1);
+        sm90::mbar_expect_tx(&sm.full[s],
+                             2 * kBwTileBytes + 2 * kBwRows * 4);
+        sm90::tma_load_4d(sm.q[s][0], &tq, &sm.full[s], 0, h, r0, b);
+        sm90::tma_load_4d(sm.q[s][1], &tq, &sm.full[s], 64, h, r0, b);
+        sm90::tma_load_4d(sm.dO[s][0], &tdo, &sm.full[s], 0, h, r0, b);
+        sm90::tma_load_4d(sm.dO[s][1], &tdo, &sm.full[s], 64, h, r0, b);
+        sm90::bulk_load(sm.lse[s], lse + r0, kBwRows * 4, &sm.full[s]);
+        sm90::bulk_load(sm.dsum[s], dsum + r0, kBwRows * 4, &sm.full[s]);
+      }
+    }
+  } else if (threadIdx.x < 128) {
+    sm90::setmaxnreg_inc<232>();
+    dv_consumer(sm, a, kj, q_first, nq, b, h);
+  } else {
+    sm90::setmaxnreg_inc<232>();
+    dk_consumer(sm, a, kj, q_first, nq, b, h);
+  }
+}
+
 template <int D, int DO>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_mma_kernel(const Args a) {
@@ -1265,37 +1659,75 @@ size_t smem_f32(int kind) {
 template <int D>
 size_t smem_bf16(int kind) {
   Carver c{nullptr};
-  if (D == 128 && kind == kFwd) return kWgSmemBytes;
+  if (D == 128)
+    return kind == kFwd ? kWgSmemBytes
+           : kind == kDq ? kDqSmemBytes
+                         : kDkvSmemBytes;
   return kind == kFwd ? MmaFwdSmem<D, mma_cols(1, D)>::carve(c, nullptr)
                       : MmaBwdSmem<D>::carve(c, nullptr);
 }
 
-// The bf16 D = 128 forward: one 4-D tensor map per input over (D, H, T, B)
-// with the tensor's own strides (16-byte multiples, checked by the
-// wrapper), boxes of 64 x 1 x 128 x 1, built at each call.
+// The bf16 D = 128 kernels read each input through one 4-D tensor map
+// over (D, H, T, B) with the tensor's own strides (16-byte multiples,
+// checked by the wrapper), boxes of 64 x 1 x `rows` x 1, built at each
+// call.
+int make_bthd_map(CUtensorMap* map, const void* base, const Strides& s,
+                  int H, int T, int B, int rows) {
+  const cuuint64_t dims[4] = {128, (cuuint64_t)H, (cuuint64_t)T,
+                              (cuuint64_t)B};
+  const cuuint64_t bytes[3] = {(cuuint64_t)s.h * 2, (cuuint64_t)s.t * 2,
+                               (cuuint64_t)s.b * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  return sm90::make_map_bf16(map, base, 4, dims, bytes, box);
+}
+
 int launch_fwd_wgmma(const Args& a, cudaStream_t st) {
   CUtensorMap maps[3];
-  const void* ptrs[3] = {a.q, a.k, a.v};
-  const Strides* strides[3] = {&a.sq, &a.sk, &a.sv};
-  const cuuint32_t box[4] = {64, 1, kWgRows, 1};
-  for (int i = 0; i < 3; ++i) {
-    const cuuint64_t dims[4] = {128, (cuuint64_t)a.H,
-                                (cuuint64_t)(i == 0 ? a.Tq : a.Tk),
-                                (cuuint64_t)a.B};
-    const cuuint64_t bytes[3] = {(cuuint64_t)strides[i]->h * 2,
-                                 (cuuint64_t)strides[i]->t * 2,
-                                 (cuuint64_t)strides[i]->b * 2};
-    const int rc = sm90::make_map_bf16(&maps[i], ptrs[i], 4, dims, bytes, box);
-    if (rc) return rc;
-  }
+  int rc = make_bthd_map(&maps[0], a.q, a.sq, a.H, a.Tq, a.B, kWgRows);
+  if (!rc) rc = make_bthd_map(&maps[1], a.k, a.sk, a.H, a.Tk, a.B, kWgRows);
+  if (!rc) rc = make_bthd_map(&maps[2], a.v, a.sv, a.H, a.Tk, a.B, kWgRows);
+  if (rc) return rc;
   const WgFwdArgs w{a.out0, a.lse, a.so0, a.H, a.Tq, a.Tk, a.causal,
-                    a.scale * 1.4426950408889634f};
+                    a.scale * kLog2e};
   cudaError_t e = cudaFuncSetAttribute(
       flash_fwd_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)kWgSmemBytes);
   if (e != cudaSuccess) return (int)e;
   flash_fwd_wgmma_kernel<<<dim3(a.Tq / kWgRows, a.B * a.H), kWgThreads,
                            kWgSmemBytes, st>>>(maps[0], maps[1], maps[2], w);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 D = 128 backward: dQ blocks of 128 query rows (Q and dO maps
+// with 128-row boxes), dK/dV blocks of 64 keys; streamed tiles of 64 rows.
+int launch_bwd_wgmma(int kind, const Args& a, cudaStream_t st) {
+  const bool dq = kind == kDq;
+  const int own = dq ? kWgRows : kBwRows;
+  CUtensorMap maps[4];  // q, dO, k, v
+  int rc = make_bthd_map(&maps[0], a.q, a.sq, a.H, a.Tq, a.B, own);
+  if (!rc) rc = make_bthd_map(&maps[1], a.dO, a.sdo, a.H, a.Tq, a.B, own);
+  if (!rc) rc = make_bthd_map(&maps[2], a.k, a.sk, a.H, a.Tk, a.B, kBwRows);
+  if (!rc) rc = make_bthd_map(&maps[3], a.v, a.sv, a.H, a.Tk, a.B, kBwRows);
+  if (rc) return rc;
+  const WgBwdArgs w{a.lse, a.dsum, a.out0, a.out1, a.so0, a.so1, a.H,
+                    a.Tq, a.Tk, a.causal, a.scale, a.scale * kLog2e};
+  const size_t smem = dq ? kDqSmemBytes : kDkvSmemBytes;
+  cudaError_t e = dq ? cudaFuncSetAttribute(
+                           flash_bwd_dq_wgmma_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem)
+                     : cudaFuncSetAttribute(
+                           flash_bwd_dkv_wgmma_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(a.B * a.H, dq ? a.Tq / kWgRows : a.Tk / kBwRows);
+  if (dq)
+    flash_bwd_dq_wgmma_kernel<<<grid, kWgThreads, smem, st>>>(
+        maps[0], maps[1], maps[2], maps[3], w);
+  else
+    flash_bwd_dkv_wgmma_kernel<<<grid, kWgThreads, smem, st>>>(
+        maps[0], maps[1], maps[2], maps[3], w);
   return (int)cudaGetLastError();
 }
 
@@ -1321,17 +1753,18 @@ int launch_f32(int kind, const Args& a, cudaStream_t st) {
 
 template <int D>
 int launch_bf16(int kind, const Args& a, cudaStream_t st) {
-  constexpr int DF = mma_cols(1, D), DB = mma_cols(0, D);
-  void (*kern)(const Args);
   if constexpr (D == 128) {
-    if (kind == kFwd) return launch_fwd_wgmma(a, st);
+    return kind == kFwd ? launch_fwd_wgmma(a, st)
+                        : launch_bwd_wgmma(kind, a, st);
+  } else {
+    constexpr int DF = mma_cols(1, D), DB = mma_cols(0, D);
+    void (*kern)(const Args) = kind == kFwd  ? flash_fwd_mma_kernel<D, DF>
+                               : kind == kDq ? flash_bwd_dq_mma_kernel<D, DB>
+                                             : flash_bwd_dkv_mma_kernel<D, DB>;
+    const dim3 grid((kind == kDkv ? a.Tk : a.Tq) / kMmaBlk, a.B * a.H,
+                    D / (kind == kFwd ? DF : DB));
+    return run(kern, smem_bf16<D>(kind), grid, a, st);
   }
-  kern = kind == kFwd  ? flash_fwd_mma_kernel<D, DF>
-         : kind == kDq ? flash_bwd_dq_mma_kernel<D, DB>
-                       : flash_bwd_dkv_mma_kernel<D, DB>;
-  const dim3 grid((kind == kDkv ? a.Tk : a.Tq) / kMmaBlk, a.B * a.H,
-                  D / (kind == kFwd ? DF : DB));
-  return run(kern, smem_bf16<D>(kind), grid, a, st);
 }
 
 // The head dims the kernels are built for: the multiples of 128 up to 512.

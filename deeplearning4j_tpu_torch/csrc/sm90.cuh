@@ -163,6 +163,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// a contiguous run of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) copied by the bulk-copy engine, its bytes counted on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // stores of a swizzled shared-memory box through a tensor map (the async
 // proxy; clipped at the map's bounds); one bulk group per commit
 __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
@@ -248,6 +259,25 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 
 #define SM90_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
 #define SM90_D16(i) SM90_D4(i), SM90_D4(i + 4), SM90_D4(i + 8), SM90_D4(i + 12)
+#define SM90_D32 SM90_D16(0), SM90_D16(16)
+#define SM90_R32                                                             \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
+  "%30, %31}"
+
+// d (64 x 64, f32) (+)= A (64 x 16) . B^T, A and B K-major in shared
+// memory (B stored as 64 rows of k); d is zeroed first when !accumulate.
+// Accumulator layout as wgmma_m64n128_ss's, over 8 column blocks of 8.
+__device__ __forceinline__ void wgmma_m64n64_ss(float (&d)[32], uint64_t da,
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SM90_R32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : SM90_D32
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 #define SM90_D64 SM90_D16(0), SM90_D16(16), SM90_D16(32), SM90_D16(48)
 #define SM90_R64                                                             \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \

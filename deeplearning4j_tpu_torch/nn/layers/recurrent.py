@@ -2,14 +2,18 @@
 one step of it (counterpart of `deeplearning4j_tpu/nn/layers/recurrent.py`).
 
 `lstm_forward` takes one of two routes, as the JAX package's dispatch
-decides by the layer's activations: a sigmoid gate and a tanh cell in
-f32 or bf16 go to the fused LSTM (`ops/lstm.lstm_fused`: the CUDA kernels
-on the card, their plain versions on the CPU); any other activation, or
-another dtype, runs the plain time loop below, the counterpart of the JAX
-package's `lax.scan` cell. The route is chosen by the arguments, never by
-a failure, and counted in `lstm_forward.routes`. The JAX package's TPU
-preconditions (H a multiple of 128, T >= 2, a batch block dividing B) are
-not carried over: the kernels take any H and B.
+(`lstm_fused_or_none`, then its `lax.scan`) decides by the call: a
+sigmoid gate and a tanh cell in f32 or bf16 with H at most
+`ops.lstm.MAX_H` (2048) go to the fused LSTM (`ops/lstm.lstm_fused`: the
+CUDA kernels on the card, their plain versions on the CPU); any other
+activation, another dtype, or a wider layer runs the plain time loop
+below, the counterpart of the JAX package's `lax.scan` cell (its
+recurrent product a plain `torch.matmul`, as XLA computes the scan's
+outside any Pallas kernel; gradients by autograd). The route is chosen
+from the arguments before any launch, never by a failure, and counted in
+`lstm_forward.routes`. The JAX package's TPU preconditions (H a multiple
+of 128, T >= 2, a batch block dividing B) are not carried over: the
+kernels take any H up to MAX_H and any B.
 
 Layout: activations (B, T, size); gate order [i, f, o, g]. Masked steps
 pass the state through unchanged and emit zeros.
@@ -31,10 +35,10 @@ def lstm_forward(x: torch.Tensor, W: torch.Tensor, RW: torch.Tensor,
                  gate_is_sigmoid: bool = False, cell_is_tanh: bool = False):
     """The LSTM over x (B, T, nIn): (outputs (B, T, nOut), (hT, cT)).
     `mask` (B, T), 1 = valid."""
-    if gate_is_sigmoid and cell_is_tanh \
-            and x.dtype in (torch.float32, torch.bfloat16):
-        from deeplearning4j_tpu_torch.ops.lstm import lstm_fused
+    from deeplearning4j_tpu_torch.ops.lstm import MAX_H, lstm_fused
 
+    if gate_is_sigmoid and cell_is_tanh and RW.shape[0] <= MAX_H \
+            and x.dtype in (torch.float32, torch.bfloat16):
         lstm_forward.routes["fused"] += 1
         return lstm_fused(x, W, RW, b, peephole, h0, c0, mask=mask,
                           reverse=reverse)

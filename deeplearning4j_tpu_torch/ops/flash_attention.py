@@ -191,6 +191,15 @@ def _kernel_ready(t: torch.Tensor) -> torch.Tensor:
     return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
+def _stats_ready(t: torch.Tensor) -> torch.Tensor:
+    """An f32 (B*H, Tq) statistic (L or dsum) as the backward kernels read
+    it: contiguous with a 16-byte aligned base (the D = 128 dK/dV kernel
+    copies 64-float runs of it with the bulk-copy engine), else a copy."""
+    t = t.float()
+    ok = t.is_contiguous() and t.data_ptr() % 16 == 0
+    return t if ok else t.clone(memory_format=torch.contiguous_format)
+
+
 def _check_cuda(q, k, v, causal):
     """Preconditions of the kernels; returns (lib, dtype code, B, H, Tq,
     Tk, D)."""
@@ -267,6 +276,7 @@ def flash_bwd_dq(q, k, v, do, lse, dsum, causal, sm_scale):
     """Launch the dQ kernel."""
     lib, code, B, H, Tq, Tk, D = _check_cuda(q, k, v, causal)
     q, k, v, do = (_kernel_ready(t) for t in (q, k, v, do))
+    lse, dsum = _stats_ready(lse), _stats_ready(dsum)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     with torch.cuda.device(q.device):
         rc = lib.dl4j_flash_bwd_dq(
@@ -287,6 +297,7 @@ def flash_bwd_dkv(q, k, v, do, lse, dsum, causal, sm_scale):
     """Launch the dK/dV kernel."""
     lib, code, B, H, Tq, Tk, D = _check_cuda(q, k, v, causal)
     q, k, v, do = (_kernel_ready(t) for t in (q, k, v, do))
+    lse, dsum = _stats_ready(lse), _stats_ready(dsum)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     with torch.cuda.device(q.device):

@@ -23,7 +23,10 @@ they launch the kernels or raise. There is no probe, no fallback and no
 kill switch: the JAX package's `DL4J_TPU_NO_PALLAS_LSTM` and
 `DL4J_TPU_LSTM_UNROLL` switches and its TPU-only shape preconditions are
 not carried over. The kernels take B >= 1, T >= 1, f32 or bf16 and H up
-to 2048; above that they raise before the launch (`MAX_H`). The bf16
+to 2048; above that they raise before the launch (`MAX_H`), and
+`nn.layers.recurrent.lstm_forward` sends such a layer to its plain step
+loop instead (the JAX package's `lax.scan` route), chosen from the
+arguments and counted in `lstm_forward.routes["loop"]`. The bf16
 kernels take H a multiple of 8: the wrappers pad any other H with zero
 units (`_padded_units`) and cut them off the results.
 

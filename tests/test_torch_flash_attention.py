@@ -230,6 +230,81 @@ def test_causal_rows_ignore_keys_after_their_diagonal_tile(tile):
     assert not torch.equal(o2[:, cut:], o[:, cut:])
 
 
+def _plain_grads(q, k, v, do, o=None, lse=None):
+    """(dQ, dK, dV) of the plain causal backward; O and L from the plain
+    forward unless given."""
+    if o is None:
+        o, lse = fa.flash_attention_plain_fwd(q, k, v, causal=True)
+    return fa.flash_attention_plain_bwd(q, k, v, o, lse, do, causal=True)
+
+
+@pytest.mark.parametrize("tile", [0, 1, 2])
+def test_causal_dq_rows_ignore_keys_after_their_diagonal_tile(tile):
+    """What the D=128 dQ kernel's causal skip rests on: with 64-row query
+    tiles (one consumer warpgroup's rows; a block's 128 rows are two) and
+    64-key K/V tiles, dQ of query tile i is unchanged, exactly, when every
+    key and value after tile i's diagonal tile is replaced by noise (O and
+    L stay those of the clean keys, as the kernel receives them)."""
+    q, k, v, do = (torch.from_numpy(x)
+                   for x in _inputs(12, (1, 256, 2, 128)))
+    o, lse = fa.flash_attention_plain_fwd(q, k, v, causal=True)
+    dq = _plain_grads(q, k, v, do, o, lse)[0]
+    cut = 64 * (tile + 1)
+    noise = torch.from_numpy(
+        np.random.default_rng(13).standard_normal((2, 1, 256 - cut, 2, 128))
+        .astype(np.float32) * 50)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, cut:], v2[:, cut:] = noise[0], noise[1]
+    dq2 = _plain_grads(q, k2, v2, do, o, lse)[0]
+    rows = slice(64 * tile, cut)
+    torch.testing.assert_close(dq2[:, rows], dq[:, rows], rtol=0, atol=0)
+    assert not torch.equal(dq2[:, cut:], dq[:, cut:])
+
+
+@pytest.mark.parametrize("tile", [1, 2, 3])
+def test_causal_dkv_columns_ignore_queries_before_their_diagonal_tile(tile):
+    """What the D=128 dK/dV kernel's causal skip (its first query tile is
+    the block's diagonal tile) rests on: with 64-key blocks and 64-query
+    tiles, dK and dV of key tile j are unchanged, exactly, when the
+    queries, dO, O (so dsum) and L of every query before tile j's diagonal
+    tile are replaced by noise."""
+    q, k, v, do = (torch.from_numpy(x)
+                   for x in _inputs(14, (1, 256, 2, 128)))
+    o, lse = fa.flash_attention_plain_fwd(q, k, v, causal=True)
+    _, dk, dv = _plain_grads(q, k, v, do, o, lse)
+    cut = 64 * tile
+    rng = np.random.default_rng(15)
+    noise = torch.from_numpy(
+        rng.standard_normal((3, 1, cut, 2, 128)).astype(np.float32) * 50)
+    q2, do2, o2, lse2 = q.clone(), do.clone(), o.clone(), lse.clone()
+    q2[:, :cut], do2[:, :cut], o2[:, :cut] = noise[0], noise[1], noise[2]
+    lse2.reshape(2, 256)[:, :cut] = torch.from_numpy(
+        rng.standard_normal((2, cut)).astype(np.float32) * 5)
+    _, dk2, dv2 = _plain_grads(q2, k, v, do2, o2, lse2)
+    keys = slice(cut, cut + 64)
+    torch.testing.assert_close(dk2[:, keys], dk[:, keys], rtol=0, atol=0)
+    torch.testing.assert_close(dv2[:, keys], dv[:, keys], rtol=0, atol=0)
+    assert not torch.equal(dk2[:, :cut], dk[:, :cut])
+    assert not torch.equal(dv2[:, :cut], dv[:, :cut])
+
+
+def test_stats_ready_copies_only_what_the_bulk_copies_cannot_read():
+    """The backward wrappers hand L and dsum to the kernels as contiguous
+    f32 with a 16-byte aligned base (the dK/dV kernel copies 64-float runs
+    of them by the bulk-copy engine): such a tensor passes uncopied; a
+    view whose base is off by one float, a strided view and a bf16 one
+    are copied into fresh f32 memory with the same values."""
+    lse = torch.randn(4, 256)
+    assert fa._stats_ready(lse) is lse
+    flat = torch.randn(4 * 256 + 1)
+    for t in (flat[1:].reshape(4, 256), torch.randn(256, 4).t(),
+              lse.bfloat16()):
+        got = fa._stats_ready(t)
+        assert got is not t and got.is_contiguous()
+        assert got.dtype == torch.float32 and got.data_ptr() % 16 == 0
+        assert torch.equal(got, t.float())
+
+
 def test_kernel_ready_passes_qkv_slices_and_copies_the_rest():
     """The wrapper's stride and alignment check (the forward kernel's TMA
     maps need a unit D stride, a 16-byte aligned base and positive
@@ -324,3 +399,41 @@ def test_wgmma_forward_on_qkv_slices_and_cross_lengths():
         torch.cuda.synchronize()
         assert fa.error_in_tolerances("O", o, ro, dt) <= 1.0
         assert fa.error_in_tolerances("L", lse, rl, dt) <= 1.0
+
+
+@pytest.mark.gpu
+def test_wgmma_backward_cases_and_bits():
+    """The bf16 D=128 backward kernels (wgmma, TMA) against the plain
+    backward in f32 on the forward kernel's O and L, row by row within
+    `fa.error_in_tolerances`: T=128 causal (a dQ block's only tile pair
+    and a dK/dV block's diagonal tile alone), T=4096 causal (the far
+    tiles), Tq=512 x Tk=1024 non-causal, and q, k, v sliced from one
+    fused qkv tensor (read in place); each call twice, with identical
+    bits (no atomics)."""
+    _card()
+    dt = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(21)
+    r = lambda *s: torch.randn(s, generator=g, device="cuda").to(dt)
+    qkv = r(2, 1024, 3 * 4 * 128)
+    fused = [qkv[..., i * 512:(i + 1) * 512].reshape(2, 1024, 4, 128)
+             for i in range(3)] + [r(2, 1024, 4, 128)]
+    assert fa._kernel_ready(fused[0]) is fused[0]
+    cases = [([r(1, 128, 2, 128) for _ in range(4)], True),
+             ([r(1, 4096, 2, 128) for _ in range(4)], True),
+             ([r(2, 512, 2, 128), r(2, 1024, 2, 128), r(2, 1024, 2, 128),
+               r(2, 512, 2, 128)], False),
+             (fused, True)]
+    for (q, k, v, do), causal in cases:
+        o, lse = fa.flash_forward(q, k, v, causal, None, with_lse=True)
+        dsum = fa._dsum(o, do)
+        runs = [(fa.flash_bwd_dq(q, k, v, do, lse, dsum, causal, None),)
+                + fa.flash_bwd_dkv(q, k, v, do, lse, dsum, causal, None)
+                for _ in range(2)]
+        ref = fa.flash_attention_plain_bwd(q.float(), k.float(), v.float(),
+                                           o.float(), lse, do.float(),
+                                           causal)
+        torch.cuda.synchronize()
+        for name, a, b, want in zip(("dQ", "dK", "dV"), runs[0], runs[1],
+                                    ref):
+            assert torch.equal(a, b), name
+            assert fa.error_in_tolerances(name, a, want, dt) <= 1.0, name

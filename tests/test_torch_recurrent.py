@@ -21,6 +21,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 jax = pytest.importorskip("jax")
 
@@ -359,3 +360,123 @@ def test_weight_init_statistics():
     for k in ("W", "RW"):
         s, js = float(p[k].std()), float(np.std(np.asarray(q[k])))
         assert abs(s - js) < 0.05 * js, (k, s, js)
+
+
+def _wide_inputs(Hn, seed, Bn=2, Tn=3, NI=8):
+    """One GravesLSTM layer's inputs at width Hn (pre-activations of order
+    one: RW ~ N(0, 1/Hn)), nonzero h0, c0 and peepholes, a ragged mask."""
+    rng = np.random.default_rng(seed)
+    r = lambda *s, sc=1.0: (rng.standard_normal(s) * sc).astype(np.float32)
+    lens = Tn - np.arange(Bn) % Tn  # Tn, Tn - 1, ...: ragged rows
+    mask = (np.arange(Tn)[None] < lens[:, None]).astype(np.float32)
+    return dict(x=r(Bn, Tn, NI), W=r(NI, 4 * Hn, sc=0.3),
+                RW=r(Hn, 4 * Hn, sc=Hn ** -0.5), b=r(4 * Hn, sc=0.1),
+                peep=[r(Hn, sc=0.1) for _ in range(3)], h0=r(Bn, Hn, sc=0.5),
+                c0=r(Bn, Hn, sc=0.5), mask=mask, dout=r(Bn, Tn, Hn))
+
+
+_WIDE_ARGS = ("x", "W", "RW", "b", "pI", "pF", "pO", "h0", "c0")
+
+
+def _wide_port(a, device="cpu", dtype=torch.float32):
+    """The port's lstm_forward on `a`: (out, hT, cT) and the gradients of
+    sum(out * dout) in every input, as numpy f32."""
+    t = {k: torch.from_numpy(a[k]).to(device=device, dtype=dtype)
+         .requires_grad_() for k in ("x", "W", "RW", "b", "h0", "c0")}
+    for k, v in zip(("pI", "pF", "pO"), a["peep"]):
+        t[k] = torch.from_numpy(v).to(device=device, dtype=dtype) \
+            .requires_grad_()
+    out, (hT, cT) = recurrent.lstm_forward(
+        t["x"], t["W"], t["RW"], t["b"], (t["pI"], t["pF"], t["pO"]),
+        torch.sigmoid, torch.tanh, t["h0"], t["c0"],
+        torch.from_numpy(a["mask"]).to(device=device, dtype=dtype),
+        gate_is_sigmoid=True, cell_is_tanh=True)
+    (out * torch.from_numpy(a["dout"]).to(device=device, dtype=dtype)) \
+        .sum().backward()
+    f = lambda v: v.detach().float().cpu().numpy()
+    return [f(out), f(hT), f(cT)], [f(t[k].grad) for k in _WIDE_ARGS]
+
+
+@pytest.mark.parametrize("over", [0, 1])
+def test_lstm_above_max_h_takes_the_step_loop(over):
+    """Queue C1: a sigmoid/tanh layer wider than the fused kernels take
+    (H = MAX_H + 1) runs the plain step loop, as the JAX package runs its
+    `lax.scan` where `lstm_fused_or_none` returns None; H = MAX_H stays on
+    the fused route. The route is chosen from the arguments (no launch, no
+    raise) and counted. Forward and the gradients in every input against
+    the JAX package's `lstm_forward` (f32, B=2, T=3, masked): out, hT, cT
+    atol 1e-5; gradients rtol 1e-4 + atol 2e-5 (sums over ~2048 terms in
+    another order)."""
+    import jax.numpy as jnp
+
+    from deeplearning4j_tpu.nn.layers.recurrent import (
+        lstm_forward as jlstm_forward,
+    )
+
+    Hn = plstm.MAX_H + over
+    a = _wide_inputs(Hn, seed=20 + over)
+
+    def jf(x, W, RW, b, pI, pF, pO, h0, c0):
+        return jlstm_forward(x, W, RW, b, (pI, pF, pO), jax.nn.sigmoid,
+                             jnp.tanh, h0, c0, jnp.asarray(a["mask"]),
+                             gate_is_sigmoid=True, cell_is_tanh=True)
+
+    args = [jnp.asarray(a[k]) for k in ("x", "W", "RW", "b")] \
+        + [jnp.asarray(p) for p in a["peep"]] \
+        + [jnp.asarray(a["h0"]), jnp.asarray(a["c0"])]
+    jout, (jh, jc) = jf(*args)
+    jgrads = jax.grad(lambda *z: jnp.sum(jf(*z)[0] * a["dout"]),
+                      argnums=tuple(range(9)))(*args)
+    recurrent.lstm_forward.routes.update(fused=0, loop=0)
+    plstm.reset_counts()
+    outs, grads = _wide_port(a)
+    want = {"fused": 0, "loop": 1} if over else {"fused": 1, "loop": 0}
+    assert recurrent.lstm_forward.routes == want
+    assert plstm.lstm_fwd_plain.calls == (0 if over else 1)
+    assert not plstm.launches
+    for got, ref, n in zip(outs, (jout, jh, jc), ("out", "hT", "cT")):
+        np.testing.assert_allclose(got, np.asarray(ref), atol=1e-5,
+                                   err_msg=n)
+    for got, ref, n in zip(grads, jgrads, _WIDE_ARGS):
+        np.testing.assert_allclose(got, np.asarray(ref), rtol=1e-4,
+                                   atol=2e-5, err_msg=f"d{n}")
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+# The step loop in bf16 rounds every operation's result to bf16 (the
+# kernels round only what they store): at H=2304 its outputs and
+# gradients lie up to 1.5 x 2^-6 of a row's scale from the f32 loop's (dRW,
+# whose T terms are summed in bf16; 0.4-0.9 elsewhere), on the card and on
+# the CPU alike. A bf16 loop is held to the f32 loop within twice
+# `ops.lstm.TOLERANCE[bf16]`, 2^-5.
+LOOP_BF16_UNITS = 2.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_graves_lstm_above_max_h_on_the_card(dtype):
+    """A GravesLSTM layer at H=2304 on the card takes the step loop (no
+    kernel launch, no raise) and matches the f32 loop on the CPU: out, hT,
+    cT and every gradient held row by row with
+    `ops.lstm.error_in_tolerances`, f32 within 1e-4, bf16 within
+    LOOP_BF16_UNITS (the CPU's own bf16 loop is held to the same)."""
+    _card()
+    dt = getattr(torch, dtype)
+    a = _wide_inputs(2304, seed=31, Bn=4, Tn=3, NI=16)
+    ref = _wide_port(a, "cpu", torch.float32)
+    bound = 1.0 if dt == torch.float32 else LOOP_BF16_UNITS
+    for dev in ("cuda", "cpu"):
+        recurrent.lstm_forward.routes.update(fused=0, loop=0)
+        plstm.reset_counts()
+        got = _wide_port(a, dev, dt)
+        assert recurrent.lstm_forward.routes == {"fused": 0, "loop": 1}
+        assert not plstm.launches and plstm.lstm_fwd_plain.calls == 0
+        for g, r in zip(got[0] + got[1], ref[0] + ref[1]):
+            assert plstm.error_in_tolerances(torch.from_numpy(g),
+                                             torch.from_numpy(r),
+                                             dt) <= bound, dev
