@@ -3,7 +3,7 @@
 does `chip_smoke.py`'s comparison against the plain versions catch a
 kernel that is wrong?
 
-    python3 chip_fault_check.py      # about 6 minutes on an H100
+    python3 chip_fault_check.py      # about 15 minutes on an H100
 
 For the unchanged sources and for each planted fault below, the script
 copies `deeplearning4j_tpu_torch/` into a temporary directory, plants the
@@ -12,10 +12,11 @@ or `csrc/lstm.cu` (the checkout is never changed), builds every copy with
 nvcc in parallel, and then runs the faulted kernel family's check in one
 process per copy (the unchanged copy runs all three):
 
-- flash: the bf16 forward, dQ and dK/dV kernels (at D = 128 the wgmma
-  kernels, at D = 256 the mma.sync ones) on the cases below, held
-  to the plain versions in f32 with `flash_attention.error_in_tolerances`
-  (O, dQ, dK, dV row by row; L absolute), as `chip_smoke.py` does. Beside
+- flash: the forward, dQ and dK/dV kernels on the cases below, bf16 (at
+  D = 128 the wgmma kernels, at D = 256 the mma.sync ones) and f32 (the
+  split-TF32 kernels at D = 128 and 256), held to the plain versions in
+  f32 with `flash_attention.error_in_tolerances` (O, dQ, dK, dV row by
+  row; L absolute; 2^-6 bf16, 1e-4 f32), as `chip_smoke.py` does. Beside
   it, each case is also read against the earlier bound (the largest
   absolute error within 2e-2 of the reference's largest magnitude), to
   show what that bound let through;
@@ -36,7 +37,12 @@ tile and a K/V ring stage refilled before its release; the D = 128
 backward's ring stages refilled before their release, P^T read before its
 barrier, the diagonal mask on the wrong tile, the first visible Q tile off
 by one, L and dsum of the neighbouring Q tile, and a far tile (40)
-skipped; the paged walk's
+skipped; the f32 kernels' split TF32 (the small terms dropped, which is
+one TF32 pass, and the big part not rounded by cvt.rna, which the tensor
+cores then truncate, and the block's split pass over the streamed tiles
+writing no small parts), their fresh accumulators overwriting the running
+sums, each f32 kernel's diagonal tile skipped and its final K/V (or Q)
+tile dropped; the paged walk's
 split merge, key slices and int8 rounding point; the bf16 LSTM
 backward's cluster barrier between its two phases, and its row tile
 reading dz from the next tile's rows; the bf16 LSTM forward's h rows
@@ -62,11 +68,19 @@ import tempfile
 REPO = os.path.dirname(os.path.abspath(__file__))
 PKG = "deeplearning4j_tpu_torch"
 FLASH, PAGED, LSTM = "flash_attention", "paged_attention", "lstm"
-# (B, T, H, D, causal), bf16: the training path's kernels at D = 128 and
-# the same templates at D = 256
-CASES = [(2, 512, 2, 128, False), (2, 512, 2, 128, True),
-         (1, 4096, 2, 128, True), (2, 512, 2, 256, True),
-         (1, 4096, 2, 256, False)]
+# (B, T, H, D, causal, dtype): bf16, the training path's kernels at D = 128
+# and the same templates at D = 256; f32, the split-TF32 kernels (path
+# 2f's at D = 128)
+CASES = [(2, 512, 2, 128, False, "bfloat16"), (2, 512, 2, 128, True,
+                                               "bfloat16"),
+         (1, 4096, 2, 128, True, "bfloat16"),
+         (2, 512, 2, 256, True, "bfloat16"),
+         (1, 4096, 2, 256, False, "bfloat16"),
+         (2, 512, 2, 128, False, "float32"), (2, 512, 2, 128, True,
+                                              "float32"),
+         (1, 4096, 2, 128, True, "float32"),
+         (1, 4096, 2, 128, False, "float32"),
+         (2, 512, 2, 256, True, "float32")]
 OLD_BOUND = 2e-2
 # (name, source, anchor, edits): each edit (text, replacement) replaces the
 # first `text` after `anchor`, in order
@@ -79,6 +93,14 @@ DKVW = "flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,"
 DQC = "__device__ __forceinline__ void dq_consumer("
 DVC = "__device__ __forceinline__ void dv_consumer("
 DKC = "__device__ __forceinline__ void dk_consumer("
+MMA3 = "__device__ __forceinline__ void mma3("
+SPLIT = "__device__ __forceinline__ void split_tf32("
+SPLIT_TILE = "__device__ __forceinline__ void split_tile("
+ADD_ACC = "__device__ __forceinline__ void add_acc("
+FWDT = "flash_fwd_tf32_kernel(const Args a) {"
+DQT = "flash_bwd_dq_tf32_kernel(const Args a) {"
+DKVT = "flash_bwd_dkv_tf32_kernel(const Args a) {"
+NK_TF = "const int nk = a.causal ? (q0 + BLK) / KB : a.Tk / KB;"
 SCAL = "paged_attention_kernel(const Call c) {"
 PV = "// acc (TR, hd) = acc * corr + P . V"
 STAGE = "__device__ __forceinline__ void stage_slice("
@@ -148,6 +170,31 @@ MUTATIONS = [
     ("dV (wgmma) drops P^T.dO of Q tile 40", FLASH, DVC, [
         ("issue_pb64(dv, p, sm.dO[st][0]);",
          "if (qi != 40) issue_pb64(dv, p, sm.dO[st][0]);")]),
+    ("f32 (TF32): the small terms dropped (one TF32 pass)", FLASH, MMA3, [
+        ("  mma_tf32(d, a.small, b.big[0], b.big[1]);\n"
+         "  mma_tf32(d, a.big, b.small[0], b.small[1]);\n", "")]),
+    ("f32 (TF32): the big part not rounded by cvt.rna (truncated)", FLASH,
+     SPLIT, [("big = tf32_rna(x);", "big = __float_as_uint(x);")]),
+    ("f32 (TF32): the block's split pass drops the small parts", FLASH,
+     SPLIT_TILE, [("make_float4(__uint_as_float(s[0]), __uint_as_float(s[1]),\n"
+                   "                       __uint_as_float(s[2]), "
+                   "__uint_as_float(s[3])));",
+                   "make_float4(0.f, 0.f, 0.f, 0.f));")]),
+    ("f32 (TF32): a fresh accumulator overwrites the running sum", FLASH,
+     ADD_ACC, [("acc[e] += t[e];", "acc[e] = t[e];")]),
+    ("f32 forward (TF32) skips its diagonal K/V tile", FLASH, FWDT, [
+        (NK_TF, "const int nk = a.causal ? (q0 + BLK) / KB - 1 : a.Tk / KB;")]),
+    ("f32 forward (TF32) drops the final K/V tile", FLASH, FWDT, [
+        (NK_TF, "const int nk = a.causal ? (q0 + BLK) / KB : a.Tk / KB - 1;")]),
+    ("f32 dQ (TF32) skips its diagonal K/V tile", FLASH, DQT, [
+        (NK_TF, "const int nk = a.causal ? (q0 + BLK) / KB - 1 : a.Tk / KB;")]),
+    ("f32 dQ (TF32) drops the final K/V tile", FLASH, DQT, [
+        (NK_TF, "const int nk = a.causal ? (q0 + BLK) / KB : a.Tk / KB - 1;")]),
+    ("f32 dK/dV (TF32) starts one Q tile after the diagonal", FLASH, DKVT, [
+        ("const int q_first = a.causal ? k0 / KB : 0;",
+         "const int q_first = a.causal ? k0 / KB + 1 : 0;")]),
+    ("f32 dK/dV (TF32) drops the final Q tile", FLASH, DKVT, [
+        ("const int nq = a.Tq / KB;", "const int nq = a.Tq / KB - 1;")]),
     ("int8: V dequantized with the K scales", PAGED, PV, [
         ("if constexpr (kQuant) vsc = cVs[kk + x];",
          "if constexpr (kQuant) vsc = cKs[kk + x];")]),
@@ -304,19 +351,19 @@ def flash_cases(torch, fa):
     import chip_smoke as cs
 
     cases = []
-    for i, (B, T, H, D, causal) in enumerate(CASES):
-        q, k, v, do = cs.flash_inputs(torch, B, T, H, D, torch.bfloat16,
-                                      seed=60 + i)
+    for i, (B, T, H, D, causal, dtype) in enumerate(CASES):
+        dt = getattr(torch, dtype)
+        q, k, v, do = cs.flash_inputs(torch, B, T, H, D, dt, seed=60 + i)
         got = cs.flash_run(fa, q, k, v, do, causal)
         ref = cs.flash_plain_f32(fa, q, k, v, do, causal, got)
-        errs = cs.flash_errors(fa, got, ref, torch.bfloat16)
+        errs = cs.flash_errors(fa, got, ref, dt)
         old = []
         for g, r in zip(got, ref):
             e = (g.float() - r).abs().max().item()
             old.append(e / (OLD_BOUND * r.abs().max().item())
                        if e == e and abs(e) != float("inf")
                        else float("inf"))
-        cases.append({"case": f"B={B} T={T} H={H} D={D} "
+        cases.append({"case": f"B={B} T={T} H={H} D={D} {dtype} "
                               f"{'causal' if causal else 'full'}",
                       "units": {n: u for n, _, u in errs},
                       "old_units": max(old)})

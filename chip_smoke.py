@@ -33,9 +33,11 @@ Phases, each of which makes the script exit non-zero when it fails:
 4. flash kernels: forward (O and L), dQ and dK/dV against the plain
    versions computed in f32 on the same inputs (the backward's include
    the O and L the forward kernel gave), f32 and bf16, causal and not,
-   D = 128, 256, 384 and 512, T = 128 (bf16 D = 128: one tile), 512, 2048
-   and 4096, Tq = 512 with Tk = 1024 (bf16 D = 128 runs the three wgmma
-   kernels); each backward run twice, with bit-identical dQ, dK and dV
+   D = 128, 256, 384 and 512, T = 128 (D = 128: one or two tiles), 512,
+   2048 and 4096, Tq = 512 with Tk = 1024 (bf16 D = 128 runs the three
+   wgmma kernels; f32 the split-TF32 kernels, but for the backward at
+   D = 384 and 512); each backward run twice, with bit-identical dQ, dK
+   and dV
    (no atomics); and a GQA call through
    `multi_head_attention` with autograd against the same call on the
    CPU; O, dQ, dK, dV held row by row (a row's largest error within
@@ -80,10 +82,18 @@ Phases, each of which makes the script exit non-zero when it fails:
    1 warm-up step, then 5 timed steps (step ms, tokens/s, each loss, which
    must be finite, peak device memory); the flash launch counts are set
    to 0 just before the timed steps and read just after: 8 forward, 8 dQ
-   and 8 dK/dV launches per step and no call of a plain version; one more
-   step under torch.profiler gives the busy time, idle share and top
-   kernels;
-10. LSTM kernels: the forward (with its training stash) and backward
+   and 8 dK/dV launches per step, all on the wgmma route
+   (`flash_attention.launches_by_route`), and no call of a plain version;
+   one more step under torch.profiler gives the busy time, idle share and
+   top kernels;
+10. train f32 (path 2f): the same gpt_long network in f32
+   (`compute_dtype=None`, `MultiLayerNetwork`'s default) at B=1 x T=4096:
+   1 warm-up step, then 3 timed steps (step ms, tokens/s, losses, peak
+   device memory); counts set to 0 before and read after: 8 forward, 8 dQ
+   and 8 dK/dV launches per step, all on the split-TF32 route
+   (`flash_attention.launches_by_route`), no plain call; one more step
+   under torch.profiler;
+11. LSTM kernels: the forward (with its training stash) and backward
    kernels, unmasked and masked, forward and reverse, against the plain
    versions on the card (TF32 off), f32 and bf16, every case of
    `lstm_cases` (H = 128 to 2048, a ragged 196 and odd 195 and 385, B = 8
@@ -97,24 +107,24 @@ Phases, each of which makes the script exit non-zero when it fails:
    waves) at the main paths' shapes; `lstm_fused` with autograd on the
    card against the same call on the CPU (out, hT, cT, dx, dW, dRW, db,
    dpeep, dh0, dc0);
-11. LSTM training parity: a 2-layer f32 char-RNN (vocab 64, H=256, B=16,
+12. LSTM training parity: a 2-layer f32 char-RNN (vocab 64, H=256, B=16,
    T=32, RMSPROP lr 0.01) from one set of weights, 3 steps on the card and
    on the CPU: losses rtol 1e-5, params rtol 1e-5 + atol 1e-4; a tBPTT
    fit (windows 12, 12 and a masked tail) and a bidirectional fit: losses
    rtol 1e-5; `rnn_time_step` on the card equals `output` within 1e-5;
-12. train (main path 4): bench.py's `lstm_large` char-RNN at full width
+13. train (main path 4): bench.py's `lstm_large` char-RNN at full width
    (vocab 256, two GravesLSTM(1024), RMSPROP, bf16 compute over f32
    masters, OneHotEncoder(256) on uint8 ids, B=2048 x T=64, seed 1):
    1 warm-up step, then 5 timed steps (step ms, samples/s, each loss,
    finite, peak device memory); counts set to 0 before and read after: 2
    forward and 2 backward unmasked launches per step, no masked launch,
    no call of a plain version; one more step under torch.profiler;
-13. train (main path 4b): bench.py's `lstm` char-RNN at full width (vocab
+14. train (main path 4b): bench.py's `lstm` char-RNN at full width (vocab
    64, H=256, B=8192 x T=64) with tBPTT 24, one-hot rows as features:
    after a warm-up fit, one fit of one batch (wall time); counts: 4
    unmasked and 2 masked forward launches, the same backward, no plain
    call; one more fit under torch.profiler;
-14. timing: the flash kernels are first held to their plain versions at
+15. timing: the flash kernels are first held to their plain versions at
    the training shape twice: on q/k/v sliced from one fused qkv tensor,
    as the training path passes them (the backward twice, bit-identical),
    and on contiguous ones; then CUDA
@@ -129,10 +139,13 @@ Phases, each of which makes the script exit non-zero when it fails:
    bytes / 3.35 TB/s) of this run's data, and each flash kernel's
    achieved TFLOP/s beside the library's, also at head_dim 256, 384 and
    512 (B=2, H=4, T=2048) and for the f32 kernels at phase 6's shape (B=2,
-   H=8, T=1024, D=128; SDPA in f32, TF32 off); the int8 kernel also at a
+   H=8, T=1024, D=128) and at path 2f's (B=1, H=8, T=4096, with path 2f's
+   launch counts; SDPA in f32, TF32 off; bound 3 x flops / 495 TFLOP/s
+   for the split-TF32 route, the f32-FMA bound printed beside it); the
+   int8 kernel also at a
    C=128 chunk; each paged
    case with its launch plan (route, slice, splits);
-15. LSTM timing: rows 5-8 at main path 4's shape (T=64, B=2048, H=1024,
+16. LSTM timing: rows 5-8 at main path 4's shape (T=64, B=2048, H=1024,
    unmasked) and main path 4b's window (T=24, B=8192, H=256, unmasked and
    masked), bf16, the same way, beside their plain versions, the bound
    (2*T*B*H*4H flops; each input read and each output written once) and
@@ -141,7 +154,7 @@ Phases, each of which makes the script exit non-zero when it fails:
    each launch plan; the two bf16 forward routes at their boundary (T=64,
    H=1024, B=128 cooperative and B=129 clusters, with and without the
    stash); the f32 kernels at T=8, B=2048, H=1024;
-16. a sigmoid/tanh LSTM wider than the fused kernels take (H=2304 >
+17. a sigmoid/tanh LSTM wider than the fused kernels take (H=2304 >
    `ops.lstm.MAX_H`): `lstm_forward` takes its step loop on the card
    (route counts set to 0 before and read after: loop > 0, fused 0, no
    kernel launch); one layer's outputs and gradients, f32 and bf16,
@@ -174,6 +187,7 @@ FLASH_REPLACES = {
         "deeplearning4j_tpu/ops/pallas_attention.py:183"}
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12     # H100 SXM f32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12   # H100 SXM dense TF32 tensor-core rate
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 SERVE_REPEATS = 1          # the serving batch runs this many times
 SHARED_PREFIX, SHARED_TAIL, SHARED_REQUESTS = 1024, 64, 8
@@ -183,6 +197,8 @@ SERVE = dict(vocab_size=256, d_model=1024, n_heads=8, n_layers=8,
 TRAIN = dict(vocab_size=256, d_model=1024, n_heads=8, n_layers=8,
              max_length=4096, attention_block_size=512, dropout=0.0)
 TRAIN_B, TRAIN_T, TRAIN_STEPS = 8, 4096, 5
+# path 2f: the same network in f32 (MultiLayerNetwork's default precision)
+TRAIN_F32_B, TRAIN_F32_STEPS = 1, 3
 
 
 def log(*a):
@@ -949,12 +965,15 @@ def phase_flash(torch, fa):
              for (B, T, H) in ((2, 512, 2),)]
     cases += [(1, 4096, 2, 128, dt, True)
               for dt in (torch.float32, torch.bfloat16)]
+    cases += [(1, 4096, 2, 128, torch.float32, False)]
     # one 128-row tile: the D = 128 kernels' diagonal tiles alone
-    cases += [(2, 128, 2, 128, torch.bfloat16, causal)
+    cases += [(2, 128, 2, 128, dt, causal)
+              for dt in (torch.float32, torch.bfloat16)
               for causal in (False, True)]
     cases += [(1, 4096, 2, 256, torch.bfloat16, False)]
     # head dims 384 and 512: the output columns split over blocks, 32-key
-    # streamed tiles (bf16), 16-row tiles (f32)
+    # streamed tiles (bf16), 16-key tiles (f32 forward), 16-row tiles (f32
+    # backward, scalar)
     cases += [(1, 512, 2, D, dt, causal)
               for dt in (torch.float32, torch.bfloat16)
               for D in (384, 512) for causal in (False, True)]
@@ -1072,23 +1091,27 @@ def phase_train_parity(torch, M):
         raise AssertionError("remat=True differs from remat=False")
 
 
-def phase_train(torch, M, card):
-    """Main path 2: full-width bf16 gpt_long training steps via fit."""
+def phase_train(torch, M, card, compute_dtype, B, steps, seed, route):
+    """Main path 2 (bf16 compute over f32 masters) or 2f (f32, the
+    default): full-width gpt_long training steps via fit at B x T=4096:
+    1 warm-up step, the median of `steps` timed steps, the flash launch
+    counts over them (8 of each kernel a step, all on `route`, no plain
+    call), one more step under torch.profiler."""
     import numpy as np
 
     fa = M["fa"]
     conf = M["gpt_configuration"](**TRAIN, seed=13)
     net = M["MultiLayerNetwork"](conf, dtype=torch.float32,
-                                 compute_dtype=torch.bfloat16, device="cuda")
+                                 compute_dtype=compute_dtype, device="cuda")
     net.init()
     batches = [M["DataSet"](x, y) for x, y in gpt_batches(
-        np, TRAIN["vocab_size"], TRAIN_B, TRAIN_T, TRAIN_STEPS + 2, seed=13)]
+        np, TRAIN["vocab_size"], B, TRAIN_T, steps + 2, seed=seed)]
     net.fit(batches[0])  # warm-up: cuBLAS handles, allocator, build
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.reset_counts()
     step_ms, losses = [], []
-    for ds in batches[1:TRAIN_STEPS + 1]:
+    for ds in batches[1:steps + 1]:
         t0 = time.perf_counter()
         net.fit(ds)
         torch.cuda.synchronize()
@@ -1097,26 +1120,29 @@ def phase_train(torch, M, card):
     counts = {"fwd": fa.flash_forward.launches,
               "dq": fa.flash_bwd_dq.launches,
               "dkv": fa.flash_bwd_dkv.launches}
+    routes = dict(fa.launches_by_route)
     plain = (fa.flash_attention_plain_fwd.calls,
              fa.flash_attention_plain_bwd.calls)
     peak = torch.cuda.max_memory_allocated()
     trace = traced(torch, lambda: net.fit(batches[-1]))
     med = sorted(step_ms)[len(step_ms) // 2]
-    tokens = TRAIN_B * TRAIN_T
-    log(f"  {TRAIN_STEPS} steps of B={TRAIN_B} x T={TRAIN_T}: step ms "
+    tokens = B * TRAIN_T
+    log(f"  {steps} steps of B={B} x T={TRAIN_T} "
+        f"({str(compute_dtype or torch.float32)[6:]}): step ms "
         f"{[round(t, 2) for t in step_ms]}; median {med:.2f} ms, "
         f"{tokens / med * 1e3:.1f} train tokens/s [{card}]")
     log(f"  losses {losses}; peak device memory "
         f"{peak / 2**30:.2f} GiB ({peak} bytes)")
-    log(f"  flash launches over the timed steps {counts}, plain calls "
-        f"(fwd, bwd) {plain}")
+    log(f"  flash launches over the timed steps {counts}, by route "
+        f"{routes}, plain calls (fwd, bwd) {plain}")
     log(f"  traced step (torch.profiler, not in the step times): {trace}")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite training loss: {losses}")
-    want = TRAIN["n_layers"] * TRAIN_STEPS
-    if any(c != want for c in counts.values()) or any(plain):
+    want = TRAIN["n_layers"] * steps
+    if routes != {(k, route): want for k in counts} or any(plain):
         raise AssertionError(f"expected {want} launches of each flash kernel "
-                             f"and no plain call, got {counts}, {plain}")
+                             f"on the {route} route and no plain call, got "
+                             f"{routes}, {plain}")
     del net
     torch.cuda.empty_cache()
     return counts
@@ -1138,8 +1164,9 @@ def flash_work(B, H, T, D, kind, e=2):
     return 4 * 2 * D * pairs, 4 * slab + 2 * stats + 2 * slab
 
 
-def phase_flash_timing(torch, fa, counts):
-    """Flash kernels, plain versions and SDPA at the training shape."""
+def phase_flash_timing(torch, fa, counts, counts_f32):
+    """Flash kernels, plain versions and SDPA at the training shapes (bf16
+    at path 2's, f32 at path 2f's with its launch counts)."""
     B, H, T, D = TRAIN_B, TRAIN["n_heads"], TRAIN_T, \
         TRAIN["d_model"] // TRAIN["n_heads"]
     # first as the training path hands them over: slices of the fused qkv
@@ -1158,19 +1185,24 @@ def phase_flash_timing(torch, fa, counts):
     torch.cuda.empty_cache()
     rows = flash_rows(torch, fa, B, H, T, D, counts, err_fused, seed=9)
     # families no main path takes, each at a smaller sequence: bf16 head
-    # dims 256, 384 and 512 (the mma.sync kernels), and the f32 (parity)
-    # kernels at phase 6's shape, against SDPA in f32 with TF32 off
+    # dims 256, 384 and 512 (the mma.sync kernels); then the f32 kernels
+    # (split TF32) at phase 6's shape and at path 2f's (with its launch
+    # counts), against SDPA in f32 with TF32 off
     for D in (256, 384, 512):
         rows += flash_rows(torch, fa, 2, 4, 2048, D, {}, 0.0, seed=D)
     rows += flash_rows(torch, fa, 2, 8, 1024, 128, {}, 0.0, seed=32,
                        dtype=torch.float32)
+    rows += flash_rows(torch, fa, TRAIN_F32_B, H, T, 128, counts_f32, 0.0,
+                       seed=33, dtype=torch.float32, tag="_t4096")
     return rows
 
 
-def flash_rows(torch, fa, B, H, T, D, counts, err, seed, dtype=None):
+def flash_rows(torch, fa, B, H, T, D, counts, err, seed, dtype=None, tag=""):
     """The three kernels at (B, H, T, D) causal in `dtype` (bf16 unless
     given), held to the plain versions, then timed beside them, SDPA and
-    the bound: one row each."""
+    the bound: one row each, named with `tag` appended. An f32 kernel on
+    the split-TF32 route is bound by its three TF32 passes (3 x flops /
+    495 TFLOP/s) or its bytes; the f32-FMA bound is logged beside it."""
     import torch.nn.functional as F
 
     dtype = dtype or torch.bfloat16
@@ -1206,13 +1238,18 @@ def flash_rows(torch, fa, B, H, T, D, counts, err, seed, dtype=None):
 
     lib_bwd = time_ms(torch, sdpa_fwd_bwd) - lib_fwd
     rows = []
-    suffix = ("" if D == 128 else f"_d{D}") + ("_f32" if f32 else "")
-    peak = PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS
-    for kind, name in (("fwd", "flash_attention_fwd"),
-                       ("dq", "flash_attention_bwd_dq"),
-                       ("dkv", "flash_attention_bwd_dkv")):
+    suffix = ("" if D == 128 else f"_d{D}") + ("_f32" if f32 else "") + tag
+    lib = fa._library()
+    for code, (kind, name) in enumerate((("fwd", "flash_attention_fwd"),
+                                         ("dq", "flash_attention_bwd_dq"),
+                                         ("dkv", "flash_attention_bwd_dkv"))):
+        route = fa.ROUTES[lib.dl4j_flash_route(code, int(not f32), D)]
         flops, nbytes = flash_work(B, H, T, D, kind, q.element_size())
-        t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+        t_ops = flops / (PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS)
+        fma_ms = 1e3 * max(t_ops, nbytes / PEAK_BYTES)
+        if route == "tf32":
+            t_ops = 3 * flops / PEAK_TF32_FLOPS
+        t_bytes = nbytes / PEAK_BYTES
         b_ms = 1e3 * max(t_ops, t_bytes)
         row = {"name": name + suffix, "route": "cuda", "source": FLASH_SOURCE,
                "replaces": FLASH_REPLACES[name],
@@ -1227,11 +1264,12 @@ def flash_rows(torch, fa, B, H, T, D, counts, err, seed, dtype=None):
             if kind != "fwd" else "library: SDPA causal forward"
         lib_flops = flops if kind == "fwd" else sum(
             flash_work(B, H, T, D, k)[0] for k in ("dq", "dkv"))
+        fma = f", f32-FMA bound {fma_ms:.4f} ms" if f32 else ""
         log(f"  {row['name']} (B={B} H={H} T={T} D={D}, "
-            f"{str(dtype)[6:]}): kernel "
+            f"{str(dtype)[6:]}, {route}): kernel "
             f"{ms[kind]:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
             f"{row['library_ms']:.4f} ms, bound {b_ms:.4f} ms "
-            f"({row['bound_by']}), {flops / ms[kind] / 1e9:.1f} TFLOP/s "
+            f"({row['bound_by']}{fma}), {flops / ms[kind] / 1e9:.1f} TFLOP/s "
             f"achieved, library {lib_flops / row['library_ms'] / 1e9:.1f} "
             f"TFLOP/s ({what})")
         rows.append(row)
@@ -1975,49 +2013,55 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     card = nvidia_smi_line()
-    log(f"[1/16] card: {card}; {torch.cuda.get_device_name(0)}; torch "
+    log(f"[1/17] card: {card}; {torch.cuda.get_device_name(0)}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}; "
         f"{torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     built = cuda_build.build(KERNEL_SOURCES)
-    log(f"[2/16] build: {time.perf_counter() - t0:.1f} s for "
+    log(f"[2/17] build: {time.perf_counter() - t0:.1f} s for "
         f"{len(built)} source(s)")
     for name, res in built.items():
         for line in ptxas_summary(res.log):
             log(f"  {name}: {line}")
 
-    log("[3/16] paged kernels against their plain versions (TF32 off)")
+    log("[3/17] paged kernels against their plain versions (TF32 off)")
     phase_kernels(torch, pa)
-    log("[4/16] flash kernels against their plain versions (TF32 off)")
+    log("[4/17] flash kernels against their plain versions (TF32 off)")
     phase_flash(torch, fa)
-    log("[5/16] f32 DecodeEngine vs generate, 2 layers, d_model 1024")
+    log("[5/17] f32 DecodeEngine vs generate, 2 layers, d_model 1024")
     phase_parity(torch, M)
-    log("[6/16] f32 training, card (kernels) vs CPU (plain), 1 layer, "
+    log("[6/17] f32 training, card (kernels) vs CPU (plain), 1 layer, "
         "d_model 1024, T=1024")
     phase_train_parity(torch, M)
-    log("[7/16] serving the 8-layer bf16 GPT at full width")
+    log("[7/17] serving the 8-layer bf16 GPT at full width")
     launches = phase_serve(torch, M, pa, card)
-    log("[8/16] serving it with int8 KV, the prefix cache and "
+    log("[8/17] serving it with int8 KV, the prefix cache and "
         "self-speculation on shared-prefix traffic")
     launches.update(phase_serve_tier(torch, M, pa, card))
-    log("[9/16] training the 8-layer bf16 gpt_long GPT at full width")
-    flash_counts = phase_train(torch, M, card)
-    log("[10/16] LSTM kernels against their plain versions (TF32 off)")
+    log("[9/17] training the 8-layer bf16 gpt_long GPT at full width")
+    flash_counts = phase_train(torch, M, card, torch.bfloat16, TRAIN_B,
+                               TRAIN_STEPS, 13, "wgmma")
+    log("[10/17] path 2f: training the 8-layer gpt_long GPT in f32 "
+        "(split-TF32 flash kernels)")
+    flash_counts_f32 = phase_train(torch, M, card, None, TRAIN_F32_B,
+                                   TRAIN_F32_STEPS, 14, "tf32")
+    log("[11/17] LSTM kernels against their plain versions (TF32 off)")
     phase_lstm_kernels(torch, L, M)
-    log("[11/16] f32 char-RNN training, card (kernels) vs CPU (plain), "
+    log("[12/17] f32 char-RNN training, card (kernels) vs CPU (plain), "
         "H=256")
     phase_lstm_train_parity(torch, M)
-    log("[12/16] training the bf16 lstm_large char-RNN at full width")
+    log("[13/17] training the bf16 lstm_large char-RNN at full width")
     lstm_counts = phase_lstm_train(torch, M, card)
-    log("[13/16] training the bf16 lstm char-RNN with tBPTT 24 at full width")
+    log("[14/17] training the bf16 lstm char-RNN with tBPTT 24 at full width")
     tbptt_counts = phase_lstm_tbptt(torch, M, card)
-    log("[14/16] timing at the serving and training shapes (bf16)")
+    log("[15/17] timing at the serving and training shapes (bf16)")
     rows = phase_timing(torch, pa, launches)
-    rows += phase_flash_timing(torch, fa, flash_counts)
-    log("[15/16] timing the LSTM kernels at the char-RNN shapes (bf16)")
+    rows += phase_flash_timing(torch, fa, flash_counts,
+                               flash_counts_f32)
+    log("[16/17] timing the LSTM kernels at the char-RNN shapes (bf16)")
     rows += phase_lstm_timing(torch, L, lstm_counts, tbptt_counts)
-    log(f"[16/16] a GravesLSTM wider than the fused kernels (H={LSTM_WIDE}): "
+    log(f"[17/17] a GravesLSTM wider than the fused kernels (H={LSTM_WIDE}): "
         "the step loop, card vs CPU")
     phase_lstm_wide(torch, M)
     log(f"total {time.perf_counter() - t_start:.1f} s")

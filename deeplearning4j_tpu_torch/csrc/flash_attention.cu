@@ -44,8 +44,11 @@
 //    forward's block z = 0 writes L); at D > 256 the streamed tiles hold
 //    32 keys (or queries) instead of 64, and at D = 512 the backward's are
 //    single-buffered, so that the staged tiles fit a block;
-//  - f32 (the parity path; scalar FMAs, TF32 stays off): 32-row tiles (16
-//    at D > 256), f32 accumulators in shared memory.
+//  - f32 (MultiLayerNetwork's default precision): the forward at every
+//    head dim and the backward at D = 128 and 256 on the tensor cores in
+//    split TF32 (three TF32 products per f32 product, f32 accuracy; their
+//    section below); the backward at D = 384 and 512 with scalar FMAs,
+//    16-row tiles and f32 accumulators in shared memory.
 //
 // What bounds it on an H100: at the training shape (T = 4096, D = 128) the
 // work is far above the card's ridge (about 2 * D * T / 2 flops per byte
@@ -168,34 +171,16 @@ __device__ __forceinline__ void stage(float* dst, const float* src,
   }
 }
 
-// ================================================== f32 (parity) kernels
-// 32-row tiles; operand tiles padded by one float (bank spread), score and
-// accumulator rows by four (16-byte aligned for float4 access). Products
-// give one thread per output element, neighbouring threads on neighbouring
-// columns.
-// Rows of a tile: 32, or 16 at D > 256 so that the four staged tiles and
-// the two accumulators of the backward fit a block's shared memory.
-__host__ __device__ constexpr int f32_blk(int D) { return D > 256 ? 16 : 32; }
+// ================================== f32 scalar backward (D = 384, 512)
+// The f32 backward at the head dims whose split-TF32 tiles (below) would
+// not fit a block. 16-row tiles; operand tiles padded by one float (bank
+// spread), score and accumulator rows by four (16-byte aligned for float4
+// access). Products give one thread per output element, neighbouring
+// threads on neighbouring columns (FMAs, no tensor cores).
+// Rows of a tile: 16, so that the four staged tiles and the two
+// accumulators of the backward fit a block's shared memory.
+constexpr int kF32Blk = 16;
 constexpr int kAccPad = 4;
-
-template <int D>
-struct FwdSmem {
-  static constexpr int kBlk = f32_blk(D);
-  float *q, *k, *v, *p, *s, *o, *m, *l;
-  __host__ __device__ static size_t carve(Carver& c, FwdSmem* t) {
-    FwdSmem x;
-    x.q = c.take<float>(kBlk * (D + 1));
-    x.k = c.take<float>(kBlk * (D + 1));
-    x.v = c.take<float>(kBlk * (D + 1));
-    x.p = c.take<float>(kBlk * (kBlk + 1));
-    x.s = c.take<float>(kBlk * (kBlk + kAccPad));
-    x.o = c.take<float>(kBlk * (D + kAccPad));
-    x.m = c.take<float>(kBlk);
-    x.l = c.take<float>(kBlk);
-    if (t) *t = x;
-    return c.off;
-  }
-};
 
 // dQ (rows = query tile, loop over K/V) and dK/dV (rows = key tile, loop
 // over Q) share one layout: the block's own two tiles (a, b), the two
@@ -203,7 +188,7 @@ struct FwdSmem {
 // the per-query-row L and dsum.
 template <int D>
 struct BwdSmem {
-  static constexpr int kBlk = f32_blk(D);
+  static constexpr int kBlk = kF32Blk;
   float *a, *b, *c, *d, *p, *ds, *s, *dp, *acc0, *acc1, *lse, *dsum;
   __host__ __device__ static size_t carve(Carver& c, BwdSmem* t, bool two) {
     BwdSmem x;
@@ -279,22 +264,6 @@ __device__ __forceinline__ void mm_atb_acc(float* C, int ldc, const float* A,
 __host__ __device__ constexpr int tpr(int blk) { return kThreads / blk; }
 __host__ __device__ constexpr int cpt(int blk) { return blk / tpr(blk); }
 
-template <int TPR>
-__device__ __forceinline__ float group_max(float v) {
-#pragma unroll
-  for (int o = TPR / 2; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-template <int TPR>
-__device__ __forceinline__ float group_sum(float v) {
-#pragma unroll
-  for (int o = TPR / 2; o > 0; o >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 // N consecutive f32 of shared memory into registers (16 bytes a load when
 // N % 4 == 0, the start then 16-byte aligned)
 template <int N>
@@ -317,120 +286,12 @@ __device__ __forceinline__ void store_cols(float* p, const float (&v)[N]) {
   for (int j = 0; j < N; ++j) p[j] = v[j];
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const Args a) {
-  constexpr int kBlk = f32_blk(D), kTpr = tpr(kBlk), kCpt = cpt(kBlk);
-  constexpr int ld = D + 1, ldp = kBlk + 1;
-  constexpr int lds = kBlk + kAccPad, ldo = D + kAccPad;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  Carver cv{smem_raw};
-  FwdSmem<D> sm;
-  FwdSmem<D>::carve(cv, &sm);
-
-  const int qi = blockIdx.x, bh = blockIdx.y;
-  const int b = bh / a.H, h = bh % a.H;
-  const int q0 = qi * kBlk;
-  const int tid = threadIdx.x;
-  // K/V tiles strictly above the diagonal contribute nothing
-  const int nk = a.causal ? qi + 1 : a.Tk / kBlk;
-  auto stage_k = [&](int kj) {
-    if (kj < nk)
-      stage<kBlk, D, ld>(sm.k, row_ptr<float>(a.k, a.sk, b, h, kj * kBlk),
-                         a.sk.t);
-    cp_async_commit();  // an empty group past the last tile keeps the count
-  };
-  auto stage_v = [&](int kj) {
-    if (kj < nk)
-      stage<kBlk, D, ld>(sm.v, row_ptr<float>(a.v, a.sv, b, h, kj * kBlk),
-                         a.sv.t);
-    cp_async_commit();
-  };
-  stage<kBlk, D, ld>(sm.q, row_ptr<float>(a.q, a.sq, b, h, q0), a.sq.t);
-  stage_k(0);  // groups in flight: {Q, K0}, V0
-  stage_v(0);
-  zero<kBlk * ldo>(sm.o);
-  for (int r = tid; r < kBlk; r += kThreads) {
-    sm.m[r] = kNegInf;
-    sm.l[r] = 0.f;
-  }
-  // K of the next tile loads while this tile's softmax and P.V run, V of
-  // the next tile while its scores run
-  for (int kj = 0; kj < nk; ++kj) {
-    const int k0 = kj * kBlk;
-    cp_async_wait<1>();  // K(kj) staged (V(kj) may be in flight)
-    __syncthreads();
-    mm_abt<kBlk, kBlk, D>(sm.s, lds, sm.q, ld, sm.k, ld);
-    __syncthreads();  // K free
-    stage_k(kj + 1);
-    {  // online softmax over this tile; row r's O rescaled by its corr
-      constexpr int OPT = D / kTpr;  // O columns per thread
-      const int r = tid / kTpr, part = tid % kTpr, c0 = part * kCpt;
-      float v[kCpt];
-      load_cols(v, sm.s + r * lds + c0);
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < kCpt; ++j) {
-        float s = v[j] * a.scale;
-        if (a.causal && k0 + c0 + j > q0 + r) s = kNegInf;
-        v[j] = s;
-        mx = fmaxf(mx, s);
-      }
-      const float m_prev = sm.m[r], l_prev = sm.l[r];
-      const float m_new = fmaxf(m_prev, group_max<kTpr>(mx));
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kCpt; ++j) {
-        // masked entries stay exactly 0, also on rows masked so far
-        v[j] = v[j] <= kNegInf * 0.5f ? 0.f : expf(v[j] - m_new);
-        sum += v[j];
-      }
-      store_cols(sm.p + r * ldp + c0, v);
-      sum = group_sum<kTpr>(sum);  // every thread of the row has read m, l
-      const float corr = expf(m_prev - m_new);
-      if (part == 0) {
-        sm.l[r] = l_prev * corr + sum;
-        sm.m[r] = m_new;
-      }
-      float* orow = sm.o + r * ldo + part * OPT;
-#pragma unroll
-      for (int j = 0; j < OPT; j += 4) {
-        float4 x = *reinterpret_cast<float4*>(orow + j);
-        x.x *= corr, x.y *= corr, x.z *= corr, x.w *= corr;
-        *reinterpret_cast<float4*>(orow + j) = x;
-      }
-    }
-    cp_async_wait<1>();  // V(kj) staged (K(kj + 1) may be in flight)
-    __syncthreads();
-    mm_ab_acc<kBlk, D, kBlk>(sm.o, ldo, sm.p, ldp, sm.v, ld);
-    __syncthreads();  // V free
-    stage_v(kj + 1);
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-  float* out = static_cast<float*>(a.out0);
-  for (int i = tid; i < kBlk * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    const float l = sm.l[r];
-    out[(long long)b * a.so0.b + (long long)h * a.so0.h +
-        (long long)(q0 + r) * a.so0.t + c] =
-        l > 0.f ? sm.o[r * ldo + c] / l : 0.f;
-  }
-  if (a.lse != nullptr) {
-    for (int r = tid; r < kBlk; r += kThreads) {
-      const float l = sm.l[r];
-      a.lse[(long long)bh * a.Tq + q0 + r] =
-          l > 0.f ? sm.m[r] + logf(l) : kNegInf;
-    }
-  }
-}
-
 // P = exp(S * scale - L) (masked entries 0) and dS = P * (dP - dsum) for a
 // (kBlk query rows) x (kBlk key columns) tile (the Pallas kernels' _tile_p).
 template <int D>
 __device__ __forceinline__ void p_and_ds(const BwdSmem<D>& sm, const Args& a,
                                          int q0, int k0) {
-  constexpr int kBlk = f32_blk(D), kTpr = tpr(kBlk), kCpt = cpt(kBlk);
+  constexpr int kBlk = kF32Blk, kTpr = tpr(kBlk), kCpt = cpt(kBlk);
   constexpr int ldp = kBlk + 1, lds = kBlk + kAccPad;
   const int r = threadIdx.x / kTpr, c0 = (threadIdx.x % kTpr) * kCpt;
   float p[kCpt], ds[kCpt];
@@ -451,7 +312,7 @@ __device__ __forceinline__ void p_and_ds(const BwdSmem<D>& sm, const Args& a,
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(const Args a) {
-  constexpr int kBlk = f32_blk(D);
+  constexpr int kBlk = kF32Blk;
   constexpr int ld = D + 1, ldp = kBlk + 1;
   constexpr int lds = kBlk + kAccPad, ldo = D + kAccPad;
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -509,7 +370,7 @@ __global__ void __launch_bounds__(kThreads)
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv_kernel(const Args a) {
-  constexpr int kBlk = f32_blk(D);
+  constexpr int kBlk = kF32Blk;
   constexpr int ld = D + 1, ldp = kBlk + 1;
   constexpr int lds = kBlk + kAccPad, ldo = D + kAccPad;
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -1646,14 +1507,699 @@ __global__ void __launch_bounds__(kThreads, 1)
   store_acc(dv, 1.f, a.out1, a.so1, b, h, k0 + r0, c0);
 }
 
+// ================================= f32: split-TF32 tensor-core kernels
+// The f32 forward at every head dim, and dQ and dK/dV at D = 128 and 256,
+// run every product of the body on the tensor cores in split TF32
+// ("3xTF32"), the counterpart of the reference's HIGHEST precision (bf16x3
+// passes on the MXU, ops/kernel_dispatch.py): each operand x is split once
+// into big = rna_tf32(x) and small = rna_tf32(x - big), and
+// a.b ~ a_small.b_big + a_big.b_small + a_big.b_big (small terms first),
+// accumulated in f32 by mma.sync m16n8k8. The tensor cores ignore the low
+// 13 bits of an f32 register, so an operand that skipped the conversion
+// would lose accuracy without any error: every operand goes through
+// split_tf32. Scores, softmax statistics and accumulators stay f32 in
+// registers. At D = 384 and 512 the backward keeps the scalar kernels
+// above: its staged tiles would not fit a block.
+//
+// mma.sync, not wgmma: wgmma takes tf32 operands from shared memory only
+// K-major, and four of the six products (P V, dS K, P^T dO, dS^T Q) sum
+// over the rows of their B operand, which would need a transposed, split
+// copy of each streamed tile in shared memory; mma.sync takes either
+// layout from registers, and a score fragment is the next product's A
+// operand as it stands (split in registers).
+//
+// Where the split happens. Splitting costs more instruction slots than
+// the three products it feeds (cvt.rna is a sequence of integer and
+// compare instructions on sm_90), so each value is split as few times as
+// possible:
+//  - the streamed tiles (K and V; Q and dO for dK/dV), which every warp
+//    reads whole, are split once per block: cp.async lands a tile raw in
+//    its stage, one pass of the block writes its big and small parts to two
+//    split tiles, and the warps read both parts (PRE: the backward at
+//    D = 128; at wider heads the split tiles would not fit, and the
+//    forward keeps two blocks an SM without them, which measured faster);
+//  - the block's own tiles (Q; dO; K and V for dK/dV) are split as each
+//    warp reads its 16 rows, once per streamed tile.
+//
+// Accumulation. The tensor cores truncate the sums they accumulate, so
+// products are summed on fresh accumulators, two k-steps of a score or a
+// whole streamed tile of P V, dS K, P^T dO and dS^T Q, and added to the
+// running f32 sums with f32 adds (add_acc).
+//
+// Layout: 4 warps, each 16 of the block's 64 rows (kTfBlk); the streamed
+// tiles hold KB rows (keys, or queries for dK/dV), double-buffered by
+// cp.async; every shared tile has rows of D + 4 floats. Fragments are read
+// 16 bytes a lane, without bank conflicts, through two permutations that
+// are undone where values leave the registers:
+//  - rows: lane group g reads the row perm8(g) = g / 2 + 4 (g % 2) of an
+//    A tile (and of a K-major B tile), so the two groups of a quarter-warp
+//    read rows 4 apart, 16 banks apart; a score accumulator's columns 2t
+//    and 2t + 1 then hold keys t and t + 4 of its 8-key tile, which is the
+//    next product's A fragment with the keys in order;
+//  - a K-major 16-byte run of 4 columns feeds two k-steps (the sum runs
+//    over them in the same order on both sides);
+//  - columns: an MN-major B (summed over its rows) is read 4 output columns
+//    at a time, one for each n-tile of a group of 4: n-tile i's column g is
+//    output column C(g) + i, C(g) = 4 (g / 2) + 16 (g % 2), so lane (g, t)
+//    holds columns 4t .. 4t + 3 and 16 + 4t .. of each group of 32.
+// Blocks accumulate kTfCols output columns (grid z splits wider heads, each
+// block recomputing the scores); dQ and the forward take their query tiles
+// in reverse, so under the causal mask the longest rows start first.
+//
+// What bounds it: at phase 6's shape (T = 1024, D = 128) the work is far
+// above the ridge, so operations: 3 tensor-core passes at 495 TFLOP/s
+// (TF32), ~165 TFLOP/s of f32 products, against 67 for f32 FMAs. mma.sync
+// reaches part of that rate, and the splits, the f32 adds of the fresh
+// accumulators and the softmax take instruction slots beside it (PERF.md
+// has the measured times); dK/dV holds dK and dV (128 registers a thread)
+// and spills a few hundred bytes at ptxas' 255.
+constexpr int kTfBlk = 64;    // rows a block owns: 4 warps of 16
+constexpr int kTfCols = 128;  // output columns a block accumulates
+
+__host__ __device__ constexpr int tf_ld(int W) { return W + 4; }
+// Rows per streamed tile: the forward's (K, V) and the backward's (K, V or
+// Q, dO with their L and dsum), so that two stages fit a block.
+__host__ __device__ constexpr int tf_kb(int fwd, int D) {
+  return fwd ? (D <= 256 ? 32 : 16) : (D == 128 ? 32 : 16);
+}
+// Whether the streamed tiles are split once per block (see above).
+__host__ __device__ constexpr bool tf_presplit(int fwd, int D) {
+  return !fwd && D == 128;
+}
+
+__device__ __forceinline__ int perm8(int g) {
+  return (g >> 1) | ((g & 1) << 2);
+}
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// The same rounding in two integer operations (half a unit of the 13
+// dropped bits added to the magnitude, then those bits cleared) where the
+// argument is finite: the small part x - big of a finite x. (For an
+// infinite or NaN x, big carries the non-finite value and small does not
+// matter.)
+__device__ __forceinline__ uint32_t tf32_rna_finite(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = big + small (to 2^-22 of x), both TF32
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna_finite(x - __uint_as_float(big));
+}
+
+// 16 bytes of shared memory through a generic pointer into it
+__device__ __forceinline__ float4 lds128(const float* p) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0,%1,%2,%3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(smem_addr(p)));
+  return v;
+}
+
+__device__ __forceinline__ void sts128(float* p, float4 v) {
+  asm volatile("st.shared.v4.f32 [%0], {%1,%2,%3,%4};\n" ::"r"(smem_addr(p)),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+struct TfA {  // an m16n8k8 A fragment, split
+  uint32_t big[4], small[4];
+};
+struct TfB {  // an m16n8k8 B fragment, split
+  uint32_t big[2], small[2];
+};
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a.b in split TF32, the small terms first
+__device__ __forceinline__ void mma3(float (&d)[4], const TfA& a,
+                                     const TfB& b) {
+  mma_tf32(d, a.small, b.big[0], b.big[1]);
+  mma_tf32(d, a.big, b.small[0], b.small[1]);
+  mma_tf32(d, a.big, b.big[0], b.big[1]);
+}
+
+// acc += t, then t = 0: the products of two k-steps (a score product) or
+// of a whole streamed tile (P V, dS K, P^T dO, dS^T Q) are summed on the
+// tensor cores into a fresh accumulator t and added to the running sum
+// here, an f32 add that rounds to nearest. The tensor cores truncate the
+// sums they accumulate, so a running sum chained through every k-step of
+// a row (48 mma a score at D = 128, 384 a row of O per 1024 keys) drifts
+// toward zero by up to an ulp a step; measured on the card, that was
+// several times the error of f32 FMAs and failed phase 6's training
+// parity.
+__device__ __forceinline__ void add_acc(float (&acc)[4], float (&t)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    acc[e] += t[e];
+    t[e] = 0.f;
+  }
+}
+
+// A B operand value: split in registers, or (PRE) its two parts as stored
+// by split_tile.
+template <bool PRE>
+__device__ __forceinline__ void b_parts(float x, float xs, uint32_t& big,
+                                        uint32_t& small) {
+  if constexpr (PRE) {
+    big = __float_as_uint(x);
+    small = __float_as_uint(xs);
+  } else {
+    split_tf32(x, big, small);
+  }
+}
+
+// Split a streamed tile of N floats once for the whole block: big parts
+// to `big`, small parts to `small`.
+template <int N>
+__device__ __forceinline__ void split_tile(const float* src, float* big,
+                                           float* small) {
+  for (int i = 4 * threadIdx.x; i < N; i += 4 * kThreads) {
+    const float4 x = lds128(src + i);
+    uint32_t b[4], s[4];
+    split_tf32(x.x, b[0], s[0]);
+    split_tf32(x.y, b[1], s[1]);
+    split_tf32(x.z, b[2], s[2]);
+    split_tf32(x.w, b[3], s[3]);
+    sts128(big + i, make_float4(__uint_as_float(b[0]), __uint_as_float(b[1]),
+                                __uint_as_float(b[2]), __uint_as_float(b[3])));
+    sts128(small + i,
+           make_float4(__uint_as_float(s[0]), __uint_as_float(s[1]),
+                       __uint_as_float(s[2]), __uint_as_float(s[3])));
+  }
+}
+
+// A fragments of two k-steps (columns c .. c + 15) over rows r0 .. r0 + 15
+// of a row-major tile: lane (g, t) reads rows r0 + perm8(g) and + 8,
+// columns c + 4t .. + 3; k-step 0 takes columns 4t, 4t + 1 as its k = t,
+// t + 4, k-step 1 columns 4t + 2, 4t + 3.
+template <int LD>
+__device__ __forceinline__ void ld_a_tf32(TfA (&a)[2], const float* base,
+                                          int r0, int c) {
+  const int l = threadIdx.x % 32, g = l / 4, t = l % 4;
+  const float* p = base + (r0 + perm8(g)) * LD + c + 4 * t;
+  const float4 x = lds128(p), y = lds128(p + 8 * LD);
+  split_tf32(x.x, a[0].big[0], a[0].small[0]);
+  split_tf32(y.x, a[0].big[1], a[0].small[1]);
+  split_tf32(x.y, a[0].big[2], a[0].small[2]);
+  split_tf32(y.y, a[0].big[3], a[0].small[3]);
+  split_tf32(x.z, a[1].big[0], a[1].small[0]);
+  split_tf32(y.z, a[1].big[1], a[1].small[1]);
+  split_tf32(x.w, a[1].big[2], a[1].small[2]);
+  split_tf32(y.w, a[1].big[3], a[1].small[3]);
+}
+
+// B fragments of two k-steps (columns c .. c + 15) for the n-tile of rows
+// n0 .. n0 + 7 of a row-major tile, read as B^T (Q K^T, dO V^T, K Q^T,
+// V dO^T): lane (g, t) reads row n0 + perm8(g), columns c + 4t .. + 3 (of
+// the big and small tiles when PRE).
+template <int LD, bool PRE>
+__device__ __forceinline__ void ld_bt_tf32(TfB (&b)[2], const float* base,
+                                           const float* small, int n0,
+                                           int c) {
+  const int l = threadIdx.x % 32, g = l / 4, t = l % 4;
+  const int off = (n0 + perm8(g)) * LD + c + 4 * t;
+  const float4 x = lds128(base + off);
+  const float4 xs = PRE ? lds128(small + off) : x;
+  b_parts<PRE>(x.x, xs.x, b[0].big[0], b[0].small[0]);
+  b_parts<PRE>(x.y, xs.y, b[0].big[1], b[0].small[1]);
+  b_parts<PRE>(x.z, xs.z, b[1].big[0], b[1].small[0]);
+  b_parts<PRE>(x.w, xs.w, b[1].big[1], b[1].small[1]);
+}
+
+// B fragments of the four n-tiles of the output columns c .. c + 31 at the
+// k-step of rows k0 .. k0 + 7 of a tile stored [k][n] (P V, dS K, P^T dO,
+// dS^T Q): lane (g, t) reads rows k0 + t and k0 + t + 4, columns c + C(g)
+// .. + 3 (of the big and small tiles when PRE); n-tile i's column g is
+// output column c + C(g) + i.
+template <int LD, bool PRE>
+__device__ __forceinline__ void ld_b_tf32(TfB (&b)[4], const float* base,
+                                          const float* small, int k0,
+                                          int c) {
+  const int l = threadIdx.x % 32, g = l / 4, t = l % 4;
+  const int off = (k0 + t) * LD + c + 4 * (g >> 1) + 16 * (g & 1);
+  const float4 x = lds128(base + off), y = lds128(base + off + 4 * LD);
+  const float4 xs = PRE ? lds128(small + off) : x;
+  const float4 ys = PRE ? lds128(small + off + 4 * LD) : y;
+  b_parts<PRE>(x.x, xs.x, b[0].big[0], b[0].small[0]);
+  b_parts<PRE>(y.x, ys.x, b[0].big[1], b[0].small[1]);
+  b_parts<PRE>(x.y, xs.y, b[1].big[0], b[1].small[0]);
+  b_parts<PRE>(y.y, ys.y, b[1].big[1], b[1].small[1]);
+  b_parts<PRE>(x.z, xs.z, b[2].big[0], b[2].small[0]);
+  b_parts<PRE>(y.z, ys.z, b[2].big[1], b[2].small[1]);
+  b_parts<PRE>(x.w, xs.w, b[3].big[0], b[3].small[0]);
+  b_parts<PRE>(y.w, ys.w, b[3].big[1], b[3].small[1]);
+}
+
+// A streamed tile as the warps read it: raw (split as read), or its big
+// and small parts (PRE).
+struct TfTile {
+  const float *big, *small;
+  __device__ TfTile cols(int c) const {
+    return {big + c, small == nullptr ? nullptr : small + c};
+  }
+};
+
+// acc (16 x 8 NT) += A (rows r0 .. r0 + 15 of a row-major tile) . B^T
+// (8 NT rows of a row-major streamed tile), both K wide: the score products
+template <int NT, int K, int LD, bool PRE>
+__device__ __forceinline__ void warp_abt_tf32(float (&acc)[NT][4],
+                                              const float* A, int r0,
+                                              TfTile B) {
+#pragma unroll 1
+  for (int c = 0; c < K; c += 16) {
+    TfA a[2];
+    ld_a_tf32<LD>(a, A, r0, c);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      TfB b[2];
+      ld_bt_tf32<LD, PRE>(b, B.big, B.small, 8 * j, c);
+      float t[4] = {0.f, 0.f, 0.f, 0.f};
+      mma3(t, a[0], b[0]);
+      mma3(t, a[1], b[1]);
+      add_acc(acc[j], t);
+    }
+  }
+}
+
+// acc (16 x 8 NO, columns permuted in groups of 32) += P (16 x 8 NK, score
+// accumulator registers, split once) . B (a streamed tile stored [k][n],
+// from its output column 0): P V, dS K, P^T dO, dS^T Q. Each group of 4
+// n-tiles sums the whole tile on fresh accumulators (see add_acc).
+template <int NO, int NK, int LD, bool PRE>
+__device__ __forceinline__ void warp_pb_tf32(float (&acc)[NO][4],
+                                             const float (&p)[NK][4],
+                                             TfTile B) {
+  TfA a[NK];
+#pragma unroll
+  for (int kk = 0; kk < NK; ++kk) {
+    split_tf32(p[kk][0], a[kk].big[0], a[kk].small[0]);
+    split_tf32(p[kk][2], a[kk].big[1], a[kk].small[1]);
+    split_tf32(p[kk][1], a[kk].big[2], a[kk].small[2]);
+    split_tf32(p[kk][3], a[kk].big[3], a[kk].small[3]);
+  }
+#pragma unroll
+  for (int q = 0; q < NO / 4; ++q) {
+    float t[4][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) {
+      TfB b[4];
+      ld_b_tf32<LD, PRE>(b, B.big, B.small, 8 * kk, 32 * q);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) mma3(t[i], a[kk], b[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) add_acc(acc[4 * q + i], t[i]);
+  }
+}
+
+// Store a warp's accumulator (times `mul`) as f32 into rows `row` and
+// row + 8, columns c0 .. c0 + 8 NO of a (b, h, t) strided output, the
+// column permutation undone: two float4 per group of 32 columns and row.
+template <int NO>
+__device__ __forceinline__ void store_acc_tf32(const float (&acc)[NO][4],
+                                               float mul, void* out,
+                                               const Strides& st, int b,
+                                               int h, int row, int c0) {
+  const int t = threadIdx.x % 4;
+  float* base = static_cast<float*>(out) + (long long)b * st.b +
+                (long long)h * st.h + c0 + 4 * t;
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    float* p = base + (long long)(row + 8 * hi) * st.t;
+#pragma unroll
+    for (int q = 0; q < NO / 4; ++q) {
+      const int e = 2 * hi;
+      *reinterpret_cast<float4*>(p + 32 * q) = make_float4(
+          acc[4 * q][e] * mul, acc[4 * q + 1][e] * mul,
+          acc[4 * q + 2][e] * mul, acc[4 * q + 3][e] * mul);
+      *reinterpret_cast<float4*>(p + 32 * q + 16) = make_float4(
+          acc[4 * q][e + 1] * mul, acc[4 * q + 1][e + 1] * mul,
+          acc[4 * q + 2][e + 1] * mul, acc[4 * q + 3][e + 1] * mul);
+    }
+  }
+}
+
+// Start the 16-byte copies of ROWS rows of W floats (row r at
+// src + r * stride_t) into a shared tile with rows of LD floats.
+template <int ROWS, int W, int LD>
+__device__ __forceinline__ void stage16(float* dst, const float* src,
+                                        long long stride_t) {
+  constexpr int vpr = W / 4;
+  for (int i = threadIdx.x; i < ROWS * vpr; i += kThreads) {
+    const int r = i / vpr, c = i % vpr;
+    cp_async16(dst + r * LD + 4 * c, src + (long long)r * stride_t + 4 * c);
+  }
+}
+
+// The streamed pair of one stage as the warps read it, with the streamed
+// rows' L and dsum (dK/dV).
+struct TfStage {
+  TfTile tile[2];
+  const float *L, *Ds;
+};
+
+// The block's own tiles (own0, own1: Q and dO, or K and V; the forward
+// uses own0 only); two stages, each holding the streamed pair raw (K and
+// V, or Q and dO; the forward's V tile holds kTfCols columns, rows of LD1)
+// and the streamed rows' L and dsum (dK/dV); when PRE the split parts of
+// the current pair and a copy of its L and dsum. Stage s starts at
+// stages + s * kStage.
+template <int D, bool FWD>
+struct TfSmem {
+  static constexpr int KB = tf_kb(FWD, D), LD = tf_ld(D);
+  static constexpr int LD1 = FWD ? tf_ld(kTfCols) : LD;
+  static constexpr bool PRE = tf_presplit(FWD, D);
+  static constexpr int kT0 = KB * LD, kT1 = KB * LD1;  // floats a tile
+  static constexpr int kStage = (kT0 + kT1 + 2 * KB + 31) / 32 * 32;
+  float *own0, *own1, *stages;
+  float *big0 = nullptr, *small0 = nullptr, *big1 = nullptr,
+        *small1 = nullptr, *ls = nullptr, *ds = nullptr;
+  __host__ __device__ static size_t carve(Carver& c, TfSmem* t) {
+    TfSmem x;
+    x.own0 = c.take<float>(kTfBlk * LD);
+    x.own1 = FWD ? nullptr : c.take<float>(kTfBlk * LD);
+    x.stages = c.take<float>(2 * kStage);
+    if (PRE) {
+      x.big0 = c.take<float>(kT0);
+      x.small0 = c.take<float>(kT0);
+      x.big1 = c.take<float>(kT1);
+      x.small1 = c.take<float>(kT1);
+      x.ls = c.take<float>(KB);
+      x.ds = c.take<float>(KB);
+    }
+    if (t) *t = x;
+    return c.off;
+  }
+  __device__ float* raw0(int s) const { return stages + s * kStage; }
+  __device__ float* raw1(int s) const { return raw0(s) + kT0; }
+  __device__ float* lse(int s) const { return raw1(s) + kT1; }
+  __device__ float* dsum(int s) const { return lse(s) + KB; }
+};
+
+// One step of the streamed loop, between the arrival of stage s and its
+// use: the barrier that makes the stage visible (and, when PRE, frees the
+// split tiles of the previous step), then, when PRE, the block's split
+// pass with L and dsum copied beside it, and the barrier after it.
+template <class Sm>
+__device__ __forceinline__ TfStage tf_ready(const Sm& sm, int s) {
+  __syncthreads();
+  if constexpr (Sm::PRE) {
+    split_tile<Sm::kT0>(sm.raw0(s), sm.big0, sm.small0);
+    split_tile<Sm::kT1>(sm.raw1(s), sm.big1, sm.small1);
+    if (threadIdx.x < Sm::KB) {
+      sm.ls[threadIdx.x] = sm.lse(s)[threadIdx.x];
+      sm.ds[threadIdx.x] = sm.dsum(s)[threadIdx.x];
+    }
+    __syncthreads();
+    return {{{sm.big0, sm.small0}, {sm.big1, sm.small1}}, sm.ls, sm.ds};
+  } else {
+    return {{{sm.raw0(s), nullptr}, {sm.raw1(s), nullptr}}, sm.lse(s),
+            sm.dsum(s)};
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_tf32_kernel(const Args a) {
+  using Sm = TfSmem<D, true>;
+  constexpr int BLK = kTfBlk, KB = Sm::KB, LD = Sm::LD, LDV = Sm::LD1;
+  constexpr int NO = kTfCols / 8, NS = KB / 8;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  Carver cv{smem_raw};
+  Sm sm;
+  Sm::carve(cv, &sm);
+  const int qi = gridDim.y - 1 - blockIdx.y, bh = blockIdx.x;
+  const int c0 = kTfCols * blockIdx.z;
+  const int b = bh / a.H, h = bh % a.H, q0 = qi * BLK;
+  const int warp = threadIdx.x / 32, l = threadIdx.x % 32;
+  const int t = l % 4, r0 = 16 * warp;
+  const int row = q0 + r0 + perm8(l / 4);  // this lane's rows: row, row + 8
+  // key tiles strictly above the diagonal contribute nothing
+  const int nk = a.causal ? (q0 + BLK) / KB : a.Tk / KB;
+  auto stage_kv = [&](int kj) {
+    if (kj < nk) {
+      const int k0 = kj * KB;
+      stage16<KB, D, LD>(sm.raw0(kj & 1),
+                         row_ptr<float>(a.k, a.sk, b, h, k0), a.sk.t);
+      stage16<KB, kTfCols, LDV>(sm.raw1(kj & 1),
+                                row_ptr<float>(a.v, a.sv, b, h, k0) + c0,
+                                a.sv.t);
+    }
+    cp_async_commit();  // an empty group past the last tile keeps the count
+  };
+  stage16<BLK, D, LD>(sm.own0, row_ptr<float>(a.q, a.sq, b, h, q0),
+                      a.sq.t);
+  stage_kv(0);
+  float o[NO][4], m[2] = {kNegInf, kNegInf}, lsum[2] = {0.f, 0.f};
+  zero_acc(o);
+  for (int kj = 0; kj < nk; ++kj) {
+    stage_kv(kj + 1);
+    cp_async_wait<1>();
+    const TfStage kv = tf_ready(sm, kj & 1);
+    const int k0 = kj * KB;
+    // a tile wholly after the diagonal of this warp's 16 rows adds nothing
+    if (!a.causal || k0 <= q0 + r0 + 15) {
+      float s[NS][4];
+      zero_acc(s);
+      warp_abt_tf32<NS, D, LD, Sm::PRE>(s, sm.own0, r0, kv.tile[0]);
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[j][e] * a.scale;
+          const int key = k0 + 8 * j + t + 4 * (e & 1);
+          if (a.causal && key > row + 8 * (e >> 1)) x = kNegInf;
+          s[j][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      float corr[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float m_new = fmaxf(m[i], quad_max(mx[i]));
+        corr[i] = expf(m[i] - m_new);
+        m[i] = m_new;
+        lsum[i] *= corr[i];
+      }
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // masked entries stay exactly 0, also on rows masked so far
+          const float x = s[j][e];
+          const float p = x <= kNegInf * 0.5f ? 0.f : expf(x - m[e >> 1]);
+          s[j][e] = p;
+          lsum[e >> 1] += p;
+        }
+#pragma unroll
+      for (int j = 0; j < NO; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[j][e] *= corr[e >> 1];
+      warp_pb_tf32<NO, NS, LDV, Sm::PRE>(o, s, kv.tile[1]);
+    }
+    // without PRE the raw stage is read until here: restaged two tiles on
+    if constexpr (!Sm::PRE) __syncthreads();
+  }
+  cp_async_wait<0>();
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    lsum[i] = quad_sum(lsum[i]);
+    inv[i] = lsum[i] > 0.f ? 1.f / lsum[i] : 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] *= inv[e >> 1];  // l == 0 gives 0
+  store_acc_tf32(o, 1.f, a.out0, a.so0, b, h, row, c0);
+  if (a.lse != nullptr && blockIdx.z == 0 && t == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      a.lse[(long long)bh * a.Tq + row + 8 * i] =
+          lsum[i] > 0.f ? m[i] + logf(lsum[i]) : kNegInf;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dq_tf32_kernel(const Args a) {
+  using Sm = TfSmem<D, false>;
+  constexpr int BLK = kTfBlk, KB = Sm::KB, LD = Sm::LD;
+  constexpr int NO = kTfCols / 8, NS = KB / 8;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  Carver cv{smem_raw};
+  Sm sm;  // own: Q, dO; streamed: K, V
+  Sm::carve(cv, &sm);
+  const int qi = gridDim.y - 1 - blockIdx.y, bh = blockIdx.x;
+  const int c0 = kTfCols * blockIdx.z;
+  const int b = bh / a.H, h = bh % a.H, q0 = qi * BLK;
+  const int warp = threadIdx.x / 32, l = threadIdx.x % 32;
+  const int t = l % 4, r0 = 16 * warp;
+  const int row = q0 + r0 + perm8(l / 4);  // this lane's rows: row, row + 8
+  const int nk = a.causal ? (q0 + BLK) / KB : a.Tk / KB;
+  auto stage_kv = [&](int kj) {
+    if (kj < nk) {
+      const int k0 = kj * KB;
+      stage16<KB, D, LD>(sm.raw0(kj & 1),
+                         row_ptr<float>(a.k, a.sk, b, h, k0), a.sk.t);
+      stage16<KB, D, LD>(sm.raw1(kj & 1),
+                         row_ptr<float>(a.v, a.sv, b, h, k0), a.sv.t);
+    }
+    cp_async_commit();
+  };
+  stage16<BLK, D, LD>(sm.own0, row_ptr<float>(a.q, a.sq, b, h, q0),
+                      a.sq.t);
+  stage16<BLK, D, LD>(sm.own1, row_ptr<float>(a.dO, a.sdo, b, h, q0),
+                      a.sdo.t);
+  stage_kv(0);
+  float lse[2], dsum[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    lse[i] = a.lse[(long long)bh * a.Tq + row + 8 * i];
+    dsum[i] = a.dsum[(long long)bh * a.Tq + row + 8 * i];
+  }
+  float dq[NO][4];
+  zero_acc(dq);
+  for (int kj = 0; kj < nk; ++kj) {
+    stage_kv(kj + 1);
+    cp_async_wait<1>();
+    const TfStage kv = tf_ready(sm, kj & 1);
+    const int k0 = kj * KB;
+    if (!a.causal || k0 <= q0 + r0 + 15) {
+      float s[NS][4], dp[NS][4];
+      zero_acc(s);
+      zero_acc(dp);
+      warp_abt_tf32<NS, D, LD, Sm::PRE>(s, sm.own0, r0, kv.tile[0]);  // Q K^T
+      warp_abt_tf32<NS, D, LD, Sm::PRE>(dp, sm.own1, r0,
+                                        kv.tile[1]);  // dO V^T
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          float x = s[j][e] * a.scale;
+          if (a.causal && k0 + 8 * j + t + 4 * (e & 1) > row + 8 * i)
+            x = kNegInf;
+          const float p = x <= kNegInf * 0.5f ? 0.f : expf(x - lse[i]);
+          s[j][e] = p * (dp[j][e] - dsum[i]);  // dS
+        }
+      // dS K, this block's columns
+      warp_pb_tf32<NO, NS, LD, Sm::PRE>(dq, s, kv.tile[0].cols(c0));
+    }
+    if constexpr (!Sm::PRE) __syncthreads();
+  }
+  cp_async_wait<0>();
+  store_acc_tf32(dq, a.scale, a.out0, a.so0, b, h, row, c0);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkv_tf32_kernel(const Args a) {
+  using Sm = TfSmem<D, false>;
+  constexpr int BLK = kTfBlk, KB = Sm::KB, LD = Sm::LD;
+  constexpr int NO = kTfCols / 8, NS = KB / 8;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  Carver cv{smem_raw};
+  Sm sm;  // own: K, V; streamed: Q, dO with their L and dsum
+  Sm::carve(cv, &sm);
+  const int kj = blockIdx.y, bh = blockIdx.x, c0 = kTfCols * blockIdx.z;
+  const int b = bh / a.H, h = bh % a.H, k0 = kj * BLK;
+  const int warp = threadIdx.x / 32, l = threadIdx.x % 32;
+  const int t = l % 4, r0 = 16 * warp;
+  const int key = k0 + r0 + perm8(l / 4);  // this lane's rows: key, key + 8
+  const int q_first = a.causal ? k0 / KB : 0;  // earlier query tiles see none
+  const int nq = a.Tq / KB;
+  auto stage_q = [&](int qi) {
+    if (qi < nq) {
+      const int s = (qi - q_first) & 1;
+      stage16<KB, D, LD>(sm.raw0(s),
+                         row_ptr<float>(a.q, a.sq, b, h, qi * KB), a.sq.t);
+      stage16<KB, D, LD>(sm.raw1(s),
+                         row_ptr<float>(a.dO, a.sdo, b, h, qi * KB), a.sdo.t);
+      stage_f32_row<KB>(sm.lse(s), a.lse + (long long)bh * a.Tq + qi * KB);
+      stage_f32_row<KB>(sm.dsum(s), a.dsum + (long long)bh * a.Tq + qi * KB);
+    }
+    cp_async_commit();
+  };
+  stage16<BLK, D, LD>(sm.own0, row_ptr<float>(a.k, a.sk, b, h, k0),
+                      a.sk.t);
+  stage16<BLK, D, LD>(sm.own1, row_ptr<float>(a.v, a.sv, b, h, k0),
+                      a.sv.t);
+  stage_q(q_first);
+  float dk[NO][4], dv[NO][4];
+  zero_acc(dk);
+  zero_acc(dv);
+  for (int qi = q_first; qi < nq; ++qi) {
+    stage_q(qi + 1);
+    cp_async_wait<1>();
+    const TfStage st = tf_ready(sm, (qi - q_first) & 1);  // Q, dO
+    const float* Ls = st.L;
+    const float* Ds = st.Ds;
+    const int q0 = qi * KB;
+    // a tile of queries wholly before this warp's 16 keys sees none of them
+    if (!a.causal || q0 + KB - 1 >= k0 + r0) {
+      // rows of these tiles are keys, columns queries
+      float s[NS][4], dp[NS][4];
+      zero_acc(dp);
+      warp_abt_tf32<NS, D, LD, Sm::PRE>(dp, sm.own1, r0,
+                                        st.tile[1]);  // V dO^T = dP^T
+      zero_acc(s);
+      warp_abt_tf32<NS, D, LD, Sm::PRE>(s, sm.own0, r0,
+                                        st.tile[0]);  // K Q^T = S^T
+      // P^T into s, dS^T into dp (so that P^T dies with the dV product)
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + t + 4 * (e & 1);
+          float x = s[j][e] * a.scale;
+          if (a.causal && key + 8 * (e >> 1) > q0 + col) x = kNegInf;
+          s[j][e] = x <= kNegInf * 0.5f ? 0.f : expf(x - Ls[col]);
+          dp[j][e] = s[j][e] * (dp[j][e] - Ds[col]);
+        }
+      // P^T dO and dS^T Q, this block's columns
+      warp_pb_tf32<NO, NS, LD, Sm::PRE>(dv, s, st.tile[1].cols(c0));
+      warp_pb_tf32<NO, NS, LD, Sm::PRE>(dk, dp, st.tile[0].cols(c0));
+    }
+    if constexpr (!Sm::PRE) __syncthreads();
+  }
+  cp_async_wait<0>();
+  store_acc_tf32(dk, a.scale, a.out0, a.so0, b, h, key, c0);
+  store_acc_tf32(dv, 1.f, a.out1, a.so1, b, h, key, c0);
+}
+
 // ------------------------------------------------------------- launches
 enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
+
+// The kernel family that runs (kind, dtype, D): 0 the f32 scalar
+// backward (D = 384, 512), 1 split TF32, 2 bf16 mma.sync, 3 bf16 wgmma.
+enum Route { kScalar = 0, kTf32 = 1, kMma = 2, kWgmma = 3 };
+__host__ __device__ constexpr int route_of(int kind, int dtype, int D) {
+  if (dtype == 1) return D == 128 ? kWgmma : kMma;
+  return kind == kFwd || D <= 256 ? kTf32 : kScalar;
+}
 
 template <int D>
 size_t smem_f32(int kind) {
   Carver c{nullptr};
-  return kind == kFwd ? FwdSmem<D>::carve(c, nullptr)
-                      : BwdSmem<D>::carve(c, nullptr, kind == kDkv);
+  if (kind == kFwd) return TfSmem<D, true>::carve(c, nullptr);
+  if constexpr (route_of(kDq, 0, D) == kTf32)
+    return TfSmem<D, false>::carve(c, nullptr);
+  else
+    return BwdSmem<D>::carve(c, nullptr, kind == kDkv);
 }
 
 template <int D>
@@ -1742,13 +2288,21 @@ int run(void (*kern)(const Args), size_t smem, dim3 grid, const Args& a,
   return (int)cudaGetLastError();
 }
 
+// Split TF32: blocks of kTfBlk rows, grid (B * H, row tiles, column
+// blocks of kTfCols); the scalar backward: grid (row tiles, B * H).
 template <int D>
 int launch_f32(int kind, const Args& a, cudaStream_t st) {
-  void (*kern)(const Args) = kind == kFwd  ? flash_fwd_kernel<D>
-                             : kind == kDq ? flash_bwd_dq_kernel<D>
-                                           : flash_bwd_dkv_kernel<D>;
-  const dim3 grid((kind == kDkv ? a.Tk : a.Tq) / f32_blk(D), a.B * a.H);
-  return run(kern, smem_f32<D>(kind), grid, a, st);
+  const int rows = kind == kDkv ? a.Tk : a.Tq;
+  const size_t smem = smem_f32<D>(kind);
+  const dim3 grid(a.B * a.H, rows / kTfBlk, D / kTfCols);
+  if (kind == kFwd) return run(flash_fwd_tf32_kernel<D>, smem, grid, a, st);
+  if constexpr (route_of(kDq, 0, D) == kTf32)
+    return run(kind == kDq ? flash_bwd_dq_tf32_kernel<D>
+                           : flash_bwd_dkv_tf32_kernel<D>,
+               smem, grid, a, st);
+  else
+    return run(kind == kDq ? flash_bwd_dq_kernel<D> : flash_bwd_dkv_kernel<D>,
+               smem, dim3(rows / kF32Blk, a.B * a.H), a, st);
 }
 
 template <int D>
@@ -1848,8 +2402,15 @@ int dl4j_flash_bwd_dkv(const void* q, const void* k, const void* v,
 // Rows per tile, the largest over the family's kernels (the sequence
 // lengths must be multiples of it).
 int dl4j_flash_block_rows(int dtype, int D) {
-  if (dtype != 1) return f32_blk(D);
+  if (dtype != 1) return kTfBlk;
   return D == 128 ? kWgRows : kMmaBlk;
+}
+
+// The kernel family that runs kernel `kind` (0 forward, 1 dQ, 2 dK/dV) at
+// dtype and D: 0 f32 scalar FMAs, 1 f32 split TF32 on mma.sync, 2 bf16
+// mma.sync, 3 bf16 wgmma; -1 for an unsupported D.
+int dl4j_flash_route(int kind, int dtype, int D) {
+  return with_head_dim(D, [&](auto) { return route_of(kind, dtype, D); });
 }
 
 // Dynamic shared memory of one block of kernel `kind` (0 forward, 1 dQ,

@@ -16,15 +16,23 @@ needed the call goes through `_FlashAttention`, whose forward also keeps
 the row logsumexp L (B*H, Tq) f32 for the backward; otherwise the forward
 writes no L, as the JAX package's inference primal does.
 
+In f32 (`MultiLayerNetwork`'s default precision) the forward at every
+head dim and the backward at D = 128 and 256 run on the tensor cores in
+split TF32: each operand is split into two TF32 parts and every product
+takes three TF32 passes, which keeps f32 accuracy (the reference's HIGHEST
+precision); the f32 backward at D = 384 and 512 runs scalar FMAs.
+
 Counts: `flash_forward.launches`, `flash_bwd_dq.launches` and
-`flash_bwd_dkv.launches` (kernel launches), `flash_attention_plain_fwd.calls`
-and `flash_attention_plain_bwd.calls`.
+`flash_bwd_dkv.launches` (kernel launches), `launches_by_route[(kind,
+route)]` (the same by kernel family: kind "fwd", "dq" or "dkv"; route
+"tf32", "scalar", "mma" or "wgmma", as the library reports it),
+`flash_attention_plain_fwd.calls` and `flash_attention_plain_bwd.calls`.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -47,13 +55,19 @@ NEG_INF = -1e30
 # dS before their products (up to 2^-8 per term, averaging out over the
 # sums): a row stays within about 2^-7 of its largest entry, held at 2^-6.
 # L is computed in f32 from the same inputs on both sides, whatever the
-# dtype: it is held elementwise to L_TOLERANCE absolute.
+# dtype: it is held elementwise to L_TOLERANCE absolute. The f32 kernels
+# compute their products in split TF32, which stays within a few hundredths
+# of the f32 tolerance; a single TF32 pass (10-bit mantissas) lands several
+# times outside it (tests/test_torch_flash_attention.py emulates both).
 TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
 L_TOLERANCE = 1e-4
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (128, 256, 384, 512)
 _FWD, _DQ, _DKV = 0, 1, 2
+_KIND_NAMES = {_FWD: "fwd", _DQ: "dq", _DKV: "dkv"}
+ROUTES = {0: "scalar", 1: "tf32", 2: "mma", 3: "wgmma"}
+launches_by_route: Dict[Tuple[str, str], int] = {}
 
 
 def error_in_tolerances(name: str, got: torch.Tensor, ref: torch.Tensor,
@@ -170,6 +184,8 @@ def _library() -> ctypes.CDLL:
         lib.dl4j_flash_block_rows.restype = ci
         lib.dl4j_flash_smem_bytes.argtypes = [ci, ci, ci]
         lib.dl4j_flash_smem_bytes.restype = ctypes.c_size_t
+        lib.dl4j_flash_route.argtypes = [ci, ci, ci]
+        lib.dl4j_flash_route.restype = ci
     return lib
 
 
@@ -242,6 +258,13 @@ def _raise_on(rc, what, shape):
                            f"(q shape {shape})")
 
 
+def _counted(wrapper, lib, kind, code, D):
+    """One launch of `wrapper`'s kernel: its count and its route's."""
+    wrapper.launches += 1
+    key = (_KIND_NAMES[kind], ROUTES[lib.dl4j_flash_route(kind, code, D)])
+    launches_by_route[key] = launches_by_route.get(key, 0) + 1
+
+
 def flash_forward(q, k, v, causal: bool, sm_scale: Optional[float],
                   with_lse: bool):
     """Launch the forward kernel: (O, L or None)."""
@@ -257,7 +280,7 @@ def flash_forward(q, k, v, causal: bool, sm_scale: Optional[float],
             code, B, H, Tq, Tk, D, int(causal), _scale(D, sm_scale),
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, "flash forward", tuple(q.shape))
-    flash_forward.launches += 1
+    _counted(flash_forward, lib, _FWD, code, D)
     return o, lse
 
 
@@ -286,7 +309,7 @@ def flash_bwd_dq(q, k, v, do, lse, dsum, causal, sm_scale):
             _scale(D, sm_scale),
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, "flash dQ", tuple(q.shape))
-    flash_bwd_dq.launches += 1
+    _counted(flash_bwd_dq, lib, _DQ, code, D)
     return dq
 
 
@@ -308,7 +331,7 @@ def flash_bwd_dkv(q, k, v, do, lse, dsum, causal, sm_scale):
             int(causal), _scale(D, sm_scale),
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, "flash dK/dV", tuple(q.shape))
-    flash_bwd_dkv.launches += 1
+    _counted(flash_bwd_dkv, lib, _DKV, code, D)
     return dk, dv
 
 
@@ -377,5 +400,6 @@ def reset_counts() -> None:
     flash_forward.launches = 0
     flash_bwd_dq.launches = 0
     flash_bwd_dkv.launches = 0
+    launches_by_route.clear()
     flash_attention_plain_fwd.calls = 0
     flash_attention_plain_bwd.calls = 0

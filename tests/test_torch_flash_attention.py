@@ -8,7 +8,10 @@ atol = rtol = 1e-5. `torch.autograd.gradcheck` of `_FlashAttention` in
 f64 at a tiny shape. `multi_head_attention`'s routes: flash, blockwise
 under a key mask, GQA, and the T > block_size case. The CUDA kernels run
 only on the card: the `gpu`-marked test holds them to the plain versions
-computed in f32 (`python -m pytest -m gpu tests/test_torch_*.py`).
+computed in f32 (`python -m pytest -m gpu tests/test_torch_*.py`). The
+f32 kernels compute their products in split TF32: a CPU emulation of
+those products (TF32 rounding by integer masking) shows that the f32
+tolerance accepts three TF32 passes and rejects one.
 """
 import numpy as np
 import pytest
@@ -337,6 +340,96 @@ def test_kernel_ready_passes_qkv_slices_and_copies_the_rest():
         assert torch.equal(got, t), what
 
 
+def _tf32(x):
+    """x rounded to TF32 (10 explicit mantissa bits) to nearest, ties away
+    from zero, as `cvt.rna.tf32.f32`: add half a unit of the 13 dropped
+    bits to the magnitude, then clear them."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_tf32(eq, a, b, passes):
+    """The kernels' product `einsum(eq, a, b)` on the tensor cores: one
+    TF32 pass on rounded operands, or three (split TF32: x = big + small,
+    a_small b_big + a_big b_small + a_big b_big, small terms first), each
+    TF32 product exact in f32 and summed in f32."""
+    ab, bb = _tf32(a), _tf32(b)
+    if passes == 1:
+        return torch.einsum(eq, ab, bb)
+    small = torch.einsum(eq, _tf32(a - ab), bb) + torch.einsum(
+        eq, ab, _tf32(b - bb))
+    return small + torch.einsum(eq, ab, bb)
+
+
+def _emulated(q, k, v, do, causal, passes):
+    """(O, L, dQ, dK, dV) of the f32 kernels' arithmetic with every product
+    in TF32 (`passes` 1 or 3): the plain versions' formulas, f32 softmax,
+    statistics and dsum, masked entries exactly 0."""
+    B, Tq, H, D = q.shape
+    scale = 1.0 / np.sqrt(D)
+    s = _mm_tf32("bqhd,bkhd->bhqk", q, k, passes) * scale
+    if causal:
+        s = s.masked_fill(~fa._keep(Tq, k.shape[1], s.device), fa.NEG_INF)
+    masked = s <= fa.NEG_INF / 2
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m).masked_fill(masked, 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    o = (_mm_tf32("bhqk,bkhd->bhqd", p, v, passes) / l).transpose(1, 2)
+    lse = m + torch.log(l)
+    p = torch.exp(s - lse).masked_fill(masked, 0.0)
+    dsum = (do * o).sum(dim=-1).transpose(1, 2)[..., None]
+    ds = p * (_mm_tf32("bqhd,bkhd->bhqk", do, v, passes) - dsum)
+    return (o, lse.reshape(B * H, Tq),
+            _mm_tf32("bhqk,bkhd->bqhd", ds, k, passes) * scale,
+            _mm_tf32("bhqk,bqhd->bkhd", ds, q, passes) * scale,
+            _mm_tf32("bhqk,bqhd->bkhd", p, do, passes))
+
+
+def test_tf32_rounding_and_split():
+    """`_tf32` keeps 10 mantissa bits, rounds to nearest with ties away
+    from zero on either sign, and big + small rebuilds x to 2^-21 of it
+    (the split the f32 kernels apply to every operand)."""
+    one = torch.tensor([1.0, -1.0])
+    ulp = 2.0 ** -10
+    for sgn in (1.0, -1.0):
+        x = sgn * torch.tensor([1 + ulp / 2, 1 + ulp / 2 - 2.0 ** -20,
+                                1 + 3 * ulp / 4])
+        want = sgn * torch.tensor([1 + ulp, 1.0, 1 + ulp])
+        assert torch.equal(_tf32(x), want)
+    assert torch.equal(_tf32(one), one)
+    x = torch.from_numpy(np.random.default_rng(20).standard_normal(4096)
+                         .astype(np.float32))
+    big = _tf32(x)
+    assert bool(((big.view(torch.int32) & 0x1FFF) == 0).all())
+    assert (x - big).abs().max() <= ulp / 2 * x.abs().max()
+    rebuilt = big + _tf32(x - big)
+    assert bool(((rebuilt - x).abs() <= 2.0 ** -21 * x.abs()).all())
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_f32_tolerance_accepts_split_tf32_and_rejects_one_pass(causal):
+    """The f32 check (`fa.error_in_tolerances`, TOLERANCE[float32]) can
+    tell f32 from TF32: the kernels' products emulated in split TF32 stay
+    within 0.1 of the tolerance of the plain f32 version (O, dQ, dK, dV
+    row by row, L absolute), one TF32 pass lands outside it in every
+    output (B=1, H=2, T=256, D=128; the phase-4 and training shapes made
+    small)."""
+    q, k, v, do = (torch.from_numpy(x)
+                   for x in _inputs(30 + causal, (1, 256, 2, 128)))
+    ro, rl = fa.flash_attention_plain_fwd(q, k, v, causal)
+    ref = (ro, rl) + fa.flash_attention_plain_bwd(q, k, v, ro, rl, do,
+                                                  causal)
+    names = ("O", "L", "dQ", "dK", "dV")
+    three = _emulated(q, k, v, do, causal, passes=3)
+    one = _emulated(q, k, v, do, causal, passes=1)
+    for name, got3, got1, want in zip(names, three, one, ref):
+        assert fa.error_in_tolerances(name, got3, want,
+                                      torch.float32) <= 0.1, name
+        if name != "L":
+            assert fa.error_in_tolerances(name, got1, want,
+                                          torch.float32) > 1.0, name
+
+
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
@@ -433,6 +526,46 @@ def test_wgmma_backward_cases_and_bits():
                                            o.float(), lse, do.float(),
                                            causal)
         torch.cuda.synchronize()
+        for name, a, b, want in zip(("dQ", "dK", "dV"), runs[0], runs[1],
+                                    ref):
+            assert torch.equal(a, b), name
+            assert fa.error_in_tolerances(name, a, want, dt) <= 1.0, name
+
+
+@pytest.mark.gpu
+def test_tf32_kernels_cases_and_bits():
+    """The f32 kernels at D=128 (split TF32 on the tensor cores, by their
+    route counts) against the plain versions in f32, row by row within
+    `fa.error_in_tolerances`: full and causal at T=512, Tq=512 x Tk=1024
+    non-causal, and q, k, v sliced from one fused qkv tensor (read in
+    place), causal; each backward twice, with identical bits."""
+    _card()
+    dt = torch.float32
+    g = torch.Generator(device="cuda").manual_seed(31)
+    r = lambda *s: torch.randn(s, generator=g, device="cuda")
+    qkv = r(2, 1024, 3 * 4 * 128)
+    fused = [qkv[..., i * 512:(i + 1) * 512].reshape(2, 1024, 4, 128)
+             for i in range(3)] + [r(2, 1024, 4, 128)]
+    assert fa._kernel_ready(fused[0]) is fused[0]
+    square = [r(2, 512, 2, 128) for _ in range(4)]
+    cases = [(square, False), (square, True),
+             ([r(2, 512, 2, 128), r(2, 1024, 2, 128), r(2, 1024, 2, 128),
+               r(2, 512, 2, 128)], False),
+             (fused, True)]
+    for (q, k, v, do), causal in cases:
+        fa.reset_counts()
+        o, lse = fa.flash_forward(q, k, v, causal, None, with_lse=True)
+        dsum = fa._dsum(o, do)
+        runs = [(fa.flash_bwd_dq(q, k, v, do, lse, dsum, causal, None),)
+                + fa.flash_bwd_dkv(q, k, v, do, lse, dsum, causal, None)
+                for _ in range(2)]
+        assert fa.launches_by_route == {("fwd", "tf32"): 1, ("dq", "tf32"): 2,
+                                        ("dkv", "tf32"): 2}
+        ro, rl = fa.flash_attention_plain_fwd(q, k, v, causal)
+        ref = fa.flash_attention_plain_bwd(q, k, v, o, lse, do, causal)
+        torch.cuda.synchronize()
+        assert fa.error_in_tolerances("O", o, ro, dt) <= 1.0
+        assert fa.error_in_tolerances("L", lse, rl, dt) <= 1.0
         for name, a, b, want in zip(("dQ", "dK", "dV"), runs[0], runs[1],
                                     ref):
             assert torch.equal(a, b), name
