@@ -4,6 +4,7 @@ does `chip_smoke.py`'s comparison against the plain versions catch a
 kernel that is wrong?
 
     python3 chip_fault_check.py      # about 15 minutes on an H100
+    python3 chip_fault_check.py "lstm f32"   # the faults named so only
 
 For the unchanged sources and for each planted fault below, the script
 copies `deeplearning4j_tpu_torch/` into a temporary directory, plants the
@@ -29,7 +30,9 @@ process per copy (the unchanged copy runs all three):
   kernels, f32 and bf16, masked and not, forward and reverse, both bf16
   forward routes, the ragged H=196, odd 195 and 385, B=37 and 300,
   H=384, 2048 and the main paths' widths), each output held row by row
-  to the plain versions (`lstm.error_in_tolerances`), as phase 10 does.
+  to the plain versions (`lstm.error_in_tolerances`), as phase 11 does,
+  and the f32 kernels on one step whose product cancels
+  (`chip_smoke.lstm_cancel_units`, against the plain version in f64).
 
 The faults (`MUTATIONS`) drop tiles, terms or rows, and break each
 mechanism of the Hopper kernels: the forward's diagonal mask on the wrong
@@ -46,11 +49,17 @@ tile dropped; the paged walk's
 split merge, key slices and int8 rounding point; the bf16 LSTM
 backward's cluster barrier between its two phases, and its row tile
 reading dz from the next tile's rows; the bf16 LSTM forward's h rows
-loaded before the cluster barrier and its xw tile of the wrong step. A
+loaded before the cluster barrier and its xw tile of the wrong step; the
+f32 LSTM kernels' split TF32 (the small terms dropped, h_t's or dz[t]'s
+small plane left stale, the other unit group's RW small parts, one
+accumulator chained over all of K, which only the cancelling cases
+show) and the forward's h rows loaded before the cluster barrier. A
 fault that makes the kernel trap (an mbarrier wait that times out) fails
 its check process, which counts as caught.
 
-Prints a table and, as the last line, one JSON object
+Arguments, if any, keep only the faults whose names contain one of them
+(the unchanged sources always run). Prints a table and, as the last
+line, one JSON object
 `{"control_ok": ..., "mutants": [{"name", "caught", "caught_by_old_bound",
 "worst": ...}]}`. Exits 0 when the unchanged kernels pass every case and
 every planted fault fails at least one; non-zero otherwise, or without a
@@ -110,8 +119,21 @@ CELL = "__device__ __forceinline__ void fwd_cell("
 CONS = "__device__ void cluster_consumer(ClusterSmem& sm,"
 PROD = "__device__ void cluster_producer(ClusterSmem& sm,"
 FWDK = "lstm_fwd_kernel(const FwdArgs a) {"
-F32F = "lstm_fwd_f32_kernel(const FwdArgs a) {"
 FCONS = "__device__ void fwd_consumer(FwdClusterSmem<ROWS>& sm,"
+TFC = "__device__ __forceinline__ void tf_chunk("
+TFF = "__device__ void tf_fwd_consumer(TfFwdSmem& sm,"
+TFB = "__device__ void tf_bwd_consumer(TfBwdSmem& sm,"
+TF_PASSES = ("    if (kk == 0)\n"
+             "      sm90::wgmma_m64n128k8_tf32_zero(d, das, dbb);  // a fresh "
+             "accumulator\n"
+             "    else\n"
+             "      sm90::wgmma_m64n128k8_tf32(d, das, dbb, 1);\n"
+             "    sm90::wgmma_m64n128k8_tf32(d, dab, dbs, 1);\n"
+             "    sm90::wgmma_m64n128k8_tf32(d, dab, dbb, 1);\n")
+DZ_SPLIT = ("        st_split(a.dzbuf, zp, zi, dzi);\n"
+            "        st_split(a.dzbuf, zp, zi + H, dzf);\n"
+            "        st_split(a.dzbuf, zp, zi + 2 * H, dzo);\n"
+            "        st_split(a.dzbuf, zp, zi + 3 * H, dzg);\n")
 MUTATIONS = [
     ("forward skips the last K/V tile", FLASH, FWDP, [
         ("const int nk = a.causal ? qi + 1 : a.Tk / kWgRows;",
@@ -174,7 +196,8 @@ MUTATIONS = [
         ("  mma_tf32(d, a.small, b.big[0], b.big[1]);\n"
          "  mma_tf32(d, a.big, b.small[0], b.small[1]);\n", "")]),
     ("f32 (TF32): the big part not rounded by cvt.rna (truncated)", FLASH,
-     SPLIT, [("big = tf32_rna(x);", "big = __float_as_uint(x);")]),
+     SPLIT, [("big = tf32_rna(x);", "big = __float_as_uint(x);")],
+     "sm90.cuh"),
     ("f32 (TF32): the block's split pass drops the small parts", FLASH,
      SPLIT_TILE, [("make_float4(__uint_as_float(s[0]), __uint_as_float(s[1]),\n"
                    "                       __uint_as_float(s[2]), "
@@ -229,8 +252,9 @@ MUTATIONS = [
          "if (s + 1 < a.T && a.T < 0) grid.sync();")]),
     # f32 keeps a ragged H (196 = 128 + 68 units in two blocks)
     ("lstm: the last 4 units of a ragged f32 block never written", LSTM,
-     F32F, [("        if (u >= H) continue;",
-             "        if (u >= (u0 + kF32Units > H ? H - 4 : H)) continue;")]),
+     TFF, [("      if (u < H) {\n        const float pI",
+            "      if (u < (u0 + kTfFwdUnits > H ? H - 4 : H)) {\n"
+            "        const float pI")]),
     # the consumers meet the cluster at the start of each step instead of
     # between the cell phase and the product: the barrier between the
     # phases is skipped, and the products read dz[t] before it is stored
@@ -255,6 +279,56 @@ MUTATIONS = [
     ("lstm: forward uses the xw tile of step t+1 at step t", LSTM, FCONS, [
         ("u0 + 64 * gi, k, r0, t);",
          "u0 + 64 * gi, k, r0, min(t + 1, a.T - 1));")]),
+    # the f32 LSTM kernels (split TF32 on wgmma)
+    ("lstm f32 (TF32): the small terms dropped (one TF32 pass)", LSTM, TFC, [
+        (TF_PASSES,
+         "    if (kk == 0)\n"
+         "      sm90::wgmma_m64n128k8_tf32_zero(d, dab, dbb);\n"
+         "    else\n"
+         "      sm90::wgmma_m64n128k8_tf32(d, dab, dbb, 1);\n")]),
+    # each ping-pong buffer's small plane is written at steps 0 and 1 only
+    ("lstm f32 (TF32): h_t's small plane left stale after step 1", LSTM,
+     TFF, [("st_split(hnext, a.plane, (long long)r * a.ldh + u, hs);",
+            "{ uint32_t b_, s_; sm90::split_tf32(hs, b_, s_);\n"
+            "hnext[(long long)r * a.ldh + u] = __uint_as_float(b_);\n"
+            "if (s < 2) hnext[a.plane + (long long)r * a.ldh + u] = "
+            "__uint_as_float(s_); }")]),
+    ("lstm f32 (TF32): dz[t]'s small plane left stale after step 0", LSTM,
+     TFB, [(DZ_SPLIT,
+            "        { const float v_[4] = {dzi, dzf, dzo, dzg};\n"
+            "          for (int q_ = 0; q_ < 4; ++q_) {\n"
+            "            uint32_t b_, s_; sm90::split_tf32(v_[q_], b_, s_);\n"
+            "            a.dzbuf[zi + q_ * H] = __uint_as_float(b_);\n"
+            "            if (s == 0) a.dzbuf[zp + zi + q_ * H] = "
+            "__uint_as_float(s_);\n          } }\n")]),
+    ("lstm f32 (TF32): the RW small parts of the other unit group", LSTM,
+     TFF, [("sm.w[st][wg], sm.ws[wg]);", "sm.w[st][wg], sm.ws[wg ^ 1]);")]),
+    # fresh zeroed at a step's first chunk, added once after its last
+    ("lstm f32 (TF32): one accumulator chained over all of K", LSTM, TFC, [
+        ("      sm90::wgmma_m64n128k8_tf32_zero(d, das, dbb);",
+         "      sm90::wgmma_m64n128k8_tf32(d, das, dbb, 1);"),
+        ("      tf_chunk(fresh, sm.a[st][0], sm.a[st][1], sm.w[st][wg], "
+         "sm.ws[wg]);",
+         "      if (c == 0) for (int i_ = 0; i_ < 64; ++i_) fresh[i_] = 0.f;\n"
+         "      tf_chunk(fresh, sm.a[st][0], sm.a[st][1], sm.w[st][wg], "
+         "sm.ws[wg]);"),
+        ("      add_chunk(z, fresh);", "      if (c + 1 == nch) add_chunk(z, "
+         "fresh);"),
+        ("      tf_chunk(fresh, sm.a[st][0] + a_off,",
+         "      if (c == 0) for (int i_ = 0; i_ < 64; ++i_) fresh[i_] = 0.f;\n"
+         "      tf_chunk(fresh, sm.a[st][0] + a_off,"),
+        ("      add_chunk(dh, fresh);", "      if (c + 1 == nch) add_chunk(dh, "
+         "fresh);")]),
+    # the consumers meet the cluster before the last pass's cell phase
+    # stores its h_t: the producers then load those h rows of the next step
+    # before they are published
+    ("lstm f32 (TF32): the forward reads h[t-1] before the cluster barrier",
+     LSTM, TFF, [
+         ("      // ---- the product to shared memory (warps 0, 1",
+          "      if (p == P - 1) sm90::cluster_sync();\n"
+          "      // ---- the product to shared memory (warps 0, 1"),
+         ("    sm90::cluster_sync();  // h_t is stored (and fenced for TMA) by "
+          "all\n", "")]),
 ]
 
 
@@ -271,11 +345,13 @@ def mutate(src: str, anchor: str, edits) -> str:
 
 
 def make_copy(root: str, mutation) -> str:
-    """A copy of the package under `root`, with `mutation` planted."""
+    """A copy of the package under `root`, with `mutation` planted (in
+    `csrc/<family>.cu`, or in the file its fifth item names)."""
     shutil.copytree(os.path.join(REPO, PKG), os.path.join(root, PKG),
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     if mutation is not None:
-        path = os.path.join(root, PKG, "csrc", mutation[1] + ".cu")
+        name = mutation[4] if len(mutation) > 4 else mutation[1] + ".cu"
+        path = os.path.join(root, PKG, "csrc", name)
         with open(path) as f:
             src = f.read()
         with open(path, "w") as f:
@@ -344,6 +420,11 @@ def lstm_cases(torch):
                               f"{'masked' if masked else 'plain'} "
                               f"{'rev' if rev else 'fwd'}",
                       "units": units, "old_units": None})
+    for kind in ("fwd", "bwd"):
+        units = cs.lstm_cancel_units(torch, L, kind)
+        units = {k: (float("inf") if v != v else v) for k, v in units.items()}
+        cases.append({"case": f"lstm {kind} f32 cancelling product",
+                      "units": units, "old_units": None})
     return cases
 
 
@@ -376,7 +457,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_fault_check: no CUDA device available", file=sys.stderr)
         return 2
-    runs = [("unchanged", None)] + [(m[0], m) for m in MUTATIONS]
+    only = sys.argv[1:]
+    runs = [("unchanged", None)] + [
+        (m[0], m) for m in MUTATIONS
+        if not only or any(word in m[0] for word in only)]
     base = tempfile.mkdtemp(prefix="kernel_fault_")
     try:
         roots = [make_copy(os.path.join(base, str(i)), m)

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Where the bf16 LSTM forward's step and the bf16 D=128 flash
-backward's tiles go, on one NVIDIA card.
+"""Where the LSTM kernels' steps and the bf16 D=128 flash backward's
+tiles go, on one NVIDIA card.
 
     python3 chip_phase_profile.py    # about a minute on an H100
 
 Copies `deeplearning4j_tpu_torch/` into a temporary directory, plants
 `clock64()` readings around the phases of the consumer warpgroups of
-`lstm_fwd_cluster_kernel` (the copy's `csrc/lstm.cu`) and of
+`lstm_fwd_cluster_kernel`, `lstm_fwd_tf32_kernel` and
+`lstm_bwd_tf32_kernel` (the copy's `csrc/lstm.cu`) and of
 `flash_bwd_dq_wgmma_kernel` and `flash_bwd_dkv_wgmma_kernel` (its
 `csrc/flash_attention.cu`; the checkout is never changed), builds it, and
 runs:
@@ -16,6 +17,12 @@ runs:
   the steps: the product (first chunk wait included), the wait for the xw
   tile, the cell phase, the output stores (thread 0's warpgroup issues
   them and waits for h_t) and the cluster barrier;
+- the f32 (split-TF32) forward and backward at T=8, B=2048, H=1024 and
+  masked at B=8192, H=256: block (0, 0)'s consumer warpgroups print
+  their SM cycles a step: the stage waits, the RW splits, the products
+  and the release with the f32 adds (each summed over the step's
+  chunks), the cell phase, the cluster barrier and (backward) the dh
+  carry's staging;
 - the flash backward at main path 2's shape (B=8, H=8, T=4096, D=128,
   causal). Block (0, 0) (the longest rows of dQ, the longest columns of
   dK/dV) prints each consumer warpgroup's SM cycles per tile, averaged
@@ -168,6 +175,87 @@ FLASH_EDITS = [
 ]
 
 
+def _chunk_clocks(wait: str, split: str, product: str, add: str) -> tuple:
+    """(text, instrumented text) of a split-TF32 consumer's chunk: the
+    stage wait, the split of the RW tile, the three-pass product and the
+    release with the f32 adds, each summed over the step's chunks."""
+    text = wait + split + product + add
+    new = (_clock(0, 6) + wait + _clock(1, 6) + split + _clock(2, 6)
+           + product + _clock(3, 6) + add + _clock(4, 6)
+           + "      tw += c1 - c0; tsp += c2 - c1; tm += c3 - c2; "
+             "ta += c4 - c3;\n")
+    return text, new
+
+
+_TF_DECL = ("  long long tw = 0, tsp = 0, tm = 0, ta = 0, tc = 0, tb = 0, "
+            "tst = 0;\n  int steps = 0;\n")
+
+
+def _tf_show(kind: str) -> str:
+    return ("  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x % 128 == 0)"
+            "\n    printf(\"PHASES " + kind + " wg=%d, %d steps, %d chunks a "
+            "pass: stage waits %lld, splits %lld, products %lld, release and "
+            "adds %lld, cell phase %lld, barrier %lld, dh staging %lld cycles "
+            "per step\\n\", (int)(threadIdx.x / 128), steps, nch, "
+            "tw / steps, tsp / steps, tm / steps, ta / steps, tc / steps, "
+            "tb / steps, tst / steps);\n")
+
+
+_TFF = _chunk_clocks(
+    "        sm90::mbar_wait(&sm.full[st], (q / S) & 1);\n",
+    "        named_sync(2 + wg, 128);  // every warp is done with ws\n"
+    "        split_tile<4 * 32 * kTfK, 128>(sm.w[st][wg], sm.ws[wg], wt);\n"
+    "        named_sync(2 + wg, 128);  // the warpgroup's RW tile is split\n",
+    "        tf_chunk(fresh, sm.a[st][0], sm.a[st][1], sm.w[st][wg], "
+    "sm.ws[wg]);\n",
+    "        if (c + 1 < nch)  // the pass's last stage is released after its "
+    "cells\n          sm90::mbar_arrive_cluster(&sm.empty[st], wt / 8, "
+    "releases);\n        add_chunk(z, fresh);\n")
+_TFB = _chunk_clocks(
+    "      sm90::mbar_wait(&sm.full[st], (q / S) & 1);\n", "",
+    "      tf_chunk(fresh, sm.a[st][0] + a_off, sm.a[st][1] + a_off, "
+    "sm.w[st][0],\n               sm.w[st][1]);\n",
+    "      sm90::mbar_arrive_cluster(&sm.empty[st], wt / 8, releases);\n"
+    "      add_chunk(dh, fresh);\n")
+# the split-TF32 kernels (f32): per step, the stage waits, the RW splits,
+# the products and the f32 adds summed over the step's chunks, the cell
+# phase, the cluster barrier (and, backward, the dh carry's staging)
+TF32_EDITS = [
+    ("  float fresh[64], z[64];\n", "  float fresh[64], z[64];\n" + _TF_DECL),
+    _TFF,
+    ("      // ---- the product to shared memory (warps 0, 1",
+     _clock(5, 6) + "      // ---- the product to shared memory (warps 0, 1"),
+    ("      // the held stage goes back to the producer once every warp is "
+     "done\n",
+     _clock(6, 6) + "      tc += c6 - c5;\n"
+     "      // the held stage goes back to the producer once every warp is "
+     "done\n"),
+    ("    sm90::cluster_sync();  // h_t is stored (and fenced for TMA) by "
+     "all\n  }\n",
+     _clock(7, 4) + "    sm90::cluster_sync();  // h_t is stored (and fenced "
+     "for TMA) by all\n" + _clock(8, 4) + "    tb += c8 - c7; ++steps;\n"
+     "  }\n" + _tf_show("tf32 fwd")),
+    ("  float fresh[64], dh[64];\n", "  float fresh[64], dh[64];\n" + _TF_DECL),
+    ("    const TfStep sp(a, s);\n    // ---- cell phase: dz[t]",
+     "    const TfStep sp(a, s);\n" + _clock(5, 4)
+     + "    // ---- cell phase: dz[t]"),
+    ("    __syncwarp();\n    tile_to_acc(dh, dhw, 16 * w, g, tq);\n"
+     "    sm90::fence_proxy_async();  // dz[t] is read back by TMA\n"
+     "    sm90::cluster_sync();\n",
+     _clock(6, 4) + "    __syncwarp();\n    tile_to_acc(dh, dhw, 16 * w, g, tq);\n"
+     "    sm90::fence_proxy_async();  // dz[t] is read back by TMA\n"
+     "    sm90::cluster_sync();\n" + _clock(7, 4)
+     + "    tc += c6 - c5; tb += c7 - c6; ++steps;\n"),
+    _TFB,
+    ("ta += c4 - c3;\n    }\n    if (sp.first) {",
+     "ta += c4 - c3;\n    }\n" + _clock(8, 4) + "    if (sp.first) {"),
+    ("    acc_to_tile(dhw, dh, 16 * w, g, tq);\n    __syncwarp();\n  }\n}\n",
+     "    acc_to_tile(dhw, dh, 16 * w, g, tq);\n    __syncwarp();\n"
+     + _clock(9, 4) + "    tst += c9 - c8;\n  }\n" + _tf_show("tf32 bwd")
+     + "}\n"),
+]
+
+
 def instrumented(src: str, edits) -> str:
     for text, new in edits:
         if src.count(text) != 1:
@@ -196,6 +284,10 @@ def run(root: str) -> None:
         L.lstm_fwd(inp["xw"], inp["rw"], inp["peep"], inp["h0"], inp["c0"],
                    inp["mask"])
         torch.cuda.synchronize()
+    for T, B, H, masked in ((8, 2048, 1024, False), (8, 8192, 256, True)):
+        inp = cs.lstm_inputs(torch, T, B, H, torch.float32, 78, masked)
+        cs.lstm_run(L, inp, False)
+        torch.cuda.synchronize()
     q, k, v, do = cs.flash_inputs_fused(torch, cs.TRAIN_B, cs.TRAIN_T,
                                         cs.TRAIN["n_heads"], 128,
                                         torch.bfloat16, seed=8)
@@ -217,7 +309,7 @@ def main() -> int:
     try:
         shutil.copytree(os.path.join(REPO, PKG), os.path.join(root, PKG),
                         ignore=shutil.ignore_patterns("_build", "__pycache__"))
-        for name, edits in (("lstm", LSTM_EDITS),
+        for name, edits in (("lstm", LSTM_EDITS + TF32_EDITS),
                             ("flash_attention", FLASH_EDITS)):
             path = os.path.join(root, PKG, "csrc", f"{name}.cu")
             with open(path) as f:

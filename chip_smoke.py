@@ -102,7 +102,12 @@ Phases, each of which makes the script exit non-zero when it fails:
    lengths, a row never masked, a row masked from t=0 and a hole; the
    backward on the forward kernel's own stash), every output held row by
    row (`lstm.error_in_tolerances`: 1e-4 f32, 2^-6 bf16, of the row's
-   largest |ref|); H above 2048 refused before any launch, naming why;
+   largest |ref|); the f32 kernels (split TF32, two forward passes a
+   block at H=2048) run twice with bit-identical outputs, and the split-TF32
+   forward and backward on one step whose product cancels (partial sums
+   about 30 times the result: a tensor-core sum chained over all of K
+   lands outside the tolerance) against the plain version in f64; H
+   above 2048 refused before any launch, naming why;
    the launch plans (route, tile, cluster size, clusters that fit,
    waves) at the main paths' shapes; `lstm_fused` with autograd on the
    card against the same call on the CPU (out, hT, cT, dx, dW, dRW, db,
@@ -124,7 +129,15 @@ Phases, each of which makes the script exit non-zero when it fails:
    after a warm-up fit, one fit of one batch (wall time); counts: 4
    unmasked and 2 masked forward launches, the same backward, no plain
    call; one more fit under torch.profiler;
-15. timing: the flash kernels are first held to their plain versions at
+15. train f32 (path 4f): the `lstm_large` network of phase 13 with no
+   `compute_dtype` (f32, `MultiLayerNetwork`'s default) at full width
+   (B=2048 x T=64, H=1024, vocab 256, uint8 ids through the
+   OneHotEncoder): 1 warm-up step, then 3 timed steps (step ms,
+   samples/s, losses, peak device memory); counts set to 0 before and
+   read after: 2 forward and 2 backward unmasked launches per step, all
+   on the split-TF32 route (`lstm.launches_by_route`), no plain call; one
+   more step under torch.profiler (idle share, top kernels);
+16. timing: the flash kernels are first held to their plain versions at
    the training shape twice: on q/k/v sliced from one fused qkv tensor,
    as the training path passes them (the backward twice, bit-identical),
    and on contiguous ones; then CUDA
@@ -139,13 +152,15 @@ Phases, each of which makes the script exit non-zero when it fails:
    bytes / 3.35 TB/s) of this run's data, and each flash kernel's
    achieved TFLOP/s beside the library's, also at head_dim 256, 384 and
    512 (B=2, H=4, T=2048) and for the f32 kernels at phase 6's shape (B=2,
-   H=8, T=1024, D=128) and at path 2f's (B=1, H=8, T=4096, with path 2f's
-   launch counts; SDPA in f32, TF32 off; bound 3 x flops / 495 TFLOP/s
-   for the split-TF32 route, the f32-FMA bound printed beside it); the
+   H=8, T=1024, D=128), at path 2f's (B=1, H=8, T=4096, with path 2f's
+   launch counts) and at head dims 256, 384 and 512 (B=2, H=4, T=2048;
+   the backward at 384 and 512 on the scalar kernels); SDPA in f32, TF32
+   off; bound 3 x flops / 495 TFLOP/s for the split-TF32 route, the
+   f32-FMA bound printed beside it; the
    int8 kernel also at a
    C=128 chunk; each paged
    case with its launch plan (route, slice, splits);
-16. LSTM timing: rows 5-8 at main path 4's shape (T=64, B=2048, H=1024,
+17. LSTM timing: rows 5-8 at main path 4's shape (T=64, B=2048, H=1024,
    unmasked) and main path 4b's window (T=24, B=8192, H=256, unmasked and
    masked), bf16, the same way, beside their plain versions, the bound
    (2*T*B*H*4H flops; each input read and each output written once) and
@@ -153,8 +168,12 @@ Phases, each of which makes the script exit non-zero when it fails:
    GEMM; forward minus one input matmul, and fwd+bwd minus fwd), with
    each launch plan; the two bf16 forward routes at their boundary (T=64,
    H=1024, B=128 cooperative and B=129 clusters, with and without the
-   stash); the f32 kernels at T=8, B=2048, H=1024;
-17. a sigmoid/tanh LSTM wider than the fused kernels take (H=2304 >
+   stash); the f32 kernels (split TF32) at T=8, B=2048, H=1024, at path
+   4f's shape (T=64, with its launch counts) and masked at path 4b's
+   window, against cuDNN in f32 (TF32 off), bound 3 x flops / 495
+   TFLOP/s or the bytes, the f32-FMA bound printed beside it; every
+   row's outputs held to the plain versions within the tolerance first;
+18. a sigmoid/tanh LSTM wider than the fused kernels take (H=2304 >
    `ops.lstm.MAX_H`): `lstm_forward` takes its step loop on the card
    (route counts set to 0 before and read after: loop > 0, fused 0, no
    kernel launch); one layer's outputs and gradients, f32 and bf16,
@@ -1194,6 +1213,11 @@ def phase_flash_timing(torch, fa, counts, counts_f32):
                        dtype=torch.float32)
     rows += flash_rows(torch, fa, TRAIN_F32_B, H, T, 128, counts_f32, 0.0,
                        seed=33, dtype=torch.float32, tag="_t4096")
+    # f32 at head dims 256 (split TF32), 384 and 512 (split-TF32 forward,
+    # scalar backward), the shapes of the bf16 rows above
+    for D in (256, 384, 512):
+        rows += flash_rows(torch, fa, 2, 4, 2048, D, {}, 0.0, seed=40 + D,
+                           dtype=torch.float32)
     return rows
 
 
@@ -1289,6 +1313,7 @@ LSTM_REPLACES = {
 LSTM_LARGE = dict(vocab=256, hidden=1024, B=2048, T=64)
 LSTM_SMALL = dict(vocab=64, hidden=256, B=8192, T=64, tbptt=24)
 LSTM_STEPS = 5
+LSTM_F32_STEPS = 3  # path 4f: the f32 lstm_large step
 LSTM_PARITY_ATOL = 1e-4  # lr / 100 at the parity run's lr 0.01
 
 
@@ -1361,6 +1386,70 @@ def lstm_case_units(torch, L, T, B, H, dtype, masked, reverse, seed):
     return units, err
 
 
+def lstm_same_bits(torch, L, T, B, H, dtype, masked, reverse, seed):
+    """The forward and backward kernels run twice on the same inputs must
+    give the same bits (sums in a fixed order, no atomics)."""
+    inp = lstm_inputs(torch, T, B, H, dtype, seed, masked)
+    first = lstm_run(L, inp, reverse)
+    second = lstm_run(L, inp, reverse)
+    torch.cuda.synchronize()
+    for n, a, b in zip(LSTM_OUTS, list(first[0]) + list(first[1]),
+                       list(second[0]) + list(second[1])):
+        if a is not None and not torch.equal(a, b):
+            raise AssertionError(f"LSTM {n} differs between two runs at "
+                                 f"T={T} B={B} H={H} {dtype}")
+
+
+def lstm_cancel_inputs(torch, kind, B, H, seed):
+    """One step (T=1) whose recurrent product cancels: its partial sums
+    along K climb to P (the sum of the products' magnitudes) and fall back
+    to a result of a few hundredths of P, so that a sum that truncates as
+    it goes (a tensor-core accumulator chained over all of K) is off by
+    many times the f32 tolerance, while sums on fresh accumulators added
+    in f32 stay far inside it.
+    - fwd: h0 = (a, a (1 + 0.3 n)) with a in [0.5, 1], RW = (w, -w) with
+      w = |0.16 n| over the two halves of K = H: z = -sum w a n, P ~ 50;
+    - bwd: a stash with i = f and g = c_prev, so that dzi = dzf > 0
+      exactly, and RW's rows (w, -w (1 + 0.3 n), 0, 0) over the gate
+      blocks of K = 4H: dh0 = -sum dzf w n.
+    Returns the arguments of lstm_fwd / lstm_bwd (f32, on the card)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def n(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    def u(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=g, device="cuda")
+
+    zeros = lambda *shape: torch.zeros(shape, device="cuda")
+    if kind == "fwd":
+        a = u(0.5, 1.0, B, H // 2)
+        w = (0.16 * n(H // 2, 4 * H)).abs()
+        return (zeros(1, B, 4 * H), torch.cat([w, -w]), zeros(3, H),
+                torch.cat([a, a * (1 + 0.3 * n(B, H // 2))], dim=1),
+                u(-0.5, 0.5, B, H))
+    c0, ig, og = u(0.2, 0.8, B, H), u(0.3, 0.7, B, H), u(0.3, 0.7, B, H)
+    w = (0.1 * n(H, H)).abs()
+    rw = torch.cat([w, -w * (1 + 0.3 * n(H, H)), zeros(H, 2 * H)], dim=1)
+    return (torch.cat([ig, ig, og, c0], dim=1)[None], (2 * ig * c0)[None],
+            u(0.5, 1.0, 1, B, H), None, u(0.5, 1.0, B, H), rw, zeros(3, H),
+            c0)
+
+
+def lstm_cancel_units(torch, L, kind, B=128, H=1024, seed=5):
+    """The kernel (f32) on `lstm_cancel_inputs` against the plain version
+    in f64: {output: error in units of TOLERANCE[float32]}."""
+    args = lstm_cancel_inputs(torch, kind, B, H, seed)
+    run, plain = (L.lstm_fwd, L.lstm_fwd_plain) if kind == "fwd" \
+        else (L.lstm_bwd, L.lstm_bwd_plain)
+    got = run(*args)
+    ref = plain(*(None if t is None else t.double() for t in args))
+    torch.cuda.synchronize()
+    names = LSTM_OUTS[:6] if kind == "fwd" else LSTM_OUTS[6:]
+    return {n: L.error_in_tolerances(a, b, torch.float32)
+            for n, a, b in zip(names, got, ref) if a is not None}
+
+
 def lstm_cases(torch):
     """(T, B, H, dtype, masked, reverse): every width of the two main
     paths' shapes and smaller ones, a ragged H (196: not a multiple of the
@@ -1369,7 +1458,9 @@ def lstm_cases(torch):
     multiples of the 128-row tiles; 300 gives three row tiles, the last
     ragged), H = 384 (a cluster of eight 64-unit forward tiles, two idle,
     and of four 128-unit backward tiles, one idle), T = 1, 2, 3, 9, 64,
-    f32 and bf16, masked and not, forward and reverse; the widths the
+    f32 and bf16, masked and not, forward and reverse; main paths 4 and
+    4f's shape (T=64, B=2048, H=1024: waves of 16-block clusters through
+    64 steps) in bf16 and f32, masked and not; the widths the
     kernels refused before: f32 at H=1024, B=2048 and at H=2048, bf16 at
     H=2048 (clusters of 16 blocks of 128 units, 64-row forward tiles) and
     an odd H (385 and 195: padded to a multiple of 8 by the wrappers), on
@@ -1385,7 +1476,8 @@ def lstm_cases(torch):
         cases += [(64, 8192, 256, dt, masked, False)
                   for masked in (False, True)]
     bf = torch.bfloat16
-    cases += [(64, 2048, 1024, bf, masked, False) for masked in (False, True)]
+    cases += [(64, 2048, 1024, dt, masked, False)
+              for dt in (bf, torch.float32) for masked in (False, True)]
     cases += [(2, 2048, 1024, torch.float32, masked, False)
               for masked in (False, True)]
     cases += [(2, 64, 2048, torch.float32, True, True),
@@ -1466,6 +1558,24 @@ def phase_lstm_kernels(torch, L, M):
             f"{'ok' if worst <= 1 else 'FAIL'}")
         if worst > 1:
             raise AssertionError(f"LSTM kernels disagree with plain: {units}")
+    f32 = torch.float32
+    for case in ((2, 2048, 1024, f32, False, False),
+                 (9, 37, 196, f32, True, True), (2, 64, 2048, f32, True, True),
+                 (3, 300, 385, f32, False, True)):
+        lstm_same_bits(torch, L, *case, seed=40)
+    log("  f32 (split-TF32 route): bits identical on rerun at "
+        "B=2048 H=1024, B=37 H=196 masked reverse, B=64 H=2048, B=300 "
+        "H=385")
+    for kind in ("fwd", "bwd"):
+        units = lstm_cancel_units(torch, L, kind)
+        worst = max(units.values())
+        log(f"  f32 {kind} on a cancelling product (partial sums ~30x the "
+            f"result), against the plain version in f64: worst "
+            f"{worst:.3f} of tolerance ({max(units, key=units.get)}) "
+            f"{'ok' if worst <= 1 else 'FAIL'}")
+        if worst > 1:
+            raise AssertionError(f"LSTM {kind} on a cancelling product: "
+                                 f"{units}")
     phase_lstm_edges(torch, L)
     phase_lstm_autograd(torch, L)
     return errs
@@ -1739,28 +1849,32 @@ def phase_lstm_wide(torch, M):
                                      f"{d.max().item()}")
 
 
-def phase_lstm_train(torch, M, card):
+def phase_lstm_train(torch, M, card, compute_dtype=None, steps=LSTM_STEPS,
+                     route="bf16 clusters", seed=0):
     """Main path 4: bench.py lstm_large at full width (bf16 compute over
-    f32 masters, uint8 ids through the OneHotEncoder)."""
+    f32 masters, uint8 ids through the OneHotEncoder); path 4f: the same
+    network with no `compute_dtype` (f32, MultiLayerNetwork's default),
+    through the split-TF32 kernels. `steps` timed steps after one warm-up
+    step; every LSTM launch on `route`."""
     import numpy as np
 
     L = M["lstm"]
     V, H, B, T = (LSTM_LARGE[k] for k in ("vocab", "hidden", "B", "T"))
     net = M["MultiLayerNetwork"](char_rnn_conf(M, V, H, seed=1),
                                  dtype=torch.float32,
-                                 compute_dtype=torch.bfloat16, device="cuda")
+                                 compute_dtype=compute_dtype, device="cuda")
     net.init()
     net.set_normalizer(M["OneHotEncoder"](V))
-    ids = np.random.default_rng(0).integers(0, V, (LSTM_STEPS + 2, B, T + 1))
+    ids = np.random.default_rng(seed).integers(0, V, (steps + 2, B, T + 1))
     batches = [M["DataSet"](ids[i, :, :-1].astype(np.uint8),
                             ids[i, :, 1:].astype(np.int32))
-               for i in range(LSTM_STEPS + 2)]
+               for i in range(steps + 2)]
     net.fit(batches[0])  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     L.reset_counts()
     step_ms, losses = [], []
-    for ds in batches[1:LSTM_STEPS + 1]:
+    for ds in batches[1:steps + 1]:
         t0 = time.perf_counter()
         net.fit(ds)
         torch.cuda.synchronize()
@@ -1772,7 +1886,9 @@ def phase_lstm_train(torch, M, card):
     peak = torch.cuda.max_memory_allocated()
     trace = traced(torch, lambda: net.fit(batches[-1]))
     med = sorted(step_ms)[len(step_ms) // 2]
-    log(f"  {LSTM_STEPS} steps of B={B} x T={T}, H={H}, vocab {V}: step ms "
+    log(f"  {steps} steps of B={B} x T={T}, H={H}, vocab {V}, "
+        f"{'f32' if compute_dtype is None else str(compute_dtype)[6:]}: "
+        f"step ms "
         f"{[round(t, 2) for t in step_ms]}; median {med:.2f} ms, "
         f"{B / med * 1e3:.1f} samples/s [{card}]")
     log(f"  losses {losses}; peak device memory {peak / 2**30:.2f} GiB "
@@ -1782,10 +1898,8 @@ def phase_lstm_train(torch, M, card):
     log(f"  traced step (torch.profiler, not in the step times): {trace}")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite training loss: {losses}")
-    want = {("fwd", False, False): 2 * LSTM_STEPS,
-            ("bwd", False, False): 2 * LSTM_STEPS}
-    want_routes = {("fwd", "bf16 clusters"): 2 * LSTM_STEPS,
-                   ("bwd", "bf16 clusters"): 2 * LSTM_STEPS}
+    want = {("fwd", False, False): 2 * steps, ("bwd", False, False): 2 * steps}
+    want_routes = {("fwd", route): 2 * steps, ("bwd", route): 2 * steps}
     if launches != want or routes != want_routes or any(plain):
         raise AssertionError(f"expected {want} ({want_routes}) and no plain "
                              f"call, got {launches} ({routes}), {plain}")
@@ -1897,13 +2011,18 @@ def cudnn_lstm_ms(torch, T, B, H, f32=False):
     return fwd - mm, fb - fwd, str(dt)[6:]
 
 
-def phase_lstm_timing(torch, L, counts4, counts4b):
+def phase_lstm_timing(torch, L, counts4, counts4b, counts4f):
     """Rows 5-8 at the main paths' shapes (bf16): path 4 runs the
     unmasked kernels at T=64, B=2048, H=1024; path 4b all four at a
     window of T=24, B=8192, H=256. Then the two bf16 forward routes at
     their boundary (T=64, H=1024: the cooperative kernel at B=128, the
-    cluster kernel at B=129), and the f32 kernels (the parity path) at
-    T=8, B=2048, H=1024."""
+    cluster kernel at B=129), and the f32 kernels (split TF32) at T=8,
+    B=2048, H=1024, at path 4f's shape (T=64, with its launch counts) and
+    masked at path 4b's window. An f32 row on the split-TF32 route is
+    bound by its three TF32 passes (3 x flops / 495 TFLOP/s) or its
+    bytes; the f32-FMA bound (flops / 67 TFLOP/s) is logged beside it.
+    Every row's outputs are held to the plain versions first, as in phase
+    11 (`lstm.error_in_tolerances`)."""
     shapes = [(64, 2048, 1024, False, counts4, torch.bfloat16),
               (LSTM_SMALL["tbptt"], 8192, 256, False, counts4b,
                torch.bfloat16),
@@ -1911,7 +2030,9 @@ def phase_lstm_timing(torch, L, counts4, counts4b):
                torch.bfloat16),
               (64, 128, 1024, False, {}, torch.bfloat16),
               (64, 129, 1024, False, {}, torch.bfloat16),
-              (8, 2048, 1024, False, {}, torch.float32)]
+              (8, 2048, 1024, False, {}, torch.float32),
+              (64, 2048, 1024, False, counts4f, torch.float32),
+              (LSTM_SMALL["tbptt"], 8192, 256, True, {}, torch.float32)]
     rows, yard = [], {}
     for T, B, H, masked, counts, dt in shapes:
         inp = lstm_inputs(torch, T, B, H, dt, 77, masked)
@@ -1922,7 +2043,18 @@ def phase_lstm_timing(torch, L, counts4, counts4b):
                           for a, b in zip(got, ref) if a is not None),
                "bwd": max((a.float() - b.float()).abs().max().item()
                           for a, b in zip(bwd, rb))}
+        units = {n: L.error_in_tolerances(a, b, dt) for n, a, b in
+                 zip(LSTM_OUTS, list(got) + list(bwd), list(ref) + list(rb))
+                 if a is not None}
         del ref, rb
+        worst = max(units, key=units.get)
+        log(f"  T={T} B={B} H={H} {str(dt)[6:]} "
+            f"{'masked' if masked else 'plain'}: worst {units[worst]:.3f} "
+            f"of tolerance ({worst}) "
+            f"{'ok' if units[worst] <= 1 else 'FAIL'}")
+        if units[worst] > 1:
+            raise AssertionError(f"LSTM kernels disagree with plain at "
+                                 f"T={T} B={B} H={H} {dt}: {units}")
         m = inp["mask"]
         fns = {
             "fwd": (lambda: L.lstm_fwd(inp["xw"], inp["rw"], inp["peep"],
@@ -1949,7 +2081,11 @@ def phase_lstm_timing(torch, L, counts4, counts4b):
             flops, nbytes = lstm_work(kind, masked, T, B, H, e)
             peak = PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS
             t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
-            plan = L.plan(kind, dt, masked, B, H)
+            fma = ""
+            if L.plan(kind, dt, masked, B, H).route == "tf32 clusters":
+                fma = (f"; f32-FMA bound {1e3 * max(t_ops, t_bytes):.4f} "
+                       f"ms")
+                t_ops = 3 * flops / PEAK_TF32_FLOPS
             name = (f"lstm_{kind}{'_masked' if masked else ''}"
                     f"{'_f32' if f32 else ''}_t{T}_b{B}_h{H}")
             row = {"name": name, "route": "cuda", "source": LSTM_SOURCE,
@@ -1964,7 +2100,7 @@ def phase_lstm_timing(torch, L, counts4, counts4b):
             log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                 f"cuDNN LSTM {row['library_ms']:.4f} ms "
                 f"({yard[(T, B, H, f32)][2]}, {how}, no peepholes), bound "
-                f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']}{fma}), "
                 f"{flops / ms / 1e9:.1f} TFLOP/s, max_abs_err "
                 f"{err[kind]:.3e}, launches {row['launches']}; "
                 f"{lstm_plan_line(L, torch, kind, B, H, dt, masked)}")
@@ -2013,55 +2149,61 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     card = nvidia_smi_line()
-    log(f"[1/17] card: {card}; {torch.cuda.get_device_name(0)}; torch "
+    log(f"[1/18] card: {card}; {torch.cuda.get_device_name(0)}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}; "
         f"{torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     built = cuda_build.build(KERNEL_SOURCES)
-    log(f"[2/17] build: {time.perf_counter() - t0:.1f} s for "
+    log(f"[2/18] build: {time.perf_counter() - t0:.1f} s for "
         f"{len(built)} source(s)")
     for name, res in built.items():
         for line in ptxas_summary(res.log):
             log(f"  {name}: {line}")
 
-    log("[3/17] paged kernels against their plain versions (TF32 off)")
+    log("[3/18] paged kernels against their plain versions (TF32 off)")
     phase_kernels(torch, pa)
-    log("[4/17] flash kernels against their plain versions (TF32 off)")
+    log("[4/18] flash kernels against their plain versions (TF32 off)")
     phase_flash(torch, fa)
-    log("[5/17] f32 DecodeEngine vs generate, 2 layers, d_model 1024")
+    log("[5/18] f32 DecodeEngine vs generate, 2 layers, d_model 1024")
     phase_parity(torch, M)
-    log("[6/17] f32 training, card (kernels) vs CPU (plain), 1 layer, "
+    log("[6/18] f32 training, card (kernels) vs CPU (plain), 1 layer, "
         "d_model 1024, T=1024")
     phase_train_parity(torch, M)
-    log("[7/17] serving the 8-layer bf16 GPT at full width")
+    log("[7/18] serving the 8-layer bf16 GPT at full width")
     launches = phase_serve(torch, M, pa, card)
-    log("[8/17] serving it with int8 KV, the prefix cache and "
+    log("[8/18] serving it with int8 KV, the prefix cache and "
         "self-speculation on shared-prefix traffic")
     launches.update(phase_serve_tier(torch, M, pa, card))
-    log("[9/17] training the 8-layer bf16 gpt_long GPT at full width")
+    log("[9/18] training the 8-layer bf16 gpt_long GPT at full width")
     flash_counts = phase_train(torch, M, card, torch.bfloat16, TRAIN_B,
                                TRAIN_STEPS, 13, "wgmma")
-    log("[10/17] path 2f: training the 8-layer gpt_long GPT in f32 "
+    log("[10/18] path 2f: training the 8-layer gpt_long GPT in f32 "
         "(split-TF32 flash kernels)")
     flash_counts_f32 = phase_train(torch, M, card, None, TRAIN_F32_B,
                                    TRAIN_F32_STEPS, 14, "tf32")
-    log("[11/17] LSTM kernels against their plain versions (TF32 off)")
+    log("[11/18] LSTM kernels against their plain versions (TF32 off)")
     phase_lstm_kernels(torch, L, M)
-    log("[12/17] f32 char-RNN training, card (kernels) vs CPU (plain), "
+    log("[12/18] f32 char-RNN training, card (kernels) vs CPU (plain), "
         "H=256")
     phase_lstm_train_parity(torch, M)
-    log("[13/17] training the bf16 lstm_large char-RNN at full width")
-    lstm_counts = phase_lstm_train(torch, M, card)
-    log("[14/17] training the bf16 lstm char-RNN with tBPTT 24 at full width")
+    log("[13/18] training the bf16 lstm_large char-RNN at full width")
+    lstm_counts = phase_lstm_train(torch, M, card, torch.bfloat16)
+    log("[14/18] training the bf16 lstm char-RNN with tBPTT 24 at full width")
     tbptt_counts = phase_lstm_tbptt(torch, M, card)
-    log("[15/17] timing at the serving and training shapes (bf16)")
+    log("[15/18] path 4f: training the lstm_large char-RNN in f32 "
+        "(split-TF32 LSTM kernels)")
+    f32_counts = phase_lstm_train(torch, M, card, None, LSTM_F32_STEPS,
+                                  "tf32 clusters", seed=2)
+    log("[16/18] timing at the serving and training shapes (bf16 and f32)")
     rows = phase_timing(torch, pa, launches)
     rows += phase_flash_timing(torch, fa, flash_counts,
                                flash_counts_f32)
-    log("[16/17] timing the LSTM kernels at the char-RNN shapes (bf16)")
-    rows += phase_lstm_timing(torch, L, lstm_counts, tbptt_counts)
-    log(f"[17/17] a GravesLSTM wider than the fused kernels (H={LSTM_WIDE}): "
+    log("[17/18] timing the LSTM kernels at the char-RNN shapes (bf16 and "
+        "f32)")
+    rows += phase_lstm_timing(torch, L, lstm_counts, tbptt_counts,
+                              f32_counts)
+    log(f"[18/18] a GravesLSTM wider than the fused kernels (H={LSTM_WIDE}): "
         "the step loop, card vs CPU")
     phase_lstm_wide(torch, M)
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -1591,27 +1591,8 @@ __device__ __forceinline__ int perm8(int g) {
   return (g >> 1) | ((g & 1) << 2);
 }
 
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// The same rounding in two integer operations (half a unit of the 13
-// dropped bits added to the magnitude, then those bits cleared) where the
-// argument is finite: the small part x - big of a finite x. (For an
-// infinite or NaN x, big carries the non-finite value and small does not
-// matter.)
-__device__ __forceinline__ uint32_t tf32_rna_finite(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = big + small (to 2^-22 of x), both TF32
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
-                                           uint32_t& small) {
-  big = tf32_rna(x);
-  small = tf32_rna_finite(x - __uint_as_float(big));
-}
+// the split of an f32 operand into two TF32 parts (sm90.cuh)
+using sm90::split_tf32;
 
 // 16 bytes of shared memory through a generic pointer into it
 __device__ __forceinline__ float4 lds128(const float* p) {

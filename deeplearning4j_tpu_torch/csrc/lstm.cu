@@ -6,11 +6,11 @@
 //      <- _lstm_fwd_kernel_masked (glue _fwd_call_masked):
 //        lstm_fwd_cluster_kernel<ROWS, MASKED, *> (bf16),
 //        lstm_fwd_kernel<bf16, MASKED, *> (bf16, B <= 128 and H <= 1024),
-//        lstm_fwd_f32_kernel<MASKED, *> (f32);
+//        lstm_fwd_tf32_kernel<MASKED, *> (f32);
 //   <- _lstm_bwd_kernel (glue _bwd_call), and masked
 //      <- _lstm_bwd_kernel_masked (glue _bwd_call_masked):
 //        lstm_bwd_cluster_kernel<MASKED> (bf16),
-//        lstm_bwd_f32_kernel<MASKED> (f32).
+//        lstm_bwd_tf32_kernel<MASKED> (f32).
 // Same contract. Forward, per step t (walked T-1..0 with `reverse`):
 //   z = xw[t] + h @ RW;  i = sig(zi + pI c);  f = sig(zf + pF c);
 //   g = tanh(zg);  c' = f c + i g;  o = sig(zo + pO c');  h' = o tanh(c').
@@ -23,10 +23,12 @@
 // masked backward rebuilds the candidate c' = f c_prev + i g from the
 // gates and routes the whole cotangent to one side of the select.
 // Rounding points are the Pallas kernels': carries and the gate chain in
-// f32 (the bf16 cluster forward takes sigmoid and tanh from ex2 and an
-// approximate reciprocal, a few ulp of f32); product operands in the
-// operand type (h rounded before the product, never carried rounded);
-// h_out, c, gates and dz stored in xw's type.
+// f32 (the cluster forwards and the f32 backward take sigmoid and tanh
+// from ex2 and an approximate reciprocal, a few ulp of f32); product
+// operands in the operand type (h rounded before the product, never
+// carried rounded; f32 operands split into two TF32 parts, the
+// reference's HIGHEST precision); h_out, c, gates and dz stored in xw's
+// type.
 //
 // Every kernel rests on one fact: the recurrence does not couple batch
 // rows (step t of rows m needs h[t-1] (or dz[t]) of rows m only), so no
@@ -49,10 +51,14 @@
 //    the carries), the cluster barrier, then dh_prev = dz[t] . RW^T on
 //    wgmma m64n128k16 from a TMA ring (dz[t] multicast within the
 //    cluster); 128 rows x 128 units per block;
-//  - f32 (the parity path, both passes; TF32 stays off): f32 FMAs on
-//    operands staged in shared memory in chunks of 16, 32 rows x 128 units
-//    per block, carries in registers; shared memory does not grow with H
-//    or B.
+//  - f32 (lstm_fwd_tf32_kernel, lstm_bwd_tf32_kernel, rows 5-8 in f32):
+//    the same two skeletons with each step's product in split TF32 (three
+//    wgmma m64n128k8 .tf32 passes per k step, each 32-wide k chunk summed
+//    on a fresh accumulator and added in f32): 64 rows x 64 units per
+//    forward block up to H = 1024, 64 x 128 in two passes above, 128 x 128
+//    per backward block; the cell phase reads the product back by rows from
+//    shared memory and writes the step operand's two TF32 parts for the
+//    next product.
 // The bf16 forward at B <= 128 and H <= 1024 takes the cooperative kernel
 // (lstm_fwd_kernel): a row tile there would stream all of RW through L2
 // every step, while each cooperative block keeps its 8 units' slice of RW
@@ -395,9 +401,11 @@ struct BwdArgs {
   const void* dcT;     // (B, H)
   const void* mask;    // (T, B), masked kernels only
   const void* rw;      // (H, 4H)
+  const void* rwp;     // (2, H, 4H): RW's TF32 planes (split-TF32 route)
   const void* peep;    // (3, H)
   const void* c0;      // (B, H)
   void* dz;            // (T, B, 4H)
+  void* dzbuf;         // (2, B, 4H): dz[t]'s TF32 planes (split-TF32 route)
   float* dhc0;         // (2, B, H)
   int T, B, H, reverse;
 };
@@ -703,315 +711,720 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
   sm90::cluster_sync();  // no block leaves while others may reach it
 }
 
-// ==================================================== f32, row-tile clusters
-// The parity path: f32 at any B and at H up to 2048, both passes. A block
-// owns a tile of kF32Rows batch rows x kF32Units hidden units; the
-// ceil(H / kF32Units) blocks of a row tile form a thread block cluster and
-// meet at barrier.cluster once per step (the tile's h_t, or dz[t], stored
-// by all of them); clusters need not be resident together. Products are
-// f32 FMAs (no TF32): per chunk of k the operands are staged in shared
-// memory by cp.async, every copy of a chunk in flight at once: h (or dz)
-// rows from L2 (16-byte .cg copies: written by the cluster in this
-// launch), RW through L1. Thread (rg, ug) = (tid / 32, tid % 32) owns
-// rows 4 rg .. 4 rg + 3 and units ug + 32 j (j < 4) of the tile, all four
-// gates of each (neighbouring lanes on neighbouring units: the cell
-// phase's loads and stores coalesce, the products' shared reads hit
-// distinct banks): the cell phase runs on the product's registers, and the
-// carries (c; dh and dc) stay in registers for the whole loop. Shared
-// memory does not grow with H or B.
-constexpr int kF32Threads = 256;
-constexpr int kF32Rows = 32;
-constexpr int kF32Units = 128;
-constexpr int kF32FwdK = 16;  // k per chunk: forward (K = H)
-constexpr int kF32BwdK = 64;  // backward (K = 4H)
-constexpr int kF32Pad = 4;    // shared rows 16-byte aligned, banks spread
+// ============================================= f32, split-TF32 clusters
+// Rows 5-8 in f32 (a network's default precision): the step's recurrent
+// product on the tensor cores in split TF32, the counterpart of the
+// reference's HIGHEST-precision _dot (pallas_lstm.py: bf16x3 passes on the
+// MXU). Every operand x is split into big = rna_tf32(x) and small =
+// rna_tf32(x - big) (sm90::split_tf32), and a.b ~ a_small.b_big +
+// a_big.b_small + a_big.b_big, small terms first, on wgmma m64n128k8 .tf32
+// with both operands K-major in shared memory (both LSTM products are
+// K-major on both sides, so no transposed copy is needed):
+//  - forward, z = h[t-1] . RW[:, a 32-unit group's 4 gates]: A is the
+//    h[t-1] rows (K = H), B is RW arranged per 32-unit group by the
+//    wrapper (`_rw_by_unit_group(rw, 32, 4)`: gate q of unit 32 G + j at
+//    row 128 G + 32 q + j) and streamed in f32: each warpgroup splits its
+//    tile of a stage once it has arrived (big in place, small into ws), so
+//    L2 carries RW once per row tile and step, not twice;
+//  - backward, dh_prev = dz[t] . RW^T: A is the dz[t] rows (K = 4H), B is
+//    RW's own rows (unit n over 4H), split once per launch by the wrapper
+//    into two planes (`_tf32_planes`): the block's two warpgroups share
+//    each RW tile, and a per-stage split measured slower.
+// The cell phase that produces the step operand (h_t forward, dz[t]
+// backward) writes its big and small parts itself, into a scratch of two
+// planes (forward: double-buffered, `hbuf` (2 x 2, B, ldh); backward:
+// `dzbuf` (2, B, 4H)), from which TMA multicasts each block's slice of
+// the tile's rows to the cluster, as in the bf16 cluster kernels; the f32
+// outputs (h_out, dz, the stash) stay f32. The product goes through shared
+// memory to the cell phase, where a warp takes 16 rows and its lanes 32
+// consecutive units: every load and store of the cell phase is 128
+// contiguous bytes (the accumulator's layout, 8 rows x 32 bytes a warp,
+// doubled the cell phase's time).
+// Accuracy: the tensor cores truncate the sums they accumulate. Each
+// 32-wide k chunk (4 k steps x 3 passes) is summed on a fresh accumulator
+// (its first wgmma overwrites it) and added into a running f32 sum with
+// f32 adds (round to nearest), so the truncation never runs along K (1024
+// forward, 4096 backward at H = 1024). Two accumulators of m64n128 (64
+// registers a thread each) fit the 168 registers ptxas gives a thread of
+// these blocks; m64n256 would not, so a consumer warpgroup owns 128
+// product columns at a time:
+//  - forward: 64 rows x 64 units a block, each warpgroup 32 units x 4
+//    gates over the same 64 h rows, in clusters of ceil(H / 64) blocks
+//    rounded up to a power of two, up to H = 1024 (16 blocks); above, 64
+//    x 128 in two passes a step of 32 units per warpgroup (the h rows
+//    re-streamed), clusters of ceil(H / 128);
+//  - backward: 128 rows x 128 units a block (two warpgroups of 64 rows
+//    over the same RW rows), clusters of ceil(H / 128).
+// The carries live in the f32 outputs that end up holding them (c in cT,
+// the masked forward's h in hT, the backward's dc in dhc0[1]; the wrapper
+// fills them with c0, h0 and dcT): each thread reads and writes only its
+// own cells. Sums run in a fixed order, without atomics: bits are
+// identical run to run.
+// What bounds it: at T=8, B=2048, H=1024 the 3 x 137 GFLOP on the TF32
+// tensor cores (0.83 ms at 495 TFLOP/s). Beside the products a step holds
+// the RW splits (forward), the cell phase (its f32 loads and stores) and
+// the cluster barrier, during which the tensor cores idle
+// (chip_phase_profile.py prints the cycles of each).
+constexpr int kTfK = 32;              // k per ring stage: a 128-byte row
+constexpr int kTfFwdRows = 64;        // forward tile: 64 rows x 64 P units
+constexpr int kTfFwdUnits = 64;       // units of a block per pass
+constexpr int kTfFwdStages = 4;
+constexpr int kTfBwdRows = 128;       // backward tile: 128 rows x 128 units
+constexpr int kTfBwdUnits = 128;
+constexpr int kTfBwdStages = 3;
+// The forward takes one pass of 64 units a block up to this H (clusters of
+// 16 at most), two passes of 64 above (clusters of ceil(H / 128)): at H =
+// 1024 one pass measured faster, its 16-block clusters filling more of
+// the card than 8-block ones with two passes (32 row tiles at B = 2048).
+constexpr int kTfOnePassH = kMaxCluster * kTfFwdUnits;  // 1024
 
-// asynchronous copies into shared memory: `bytes` of 16 (the rest zero),
-// through L2 only; and 4 bytes (or a zero) through L1
-__device__ __forceinline__ void cp16_zfill(float* dst, const float* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   sm90::smem_u32(dst)),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp4_zfill(float* dst, const float* src,
-                                          bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   sm90::smem_u32(dst)),
-               "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
+// d = A . B^T over one 32-wide k chunk in split TF32 (A 64 rows and B 128
+// rows of 128-byte-swizzled tiles, each as a big and a small plane), the
+// small terms first, on a fresh accumulator (the first wgmma overwrites
+// it); waits for the products.
+__device__ __forceinline__ void tf_chunk(float (&d)[64], const float* ab,
+                                         const float* as, const float* bb,
+                                         const float* bs) {
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kTfK / 8; ++kk) {
+    const uint64_t dab = sm90::desc_sw128(ab + 8 * kk);
+    const uint64_t das = sm90::desc_sw128(as + 8 * kk);
+    const uint64_t dbb = sm90::desc_sw128(bb + 8 * kk);
+    const uint64_t dbs = sm90::desc_sw128(bs + 8 * kk);
+    if (kk == 0)
+      sm90::wgmma_m64n128k8_tf32_zero(d, das, dbb);  // a fresh accumulator
+    else
+      sm90::wgmma_m64n128k8_tf32(d, das, dbb, 1);
+    sm90::wgmma_m64n128k8_tf32(d, dab, dbs, 1);
+    sm90::wgmma_m64n128k8_tf32(d, dab, dbb, 1);
+  }
+  sm90::wgmma_commit();
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(d);
 }
 
-// forward: z[i][j][q] = sum_k h[row i][k] RW[k][q H + unit j] (+= into z)
-__device__ __forceinline__ void f32_fwd_product(const FwdArgs& a,
-                                                const float* hcur, int r0,
-                                                int u0, float (&z)[4][4][4]) {
-  constexpr int KC = kF32FwdK;
-  __shared__ __align__(16) float sa[kF32Rows][KC + kF32Pad];
-  __shared__ __align__(16) float sb[KC][4][kF32Units + kF32Pad];
-  const int H = a.H, tid = threadIdx.x;
-  const int rg = tid / 32, ug = tid % 32;
-  const float* rw = static_cast<const float*>(a.rw);
+// sigmoid and tanh from ex2 and an approximate reciprocal (a few ulp of
+// f32, as the bf16 cluster forward takes them; 0 and +-1 at the extremes)
+__device__ __forceinline__ float rcp_approx(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ float sigm_fast(float x) {
+  return rcp_approx(1.f + __expf(-x));
+}
+__device__ __forceinline__ float tanh_fast(float x) {
+  return 1.f - 2.f * rcp_approx(__expf(2.f * x) + 1.f);
+}
+
+// the chunk's products added into the running sum: f32 adds, round to
+// nearest
+__device__ __forceinline__ void add_chunk(float (&sum)[64],
+                                          const float (&d)[64]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 64; ++i) sum[i] += d[i];
+}
+
+// An m64n128 accumulator (d[4j + 2rr + e1] of warp w, lane 4g + tq: row
+// 16w + g + 8rr, column 8j + 2tq + e1) and a row-major tile in shared
+// memory, rows of 128 columns, column group (col / 4) of a row XORed with
+// row % 8: the stores of a warp (8 rows x 4 column pairs) and the reads
+// of a row by 32 lanes (32 consecutive columns) are both free of bank
+// conflicts. A warp writes and reads only its own 16 rows, from `row0`.
+__device__ __forceinline__ int tile_at(int row, int col) {
+  return row * 128 + (col ^ ((row & 7) << 2));
+}
+__device__ __forceinline__ void acc_to_tile(float* tile, const float (&d)[64],
+                                            int row0, int g, int tq) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+  for (int j = 0; j < 16; ++j)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) z[i][j][q] = 0.f;
-  for (int k0 = 0; k0 < H; k0 += KC) {
-    __syncthreads();  // the previous chunk's operands are read
-    if (tid < kF32Rows * KC / 4) {  // h columns past H are zero in hbuf
-      const int r = tid / (KC / 4), x = tid % (KC / 4);
-      const bool ok = r0 + r < a.B;
-      cp16_zfill(&sa[r][4 * x],
-                 ok ? hcur + (long long)(r0 + r) * a.ldh + k0 + 4 * x : hcur,
-                 ok ? 16 : 0);
+    for (int rr = 0; rr < 2; ++rr)
+      *reinterpret_cast<float2*>(
+          tile + tile_at(row0 + g + 8 * rr, 8 * j + 2 * tq)) =
+          make_float2(d[4 * j + 2 * rr], d[4 * j + 2 * rr + 1]);
+}
+__device__ __forceinline__ void tile_to_acc(float (&d)[64], const float* tile,
+                                            int row0, int g, int tq) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const float2 v = *reinterpret_cast<const float2*>(
+          tile + tile_at(row0 + g + 8 * rr, 8 * j + 2 * tq));
+      d[4 * j + 2 * rr] = v.x, d[4 * j + 2 * rr + 1] = v.y;
     }
-#pragma unroll 8
-    for (int i = tid; i < KC * 4 * kF32Units; i += kF32Threads) {
-      const int kk = i / (4 * kF32Units), q = i / kF32Units % 4;
-      const int u = i % kF32Units, k = k0 + kk;
-      const bool ok = k < H && u0 + u < H;
-      cp4_zfill(&sb[kk][q][u],
-                ok ? rw + (long long)k * 4 * H + q * H + u0 + u : rw, ok);
-    }
-    cp_async_wait_all();
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < KC; ++kk) {
-      float hv[4];
+}
+
+// x's two TF32 parts: big at big[i], small one plane further
+__device__ __forceinline__ void st_split(float* big, long long plane,
+                                         long long i, float x) {
+  uint32_t b, s;
+  sm90::split_tf32(x, b, s);
+  big[i] = __uint_as_float(b);
+  big[plane + i] = __uint_as_float(s);
+}
+
+// An RW tile of N f32 values, as TMA delivered it, split in place into
+// its TF32 big parts, the small parts written at the same offsets of
+// `small` (the 128-byte swizzle moves 16-byte groups, so the split is
+// position for position), by THREADS threads of which this is `i`, every
+// load issued first; then fenced for the async proxy (wgmma reads both).
+template <int N, int THREADS>
+__device__ __forceinline__ void split_tile(float* tile, float* small, int i) {
+  constexpr int kPer = N / (4 * THREADS);  // 16-byte groups a thread
+  float4 v[kPer];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) hv[i] = sa[4 * rg + i][kk];
+  for (int j = 0; j < kPer; ++j)
+    asm volatile("ld.shared.v4.f32 {%0,%1,%2,%3}, [%4];\n"
+                 : "=f"(v[j].x), "=f"(v[j].y), "=f"(v[j].z), "=f"(v[j].w)
+                 : "r"(sm90::smem_u32(tile + 4 * (i + j * THREADS))));
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        float wv[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wv[j] = sb[kk][q][ug + 32 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) z[i][j][q] += hv[i] * wv[j];
+  for (int j = 0; j < kPer; ++j) {
+    const int k = 4 * (i + j * THREADS);
+    uint32_t b[4], sp[4];
+    sm90::split_tf32(v[j].x, b[0], sp[0]);
+    sm90::split_tf32(v[j].y, b[1], sp[1]);
+    sm90::split_tf32(v[j].z, b[2], sp[2]);
+    sm90::split_tf32(v[j].w, b[3], sp[3]);
+    asm volatile("st.shared.v4.b32 [%0], {%1,%2,%3,%4};\n" ::"r"(
+                     sm90::smem_u32(tile + k)),
+                 "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3])
+                 : "memory");
+    asm volatile("st.shared.v4.b32 [%0], {%1,%2,%3,%4};\n" ::"r"(
+                     sm90::smem_u32(small + k)),
+                 "r"(sp[0]), "r"(sp[1]), "r"(sp[2]), "r"(sp[3])
+                 : "memory");
+  }
+  sm90::fence_proxy_async_smem();
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ------------------------------------------------------------ forward
+// A stage: the h[t-1] rows of the tile in their two TF32 planes (TMA,
+// multicast) and each warpgroup's RW rows of the current pass in f32
+// (TMA), split by that warpgroup once they have arrived: big in place,
+// small into ws.
+struct TfFwdSmem {
+  float a[kTfFwdStages][2][kTfFwdRows * kTfK];  // h[t-1]: big, small
+  float w[kTfFwdStages][2][4 * 32 * kTfK];      // [warpgroup] RW rows
+  float ws[2][4 * 32 * kTfK];  // [warpgroup] small parts of its RW tile
+  float peep[3][2 * kTfFwdUnits];
+  uint64_t full[kTfFwdStages], empty[kTfFwdStages];
+};
+constexpr uint32_t kTfFwdStageBytes =
+    sizeof(float) * kTfK * (2 * kTfFwdRows + 2 * 4 * 32);
+constexpr size_t kTfFwdSmemBytes = sizeof(TfFwdSmem) + 1024;  // + align
+
+struct TfFwdArgs {
+  const float *xw, *peep, *mask;
+  float *hbuf, *h_out, *hT, *cT, *hsel, *c_stash, *gates;
+  long long plane;  // B * ldh: one plane of hbuf
+  int T, B, H, ldh, reverse, cluster;
+};
+
+// h loads from hbuf (H, B, 4 planes: step parity x {big, small}) in boxes
+// of 32 columns x `slice` rows; RW arranged per 32-unit group (H, 4 Hu) in
+// boxes of 32 columns x 128 rows (one group's four gates)
+struct TfFwdMaps {
+  CUtensorMap h, w;
+};
+
+// Producer warp, per step: the RW chunks of the first three ring stages
+// before the cluster barrier (they do not depend on h; the fourth stage
+// holds the consumers' product during the last cell phase), then this
+// block's slice of every chunk's h[t-1] rows (both planes, multicast to
+// the cluster) and the remaining RW chunks, pass after pass. A stage is
+// refilled once every consumer warpgroup of every block of the cluster
+// released it.
+template <int P>
+__device__ void tf_fwd_producer(TfFwdSmem& sm, const TfFwdArgs& a,
+                                const TfFwdMaps& m, int nch) {
+  constexpr int S = kTfFwdStages;
+  const bool leader = threadIdx.x % 32 == 0;
+  const int C = a.cluster, r0 = blockIdx.y * kTfFwdRows;
+  const int g0 = 2 * P * blockIdx.x;  // the block's first 32-unit group
+  const uint32_t rank = sm90::cluster_rank();
+  // each loading block's rows: at least 8 (a whole swizzle atom)
+  const int slice = kTfFwdRows / C < 8 ? 8 : kTfFwdRows / C;
+  const bool loads = (int)rank * slice < kTfFwdRows;
+  const uint16_t mask = (uint16_t)((1u << C) - 1);
+  const int n = P * nch;  // a step's chunks: P passes
+  const int ahead = n < S - 1 ? n : S - 1;
+  // chunk i of a step: pass i / nch (warpgroup wg's units 32 (P wg + pass)
+  // .. + 31 of the block), k chunk i % nch
+  auto issue_w = [&](uint32_t q, int i) {
+    const uint32_t st = q % S;
+    sm90::mbar_wait_cluster(&sm.empty[st], ((q / S) & 1) ^ 1);
+    sm90::mbar_expect_tx(&sm.full[st], kTfFwdStageBytes);
+    for (int wg = 0; wg < 2; ++wg)
+      sm90::tma_load_2d(sm.w[st][wg], &m.w, &sm.full[st], (i % nch) * kTfK,
+                        (g0 + P * wg + i / nch) * 128);
+  };
+  uint32_t q = 0;  // chunks issued before this step
+  for (int s = 0; s < a.T; ++s) {
+    if (leader)
+      for (int i = 0; i < ahead; ++i) issue_w(q + i, i);
+    if (s > 0) sm90::cluster_sync();  // h[t-1] stored by every block
+    if (leader)
+      for (int i = 0; i < n; ++i) {
+        const uint32_t st = (q + i) % S;
+        if (i >= ahead) issue_w(q + i, i);
+        if (!loads) continue;
+        for (int pl = 0; pl < 2; ++pl) {
+          float* dst = sm.a[st][pl] + rank * slice * kTfK;
+          const int hp = 2 * (s & 1) + pl, k0 = (i % nch) * kTfK;
+          if (C == 1)
+            sm90::tma_load_3d(dst, &m.h, &sm.full[st], k0, r0, hp);
+          else
+            sm90::tma_load_3d_multicast(dst, &m.h, &sm.full[st], mask, k0,
+                                        r0 + rank * slice, hp);
+        }
       }
+    q += n;
+  }
+  sm90::cluster_sync();  // the consumers' last step
+}
+
+// Prefetch warp: while step s's products run, bring its xw rows of this
+// tile into L2.
+template <int P>
+__device__ void tf_fwd_prefetcher(const TfFwdArgs& a) {
+  const int H = a.H, u0 = blockIdx.x * P * kTfFwdUnits;
+  const int r0 = blockIdx.y * kTfFwdRows;
+  const int units = min(P * kTfFwdUnits, H - u0);
+  for (int s = 0; s < a.T; ++s) {
+    if (s > 0) sm90::cluster_sync();
+    if (units <= 0) continue;
+    const int t = a.reverse ? a.T - 1 - s : s;
+    for (int i = threadIdx.x % 32; i < kTfFwdRows * 4; i += 32) {
+      const int r = r0 + i / 4, q = i % 4;
+      if (r >= a.B) continue;
+      const char* b = reinterpret_cast<const char*>(
+          a.xw + ((long long)t * a.B + r) * 4 * H + q * H + u0);
+      for (int off = 0; off < 4 * units; off += 128) sm90::prefetch_l2(b + off);
+      sm90::prefetch_l2(b + 4 * units - 1);
     }
   }
+  sm90::cluster_sync();
 }
 
-template <bool MASKED, bool STASH>
-__global__ void __launch_bounds__(kF32Threads)
-    lstm_fwd_f32_kernel(const FwdArgs a) {
-  const int H = a.H, B = a.B, tid = threadIdx.x;
-  const int u0 = blockIdx.x * kF32Units, r0 = blockIdx.y * kF32Rows;
-  const int rb = r0 + 4 * (tid / 32), ub = u0 + tid % 32;
-  const float* xw = static_cast<const float*>(a.xw);
-  const float* peep = static_cast<const float*>(a.peep);
-  const float* c0 = static_cast<const float*>(a.c0);
-  float* hb = static_cast<float*>(a.hbuf);
-  float pp[3][4], c[4][4], hp[4][4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int k = 0; k < 3; ++k)
-      pp[k][j] = ub + 32 * j < H ? peep[k * H + ub + 32 * j] : 0.f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const bool ok = rb + i < B && ub + 32 * j < H;
-      c[i][j] = ok ? c0[(long long)(rb + i) * H + ub + 32 * j] : 0.f;
-      hp[i][j] = ok ? hb[(long long)(rb + i) * a.ldh + ub + 32 * j] : 0.f;
-    }
+// Consumer warpgroup wg: the tile's 64 rows and the block's units 32 P wg
+// .. 32 P wg + 32 P - 1, in P passes of 32 units a step (each a product,
+// then its cell phase). A pass's product has column 32 q + j for gate q
+// of its unit j (RW's arrangement per 32-unit group); the cell phase reads
+// it back by rows from shared memory: from the warpgroup's RW tile of the
+// pass's last ring stage (rows 0-31), which it holds until then, and from
+// ws (rows 32-63), so that the other stages take the next chunks.
+template <int P, bool MASKED, bool STASH>
+__device__ void tf_fwd_consumer(TfFwdSmem& sm, const TfFwdArgs& a,
+                                int nch) {
+  constexpr int S = kTfFwdStages;
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int l = tid % 32, g = l / 4, tq = l % 4, w = (tid % 128) / 32;
+  const int H = a.H, B = a.B, C = a.cluster;
+  const int u0 = blockIdx.x * P * kTfFwdUnits, r0 = blockIdx.y * kTfFwdRows;
+  const int wt = tid % 128;
+  // thread 8k of a warpgroup releases a stage to block k of the cluster
+  const bool releases = wt % 8 == 0 && wt / 8 < C;
+  float fresh[64], z[64];
+  uint32_t q = 0;  // chunks consumed before this pass
   for (int s = 0; s < a.T; ++s) {
     const int t = a.reverse ? a.T - 1 - s : s;
-    const bool last = s == a.T - 1;
-    const float* hcur = hb + (s & 1) * a.plane;
-    float* hnext = hb + ((s + 1) & 1) * a.plane;
-    float z[4][4][4];
-    f32_fwd_product(a, hcur, r0, u0, z);
+    float* hnext = a.hbuf + 2 * ((s + 1) & 1) * a.plane;  // big; small next
+    for (int p = 0; p < P; ++p) {
+      // ---- product: z = h[t-1][rows, :] . RWp[the pass's 128 rows, :]^T
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = rb + i;
-      if (r >= B) continue;
-      const long long row = (long long)t * B + r;
-      const float m = MASKED ? static_cast<const float*>(a.mask)[row] : 1.f;
+      for (int i = 0; i < 64; ++i) z[i] = 0.f;
+      for (int c = 0; c < nch; ++c, ++q) {
+        const uint32_t st = q % S;
+        sm90::mbar_wait(&sm.full[st], (q / S) & 1);
+        named_sync(2 + wg, 128);  // every warp is done with ws
+        split_tile<4 * 32 * kTfK, 128>(sm.w[st][wg], sm.ws[wg], wt);
+        named_sync(2 + wg, 128);  // the warpgroup's RW tile is split
+        tf_chunk(fresh, sm.a[st][0], sm.a[st][1], sm.w[st][wg], sm.ws[wg]);
+        if (c + 1 < nch)  // the pass's last stage is released after its cells
+          sm90::mbar_arrive_cluster(&sm.empty[st], wt / 8, releases);
+        add_chunk(z, fresh);
+      }
+      // ---- the product to shared memory (warps 0, 1: the last stage's RW
+      // tile of this warpgroup; warps 2, 3: ws)
+      const uint32_t held = (q - 1) % S;
+      float* zt = w < 2 ? sm.w[held][wg] : sm.ws[wg];
+      acc_to_tile(zt, z, 16 * (w & 1), g, tq);
+      __syncwarp();
+      // ---- cell phase: lane l takes unit u0 + 32 (P wg + p) + l of the
+      // warp's 16 rows (a warp's loads and stores are 128 contiguous
+      // bytes); 4 rows' loads (xw, the carries) are issued together before
+      // their gate chains
+      const int ul = 32 * (P * wg + p) + l, u = u0 + ul;
+      if (u < H) {
+        const float pI = sm.peep[0][ul], pF = sm.peep[1][ul],
+                    pO = sm.peep[2][ul];
+#pragma unroll 1
+        for (int i0 = 0; i0 < 16; i0 += 4) {
+          float xv[4][4], cv[4], hv[4], mv[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int u = ub + 32 * j;
-        if (u >= H) continue;
-        const float* x = xw + row * 4 * H + u;
-        const float cp = c[i][j];
-        const float ig = sigm(z[i][j][0] + x[0] + pp[0][j] * cp);
-        const float fg = sigm(z[i][j][1] + x[H] + pp[1][j] * cp);
-        const float gg = tanhf(z[i][j][3] + x[3 * H]);
-        const float cn = fg * cp + ig * gg;
-        const float og = sigm(z[i][j][2] + x[2 * H] + pp[2][j] * cn);
-        const float hn = og * tanhf(cn);
-        float hs = hn, cs = cn, out = hn;
-        if constexpr (MASKED) {
-          hs = m > 0.f ? hn : hp[i][j];
-          cs = m > 0.f ? cn : cp;
-          out = hs * m;
-        }
-        const long long e = row * H + u;
-        static_cast<float*>(a.h_out)[e] = out;
-        if constexpr (STASH) {
-          static_cast<float*>(a.c_stash)[e] = cs;
-          if constexpr (MASKED) static_cast<float*>(a.hsel)[e] = hs;
-          float* gt = static_cast<float*>(a.gates) + row * 4 * H + u;
-          gt[0] = ig, gt[H] = fg, gt[2 * H] = og, gt[3 * H] = gg;
-        }
-        hnext[(long long)r * a.ldh + u] = hs;
-        c[i][j] = cs, hp[i][j] = hs;
-        if (last) {
-          static_cast<float*>(a.cT)[(long long)r * H + u] = cs;
-          if constexpr (MASKED)
-            static_cast<float*>(a.hT)[(long long)r * H + u] = hs;
+          for (int i = 0; i < 4; ++i) {
+            const int r = r0 + 16 * w + i0 + i;
+            if (r >= B) continue;
+            const long long row = (long long)t * B + r;
+            const float* x = a.xw + row * 4 * H + u;
+#pragma unroll
+            for (int g4 = 0; g4 < 4; ++g4) xv[i][g4] = x[g4 * H];
+            cv[i] = a.cT[(long long)r * H + u];  // the c carry (c0 at first)
+            if (MASKED) {
+              hv[i] = a.hT[(long long)r * H + u];  // the h carry (h0 at first)
+              mv[i] = a.mask[row];
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int rl = 16 * (w & 1) + i0 + i, r = r0 + 16 * w + i0 + i;
+            if (r >= B) continue;
+            const long long row = (long long)t * B + r;
+            auto zq = [&](int q4) { return zt[tile_at(rl, 32 * q4 + l)]; };
+            const float cp = cv[i];
+            const float ig = sigm_fast(zq(0) + xv[i][0] + pI * cp);
+            const float fg = sigm_fast(zq(1) + xv[i][1] + pF * cp);
+            const float gg = tanh_fast(zq(3) + xv[i][3]);
+            const float cn = fg * cp + ig * gg;
+            const float og = sigm_fast(zq(2) + xv[i][2] + pO * cn);
+            const float hn = og * tanh_fast(cn);
+            float hs = hn, cs = cn, out = hn;
+            const long long cu = (long long)r * H + u;
+            if constexpr (MASKED) {
+              hs = mv[i] > 0.f ? hn : hv[i];
+              cs = mv[i] > 0.f ? cn : cp;
+              out = hs * mv[i];
+              a.hT[cu] = hs;
+            }
+            const long long o = row * H + u;
+            a.h_out[o] = out;
+            if constexpr (STASH) {
+              a.c_stash[o] = cs;
+              if constexpr (MASKED) a.hsel[o] = hs;
+              float* gt = a.gates + row * 4 * H + u;
+              gt[0] = ig, gt[H] = fg, gt[2 * H] = og, gt[3 * H] = gg;
+            }
+            a.cT[cu] = cs;
+            st_split(hnext, a.plane, (long long)r * a.ldh + u, hs);  // h_t
+          }
         }
       }
+      // the held stage goes back to the producer once every warp is done
+      // with it (its TMA writes follow these generic accesses)
+      sm90::fence_proxy_async();
+      named_sync(2 + wg, 128);
+      sm90::mbar_arrive_cluster(&sm.empty[held], wt / 8, releases);
     }
-    sm90::cluster_sync();  // the tile's h_t stored; h_{t-1} read by all
+    sm90::cluster_sync();  // h_t is stored (and fenced for TMA) by all
   }
 }
 
-// backward: dh[i][j] = sum_k dz[t][row i][k] RW[unit j][k] over K = 4H
-__device__ __forceinline__ void f32_bwd_product(const BwdArgs& a,
-                                                const float* dzt, int r0,
-                                                int u0, float (&acc)[4][4]) {
-  constexpr int KC = kF32BwdK;
-  __shared__ __align__(16) float sa[kF32Rows][KC + kF32Pad];
-  __shared__ float sb[kF32Units][KC + 1];  // odd stride: distinct banks
-  const int K = 4 * a.H, tid = threadIdx.x;
-  const int rg = tid / 32, ug = tid % 32;
-  const float* rw = static_cast<const float*>(a.rw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < K; k0 += KC) {
-    __syncthreads();
-    for (int i = tid; i < kF32Rows * KC / 4; i += kF32Threads) {
-      const int r = i / (KC / 4), k = k0 + 4 * (i % (KC / 4));
-      const int bytes = r0 + r < a.B ? 4 * max(0, min(4, K - k)) : 0;
-      cp16_zfill(&sa[r][k - k0],
-                 bytes ? dzt + (long long)(r0 + r) * K + k : dzt, bytes);
+template <int P, bool MASKED, bool STASH>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+    lstm_fwd_tf32_kernel(const __grid_constant__ TfFwdMaps maps,
+                         const TfFwdArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  TfFwdSmem& sm = *reinterpret_cast<TfFwdSmem*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int nch = (a.H + kTfK - 1) / kTfK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kTfFwdStages; ++s) {
+      sm90::mbar_init(&sm.full[s], 1);
+      // one arrival per consumer warpgroup of every block of the cluster
+      sm90::mbar_init(&sm.empty[s], 2 * a.cluster);
     }
-#pragma unroll 8
-    for (int i = tid; i < KC * kF32Units; i += kF32Threads) {
-      const int u = i / KC, kk = i % KC, k = k0 + kk;
-      const bool ok = k < K && u0 + u < a.H;
-      cp4_zfill(&sb[u][kk], ok ? rw + (long long)(u0 + u) * K + k : rw, ok);
+    sm90::mbar_fence_init();
+  }
+  constexpr int U = P * kTfFwdUnits;
+  const int u0 = blockIdx.x * U;
+  for (int i = threadIdx.x; i < 3 * U; i += kClusterThreads) {
+    const int k = i / U, u = u0 + i % U;
+    sm.peep[k][i % U] = u < a.H ? a.peep[k * a.H + u] : 0.f;
+  }
+  __syncthreads();
+  // every block's barriers are initialised before any multicast or remote
+  // arrival reaches them
+  sm90::cluster_sync();
+  if (threadIdx.x < kConsumers)
+    tf_fwd_consumer<P, MASKED, STASH>(sm, a, nch);
+  else if (threadIdx.x < kConsumers + 32)
+    tf_fwd_producer<P>(sm, a, maps, nch);
+  else
+    tf_fwd_prefetcher<P>(a);
+  sm90::cluster_sync();  // no block leaves while others may reach it
+}
+
+// ----------------------------------------------------------- backward
+// A stage: the dz[t] rows of the tile and the block's RW rows, each in
+// their two TF32 planes (TMA; dz multicast). Between products the A
+// planes hold the product's result (the dh carry) as a row-major tile, so
+// that the cell phase runs with its registers free and reads it by rows.
+struct TfBwdSmem {
+  float a[kTfBwdStages][2][kTfBwdRows * kTfK];  // dz[t] rows: big, small
+  float w[kTfBwdStages][2][kTfBwdUnits * kTfK];  // RW rows: big, small
+  float peep[3][kTfBwdUnits];
+  uint64_t full[kTfBwdStages], empty[kTfBwdStages];
+};
+static_assert(sizeof(TfBwdSmem::a) >= sizeof(float) * kTfBwdRows * 128,
+              "the dh carry fits the A planes");
+constexpr uint32_t kTfBwdStageBytes =
+    sizeof(float) * kTfK * 2 * (kTfBwdRows + kTfBwdUnits);
+constexpr size_t kTfBwdSmemBytes = sizeof(TfBwdSmem) + 1024;  // + align
+
+struct TfBwdArgs {
+  const float *gates, *c, *dh_out, *dhT, *mask, *peep, *c0;
+  float *dz, *dzbuf, *dhc0;
+  int T, B, H, reverse, cluster;
+};
+
+// backward step s undoes forward step T-1-s
+struct TfStep {
+  int t, t_prev;
+  bool first;  // forward step 0: c_prev is c0, dh0 is written
+  __device__ TfStep(const TfBwdArgs& a, int s)
+      : t(a.reverse ? s : a.T - 1 - s),
+        t_prev(a.reverse ? s + 1 : a.T - 2 - s),
+        first(s == a.T - 1) {}
+};
+
+// Producer warp, per step: the RW chunks of the first ring stages (during
+// the cell phase), then after the cluster barrier this block's slice of
+// the dz[t] rows of every chunk (both planes, multicast to the cluster)
+// and the remaining RW chunks.
+__device__ void tf_bwd_producer(TfBwdSmem& sm, const TfBwdArgs& a,
+                                const CUtensorMap* tdz,
+                                const CUtensorMap* trw, int nch) {
+  constexpr int S = kTfBwdStages;
+  const bool leader = threadIdx.x % 32 == 0;
+  const int C = a.cluster, u0 = blockIdx.x * kTfBwdUnits;
+  const int r0 = blockIdx.y * kTfBwdRows;
+  const uint32_t rank = sm90::cluster_rank();
+  const int slice = kTfBwdRows / C;
+  const uint16_t mask = (uint16_t)((1u << C) - 1);
+  const int ahead = nch < S ? nch : S;
+  auto issue_w = [&](uint32_t q, int c) {
+    const uint32_t st = q % S;
+    sm90::mbar_wait_cluster(&sm.empty[st], ((q / S) & 1) ^ 1);
+    sm90::mbar_expect_tx(&sm.full[st], kTfBwdStageBytes);
+    for (int pl = 0; pl < 2; ++pl)
+      sm90::tma_load_3d(sm.w[st][pl], trw, &sm.full[st], c * kTfK, u0, pl);
+  };
+  uint32_t q = 0;  // chunks issued before this step
+  for (int s = 0; s < a.T; ++s) {
+    if (leader)
+      for (int c = 0; c < ahead; ++c) issue_w(q + c, c);
+    sm90::cluster_sync();  // dz[t] of the row tile stored by every block
+    if (leader)
+      for (int c = 0; c < nch; ++c) {
+        const uint32_t st = (q + c) % S;
+        if (c >= ahead) issue_w(q + c, c);
+        for (int pl = 0; pl < 2; ++pl) {
+          float* dst = sm.a[st][pl] + rank * slice * kTfK;
+          if (C == 1)
+            sm90::tma_load_3d(dst, tdz, &sm.full[st], c * kTfK, r0, pl);
+          else
+            sm90::tma_load_3d_multicast(dst, tdz, &sm.full[st], mask,
+                                        c * kTfK, r0 + rank * slice, pl);
+        }
+      }
+    q += nch;
+  }
+}
+
+// Prefetch warp: while step s's product runs, bring step s + 1's stash
+// rows of this tile into L2.
+__device__ void tf_bwd_prefetcher(const TfBwdArgs& a) {
+  const int H = a.H, u0 = blockIdx.x * kTfBwdUnits;
+  const int r0 = blockIdx.y * kTfBwdRows;
+  const int units = min(kTfBwdUnits, H - u0);
+  const long long G = 4LL * H;
+  for (int s = 0; s < a.T; ++s) {
+    sm90::cluster_sync();
+    if (s + 1 >= a.T || units <= 0) continue;
+    const TfStep sp(a, s + 1);
+    for (int i = threadIdx.x % 32; i < kTfBwdRows * 7; i += 32) {
+      const int r = r0 + i / 7, seg = i % 7;
+      if (r >= a.B) continue;
+      const long long row = (long long)sp.t * a.B + r;
+      const float* p;
+      if (seg < 4) p = a.gates + row * G + seg * H + u0;
+      else if (seg == 4) p = a.dh_out + row * H + u0;
+      else if (seg == 5) p = a.c + row * H + u0;
+      else if (sp.first) p = a.c0 + (long long)r * H + u0;
+      else p = a.c + ((long long)sp.t_prev * a.B + r) * H + u0;
+      const char* b = reinterpret_cast<const char*>(p);
+      for (int off = 0; off < 4 * units; off += 128) sm90::prefetch_l2(b + off);
+      sm90::prefetch_l2(b + 4 * units - 1);
     }
-    cp_async_wait_all();
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < KC; ++kk) {
-      float dv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dv[i] = sa[4 * rg + i][kk];
-      float wv[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wv[j] = sb[ug + 32 * j][kk];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += dv[i] * wv[j];
+  }
+}
+
+// Consumer warpgroup wg: the product of rows 64 wg .. 64 wg + 63 of the
+// tile and the block's 128 units, in the wgmma accumulator's layout
+// (`dh`, the running sum). Between products the dh carry waits in the A
+// planes as a row-major tile (dht, tile_at): going into a step's cell
+// phase it holds the previous product plus the masked select's bypass (at
+// the first step dhT, masked, or 0), and the cell phase leaves the next
+// bypass there (0 unmasked), which the next product starts from. In the
+// cell phase warp W (of the 8) takes the tile's rows 16W .. 16W + 15 (the
+// rows its accumulator holds), lane l the units l + 32k: a warp's loads
+// and stores are 128 contiguous bytes.
+template <bool MASKED>
+__device__ void tf_bwd_consumer(TfBwdSmem& sm, const TfBwdArgs& a,
+                                int nch) {
+  constexpr int S = kTfBwdStages;
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int l = tid % 32, g = l / 4, tq = l % 4, w = (tid % 128) / 32;
+  const int H = a.H, B = a.B, C = a.cluster;
+  const long long G = 4LL * H, BH = (long long)B * H;
+  const int u0 = blockIdx.x * kTfBwdUnits, r0 = blockIdx.y * kTfBwdRows;
+  const int wt = tid % 128;
+  // thread 8k of a warpgroup releases a stage to block k of the cluster
+  const bool releases = wt % 8 == 0 && wt / 8 < C;
+  float* dht = &sm.a[0][0][0];      // 128 rows x 128 units
+  float* dhw = dht + wg * 64 * 128;  // the warpgroup's 64 rows
+  const int rw0 = 16 * (tid / 32);   // the warp's first row of the tile
+  for (int i = 0; i < 16; ++i)
+    for (int k = 0; k < 4; ++k) {
+      const int r = r0 + rw0 + i, u = u0 + l + 32 * k;
+      dht[tile_at(rw0 + i, l + 32 * k)] =
+          MASKED && r < B && u < H ? a.dhT[(long long)r * H + u] : 0.f;
     }
+  __syncwarp();
+  float fresh[64], dh[64];
+  const int a_off = wg * 64 * kTfK;  // the warpgroup's rows of an A tile
+  const long long zp = (long long)B * G;  // one plane of dzbuf
+  uint32_t q = 0;  // chunks consumed before this step
+  for (int s = 0; s < a.T; ++s) {
+    const TfStep sp(a, s);
+    // ---- cell phase: dz[t] of the warp's rows, a row's 4 cells at a time
+    // (their loads issued together first)
+#pragma unroll 1
+    for (int i = 0; i < 16; ++i) {
+      const int rl = rw0 + i, r = r0 + rl;
+      if (r >= B) break;
+      const long long row = (long long)sp.t * B + r;
+      const float m = MASKED ? a.mask[row] : 1.f;
+      float gv[4][4], cpv[4], dhov[4], ctv[4], dcv[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int u = u0 + l + 32 * k;
+        if (u >= H) continue;
+        const float* gt = a.gates + row * G + u;
+#pragma unroll
+        for (int g4 = 0; g4 < 4; ++g4) gv[k][g4] = gt[g4 * H];
+        cpv[k] = sp.first ? a.c0[(long long)r * H + u]
+                          : a.c[((long long)sp.t_prev * B + r) * H + u];
+        dhov[k] = a.dh_out[row * H + u];
+        if (!MASKED) ctv[k] = a.c[row * H + u];
+        dcv[k] = a.dhc0[BH + (long long)r * H + u];  // the dc carry
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int ul = l + 32 * k, u = u0 + ul;
+        if (u >= H) continue;
+        float* dhc = dht + tile_at(rl, ul);
+        const float ig = gv[k][0], fg = gv[k][1], og = gv[k][2], gg = gv[k][3];
+        const float c_prev = cpv[k], dho = dhov[k], dcc = dcv[k];
+        float dhn, dcn, c_t, byp_h = 0.f, byp_c = 0.f;
+        if constexpr (MASKED) {
+          const float d_hsel = m * dho + *dhc;
+          dhn = m > 0.f ? d_hsel : 0.f;
+          byp_h = m > 0.f ? 0.f : d_hsel;
+          dcn = m > 0.f ? dcc : 0.f;
+          byp_c = m > 0.f ? 0.f : dcc;
+          c_t = fg * c_prev + ig * gg;  // the candidate: the stash has c_sel
+        } else {
+          dhn = dho + *dhc;
+          dcn = dcc;
+          c_t = ctv[k];
+        }
+        const float tc = tanh_fast(c_t);
+        const float dzo = dhn * tc * og * (1.f - og);
+        const float dct =
+            dhn * og * (1.f - tc * tc) + dcn + dzo * sm.peep[2][ul];
+        const float dzg = dct * ig * (1.f - gg * gg);
+        const float dzi = dct * gg * ig * (1.f - ig);
+        const float dzf = dct * c_prev * fg * (1.f - fg);
+        a.dhc0[BH + (long long)r * H + u] =
+            dct * fg + dzi * sm.peep[0][ul] + dzf * sm.peep[1][ul] + byp_c;
+        *dhc = byp_h;  // the product adds dz . RW^T to it
+        float* d = a.dz + row * G + u;
+        d[0] = dzi, d[H] = dzf, d[2 * H] = dzo, d[3 * H] = dzg;
+        // dz[t]'s two TF32 parts: the product's A operand
+        const long long zi = (long long)r * G + u;
+        st_split(a.dzbuf, zp, zi, dzi);
+        st_split(a.dzbuf, zp, zi + H, dzf);
+        st_split(a.dzbuf, zp, zi + 2 * H, dzo);
+        st_split(a.dzbuf, zp, zi + 3 * H, dzg);
+      }
+    }
+    __syncwarp();
+    tile_to_acc(dh, dhw, 16 * w, g, tq);
+    sm90::fence_proxy_async();  // dz[t] is read back by TMA
+    sm90::cluster_sync();
+    // ---- product: dh += dz[t][rows, :] . RW[units, :]^T
+    for (int c = 0; c < nch; ++c, ++q) {
+      const uint32_t st = q % S;
+      sm90::mbar_wait(&sm.full[st], (q / S) & 1);
+      tf_chunk(fresh, sm.a[st][0] + a_off, sm.a[st][1] + a_off, sm.w[st][0],
+               sm.w[st][1]);
+      sm90::mbar_arrive_cluster(&sm.empty[st], wt / 8, releases);
+      add_chunk(dh, fresh);
+    }
+    if (sp.first) {  // dh0 = this product + the bypass, in f32
+#pragma unroll
+      for (int e = 0; e < 64; ++e) {
+        const int r = r0 + 64 * wg + 16 * w + g + 8 * ((e >> 1) & 1);
+        const int u = u0 + 8 * (e >> 2) + 2 * tq + (e & 1);
+        if (r < B && u < H) a.dhc0[(long long)r * H + u] = dh[e];
+      }
+    }
+    // both warpgroups' products are done with the A planes: stage dh
+    named_sync(1, kConsumers);
+    acc_to_tile(dhw, dh, 16 * w, g, tq);
+    __syncwarp();
   }
 }
 
 template <bool MASKED>
-__global__ void __launch_bounds__(kF32Threads)
-    lstm_bwd_f32_kernel(const BwdArgs a) {
-  const int H = a.H, B = a.B, tid = threadIdx.x;
-  const int u0 = blockIdx.x * kF32Units, r0 = blockIdx.y * kF32Rows;
-  const int rb = r0 + 4 * (tid / 32), ub = u0 + tid % 32;
-  const float* peep = static_cast<const float*>(a.peep);
-  const float* gates = static_cast<const float*>(a.gates);
-  const float* cst = static_cast<const float*>(a.c);
-  const float* c0 = static_cast<const float*>(a.c0);
-  const float* dh_out = static_cast<const float*>(a.dh_out);
-  float* dz = static_cast<float*>(a.dz);
-  float pp[3][4], dh[4][4], dc[4][4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int k = 0; k < 3; ++k)
-      pp[k][j] = ub + 32 * j < H ? peep[k * H + ub + 32 * j] : 0.f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const bool ok = rb + i < B && ub + 32 * j < H;
-      const long long e = (long long)(rb + i) * H + ub + 32 * j;
-      dc[i][j] = ok ? static_cast<const float*>(a.dcT)[e] : 0.f;
-      dh[i][j] = ok && MASKED ? static_cast<const float*>(a.dhT)[e] : 0.f;
+__global__ void __launch_bounds__(kClusterThreads, 1)
+    lstm_bwd_tf32_kernel(const __grid_constant__ CUtensorMap tdz,
+                         const __grid_constant__ CUtensorMap trw,
+                         const TfBwdArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  TfBwdSmem& sm = *reinterpret_cast<TfBwdSmem*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int nch = (4 * a.H + kTfK - 1) / kTfK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kTfBwdStages; ++s) {
+      sm90::mbar_init(&sm.full[s], 1);
+      // one arrival per consumer warpgroup of every block of the cluster
+      sm90::mbar_init(&sm.empty[s], 2 * a.cluster);
     }
-  // backward step s undoes forward step T-1-s
-  for (int s = 0; s < a.T; ++s) {
-    const int sf = a.T - 1 - s;
-    const int t = a.reverse ? a.T - 1 - sf : sf;
-    const int t_prev = a.reverse ? t + 1 : t - 1;
-    const bool first = sf == 0;
-    float byp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = rb + i;
-      const long long row = (long long)t * B + r;
-      const float m = MASKED && r < B
-                          ? static_cast<const float*>(a.mask)[row] : 1.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int u = ub + 32 * j;
-        byp[i][j] = 0.f;
-        if (r >= B || u >= H) continue;
-        const float* gt = gates + row * 4 * H + u;
-        const float ig = gt[0], fg = gt[H], og = gt[2 * H], gg = gt[3 * H];
-        const float c_prev =
-            first ? c0[(long long)r * H + u]
-                  : cst[((long long)t_prev * B + r) * H + u];
-        const float dho = dh_out[row * H + u];
-        float dhn, dcn, c_t, byp_c = 0.f;
-        if constexpr (MASKED) {
-          const float d_hsel = m * dho + dh[i][j];
-          dhn = m > 0.f ? d_hsel : 0.f;
-          byp[i][j] = m > 0.f ? 0.f : d_hsel;
-          dcn = m > 0.f ? dc[i][j] : 0.f;
-          byp_c = m > 0.f ? 0.f : dc[i][j];
-          c_t = fg * c_prev + ig * gg;  // the candidate: the stash has c_sel
-        } else {
-          dhn = dho + dh[i][j];
-          dcn = dc[i][j];
-          c_t = cst[row * H + u];
-        }
-        const float tc = tanhf(c_t);
-        const float dzo = dhn * tc * og * (1.f - og);
-        const float dct = dhn * og * (1.f - tc * tc) + dcn + dzo * pp[2][j];
-        const float dzg = dct * ig * (1.f - gg * gg);
-        const float dzi = dct * gg * ig * (1.f - ig);
-        const float dzf = dct * c_prev * fg * (1.f - fg);
-        const float dc_prev =
-            dct * fg + dzi * pp[0][j] + dzf * pp[1][j] + byp_c;
-        float* d = dz + row * 4 * H + u;
-        d[0] = dzi, d[H] = dzf, d[2 * H] = dzo, d[3 * H] = dzg;
-        dc[i][j] = dc_prev;
-        if (first) a.dhc0[(long long)B * H + (long long)r * H + u] = dc_prev;
-      }
-    }
-    sm90::cluster_sync();  // dz[t] of the tile stored by every block
-    float acc[4][4];
-    f32_bwd_product(a, dz + (long long)t * B * 4 * H, r0, u0, acc);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        dh[i][j] = acc[i][j] + byp[i][j];
-        if (first && rb + i < B && ub + 32 * j < H)
-          a.dhc0[(long long)(rb + i) * H + ub + 32 * j] = dh[i][j];
-      }
+    sm90::mbar_fence_init();
   }
+  const int u0 = blockIdx.x * kTfBwdUnits;
+  for (int i = threadIdx.x; i < 3 * kTfBwdUnits; i += kClusterThreads) {
+    const int k = i / kTfBwdUnits, u = u0 + i % kTfBwdUnits;
+    sm.peep[k][i % kTfBwdUnits] = u < a.H ? a.peep[k * a.H + u] : 0.f;
+  }
+  __syncthreads();
+  sm90::cluster_sync();
+  if (threadIdx.x < kConsumers)
+    tf_bwd_consumer<MASKED>(sm, a, nch);
+  else if (threadIdx.x < kConsumers + 32)
+    tf_bwd_producer(sm, a, &tdz, &trw, nch);
+  else
+    tf_bwd_prefetcher(a);
+  sm90::cluster_sync();  // no block leaves while others may reach it
 }
 
 // ================================================= bf16 forward, clusters
@@ -1158,19 +1571,6 @@ __device__ void fwd_prefetcher(const FwdClusterArgs& a) {
   sm90::cluster_sync();
 }
 
-// sigmoid and tanh from ex2 and an approximate reciprocal (f32; a few
-// ulp, far inside the bf16 outputs' rounding; 0 and +-1 at the extremes)
-__device__ __forceinline__ float rcp_approx(float x) {
-  float y;
-  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-__device__ __forceinline__ float sigm_fast(float x) {
-  return rcp_approx(1.f + __expf(-x));
-}
-__device__ __forceinline__ float tanh_fast(float x) {
-  return 1.f - 2.f * rcp_approx(__expf(2.f * x) + 1.f);
-}
 
 // a pair of bf16 of a 128-byte-swizzled box (64 columns): row r, columns
 // 2k, 2k + 1 (k < 32); a row's 16-byte chunk j sits at j ^ (r % 8)
@@ -1408,9 +1808,9 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
 
 // ------------------------------------------------------------------ host
 // Routes: the cooperative bf16 forward (small batches), the bf16 cluster
-// forward, the f32 cluster kernels (both passes) and the bf16 cluster
-// backward.
-enum Route { kCoop = 0, kFwdCluster = 1, kF32 = 2, kBwdCluster = 3 };
+// forward, the split-TF32 cluster kernels (f32, both passes) and the bf16
+// cluster backward.
+enum Route { kCoop = 0, kFwdCluster = 1, kTf32 = 2, kBwdCluster = 3 };
 // The bf16 forward takes the cooperative kernel up to this many batch
 // rows at H <= 1024: the cluster kernel's step costs about the same from 1
 // to 128 rows a cluster (it streams all of RW through L2 every step),
@@ -1420,7 +1820,7 @@ enum Route { kCoop = 0, kFwdCluster = 1, kF32 = 2, kBwdCluster = 3 };
 constexpr int kCoopMaxB = 128;
 
 int route_of(int kind, int dtype, int B, int H) {
-  if (dtype == 0) return kF32;
+  if (dtype == 0) return kTf32;
   if (kind == 1) return kBwdCluster;
   return B <= kCoopMaxB && H <= 1024 ? kCoop : kFwdCluster;
 }
@@ -1519,15 +1919,18 @@ int cluster_plan(const void* kern, int route, int threads, size_t smem,
 template <bool MASKED, bool STASH>
 const void* fwd_kernel(int route, int H) {
   if (route == kCoop) return (const void*)lstm_fwd_kernel<bf16, MASKED, STASH>;
-  if (route == kF32) return (const void*)lstm_fwd_f32_kernel<MASKED, STASH>;
+  if (route == kTf32)
+    return H <= kTfOnePassH
+               ? (const void*)lstm_fwd_tf32_kernel<1, MASKED, STASH>
+               : (const void*)lstm_fwd_tf32_kernel<2, MASKED, STASH>;
   return H <= 1024 ? (const void*)lstm_fwd_cluster_kernel<128, MASKED, STASH>
                    : (const void*)lstm_fwd_cluster_kernel<64, MASKED, STASH>;
 }
 
 template <bool MASKED>
 const void* bwd_kernel(int route) {
-  return route == kF32 ? (const void*)lstm_bwd_f32_kernel<MASKED>
-                       : (const void*)lstm_bwd_cluster_kernel<MASKED>;
+  return route == kTf32 ? (const void*)lstm_bwd_tf32_kernel<MASKED>
+                        : (const void*)lstm_bwd_cluster_kernel<MASKED>;
 }
 
 // The plan of kernel `kind` (0 forward, 1 backward) at (dtype, B, H).
@@ -1536,11 +1939,15 @@ int make_plan(int kind, int dtype, int B, int H, Plan* p) {
   const int route = route_of(kind, dtype, B, H);
   if (route == kCoop)
     return coop_plan(fwd_kernel<MASKED, STASH>(route, H), B, H, p);
-  if (route == kF32)
-    return cluster_plan(kind == 0 ? fwd_kernel<MASKED, STASH>(route, H)
-                                  : bwd_kernel<MASKED>(route),
-                        route, kF32Threads, 0, kF32Rows, kF32Units, false, B,
-                        H, p);
+  if (route == kTf32 && kind == 0)
+    return cluster_plan(fwd_kernel<MASKED, STASH>(route, H), route,
+                        kClusterThreads, kTfFwdSmemBytes, kTfFwdRows,
+                        (H <= kTfOnePassH ? 1 : 2) * kTfFwdUnits, true, B, H,
+                        p);
+  if (route == kTf32)
+    return cluster_plan(bwd_kernel<MASKED>(route), route, kClusterThreads,
+                        kTfBwdSmemBytes, kTfBwdRows, kTfBwdUnits, true, B, H,
+                        p);
   if (route == kBwdCluster)
     return cluster_plan(bwd_kernel<MASKED>(route), route, kClusterThreads,
                         kClusterSmemBytes, kTileRows, kTileUnits, true, B, H,
@@ -1635,6 +2042,59 @@ int launch_fwd_cluster(const FwdArgs& a, const Plan& p, const void* rwp,
   return (int)cudaGetLastError();
 }
 
+// The split-TF32 forward: h loads from hbuf (H, B, 4 planes) in boxes of
+// 32 columns x `slice` rows, RW arranged per 32-unit group (H, 4 Hu) in
+// boxes of 32 columns x 128 rows; f32, 128-byte swizzle, zeros outside.
+template <bool MASKED, bool STASH>
+int launch_fwd_tf32(const FwdArgs& a, const Plan& p, const void* rwp, int Hk,
+                    cudaStream_t st) {
+  TfFwdMaps maps;
+  const int slice = kTfFwdRows / p.cluster < 8 ? 8 : kTfFwdRows / p.cluster;
+  const cuuint64_t H = a.H, B = a.B, ldh = a.ldh;
+  int rc;
+  {
+    const cuuint64_t dims[3] = {H, B, 4};
+    const cuuint64_t strides[2] = {ldh * 4, ldh * 4 * B};
+    const cuuint32_t box[3] = {kTfK, (cuuint32_t)slice, 1};
+    rc = sm90::make_map_f32(&maps.h, a.hbuf, 3, dims, strides, box);
+  }
+  if (rc) return rc;
+  {
+    const cuuint64_t dims[2] = {H, 4 * (cuuint64_t)ceil_to(a.H, 64)};
+    const cuuint64_t strides[1] = {(cuuint64_t)Hk * 4};
+    const cuuint32_t box[2] = {kTfK, 128};
+    rc = sm90::make_map_f32(&maps.w, rwp, 2, dims, strides, box);
+  }
+  if (rc) return rc;
+  const TfFwdArgs ta{static_cast<const float*>(a.xw),
+                     static_cast<const float*>(a.peep),
+                     static_cast<const float*>(a.mask),
+                     static_cast<float*>(a.hbuf),
+                     static_cast<float*>(a.h_out),
+                     static_cast<float*>(a.hT),
+                     static_cast<float*>(a.cT),
+                     static_cast<float*>(a.hsel),
+                     static_cast<float*>(a.c_stash),
+                     static_cast<float*>(a.gates),
+                     (long long)a.B * a.ldh,
+                     a.T,
+                     a.B,
+                     a.H,
+                     a.ldh,
+                     a.reverse,
+                     p.cluster};
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(p, kClusterThreads, attr, st);
+  cudaError_t e =
+      a.H <= kTfOnePassH
+          ? cudaLaunchKernelEx(&cfg, lstm_fwd_tf32_kernel<1, MASKED, STASH>,
+                               maps, ta)
+          : cudaLaunchKernelEx(&cfg, lstm_fwd_tf32_kernel<2, MASKED, STASH>,
+                               maps, ta);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 template <bool MASKED, bool STASH>
 int launch_fwd(FwdArgs a, int dtype, const void* rwp, int Hk,
                cudaStream_t st) {
@@ -1651,14 +2111,8 @@ int launch_fwd(FwdArgs a, int dtype, const void* rwp, int Hk,
     if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
   }
-  if (p.route == kF32) {
-    cudaLaunchAttribute attr[1];
-    const cudaLaunchConfig_t cfg = cluster_config(p, kF32Threads, attr, st);
-    cudaError_t e =
-        cudaLaunchKernelEx(&cfg, lstm_fwd_f32_kernel<MASKED, STASH>, a);
-    if (e != cudaSuccess) return (int)e;
-    return (int)cudaGetLastError();
-  }
+  if (p.route == kTf32)
+    return launch_fwd_tf32<MASKED, STASH>(a, p, rwp, Hk, st);
   return a.H <= 1024
              ? launch_fwd_cluster<128, MASKED, STASH>(a, p, rwp, Hk, st)
              : launch_fwd_cluster<64, MASKED, STASH>(a, p, rwp, Hk, st);
@@ -1671,14 +2125,46 @@ int launch_bwd(const BwdArgs& a, int dtype, cudaStream_t st) {
   if (rc == 0) rc = launch_ready(p);
   if (rc) return rc;
   cudaLaunchAttribute attr[1];
-  if (p.route == kF32) {
-    const cudaLaunchConfig_t cfg = cluster_config(p, kF32Threads, attr, st);
-    cudaError_t e = cudaLaunchKernelEx(&cfg, lstm_bwd_f32_kernel<MASKED>, a);
+  const cuuint64_t G = 4ull * a.H;
+  CUtensorMap tdz, trw;
+  if (p.route == kTf32) {
+    {  // the dz[t] planes (4H, B, 2): 32 columns x (128 / C) rows
+      const cuuint64_t dims[3] = {G, (cuuint64_t)a.B, 2};
+      const cuuint64_t strides[2] = {G * 4, G * 4 * a.B};
+      const cuuint32_t box[3] = {kTfK, (cuuint32_t)(kTfBwdRows / p.cluster),
+                                 1};
+      rc = sm90::make_map_f32(&tdz, a.dzbuf, 3, dims, strides, box);
+    }
+    if (rc) return rc;
+    {  // RW's TF32 planes (4H, H, 2): 32 columns x 128 units
+      const cuuint64_t dims[3] = {G, (cuuint64_t)a.H, 2};
+      const cuuint64_t strides[2] = {G * 4, G * 4 * a.H};
+      const cuuint32_t box[3] = {kTfK, kTfBwdUnits, 1};
+      rc = sm90::make_map_f32(&trw, a.rwp, 3, dims, strides, box);
+    }
+    if (rc) return rc;
+    const TfBwdArgs ta{static_cast<const float*>(a.gates),
+                       static_cast<const float*>(a.c),
+                       static_cast<const float*>(a.dh_out),
+                       static_cast<const float*>(a.dhT),
+                       static_cast<const float*>(a.mask),
+                       static_cast<const float*>(a.peep),
+                       static_cast<const float*>(a.c0),
+                       static_cast<float*>(a.dz),
+                       static_cast<float*>(a.dzbuf),
+                       a.dhc0,
+                       a.T,
+                       a.B,
+                       a.H,
+                       a.reverse,
+                       p.cluster};
+    const cudaLaunchConfig_t cfg =
+        cluster_config(p, kClusterThreads, attr, st);
+    cudaError_t e =
+        cudaLaunchKernelEx(&cfg, lstm_bwd_tf32_kernel<MASKED>, tdz, trw, ta);
     if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
   }
-  const cuuint64_t G = 4ull * a.H;
-  CUtensorMap tdz, trw;
   {  // dz (T, B, 4H): boxes of 64 columns x (128 / C) rows of one step
     const cuuint64_t dims[3] = {G, (cuuint64_t)a.B, (cuuint64_t)a.T};
     const cuuint64_t strides[2] = {G * 2, G * 2 * a.B};
@@ -1725,7 +2211,16 @@ extern "C" {
 // unused). `hbuf` is (2, Bp, ldh) zeros with h0 in [0][:B, :H] (Bp >= B,
 // ldh >= H rounded up to 128); `rwp` is RW arranged for the bf16 cluster
 // forward ((4 Hu, Hk): see lstm_fwd_cluster_kernel; Hu = H rounded up to
-// 64, Hk to 8), read by that route only. The bf16 kernels take H a
+// 64, Hk to 8), read by that route only. The split-TF32 forward (f32)
+// takes instead `hbuf` (4, B, ldh) (ldh = H rounded up to 4; planes
+// 0 and 1 the TF32 big and small parts of h0, Bp = B), `rwp` RW arranged
+// per 32-unit group ((4 Hu, Hk), Hu = H rounded up to 64, Hk to 4:
+// `_rw_by_unit_group(rw, 32, 4)`), and reads the carries from cT (and,
+// masked, hT), which hold c0 (h0) at the launch; c0 is unused. The
+// split-TF32 backward (f32) takes `rwp` (2, H, 4H), RW's two TF32 planes
+// (`_tf32_planes`), a scratch `dzbuf` (2, B, 4H), and reads the dc carry
+// from dhc0[1], which holds dcT at the launch; the other routes ignore all
+// three. The bf16 kernels take H a
 // multiple of 8 (the wrapper pads it). Each entry returns the cudaError_t
 // of its launch: a cooperative grid larger than the co-resident blocks
 // cudaErrorCooperativeLaunchTooLarge, a cluster kernel whose plan has no
@@ -1751,13 +2246,13 @@ int dl4j_lstm_fwd(const void* xw, const void* rw, const void* rwp, int Hk,
 
 int dl4j_lstm_bwd(const void* gates, const void* c, const void* dh_out,
                   const void* dhT, const void* dcT, const void* mask,
-                  const void* rw, const void* peep, const void* c0, void* dz,
-                  float* dhc0, int dtype, int T, int B, int H, int reverse,
-                  void* stream) {
+                  const void* rw, const void* rwp, const void* peep,
+                  const void* c0, void* dz, void* dzbuf, float* dhc0,
+                  int dtype, int T, int B, int H, int reverse, void* stream) {
   BwdArgs a{};
   a.gates = gates, a.c = c, a.dh_out = dh_out, a.dhT = dhT, a.dcT = dcT;
-  a.mask = mask, a.rw = rw, a.peep = peep, a.c0 = c0, a.dz = dz;
-  a.dhc0 = dhc0;
+  a.mask = mask, a.rw = rw, a.rwp = rwp, a.peep = peep, a.c0 = c0;
+  a.dz = dz, a.dzbuf = dzbuf, a.dhc0 = dhc0;
   a.T = T, a.B = B, a.H = H, a.reverse = reverse;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return mask ? launch_bwd<true>(a, dtype, st)
@@ -1766,13 +2261,13 @@ int dl4j_lstm_bwd(const void* gates, const void* c, const void* dh_out,
 
 // The launch plan of kernel `kind` (0 forward, 1 backward) at (dtype, B,
 // H), out[0..6]: {route (0 cooperative forward, 1 bf16 cluster forward, 2
-// f32 clusters, 3 bf16 cluster backward), blocks along x (unit slices of
+// split-TF32 clusters (f32), 3 bf16 cluster backward), blocks along x
+// (unit slices of
 // the cooperative grid, or blocks per cluster), along y (batch splits, or
 // row tiles), rows per split or tile, blocks that can be resident at once
 // (cooperative) or clusters that fit at once (0: refused), blocks per
 // cluster (1 cooperative), units per block}. Returns the dynamic shared
-// memory of one block in bytes (1 for the f32 kernels, whose shared memory
-// is static; 0 on a CUDA error).
+// memory of one block in bytes (0 on a CUDA error).
 size_t dl4j_lstm_plan(int kind, int dtype, int masked, int B, int H,
                       int* out) {
   Plan p{};

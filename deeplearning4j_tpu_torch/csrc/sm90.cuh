@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels:
 // mbarriers, TMA tensor loads (plain and cluster multicast), cluster
-// barriers, wgmma with shared-memory descriptors, and the host-side
+// barriers, the split of f32 operands into TF32 parts, wgmma (bf16 and
+// TF32) with shared-memory descriptors, and the host-side
 // construction of TMA tensor maps through the driver entry point (so a
 // library needs no -lcuda).
 #pragma once
@@ -222,6 +223,34 @@ __device__ __forceinline__ void prefetch_l2(const void* p) {
   asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
 }
 
+// ------------------------------------------------------------ split TF32
+// An f32 operand on the TF32 tensor cores as two TF32 parts, x = big +
+// small, big = x rounded to TF32 (10 explicit mantissa bits) to nearest,
+// ties away from zero; small = the rest, rounded the same way (to 2^-22
+// of x in all). Three products, small terms first (a_small b_big + a_big
+// b_small + a_big b_big), then give an f32-accurate product.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// The same rounding in two integer operations (half a unit of the 13
+// dropped bits added to the magnitude, then those bits cleared) where the
+// argument is finite: the small part x - big of a finite x. (For an
+// infinite or NaN x, big carries the non-finite value and small does not
+// matter.)
+__device__ __forceinline__ uint32_t tf32_rna_finite(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = big + small (to 2^-22 of x), both TF32
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna_finite(x - __uint_as_float(big));
+}
+
 // ----------------------------------------------------------------- wgmma
 // Descriptor of a tile written by TMA with a 128-byte swizzle: rows of
 // 128 bytes, 8-row groups 1024 bytes apart (SBO); `lbo` is the distance
@@ -327,6 +356,38 @@ __device__ __forceinline__ void wgmma_m64n256_ss(float (&d)[128], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d (64 x 128, f32) (+)= A (64 x 8) . B^T on TF32 operands (f32 registers
+// whose low 13 bits the tensor cores ignore), A and B K-major in shared
+// memory (B stored as 128 rows of k; a row of a 128-byte-swizzled tile
+// holds 32 values, a k step of 8 advances the start address by 32 bytes,
+// as for bf16); d is zeroed first when !accumulate. Accumulator layout as
+// wgmma_m64n128_ss's.
+__device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64],
+                                                     uint64_t da, uint64_t db,
+                                                     int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " SM90_R64
+      ", %64, %65, p, 1, 1;\n}\n"
+      : SM90_D64
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+#define SM90_W4(i) "=f"(d[i]), "=f"(d[i + 1]), "=f"(d[i + 2]), "=f"(d[i + 3])
+#define SM90_W16(i) SM90_W4(i), SM90_W4(i + 4), SM90_W4(i + 8), SM90_W4(i + 12)
+
+// The same with d = A . B^T (the accumulator's earlier values ignored,
+// and so not kept live by the compiler: a fresh accumulator)
+__device__ __forceinline__ void wgmma_m64n128k8_tf32_zero(float (&d)[64],
+                                                          uint64_t da,
+                                                          uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " SM90_R64
+      ", %64, %65, 0, 1, 1;\n"
+      : SM90_W16(0), SM90_W16(16), SM90_W16(32), SM90_W16(48)
+      : "l"(da), "l"(db));
+}
+
 // d (64 x 128) += A (64 x 16, registers: the m16n8k16 A fragment of each
 // warp's 16 rows) . B, B MN-major in shared memory (16 rows of k, 128
 // columns of n in two 64-column swizzled blocks `lbo` bytes apart)
@@ -373,21 +434,36 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` dimensions (innermost first; strides in
-// bytes of dimensions 1..rank-1), boxes of `box` elements, 128-byte
-// swizzle, out-of-bounds elements read as zero. Returns a cudaError_t.
-inline int make_map_bf16(CUtensorMap* map, const void* base, int rank,
-                         const cuuint64_t* dims, const cuuint64_t* strides,
-                         const cuuint32_t* box) {
+// A tensor map of `rank` dimensions of bf16 or f32 elements (innermost
+// first; strides in bytes of dimensions 1..rank-1), boxes of `box`
+// elements, 128-byte swizzle, out-of-bounds elements read as zero.
+// Returns a cudaError_t.
+inline int make_map(CUtensorMap* map, CUtensorMapDataType type,
+                    const void* base, int rank, const cuuint64_t* dims,
+                    const cuuint64_t* strides, const cuuint32_t* box) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
-                  const_cast<void*>(base), dims, strides, box, ones,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  CUresult r = fn(map, type, (cuuint32_t)rank, const_cast<void*>(base), dims,
+                  strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  CU_TENSOR_MAP_SWIZZLE_128B,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+inline int make_map_bf16(CUtensorMap* map, const void* base, int rank,
+                         const cuuint64_t* dims, const cuuint64_t* strides,
+                         const cuuint32_t* box) {
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims,
+                  strides, box);
+}
+
+inline int make_map_f32(CUtensorMap* map, const void* base, int rank,
+                        const cuuint64_t* dims, const cuuint64_t* strides,
+                        const cuuint32_t* box) {
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, base, rank, dims,
+                  strides, box);
 }
 
 }  // namespace sm90

@@ -8,11 +8,14 @@ Counterpart of `deeplearning4j_tpu/ops/pallas_lstm.py`: the TPU kernels
 sm_90a, plain C interface, loaded with ctypes): one persistent launch per
 layer, direction and pass, the time loop inside it. A tile of batch rows
 is a thread block cluster whose blocks meet at a cluster barrier once
-per step: the bf16 passes run the step's product on wgmma fed by TMA,
-the f32 passes (the parity path) on FMAs. The bf16 forward at B <= 128
-and H <= 1024 is one cooperative launch with a grid barrier per step
-instead (`plan` reports which a call gets). The source's header says how
-each is laid out and what bounds it.
+per step, and the step's product runs on wgmma fed by TMA: in bf16, and
+in f32 in split TF32 (each operand split into two TF32 parts, three
+tensor-core passes, every 32-wide k chunk summed on a fresh accumulator
+and added in f32: f32 accuracy, the reference's HIGHEST precision,
+whatever `torch.backends.cuda.matmul.allow_tf32` says). The bf16
+forward at B <= 128 and H <= 1024 is one cooperative launch with a grid
+barrier per step instead (`plan` reports which route a call gets). The
+source's header says how each is laid out and what bounds it.
 
 `lstm_fused(x, W, RW, b, peephole, h0, c0, mask=, reverse=)` is the entry
 point (the JAX package's `lstm_fused_or_none` without the `None`): the
@@ -208,7 +211,9 @@ def _library() -> ctypes.CDLL:
         # hsel, c_stash, gates
         lib.dl4j_lstm_fwd.argtypes = [vp, vp, vp, ci, vp, vp, vp, vp, ci, ci] \
             + [vp] * 6 + dims
-        lib.dl4j_lstm_bwd.argtypes = [vp] * 11 + dims
+        # gates, c, dh_out, dhT, dcT, mask, rw, rwp, peep, c0, dz, dzbuf,
+        # dhc0
+        lib.dl4j_lstm_bwd.argtypes = [vp] * 13 + dims
         lib.dl4j_lstm_fwd.restype = ci
         lib.dl4j_lstm_bwd.restype = ci
         lib.dl4j_lstm_plan.argtypes = [ci] * 5 + [ctypes.POINTER(ci)]
@@ -216,7 +221,7 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-ROUTES = ("cooperative", "bf16 clusters", "f32 clusters", "bf16 clusters")
+ROUTES = ("cooperative", "bf16 clusters", "tf32 clusters", "bf16 clusters")
 
 
 class LaunchPlan(NamedTuple):
@@ -349,19 +354,39 @@ def _units_cut(x: Optional[torch.Tensor], H: int):
     return None if x is None else x[..., :H].contiguous()
 
 
-def _rw_by_unit_group(rw: torch.Tensor) -> torch.Tensor:
-    """RW (H, 4H) arranged for the bf16 cluster forward: (4 Hu, Hk) with
-    Hu = H rounded up to 64 and Hk to 8, row 256 G + 64 q + j holding
-    column q H + 64 G + j of RW (gate q of unit 64 G + j) over k; zeros
-    past H. One such group's 256 rows are the B operand of one consumer
-    warpgroup's product."""
+def _rw_by_unit_group(rw: torch.Tensor, group: int = 64,
+                      k_mult: int = 8) -> torch.Tensor:
+    """RW (H, 4H) arranged for the cluster forwards: (4 Hu, Hk) with Hu =
+    H rounded up to 64 and Hk to `k_mult`, row 4 group G + group q + j
+    holding column q H + group G + j of RW (gate q of unit group G + j)
+    over k; zeros past H. One such group's 4 `group` rows are the B
+    operand of one consumer warpgroup's product: groups of 64 units for
+    the bf16 forward (n = 256), of 32 for the split-TF32 one (n = 128)."""
     H = rw.shape[0]
-    Hu, Hk = _ceil(H, 64), _ceil(H, 8)
-    out = torch.zeros((Hu // 64, 4, 64, Hk), dtype=rw.dtype,
-                      device=rw.device)
+    Hu, Hk = _ceil(H, 64), _ceil(H, k_mult)
+    n = Hu // group
+    out = torch.zeros((n, 4, group, Hk), dtype=rw.dtype, device=rw.device)
     r = F.pad(rw.reshape(H, 4, H), (0, Hu - H))    # (k, q, unit)
-    out[..., :H] = r.reshape(H, 4, Hu // 64, 64).permute(2, 1, 3, 0)
+    out[..., :H] = r.reshape(H, 4, n, group).permute(2, 1, 3, 0)
     return out.reshape(4 * Hu, Hk)
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 (10 explicit mantissa bits) to nearest, ties away
+    from zero, as `cvt.rna.tf32.f32` does (non-finite values kept)."""
+    bits = x.contiguous().view(torch.int32)
+    r = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    return torch.where(torch.isfinite(x), r, x)
+
+
+def _tf32_planes(x: torch.Tensor) -> torch.Tensor:
+    """(2, *x.shape): x's TF32 big part and the TF32 rounding of the rest,
+    x = big + small to 2^-22 of x (`sm90::split_tf32`): h0 for the
+    split-TF32 forward's first product, RW for the backward's products
+    (split once per launch)."""
+    big = _tf32(x)
+    return torch.stack([big, _tf32(torch.where(torch.isfinite(x), x - big,
+                                               torch.zeros_like(x)))])
 
 
 def lstm_fwd(xw, rw, peep, h0, c0, mask=None, *, reverse=False,
@@ -386,18 +411,31 @@ def lstm_fwd(xw, rw, peep, h0, c0, mask=None, *, reverse=False,
     ins = [xw, rw, peep, h0, c0] + ([mask] if masked else [])
     lib, p = _check_cuda("fwd", ins, xw.dtype, B, H, masked)
     new = lambda *s: torch.empty(s, dtype=xw.dtype, device=xw.device)
-    Bp, ldh = _ceil(B, 128), _ceil(H, 128)
-    hbuf = torch.zeros((2, Bp, ldh), dtype=xw.dtype, device=xw.device)
-    hbuf[0, :B, :H] = h0
-    rwp = _rw_by_unit_group(rw) if p.route == ROUTES[1] else None
     h_out, cT = new(T, B, H), new(B, H)
     hT = new(B, H) if masked else None
+    Hk = _ceil(H, 8)
+    if p.route == "tf32 clusters":
+        # h's TF32 planes (parity 0 holds h0's), RW arranged per 32-unit
+        # group; the carries start in cT and hT
+        Bp, ldh = B, _ceil(H, 4)
+        hbuf = torch.zeros((4, B, ldh), dtype=xw.dtype, device=xw.device)
+        hbuf[:2, :, :H] = _tf32_planes(h0)
+        Hk = ldh
+        rwp = _rw_by_unit_group(rw, 32, 4)
+        cT.copy_(c0)
+        if masked:
+            hT.copy_(h0)
+    else:
+        Bp, ldh = _ceil(B, 128), _ceil(H, 128)
+        hbuf = torch.zeros((2, Bp, ldh), dtype=xw.dtype, device=xw.device)
+        hbuf[0, :B, :H] = h0
+        rwp = _rw_by_unit_group(rw) if p.route == ROUTES[1] else None
     c_st = new(T, B, H) if with_stash else None
     h_st = new(T, B, H) if with_stash and masked else None
     gates = new(T, B, G) if with_stash else None
     with torch.cuda.device(xw.device):
         rc = lib.dl4j_lstm_fwd(
-            xw.data_ptr(), rw.data_ptr(), _ptr(rwp), _ceil(H, 8),
+            xw.data_ptr(), rw.data_ptr(), _ptr(rwp), Hk,
             peep.data_ptr(), c0.data_ptr(), _ptr(mask), hbuf.data_ptr(), Bp,
             ldh, h_out.data_ptr(), _ptr(hT), cT.data_ptr(), _ptr(h_st),
             _ptr(c_st), _ptr(gates), _DTYPE_CODE[xw.dtype], T, B, H,
@@ -432,11 +470,18 @@ def lstm_bwd(gates, c_st, dh_out, dhT, dcT, rw, peep, c0, mask=None, *,
     lib, p = _check_cuda("bwd", ins, gates.dtype, B, H, masked)
     dz = torch.empty_like(gates)
     dhc0 = torch.empty((2, B, H), dtype=torch.float32, device=gates.device)
+    rwp = dzbuf = None
+    if p.route == "tf32 clusters":
+        # RW's TF32 planes, a scratch for dz[t]'s; the dc carry starts as dcT
+        rwp = _tf32_planes(rw)
+        dzbuf = torch.empty((2, B, G), dtype=gates.dtype, device=gates.device)
+        dhc0[1].copy_(dcT)
     with torch.cuda.device(gates.device):
         rc = lib.dl4j_lstm_bwd(
             gates.data_ptr(), c_st.data_ptr(), dh_out.data_ptr(), _ptr(dhT),
-            dcT.data_ptr(), _ptr(mask), rw.data_ptr(), peep.data_ptr(),
-            c0.data_ptr(), dz.data_ptr(), dhc0.data_ptr(),
+            dcT.data_ptr(), _ptr(mask), rw.data_ptr(), _ptr(rwp),
+            peep.data_ptr(), c0.data_ptr(), dz.data_ptr(), _ptr(dzbuf),
+            dhc0.data_ptr(),
             _DTYPE_CODE[gates.dtype], T, B, H, int(reverse),
             torch.cuda.current_stream(gates.device).cuda_stream)
     _raise_on(rc, "bwd", tuple(gates.shape), p)

@@ -284,6 +284,162 @@ def test_rw_by_unit_group_puts_a_units_gates_in_one_operand():
     assert float(p[:, Hn:].abs().max()) == 0
 
 
+def test_rw_by_unit_group_32_for_the_split_tf32_forward():
+    """The split-TF32 forward's B operand (`_rw_by_unit_group(rw, 32, 4)`):
+    row 128 G + 32 q + j holds column q H + 32 G + j of RW, k padded to a
+    multiple of 4 and units to a multiple of 64 with zeros (H = 70: three
+    32-unit groups, the third ragged, and a fourth of zeros)."""
+    Hn = 70
+    rw = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (Hn, 4 * Hn)).astype(np.float32))
+    p = L._rw_by_unit_group(rw, 32, 4)
+    assert tuple(p.shape) == (4 * 128, 72)
+    for G in range(4):
+        for q in range(4):
+            for j in range(32):
+                u, row = 32 * G + j, p[128 * G + 32 * q + j]
+                want = rw[:, q * Hn + u] if u < Hn else torch.zeros(Hn)
+                assert torch.equal(row[:Hn], want)
+    assert float(p[:, Hn:].abs().max()) == 0
+
+
+def test_tf32_planes_split_as_the_kernels_do():
+    """`_tf32_planes` (the wrapper's split of h0 into the forward's first
+    operand planes) is the kernels' `split_tf32`: big rounded to nearest
+    with ties away from zero, small the rounded rest, big + small within
+    2^-22 of x; non-finite values stay in big."""
+    ulp = 2.0 ** -10
+    x = torch.tensor([1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 2 - 2.0 ** -20,
+                      3.0, float("inf"), float("nan")])
+    big, small = L._tf32_planes(x)
+    assert torch.equal(big[:4], torch.tensor([1 + ulp, -(1 + ulp), 1.0, 3.0]))
+    assert big[4] == float("inf") and bool(torch.isnan(big[5]))
+    assert torch.equal(small[3:], torch.zeros(3))
+    v = torch.from_numpy(np.random.default_rng(21).standard_normal(4096)
+                         .astype(np.float32) * 7)
+    big, small = L._tf32_planes(v)
+    assert bool(((big.view(torch.int32) & 0x1FFF) == 0).all())
+    assert bool(((small.view(torch.int32) & 0x1FFF) == 0).all())
+    assert bool(((big + small - v).abs() <= 2.0 ** -22 * v.abs()).all())
+
+
+def _mm_tf32(a, b, passes, chunk=32):
+    """The kernels' recurrent product a @ b (f32) on the tensor cores: each
+    operand rounded to TF32 (one pass) or split into two TF32 parts
+    (three passes: a_small b_big + a_big b_small + a_big b_big), every
+    32-wide chunk of K summed on its own and the chunks added in f32."""
+    out = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32)
+    for k0 in range(0, a.shape[1], chunk):
+        x, y = a[:, k0:k0 + chunk], b[k0:k0 + chunk]
+        xb, yb = L._tf32(x), L._tf32(y)
+        part = xb @ yb
+        if passes == 3:
+            part = (L._tf32(x - xb) @ yb + xb @ L._tf32(y - yb)) + part
+        out = out + part
+    return out
+
+
+def _emulated_fwd(xw, rw, peep, h0, c0, mask, passes):
+    """`lstm_fwd_plain`'s recurrence (forward order) with the product of
+    the kernels (`_mm_tf32`): (h_out, hT or None, cT, h_sel or None, c,
+    gates)."""
+    T, B_, G = xw.shape
+    Hn = G // 4
+    h, c = h0.clone(), c0.clone()
+    outs = ([], [], [], [])
+    for t in range(T):
+        z = xw[t] + _mm_tf32(h, rw, passes)
+        i = torch.sigmoid(z[:, :Hn] + peep[0] * c)
+        f = torch.sigmoid(z[:, Hn:2 * Hn] + peep[1] * c)
+        g = torch.tanh(z[:, 3 * Hn:])
+        cn = f * c + i * g
+        o = torch.sigmoid(z[:, 2 * Hn:3 * Hn] + peep[2] * cn)
+        hn = o * torch.tanh(cn)
+        if mask is None:
+            h, c, out = hn, cn, hn
+        else:
+            m = mask[t][:, None]
+            h, c = torch.where(m > 0, hn, h), torch.where(m > 0, cn, c)
+            out = h * m
+        for lst, v in zip(outs, (out, c, h, torch.cat([i, f, o, g], 1))):
+            lst.append(v)
+    h_out, c_st, h_st, gates = (torch.stack(v) for v in outs)
+    return (h_out, None if mask is None else h, c,
+            None if mask is None else h_st, c_st, gates)
+
+
+def _emulated_bwd(gates, c_st, dh_out, dhT, dcT, rw, peep, c0, mask, passes):
+    """`lstm_bwd_plain`'s recurrence (forward order) with the product of
+    the kernels: (dz, dhc0)."""
+    T, B_, G = gates.shape
+    Hn = G // 4
+    dh = torch.zeros((B_, Hn)) if dhT is None else dhT.clone()
+    dc = dcT.clone()
+    dz = torch.empty_like(gates)
+    for t in range(T - 1, -1, -1):
+        i, f, o, g = (gates[t][:, k * Hn:(k + 1) * Hn] for k in range(4))
+        c_prev = c0 if t == 0 else c_st[t - 1]
+        if mask is None:
+            c_t, dh_new, dc_new = c_st[t], dh_out[t] + dh, dc
+            byp_h = byp_c = 0.0
+        else:
+            m = mask[t][:, None]
+            c_t = f * c_prev + i * g
+            d_hsel = m * dh_out[t] + dh
+            zero = torch.zeros_like(d_hsel)
+            dh_new = torch.where(m > 0, d_hsel, zero)
+            byp_h = torch.where(m > 0, zero, d_hsel)
+            dc_new = torch.where(m > 0, dc, zero)
+            byp_c = torch.where(m > 0, zero, dc)
+        tc = torch.tanh(c_t)
+        dzo = dh_new * tc * o * (1.0 - o)
+        dct = dh_new * o * (1.0 - tc * tc) + dc_new + dzo * peep[2]
+        dzg = dct * i * (1.0 - g * g)
+        dzi = dct * g * i * (1.0 - i)
+        dzf = dct * c_prev * f * (1.0 - f)
+        dz[t] = torch.cat([dzi, dzf, dzo, dzg], dim=1)
+        dh = _mm_tf32(dz[t], rw.T.contiguous(), passes) + byp_h
+        dc = dct * f + dzi * peep[0] + dzf * peep[1] + byp_c
+    return dz, torch.stack([dh, dc])
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_f32_tolerance_accepts_split_tf32_and_rejects_one_pass(masked):
+    """The f32 check (`L.error_in_tolerances`, TOLERANCE[float32] = 1e-4,
+    row by row) tells the split-TF32 kernels from one TF32 pass: their
+    recurrence emulated on the CPU (T=16, B=8, H=256; every step's
+    product in TF32, 32-wide k chunks summed apart and added in f32, the
+    backward on the emulated forward's own stash) stays within 0.1 of the
+    tolerance of `lstm_fwd_plain` / `lstm_bwd_plain` in every output with
+    three passes, and lands outside it with one."""
+    Tn, Bn, Hn = 16, 8, 256
+    rng = np.random.default_rng(40 + masked)
+    r = lambda *s, sc=1.0: torch.from_numpy(
+        (rng.standard_normal(s) * sc).astype(np.float32))
+    xw, rw = r(Tn, Bn, 4 * Hn), r(Hn, 4 * Hn, sc=Hn ** -0.5)
+    peep, h0, c0 = r(3, Hn, sc=0.3), r(Bn, Hn, sc=0.5), r(Bn, Hn, sc=0.5)
+    dh, dhT, dcT = r(Tn, Bn, Hn), r(Bn, Hn), r(Bn, Hn)
+    mask = None
+    if masked:
+        mask = torch.from_numpy((np.arange(Tn)[:, None] < np.array(
+            [Tn, 0, 5, Tn, 1, 9, 13, 7])[None]).astype(np.float32))
+        mask[Tn // 2, 3] = 0.0
+    worst = {}
+    for passes in (3, 1):
+        got = _emulated_fwd(xw, rw, peep, h0, c0, mask, passes)
+        ref = L.lstm_fwd_plain(xw, rw, peep, h0, c0, mask)
+        d_args = (got[5], got[4], dh, dhT if masked else None, dcT, rw, peep,
+                  c0, mask)
+        gb = _emulated_bwd(*d_args, passes)
+        rb = L.lstm_bwd_plain(*d_args)
+        units = [L.error_in_tolerances(a, b, torch.float32)
+                 for a, b in zip(list(got) + list(gb), list(ref) + list(rb))
+                 if a is not None]
+        worst[passes] = (max(units[:-2]), max(units[-2:]))
+    assert max(worst[3]) <= 0.1, worst
+    assert min(worst[1]) > 1.0, worst
+
+
 # ------------------------------------------------------------ on the card
 def _card():
     if not torch.cuda.is_available():
@@ -394,3 +550,77 @@ def test_bf16_backward_clusters_and_refusals():
     with pytest.raises(ValueError, match="16 blocks of 128"):
         L.lstm_fwd(r(1, 8, 4 * 2176), args[5], args[6], args[7], args[7])
     assert not L.launches
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_f32_split_tf32_kernels(masked, reverse):
+    """The f32 kernels against the plain versions (the backward on the
+    forward kernel's stash) at B = 1, 37, 300 and H = 196, 385 (ragged:
+    a block part-filled, a cluster with an idle block at 385) and 2048
+    (clusters of 16, the forward in two passes); the forward without its
+    stash gives the same bits as with it; a rerun gives the same bits;
+    every launch on the split-TF32 route."""
+    _card()
+    dt = torch.float32
+    g = torch.Generator(device="cuda").manual_seed(12)
+    r = lambda *s, sc=1.0: torch.randn(s, generator=g, device="cuda") * sc
+    for Bn in (1, 37, 300):
+        for Hn in (196, 385, 2048):
+            Tn = 3
+            xw, rw = r(Tn, Bn, 4 * Hn), r(Hn, 4 * Hn, sc=Hn ** -0.5)
+            peep, h0, c0 = r(3, Hn, sc=0.3), r(Bn, Hn, sc=0.5), r(Bn, Hn,
+                                                                   sc=0.5)
+            dh, dhT, dcT = r(Tn, Bn, Hn), r(Bn, Hn), r(Bn, Hn)
+            m = None
+            if masked:
+                m = (torch.arange(Tn, device="cuda")[:, None]
+                     < torch.arange(Bn, device="cuda")[None] % (Tn + 1)).to(dt)
+            routes = {kind: L.plan(kind, dt, masked, Bn, Hn).route
+                      for kind in ("fwd", "bwd")}
+            assert routes == {"fwd": "tf32 clusters", "bwd": "tf32 clusters"}
+            runs = []
+            for _ in range(2):
+                L.reset_counts()
+                got = L.lstm_fwd(xw, rw, peep, h0, c0, m, reverse=reverse)
+                gb = L.lstm_bwd(got[5], got[4], dh, dhT if masked else None,
+                                dcT, rw, peep, c0, m, reverse=reverse)
+                torch.cuda.synchronize()
+                assert L.launches_by_route == {("fwd", routes["fwd"]): 1,
+                                               ("bwd", routes["bwd"]): 1}
+                runs.append(list(got) + list(gb))
+            for a, b in zip(*runs):
+                assert a is None or torch.equal(a, b)
+            ref = L.lstm_fwd_plain(xw, rw, peep, h0, c0, m, reverse=reverse)
+            rb = L.lstm_bwd_plain(got[5], got[4], dh,
+                                  dhT if masked else None, dcT, rw, peep, c0,
+                                  m, reverse=reverse)
+            for a, b in zip(list(got) + list(gb), list(ref) + list(rb)):
+                if a is not None:
+                    assert L.error_in_tolerances(a, b, dt) <= 1.0
+            lean = L.lstm_fwd(xw, rw, peep, h0, c0, m, reverse=reverse,
+                              with_stash=False)
+            for a, b in zip(lean[:3], got[:3]):
+                assert a is None or torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_f32_launch_plans():
+    """`plan` for f32: the split-TF32 forward as clusters (rounded up to
+    a power of two) of 64-row blocks, 64 units a block up to H = 1024 and
+    128 (two passes) above; the backward of 128 rows x 128 units; up to
+    H = 2048; every plan fits the card."""
+    _card()
+    dt = torch.float32
+    for masked in (False, True):
+        for Hn, units, c_fwd, c_bwd in ((196, 64, 4, 2), (385, 64, 8, 4),
+                                        (1024, 64, 16, 8),
+                                        (2048, 128, 16, 16)):
+            pf = L.plan("fwd", dt, masked, 2048, Hn)
+            pb = L.plan("bwd", dt, masked, 2048, Hn)
+            assert (pf.route, pf.rows, pf.units, pf.cluster) == (
+                "tf32 clusters", 64, units, c_fwd)
+            assert (pb.route, pb.rows, pb.units, pb.cluster) == (
+                "tf32 clusters", 128, 128, c_bwd)
+            assert pf.active >= 1 and pb.active >= 1
