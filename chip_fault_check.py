@@ -3,7 +3,7 @@
 does `chip_smoke.py`'s comparison against the plain versions catch a
 kernel that is wrong?
 
-    python3 chip_fault_check.py      # about 15 minutes on an H100
+    python3 chip_fault_check.py      # about 25 minutes on an H100
     python3 chip_fault_check.py "lstm f32"   # the faults named so only
 
 For the unchanged sources and for each planted fault below, the script
@@ -15,12 +15,17 @@ process per copy (the unchanged copy runs all three):
 
 - flash: the forward, dQ and dK/dV kernels on the cases below, bf16 (at
   D = 128 the wgmma kernels, at D = 256 the mma.sync ones) and f32 (the
-  split-TF32 kernels at D = 128 and 256), held to the plain versions in
-  f32 with `flash_attention.error_in_tolerances` (O, dQ, dK, dV row by
-  row; L absolute; 2^-6 bf16, 1e-4 f32), as `chip_smoke.py` does. Beside
-  it, each case is also read against the earlier bound (the largest
-  absolute error within 2e-2 of the reference's largest magnitude), to
-  show what that bound let through;
+  split-TF32 kernels at D = 128 and 256, and the cluster backward at
+  D = 384 and 512), held to the plain versions in f32 with
+  `flash_attention.error_in_tolerances` (O, dQ, dK, dV row by row; L
+  absolute; 2^-6 bf16, 1e-4 f32), as `chip_smoke.py` does. Beside it,
+  each case is also read against the earlier bound (the largest absolute
+  error within 2e-2 of the reference's largest magnitude), to show what
+  that bound let through. At f32 D = 384 and 512 also, as phase 4 does,
+  inputs whose 128-column slices repeat (the clusters' output slices
+  must be bit-identical: "slice bits", infinite when not) and inputs
+  whose score products cancel within each slice, held to the plain
+  versions in f64;
 - paged: every case of `chip_smoke.paged_cases` (dense and int8 pools,
   decode, verify and chunk widths, the ragged row tiles, head dims 64 to
   256, pages of 1 to 512), read in units of the tolerance atol + rtol *
@@ -45,7 +50,11 @@ one TF32 pass, and the big part not rounded by cvt.rna, which the tensor
 cores then truncate, and the block's split pass over the streamed tiles
 writing no small parts), their fresh accumulators overwriting the running
 sums, each f32 kernel's diagonal tile skipped and its final K/V (or Q)
-tile dropped; the paged walk's
+tile dropped; the f32 cluster backward's exchange (a member that leaves
+out one peer's partial scores, members that add the partials in
+different orders, which only the slice bits show) and a score product
+chained on one tensor-core accumulator over all of D (which only the
+cancelling cases show); the paged walk's
 split merge, key slices and int8 rounding point; the bf16 LSTM
 backward's cluster barrier between its two phases, and its row tile
 reading dz from the next tile's rows; the bf16 LSTM forward's h rows
@@ -79,7 +88,7 @@ PKG = "deeplearning4j_tpu_torch"
 FLASH, PAGED, LSTM = "flash_attention", "paged_attention", "lstm"
 # (B, T, H, D, causal, dtype): bf16, the training path's kernels at D = 128
 # and the same templates at D = 256; f32, the split-TF32 kernels (path
-# 2f's at D = 128)
+# 2f's at D = 128; the cluster backward at D = 384 and 512)
 CASES = [(2, 512, 2, 128, False, "bfloat16"), (2, 512, 2, 128, True,
                                                "bfloat16"),
          (1, 4096, 2, 128, True, "bfloat16"),
@@ -89,7 +98,11 @@ CASES = [(2, 512, 2, 128, False, "bfloat16"), (2, 512, 2, 128, True,
                                               "float32"),
          (1, 4096, 2, 128, True, "float32"),
          (1, 4096, 2, 128, False, "float32"),
-         (2, 512, 2, 256, True, "float32")]
+         (2, 512, 2, 256, True, "float32"),
+         (1, 512, 2, 384, True, "float32"), (1, 512, 2, 384, False,
+                                             "float32"),
+         (1, 512, 2, 512, True, "float32"), (1, 1024, 2, 512, False,
+                                             "float32")]
 OLD_BOUND = 2e-2
 # (name, source, anchor, edits): each edit (text, replacement) replaces the
 # first `text` after `anchor`, in order
@@ -110,6 +123,10 @@ FWDT = "flash_fwd_tf32_kernel(const Args a) {"
 DQT = "flash_bwd_dq_tf32_kernel(const Args a) {"
 DKVT = "flash_bwd_dkv_tf32_kernel(const Args a) {"
 NK_TF = "const int nk = a.causal ? (q0 + BLK) / KB : a.Tk / KB;"
+WABT = "__device__ __forceinline__ void warp_abt_tf32("
+SUMR = "__device__ __forceinline__ void sum_ranks("
+DQTC = "flash_bwd_dq_tf32_cluster_kernel(const Args a) {"
+DKVTC = "flash_bwd_dkv_tf32_cluster_kernel(const Args a) {"
 SCAL = "paged_attention_kernel(const Call c) {"
 PV = "// acc (TR, hd) = acc * corr + P . V"
 STAGE = "__device__ __forceinline__ void stage_slice("
@@ -217,6 +234,34 @@ MUTATIONS = [
         ("const int q_first = a.causal ? k0 / KB : 0;",
          "const int q_first = a.causal ? k0 / KB + 1 : 0;")]),
     ("f32 dK/dV (TF32) drops the final Q tile", FLASH, DKVT, [
+        ("const int nq = a.Tq / KB;", "const int nq = a.Tq / KB - 1;")]),
+    # the f32 cluster backward at D = 384 and 512
+    ("f32 cluster: a member leaves out one peer's partial scores", FLASH,
+     SUMR, [("for (int r = 1; r < C; ++r) {",
+             "for (int r = 2; r < C; ++r) {")]),
+    # each member starts from its own rank: the same sum, other rounding,
+    # so P and dS differ in their last bits between the members
+    ("f32 cluster: the members add the partials in different orders", FLASH,
+     SUMR, [("float4 x = sm90::ld_cluster_v4(p, 0);",
+             "const uint32_t me_ = sm90::cluster_rank();\n"
+             "  float4 x = sm90::ld_cluster_v4(p, me_);"),
+            ("sm90::ld_cluster_v4(p, r);",
+             "sm90::ld_cluster_v4(p, (me_ + r) % C);")]),
+    ("f32 (TF32): a score product on one accumulator chained over all of D",
+     FLASH, WABT, [("      float t[4] = {0.f, 0.f, 0.f, 0.f};\n"
+                    "      mma3(t, a[0], b[0]);\n"
+                    "      mma3(t, a[1], b[1]);\n"
+                    "      add_acc(acc[j], t);\n",
+                    "      mma3(acc[j], a[0], b[0]);\n"
+                    "      mma3(acc[j], a[1], b[1]);\n")]),
+    ("f32 dQ (TF32 cluster) skips its diagonal K/V tile", FLASH, DQTC, [
+        (NK_TF, "const int nk = a.causal ? (q0 + BLK) / KB - 1 : a.Tk / KB;")]),
+    ("f32 dQ (TF32 cluster) drops the final K/V tile", FLASH, DQTC, [
+        (NK_TF, "const int nk = a.causal ? (q0 + BLK) / KB : a.Tk / KB - 1;")]),
+    ("f32 dK/dV (TF32 cluster) starts one Q tile after the diagonal", FLASH,
+     DKVTC, [("const int q_first = a.causal ? k0 / KB : 0;",
+              "const int q_first = a.causal ? k0 / KB + 1 : 0;")]),
+    ("f32 dK/dV (TF32 cluster) drops the final Q tile", FLASH, DKVTC, [
         ("const int nq = a.Tq / KB;", "const int nq = a.Tq / KB - 1;")]),
     ("int8: V dequantized with the K scales", PAGED, PV, [
         ("if constexpr (kQuant) vsc = cVs[kk + x];",
@@ -448,6 +493,25 @@ def flash_cases(torch, fa):
                               f"{'causal' if causal else 'full'}",
                       "units": {n: u for n, _, u in errs},
                       "old_units": max(old)})
+    f32 = torch.float32
+    for i, D in enumerate((384, 512)):
+        # the clusters' output slices must agree bit for bit
+        q, k, v, do = cs.flash_inputs_sliced(torch, 1, 512, 2, D,
+                                             seed=90 + i)
+        got = cs.flash_run(fa, q, k, v, do, True)
+        ref = cs.flash_plain_f32(fa, q, k, v, do, True, got)
+        units = {n: u for n, _, u in cs.flash_errors(fa, got, ref, f32)}
+        units["slice bits"] = 0.0 if all(cs.flash_slices_equal(torch, got)) \
+            else float("inf")
+        cases.append({"case": f"B=1 T=512 H=2 D={D} float32 causal, "
+                              "repeated slices",
+                      "units": units, "old_units": None})
+        # score products that cancel within a slice, against f64
+        cases.append({"case": f"B=1 T=512 H=2 D={D} float32 causal, "
+                              "cancelling",
+                      "units": cs.flash_cancel_units(torch, fa, D, True,
+                                                     seed=92 + i),
+                      "old_units": None})
     return cases
 
 

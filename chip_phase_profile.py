@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Where the LSTM kernels' steps and the bf16 D=128 flash backward's
-tiles go, on one NVIDIA card.
+"""Where the LSTM kernels' steps and the flash backward's tiles go (bf16
+at D=128, f32 at D=384 and 512), on one NVIDIA card.
 
     python3 chip_phase_profile.py    # about a minute on an H100
 
@@ -8,9 +8,9 @@ Copies `deeplearning4j_tpu_torch/` into a temporary directory, plants
 `clock64()` readings around the phases of the consumer warpgroups of
 `lstm_fwd_cluster_kernel`, `lstm_fwd_tf32_kernel` and
 `lstm_bwd_tf32_kernel` (the copy's `csrc/lstm.cu`) and of
-`flash_bwd_dq_wgmma_kernel` and `flash_bwd_dkv_wgmma_kernel` (its
-`csrc/flash_attention.cu`; the checkout is never changed), builds it, and
-runs:
+`flash_bwd_dq_wgmma_kernel`, `flash_bwd_dkv_wgmma_kernel` and the two
+`flash_bwd_*_tf32_cluster_kernel` (its `csrc/flash_attention.cu`; the
+checkout is never changed), builds it, and runs:
 - the LSTM forward at main path 4's shape (T=8, B=2048, H=1024) and main
   path 4b's window (B=8192, H=256, unmasked and masked). Block (0, 0)'s
   two consumer warpgroups print their SM cycles per step, averaged over
@@ -30,7 +30,13 @@ runs:
   P and dS, the dQ product; dK/dV warpgroup 0: the stage wait, S^T, P^T,
   the hand-over (the wait for the P^T buffer and the stores), the dV
   product; warpgroup 1: the stage wait, dP^T, the wait for P^T, dS^T, the
-  dK product.
+  dK product;
+- the f32 backward at D = 384 and 512 (split-TF32 clusters; B=2, H=4,
+  T=2048, causal): each warp of block (0, 0, 0) (the longest rows of dQ,
+  the longest columns of dK/dV; the cluster's first member) prints its SM
+  cycles per streamed step: the stage wait, the in-place split, the
+  partial scores, the cluster barrier, the exchange (the members'
+  partials read and added) and P, dS and the output products.
 The instrumented kernels are slower than the real ones by the readings'
 cost; the shares, not the sums, are what it shows. Exits non-zero without
 a CUDA device.
@@ -256,6 +262,74 @@ TF32_EDITS = [
 ]
 
 
+def _cluster_edits(kind: str, wait: str, split: str, sync: str, sums: str,
+                   last: str, end: str) -> list:
+    """The f32 cluster backward (`kind` "dQ" or "dK/dV"): each warp of block
+    (0, 0, 0) sums its SM cycles per streamed step over the step's phases:
+    the stage wait (cp.async and the block barrier), the in-place split,
+    the partial scores, the cluster barrier, the exchange (the C members'
+    partials read and added), and P, dS and the output products (the last
+    two 0 where the warp's rows skip the tile)."""
+    names = ["stage wait", "split", "scores", "barrier", "exchange",
+             "P, dS and products"]
+    acc = [f"tk{i}" for i in range(len(names))]
+    decl = "  long long " + ", ".join(f"{x} = 0" for x in acc) \
+        + ";\n  int steps = 0;\n"
+    add = "".join(f"{x} += ck{i + 1} - ck{i}; " for i, x in enumerate(acc))
+    fmt = ", ".join(f"{x} %lld" for x in names)
+    means = ", ".join(f"{x} / (steps > 0 ? steps : 1)" for x in acc)
+    show = (f"  if (blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0 && "
+            f"threadIdx.x % 32 == 0)\n    printf(\"PHASES tf32 cluster "
+            f"{kind} D=%d warp=%d, %d steps: {fmt} cycles per step\\n\", D, "
+            f"(int)(threadIdx.x / 32), steps, {means});\n")
+
+    def clock(i: int, indent: int) -> str:
+        return " " * indent + f"const long long ck{i} = clock64();\n"
+
+    head, rest = wait.split("\n", 1)
+    return [
+        (wait, decl + head + "\n" + clock(0, 4) + rest + clock(1, 4)),
+        (split, split + clock(2, 4)),
+        (sync, clock(3, 4) + sync + clock(4, 4)
+         + "    long long ck5 = ck4;\n"),
+        (sums, sums + "      ck5 = clock64();\n"),
+        (last, last.replace("    }\n  }\n", "    }\n"
+                            + "    const long long ck6 = live ? clock64() "
+                            ": ck4;\n    " + add + "++steps;\n  }\n")),
+        (end, end + show),
+    ]
+
+
+# the f32 backward at D = 384 and 512 (split-TF32 clusters)
+CLUSTER_EDITS = _cluster_edits(
+    "dQ",
+    "  for (int kj = 0; kj < nk; ++kj) {\n"
+    "    cp_async_wait<0>();  // K, V of tile kj staged\n"
+    "    __syncthreads();     // ... and every warp done with tile kj - 1\n",
+    "    const TfStage kv = tc_split(sm, kj & 1);\n",
+    "    sm90::cluster_sync();  // every member's partials of tile kj stored\n",
+    "      sum_partials<C>(sm.partial(kj), s, dp);\n",
+    "      warp_pb_tf32<NO, NS, LD, true>(dq, s, kv.tile[0]);  // dS K\n"
+    "    }\n  }\n",
+    "  sm90::cluster_sync();  // the peers have read this member's last "
+    "partials\n  store_acc_tf32(dq, a.scale, a.out0, a.so0, b, h, row, c0);\n",
+) + _cluster_edits(
+    "dK/dV",
+    "  for (int qi = q_first; qi < nq; ++qi) {\n"
+    "    const int n = qi - q_first;\n"
+    "    cp_async_wait<0>();  // Q, dO, L, dsum of tile qi staged\n"
+    "    __syncthreads();     // ... and every warp done with tile qi - 1\n",
+    "    const TfStage st = tc_split(sm, n & 1);\n",
+    "    sm90::cluster_sync();  // every member's partials of tile qi stored\n",
+    "      sum_partials<C>(sm.partial(n), s, dp);\n",
+    "      warp_pb_tf32<NO, NS, LD, true>(dk, dp, st.tile[0]);  // dS^T Q\n"
+    "    }\n  }\n",
+    "  sm90::cluster_sync();  // the peers have read this member's last "
+    "partials\n  store_acc_tf32(dk, a.scale, a.out0, a.so0, b, h, key, "
+    "c0);\n",
+)
+
+
 def instrumented(src: str, edits) -> str:
     for text, new in edits:
         if src.count(text) != 1:
@@ -297,6 +371,15 @@ def run(root: str) -> None:
     torch.cuda.synchronize()
     fa.flash_bwd_dkv(q, k, v, do, lse, dsum, True, None)
     torch.cuda.synchronize()
+    for D in (384, 512):
+        q, k, v, do = cs.flash_inputs(torch, 2, 2048, 4, D, torch.float32,
+                                      seed=D)
+        o, lse = fa.flash_forward(q, k, v, True, None, with_lse=True)
+        dsum = fa._dsum(o, do)
+        fa.flash_bwd_dq(q, k, v, do, lse, dsum, True, None)
+        torch.cuda.synchronize()
+        fa.flash_bwd_dkv(q, k, v, do, lse, dsum, True, None)
+        torch.cuda.synchronize()
 
 
 def main() -> int:
@@ -310,7 +393,8 @@ def main() -> int:
         shutil.copytree(os.path.join(REPO, PKG), os.path.join(root, PKG),
                         ignore=shutil.ignore_patterns("_build", "__pycache__"))
         for name, edits in (("lstm", LSTM_EDITS + TF32_EDITS),
-                            ("flash_attention", FLASH_EDITS)):
+                            ("flash_attention",
+                             FLASH_EDITS + CLUSTER_EDITS)):
             path = os.path.join(root, PKG, "csrc", f"{name}.cu")
             with open(path) as f:
                 src = f.read()

@@ -35,10 +35,16 @@ Phases, each of which makes the script exit non-zero when it fails:
    the O and L the forward kernel gave), f32 and bf16, causal and not,
    D = 128, 256, 384 and 512, T = 128 (D = 128: one or two tiles), 512,
    2048 and 4096, Tq = 512 with Tk = 1024 (bf16 D = 128 runs the three
-   wgmma kernels; f32 the split-TF32 kernels, but for the backward at
-   D = 384 and 512); each backward run twice, with bit-identical dQ, dK
-   and dV
-   (no atomics); and a GQA call through
+   wgmma kernels; f32 the split-TF32 kernels, the backward at D = 384
+   and 512 as clusters, all of whose f32 launches must take that route);
+   each backward run twice, with bit-identical dQ, dK and dV (no
+   atomics); at f32 D = 384 and 512 also q/k/v sliced from one fused qkv
+   tensor, inputs whose 128-column slices repeat (the clusters' output
+   slices must then be bit-identical: every block sums the partial
+   scores in the same order), and inputs whose score products cancel
+   within each slice (partial sums many times the result), held to the
+   plain versions in f64 (a score accumulator chained over a slice
+   fails there); and a GQA call through
    `multi_head_attention` with autograd against the same call on the
    CPU; O, dQ, dK, dV held row by row (a row's largest error within
    `flash_attention.TOLERANCE`, 1e-4 f32 / 2^-6 bf16, of that row's
@@ -154,8 +160,9 @@ Phases, each of which makes the script exit non-zero when it fails:
    512 (B=2, H=4, T=2048) and for the f32 kernels at phase 6's shape (B=2,
    H=8, T=1024, D=128), at path 2f's (B=1, H=8, T=4096, with path 2f's
    launch counts) and at head dims 256, 384 and 512 (B=2, H=4, T=2048;
-   the backward at 384 and 512 on the scalar kernels); SDPA in f32, TF32
-   off; bound 3 x flops / 495 TFLOP/s for the split-TF32 route, the
+   the backward at 384 and 512 on the cluster route, logged with its
+   clusters: blocks each and how many fit at once); SDPA in f32, TF32
+   off; bound 3 x flops / 495 TFLOP/s for the split-TF32 routes, the
    f32-FMA bound printed beside it; the
    int8 kernel also at a
    C=128 chunk; each paged
@@ -952,6 +959,71 @@ def flash_inputs_fused(torch, B, T, H, D, dtype, seed):
     return q, k, v, do
 
 
+def flash_inputs_sliced(torch, B, T, H, D, seed):
+    """f32 q, k, v, dO (B, T, H, D) whose 128-column slices of q, k and dO
+    repeat one slice (v's do not): the f32 backward at D > 256 gives each
+    slice to one block of a cluster, and with these inputs every block's
+    output slice (dQ = dS K, dK = dS^T Q, dV = P^T dO) is computed from
+    bit-identical operands if the blocks share bit-identical P and dS,
+    while the partial scores dO V^T of the slices differ, so their sum
+    depends on its order."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    one = [torch.randn((B, T, H, 128), generator=g, device="cuda")
+           for _ in range(3)]
+    q, k, do = (x.repeat(1, 1, 1, D // 128) for x in one)
+    v = torch.randn((B, T, H, D), generator=g, device="cuda")
+    return q, k, v, do
+
+
+def flash_cancel_inputs(torch, B, T, H, D, seed, a=3.0):
+    """f32 q, k, v, dO (B, T, H, D) whose score products cancel within each
+    128-column slice: q = a r u + n / a, k = a s + n' / a, with r and s a
+    random sign per query and per key and u = +1 on the first 64 columns of
+    each slice, -1 on the last 64; each slice's running sum of q k climbs
+    to about 64 a^2 and falls back to a term of a few units (f32 v and dO
+    plain). A tensor-core accumulator chained over a slice truncates at
+    that height on every k-step, which the check against the plain
+    versions in f64 shows; fresh accumulators added in f32 stay well
+    within the f32 tolerance (`tests/test_torch_flash_attention.py`
+    emulates both)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def sign(n):
+        return torch.randint(0, 2, (B, n, H, 1), generator=g,
+                             device="cuda").float() * 2 - 1
+
+    u = torch.ones(D, device="cuda")
+    u.view(-1, 2, 64)[:, 1] = -1
+    q = a * sign(T) * u + torch.randn((B, T, H, D), generator=g,
+                                      device="cuda") / a
+    k = a * sign(T) + torch.randn((B, T, H, D), generator=g,
+                                  device="cuda") / a
+    v, do = (torch.randn((B, T, H, D), generator=g, device="cuda")
+             for _ in range(2))
+    return q, k, v, do
+
+
+def flash_cancel_units(torch, fa, D, causal, seed):
+    """The kernels on `flash_cancel_inputs` (B=1, T=512, H=2) against the
+    plain versions in f64 (the backward on the forward kernel's O and L):
+    each output's error in units of its f32 tolerance, by name."""
+    q, k, v, do = flash_cancel_inputs(torch, 1, 512, 2, D, seed)
+    got = flash_run(fa, q, k, v, do, causal)
+    q, k, v, do = (t.double() for t in (q, k, v, do))
+    o, lse = fa.flash_attention_plain_fwd(q, k, v, causal)
+    ref = (o, lse) + fa.flash_attention_plain_bwd(
+        q, k, v, got[0].double(), got[1].double(), do, causal)
+    torch.cuda.synchronize()
+    return {n: u for n, _, u in flash_errors(fa, got, ref, torch.float32)}
+
+
+def flash_slices_equal(torch, got):
+    """Whether each of dQ, dK, dV (`got[2:]`) has bit-identical 128-column
+    slices (see `flash_inputs_sliced`)."""
+    return [all(torch.equal(g[..., :128], g[..., i:i + 128])
+                for i in range(128, g.shape[-1], 128)) for g in got[2:]]
+
+
 def flash_run(fa, q, k, v, do, causal):
     """The three kernels as the autograd function calls them."""
     o, lse = fa.flash_forward(q, k, v, causal, None, with_lse=True)
@@ -991,33 +1063,73 @@ def phase_flash(torch, fa):
               for causal in (False, True)]
     cases += [(1, 4096, 2, 256, torch.bfloat16, False)]
     # head dims 384 and 512: the output columns split over blocks, 32-key
-    # streamed tiles (bf16), 16-key tiles (f32 forward), 16-row tiles (f32
-    # backward, scalar)
+    # streamed tiles (bf16), 16-key tiles (f32 forward), clusters of D / 128
+    # blocks (f32 backward)
     cases += [(1, 512, 2, D, dt, causal)
               for dt in (torch.float32, torch.bfloat16)
               for D in (384, 512) for causal in (False, True)]
     cases += [(1, 2048, 2, 512, torch.bfloat16, True)]
-    for i, (B, T, H, D, dt, causal) in enumerate(cases):
-        q, k, v, do = flash_inputs(torch, B, T, H, D, dt, seed=40 + i)
+    cases += [(1, 2048, 2, D, torch.float32, causal)
+              for D in (384, 512) for causal in (False, True)]
+
+    def check(q, k, v, do, causal, dt, what):
+        fa.reset_counts()
         got = flash_run(fa, q, k, v, do, causal)
         ref = flash_plain_f32(fa, q, k, v, do, causal, got)
         torch.cuda.synchronize()
-        what = (f"B={B} T={T} H={H} D={D} {str(dt)[6:]} "
-                f"{'causal' if causal else 'full'}")
         errs[dt] = max(errs.get(dt, 0.0), flash_check(torch, fa, got, ref,
                                                       dt, what))
         flash_same_bits(torch, fa, q, k, v, do, causal, got, what)
-    for i, dt in enumerate((torch.float32, torch.bfloat16)):
-        # queries and keys of different lengths: separate tensor maps and
-        # key tiles past the query tiles
-        q, do = flash_inputs(torch, 2, 512, 2, 128, dt, seed=70 + i)[:2]
-        k, v = flash_inputs(torch, 2, 1024, 2, 128, dt, seed=72 + i)[:2]
-        got = flash_run(fa, q, k, v, do, False)
-        ref = flash_plain_f32(fa, q, k, v, do, False, got)
-        torch.cuda.synchronize()
-        what = f"B=2 Tq=512 Tk=1024 H=2 D=128 {str(dt)[6:]} full"
-        errs[dt] = max(errs[dt], flash_check(torch, fa, got, ref, dt, what))
-        flash_same_bits(torch, fa, q, k, v, do, False, got, what)
+        D = q.shape[-1]
+        if dt == torch.float32 and D > 256:
+            routes = {key: n for key, n in fa.launches_by_route.items()
+                      if key[0] != "fwd"}
+            if routes != {("dq", "tf32 cluster"): 2,
+                          ("dkv", "tf32 cluster"): 2}:
+                raise AssertionError(f"f32 D={D} backward routes {routes}")
+        return got
+
+    for i, (B, T, H, D, dt, causal) in enumerate(cases):
+        q, k, v, do = flash_inputs(torch, B, T, H, D, dt, seed=40 + i)
+        check(q, k, v, do, causal, dt,
+              f"B={B} T={T} H={H} D={D} {str(dt)[6:]} "
+              f"{'causal' if causal else 'full'}")
+    # queries and keys of different lengths: separate tensor maps and key
+    # tiles past the query tiles
+    for i, (D, dt) in enumerate(((128, torch.float32),
+                                 (128, torch.bfloat16),
+                                 (384, torch.float32),
+                                 (512, torch.float32))):
+        q, do = flash_inputs(torch, 2, 512, 2, D, dt, seed=70 + i)[:2]
+        k, v = flash_inputs(torch, 2, 1024, 2, D, dt, seed=72 + i)[:2]
+        check(q, k, v, do, False, dt,
+              f"B=2 Tq=512 Tk=1024 H=2 D={D} {str(dt)[6:]} full")
+    f32 = torch.float32
+    for i, D in enumerate((384, 512)):
+        # the clusters on q/k/v read in place from one fused qkv tensor
+        q, k, v, do = flash_inputs_fused(torch, 1, 1024, 2, D, f32,
+                                         seed=84 + i)
+        check(q, k, v, do, True, f32, f"B=1 T=1024 H=2 D={D} float32 "
+                                      "causal, qkv slices")
+        # every block of a cluster sums the partial scores in one order
+        for causal in (False, True):
+            q, k, v, do = flash_inputs_sliced(torch, 1, 512, 2, D,
+                                              seed=86 + i)
+            what = (f"B=1 T=512 H=2 D={D} float32 "
+                    f"{'causal' if causal else 'full'}, repeated slices")
+            got = check(q, k, v, do, causal, f32, what)
+            same = flash_slices_equal(torch, got)
+            if not all(same):
+                raise AssertionError(f"{what}: the 128-column slices of dQ, "
+                                     f"dK, dV differ in bits ({same})")
+        # score products that cancel within a slice, against f64
+        units = flash_cancel_units(torch, fa, D, True, seed=88 + i)
+        what = f"B=1 T=512 H=2 D={D} float32 causal, cancelling"
+        log(f"  {what:<40} " + " ".join(f"{n} {u:.3f}"
+                                        for n, u in units.items())
+            + (" ok" if max(units.values()) <= 1.0 else " FAIL"))
+        if max(units.values()) > 1.0:
+            raise AssertionError(f"f32 D={D} cancelling scores: {units}")
     for dt in (torch.float32, torch.bfloat16):
         g = torch.Generator(device="cuda").manual_seed(77)
         q = torch.randn((1, 1024, 8, 128), generator=g, device="cuda")
@@ -1214,7 +1326,7 @@ def phase_flash_timing(torch, fa, counts, counts_f32):
     rows += flash_rows(torch, fa, TRAIN_F32_B, H, T, 128, counts_f32, 0.0,
                        seed=33, dtype=torch.float32, tag="_t4096")
     # f32 at head dims 256 (split TF32), 384 and 512 (split-TF32 forward,
-    # scalar backward), the shapes of the bf16 rows above
+    # split-TF32 cluster backward), the shapes of the bf16 rows above
     for D in (256, 384, 512):
         rows += flash_rows(torch, fa, 2, 4, 2048, D, {}, 0.0, seed=40 + D,
                            dtype=torch.float32)
@@ -1225,8 +1337,10 @@ def flash_rows(torch, fa, B, H, T, D, counts, err, seed, dtype=None, tag=""):
     """The three kernels at (B, H, T, D) causal in `dtype` (bf16 unless
     given), held to the plain versions, then timed beside them, SDPA and
     the bound: one row each, named with `tag` appended. An f32 kernel on
-    the split-TF32 route is bound by its three TF32 passes (3 x flops /
-    495 TFLOP/s) or its bytes; the f32-FMA bound is logged beside it."""
+    a split-TF32 route ("tf32", "tf32 cluster") is bound by its three TF32
+    passes (3 x flops / 495 TFLOP/s) or its bytes; the f32-FMA bound is
+    logged beside it, and a cluster kernel's clusters (blocks each, how
+    many fit on the card at once) too."""
     import torch.nn.functional as F
 
     dtype = dtype or torch.bfloat16
@@ -1271,7 +1385,7 @@ def flash_rows(torch, fa, B, H, T, D, counts, err, seed, dtype=None, tag=""):
         flops, nbytes = flash_work(B, H, T, D, kind, q.element_size())
         t_ops = flops / (PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS)
         fma_ms = 1e3 * max(t_ops, nbytes / PEAK_BYTES)
-        if route == "tf32":
+        if route.startswith("tf32"):
             t_ops = 3 * flops / PEAK_TF32_FLOPS
         t_bytes = nbytes / PEAK_BYTES
         b_ms = 1e3 * max(t_ops, t_bytes)
@@ -1289,6 +1403,9 @@ def flash_rows(torch, fa, B, H, T, D, counts, err, seed, dtype=None, tag=""):
         lib_flops = flops if kind == "fwd" else sum(
             flash_work(B, H, T, D, k)[0] for k in ("dq", "dkv"))
         fma = f", f32-FMA bound {fma_ms:.4f} ms" if f32 else ""
+        if route == "tf32 cluster":
+            fma += ("; clusters of %d blocks, %d fit at once"
+                    % fa.cluster_plan(kind, D))
         log(f"  {row['name']} (B={B} H={H} T={T} D={D}, "
             f"{str(dtype)[6:]}, {route}): kernel "
             f"{ms[kind]:.4f} ms, plain {row['plain_ms']:.4f} ms, library "

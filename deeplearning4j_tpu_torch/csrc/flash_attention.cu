@@ -44,11 +44,12 @@
 //    forward's block z = 0 writes L); at D > 256 the streamed tiles hold
 //    32 keys (or queries) instead of 64, and at D = 512 the backward's are
 //    single-buffered, so that the staged tiles fit a block;
-//  - f32 (MultiLayerNetwork's default precision): the forward at every
-//    head dim and the backward at D = 128 and 256 on the tensor cores in
-//    split TF32 (three TF32 products per f32 product, f32 accuracy; their
-//    section below); the backward at D = 384 and 512 with scalar FMAs,
-//    16-row tiles and f32 accumulators in shared memory.
+//  - f32 (MultiLayerNetwork's default precision): every kernel at every
+//    head dim on the tensor cores in split TF32 (three TF32 products per
+//    f32 product, f32 accuracy; their section below); the backward at
+//    D = 384 and 512 as thread block clusters of D / 128 blocks, each
+//    block a 128-column slice, which add their partial scores through
+//    distributed shared memory (the section after it).
 //
 // What bounds it on an H100: at the training shape (T = 4096, D = 128) the
 // work is far above the card's ridge (about 2 * D * T / 2 flops per byte
@@ -133,13 +134,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-               "l"(src)
-               : "memory");
-}
-
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -149,9 +143,9 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Start the copies of ROWS rows of D elements (row r at src + r * stride_t)
-// into a shared tile with rows of LD elements: 16 bytes a copy for bf16
-// (rows 16-byte aligned, checked by the wrapper), 4 for f32.
+// Start the copies of ROWS rows of D bf16 elements (row r at src + r *
+// stride_t) into a shared tile with rows of LD elements, 16 bytes a copy
+// (rows 16-byte aligned, checked by the wrapper).
 template <int ROWS, int D, int LD>
 __device__ __forceinline__ void stage(bf16* dst, const bf16* src,
                                       long long stride_t) {
@@ -159,275 +153,6 @@ __device__ __forceinline__ void stage(bf16* dst, const bf16* src,
   for (int i = threadIdx.x; i < ROWS * vpr; i += kThreads) {
     const int r = i / vpr, c = i % vpr;
     cp_async16(dst + r * LD + 8 * c, src + (long long)r * stride_t + 8 * c);
-  }
-}
-
-template <int ROWS, int D, int LD>
-__device__ __forceinline__ void stage(float* dst, const float* src,
-                                      long long stride_t) {
-  for (int i = threadIdx.x; i < ROWS * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    cp_async4(dst + r * LD + c, src + (long long)r * stride_t + c);
-  }
-}
-
-// ================================== f32 scalar backward (D = 384, 512)
-// The f32 backward at the head dims whose split-TF32 tiles (below) would
-// not fit a block. 16-row tiles; operand tiles padded by one float (bank
-// spread), score and accumulator rows by four (16-byte aligned for float4
-// access). Products give one thread per output element, neighbouring
-// threads on neighbouring columns (FMAs, no tensor cores).
-// Rows of a tile: 16, so that the four staged tiles and the two
-// accumulators of the backward fit a block's shared memory.
-constexpr int kF32Blk = 16;
-constexpr int kAccPad = 4;
-
-// dQ (rows = query tile, loop over K/V) and dK/dV (rows = key tile, loop
-// over Q) share one layout: the block's own two tiles (a, b), the two
-// streamed tiles (c, d), scores S and dP, P and dS, two accumulators and
-// the per-query-row L and dsum.
-template <int D>
-struct BwdSmem {
-  static constexpr int kBlk = kF32Blk;
-  float *a, *b, *c, *d, *p, *ds, *s, *dp, *acc0, *acc1, *lse, *dsum;
-  __host__ __device__ static size_t carve(Carver& c, BwdSmem* t, bool two) {
-    BwdSmem x;
-    x.a = c.take<float>(kBlk * (D + 1));
-    x.b = c.take<float>(kBlk * (D + 1));
-    x.c = c.take<float>(kBlk * (D + 1));
-    x.d = c.take<float>(kBlk * (D + 1));
-    x.p = c.take<float>(kBlk * (kBlk + 1));
-    x.ds = c.take<float>(kBlk * (kBlk + 1));
-    x.s = c.take<float>(kBlk * (kBlk + kAccPad));
-    x.dp = c.take<float>(kBlk * (kBlk + kAccPad));
-    x.acc0 = c.take<float>(kBlk * (D + kAccPad));
-    x.acc1 = two ? c.take<float>(kBlk * (D + kAccPad)) : nullptr;
-    x.lse = c.take<float>(kBlk);
-    x.dsum = c.take<float>(kBlk);
-    if (t) *t = x;
-    return c.off;
-  }
-};
-
-template <int N>
-__device__ __forceinline__ void zero(float* p) {
-  for (int i = threadIdx.x; i < N; i += kThreads) p[i] = 0.f;
-}
-
-// C (M x N) = A (M x K) . B^T, B stored (N x K)
-template <int M, int N, int K>
-__device__ __forceinline__ void mm_abt(float* C, int ldc, const float* A,
-                                       int lda, const float* B, int ldb) {
-  for (int i = threadIdx.x; i < M * N; i += kThreads) {
-    const int r = i / N, c = i % N;
-    const float* a = A + r * lda;
-    const float* b = B + c * ldb;
-    float acc = 0.f;
-#pragma unroll 8
-    for (int k = 0; k < K; ++k) acc = fmaf(a[k], b[k], acc);
-    C[r * ldc + c] = acc;
-  }
-}
-
-// C (M x N) += A (M x K) . B (K x N)
-template <int M, int N, int K>
-__device__ __forceinline__ void mm_ab_acc(float* C, int ldc, const float* A,
-                                          int lda, const float* B, int ldb) {
-  for (int i = threadIdx.x; i < M * N; i += kThreads) {
-    const int r = i / N, c = i % N;
-    const float* a = A + r * lda;
-    float acc = 0.f;
-#pragma unroll 8
-    for (int k = 0; k < K; ++k) acc = fmaf(a[k], B[k * ldb + c], acc);
-    C[r * ldc + c] += acc;
-  }
-}
-
-// C (M x N) += A^T . B, A stored (K x M), B (K x N)
-template <int M, int N, int K>
-__device__ __forceinline__ void mm_atb_acc(float* C, int ldc, const float* A,
-                                           int lda, const float* B, int ldb) {
-  for (int i = threadIdx.x; i < M * N; i += kThreads) {
-    const int r = i / N, c = i % N;
-    float acc = 0.f;
-#pragma unroll 8
-    for (int k = 0; k < K; ++k)
-      acc = fmaf(A[k * lda + r], B[k * ldb + c], acc);
-    C[r * ldc + c] += acc;
-  }
-}
-
-// Row-wise passes (softmax, P and dS) give each row of the tile to
-// tpr(BLK) neighbouring threads of one warp, each owning cpt(BLK)
-// consecutive columns kept in registers: loads, math and stores of a
-// thread are independent, so their latencies overlap.
-__host__ __device__ constexpr int tpr(int blk) { return kThreads / blk; }
-__host__ __device__ constexpr int cpt(int blk) { return blk / tpr(blk); }
-
-// N consecutive f32 of shared memory into registers (16 bytes a load when
-// N % 4 == 0, the start then 16-byte aligned)
-template <int N>
-__device__ __forceinline__ void load_cols(float (&v)[N], const float* p) {
-  if constexpr (N % 4 == 0) {
-#pragma unroll
-    for (int j = 0; j < N; j += 4) {
-      const float4 x = *reinterpret_cast<const float4*>(p + j);
-      v[j] = x.x, v[j + 1] = x.y, v[j + 2] = x.z, v[j + 3] = x.w;
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < N; ++j) v[j] = p[j];
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void store_cols(float* p, const float (&v)[N]) {
-#pragma unroll
-  for (int j = 0; j < N; ++j) p[j] = v[j];
-}
-
-// P = exp(S * scale - L) (masked entries 0) and dS = P * (dP - dsum) for a
-// (kBlk query rows) x (kBlk key columns) tile (the Pallas kernels' _tile_p).
-template <int D>
-__device__ __forceinline__ void p_and_ds(const BwdSmem<D>& sm, const Args& a,
-                                         int q0, int k0) {
-  constexpr int kBlk = kF32Blk, kTpr = tpr(kBlk), kCpt = cpt(kBlk);
-  constexpr int ldp = kBlk + 1, lds = kBlk + kAccPad;
-  const int r = threadIdx.x / kTpr, c0 = (threadIdx.x % kTpr) * kCpt;
-  float p[kCpt], ds[kCpt];
-  load_cols(p, sm.s + r * lds + c0);
-  load_cols(ds, sm.dp + r * lds + c0);
-  const float lse = sm.lse[r], dsum = sm.dsum[r];
-#pragma unroll
-  for (int j = 0; j < kCpt; ++j) {
-    float s = p[j] * a.scale;
-    if (a.causal && k0 + c0 + j > q0 + r) s = kNegInf;
-    p[j] = s <= kNegInf * 0.5f ? 0.f : expf(s - lse);
-    ds[j] = p[j] * (ds[j] - dsum);
-  }
-  store_cols(sm.p + r * ldp + c0, p);
-  store_cols(sm.ds + r * ldp + c0, ds);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const Args a) {
-  constexpr int kBlk = kF32Blk;
-  constexpr int ld = D + 1, ldp = kBlk + 1;
-  constexpr int lds = kBlk + kAccPad, ldo = D + kAccPad;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  Carver cv{smem_raw};
-  BwdSmem<D> sm;  // a = Q, b = dO, c = K, d = V
-  BwdSmem<D>::carve(cv, &sm, false);
-
-  const int qi = blockIdx.x, bh = blockIdx.y;
-  const int b = bh / a.H, h = bh % a.H;
-  const int q0 = qi * kBlk;
-  const int nk = a.causal ? qi + 1 : a.Tk / kBlk;
-  auto stage_kv = [&](float* dst, const void* src, const Strides& st,
-                      int kj) {
-    if (kj < nk)
-      stage<kBlk, D, ld>(dst, row_ptr<float>(src, st, b, h, kj * kBlk), st.t);
-    cp_async_commit();  // an empty group past the last tile keeps the count
-  };
-  stage<kBlk, D, ld>(sm.a, row_ptr<float>(a.q, a.sq, b, h, q0), a.sq.t);
-  stage<kBlk, D, ld>(sm.b, row_ptr<float>(a.dO, a.sdo, b, h, q0), a.sdo.t);
-  stage_kv(sm.d, a.v, a.sv, 0);  // groups in flight: {Q, dO, V0}, K0
-  stage_kv(sm.c, a.k, a.sk, 0);
-  zero<kBlk * ldo>(sm.acc0);
-  for (int r = threadIdx.x; r < kBlk; r += kThreads) {
-    sm.lse[r] = a.lse[(long long)bh * a.Tq + q0 + r];
-    sm.dsum[r] = a.dsum[(long long)bh * a.Tq + q0 + r];
-  }
-  // V of the next tile loads while this tile's scores, P, dS and dS.K run
-  for (int kj = 0; kj < nk; ++kj) {
-    const int k0 = kj * kBlk;
-    cp_async_wait<1>();  // V(kj) staged (K(kj) may be in flight)
-    __syncthreads();
-    mm_abt<kBlk, kBlk, D>(sm.dp, lds, sm.b, ld, sm.d, ld);  // dO V^T
-    __syncthreads();  // V free
-    stage_kv(sm.d, a.v, a.sv, kj + 1);
-    cp_async_wait<1>();  // K(kj) staged (V(kj + 1) may be in flight)
-    __syncthreads();
-    mm_abt<kBlk, kBlk, D>(sm.s, lds, sm.a, ld, sm.c, ld);  // Q K^T
-    __syncthreads();
-    p_and_ds<D>(sm, a, q0, k0);
-    __syncthreads();
-    mm_ab_acc<kBlk, D, kBlk>(sm.acc0, ldo, sm.ds, ldp, sm.c, ld);  // dS K
-    __syncthreads();  // K free
-    stage_kv(sm.c, a.k, a.sk, kj + 1);
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-  float* out = static_cast<float*>(a.out0);
-  for (int i = threadIdx.x; i < kBlk * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    out[(long long)b * a.so0.b + (long long)h * a.so0.h +
-        (long long)(q0 + r) * a.so0.t + c] = sm.acc0[r * ldo + c] * a.scale;
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_kernel(const Args a) {
-  constexpr int kBlk = kF32Blk;
-  constexpr int ld = D + 1, ldp = kBlk + 1;
-  constexpr int lds = kBlk + kAccPad, ldo = D + kAccPad;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  Carver cv{smem_raw};
-  BwdSmem<D> sm;  // a = K, b = V, c = Q, d = dO
-  BwdSmem<D>::carve(cv, &sm, true);
-
-  const int kj = blockIdx.x, bh = blockIdx.y;
-  const int b = bh / a.H, h = bh % a.H;
-  const int k0 = kj * kBlk;
-  const int q_first = a.causal ? kj : 0;  // earlier query tiles see none
-  const int nq = a.Tq / kBlk;
-  auto stage_q = [&](int qi) {  // Q and dO of query tile qi, one group each
-    if (qi < nq)
-      stage<kBlk, D, ld>(sm.c, row_ptr<float>(a.q, a.sq, b, h, qi * kBlk),
-                         a.sq.t);
-    cp_async_commit();
-    if (qi < nq)
-      stage<kBlk, D, ld>(sm.d, row_ptr<float>(a.dO, a.sdo, b, h, qi * kBlk),
-                         a.sdo.t);
-    cp_async_commit();
-  };
-  stage<kBlk, D, ld>(sm.a, row_ptr<float>(a.k, a.sk, b, h, k0), a.sk.t);
-  stage<kBlk, D, ld>(sm.b, row_ptr<float>(a.v, a.sv, b, h, k0), a.sv.t);
-  stage_q(q_first);  // groups in flight: {K, V, Q}, dO
-  zero<kBlk * ldo>(sm.acc0);
-  zero<kBlk * ldo>(sm.acc1);
-  for (int qi = q_first; qi < nq; ++qi) {
-    const int q0 = qi * kBlk;
-    for (int r = threadIdx.x; r < kBlk; r += kThreads) {
-      sm.lse[r] = a.lse[(long long)bh * a.Tq + q0 + r];
-      sm.dsum[r] = a.dsum[(long long)bh * a.Tq + q0 + r];
-    }
-    cp_async_wait<1>();  // Q(qi) staged (dO(qi) may be in flight)
-    __syncthreads();
-    mm_abt<kBlk, kBlk, D>(sm.s, lds, sm.c, ld, sm.a, ld);  // Q K^T
-    cp_async_wait<0>();  // dO(qi) staged
-    __syncthreads();
-    mm_abt<kBlk, kBlk, D>(sm.dp, lds, sm.d, ld, sm.b, ld);  // dO V^T
-    __syncthreads();
-    p_and_ds<D>(sm, a, q0, k0);
-    __syncthreads();
-    mm_atb_acc<kBlk, D, kBlk>(sm.acc1, ldo, sm.p, ldp, sm.d, ld);   // P^T dO
-    mm_atb_acc<kBlk, D, kBlk>(sm.acc0, ldo, sm.ds, ldp, sm.c, ld);  // dS^T Q
-    __syncthreads();  // Q, dO, L and dsum free
-    stage_q(qi + 1);
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-  float* dk = static_cast<float*>(a.out0);
-  float* dv = static_cast<float*>(a.out1);
-  for (int i = threadIdx.x; i < kBlk * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    dk[(long long)b * a.so0.b + (long long)h * a.so0.h +
-       (long long)(k0 + r) * a.so0.t + c] = sm.acc0[r * ldo + c] * a.scale;
-    dv[(long long)b * a.so1.b + (long long)h * a.so1.h +
-       (long long)(k0 + r) * a.so1.t + c] = sm.acc1[r * ldo + c];
   }
 }
 
@@ -1508,7 +1233,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ================================= f32: split-TF32 tensor-core kernels
-// The f32 forward at every head dim, and dQ and dK/dV at D = 128 and 256,
+// The f32 forward at every head dim, and dQ and dK/dV at every head dim,
 // run every product of the body on the tensor cores in split TF32
 // ("3xTF32"), the counterpart of the reference's HIGHEST precision (bf16x3
 // passes on the MXU, ops/kernel_dispatch.py): each operand x is split once
@@ -1518,8 +1243,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 // 13 bits of an f32 register, so an operand that skipped the conversion
 // would lose accuracy without any error: every operand goes through
 // split_tf32. Scores, softmax statistics and accumulators stay f32 in
-// registers. At D = 384 and 512 the backward keeps the scalar kernels
-// above: its staged tiles would not fit a block.
+// registers. At D = 384 and 512 the backward's two owned tiles at full D
+// would not fit a block: there it runs as thread block clusters that
+// share the scores (the section after these kernels).
 //
 // mma.sync, not wgmma: wgmma takes tf32 operands from shared memory only
 // K-major, and four of the six products (P V, dS K, P^T dO, dS^T Q) sum
@@ -1562,8 +1288,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 //    at a time, one for each n-tile of a group of 4: n-tile i's column g is
 //    output column C(g) + i, C(g) = 4 (g / 2) + 16 (g % 2), so lane (g, t)
 //    holds columns 4t .. 4t + 3 and 16 + 4t .. of each group of 32.
-// Blocks accumulate kTfCols output columns (grid z splits wider heads, each
-// block recomputing the scores); dQ and the forward take their query tiles
+// Blocks accumulate kTfCols output columns (grid z splits the forward's
+// wider heads and the backward's D = 256, each block recomputing the
+// scores); dQ and the forward take their query tiles
 // in reverse, so under the causal mask the longest rows start first.
 //
 // What bounds it: at phase 6's shape (T = 1024, D = 128) the work is far
@@ -2162,15 +1889,297 @@ __global__ void __launch_bounds__(kThreads, 1)
   store_acc_tf32(dv, 1.f, a.out1, a.so1, b, h, key, c0);
 }
 
+// ==================== f32 backward at D = 384, 512: split-TF32 clusters
+// dQ and dK/dV at the head dims whose two owned 64-row tiles at full D
+// would not fit a block (198,656 B at D = 384, 264 KB at D = 512), with
+// every score product computed once. Each 64-row tile (queries for dQ,
+// keys for dK/dV) is one thread block cluster of C = D / 128 blocks along
+// grid z (3 at D = 384, 4 at D = 512). Member z owns columns 128 z ..
+// 128 z + 127: that slice of its two owned tiles (Q, dO; K, V), of each
+// streamed tile (K, V; Q, dO) and of its outputs, which is the D = 128
+// kernels' tile and register shape. Per streamed tile of 32 rows:
+//  1. the block splits its slices of the streamed pair once, in place
+//     (big parts over the raw tile, small parts beside it);
+//  2. each warp computes partial S and dP of its 16 rows over the
+//     member's 128 columns (fresh accumulators every two k-steps, added in
+//     f32) and stores them to the step's partial buffer;
+//  3. one barrier.cluster;
+//  4. each warp reads the C members' partials of its rows through
+//     distributed shared memory and adds them in rank order 0 .. C - 1, so
+//     every member of the cluster holds bit-identical S and dP, then P and
+//     dS;
+//  5. the output products over the member's columns (dS K; P^T dO and
+//     dS^T Q).
+// The grid-z split of the kernels above would have each of the C blocks
+// recompute the full-D scores (2.3x the work of dQ at D = 384, 2x that of
+// dK/dV). The partials are double-buffered, so the one cluster barrier of
+// a step serves as "ready" (this step's partials are stored) and as
+// "free" (a member writes a buffer again two steps on, after every peer
+// has read it and arrived at the barrier between). Every member walks the
+// same streamed tiles and its warps take the same causal skips, so all
+// arrive at each barrier; a last barrier keeps each member resident until
+// its peers have read its final partials.
+//
+// Budget per block (128 threads, one block an SM): owned slices 2 x 64 x
+// 132 x 4 = 67,584 B; two stages of the streamed slices with the streamed
+// rows' L and dsum, 2 x (2 x 32 x 132 + 64) x 4 = 68,096 B; the small
+// parts of the current pair 33,792 B; partial S and dP, two buffers of
+// 2 x 64 x 32 x 4 = 32,768 B: 202,240 B in all. Registers as the D = 128
+// kernels' (ptxas: dQ 236 at D = 384, 244 at 512, no spills; dK/dV, which
+// holds dK and dV in 128 a thread, 255 and 432 bytes of spills, as at
+// D = 128); on an H100 (132 SMs) clusters of 3 blocks fit 39 at once,
+// of 4 blocks 30 (the wrapper's `cluster_plan`). What bounds it:
+// operations, as above; the exchange adds per step one cluster barrier
+// and, per member, C reads of 16 KB of distributed shared memory.
+struct TcSmem {
+  static constexpr int KB = 32, LD = tf_ld(kTfCols);
+  static constexpr int kTile = KB * LD;              // a streamed slice
+  static constexpr int kStage = 2 * kTile + 2 * KB;  // the pair, L, dsum
+  static constexpr int kPart = 2 * kTfBlk * KB;      // partial S and dP
+  float *own0, *own1, *stages, *small, *part;
+  __host__ __device__ static size_t carve(Carver& c, TcSmem* t) {
+    TcSmem x;
+    x.own0 = c.take<float>(kTfBlk * LD);
+    x.own1 = c.take<float>(kTfBlk * LD);
+    x.stages = c.take<float>(2 * kStage);
+    x.small = c.take<float>(2 * kTile);
+    x.part = c.take<float>(2 * kPart);
+    if (t) *t = x;
+    return c.off;
+  }
+  __device__ float* raw0(int s) const { return stages + s * kStage; }
+  __device__ float* raw1(int s) const { return raw0(s) + kTile; }
+  __device__ float* lse(int s) const { return raw1(s) + kTile; }
+  __device__ float* dsum(int s) const { return lse(s) + KB; }
+  // the partial buffer of streamed step n
+  __device__ float* partial(int n) const { return part + (n & 1) * kPart; }
+};
+
+// Step 1: the streamed pair of stage s split in place by the block, and
+// the barrier after it.
+__device__ __forceinline__ TfStage tc_split(const TcSmem& sm, int s) {
+  constexpr int N = TcSmem::kTile;
+  split_tile<N>(sm.raw0(s), sm.raw0(s), sm.small);
+  split_tile<N>(sm.raw1(s), sm.raw1(s), sm.small + N);
+  __syncthreads();
+  return {{{sm.raw0(s), sm.small}, {sm.raw1(s), sm.small + N}}, sm.lse(s),
+          sm.dsum(s)};
+}
+
+// Step 2: a thread's partial S and dP in fragment order, S's n-tile j at
+// float4 j * kThreads + threadIdx.x, dP's at (NS + j) * kThreads + ..., so
+// each warp access is 512 contiguous bytes.
+template <int NS>
+__device__ __forceinline__ void put_partial(float* part,
+                                            const float (&s)[NS][4],
+                                            const float (&dp)[NS][4]) {
+  float* p = part + 4 * threadIdx.x;
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+    sts128(p + 4 * kThreads * j,
+           make_float4(s[j][0], s[j][1], s[j][2], s[j][3]));
+    sts128(p + 4 * kThreads * (NS + j),
+           make_float4(dp[j][0], dp[j][1], dp[j][2], dp[j][3]));
+  }
+}
+
+// Step 4: one accumulator fragment over all of D, the C members' partials
+// at `p` added in rank order (the same order in every member, so the same
+// bits).
+template <int C>
+__device__ __forceinline__ void sum_ranks(const float* p, float (&d)[4]) {
+  float4 x = sm90::ld_cluster_v4(p, 0);
+#pragma unroll
+  for (int r = 1; r < C; ++r) {
+    const float4 y = sm90::ld_cluster_v4(p, r);
+    x.x += y.x, x.y += y.y, x.z += y.z, x.w += y.w;
+  }
+  d[0] = x.x, d[1] = x.y, d[2] = x.z, d[3] = x.w;
+}
+
+template <int C, int NS>
+__device__ __forceinline__ void sum_partials(const float* part,
+                                             float (&s)[NS][4],
+                                             float (&dp)[NS][4]) {
+  const float* p = part + 4 * threadIdx.x;
+#pragma unroll
+  for (int j = 0; j < NS; ++j) sum_ranks<C>(p + 4 * kThreads * j, s[j]);
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+    sum_ranks<C>(p + 4 * kThreads * (NS + j), dp[j]);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_tf32_cluster_kernel(const Args a) {
+  constexpr int C = D / kTfCols, BLK = kTfBlk, KB = TcSmem::KB;
+  constexpr int LD = TcSmem::LD, NO = kTfCols / 8, NS = KB / 8;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  Carver cv{smem_raw};
+  TcSmem sm;  // own: Q, dO; streamed: K, V (this member's columns)
+  TcSmem::carve(cv, &sm);
+  const int qi = gridDim.y - 1 - blockIdx.y, bh = blockIdx.x;
+  const int c0 = kTfCols * blockIdx.z;  // member z's columns
+  const int b = bh / a.H, h = bh % a.H, q0 = qi * BLK;
+  const int warp = threadIdx.x / 32, l = threadIdx.x % 32;
+  const int t = l % 4, r0 = 16 * warp;
+  const int row = q0 + r0 + perm8(l / 4);  // this lane's rows: row, row + 8
+  const int nk = a.causal ? (q0 + BLK) / KB : a.Tk / KB;
+  auto stage_kv = [&](int kj) {
+    if (kj < nk) {
+      const int k0 = kj * KB;
+      stage16<KB, kTfCols, LD>(
+          sm.raw0(kj & 1), row_ptr<float>(a.k, a.sk, b, h, k0) + c0, a.sk.t);
+      stage16<KB, kTfCols, LD>(
+          sm.raw1(kj & 1), row_ptr<float>(a.v, a.sv, b, h, k0) + c0, a.sv.t);
+    }
+    cp_async_commit();  // an empty group past the last tile keeps the count
+  };
+  stage16<BLK, kTfCols, LD>(
+      sm.own0, row_ptr<float>(a.q, a.sq, b, h, q0) + c0, a.sq.t);
+  stage16<BLK, kTfCols, LD>(
+      sm.own1, row_ptr<float>(a.dO, a.sdo, b, h, q0) + c0, a.sdo.t);
+  stage_kv(0);
+  float lse[2], dsum[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    lse[i] = a.lse[(long long)bh * a.Tq + row + 8 * i];
+    dsum[i] = a.dsum[(long long)bh * a.Tq + row + 8 * i];
+  }
+  float dq[NO][4];
+  zero_acc(dq);
+  for (int kj = 0; kj < nk; ++kj) {
+    cp_async_wait<0>();  // K, V of tile kj staged
+    __syncthreads();     // ... and every warp done with tile kj - 1
+    stage_kv(kj + 1);    // copied during this step
+    const TfStage kv = tc_split(sm, kj & 1);
+    const int k0 = kj * KB;
+    // a tile wholly after the diagonal of this warp's 16 rows adds nothing
+    // (the same warps skip in every member)
+    const bool live = !a.causal || k0 <= q0 + r0 + 15;
+    float s[NS][4], dp[NS][4];
+    if (live) {
+      zero_acc(s);
+      zero_acc(dp);
+      warp_abt_tf32<NS, kTfCols, LD, true>(s, sm.own0, r0,
+                                           kv.tile[0]);  // Q K^T
+      warp_abt_tf32<NS, kTfCols, LD, true>(dp, sm.own1, r0,
+                                           kv.tile[1]);  // dO V^T
+      put_partial(sm.partial(kj), s, dp);
+    }
+    sm90::cluster_sync();  // every member's partials of tile kj stored
+    if (live) {
+      sum_partials<C>(sm.partial(kj), s, dp);
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          float x = s[j][e] * a.scale;
+          if (a.causal && k0 + 8 * j + t + 4 * (e & 1) > row + 8 * i)
+            x = kNegInf;
+          const float p = x <= kNegInf * 0.5f ? 0.f : expf(x - lse[i]);
+          s[j][e] = p * (dp[j][e] - dsum[i]);  // dS
+        }
+      warp_pb_tf32<NO, NS, LD, true>(dq, s, kv.tile[0]);  // dS K
+    }
+  }
+  cp_async_wait<0>();
+  sm90::cluster_sync();  // the peers have read this member's last partials
+  store_acc_tf32(dq, a.scale, a.out0, a.so0, b, h, row, c0);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkv_tf32_cluster_kernel(const Args a) {
+  constexpr int C = D / kTfCols, BLK = kTfBlk, KB = TcSmem::KB;
+  constexpr int LD = TcSmem::LD, NO = kTfCols / 8, NS = KB / 8;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  Carver cv{smem_raw};
+  TcSmem sm;  // own: K, V; streamed: Q, dO with their L and dsum
+  TcSmem::carve(cv, &sm);
+  const int kj = blockIdx.y, bh = blockIdx.x, c0 = kTfCols * blockIdx.z;
+  const int b = bh / a.H, h = bh % a.H, k0 = kj * BLK;
+  const int warp = threadIdx.x / 32, l = threadIdx.x % 32;
+  const int t = l % 4, r0 = 16 * warp;
+  const int key = k0 + r0 + perm8(l / 4);  // this lane's rows: key, key + 8
+  const int q_first = a.causal ? k0 / KB : 0;  // earlier query tiles see none
+  const int nq = a.Tq / KB;
+  auto stage_q = [&](int qi) {
+    if (qi < nq) {
+      const int s = (qi - q_first) & 1;
+      stage16<KB, kTfCols, LD>(
+          sm.raw0(s), row_ptr<float>(a.q, a.sq, b, h, qi * KB) + c0, a.sq.t);
+      stage16<KB, kTfCols, LD>(
+          sm.raw1(s), row_ptr<float>(a.dO, a.sdo, b, h, qi * KB) + c0,
+          a.sdo.t);
+      stage_f32_row<KB>(sm.lse(s), a.lse + (long long)bh * a.Tq + qi * KB);
+      stage_f32_row<KB>(sm.dsum(s), a.dsum + (long long)bh * a.Tq + qi * KB);
+    }
+    cp_async_commit();
+  };
+  stage16<BLK, kTfCols, LD>(
+      sm.own0, row_ptr<float>(a.k, a.sk, b, h, k0) + c0, a.sk.t);
+  stage16<BLK, kTfCols, LD>(
+      sm.own1, row_ptr<float>(a.v, a.sv, b, h, k0) + c0, a.sv.t);
+  stage_q(q_first);
+  float dk[NO][4], dv[NO][4];
+  zero_acc(dk);
+  zero_acc(dv);
+  for (int qi = q_first; qi < nq; ++qi) {
+    const int n = qi - q_first;
+    cp_async_wait<0>();  // Q, dO, L, dsum of tile qi staged
+    __syncthreads();     // ... and every warp done with tile qi - 1
+    stage_q(qi + 1);
+    const TfStage st = tc_split(sm, n & 1);
+    const int q0 = qi * KB;
+    // a tile of queries wholly before this warp's 16 keys sees none of them
+    const bool live = !a.causal || q0 + KB - 1 >= k0 + r0;
+    // rows of these tiles are keys, columns queries
+    float s[NS][4], dp[NS][4];
+    if (live) {
+      zero_acc(dp);
+      warp_abt_tf32<NS, kTfCols, LD, true>(dp, sm.own1, r0,
+                                           st.tile[1]);  // V dO^T = dP^T
+      zero_acc(s);
+      warp_abt_tf32<NS, kTfCols, LD, true>(s, sm.own0, r0,
+                                           st.tile[0]);  // K Q^T = S^T
+      put_partial(sm.partial(n), s, dp);
+    }
+    sm90::cluster_sync();  // every member's partials of tile qi stored
+    if (live) {
+      sum_partials<C>(sm.partial(n), s, dp);
+      // P^T into s, dS^T into dp (so that P^T dies with the dV product)
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + t + 4 * (e & 1);
+          float x = s[j][e] * a.scale;
+          if (a.causal && key + 8 * (e >> 1) > q0 + col) x = kNegInf;
+          s[j][e] = x <= kNegInf * 0.5f ? 0.f : expf(x - st.L[col]);
+          dp[j][e] = s[j][e] * (dp[j][e] - st.Ds[col]);
+        }
+      warp_pb_tf32<NO, NS, LD, true>(dv, s, st.tile[1]);   // P^T dO
+      warp_pb_tf32<NO, NS, LD, true>(dk, dp, st.tile[0]);  // dS^T Q
+    }
+  }
+  cp_async_wait<0>();
+  sm90::cluster_sync();  // the peers have read this member's last partials
+  store_acc_tf32(dk, a.scale, a.out0, a.so0, b, h, key, c0);
+  store_acc_tf32(dv, 1.f, a.out1, a.so1, b, h, key, c0);
+}
+
 // ------------------------------------------------------------- launches
 enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
 
-// The kernel family that runs (kind, dtype, D): 0 the f32 scalar
-// backward (D = 384, 512), 1 split TF32, 2 bf16 mma.sync, 3 bf16 wgmma.
-enum Route { kScalar = 0, kTf32 = 1, kMma = 2, kWgmma = 3 };
+// The kernel family that runs (kind, dtype, D): 0 split TF32 in clusters
+// (the f32 backward at D = 384, 512), 1 split TF32, 2 bf16 mma.sync,
+// 3 bf16 wgmma.
+enum Route { kTf32Cluster = 0, kTf32 = 1, kMma = 2, kWgmma = 3 };
 __host__ __device__ constexpr int route_of(int kind, int dtype, int D) {
   if (dtype == 1) return D == 128 ? kWgmma : kMma;
-  return kind == kFwd || D <= 256 ? kTf32 : kScalar;
+  return kind == kFwd || D <= 256 ? kTf32 : kTf32Cluster;
 }
 
 template <int D>
@@ -2180,7 +2189,7 @@ size_t smem_f32(int kind) {
   if constexpr (route_of(kDq, 0, D) == kTf32)
     return TfSmem<D, false>::carve(c, nullptr);
   else
-    return BwdSmem<D>::carve(c, nullptr, kind == kDkv);
+    return TcSmem::carve(c, nullptr);
 }
 
 template <int D>
@@ -2269,8 +2278,43 @@ int run(void (*kern)(const Args), size_t smem, dim3 grid, const Args& a,
   return (int)cudaGetLastError();
 }
 
+// The split-TF32 cluster backward over `grid`, one cluster of the D / 128
+// blocks along z per row tile, launched after the kernel's shared-memory
+// limit is raised; or, given `active`, not launched: how many clusters
+// fit on the card at once, into `active`.
+template <int D>
+int run_cluster(int kind, dim3 grid, const Args& a, cudaStream_t st,
+                int* active) {
+  void (*kern)(const Args) = kind == kDq
+                                 ? flash_bwd_dq_tf32_cluster_kernel<D>
+                                 : flash_bwd_dkv_tf32_cluster_kernel<D>;
+  const size_t smem = smem_f32<D>(kind);
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = D / kTfCols;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (active != nullptr)
+    return (int)cudaOccupancyMaxActiveClusters(active, (const void*)kern,
+                                               &cfg);
+  e = cudaLaunchKernelEx(&cfg, kern, a);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 // Split TF32: blocks of kTfBlk rows, grid (B * H, row tiles, column
-// blocks of kTfCols); the scalar backward: grid (row tiles, B * H).
+// blocks of kTfCols), at D = 384 and 512 the backward's blocks in
+// clusters along z.
 template <int D>
 int launch_f32(int kind, const Args& a, cudaStream_t st) {
   const int rows = kind == kDkv ? a.Tk : a.Tq;
@@ -2282,8 +2326,7 @@ int launch_f32(int kind, const Args& a, cudaStream_t st) {
                            : flash_bwd_dkv_tf32_kernel<D>,
                smem, grid, a, st);
   else
-    return run(kind == kDq ? flash_bwd_dq_kernel<D> : flash_bwd_dkv_kernel<D>,
-               smem, dim3(rows / kF32Blk, a.B * a.H), a, st);
+    return run_cluster<D>(kind, grid, a, st, nullptr);
 }
 
 template <int D>
@@ -2388,8 +2431,9 @@ int dl4j_flash_block_rows(int dtype, int D) {
 }
 
 // The kernel family that runs kernel `kind` (0 forward, 1 dQ, 2 dK/dV) at
-// dtype and D: 0 f32 scalar FMAs, 1 f32 split TF32 on mma.sync, 2 bf16
-// mma.sync, 3 bf16 wgmma; -1 for an unsupported D.
+// dtype and D: 0 f32 split TF32 on mma.sync in thread block clusters, 1
+// f32 split TF32 on mma.sync, 2 bf16 mma.sync, 3 bf16 wgmma; -1 for an
+// unsupported D.
 int dl4j_flash_route(int kind, int dtype, int D) {
   return with_head_dim(D, [&](auto) { return route_of(kind, dtype, D); });
 }
@@ -2402,6 +2446,27 @@ size_t dl4j_flash_smem_bytes(int kind, int dtype, int D) {
     return (int)(dtype == 1 ? smem_bf16<kD>(kind) : smem_f32<kD>(kind));
   });
   return rc < 0 ? 0 : (size_t)rc;
+}
+
+// The clusters of kernel `kind` (1 dQ, 2 dK/dV) in f32 at head dim D:
+// the blocks a cluster holds into `cluster`, and how many such clusters
+// fit on the card at once into `active`; `cluster` 1 and `active` 0 where
+// the kernel runs no clusters. Returns a cudaError_t.
+int dl4j_flash_cluster_plan(int kind, int D, int* cluster, int* active) {
+  *cluster = 1;
+  *active = 0;
+  const int rc = with_head_dim(D, [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    if constexpr (route_of(kDq, 0, kD) == kTf32Cluster) {
+      if (kind == kFwd) return 0;
+      *cluster = kD / kTfCols;
+      return run_cluster<kD>(kind, dim3(1, 1, kD / kTfCols), Args{}, nullptr,
+                             active);
+    } else {
+      return 0;
+    }
+  });
+  return rc < 0 ? (int)cudaErrorInvalidValue : rc;
 }
 
 }  // extern "C"

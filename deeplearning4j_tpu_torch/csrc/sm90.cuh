@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels:
 // mbarriers, TMA tensor loads (plain and cluster multicast), cluster
-// barriers, the split of f32 operands into TF32 parts, wgmma (bf16 and
+// barriers and loads from a peer block's shared memory, the split of f32 operands into TF32 parts, wgmma (bf16 and
 // TF32) with shared-memory descriptors, and the host-side
 // construction of TMA tensor maps through the driver entry point (so a
 // library needs no -lcuda).
@@ -107,6 +107,21 @@ __device__ __forceinline__ uint32_t cluster_rank() {
 __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
   asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// 16 bytes of the shared memory of block `cta` of this cluster, at the
+// offset where `p` lies in this block's (distributed shared memory); a
+// cluster barrier orders the peer's stores before the load
+__device__ __forceinline__ float4 ld_cluster_v4(const void* p, uint32_t cta) {
+  float4 v;
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %4, %5;\n"
+      "ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [remote];\n}\n"
+      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+      : "r"(smem_u32(p)), "r"(cta)
+      : "memory");
+  return v;
 }
 
 // order this thread's generic-proxy writes before later async-proxy

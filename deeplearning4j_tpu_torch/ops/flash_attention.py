@@ -16,16 +16,18 @@ needed the call goes through `_FlashAttention`, whose forward also keeps
 the row logsumexp L (B*H, Tq) f32 for the backward; otherwise the forward
 writes no L, as the JAX package's inference primal does.
 
-In f32 (`MultiLayerNetwork`'s default precision) the forward at every
-head dim and the backward at D = 128 and 256 run on the tensor cores in
-split TF32: each operand is split into two TF32 parts and every product
-takes three TF32 passes, which keeps f32 accuracy (the reference's HIGHEST
-precision); the f32 backward at D = 384 and 512 runs scalar FMAs.
+In f32 (`MultiLayerNetwork`'s default precision) every kernel runs on the
+tensor cores in split TF32: each operand is split into two TF32 parts and
+every product takes three TF32 passes, which keeps f32 accuracy (the
+reference's HIGHEST precision). The f32 backward at D = 384 and 512 runs
+as thread block clusters of D / 128 blocks, one 128-column slice each,
+which add their partial scores through distributed shared memory
+(`cluster_plan` says how many such clusters fit on the card at once).
 
 Counts: `flash_forward.launches`, `flash_bwd_dq.launches` and
 `flash_bwd_dkv.launches` (kernel launches), `launches_by_route[(kind,
 route)]` (the same by kernel family: kind "fwd", "dq" or "dkv"; route
-"tf32", "scalar", "mma" or "wgmma", as the library reports it),
+"tf32", "tf32 cluster", "mma" or "wgmma", as the library reports it),
 `flash_attention_plain_fwd.calls` and `flash_attention_plain_bwd.calls`.
 """
 from __future__ import annotations
@@ -66,7 +68,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (128, 256, 384, 512)
 _FWD, _DQ, _DKV = 0, 1, 2
 _KIND_NAMES = {_FWD: "fwd", _DQ: "dq", _DKV: "dkv"}
-ROUTES = {0: "scalar", 1: "tf32", 2: "mma", 3: "wgmma"}
+ROUTES = {0: "tf32 cluster", 1: "tf32", 2: "mma", 3: "wgmma"}
 launches_by_route: Dict[Tuple[str, str], int] = {}
 
 
@@ -186,6 +188,9 @@ def _library() -> ctypes.CDLL:
         lib.dl4j_flash_smem_bytes.restype = ctypes.c_size_t
         lib.dl4j_flash_route.argtypes = [ci, ci, ci]
         lib.dl4j_flash_route.restype = ci
+        ip = ctypes.POINTER(ci)
+        lib.dl4j_flash_cluster_plan.argtypes = [ci, ci, ip, ip]
+        lib.dl4j_flash_cluster_plan.restype = ci
     return lib
 
 
@@ -336,6 +341,21 @@ def flash_bwd_dkv(q, k, v, do, lse, dsum, causal, sm_scale):
 
 
 flash_bwd_dkv.launches = 0
+
+
+def cluster_plan(kind: str, D: int) -> Tuple[int, int]:
+    """(blocks a cluster holds, clusters that fit on the card at once) of
+    the f32 backward kernel `kind` ("dq" or "dkv") at head dim D; (1, 0)
+    where that kernel runs no clusters."""
+    lib = _library()
+    cluster, active = ctypes.c_int(), ctypes.c_int()
+    code = {"dq": _DQ, "dkv": _DKV}[kind]
+    rc = lib.dl4j_flash_cluster_plan(code, D, ctypes.byref(cluster),
+                                     ctypes.byref(active))
+    if rc != 0:
+        raise RuntimeError(f"flash cluster plan ({kind}, D={D}) failed: CUDA "
+                           f"error {rc}")
+    return cluster.value, active.value
 
 
 def _on_cpu(*ts) -> bool:

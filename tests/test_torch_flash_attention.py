@@ -11,7 +11,11 @@ only on the card: the `gpu`-marked test holds them to the plain versions
 computed in f32 (`python -m pytest -m gpu tests/test_torch_*.py`). The
 f32 kernels compute their products in split TF32: a CPU emulation of
 those products (TF32 rounding by integer masking) shows that the f32
-tolerance accepts three TF32 passes and rejects one.
+tolerance accepts three TF32 passes and rejects one, also with the score
+products summed as the f32 backward's clusters sum them at D = 384 and
+512 (partials over 128-column slices, added in f32 in rank order); with
+the tensor cores' truncation emulated too, scores that cancel within a
+slice tell fresh accumulators from one chained over the slice.
 """
 import numpy as np
 import pytest
@@ -361,24 +365,46 @@ def _mm_tf32(eq, a, b, passes):
     return small + torch.einsum(eq, ab, bb)
 
 
-def _emulated(q, k, v, do, causal, passes):
+def _scores_tf32(a, b, passes, slice_cols):
+    """The score product a.b^T over D ("bqhd,bkhd->bhqk") in TF32: over all
+    of D at once, or (`slice_cols`) as the f32 backward's clusters compute
+    it at D > 256: one partial per slice of `slice_cols` columns (one
+    cluster member's), the partials added in f32 in rank order."""
+    eq = "bqhd,bkhd->bhqk"
+    if slice_cols is None:
+        return _mm_tf32(eq, a, b, passes)
+    parts = [_mm_tf32(eq, a[..., c:c + slice_cols], b[..., c:c + slice_cols],
+                      passes) for c in range(0, a.shape[-1], slice_cols)]
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part
+    return total
+
+
+def _emulated(q, k, v, do, causal, passes, slice_cols=None):
     """(O, L, dQ, dK, dV) of the f32 kernels' arithmetic with every product
     in TF32 (`passes` 1 or 3): the plain versions' formulas, f32 softmax,
-    statistics and dsum, masked entries exactly 0."""
+    statistics and dsum, masked entries exactly 0. The backward's score
+    products (S recomputed, dP) are summed over slices of `slice_cols`
+    columns when given (`_scores_tf32`)."""
     B, Tq, H, D = q.shape
     scale = 1.0 / np.sqrt(D)
-    s = _mm_tf32("bqhd,bkhd->bhqk", q, k, passes) * scale
-    if causal:
-        s = s.masked_fill(~fa._keep(Tq, k.shape[1], s.device), fa.NEG_INF)
+    keep = fa._keep(Tq, k.shape[1], q.device)
+
+    def scaled(s):
+        return s.masked_fill(~keep, fa.NEG_INF) if causal else s
+
+    s = scaled(_mm_tf32("bqhd,bkhd->bhqk", q, k, passes) * scale)
     masked = s <= fa.NEG_INF / 2
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m).masked_fill(masked, 0.0)
     l = p.sum(dim=-1, keepdim=True)
     o = (_mm_tf32("bhqk,bkhd->bhqd", p, v, passes) / l).transpose(1, 2)
     lse = m + torch.log(l)
+    s = scaled(_scores_tf32(q, k, passes, slice_cols) * scale)
     p = torch.exp(s - lse).masked_fill(masked, 0.0)
     dsum = (do * o).sum(dim=-1).transpose(1, 2)[..., None]
-    ds = p * (_mm_tf32("bqhd,bkhd->bhqk", do, v, passes) - dsum)
+    ds = p * (_scores_tf32(do, v, passes, slice_cols) - dsum)
     return (o, lse.reshape(B * H, Tq),
             _mm_tf32("bhqk,bkhd->bqhd", ds, k, passes) * scale,
             _mm_tf32("bhqk,bqhd->bkhd", ds, q, passes) * scale,
@@ -428,6 +454,106 @@ def test_f32_tolerance_accepts_split_tf32_and_rejects_one_pass(causal):
         if name != "L":
             assert fa.error_in_tolerances(name, got1, want,
                                           torch.float32) > 1.0, name
+
+
+@pytest.mark.parametrize("Dh", [384, 512])
+@pytest.mark.parametrize("causal", [False, True])
+def test_f32_wide_head_tolerance_accepts_sliced_split_tf32(Dh, causal):
+    """The f32 backward at D = 384 and 512 (clusters of D / 128 blocks)
+    sums each score product as partials over 128-column slices, one per
+    block, added in f32 in rank order: emulated so with three TF32 passes,
+    O, dQ, dK and dV stay within 0.1 of the f32 tolerance of the plain f32
+    version (L too), and with one pass each lands above it (B=1, H=2,
+    T=256)."""
+    q, k, v, do = (torch.from_numpy(x)
+                   for x in _inputs(40 + Dh + causal, (1, 256, 2, Dh)))
+    ro, rl = fa.flash_attention_plain_fwd(q, k, v, causal)
+    ref = (ro, rl) + fa.flash_attention_plain_bwd(q, k, v, ro, rl, do,
+                                                  causal)
+    three = _emulated(q, k, v, do, causal, passes=3, slice_cols=128)
+    one = _emulated(q, k, v, do, causal, passes=1, slice_cols=128)
+    for name, got3, got1, want in zip(("O", "L", "dQ", "dK", "dV"), three,
+                                      one, ref):
+        assert fa.error_in_tolerances(name, got3, want,
+                                      torch.float32) <= 0.1, name
+        if name != "L":
+            assert fa.error_in_tolerances(name, got1, want,
+                                          torch.float32) > 1.0, name
+
+
+def _rz(x):
+    """f64 `x` rounded toward zero to f32."""
+    r = x.float()
+    over = r.double().abs() > x.abs()
+    r[over] = torch.nextafter(r[over], torch.zeros_like(r[over]))
+    return r
+
+
+def _score_slice_tc(a, b, chained):
+    """One cluster member's partial score a.b^T over its 128 columns (a, b:
+    (T, 128) f32) as the tensor cores sum it: per k-step of 8, three
+    m16n8k8 passes (small terms first), each adding its exact products to
+    the accumulator and truncating the sum to f32; a fresh accumulator
+    every two k-steps added to the running f32 sum, or (`chained`) one
+    accumulator over all 128 columns."""
+    ab, bb = _tf32(a), _tf32(b)
+    parts = ((_tf32(a - ab), bb), (ab, _tf32(b - bb)), (ab, bb))
+    acc = torch.zeros(a.shape[0], b.shape[0])
+    t = torch.zeros_like(acc)
+    for k0 in range(0, a.shape[1], 8):
+        for x, y in parts:
+            t = _rz(t.double() + x[:, k0:k0 + 8].double()
+                    @ y[:, k0:k0 + 8].double().T)
+        if not chained and k0 % 16 == 8:
+            acc, t = acc + t, torch.zeros_like(t)
+    return t if chained else acc
+
+
+@pytest.mark.parametrize("Dh", [384, 512])
+def test_cancelling_scores_tell_a_chained_accumulator(Dh):
+    """What the card check's cancelling case (`chip_smoke.
+    flash_cancel_inputs`, a = 3) rests on: q = a r u + n / a, k = a s +
+    n' / a (r, s a sign per query and per key, u = +1 on the first 64
+    columns of each 128-column slice and -1 on the last 64), so each
+    slice's running score sum climbs to about 64 a^2 and falls back.
+    Scores summed as the f32 backward's clusters sum them (tensor-core
+    truncation emulated: `_score_slice_tc`), P, dS and the outputs in f64
+    from them, against the plain backward in f64 (causal, B=1, H=1,
+    T=256): fresh accumulators stay within 0.5 of the f32 tolerance in
+    dQ, dK and dV, one accumulator chained over each slice lands above
+    it in at least one."""
+    rng = np.random.default_rng(50 + Dh)
+    T, a = 256, 3.0
+    r, s = (rng.choice([-1.0, 1.0], (T, 1)) for _ in range(2))
+    u = np.tile(np.r_[np.ones(64), -np.ones(64)], Dh // 128)
+    q = a * r * u + rng.standard_normal((T, Dh)) / a
+    k = a * s + rng.standard_normal((T, Dh)) / a
+    v, do = rng.standard_normal((2, T, Dh))
+    q, k, v, do = (torch.from_numpy(x.astype(np.float32)) for x in
+                   (q, k, v, do))
+    wide = [x.double()[None, :, None] for x in (q, k, v, do)]
+    o, lse = fa.flash_attention_plain_fwd(*wide[:3], causal=True)
+    ref = fa.flash_attention_plain_bwd(*wide[:3], o, lse, wide[3],
+                                       causal=True)
+    scale = 1.0 / np.sqrt(Dh)
+    keep = fa._keep(T, T, q.device)
+    dsum = (wide[3] * o).sum(-1)[0, :, 0, None]
+    dp = wide[3][0, :, 0] @ wide[2][0, :, 0].T
+    worst = {}
+    for chained in (False, True):
+        scores = torch.zeros(T, T)
+        for c in range(0, Dh, 128):  # the members' partials, in rank order
+            scores = scores + _score_slice_tc(q[:, c:c + 128],
+                                              k[:, c:c + 128], chained)
+        p = torch.exp(scores.double() * scale - lse[0, :, None])
+        p = p.masked_fill(~keep, 0.0)
+        ds = p * (dp - dsum)
+        got = (ds @ wide[1][0, :, 0] * scale, ds.T @ wide[0][0, :, 0] * scale,
+               p.T @ wide[3][0, :, 0])
+        worst[chained] = max(
+            fa.error_in_tolerances(n, g[None, :, None], w, torch.float32)
+            for n, g, w in zip(("dQ", "dK", "dV"), got, ref))
+    assert worst[False] <= 0.5 and worst[True] > 1.0, worst
 
 
 def _card():
@@ -570,3 +696,61 @@ def test_tf32_kernels_cases_and_bits():
                                     ref):
             assert torch.equal(a, b), name
             assert fa.error_in_tolerances(name, a, want, dt) <= 1.0, name
+
+
+@pytest.mark.gpu
+def test_f32_wide_head_backward_cases_and_bits():
+    """The f32 backward at D = 384 and 512 (split-TF32 clusters of D / 128
+    blocks, by their route counts; shared memory within the card's limit)
+    against the plain backward in f32 on the forward kernel's O and L, row
+    by row within `fa.error_in_tolerances`: T = 512 and 2048, causal and
+    full, Tq=512 x Tk=1024 full, and q, k, v sliced from one fused qkv
+    tensor; each call twice, with identical bits. On inputs whose
+    128-column slices of q, k and dO repeat, each output's slices are
+    bit-identical (every block of a cluster sums the partial scores in
+    the same order)."""
+    _card()
+    from deeplearning4j_tpu_torch.ops.kernel_dispatch import smem_limit_bytes
+
+    g = torch.Generator(device="cuda").manual_seed(41)
+    r = lambda *s: torch.randn(s, generator=g, device="cuda")
+    lib = fa._library()
+    for Dh in (384, 512):
+        for kind in (1, 2):
+            assert lib.dl4j_flash_route(kind, 0, Dh) == 0  # "tf32 cluster"
+            assert lib.dl4j_flash_smem_bytes(kind, 0, Dh) <= \
+                smem_limit_bytes(torch.device("cuda"))
+        qkv = r(1, 1024, 3 * 2 * Dh)
+        fused = [qkv[..., i * 2 * Dh:(i + 1) * 2 * Dh].reshape(1, 1024, 2, Dh)
+                 for i in range(3)] + [r(1, 1024, 2, Dh)]
+        assert fa._kernel_ready(fused[0]) is fused[0]
+        one = [r(1, 512, 2, 128) for _ in range(3)]
+        sliced = [x.repeat(1, 1, 1, Dh // 128) for x in one]
+        sliced.insert(2, r(1, 512, 2, Dh))  # q, k, v, dO: v's slices differ
+        cases = [([r(1, T, 2, Dh) for _ in range(4)], causal)
+                 for T in (512, 2048) for causal in (False, True)]
+        cases += [([r(1, 512, 2, Dh), r(1, 1024, 2, Dh), r(1, 1024, 2, Dh),
+                    r(1, 512, 2, Dh)], False),
+                  (fused, True), (sliced, False), (sliced, True)]
+        for i, ((q, k, v, do), causal) in enumerate(cases):
+            fa.reset_counts()
+            o, lse = fa.flash_forward(q, k, v, causal, None, with_lse=True)
+            dsum = fa._dsum(o, do)
+            runs = [(fa.flash_bwd_dq(q, k, v, do, lse, dsum, causal, None),)
+                    + fa.flash_bwd_dkv(q, k, v, do, lse, dsum, causal, None)
+                    for _ in range(2)]
+            assert fa.launches_by_route == {
+                ("fwd", "tf32"): 1, ("dq", "tf32 cluster"): 2,
+                ("dkv", "tf32 cluster"): 2}
+            ref = fa.flash_attention_plain_bwd(q, k, v, o, lse, do, causal)
+            torch.cuda.synchronize()
+            for name, a, b, want in zip(("dQ", "dK", "dV"), runs[0], runs[1],
+                                        ref):
+                assert torch.equal(a, b), (Dh, i, name)
+                assert fa.error_in_tolerances(name, a, want,
+                                              torch.float32) <= 1.0, (Dh, i,
+                                                                      name)
+                if q is sliced[0]:
+                    for c in range(128, Dh, 128):
+                        assert torch.equal(a[..., :128],
+                                           a[..., c:c + 128]), (Dh, i, name)
