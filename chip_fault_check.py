@@ -14,7 +14,8 @@ nvcc in parallel, and then runs the faulted kernel family's check in one
 process per copy (the unchanged copy runs all three):
 
 - flash: the forward, dQ and dK/dV kernels on the cases below, bf16 (at
-  D = 128 the wgmma kernels, at D = 256 the mma.sync ones) and f32 (the
+  D = 128 the wgmma kernels; at D = 256, 384 and 512 the "wgmma wide"
+  forward and the mma.sync backward) and f32 (the
   split-TF32 kernels at D = 128 and 256, and the cluster backward at
   D = 384 and 512), held to the plain versions in f32 with
   `flash_attention.error_in_tolerances` (O, dQ, dK, dV row by row; L
@@ -25,7 +26,11 @@ process per copy (the unchanged copy runs all three):
   inputs whose 128-column slices repeat (the clusters' output slices
   must be bit-identical: "slice bits", infinite when not) and inputs
   whose score products cancel within each slice, held to the plain
-  versions in f64;
+  versions in f64; at bf16 D = 256, 384 and 512, as phase 4 does, inputs
+  whose V column halves are equal (O's halves must be bit-identical:
+  "halves bits") and the P-rounding inputs (`chip_smoke.
+  flash_rounding_inputs`, the forward alone against the plain forward on
+  the bf16 tensors);
 - paged: every case of `chip_smoke.paged_cases` (dense and int8 pools,
   decode, verify and chunk widths, the ragged row tiles, head dims 64 to
   256, pages of 1 to 512), read in units of the tolerance atol + rtol *
@@ -41,7 +46,13 @@ process per copy (the unchanged copy runs all three):
 
 The faults (`MUTATIONS`) drop tiles, terms or rows, and break each
 mechanism of the Hopper kernels: the forward's diagonal mask on the wrong
-tile and a K/V ring stage refilled before its release; the D = 128
+tile and a K/V ring stage refilled before its release; the bf16 forward
+at D >= 256 ("wgmma wide"): one warpgroup adding the partial scores in
+its own order (only the halves bits show it), the second of the two
+diagonal key tiles left unmasked, the last 64-column box of K not
+loaded, P truncated to bf16 instead of rounded (only the P-rounding
+inputs show it), the last K/V tile skipped and a ring stage refilled
+before its release; the D = 128
 backward's ring stages refilled before their release, P^T read before its
 barrier, the diagonal mask on the wrong tile, the first visible Q tile off
 by one, L and dsum of the neighbouring Q tile, and a far tile (40)
@@ -94,6 +105,10 @@ CASES = [(2, 512, 2, 128, False, "bfloat16"), (2, 512, 2, 128, True,
          (1, 4096, 2, 128, True, "bfloat16"),
          (2, 512, 2, 256, True, "bfloat16"),
          (1, 4096, 2, 256, False, "bfloat16"),
+         (1, 192, 2, 384, True, "bfloat16"),
+         (1, 2048, 2, 384, True, "bfloat16"),
+         (1, 192, 2, 512, True, "bfloat16"),
+         (1, 1024, 2, 512, False, "bfloat16"),
          (2, 512, 2, 128, False, "float32"), (2, 512, 2, 128, True,
                                               "float32"),
          (1, 4096, 2, 128, True, "float32"),
@@ -108,6 +123,10 @@ OLD_BOUND = 2e-2
 # first `text` after `anchor`, in order
 FWD = "void flash_fwd_consumer(WgFwdSmem& sm,"
 FWDP = "flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,"
+WIDE = "    flash_fwd_wide_kernel(const __grid_constant__ CUtensorMap tq,"
+WEXCH = "__device__ __forceinline__ void wide_exchange("
+WDIAG = "__device__ __forceinline__ bool wide_diag("
+WPACK = "__device__ __forceinline__ void wide_pack("
 DQ = "flash_bwd_dq_mma_kernel(const Args a) {"
 DKV = "flash_bwd_dkv_mma_kernel(const Args a) {"
 DQW = "flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,"
@@ -169,6 +188,30 @@ MUTATIONS = [
     ("forward refills a K/V stage before its release (empty waits skipped)",
      FLASH, FWDP, [("sm90::mbar_wait(&sm.k_empty[s], par);", ""),
                    ("sm90::mbar_wait(&sm.v_empty[s], par);", "")]),
+    # the bf16 forward at D >= 256 ("wgmma wide"); an order fault moves P
+    # by an ulp in one warpgroup, which only the equal-V-halves cases show
+    ("wide forward: warpgroup 1 adds the partial scores in its own order",
+     FLASH, WEXCH, [("const float s0 = wg == 0 ? x[i + e] : y[e];",
+                     "const float s0 = x[i + e];"),
+                    ("const float s1 = wg == 0 ? y[e] : x[i + e];",
+                     "const float s1 = y[e];")]),
+    ("wide forward leaves the second diagonal key tile unmasked", FLASH,
+     WDIAG, [("return causal && j >= nk - kWideRows / kb;",
+              "return causal && j == nk - kWideRows / kb;")]),
+    ("wide forward loads no last 64-column box of K", FLASH, WIDE, [
+        ("tma_rows<Sm::BOXES>(sm.k[s][0],",
+         "tma_rows<Sm::BOXES - 1>(sm.k[s][0],")]),
+    ("wide forward truncates P to bf16 instead of rounding it", FLASH,
+     WPACK, [("p[i / 2] = pack_bf16(x[i], x[i + 1]);",
+              "p[i / 2] = (__float_as_uint(x[i]) >> 16) |\n"
+              "      (__float_as_uint(x[i + 1]) & 0xffff0000u);")]),
+    ("wide forward skips its last K/V tile", FLASH, WIDE, [
+        ("const int nk = a.causal ? (q0 + kWideRows) / KB : a.Tk / KB;",
+         "const int nk = a.causal ? (q0 + kWideRows) / KB - 1 "
+         ": a.Tk / KB - 1;")]),
+    ("wide forward refills a K/V stage before its release", FLASH, WIDE, [
+        ("sm90::mbar_wait(&sm.k_empty[s], par);", ""),
+        ("sm90::mbar_wait(&sm.v_empty[s], par);", "")]),
     ("dQ drops dS.K of K/V tile 40", FLASH, DQ, [
         ("warp_pb<NO, KB / 16, LD>(dq, s, K + c0);",
          "if (kj != 40) warp_pb<NO, KB / 16, LD>(dq, s, K + c0);")]),
@@ -511,6 +554,24 @@ def flash_cases(torch, fa):
                               "cancelling",
                       "units": cs.flash_cancel_units(torch, fa, D, True,
                                                      seed=92 + i),
+                      "old_units": None})
+    bf = torch.bfloat16
+    for i, D in enumerate((256, 384, 512)):
+        # the bf16 forward's two warpgroups must hold the same P
+        q, k, v, do = cs.flash_inputs(torch, 1, 512, 2, D, bf, seed=94 + i)
+        v = v[..., :D // 2].repeat(1, 1, 1, 2)
+        got = cs.flash_run(fa, q, k, v, do, True)
+        ref = cs.flash_plain_f32(fa, q, k, v, do, True, got)
+        units = {n: u for n, _, u in cs.flash_errors(fa, got, ref, bf)}
+        units["halves bits"] = 0.0 if cs.flash_halves_equal(torch, got[0]) \
+            else float("inf")
+        cases.append({"case": f"B=1 T=512 H=2 D={D} bfloat16 causal, "
+                              "equal V halves",
+                      "units": units, "old_units": None})
+        # P rounded to nearest bf16 before P V
+        cases.append({"case": f"B=1 T=128 H=2 D={D} bfloat16 full, "
+                              "P rounding",
+                      "units": cs.flash_rounding_units(torch, fa, D),
                       "old_units": None})
     return cases
 

@@ -35,8 +35,12 @@ Phases, each of which makes the script exit non-zero when it fails:
    the O and L the forward kernel gave), f32 and bf16, causal and not,
    D = 128, 256, 384 and 512, T = 128 (D = 128: one or two tiles), 512,
    2048 and 4096, Tq = 512 with Tk = 1024 (bf16 D = 128 runs the three
-   wgmma kernels; f32 the split-TF32 kernels, the backward at D = 384
-   and 512 as clusters, all of whose f32 launches must take that route);
+   wgmma kernels; bf16 D >= 256 the "wgmma wide" forward, every launch
+   of which must take that route, and the mma.sync backward, also at
+   T = 128 and 192, the first 64-row tiles, where the diagonal crosses
+   two 32-key tiles at D = 384 and 512; f32 the split-TF32 kernels, the
+   backward at D = 384 and 512 as clusters, all of whose f32 launches
+   must take that route);
    each backward run twice, with bit-identical dQ, dK and dV (no
    atomics); at f32 D = 384 and 512 also q/k/v sliced from one fused qkv
    tensor, inputs whose 128-column slices repeat (the clusters' output
@@ -44,7 +48,12 @@ Phases, each of which makes the script exit non-zero when it fails:
    scores in the same order), and inputs whose score products cancel
    within each slice (partial sums many times the result), held to the
    plain versions in f64 (a score accumulator chained over a slice
-   fails there); and a GQA call through
+   fails there); at bf16 D = 256, 384 and 512 also q/k/v sliced from one
+   fused qkv tensor, inputs whose V column halves are equal (O's halves
+   must then be bit-identical: both warpgroups form the same P from the
+   two partial scores), and the forward alone on inputs whose O shows
+   whether P is rounded to nearest bf16 (`flash_rounding_inputs`); and
+   a GQA call through
    `multi_head_attention` with autograd against the same call on the
    CPU; O, dQ, dK, dV held row by row (a row's largest error within
    `flash_attention.TOLERANCE`, 1e-4 f32 / 2^-6 bf16, of that row's
@@ -157,7 +166,9 @@ Phases, each of which makes the script exit non-zero when it fails:
    together; the yardsticks, which the port never calls), beside the bound max(flops / 989 TFLOP/s,
    bytes / 3.35 TB/s) of this run's data, and each flash kernel's
    achieved TFLOP/s beside the library's, also at head_dim 256, 384 and
-   512 (B=2, H=4, T=2048) and for the f32 kernels at phase 6's shape (B=2,
+   512 (B=2, H=4, T=2048; the bf16 forward beside the time of the
+   mma.sync kernel it replaced, PERF.md's) and for the f32 kernels at
+   phase 6's shape (B=2,
    H=8, T=1024, D=128), at path 2f's (B=1, H=8, T=4096, with path 2f's
    launch counts) and at head dims 256, 384 and 512 (B=2, H=4, T=2048;
    the backward at 384 and 512 on the cluster route, logged with its
@@ -196,6 +207,7 @@ checkout of the repository. Weights and inputs are made from seeds.
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -211,6 +223,10 @@ FLASH_REPLACES = {
     "flash_attention_bwd_dq": "deeplearning4j_tpu/ops/pallas_attention.py:153",
     "flash_attention_bwd_dkv":
         "deeplearning4j_tpu/ops/pallas_attention.py:183"}
+# the bf16 forward at head dims 256-512 before "wgmma wide" replaced it:
+# the mma.sync kernel's time at B=2, H=4, T=2048, causal (PERF.md, PR 10;
+# NVIDIA H100 80GB HBM3 at 700 W)
+FLASH_FWD_MMA_MS = {256: 0.2193, 384: 0.5471, 512: 0.7686}
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12     # H100 SXM f32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12   # H100 SXM dense TF32 tensor-core rate
@@ -1003,6 +1019,27 @@ def flash_cancel_inputs(torch, B, T, H, D, seed, a=3.0):
     return q, k, v, do
 
 
+def flash_rounding_inputs(torch, D, device="cuda"):
+    """bf16 q, k, v (B=1, T=128, H=2, D), non-causal, whose O tells how
+    the forward rounds P to bf16: q's rows are (a, 0, ..), even keys
+    (1, 0, ..) and odd keys zero, so the scores are a / sqrt(D) and 0 and
+    every key tile of an online softmax holds the row's maximum; P is 1
+    for even keys and p = exp(-a / sqrt(D)) for odd keys, with a chosen
+    so that p = 0.99121..., which rounds to nearest bf16 as 254/256 and
+    truncates to 253/256 (0.24 of a bf16 unit from the midpoint, far
+    beyond any f32 error of p); v is +1 on even keys and -1 on odd ones,
+    so every output is (1 - bf16(p)) / (1 + p): about 0.0039 rounded and
+    0.0059 truncated, 32 times the bf16 tolerance apart."""
+    a = -math.log(253.75 / 256) * math.sqrt(D)
+    q = torch.zeros((1, 128, 2, D), device=device)
+    q[..., 0] = a
+    k = torch.zeros_like(q)
+    k[:, 0::2, :, 0] = 1.0
+    v = torch.ones_like(q)
+    v[:, 1::2] = -1.0
+    return [t.to(torch.bfloat16) for t in (q, k, v)]
+
+
 def flash_cancel_units(torch, fa, D, causal, seed):
     """The kernels on `flash_cancel_inputs` (B=1, T=512, H=2) against the
     plain versions in f64 (the backward on the forward kernel's O and L):
@@ -1022,6 +1059,39 @@ def flash_slices_equal(torch, got):
     slices (see `flash_inputs_sliced`)."""
     return [all(torch.equal(g[..., :128], g[..., i:i + 128])
                 for i in range(128, g.shape[-1], 128)) for g in got[2:]]
+
+
+def flash_halves_equal(torch, o):
+    """Whether O's two column halves are bit-identical (see the equal-V-
+    halves case of phase 4: each warpgroup of the bf16 forward at
+    D >= 256 computes one half from its own copy of P)."""
+    half = o.shape[-1] // 2
+    return torch.equal(o[..., :half], o[..., half:])
+
+
+def flash_rounding_units(torch, fa, D):
+    """The bf16 forward on `flash_rounding_inputs` against the plain
+    forward on the same bf16 tensors (f32 arithmetic, P rounded to
+    nearest bf16 before P V as the kernel must): O's and L's errors in
+    units of their tolerances, by name; the launch on the "wgmma wide"
+    route."""
+    q, k, v = flash_rounding_inputs(torch, D)
+    fa.reset_counts()
+    got = fa.flash_forward(q, k, v, False, None, with_lse=True)
+    wide_routes_only(fa, 1, f"bf16 D={D}")
+    ref = fa.flash_attention_plain_fwd(q, k, v)
+    torch.cuda.synchronize()
+    return {n: u for n, _, u in flash_errors(fa, got, ref, torch.bfloat16,
+                                             names=("O", "L"))}
+
+
+def wide_routes_only(fa, n, what):
+    """Require the forward launches since the counts were set to 0 to be
+    `n`, all on the "wgmma wide" route (the bf16 forward at D >= 256)."""
+    fwd = {key: c for key, c in fa.launches_by_route.items()
+           if key[0] == "fwd"}
+    if fwd != {("fwd", "wgmma wide"): n}:
+        raise AssertionError(f"{what} forward routes {fwd}")
 
 
 def flash_run(fa, q, k, v, do, causal):
@@ -1071,6 +1141,15 @@ def phase_flash(torch, fa):
     cases += [(1, 2048, 2, 512, torch.bfloat16, True)]
     cases += [(1, 2048, 2, D, torch.float32, causal)
               for D in (384, 512) for causal in (False, True)]
+    # the bf16 forward at D >= 256 ("wgmma wide", 64-row blocks): the
+    # first query tiles alone (T = 128; T = 192, three tiles), where at
+    # D = 384 and 512 the diagonal crosses two 32-key tiles, and long rows
+    cases += [(1, T, 2, D, torch.bfloat16, causal)
+              for D in (256, 384, 512) for T in (128, 192)
+              for causal in (False, True)]
+    cases += [(1, T, 2, D, torch.bfloat16, True)
+              for D in (256, 384) for T in (2048, 4096)]
+    cases += [(1, 4096, 2, 512, torch.bfloat16, True)]
 
     def check(q, k, v, do, causal, dt, what):
         fa.reset_counts()
@@ -1087,6 +1166,8 @@ def phase_flash(torch, fa):
             if routes != {("dq", "tf32 cluster"): 2,
                           ("dkv", "tf32 cluster"): 2}:
                 raise AssertionError(f"f32 D={D} backward routes {routes}")
+        if dt == torch.bfloat16 and D > 128:
+            wide_routes_only(fa, 2, f"bf16 D={D}")
         return got
 
     for i, (B, T, H, D, dt, causal) in enumerate(cases):
@@ -1099,7 +1180,10 @@ def phase_flash(torch, fa):
     for i, (D, dt) in enumerate(((128, torch.float32),
                                  (128, torch.bfloat16),
                                  (384, torch.float32),
-                                 (512, torch.float32))):
+                                 (512, torch.float32),
+                                 (256, torch.bfloat16),
+                                 (384, torch.bfloat16),
+                                 (512, torch.bfloat16))):
         q, do = flash_inputs(torch, 2, 512, 2, D, dt, seed=70 + i)[:2]
         k, v = flash_inputs(torch, 2, 1024, 2, D, dt, seed=72 + i)[:2]
         check(q, k, v, do, False, dt,
@@ -1130,6 +1214,32 @@ def phase_flash(torch, fa):
             + (" ok" if max(units.values()) <= 1.0 else " FAIL"))
         if max(units.values()) > 1.0:
             raise AssertionError(f"f32 D={D} cancelling scores: {units}")
+    bf = torch.bfloat16
+    for i, D in enumerate((256, 384, 512)):
+        # the bf16 forward at D >= 256 on q/k/v read in place
+        q, k, v, do = flash_inputs_fused(torch, 1, 1024, 2, D, bf,
+                                         seed=94 + i)
+        check(q, k, v, do, True, bf, f"B=1 T=1024 H=2 D={D} bfloat16 "
+                                     "causal, qkv slices")
+        # both warpgroups hold the same P: with v's column halves equal,
+        # O's halves are bit-identical
+        for causal in (False, True):
+            q, k, v, do = flash_inputs(torch, 1, 512, 2, D, bf, seed=97 + i)
+            v = v[..., :D // 2].repeat(1, 1, 1, 2)
+            what = (f"B=1 T=512 H=2 D={D} bfloat16 "
+                    f"{'causal' if causal else 'full'}, equal V halves")
+            got = check(q, k, v, do, causal, bf, what)
+            if not flash_halves_equal(torch, got[0]):
+                raise AssertionError(f"{what}: O's column halves differ in "
+                                     "bits")
+        # P rounded to nearest bf16 before P V (the forward alone)
+        units = flash_rounding_units(torch, fa, D)
+        what = f"B=1 T=128 H=2 D={D} bfloat16 full, P rounding"
+        log(f"  {what:<40} " + " ".join(f"{n} {u:.3f}"
+                                        for n, u in units.items())
+            + (" ok" if max(units.values()) <= 1.0 else " FAIL"))
+        if max(units.values()) > 1.0:
+            raise AssertionError(f"bf16 D={D} P rounding: {units}")
     for dt in (torch.float32, torch.bfloat16):
         g = torch.Generator(device="cuda").manual_seed(77)
         q = torch.randn((1, 1024, 8, 128), generator=g, device="cuda")
@@ -1316,7 +1426,8 @@ def phase_flash_timing(torch, fa, counts, counts_f32):
     torch.cuda.empty_cache()
     rows = flash_rows(torch, fa, B, H, T, D, counts, err_fused, seed=9)
     # families no main path takes, each at a smaller sequence: bf16 head
-    # dims 256, 384 and 512 (the mma.sync kernels); then the f32 kernels
+    # dims 256, 384 and 512 (the "wgmma wide" forward, the mma.sync
+    # backward); then the f32 kernels
     # (split TF32) at phase 6's shape and at path 2f's (with its launch
     # counts), against SDPA in f32 with TF32 off
     for D in (256, 384, 512):
@@ -1403,6 +1514,9 @@ def flash_rows(torch, fa, B, H, T, D, counts, err, seed, dtype=None, tag=""):
         lib_flops = flops if kind == "fwd" else sum(
             flash_work(B, H, T, D, k)[0] for k in ("dq", "dkv"))
         fma = f", f32-FMA bound {fma_ms:.4f} ms" if f32 else ""
+        if kind == "fwd" and D in FLASH_FWD_MMA_MS and not f32:
+            fma += (f"; the mma.sync forward it replaced: "
+                    f"{FLASH_FWD_MMA_MS[D]:.4f} ms (PERF.md, PR 10)")
         if route == "tf32 cluster":
             fma += ("; clusters of %d blocks, %d fit at once"
                     % fa.cluster_plan(kind, D))

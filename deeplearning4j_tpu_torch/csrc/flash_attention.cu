@@ -34,16 +34,21 @@
 //  - bf16 D = 128 backward: flash_bwd_dq_wgmma_kernel and
 //    flash_bwd_dkv_wgmma_kernel, the same structure (their section below
 //    says how the work is split between the consumer warpgroups);
-//  - bf16 backward (dQ; dK/dV) at D >= 256, and the forward at D >= 256:
-//    4-warp blocks, each warp 16 rows of a 64-row tile with its scores and
-//    accumulators in registers; mma.sync m16n8k16 fed by ldmatrix from
-//    tiles staged by cp.async (double-buffered), and a score tile's
-//    registers re-packed as the A operand of the next product. The
-//    backward at D >= 256 and the forward at D > 256 split their output
-//    columns over blocks of 128 (grid z), each recomputing the scores (the
-//    forward's block z = 0 writes L); at D > 256 the streamed tiles hold
-//    32 keys (or queries) instead of 64, and at D = 512 the backward's are
-//    single-buffered, so that the staged tiles fit a block;
+//  - bf16 forward at D = 256, 384, 512: flash_fwd_wide_kernel<D>, the same
+//    warp specialization over blocks of 64 query rows, whose two consumer
+//    warpgroups split D (each owns D / 2 columns of O and computes the
+//    partial scores over them; the partials meet in shared memory and are
+//    added in one order in both, so both hold the same P; its section
+//    says more);
+//  - bf16 backward (dQ; dK/dV) at D >= 256: 4-warp blocks, each warp 16
+//    rows of a 64-row tile with its scores and accumulators in registers;
+//    mma.sync m16n8k16 fed by ldmatrix from tiles staged by cp.async
+//    (double-buffered), and a score tile's registers re-packed as the A
+//    operand of the next product. They split their output columns over
+//    blocks of 128 (grid z), each recomputing the scores; at D > 256 the
+//    streamed tiles hold 32 keys (or queries) instead of 64, and at
+//    D = 512 they are single-buffered, so that the staged tiles fit a
+//    block;
 //  - f32 (MultiLayerNetwork's default precision): every kernel at every
 //    head dim on the tensor cores in split TF32 (three TF32 products per
 //    f32 product, f32 accuracy; their section below); the backward at
@@ -157,17 +162,18 @@ __device__ __forceinline__ void stage(bf16* dst, const bf16* src,
 }
 
 // ================================================= bf16 register kernels
-// Each of the 4 warps owns 16 rows of the block's 64-row tile; products
-// are mma.sync m16n8k16 (bf16 in, f32 accumulate) fed by ldmatrix from
-// shared memory, and the score tile's accumulator registers are re-packed
-// as the A operand of the next product (P.V, dS.K, P^T.dO, dS^T.Q) without
-// touching shared memory. The streamed tiles are double-buffered: the next
-// one's cp.async copies run during this one's math. Fragment layouts are
-// those of the PTX ISA for m16n8k16: lane l = 4g + t holds rows g and
-// g + 8, columns 2t and 2t + 1 of each 8-wide accumulator tile. Templated
-// on D and on DO, the output columns one block accumulates (blockIdx.z
-// picks which DO of the D); shared rows are D + 8 elements (16 bytes of
-// padding spreads ldmatrix rows over the banks).
+// The backward at D >= 256. Each of the 4 warps owns 16 rows of the
+// block's 64-row tile; products are mma.sync m16n8k16 (bf16 in, f32
+// accumulate) fed by ldmatrix from shared memory, and the score tile's
+// accumulator registers are re-packed as the A operand of the next product
+// (dS.K, P^T.dO, dS^T.Q) without touching shared memory. The streamed
+// tiles are double-buffered: the next one's cp.async copies run during
+// this one's math. Fragment layouts are those of the PTX ISA for
+// m16n8k16: lane l = 4g + t holds rows g and g + 8, columns 2t and 2t + 1
+// of each 8-wide accumulator tile. Templated on D and on DO, the output
+// columns one block accumulates (blockIdx.z picks which DO of the D);
+// shared rows are D + 8 elements (16 bytes of padding spreads ldmatrix
+// rows over the banks).
 constexpr int kMmaBlk = 64;
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -244,7 +250,7 @@ __device__ __forceinline__ void warp_abt(float (&acc)[NT][4], const bf16* A,
 }
 
 // acc (16 x 8*NT) += P (16 x 16*KS, accumulator registers rounded to
-// bf16) . B, B stored [k][n]: P.V, dS.K, P^T.dO, dS^T.Q
+// bf16) . B, B stored [k][n]: dS.K, P^T.dO, dS^T.Q
 template <int NT, int KS, int LD>
 __device__ __forceinline__ void warp_pb(float (&acc)[NT][4],
                                         const float (&p)[2 * KS][4],
@@ -311,29 +317,9 @@ __host__ __device__ constexpr int mma_kb(int D) { return D > 256 ? 32 : 64; }
 // tile's copies run during this one's math), or one at D = 512, where two
 // would not fit.
 __host__ __device__ constexpr int mma_bufs(int D) { return D > 384 ? 1 : 2; }
-// Output columns one block accumulates: all of D up to 256 (forward), 128
-// otherwise (the backward at D = 256, everything at D > 256: two 16 x 256
+// Output columns one backward block accumulates (two 16 x 256
 // accumulators per warp, or one of 16 x 512, would not fit the registers).
-__host__ __device__ constexpr int mma_cols(int kind_fwd, int D) {
-  return kind_fwd && D <= 256 ? D : 128;
-}
-
-// Q, and two stages of K (KB x D) and of V's DO columns (KB x DO).
-template <int D, int DO>
-struct MmaFwdSmem {
-  static constexpr int KB = mma_kb(D);
-  bf16 *q, *k[2], *v[2];
-  __host__ __device__ static size_t carve(Carver& c, MmaFwdSmem* t) {
-    MmaFwdSmem x;
-    x.q = c.take<bf16>(kMmaBlk * (D + 8));
-    for (int i = 0; i < 2; ++i) {
-      x.k[i] = c.take<bf16>(KB * (D + 8));
-      x.v[i] = c.take<bf16>(KB * (DO + 8));
-    }
-    if (t) *t = x;
-    return c.off;
-  }
-};
+constexpr int kMmaCols = 128;
 
 // The block's own two tiles (a, b) and the buffers of the streamed pair
 // (c, d) with the streamed rows' L and dsum (dK/dV only).
@@ -365,103 +351,6 @@ template <int N>
 __device__ __forceinline__ void stage_f32_row(float* dst, const float* src) {
   for (int i = threadIdx.x; i < N / 4; i += kThreads)
     cp_async16(dst + 4 * i, src + 4 * i);
-}
-
-// Columns DO * blockIdx.z .. + DO of O; at D > 256 each z-block recomputes
-// the scores, and block z = 0 writes L.
-template <int D, int DO>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_mma_kernel(const Args a) {
-  constexpr int BLK = kMmaBlk, KB = mma_kb(D), LD = D + 8, LDV = DO + 8;
-  constexpr int NO = DO / 8, NS = KB / 8;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  Carver cv{smem_raw};
-  MmaFwdSmem<D, DO> sm;
-  MmaFwdSmem<D, DO>::carve(cv, &sm);
-  const int qi = blockIdx.x, bh = blockIdx.y, c0 = DO * blockIdx.z;
-  const int b = bh / a.H, h = bh % a.H, q0 = qi * BLK;
-  const int warp = threadIdx.x / 32, l = threadIdx.x % 32;
-  const int g = l / 4, t = l % 4, r0 = 16 * warp;
-  // key tiles strictly above the diagonal contribute nothing
-  const int nk = a.causal ? (q0 + BLK) / KB : a.Tk / KB;
-  auto stage_kv = [&](int kj) {
-    if (kj < nk) {
-      const int k0 = kj * KB;
-      stage<KB, D, LD>(sm.k[kj & 1], row_ptr<bf16>(a.k, a.sk, b, h, k0),
-                       a.sk.t);
-      stage<KB, DO, LDV>(sm.v[kj & 1],
-                         row_ptr<bf16>(a.v, a.sv, b, h, k0) + c0, a.sv.t);
-    }
-    cp_async_commit();
-  };
-  stage<BLK, D, LD>(sm.q, row_ptr<bf16>(a.q, a.sq, b, h, q0), a.sq.t);
-  stage_kv(0);
-  float o[NO][4], m[2] = {kNegInf, kNegInf}, lsum[2] = {0.f, 0.f};
-  zero_acc(o);
-  for (int kj = 0; kj < nk; ++kj) {
-    stage_kv(kj + 1);
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* K = sm.k[kj & 1];
-    const bf16* V = sm.v[kj & 1];
-    const int k0 = kj * KB;
-    float s[NS][4];
-    zero_acc(s);
-    warp_abt<NS, D, LD>(s, sm.q, r0, K);
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[j][e] * a.scale;
-        const int key = k0 + 8 * j + 2 * t + (e & 1);
-        if (a.causal && key > q0 + r0 + g + 8 * (e >> 1)) x = kNegInf;
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    float corr[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float m_new = fmaxf(m[i], quad_max(mx[i]));
-      corr[i] = expf(m[i] - m_new);
-      m[i] = m_new;
-      lsum[i] *= corr[i];
-    }
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        // masked entries stay exactly 0, also on rows masked so far
-        const float x = s[j][e];
-        const float p = x <= kNegInf * 0.5f ? 0.f : expf(x - m[e >> 1]);
-        s[j][e] = p;
-        lsum[e >> 1] += p;
-      }
-#pragma unroll
-    for (int j = 0; j < NO; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[j][e] *= corr[e >> 1];
-    warp_pb<NO, KB / 16, LDV>(o, s, V);
-    __syncthreads();  // this buffer is restaged two tiles on
-  }
-  cp_async_wait<0>();
-  float inv[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    lsum[i] = quad_sum(lsum[i]);
-    inv[i] = lsum[i] > 0.f ? 1.f / lsum[i] : 0.f;
-  }
-#pragma unroll
-  for (int j = 0; j < NO; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[j][e] *= inv[e >> 1];  // l == 0 gives 0
-  store_acc(o, 1.f, a.out0, a.so0, b, h, q0 + r0, c0);
-  if (a.lse != nullptr && blockIdx.z == 0 && t == 0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      a.lse[(long long)bh * a.Tq + q0 + r0 + g + 8 * i] =
-          lsum[i] > 0.f ? m[i] + logf(lsum[i]) : kNegInf;
-  }
 }
 
 // ====================================== bf16 D = 128 forward: wgmma + TMA
@@ -690,6 +579,339 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   } else {
     sm90::setmaxnreg_inc<232>();
     flash_fwd_consumer(sm, a, threadIdx.x / 128, qi, nk, b, h, bh);
+  }
+}
+
+// =============================== bf16 D = 256, 384, 512 forward: wgmma + TMA
+// flash_fwd_wide_kernel<D>: blocks of 64 query rows, three warpgroups.
+// Warpgroup 2 is the producer: one thread issues every TMA load, Q once,
+// then K and V tiles of KB keys (wide_kb: 64 at D = 256, 32 above) into a
+// ring of NS stages each (wide_stages), behind full and empty mbarriers,
+// each row as D / 64 boxes of 64 columns (128-byte rows, swizzled).
+// Warpgroups 0 and 1 (the consumers) split D: warpgroup w owns columns
+// w * D / 2 .. + D / 2 of O in registers (64, 96 or 128 f32 a thread) and
+// computes the partial score S_w = Q K^T over those columns on wgmma. The
+// partials meet in shared memory (double-buffered by tile parity, one
+// named barrier a tile) and both warpgroups form the same scaled scores
+// x = fma(S_0, c, S_1 * c), c = scale * log2(e), in this one order, so
+// both hold bit-identical P. Then, as the D = 128 kernel: the online
+// softmax in the log2 domain, O rescaled, P rounded to bf16 as the
+// register A operand of O += P V (V read MN-major, the warpgroup's
+// columns). Only the diagonal tiles are masked (64 / KB of them), tiles
+// above them are never loaded, and the grid's x is (b, h), so the first
+// wave holds every head's longest rows. Why this shape: a 64 x D f32
+// accumulator does not fit one warpgroup beside S and P at D > 256, and
+// splitting D over two warpgroups of one block computes every score once
+// (the grid-z blocks of the mma.sync kernel it replaced each recomputed
+// the full-D scores); 128-row blocks would make one wave of long blocks
+// at the timing shape (B = 2, H = 4, T = 2048). What bounds it: the
+// products are bounded by operations (989 TFLOP/s), but each block
+// streams every visible K/V tile from L2 for only 64 query rows (64 flops
+// a byte), so the rate at which L2 delivers K and V limits it too; the
+// two warpgroups meet at the exchange each tile, and each warpgroup's
+// P V runs during its next tile's exchange and softmax.
+constexpr int kWideRows = 64;  // query rows per block
+__host__ __device__ constexpr int wide_kb(int D) { return D == 256 ? 64 : 32; }
+__host__ __device__ constexpr int wide_stages(int D) {
+  return D == 384 ? 3 : 2;
+}
+
+// Q, the K and V rings (boxes 1024-byte aligned) and the partial scores
+// x[tile parity][warpgroup], each thread's KB / 2 values as float4 runs
+// laid out thread-major (conflict-free; the peer thread of the other
+// warpgroup holds the same rows and columns and reads the same offsets).
+template <int D>
+struct WideFwdSmem {
+  static constexpr int KB = wide_kb(D), NS = wide_stages(D), BOXES = D / 64;
+  bf16 q[BOXES][kWideRows * 64];
+  bf16 k[NS][BOXES][KB * 64];
+  bf16 v[NS][BOXES][KB * 64];
+  float x[2][2][kWideRows * KB];
+  uint64_t q_full, k_full[NS], k_empty[NS], v_full[NS], v_empty[NS];
+};
+template <int D>
+constexpr size_t wide_smem_bytes() {
+  return sizeof(WideFwdSmem<D>) + 1024;  // + alignment
+}
+
+// TMA of `rows` rows (from row t0 of head h, batch b) as BOXES boxes of
+// 64 columns into dst, the bytes counted on bar
+template <int BOXES>
+__device__ __forceinline__ void tma_rows(bf16* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int rows, int h,
+                                         int t0, int b) {
+  sm90::mbar_expect_tx(bar, BOXES * rows * 128);
+  for (int c = 0; c < BOXES; ++c)
+    sm90::tma_load_4d(dst + c * rows * 64, map, bar, 64 * c, h, t0, b);
+}
+
+// the score product's and the output product's wgmma by accumulator size
+__device__ __forceinline__ void wide_s(float (&d)[16], uint64_t a, uint64_t b,
+                                       int acc) {
+  sm90::wgmma_m64n32_ss(d, a, b, acc);
+}
+__device__ __forceinline__ void wide_s(float (&d)[32], uint64_t a, uint64_t b,
+                                       int acc) {
+  sm90::wgmma_m64n64_ss(d, a, b, acc);
+}
+__device__ __forceinline__ void wide_pv(float (&d)[64],
+                                        const uint32_t (&a)[4], uint64_t b) {
+  sm90::wgmma_m64n128_rs_mn(d, a, b);
+}
+__device__ __forceinline__ void wide_pv(float (&d)[96],
+                                        const uint32_t (&a)[4], uint64_t b) {
+  sm90::wgmma_m64n192_rs_mn(d, a, b);
+}
+__device__ __forceinline__ void wide_pv(float (&d)[128],
+                                        const uint32_t (&a)[4], uint64_t b) {
+  sm90::wgmma_m64n256_rs_mn(d, a, b);
+}
+
+// The online softmax of one tile of scaled scores x (log2 domain), N per
+// thread (row rl + 8 (i >> 1 & 1), column 8 (i / 4) + 2t + (i & 1)), in
+// place: m and lsum updated, x turned into P = ex2(x - m), corr the factor
+// O is scaled by. On a diagonal tile, keys after a row are masked; koff is
+// the tile's first key minus the block's first query row. (The D = 128
+// kernel keeps its own softmax_tile, with the scale multiply in its first
+// loop: sharing this one made that kernel slower.)
+template <int N>
+__device__ __forceinline__ void wide_softmax(float (&x)[N], float (&m)[2],
+                                             float (&lsum)[2],
+                                             float (&corr)[2], bool diag,
+                                             int koff, int rl, int t) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if (diag && koff + 8 * (i / 4) + 2 * t + (i & 1) > rl + 8 * ((i >> 1) & 1))
+      x[i] = -INFINITY;
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x[i]);
+  }
+  float base[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float mn = fmaxf(m[r], quad_max(mx[r]));
+    base[r] = mn == -INFINITY ? 0.f : mn;  // a row with no key yet
+    corr[r] = ex2(m[r] - base[r]);
+    m[r] = mn;
+    lsum[r] *= corr[r];
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    x[i] = ex2(x[i] - base[(i >> 1) & 1]);
+    lsum[(i >> 1) & 1] += x[i];
+  }
+}
+
+// The partial scores meet: this warpgroup's (in x) goes to its buffer
+// xs[wg], the peer's is read back from xs[wg ^ 1] after the named barrier
+// of the two consumer warpgroups, and x becomes the scaled score
+// fma(S_0, c, S_1 * c) of warpgroup 0's partial S_0 and warpgroup 1's
+// S_1, in this order in both, so both hold the same bits.
+template <int NX>
+__device__ __forceinline__ void wide_exchange(float (&x)[NX],
+                                              float (*xs)[kWideRows * NX * 2],
+                                              int wg, int tid, float c) {
+  float* mine = xs[wg] + 4 * tid;
+  const float* peer = xs[wg ^ 1] + 4 * tid;
+#pragma unroll
+  for (int i = 0; i < NX; i += 4)
+    *reinterpret_cast<float4*>(mine + 128 * i) =
+        make_float4(x[i], x[i + 1], x[i + 2], x[i + 3]);
+  sm90::named_bar_sync(1, 256);
+#pragma unroll
+  for (int i = 0; i < NX; i += 4) {
+    const float4 y4 = *reinterpret_cast<const float4*>(peer + 128 * i);
+    const float y[4] = {y4.x, y4.y, y4.z, y4.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float s0 = wg == 0 ? x[i + e] : y[e];  // warpgroup 0's partial
+      const float s1 = wg == 0 ? y[e] : x[i + e];  // warpgroup 1's
+      x[i + e] = fmaf(s0, c, s1 * c);
+    }
+  }
+}
+
+// Key tile j of nk (KB keys) crosses the diagonal of the block's 64 query
+// rows: the last 64 / KB tiles of a causal row tile
+__device__ __forceinline__ bool wide_diag(int causal, int j, int nk, int kb) {
+  return causal && j >= nk - kWideRows / kb;
+}
+
+// P rounded to nearest bf16: p[2n], p[2n + 1] are the A fragment
+// registers of 8-column block n (rows rl and rl + 8)
+template <int NX>
+__device__ __forceinline__ void wide_pack(uint32_t (&p)[NX / 2],
+                                          const float (&x)[NX]) {
+#pragma unroll
+  for (int i = 0; i < NX; i += 2) p[i / 2] = pack_bf16(x[i], x[i + 1]);
+}
+
+// A consumer's columns wg * NO * 2 .. of O (its accumulator over the row
+// sums, bf16) into rows q0 + rl, q0 + rl + 8 (and their 16-row steps);
+// warpgroup 0 also writes L = m ln 2 + log l (m in the log2 domain)
+template <int NO>
+__device__ __forceinline__ void wide_store(const float (&o)[NO],
+                                           const float (&m)[2],
+                                           float (&lsum)[2],
+                                           const WgFwdArgs& a, int wg, int q0,
+                                           int rl, int t, int b, int h,
+                                           int bh) {
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    lsum[r] = quad_sum(lsum[r]);
+    inv[r] = lsum[r] > 0.f ? 1.f / lsum[r] : 0.f;  // l == 0 gives O = 0
+  }
+  bf16* out = static_cast<bf16*>(a.o) + (long long)b * a.so.b +
+              (long long)h * a.so.h + wg * 2 * NO + 2 * t;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    bf16* row = out + (long long)(q0 + rl + 8 * r) * a.so.t;
+#pragma unroll
+    for (int j = 0; j < NO / 4; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) = __floats2bfloat162_rn(
+          o[4 * j + 2 * r] * inv[r], o[4 * j + 2 * r + 1] * inv[r]);
+    if (a.lse != nullptr && wg == 0 && t == 0)
+      a.lse[(long long)bh * a.Tq + q0 + rl + 8 * r] =
+          lsum[r] > 0.f ? m[r] * 0.6931471805599453f + logf(lsum[r])
+                        : kNegInf;
+  }
+}
+
+// A consumer warpgroup of flash_fwd_wide_kernel<D>: columns wg * D / 2 ..
+// of O for the block's 64 query rows. Per key tile j, with S(j) (this
+// warpgroup's partial) in registers and P V(j - 1) still running on the
+// tensor cores: the exchange and the softmax of tile j; wait for P V(j -
+// 1) (release its V stage); rescale O, round P(j); issue S(j + 1) into
+// the score registers, then P V(j); wait for S(j + 1) only (release its
+// K stage). So each P V overlaps the next tile's exchange and softmax.
+// The last tile is peeled off (it issues no next S), so no branch sits
+// around a wgmma; P, O and the scores are defined only while no product
+// that reads or writes them is in flight (ptxas serializes wgmma
+// otherwise).
+template <int D>
+__device__ __forceinline__ void wide_fwd_consumer(WideFwdSmem<D>& sm,
+                                                  const WgFwdArgs& a, int wg,
+                                                  int qi, int nk, int b,
+                                                  int h, int bh) {
+  using Sm = WideFwdSmem<D>;
+  constexpr int KB = Sm::KB, NS = Sm::NS, HALF = D / 2;
+  constexpr int NX = KB / 2;    // score registers a thread (64 x KB)
+  constexpr int NO = HALF / 2;  // output registers a thread (64 x D / 2)
+  const int tid = threadIdx.x % 128, l = threadIdx.x % 32;
+  const int g = l / 4, t = l % 4;
+  const int rl = 16 * (tid / 32) + g;  // this thread's rows: rl, rl + 8
+  const int q0 = qi * kWideRows;
+  const int box0 = wg * (HALF / 64);   // the warpgroup's first column box
+  float o[NO], x[NX], m[2] = {-INFINITY, -INFINITY}, lsum[2] = {0.f, 0.f};
+  float corr[2];
+  uint32_t p[NX / 2];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] = 0.f;
+  // S(j), this warpgroup's columns, into x (issued and committed)
+  auto issue_s = [&](int j) {
+    const int s = j % NS;
+    sm90::mbar_wait(&sm.k_full[s], (j / NS) & 1);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HALF / 16; ++kk) {
+      const int box = box0 + kk / 4, off = (kk % 4) * 32;
+      wide_s(x, sm90::desc_sw128(reinterpret_cast<const char*>(sm.q[box]) +
+                                 off),
+             sm90::desc_sw128(reinterpret_cast<const char*>(sm.k[s][box]) +
+                              off),
+             kk > 0);
+    }
+    sm90::wgmma_commit();
+  };
+  sm90::mbar_wait(&sm.q_full, 0);
+  issue_s(0);
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(x);
+  if (l == 0) sm90::mbar_arrive(&sm.k_empty[0]);
+  // tile j; with `next` true, S(j + 1) is also issued and waited for
+  auto step = [&](int j, auto next) {
+    const int s = j % NS;
+    wide_exchange(x, sm.x[j & 1], wg, tid, a.scale_log2);
+    wide_softmax(x, m, lsum, corr, wide_diag(a.causal, j, nk, KB),
+                 j * KB - q0, rl, t);
+    sm90::wgmma_wait<0>();  // P V(j - 1)
+    sm90::fence_regs(o);
+    sm90::mbar_arrive_if(&sm.v_empty[(j + NS - 1) % NS], l == 0 && j > 0);
+#pragma unroll
+    for (int i = 0; i < NO; ++i) o[i] *= corr[(i >> 1) & 1];
+    wide_pack(p, x);
+    if constexpr (decltype(next)::value) issue_s(j + 1);
+    sm90::mbar_wait(&sm.v_full[s], (j / NS) & 1);
+    sm90::fence_regs(o);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KB / 16; ++kk) {
+      const uint32_t af[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+                              p[4 * kk + 3]};
+      wide_pv(o, af,
+              sm90::desc_sw128(
+                  reinterpret_cast<const char*>(sm.v[s][box0]) + kk * 2048,
+                  sizeof(sm.v[s][0])));
+    }
+    sm90::wgmma_commit();
+    if constexpr (decltype(next)::value) {
+      sm90::wgmma_wait<1>();  // S(j + 1); P V(j) runs on
+      sm90::fence_regs(x);
+      sm90::mbar_arrive_if(&sm.k_empty[(j + 1) % NS], l == 0);
+    }
+  };
+  for (int j = 0; j + 1 < nk; ++j) step(j, std::true_type{});
+  step(nk - 1, std::false_type{});
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(o);
+  wide_store(o, m, lsum, a, wg, q0, rl, t, b, h, bh);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_fwd_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const WgFwdArgs a) {
+  using Sm = WideFwdSmem<D>;
+  constexpr int KB = Sm::KB, NS = Sm::NS;
+  extern __shared__ unsigned char smem_raw[];
+  Sm& sm = *reinterpret_cast<Sm*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const int qi = a.Tq / kWideRows - 1 - blockIdx.y;  // longest rows first
+  const int q0 = qi * kWideRows;
+  // K/V tiles strictly above the diagonal are never loaded
+  const int nk = a.causal ? (q0 + kWideRows) / KB : a.Tk / KB;
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(&sm.q_full, 1);
+    for (int s = 0; s < NS; ++s) {
+      sm90::mbar_init(&sm.k_full[s], 1);
+      sm90::mbar_init(&sm.v_full[s], 1);
+      sm90::mbar_init(&sm.k_empty[s], 8);  // one arrival per consumer warp
+      sm90::mbar_init(&sm.v_empty[s], 8);
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x >= 256) {
+    sm90::setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      tma_rows<Sm::BOXES>(sm.q[0], &tq, &sm.q_full, kWideRows, h, q0, b);
+      for (int j = 0; j < nk; ++j) {
+        const int s = j % NS;
+        // a stage is refilled once every consumer warp released it
+        const uint32_t par = ((j / NS) & 1) ^ 1;
+        sm90::mbar_wait(&sm.k_empty[s], par);
+        tma_rows<Sm::BOXES>(sm.k[s][0], &tk, &sm.k_full[s], KB, h, j * KB, b);
+        sm90::mbar_wait(&sm.v_empty[s], par);
+        tma_rows<Sm::BOXES>(sm.v[s][0], &tv, &sm.v_full[s], KB, h, j * KB, b);
+      }
+    }
+  } else {
+    sm90::setmaxnreg_inc<232>();
+    wide_fwd_consumer<D>(sm, a, threadIdx.x / 128, qi, nk, b, h, bh);
   }
 }
 
@@ -2174,11 +2396,12 @@ __global__ void __launch_bounds__(kThreads, 1)
 enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
 
 // The kernel family that runs (kind, dtype, D): 0 split TF32 in clusters
-// (the f32 backward at D = 384, 512), 1 split TF32, 2 bf16 mma.sync,
-// 3 bf16 wgmma.
-enum Route { kTf32Cluster = 0, kTf32 = 1, kMma = 2, kWgmma = 3 };
+// (the f32 backward at D = 384, 512), 1 split TF32, 2 bf16 mma.sync (the
+// backward at D >= 256), 3 bf16 wgmma (D = 128), 4 bf16 wgmma with D split
+// over two warpgroups (the forward at D >= 256).
+enum Route { kTf32Cluster = 0, kTf32 = 1, kMma = 2, kWgmma = 3, kWide = 4 };
 __host__ __device__ constexpr int route_of(int kind, int dtype, int D) {
-  if (dtype == 1) return D == 128 ? kWgmma : kMma;
+  if (dtype == 1) return D == 128 ? kWgmma : kind == kFwd ? kWide : kMma;
   return kind == kFwd || D <= 256 ? kTf32 : kTf32Cluster;
 }
 
@@ -2199,17 +2422,16 @@ size_t smem_bf16(int kind) {
     return kind == kFwd ? kWgSmemBytes
            : kind == kDq ? kDqSmemBytes
                          : kDkvSmemBytes;
-  return kind == kFwd ? MmaFwdSmem<D, mma_cols(1, D)>::carve(c, nullptr)
+  return kind == kFwd ? wide_smem_bytes<D>()
                       : MmaBwdSmem<D>::carve(c, nullptr);
 }
 
-// The bf16 D = 128 kernels read each input through one 4-D tensor map
-// over (D, H, T, B) with the tensor's own strides (16-byte multiples,
-// checked by the wrapper), boxes of 64 x 1 x `rows` x 1, built at each
-// call.
+// The bf16 wgmma kernels read each input through one 4-D tensor map over
+// (D, H, T, B) with the tensor's own strides (16-byte multiples, checked
+// by the wrapper), boxes of 64 x 1 x `rows` x 1, built at each call.
 int make_bthd_map(CUtensorMap* map, const void* base, const Strides& s,
-                  int H, int T, int B, int rows) {
-  const cuuint64_t dims[4] = {128, (cuuint64_t)H, (cuuint64_t)T,
+                  int H, int T, int B, int rows, int D = 128) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)T,
                               (cuuint64_t)B};
   const cuuint64_t bytes[3] = {(cuuint64_t)s.h * 2, (cuuint64_t)s.t * 2,
                                (cuuint64_t)s.b * 2};
@@ -2231,6 +2453,28 @@ int launch_fwd_wgmma(const Args& a, cudaStream_t st) {
   if (e != cudaSuccess) return (int)e;
   flash_fwd_wgmma_kernel<<<dim3(a.Tq / kWgRows, a.B * a.H), kWgThreads,
                            kWgSmemBytes, st>>>(maps[0], maps[1], maps[2], w);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 forward at D >= 256: blocks of 64 query rows, grid (B * H,
+// query tiles), K/V maps with boxes of KB rows.
+template <int D>
+int launch_fwd_wide(const Args& a, cudaStream_t st) {
+  constexpr int KB = wide_kb(D);
+  CUtensorMap maps[3];
+  int rc = make_bthd_map(&maps[0], a.q, a.sq, a.H, a.Tq, a.B, kWideRows, D);
+  if (!rc) rc = make_bthd_map(&maps[1], a.k, a.sk, a.H, a.Tk, a.B, KB, D);
+  if (!rc) rc = make_bthd_map(&maps[2], a.v, a.sv, a.H, a.Tk, a.B, KB, D);
+  if (rc) return rc;
+  const WgFwdArgs w{a.out0, a.lse, a.so0, a.H, a.Tq, a.Tk, a.causal,
+                    a.scale * kLog2e};
+  constexpr size_t smem = wide_smem_bytes<D>();
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_wide_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  flash_fwd_wide_kernel<D><<<dim3(a.B * a.H, a.Tq / kWideRows), kWgThreads,
+                              smem, st>>>(maps[0], maps[1], maps[2], w);
   return (int)cudaGetLastError();
 }
 
@@ -2335,12 +2579,12 @@ int launch_bf16(int kind, const Args& a, cudaStream_t st) {
     return kind == kFwd ? launch_fwd_wgmma(a, st)
                         : launch_bwd_wgmma(kind, a, st);
   } else {
-    constexpr int DF = mma_cols(1, D), DB = mma_cols(0, D);
-    void (*kern)(const Args) = kind == kFwd  ? flash_fwd_mma_kernel<D, DF>
-                               : kind == kDq ? flash_bwd_dq_mma_kernel<D, DB>
-                                             : flash_bwd_dkv_mma_kernel<D, DB>;
+    if (kind == kFwd) return launch_fwd_wide<D>(a, st);
+    void (*kern)(const Args) = kind == kDq
+                                   ? flash_bwd_dq_mma_kernel<D, kMmaCols>
+                                   : flash_bwd_dkv_mma_kernel<D, kMmaCols>;
     const dim3 grid((kind == kDkv ? a.Tk : a.Tq) / kMmaBlk, a.B * a.H,
-                    D / (kind == kFwd ? DF : DB));
+                    D / kMmaCols);
     return run(kern, smem_bf16<D>(kind), grid, a, st);
   }
 }
@@ -2423,17 +2667,18 @@ int dl4j_flash_bwd_dkv(const void* q, const void* k, const void* v,
   return dispatch(kDkv, dtype, D, a, static_cast<cudaStream_t>(stream));
 }
 
-// Rows per tile, the largest over the family's kernels (the sequence
-// lengths must be multiples of it).
+// The multiple the sequence lengths must be: 128 (the JAX package's
+// smallest tile, which its flash route asks for) where the family has
+// tiles of 128 rows or takes no other, 64 for the bf16 kernels at
+// D >= 256 (the forward's and the backward's tiles hold 64 rows).
 int dl4j_flash_block_rows(int dtype, int D) {
-  if (dtype != 1) return kTfBlk;
-  return D == 128 ? kWgRows : kMmaBlk;
+  return dtype == 1 && D != 128 ? kWideRows : 128;
 }
 
 // The kernel family that runs kernel `kind` (0 forward, 1 dQ, 2 dK/dV) at
 // dtype and D: 0 f32 split TF32 on mma.sync in thread block clusters, 1
-// f32 split TF32 on mma.sync, 2 bf16 mma.sync, 3 bf16 wgmma; -1 for an
-// unsupported D.
+// f32 split TF32 on mma.sync, 2 bf16 mma.sync, 3 bf16 wgmma, 4 bf16 wgmma
+// with D split over two warpgroups; -1 for an unsupported D.
 int dl4j_flash_route(int kind, int dtype, int D) {
   return with_head_dim(D, [&](auto) { return route_of(kind, dtype, D); });
 }

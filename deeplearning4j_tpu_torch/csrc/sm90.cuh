@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels:
 // mbarriers, TMA tensor loads (plain and cluster multicast), cluster
-// barriers and loads from a peer block's shared memory, the split of f32 operands into TF32 parts, wgmma (bf16 and
-// TF32) with shared-memory descriptors, and the host-side
-// construction of TMA tensor maps through the driver entry point (so a
-// library needs no -lcuda).
+// barriers and loads from a peer block's shared memory, named barriers,
+// the split of f32 operands into TF32 parts, wgmma (bf16 and TF32) with
+// shared-memory descriptors, and the host-side construction of TMA
+// tensor maps through the driver entry point (so a library needs no
+// -lcuda).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums: types only, nothing linked
@@ -41,6 +42,17 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
                    smem_u32(bar))
                : "memory");
+}
+
+// arrive when `pred` holds, the predicate inside the instruction (no
+// lane-dependent branch while wgmma operations are in flight)
+__device__ __forceinline__ void mbar_arrive_if(uint64_t* bar, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(
+          smem_u32(bar)),
+      "r"((uint32_t)pred)
+      : "memory");
 }
 
 // arrive on the barrier at the same shared-memory offset in block `cta`
@@ -415,6 +427,65 @@ __device__ __forceinline__ void wgmma_m64n128_rs_mn(float (&d)[64],
       ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
       : SM90_D64
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#define SM90_R16 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+
+// d (64 x 32, f32) (+)= A (64 x 16) . B^T, A and B K-major in shared
+// memory (B stored as 32 rows of k); d is zeroed first when !accumulate.
+// Accumulator layout as wgmma_m64n128_ss's, over 4 column blocks of 8.
+__device__ __forceinline__ void wgmma_m64n32_ss(float (&d)[16], uint64_t da,
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " SM90_R16
+      ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : SM90_D16(0)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+#define SM90_D96 SM90_D64, SM90_D16(64), SM90_D16(80)
+#define SM90_R96                                                             \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "   \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "   \
+  "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "   \
+  "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "   \
+  "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95}"
+
+// d (64 x 192) += A (64 x 16, registers, as wgmma_m64n128_rs_mn's) . B, B
+// MN-major in shared memory (16 rows of k, 192 columns of n in three
+// 64-column swizzled blocks `lbo` bytes apart)
+__device__ __forceinline__ void wgmma_m64n192_rs_mn(float (&d)[96],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 " SM90_R96
+      ", {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : SM90_D96
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// the same over 256 columns (four 64-column blocks)
+__device__ __forceinline__ void wgmma_m64n256_rs_mn(float (&d)[128],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " SM90_R128
+      ", {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : SM90_D128
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// the named barrier `id` (1..15; 0 is __syncthreads'): `threads` threads,
+// whole warps, arrive and wait; orders their shared-memory accesses
+__device__ __forceinline__ void named_bar_sync(uint32_t id,
+                                               uint32_t threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 template <uint32_t N>

@@ -265,6 +265,22 @@ class OutputLayer(DenseLayer):
         return loss_score(self.loss, self.activation or Activation.IDENTITY,
                           labels, pre, mask)
 
+    def score_array(self, params, x, labels, *, mask=None):
+        """Per-example losses (B,) for `MultiLayerNetwork.score_examples`:
+        the per-row losses of the inference forward, time-distributed
+        (B, T) rows (masked) summed over the sequence."""
+        from deeplearning4j_tpu_torch.ops.losses import loss_per_row
+
+        pre = self.pre_output(params, x, train=False, rng=None)
+        per_row = loss_per_row(self.loss,
+                               self.activation or Activation.IDENTITY,
+                               labels, pre)
+        if mask is not None:
+            per_row = per_row * mask.reshape(per_row.shape)
+        if per_row.ndim > 1:
+            per_row = per_row.reshape(per_row.shape[0], -1).sum(dim=-1)
+        return per_row
+
 
 @register_layer
 @dataclass

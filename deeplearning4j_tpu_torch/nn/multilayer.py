@@ -206,14 +206,22 @@ class MultiLayerNetwork:
                             self._feature_wire_mode() != "float")
 
     @torch.no_grad()
-    def output(self, x) -> torch.Tensor:
-        """Forward pass of every layer (inference): features (token ids
-        (B, T), ids for an attached OneHotEncoder, or (B, T, F) floats)
-        in, (B, T, n_out) activations out, on the network's device."""
+    def output(self, x, train: bool = False) -> torch.Tensor:
+        """Forward pass of every layer: features (token ids (B, T), ids
+        for an attached OneHotEncoder, or (B, T, F) floats) in, (B, T,
+        n_out) activations out, on the network's device. `train=True`
+        runs the layers' train-mode forward, with dropout drawn from the
+        current iteration (as a training step draws it)."""
         self._ensure_init()
         x = self._prep_features(self._wire_features(x))
-        return self._forward_pure(self._params, x, train=False, rng=None,
+        rng = (self.conf.seed, self.iteration) if train else None
+        return self._forward_pure(self._params, x, train=train, rng=rng,
                                   lstate=self._layer_state)[0]
+
+    def predict(self, x) -> torch.Tensor:
+        """The index of the largest output (inference), on the network's
+        device."""
+        return torch.argmax(self.output(x), dim=-1)
 
     @torch.no_grad()
     def feed_forward(self, x) -> List[torch.Tensor]:
@@ -473,21 +481,68 @@ class MultiLayerNetwork:
                     sl(ds.features_mask, lo, hi), sl(ds.labels_mask, lo, hi)))
         return windows
 
-    def score(self, ds: DataSet) -> float:
-        """Loss on a dataset without updating (no dropout)."""
-        self._ensure_init()
-        if ds.labels is not None:
-            from deeplearning4j_tpu_torch.ops.losses import (
-                check_sparse_label_range,
-            )
+    def _check_sparse_labels(self, ds: DataSet) -> None:
+        """Range-check sparse labels outside `fit` too: the loss clamps
+        its gather, so an out-of-range id would give a finite, wrong
+        score instead of an error."""
+        if ds.labels is None:
+            return
+        from deeplearning4j_tpu_torch.ops.losses import (
+            check_sparse_label_range,
+        )
 
-            check_sparse_label_range(ds.labels,
-                                     getattr(self.layers[-1], "n_out", None),
-                                     mask=ds.labels_mask)
+        check_sparse_label_range(ds.labels,
+                                 getattr(self.layers[-1], "n_out", None),
+                                 mask=ds.labels_mask)
+
+    def score(self, ds: DataSet, train: bool = False) -> float:
+        """Loss on a dataset without updating, no dropout (`train=True`:
+        the layers' train-mode forward, still without a dropout draw, as
+        in the JAX package)."""
+        self._ensure_init()
+        self._check_sparse_labels(ds)
         f, l, fm, lm = self._batch_arrays(ds)
         with torch.no_grad():
             return float(self._loss_pure(self._params, f, l, fm, lm, None,
-                                         False, self._layer_state)[0])
+                                         train, self._layer_state)[0])
+
+    @torch.no_grad()
+    def score_examples(self, ds: DataSet,
+                       add_regularization: bool = False) -> torch.Tensor:
+        """Per-example losses (B,), on the network's device: the forward
+        (inference), then the output layer's per-row scores, summed over
+        the (masked) timesteps of a sequence. With `add_regularization`
+        the network's L1/L2 penalty is added to every example's score.
+        For unmasked single-step data the mean equals `score(ds)` minus
+        the penalty."""
+        self._ensure_init()
+        self._check_sparse_labels(ds)
+        f, l, fm, lm = self._batch_arrays(ds)
+        x = self._forward_pure(self._params, self._prep_features(f),
+                               train=False, rng=None, fmask=fm,
+                               upto=len(self.layers) - 1,
+                               lstate=self._layer_state)[0]
+        mask = lm if lm is not None else (fm if x.ndim == 3 else None)
+        scores = self.layers[-1].score_array(self._params[-1], x, l,
+                                             mask=mask)
+        if add_regularization:
+            scores = scores + regularization_score(
+                zip(self.layers, self._params))
+        return scores
+
+    def score_function(self, ds: DataSet):
+        """A closure flat parameters (`params()` order) -> loss on this
+        fixed batch, without dropout, for gradient checks by central
+        differences; differentiable in the flat vector."""
+        self._ensure_init()
+        self._check_sparse_labels(ds)
+        f, l, fm, lm = self._batch_arrays(ds)
+
+        def score_at(flat) -> torch.Tensor:
+            return self._loss_pure(self._unravel(flat), f, l, fm, lm, None,
+                                   True, self._layer_state)[0]
+
+        return score_at
 
     def compute_gradient_and_score(self, ds: DataSet
                                    ) -> Tuple[np.ndarray, float]:
@@ -599,6 +654,12 @@ class MultiLayerNetwork:
         raise _not_ported("the training health sentinel",
                           "queue A10: optimize/health.py")
 
+    def get_health_sentinel(self):
+        """The attached health sentinel: always None, since none can be
+        attached until queue A10 ports it (the JAX package returns None
+        for a network that was given none)."""
+        return None
+
     def pretrain(self, iterator, epochs: int = 1) -> None:
         raise _not_ported("layerwise pretraining",
                           "queue A9: AutoEncoder/RBM/VAE layers")
@@ -612,6 +673,28 @@ class MultiLayerNetwork:
 
     def get_updater_state(self) -> UpdState:
         return self._upd_state
+
+    def clone(self) -> "MultiLayerNetwork":
+        """A network of the same configuration with its own copies of the
+        parameters, optimizer state and layer state, and the same
+        iteration, epoch and score (the clock travels with the optimizer
+        state); the normalizer is shared, listeners are not copied."""
+        net = MultiLayerNetwork(self.conf, self.dtype,
+                                compute_dtype=self.compute_dtype,
+                                device=self.device)
+        net._normalizer = self._normalizer
+        if self._params is not None:
+            net._params = [{k: v.clone() for k, v in p.items()}
+                           for p in self._params]
+            net._upd_state = [{k: {sk: t.clone() for sk, t in st.items()}
+                               for k, st in u.items()}
+                              for u in self._upd_state]
+            net._layer_state = [{k: v.clone() for k, v in st.items()}
+                                for st in self._layer_state]
+        net.iteration = self.iteration
+        net.epoch = self.epoch
+        net.score_value = self.score_value
+        return net
 
     def set_updater_state(self, state) -> None:
         """Load an optimizer-state tree (for example from
@@ -643,9 +726,10 @@ class MultiLayerNetwork:
         return torch.cat([p[k].reshape(-1) for p in self._params
                           for k in sorted(p)])
 
-    def set_params(self, flat) -> None:
-        """Load a flat vector (numpy or tensor) in `ravel_pytree` order."""
-        self._ensure_init()
+    def _unravel(self, flat) -> Params:
+        """A flat vector (numpy or tensor) in `ravel_pytree` order as this
+        network's parameter tree, on its device in its dtype (views of
+        the vector where it already is one)."""
         flat = torch.as_tensor(np.asarray(flat) if not isinstance(
             flat, torch.Tensor) else flat)
         n = sum(v.numel() for p in self._params for v in p.values())
@@ -654,15 +738,21 @@ class MultiLayerNetwork:
                              f"{tuple(flat.shape)}; the network expects ({n},)")
         flat = flat.to(device=self.device, dtype=self.dtype)
         off = 0
-        new = []
+        tree = []
         for p in self._params:
             q = {}
             for k in sorted(p):
                 m = p[k].numel()
-                q[k] = flat[off:off + m].reshape(p[k].shape).clone()
+                q[k] = flat[off:off + m].reshape(p[k].shape)
                 off += m
-            new.append(q)
-        self._params = new
+            tree.append(q)
+        return tree
+
+    def set_params(self, flat) -> None:
+        """Load a flat vector (numpy or tensor) in `ravel_pytree` order."""
+        self._ensure_init()
+        self._params = [{k: v.clone() for k, v in p.items()}
+                        for p in self._unravel(flat)]
 
     def set_param_tree(self, params: Params) -> None:
         """Load a per-layer list of parameter dicts (for example from
@@ -690,3 +780,20 @@ class MultiLayerNetwork:
     def num_params(self) -> int:
         self._ensure_init()
         return sum(v.numel() for p in self._params for v in p.values())
+
+    def summary(self) -> str:
+        """The architecture as a table: each layer's index, type, input
+        and output types and parameter count, and the total (the JAX
+        package's text)."""
+        from deeplearning4j_tpu_torch.util.text_table import format_table
+
+        self._ensure_init()
+        rows = [("idx", "layer", "in", "out", "params")]
+        total = 0
+        for i, layer in enumerate(self.layers):
+            it_in = self._input_types[i]
+            n = sum(v.numel() for v in self._params[i].values())
+            total += n
+            rows.append((str(i), type(layer).__name__, str(it_in),
+                         str(layer.output_type(it_in)), f"{n:,}"))
+        return format_table(rows, f"total parameters: {total:,}")

@@ -23,11 +23,15 @@ reference's HIGHEST precision). The f32 backward at D = 384 and 512 runs
 as thread block clusters of D / 128 blocks, one 128-column slice each,
 which add their partial scores through distributed shared memory
 (`cluster_plan` says how many such clusters fit on the card at once).
+The bf16 forward at D = 256, 384 and 512 ("wgmma wide") splits D over two
+warpgroups of one block, which add their partial scores through shared
+memory; the bf16 backward there runs on `mma.sync` ("mma").
 
 Counts: `flash_forward.launches`, `flash_bwd_dq.launches` and
 `flash_bwd_dkv.launches` (kernel launches), `launches_by_route[(kind,
 route)]` (the same by kernel family: kind "fwd", "dq" or "dkv"; route
-"tf32", "tf32 cluster", "mma" or "wgmma", as the library reports it),
+"tf32", "tf32 cluster", "mma", "wgmma" or "wgmma wide", as the library
+reports it),
 `flash_attention_plain_fwd.calls` and `flash_attention_plain_bwd.calls`.
 """
 from __future__ import annotations
@@ -68,7 +72,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (128, 256, 384, 512)
 _FWD, _DQ, _DKV = 0, 1, 2
 _KIND_NAMES = {_FWD: "fwd", _DQ: "dq", _DKV: "dkv"}
-ROUTES = {0: "tf32 cluster", 1: "tf32", 2: "mma", 3: "wgmma"}
+ROUTES = {0: "tf32 cluster", 1: "tf32", 2: "mma", 3: "wgmma",
+          4: "wgmma wide"}
 launches_by_route: Dict[Tuple[str, str], int] = {}
 
 
@@ -242,9 +247,9 @@ def _check_cuda(q, k, v, causal):
     code = _DTYPE_CODE[q.dtype]
     blk = lib.dl4j_flash_block_rows(code, D)
     for name, t in (("Tq", Tq), ("Tk", Tk)):
-        if t % blk or t % 128:
-            raise ValueError(f"{name}={t} must be a multiple of 128 and of the "
-                             f"kernel's tile of {blk} rows")
+        if t % blk:
+            raise ValueError(f"{name}={t} must be a multiple of {blk} for the "
+                             f"{q.dtype} kernels at D={D}")
     from deeplearning4j_tpu_torch.ops.kernel_dispatch import smem_limit_bytes
 
     limit = smem_limit_bytes(q.device)
@@ -403,8 +408,8 @@ def flash_attention(q, k, v, *, causal: bool = False,
     """Exact attention, (B, T, H, D) layout, no key mask, differentiable.
     `sm_scale` defaults to 1/sqrt(D) as a Python float. Causal needs
     Tq == Tk. On the card the kernels also need D in (128, 256, 384,
-    512), f32 or bf16, and T a multiple of 128 and of their tile; they
-    raise otherwise."""
+    512), f32 or bf16, and T a multiple of 128 (bf16 at D >= 256: of 64);
+    they raise otherwise."""
     if causal and q.shape[1] != k.shape[1]:
         raise ValueError("causal flash path requires Tq == Tk")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):

@@ -46,6 +46,19 @@ from deeplearning4j_tpu_torch.util.serialization import (  # noqa: E402
     params_from_jax,
 )
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch intra-op thread while this module runs: the tier runs
+    several pytest-xdist workers on one host, and torch's default of a
+    thread per core in each of them oversubscribes the cores, so that
+    every small op waits for descheduled threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 VOCAB = 48
 
 

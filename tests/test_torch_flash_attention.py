@@ -31,6 +31,19 @@ from deeplearning4j_tpu.ops.pallas_attention import (  # noqa: E402
 from deeplearning4j_tpu_torch.ops import attention as patt  # noqa: E402
 from deeplearning4j_tpu_torch.ops import flash_attention as fa  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch intra-op thread while this module runs: the tier runs
+    several pytest-xdist workers on one host, and torch's default of a
+    thread per core in each of them oversubscribes the cores, so that
+    every small op waits for descheduled threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = 1e-5
 B, T, H, D = 2, 256, 2, 128
 
@@ -485,28 +498,36 @@ def _rz(x):
     """f64 `x` rounded toward zero to f32."""
     r = x.float()
     over = r.double().abs() > x.abs()
-    r[over] = torch.nextafter(r[over], torch.zeros_like(r[over]))
-    return r
+    return torch.where(over, torch.nextafter(r, torch.zeros_like(r)), r)
 
 
-def _score_slice_tc(a, b, chained):
-    """One cluster member's partial score a.b^T over its 128 columns (a, b:
-    (T, 128) f32) as the tensor cores sum it: per k-step of 8, three
-    m16n8k8 passes (small terms first), each adding its exact products to
-    the accumulator and truncating the sum to f32; a fresh accumulator
-    every two k-steps added to the running f32 sum, or (`chained`) one
-    accumulator over all 128 columns."""
+def _scores_tc(a, b, chained):
+    """The score a.b^T (a, b: (T, D) f32) as the f32 backward's clusters
+    sum it at D > 256: one partial per 128-column slice (one cluster
+    member's), computed as the tensor cores sum it, and the partials added
+    in f32 in rank order. A partial takes, per k-step of 8, three m16n8k8
+    passes (small terms first), each adding its exact products to the
+    accumulator and truncating the sum to f32; a fresh accumulator every
+    two k-steps added to the slice's running f32 sum, or (`chained`) one
+    accumulator over all 128 columns. The slices run side by side as a
+    batch."""
+    T, D = a.shape
+    a, b = (x.reshape(T, D // 128, 128).transpose(0, 1) for x in (a, b))
     ab, bb = _tf32(a), _tf32(b)
     parts = ((_tf32(a - ab), bb), (ab, _tf32(b - bb)), (ab, bb))
-    acc = torch.zeros(a.shape[0], b.shape[0])
+    acc = torch.zeros(D // 128, T, T)
     t = torch.zeros_like(acc)
-    for k0 in range(0, a.shape[1], 8):
+    for k0 in range(0, 128, 8):
         for x, y in parts:
-            t = _rz(t.double() + x[:, k0:k0 + 8].double()
-                    @ y[:, k0:k0 + 8].double().T)
+            t = _rz(t.double() + x[..., k0:k0 + 8].double()
+                    @ y[..., k0:k0 + 8].double().transpose(1, 2))
         if not chained and k0 % 16 == 8:
             acc, t = acc + t, torch.zeros_like(t)
-    return t if chained else acc
+    partial = t if chained else acc
+    total = partial[0]
+    for p in partial[1:]:  # the members' partials, in rank order
+        total = total + p
+    return total
 
 
 @pytest.mark.parametrize("Dh", [384, 512])
@@ -517,7 +538,7 @@ def test_cancelling_scores_tell_a_chained_accumulator(Dh):
     columns of each 128-column slice and -1 on the last 64), so each
     slice's running score sum climbs to about 64 a^2 and falls back.
     Scores summed as the f32 backward's clusters sum them (tensor-core
-    truncation emulated: `_score_slice_tc`), P, dS and the outputs in f64
+    truncation emulated: `_scores_tc`), P, dS and the outputs in f64
     from them, against the plain backward in f64 (causal, B=1, H=1,
     T=256): fresh accumulators stay within 0.5 of the f32 tolerance in
     dQ, dK and dV, one accumulator chained over each slice lands above
@@ -541,10 +562,7 @@ def test_cancelling_scores_tell_a_chained_accumulator(Dh):
     dp = wide[3][0, :, 0] @ wide[2][0, :, 0].T
     worst = {}
     for chained in (False, True):
-        scores = torch.zeros(T, T)
-        for c in range(0, Dh, 128):  # the members' partials, in rank order
-            scores = scores + _score_slice_tc(q[:, c:c + 128],
-                                              k[:, c:c + 128], chained)
+        scores = _scores_tc(q, k, chained)
         p = torch.exp(scores.double() * scale - lse[0, :, None])
         p = p.masked_fill(~keep, 0.0)
         ds = p * (dp - dsum)
@@ -554,6 +572,46 @@ def test_cancelling_scores_tell_a_chained_accumulator(Dh):
             fa.error_in_tolerances(n, g[None, :, None], w, torch.float32)
             for n, g, w in zip(("dQ", "dK", "dV"), got, ref))
     assert worst[False] <= 0.5 and worst[True] > 1.0, worst
+
+
+def _chip_smoke():
+    """The card script as a module (it imports only the standard library
+    at its top), for its input builders."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("Dh", [256, 384, 512])
+def test_rounding_case_tells_a_truncated_p(Dh):
+    """What the card check's P-rounding case (`chip_smoke.
+    flash_rounding_inputs`) rests on: every tile of 32 keys holds the
+    row's maximum score, so an online softmax rounds the same P as the
+    plain forward (P against the row maximum); the P that gets rounded
+    lies at least a fifth of a bf16 unit from a rounding midpoint; and
+    the plain forward on the bf16 inputs (P rounded to nearest bf16
+    before P V, l from the f32 P) and the same arithmetic with P
+    truncated to bf16 differ in O by more than 16 times the bf16
+    tolerance."""
+    q, k, v = _chip_smoke().flash_rounding_inputs(torch, Dh, device="cpu")
+    dt = torch.bfloat16
+    s = fa._scores(q.float(), k.float(), False, 1.0 / np.sqrt(Dh))
+    rowmax = s.amax(dim=-1, keepdim=True)
+    tiles = s.reshape(*s.shape[:-1], -1, 32).amax(dim=-1)
+    assert bool((tiles == rowmax).all())
+    p = torch.exp(s - rowmax)
+    ulps = p * 256  # P lies in [0.5, 1]: a bf16 unit is 1/256
+    assert bool(((ulps - ulps.floor() - 0.5).abs() >= 0.2).all())
+    ro, _ = fa.flash_attention_plain_fwd(q, k, v)
+    trunc = (p.view(torch.int32) & ~0xFFFF).view(torch.float32)
+    o = torch.einsum("bhqk,bkhd->bqhd", trunc, v.float()) \
+        / p.sum(-1).transpose(1, 2)[..., None]
+    assert fa.error_in_tolerances("O", o.to(dt), ro, dt) > 16.0
 
 
 def _card():
@@ -754,3 +812,49 @@ def test_f32_wide_head_backward_cases_and_bits():
                     for c in range(128, Dh, 128):
                         assert torch.equal(a[..., :128],
                                            a[..., c:c + 128]), (Dh, i, name)
+
+
+@pytest.mark.gpu
+def test_wide_forward_cases_halves_and_routes():
+    """The bf16 forward at D = 256, 384 and 512 (route "wgmma wide": two
+    consumer warpgroups that split D; the backward there stays on
+    "mma"; shared memory within the card's limit) against the plain
+    forward in f32, O row by row and L within `fa.error_in_tolerances`:
+    causal at T = 128 and 192 (the first 64-row tiles, whose diagonal
+    crosses two 32-key tiles at D = 384 and 512) and 2048, full with
+    Tq=512 x Tk=1024, q, k, v sliced from one fused qkv tensor, and with
+    v's column halves equal, where O's halves are bit-identical (both
+    warpgroups form the same P)."""
+    _card()
+    from deeplearning4j_tpu_torch.ops.kernel_dispatch import smem_limit_bytes
+
+    dt = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(51)
+    r = lambda *s: torch.randn(s, generator=g, device="cuda").to(dt)
+    lib = fa._library()
+    for Dh in (256, 384, 512):
+        assert fa.ROUTES[lib.dl4j_flash_route(0, 1, Dh)] == "wgmma wide"
+        assert fa.ROUTES[lib.dl4j_flash_route(1, 1, Dh)] == "mma"
+        assert lib.dl4j_flash_smem_bytes(0, 1, Dh) <= \
+            smem_limit_bytes(torch.device("cuda"))
+        qkv = r(1, 1024, 3 * 2 * Dh)
+        fused = [qkv[..., i * 2 * Dh:(i + 1) * 2 * Dh].reshape(1, 1024, 2, Dh)
+                 for i in range(3)]
+        assert fa._kernel_ready(fused[0]) is fused[0]
+        halves = [r(1, 512, 2, Dh), r(1, 512, 2, Dh),
+                  r(1, 512, 2, Dh // 2).repeat(1, 1, 1, 2)]
+        cases = [([r(1, T, 2, Dh) for _ in range(3)], True)
+                 for T in (128, 192, 2048)]
+        cases += [([r(2, 512, 2, Dh), r(2, 1024, 2, Dh), r(2, 1024, 2, Dh)],
+                   False), (fused, True), (halves, True)]
+        for i, ((q, k, v), causal) in enumerate(cases):
+            fa.reset_counts()
+            o, lse = fa.flash_forward(q, k, v, causal, None, with_lse=True)
+            assert fa.launches_by_route == {("fwd", "wgmma wide"): 1}
+            ro, rl = fa.flash_attention_plain_fwd(q.float(), k.float(),
+                                                  v.float(), causal)
+            torch.cuda.synchronize()
+            assert fa.error_in_tolerances("O", o, ro, dt) <= 1.0, (Dh, i)
+            assert fa.error_in_tolerances("L", lse, rl, dt) <= 1.0, (Dh, i)
+            if v is halves[2]:
+                assert torch.equal(o[..., :Dh // 2], o[..., Dh // 2:]), Dh
