@@ -15,7 +15,8 @@ process per copy (the unchanged copy runs all three):
 
 - flash: the forward, dQ and dK/dV kernels on the cases below, bf16 (at
   D = 128 the wgmma kernels; at D = 256, 384 and 512 the "wgmma wide"
-  forward and the mma.sync backward) and f32 (the
+  forward; the "wgmma wide" backward at D = 256 and the mma.sync backward
+  at D = 384 and 512) and f32 (the
   split-TF32 kernels at D = 128 and 256, and the cluster backward at
   D = 384 and 512), held to the plain versions in f32 with
   `flash_attention.error_in_tolerances` (O, dQ, dK, dV row by row; L
@@ -28,9 +29,11 @@ process per copy (the unchanged copy runs all three):
   whose score products cancel within each slice, held to the plain
   versions in f64; at bf16 D = 256, 384 and 512, as phase 4 does, inputs
   whose V column halves are equal (O's halves must be bit-identical:
-  "halves bits") and the P-rounding inputs (`chip_smoke.
+  "halves bits"), the P-rounding inputs (`chip_smoke.
   flash_rounding_inputs`, the forward alone against the plain forward on
-  the bf16 tensors);
+  the bf16 tensors) and the dS-rounding inputs (`chip_smoke.
+  flash_ds_rounding_inputs`, the three kernels against the plain versions
+  on the bf16 tensors);
 - paged: every case of `chip_smoke.paged_cases` (dense and int8 pools,
   decode, verify and chunk widths, the ragged row tiles, head dims 64 to
   256, pages of 1 to 512), read in units of the tolerance atol + rtol *
@@ -52,7 +55,18 @@ its own order (only the halves bits show it), the second of the two
 diagonal key tiles left unmasked, the last 64-column box of K not
 loaded, P truncated to bf16 instead of rounded (only the P-rounding
 inputs show it), the last K/V tile skipped and a ring stage refilled
-before its release; the D = 128
+before its release; the bf16 backward at D = 256 ("wgmma wide"): each
+kernel's ring stage refilled before its release, P^T read before its
+barrier, dS (dQ) and dS^T (dK) truncated to bf16 instead of rounded
+(only the dS-rounding inputs show it), the first key tile masked instead
+of the diagonal ones (dQ), the Q tile after the diagonal masked (dK/dV),
+dQ's partials stored without the peer warpgroup's, or read before the
+barrier that orders their hand-over,
+the last 64-column box of K (dQ) or dO (dK/dV) not loaded, dQ's last
+K/V tile skipped, dK/dV's first visible Q tile off by one, and L and
+dsum of the neighbouring Q tile; the mma.sync backward (D = 384 and
+512, the cases below): a far tile (40) dropped, the last tile skipped,
+the dsum term dropped; the D = 128
 backward's ring stages refilled before their release, P^T read before its
 barrier, the diagonal mask on the wrong tile, the first visible Q tile off
 by one, L and dsum of the neighbouring Q tile, and a far tile (40)
@@ -97,9 +111,10 @@ import tempfile
 REPO = os.path.dirname(os.path.abspath(__file__))
 PKG = "deeplearning4j_tpu_torch"
 FLASH, PAGED, LSTM = "flash_attention", "paged_attention", "lstm"
-# (B, T, H, D, causal, dtype): bf16, the training path's kernels at D = 128
-# and the same templates at D = 256; f32, the split-TF32 kernels (path
-# 2f's at D = 128; the cluster backward at D = 384 and 512)
+# (B, T, H, D, causal, dtype): bf16, the training path's kernels at D = 128,
+# the "wgmma wide" kernels at D = 256 and the mma.sync backward at D = 384
+# and 512 (T = 2048 reaches its tile 40); f32, the split-TF32 kernels
+# (path 2f's at D = 128; the cluster backward at D = 384 and 512)
 CASES = [(2, 512, 2, 128, False, "bfloat16"), (2, 512, 2, 128, True,
                                                "bfloat16"),
          (1, 4096, 2, 128, True, "bfloat16"),
@@ -134,6 +149,12 @@ DKVW = "flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,"
 DQC = "__device__ __forceinline__ void dq_consumer("
 DVC = "__device__ __forceinline__ void dv_consumer("
 DKC = "__device__ __forceinline__ void dk_consumer("
+WDQW = "flash_bwd_dq_wide_kernel(const __grid_constant__ CUtensorMap tq,"
+WDKVW = "flash_bwd_dkv_wide_kernel(const __grid_constant__ CUtensorMap tq,"
+WDQC = "__device__ __forceinline__ void wide_dq_consumer("
+WDVC = "__device__ __forceinline__ void wide_dv_consumer("
+WDKC = "__device__ __forceinline__ void wide_dk_consumer("
+WMEET = "__device__ __forceinline__ void dq_meet("
 MMA3 = "__device__ __forceinline__ void mma3("
 SPLIT = "__device__ __forceinline__ void split_tf32("
 SPLIT_TILE = "__device__ __forceinline__ void split_tile("
@@ -212,6 +233,53 @@ MUTATIONS = [
     ("wide forward refills a K/V stage before its release", FLASH, WIDE, [
         ("sm90::mbar_wait(&sm.k_empty[s], par);", ""),
         ("sm90::mbar_wait(&sm.v_empty[s], par);", "")]),
+    # the bf16 backward at D = 256 ("wgmma wide"); a truncated dS shows
+    # only on the dS-rounding inputs
+    ("wide dQ refills a K/V stage before its release", FLASH, WDQW, [
+        ("sm90::mbar_wait(&sm.empty[s], ((j / NS) & 1) ^ 1);", "")]),
+    ("wide dK/dV refills a Q/dO stage before its release", FLASH, WDKVW, [
+        ("sm90::mbar_wait(&sm.empty[s], ((n / NS) & 1) ^ 1);", "")]),
+    ("wide dK reads P^T before its barrier", FLASH, WDKC, [
+        ("sm90::mbar_wait(&sm.p_full[pb], (n >> 1) & 1);", "")]),
+    ("wide dQ truncates dS to bf16 instead of rounding it", FLASH, WDQC, [
+        ("wide_pack(p, s);",
+         "for (int i_ = 0; i_ < 16; i_ += 2)\n"
+         "        p[i_ / 2] = (__float_as_uint(s[i_]) >> 16) |\n"
+         "                    (__float_as_uint(s[i_ + 1]) & 0xffff0000u);")]),
+    ("wide dK truncates dS^T to bf16 instead of rounding it", FLASH, WDKC, [
+        ("pack16(p, dp);",
+         "for (int i_ = 0; i_ < 32; i_ += 2)\n"
+         "      p[i_ / 2] = (__float_as_uint(dp[i_]) >> 16) |\n"
+         "                  (__float_as_uint(dp[i_ + 1]) & 0xffff0000u);")]),
+    ("wide dQ masks the first key tile, not the diagonal ones", FLASH, WDQC,
+     [("const bool diag = wide_diag(a.causal, j, nk, KB);",
+       "const bool diag = a.causal && j == 0;")]),
+    ("wide dQ: a warpgroup stores its partial without the peer's", FLASH,
+     WMEET, [("out[4 * i] = dq[KEEP + 4 * i] + y.x;",
+              "out[4 * i] = dq[KEEP + 4 * i];")]),
+    ("wide dQ: the partials meet before the barrier", FLASH, WMEET, [
+        ("  sm90::named_bar_sync(1, 256);\n", "")]),
+    ("wide dK/dV masks the Q tile after the diagonal", FLASH, WDVC, [
+        ("const bool diag = a.causal && qi == kj;",
+         "const bool diag = a.causal && qi == kj + 1;")]),
+    ("wide dQ loads no last 64-column box of K", FLASH, WDQW, [
+        ("tma_rows<kWbBoxes>(sm.k[s][0], &tk,",
+         "tma_rows<kWbBoxes - 1>(sm.k[s][0], &tk,")]),
+    ("wide dK/dV loads no last 64-column box of dO", FLASH, WDKVW, [
+        ("tma_rows<kWbBoxes>(sm.dO[s][0], &tdo,",
+         "tma_rows<kWbBoxes - 1>(sm.dO[s][0], &tdo,")]),
+    ("wide dQ skips its last K/V tile", FLASH, WDQW, [
+        ("const int nk = a.causal ? (q0 + kWbRows) / KB : a.Tk / KB;",
+         "const int nk = a.causal ? (q0 + kWbRows) / KB - 1 : a.Tk / KB - 1;")]),
+    ("wide dK/dV starts one Q tile after the diagonal", FLASH, WDKVW, [
+        ("const int q_first = a.causal ? kj : 0;",
+         "const int q_first = a.causal ? kj + 1 : 0;")]),
+    # tiles 0 <-> 1, 2 <-> 3, ...: always inside the tensor
+    ("wide dK/dV takes L and dsum of the neighbouring Q tile", FLASH, WDKVW, [
+        ("sm90::bulk_load(sm.lse[s], lse + r0,",
+         "sm90::bulk_load(sm.lse[s], lse + (r0 ^ kWbRows),"),
+        ("sm90::bulk_load(sm.dsum[s], dsum + r0,",
+         "sm90::bulk_load(sm.dsum[s], dsum + (r0 ^ kWbRows),")]),
     ("dQ drops dS.K of K/V tile 40", FLASH, DQ, [
         ("warp_pb<NO, KB / 16, LD>(dq, s, K + c0);",
          "if (kj != 40) warp_pb<NO, KB / 16, LD>(dq, s, K + c0);")]),
@@ -572,6 +640,11 @@ def flash_cases(torch, fa):
         cases.append({"case": f"B=1 T=128 H=2 D={D} bfloat16 full, "
                               "P rounding",
                       "units": cs.flash_rounding_units(torch, fa, D),
+                      "old_units": None})
+        # dS rounded to nearest bf16 before dS K and dS^T Q
+        cases.append({"case": f"B=1 T=128 H=2 D={D} bfloat16 full, "
+                              "dS rounding",
+                      "units": cs.flash_ds_rounding_units(torch, fa, D),
                       "old_units": None})
     return cases
 

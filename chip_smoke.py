@@ -36,9 +36,12 @@ Phases, each of which makes the script exit non-zero when it fails:
    D = 128, 256, 384 and 512, T = 128 (D = 128: one or two tiles), 512,
    2048 and 4096, Tq = 512 with Tk = 1024 (bf16 D = 128 runs the three
    wgmma kernels; bf16 D >= 256 the "wgmma wide" forward, every launch
-   of which must take that route, and the mma.sync backward, also at
-   T = 128 and 192, the first 64-row tiles, where the diagonal crosses
-   two 32-key tiles at D = 384 and 512; f32 the split-TF32 kernels, the
+   of which must take that route, and the backward, every launch of
+   which must take "wgmma wide" at D = 256 and the mma.sync route at
+   D = 384 and 512, also at T = 128 and 192, the first 64-row tiles,
+   where the diagonal crosses two 32-key tiles at D = 384 and 512, and
+   at D = 256 at T = 64, one 64-row block alone;
+   f32 the split-TF32 kernels, the
    backward at D = 384 and 512 as clusters, all of whose f32 launches
    must take that route);
    each backward run twice, with bit-identical dQ, dK and dV (no
@@ -51,8 +54,10 @@ Phases, each of which makes the script exit non-zero when it fails:
    fails there); at bf16 D = 256, 384 and 512 also q/k/v sliced from one
    fused qkv tensor, inputs whose V column halves are equal (O's halves
    must then be bit-identical: both warpgroups form the same P from the
-   two partial scores), and the forward alone on inputs whose O shows
-   whether P is rounded to nearest bf16 (`flash_rounding_inputs`); and
+   two partial scores), the forward alone on inputs whose O shows
+   whether P is rounded to nearest bf16 (`flash_rounding_inputs`), and
+   the three kernels on inputs whose dQ and dK show whether dS is
+   rounded to nearest bf16 (`flash_ds_rounding_inputs`); and
    a GQA call through
    `multi_head_attention` with autograd against the same call on the
    CPU; O, dQ, dK, dV held row by row (a row's largest error within
@@ -100,7 +105,10 @@ Phases, each of which makes the script exit non-zero when it fails:
    and 8 dK/dV launches per step, all on the wgmma route
    (`flash_attention.launches_by_route`), and no call of a plain version;
    one more step under torch.profiler gives the busy time, idle share and
-   top kernels;
+   top kernels; then path 2w: the same network with 4 heads of 256
+   (head dim 256, as Gemma's), B=2 x T=4096, 1 warm-up and 3 timed steps
+   read the same way: 8 forward, 8 dQ and 8 dK/dV launches a step, all
+   on the "wgmma wide" route, no plain call;
 10. train f32 (path 2f): the same gpt_long network in f32
    (`compute_dtype=None`, `MultiLayerNetwork`'s default) at B=1 x T=4096:
    1 warm-up step, then 3 timed steps (step ms, tokens/s, losses, peak
@@ -166,8 +174,10 @@ Phases, each of which makes the script exit non-zero when it fails:
    together; the yardsticks, which the port never calls), beside the bound max(flops / 989 TFLOP/s,
    bytes / 3.35 TB/s) of this run's data, and each flash kernel's
    achieved TFLOP/s beside the library's, also at head_dim 256, 384 and
-   512 (B=2, H=4, T=2048; the bf16 forward beside the time of the
-   mma.sync kernel it replaced, PERF.md's) and for the f32 kernels at
+   512 (B=2, H=4, T=2048; the bf16 forward at each of them and the
+   backward at 256 beside the time of the mma.sync kernel each
+   replaced, PERF.md's), at path 2w's shape (B=2, H=4, T=4096, D=256,
+   with path 2w's launch counts) and for the f32 kernels at
    phase 6's shape (B=2,
    H=8, T=1024, D=128), at path 2f's (B=1, H=8, T=4096, with path 2f's
    launch counts) and at head dims 256, 384 and 512 (B=2, H=4, T=2048;
@@ -227,6 +237,10 @@ FLASH_REPLACES = {
 # the mma.sync kernel's time at B=2, H=4, T=2048, causal (PERF.md, PR 10;
 # NVIDIA H100 80GB HBM3 at 700 W)
 FLASH_FWD_MMA_MS = {256: 0.2193, 384: 0.5471, 512: 0.7686}
+# the bf16 backward at head dim 256 before "wgmma wide" replaced it: the
+# mma.sync kernels' times (dQ, dK/dV) at B=2, H=4, T=2048, causal
+# (PERF.md section 6, in brackets; NVIDIA H100 80GB HBM3 at 700 W)
+FLASH_BWD_MMA_MS = {256: {"dq": 0.3806, "dkv": 0.3897}}
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12     # H100 SXM f32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12   # H100 SXM dense TF32 tensor-core rate
@@ -241,6 +255,9 @@ TRAIN = dict(vocab_size=256, d_model=1024, n_heads=8, n_layers=8,
 TRAIN_B, TRAIN_T, TRAIN_STEPS = 8, 4096, 5
 # path 2f: the same network in f32 (MultiLayerNetwork's default precision)
 TRAIN_F32_B, TRAIN_F32_STEPS = 1, 3
+# path 2w: the same network with 4 heads of 256 (the bf16 flash kernels
+# at head dim 256)
+TRAIN_WIDE_HEADS, TRAIN_WIDE_B, TRAIN_WIDE_STEPS = 4, 2, 3
 
 
 def log(*a):
@@ -1040,6 +1057,51 @@ def flash_rounding_inputs(torch, D, device="cuda"):
     return [t.to(torch.bfloat16) for t in (q, k, v)]
 
 
+def flash_ds_rounding_inputs(torch, D, device="cuda"):
+    """bf16 q, k, v, dO (B=1, T=128, H=2, D), non-causal, whose dQ (head 0)
+    and dK (head 1) tell how the backward rounds dS to bf16. Every score
+    is 0, so P = 1/128 and dS = P (dP - dsum) follows from v and dO alone.
+    Head 0: q = 0, k = e0, dO = e0, v's column 0 -173 on every fourth key
+    and 0 elsewhere, so O's column 0 is -43.25 and a row's dS is 173/512
+    on 96 keys and -519/512 on 32. Head 1: k = 0, q = e0, v's column 0
+    +43.25 on even keys and -43.25 on odd ones (O = 0), dO = c e0 with
+    c = -3 on every fourth query and 1 elsewhere: a key's dS over the
+    queries is the same pair of values, signed. 173/512 is a bf16 number;
+    519/512 is not, and lies a quarter of a bf16 unit from the midpoint
+    between 516/512 and 520/512: to nearest it rounds to 520/512,
+    truncated to 516/512. So column 0 of dQ (head 0) and of dK (head 1) is
+    (96 * 173 - 32 * 520) / 512 / sqrt(D) = -0.0625 / sqrt(D) with dS
+    rounded and +0.1875 / sqrt(D) with it truncated, 256 bf16 tolerances
+    apart; every product is exact in f32, and every other column of dQ
+    and dK is 0."""
+    T = 128
+    q, k, v, do = (torch.zeros((1, T, 2, D), device=device)
+                   for _ in range(4))
+    k[:, :, 0, 0] = 1.0
+    do[:, :, 0, 0] = 1.0
+    v[:, 3::4, 0, 0] = -173.0
+    q[:, :, 1, 0] = 1.0
+    v[:, 0::2, 1, 0] = 43.25
+    v[:, 1::2, 1, 0] = -43.25
+    do[:, :, 1, 0] = 1.0
+    do[:, 3::4, 1, 0] = -3.0
+    return [t.to(torch.bfloat16) for t in (q, k, v, do)]
+
+
+def flash_ds_rounding_units(torch, fa, D):
+    """The bf16 kernels on `flash_ds_rounding_inputs` against the plain
+    versions on the same bf16 tensors (f32 arithmetic, dS rounded to
+    nearest bf16 before its products as the kernels must), the backward on
+    the forward kernel's O and L: each output's error in units of its
+    tolerance, by name."""
+    q, k, v, do = flash_ds_rounding_inputs(torch, D)
+    got = flash_run(fa, q, k, v, do, False)
+    ref = fa.flash_attention_plain_fwd(q, k, v) + \
+        fa.flash_attention_plain_bwd(q, k, v, got[0], got[1], do)
+    torch.cuda.synchronize()
+    return {n: u for n, _, u in flash_errors(fa, got, ref, torch.bfloat16)}
+
+
 def flash_cancel_units(torch, fa, D, causal, seed):
     """The kernels on `flash_cancel_inputs` (B=1, T=512, H=2) against the
     plain versions in f64 (the backward on the forward kernel's O and L):
@@ -1092,6 +1154,17 @@ def wide_routes_only(fa, n, what):
            if key[0] == "fwd"}
     if fwd != {("fwd", "wgmma wide"): n}:
         raise AssertionError(f"{what} forward routes {fwd}")
+
+
+def bwd_routes_only(fa, D, n, what):
+    """Require the backward launches since the counts were set to 0 to be
+    `n` dQ and `n` dK/dV, all on the route of bf16 at head dim D: "wgmma
+    wide" at D = 256, "mma" (mma.sync) at D = 384 and 512."""
+    route = "wgmma wide" if D == 256 else "mma"
+    bwd = {key: c for key, c in fa.launches_by_route.items()
+           if key[0] != "fwd"}
+    if bwd != {("dq", route): n, ("dkv", route): n}:
+        raise AssertionError(f"{what} backward routes {bwd}")
 
 
 def flash_run(fa, q, k, v, do, causal):
@@ -1147,6 +1220,9 @@ def phase_flash(torch, fa):
     cases += [(1, T, 2, D, torch.bfloat16, causal)
               for D in (256, 384, 512) for T in (128, 192)
               for causal in (False, True)]
+    # the bf16 backward at D = 256 on T = 64: one 64-row block alone
+    cases += [(1, 64, 2, 256, torch.bfloat16, causal)
+              for causal in (False, True)]
     cases += [(1, T, 2, D, torch.bfloat16, True)
               for D in (256, 384) for T in (2048, 4096)]
     cases += [(1, 4096, 2, 512, torch.bfloat16, True)]
@@ -1168,6 +1244,7 @@ def phase_flash(torch, fa):
                 raise AssertionError(f"f32 D={D} backward routes {routes}")
         if dt == torch.bfloat16 and D > 128:
             wide_routes_only(fa, 2, f"bf16 D={D}")
+            bwd_routes_only(fa, D, 2, f"bf16 D={D}")
         return got
 
     for i, (B, T, H, D, dt, causal) in enumerate(cases):
@@ -1240,6 +1317,16 @@ def phase_flash(torch, fa):
             + (" ok" if max(units.values()) <= 1.0 else " FAIL"))
         if max(units.values()) > 1.0:
             raise AssertionError(f"bf16 D={D} P rounding: {units}")
+        # dS rounded to nearest bf16 before dS K and dS^T Q
+        fa.reset_counts()
+        units = flash_ds_rounding_units(torch, fa, D)
+        bwd_routes_only(fa, D, 1, f"bf16 D={D}")
+        what = f"B=1 T=128 H=2 D={D} bfloat16 full, dS rounding"
+        log(f"  {what:<40} " + " ".join(f"{n} {u:.3f}"
+                                        for n, u in units.items())
+            + (" ok" if max(units.values()) <= 1.0 else " FAIL"))
+        if max(units.values()) > 1.0:
+            raise AssertionError(f"bf16 D={D} dS rounding: {units}")
     for dt in (torch.float32, torch.bfloat16):
         g = torch.Generator(device="cuda").manual_seed(77)
         q = torch.randn((1, 1024, 8, 128), generator=g, device="cuda")
@@ -1332,16 +1419,18 @@ def phase_train_parity(torch, M):
         raise AssertionError("remat=True differs from remat=False")
 
 
-def phase_train(torch, M, card, compute_dtype, B, steps, seed, route):
-    """Main path 2 (bf16 compute over f32 masters) or 2f (f32, the
-    default): full-width gpt_long training steps via fit at B x T=4096:
-    1 warm-up step, the median of `steps` timed steps, the flash launch
-    counts over them (8 of each kernel a step, all on `route`, no plain
-    call), one more step under torch.profiler."""
+def phase_train(torch, M, card, compute_dtype, B, steps, seed, route,
+                n_heads=TRAIN["n_heads"]):
+    """Main path 2 (bf16 compute over f32 masters), 2f (f32, the
+    default) or 2w (bf16, `n_heads` 4: head dim 256): full-width gpt_long
+    training steps via fit at B x T=4096: 1 warm-up step, the median of
+    `steps` timed steps, the flash launch counts over them (8 of each
+    kernel a step, all on `route`, no plain call), one more step under
+    torch.profiler."""
     import numpy as np
 
     fa = M["fa"]
-    conf = M["gpt_configuration"](**TRAIN, seed=13)
+    conf = M["gpt_configuration"](**{**TRAIN, "n_heads": n_heads}, seed=13)
     net = M["MultiLayerNetwork"](conf, dtype=torch.float32,
                                  compute_dtype=compute_dtype, device="cuda")
     net.init()
@@ -1368,7 +1457,8 @@ def phase_train(torch, M, card, compute_dtype, B, steps, seed, route):
     trace = traced(torch, lambda: net.fit(batches[-1]))
     med = sorted(step_ms)[len(step_ms) // 2]
     tokens = B * TRAIN_T
-    log(f"  {steps} steps of B={B} x T={TRAIN_T} "
+    log(f"  {steps} steps of B={B} x T={TRAIN_T}, {n_heads} heads of "
+        f"{TRAIN['d_model'] // n_heads} "
         f"({str(compute_dtype or torch.float32)[6:]}): step ms "
         f"{[round(t, 2) for t in step_ms]}; median {med:.2f} ms, "
         f"{tokens / med * 1e3:.1f} train tokens/s [{card}]")
@@ -1405,9 +1495,10 @@ def flash_work(B, H, T, D, kind, e=2):
     return 4 * 2 * D * pairs, 4 * slab + 2 * stats + 2 * slab
 
 
-def phase_flash_timing(torch, fa, counts, counts_f32):
+def phase_flash_timing(torch, fa, counts, counts_f32, counts_wide):
     """Flash kernels, plain versions and SDPA at the training shapes (bf16
-    at path 2's, f32 at path 2f's with its launch counts)."""
+    at path 2's and path 2w's, f32 at path 2f's, each with its launch
+    counts)."""
     B, H, T, D = TRAIN_B, TRAIN["n_heads"], TRAIN_T, \
         TRAIN["d_model"] // TRAIN["n_heads"]
     # first as the training path hands them over: slices of the fused qkv
@@ -1425,13 +1516,17 @@ def phase_flash_timing(torch, fa, counts, counts_f32):
     del q, k, v, do, got, ref
     torch.cuda.empty_cache()
     rows = flash_rows(torch, fa, B, H, T, D, counts, err_fused, seed=9)
-    # families no main path takes, each at a smaller sequence: bf16 head
-    # dims 256, 384 and 512 (the "wgmma wide" forward, the mma.sync
-    # backward); then the f32 kernels
-    # (split TF32) at phase 6's shape and at path 2f's (with its launch
-    # counts), against SDPA in f32 with TF32 off
+    # bf16 head dims 256, 384 and 512 at a smaller sequence (the "wgmma
+    # wide" forward; the "wgmma wide" backward at 256, the mma.sync one
+    # at 384 and 512), then head dim 256 at path 2w's shape (with its
+    # launch counts); then the f32 kernels (split TF32) at phase 6's shape
+    # and at path 2f's (with its launch counts), against SDPA in f32 with
+    # TF32 off
     for D in (256, 384, 512):
         rows += flash_rows(torch, fa, 2, 4, 2048, D, {}, 0.0, seed=D)
+    rows += flash_rows(torch, fa, TRAIN_WIDE_B, TRAIN_WIDE_HEADS, TRAIN_T,
+                       TRAIN["d_model"] // TRAIN_WIDE_HEADS, counts_wide, 0.0,
+                       seed=34, tag="_t4096")
     rows += flash_rows(torch, fa, 2, 8, 1024, 128, {}, 0.0, seed=32,
                        dtype=torch.float32)
     rows += flash_rows(torch, fa, TRAIN_F32_B, H, T, 128, counts_f32, 0.0,
@@ -1514,9 +1609,12 @@ def flash_rows(torch, fa, B, H, T, D, counts, err, seed, dtype=None, tag=""):
         lib_flops = flops if kind == "fwd" else sum(
             flash_work(B, H, T, D, k)[0] for k in ("dq", "dkv"))
         fma = f", f32-FMA bound {fma_ms:.4f} ms" if f32 else ""
-        if kind == "fwd" and D in FLASH_FWD_MMA_MS and not f32:
+        if kind == "fwd" and D in FLASH_FWD_MMA_MS and not f32 and T == 2048:
             fma += (f"; the mma.sync forward it replaced: "
                     f"{FLASH_FWD_MMA_MS[D]:.4f} ms (PERF.md, PR 10)")
+        if kind != "fwd" and D in FLASH_BWD_MMA_MS and not f32 and T == 2048:
+            fma += (f"; the mma.sync kernel it replaced: "
+                    f"{FLASH_BWD_MMA_MS[D][kind]:.4f} ms (PERF.md)")
         if route == "tf32 cluster":
             fma += ("; clusters of %d blocks, %d fit at once"
                     % fa.cluster_plan(kind, D))
@@ -2409,6 +2507,11 @@ def main() -> int:
     log("[9/18] training the 8-layer bf16 gpt_long GPT at full width")
     flash_counts = phase_train(torch, M, card, torch.bfloat16, TRAIN_B,
                                TRAIN_STEPS, 13, "wgmma")
+    log("[9/18] path 2w: the same GPT with 4 heads of 256 (the bf16 "
+        "\"wgmma wide\" flash kernels)")
+    flash_counts_wide = phase_train(torch, M, card, torch.bfloat16,
+                                    TRAIN_WIDE_B, TRAIN_WIDE_STEPS, 15,
+                                    "wgmma wide", n_heads=TRAIN_WIDE_HEADS)
     log("[10/18] path 2f: training the 8-layer gpt_long GPT in f32 "
         "(split-TF32 flash kernels)")
     flash_counts_f32 = phase_train(torch, M, card, None, TRAIN_F32_B,
@@ -2429,7 +2532,7 @@ def main() -> int:
     log("[16/18] timing at the serving and training shapes (bf16 and f32)")
     rows = phase_timing(torch, pa, launches)
     rows += phase_flash_timing(torch, fa, flash_counts,
-                               flash_counts_f32)
+                               flash_counts_f32, flash_counts_wide)
     log("[17/18] timing the LSTM kernels at the char-RNN shapes (bf16 and "
         "f32)")
     rows += phase_lstm_timing(torch, L, lstm_counts, tbptt_counts,

@@ -40,13 +40,20 @@
 //    partial scores over them; the partials meet in shared memory and are
 //    added in one order in both, so both hold the same P; its section
 //    says more);
-//  - bf16 backward (dQ; dK/dV) at D >= 256: 4-warp blocks, each warp 16
-//    rows of a 64-row tile with its scores and accumulators in registers;
-//    mma.sync m16n8k16 fed by ldmatrix from tiles staged by cp.async
-//    (double-buffered), and a score tile's registers re-packed as the A
-//    operand of the next product. They split their output columns over
-//    blocks of 128 (grid z), each recomputing the scores; at D > 256 the
-//    streamed tiles hold 32 keys (or queries) instead of 64, and at
+//  - bf16 backward at D = 256: flash_bwd_dq_wide_kernel and
+//    flash_bwd_dkv_wide_kernel, the D = 128 backward's structure (a
+//    producer warpgroup, two consumer warpgroups) with accumulators over
+//    all of D = 256, so each block computes every score once; dQ's two
+//    warpgroups take a 64-row block's key tiles in turn and add their
+//    partial dQ at the end (their section says why);
+//  - bf16 backward (dQ; dK/dV) at D = 384 and 512: 4-warp blocks, each
+//    warp 16 rows of a 64-row tile with its scores and accumulators in
+//    registers; mma.sync m16n8k16 fed by ldmatrix from tiles staged by
+//    cp.async, and a score tile's registers re-packed as the A operand of
+//    the next product. They split their output columns over blocks of 128
+//    (grid z), each recomputing the scores: a 64 x D f32 accumulator (192
+//    or 256 registers a thread in a warpgroup) does not fit beside a
+//    score tile. Their streamed tiles hold 32 keys (or queries), and at
 //    D = 512 they are single-buffered, so that the staged tiles fit a
 //    block;
 //  - f32 (MultiLayerNetwork's default precision): every kernel at every
@@ -162,7 +169,10 @@ __device__ __forceinline__ void stage(bf16* dst, const bf16* src,
 }
 
 // ================================================= bf16 register kernels
-// The backward at D >= 256. Each of the 4 warps owns 16 rows of the
+// The backward at D = 384 and 512 (D = 256 has its own wgmma kernels, the
+// "wgmma wide" backward below: at D > 256 one warpgroup's 64 x D f32
+// accumulator would take 192 or 256 registers a thread, so these keep
+// splitting D over blocks). Each of the 4 warps owns 16 rows of the
 // block's 64-row tile; products are mma.sync m16n8k16 (bf16 in, f32
 // accumulate) fed by ldmatrix from shared memory, and the score tile's
 // accumulator registers are re-packed as the A operand of the next product
@@ -310,9 +320,9 @@ __device__ __forceinline__ void store_acc(const float (&acc)[NT][4],
   }
 }
 
-// Keys (or queries) per streamed tile: 64, or 32 at D > 256, where the
-// staged tiles of 64 would not fit a block's shared memory.
-__host__ __device__ constexpr int mma_kb(int D) { return D > 256 ? 32 : 64; }
+// Keys (or queries) per streamed tile: 32, as staged tiles of 64 would not
+// fit a block's shared memory at D = 384 and 512.
+constexpr int kMmaKb = 32;
 // Stages of the streamed tiles in the backward kernels: two (the next
 // tile's copies run during this one's math), or one at D = 512, where two
 // would not fit.
@@ -325,7 +335,7 @@ constexpr int kMmaCols = 128;
 // (c, d) with the streamed rows' L and dsum (dK/dV only).
 template <int D>
 struct MmaBwdSmem {
-  static constexpr int KB = mma_kb(D), NB = mma_bufs(D);
+  static constexpr int KB = kMmaKb, NB = mma_bufs(D);
   bf16 *a, *b, *c[2], *d[2];
   float *lse[2], *dsum[2];
   __host__ __device__ static size_t carve(Carver& c, MmaBwdSmem* t) {
@@ -1026,10 +1036,11 @@ __device__ __forceinline__ void pack16(uint32_t (&p)[16],
   for (int i = 0; i < 32; i += 2) p[i / 2] = pack_bf16(x[i], x[i + 1]);
 }
 
-// A consumer's 64 x 128 accumulator (times `mul`) as bf16 into rows
+// A consumer's 64 x N / 2 accumulator (times `mul`) as bf16 into rows
 // r0 + rl, r0 + rl + 8 (and their 16-row steps) of a (b, t, h) strided
 // output: element 4j + e is row 16w + g + 8 (e >> 1), column 8j + 2t + (e & 1)
-__device__ __forceinline__ void store_wg(const float (&acc)[64], float mul,
+template <int N>
+__device__ __forceinline__ void store_wg(const float (&acc)[N], float mul,
                                          void* out, const Strides& st, int b,
                                          int h, int r0, int rl, int t) {
   bf16* base = static_cast<bf16*>(out) + (long long)b * st.b +
@@ -1038,7 +1049,7 @@ __device__ __forceinline__ void store_wg(const float (&acc)[64], float mul,
   for (int r = 0; r < 2; ++r) {
     bf16* row = base + (long long)(r0 + rl + 8 * r) * st.t;
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
+    for (int j = 0; j < N / 4; ++j)
       *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) = __floats2bfloat162_rn(
           acc[4 * j + 2 * r] * mul, acc[4 * j + 2 * r + 1] * mul);
   }
@@ -1306,10 +1317,418 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   }
 }
 
+// ====================== bf16 D = 256 backward: wgmma + TMA ("wgmma wide")
+// flash_bwd_dq_wide_kernel and flash_bwd_dkv_wide_kernel: two consumer
+// warpgroups with accumulators over all of D = 256 (128 f32 registers a
+// thread) and a producer warpgroup, so every score tile (S and dP, or S^T
+// and dP^T) is computed once, by one warpgroup: the mma.sync kernels they
+// replaced split D over grid-z blocks of 128 columns, each of which
+// recomputed the full-D scores. Every product runs on wgmma; its
+// shared-memory operands are loaded by TMA (one thread of the producer),
+// a row as four 64-column boxes (128-byte rows, swizzled; the 4-D tensor
+// maps of the other bf16 kernels, so fused-qkv slices are read in place),
+// into a ring behind full and empty mbarriers. A score tile becomes the
+// register A operand of the next product with P and dS rounded to nearest
+// bf16; P = ex2(S * scale * log2(e) - L * log2(e)); only the tiles that
+// cross the diagonal are masked and tiles above them are never loaded;
+// the grid's x is (b, h), so the first wave holds every head's longest
+// rows (dQ) or columns (dK/dV). No atomics: each block writes its own
+// rows, so two runs give the same bits.
+//  - dQ: a block owns 64 query rows (Q and dO, 64 KB); the ring carries
+//    K/V tiles of 32 keys in four stages of 32 KB, tile j in stage j % 4,
+//    and the warpgroups take the tiles in turn (warpgroup j % 2). Per
+//    tile: S = Q K^T and dP = dO V^T (wgmma n = 32, one commit), dS = P
+//    (dP - dsum) in registers, dQ += dS K (K read MN-major). At the end
+//    the two partial dQ meet in the freed ring: each warpgroup adds the
+//    other's half to its own half and stores it (one addition of two
+//    partials: the same bits in either order). Live f32 a thread: dQ 128,
+//    S 16, dP 16.
+//  - dK/dV: a block owns 64 keys (K and V, 64 KB); the ring carries Q/dO
+//    tiles of 64 queries with their L and dsum rows in two stages of
+//    64 KB, and P^T goes from warpgroup 0 to warpgroup 1 through two f32
+//    buffers of 16 KB (231,496 bytes of the 232,448 a block may use).
+//    Warpgroup 0: S^T = K Q^T, P^T, dV += P^T dO; warpgroup 1: dP^T =
+//    V dO^T, dS^T = P^T (dP^T - dsum), dK += dS^T Q. Live f32: 128 + 32.
+// Why dQ splits the key tiles and not the rows: blocks of 128 rows, 64 a
+// warpgroup (the D = 128 kernel's split), make B * H * T / 128 blocks,
+// one wave at B = 2, H = 4, T = 2048, whose time is the longest causal
+// block's, about twice the average; 64-row blocks make two waves taken
+// longest first. Their cost: each block streams its K/V tiles from L2
+// for 64 rows, not 128 (slightly slower where the grid is many waves
+// deep). Registers: 128 accumulator registers beside a score tile are
+// more than the 168 a thread of a 384-thread block starts with; the
+// producer warpgroup gives registers up (setmaxnreg 40), the consumers
+// take them (232), and ptxas compiles the consumer code to that budget
+// without spills. (A block of 288 threads, the producer one warp and no
+// setmaxnreg, was held to 168 registers by ptxas, spilled and serialized
+// the wgmma.) What bounds them: the products (989 TFLOP/s); the S and dP
+// products of dQ at n = 32 read 3 KB of shared memory a k-step for 16
+// cycles of tensor work, above the 128 bytes a cycle shared memory
+// gives; and a warpgroup runs its products and its element-wise work one
+// after the other (the other warpgroup fills the tensor cores meanwhile).
+constexpr int kWbRows = 64;  // query rows of a dQ block; keys of a dK/dV
+                             // block and queries of its streamed tiles
+constexpr int kWbKeys = 32;  // keys of a dQ block's streamed tile
+constexpr int kWbDqStages = 4;  // tile j in stage j % 4, warpgroup j % 2
+constexpr int kWbDkvStages = 2;
+constexpr int kWbBoxes = 4;     // 64-column boxes of a row of D = 256
+
+struct WideDqSmem {
+  bf16 q[kWbBoxes][kWbRows * 64];
+  bf16 dO[kWbBoxes][kWbRows * 64];
+  bf16 k[kWbDqStages][kWbBoxes][kWbKeys * 64];
+  bf16 v[kWbDqStages][kWbBoxes][kWbKeys * 64];
+  uint64_t own_full, full[kWbDqStages], empty[kWbDqStages];
+};
+
+struct WideDkvSmem {
+  bf16 k[kWbBoxes][kWbRows * 64];
+  bf16 v[kWbBoxes][kWbRows * 64];
+  bf16 q[kWbDkvStages][kWbBoxes][kWbRows * 64];
+  bf16 dO[kWbDkvStages][kWbBoxes][kWbRows * 64];
+  float pt[2][kWbRows * kWbRows];  // P^T, in the accumulator's layout
+  float lse[kWbDkvStages][kWbRows], dsum[kWbDkvStages][kWbRows];
+  uint64_t own_full, full[kWbDkvStages], empty[kWbDkvStages];
+  uint64_t p_full[2], p_empty[2];
+};
+constexpr size_t kWbDqSmemBytes = sizeof(WideDqSmem) + 1024;  // + alignment
+constexpr size_t kWbDkvSmemBytes = sizeof(WideDkvSmem) + 1024;
+
+// acc (64 x N) = A (64 rows of D = 256: four boxes a_box bytes apart) .
+// B^T (N rows, four boxes b_box bytes apart), both K-major; issued, not
+// committed
+template <int NX>
+__device__ __forceinline__ void issue_s256(float (&acc)[NX], const void* a,
+                                           uint32_t a_box, const void* b,
+                                           uint32_t b_box) {
+  const char* pa = static_cast<const char*>(a);
+  const char* pb = static_cast<const char*>(b);
+#pragma unroll
+  for (int kk = 0; kk < 16; ++kk) {
+    const int box = kk / 4, off = (kk % 4) * 32;
+    wide_s(acc, sm90::desc_sw128(pa + box * a_box + off),
+           sm90::desc_sw128(pb + box * b_box + off), kk > 0);
+  }
+}
+
+// acc (64 x 256) += P (64 x 2 NP, bf16 A fragments in registers) . B (2 NP
+// rows of D = 256 read MN-major, four boxes b_box bytes apart); issued and
+// committed
+template <int NP>
+__device__ __forceinline__ void issue_pb256(float (&acc)[128],
+                                            const uint32_t (&p)[NP],
+                                            const void* b, uint32_t b_box) {
+  const char* pb = static_cast<const char*>(b);
+#pragma unroll
+  for (int kk = 0; kk < NP / 4; ++kk) {
+    const uint32_t af[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+                            p[4 * kk + 3]};
+    sm90::wgmma_m64n256_rs_mn(acc, af,
+                              sm90::desc_sw128(pb + kk * 2048, b_box));
+  }
+  sm90::wgmma_commit();
+}
+
+// The two partial dQ of a block's warpgroups meet: this warpgroup hands
+// the columns its peer stores (elements GIVE .. GIVE + 63 of dq) to
+// `mine`, and after the named barrier of the two consumer warpgroups adds
+// the peer's partial of its own columns (elements 64 - GIVE ..) into out.
+// Each thread's 64 values are float4 runs laid out thread-major; the peer
+// thread holds the same rows and columns. One addition of two partials
+// gives the same bits in either order.
+template <int GIVE>
+__device__ __forceinline__ void dq_meet(const float (&dq)[128], float4* mine,
+                                        const float4* peer, int tid,
+                                        float (&out)[64]) {
+  constexpr int KEEP = 64 - GIVE;
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    mine[i * 128 + tid] = make_float4(dq[GIVE + 4 * i], dq[GIVE + 4 * i + 1],
+                                      dq[GIVE + 4 * i + 2],
+                                      dq[GIVE + 4 * i + 3]);
+  sm90::named_bar_sync(1, 256);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const float4 y = peer[i * 128 + tid];
+    out[4 * i] = dq[KEEP + 4 * i] + y.x;
+    out[4 * i + 1] = dq[KEEP + 4 * i + 1] + y.y;
+    out[4 * i + 2] = dq[KEEP + 4 * i + 2] + y.z;
+    out[4 * i + 3] = dq[KEEP + 4 * i + 3] + y.w;
+  }
+}
+
+// A dQ consumer warpgroup of flash_bwd_dq_wide_kernel: the block's query
+// rows q0 .. q0 + 63 over key tiles wg, wg + 2, ..; at the end it stores
+// columns 128 wg .. 128 wg + 127 of dQ, its partial plus the peer's.
+__device__ __forceinline__ void wide_dq_consumer(WideDqSmem& sm,
+                                                 const WgBwdArgs& a, int wg,
+                                                 int q0, int nk, int b,
+                                                 int h, int bh) {
+  constexpr int KB = kWbKeys, NS = kWbDqStages;
+  const int l = threadIdx.x % 32, g = l / 4, t = l % 4;
+  const int tid = threadIdx.x % 128;
+  const int rl = 16 * (tid / 32) + g;  // rows rl, rl + 8
+  float lse2[2], dsum[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const long long i = (long long)bh * a.Tq + q0 + rl + 8 * r;
+    lse2[r] = a.lse[i] * kLog2e;
+    dsum[r] = a.dsum[i];
+  }
+  float dq[128], s[16], dp[16];
+  uint32_t p[8];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) dq[i] = 0.f;
+  sm90::mbar_wait(&sm.own_full, 0);
+  for (int j = wg; j < nk; j += 2) {
+    const int st = j % NS;
+    sm90::mbar_wait(&sm.full[st], (j / NS) & 1);
+    sm90::wgmma_fence();
+    issue_s256(s, sm.q[0], sizeof(sm.q[0]), sm.k[st][0], sizeof(sm.k[st][0]));
+    issue_s256(dp, sm.dO[0], sizeof(sm.dO[0]), sm.v[st][0],
+               sizeof(sm.v[st][0]));
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(s);
+    sm90::fence_regs(dp);
+    const bool diag = wide_diag(a.causal, j, nk, KB);
+    const int koff = j * KB - q0;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int r = (i >> 1) & 1;
+      const bool masked =
+          diag && koff + 8 * (i / 4) + 2 * t + (i & 1) > rl + 8 * r;
+      const float pv = masked ? 0.f : ex2(fmaf(s[i], a.scale_log2, -lse2[r]));
+      s[i] = pv * (dp[i] - dsum[r]);  // dS
+    }
+    wide_pack(p, s);
+    sm90::fence_regs(dq);
+    sm90::wgmma_fence();
+    issue_pb256(dq, p, sm.k[st][0], sizeof(sm.k[st][0]));  // dQ += dS K
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(dq);
+    if (l == 0) sm90::mbar_arrive(&sm.empty[st]);
+  }
+  // every stage is consumed: the K ring's 64 KB hold the two hand-overs
+  sm90::named_bar_sync(1, 256);
+  float4* xs = reinterpret_cast<float4*>(sm.k[0][0]);
+  float out[64];
+  if (wg == 0)
+    dq_meet<64>(dq, xs, xs + 2048, tid, out);
+  else
+    dq_meet<0>(dq, xs + 2048, xs, tid, out);
+  store_wg(out, a.scale, static_cast<bf16*>(a.out0) + 128 * wg, a.so0, b, h,
+           q0, rl, t);
+}
+
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_bwd_dq_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tdo,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             const WgBwdArgs a) {
+  constexpr int KB = kWbKeys, NS = kWbDqStages;
+  extern __shared__ unsigned char smem_raw[];
+  WideDqSmem& sm = *reinterpret_cast<WideDqSmem*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const int q0 = (a.Tq / kWbRows - 1 - blockIdx.y) * kWbRows;  // longest first
+  // K/V tiles past the block's diagonal are never loaded
+  const int nk = a.causal ? (q0 + kWbRows) / KB : a.Tk / KB;
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(&sm.own_full, 2);  // Q's and dO's expected bytes
+    for (int s = 0; s < NS; ++s) {
+      sm90::mbar_init(&sm.full[s], 2);   // K's and V's
+      sm90::mbar_init(&sm.empty[s], 4);  // the warps of the stage's warpgroup
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x >= 256) {
+    sm90::setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      tma_rows<kWbBoxes>(sm.q[0], &tq, &sm.own_full, kWbRows, h, q0, b);
+      tma_rows<kWbBoxes>(sm.dO[0], &tdo, &sm.own_full, kWbRows, h, q0, b);
+      for (int j = 0; j < nk; ++j) {
+        const int s = j % NS;
+        // a stage is refilled once its warpgroup released it
+        sm90::mbar_wait(&sm.empty[s], ((j / NS) & 1) ^ 1);
+        tma_rows<kWbBoxes>(sm.k[s][0], &tk, &sm.full[s], KB, h, j * KB, b);
+        tma_rows<kWbBoxes>(sm.v[s][0], &tv, &sm.full[s], KB, h, j * KB, b);
+      }
+    }
+  } else {
+    sm90::setmaxnreg_inc<232>();
+    wide_dq_consumer(sm, a, threadIdx.x / 128, q0, nk, b, h, bh);
+  }
+}
+
+// dK/dV warpgroup 0 of flash_bwd_dkv_wide_kernel: S^T, P^T (handed to
+// warpgroup 1), dV += P^T dO.
+__device__ __forceinline__ void wide_dv_consumer(WideDkvSmem& sm,
+                                                 const WgBwdArgs& a, int kj,
+                                                 int q_first, int nq, int b,
+                                                 int h) {
+  constexpr int NS = kWbDkvStages;
+  const int l = threadIdx.x % 32, g = l / 4, t = l % 4;
+  const int tid = threadIdx.x % 128;
+  const int rl = 16 * (tid / 32) + g;  // key rows rl, rl + 8 of the block
+  float dv[128], s[32];
+  uint32_t p[16];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) dv[i] = 0.f;
+  sm90::mbar_wait(&sm.own_full, 0);
+  for (int qi = q_first; qi < nq; ++qi) {
+    const int n = qi - q_first, st = n % NS, pb = n & 1;
+    sm90::mbar_wait(&sm.full[st], (n / NS) & 1);
+    sm90::wgmma_fence();
+    issue_s256(s, sm.k[0], sizeof(sm.k[0]), sm.q[st][0],
+               sizeof(sm.q[st][0]));  // S^T = K Q^T
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(s);
+    // P^T = ex2(S^T * scale * log2(e) - L(query) * log2(e)); on the
+    // diagonal tile keys after a query are masked (exactly 0)
+    const bool diag = a.causal && qi == kj;
+    const float* Ls = sm.lse[st];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 lq = *reinterpret_cast<const float2*>(Ls + 8 * j + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * j + e, col = 8 * j + 2 * t + (e & 1);
+        const float L2 = ((e & 1) ? lq.y : lq.x) * kLog2e;
+        const bool masked = diag && rl + 8 * (e >> 1) > col;
+        s[i] = masked ? 0.f : ex2(fmaf(s[i], a.scale_log2, -L2));
+      }
+    }
+    // hand P^T to warpgroup 1 once it read the buffer's previous tile
+    sm90::mbar_wait(&sm.p_empty[pb], ((n >> 1) & 1) ^ 1);
+    float4* pt = reinterpret_cast<float4*>(sm.pt[pb]);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      pt[j * 128 + tid] =
+          make_float4(s[4 * j], s[4 * j + 1], s[4 * j + 2], s[4 * j + 3]);
+    sm90::mbar_arrive(&sm.p_full[pb]);
+    pack16(p, s);
+    sm90::fence_regs(dv);
+    sm90::wgmma_fence();
+    issue_pb256(dv, p, sm.dO[st][0], sizeof(sm.dO[st][0]));  // dV += P^T dO
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(dv);
+    if (l == 0) sm90::mbar_arrive(&sm.empty[st]);
+  }
+  store_wg(dv, 1.f, a.out1, a.so1, b, h, kj * kWbRows, rl, t);
+}
+
+// dK/dV warpgroup 1: dP^T, dS^T = P^T * (dP^T - dsum), dK += dS^T Q.
+__device__ __forceinline__ void wide_dk_consumer(WideDkvSmem& sm,
+                                                 const WgBwdArgs& a, int kj,
+                                                 int q_first, int nq, int b,
+                                                 int h) {
+  constexpr int NS = kWbDkvStages;
+  const int l = threadIdx.x % 32, g = l / 4, t = l % 4;
+  const int tid = threadIdx.x % 128;
+  const int rl = 16 * (tid / 32) + g;
+  float dk[128], dp[32];
+  uint32_t p[16];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) dk[i] = 0.f;
+  sm90::mbar_wait(&sm.own_full, 0);
+  for (int qi = q_first; qi < nq; ++qi) {
+    const int n = qi - q_first, st = n % NS, pb = n & 1;
+    sm90::mbar_wait(&sm.full[st], (n / NS) & 1);
+    sm90::wgmma_fence();
+    issue_s256(dp, sm.v[0], sizeof(sm.v[0]), sm.dO[st][0],
+               sizeof(sm.dO[st][0]));  // dP^T = V dO^T
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(dp);
+    sm90::mbar_wait(&sm.p_full[pb], (n >> 1) & 1);
+    const float4* pt = reinterpret_cast<const float4*>(sm.pt[pb]);
+    const float* Ds = sm.dsum[st];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float4 pv = pt[j * 128 + tid];
+      const float2 d2 = *reinterpret_cast<const float2*>(Ds + 8 * j + 2 * t);
+      dp[4 * j] = pv.x * (dp[4 * j] - d2.x);
+      dp[4 * j + 1] = pv.y * (dp[4 * j + 1] - d2.y);
+      dp[4 * j + 2] = pv.z * (dp[4 * j + 2] - d2.x);
+      dp[4 * j + 3] = pv.w * (dp[4 * j + 3] - d2.y);
+    }
+    sm90::mbar_arrive(&sm.p_empty[pb]);
+    pack16(p, dp);
+    sm90::fence_regs(dk);
+    sm90::wgmma_fence();
+    issue_pb256(dk, p, sm.q[st][0], sizeof(sm.q[st][0]));  // dK += dS^T Q
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(dk);
+    if (l == 0) sm90::mbar_arrive(&sm.empty[st]);
+  }
+  store_wg(dk, a.scale, a.out0, a.so0, b, h, kj * kWbRows, rl, t);
+}
+
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_bwd_dkv_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tdo,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const WgBwdArgs a) {
+  constexpr int NS = kWbDkvStages;
+  extern __shared__ unsigned char smem_raw[];
+  WideDkvSmem& sm = *reinterpret_cast<WideDkvSmem*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int kj = blockIdx.y;  // under the causal mask: longest columns first
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const int k0 = kj * kWbRows;
+  // query tiles before the diagonal see none of these keys
+  const int q_first = a.causal ? kj : 0;
+  const int nq = a.Tq / kWbRows;
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(&sm.own_full, 2);  // K's and V's expected bytes
+    for (int s = 0; s < NS; ++s) {
+      sm90::mbar_init(&sm.full[s], 3);   // Q's, dO's, and L's with dsum's
+      sm90::mbar_init(&sm.empty[s], 8);  // one arrival per consumer warp
+    }
+    for (int i = 0; i < 2; ++i) {
+      sm90::mbar_init(&sm.p_full[i], 128);   // every thread of warpgroup 0
+      sm90::mbar_init(&sm.p_empty[i], 128);  // every thread of warpgroup 1
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x >= 256) {
+    sm90::setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      tma_rows<kWbBoxes>(sm.k[0], &tk, &sm.own_full, kWbRows, h, k0, b);
+      tma_rows<kWbBoxes>(sm.v[0], &tv, &sm.own_full, kWbRows, h, k0, b);
+      const float* lse = a.lse + (long long)bh * a.Tq;
+      const float* dsum = a.dsum + (long long)bh * a.Tq;
+      for (int qi = q_first; qi < nq; ++qi) {
+        const int n = qi - q_first, s = n % NS, r0 = qi * kWbRows;
+        // a stage is refilled once every consumer warp released it
+        sm90::mbar_wait(&sm.empty[s], ((n / NS) & 1) ^ 1);
+        tma_rows<kWbBoxes>(sm.q[s][0], &tq, &sm.full[s], kWbRows, h, r0, b);
+        tma_rows<kWbBoxes>(sm.dO[s][0], &tdo, &sm.full[s], kWbRows, h, r0,
+                           b);
+        sm90::mbar_expect_tx(&sm.full[s], 2 * kWbRows * 4);
+        sm90::bulk_load(sm.lse[s], lse + r0, kWbRows * 4, &sm.full[s]);
+        sm90::bulk_load(sm.dsum[s], dsum + r0, kWbRows * 4, &sm.full[s]);
+      }
+    }
+  } else if (threadIdx.x < 128) {
+    sm90::setmaxnreg_inc<232>();
+    wide_dv_consumer(sm, a, kj, q_first, nq, b, h);
+  } else {
+    sm90::setmaxnreg_inc<232>();
+    wide_dk_consumer(sm, a, kj, q_first, nq, b, h);
+  }
+}
+
 template <int D, int DO>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_mma_kernel(const Args a) {
-  constexpr int BLK = kMmaBlk, KB = mma_kb(D), NB = mma_bufs(D);
+  constexpr int BLK = kMmaBlk, KB = kMmaKb, NB = mma_bufs(D);
   constexpr int LD = D + 8, NO = DO / 8, NS = KB / 8;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Carver cv{smem_raw};
@@ -1379,7 +1798,7 @@ __global__ void __launch_bounds__(kThreads)
 template <int D, int DO>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_mma_kernel(const Args a) {
-  constexpr int BLK = kMmaBlk, KB = mma_kb(D), NB = mma_bufs(D);
+  constexpr int BLK = kMmaBlk, KB = kMmaKb, NB = mma_bufs(D);
   constexpr int LD = D + 8, NO = DO / 8, NS = KB / 8;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Carver cv{smem_raw};
@@ -2397,11 +2816,13 @@ enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
 
 // The kernel family that runs (kind, dtype, D): 0 split TF32 in clusters
 // (the f32 backward at D = 384, 512), 1 split TF32, 2 bf16 mma.sync (the
-// backward at D >= 256), 3 bf16 wgmma (D = 128), 4 bf16 wgmma with D split
-// over two warpgroups (the forward at D >= 256).
+// backward at D = 384, 512), 3 bf16 wgmma (D = 128), 4 bf16 wgmma at
+// D >= 256 (the forward at D = 256-512, D split over two warpgroups; the
+// backward at D = 256).
 enum Route { kTf32Cluster = 0, kTf32 = 1, kMma = 2, kWgmma = 3, kWide = 4 };
 __host__ __device__ constexpr int route_of(int kind, int dtype, int D) {
-  if (dtype == 1) return D == 128 ? kWgmma : kind == kFwd ? kWide : kMma;
+  if (dtype == 1)
+    return D == 128 ? kWgmma : kind == kFwd || D == 256 ? kWide : kMma;
   return kind == kFwd || D <= 256 ? kTf32 : kTf32Cluster;
 }
 
@@ -2422,8 +2843,9 @@ size_t smem_bf16(int kind) {
     return kind == kFwd ? kWgSmemBytes
            : kind == kDq ? kDqSmemBytes
                          : kDkvSmemBytes;
-  return kind == kFwd ? wide_smem_bytes<D>()
-                      : MmaBwdSmem<D>::carve(c, nullptr);
+  if (kind == kFwd) return wide_smem_bytes<D>();
+  if (D == 256) return kind == kDq ? kWbDqSmemBytes : kWbDkvSmemBytes;
+  return MmaBwdSmem<D>::carve(c, nullptr);
 }
 
 // The bf16 wgmma kernels read each input through one 4-D tensor map over
@@ -2511,6 +2933,40 @@ int launch_bwd_wgmma(int kind, const Args& a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+// The bf16 D = 256 backward: dQ blocks of 64 query rows and K/V tiles of
+// 32 keys, dK/dV blocks of 64 keys and Q/dO tiles of 64 queries.
+int launch_bwd_wide(int kind, const Args& a, cudaStream_t st) {
+  const bool dq = kind == kDq;
+  const int krows = dq ? kWbKeys : kWbRows;
+  CUtensorMap maps[4];  // q, dO, k, v
+  int rc = make_bthd_map(&maps[0], a.q, a.sq, a.H, a.Tq, a.B, kWbRows, 256);
+  if (!rc)
+    rc = make_bthd_map(&maps[1], a.dO, a.sdo, a.H, a.Tq, a.B, kWbRows, 256);
+  if (!rc) rc = make_bthd_map(&maps[2], a.k, a.sk, a.H, a.Tk, a.B, krows, 256);
+  if (!rc) rc = make_bthd_map(&maps[3], a.v, a.sv, a.H, a.Tk, a.B, krows, 256);
+  if (rc) return rc;
+  const WgBwdArgs w{a.lse, a.dsum, a.out0, a.out1, a.so0, a.so1, a.H,
+                    a.Tq, a.Tk, a.causal, a.scale, a.scale * kLog2e};
+  const size_t smem = dq ? kWbDqSmemBytes : kWbDkvSmemBytes;
+  cudaError_t e = dq ? cudaFuncSetAttribute(
+                           flash_bwd_dq_wide_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem)
+                     : cudaFuncSetAttribute(
+                           flash_bwd_dkv_wide_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(a.B * a.H, (dq ? a.Tq : a.Tk) / kWbRows);
+  if (dq)
+    flash_bwd_dq_wide_kernel<<<grid, kWgThreads, smem, st>>>(
+        maps[0], maps[1], maps[2], maps[3], w);
+  else
+    flash_bwd_dkv_wide_kernel<<<grid, kWgThreads, smem, st>>>(
+        maps[0], maps[1], maps[2], maps[3], w);
+  return (int)cudaGetLastError();
+}
+
 int run(void (*kern)(const Args), size_t smem, dim3 grid, const Args& a,
         cudaStream_t stream) {
   if (smem > 48 * 1024) {
@@ -2578,7 +3034,13 @@ int launch_bf16(int kind, const Args& a, cudaStream_t st) {
   if constexpr (D == 128) {
     return kind == kFwd ? launch_fwd_wgmma(a, st)
                         : launch_bwd_wgmma(kind, a, st);
+  } else if constexpr (D == 256) {
+    return kind == kFwd ? launch_fwd_wide<D>(a, st)
+                        : launch_bwd_wide(kind, a, st);
   } else {
+    // D = 384, 512: the backward's 64 x D f32 accumulators (192 or 256
+    // registers a thread for one of dK, dV, dQ) do not fit a warpgroup
+    // beside a score tile, so these still split the columns over blocks
     if (kind == kFwd) return launch_fwd_wide<D>(a, st);
     void (*kern)(const Args) = kind == kDq
                                    ? flash_bwd_dq_mma_kernel<D, kMmaCols>
@@ -2677,8 +3139,10 @@ int dl4j_flash_block_rows(int dtype, int D) {
 
 // The kernel family that runs kernel `kind` (0 forward, 1 dQ, 2 dK/dV) at
 // dtype and D: 0 f32 split TF32 on mma.sync in thread block clusters, 1
-// f32 split TF32 on mma.sync, 2 bf16 mma.sync, 3 bf16 wgmma, 4 bf16 wgmma
-// with D split over two warpgroups; -1 for an unsupported D.
+// f32 split TF32 on mma.sync, 2 bf16 mma.sync (the backward at D = 384,
+// 512), 3 bf16 wgmma (D = 128), 4 bf16 wgmma at D >= 256 ("wgmma wide":
+// the forward at D = 256-512, the backward at D = 256); -1 for an
+// unsupported D.
 int dl4j_flash_route(int kind, int dtype, int D) {
   return with_head_dim(D, [&](auto) { return route_of(kind, dtype, D); });
 }

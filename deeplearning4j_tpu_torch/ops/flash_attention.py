@@ -25,7 +25,9 @@ which add their partial scores through distributed shared memory
 (`cluster_plan` says how many such clusters fit on the card at once).
 The bf16 forward at D = 256, 384 and 512 ("wgmma wide") splits D over two
 warpgroups of one block, which add their partial scores through shared
-memory; the bf16 backward there runs on `mma.sync` ("mma").
+memory; the bf16 backward at D = 256 ("wgmma wide" too) keeps accumulators
+over all of D in each of two warpgroups, and at D = 384 and 512 it runs on
+`mma.sync` ("mma").
 
 Counts: `flash_forward.launches`, `flash_bwd_dq.launches` and
 `flash_bwd_dkv.launches` (kernel launches), `launches_by_route[(kind,
@@ -219,8 +221,9 @@ def _kernel_ready(t: torch.Tensor) -> torch.Tensor:
 
 def _stats_ready(t: torch.Tensor) -> torch.Tensor:
     """An f32 (B*H, Tq) statistic (L or dsum) as the backward kernels read
-    it: contiguous with a 16-byte aligned base (the D = 128 dK/dV kernel
-    copies 64-float runs of it with the bulk-copy engine), else a copy."""
+    it: contiguous with a 16-byte aligned base (the bf16 dK/dV kernels at
+    D = 128 and 256 copy 64-float runs of it with the bulk-copy engine),
+    else a copy."""
     t = t.float()
     ok = t.is_contiguous() and t.data_ptr() % 16 == 0
     return t if ok else t.clone(memory_format=torch.contiguous_format)

@@ -15,7 +15,11 @@ tolerance accepts three TF32 passes and rejects one, also with the score
 products summed as the f32 backward's clusters sum them at D = 384 and
 512 (partials over 128-column slices, added in f32 in rank order); with
 the tensor cores' truncation emulated too, scores that cancel within a
-slice tell fresh accumulators from one chained over the slice.
+slice tell fresh accumulators from one chained over the slice. The bf16
+backward kernels at D = 256 ("wgmma wide") are emulated in plain torch
+(their tile order, the log2 domain, P and dS rounded to nearest bf16)
+and held to the JAX package's backward in bf16 within the bf16
+tolerance; the card check's dS-rounding inputs tell a truncated dS.
 """
 import numpy as np
 import pytest
@@ -614,6 +618,119 @@ def test_rounding_case_tells_a_truncated_p(Dh):
     assert fa.error_in_tolerances("O", o.to(dt), ro, dt) > 16.0
 
 
+def _wide_bwd_emulated(q, k, v, do, o, lse, causal):
+    """(dQ, dK, dV) of the bf16 backward kernels at D = 256 ("wgmma wide")
+    in plain torch, on bf16 q, k, v, dO and the forward's O (bf16) and L:
+    their tile order (dQ over key tiles of 32, taken in turn by two
+    warpgroups whose f32 partials are added at the end; dK/dV over query
+    tiles of 64; each tile's product added to an f32 accumulator in turn;
+    tiles above the diagonal, which the kernels skip, add exact zeros),
+    P = 2^(S * scale * log2(e) - L *
+    log2(e)) with masked entries exactly 0, dS = P (dP - dsum) with dsum
+    = rowsum(dO * O) in f32, P and dS rounded to nearest bf16 as the
+    products' A operands, the scale applied to dQ and dK once at the end,
+    every output rounded to bf16."""
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    Tq, Tk, D = q.shape[1], k.shape[1], q.shape[-1]
+    scale = np.float32(1.0 / np.sqrt(D))
+    c = torch.tensor(scale * np.float32(np.log2(np.e)))
+    l2 = (lse.float() * float(np.float32(np.log2(np.e)))).reshape(
+        q.shape[0], q.shape[2], Tq, 1)
+    dsum = fa._dsum(o, do).reshape(q.shape[0], q.shape[2], Tq, 1)
+    keep = fa._keep(Tq, Tk, q.device)
+    bf = torch.bfloat16
+
+    def tile(rows, cols):
+        s = torch.einsum("bqhd,bkhd->bhqk", qf[:, rows], kf[:, cols])
+        p = torch.exp2(s * c - l2[:, :, rows])
+        if causal:
+            p = p.masked_fill(~keep[rows][:, cols], 0.0)
+        dp = torch.einsum("bqhd,bkhd->bhqk", dof[:, rows], vf[:, cols])
+        return p, p * (dp - dsum[:, :, rows])
+
+    part = [torch.zeros_like(qf), torch.zeros_like(qf)]
+    for j in range(0, Tk, 32):
+        cols = slice(j, j + 32)
+        _, ds = tile(slice(0, Tq), cols)
+        part[j // 32 % 2] += torch.einsum("bhqk,bkhd->bqhd", ds.to(bf).float(),
+                                          kf[:, cols])
+    dq = part[0] + part[1]
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for i in range(0, Tq, 64):
+        rows = slice(i, i + 64)
+        p, ds = tile(rows, slice(0, Tk))
+        dv += torch.einsum("bhqk,bqhd->bkhd", p.to(bf).float(), dof[:, rows])
+        dk += torch.einsum("bhqk,bqhd->bkhd", ds.to(bf).float(), qf[:, rows])
+    return (dq * scale).to(bf), (dk * scale).to(bf), dv.to(bf)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_wide_backward_emulation_matches_jax(causal):
+    """The arithmetic of the bf16 backward kernels at D = 256
+    (`_wide_bwd_emulated`: their tile order, the log2 domain, P and dS
+    rounded to nearest bf16 as A operands) against the JAX package's
+    backward in bf16 (`_flash_mha_bwd` through `jax.grad`, Pallas in
+    interpret mode, blocks of 128) on the same bf16 inputs (B=1, T=256,
+    H=2): dQ, dK and dV row by row within `fa.error_in_tolerances`
+    (TOLERANCE[bfloat16], 2^-6 of a row's scale)."""
+    Dh = 256
+    q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16)
+                   for x in _inputs(60 + causal, (1, T, 2, Dh)))
+    jq, jk, jv, jdo = (jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+                       for t in (q, k, v, do))
+
+    def jf(a, b, c):
+        return jflash(a, b, c, causal=causal, block_q=128, block_k=128,
+                      interpret=True)
+
+    jgrads = jax.grad(lambda a, b, c: jnp.sum(
+        jf(a, b, c).astype(jnp.float32) * jdo.astype(jnp.float32)),
+        argnums=(0, 1, 2))(jq, jk, jv)
+    o, lse = fa.flash_attention_plain_fwd(q, k, v, causal)
+    got = _wide_bwd_emulated(q, k, v, do, o, lse, causal)
+    for name, g, want in zip(("dQ", "dK", "dV"), got, jgrads):
+        ref = torch.from_numpy(np.array(want.astype(jnp.float32)))
+        assert fa.error_in_tolerances(name, g, ref, torch.bfloat16) <= 1.0, \
+            name
+
+
+@pytest.mark.parametrize("Dh", [256, 384, 512])
+def test_ds_rounding_case_tells_a_truncated_ds(Dh):
+    """What the card check's dS-rounding case (`chip_smoke.
+    flash_ds_rounding_inputs`) rests on: every score is 0, so P = 1/128;
+    every dS lies at least a fifth of a bf16 unit from a rounding
+    midpoint; the plain backward on the bf16 tensors (dS rounded to
+    nearest bf16 before its products) and the same arithmetic with dS
+    truncated to bf16 differ by more than 16 bf16 tolerances in dQ
+    (head 0) and in dK (head 1); and the kernels' arithmetic
+    (`_wide_bwd_emulated`) gives the plain backward's outputs exactly."""
+    q, k, v, do = _chip_smoke().flash_ds_rounding_inputs(torch, Dh,
+                                                         device="cpu")
+    dt = torch.bfloat16
+    o, lse = fa.flash_attention_plain_fwd(q, k, v)
+    s = fa._scores(q.float(), k.float(), False, 1.0 / np.sqrt(Dh))
+    assert bool((s == 0).all())
+    p = torch.exp(s - lse.reshape(1, 2, -1, 1))
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    dsum = fa._dsum(o, do).reshape(1, 2, -1, 1)
+    ds = p * (dp - dsum)
+    ulp = 2.0 ** (torch.floor(torch.log2(ds.abs())) - 7)  # a bf16 unit
+    frac = ds.abs() / ulp
+    assert bool(((frac - frac.floor() - 0.5).abs() >= 0.2).all())
+    ref = fa.flash_attention_plain_bwd(q, k, v, o, lse, do)
+    trunc = (ds.view(torch.int32) & ~0xFFFF).view(torch.float32)
+    scale = 1.0 / np.sqrt(Dh)
+    dq = torch.einsum("bhqk,bkhd->bqhd", trunc, k.float()) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", trunc, q.float()) * scale
+    assert fa.error_in_tolerances("dQ", dq[:, :, :1].to(dt),
+                                  ref[0][:, :, :1], dt) > 16.0
+    assert fa.error_in_tolerances("dK", dk[:, :, 1:].to(dt),
+                                  ref[1][:, :, 1:], dt) > 16.0
+    for got, want in zip(_wide_bwd_emulated(q, k, v, do, o, lse, False),
+                         ref):
+        assert torch.equal(got, want)
+
+
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
@@ -817,8 +934,9 @@ def test_f32_wide_head_backward_cases_and_bits():
 @pytest.mark.gpu
 def test_wide_forward_cases_halves_and_routes():
     """The bf16 forward at D = 256, 384 and 512 (route "wgmma wide": two
-    consumer warpgroups that split D; the backward there stays on
-    "mma"; shared memory within the card's limit) against the plain
+    consumer warpgroups that split D; the backward takes "wgmma wide" at
+    D = 256 and stays on "mma" at 384 and 512; shared memory within the
+    card's limit) against the plain
     forward in f32, O row by row and L within `fa.error_in_tolerances`:
     causal at T = 128 and 192 (the first 64-row tiles, whose diagonal
     crosses two 32-key tiles at D = 384 and 512) and 2048, full with
@@ -834,7 +952,8 @@ def test_wide_forward_cases_halves_and_routes():
     lib = fa._library()
     for Dh in (256, 384, 512):
         assert fa.ROUTES[lib.dl4j_flash_route(0, 1, Dh)] == "wgmma wide"
-        assert fa.ROUTES[lib.dl4j_flash_route(1, 1, Dh)] == "mma"
+        assert fa.ROUTES[lib.dl4j_flash_route(1, 1, Dh)] == (
+            "wgmma wide" if Dh == 256 else "mma")
         assert lib.dl4j_flash_smem_bytes(0, 1, Dh) <= \
             smem_limit_bytes(torch.device("cuda"))
         qkv = r(1, 1024, 3 * 2 * Dh)
@@ -858,3 +977,67 @@ def test_wide_forward_cases_halves_and_routes():
             assert fa.error_in_tolerances("L", lse, rl, dt) <= 1.0, (Dh, i)
             if v is halves[2]:
                 assert torch.equal(o[..., :Dh // 2], o[..., Dh // 2:]), Dh
+
+
+@pytest.mark.gpu
+def test_wide_backward_cases_bits_and_routes():
+    """The bf16 backward at D = 256 (route "wgmma wide" for dQ and dK/dV,
+    D = 384 and 512 on "mma"; shared memory within the card's limit)
+    against the plain backward in f32 on the forward kernel's O and L, row
+    by row within `fa.error_in_tolerances`: causal at T = 64, 128 and 192
+    (one block alone, the first diagonal tiles) and 2048,
+    full at T = 192, Tq=512 x Tk=1024 full, and q, k, v sliced from one
+    fused qkv tensor; each call twice, with identical bits (no atomics);
+    on `chip_smoke.flash_ds_rounding_inputs` dQ and dK equal the plain
+    backward on the bf16 tensors (dS rounded to nearest bf16)."""
+    _card()
+    from deeplearning4j_tpu_torch.ops.kernel_dispatch import smem_limit_bytes
+
+    dt = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(61)
+    r = lambda *s: torch.randn(s, generator=g, device="cuda").to(dt)
+    lib = fa._library()
+    for Dh in (256, 384, 512):
+        for kind in (1, 2):
+            assert fa.ROUTES[lib.dl4j_flash_route(kind, 1, Dh)] == (
+                "wgmma wide" if Dh == 256 else "mma")
+            assert lib.dl4j_flash_smem_bytes(kind, 1, Dh) <= \
+                smem_limit_bytes(torch.device("cuda"))
+    Dh = 256
+    qkv = r(1, 1024, 3 * 2 * Dh)
+    fused = [qkv[..., i * 2 * Dh:(i + 1) * 2 * Dh].reshape(1, 1024, 2, Dh)
+             for i in range(3)] + [r(1, 1024, 2, Dh)]
+    assert fa._kernel_ready(fused[0]) is fused[0]
+    cases = [([r(1, T, 2, Dh) for _ in range(4)], True)
+             for T in (64, 128, 192, 2048)]
+    cases += [([r(1, 192, 2, Dh) for _ in range(4)], False),
+              ([r(2, 512, 2, Dh), r(2, 1024, 2, Dh), r(2, 1024, 2, Dh),
+                r(2, 512, 2, Dh)], False),
+              (fused, True)]
+    for i, ((q, k, v, do), causal) in enumerate(cases):
+        fa.reset_counts()
+        o, lse = fa.flash_forward(q, k, v, causal, None, with_lse=True)
+        dsum = fa._dsum(o, do)
+        runs = [(fa.flash_bwd_dq(q, k, v, do, lse, dsum, causal, None),)
+                + fa.flash_bwd_dkv(q, k, v, do, lse, dsum, causal, None)
+                for _ in range(2)]
+        assert fa.launches_by_route == {("fwd", "wgmma wide"): 1,
+                                        ("dq", "wgmma wide"): 2,
+                                        ("dkv", "wgmma wide"): 2}
+        ref = fa.flash_attention_plain_bwd(q.float(), k.float(), v.float(),
+                                           o.float(), lse, do.float(),
+                                           causal)
+        torch.cuda.synchronize()
+        for name, a, b, want in zip(("dQ", "dK", "dV"), runs[0], runs[1],
+                                    ref):
+            assert torch.equal(a, b), (i, name)
+            assert fa.error_in_tolerances(name, a, want, dt) <= 1.0, (i, name)
+    q, k, v, do = _chip_smoke().flash_ds_rounding_inputs(torch, Dh)
+    o, lse = fa.flash_forward(q, k, v, False, None, with_lse=True)
+    dsum = fa._dsum(o, do)
+    got = (fa.flash_bwd_dq(q, k, v, do, lse, dsum, False, None),) + \
+        fa.flash_bwd_dkv(q, k, v, do, lse, dsum, False, None)
+    ref = fa.flash_attention_plain_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    for name, a, want in zip(("dQ", "dK", "dV"), got, ref):
+        assert torch.equal(a, want), name
