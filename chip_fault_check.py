@@ -45,7 +45,10 @@ process per copy (the unchanged copy runs all three):
   H=384, 2048 and the main paths' widths), each output held row by row
   to the plain versions (`lstm.error_in_tolerances`), as phase 11 does,
   and the f32 kernels on one step whose product cancels
-  (`chip_smoke.lstm_cancel_units`, against the plain version in f64).
+  (`chip_smoke.lstm_cancel_units`, against the plain version in f64), and
+  the cooperative bf16 forward on inputs whose rows 8-15 of every 16
+  repeat rows 0-7 (`chip_smoke.lstm_mirror_units`, B = 64 and 128: the
+  repeated rows must be bit-identical, "mirror bits").
 
 The faults (`MUTATIONS`) drop tiles, terms or rows, and break each
 mechanism of the Hopper kernels: the forward's diagonal mask on the wrong
@@ -87,7 +90,13 @@ loaded before the cluster barrier and its xw tile of the wrong step; the
 f32 LSTM kernels' split TF32 (the small terms dropped, h_t's or dz[t]'s
 small plane left stale, the other unit group's RW small parts, one
 accumulator chained over all of K, which only the cancelling cases
-show) and the forward's h rows loaded before the cluster barrier. A
+show) and the forward's h rows loaded before the cluster barrier; the
+cooperative bf16 forward's step barrier (the producers' wait on the step
+counter skipped, or waiting for the previous step's count), an h chunk
+read before its TMA arrival, one warpgroup adding the split-K partials
+in its own order (which only the mirror bits show), the split-K
+hand-over reading the warpgroup's own partials, the xw tile of step t+2
+used at step t and the stash stored at the next step's position. A
 fault that makes the kernel trap (an mbarrier wait that times out) fails
 its check process, which counts as caught.
 
@@ -172,10 +181,11 @@ PV = "// acc (TR, hd) = acc * corr + P . V"
 STAGE = "__device__ __forceinline__ void stage_slice("
 KVV = "__device__ __forceinline__ float kv_value("
 MERGE = "paged_merge_kernel(const Call c) {"
-CELL = "__device__ __forceinline__ void fwd_cell("
+CELL = "__device__ void coop_consumer(CoopSmem& sm,"
 CONS = "__device__ void cluster_consumer(ClusterSmem& sm,"
 PROD = "__device__ void cluster_producer(ClusterSmem& sm,"
-FWDK = "lstm_fwd_kernel(const FwdArgs a) {"
+COOPP = "__device__ void coop_producer(CoopSmem& sm,"
+COOPX = "__device__ __forceinline__ void coop_load_x(CoopSmem& sm,"
 FCONS = "__device__ void fwd_consumer(FwdClusterSmem<ROWS>& sm,"
 TFC = "__device__ __forceinline__ void tf_chunk("
 TFF = "__device__ void tf_fwd_consumer(TfFwdSmem& sm,"
@@ -396,16 +406,45 @@ MUTATIONS = [
      KVV, [("return to_f32(from_f32<T>((float)v * scale));",
             "return to_f32(from_f32<T>((float)v)) * scale;")]),
     ("lstm: the input gate's peephole term dropped", LSTM, CELL, [
-        ("const float i = sigm(zi + sm.peep[ul] * c);",
-         "const float i = sigm(zi);")]),
+        ("const float ig = sigm_fast(z(0) + pI[e] * cp);",
+         "const float ig = sigm_fast(z(0));")]),
     ("lstm: the masked select taken on the wrong side (c)", LSTM, CELL, [
-        ("cs = mp ? cn : c;", "cs = mp ? c : cn;")]),
+        ("cs = mv[rr] > 0.f ? cn : cp;", "cs = mv[rr] > 0.f ? cp : cn;")]),
     ("lstm: backward c_prev at the first step not taken from c0", LSTM,
      CONS, [("sp.first ? a.c0 + (long long)r * H + u",
              "sp.first ? a.c + (long long)r * H + u")]),
-    ("lstm: forward skips the grid barrier", LSTM, FWDK, [
-        ("if (s + 1 < a.T) grid.sync();",
-         "if (s + 1 < a.T && a.T < 0) grid.sync();")]),
+    # the cooperative forward's step barrier: the producers' wait for every
+    # block's h_t on the step counter
+    ("lstm: forward skips the grid barrier", LSTM, COOPP, [
+        ("        sm90::flag_wait(a.sync, gridDim.x * (unsigned)s);\n", "")]),
+    ("lstm coop: the step counter waited for at the previous step's count",
+     LSTM, COOPP, [("sm90::flag_wait(a.sync, gridDim.x * (unsigned)s);",
+                    "sm90::flag_wait(a.sync, gridDim.x * (unsigned)(s - 1));")]),
+    # the consumers skip the full barrier of each step's last chunk
+    ("lstm coop: an h chunk read before its TMA arrival", LSTM, CELL, [
+        ("      sm90::mbar_wait(&sm.full[st], (q / S) & 1);",
+         "      if (c + cstep < nch) sm90::mbar_wait(&sm.full[st], "
+         "(q / S) & 1);")]),
+    # only inputs whose rows repeat show it ("mirror bits")
+    ("lstm coop: one warpgroup adds the split-K partials in its own order",
+     LSTM, CELL, [
+         ("          const float zp = split ? p + peer[2 * q4 + e] : p;",
+          "          if (split && wg == 1)\n"
+          "            return (p + (e ? xq[q4].y : xq[q4].x)) + "
+          "peer[2 * q4 + e];\n"
+          "          const float zp = split ? p + peer[2 * q4 + e] : p;")]),
+    ("lstm coop: the split-K hand-over reads the warpgroup's own partials",
+     LSTM, CELL, [("peer[i] = sm.xchg[1 - wg][i][wt];",
+                   "peer[i] = sm.xchg[wg][i][wt];")]),
+    ("lstm coop: the xw tile of step t+2 used at step t", LSTM, COOPX, [
+        ("  const int t = a.reverse ? a.T - 1 - s : s, b = s & 1;",
+         "  const int s2 = s + 2 < a.T ? s + 2 : s;\n"
+         "  const int t = a.reverse ? a.T - 1 - s2 : s2, b = s & 1;")]),
+    ("lstm coop: the stash stored at the next step's position", LSTM, CELL, [
+        ("      const long long row = (long long)t * B + r, o = row * H + u;",
+         "      const int tn = a.reverse ? (t > 0 ? t - 1 : t)\n"
+         "                               : (t + 1 < a.T ? t + 1 : t);\n"
+         "      const long long row = (long long)tn * B + r, o = row * H + u;")]),
     # f32 keeps a ragged H (196 = 128 + 68 units in two blocks)
     ("lstm: the last 4 units of a ragged f32 block never written", LSTM,
      TFF, [("      if (u < H) {\n        const float pI",
@@ -581,6 +620,16 @@ def lstm_cases(torch):
         units = {k: (float("inf") if v != v else v) for k, v in units.items()}
         cases.append({"case": f"lstm {kind} f32 cancelling product",
                       "units": units, "old_units": None})
+    for B in (64, 128):
+        for masked in (False, True):
+            units = cs.lstm_mirror_units(torch, L, 50, B, 1024, masked,
+                                         seed=43)
+            units = {k: (float("inf") if v != v else v)
+                     for k, v in units.items()}
+            cases.append({"case": f"lstm coop T=50 B={B} H=1024 "
+                                  f"{'masked' if masked else 'plain'}, "
+                                  "repeated rows",
+                          "units": units, "old_units": None})
     return cases
 
 

@@ -3,14 +3,31 @@
 at D=128, f32 at D=384 and 512), on one NVIDIA card.
 
     python3 chip_phase_profile.py    # about a minute on an H100
+    python3 chip_phase_profile.py --package OLD/deeplearning4j_tpu_torch
+
+`--package` instruments another copy of the package (an earlier
+commit's, unpacked with `git archive`): its cooperative forward is
+instrumented in the form that copy holds (the mma.sync kernel with its
+grid barrier, or the wgmma kernel with its step counter).
 
 Copies `deeplearning4j_tpu_torch/` into a temporary directory, plants
 `clock64()` readings around the phases of the consumer warpgroups of
-`lstm_fwd_cluster_kernel`, `lstm_fwd_tf32_kernel` and
-`lstm_bwd_tf32_kernel` (the copy's `csrc/lstm.cu`) and of
+`lstm_fwd_kernel` (the cooperative forward), `lstm_fwd_cluster_kernel`,
+`lstm_fwd_tf32_kernel` and `lstm_bwd_tf32_kernel` (the copy's
+`csrc/lstm.cu`) and of
 `flash_bwd_dq_wgmma_kernel`, `flash_bwd_dkv_wgmma_kernel` and the two
 `flash_bwd_*_tf32_cluster_kernel` (its `csrc/flash_attention.cu`; the
 checkout is never changed), builds it, and runs:
+- the cooperative bf16 forward (B <= 128) at row 5's shape (T=64,
+  B=128, H=1024; with and without the stash, and masked) and at path
+  4s's window (T=50, B=32): block 0's consumer warpgroups print their SM
+  cycles a step over the waits for the h[t-1] chunks (the TMA loads, and
+  behind them the step counter), the product, the split-K hand-over, the
+  xw wait, the cell phase, the arrival on the step counter and the stash
+  stores; its producer warp the wait for the counter and the arming of
+  the ring's stages. The mma.sync kernel it replaced (`--package` of an
+  earlier commit): block (0, 0)'s warp 0 the h loads and products, the
+  cell phase and the grid barrier;
 - the LSTM forward at main path 4's shape (T=8, B=2048, H=1024) and main
   path 4b's window (B=8192, H=256, unmasked and masked). Block (0, 0)'s
   two consumer warpgroups print their SM cycles per step, averaged over
@@ -94,6 +111,148 @@ LSTM_EDITS = [
 ]
 
 
+# The cooperative bf16 forward (lstm_fwd_kernel, B <= 128): block 0's
+# consumer warpgroups sum their SM cycles a step over the waits for the
+# h[t-1] chunks, the product (wgmma), the split-K hand-over, the wait for
+# the xw tile, the cell phase (gate chain and h_t stores), the arrival on
+# the step counter (the proxy fence, the block barrier, thread 0's
+# release) and the stash stores; its producer warp over the wait for the
+# counter (every block's h_t) and the arming of the stages
+COOP_EDITS = [
+    ("""  float acc[4][16];
+  for (int s = 0; s < a.T; ++s) {
+""", """  float acc[4][16];
+  long long pw = 0, pp = 0, ph = 0, px = 0, pc = 0, pa = 0, ps = 0;
+  for (int s = 0; s < a.T; ++s) {
+    const long long k0 = clock64();
+    long long kw = 0;
+"""),
+    ("""      const uint32_t q = (uint32_t)s * nch + c, st = q % S;
+      sm90::mbar_wait(&sm.full[st], (q / S) & 1);
+      sm90::wgmma_fence();
+""", """      const uint32_t q = (uint32_t)s * nch + c, st = q % S;
+      const long long kw0 = clock64();
+      sm90::mbar_wait(&sm.full[st], (q / S) & 1);
+      kw += clock64() - kw0;
+      sm90::wgmma_fence();
+"""),
+    ("    // the warpgroup's partial of accumulator element i",
+     "    const long long k1 = clock64();\n"
+     "    // the warpgroup's partial of accumulator element i"),
+    ("""    // ---- cell phase: the gate chain of the thread's cells
+    sm90::mbar_wait(&sm.x_full[s & 1], (s >> 1) & 1);
+""", """    const long long k2 = clock64();
+    // ---- cell phase: the gate chain of the thread's cells
+    sm90::mbar_wait(&sm.x_full[s & 1], (s >> 1) & 1);
+    const long long k3 = clock64();
+"""),
+    ("    // ---- h_t published: fenced",
+     "    const long long k4 = clock64();\n    // ---- h_t published: fenced"),
+    ("    // ---- the stash and the outputs, while the next h[t-1] is on its "
+     "way\n",
+     "    const long long k5 = clock64();\n"
+     "    // ---- the stash and the outputs, while the next h[t-1] is on its "
+     "way\n"),
+    ("""        if (MASKED) st_pair(a.hT + (long long)r * H + u, hv[rr][0], hv[rr][1]);
+      }
+    }
+  }
+}
+""", """        if (MASKED) st_pair(a.hT + (long long)r * H + u, hv[rr][0], hv[rr][1]);
+      }
+    }
+    const long long k6 = clock64();
+    pw += kw, pp += k1 - k0 - kw, ph += k2 - k1, px += k3 - k2;
+    pc += k4 - k3, pa += k5 - k4, ps += k6 - k5;
+  }
+  if (blockIdx.x == 0 && tid % 128 == 0)
+    printf("PHASES coop T=%d B=%d H=%d masked=%d stash=%d split=%d "
+           "cluster=%d wg=%d: h waits %lld, product %lld, hand-over %lld, "
+           "xw wait %lld, cell %lld, arrival %lld, stores %lld cycles per "
+           "step\\n", a.T, B, H, (int)MASKED, (int)STASH, (int)split, C, wg,
+           pw / a.T, pp / a.T, ph / a.T, px / a.T, pc / a.T, pa / a.T,
+           ps / a.T);
+}
+"""),
+    ("""  uint32_t q = 0;  // chunks armed before this one
+""", """  uint32_t q = 0;  // chunks armed before this one
+  long long fw = 0, fe = 0;
+"""),
+    ("""      sm90::mbar_wait_cluster(&sm.empty[st], ((q / S) & 1) ^ 1);
+      sm90::mbar_expect_tx(&sm.full[st], abytes);
+      if (c % C != rank) continue;""",
+     """      const long long e0 = clock64();
+      sm90::mbar_wait_cluster(&sm.empty[st], ((q / S) & 1) ^ 1);
+      fe += clock64() - e0;
+      sm90::mbar_expect_tx(&sm.full[st], abytes);
+      if (c % C != rank) continue;"""),
+    ("""        sm90::flag_wait(a.sync, gridDim.x * (unsigned)s);
+""", """        const long long f0 = clock64();
+        sm90::flag_wait(a.sync, gridDim.x * (unsigned)s);
+        fw += clock64() - f0;
+"""),
+    ("""        sm90::tma_load_3d_multicast(sm.a[st], &m.h, &sm.full[st], mask,
+                                    c * kChunk, 0, s & 1);
+    }
+  }
+}
+""", """        sm90::tma_load_3d_multicast(sm.a[st], &m.h, &sm.full[st], mask,
+                                    c * kChunk, 0, s & 1);
+    }
+  }
+  if (blockIdx.x == 0)
+    printf("PHASES coop producer T=%d: counter wait %lld, stage arming "
+           "%lld cycles per step\\n", a.T, fw / a.T, fe / a.T);
+}
+"""),
+]
+# The cooperative forward on mma.sync (h rows from L2, grid.sync), as the
+# commits before its redesign hold it: block (0, 0)'s warp 0 sums its
+# cycles a step over the h loads and products (one 16-row tile), the
+# cell phase (xw loads, gate chain, stores) and the grid barrier
+COOP_OLD_EDITS = [
+    ("""                                         const bf16* hcur, bf16* hnext) {
+  const int warp""", """                                         const bf16* hcur, bf16* hnext,
+                                         long long& tp, long long& tc) {
+  const int warp"""),
+    ("""    float acc[4][4] = {};
+    const bf16* rows = hcur""", """    float acc[4][4] = {};
+    const long long k0 = clock64();
+    const bf16* rows = hcur"""),
+    ("""#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int rl = tile * kRows""", """    const long long k1 = clock64();
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int rl = tile * kRows"""),
+    ("""                                    acc[2][e], acc[3][e], hcur, hnext);
+    }
+""", """                                    acc[2][e], acc[3][e], hcur, hnext);
+    }
+    tp += k1 - k0, tc += clock64() - k1;
+"""),
+    ("""  DT* hb = static_cast<DT*>(a.hbuf);
+  for (int s = 0; s < a.T; ++s) {""", """  DT* hb = static_cast<DT*>(a.hbuf);
+  long long tp = 0, tc = 0, tb = 0;
+  for (int s = 0; s < a.T; ++s) {"""),
+    ("fwd_step<MASKED, STASH>(a, sm, t, s == a.T - 1, r0, nrows, hcur, hnext);",
+     "fwd_step<MASKED, STASH>(a, sm, t, s == a.T - 1, r0, nrows, hcur, hnext,"
+     " tp, tc);"),
+    ("""    if (s + 1 < a.T) grid.sync();  // h_t visible; no block still reads h_{t-1}
+  }
+""", """    const long long k2 = clock64();
+    if (s + 1 < a.T) grid.sync();  // h_t visible; no block still reads h_{t-1}
+    tb += clock64() - k2;
+  }
+  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0)
+    printf("PHASES coop (mma.sync) T=%d B=%d H=%d masked=%d stash=%d rows=%d: h "
+           "loads and products %lld, cell %lld, grid barrier %lld cycles per "
+           "step\\n", a.T, a.B, a.H, (int)MASKED, (int)STASH, a.rows,
+           tp / a.T, tc / a.T, tb / a.T);
+"""),
+]
+
+
 def _clock(i: int, indent: int) -> str:
     """Reading c<i> of the SM clock, as a line of the given indent."""
     return " " * indent + f"const long long c{i} = clock64();\n"
@@ -127,6 +286,9 @@ _DK = _tally("dK/dV", ["stage wait", "dP^T", "P^T wait", "dS^T",
              "t);")
 _WAIT_J = "    sm90::mbar_wait(&sm.full[st], (j / kBwStages) & 1);\n"
 _WAIT_N = "    sm90::mbar_wait(&sm.full[st], (n / kBwStages) & 1);\n"
+# the D=128 dK/dV consumers (the D=256 ones hold some of the same lines)
+DVC = "__device__ __forceinline__ void dv_consumer("
+DKC = "__device__ __forceinline__ void dk_consumer("
 FLASH_EDITS = [
     # dQ consumer: stage wait, S and dP, P and dS, the dQ product
     ("  for (int i = 0; i < 64; ++i) dq[i] = 0.f;\n",
@@ -148,11 +310,11 @@ FLASH_EDITS = [
     (_WAIT_N + "    sm90::wgmma_fence();\n    issue_s64(s, sm.k,",
      _clock(0, 4) + _WAIT_N + _clock(1, 4)
      + "    sm90::wgmma_fence();\n    issue_s64(s, sm.k,"),
-    ("    sm90::fence_regs(s);\n    // P^T = ex2",
+    (DVC, "    sm90::fence_regs(s);\n    // P^T = ex2",
      "    sm90::fence_regs(s);\n" + _clock(2, 4) + "    // P^T = ex2"),
-    ("    // hand P^T to warpgroup 1",
+    (DVC, "    // hand P^T to warpgroup 1",
      _clock(3, 4) + "    // hand P^T to warpgroup 1"),
-    ("    sm90::mbar_arrive(&sm.p_full[pb]);\n",
+    (DVC, "    sm90::mbar_arrive(&sm.p_full[pb]);\n",
      "    sm90::mbar_arrive(&sm.p_full[pb]);\n" + _clock(4, 4)),
     ("    issue_pb64(dv, p, sm.dO[st][0]);  // dV += P^T dO\n"
      "    sm90::wgmma_wait<0>();\n    sm90::fence_regs(dv);\n",
@@ -166,11 +328,11 @@ FLASH_EDITS = [
     (_WAIT_N + "    sm90::wgmma_fence();\n    issue_s64(dp, sm.v,",
      _clock(0, 4) + _WAIT_N + _clock(1, 4)
      + "    sm90::wgmma_fence();\n    issue_s64(dp, sm.v,"),
-    ("    sm90::fence_regs(dp);\n    sm90::mbar_wait(&sm.p_full[pb], "
+    (DKC, "    sm90::fence_regs(dp);\n    sm90::mbar_wait(&sm.p_full[pb], "
      "(n >> 1) & 1);\n",
      "    sm90::fence_regs(dp);\n" + _clock(2, 4)
      + "    sm90::mbar_wait(&sm.p_full[pb], (n >> 1) & 1);\n" + _clock(3, 4)),
-    ("    pack16(p, dp);\n", "    pack16(p, dp);\n" + _clock(4, 4)),
+    (DKC, "    pack16(p, dp);\n", "    pack16(p, dp);\n" + _clock(4, 4)),
     ("    issue_pb64(dk, p, sm.q[st][0]);  // dK += dS^T Q\n"
      "    sm90::wgmma_wait<0>();\n    sm90::fence_regs(dk);\n",
      "    issue_pb64(dk, p, sm.q[st][0]);  // dK += dS^T Q\n"
@@ -331,17 +493,31 @@ CLUSTER_EDITS = _cluster_edits(
 
 
 def instrumented(src: str, edits) -> str:
-    for text, new in edits:
-        if src.count(text) != 1:
+    """`src` with each edit made: (text, new) replaces the one occurrence
+    of `text`; (after, text, new) the first `text` after `after`'s one
+    occurrence."""
+    for *after, text, new in edits:
+        at = 0
+        if after:
+            if src.count(after[0]) != 1:
+                raise RuntimeError(f"instrumentation anchor not found once: "
+                                   f"{after[0][:60]!r}")
+            at = src.index(after[0])
+        elif src.count(text) != 1:
             raise RuntimeError(f"instrumentation anchor not found once: "
                                f"{text[:60]!r}")
-        src = src.replace(text, new)
+        i = src.find(text, at)
+        if i < 0:
+            raise RuntimeError(f"instrumentation text not found: "
+                               f"{text[:60]!r}")
+        src = src[:i] + new + src[i + len(text):]
     return src
 
 
 def run(root: str) -> None:
-    """In the copy's process: the three LSTM forward launches, then the
-    flash backward's two kernels at path 2's shape."""
+    """In the copy's process: the cooperative forward at row 5's shape and
+    at path 4s's window, the three LSTM forward launches, the f32 kernels
+    and the flash backward's kernels."""
     import torch
 
     sys.path[:0] = [root, REPO]
@@ -352,6 +528,13 @@ def run(root: str) -> None:
     for mod in (L, fa):
         if not mod.__file__.startswith(root):
             raise RuntimeError(f"ran {mod.__file__}")
+    for T, B, masked, stash in ((64, 128, False, True),
+                                (64, 128, False, False),
+                                (64, 128, True, True), (50, 32, False, True)):
+        inp = cs.lstm_inputs(torch, T, B, 1024, torch.bfloat16, 76, masked)
+        L.lstm_fwd(inp["xw"], inp["rw"], inp["peep"], inp["h0"], inp["c0"],
+                   inp["mask"], with_stash=stash)
+        torch.cuda.synchronize()
     for T, B, H, masked in ((8, 2048, 1024, False), (8, 8192, 256, False),
                             (8, 8192, 256, True)):
         inp = cs.lstm_inputs(torch, T, B, H, torch.bfloat16, 77, masked)
@@ -382,19 +565,29 @@ def run(root: str) -> None:
         torch.cuda.synchronize()
 
 
-def main() -> int:
+def main(argv) -> int:
+    """`chip_phase_profile.py [--package DIR]`: instrument the package at
+    DIR (default: the checkout's; a copy of an earlier commit's package
+    gets the cooperative forward in the form it holds there)."""
     import torch
 
     if not torch.cuda.is_available():
         print("chip_phase_profile: no CUDA device available", file=sys.stderr)
         return 2
+    pkg = os.path.join(REPO, PKG)
+    if "--package" in argv:
+        pkg = os.path.abspath(argv[argv.index("--package") + 1])
     root = tempfile.mkdtemp(prefix="kernel_phases_")
     try:
-        shutil.copytree(os.path.join(REPO, PKG), os.path.join(root, PKG),
+        shutil.copytree(pkg, os.path.join(root, PKG),
                         ignore=shutil.ignore_patterns("_build", "__pycache__"))
-        for name, edits in (("lstm", LSTM_EDITS + TF32_EDITS),
-                            ("flash_attention",
-                             FLASH_EDITS + CLUSTER_EDITS)):
+        path = os.path.join(root, PKG, "csrc", "lstm.cu")
+        with open(path) as f:
+            old_coop = "cg::this_grid()" in f.read()
+        for name, edits in (
+                ("lstm", LSTM_EDITS + TF32_EDITS
+                 + (COOP_OLD_EDITS if old_coop else COOP_EDITS)),
+                ("flash_attention", FLASH_EDITS + CLUSTER_EDITS)):
             path = os.path.join(root, PKG, "csrc", f"{name}.cu")
             with open(path) as f:
                 src = f.read()
@@ -413,4 +606,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

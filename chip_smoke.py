@@ -3,6 +3,13 @@
 NVIDIA card.
 
     python3 chip_smoke.py            # every phase, a few minutes on an H100
+    python3 chip_smoke.py --lstm-timing [--package OLD/deeplearning4j_tpu_torch]
+
+`--lstm-timing` runs phase 17 alone (the LSTM source built, the rows
+checked and timed, launch counts 0) on the checkout's package or, with
+`--package`, on another copy of it (an earlier commit's, unpacked with
+`git archive` into a git-ignored directory), and prints one JSON line of
+the rows' times. Run it old/new/new/old in one call for a kernel A/B.
 
 Phases, each of which makes the script exit non-zero when it fails:
 
@@ -125,8 +132,16 @@ Phases, each of which makes the script exit non-zero when it fails:
    lengths, a row never masked, a row masked from t=0 and a hole; the
    backward on the forward kernel's own stash), every output held row by
    row (`lstm.error_in_tolerances`: 1e-4 f32, 2^-6 bf16, of the row's
-   largest |ref|); the f32 kernels (split TF32, two forward passes a
-   block at H=2048) run twice with bit-identical outputs, and the split-TF32
+   largest |ref|), and the forward without the stash beside it (h_out,
+   hT, cT); the cooperative bf16 forward at B = 1, 31, 32, 33, 100, H =
+   1024 and 196, masked and not, forward and reverse (`lstm_coop_cases`),
+   each also run twice with bit-identical outputs (with and without the
+   stash, and the backward on its stash) and every forward launch on
+   "cooperative", and on inputs whose rows 8-15 of every 16 repeat rows
+   0-7 (B = 64, where its warpgroups split K, and 128; T=50): the
+   repeated rows bit-identical; the f32 kernels (split TF32, two forward
+   passes a block at H=2048) run twice with bit-identical outputs, and the
+   split-TF32
    forward and backward on one step whose product cancels (partial sums
    about 30 times the result: a tensor-core sum chained over all of K
    lands outside the tolerance) against the plain version in f64; H
@@ -189,14 +204,19 @@ Phases, each of which makes the script exit non-zero when it fails:
    C=128 chunk; each paged
    case with its launch plan (route, slice, splits);
 17. LSTM timing: rows 5-8 at main path 4's shape (T=64, B=2048, H=1024,
-   unmasked) and main path 4b's window (T=24, B=8192, H=256, unmasked and
-   masked), bf16, the same way, beside their plain versions, the bound
-   (2*T*B*H*4H flops; each input read and each output written once) and
-   cuDNN's LSTM as yardstick (`torch.nn.LSTM`: no peepholes, its own input
-   GEMM; forward minus one input matmul, and fwd+bwd minus fwd), with
-   each launch plan; the two bf16 forward routes at their boundary (T=64,
-   H=1024, B=128 cooperative and B=129 clusters, with and without the
-   stash); the f32 kernels (split TF32) at T=8, B=2048, H=1024, at path
+   unmasked), main path 4b's window (T=24, B=8192, H=256, unmasked and
+   masked) and main path 4s's window (T=50, B=32, H=1024: the cooperative
+   forward with and without the stash, the cluster backward) and its
+   `output` (T=1000, B=32: the forward without the stash), bf16, the
+   same way, beside their plain versions, the bound (2*T*B*H*4H flops;
+   each input read and each output written once) and cuDNN's LSTM as
+   yardstick (`torch.nn.LSTM`: no peepholes, its own input GEMM; forward
+   minus one input matmul, and fwd+bwd minus fwd), with each launch plan;
+   the two bf16 forward routes at their boundary (T=64, H=1024, B=128
+   cooperative with and without the stash and masked, B=129 and 256
+   clusters), the cooperative rows beside the time of the mma.sync
+   kernel they replaced (`LSTM_COOP_MMA_MS`); the f32 kernels (split TF32) at T=8, B=2048,
+   H=1024, at path
    4f's shape (T=64, with its launch counts) and masked at path 4b's
    window, against cuDNN in f32 (TF32 off), bound 3 x flops / 495
    TFLOP/s or the bytes, the f32-FMA bound printed beside it; every
@@ -206,7 +226,23 @@ Phases, each of which makes the script exit non-zero when it fails:
    (route counts set to 0 before and read after: loop > 0, fused 0, no
    kernel launch); one layer's outputs and gradients, f32 and bf16,
    against the f32 loop on the CPU; a GravesLSTM(2304) network's 2 SGD
-   fit steps against the CPU (losses rtol 1e-5, params atol 1e-5).
+   fit steps against the CPU (losses rtol 1e-5, params atol 1e-5);
+19. train (main path 4s): the `lstm_large` network of phase 13 (bf16
+   compute over f32 masters, RMSPROP lr 0.1) fed the mini-batches of
+   Deeplearning4j's GravesLSTMCharModellingExample: B=32 sequences of
+   T=1000, tBPTT 50, one-hot rows as features, made from a seed: after a
+   warm-up fit, 5 timed fits (median wall and its spread, samples/s,
+   loss (finite), peak device memory); counts set to 0 before the first
+   and read after it: 40 unmasked
+   forward launches, all on "cooperative", and 40 unmasked backward
+   launches on "bf16 clusters", nothing masked, no plain call; then one
+   `output` of the batch from the network (its f32 masters, as the JAX
+   package's `output` runs: 2 forward launches without the stash on "tf32
+   clusters") and one from a bf16 copy of it (the same weights, `dtype=
+   bfloat16`: 2 launches without the stash on "cooperative"), finite
+   (B, T, vocab) probabilities; one more fit under
+   torch.profiler (idle share, top kernels). It runs after phase 18, and
+   its launch counts go into phase 17's rows at its window.
 
 Prints one JSON line of per-kernel numbers, then the card's
 `nvidia-smi` line, then as the last line
@@ -1644,6 +1680,15 @@ LSTM_SMALL = dict(vocab=64, hidden=256, B=8192, T=64, tbptt=24)
 LSTM_STEPS = 5
 LSTM_F32_STEPS = 3  # path 4f: the f32 lstm_large step
 LSTM_PARITY_ATOL = 1e-4  # lr / 100 at the parity run's lr 0.01
+# path 4s: lstm_large fed Deeplearning4j's GravesLSTMCharModellingExample
+# mini-batches (mini-batch 32, sequences of 1000, tBPTT 50)
+LSTM_4S = dict(vocab=256, hidden=1024, B=32, T=1000, tbptt=50)
+LSTM_4S_FITS = 5  # timed fits after the warm-up; the first is counted
+# the cooperative forward on mma.sync with a grid barrier, which the wgmma
+# kernel replaced: (T, B, masked, stash) -> ms on an H100 (PERF.md section
+# 6; `chip_smoke.py --lstm-timing --package OLD` times an earlier package)
+LSTM_COOP_MMA_MS = {(64, 128, False, True): 1.1039,
+                    (64, 128, False, False): 0.9858}
 
 
 def lstm_inputs(torch, T, B, H, dtype, seed, masked):
@@ -1699,15 +1744,28 @@ def lstm_plain_ref(L, inp, reverse, got):
 LSTM_OUTS = ("h_out", "hT", "cT", "h_sel", "c", "gates", "dz", "dhc0")
 
 
+def lstm_fwd_no_stash(L, inp, reverse):
+    """The forward kernel without the training stash (inference): (h_out,
+    hT, cT)."""
+    return L.lstm_fwd(inp["xw"], inp["rw"], inp["peep"], inp["h0"],
+                      inp["c0"], inp["mask"], reverse=reverse,
+                      with_stash=False)[:3]
+
+
 def lstm_case_units(torch, L, T, B, H, dtype, masked, reverse, seed):
-    """One forward+backward kernel run against the plain versions:
-    ({output: error in tolerances}, largest absolute error)."""
+    """One forward+backward kernel run, and one forward without the
+    stash, against the plain versions: ({output: error in tolerances},
+    largest absolute error)."""
     inp = lstm_inputs(torch, T, B, H, dtype, seed, masked)
     got, bwd = lstm_run(L, inp, reverse)
+    lean = lstm_fwd_no_stash(L, inp, reverse)
     ref, rb = lstm_plain_ref(L, inp, reverse, got)
     torch.cuda.synchronize()
     units, err = {}, 0.0
-    for n, a, b in zip(LSTM_OUTS, list(got) + list(bwd), list(ref) + list(rb)):
+    for n, a, b in zip(LSTM_OUTS + tuple(f"{n} (no stash)"
+                                          for n in LSTM_OUTS[:3]),
+                       list(got) + list(bwd) + list(lean),
+                       list(ref) + list(rb) + list(ref[:3])):
         if a is None:
             continue
         units[n] = L.error_in_tolerances(a, b, dtype)
@@ -1716,17 +1774,55 @@ def lstm_case_units(torch, L, T, B, H, dtype, masked, reverse, seed):
 
 
 def lstm_same_bits(torch, L, T, B, H, dtype, masked, reverse, seed):
-    """The forward and backward kernels run twice on the same inputs must
-    give the same bits (sums in a fixed order, no atomics)."""
+    """The forward and backward kernels, and the forward without the
+    stash, run twice on the same inputs must give the same bits (sums in
+    a fixed order, no atomics)."""
     inp = lstm_inputs(torch, T, B, H, dtype, seed, masked)
-    first = lstm_run(L, inp, reverse)
-    second = lstm_run(L, inp, reverse)
+    runs = []
+    for _ in range(2):
+        got, bwd = lstm_run(L, inp, reverse)
+        runs.append(list(got) + list(bwd)
+                    + list(lstm_fwd_no_stash(L, inp, reverse)))
     torch.cuda.synchronize()
-    for n, a, b in zip(LSTM_OUTS, list(first[0]) + list(first[1]),
-                       list(second[0]) + list(second[1])):
+    names = LSTM_OUTS + tuple(f"{n} (no stash)" for n in LSTM_OUTS[:3])
+    for n, a, b in zip(names, *runs):
         if a is not None and not torch.equal(a, b):
             raise AssertionError(f"LSTM {n} differs between two runs at "
                                  f"T={T} B={B} H={H} {dtype}")
+
+
+def lstm_mirror_units(torch, L, T, B, H, masked, seed):
+    """The bf16 forward (with its stash and without) on inputs whose rows
+    8-15 of every 16 repeat rows 0-7 (xw, h0, c0 and the mask): the
+    repeated rows must come out bit-identical, since every row's sums run
+    in one order. In the cooperative kernel at B <= 64 the two warpgroups
+    split K and each finishes one of the two rows of such a pair from
+    both partials, so a warpgroup that adds them in its own order shows
+    here, not against the tolerance. Also held to the plain version:
+    {output: error in tolerances, "mirror bits": 0, or inf when a pair
+    differs}."""
+    inp = lstm_inputs(torch, T, B, H, torch.bfloat16, seed, masked)
+    src = torch.arange(B, device="cuda")
+    src = torch.where(src % 16 >= 8, src - 8, src)
+    inp["xw"] = inp["xw"][:, src].contiguous()
+    inp["h0"], inp["c0"] = inp["h0"][src].contiguous(), inp["c0"][src].contiguous()
+    if masked:
+        inp["mask"] = inp["mask"][:, src].contiguous()
+    got = L.lstm_fwd(inp["xw"], inp["rw"], inp["peep"], inp["h0"],
+                     inp["c0"], inp["mask"])
+    lean = lstm_fwd_no_stash(L, inp, False)
+    ref = L.lstm_fwd_plain(inp["xw"], inp["rw"], inp["peep"], inp["h0"],
+                           inp["c0"], inp["mask"])
+    torch.cuda.synchronize()
+    units = {n: L.error_in_tolerances(a, b, torch.bfloat16)
+             for n, a, b in zip(LSTM_OUTS, got, ref) if a is not None}
+    same = True
+    for t in list(got) + list(lean):
+        if t is not None:
+            rows = t if t.dim() == 2 else t.transpose(0, 1)  # (B, ...)
+            same &= torch.equal(rows, rows[src])
+    units["mirror bits"] = 0.0 if same else math.inf
+    return units
 
 
 def lstm_cancel_inputs(torch, kind, B, H, seed):
@@ -1793,8 +1889,9 @@ def lstm_cases(torch):
     kernels refused before: f32 at H=1024, B=2048 and at H=2048, bf16 at
     H=2048 (clusters of 16 blocks of 128 units, 64-row forward tiles) and
     an odd H (385 and 195: padded to a multiple of 8 by the wrappers), on
-    both bf16 forward routes; and the cooperative forward's widest batch
-    (B=128) beside the cluster forward's narrowest (B=129)."""
+    both bf16 forward routes; the cooperative forward's widest batch
+    (B=128) beside the cluster forward's narrowest (B=129); and its small
+    batches (`lstm_coop_cases`)."""
     cases = []
     for dt in (torch.float32, torch.bfloat16):
         for (T, B, H) in ((1, 8, 128), (2, 8, 256), (9, 37, 196),
@@ -1815,7 +1912,22 @@ def lstm_cases(torch):
               (3, 8, 195, bf, True, False),
               (5, 128, 1024, bf, True, False),
               (5, 129, 1024, bf, False, True)]
+    cases += [(T, B, H, bf, masked, reverse)
+              for T, B, H, masked, reverse in lstm_coop_cases()]
     return cases
+
+
+def lstm_coop_cases():
+    """(T, B, H, masked, reverse) of the cooperative bf16 forward's small
+    batches: B = 1, 31, 32, 33 (the warpgroups split K at 64 rows or
+    fewer; 31 and 33 are ragged in the 8-row boxes and the 16-row warp
+    tiles) and 100 (each warpgroup its own rows), at H = 1024 (128 blocks
+    in clusters of 2) and the ragged 196 (25 blocks of 8 units padded to
+    32, in clusters of 8), masked and not, forward and reverse; T = 20
+    walks the h ping-pong and the two xw buffers many times."""
+    return [(20, B, H, masked, reverse) for H in (1024, 196)
+            for B in (1, 31, 32, 33, 100) for masked in (False, True)
+            for reverse in (False, True)]
 
 
 def lstm_plan_line(L, torch, kind, B, H, dtype=None, masked=False):
@@ -1895,6 +2007,32 @@ def phase_lstm_kernels(torch, L, M):
     log("  f32 (split-TF32 route): bits identical on rerun at "
         "B=2048 H=1024, B=37 H=196 masked reverse, B=64 H=2048, B=300 "
         "H=385")
+    bf = torch.bfloat16
+    for T, B, H, masked, reverse in lstm_coop_cases():
+        L.reset_counts()
+        lstm_same_bits(torch, L, T, B, H, bf, masked, reverse, seed=41)
+        fwd = {r: n for (k, r), n in L.launches_by_route.items()
+               if k == "fwd"}
+        if set(fwd) != {"cooperative"}:
+            raise AssertionError(f"B={B} H={H}: forward launches by route "
+                                 f"{fwd}, all expected on 'cooperative'")
+    log(f"  bf16 cooperative forward: bits identical on rerun (with and "
+        f"without the stash, and the backward on its stash) and every "
+        f"forward launch on 'cooperative' at B = 1, 31, 32, 33, 100, H = "
+        f"1024 and 196, masked and not, forward and reverse "
+        f"({len(lstm_coop_cases())} cases)")
+    for B in (64, 128):
+        for masked in (False, True):
+            units = lstm_mirror_units(torch, L, 50, B, 1024, masked, seed=43)
+            worst = max(units.values())
+            log(f"  bf16 cooperative forward, rows 8-15 of every 16 "
+                f"repeating rows 0-7, T=50 B={B} H=1024 "
+                f"{'masked' if masked else 'plain'}: repeated rows "
+                f"{'bit-identical' if units['mirror bits'] == 0 else 'DIFFER'}"
+                f", worst {worst:.3f} of tolerance "
+                f"{'ok' if worst <= 1 else 'FAIL'}")
+            if worst > 1:
+                raise AssertionError(f"LSTM mirrored rows: {units}")
     for kind in ("fwd", "bwd"):
         units = lstm_cancel_units(torch, L, kind)
         worst = max(units.values())
@@ -2282,6 +2420,90 @@ def phase_lstm_tbptt(torch, M, card):
     return launches
 
 
+def phase_lstm_4s(torch, M, card):
+    """Main path 4s: bench.py's lstm_large char-RNN at full width (vocab
+    256, two GravesLSTM(1024), RMSPROP lr 0.1, bf16 compute over f32
+    masters) fed the mini-batches of Deeplearning4j's
+    GravesLSTMCharModellingExample: B=32 sequences of T=1000, tBPTT 50,
+    one-hot rows as features (path 4b's reason). A warm-up fit, then
+    `LSTM_4S_FITS` timed fits (the median wall and the spread), the first
+    of them counted (20 windows: 40 unmasked forward launches on
+    "cooperative", 40 backward on "bf16 clusters", nothing masked, no
+    plain call), one
+    `output` of the batch from the network (in its f32 masters, as the
+    JAX package's `output` runs: 2 forward launches without the stash on
+    "tf32 clusters") and one from a bf16 copy of it (`dtype=bfloat16`, the
+    same weights: 2 on "cooperative"), and a traced fit. Returns the
+    launch counts of the fit and of the bf16 output."""
+    import numpy as np
+
+    L = M["lstm"]
+    V, H, B, T, W = (LSTM_4S[k] for k in ("vocab", "hidden", "B", "T",
+                                           "tbptt"))
+    net = M["MultiLayerNetwork"](char_rnn_conf(M, V, H, seed=1, tbptt=W),
+                                 dtype=torch.float32,
+                                 compute_dtype=torch.bfloat16, device="cuda")
+    net.init()
+    (x0, y0), (x1, y1) = one_hot_batches(np, V, B, T, 2, 4)
+    net.fit(M["DataSet"](x0, y0))   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    L.reset_counts()
+    walls, fit = [], None
+    for _ in range(LSTM_4S_FITS):
+        t0 = time.perf_counter()
+        net.fit(M["DataSet"](x1, y1))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        fit = fit or (dict(L.launches), dict(L.launches_by_route),
+                      (L.lstm_fwd_plain.calls, L.lstm_bwd_plain.calls))
+    wall = sorted(walls)[len(walls) // 2]
+    peak = torch.cuda.max_memory_allocated()
+    loss = net.score_value
+    outs, inf = [], []
+    lean = M["MultiLayerNetwork"](char_rnn_conf(M, V, H, seed=1, tbptt=W),
+                                  dtype=torch.bfloat16, device="cuda")
+    lean.init()
+    lean.set_params(net.params())
+    for model in (net, lean):
+        L.reset_counts()
+        outs.append(model.output(x1))
+        torch.cuda.synchronize()
+        inf.append((dict(L.launches), dict(L.launches_by_route),
+                    (L.lstm_fwd_plain.calls, L.lstm_bwd_plain.calls)))
+    finite = all(bool(torch.isfinite(o).all()) for o in outs)
+    trace = traced(torch, lambda: net.fit(M["DataSet"](x0, y0)))
+    n_win = -(-T // W)
+    log(f"  {len(walls)} fits of B={B} x T={T} (H={H}, vocab {V}) in "
+        f"{n_win} windows of {W}: wall median {1e3 * wall:.2f} ms (min "
+        f"{1e3 * min(walls):.2f}, max {1e3 * max(walls):.2f}; "
+        f"{[round(1e3 * w, 2) for w in walls]}), {B / wall:.1f} samples/s "
+        f"at the median, loss {loss}, peak device memory "
+        f"{peak / 2**30:.2f} GiB ({peak} bytes) [{card}]")
+    log(f"  LSTM launches over the first timed fit {fit[0]}, by route "
+        f"{fit[1]}, plain calls {fit[2]}")
+    for name, o, (launches, routes, plain) in zip(("f32 masters", "bf16 copy"),
+                                                  outs, inf):
+        log(f"  output ({name}) {tuple(o.shape)} {str(o.dtype)[6:]}: "
+            f"launches {launches}, by route {routes}, plain calls {plain}")
+    log(f"  outputs finite: {finite}")
+    log(f"  traced fit (torch.profiler, not in the wall time): {trace}")
+    n = 2 * n_win
+    want = ({("fwd", False, False): n, ("bwd", False, False): n},
+            {("fwd", "cooperative"): n, ("bwd", "bf16 clusters"): n}, (0, 0))
+    want_out = [({("fwd", False, False): 2}, {("fwd", route): 2}, (0, 0))
+                for route in ("tf32 clusters", "cooperative")]
+    if fit != want or inf != want_out or not np.isfinite(loss) \
+            or not finite or any(tuple(o.shape) != (B, T, V) for o in outs):
+        raise AssertionError(f"expected {want} in the fit and {want_out} in "
+                             f"the outputs, a finite loss and finite outputs "
+                             f"of shape {(B, T, V)}: {fit}, {inf}, {loss}, "
+                             f"{finite}, {[tuple(o.shape) for o in outs]}")
+    del net, lean
+    torch.cuda.empty_cache()
+    return {"fit": fit[0], "output": inf[1][0]}
+
+
 def lstm_work(kind, masked, T, B, H, e=2, stash=True):
     """FLOPs and bytes of one launch of `e`-byte elements: 2*T*B*H*4H
     flops for the recurrent product (the gate chain's elementwise work is
@@ -2343,11 +2565,18 @@ def cudnn_lstm_ms(torch, T, B, H, f32=False):
 def phase_lstm_timing(torch, L, counts4, counts4b, counts4f):
     """Rows 5-8 at the main paths' shapes (bf16): path 4 runs the
     unmasked kernels at T=64, B=2048, H=1024; path 4b all four at a
-    window of T=24, B=8192, H=256. Then the two bf16 forward routes at
-    their boundary (T=64, H=1024: the cooperative kernel at B=128, the
-    cluster kernel at B=129), and the f32 kernels (split TF32) at T=8,
-    B=2048, H=1024, at path 4f's shape (T=64, with its launch counts) and
-    masked at path 4b's window. An f32 row on the split-TF32 route is
+    window of T=24, B=8192, H=256; path 4s the unmasked ones at a window
+    of T=50, B=32, H=1024 (the cooperative forward, with the stash in
+    `fit` and without it in `output`, and the cluster backward; their
+    launch counts are filled in by `lstm_4s_launches` once phase 19 has
+    run). Then the
+    two bf16 forward routes at their boundary (T=64, H=1024: the
+    cooperative kernel at B=128, with and without the stash and masked,
+    the cluster kernel at B=129 and 256), and the f32 kernels (split
+    TF32) at T=8, B=2048, H=1024, at path 4f's shape (T=64, with its
+    launch counts) and masked at path 4b's window. The cooperative rows
+    print the replaced mma.sync kernel's time beside theirs
+    (`LSTM_COOP_MMA_MS`). An f32 row on the split-TF32 route is
     bound by its three TF32 passes (3 x flops / 495 TFLOP/s) or its
     bytes; the f32-FMA bound (flops / 67 TFLOP/s) is logged beside it.
     Every row's outputs are held to the plain versions first, as in phase
@@ -2357,8 +2586,12 @@ def phase_lstm_timing(torch, L, counts4, counts4b, counts4f):
                torch.bfloat16),
               (LSTM_SMALL["tbptt"], 8192, 256, True, counts4b,
                torch.bfloat16),
+              (LSTM_4S["tbptt"], LSTM_4S["B"], LSTM_4S["hidden"], False,
+               {}, torch.bfloat16),
               (64, 128, 1024, False, {}, torch.bfloat16),
+              (64, 128, 1024, True, {}, torch.bfloat16),
               (64, 129, 1024, False, {}, torch.bfloat16),
+              (64, 256, 1024, False, {}, torch.bfloat16),
               (8, 2048, 1024, False, {}, torch.float32),
               (64, 2048, 1024, False, counts4f, torch.float32),
               (LSTM_SMALL["tbptt"], 8192, 256, True, {}, torch.float32)]
@@ -2375,7 +2608,7 @@ def phase_lstm_timing(torch, L, counts4, counts4b, counts4f):
         units = {n: L.error_in_tolerances(a, b, dt) for n, a, b in
                  zip(LSTM_OUTS, list(got) + list(bwd), list(ref) + list(rb))
                  if a is not None}
-        del ref, rb
+        del rb
         worst = max(units, key=units.get)
         log(f"  T={T} B={B} H={H} {str(dt)[6:]} "
             f"{'masked' if masked else 'plain'}: worst {units[worst]:.3f} "
@@ -2402,7 +2635,8 @@ def phase_lstm_timing(torch, L, counts4, counts4b, counts4f):
         f32 = dt == torch.float32
         if (T, B, H, f32) not in yard:
             yard[(T, B, H, f32)] = cudnn_lstm_ms(torch, T, B, H, f32)
-        kinds = ("fwd", "bwd") if B in (2048, 8192) else ("fwd",)
+        kinds = ("fwd", "bwd") if B in (2048, 8192, LSTM_4S["B"]) \
+            else ("fwd",)
         for j, kind in enumerate(kinds):
             ms = time_ms(torch, fns[kind][0])
             plain_ms = time_ms(torch, fns[kind][1], iters=5, warmup=1)
@@ -2432,26 +2666,107 @@ def phase_lstm_timing(torch, L, counts4, counts4b, counts4f):
                 f"{row['bound_ms']:.4f} ms ({row['bound_by']}{fma}), "
                 f"{flops / ms / 1e9:.1f} TFLOP/s, max_abs_err "
                 f"{err[kind]:.3e}, launches {row['launches']}; "
-                f"{lstm_plan_line(L, torch, kind, B, H, dt, masked)}")
+                f"{lstm_plan_line(L, torch, kind, B, H, dt, masked)}"
+                + lstm_mma_note((T, B, masked, True), kind))
             rows.append(row)
-        if B in (128, 129):  # the routes' boundary without the stash too
-            ms = time_ms(torch, lambda: L.lstm_fwd(
-                inp["xw"], inp["rw"], inp["peep"], inp["h0"], inp["c0"],
-                with_stash=False))
-            log(f"  lstm_fwd t{T} b{B} h{H} without the stash (inference): "
-                f"{ms:.4f} ms [{L.plan('fwd', dt, False, B, H).route}]")
-        del inp, got, bwd
+        if B <= 129 and not masked:  # inference: no stash
+            rows.append(lstm_nostash_row(torch, L, inp, T, B, H,
+                                         yard[(T, B, H, False)][0]))
+        del inp, got, bwd, ref
         torch.cuda.empty_cache()
+    T, B, H = (LSTM_4S[k] for k in ("T", "B", "hidden"))
+    inp = lstm_inputs(torch, T, B, H, torch.bfloat16, 77, False)
+    rows.append(lstm_nostash_row(torch, L, inp, T, B, H,
+                                 cudnn_lstm_ms(torch, T, B, H)[0]))
     return rows
 
 
-def main() -> int:
+def lstm_nostash_row(torch, L, inp, T, B, H, library_ms):
+    """The bf16 forward without the training stash (inference) on an
+    unmasked case: held to the plain version (`lstm.error_in_tolerances`),
+    then timed beside it; the row of the kernels line."""
+    lean = lstm_fwd_no_stash(L, inp, False)
+    ref = L.lstm_fwd_plain(inp["xw"], inp["rw"], inp["peep"], inp["h0"],
+                           inp["c0"], with_stash=False)[:3]
+    torch.cuda.synchronize()
+    err = max((a.float() - b.float()).abs().max().item()
+              for a, b in zip(lean, ref) if a is not None)
+    units = max(L.error_in_tolerances(a, b, torch.bfloat16)
+                for a, b in zip(lean, ref) if a is not None)
+    if units > 1:
+        raise AssertionError(f"LSTM forward without the stash disagrees "
+                             f"with plain at T={T} B={B} H={H}: {units}")
+    ms = time_ms(torch, lambda: L.lstm_fwd(
+        inp["xw"], inp["rw"], inp["peep"], inp["h0"], inp["c0"],
+        with_stash=False))
+    plain_ms = time_ms(torch, lambda: L.lstm_fwd_plain(
+        inp["xw"], inp["rw"], inp["peep"], inp["h0"], inp["c0"],
+        with_stash=False), iters=5, warmup=1)
+    flops, nbytes = lstm_work("fwd", False, T, B, H, 2, stash=False)
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    row = {"name": f"lstm_fwd_nostash_t{T}_b{B}_h{H}", "route": "cuda",
+           "source": LSTM_SOURCE, "replaces": LSTM_REPLACES[("fwd", False)],
+           "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": 1e3 * max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops > t_bytes else "bytes",
+           "library_ms": library_ms}
+    log(f"  {row['name']} (inference): kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, cuDNN LSTM {library_ms:.4f} ms, bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}), worst {units:.3f} "
+        f"of tolerance [{L.plan('fwd', torch.bfloat16, False, B, H).route}]"
+        + lstm_mma_note((T, B, False, False), "fwd"))
+    return row
+
+
+def lstm_4s_launches(rows, counts) -> None:
+    """Path 4s's launch counts into the timing rows at the shapes that made
+    them: phase 19's `fit` (the window, T=50) and its bf16 `output` (the
+    whole sequence, T=1000, without the stash)."""
+    B, H = LSTM_4S["B"], LSTM_4S["hidden"]
+    for name, run, key in (
+            (f"lstm_fwd_t{LSTM_4S['tbptt']}_b{B}_h{H}", "fit", "fwd"),
+            (f"lstm_bwd_t{LSTM_4S['tbptt']}_b{B}_h{H}", "fit", "bwd"),
+            (f"lstm_fwd_nostash_t{LSTM_4S['T']}_b{B}_h{H}", "output", "fwd")):
+        for row in rows:
+            if row["name"] == name:
+                row["launches"] = int(counts[run].get((key, False, False), 0))
+
+
+def lstm_mma_note(key, kind) -> str:
+    """The replaced mma.sync kernel's time at a cooperative row's shape,
+    where PERF.md has it."""
+    ms = LSTM_COOP_MMA_MS.get(key) if kind == "fwd" else None
+    return "" if ms is None else f" (the mma.sync kernel it replaced: {ms} ms)"
+
+
+def lstm_timing_alone(torch, L, cuda_build) -> int:
+    """`--lstm-timing`: phase 17 alone, on the package that was imported
+    (launch counts 0: no main path runs), then one JSON line of its rows'
+    kernel times, `{"package": ..., "card": ..., "ms": {row: ms}}`."""
+    card = nvidia_smi_line()
+    pkg = os.path.dirname(os.path.dirname(os.path.abspath(L.__file__)))
+    log(f"LSTM timing of {pkg} [{card}]")
+    cuda_build.build(["lstm"])
+    rows = phase_lstm_timing(torch, L, {}, {}, {})
+    print(json.dumps({"package": pkg, "card": card,
+                      "ms": {r["name"]: r["ms"] for r in rows}}), flush=True)
+    return 0
+
+
+def main(argv) -> int:
+    """No arguments: every phase. `--lstm-timing [--package DIR]`: phase
+    17 alone on the package at DIR (default: the checkout's), for an A/B
+    of the LSTM kernels against an earlier commit's package."""
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    root = os.path.dirname(os.path.abspath(__file__))
+    if "--package" in argv:
+        root = os.path.dirname(os.path.abspath(
+            argv[argv.index("--package") + 1].rstrip("/")))
+    sys.path.insert(0, root)
     from deeplearning4j_tpu_torch.datasets.dataset import DataSet
     from deeplearning4j_tpu_torch.datasets.normalizers import OneHotEncoder
     from deeplearning4j_tpu_torch.models.transformer import (
@@ -2473,73 +2788,82 @@ def main() -> int:
              DataSet=DataSet, fa=fa, lstm=L, conf=nn_conf,
              OneHotEncoder=OneHotEncoder, Activation=Activation,
              LossFunction=LossFunction)
+    if not L.__file__.startswith(root + os.sep):
+        raise RuntimeError(f"imported {L.__file__}, not the package in "
+                           f"{root}")
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if "--lstm-timing" in argv:
+        return lstm_timing_alone(torch, L, cuda_build)
 
     card = nvidia_smi_line()
-    log(f"[1/18] card: {card}; {torch.cuda.get_device_name(0)}; torch "
+    log(f"[1/19] card: {card}; {torch.cuda.get_device_name(0)}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}; "
         f"{torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     built = cuda_build.build(KERNEL_SOURCES)
-    log(f"[2/18] build: {time.perf_counter() - t0:.1f} s for "
+    log(f"[2/19] build: {time.perf_counter() - t0:.1f} s for "
         f"{len(built)} source(s)")
     for name, res in built.items():
         for line in ptxas_summary(res.log):
             log(f"  {name}: {line}")
 
-    log("[3/18] paged kernels against their plain versions (TF32 off)")
+    log("[3/19] paged kernels against their plain versions (TF32 off)")
     phase_kernels(torch, pa)
-    log("[4/18] flash kernels against their plain versions (TF32 off)")
+    log("[4/19] flash kernels against their plain versions (TF32 off)")
     phase_flash(torch, fa)
-    log("[5/18] f32 DecodeEngine vs generate, 2 layers, d_model 1024")
+    log("[5/19] f32 DecodeEngine vs generate, 2 layers, d_model 1024")
     phase_parity(torch, M)
-    log("[6/18] f32 training, card (kernels) vs CPU (plain), 1 layer, "
+    log("[6/19] f32 training, card (kernels) vs CPU (plain), 1 layer, "
         "d_model 1024, T=1024")
     phase_train_parity(torch, M)
-    log("[7/18] serving the 8-layer bf16 GPT at full width")
+    log("[7/19] serving the 8-layer bf16 GPT at full width")
     launches = phase_serve(torch, M, pa, card)
-    log("[8/18] serving it with int8 KV, the prefix cache and "
+    log("[8/19] serving it with int8 KV, the prefix cache and "
         "self-speculation on shared-prefix traffic")
     launches.update(phase_serve_tier(torch, M, pa, card))
-    log("[9/18] training the 8-layer bf16 gpt_long GPT at full width")
+    log("[9/19] training the 8-layer bf16 gpt_long GPT at full width")
     flash_counts = phase_train(torch, M, card, torch.bfloat16, TRAIN_B,
                                TRAIN_STEPS, 13, "wgmma")
-    log("[9/18] path 2w: the same GPT with 4 heads of 256 (the bf16 "
+    log("[9/19] path 2w: the same GPT with 4 heads of 256 (the bf16 "
         "\"wgmma wide\" flash kernels)")
     flash_counts_wide = phase_train(torch, M, card, torch.bfloat16,
                                     TRAIN_WIDE_B, TRAIN_WIDE_STEPS, 15,
                                     "wgmma wide", n_heads=TRAIN_WIDE_HEADS)
-    log("[10/18] path 2f: training the 8-layer gpt_long GPT in f32 "
+    log("[10/19] path 2f: training the 8-layer gpt_long GPT in f32 "
         "(split-TF32 flash kernels)")
     flash_counts_f32 = phase_train(torch, M, card, None, TRAIN_F32_B,
                                    TRAIN_F32_STEPS, 14, "tf32")
-    log("[11/18] LSTM kernels against their plain versions (TF32 off)")
+    log("[11/19] LSTM kernels against their plain versions (TF32 off)")
     phase_lstm_kernels(torch, L, M)
-    log("[12/18] f32 char-RNN training, card (kernels) vs CPU (plain), "
+    log("[12/19] f32 char-RNN training, card (kernels) vs CPU (plain), "
         "H=256")
     phase_lstm_train_parity(torch, M)
-    log("[13/18] training the bf16 lstm_large char-RNN at full width")
+    log("[13/19] training the bf16 lstm_large char-RNN at full width")
     lstm_counts = phase_lstm_train(torch, M, card, torch.bfloat16)
-    log("[14/18] training the bf16 lstm char-RNN with tBPTT 24 at full width")
+    log("[14/19] training the bf16 lstm char-RNN with tBPTT 24 at full width")
     tbptt_counts = phase_lstm_tbptt(torch, M, card)
-    log("[15/18] path 4f: training the lstm_large char-RNN in f32 "
+    log("[15/19] path 4f: training the lstm_large char-RNN in f32 "
         "(split-TF32 LSTM kernels)")
     f32_counts = phase_lstm_train(torch, M, card, None, LSTM_F32_STEPS,
                                   "tf32 clusters", seed=2)
-    log("[16/18] timing at the serving and training shapes (bf16 and f32)")
+    log("[16/19] timing at the serving and training shapes (bf16 and f32)")
     rows = phase_timing(torch, pa, launches)
     rows += phase_flash_timing(torch, fa, flash_counts,
                                flash_counts_f32, flash_counts_wide)
-    log("[17/18] timing the LSTM kernels at the char-RNN shapes (bf16 and "
+    log("[17/19] timing the LSTM kernels at the char-RNN shapes (bf16 and "
         "f32)")
     rows += phase_lstm_timing(torch, L, lstm_counts, tbptt_counts,
                               f32_counts)
-    log(f"[18/18] a GravesLSTM wider than the fused kernels (H={LSTM_WIDE}): "
+    log(f"[18/19] a GravesLSTM wider than the fused kernels (H={LSTM_WIDE}): "
         "the step loop, card vs CPU")
     phase_lstm_wide(torch, M)
+    log("[19/19] path 4s: the bf16 lstm_large char-RNN on "
+        "GravesLSTMCharModellingExample's mini-batches (B=32 x T=1000, "
+        "tBPTT 50)")
+    lstm_4s_launches(rows, phase_lstm_4s(torch, M, card))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)
@@ -2551,7 +2875,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        rc = main()
+        rc = main(sys.argv[1:])
     except Exception:
         traceback.print_exc()
         rc = 1

@@ -5,7 +5,7 @@
 //   <- _lstm_fwd_kernel (glue _fwd_call), and masked
 //      <- _lstm_fwd_kernel_masked (glue _fwd_call_masked):
 //        lstm_fwd_cluster_kernel<ROWS, MASKED, *> (bf16),
-//        lstm_fwd_kernel<bf16, MASKED, *> (bf16, B <= 128 and H <= 1024),
+//        lstm_fwd_kernel<MASKED, *> (bf16, B <= 128 and H <= 1024),
 //        lstm_fwd_tf32_kernel<MASKED, *> (f32);
 //   <- _lstm_bwd_kernel (glue _bwd_call), and masked
 //      <- _lstm_bwd_kernel_masked (glue _bwd_call_masked):
@@ -23,7 +23,7 @@
 // masked backward rebuilds the candidate c' = f c_prev + i g from the
 // gates and routes the whole cotangent to one side of the select.
 // Rounding points are the Pallas kernels': carries and the gate chain in
-// f32 (the cluster forwards and the f32 backward take sigmoid and tanh
+// f32 (the forwards and the f32 backward take sigmoid and tanh
 // from ex2 and an approximate reciprocal, a few ulp of f32); product
 // operands in the operand type (h rounded before the product, never
 // carried rounded; f32 operands split into two TF32 parts, the
@@ -62,19 +62,21 @@
 // The bf16 forward at B <= 128 and H <= 1024 takes the cooperative kernel
 // (lstm_fwd_kernel): a row tile there would stream all of RW through L2
 // every step, while each cooperative block keeps its 8 units' slice of RW
-// on chip for the whole launch and the grid meets at this_grid().sync()
-// once per step (every block resident, or the launch is refused with
-// cudaErrorCooperativeLaunchTooLarge; never a spin barrier without that
-// guarantee); its products are mma.sync m16n8k16 with the h rows read
-// from L2 (ld.global.cg) in the k order perm16 gives.
+// in shared memory for the whole launch; h[t-1] reaches every block by
+// TMA (multicast within clusters of up to 8 blocks), the product runs on
+// wgmma m64n32k16, and the blocks wait for each other's h_t on a counter
+// in global memory (every block resident, or the launch is refused with
+// cudaErrorCooperativeLaunchTooLarge; never a spin wait without that
+// guarantee).
 //
 // What bounds it on an H100: per step the work is 2*B*H*4H flops against
 // B*4H operand bytes in and B*(4H+2H) bytes of stash out; at the training
 // shapes (bf16) the card's bound is the bytes at H=256 and the flops at
 // H=1024 (chip_smoke.py prints both). The cluster kernels move (B / rows)
 // x |RW| + |h| (forward) or + |dz[t]| (backward) through L2 per step
-// (forward, B=2048, H=1024: 16 x 8 MB), against H/8 x |h| for the
-// cooperative kernel's every-slice-reads-all-of-h. What holds the bf16
+// (forward, B=2048, H=1024: 16 x 8 MB), against H/8 x |h| / C for the
+// cooperative kernel, whose every block multiplies all of h (16 MB a step
+// at B=128, H=1024, clusters of 2). What holds the bf16
 // forward back (clock64 per phase on an H100, B=2048, H=1024): the
 // product, bound by L2 as each block streams its RW slice every step
 // (about 26k cycles a step); three waves, since 16-block clusters fit 7 at
@@ -86,7 +88,6 @@
 // the thread's earlier stores at every arrival, which doubled the
 // backward's product.
 
-#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -94,149 +95,22 @@
 
 #include "sm90.cuh"
 
-namespace cg = cooperative_groups;
-
 namespace {
 
 using bf16 = __nv_bfloat16;
-
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-constexpr int kUnits = 8;   // hidden units per block
-constexpr int kRows = 16;   // batch rows per mma tile
-// 16-wide k chunks whose A loads are issued together before their
-// products (forward): the loads come from L2, and enough must be in
-// flight to cover its latency with one or two blocks per SM
-constexpr int kFwdBatch = 8;
 
 __host__ __device__ constexpr int ceil_to(int x, int m) {
   return (x + m - 1) / m * m;
 }
 
-// ------------------------------------------------------------ conversions
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-
-template <typename DT>
-__device__ __forceinline__ DT from_f(float v);
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// an element written during this launch by another block: read from L2
-__device__ __forceinline__ float ld_l2(const bf16* p) {
-  return __bfloat162float(__ushort_as_bfloat16(
-      __ldcg(reinterpret_cast<const unsigned short*>(p))));
-}
-
-__device__ __forceinline__ float sigm(float x) {
-  return 1.f / (1.f + expf(-x));
-}
-
-// A bump allocator over dynamic shared memory, run with base == nullptr on
-// the host to size a launch and on the device to carve the same layout.
-struct Carver {
-  unsigned char* base;
-  size_t off = 0;
-  template <typename U>
-  __host__ __device__ U* take(size_t n) {
-    off = (off + 127) & ~size_t(127);
-    U* p = base ? reinterpret_cast<U*>(base + off) : nullptr;
-    off += n * sizeof(U);
-    return p;
-  }
-};
-
-// Operand layout of the RW slice in shared memory: bf16 rows carry 8
-// elements of padding (ldmatrix rows 16-byte aligned, spread over the
-// banks).
-template <typename DT>
-struct Lay;
-template <>
-struct Lay<bf16> {
-  static constexpr int kPad = 8;
-};
-
-// Forward: RW slice [32 columns][K], the four peepholes' rows of this
-// block's units, and the c carry of its rows. K = Hp (H padded to 16).
-template <typename DT>
-struct FwdSmem {
-  DT* rw;
-  float* peep;  // [3][kUnits]
-  float* c;     // [rows][kUnits]
-  __host__ __device__ static size_t carve(Carver& cv, FwdSmem* s, int Hp,
-                                          int rows) {
-    FwdSmem x;
-    x.rw = cv.take<DT>(size_t(4 * kUnits) * (Hp + Lay<DT>::kPad));
-    x.peep = cv.take<float>(3 * kUnits);
-    x.c = cv.take<float>(size_t(rows) * kUnits);
-    if (s) *s = x;
-    return cv.off;
-  }
-};
-
-// Position inside a 16-wide k chunk at which element p of the chunk is
-// stored for the mma B operand: lane t's 8-byte A load of elements 4t..4t+3
-// supplies its registers for k = 2t, 2t+1 (a0/a1) and 2t+8, 2t+9 (a2/a3),
-// so element 4t + j sits at logical k 2t + j (j < 2) or 2t + 6 + j.
-__host__ __device__ __forceinline__ int perm16(int p) {
-  const int t = p / 4, j = p % 4;
-  return j < 2 ? 2 * t + j : 2 * t + 6 + j;
-}
-
-// ----------------------------------------------------------- mma helpers
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// B operands of two 8-wide n-tiles (n0, n0 + 8) at chunk k0 from a tile
-// stored [n][k]: b[0..1] for n0, b[2..3] for n0 + 8
-__device__ __forceinline__ void ld_b_2n(uint32_t (&b)[4], const bf16* base,
-                                        int ld, int n0, int k0) {
-  const int l = threadIdx.x % 32;
-  const bf16* p = base + (n0 + l % 8 + 8 * (l / 16)) * ld + k0 +
-                  8 * ((l / 8) % 2);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A operand (rows g and g + 8 of a 16-row tile, chunk at k0) from a
-// row-major bf16 array in global memory (L2), the lane's 8 bytes at
-// 4t..4t+3 of each row (perm16 order); rows or columns out of range read 0.
-__device__ __forceinline__ void ld_a_l2(uint32_t (&a)[4], const bf16* rows,
-                                        long long ld, int r_ok0, int r_ok1,
-                                        int k0, int K) {
-  const int l = threadIdx.x % 32, g = l / 4, t = l % 4;
-  const int k = k0 + 4 * t;
-  uint2 lo = make_uint2(0u, 0u), hi = make_uint2(0u, 0u);
-  if (k < K) {
-    if (r_ok0)
-      lo = __ldcg(reinterpret_cast<const uint2*>(rows + g * ld + k));
-    if (r_ok1)
-      hi = __ldcg(reinterpret_cast<const uint2*>(rows + (g + 8) * ld + k));
-  }
-  a[0] = lo.x, a[1] = hi.x, a[2] = lo.y, a[3] = hi.y;
-}
-
 // ================================================================ forward
 struct FwdArgs {
   const void* xw;    // (T, B, 4H)
-  const void* rw;    // (H, 4H)
   const void* peep;  // (3, H)
   const void* c0;    // (B, H)
   const void* mask;  // (T, B), masked kernels only
   void* hbuf;        // (2, Bp, ldh) in the operand type; [0] holds h0
+  unsigned* sync;    // the cooperative forward's step counter, 0 at launch
   void* h_out;       // (T, B, H)
   void* hT;          // (B, H), masked kernels only
   void* cT;          // (B, H)
@@ -245,152 +119,9 @@ struct FwdArgs {
   void* gates;       // (T, B, 4H)
   int T, B, H;
   int Bp, ldh;       // hbuf's rows and row stride
-  int Hp;            // H rounded up to 16: the cooperative kernel's K
-  int rows, reverse;
+  int reverse;
   long long plane;   // Bp * ldh
 };
-
-// The gate chain for one (row r, unit u) of step t from the product's
-// four z columns; `cl` is the pair's slot in the c carry.
-template <typename DT, bool MASKED, bool STASH>
-__device__ __forceinline__ void fwd_cell(const FwdArgs& a,
-                                         const FwdSmem<DT>& sm, int t,
-                                         bool last, int r, int ul, int cl,
-                                         float zi, float zf, float zo,
-                                         float zg, const DT* hcur, DT* hnext) {
-  const int H = a.H, u = blockIdx.x * kUnits + ul;
-  if (r >= a.B || u >= H) return;
-  const long long row = (long long)t * a.B + r;
-  const DT* xw = static_cast<const DT*>(a.xw) + row * 4 * H + u;
-  zi += to_f(xw[0]);
-  zf += to_f(xw[H]);
-  zo += to_f(xw[2 * H]);
-  zg += to_f(xw[3 * H]);
-  const float c = sm.c[cl];
-  const float i = sigm(zi + sm.peep[ul] * c);
-  const float f = sigm(zf + sm.peep[kUnits + ul] * c);
-  const float g = tanhf(zg);
-  const float cn = f * c + i * g;
-  const float o = sigm(zo + sm.peep[2 * kUnits + ul] * cn);
-  const float hn = o * tanhf(cn);
-  float hs = hn, cs = cn, out = hn;
-  if constexpr (MASKED) {
-    const float m = to_f(static_cast<const DT*>(a.mask)[(long long)t * a.B + r]);
-    const bool mp = m > 0.f;
-    hs = mp ? hn : ld_l2(hcur + (long long)r * a.ldh + u);
-    cs = mp ? cn : c;
-    out = hs * m;
-  }
-  const long long e = row * H + u;
-  static_cast<DT*>(a.h_out)[e] = from_f<DT>(out);
-  if constexpr (STASH) {
-    static_cast<DT*>(a.c_stash)[e] = from_f<DT>(cs);
-    if constexpr (MASKED) static_cast<DT*>(a.hsel)[e] = from_f<DT>(hs);
-    DT* gt = static_cast<DT*>(a.gates) + row * 4 * H + u;
-    gt[0] = from_f<DT>(i);
-    gt[H] = from_f<DT>(f);
-    gt[2 * H] = from_f<DT>(o);
-    gt[3 * H] = from_f<DT>(g);
-  }
-  hnext[(long long)r * a.ldh + u] = from_f<DT>(hs);
-  sm.c[cl] = cs;
-  if (last) {
-    static_cast<DT*>(a.cT)[(long long)r * H + u] = from_f<DT>(cs);
-    if constexpr (MASKED)
-      static_cast<DT*>(a.hT)[(long long)r * H + u] = from_f<DT>(hs);
-  }
-}
-
-template <typename DT>
-__device__ void fwd_load(const FwdArgs& a, const FwdSmem<DT>& sm, int r0,
-                         int nrows) {
-  const int H = a.H, Hp = a.Hp, u0 = blockIdx.x * kUnits;
-  constexpr int ld_pad = Lay<DT>::kPad;
-  const DT* rw = static_cast<const DT*>(a.rw);
-  // column n = gate * 8 + unit; bf16 rows in perm16 order
-  for (int idx = threadIdx.x; idx < 4 * kUnits * Hp; idx += kThreads) {
-    const int n = idx / Hp, k = idx % Hp;
-    const int u = u0 + n % kUnits, col = (n / kUnits) * H + u;
-    const float v = (k < H && u < H) ? to_f(rw[(long long)k * 4 * H + col])
-                                     : 0.f;
-    const int pos = sizeof(DT) == 2 ? (k & ~15) + perm16(k & 15) : k;
-    sm.rw[n * (Hp + ld_pad) + pos] = from_f<DT>(v);
-  }
-  const DT* pp = static_cast<const DT*>(a.peep);
-  for (int idx = threadIdx.x; idx < 3 * kUnits; idx += kThreads) {
-    const int u = u0 + idx % kUnits;
-    sm.peep[idx] = u < H ? to_f(pp[(idx / kUnits) * H + u]) : 0.f;
-  }
-  const DT* c0 = static_cast<const DT*>(a.c0);
-  for (int idx = threadIdx.x; idx < nrows * kUnits; idx += kThreads) {
-    const int r = r0 + idx / kUnits, u = u0 + idx % kUnits;
-    sm.c[idx] = (r < a.B && u < H) ? to_f(c0[(long long)r * H + u]) : 0.f;
-  }
-}
-
-// bf16: warp w takes the block's 16-row tiles w, w + 8, ...
-template <bool MASKED, bool STASH>
-__device__ __forceinline__ void fwd_step(const FwdArgs& a,
-                                         const FwdSmem<bf16>& sm, int t,
-                                         bool last, int r0, int nrows,
-                                         const bf16* hcur, bf16* hnext) {
-  const int warp = threadIdx.x / 32, l = threadIdx.x % 32, g = l / 4,
-            tq = l % 4;
-  const int ld = a.Hp + Lay<bf16>::kPad;
-  for (int tile = warp; tile * kRows < nrows; tile += kWarps) {
-    const int rt = r0 + tile * kRows;
-    float acc[4][4] = {};
-    const bf16* rows = hcur + (long long)rt * a.ldh;
-    for (int kb = 0; kb < a.Hp; kb += 16 * kFwdBatch) {
-      uint32_t av[kFwdBatch][4];
-#pragma unroll
-      for (int j = 0; j < kFwdBatch; ++j)
-        ld_a_l2(av[j], rows, a.ldh, 1, 1, kb + 16 * j, a.Hp);
-#pragma unroll
-      for (int j = 0; j < kFwdBatch; ++j) {
-        const int k0 = kb + 16 * j;
-        if (k0 >= a.Hp) break;
-        uint32_t b[4];
-        ld_b_2n(b, sm.rw, ld, 0, k0);
-        mma(acc[0], av[j], b[0], b[1]);
-        mma(acc[1], av[j], b[2], b[3]);
-        ld_b_2n(b, sm.rw, ld, 16, k0);
-        mma(acc[2], av[j], b[0], b[1]);
-        mma(acc[3], av[j], b[2], b[3]);
-      }
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int rl = tile * kRows + g + 8 * (e >> 1), ul = 2 * tq + (e & 1);
-      fwd_cell<bf16, MASKED, STASH>(a, sm, t, last, r0 + rl, ul,
-                                    rl * kUnits + ul, acc[0][e], acc[1][e],
-                                    acc[2][e], acc[3][e], hcur, hnext);
-    }
-  }
-}
-
-template <typename DT, bool MASKED, bool STASH>
-__global__ void __launch_bounds__(kThreads)
-    lstm_fwd_kernel(const FwdArgs a) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  Carver cv{smem_raw};
-  FwdSmem<DT> sm;
-  FwdSmem<DT>::carve(cv, &sm, a.Hp, a.rows);
-  const int r0 = blockIdx.y * a.rows;
-  const int nrows = min(a.rows, ceil_to(a.B, kRows) - r0);
-  fwd_load<DT>(a, sm, r0, nrows);
-  __syncthreads();
-  cg::grid_group grid = cg::this_grid();
-  DT* hb = static_cast<DT*>(a.hbuf);
-  for (int s = 0; s < a.T; ++s) {
-    const int t = a.reverse ? a.T - 1 - s : s;
-    const DT* hcur = hb + (s & 1) * a.plane;
-    DT* hnext = hb + ((s + 1) & 1) * a.plane;
-    if (nrows > 0)
-      fwd_step<MASKED, STASH>(a, sm, t, s == a.T - 1, r0, nrows, hcur, hnext);
-    if (s + 1 < a.T) grid.sync();  // h_t visible; no block still reads h_{t-1}
-  }
-}
 
 // =============================================================== backward
 struct BwdArgs {
@@ -1806,18 +1537,349 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
   sm90::cluster_sync();  // no block leaves while others may reach it
 }
 
+// ========================================= bf16 forward, small batches
+// The bf16 forward at B <= kCoopMaxB rows and H <= 1024 (lstm_fwd_kernel,
+// one cooperative launch): a row tile there would stream all of RW
+// through L2 every step (the cluster forward above), while RW fits the
+// card's shared memory once: 8 MB at H = 1024 over 128 blocks of 64 KB.
+// So every block keeps its slice of RW on chip for the whole launch, all
+// blocks hold the same (at most 128) rows, and each step's h[t-1] goes to
+// every block. A block owns 8 hidden units (32 gate columns); the grid is
+// ceil(H / 8) blocks, padded to a whole number of clusters of C blocks (C
+// the largest of 8, 4, 2, 1 whose grid is co-resident: 2 at H = 1024,
+// where 4- and 8-block clusters place only 120 blocks at once). Each
+// step:
+//  1. a producer warp waits until every block has published h[t-1] (a
+//     counter in global memory that each block raises once a step:
+//     flag_arrive / flag_wait; a spin wait is sound only because a
+//     cooperative launch makes every block resident, and a grid that
+//     does not fit is refused at launch), then loads h[t-1] in 64-wide k
+//     chunks (all rows of the chunk, 16 KB at 128 rows) through TMA into
+//     a ring of shared-memory stages; block `rank` of a cluster loads the
+//     chunks c with c % C == rank and multicasts them to the cluster, so
+//     the cluster reads h once from L2. A stage is refilled once every
+//     consumer warpgroup of every block of the cluster released it;
+//  2. two consumer warpgroups compute z = h[t-1] . RW[:, the block's 32
+//     columns] on wgmma m64n32k16 (bf16 in, f32 accumulate): above 64
+//     rows, warpgroup wg the rows 64 wg .. 64 wg + 63 over all of K; at
+//     64 rows or fewer both hold the same rows and split K (warpgroup wg
+//     the chunks c with c % 2 == wg), then hand each other half of their
+//     partial sums through shared memory, and each finishes half of the
+//     rows as (partial of warpgroup 0 + partial of warpgroup 1) + xw: one
+//     order for every row, so rows with equal inputs give equal bits;
+//  3. the gate chain runs on the accumulator, whose layout gives a thread
+//     all four gates of its cells (RW arranged by the wrapper per 8-unit
+//     group, `_rw_by_unit_group(rw, 8, 8)`: column 8 q + j of a block is
+//     gate q of its unit j); xw[t] arrived by TMA two steps ahead (double
+//     buffered); the c carry (and, masked, the h carry) stays in f32
+//     registers for the whole launch; h_t is stored to the ping-pong
+//     buffer, fenced for the async proxy, and the block arrives on the
+//     counter; only then the stash (h_out, c, gates, h_sel) is stored,
+//     while the next step's h[t-1] is on its way.
+// The wrapper pads H to a multiple of 8 (TMA boxes of 16 bytes).
+constexpr int kCoopUnits = 8;      // hidden units of a block
+constexpr int kCoopRows = 128;     // batch rows at most: one row split
+constexpr int kCoopStages = 8;     // ring of h[t-1] chunks
+constexpr int kCoopMaxH = 1024;    // the RW slice's 16 chunks of 64 k
+constexpr int kCoopThreads = kConsumers + 32;  // + a producer warp
+constexpr uint32_t kCoopRwBox = 4 * kCoopUnits * kChunk * 2;  // 4 KB
+
+struct CoopSmem {
+  bf16 a[kCoopStages][kCoopRows * kChunk];  // h[t-1] chunk rows, swizzled
+  bf16 rw[kCoopMaxH / kChunk][4 * kCoopUnits * kChunk];  // RW slice, swizzled
+  bf16 x[2][4][kCoopRows * kCoopUnits];  // xw[t]: per gate, rows x 8 units
+  float xchg[2][8][128];  // B <= 64: warpgroup wg's partials of the other's rows
+  uint64_t full[kCoopStages], empty[kCoopStages], x_full[2], rw_full;
+};
+constexpr size_t kCoopSmemBytes = sizeof(CoopSmem) + 1024;  // + align
+
+struct CoopArgs {
+  const bf16 *xw, *peep, *c0, *mask;
+  bf16 *hbuf, *h_out, *hT, *cT, *hsel, *c_stash, *gates;
+  unsigned* sync;
+  long long plane;
+  int T, B, H, ldh, reverse, cluster;
+  int rows;   // rows of a TMA box: B rounded up to 8
+  int split;  // B <= 64: the warpgroups split K
+};
+
+// h loads from hbuf (ldh, Bp, 2) in boxes of 64 columns x `rows`, 128-byte
+// swizzle; RW arranged per 8-unit group (Hk, 4 Hu) in boxes of 64 columns
+// x 32 rows, swizzled; xw (H, 4, B, T) in boxes of 8 units x `rows`, no
+// swizzle
+struct CoopMaps {
+  CUtensorMap h, w, xw;
+};
+
+// xw[t] of step s's block units, one box per gate, into buffer s % 2
+__device__ __forceinline__ void coop_load_x(CoopSmem& sm, const CoopArgs& a,
+                                            const CoopMaps& m, int s) {
+  const int t = a.reverse ? a.T - 1 - s : s, b = s & 1;
+  sm90::mbar_expect_tx(&sm.x_full[b], 4 * a.rows * kCoopUnits * 2);
+  for (int q = 0; q < 4; ++q)
+    sm90::tma_load_4d(sm.x[b][q], &m.xw, &sm.x_full[b],
+                      blockIdx.x * kCoopUnits, q, 0, t);
+}
+
+// Producer warp: per step, every chunk's stage is armed in order (its
+// previous use released by the cluster, its bytes expected); before the
+// first chunk this block loads, the wait for every block's h[t-1].
+__device__ void coop_producer(CoopSmem& sm, const CoopArgs& a,
+                              const CoopMaps& m, int nch) {
+  constexpr int S = kCoopStages;
+  if (threadIdx.x % 32 != 0) return;
+  const int C = a.cluster;
+  const int rank = (int)sm90::cluster_rank();
+  const uint16_t mask = (uint16_t)((1u << C) - 1);
+  const uint32_t abytes = a.rows * kChunk * 2;
+  uint32_t q = 0;  // chunks armed before this one
+  for (int s = 0; s < a.T; ++s) {
+    bool published = s == 0;  // h0 is in hbuf before the launch
+    for (int c = 0; c < nch; ++c, ++q) {
+      const uint32_t st = q % S;
+      sm90::mbar_wait_cluster(&sm.empty[st], ((q / S) & 1) ^ 1);
+      sm90::mbar_expect_tx(&sm.full[st], abytes);
+      if (c % C != rank) continue;
+      if (!published) {  // every block arrived once for each earlier step
+        sm90::flag_wait(a.sync, gridDim.x * (unsigned)s);
+        published = true;
+      }
+      if (C == 1)
+        sm90::tma_load_3d(sm.a[st], &m.h, &sm.full[st], c * kChunk, 0, s & 1);
+      else
+        sm90::tma_load_3d_multicast(sm.a[st], &m.h, &sm.full[st], mask,
+                                    c * kChunk, 0, s & 1);
+    }
+  }
+}
+
+// Consumer warpgroup wg. Thread (warp w, lane 4g + tq) holds the
+// accumulator's rows rb + 8 rr (rb = 64 wg + 16 w + g above 64 rows, 16 w
+// + g at 64 or fewer) and the block's units 2 tq, 2 tq + 1 (e = 0, 1): gate
+// q of cell (rr, e) is acc[4 q + 2 rr + e]. It finishes the cells of both
+// rr above 64 rows, of rr = wg at 64 or fewer.
+template <bool MASKED, bool STASH>
+__device__ void coop_consumer(CoopSmem& sm, const CoopArgs& a,
+                              const CoopMaps& m, int nch) {
+  constexpr int S = kCoopStages;
+  const int tid = threadIdx.x, wg = tid / 128, wt = tid % 128;
+  const int l = tid % 32, g = l / 4, tq = l % 4, w = wt / 32;
+  const int H = a.H, B = a.B, C = a.cluster;
+  const bool split = a.split;
+  const int u = blockIdx.x * kCoopUnits + 2 * tq;  // units u, u + 1
+  const bool live = u < H;  // H is a multiple of 8: u + 1 < H too
+  const int rb = (split ? 0 : 64 * wg) + 16 * w + g;
+  // does the thread finish the cells of rows rb + 8 rr?
+  auto mine = [&](int rr) { return !split || rr == wg; };
+  // thread 8k of a warpgroup releases a stage to block k of the cluster
+  const bool releases = wt % 8 == 0 && wt / 8 < C;
+  float pI[2] = {}, pF[2] = {}, pO[2] = {}, cc[2][2] = {}, hh[2][2] = {};
+  if (live) {
+    const float2 p0 = ld_pair(a.peep + u), p1 = ld_pair(a.peep + H + u),
+                 p2 = ld_pair(a.peep + 2 * H + u);
+    pI[0] = p0.x, pI[1] = p0.y, pF[0] = p1.x, pF[1] = p1.y;
+    pO[0] = p2.x, pO[1] = p2.y;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int r = rb + 8 * rr;
+      if (!mine(rr) || r >= B) continue;
+      const float2 c2 = ld_pair(a.c0 + (long long)r * H + u);
+      cc[rr][0] = c2.x, cc[rr][1] = c2.y;
+      if (MASKED) {  // h0, in hbuf's first plane
+        const float2 h2 = ld_pair(a.hbuf + (long long)r * a.ldh + u);
+        hh[rr][0] = h2.x, hh[rr][1] = h2.y;
+      }
+    }
+  }
+  const char* a_base = reinterpret_cast<const char*>(sm.a[0]) +
+                       (split ? 0 : wg * 64 * kChunk * 2);
+  const char* w_base = reinterpret_cast<const char*>(sm.rw[0]);
+  const int cfirst = split ? wg : 0, cstep = split ? 2 : 1;
+  sm90::mbar_wait(&sm.rw_full, 0);
+  // one accumulator per 16-wide k step of a chunk: four independent wgmma
+  // chains (one chain on one accumulator waits for each product in turn)
+  float acc[4][16];
+  for (int s = 0; s < a.T; ++s) {
+    const int t = a.reverse ? a.T - 1 - s : s;
+    const bool last = s == a.T - 1;
+    float mv[2] = {1.f, 1.f};  // the mask of the thread's rows
+    if (MASKED)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int r = rb + 8 * rr;
+        if (mine(rr) && r < B)
+          mv[rr] = __bfloat162float(a.mask[(long long)t * B + r]);
+      }
+    // ---- product: acc = h[t-1][rows, the warpgroup's chunks] . RW^T
+    int n = 0;
+    uint32_t held = 0;  // the stage of the warpgroup's previous chunk
+    for (int c = cfirst; c < nch; c += cstep) {
+      const uint32_t q = (uint32_t)s * nch + c, st = q % S;
+      sm90::mbar_wait(&sm.full[st], (q / S) & 1);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kChunk / 16; ++kk)
+        sm90::wgmma_m64n32_ss(
+            acc[kk],
+            sm90::desc_sw128(a_base + st * sizeof(sm.a[0]) + kk * 32),
+            sm90::desc_sw128(w_base + c * sizeof(sm.rw[0]) + kk * 32),
+            n > 0);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<1>();  // the previous chunk's products are done
+      sm90::mbar_arrive_cluster(&sm.empty[held], wt / 8, n > 0 && releases);
+      held = st;
+      ++n;
+    }
+    sm90::wgmma_wait<0>();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) sm90::fence_regs(acc[kk]);
+    // the four chains added in one order, at once (summed later, with
+    // every accumulator live through the cell phase, the kernel measured
+    // slower on an H100)
+    float sum[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      sum[i] = (acc[0][i] + acc[1][i]) + (acc[2][i] + acc[3][i]);
+    sm90::mbar_arrive_cluster(&sm.empty[held], wt / 8, n > 0 && releases);
+    // the warpgroup's partial of accumulator element i (split K with one
+    // chunk: warpgroup 1 has none)
+    auto part = [&](int i) { return n > 0 ? sum[i] : 0.f; };
+    float peer[8] = {};  // split K: the other warpgroup's partials
+    if (split) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)  // the rows rb + 8 (1 - wg)
+        sm.xchg[wg][i][wt] = part(4 * (i / 2) + (wg ? 0 : 2) + i % 2);
+      sm90::named_bar_sync(1, kConsumers);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) peer[i] = sm.xchg[1 - wg][i][wt];
+    }
+    // ---- cell phase: the gate chain of the thread's cells
+    sm90::mbar_wait(&sm.x_full[s & 1], (s >> 1) & 1);
+    const bf16(*xt)[kCoopRows * kCoopUnits] = sm.x[s & 1];
+    float ov[2][2], hv[2][2], cv[2][2], gv[2][4][2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      if (!mine(rr)) continue;
+      const int r = rb + 8 * rr;
+      float2 xq[4];
+#pragma unroll
+      for (int q4 = 0; q4 < 4; ++q4)
+        xq[q4] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+            &xt[q4][r * kCoopUnits + 2 * tq]));
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        // gate q's pre-activation: the product, then + xw; split K adds
+        // the two warpgroups' partials first (the same bits in either
+        // order), xw last
+        auto z = [&](int q4) {
+          const float p = part(4 * q4 + 2 * rr + e);
+          const float zp = split ? p + peer[2 * q4 + e] : p;
+          return zp + (e ? xq[q4].y : xq[q4].x);
+        };
+        const float cp = cc[rr][e];
+        const float ig = sigm_fast(z(0) + pI[e] * cp);
+        const float fg = sigm_fast(z(1) + pF[e] * cp);
+        const float gg = tanh_fast(z(3));
+        const float cn = fg * cp + ig * gg;
+        const float og = sigm_fast(z(2) + pO[e] * cn);
+        const float hn = og * tanh_fast(cn);
+        float hs = hn, cs = cn, out = hn;
+        if (MASKED) {
+          hs = mv[rr] > 0.f ? hn : hh[rr][e];
+          cs = mv[rr] > 0.f ? cn : cp;
+          out = hs * mv[rr];
+        }
+        cc[rr][e] = cs, hh[rr][e] = hs;
+        ov[rr][e] = out, hv[rr][e] = hs, cv[rr][e] = cs;
+        gv[rr][0][e] = ig, gv[rr][1][e] = fg, gv[rr][2][e] = og;
+        gv[rr][3][e] = gg;
+      }
+      if (r < B && live)  // h_t, the next step's operand
+        st_pair(a.hbuf + ((s + 1) & 1) * a.plane + (long long)r * a.ldh + u,
+                hv[rr][0], hv[rr][1]);
+    }
+    // ---- h_t published: fenced for the TMA loads that read it, then the
+    // block arrives once on the step counter
+    sm90::fence_proxy_async();
+    sm90::named_bar_sync(1, kConsumers);
+    if (tid == 0) {
+      sm90::flag_arrive(a.sync);
+      if (s + 2 < a.T) coop_load_x(sm, a, m, s + 2);  // x[s % 2] is read
+    }
+    // ---- the stash and the outputs, while the next h[t-1] is on its way
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int r = rb + 8 * rr;
+      if (!mine(rr) || r >= B || !live) continue;
+      const long long row = (long long)t * B + r, o = row * H + u;
+      st_pair(a.h_out + o, ov[rr][0], ov[rr][1]);
+      if (STASH) {
+        st_pair(a.c_stash + o, cv[rr][0], cv[rr][1]);
+        if (MASKED) st_pair(a.hsel + o, hv[rr][0], hv[rr][1]);
+#pragma unroll
+        for (int q4 = 0; q4 < 4; ++q4)
+          st_pair(a.gates + row * 4 * H + q4 * H + u, gv[rr][q4][0],
+                  gv[rr][q4][1]);
+      }
+      if (last) {
+        st_pair(a.cT + (long long)r * H + u, cv[rr][0], cv[rr][1]);
+        if (MASKED) st_pair(a.hT + (long long)r * H + u, hv[rr][0], hv[rr][1]);
+      }
+    }
+  }
+}
+
+template <bool MASKED, bool STASH>
+__global__ void __launch_bounds__(kCoopThreads, 1)
+    lstm_fwd_kernel(const __grid_constant__ CoopMaps maps, const CoopArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  CoopSmem& sm = *reinterpret_cast<CoopSmem*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int nch = (a.H + kChunk - 1) / kChunk;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kCoopStages; ++s) {
+      sm90::mbar_init(&sm.full[s], 1);
+      // one arrival per consuming warpgroup of every block of the cluster
+      sm90::mbar_init(&sm.empty[s], (a.split ? 1 : 2) * a.cluster);
+    }
+    sm90::mbar_init(&sm.x_full[0], 1);
+    sm90::mbar_init(&sm.x_full[1], 1);
+    sm90::mbar_init(&sm.rw_full, 1);
+    sm90::mbar_fence_init();
+    // the block's slice of RW for the whole launch, and the first two
+    // steps' xw tiles
+    sm90::mbar_expect_tx(&sm.rw_full, nch * kCoopRwBox);
+    for (int c = 0; c < nch; ++c)
+      sm90::tma_load_2d(sm.rw[c], &maps.w, &sm.rw_full, c * kChunk,
+                        blockIdx.x * 4 * kCoopUnits);
+    coop_load_x(sm, a, maps, 0);
+    if (a.T > 1) coop_load_x(sm, a, maps, 1);
+  }
+  __syncthreads();
+  // every block's barriers are initialised before any multicast or remote
+  // arrival reaches them
+  sm90::cluster_sync();
+  if (threadIdx.x < kConsumers)
+    coop_consumer<MASKED, STASH>(sm, a, maps, nch);
+  else
+    coop_producer(sm, a, maps, nch);
+  sm90::cluster_sync();  // no block leaves while others may reach it
+}
+
 // ------------------------------------------------------------------ host
 // Routes: the cooperative bf16 forward (small batches), the bf16 cluster
 // forward, the split-TF32 cluster kernels (f32, both passes) and the bf16
 // cluster backward.
 enum Route { kCoop = 0, kFwdCluster = 1, kTf32 = 2, kBwdCluster = 3 };
 // The bf16 forward takes the cooperative kernel up to this many batch
-// rows at H <= 1024: the cluster kernel's step costs about the same from 1
-// to 128 rows a cluster (it streams all of RW through L2 every step),
-// while the cooperative blocks keep their slices of RW on chip and slow
-// down with B. Measured on an H100 at H = 1024, T = 64 (chip_smoke.py
-// phase 15): the cooperative kernel wins at 128 rows and loses at 256.
+// rows at H <= 1024 (all of them in one row split, kCoopRows): the
+// cluster kernel's step costs about the same from 1 to 128 rows a cluster
+// (it streams all of RW through L2 every step), while the cooperative
+// blocks keep their slices of RW on chip. Measured on an H100 at H =
+// 1024, T = 64 (chip_smoke.py phase 17, PERF.md): the cooperative kernel
+// wins at 128 rows.
 constexpr int kCoopMaxB = 128;
+static_assert(kCoopMaxB <= kCoopRows, "one row split holds every row");
 
 int route_of(int kind, int dtype, int B, int H) {
   if (dtype == 0) return kTf32;
@@ -1830,48 +1892,6 @@ struct Plan {
   int route, gx, gy, rows, active, cluster, units;
   size_t smem;
 };
-
-int device_limits(int* sms, int* optin) {
-  int dev;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev);
-  return (int)e;
-}
-
-// The cooperative forward: H/8 unit slices (x) times the largest batch
-// split (y) for which the whole grid can be resident; a split holds a
-// multiple of 16 rows. When even one split does not fit, the plan keeps
-// y = 1 and the launch is refused.
-int coop_plan(const void* kern, int B, int H, Plan* p) {
-  int sms, optin;
-  int rc = device_limits(&sms, &optin);
-  if (rc) return rc;
-  const int gu = (H + kUnits - 1) / kUnits;
-  const int tiles = (B + kRows - 1) / kRows;
-  int gb = tiles < 2 * sms / gu ? tiles : 2 * sms / gu;
-  if (gb < 1) gb = 1;
-  for (; gb >= 1; --gb) {
-    const int rows = (tiles + gb - 1) / gb * kRows;
-    Carver cv{nullptr};
-    const size_t smem = FwdSmem<bf16>::carve(cv, nullptr, ceil_to(H, 16), rows);
-    int nb = 0;
-    if (smem <= (size_t)optin) {
-      cudaError_t e = cudaFuncSetAttribute(
-          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (e == cudaSuccess)
-        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, kern, kThreads,
-                                                          smem);
-      if (e != cudaSuccess) return (int)e;
-    }
-    *p = Plan{kCoop, gu, gb, rows, nb * sms, 1, kUnits, smem};
-    if (nb * sms >= gu * gb) return 0;
-  }
-  return 0;  // gb = 1 does not fit: the launch reports it
-}
 
 inline cudaLaunchConfig_t cluster_config(const Plan& p, int threads,
                                          cudaLaunchAttribute* attr,
@@ -1888,6 +1908,34 @@ inline cudaLaunchConfig_t cluster_config(const Plan& p, int threads,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return cfg;
+}
+
+// The cooperative forward: ceil(H / 8) blocks of 8 units, padded to a
+// whole number of clusters of C, C the largest of 8, 4, 2, 1 for which
+// the whole grid is co-resident; `active` blocks fit at once. When none
+// fits (C = 1), the plan keeps it and the launch is refused.
+int coop_plan(const void* kern, int B, int H, Plan* p) {
+  const int gu = (H + kCoopUnits - 1) / kCoopUnits;
+  const int rows = ceil_to(B < kCoopRows ? B : kCoopRows, 8);
+  *p = Plan{kCoop, gu, 1, rows, 0, 1, kCoopUnits, kCoopSmemBytes};
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p->smem);
+  if (e != cudaSuccess) return (int)e;
+  for (int C = 8; C >= 1; C /= 2) {
+    if (C > gu) continue;
+    Plan t = *p;
+    t.cluster = C, t.gx = ceil_to(gu, C);
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg = cluster_config(t, kCoopThreads, attr,
+                                                  nullptr);
+    int n = 0;
+    e = cudaOccupancyMaxActiveClusters(&n, kern, &cfg);
+    if (e != cudaSuccess) return (int)e;
+    t.active = n * C;
+    if (t.active >= t.gx || C == 1) *p = t;
+    if (t.active >= t.gx) break;
+  }
+  return 0;
 }
 
 // A cluster kernel's plan: `units` per block, C = the blocks a row tile of
@@ -1918,7 +1966,7 @@ int cluster_plan(const void* kern, int route, int threads, size_t smem,
 
 template <bool MASKED, bool STASH>
 const void* fwd_kernel(int route, int H) {
-  if (route == kCoop) return (const void*)lstm_fwd_kernel<bf16, MASKED, STASH>;
+  if (route == kCoop) return (const void*)lstm_fwd_kernel<MASKED, STASH>;
   if (route == kTf32)
     return H <= kTfOnePassH
                ? (const void*)lstm_fwd_tf32_kernel<1, MASKED, STASH>
@@ -2095,6 +2143,71 @@ int launch_fwd_tf32(const FwdArgs& a, const Plan& p, const void* rwp, int Hk,
   return (int)cudaGetLastError();
 }
 
+// The cooperative forward: one launch with the cooperative attribute (and
+// clusters of p.cluster blocks), refused when the grid is not
+// co-resident; tensor maps as CoopMaps says.
+template <bool MASKED, bool STASH>
+int launch_fwd_coop(const FwdArgs& a, const Plan& p, const void* rwp, int Hk,
+                    cudaStream_t st) {
+  CoopMaps maps;
+  const cuuint64_t H = a.H, B = a.B, T = a.T;
+  const cuuint32_t rows = p.rows;
+  int rc;
+  {
+    const cuuint64_t dims[3] = {(cuuint64_t)a.ldh, (cuuint64_t)a.Bp, 2};
+    const cuuint64_t strides[2] = {(cuuint64_t)a.ldh * 2,
+                                   (cuuint64_t)a.plane * 2};
+    const cuuint32_t box[3] = {kChunk, rows, 1};
+    rc = sm90::make_map_bf16(&maps.h, a.hbuf, 3, dims, strides, box);
+  }
+  if (rc) return rc;
+  {
+    const cuuint64_t dims[2] = {(cuuint64_t)Hk,
+                                4 * (cuuint64_t)ceil_to(a.H, 64)};
+    const cuuint64_t strides[1] = {(cuuint64_t)Hk * 2};
+    const cuuint32_t box[2] = {kChunk, 4 * kCoopUnits};
+    rc = sm90::make_map_bf16(&maps.w, rwp, 2, dims, strides, box);
+  }
+  if (rc) return rc;
+  {
+    const cuuint64_t dims[4] = {H, 4, B, T};
+    const cuuint64_t strides[3] = {H * 2, H * 8, H * 8 * B};
+    const cuuint32_t box[4] = {kCoopUnits, 1, rows, 1};
+    rc = sm90::make_map_bf16(&maps.xw, a.xw, 4, dims, strides, box, false);
+  }
+  if (rc) return rc;
+  const CoopArgs ca{static_cast<const bf16*>(a.xw),
+                    static_cast<const bf16*>(a.peep),
+                    static_cast<const bf16*>(a.c0),
+                    static_cast<const bf16*>(a.mask),
+                    static_cast<bf16*>(a.hbuf),
+                    static_cast<bf16*>(a.h_out),
+                    static_cast<bf16*>(a.hT),
+                    static_cast<bf16*>(a.cT),
+                    static_cast<bf16*>(a.hsel),
+                    static_cast<bf16*>(a.c_stash),
+                    static_cast<bf16*>(a.gates),
+                    a.sync,
+                    a.plane,
+                    a.T,
+                    a.B,
+                    a.H,
+                    a.ldh,
+                    a.reverse,
+                    p.cluster,
+                    p.rows,
+                    a.B <= 64};
+  cudaLaunchAttribute attr[2];
+  cudaLaunchConfig_t cfg = cluster_config(p, kCoopThreads, attr, st);
+  attr[1].id = cudaLaunchAttributeCooperative;
+  attr[1].val.cooperative = 1;
+  cfg.numAttrs = 2;
+  cudaError_t e =
+      cudaLaunchKernelEx(&cfg, lstm_fwd_kernel<MASKED, STASH>, maps, ca);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 template <bool MASKED, bool STASH>
 int launch_fwd(FwdArgs a, int dtype, const void* rwp, int Hk,
                cudaStream_t st) {
@@ -2102,15 +2215,8 @@ int launch_fwd(FwdArgs a, int dtype, const void* rwp, int Hk,
   int rc = make_plan<MASKED, STASH>(0, dtype, a.B, a.H, &p);
   if (rc == 0) rc = launch_ready(p);
   if (rc) return rc;
-  if (p.route == kCoop) {
-    a.rows = p.rows;
-    void* args[] = {&a};
-    cudaError_t e = cudaLaunchCooperativeKernel(
-        fwd_kernel<MASKED, STASH>(p.route, a.H), dim3(p.gx, p.gy),
-        dim3(kThreads), args, p.smem, st);
-    if (e != cudaSuccess) return (int)e;
-    return (int)cudaGetLastError();
-  }
+  if (p.route == kCoop)
+    return launch_fwd_coop<MASKED, STASH>(a, p, rwp, Hk, st);
   if (p.route == kTf32)
     return launch_fwd_tf32<MASKED, STASH>(a, p, rwp, Hk, st);
   return a.H <= 1024
@@ -2209,9 +2315,12 @@ extern "C" {
 // dhc0 f32). A null `mask` runs the unmasked kernel (hT and hsel unused),
 // a null `gates` the forward without the training stash (c_stash and hsel
 // unused). `hbuf` is (2, Bp, ldh) zeros with h0 in [0][:B, :H] (Bp >= B,
-// ldh >= H rounded up to 128); `rwp` is RW arranged for the bf16 cluster
-// forward ((4 Hu, Hk): see lstm_fwd_cluster_kernel; Hu = H rounded up to
-// 64, Hk to 8), read by that route only. The split-TF32 forward (f32)
+// ldh >= H rounded up to 128); `rwp` is RW arranged for the bf16 forwards
+// ((4 Hu, Hk), Hu = H rounded up to 64, Hk to 8: per 64-unit group for the
+// cluster forward, `_rw_by_unit_group(rw)`, per 8-unit group for the
+// cooperative one, `_rw_by_unit_group(rw, 8, 8)`); `sync` is the
+// cooperative forward's step counter, one zeroed unsigned (ignored by the
+// other routes). The split-TF32 forward (f32)
 // takes instead `hbuf` (4, B, ldh) (ldh = H rounded up to 4; planes
 // 0 and 1 the TF32 big and small parts of h0, Bp = B), `rwp` RW arranged
 // per 32-unit group ((4 Hu, Hk), Hu = H rounded up to 64, Hk to 4:
@@ -2225,16 +2334,16 @@ extern "C" {
 // of its launch: a cooperative grid larger than the co-resident blocks
 // cudaErrorCooperativeLaunchTooLarge, a cluster kernel whose plan has no
 // cluster that fits cudaErrorInvalidConfiguration.
-int dl4j_lstm_fwd(const void* xw, const void* rw, const void* rwp, int Hk,
-                  const void* peep, const void* c0, const void* mask,
-                  void* hbuf, int Bp, int ldh, void* h_out, void* hT, void* cT,
+int dl4j_lstm_fwd(const void* xw, const void* rwp, int Hk, const void* peep,
+                  const void* c0, const void* mask, void* hbuf, int Bp,
+                  int ldh, unsigned* sync, void* h_out, void* hT, void* cT,
                   void* hsel, void* c_stash, void* gates, int dtype, int T,
                   int B, int H, int reverse, void* stream) {
   FwdArgs a{};
-  a.xw = xw, a.rw = rw, a.peep = peep, a.c0 = c0, a.mask = mask;
-  a.hbuf = hbuf, a.h_out = h_out, a.hT = hT, a.cT = cT, a.hsel = hsel;
-  a.c_stash = c_stash, a.gates = gates;
-  a.T = T, a.B = B, a.H = H, a.Bp = Bp, a.Hp = ceil_to(H, 16);
+  a.xw = xw, a.peep = peep, a.c0 = c0, a.mask = mask;
+  a.hbuf = hbuf, a.sync = sync, a.h_out = h_out, a.hT = hT, a.cT = cT;
+  a.hsel = hsel, a.c_stash = c_stash, a.gates = gates;
+  a.T = T, a.B = B, a.H = H, a.Bp = Bp;
   a.ldh = ldh, a.plane = (long long)Bp * ldh, a.reverse = reverse;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (mask)
@@ -2262,11 +2371,10 @@ int dl4j_lstm_bwd(const void* gates, const void* c, const void* dh_out,
 // The launch plan of kernel `kind` (0 forward, 1 backward) at (dtype, B,
 // H), out[0..6]: {route (0 cooperative forward, 1 bf16 cluster forward, 2
 // split-TF32 clusters (f32), 3 bf16 cluster backward), blocks along x
-// (unit slices of
-// the cooperative grid, or blocks per cluster), along y (batch splits, or
-// row tiles), rows per split or tile, blocks that can be resident at once
+// (the cooperative grid's blocks, or blocks per cluster), along y (1, or
+// row tiles), rows per box or tile, blocks that can be resident at once
 // (cooperative) or clusters that fit at once (0: refused), blocks per
-// cluster (1 cooperative), units per block}. Returns the dynamic shared
+// cluster, units per block}. Returns the dynamic shared
 // memory of one block in bytes (0 on a CUDA error).
 size_t dl4j_lstm_plan(int kind, int dtype, int masked, int B, int H,
                       int* out) {

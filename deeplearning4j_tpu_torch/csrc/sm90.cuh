@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels:
 // mbarriers, TMA tensor loads (plain and cluster multicast), cluster
-// barriers and loads from a peer block's shared memory, named barriers,
+// barriers and loads from a peer block's shared memory, counters that the
+// blocks of a cooperative launch wait on, named barriers,
 // the split of f32 operands into TF32 parts, wgmma (bf16 and TF32) with
 // shared-memory descriptors, and the host-side construction of TMA
 // tensor maps through the driver entry point (so a library needs no
@@ -119,6 +120,39 @@ __device__ __forceinline__ uint32_t cluster_rank() {
 __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
   asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// ------------------------------------------------------- grid counters
+// A counter in global memory that the blocks of one launch raise and wait
+// for, across clusters (only under a cooperative launch, which makes
+// every block resident). flag_arrive publishes the block's earlier
+// memory operations (ordered before the call by a barrier of the block)
+// at GPU scope; flag_wait spins until the counter reaches `target`, then
+// orders the reads that follow, TMA loads included, after that. A wait
+// that lasts 4 s traps, as mbar_wait does.
+__device__ __forceinline__ void flag_arrive(unsigned* p) {
+  asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n" ::"l"(p)
+               : "memory");
+}
+
+__device__ __forceinline__ void flag_wait(const unsigned* p,
+                                          unsigned target) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .u32 v;\n.reg .u64 t0, t1;\n"
+      "mov.u64 t0, %%globaltimer;\n"
+      "FWAIT:\n"
+      "ld.acquire.gpu.global.u32 v, [%0];\n"
+      "setp.ge.u32 p, v, %1;\n"
+      "@p bra FDONE;\n"
+      "mov.u64 t1, %%globaltimer;\n"
+      "sub.u64 t1, t1, t0;\n"
+      "setp.gt.u64 p, t1, 4000000000;\n"
+      "@p trap;\n"
+      "bra FWAIT;\n"
+      "FDONE:\n"
+      "fence.proxy.async.global;\n}\n" ::"l"(p),
+      "r"(target)
+      : "memory");
 }
 
 // 16 bytes of the shared memory of block `cta` of this cluster, at the
@@ -522,17 +556,19 @@ inline EncodeTiledFn encode_tiled() {
 
 // A tensor map of `rank` dimensions of bf16 or f32 elements (innermost
 // first; strides in bytes of dimensions 1..rank-1), boxes of `box`
-// elements, 128-byte swizzle, out-of-bounds elements read as zero.
-// Returns a cudaError_t.
+// elements, 128-byte swizzle (or none: `swizzle` false), out-of-bounds
+// elements read as zero. Returns a cudaError_t.
 inline int make_map(CUtensorMap* map, CUtensorMapDataType type,
                     const void* base, int rank, const cuuint64_t* dims,
-                    const cuuint64_t* strides, const cuuint32_t* box) {
+                    const cuuint64_t* strides, const cuuint32_t* box,
+                    bool swizzle = true) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   cuuint32_t ones[5] = {1, 1, 1, 1, 1};
   CUresult r = fn(map, type, (cuuint32_t)rank, const_cast<void*>(base), dims,
                   strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                  CU_TENSOR_MAP_SWIZZLE_128B,
+                  swizzle ? CU_TENSOR_MAP_SWIZZLE_128B
+                          : CU_TENSOR_MAP_SWIZZLE_NONE,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
@@ -540,9 +576,9 @@ inline int make_map(CUtensorMap* map, CUtensorMapDataType type,
 
 inline int make_map_bf16(CUtensorMap* map, const void* base, int rank,
                          const cuuint64_t* dims, const cuuint64_t* strides,
-                         const cuuint32_t* box) {
+                         const cuuint32_t* box, bool swizzle = true) {
   return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims,
-                  strides, box);
+                  strides, box, swizzle);
 }
 
 inline int make_map_f32(CUtensorMap* map, const void* base, int rank,

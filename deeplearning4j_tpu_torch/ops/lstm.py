@@ -13,8 +13,10 @@ in f32 in split TF32 (each operand split into two TF32 parts, three
 tensor-core passes, every 32-wide k chunk summed on a fresh accumulator
 and added in f32: f32 accuracy, the reference's HIGHEST precision,
 whatever `torch.backends.cuda.matmul.allow_tf32` says). The bf16
-forward at B <= 128 and H <= 1024 is one cooperative launch with a grid
-barrier per step instead (`plan` reports which route a call gets). The
+forward at B <= 128 and H <= 1024 is one cooperative launch instead,
+whose blocks keep their slices of RW in shared memory for the whole
+launch and wait for each other's h_t on a counter in global memory
+(`plan` reports which route a call gets). The
 source's header says how each is laid out and what bounds it.
 
 `lstm_fused(x, W, RW, b, peephole, h0, c0, mask=, reverse=)` is the entry
@@ -207,9 +209,9 @@ def _library() -> ctypes.CDLL:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         # dtype, T, B, H, reverse, stream
         dims = [ci] * 5 + [vp]
-        # xw, rw, rwp, Hk, peep, c0, mask, hbuf, Bp, ldh, h_out, hT, cT,
+        # xw, rwp, Hk, peep, c0, mask, hbuf, Bp, ldh, sync, h_out, hT, cT,
         # hsel, c_stash, gates
-        lib.dl4j_lstm_fwd.argtypes = [vp, vp, vp, ci, vp, vp, vp, vp, ci, ci] \
+        lib.dl4j_lstm_fwd.argtypes = [vp, vp, ci, vp, vp, vp, vp, ci, ci, vp] \
             + [vp] * 6 + dims
         # gates, c, dh_out, dhT, dcT, mask, rw, rwp, peep, c0, dz, dzbuf,
         # dhc0
@@ -227,11 +229,11 @@ ROUTES = ("cooperative", "bf16 clusters", "tf32 clusters", "bf16 clusters")
 class LaunchPlan(NamedTuple):
     """A kernel's launch on the current card: `route` (one of ROUTES),
     `smem` bytes of dynamic shared memory per block, `gx` x `gy` blocks
-    (unit slices x batch splits for the cooperative kernel; blocks per
-    cluster x row tiles for the others), `rows` per split or tile,
-    `active` blocks that can be resident at once (cooperative) or
-    clusters that fit at once (0: refused), `cluster` blocks per cluster
-    (1 cooperative), `units` per block."""
+    (the grid's blocks x 1 for the cooperative kernel; blocks per cluster
+    x row tiles for the others), `rows` per TMA box of h (the batch
+    rounded up to 8; cooperative) or per tile, `active` blocks that can be
+    resident at once (cooperative) or clusters that fit at once (0:
+    refused), `cluster` blocks per cluster, `units` per block."""
     route: str
     smem: int
     gx: int
@@ -356,12 +358,13 @@ def _units_cut(x: Optional[torch.Tensor], H: int):
 
 def _rw_by_unit_group(rw: torch.Tensor, group: int = 64,
                       k_mult: int = 8) -> torch.Tensor:
-    """RW (H, 4H) arranged for the cluster forwards: (4 Hu, Hk) with Hu =
+    """RW (H, 4H) arranged for the forward kernels: (4 Hu, Hk) with Hu =
     H rounded up to 64 and Hk to `k_mult`, row 4 group G + group q + j
     holding column q H + group G + j of RW (gate q of unit group G + j)
     over k; zeros past H. One such group's 4 `group` rows are the B
     operand of one consumer warpgroup's product: groups of 64 units for
-    the bf16 forward (n = 256), of 32 for the split-TF32 one (n = 128)."""
+    the bf16 cluster forward (n = 256), of 32 for the split-TF32 one (n =
+    128), of 8 for the cooperative one (n = 32: a block's slice)."""
     H = rw.shape[0]
     Hu, Hk = _ceil(H, 64), _ceil(H, k_mult)
     n = Hu // group
@@ -413,7 +416,7 @@ def lstm_fwd(xw, rw, peep, h0, c0, mask=None, *, reverse=False,
     new = lambda *s: torch.empty(s, dtype=xw.dtype, device=xw.device)
     h_out, cT = new(T, B, H), new(B, H)
     hT = new(B, H) if masked else None
-    Hk = _ceil(H, 8)
+    Hk, sync = _ceil(H, 8), None
     if p.route == "tf32 clusters":
         # h's TF32 planes (parity 0 holds h0's), RW arranged per 32-unit
         # group; the carries start in cT and hT
@@ -426,18 +429,23 @@ def lstm_fwd(xw, rw, peep, h0, c0, mask=None, *, reverse=False,
         if masked:
             hT.copy_(h0)
     else:
+        # the ping-pong h buffer, then the cooperative kernel's step
+        # counter, zeroed with it; RW arranged per unit group of a block
         Bp, ldh = _ceil(B, 128), _ceil(H, 128)
-        hbuf = torch.zeros((2, Bp, ldh), dtype=xw.dtype, device=xw.device)
+        scratch = torch.zeros(2 * Bp * ldh + 64, dtype=xw.dtype,
+                              device=xw.device)
+        hbuf = scratch[:2 * Bp * ldh].view(2, Bp, ldh)
+        sync = scratch[2 * Bp * ldh:]
         hbuf[0, :B, :H] = h0
-        rwp = _rw_by_unit_group(rw) if p.route == ROUTES[1] else None
+        rwp = _rw_by_unit_group(rw, 8 if p.route == "cooperative" else 64)
     c_st = new(T, B, H) if with_stash else None
     h_st = new(T, B, H) if with_stash and masked else None
     gates = new(T, B, G) if with_stash else None
     with torch.cuda.device(xw.device):
         rc = lib.dl4j_lstm_fwd(
-            xw.data_ptr(), rw.data_ptr(), _ptr(rwp), Hk,
-            peep.data_ptr(), c0.data_ptr(), _ptr(mask), hbuf.data_ptr(), Bp,
-            ldh, h_out.data_ptr(), _ptr(hT), cT.data_ptr(), _ptr(h_st),
+            xw.data_ptr(), rwp.data_ptr(), Hk, peep.data_ptr(),
+            c0.data_ptr(), _ptr(mask), hbuf.data_ptr(), Bp, ldh, _ptr(sync),
+            h_out.data_ptr(), _ptr(hT), cT.data_ptr(), _ptr(h_st),
             _ptr(c_st), _ptr(gates), _DTYPE_CODE[xw.dtype], T, B, H,
             int(reverse), torch.cuda.current_stream(xw.device).cuda_stream)
     _raise_on(rc, "fwd", tuple(xw.shape), p)

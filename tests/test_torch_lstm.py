@@ -316,6 +316,24 @@ def test_rw_by_unit_group_32_for_the_split_tf32_forward():
     assert float(p[:, Hn:].abs().max()) == 0
 
 
+def test_rw_by_unit_group_8_for_the_cooperative_forward():
+    """The cooperative forward's B operand (`_rw_by_unit_group(rw, 8, 8)`):
+    block G's 32 rows 32 G + 8 q + j hold column q H + 8 G + j of RW,
+    units padded to a multiple of 64 with zeros (H = 200, the wrapper's
+    padding of 196: 25 blocks of 8 units, 7 more of zeros)."""
+    Hn = 200
+    rw = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (Hn, 4 * Hn)).astype(np.float32))
+    p = L._rw_by_unit_group(rw, 8, 8)
+    assert tuple(p.shape) == (4 * 256, 200)
+    for G in range(32):
+        for q in range(4):
+            for j in range(8):
+                u, row = 8 * G + j, p[32 * G + 8 * q + j]
+                want = rw[:, q * Hn + u] if u < Hn else torch.zeros(Hn)
+                assert torch.equal(row, want)
+
+
 def test_tf32_planes_split_as_the_kernels_do():
     """`_tf32_planes` (the wrapper's split of h0 into the forward's first
     operand planes) is the kernels' `split_tf32`: big rounded to nearest
@@ -526,6 +544,46 @@ def test_cooperative_launch_too_large_raises():
             assert L.error_in_tolerances(a, b, dt) <= 1.0
     coop = L.plan("fwd", dt, False, 128, 1024)
     assert coop.route == "cooperative" and coop.gx * coop.gy <= coop.active
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Hn", [1024, 196])
+def test_cooperative_forward_small_batches(Hn):
+    """The cooperative bf16 forward at B = 1, 31, 32, 33 (the warpgroups
+    split K at 64 rows or fewer) and 100, masked and not, forward and
+    reverse, with its stash and without: every launch on "cooperative",
+    every output held row by row to the plain version, and a second run
+    bit-identical to the first."""
+    _card()
+    dt = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(9)
+    r = lambda *s, sc=1.0: (torch.randn(s, generator=g, device="cuda")
+                            * sc).to(dt)
+    Tn = 20
+    rw, peep = r(Hn, 4 * Hn, sc=Hn ** -0.5), r(3, Hn, sc=0.3)
+    for Bn in (1, 31, 32, 33, 100):
+        xw, h0, c0 = r(Tn, Bn, 4 * Hn), r(Bn, Hn, sc=0.5), r(Bn, Hn, sc=0.5)
+        mask = (torch.arange(Tn, device="cuda")[:, None]
+                < torch.arange(1, Bn + 1, device="cuda")[None] % (Tn + 1)
+                ).to(dt)
+        for m in (None, mask):
+            for reverse in (False, True):
+                L.reset_counts()
+                runs = [[t for stash in (True, False)
+                         for t in L.lstm_fwd(xw, rw, peep, h0, c0, m,
+                                             reverse=reverse,
+                                             with_stash=stash)]
+                        for _ in range(2)]
+                ref = L.lstm_fwd_plain(xw, rw, peep, h0, c0, m,
+                                       reverse=reverse)
+                torch.cuda.synchronize()
+                assert L.launches_by_route == {("fwd", "cooperative"): 4}
+                for a, b in zip(runs[0], list(ref) + list(ref)):
+                    if a is not None:
+                        assert L.error_in_tolerances(a, b, dt) <= 1.0
+                for a, b in zip(*runs):
+                    assert (a is None) == (b is None)
+                    assert a is None or torch.equal(a, b)
 
 
 @pytest.mark.gpu

@@ -220,6 +220,55 @@ def test_tbptt_with_padded_tail_window_matches_jax():
     assert plstm.lstm_bwd_plain.calls == 12
 
 
+def test_path_4s_shape_from_a_shared_zip_matches_jax(tmp_path):
+    """Main path 4s narrowed (lstm_large fed GravesLSTMCharModellingExample
+    mini-batches: two GravesLSTM, RMSPROP lr 0.1, tBPTT 50, one-hot rows):
+    here vocab 32, H=64, B=4, T=100, so one fit is two full windows. The
+    port's network is restored from the JAX network's checkpoint zip;
+    the params after the first window (taken by a listener) atol lr /
+    1000, the losses of both windows and the final score rtol 1e-5; the
+    fused LSTM's plain versions run 2 windows x 2 layers, unmasked. Only
+    the first window's params are compared: a window of 50 steps sums
+    gradients long enough that the second window's sign-like RMSPROP
+    steps can move a few elements apart by more than lr / 1000 (the
+    RMSPROP caveat of this module's docstring)."""
+    Vn, Hn, Bn, Tn, W = 32, 64, 4, 100, 50
+
+    class Snap(_Scores):
+        def __init__(self):
+            super().__init__()
+            self.params = []
+
+        def iteration_done(self, net, it):
+            super().iteration_done(net, it)
+            self.params.append([{k: np.array(v) for k, v in p.items()}
+                                for p in net._params])
+
+    jnet = JaxNet(_jax_conf(tbptt=W, vocab=Vn, hidden=Hn))
+    jnet.init()
+    path = str(tmp_path / "jax.zip")
+    jser.write_model(jnet, path)
+    pnet = pser.restore_multi_layer_network(path, device="cpu")
+    js, ps = Snap(), Snap()
+    jnet.set_listeners(js)
+    pnet.set_listeners(ps)
+    ids = _ids(1, 23, vocab=Vn, b=Bn, t=Tn)[0]
+    x = np.eye(Vn, dtype=np.float32)[ids[:, :-1]]
+    y = ids[:, 1:].astype(np.int32)
+    plstm.reset_counts()
+    jnet.fit(JDataSet(x, y))
+    pnet.fit(DataSet(x, y))
+    assert len(ps.scores) == 2 and pnet.iteration == 2
+    np.testing.assert_allclose(ps.scores, js.scores, rtol=1e-5)
+    np.testing.assert_allclose(pnet.score_value, jnet.score_value, rtol=1e-5)
+    for i, (a, b) in enumerate(zip(js.params[0], ps.params[0])):
+        assert set(a) == set(b)
+        for k in a:
+            np.testing.assert_allclose(b[k], a[k], rtol=1e-5, atol=1e-4,
+                                       err_msg=f"layer {i} {k}")
+    assert plstm.lstm_fwd_plain.calls == 4 and plstm.lstm_bwd_plain.calls == 4
+
+
 def test_tbptt_needs_per_timestep_labels():
     _, pnet = _pair(tbptt=4)
     x, y = _one_hot_batches(1)[0]
