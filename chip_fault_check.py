@@ -15,8 +15,8 @@ process per copy (the unchanged copy runs all three):
 
 - flash: the forward, dQ and dK/dV kernels on the cases below, bf16 (at
   D = 128 the wgmma kernels; at D = 256, 384 and 512 the "wgmma wide"
-  forward; the "wgmma wide" backward at D = 256 and the mma.sync backward
-  at D = 384 and 512) and f32 (the
+  forward; the "wgmma wide" backward at D = 256 and the "wgmma cluster"
+  backward at D = 384 and 512) and f32 (the
   split-TF32 kernels at D = 128 and 256, and the cluster backward at
   D = 384 and 512), held to the plain versions in f32 with
   `flash_attention.error_in_tolerances` (O, dQ, dK, dV row by row; L
@@ -33,7 +33,9 @@ process per copy (the unchanged copy runs all three):
   flash_rounding_inputs`, the forward alone against the plain forward on
   the bf16 tensors) and the dS-rounding inputs (`chip_smoke.
   flash_ds_rounding_inputs`, the three kernels against the plain versions
-  on the bf16 tensors);
+  on the bf16 tensors), and at D = 384 and 512 inputs whose q, k and dO
+  column halves are equal (`chip_smoke.flash_halves_inputs`: the halves
+  of dQ, dK and dV must be bit-identical, "halves bits");
 - paged: every case of `chip_smoke.paged_cases` (dense and int8 pools,
   decode, verify and chunk widths, the ragged row tiles, head dims 64 to
   256, pages of 1 to 512), read in units of the tolerance atol + rtol *
@@ -67,9 +69,17 @@ dQ's partials stored without the peer warpgroup's, or read before the
 barrier that orders their hand-over,
 the last 64-column box of K (dQ) or dO (dK/dV) not loaded, dQ's last
 K/V tile skipped, dK/dV's first visible Q tile off by one, and L and
-dsum of the neighbouring Q tile; the mma.sync backward (D = 384 and
-512, the cases below): a far tile (40) dropped, the last tile skipped,
-the dsum term dropped; the D = 128
+dsum of the neighbouring Q tile; the bf16 backward at D = 384 and 512
+("wgmma cluster"): the block of rank 1 adding the partial scores in its
+own order (only the halves bits show it), the peer's partials read
+before their arrival, the last 64-column box of a block's K half (dQ) or
+dO half (dK/dV) not loaded, dS (dQ) and dS^T (dK) truncated to bf16
+instead of rounded (only the dS-rounding inputs show it), the first key
+tile masked instead of the diagonal ones (dQ), the diagonal Q tiles
+masked one tile late (dK/dV), dK/dV's first visible Q tile off by one,
+each kernel's ring stage refilled before its release, P^T read before
+its barrier, dQ's last K/V tile skipped, and L and dsum of the
+neighbouring Q tile; the D = 128
 backward's ring stages refilled before their release, P^T read before its
 barrier, the diagonal mask on the wrong tile, the first visible Q tile off
 by one, L and dsum of the neighbouring Q tile, and a far tile (40)
@@ -121,9 +131,10 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PKG = "deeplearning4j_tpu_torch"
 FLASH, PAGED, LSTM = "flash_attention", "paged_attention", "lstm"
 # (B, T, H, D, causal, dtype): bf16, the training path's kernels at D = 128,
-# the "wgmma wide" kernels at D = 256 and the mma.sync backward at D = 384
-# and 512 (T = 2048 reaches its tile 40); f32, the split-TF32 kernels
-# (path 2f's at D = 128; the cluster backward at D = 384 and 512)
+# the "wgmma wide" kernels at D = 256 and the "wgmma cluster" backward at
+# D = 384 and 512 (T = 192: the first diagonal tiles; T = 1024 full: every
+# tile unmasked); f32, the split-TF32 kernels (path 2f's at D = 128; the
+# cluster backward at D = 384 and 512)
 CASES = [(2, 512, 2, 128, False, "bfloat16"), (2, 512, 2, 128, True,
                                                "bfloat16"),
          (1, 4096, 2, 128, True, "bfloat16"),
@@ -151,8 +162,13 @@ WIDE = "    flash_fwd_wide_kernel(const __grid_constant__ CUtensorMap tq,"
 WEXCH = "__device__ __forceinline__ void wide_exchange("
 WDIAG = "__device__ __forceinline__ bool wide_diag("
 WPACK = "__device__ __forceinline__ void wide_pack("
-DQ = "flash_bwd_dq_mma_kernel(const Args a) {"
-DKV = "flash_bwd_dkv_mma_kernel(const Args a) {"
+CLDQW = "flash_bwd_dq_cluster_kernel(const __grid_constant__ CUtensorMap tq,"
+CLDKVW = "flash_bwd_dkv_cluster_kernel(const __grid_constant__ CUtensorMap tq,"
+CLDQC = "__device__ __forceinline__ void cl_dq_consumer("
+CLDVC = "__device__ __forceinline__ void cl_dv_consumer("
+CLDKC = "__device__ __forceinline__ void cl_dk_consumer("
+CLDP = "__device__ __forceinline__ float cl_dp("
+CLMEET = "__device__ __forceinline__ void cl_meet("
 DQW = "flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,"
 DKVW = "flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,"
 DQC = "__device__ __forceinline__ void dq_consumer("
@@ -290,20 +306,58 @@ MUTATIONS = [
          "sm90::bulk_load(sm.lse[s], lse + (r0 ^ kWbRows),"),
         ("sm90::bulk_load(sm.dsum[s], dsum + r0,",
          "sm90::bulk_load(sm.dsum[s], dsum + (r0 ^ kWbRows),")]),
-    ("dQ drops dS.K of K/V tile 40", FLASH, DQ, [
-        ("warp_pb<NO, KB / 16, LD>(dq, s, K + c0);",
-         "if (kj != 40) warp_pb<NO, KB / 16, LD>(dq, s, K + c0);")]),
-    ("dV drops P^T.dO of Q tile 40", FLASH, DKV, [
-        ("warp_pb<NO, KB / 16, LD>(dv, s, dO + c0);",
-         "if (qi != 40) warp_pb<NO, KB / 16, LD>(dv, s, dO + c0);")]),
-    ("dQ skips the last K/V tile", FLASH, DQ, [
-        ("const int nk = a.causal ? (q0 + BLK) / KB : a.Tk / KB;",
-         "const int nk = a.causal ? (q0 + BLK) / KB - 1 : a.Tk / KB - 1;")]),
-    ("dK/dV skips the last Q tile", FLASH, DKV, [
-        ("const int nq = a.Tq / KB;", "const int nq = a.Tq / KB - 1;")]),
-    ("dK drops the dsum term", FLASH, DKV, [
-        ("s[j][e] *= dp[j][e] - Ds[8 * j + 2 * t + (e & 1)];",
-         "s[j][e] *= dp[j][e];")]),
+    # the bf16 backward at D = 384 and 512 ("wgmma cluster"); an order fault
+    # shows only on the equal-halves inputs, a truncated dS only on the
+    # dS-rounding inputs
+    ("cluster: the rank-1 block adds the partials in its own order", FLASH,
+     CLDP, [("const float d0 = rank == 0 ? mine : peer;",
+             "const float d0 = mine;"),
+            ("const float d1 = rank == 0 ? peer : mine;",
+             "const float d1 = peer;")]),
+    ("cluster: the peer's partials read before their arrival", FLASH,
+     CLMEET, [("  sm90::mbar_wait_cluster(bar, parity);\n", "")]),
+    ("cluster dQ loads no last 64-column box of its K half", FLASH, CLDQW, [
+        ("tma_rows<BOXES>(sm.k[s][0], &tk,",
+         "tma_rows<BOXES - 1>(sm.k[s][0], &tk,")]),
+    ("cluster dK/dV loads no last 64-column box of its dO half", FLASH,
+     CLDKVW, [("tma_rows<BOXES>(sm.dO[s][0], &tdo,",
+               "tma_rows<BOXES - 1>(sm.dO[s][0], &tdo,")]),
+    ("cluster dQ truncates dS to bf16 instead of rounding it", FLASH, CLDQC, [
+        ("    wide_pack(p, s);\n",
+         "    for (int i_ = 0; i_ < 16; i_ += 2)\n"
+         "      p[i_ / 2] = (__float_as_uint(s[i_]) >> 16) |\n"
+         "                  (__float_as_uint(s[i_ + 1]) & 0xffff0000u);\n")]),
+    ("cluster dK truncates dS^T to bf16 instead of rounding it", FLASH,
+     CLDKC, [("    wide_pack(p, d);\n",
+              "    for (int i_ = 0; i_ < 16; i_ += 2)\n"
+              "      p[i_ / 2] = (__float_as_uint(d[i_]) >> 16) |\n"
+              "                  (__float_as_uint(d[i_ + 1]) & 0xffff0000u);\n")]),
+    ("cluster dQ masks the first key tile, not the diagonal ones", FLASH,
+     CLDQC, [("const bool diag = wide_diag(a.causal, j, nk, kClTile);",
+              "const bool diag = a.causal && j == 0;")]),
+    ("cluster dK/dV masks the diagonal Q tiles one tile late", FLASH, CLDVC, [
+        ("const bool diag = a.causal && qi < q_first + kWbRows / kClTile;",
+         "const bool diag = a.causal && qi > q_first &&\n"
+         "                      qi <= q_first + kWbRows / kClTile;")]),
+    ("cluster dK/dV starts one Q tile after the diagonal", FLASH, CLDKVW, [
+        ("const int q_first = a.causal ? k0 / kClTile : 0;",
+         "const int q_first = a.causal ? k0 / kClTile + 1 : 0;")]),
+    ("cluster dQ refills a K/V stage before its release", FLASH, CLDQW, [
+        ("sm90::mbar_wait(&sm.empty[s], ((j / NS) & 1) ^ 1);", "")]),
+    ("cluster dK/dV refills a Q/dO stage before its release", FLASH, CLDKVW, [
+        ("sm90::mbar_wait(&sm.empty[s], ((n / NS) & 1) ^ 1);", "")]),
+    ("cluster dK reads P^T before its barrier", FLASH, CLDKC, [
+        ("    sm90::mbar_wait(&sm.p_full[pb], (n >> 1) & 1);\n", "")]),
+    ("cluster dQ skips its last K/V tile", FLASH, CLDQW, [
+        ("const int nk = a.causal ? (q0 + kWbRows) / kClTile : a.Tk / kClTile;",
+         "const int nk = a.causal ? (q0 + kWbRows) / kClTile - 1\n"
+         "                        : a.Tk / kClTile - 1;")]),
+    # tiles 0 <-> 1, 2 <-> 3, ...: always inside the tensor
+    ("cluster dK/dV takes L and dsum of the neighbouring Q tile", FLASH,
+     CLDKVW, [("sm90::bulk_load(sm.lse[s], lse + r0,",
+               "sm90::bulk_load(sm.lse[s], lse + (r0 ^ kClTile),"),
+              ("sm90::bulk_load(sm.dsum[s], dsum + r0,",
+               "sm90::bulk_load(sm.dsum[s], dsum + (r0 ^ kClTile),")]),
     ("dQ (wgmma) refills a K/V stage before its release", FLASH, DQW, [
         ("sm90::mbar_wait(&sm.empty[s], ((j / kBwStages) & 1) ^ 1);", "")]),
     ("dK/dV (wgmma) refills a Q/dO stage before its release", FLASH, DKVW, [
@@ -695,6 +749,19 @@ def flash_cases(torch, fa):
                               "dS rounding",
                       "units": cs.flash_ds_rounding_units(torch, fa, D),
                       "old_units": None})
+        if D > 256:
+            # the backward cluster's blocks must form the same P and dS
+            q, k, v, do = cs.flash_halves_inputs(torch, 1, 512, 2, D,
+                                                 seed=99 + i)
+            got = cs.flash_run(fa, q, k, v, do, True)
+            ref = cs.flash_plain_f32(fa, q, k, v, do, True, got)
+            units = {n: u for n, _, u in cs.flash_errors(fa, got, ref, bf)}
+            units["halves bits"] = 0.0 if all(
+                cs.flash_halves_equal(torch, g) for g in got[2:]) \
+                else float("inf")
+            cases.append({"case": f"B=1 T=512 H=2 D={D} bfloat16 causal, "
+                                  "equal halves",
+                          "units": units, "old_units": None})
     return cases
 
 

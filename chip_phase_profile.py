@@ -343,6 +343,88 @@ FLASH_EDITS = [
 ]
 
 
+def _cl_tally(kind: str, names, at: str):
+    """The bf16 cluster backward (`flash_bwd_*_cluster_kernel<D>`): the
+    declaration of the per-tile sums, their accumulation from readings
+    c0 .. c<len(names)>, and the print of their means before `at`: block
+    (0, 0) of the cluster, both ranks, each consumer warpgroup."""
+    decl, add, show = _tally(kind, names, at)
+    show = show.replace(
+        "blockIdx.x == 0 && blockIdx.y == 0",
+        "blockIdx.x == 0 && blockIdx.y == 0 && D == 512").replace(
+        f"PHASES {kind} wg=%d", f"PHASES cluster {kind} D=%d rank=%d wg=%d"
+    ).replace("(int)(threadIdx.x / 128)",
+              "D, (int)blockIdx.z, (int)(threadIdx.x / 128)")
+    return decl, add, show
+
+
+_CL_DQ = "__device__ __forceinline__ void cl_dq_consumer(ClDqSmem<D>& sm,"
+_CL_DV = "__device__ __forceinline__ void cl_dv_consumer(ClDkvSmem<D>& sm,"
+_CL_DK = "__device__ __forceinline__ void cl_dk_consumer(ClDkvSmem<D>& sm,"
+_CLQ = _cl_tally("dQ", ["stage wait", "S and dP", "push", "exchange wait",
+                        "P and dS", "dQ product"],
+                 "  // every tile is exchanged: the exchange buffers hold the "
+                 "two hand-overs")
+_CLV = _cl_tally("dK/dV", ["push, next issue", "exchange wait", "P^T",
+                           "hand-over", "dV product, next S^T"],
+                 "  store_wg(dv, 1.f, static_cast<bf16*>(a.out1) + rank * "
+                 "HALF, a.so1, b, h,")
+_CLK = _cl_tally("dK/dV", ["push, next issue", "exchange wait",
+                           "dsum, P^T wait", "dS^T", "dK product, next dP^T"],
+                 "  store_wg(dk, a.scale, static_cast<bf16*>(a.out0) + rank "
+                 "* HALF, a.so0, b,")
+_RELEASE = "    if (l == 0) sm90::mbar_arrive(&sm.empty[st]);\n"
+# the bf16 backward at D = 384 and 512 ("wgmma cluster"): per tile, each
+# consumer warpgroup's stage wait, score product, the partial exchange
+# (the pushes into the peer block, the wait for the peer's), the
+# element-wise work and the output product
+CLUSTER_BF16_EDITS = [
+    (_CL_DQ, "  for (int i = 0; i < NO; ++i) dq[i] = 0.f;\n",
+     "  for (int i = 0; i < NO; ++i) dq[i] = 0.f;\n" + _CLQ[0]),
+    (_CL_DQ, "    sm90::mbar_wait(&sm.full[st], (j / NS) & 1);\n",
+     _clock(0, 4) + "    sm90::mbar_wait(&sm.full[st], (j / NS) & 1);\n"
+     + _clock(1, 4)),
+    (_CL_DQ, "    sm90::fence_regs(dp);\n    // the partial scores meet",
+     "    sm90::fence_regs(dp);\n" + _clock(2, 4)
+     + "    // the partial scores meet"),
+    (_CL_DQ, "    cl_meet(&sm.x_full[wg][m & 1],",
+     _clock(3, 4) + "    cl_meet(&sm.x_full[wg][m & 1],"),
+    (_CL_DQ, "    const bool diag = wide_diag(",
+     _clock(4, 4) + "    const bool diag = wide_diag("),
+    (_CL_DQ, "    wide_pack(p, s);\n", "    wide_pack(p, s);\n" + _clock(5, 4)),
+    (_CL_DQ, "    sm90::fence_regs(dq);\n    if (l == 0)",
+     "    sm90::fence_regs(dq);\n" + _clock(6, 4) + "    " + _CLQ[1]
+     + "    if (l == 0)"),
+    (_CLQ[2].split("\n")[-1], _CLQ[2]),
+    (_CL_DV, "  for (int i = 0; i < HALF / 2; ++i) dv[i] = 0.f;\n",
+     "  for (int i = 0; i < HALF / 2; ++i) dv[i] = 0.f;\n" + _CLV[0]),
+    (_CL_DV, "    float* xs = sm.x[0][pb];\n",
+     _clock(0, 4) + "    float* xs = sm.x[0][pb];\n"),
+    (_CL_DV, "    cl_meet(&sm.x_full[0][pb],",
+     _clock(1, 4) + "    cl_meet(&sm.x_full[0][pb],"),
+    (_CL_DV, "    // P^T = ex2", _clock(2, 4) + "    // P^T = ex2"),
+    (_CL_DV, "    // hand P^T to warpgroup 1",
+     _clock(3, 4) + "    // hand P^T to warpgroup 1"),
+    (_CL_DV, "    wide_pack(p, s);\n", "    wide_pack(p, s);\n" + _clock(4, 4)),
+    (_CL_DV, _RELEASE, _clock(5, 4) + "    " + _CLV[1] + _RELEASE),
+    (_CLV[2].split("\n")[-1], _CLV[2]),
+    (_CL_DK, "  for (int i = 0; i < HALF / 2; ++i) dk[i] = 0.f;\n",
+     "  for (int i = 0; i < HALF / 2; ++i) dk[i] = 0.f;\n" + _CLK[0]),
+    (_CL_DK, "    float* xs = sm.x[1][pb];\n",
+     _clock(0, 4) + "    float* xs = sm.x[1][pb];\n"),
+    (_CL_DK, "    cl_meet(&sm.x_full[1][pb],",
+     _clock(1, 4) + "    cl_meet(&sm.x_full[1][pb],"),
+    (_CL_DK, "    const float* Ds = sm.dsum[st];\n",
+     _clock(2, 4) + "    const float* Ds = sm.dsum[st];\n"),
+    (_CL_DK, "    const float4* pt = reinterpret_cast<const float4*>(sm.pt[pb]);\n",
+     _clock(3, 4)
+     + "    const float4* pt = reinterpret_cast<const float4*>(sm.pt[pb]);\n"),
+    (_CL_DK, "    wide_pack(p, d);\n", "    wide_pack(p, d);\n" + _clock(4, 4)),
+    (_CL_DK, _RELEASE, _clock(5, 4) + "    " + _CLK[1] + _RELEASE),
+    (_CLK[2].split("\n")[-1], _CLK[2]),
+]
+
+
 def _chunk_clocks(wait: str, split: str, product: str, add: str) -> tuple:
     """(text, instrumented text) of a split-TF32 consumer's chunk: the
     stage wait, the split of the RW tile, the three-pass product and the
@@ -554,9 +636,9 @@ def run(root: str) -> None:
     torch.cuda.synchronize()
     fa.flash_bwd_dkv(q, k, v, do, lse, dsum, True, None)
     torch.cuda.synchronize()
-    for D in (384, 512):
-        q, k, v, do = cs.flash_inputs(torch, 2, 2048, 4, D, torch.float32,
-                                      seed=D)
+    for D, dt in ((384, torch.float32), (512, torch.float32),
+                  (512, torch.bfloat16)):
+        q, k, v, do = cs.flash_inputs(torch, 2, 2048, 4, D, dt, seed=D)
         o, lse = fa.flash_forward(q, k, v, True, None, with_lse=True)
         dsum = fa._dsum(o, do)
         fa.flash_bwd_dq(q, k, v, do, lse, dsum, True, None)
@@ -587,7 +669,8 @@ def main(argv) -> int:
         for name, edits in (
                 ("lstm", LSTM_EDITS + TF32_EDITS
                  + (COOP_OLD_EDITS if old_coop else COOP_EDITS)),
-                ("flash_attention", FLASH_EDITS + CLUSTER_EDITS)):
+                ("flash_attention",
+                 FLASH_EDITS + CLUSTER_EDITS + CLUSTER_BF16_EDITS)):
             path = os.path.join(root, PKG, "csrc", f"{name}.cu")
             with open(path) as f:
                 src = f.read()

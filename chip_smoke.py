@@ -44,10 +44,11 @@ Phases, each of which makes the script exit non-zero when it fails:
    2048 and 4096, Tq = 512 with Tk = 1024 (bf16 D = 128 runs the three
    wgmma kernels; bf16 D >= 256 the "wgmma wide" forward, every launch
    of which must take that route, and the backward, every launch of
-   which must take "wgmma wide" at D = 256 and the mma.sync route at
-   D = 384 and 512, also at T = 128 and 192, the first 64-row tiles,
-   where the diagonal crosses two 32-key tiles at D = 384 and 512, and
-   at D = 256 at T = 64, one 64-row block alone;
+   which must take "wgmma wide" at D = 256 and "wgmma cluster" (clusters
+   of two blocks, one column half each) at D = 384 and 512, also at T =
+   128 and 192, the first 64-row tiles, where the diagonal crosses two
+   32-row tiles at D = 384 and 512, and at D = 256 at T = 64, one 64-row
+   block alone;
    f32 the split-TF32 kernels, the
    backward at D = 384 and 512 as clusters, all of whose f32 launches
    must take that route);
@@ -61,7 +62,11 @@ Phases, each of which makes the script exit non-zero when it fails:
    fails there); at bf16 D = 256, 384 and 512 also q/k/v sliced from one
    fused qkv tensor, inputs whose V column halves are equal (O's halves
    must then be bit-identical: both warpgroups form the same P from the
-   two partial scores), the forward alone on inputs whose O shows
+   two partial scores), at 384 and 512 inputs whose q, k and dO column
+   halves are equal and v's are not (`flash_halves_inputs`: dQ's, dK's
+   and dV's halves must then be bit-identical: both blocks of a backward
+   cluster form the same P and dS from the two partial scores), the
+   forward alone on inputs whose O shows
    whether P is rounded to nearest bf16 (`flash_rounding_inputs`), and
    the three kernels on inputs whose dQ and dK show whether dS is
    rounded to nearest bf16 (`flash_ds_rounding_inputs`); and
@@ -115,7 +120,10 @@ Phases, each of which makes the script exit non-zero when it fails:
    top kernels; then path 2w: the same network with 4 heads of 256
    (head dim 256, as Gemma's), B=2 x T=4096, 1 warm-up and 3 timed steps
    read the same way: 8 forward, 8 dQ and 8 dK/dV launches a step, all
-   on the "wgmma wide" route, no plain call;
+   on the "wgmma wide" route, no plain call; then path 2x: the same
+   network with 2 heads of 512, B=2 x T=4096, 1 warm-up and 3 timed
+   steps read the same way: 8 forward launches a step on "wgmma wide",
+   8 dQ and 8 dK/dV on "wgmma cluster", no plain call;
 10. train f32 (path 2f): the same gpt_long network in f32
    (`compute_dtype=None`, `MultiLayerNetwork`'s default) at B=1 x T=4096:
    1 warm-up step, then 3 timed steps (step ms, tokens/s, losses, peak
@@ -189,10 +197,12 @@ Phases, each of which makes the script exit non-zero when it fails:
    together; the yardsticks, which the port never calls), beside the bound max(flops / 989 TFLOP/s,
    bytes / 3.35 TB/s) of this run's data, and each flash kernel's
    achieved TFLOP/s beside the library's, also at head_dim 256, 384 and
-   512 (B=2, H=4, T=2048; the bf16 forward at each of them and the
-   backward at 256 beside the time of the mma.sync kernel each
-   replaced, PERF.md's), at path 2w's shape (B=2, H=4, T=4096, D=256,
-   with path 2w's launch counts) and for the f32 kernels at
+   512 (B=2, H=4, T=2048; the bf16 forward and backward at each of them
+   beside the time of the mma.sync kernel each replaced, PERF.md's; the
+   backward at 384 and 512 logged with its clusters: blocks each and how
+   many fit at once), at path 2w's shape (B=2, H=4, T=4096, D=256, with
+   path 2w's launch counts) and path 2x's (B=2, H=2, T=4096, D=512, with
+   path 2x's launch counts), and for the f32 kernels at
    phase 6's shape (B=2,
    H=8, T=1024, D=128), at path 2f's (B=1, H=8, T=4096, with path 2f's
    launch counts) and at head dims 256, 384 and 512 (B=2, H=4, T=2048;
@@ -273,10 +283,13 @@ FLASH_REPLACES = {
 # the mma.sync kernel's time at B=2, H=4, T=2048, causal (PERF.md, PR 10;
 # NVIDIA H100 80GB HBM3 at 700 W)
 FLASH_FWD_MMA_MS = {256: 0.2193, 384: 0.5471, 512: 0.7686}
-# the bf16 backward at head dim 256 before "wgmma wide" replaced it: the
-# mma.sync kernels' times (dQ, dK/dV) at B=2, H=4, T=2048, causal
-# (PERF.md section 6, in brackets; NVIDIA H100 80GB HBM3 at 700 W)
-FLASH_BWD_MMA_MS = {256: {"dq": 0.3806, "dkv": 0.3897}}
+# the bf16 backward before "wgmma wide" (head dim 256) and "wgmma cluster"
+# (384, 512) replaced it: the mma.sync kernels' times (dQ, dK/dV) at B=2,
+# H=4, T=2048, causal (PERF.md section 6, in brackets; NVIDIA H100 80GB
+# HBM3 at 700 W)
+FLASH_BWD_MMA_MS = {256: {"dq": 0.3806, "dkv": 0.3897},
+                    384: {"dq": 0.7328, "dkv": 0.7240},
+                    512: {"dq": 1.2334, "dkv": 1.3158}}
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12     # H100 SXM f32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12   # H100 SXM dense TF32 tensor-core rate
@@ -294,6 +307,11 @@ TRAIN_F32_B, TRAIN_F32_STEPS = 1, 3
 # path 2w: the same network with 4 heads of 256 (the bf16 flash kernels
 # at head dim 256)
 TRAIN_WIDE_HEADS, TRAIN_WIDE_B, TRAIN_WIDE_STEPS = 4, 2, 3
+# path 2x: the same network with 2 heads of 512 (the bf16 forward on
+# "wgmma wide", the backward on "wgmma cluster")
+TRAIN_2X_HEADS, TRAIN_2X_B, TRAIN_2X_STEPS = 2, 2, 3
+TRAIN_2X_ROUTES = {"fwd": "wgmma wide", "dq": "wgmma cluster",
+                   "dkv": "wgmma cluster"}
 
 
 def log(*a):
@@ -1044,6 +1062,21 @@ def flash_inputs_sliced(torch, B, T, H, D, seed):
     return q, k, v, do
 
 
+def flash_halves_inputs(torch, B, T, H, D, seed=0, device="cuda"):
+    """bf16 q, k, v, dO (B, T, H, D) whose column halves of q, k and dO are
+    equal and v's are not: the bf16 backward at D = 384 and 512 gives each
+    half to one block of a cluster, and the blocks' partial dP differ (v's
+    halves do), so their sum depends on its order. If both blocks add the
+    partials in one order they form the same P and dS, and each half of
+    dQ = dS K, dK = dS^T Q and dV = P^T dO comes from the same operands as
+    the other: bit-identical halves."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, k, do = (torch.randn((B, T, H, D // 2), generator=g, device=device)
+                .repeat(1, 1, 1, 2) for _ in range(3))
+    v = torch.randn((B, T, H, D), generator=g, device=device)
+    return [t.to(torch.bfloat16) for t in (q, k, v, do)]
+
+
 def flash_cancel_inputs(torch, B, T, H, D, seed, a=3.0):
     """f32 q, k, v, dO (B, T, H, D) whose score products cancel within each
     128-column slice: q = a r u + n / a, k = a s + n' / a, with r and s a
@@ -1160,9 +1193,11 @@ def flash_slices_equal(torch, got):
 
 
 def flash_halves_equal(torch, o):
-    """Whether O's two column halves are bit-identical (see the equal-V-
-    halves case of phase 4: each warpgroup of the bf16 forward at
-    D >= 256 computes one half from its own copy of P)."""
+    """Whether an output's two column halves are bit-identical (see the
+    equal-V-halves case of phase 4: each warpgroup of the bf16 forward at
+    D >= 256 computes one half of O from its own copy of P; and the
+    equal-halves case: each block of the bf16 backward's cluster at
+    D = 384 and 512 computes one half of dQ, dK and dV)."""
     half = o.shape[-1] // 2
     return torch.equal(o[..., :half], o[..., half:])
 
@@ -1195,8 +1230,8 @@ def wide_routes_only(fa, n, what):
 def bwd_routes_only(fa, D, n, what):
     """Require the backward launches since the counts were set to 0 to be
     `n` dQ and `n` dK/dV, all on the route of bf16 at head dim D: "wgmma
-    wide" at D = 256, "mma" (mma.sync) at D = 384 and 512."""
-    route = "wgmma wide" if D == 256 else "mma"
+    wide" at D = 256, "wgmma cluster" at D = 384 and 512."""
+    route = "wgmma wide" if D == 256 else "wgmma cluster"
     bwd = {key: c for key, c in fa.launches_by_route.items()
            if key[0] != "fwd"}
     if bwd != {("dq", route): n, ("dkv", route): n}:
@@ -1241,9 +1276,9 @@ def phase_flash(torch, fa):
               for dt in (torch.float32, torch.bfloat16)
               for causal in (False, True)]
     cases += [(1, 4096, 2, 256, torch.bfloat16, False)]
-    # head dims 384 and 512: the output columns split over blocks, 32-key
-    # streamed tiles (bf16), 16-key tiles (f32 forward), clusters of D / 128
-    # blocks (f32 backward)
+    # head dims 384 and 512: 32-row streamed tiles and clusters of two
+    # blocks, one column half each (bf16 backward), 16-key tiles (f32
+    # forward), clusters of D / 128 blocks (f32 backward)
     cases += [(1, 512, 2, D, dt, causal)
               for dt in (torch.float32, torch.bfloat16)
               for D in (384, 512) for causal in (False, True)]
@@ -1345,6 +1380,20 @@ def phase_flash(torch, fa):
             if not flash_halves_equal(torch, got[0]):
                 raise AssertionError(f"{what}: O's column halves differ in "
                                      "bits")
+        if D > 256:
+            # both blocks of a backward cluster form the same P and dS from
+            # the partials: with q's, k's and dO's column halves equal, the
+            # halves of dQ, dK and dV are bit-identical
+            for causal in (False, True):
+                q, k, v, do = flash_halves_inputs(torch, 1, 512, 2, D,
+                                                  seed=99 + i)
+                what = (f"B=1 T=512 H=2 D={D} bfloat16 "
+                        f"{'causal' if causal else 'full'}, equal halves")
+                got = check(q, k, v, do, causal, bf, what)
+                same = [flash_halves_equal(torch, g) for g in got[2:]]
+                if not all(same):
+                    raise AssertionError(f"{what}: the column halves of dQ, "
+                                         f"dK, dV differ in bits ({same})")
         # P rounded to nearest bf16 before P V (the forward alone)
         units = flash_rounding_units(torch, fa, D)
         what = f"B=1 T=128 H=2 D={D} bfloat16 full, P rounding"
@@ -1458,11 +1507,12 @@ def phase_train_parity(torch, M):
 def phase_train(torch, M, card, compute_dtype, B, steps, seed, route,
                 n_heads=TRAIN["n_heads"]):
     """Main path 2 (bf16 compute over f32 masters), 2f (f32, the
-    default) or 2w (bf16, `n_heads` 4: head dim 256): full-width gpt_long
-    training steps via fit at B x T=4096: 1 warm-up step, the median of
-    `steps` timed steps, the flash launch counts over them (8 of each
-    kernel a step, all on `route`, no plain call), one more step under
-    torch.profiler."""
+    default), 2w (bf16, `n_heads` 4: head dim 256) or 2x (bf16, `n_heads`
+    2: head dim 512): full-width gpt_long training steps via fit at B x
+    T=4096: 1 warm-up step, the median of `steps` timed steps, the flash
+    launch counts over them (8 of each kernel a step, all on `route`, or
+    on `route[kind]` where it is a dict by kind, no plain call), one more
+    step under torch.profiler."""
     import numpy as np
 
     fa = M["fa"]
@@ -1506,7 +1556,9 @@ def phase_train(torch, M, card, compute_dtype, B, steps, seed, route,
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite training loss: {losses}")
     want = TRAIN["n_layers"] * steps
-    if routes != {(k, route): want for k in counts} or any(plain):
+    by_kind = route if isinstance(route, dict) else dict.fromkeys(counts,
+                                                                   route)
+    if routes != {(k, by_kind[k]): want for k in counts} or any(plain):
         raise AssertionError(f"expected {want} launches of each flash kernel "
                              f"on the {route} route and no plain call, got "
                              f"{routes}, {plain}")
@@ -1531,10 +1583,11 @@ def flash_work(B, H, T, D, kind, e=2):
     return 4 * 2 * D * pairs, 4 * slab + 2 * stats + 2 * slab
 
 
-def phase_flash_timing(torch, fa, counts, counts_f32, counts_wide):
+def phase_flash_timing(torch, fa, counts, counts_f32, counts_wide,
+                       counts_2x):
     """Flash kernels, plain versions and SDPA at the training shapes (bf16
-    at path 2's and path 2w's, f32 at path 2f's, each with its launch
-    counts)."""
+    at path 2's, path 2w's and path 2x's, f32 at path 2f's, each with its
+    launch counts)."""
     B, H, T, D = TRAIN_B, TRAIN["n_heads"], TRAIN_T, \
         TRAIN["d_model"] // TRAIN["n_heads"]
     # first as the training path hands them over: slices of the fused qkv
@@ -1553,16 +1606,19 @@ def phase_flash_timing(torch, fa, counts, counts_f32, counts_wide):
     torch.cuda.empty_cache()
     rows = flash_rows(torch, fa, B, H, T, D, counts, err_fused, seed=9)
     # bf16 head dims 256, 384 and 512 at a smaller sequence (the "wgmma
-    # wide" forward; the "wgmma wide" backward at 256, the mma.sync one
-    # at 384 and 512), then head dim 256 at path 2w's shape (with its
-    # launch counts); then the f32 kernels (split TF32) at phase 6's shape
-    # and at path 2f's (with its launch counts), against SDPA in f32 with
-    # TF32 off
+    # wide" forward; the "wgmma wide" backward at 256, the "wgmma cluster"
+    # one at 384 and 512), then head dims 256 and 512 at path 2w's and
+    # path 2x's shapes (with their launch counts); then the f32 kernels
+    # (split TF32) at phase 6's shape and at path 2f's (with its launch
+    # counts), against SDPA in f32 with TF32 off
     for D in (256, 384, 512):
         rows += flash_rows(torch, fa, 2, 4, 2048, D, {}, 0.0, seed=D)
     rows += flash_rows(torch, fa, TRAIN_WIDE_B, TRAIN_WIDE_HEADS, TRAIN_T,
                        TRAIN["d_model"] // TRAIN_WIDE_HEADS, counts_wide, 0.0,
                        seed=34, tag="_t4096")
+    rows += flash_rows(torch, fa, TRAIN_2X_B, TRAIN_2X_HEADS, TRAIN_T,
+                       TRAIN["d_model"] // TRAIN_2X_HEADS, counts_2x, 0.0,
+                       seed=35, tag="_t4096")
     rows += flash_rows(torch, fa, 2, 8, 1024, 128, {}, 0.0, seed=32,
                        dtype=torch.float32)
     rows += flash_rows(torch, fa, TRAIN_F32_B, H, T, 128, counts_f32, 0.0,
@@ -1651,9 +1707,9 @@ def flash_rows(torch, fa, B, H, T, D, counts, err, seed, dtype=None, tag=""):
         if kind != "fwd" and D in FLASH_BWD_MMA_MS and not f32 and T == 2048:
             fma += (f"; the mma.sync kernel it replaced: "
                     f"{FLASH_BWD_MMA_MS[D][kind]:.4f} ms (PERF.md)")
-        if route == "tf32 cluster":
+        if route in ("tf32 cluster", "wgmma cluster"):
             fma += ("; clusters of %d blocks, %d fit at once"
-                    % fa.cluster_plan(kind, D))
+                    % fa.cluster_plan(kind, D, dtype))
         log(f"  {row['name']} (B={B} H={H} T={T} D={D}, "
             f"{str(dtype)[6:]}, {route}): kernel "
             f"{ms[kind]:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
@@ -2832,6 +2888,11 @@ def main(argv) -> int:
     flash_counts_wide = phase_train(torch, M, card, torch.bfloat16,
                                     TRAIN_WIDE_B, TRAIN_WIDE_STEPS, 15,
                                     "wgmma wide", n_heads=TRAIN_WIDE_HEADS)
+    log("[9/19] path 2x: the same GPT with 2 heads of 512 (the bf16 "
+        "\"wgmma wide\" forward, the \"wgmma cluster\" backward)")
+    flash_counts_2x = phase_train(torch, M, card, torch.bfloat16,
+                                  TRAIN_2X_B, TRAIN_2X_STEPS, 16,
+                                  TRAIN_2X_ROUTES, n_heads=TRAIN_2X_HEADS)
     log("[10/19] path 2f: training the 8-layer gpt_long GPT in f32 "
         "(split-TF32 flash kernels)")
     flash_counts_f32 = phase_train(torch, M, card, None, TRAIN_F32_B,
@@ -2851,8 +2912,8 @@ def main(argv) -> int:
                                   "tf32 clusters", seed=2)
     log("[16/19] timing at the serving and training shapes (bf16 and f32)")
     rows = phase_timing(torch, pa, launches)
-    rows += phase_flash_timing(torch, fa, flash_counts,
-                               flash_counts_f32, flash_counts_wide)
+    rows += phase_flash_timing(torch, fa, flash_counts, flash_counts_f32,
+                               flash_counts_wide, flash_counts_2x)
     log("[17/19] timing the LSTM kernels at the char-RNN shapes (bf16 and "
         "f32)")
     rows += phase_lstm_timing(torch, L, lstm_counts, tbptt_counts,

@@ -46,16 +46,13 @@
 //    all of D = 256, so each block computes every score once; dQ's two
 //    warpgroups take a 64-row block's key tiles in turn and add their
 //    partial dQ at the end (their section says why);
-//  - bf16 backward (dQ; dK/dV) at D = 384 and 512: 4-warp blocks, each
-//    warp 16 rows of a 64-row tile with its scores and accumulators in
-//    registers; mma.sync m16n8k16 fed by ldmatrix from tiles staged by
-//    cp.async, and a score tile's registers re-packed as the A operand of
-//    the next product. They split their output columns over blocks of 128
-//    (grid z), each recomputing the scores: a 64 x D f32 accumulator (192
-//    or 256 registers a thread in a warpgroup) does not fit beside a
-//    score tile. Their streamed tiles hold 32 keys (or queries), and at
-//    D = 512 they are single-buffered, so that the staged tiles fit a
-//    block;
+//  - bf16 backward (dQ; dK/dV) at D = 384 and 512: flash_bwd_dq_cluster_
+//    kernel<D> and flash_bwd_dkv_cluster_kernel<D> ("wgmma cluster"):
+//    thread block clusters of two blocks, each the D = 256 backward's
+//    structure over one column half (a 64 x D f32 accumulator, 192 or 256
+//    registers a thread, does not fit a warpgroup), which add their
+//    partial scores through distributed shared memory in one order, so
+//    each score is computed once per cluster (their section says more);
 //  - f32 (MultiLayerNetwork's default precision): every kernel at every
 //    head dim on the tensor cores in split TF32 (three TF32 products per
 //    f32 product, f32 accuracy; their section below); the backward at
@@ -155,130 +152,13 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Start the copies of ROWS rows of D bf16 elements (row r at src + r *
-// stride_t) into a shared tile with rows of LD elements, 16 bytes a copy
-// (rows 16-byte aligned, checked by the wrapper).
-template <int ROWS, int D, int LD>
-__device__ __forceinline__ void stage(bf16* dst, const bf16* src,
-                                      long long stride_t) {
-  constexpr int vpr = D / 8;  // 16-byte copies per row
-  for (int i = threadIdx.x; i < ROWS * vpr; i += kThreads) {
-    const int r = i / vpr, c = i % vpr;
-    cp_async16(dst + r * LD + 8 * c, src + (long long)r * stride_t + 8 * c);
-  }
-}
-
-// ================================================= bf16 register kernels
-// The backward at D = 384 and 512 (D = 256 has its own wgmma kernels, the
-// "wgmma wide" backward below: at D > 256 one warpgroup's 64 x D f32
-// accumulator would take 192 or 256 registers a thread, so these keep
-// splitting D over blocks). Each of the 4 warps owns 16 rows of the
-// block's 64-row tile; products are mma.sync m16n8k16 (bf16 in, f32
-// accumulate) fed by ldmatrix from shared memory, and the score tile's
-// accumulator registers are re-packed as the A operand of the next product
-// (dS.K, P^T.dO, dS^T.Q) without touching shared memory. The streamed
-// tiles are double-buffered: the next one's cp.async copies run during
-// this one's math. Fragment layouts are those of the PTX ISA for
-// m16n8k16: lane l = 4g + t holds rows g and g + 8, columns 2t and 2t + 1
-// of each 8-wide accumulator tile. Templated on D and on DO, the output
-// columns one block accumulates (blockIdx.z picks which DO of the D);
-// shared rows are D + 8 elements (16 bytes of padding spreads ldmatrix
-// rows over the banks).
-constexpr int kMmaBlk = 64;
-
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// A operand (16 x 16) at rows r0.., cols c0.. of a row-major bf16 tile
-__device__ __forceinline__ void ld_a(uint32_t (&a)[4], const bf16* base,
-                                     int ld, int r0, int c0) {
-  const int l = threadIdx.x % 32;
-  const bf16* p = base + (r0 + l % 16) * ld + c0 + 8 * (l / 16);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-      : "r"(smem_addr(p)));
-}
-
-// B operands of two 8-wide n-tiles (n0, n0 + 8) at k-step k0, from a tile
-// stored [n][k] (row n holds the k values): b[0..1] for n0, b[2..3] for
-// n0 + 8
-__device__ __forceinline__ void ld_b_nk(uint32_t (&b)[4], const bf16* base,
-                                        int ld, int n0, int k0) {
-  const int l = threadIdx.x % 32;
-  const bf16* p = base + (n0 + l % 8 + 8 * (l / 16)) * ld + k0 +
-                  8 * ((l / 8) % 2);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
-      : "r"(smem_addr(p)));
-}
-
-// the same from a tile stored [k][n] (row k holds the n values)
-__device__ __forceinline__ void ld_b_kn(uint32_t (&b)[4], const bf16* base,
-                                        int ld, int n0, int k0) {
-  const int l = threadIdx.x % 32;
-  const bf16* p = base + (k0 + l % 16) * ld + n0 + 8 * (l / 16);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// acc (16 x 8*NT) += A (16 x K, row-major tile in shared memory) . B^T,
-// B stored [n][k]: scores Q.K^T, dO.V^T, K.Q^T, V.dO^T
-template <int NT, int K, int LD>
-__device__ __forceinline__ void warp_abt(float (&acc)[NT][4], const bf16* A,
-                                         int r0, const bf16* B) {
-#pragma unroll
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    uint32_t a[4];
-    ld_a(a, A, LD, r0, k0);
-#pragma unroll
-    for (int j = 0; j < NT; j += 2) {
-      uint32_t b[4];
-      ld_b_nk(b, B, LD, 8 * j, k0);
-      mma(acc[j], a, b[0], b[1]);
-      mma(acc[j + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// acc (16 x 8*NT) += P (16 x 16*KS, accumulator registers rounded to
-// bf16) . B, B stored [k][n]: dS.K, P^T.dO, dS^T.Q
-template <int NT, int KS, int LD>
-__device__ __forceinline__ void warp_pb(float (&acc)[NT][4],
-                                        const float (&p)[2 * KS][4],
-                                        const bf16* B) {
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    const uint32_t a[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
-                           pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-                           pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                           pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-#pragma unroll
-    for (int j = 0; j < NT; j += 2) {
-      uint32_t b[4];
-      ld_b_kn(b, B, LD, 8 * j, 16 * kk);
-      mma(acc[j], a, b[0], b[1]);
-      mma(acc[j + 1], a, b[2], b[3]);
-    }
-  }
 }
 
 template <int NT>
@@ -297,65 +177,6 @@ __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
-
-// Store a warp's 16 x 8*NT accumulator (times `mul`) as bf16 into rows
-// r0 + (0..15), columns c0.. of a (b, h, t) strided output.
-template <int NT>
-__device__ __forceinline__ void store_acc(const float (&acc)[NT][4],
-                                          float mul, void* out,
-                                          const Strides& st, int b, int h,
-                                          int r0, int c0) {
-  const int l = threadIdx.x % 32, g = l / 4, t = l % 4;
-  bf16* base = static_cast<bf16*>(out) + (long long)b * st.b +
-               (long long)h * st.h + c0;
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-#pragma unroll
-    for (int hi = 0; hi < 2; ++hi) {
-      *reinterpret_cast<__nv_bfloat162*>(
-          base + (long long)(r0 + g + 8 * hi) * st.t + 8 * j + 2 * t) =
-          __floats2bfloat162_rn(acc[j][2 * hi] * mul,
-                                acc[j][2 * hi + 1] * mul);
-    }
-  }
-}
-
-// Keys (or queries) per streamed tile: 32, as staged tiles of 64 would not
-// fit a block's shared memory at D = 384 and 512.
-constexpr int kMmaKb = 32;
-// Stages of the streamed tiles in the backward kernels: two (the next
-// tile's copies run during this one's math), or one at D = 512, where two
-// would not fit.
-__host__ __device__ constexpr int mma_bufs(int D) { return D > 384 ? 1 : 2; }
-// Output columns one backward block accumulates (two 16 x 256
-// accumulators per warp, or one of 16 x 512, would not fit the registers).
-constexpr int kMmaCols = 128;
-
-// The block's own two tiles (a, b) and the buffers of the streamed pair
-// (c, d) with the streamed rows' L and dsum (dK/dV only).
-template <int D>
-struct MmaBwdSmem {
-  static constexpr int KB = kMmaKb, NB = mma_bufs(D);
-  bf16 *a, *b, *c[2], *d[2];
-  float *lse[2], *dsum[2];
-  __host__ __device__ static size_t carve(Carver& c, MmaBwdSmem* t) {
-    MmaBwdSmem x;
-    x.a = c.take<bf16>(kMmaBlk * (D + 8));
-    x.b = c.take<bf16>(kMmaBlk * (D + 8));
-    for (int i = 0; i < NB; ++i) {
-      x.c[i] = c.take<bf16>(KB * (D + 8));
-      x.d[i] = c.take<bf16>(KB * (D + 8));
-      x.lse[i] = c.take<float>(KB);
-      x.dsum[i] = c.take<float>(KB);
-    }
-    if (NB == 1) {
-      x.c[1] = x.c[0], x.d[1] = x.d[0];
-      x.lse[1] = x.lse[0], x.dsum[1] = x.dsum[0];
-    }
-    if (t) *t = x;
-    return c.off;
-  }
-};
 
 template <int N>
 __device__ __forceinline__ void stage_f32_row(float* dst, const float* src) {
@@ -645,14 +466,14 @@ constexpr size_t wide_smem_bytes() {
 }
 
 // TMA of `rows` rows (from row t0 of head h, batch b) as BOXES boxes of
-// 64 columns into dst, the bytes counted on bar
+// 64 columns, from column c0 on, into dst, the bytes counted on bar
 template <int BOXES>
 __device__ __forceinline__ void tma_rows(bf16* dst, const CUtensorMap* map,
                                          uint64_t* bar, int rows, int h,
-                                         int t0, int b) {
+                                         int t0, int b, int c0 = 0) {
   sm90::mbar_expect_tx(bar, BOXES * rows * 128);
   for (int c = 0; c < BOXES; ++c)
-    sm90::tma_load_4d(dst + c * rows * 64, map, bar, 64 * c, h, t0, b);
+    sm90::tma_load_4d(dst + c * rows * 64, map, bar, c0 + 64 * c, h, t0, b);
 }
 
 // the score product's and the output product's wgmma by accumulator size
@@ -1394,61 +1215,60 @@ struct WideDkvSmem {
 constexpr size_t kWbDqSmemBytes = sizeof(WideDqSmem) + 1024;  // + alignment
 constexpr size_t kWbDkvSmemBytes = sizeof(WideDkvSmem) + 1024;
 
-// acc (64 x N) = A (64 rows of D = 256: four boxes a_box bytes apart) .
-// B^T (N rows, four boxes b_box bytes apart), both K-major; issued, not
+// acc (64 x N) = A (64 rows of K columns: K / 64 boxes a_box bytes apart)
+// . B^T (N rows, boxes b_box bytes apart), both K-major; issued, not
 // committed
-template <int NX>
-__device__ __forceinline__ void issue_s256(float (&acc)[NX], const void* a,
-                                           uint32_t a_box, const void* b,
-                                           uint32_t b_box) {
+template <int K, int NX>
+__device__ __forceinline__ void issue_s(float (&acc)[NX], const void* a,
+                                        uint32_t a_box, const void* b,
+                                        uint32_t b_box) {
   const char* pa = static_cast<const char*>(a);
   const char* pb = static_cast<const char*>(b);
 #pragma unroll
-  for (int kk = 0; kk < 16; ++kk) {
+  for (int kk = 0; kk < K / 16; ++kk) {
     const int box = kk / 4, off = (kk % 4) * 32;
     wide_s(acc, sm90::desc_sw128(pa + box * a_box + off),
            sm90::desc_sw128(pb + box * b_box + off), kk > 0);
   }
 }
 
-// acc (64 x 256) += P (64 x 2 NP, bf16 A fragments in registers) . B (2 NP
-// rows of D = 256 read MN-major, four boxes b_box bytes apart); issued and
-// committed
-template <int NP>
-__device__ __forceinline__ void issue_pb256(float (&acc)[128],
-                                            const uint32_t (&p)[NP],
-                                            const void* b, uint32_t b_box) {
+// acc (64 x 2 NO: 256, 192 or 128 columns) += P (64 x 2 NP, bf16 A
+// fragments in registers) . B (2 NP rows read MN-major, 2 NO / 64 boxes
+// b_box bytes apart); issued and committed
+template <int NO, int NP>
+__device__ __forceinline__ void issue_pb(float (&acc)[NO],
+                                         const uint32_t (&p)[NP],
+                                         const void* b, uint32_t b_box) {
   const char* pb = static_cast<const char*>(b);
 #pragma unroll
   for (int kk = 0; kk < NP / 4; ++kk) {
     const uint32_t af[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
                             p[4 * kk + 3]};
-    sm90::wgmma_m64n256_rs_mn(acc, af,
-                              sm90::desc_sw128(pb + kk * 2048, b_box));
+    wide_pv(acc, af, sm90::desc_sw128(pb + kk * 2048, b_box));
   }
   sm90::wgmma_commit();
 }
 
 // The two partial dQ of a block's warpgroups meet: this warpgroup hands
-// the columns its peer stores (elements GIVE .. GIVE + 63 of dq) to
+// the columns its peer stores (elements GIVE .. GIVE + N / 2 - 1 of dq) to
 // `mine`, and after the named barrier of the two consumer warpgroups adds
-// the peer's partial of its own columns (elements 64 - GIVE ..) into out.
-// Each thread's 64 values are float4 runs laid out thread-major; the peer
-// thread holds the same rows and columns. One addition of two partials
-// gives the same bits in either order.
-template <int GIVE>
-__device__ __forceinline__ void dq_meet(const float (&dq)[128], float4* mine,
+// the peer's partial of its own columns (elements N / 2 - GIVE ..) into
+// out. Each thread's N / 2 values are float4 runs laid out thread-major;
+// the peer thread holds the same rows and columns. One addition of two
+// partials gives the same bits in either order.
+template <int N, int GIVE>
+__device__ __forceinline__ void dq_meet(const float (&dq)[N], float4* mine,
                                         const float4* peer, int tid,
-                                        float (&out)[64]) {
-  constexpr int KEEP = 64 - GIVE;
+                                        float (&out)[N / 2]) {
+  constexpr int KEEP = N / 2 - GIVE;
 #pragma unroll
-  for (int i = 0; i < 16; ++i)
+  for (int i = 0; i < N / 8; ++i)
     mine[i * 128 + tid] = make_float4(dq[GIVE + 4 * i], dq[GIVE + 4 * i + 1],
                                       dq[GIVE + 4 * i + 2],
                                       dq[GIVE + 4 * i + 3]);
   sm90::named_bar_sync(1, 256);
 #pragma unroll
-  for (int i = 0; i < 16; ++i) {
+  for (int i = 0; i < N / 8; ++i) {
     const float4 y = peer[i * 128 + tid];
     out[4 * i] = dq[KEEP + 4 * i] + y.x;
     out[4 * i + 1] = dq[KEEP + 4 * i + 1] + y.y;
@@ -1484,9 +1304,10 @@ __device__ __forceinline__ void wide_dq_consumer(WideDqSmem& sm,
     const int st = j % NS;
     sm90::mbar_wait(&sm.full[st], (j / NS) & 1);
     sm90::wgmma_fence();
-    issue_s256(s, sm.q[0], sizeof(sm.q[0]), sm.k[st][0], sizeof(sm.k[st][0]));
-    issue_s256(dp, sm.dO[0], sizeof(sm.dO[0]), sm.v[st][0],
-               sizeof(sm.v[st][0]));
+    issue_s<256>(s, sm.q[0], sizeof(sm.q[0]), sm.k[st][0],
+                 sizeof(sm.k[st][0]));
+    issue_s<256>(dp, sm.dO[0], sizeof(sm.dO[0]), sm.v[st][0],
+                 sizeof(sm.v[st][0]));
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
     sm90::fence_regs(s);
@@ -1504,7 +1325,7 @@ __device__ __forceinline__ void wide_dq_consumer(WideDqSmem& sm,
     wide_pack(p, s);
     sm90::fence_regs(dq);
     sm90::wgmma_fence();
-    issue_pb256(dq, p, sm.k[st][0], sizeof(sm.k[st][0]));  // dQ += dS K
+    issue_pb(dq, p, sm.k[st][0], sizeof(sm.k[st][0]));  // dQ += dS K
     sm90::wgmma_wait<0>();
     sm90::fence_regs(dq);
     if (l == 0) sm90::mbar_arrive(&sm.empty[st]);
@@ -1514,9 +1335,9 @@ __device__ __forceinline__ void wide_dq_consumer(WideDqSmem& sm,
   float4* xs = reinterpret_cast<float4*>(sm.k[0][0]);
   float out[64];
   if (wg == 0)
-    dq_meet<64>(dq, xs, xs + 2048, tid, out);
+    dq_meet<128, 64>(dq, xs, xs + 2048, tid, out);
   else
-    dq_meet<0>(dq, xs + 2048, xs, tid, out);
+    dq_meet<128, 0>(dq, xs + 2048, xs, tid, out);
   store_wg(out, a.scale, static_cast<bf16*>(a.out0) + 128 * wg, a.so0, b, h,
            q0, rl, t);
 }
@@ -1582,8 +1403,8 @@ __device__ __forceinline__ void wide_dv_consumer(WideDkvSmem& sm,
     const int n = qi - q_first, st = n % NS, pb = n & 1;
     sm90::mbar_wait(&sm.full[st], (n / NS) & 1);
     sm90::wgmma_fence();
-    issue_s256(s, sm.k[0], sizeof(sm.k[0]), sm.q[st][0],
-               sizeof(sm.q[st][0]));  // S^T = K Q^T
+    issue_s<256>(s, sm.k[0], sizeof(sm.k[0]), sm.q[st][0],
+                 sizeof(sm.q[st][0]));  // S^T = K Q^T
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
     sm90::fence_regs(s);
@@ -1613,7 +1434,7 @@ __device__ __forceinline__ void wide_dv_consumer(WideDkvSmem& sm,
     pack16(p, s);
     sm90::fence_regs(dv);
     sm90::wgmma_fence();
-    issue_pb256(dv, p, sm.dO[st][0], sizeof(sm.dO[st][0]));  // dV += P^T dO
+    issue_pb(dv, p, sm.dO[st][0], sizeof(sm.dO[st][0]));  // dV += P^T dO
     sm90::wgmma_wait<0>();
     sm90::fence_regs(dv);
     if (l == 0) sm90::mbar_arrive(&sm.empty[st]);
@@ -1639,8 +1460,8 @@ __device__ __forceinline__ void wide_dk_consumer(WideDkvSmem& sm,
     const int n = qi - q_first, st = n % NS, pb = n & 1;
     sm90::mbar_wait(&sm.full[st], (n / NS) & 1);
     sm90::wgmma_fence();
-    issue_s256(dp, sm.v[0], sizeof(sm.v[0]), sm.dO[st][0],
-               sizeof(sm.dO[st][0]));  // dP^T = V dO^T
+    issue_s<256>(dp, sm.v[0], sizeof(sm.v[0]), sm.dO[st][0],
+                 sizeof(sm.dO[st][0]));  // dP^T = V dO^T
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
     sm90::fence_regs(dp);
@@ -1660,7 +1481,7 @@ __device__ __forceinline__ void wide_dk_consumer(WideDkvSmem& sm,
     pack16(p, dp);
     sm90::fence_regs(dk);
     sm90::wgmma_fence();
-    issue_pb256(dk, p, sm.q[st][0], sizeof(sm.q[st][0]));  // dK += dS^T Q
+    issue_pb(dk, p, sm.q[st][0], sizeof(sm.q[st][0]));  // dK += dS^T Q
     sm90::wgmma_wait<0>();
     sm90::fence_regs(dk);
     if (l == 0) sm90::mbar_arrive(&sm.empty[st]);
@@ -1725,152 +1546,518 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   }
 }
 
-template <int D, int DO>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_mma_kernel(const Args a) {
-  constexpr int BLK = kMmaBlk, KB = kMmaKb, NB = mma_bufs(D);
-  constexpr int LD = D + 8, NO = DO / 8, NS = KB / 8;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  Carver cv{smem_raw};
-  MmaBwdSmem<D> sm;  // a = Q, b = dO, c = K, d = V
-  MmaBwdSmem<D>::carve(cv, &sm);
-  const int qi = blockIdx.x, bh = blockIdx.y, c0 = DO * blockIdx.z;
-  const int b = bh / a.H, h = bh % a.H, q0 = qi * BLK;
-  const int warp = threadIdx.x / 32, l = threadIdx.x % 32;
-  const int g = l / 4, t = l % 4, r0 = 16 * warp;
-  const int nk = a.causal ? (q0 + BLK) / KB : a.Tk / KB;
-  auto stage_kv = [&](int kj) {
-    if (kj < nk) {
-      const int k0 = kj * KB;
-      stage<KB, D, LD>(sm.c[kj & 1], row_ptr<bf16>(a.k, a.sk, b, h, k0),
-                       a.sk.t);
-      stage<KB, D, LD>(sm.d[kj & 1], row_ptr<bf16>(a.v, a.sv, b, h, k0),
-                       a.sv.t);
-    }
-    cp_async_commit();
-  };
-  stage<BLK, D, LD>(sm.a, row_ptr<bf16>(a.q, a.sq, b, h, q0), a.sq.t);
-  stage<BLK, D, LD>(sm.b, row_ptr<bf16>(a.dO, a.sdo, b, h, q0), a.sdo.t);
-  stage_kv(0);
-  float lse[2], dsum[2];
+// ============= bf16 backward at D = 384, 512: wgmma + TMA in clusters
+// ("wgmma cluster")
+// flash_bwd_dq_cluster_kernel<D> and flash_bwd_dkv_cluster_kernel<D>. A
+// warpgroup's 64 x D f32 accumulator would be D / 2 registers a thread
+// (192 or 256), and at D = 512 the dK and dV of 64 keys alone are the
+// whole register file of an SM, so no block holds a row tile's outputs:
+// each 64-row tile (queries for dQ, keys for dK/dV) is a thread block
+// cluster of two blocks along grid z, and block r owns the column half
+// r * D / 2 .. + D / 2 (192 or 256 columns) of its owned tiles, of every
+// streamed tile and of its outputs. Each block is the D = 256 "wgmma wide"
+// backward at that width: a producer warpgroup (one thread issues every
+// TMA load; setmaxnreg 40) and two consumer warpgroups (232), every
+// product on wgmma, its shared-memory operands loaded by TMA as the
+// block's D / 128 boxes of 64 columns (the 4-D tensor maps, so fused-qkv
+// slices are read in place), the streamed tiles of 32 rows in a ring of
+// cl_stages(D) stages.
+// Every score is computed once per cluster. Each block computes the
+// partial scores over its columns (S and dP, or S^T and dP^T); a
+// warpgroup stores its partials into the same warpgroup's buffer in the
+// peer block (distributed shared memory) by st.async, whose bytes count on
+// the peer's barrier of that buffer as a TMA load's do (the storing thread
+// neither fences nor waits; plain stores followed by a release arrival a
+// warp measured slower on the card), then arms its own barrier
+// with the bytes it expects, waits on it (acquire at cluster scope) and
+// forms, from the two blocks' partials in rank order (rank 0's S_0 and
+// dP_0, then rank 1's),
+//   P = ex2(fma(S_0, c, fma(S_1, c, -L log2(e)))),  c = scale log2(e),
+//   dS = P (dP_0 + (dP_1 - dsum)),
+// so both blocks hold bit-identical P and dS. A warpgroup's two buffers
+// alternate by its tile parity: a block pushes into a buffer again two of
+// the warpgroup's tiles on, after it received the peer's push of the tile
+// between, which the peer made after reading that buffer; so no barrier
+// frees a buffer. A cluster barrier follows the barriers' initialization
+// (the peer's stores count on them) and one precedes the exit.
+//  - dQ: a block owns its half of 64 query rows (Q and dO); the ring
+//    carries its half of K/V tiles of 32 keys; the warpgroups take the
+//    tiles in turn (warpgroup j % 2) and add their partial dQ once at the
+//    end, as at D = 256. Live f32 a thread: dQ 96 or 128, S 16, dP 16.
+//  - dK/dV: a block owns its half of 64 keys (K and V); the ring carries
+//    its half of Q/dO tiles of 32 queries (tiles of 64 would not fit beside
+//    the exchange buffers and P^T) with their L and dsum rows; warpgroup 0
+//    forms S^T and P^T, hands P^T to warpgroup 1 (two f32 buffers) and
+//    accumulates dV; warpgroup 1 forms dP^T and dS^T and accumulates dK.
+//    Each warpgroup issues the next tile's partial score product before it
+//    waits for the peer's partials, so that the product runs during the
+//    wait (two sets of 16 score registers, taken in turn). dQ does not:
+//    a second pair of its S and dP sets beside dQ's 96 or 128 registers
+//    spilled and ran slower on the card.
+// Shared memory at D = 512 / 384: dQ 224 / 208 KB (Q and dO halves 64 /
+// 48 KB, 3 / 4 stages of 32 / 24 KB, exchange buffers 64 KB), dK/dV 209 /
+// 193 KB (K and V halves 64 / 48, 3 / 4 stages of 32 / 24 with L and
+// dsum, exchange 32, P^T 16). Only the tiles that cross the diagonal are
+// masked and tiles above it are never loaded; the grid's y takes the
+// longest rows (dQ) or columns (dK/dV) first. No atomics: each cluster
+// writes its own rows, so two runs give the same bits. What bounds them:
+// the products (989 TFLOP/s); the score products at n = 32 read 3 KB of
+// shared memory a k-step for 16 cycles of tensor work, as at D = 256; the
+// exchange adds, per tile and warpgroup, 16 (dQ) or 8 (dK/dV) KB stored
+// into the peer, the wait for the peer's (about a fifth of a tile's
+// cycles, `chip_phase_profile.py`) and the sum's element-wise work.
+constexpr int kClTile = 32;  // rows of a streamed tile (keys or queries)
+__host__ __device__ constexpr int cl_stages(int D) { return D == 512 ? 3 : 4; }
+
+template <int D>
+struct ClDqSmem {
+  static constexpr int BOXES = D / 128, NS = cl_stages(D);
+  bf16 q[BOXES][kWbRows * 64];
+  bf16 dO[BOXES][kWbRows * 64];
+  bf16 k[NS][BOXES][kClTile * 64];
+  bf16 v[NS][BOXES][kClTile * 64];
+  // [warpgroup][buffer]: the peer's partial S and dP (cl_push's layout)
+  float x[2][2][2 * kWbRows * kClTile];
+  uint64_t own_full, full[NS], empty[NS], x_full[2][2];
+};
+
+template <int D>
+struct ClDkvSmem {
+  static constexpr int BOXES = D / 128, NS = cl_stages(D);
+  bf16 k[BOXES][kWbRows * 64];
+  bf16 v[BOXES][kWbRows * 64];
+  bf16 q[NS][BOXES][kClTile * 64];
+  bf16 dO[NS][BOXES][kClTile * 64];
+  // [warpgroup][buffer]: the peer's partial S^T (warpgroup 0) or dP^T (1)
+  float x[2][2][kWbRows * kClTile];
+  float pt[2][kWbRows * kClTile];  // P^T, in the accumulator's layout
+  float lse[NS][kClTile], dsum[NS][kClTile];
+  uint64_t own_full, full[NS], empty[NS], x_full[2][2];
+  uint64_t p_full[2], p_empty[2];
+};
+
+// This thread's N partial scores of a tile, as float4 runs laid out
+// thread-major (run i / 4 at byte 16 tid + 2048 (i / 4) of the tile's
+// buffer), stored by st.async at the same places of the peer block's
+// buffer, whose address (at this thread's first run) is `remote`, their
+// bytes counted on the peer's barrier at `bar`; the peer thread holds the
+// same rows and columns.
+template <int N>
+__device__ __forceinline__ void cl_push(const float (&x)[N], uint32_t remote,
+                                        uint32_t bar) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    lse[i] = a.lse[(long long)bh * a.Tq + q0 + r0 + g + 8 * i];
-    dsum[i] = a.dsum[(long long)bh * a.Tq + q0 + r0 + g + 8 * i];
-  }
-  float dq[NO][4];
-  zero_acc(dq);
-  for (int kj = 0; kj < nk; ++kj) {
-    if constexpr (NB == 2) {
-      stage_kv(kj + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* K = sm.c[kj & 1];
-    const bf16* V = sm.d[kj & 1];
-    const int k0 = kj * KB;
-    float s[NS][4], dp[NS][4];
-    zero_acc(s);
-    zero_acc(dp);
-    warp_abt<NS, D, LD>(s, sm.a, r0, K);   // Q K^T
-    warp_abt<NS, D, LD>(dp, sm.b, r0, V);  // dO V^T
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        float x = s[j][e] * a.scale;
-        if (a.causal && k0 + 8 * j + 2 * t + (e & 1) > q0 + r0 + g + 8 * i)
-          x = kNegInf;
-        const float p = x <= kNegInf * 0.5f ? 0.f : expf(x - lse[i]);
-        s[j][e] = p * (dp[j][e] - dsum[i]);  // dS
-      }
-    warp_pb<NO, KB / 16, LD>(dq, s, K + c0);  // dS K, this block's columns
-    __syncthreads();
-    if constexpr (NB == 1) stage_kv(kj + 1);
-  }
-  cp_async_wait<0>();
-  store_acc(dq, a.scale, a.out0, a.so0, b, h, q0 + r0, c0);
+  for (int i = 0; i < N; i += 4)
+    sm90::st_async_v4(remote + 512 * i,
+                      make_float4(x[i], x[i + 1], x[i + 2], x[i + 3]), bar);
 }
 
-template <int D, int DO>
-__global__ void __launch_bounds__(kThreads, 1)
-    flash_bwd_dkv_mma_kernel(const Args a) {
-  constexpr int BLK = kMmaBlk, KB = kMmaKb, NB = mma_bufs(D);
-  constexpr int LD = D + 8, NO = DO / 8, NS = KB / 8;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  Carver cv{smem_raw};
-  MmaBwdSmem<D> sm;  // a = K, b = V, c = Q, d = dO
-  MmaBwdSmem<D>::carve(cv, &sm);
-  const int kj = blockIdx.x, bh = blockIdx.y, c0 = DO * blockIdx.z;
-  const int b = bh / a.H, h = bh % a.H, k0 = kj * BLK;
-  const int warp = threadIdx.x / 32, l = threadIdx.x % 32;
-  const int g = l / 4, t = l % 4, r0 = 16 * warp;
-  const int q_first = a.causal ? k0 / KB : 0;  // earlier query tiles see none
-  const int nq = a.Tq / KB;
-  auto stage_q = [&](int qi) {
-    if (qi < nq) {
-      const int buf = (qi - q_first) & 1;
-      stage<KB, D, LD>(sm.c[buf], row_ptr<bf16>(a.q, a.sq, b, h, qi * KB),
-                       a.sq.t);
-      stage<KB, D, LD>(sm.d[buf], row_ptr<bf16>(a.dO, a.sdo, b, h, qi * KB),
-                       a.sdo.t);
-      stage_f32_row<KB>(sm.lse[buf], a.lse + (long long)bh * a.Tq + qi * KB);
-      stage_f32_row<KB>(sm.dsum[buf],
-                        a.dsum + (long long)bh * a.Tq + qi * KB);
-    }
-    cp_async_commit();
-  };
-  stage<BLK, D, LD>(sm.a, row_ptr<bf16>(a.k, a.sk, b, h, k0), a.sk.t);
-  stage<BLK, D, LD>(sm.b, row_ptr<bf16>(a.v, a.sv, b, h, k0), a.sv.t);
-  stage_q(q_first);
-  float dk[NO][4], dv[NO][4];
-  zero_acc(dk);
-  zero_acc(dv);
-  for (int qi = q_first; qi < nq; ++qi) {
-    if constexpr (NB == 2) {
-      stage_q(qi + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int buf = (qi - q_first) & 1;
-    const bf16* Q = sm.c[buf];
-    const bf16* dO = sm.d[buf];
-    const float* Ls = sm.lse[buf];
-    const float* Ds = sm.dsum[buf];
-    const int q0 = qi * KB;
-    // rows of these tiles are keys k0 + r0 + (g, g + 8), columns queries
-    float s[NS][4], dp[NS][4];
-    zero_acc(dp);
-    warp_abt<NS, D, LD>(dp, sm.b, r0, dO);  // V dO^T = dP^T
-    zero_acc(s);
-    warp_abt<NS, D, LD>(s, sm.a, r0, Q);    // K Q^T = S^T
+// After the pushes: the wait for the peer's pushes into this block, the
+// `bytes` of phase `parity` of this block's `bar`, which the warpgroup's
+// first thread arms
+__device__ __forceinline__ void cl_meet(uint64_t* bar, uint32_t bytes,
+                                        uint32_t parity, int tid) {
+  sm90::mbar_expect_tx_if(bar, bytes, tid == 0);
+  sm90::mbar_wait_cluster(bar, parity);
+}
+
+// The scaled score fma(S_0, c, fma(S_1, c, -l2)) of the two blocks'
+// partials in rank order, from this block's partial `mine` and the peer's
+__device__ __forceinline__ float cl_score(float mine, float peer, int rank,
+                                          float c, float l2) {
+  const float s0 = rank == 0 ? mine : peer;
+  const float s1 = rank == 0 ? peer : mine;
+  return fmaf(s0, c, fmaf(s1, c, -l2));
+}
+
+// dP - dsum as dP_0 + (dP_1 - dsum), the partials in rank order
+__device__ __forceinline__ float cl_dp(float mine, float peer, int rank,
+                                       float dsum) {
+  const float d0 = rank == 0 ? mine : peer;
+  const float d1 = rank == 0 ? peer : mine;
+  return d0 + (d1 - dsum);
+}
+
+// A dQ consumer warpgroup of flash_bwd_dq_cluster_kernel<D>: the block's
+// half of query rows q0 .. q0 + 63 over key tiles wg, wg + 2, ..; at the
+// end it stores columns rank * D / 2 + wg * D / 4 .. + D / 4 of dQ, its
+// partial plus the other warpgroup's.
+template <int D>
+__device__ __forceinline__ void cl_dq_consumer(ClDqSmem<D>& sm,
+                                               const WgBwdArgs& a, int wg,
+                                               int rank, int q0, int nk,
+                                               int b, int h, int bh) {
+  constexpr int NS = ClDqSmem<D>::NS, HALF = D / 2, NO = HALF / 2;
+  const int l = threadIdx.x % 32, g = l / 4, t = l % 4;
+  const int tid = threadIdx.x % 128;
+  const int rl = 16 * (tid / 32) + g;  // rows rl, rl + 8
+  const uint32_t peer = rank ^ 1;
+  float lse2[2], dsum[2];
 #pragma unroll
-    for (int j = 0; j < NS; ++j)
+  for (int r = 0; r < 2; ++r) {
+    const long long i = (long long)bh * a.Tq + q0 + rl + 8 * r;
+    lse2[r] = a.lse[i] * kLog2e;
+    dsum[r] = a.dsum[i];
+  }
+  float dq[NO], s[16], dp[16];
+  uint32_t p[8];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) dq[i] = 0.f;
+  sm90::mbar_wait(&sm.own_full, 0);
+  for (int j = wg; j < nk; j += 2) {
+    const int st = j % NS, m = j / 2;  // the warpgroup's m-th tile
+    sm90::mbar_wait(&sm.full[st], (j / NS) & 1);
+    sm90::wgmma_fence();
+    issue_s<HALF>(s, sm.q[0], sizeof(sm.q[0]), sm.k[st][0],
+                  sizeof(sm.k[st][0]));
+    issue_s<HALF>(dp, sm.dO[0], sizeof(sm.dO[0]), sm.v[st][0],
+                  sizeof(sm.v[st][0]));
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(s);
+    sm90::fence_regs(dp);
+    // the partial scores meet: S at the buffer's start, dP 8 KB on
+    float* xs = sm.x[wg][m & 1];
+    const uint32_t remote = sm90::map_cluster(xs + 4 * tid, peer);
+    const uint32_t bar = sm90::map_cluster(&sm.x_full[wg][m & 1], peer);
+    cl_push(s, remote, bar);
+    cl_push(dp, remote + kWbRows * kClTile * 4, bar);
+    cl_meet(&sm.x_full[wg][m & 1], 2 * kWbRows * kClTile * 4, (m >> 1) & 1,
+            tid);
+    const bool diag = wide_diag(a.causal, j, nk, kClTile);
+    const int koff = j * kClTile - q0;
+    const float* ys = xs + 4 * tid;
+#pragma unroll
+    for (int i = 0; i < 16; i += 4) {
+      const float4 y4 = *reinterpret_cast<const float4*>(ys + 128 * i);
+      const float4 z4 = *reinterpret_cast<const float4*>(
+          ys + kWbRows * kClTile + 128 * i);
+      const float y[4] = {y4.x, y4.y, y4.z, y4.w};
+      const float z[4] = {z4.x, z4.y, z4.z, z4.w};
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int col = 8 * j + 2 * t + (e & 1);
-        float x = s[j][e] * a.scale;
-        if (a.causal && k0 + r0 + g + 8 * (e >> 1) > q0 + col) x = kNegInf;
-        s[j][e] = x <= kNegInf * 0.5f ? 0.f : expf(x - Ls[col]);  // P^T
+        const int r = e >> 1;
+        const bool masked =
+            diag && koff + 2 * i + 2 * t + (e & 1) > rl + 8 * r;
+        const float pv = masked ? 0.f
+                                : ex2(cl_score(s[i + e], y[e], rank,
+                                               a.scale_log2, lse2[r]));
+        s[i + e] = pv * cl_dp(dp[i + e], z[e], rank, dsum[r]);  // dS
       }
-    warp_pb<NO, KB / 16, LD>(dv, s, dO + c0);  // P^T dO, this block's columns
+    }
+    wide_pack(p, s);
+    sm90::fence_regs(dq);
+    sm90::wgmma_fence();
+    issue_pb(dq, p, sm.k[st][0], sizeof(sm.k[st][0]));  // dQ += dS K
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(dq);
+    if (l == 0) sm90::mbar_arrive(&sm.empty[st]);
+  }
+  // every tile is exchanged: the exchange buffers hold the two hand-overs
+  sm90::named_bar_sync(1, 256);
+  float4* xs = reinterpret_cast<float4*>(sm.x[0][0]);
+  float out[NO / 2];
+  if (wg == 0)
+    dq_meet<NO, NO / 2>(dq, xs, xs + NO / 8 * 128, tid, out);
+  else
+    dq_meet<NO, 0>(dq, xs + NO / 8 * 128, xs, tid, out);
+  store_wg(out, a.scale,
+           static_cast<bf16*>(a.out0) + rank * HALF + wg * (HALF / 2), a.so0,
+           b, h, q0, rl, t);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_bwd_dq_cluster_kernel(const __grid_constant__ CUtensorMap tq,
+                                const __grid_constant__ CUtensorMap tdo,
+                                const __grid_constant__ CUtensorMap tk,
+                                const __grid_constant__ CUtensorMap tv,
+                                const WgBwdArgs a) {
+  using Sm = ClDqSmem<D>;
+  constexpr int NS = Sm::NS, BOXES = Sm::BOXES;
+  extern __shared__ unsigned char smem_raw[];
+  Sm& sm = *reinterpret_cast<Sm*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const int q0 = (a.Tq / kWbRows - 1 - blockIdx.y) * kWbRows;  // longest first
+  const int rank = (int)sm90::cluster_rank();  // the block's column half
+  // K/V tiles past the block's diagonal are never loaded
+  const int nk = a.causal ? (q0 + kWbRows) / kClTile : a.Tk / kClTile;
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(&sm.own_full, 2);  // Q's and dO's expected bytes
+    for (int s = 0; s < NS; ++s) {
+      sm90::mbar_init(&sm.full[s], 2);   // K's and V's
+      sm90::mbar_init(&sm.empty[s], 4);  // the warps of the stage's warpgroup
+    }
+    for (int w = 0; w < 2; ++w)
+      for (int i = 0; i < 2; ++i)
+        sm90::mbar_init(&sm.x_full[w][i], 1);  // the arming; bytes
+    sm90::mbar_fence_init();
+  }
+  sm90::cluster_sync();  // both blocks' barriers are initialized
+  if (threadIdx.x >= 256) {
+    sm90::setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      const int c0 = rank * (D / 2);
+      tma_rows<BOXES>(sm.q[0], &tq, &sm.own_full, kWbRows, h, q0, b, c0);
+      tma_rows<BOXES>(sm.dO[0], &tdo, &sm.own_full, kWbRows, h, q0, b, c0);
+      for (int j = 0; j < nk; ++j) {
+        const int s = j % NS, k0 = j * kClTile;
+        // a stage is refilled once its warpgroup released it
+        sm90::mbar_wait(&sm.empty[s], ((j / NS) & 1) ^ 1);
+        tma_rows<BOXES>(sm.k[s][0], &tk, &sm.full[s], kClTile, h, k0, b, c0);
+        tma_rows<BOXES>(sm.v[s][0], &tv, &sm.full[s], kClTile, h, k0, b, c0);
+      }
+    }
+  } else {
+    sm90::setmaxnreg_inc<232>();
+    cl_dq_consumer<D>(sm, a, threadIdx.x / 128, rank, q0, nk, b, h, bh);
+  }
+  sm90::cluster_sync();  // no block exits while its peer may push into it
+}
+
+// dK/dV warpgroup 0 of flash_bwd_dkv_cluster_kernel<D>: S^T (this block's
+// partial, then the cluster's), P^T (handed to warpgroup 1), dV += P^T dO
+// over the block's columns.
+template <int D>
+__device__ __forceinline__ void cl_dv_consumer(ClDkvSmem<D>& sm,
+                                               const WgBwdArgs& a, int rank,
+                                               int kj, int q_first, int nq,
+                                               int b, int h) {
+  constexpr int NS = ClDkvSmem<D>::NS, HALF = D / 2;
+  const int l = threadIdx.x % 32, g = l / 4, t = l % 4;
+  const int tid = threadIdx.x % 128;
+  const int rl = 16 * (tid / 32) + g;  // key rows rl, rl + 8 of the block
+  const uint32_t peer = rank ^ 1;
+  float dv[HALF / 2], sa[16], sb[16];
+  uint32_t p[8];
 #pragma unroll
-    for (int j = 0; j < NS; ++j)
+  for (int i = 0; i < HALF / 2; ++i) dv[i] = 0.f;
+  // S^T = K Q^T of the n-th streamed tile, this block's partial, into s:
+  // issued and committed
+  auto issue = [&](int n, float (&s)[16]) {
+    const int st = n % NS;
+    sm90::mbar_wait(&sm.full[st], (n / NS) & 1);
+    sm90::wgmma_fence();
+    issue_s<HALF>(s, sm.k[0], sizeof(sm.k[0]), sm.q[st][0],
+                  sizeof(sm.q[st][0]));
+    sm90::wgmma_commit();
+  };
+  // the n-th tile, its partial in s; with `next`, the next tile's partial
+  // is issued into s2 before the exchange and waited for at the end
+  auto step = [&](int n, float (&s)[16], float (&s2)[16], auto next) {
+    const int qi = q_first + n, st = n % NS, pb = n & 1;
+    float* xs = sm.x[0][pb];
+    cl_push(s, sm90::map_cluster(xs + 4 * tid, peer),
+            sm90::map_cluster(&sm.x_full[0][pb], peer));
+    if constexpr (decltype(next)::value) issue(n + 1, s2);
+    cl_meet(&sm.x_full[0][pb], kWbRows * kClTile * 4, (n >> 1) & 1, tid);
+    // P^T = ex2(S^T * scale * log2(e) - L(query) * log2(e)); on the two
+    // diagonal tiles keys after a query are masked (exactly 0); koff is the
+    // tile's first query minus the block's first key
+    const bool diag = a.causal && qi < q_first + kWbRows / kClTile;
+    const int koff = qi * kClTile - kj * kWbRows;
+    const float* Ls = sm.lse[st];
+    const float* ys = xs + 4 * tid;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 lq = *reinterpret_cast<const float2*>(Ls + 8 * j + 2 * t);
+      const float4 y4 = *reinterpret_cast<const float4*>(ys + 512 * j);
+      const float y[4] = {y4.x, y4.y, y4.z, y4.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * j + e, col = 8 * j + 2 * t + (e & 1);
+        const float L2 = ((e & 1) ? lq.y : lq.x) * kLog2e;
+        const bool masked = diag && rl + 8 * (e >> 1) > koff + col;
+        s[i] = masked ? 0.f
+                      : ex2(cl_score(s[i], y[e], rank, a.scale_log2, L2));
+      }
+    }
+    // hand P^T to warpgroup 1 once it read the buffer's previous tile
+    sm90::mbar_wait(&sm.p_empty[pb], ((n >> 1) & 1) ^ 1);
+    float4* pt = reinterpret_cast<float4*>(sm.pt[pb]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      pt[j * 128 + tid] =
+          make_float4(s[4 * j], s[4 * j + 1], s[4 * j + 2], s[4 * j + 3]);
+    sm90::mbar_arrive(&sm.p_full[pb]);
+    wide_pack(p, s);
+    sm90::fence_regs(dv);
+    sm90::wgmma_fence();
+    issue_pb(dv, p, sm.dO[st][0], sizeof(sm.dO[st][0]));  // dV += P^T dO
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(dv);
+    if constexpr (decltype(next)::value) sm90::fence_regs(s2);
+    if (l == 0) sm90::mbar_arrive(&sm.empty[st]);
+  };
+  const int nt = nq - q_first;
+  sm90::mbar_wait(&sm.own_full, 0);
+  issue(0, sa);
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(sa);
+  int n = 0;
+  for (; n + 2 < nt; n += 2) {
+    step(n, sa, sb, std::true_type{});
+    step(n + 1, sb, sa, std::true_type{});
+  }
+  if (n + 1 < nt) {
+    step(n, sa, sb, std::true_type{});
+    step(n + 1, sb, sa, std::false_type{});
+  } else {
+    step(n, sa, sb, std::false_type{});
+  }
+  store_wg(dv, 1.f, static_cast<bf16*>(a.out1) + rank * HALF, a.so1, b, h,
+           kj * kWbRows, rl, t);
+}
+
+// dK/dV warpgroup 1: dP^T (this block's partial, then the cluster's),
+// dS^T = P^T (dP^T - dsum), dK += dS^T Q over the block's columns.
+template <int D>
+__device__ __forceinline__ void cl_dk_consumer(ClDkvSmem<D>& sm,
+                                               const WgBwdArgs& a, int rank,
+                                               int kj, int q_first, int nq,
+                                               int b, int h) {
+  constexpr int NS = ClDkvSmem<D>::NS, HALF = D / 2;
+  const int l = threadIdx.x % 32, g = l / 4, t = l % 4;
+  const int tid = threadIdx.x % 128;
+  const int rl = 16 * (tid / 32) + g;
+  const uint32_t peer = rank ^ 1;
+  float dk[HALF / 2], da[16], db[16];
+  uint32_t p[8];
+#pragma unroll
+  for (int i = 0; i < HALF / 2; ++i) dk[i] = 0.f;
+  // dP^T = V dO^T of the n-th streamed tile, this block's partial, into d:
+  // issued and committed
+  auto issue = [&](int n, float (&d)[16]) {
+    const int st = n % NS;
+    sm90::mbar_wait(&sm.full[st], (n / NS) & 1);
+    sm90::wgmma_fence();
+    issue_s<HALF>(d, sm.v[0], sizeof(sm.v[0]), sm.dO[st][0],
+                  sizeof(sm.dO[st][0]));
+    sm90::wgmma_commit();
+  };
+  // the n-th tile, its partial in d; with `next`, the next tile's partial
+  // is issued into d2 before the exchange and waited for at the end
+  auto step = [&](int n, float (&d)[16], float (&d2)[16], auto next) {
+    const int st = n % NS, pb = n & 1;
+    float* xs = sm.x[1][pb];
+    cl_push(d, sm90::map_cluster(xs + 4 * tid, peer),
+            sm90::map_cluster(&sm.x_full[1][pb], peer));
+    if constexpr (decltype(next)::value) issue(n + 1, d2);
+    cl_meet(&sm.x_full[1][pb], kWbRows * kClTile * 4, (n >> 1) & 1, tid);
+    const float* Ds = sm.dsum[st];
+    const float* ys = xs + 4 * tid;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 d2s = *reinterpret_cast<const float2*>(Ds + 8 * j + 2 * t);
+      const float4 y4 = *reinterpret_cast<const float4*>(ys + 512 * j);
+      const float y[4] = {y4.x, y4.y, y4.z, y4.w};
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        s[j][e] *= dp[j][e] - Ds[8 * j + 2 * t + (e & 1)];  // dS^T
-    warp_pb<NO, KB / 16, LD>(dk, s, Q + c0);  // dS^T Q
-    __syncthreads();
-    if constexpr (NB == 1) stage_q(qi + 1);
+        d[4 * j + e] =
+            cl_dp(d[4 * j + e], y[e], rank, (e & 1) ? d2s.y : d2s.x);
+    }
+    sm90::mbar_wait(&sm.p_full[pb], (n >> 1) & 1);
+    const float4* pt = reinterpret_cast<const float4*>(sm.pt[pb]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float4 pv = pt[j * 128 + tid];
+      d[4 * j] *= pv.x;  // dS^T
+      d[4 * j + 1] *= pv.y;
+      d[4 * j + 2] *= pv.z;
+      d[4 * j + 3] *= pv.w;
+    }
+    sm90::mbar_arrive(&sm.p_empty[pb]);
+    wide_pack(p, d);
+    sm90::fence_regs(dk);
+    sm90::wgmma_fence();
+    issue_pb(dk, p, sm.q[st][0], sizeof(sm.q[st][0]));  // dK += dS^T Q
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(dk);
+    if constexpr (decltype(next)::value) sm90::fence_regs(d2);
+    if (l == 0) sm90::mbar_arrive(&sm.empty[st]);
+  };
+  const int nt = nq - q_first;
+  sm90::mbar_wait(&sm.own_full, 0);
+  issue(0, da);
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(da);
+  int n = 0;
+  for (; n + 2 < nt; n += 2) {
+    step(n, da, db, std::true_type{});
+    step(n + 1, db, da, std::true_type{});
   }
-  cp_async_wait<0>();
-  store_acc(dk, a.scale, a.out0, a.so0, b, h, k0 + r0, c0);
-  store_acc(dv, 1.f, a.out1, a.so1, b, h, k0 + r0, c0);
+  if (n + 1 < nt) {
+    step(n, da, db, std::true_type{});
+    step(n + 1, db, da, std::false_type{});
+  } else {
+    step(n, da, db, std::false_type{});
+  }
+  store_wg(dk, a.scale, static_cast<bf16*>(a.out0) + rank * HALF, a.so0, b,
+           h, kj * kWbRows, rl, t);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_bwd_dkv_cluster_kernel(const __grid_constant__ CUtensorMap tq,
+                                 const __grid_constant__ CUtensorMap tdo,
+                                 const __grid_constant__ CUtensorMap tk,
+                                 const __grid_constant__ CUtensorMap tv,
+                                 const WgBwdArgs a) {
+  using Sm = ClDkvSmem<D>;
+  constexpr int NS = Sm::NS, BOXES = Sm::BOXES;
+  extern __shared__ unsigned char smem_raw[];
+  Sm& sm = *reinterpret_cast<Sm*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int kj = blockIdx.y;  // under the causal mask: longest columns first
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const int rank = (int)sm90::cluster_rank();  // the block's column half
+  const int k0 = kj * kWbRows;
+  // query tiles before the diagonal see none of these keys
+  const int q_first = a.causal ? k0 / kClTile : 0;
+  const int nq = a.Tq / kClTile;
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(&sm.own_full, 2);  // K's and V's expected bytes
+    for (int s = 0; s < NS; ++s) {
+      sm90::mbar_init(&sm.full[s], 3);   // Q's, dO's, and L's with dsum's
+      sm90::mbar_init(&sm.empty[s], 8);  // one arrival per consumer warp
+    }
+    for (int i = 0; i < 2; ++i) {
+      sm90::mbar_init(&sm.x_full[0][i], 1);  // the arming; bytes
+      sm90::mbar_init(&sm.x_full[1][i], 1);
+      sm90::mbar_init(&sm.p_full[i], 128);   // every thread of warpgroup 0
+      sm90::mbar_init(&sm.p_empty[i], 128);  // every thread of warpgroup 1
+    }
+    sm90::mbar_fence_init();
+  }
+  sm90::cluster_sync();  // both blocks' barriers are initialized
+  if (threadIdx.x >= 256) {
+    sm90::setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      const int c0 = rank * (D / 2);
+      tma_rows<BOXES>(sm.k[0], &tk, &sm.own_full, kWbRows, h, k0, b, c0);
+      tma_rows<BOXES>(sm.v[0], &tv, &sm.own_full, kWbRows, h, k0, b, c0);
+      const float* lse = a.lse + (long long)bh * a.Tq;
+      const float* dsum = a.dsum + (long long)bh * a.Tq;
+      for (int qi = q_first; qi < nq; ++qi) {
+        const int n = qi - q_first, s = n % NS, r0 = qi * kClTile;
+        // a stage is refilled once every consumer warp released it
+        sm90::mbar_wait(&sm.empty[s], ((n / NS) & 1) ^ 1);
+        tma_rows<BOXES>(sm.q[s][0], &tq, &sm.full[s], kClTile, h, r0, b, c0);
+        tma_rows<BOXES>(sm.dO[s][0], &tdo, &sm.full[s], kClTile, h, r0, b,
+                        c0);
+        sm90::mbar_expect_tx(&sm.full[s], 2 * kClTile * 4);
+        sm90::bulk_load(sm.lse[s], lse + r0, kClTile * 4, &sm.full[s]);
+        sm90::bulk_load(sm.dsum[s], dsum + r0, kClTile * 4, &sm.full[s]);
+      }
+    }
+  } else if (threadIdx.x < 128) {
+    sm90::setmaxnreg_inc<232>();
+    cl_dv_consumer<D>(sm, a, rank, kj, q_first, nq, b, h);
+  } else {
+    sm90::setmaxnreg_inc<232>();
+    cl_dk_consumer<D>(sm, a, rank, kj, q_first, nq, b, h);
+  }
+  sm90::cluster_sync();  // no block exits while its peer may push into it
 }
 
 // ================================= f32: split-TF32 tensor-core kernels
@@ -2815,14 +3002,22 @@ __global__ void __launch_bounds__(kThreads, 1)
 enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
 
 // The kernel family that runs (kind, dtype, D): 0 split TF32 in clusters
-// (the f32 backward at D = 384, 512), 1 split TF32, 2 bf16 mma.sync (the
-// backward at D = 384, 512), 3 bf16 wgmma (D = 128), 4 bf16 wgmma at
-// D >= 256 (the forward at D = 256-512, D split over two warpgroups; the
-// backward at D = 256).
-enum Route { kTf32Cluster = 0, kTf32 = 1, kMma = 2, kWgmma = 3, kWide = 4 };
+// (the f32 backward at D = 384, 512), 1 split TF32, 2 bf16 wgmma in
+// clusters of two blocks (the backward at D = 384, 512), 3 bf16 wgmma
+// (D = 128), 4 bf16 wgmma at D >= 256 (the forward at D = 256-512, D split
+// over two warpgroups; the backward at D = 256).
+enum Route {
+  kTf32Cluster = 0,
+  kTf32 = 1,
+  kWgmmaCluster = 2,
+  kWgmma = 3,
+  kWide = 4
+};
 __host__ __device__ constexpr int route_of(int kind, int dtype, int D) {
   if (dtype == 1)
-    return D == 128 ? kWgmma : kind == kFwd || D == 256 ? kWide : kMma;
+    return D == 128 ? kWgmma
+           : kind == kFwd || D == 256 ? kWide
+                                      : kWgmmaCluster;
   return kind == kFwd || D <= 256 ? kTf32 : kTf32Cluster;
 }
 
@@ -2838,14 +3033,14 @@ size_t smem_f32(int kind) {
 
 template <int D>
 size_t smem_bf16(int kind) {
-  Carver c{nullptr};
   if (D == 128)
     return kind == kFwd ? kWgSmemBytes
            : kind == kDq ? kDqSmemBytes
                          : kDkvSmemBytes;
   if (kind == kFwd) return wide_smem_bytes<D>();
   if (D == 256) return kind == kDq ? kWbDqSmemBytes : kWbDkvSmemBytes;
-  return MmaBwdSmem<D>::carve(c, nullptr);
+  // + alignment
+  return (kind == kDq ? sizeof(ClDqSmem<D>) : sizeof(ClDkvSmem<D>)) + 1024;
 }
 
 // The bf16 wgmma kernels read each input through one 4-D tensor map over
@@ -2967,6 +3162,56 @@ int launch_bwd_wide(int kind, const Args& a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+// The bf16 backward at D = 384, 512 ("wgmma cluster"): clusters of two
+// blocks along z, one column half each; dQ blocks of 64 query rows and
+// K/V tiles of 32 keys, dK/dV blocks of 64 keys and Q/dO tiles of 32
+// queries. Given `active`, not launched: how many clusters fit on the card
+// at once, into `active`.
+template <int D>
+int launch_bwd_cluster(int kind, const Args& a, cudaStream_t st,
+                       int* active) {
+  const bool dq = kind == kDq;
+  void (*kern)(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap,
+               WgBwdArgs) = dq ? flash_bwd_dq_cluster_kernel<D>
+                               : flash_bwd_dkv_cluster_kernel<D>;
+  const size_t smem = smem_bf16<D>(kind);
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 2;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = active != nullptr
+                    ? dim3(1, 1, 2)
+                    : dim3(a.B * a.H, (dq ? a.Tq : a.Tk) / kWbRows, 2);
+  cfg.blockDim = dim3(kWgThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (active != nullptr)
+    return (int)cudaOccupancyMaxActiveClusters(active, (const void*)kern,
+                                               &cfg);
+  // Q and dO: the dQ block's rows or the dK/dV tile's; K and V the reverse
+  const int qrows = dq ? kWbRows : kClTile, krows = dq ? kClTile : kWbRows;
+  CUtensorMap maps[4];  // q, dO, k, v
+  int rc = make_bthd_map(&maps[0], a.q, a.sq, a.H, a.Tq, a.B, qrows, D);
+  if (!rc)
+    rc = make_bthd_map(&maps[1], a.dO, a.sdo, a.H, a.Tq, a.B, qrows, D);
+  if (!rc) rc = make_bthd_map(&maps[2], a.k, a.sk, a.H, a.Tk, a.B, krows, D);
+  if (!rc) rc = make_bthd_map(&maps[3], a.v, a.sv, a.H, a.Tk, a.B, krows, D);
+  if (rc) return rc;
+  WgBwdArgs w{a.lse, a.dsum, a.out0, a.out1, a.so0, a.so1, a.H,
+              a.Tq, a.Tk, a.causal, a.scale, a.scale * kLog2e};
+  void* args[5] = {&maps[0], &maps[1], &maps[2], &maps[3], &w};
+  e = cudaLaunchKernelExC(&cfg, (const void*)kern, args);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 int run(void (*kern)(const Args), size_t smem, dim3 grid, const Args& a,
         cudaStream_t stream) {
   if (smem > 48 * 1024) {
@@ -3038,16 +3283,8 @@ int launch_bf16(int kind, const Args& a, cudaStream_t st) {
     return kind == kFwd ? launch_fwd_wide<D>(a, st)
                         : launch_bwd_wide(kind, a, st);
   } else {
-    // D = 384, 512: the backward's 64 x D f32 accumulators (192 or 256
-    // registers a thread for one of dK, dV, dQ) do not fit a warpgroup
-    // beside a score tile, so these still split the columns over blocks
-    if (kind == kFwd) return launch_fwd_wide<D>(a, st);
-    void (*kern)(const Args) = kind == kDq
-                                   ? flash_bwd_dq_mma_kernel<D, kMmaCols>
-                                   : flash_bwd_dkv_mma_kernel<D, kMmaCols>;
-    const dim3 grid((kind == kDkv ? a.Tk : a.Tq) / kMmaBlk, a.B * a.H,
-                    D / kMmaCols);
-    return run(kern, smem_bf16<D>(kind), grid, a, st);
+    return kind == kFwd ? launch_fwd_wide<D>(a, st)
+                        : launch_bwd_cluster<D>(kind, a, st, nullptr);
   }
 }
 
@@ -3132,17 +3369,18 @@ int dl4j_flash_bwd_dkv(const void* q, const void* k, const void* v,
 // The multiple the sequence lengths must be: 128 (the JAX package's
 // smallest tile, which its flash route asks for) where the family has
 // tiles of 128 rows or takes no other, 64 for the bf16 kernels at
-// D >= 256 (the forward's and the backward's tiles hold 64 rows).
+// D >= 256 (the forward's and the backward's blocks hold 64 rows, their
+// streamed tiles 64 or 32).
 int dl4j_flash_block_rows(int dtype, int D) {
   return dtype == 1 && D != 128 ? kWideRows : 128;
 }
 
 // The kernel family that runs kernel `kind` (0 forward, 1 dQ, 2 dK/dV) at
 // dtype and D: 0 f32 split TF32 on mma.sync in thread block clusters, 1
-// f32 split TF32 on mma.sync, 2 bf16 mma.sync (the backward at D = 384,
-// 512), 3 bf16 wgmma (D = 128), 4 bf16 wgmma at D >= 256 ("wgmma wide":
-// the forward at D = 256-512, the backward at D = 256); -1 for an
-// unsupported D.
+// f32 split TF32 on mma.sync, 2 bf16 wgmma in clusters of two blocks
+// ("wgmma cluster": the backward at D = 384, 512), 3 bf16 wgmma
+// (D = 128), 4 bf16 wgmma at D >= 256 ("wgmma wide": the forward at
+// D = 256-512, the backward at D = 256); -1 for an unsupported D.
 int dl4j_flash_route(int kind, int dtype, int D) {
   return with_head_dim(D, [&](auto) { return route_of(kind, dtype, D); });
 }
@@ -3157,23 +3395,31 @@ size_t dl4j_flash_smem_bytes(int kind, int dtype, int D) {
   return rc < 0 ? 0 : (size_t)rc;
 }
 
-// The clusters of kernel `kind` (1 dQ, 2 dK/dV) in f32 at head dim D:
-// the blocks a cluster holds into `cluster`, and how many such clusters
-// fit on the card at once into `active`; `cluster` 1 and `active` 0 where
-// the kernel runs no clusters. Returns a cudaError_t.
-int dl4j_flash_cluster_plan(int kind, int D, int* cluster, int* active) {
+// The clusters of kernel `kind` (1 dQ, 2 dK/dV) at dtype (0 f32, 1 bf16)
+// and head dim D: the blocks a cluster holds into `cluster`, and how many
+// such clusters fit on the card at once into `active`; `cluster` 1 and
+// `active` 0 where the kernel runs no clusters. Returns a cudaError_t.
+int dl4j_flash_cluster_plan(int kind, int dtype, int D, int* cluster,
+                            int* active) {
   *cluster = 1;
   *active = 0;
   const int rc = with_head_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
+    if (kind == kFwd) return 0;
     if constexpr (route_of(kDq, 0, kD) == kTf32Cluster) {
-      if (kind == kFwd) return 0;
-      *cluster = kD / kTfCols;
-      return run_cluster<kD>(kind, dim3(1, 1, kD / kTfCols), Args{}, nullptr,
-                             active);
-    } else {
-      return 0;
+      if (dtype == 0) {
+        *cluster = kD / kTfCols;
+        return run_cluster<kD>(kind, dim3(1, 1, kD / kTfCols), Args{},
+                               nullptr, active);
+      }
     }
+    if constexpr (route_of(kDq, 1, kD) == kWgmmaCluster) {
+      if (dtype == 1) {
+        *cluster = 2;
+        return launch_bwd_cluster<kD>(kind, Args{}, nullptr, active);
+      }
+    }
+    return 0;
   });
   return rc < 0 ? (int)cudaErrorInvalidValue : rc;
 }

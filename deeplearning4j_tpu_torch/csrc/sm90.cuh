@@ -1,11 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels:
-// mbarriers, TMA tensor loads (plain and cluster multicast), cluster
-// barriers and loads from a peer block's shared memory, counters that the
-// blocks of a cooperative launch wait on, named barriers,
-// the split of f32 operands into TF32 parts, wgmma (bf16 and TF32) with
-// shared-memory descriptors, and the host-side construction of TMA
-// tensor maps through the driver entry point (so a library needs no
-// -lcuda).
+// mbarriers (arrivals on a peer block's too), TMA tensor loads (plain and
+// cluster multicast), cluster barriers, loads from and stores to a peer
+// block's shared memory, counters that the blocks of a cooperative launch
+// wait on, named barriers, the split of f32 operands into TF32 parts,
+// wgmma (bf16 and TF32) with shared-memory descriptors, and the host-side
+// construction of TMA tensor maps through the driver entry point (so a
+// library needs no -lcuda).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums: types only, nothing linked
@@ -73,6 +73,17 @@ __device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
       "@p mbarrier.arrive.shared::cluster.b64 _, [remote];\n"
       "}\n" ::"r"(smem_u32(bar)),
       "r"(cta), "r"((uint32_t)pred)
+      : "memory");
+}
+
+// mbar_expect_tx when `pred` holds (the predicate inside the instruction)
+__device__ __forceinline__ void mbar_expect_tx_if(uint64_t* bar,
+                                                  uint32_t bytes, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n"
+      "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n}\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes), "r"((uint32_t)pred)
       : "memory");
 }
 
@@ -168,6 +179,31 @@ __device__ __forceinline__ float4 ld_cluster_v4(const void* p, uint32_t cta) {
       : "r"(smem_u32(p)), "r"(cta)
       : "memory");
   return v;
+}
+
+// the address in the shared memory of block `cta` of this cluster at the
+// offset where `p` lies in this block's (for st_async_v4)
+__device__ __forceinline__ uint32_t map_cluster(const void* p, uint32_t cta) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(smem_u32(p)), "r"(cta));
+  return r;
+}
+
+// 16 bytes stored asynchronously into a peer block's shared memory at
+// `addr` (of map_cluster), their bytes counted on the peer's barrier at
+// `bar` (of map_cluster) as a TMA load's are: the storing thread neither
+// fences nor waits, and the peer's threads that wait on that barrier's
+// phase (mbar_wait_cluster; the peer arms it with mbar_expect_tx) see
+// the bytes
+__device__ __forceinline__ void st_async_v4(uint32_t addr, float4 v,
+                                            uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(addr),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+      : "memory");
 }
 
 // order this thread's generic-proxy writes before later async-proxy

@@ -26,14 +26,16 @@ which add their partial scores through distributed shared memory
 The bf16 forward at D = 256, 384 and 512 ("wgmma wide") splits D over two
 warpgroups of one block, which add their partial scores through shared
 memory; the bf16 backward at D = 256 ("wgmma wide" too) keeps accumulators
-over all of D in each of two warpgroups, and at D = 384 and 512 it runs on
-`mma.sync` ("mma").
+over all of D in each of two warpgroups, and at D = 384 and 512 ("wgmma
+cluster") it runs as thread block clusters of two such blocks, one column
+half each, which add their partial scores through distributed shared
+memory (`cluster_plan` reports these clusters too).
 
 Counts: `flash_forward.launches`, `flash_bwd_dq.launches` and
 `flash_bwd_dkv.launches` (kernel launches), `launches_by_route[(kind,
 route)]` (the same by kernel family: kind "fwd", "dq" or "dkv"; route
-"tf32", "tf32 cluster", "mma", "wgmma" or "wgmma wide", as the library
-reports it),
+"tf32", "tf32 cluster", "wgmma", "wgmma wide" or "wgmma cluster", as the
+library reports it),
 `flash_attention_plain_fwd.calls` and `flash_attention_plain_bwd.calls`.
 """
 from __future__ import annotations
@@ -74,7 +76,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (128, 256, 384, 512)
 _FWD, _DQ, _DKV = 0, 1, 2
 _KIND_NAMES = {_FWD: "fwd", _DQ: "dq", _DKV: "dkv"}
-ROUTES = {0: "tf32 cluster", 1: "tf32", 2: "mma", 3: "wgmma",
+ROUTES = {0: "tf32 cluster", 1: "tf32", 2: "wgmma cluster", 3: "wgmma",
           4: "wgmma wide"}
 launches_by_route: Dict[Tuple[str, str], int] = {}
 
@@ -196,7 +198,7 @@ def _library() -> ctypes.CDLL:
         lib.dl4j_flash_route.argtypes = [ci, ci, ci]
         lib.dl4j_flash_route.restype = ci
         ip = ctypes.POINTER(ci)
-        lib.dl4j_flash_cluster_plan.argtypes = [ci, ci, ip, ip]
+        lib.dl4j_flash_cluster_plan.argtypes = [ci, ci, ci, ip, ip]
         lib.dl4j_flash_cluster_plan.restype = ci
     return lib
 
@@ -221,9 +223,9 @@ def _kernel_ready(t: torch.Tensor) -> torch.Tensor:
 
 def _stats_ready(t: torch.Tensor) -> torch.Tensor:
     """An f32 (B*H, Tq) statistic (L or dsum) as the backward kernels read
-    it: contiguous with a 16-byte aligned base (the bf16 dK/dV kernels at
-    D = 128 and 256 copy 64-float runs of it with the bulk-copy engine),
-    else a copy."""
+    it: contiguous with a 16-byte aligned base (the bf16 dK/dV kernels
+    copy runs of 64 or 32 floats of it with the bulk-copy engine), else a
+    copy."""
     t = t.float()
     ok = t.is_contiguous() and t.data_ptr() % 16 == 0
     return t if ok else t.clone(memory_format=torch.contiguous_format)
@@ -351,18 +353,20 @@ def flash_bwd_dkv(q, k, v, do, lse, dsum, causal, sm_scale):
 flash_bwd_dkv.launches = 0
 
 
-def cluster_plan(kind: str, D: int) -> Tuple[int, int]:
+def cluster_plan(kind: str, D: int,
+                 dtype: torch.dtype = torch.float32) -> Tuple[int, int]:
     """(blocks a cluster holds, clusters that fit on the card at once) of
-    the f32 backward kernel `kind` ("dq" or "dkv") at head dim D; (1, 0)
-    where that kernel runs no clusters."""
+    the backward kernel `kind` ("dq" or "dkv") in `dtype` at head dim D;
+    (1, 0) where that kernel runs no clusters."""
     lib = _library()
     cluster, active = ctypes.c_int(), ctypes.c_int()
     code = {"dq": _DQ, "dkv": _DKV}[kind]
-    rc = lib.dl4j_flash_cluster_plan(code, D, ctypes.byref(cluster),
+    rc = lib.dl4j_flash_cluster_plan(code, _DTYPE_CODE[dtype], D,
+                                     ctypes.byref(cluster),
                                      ctypes.byref(active))
     if rc != 0:
-        raise RuntimeError(f"flash cluster plan ({kind}, D={D}) failed: CUDA "
-                           f"error {rc}")
+        raise RuntimeError(f"flash cluster plan ({kind}, {dtype}, D={D}) "
+                           f"failed: CUDA error {rc}")
     return cluster.value, active.value
 
 

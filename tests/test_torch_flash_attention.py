@@ -16,10 +16,13 @@ products summed as the f32 backward's clusters sum them at D = 384 and
 512 (partials over 128-column slices, added in f32 in rank order); with
 the tensor cores' truncation emulated too, scores that cancel within a
 slice tell fresh accumulators from one chained over the slice. The bf16
-backward kernels at D = 256 ("wgmma wide") are emulated in plain torch
-(their tile order, the log2 domain, P and dS rounded to nearest bf16)
-and held to the JAX package's backward in bf16 within the bf16
-tolerance; the card check's dS-rounding inputs tell a truncated dS.
+backward kernels at D = 256 ("wgmma wide") and at D = 384 and 512
+("wgmma cluster": two blocks, one column half each, whose partial scores
+are added in rank order) are emulated in plain torch (their tile order,
+the log2 domain, P and dS rounded to nearest bf16) and held to the JAX
+package's backward in bf16 within the bf16 tolerance; the card check's
+dS-rounding inputs tell a truncated dS, and its halves inputs tell a
+block that adds the partials in its own order.
 """
 import numpy as np
 import pytest
@@ -694,6 +697,125 @@ def test_wide_backward_emulation_matches_jax(causal):
             name
 
 
+def _fma(a, b, c):
+    """fmaf of f32 tensors, through f64 (where an f32 product is exact)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _cluster_bwd_emulated(q, k, v, do, o, lse, causal, own_order=False):
+    """(dQ, dK, dV) of the bf16 backward kernels at D = 384 and 512
+    ("wgmma cluster") in plain torch, on bf16 q, k, v, dO and the
+    forward's O (bf16) and L. A cluster's two blocks each compute the
+    partial scores over their column half r (S_r = Q_r K_r^T and dP_r =
+    dO_r V_r^T, f32) and form, from both in rank order, P = 2^(fma(S_0, c,
+    fma(S_1, c, -L log2(e)))) with c = scale log2(e) (masked entries
+    exactly 0) and dS = P (dP_0 + (dP_1 - dsum)), dsum = rowsum(dO * O) in
+    f32; P and dS rounded to nearest bf16 as the products' A operands;
+    each block accumulates its half of the outputs in the kernels' tile
+    order (dQ over key tiles of 32, taken in turn by two warpgroups whose
+    f32 partials are added at the end; dK/dV over query tiles of 32; tiles
+    above the diagonal, which the kernels skip, add exact zeros); the scale
+    applied to dQ and dK once at the end, every output rounded to bf16.
+    With `own_order`, the block of rank 1 adds the partials in its own
+    order (its own first), as a faulty kernel would."""
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    Bq, Tq, Hq, D = q.shape
+    Tk = k.shape[1]
+    halves = (slice(0, D // 2), slice(D // 2, D))
+    scale = np.float32(1.0 / np.sqrt(D))
+    c = torch.tensor(scale * np.float32(np.log2(np.e)))
+    l2 = (lse.float() * float(np.float32(np.log2(np.e)))).reshape(
+        Bq, Hq, Tq, 1)
+    dsum = fa._dsum(o, do).reshape(Bq, Hq, Tq, 1)
+    keep = fa._keep(Tq, Tk, q.device)
+    bf = torch.bfloat16
+
+    def partials(x, y, rows, cols):
+        return [torch.einsum("bqhd,bkhd->bhqk", x[:, rows, :, hf],
+                             y[:, cols, :, hf]) for hf in halves]
+
+    def tile(rows, cols, rank):
+        """P and dS of a tile as the block of `rank` forms them."""
+        s, dp = partials(qf, kf, rows, cols), partials(dof, vf, rows, cols)
+        if own_order and rank == 1:
+            s, dp = s[::-1], dp[::-1]
+        p = torch.exp2(_fma(s[0], c, _fma(s[1], c, -l2[:, :, rows])))
+        if causal:
+            p = p.masked_fill(~keep[rows][:, cols], 0.0)
+        return p, p * (dp[0] + (dp[1] - dsum[:, :, rows]))
+
+    dq, dk, dv = (torch.zeros_like(t) for t in (qf, kf, vf))
+    for rank, hf in enumerate(halves):
+        part = [torch.zeros_like(qf[..., hf]) for _ in range(2)]
+        for j in range(0, Tk, 32):
+            cols = slice(j, j + 32)
+            _, ds = tile(slice(0, Tq), cols, rank)
+            part[j // 32 % 2] += torch.einsum(
+                "bhqk,bkhd->bqhd", ds.to(bf).float(), kf[:, cols, :, hf])
+        dq[..., hf] = part[0] + part[1]
+        for i in range(0, Tq, 32):
+            rows = slice(i, i + 32)
+            p, ds = tile(rows, slice(0, Tk), rank)
+            dv[..., hf] += torch.einsum("bhqk,bqhd->bkhd", p.to(bf).float(),
+                                        dof[:, rows, :, hf])
+            dk[..., hf] += torch.einsum("bhqk,bqhd->bkhd", ds.to(bf).float(),
+                                        qf[:, rows, :, hf])
+    return (dq * scale).to(bf), (dk * scale).to(bf), dv.to(bf)
+
+
+@pytest.mark.parametrize("Dh", [384, 512])
+@pytest.mark.parametrize("causal", [False, True])
+def test_cluster_backward_emulation_matches_jax(Dh, causal):
+    """The arithmetic of the bf16 backward kernels at D = 384 and 512
+    (`_cluster_bwd_emulated`: partial scores over the two column halves
+    added in rank order, the log2 domain, P and dS rounded to nearest
+    bf16, the kernels' tile order) against the JAX package's backward in
+    bf16 (`jax.grad` of the Pallas flash attention in interpret mode,
+    blocks of 128) on the same bf16 inputs (B=1, T=256, H=2): dQ, dK and
+    dV row by row within `fa.error_in_tolerances` (2^-6 of a row's
+    scale)."""
+    q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16)
+                   for x in _inputs(70 + Dh + causal, (1, T, 2, Dh)))
+    jq, jk, jv, jdo = (jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+                       for t in (q, k, v, do))
+
+    def jf(a, b, c):
+        return jflash(a, b, c, causal=causal, block_q=128, block_k=128,
+                      interpret=True)
+
+    jgrads = jax.grad(lambda a, b, c: jnp.sum(
+        jf(a, b, c).astype(jnp.float32) * jdo.astype(jnp.float32)),
+        argnums=(0, 1, 2))(jq, jk, jv)
+    o, lse = fa.flash_attention_plain_fwd(q, k, v, causal)
+    got = _cluster_bwd_emulated(q, k, v, do, o, lse, causal)
+    for name, g, want in zip(("dQ", "dK", "dV"), got, jgrads):
+        ref = torch.from_numpy(np.array(want.astype(jnp.float32)))
+        assert fa.error_in_tolerances(name, g, ref, torch.bfloat16) <= 1.0, \
+            name
+
+
+@pytest.mark.parametrize("Dh", [384, 512])
+def test_cluster_halves_case_tells_an_order_fault(Dh):
+    """What the card check's halves case (`chip_smoke.
+    flash_halves_inputs`) rests on: with the column halves of q, k and dO
+    equal (v's differ, so the two blocks' partial dP differ), a cluster
+    whose blocks add the partials in one order gives dQ, dK and dV with
+    bit-identical halves (each block forms the same P and dS, and its
+    half of K, Q or dO is the other's), and one whose block of rank 1 adds
+    them in its own order does not, in at least one output."""
+    q, k, v, do = _chip_smoke().flash_halves_inputs(torch, 1, 256, 2, Dh,
+                                                    device="cpu")
+    o, lse = fa.flash_attention_plain_fwd(q, k, v, True)
+    h = Dh // 2
+    same = [torch.equal(g[..., :h], g[..., h:])
+            for g in _cluster_bwd_emulated(q, k, v, do, o, lse, True)]
+    assert all(same), same
+    fault = [torch.equal(g[..., :h], g[..., h:])
+             for g in _cluster_bwd_emulated(q, k, v, do, o, lse, True,
+                                            own_order=True)]
+    assert not all(fault), fault
+
+
 @pytest.mark.parametrize("Dh", [256, 384, 512])
 def test_ds_rounding_case_tells_a_truncated_ds(Dh):
     """What the card check's dS-rounding case (`chip_smoke.
@@ -703,7 +825,8 @@ def test_ds_rounding_case_tells_a_truncated_ds(Dh):
     nearest bf16 before its products) and the same arithmetic with dS
     truncated to bf16 differ by more than 16 bf16 tolerances in dQ
     (head 0) and in dK (head 1); and the kernels' arithmetic
-    (`_wide_bwd_emulated`) gives the plain backward's outputs exactly."""
+    (`_wide_bwd_emulated` at D = 256, `_cluster_bwd_emulated` at 384 and
+    512) gives the plain backward's outputs exactly."""
     q, k, v, do = _chip_smoke().flash_ds_rounding_inputs(torch, Dh,
                                                          device="cpu")
     dt = torch.bfloat16
@@ -726,8 +849,8 @@ def test_ds_rounding_case_tells_a_truncated_ds(Dh):
                                   ref[0][:, :, :1], dt) > 16.0
     assert fa.error_in_tolerances("dK", dk[:, :, 1:].to(dt),
                                   ref[1][:, :, 1:], dt) > 16.0
-    for got, want in zip(_wide_bwd_emulated(q, k, v, do, o, lse, False),
-                         ref):
+    emulated = _wide_bwd_emulated if Dh == 256 else _cluster_bwd_emulated
+    for got, want in zip(emulated(q, k, v, do, o, lse, False), ref):
         assert torch.equal(got, want)
 
 
@@ -935,7 +1058,7 @@ def test_f32_wide_head_backward_cases_and_bits():
 def test_wide_forward_cases_halves_and_routes():
     """The bf16 forward at D = 256, 384 and 512 (route "wgmma wide": two
     consumer warpgroups that split D; the backward takes "wgmma wide" at
-    D = 256 and stays on "mma" at 384 and 512; shared memory within the
+    D = 256 and "wgmma cluster" at 384 and 512; shared memory within the
     card's limit) against the plain
     forward in f32, O row by row and L within `fa.error_in_tolerances`:
     causal at T = 128 and 192 (the first 64-row tiles, whose diagonal
@@ -953,7 +1076,7 @@ def test_wide_forward_cases_halves_and_routes():
     for Dh in (256, 384, 512):
         assert fa.ROUTES[lib.dl4j_flash_route(0, 1, Dh)] == "wgmma wide"
         assert fa.ROUTES[lib.dl4j_flash_route(1, 1, Dh)] == (
-            "wgmma wide" if Dh == 256 else "mma")
+            "wgmma wide" if Dh == 256 else "wgmma cluster")
         assert lib.dl4j_flash_smem_bytes(0, 1, Dh) <= \
             smem_limit_bytes(torch.device("cuda"))
         qkv = r(1, 1024, 3 * 2 * Dh)
@@ -981,14 +1104,18 @@ def test_wide_forward_cases_halves_and_routes():
 
 @pytest.mark.gpu
 def test_wide_backward_cases_bits_and_routes():
-    """The bf16 backward at D = 256 (route "wgmma wide" for dQ and dK/dV,
-    D = 384 and 512 on "mma"; shared memory within the card's limit)
-    against the plain backward in f32 on the forward kernel's O and L, row
-    by row within `fa.error_in_tolerances`: causal at T = 64, 128 and 192
-    (one block alone, the first diagonal tiles) and 2048,
-    full at T = 192, Tq=512 x Tk=1024 full, and q, k, v sliced from one
-    fused qkv tensor; each call twice, with identical bits (no atomics);
-    on `chip_smoke.flash_ds_rounding_inputs` dQ and dK equal the plain
+    """The bf16 backward at D = 256 (route "wgmma wide" for dQ and dK/dV)
+    and at D = 384 and 512 ("wgmma cluster": clusters of two blocks, one
+    column half each, whose partial scores meet in distributed shared
+    memory; shared memory within the card's limit) against the plain
+    backward in f32 on the forward kernel's O and L, row by row within
+    `fa.error_in_tolerances`: causal at T = 64 (D = 256: one block alone),
+    128 and 192 (the first diagonal tiles) and 2048, full at T = 192,
+    Tq=512 x Tk=1024 full, and q, k, v sliced from one fused qkv tensor;
+    each call twice, with identical bits (no atomics); at D = 384 and 512
+    on `chip_smoke.flash_halves_inputs` dQ, dK and dV have bit-identical
+    column halves (both blocks of a cluster form the same P and dS); on
+    `chip_smoke.flash_ds_rounding_inputs` dQ and dK equal the plain
     backward on the bf16 tensors (dS rounded to nearest bf16)."""
     _card()
     from deeplearning4j_tpu_torch.ops.kernel_dispatch import smem_limit_bytes
@@ -997,47 +1124,56 @@ def test_wide_backward_cases_bits_and_routes():
     g = torch.Generator(device="cuda").manual_seed(61)
     r = lambda *s: torch.randn(s, generator=g, device="cuda").to(dt)
     lib = fa._library()
+    cs = _chip_smoke()
     for Dh in (256, 384, 512):
+        route = "wgmma wide" if Dh == 256 else "wgmma cluster"
         for kind in (1, 2):
-            assert fa.ROUTES[lib.dl4j_flash_route(kind, 1, Dh)] == (
-                "wgmma wide" if Dh == 256 else "mma")
+            assert fa.ROUTES[lib.dl4j_flash_route(kind, 1, Dh)] == route
             assert lib.dl4j_flash_smem_bytes(kind, 1, Dh) <= \
                 smem_limit_bytes(torch.device("cuda"))
-    Dh = 256
-    qkv = r(1, 1024, 3 * 2 * Dh)
-    fused = [qkv[..., i * 2 * Dh:(i + 1) * 2 * Dh].reshape(1, 1024, 2, Dh)
-             for i in range(3)] + [r(1, 1024, 2, Dh)]
-    assert fa._kernel_ready(fused[0]) is fused[0]
-    cases = [([r(1, T, 2, Dh) for _ in range(4)], True)
-             for T in (64, 128, 192, 2048)]
-    cases += [([r(1, 192, 2, Dh) for _ in range(4)], False),
-              ([r(2, 512, 2, Dh), r(2, 1024, 2, Dh), r(2, 1024, 2, Dh),
-                r(2, 512, 2, Dh)], False),
-              (fused, True)]
-    for i, ((q, k, v, do), causal) in enumerate(cases):
-        fa.reset_counts()
-        o, lse = fa.flash_forward(q, k, v, causal, None, with_lse=True)
+        qkv = r(1, 1024, 3 * 2 * Dh)
+        fused = [qkv[..., i * 2 * Dh:(i + 1) * 2 * Dh].reshape(1, 1024, 2,
+                                                               Dh)
+                 for i in range(3)] + [r(1, 1024, 2, Dh)]
+        assert fa._kernel_ready(fused[0]) is fused[0]
+        halves = cs.flash_halves_inputs(torch, 1, 512, 2, Dh, seed=Dh)
+        cases = [([r(1, T, 2, Dh) for _ in range(4)], True)
+                 for T in ((64, 128, 192, 2048) if Dh == 256
+                           else (128, 192, 2048))]
+        cases += [([r(1, 192, 2, Dh) for _ in range(4)], False),
+                  ([r(2, 512, 2, Dh), r(2, 1024, 2, Dh), r(2, 1024, 2, Dh),
+                    r(2, 512, 2, Dh)], False),
+                  (fused, True)]
+        if Dh > 256:
+            cases += [(halves, False), (halves, True)]
+        for i, ((q, k, v, do), causal) in enumerate(cases):
+            fa.reset_counts()
+            o, lse = fa.flash_forward(q, k, v, causal, None, with_lse=True)
+            dsum = fa._dsum(o, do)
+            runs = [(fa.flash_bwd_dq(q, k, v, do, lse, dsum, causal, None),)
+                    + fa.flash_bwd_dkv(q, k, v, do, lse, dsum, causal, None)
+                    for _ in range(2)]
+            assert fa.launches_by_route == {("fwd", "wgmma wide"): 1,
+                                            ("dq", route): 2,
+                                            ("dkv", route): 2}
+            ref = fa.flash_attention_plain_bwd(q.float(), k.float(),
+                                               v.float(), o.float(), lse,
+                                               do.float(), causal)
+            torch.cuda.synchronize()
+            for name, a, b, want in zip(("dQ", "dK", "dV"), runs[0], runs[1],
+                                        ref):
+                assert torch.equal(a, b), (Dh, i, name)
+                assert fa.error_in_tolerances(name, a, want, dt) <= 1.0, \
+                    (Dh, i, name)
+                if q is halves[0]:
+                    assert torch.equal(a[..., :Dh // 2],
+                                       a[..., Dh // 2:]), (Dh, i, name)
+        q, k, v, do = cs.flash_ds_rounding_inputs(torch, Dh)
+        o, lse = fa.flash_forward(q, k, v, False, None, with_lse=True)
         dsum = fa._dsum(o, do)
-        runs = [(fa.flash_bwd_dq(q, k, v, do, lse, dsum, causal, None),)
-                + fa.flash_bwd_dkv(q, k, v, do, lse, dsum, causal, None)
-                for _ in range(2)]
-        assert fa.launches_by_route == {("fwd", "wgmma wide"): 1,
-                                        ("dq", "wgmma wide"): 2,
-                                        ("dkv", "wgmma wide"): 2}
-        ref = fa.flash_attention_plain_bwd(q.float(), k.float(), v.float(),
-                                           o.float(), lse, do.float(),
-                                           causal)
+        got = (fa.flash_bwd_dq(q, k, v, do, lse, dsum, False, None),) + \
+            fa.flash_bwd_dkv(q, k, v, do, lse, dsum, False, None)
+        ref = fa.flash_attention_plain_bwd(q, k, v, o, lse, do)
         torch.cuda.synchronize()
-        for name, a, b, want in zip(("dQ", "dK", "dV"), runs[0], runs[1],
-                                    ref):
-            assert torch.equal(a, b), (i, name)
-            assert fa.error_in_tolerances(name, a, want, dt) <= 1.0, (i, name)
-    q, k, v, do = _chip_smoke().flash_ds_rounding_inputs(torch, Dh)
-    o, lse = fa.flash_forward(q, k, v, False, None, with_lse=True)
-    dsum = fa._dsum(o, do)
-    got = (fa.flash_bwd_dq(q, k, v, do, lse, dsum, False, None),) + \
-        fa.flash_bwd_dkv(q, k, v, do, lse, dsum, False, None)
-    ref = fa.flash_attention_plain_bwd(q, k, v, o, lse, do)
-    torch.cuda.synchronize()
-    for name, a, want in zip(("dQ", "dK", "dV"), got, ref):
-        assert torch.equal(a, want), name
+        for name, a, want in zip(("dQ", "dK", "dV"), got, ref):
+            assert torch.equal(a, want), (Dh, name)
