@@ -9,9 +9,11 @@ kernel that is wrong?
 For the unchanged sources and for each planted fault below, the script
 copies `deeplearning4j_tpu_torch/` into a temporary directory, plants the
 fault in the copy's `csrc/flash_attention.cu`, `csrc/paged_attention.cu`
-or `csrc/lstm.cu` (the checkout is never changed), builds every copy with
-nvcc in parallel, and then runs the faulted kernel family's check in one
-process per copy (the unchanged copy runs all three):
+or `csrc/lstm.cu`, or in `nn/multilayer.py` for the training loop's
+finite guard (the checkout is never changed), builds every copy with
+nvcc in parallel, and then runs the faulted family's check in one
+process per copy (the unchanged copy runs every family a selected fault
+belongs to):
 
 - flash: the forward, dQ and dK/dV kernels on the cases below, bf16 (at
   D = 128 the wgmma kernels; at D = 256, 384 and 512 the "wgmma wide"
@@ -50,7 +52,9 @@ process per copy (the unchanged copy runs all three):
   (`chip_smoke.lstm_cancel_units`, against the plain version in f64), and
   the cooperative bf16 forward on inputs whose rows 8-15 of every 16
   repeat rows 0-7 (`chip_smoke.lstm_mirror_units`, B = 64 and 128: the
-  repeated rows must be bit-identical, "mirror bits").
+  repeated rows must be bit-identical, "mirror bits");
+- guard: `chip_smoke.py`'s phase 20 (path 4e, the training loop on the
+  bf16 LSTM kernels), whose failed check counts as caught.
 
 The faults (`MUTATIONS`) drop tiles, terms or rows, and break each
 mechanism of the Hopper kernels: the forward's diagonal mask on the wrong
@@ -106,7 +110,10 @@ counter skipped, or waiting for the previous step's count), an h chunk
 read before its TMA arrival, one warpgroup adding the split-K partials
 in its own order (which only the mirror bits show), the split-K
 hand-over reading the warpgroup's own partials, the xw tile of step t+2
-used at step t and the stash stored at the next step's position. A
+used at step t and the stash stored at the next step's position; the
+training loop's finite guard: a non-finite step committed, every finite
+step after the first skip skipped, the iteration held on a skip, and the
+gradient norm without the first layer's gradients. A
 fault that makes the kernel trap (an mbarrier wait that times out) fails
 its check process, which counts as caught.
 
@@ -130,6 +137,9 @@ import tempfile
 REPO = os.path.dirname(os.path.abspath(__file__))
 PKG = "deeplearning4j_tpu_torch"
 FLASH, PAGED, LSTM = "flash_attention", "paged_attention", "lstm"
+# the training loop's finite guard (`nn/multilayer.py`), checked by
+# `chip_smoke.py`'s phase 20 (path 4e) on the LSTM kernels
+GUARD = "guard"
 # (B, T, H, D, causal, dtype): bf16, the training path's kernels at D = 128,
 # the "wgmma wide" kernels at D = 256 and the "wgmma cluster" backward at
 # D = 384 and 512 (T = 192: the first diagonal tiles; T = 1024 full: every
@@ -578,6 +588,28 @@ MUTATIONS = [
           "      // ---- the product to shared memory (warps 0, 1"),
          ("    sm90::cluster_sync();  // h_t is stored (and fenced for TMA) by "
           "all\n", "")]),
+    # the training loop's finite guard (`nn/multilayer.py`), each caught by
+    # phase 20 (path 4e): the poisoned step's state, the guarded/unguarded
+    # pairs, the iteration count, the health vector's norm
+    ("guard commits a non-finite step", GUARD,
+     "    def _fit_batch(self, ds: DataSet) -> None:", [
+         ("            if health[2] >= 0.5:\n", "            if True:\n")],
+     "nn/multilayer.py"),
+    ("guard skips every finite step after the first skip", GUARD,
+     "    def _fit_batch(self, ds: DataSet) -> None:", [
+         ("            if health[2] >= 0.5:\n",
+          "            if health[2] >= 0.5 and not self._sentinel.skips:\n")],
+     "nn/multilayer.py"),
+    ("guard: the iteration does not advance on a skip", GUARD,
+     "    def _fit_batch(self, ds: DataSet) -> None:", [
+         ("        self.iteration += 1\n",
+          "        self.iteration += 1 if health is None or health[2] >= 0.5 "
+          "else 0\n")],
+     "nn/multilayer.py"),
+    ("guard: the gradient norm leaves out the first layer", GUARD,
+     "    def _health(loss, grads) -> torch.Tensor:", [
+         ("        for g in grads:\n", "        for g in grads[1:]:\n")],
+     "nn/multilayer.py"),
 ]
 
 
@@ -595,12 +627,15 @@ def mutate(src: str, anchor: str, edits) -> str:
 
 def make_copy(root: str, mutation) -> str:
     """A copy of the package under `root`, with `mutation` planted (in
-    `csrc/<family>.cu`, or in the file its fifth item names)."""
+    `csrc/<family>.cu`, or in the file its fifth item names: a CUDA
+    source under `csrc/`, or a Python module by its path in the
+    package)."""
     shutil.copytree(os.path.join(REPO, PKG), os.path.join(root, PKG),
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     if mutation is not None:
         name = mutation[4] if len(mutation) > 4 else mutation[1] + ".cu"
-        path = os.path.join(root, PKG, "csrc", name)
+        path = os.path.join(root, PKG, name) if name.endswith(".py") \
+            else os.path.join(root, PKG, "csrc", name)
         with open(path) as f:
             src = f.read()
         with open(path, "w") as f:
@@ -608,9 +643,12 @@ def make_copy(root: str, mutation) -> str:
     return root
 
 
-def families(mutation):
-    """The kernel families a copy builds and checks."""
-    return (FLASH, PAGED, LSTM) if mutation is None else (mutation[1],)
+def families(mutation, selected):
+    """The families a copy checks: a fault's own, or for the unchanged
+    copy those of the selected faults."""
+    if mutation is not None:
+        return (mutation[1],)
+    return tuple(sorted({m[1] for m in selected}))
 
 
 def child_cmd(root: str, what: str, sources):
@@ -620,9 +658,12 @@ def child_cmd(root: str, what: str, sources):
 
 
 def build(sources) -> None:
+    """Build the CUDA sources the families need (the guard runs on the
+    LSTM kernels)."""
     from deeplearning4j_tpu_torch.ops import cuda_build
 
-    cuda_build.build(sources)
+    cuda_build.build(tuple(sorted({LSTM if s == GUARD else s
+                                   for s in sources})))
 
 
 def check(sources) -> None:
@@ -639,6 +680,8 @@ def check(sources) -> None:
         cases += paged_cases(torch)
     if LSTM in sources:
         cases += lstm_cases(torch)
+    if GUARD in sources:
+        cases += guard_cases(torch)
     print(json.dumps({"package": fa.__file__, "cases": cases}), flush=True)
 
 
@@ -654,6 +697,22 @@ def paged_cases(torch):
         cases.append({"case": f"paged {name} {str(kw['dtype'])[6:]}",
                       "units": {"out": units}, "old_units": None})
     return cases
+
+
+def guard_cases(torch):
+    """`chip_smoke.py`'s phase 20 (path 4e) on the copy: passes, or its
+    failed check counts as infinite."""
+    import chip_smoke as cs
+
+    try:
+        cs.phase_lstm_4e(torch, cs.port_modules(), cs.nvidia_smi_line(),
+                         float("nan"))
+        units = 0.0
+    except AssertionError as e:  # the check's verdict on this copy
+        log(f"phase 20 failed: {str(e)[:300]}")
+        units = float("inf")
+    return [{"case": "path 4e (chip_smoke phase 20)",
+             "units": {"phase 20": units}, "old_units": None}]
 
 
 def lstm_cases(torch):
@@ -772,14 +831,14 @@ def main() -> int:
         print("chip_fault_check: no CUDA device available", file=sys.stderr)
         return 2
     only = sys.argv[1:]
-    runs = [("unchanged", None)] + [
-        (m[0], m) for m in MUTATIONS
-        if not only or any(word in m[0] for word in only)]
+    selected = [m for m in MUTATIONS
+                if not only or any(word in m[0] for word in only)]
+    runs = [("unchanged", None)] + [(m[0], m) for m in selected]
     base = tempfile.mkdtemp(prefix="kernel_fault_")
     try:
         roots = [make_copy(os.path.join(base, str(i)), m)
                  for i, (_, m) in enumerate(runs)]
-        builds = [subprocess.Popen(child_cmd(r, "build", families(m)), cwd=r,
+        builds = [subprocess.Popen(child_cmd(r, "build", families(m, selected)), cwd=r,
                                    stdout=subprocess.PIPE,
                                    stderr=subprocess.STDOUT, text=True)
                   for r, (_, m) in zip(roots, runs)]
@@ -789,7 +848,7 @@ def main() -> int:
                 raise RuntimeError(f"build of '{name}' failed:\n{out}")
         results = []
         for (name, m), root in zip(runs, roots):
-            p = subprocess.run(child_cmd(root, "check", families(m)), cwd=root,
+            p = subprocess.run(child_cmd(root, "check", families(m, selected)), cwd=root,
                                capture_output=True, text=True, timeout=600)
             if p.returncode != 0:
                 log(f"{name}: the check process failed (exit "

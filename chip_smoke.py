@@ -252,7 +252,32 @@ Phases, each of which makes the script exit non-zero when it fails:
    bfloat16`: 2 launches without the stash on "cooperative"), finite
    (B, T, vocab) probabilities; one more fit under
    torch.profiler (idle share, top kernels). It runs after phase 18, and
-   its launch counts go into phase 17's rows at its window.
+   its launch counts go into phase 17's rows at its window;
+20. train (path 4e): the `lstm_large` network of phase 13 (bf16 compute
+   over f32 masters, RMSPROP lr 0.1) through the training loop a
+   Deeplearning4j user writes, fed f32 one-hot rows (B=2048 x T=64, as
+   GravesLSTMCharModellingExample's CharacterIterator yields them):
+   seeded DataSets merged, shuffled and split (`LSTM_4E`: 4 fit batches,
+   1 for the step pairs, 1 held out); `fit(AsyncDataSetIterator(...))`
+   with a `HealthSentinel`, `ScoreIterationListener`,
+   `PerformanceListener` and `CheckpointListener(every 2, keep_last=2)`,
+   one NaN in one row of the third batch: that step skipped (one skip,
+   parameters and RMSPROP state bit-identical to before it, the
+   iteration advanced), every other score finite; counts set to 0 before
+   and read after: 2 + 2 launches a step on "bf16 clusters", no plain
+   call; `evaluate` of the held-out batch (2 forwards without the stash
+   on "tf32 clusters": `output` runs the f32 masters), its confusion
+   matrix equal to numpy's from the card's `output` and totalling B*T;
+   the newest verified checkpoint restored with `restore_model` (params
+   and RMSPROP state equal to that step's, the same confusion matrix);
+   3 guarded steps each bit-identical to an unguarded step of a clone
+   from the same state on the same batch (both timed); the guard's
+   health vector against `torch.linalg.vector_norm` (1e-4 relative) and
+   on gradients of known values (exact norm, a NaN in the first layer
+   caught); checkpoint save time; a traced guarded step; then a second
+   `lstm_large` with `optimization_algo=LBFGS` fits one batch for 3
+   iterations: its score falls and stays finite, every launch on "bf16
+   clusters". Its launch counts go into phase 17's rows at its shape.
 
 Prints one JSON line of per-kernel numbers, then the card's
 `nvidia-smi` line, then as the last line
@@ -2154,14 +2179,17 @@ def phase_lstm_autograd(torch, L):
 
 
 def char_rnn_conf(M, vocab, hidden, seed=1, tbptt=0, bidirectional=False,
-                  lr=0.1):
+                  lr=0.1, algo=None, iterations=1):
     """bench.py's char-RNN (`_lstm_train_bench`, bench.py:311-320):
     GravesLSTM -> GravesLSTM -> RnnOutputLayer(MCXENT, softmax), RMSPROP
-    lr 0.1."""
+    lr 0.1; `algo` a line-search optimization algorithm instead of SGD,
+    `iterations` its iterations a batch."""
     C, A, LF = M["conf"], M["Activation"], M["LossFunction"]
     first = C.GravesBidirectionalLSTM if bidirectional else C.GravesLSTM
-    b = (C.NeuralNetConfiguration.Builder().seed(seed).learning_rate(lr)
-         .updater("rmsprop").list()
+    b = C.NeuralNetConfiguration.Builder().seed(seed).learning_rate(lr)
+    if algo is not None:
+        b = b.optimization_algo(algo).iterations(iterations)
+    b = (b.updater("rmsprop").list()
          .layer(first(n_in=vocab, n_out=hidden, activation=A.TANH))
          .layer(C.GravesLSTM(n_out=hidden, activation=A.TANH))
          .layer(C.RnnOutputLayer(n_out=vocab, loss=LF.MCXENT,
@@ -2428,7 +2456,7 @@ def phase_lstm_train(torch, M, card, compute_dtype=None, steps=LSTM_STEPS,
                              f"call, got {launches} ({routes}), {plain}")
     del net
     torch.cuda.empty_cache()
-    return launches
+    return launches, med
 
 
 def phase_lstm_tbptt(torch, M, card):
@@ -2636,7 +2664,8 @@ def phase_lstm_timing(torch, L, counts4, counts4b, counts4f):
     bound by its three TF32 passes (3 x flops / 495 TFLOP/s) or its
     bytes; the f32-FMA bound (flops / 67 TFLOP/s) is logged beside it.
     Every row's outputs are held to the plain versions first, as in phase
-    11 (`lstm.error_in_tolerances`)."""
+    11 (`lstm.error_in_tolerances`). Path 4e's launch counts are added to
+    the rows at its shape by `lstm_4e_launches` once phase 20 has run."""
     shapes = [(64, 2048, 1024, False, counts4, torch.bfloat16),
               (LSTM_SMALL["tbptt"], 8192, 256, False, counts4b,
                torch.bfloat16),
@@ -2788,6 +2817,348 @@ def lstm_4s_launches(rows, counts) -> None:
                 row["launches"] = int(counts[run].get((key, False, False), 0))
 
 
+# path 4e: lstm_large through the Deeplearning4j training loop, fed f32
+# one-hot rows as GravesLSTMCharModellingExample's CharacterIterator yields
+# them: 6 batches, 4 fit steps (the third batch poisoned), 1 for the
+# guarded / unguarded step pairs, 1 held out for evaluate
+LSTM_4E = dict(vocab=256, hidden=1024, B=2048, T=64, batches=6, seed=20)
+LSTM_4E_POISONED = 2   # index of the fit batch that carries a NaN
+LSTM_4E_PAIRS = 3      # guarded / unguarded step pairs from equal states
+LSTM_4E_LBFGS = 3      # LBFGS iterations on one batch
+
+
+class StepRecorder:
+    """An iteration listener: the score at every iteration and copies of
+    the parameters and the optimizer state at the iterations asked for."""
+
+    def __init__(self, snap_at):
+        self.snap_at = set(snap_at)
+        self.scores, self.snaps = [], {}
+
+    def iteration_done(self, model, iteration):
+        self.scores.append(model.score_value)
+        if iteration in self.snap_at:
+            self.snaps[iteration] = train_state(model, copy=True)
+
+
+def train_state(net, copy=False):
+    """(parameters, optimizer state) of a network, cloned with `copy`."""
+    c = (lambda t: t.clone()) if copy else (lambda t: t)
+    return ([{k: c(v) for k, v in p.items()} for p in net._params],
+            [{k: {sk: c(t) for sk, t in st.items()} for k, st in u.items()}
+             for u in net.get_updater_state()])
+
+
+def same_state(torch, a, b) -> bool:
+    """Bit-identical parameters and optimizer state."""
+    (pa, ua), (pb, ub) = a, b
+    return (all(torch.equal(x[k], y[k]) for x, y in zip(pa, pb) for k in x)
+            and all(torch.equal(x[k][sk], y[k][sk])
+                    for x, y in zip(ua, ub) for k in x for sk in x[k]))
+
+
+def launch_counts(L):
+    return (dict(L.launches), dict(L.launches_by_route),
+            (L.lstm_fwd_plain.calls, L.lstm_bwd_plain.calls))
+
+
+def lstm_4e_data(np, DataSet):
+    """Path 4e's batches: seeded ids as f32 one-hot DataSets, merged,
+    shuffled and split (`DataSet.merge`, `shuffle`,
+    `split_test_and_train`, `batch_by`): (fit batches, the pairs' batch,
+    the held-out batch); one row of one fit batch carries a NaN."""
+    V, B, T, n, seed = (LSTM_4E[k] for k in ("vocab", "B", "T", "batches",
+                                             "seed"))
+    ids = np.random.default_rng(seed).integers(0, V, (n * B, T + 1))
+    eye = np.eye(V, dtype=np.float32)
+    data = DataSet.merge([DataSet(eye[ids[i * B:(i + 1) * B, :-1]],
+                                  ids[i * B:(i + 1) * B, 1:].astype(np.int32))
+                          for i in range(n)])
+    data.shuffle(seed)
+    train, held = data.split_test_and_train((n - 1) * B)
+    batches = train.batch_by(B)
+    bad = batches[LSTM_4E_POISONED]
+    bad.features = bad.features.copy()
+    bad.features[7, 11, 3] = np.nan
+    return batches[:-1], batches[-1], held
+
+
+def phase_lstm_4e(torch, M, card, step4_ms):
+    """Path 4e: bench.py's lstm_large at full width (bf16 compute over f32
+    masters, RMSPROP) through the training loop a Deeplearning4j user
+    writes: `fit(AsyncDataSetIterator(ListDataSetIterator(batches)))` with
+    a `HealthSentinel` and `ScoreIterationListener`, `PerformanceListener`
+    and `CheckpointListener(every 2, keep_last=2)` attached, one NaN in one
+    row of the third batch; then `evaluate` on the held-out batch, the
+    newest verified checkpoint restored with `restore_model`, guarded
+    against unguarded steps, and LBFGS on a second network. Raises on any
+    failed check; returns the launch counts of the fit, evaluate and the
+    solver."""
+    import tempfile
+
+    import numpy as np
+
+    L = M["lstm"]
+    V, H, B, T = (LSTM_4E[k] for k in ("vocab", "hidden", "B", "T"))
+    fit_batches, spare, held = lstm_4e_data(np, M["DataSet"])
+    bad_it = LSTM_4E_POISONED + 1
+    net = M["MultiLayerNetwork"](char_rnn_conf(M, V, H, seed=1),
+                                 dtype=torch.float32,
+                                 compute_dtype=torch.bfloat16, device="cuda")
+    net.init()
+    sentinel = M["HealthSentinel"]()
+    net.set_health_sentinel(sentinel)
+    tmp = tempfile.mkdtemp(prefix="path4e_")
+    try:
+        ckpt_dir = os.path.join(tmp, "ckpt")
+        rec = StepRecorder((bad_it - 1, bad_it, len(fit_batches)))
+        perf = M["PerformanceListener"](1)
+        net.set_listeners(M["ScoreIterationListener"](1), perf,
+                          M["CheckpointListener"](ckpt_dir,
+                                                  every_n_iterations=2,
+                                                  keep_last=2), rec)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        L.reset_counts()
+        t0 = time.perf_counter()
+        net.fit(M["AsyncDataSetIterator"](
+            M["ListDataSetIterator"](fit_batches), queue_size=2))
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        fit = launch_counts(L)
+        counters = sentinel.counters()
+        skipped = same_state(torch, rec.snaps[bad_it - 1], rec.snaps[bad_it])
+        log(f"  fit of {len(fit_batches)} batches of B={B} x T={T} (f32 "
+            f"one-hot rows, vocab {V}, H={H}, bf16 compute) with the "
+            f"sentinel and three listeners: {1e3 * fit_s:.2f} ms (two "
+            f"checkpoint saves included); scores {rec.scores}; sentinel "
+            f"{counters}; the poisoned step (iteration {bad_it}) left "
+            f"params and RMSPROP state bit-identical: {skipped}; "
+            f"PerformanceListener {perf.last_samples_per_sec:.1f} samples/s "
+            f"[{card}]")
+        log(f"  LSTM launches over the fit {fit[0]}, by route {fit[1]}, "
+            f"plain calls {fit[2]}")
+        n = 2 * len(fit_batches)
+        want = ({("fwd", False, False): n, ("bwd", False, False): n},
+                {("fwd", "bf16 clusters"): n, ("bwd", "bf16 clusters"): n},
+                (0, 0))
+        finite = [np.isfinite(v) for v in rec.scores]
+        if (fit != want or not skipped or net.iteration != len(fit_batches)
+                or counters["skips"] != 1
+                or counters["steps"] != len(fit_batches)
+                or finite != [i + 1 != bad_it for i in range(len(finite))]):
+            raise AssertionError(
+                f"path 4e fit: expected launches {want}, one skip at "
+                f"iteration {bad_it} that leaves the state bit-identical, "
+                f"iteration {len(fit_batches)} and every other score "
+                f"finite; got {fit}, skipped state equal {skipped}, "
+                f"iteration {net.iteration}, {counters}, {rec.scores}")
+
+        L.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev = net.evaluate(held)
+        eval_s = time.perf_counter() - t0
+        ev_counts = launch_counts(L)
+        out = net.output(held.features)
+        again = net.output(held.features)
+        d2h = out.numel() * out.element_size()
+        pred = out.float().cpu().numpy().argmax(-1)
+        cm = np.zeros((V, V), np.int64)
+        np.add.at(cm, (held.labels.reshape(-1), pred.reshape(-1)), 1)
+        reruns_equal = torch.equal(out, again)
+        del out, again
+        log(f"  evaluate of the held-out batch: {1e3 * eval_s:.2f} ms wall, "
+            f"{d2h} bytes device-to-host (the (B, T, vocab) f32 output), "
+            f"accuracy {ev.accuracy():.6f}, confusion total "
+            f"{int(ev.confusion_matrix.sum())}; launches {ev_counts[0]}, by "
+            f"route {ev_counts[1]}, plain calls {ev_counts[2]}; two outputs "
+            f"bit-identical: {reruns_equal}")
+        want_ev = ({("fwd", False, False): 2}, {("fwd", "tf32 clusters"): 2},
+                   (0, 0))
+        if (not np.array_equal(ev.confusion_matrix, cm)
+                or int(cm.sum()) != B * T or ev_counts != want_ev):
+            raise AssertionError(
+                f"path 4e evaluate: the confusion matrix must equal numpy's "
+                f"from the card's output (total {B * T}) with launches "
+                f"{want_ev}; equal {np.array_equal(ev.confusion_matrix, cm)}"
+                f", total {int(cm.sum())}, launches {ev_counts}")
+
+        store = M["CheckpointStore"](ckpt_dir, keep_last=2)
+        t0 = time.perf_counter()
+        back, step = store.load_latest_verified(
+            lambda p: M["restore_model"](p, device="cuda"))
+        restore_s = time.perf_counter() - t0
+        restored = same_state(torch, rec.snaps[step], train_state(back))
+        ev_back = back.evaluate(held)
+        log(f"  restore_model of the newest verified checkpoint (steps "
+            f"{store.steps()}): step {step} in {1e3 * restore_s:.2f} ms, "
+            f"params and RMSPROP state equal to that step's: {restored}; "
+            f"its evaluate gives the same confusion matrix: "
+            f"{np.array_equal(ev_back.confusion_matrix, ev.confusion_matrix)}")
+        if (step != len(fit_batches) or store.steps() != [2, 4]
+                or not restored or back.iteration != step
+                or not np.array_equal(ev_back.confusion_matrix,
+                                      ev.confusion_matrix)):
+            raise AssertionError(
+                f"path 4e restore: step {step} of {store.steps()}, state "
+                f"equal {restored}, iteration {back.iteration}")
+        del back
+
+        net.set_listeners()
+        pairs, ms = [], {"guarded": [], "unguarded": []}
+        L.reset_counts()
+        for i in range(LSTM_4E_PAIRS):
+            ref = net.clone()  # no sentinel: the unguarded step
+            runs = [("unguarded", ref), ("guarded", net)]
+            for what, model in (runs if i % 2 == 0 else runs[::-1]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model.fit(spare)
+                torch.cuda.synchronize()
+                ms[what].append(1e3 * (time.perf_counter() - t0))
+            pairs.append(same_state(torch, train_state(ref),
+                                    train_state(net)))
+            del ref
+        pair_counts = launch_counts(L)
+        med = {k: sorted(v)[len(v) // 2] for k, v in ms.items()}
+        h2d = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            f, lab, fm, lm = net._batch_arrays(spare)
+            torch.cuda.synchronize()
+            h2d.append(1e3 * (time.perf_counter() - t0))
+        h2d_bytes = spare.features.nbytes + spare.labels.nbytes
+        loss, grads, _ = net._loss_and_grads(f, lab, fm, lm)
+        health = net._health(loss, grads).cpu().numpy()
+        norm = float(torch.linalg.vector_norm(torch.cat(
+            [g[k].reshape(-1) for g in grads for k in sorted(g)])))
+        # gradients of known values at the step's shapes: every leaf 0.5
+        # (the norm is exact), then one NaN in the first layer's
+        probe = [{k: torch.full_like(v, 0.5) for k, v in g.items()}
+                 for g in grads]
+        n_el = sum(v.numel() for g in probe for v in g.values())
+        even = net._health(loss, probe).cpu().numpy()
+        probe[0][sorted(probe[0])[0]].view(-1)[0] = float("nan")
+        poisoned = net._health(loss, probe).cpu().numpy()
+        del probe
+        guard_ms = time_ms(torch, lambda: net._health(loss, grads).cpu())
+        guard_host = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            net._health(loss, grads).cpu()
+            guard_host.append(1e3 * (time.perf_counter() - t0))
+        guard_host = sorted(guard_host)[5]
+        del f, lab, loss, grads
+        log(f"  guarded step (commit) vs unguarded step from the same state "
+            f"on the same batch, {LSTM_4E_PAIRS} pairs in turns: "
+            f"bit-identical {pairs}; guarded ms {ms['guarded']}, median "
+            f"{med['guarded']:.2f} = {B / med['guarded'] * 1e3:.1f} "
+            f"samples/s; unguarded ms {ms['unguarded']}, median "
+            f"{med['unguarded']:.2f}; phase 13's path 4 step (uint8 ids "
+            f"through the OneHotEncoder) {step4_ms:.2f} ms; launches "
+            f"{pair_counts[0]} [{card}]")
+        log(f"  the batch's host-to-device transfer (`_batch_arrays`: "
+            f"{h2d_bytes} bytes of f32 one-hot rows and int32 labels from "
+            f"pageable memory): {[round(t, 2) for t in h2d]} ms")
+        log(f"  the guard alone (the global norm, the (loss, grad_norm, ok) "
+            f"vector and its one device-to-host read): device "
+            f"{guard_ms:.4f} ms, host wall {guard_host:.4f} ms; grad_norm "
+            f"{health[1]!r} against torch.linalg.vector_norm {norm!r}")
+        log(f"  the guard on gradients of 0.5: {even!r} (norm "
+            f"{0.5 * math.sqrt(n_el)!r}); with one NaN in the first layer's: "
+            f"{poisoned!r}")
+        if (not all(pairs) or health[2] != 1.0
+                or abs(health[1] - norm) > 1e-4 * norm
+                or abs(even[1] - 0.5 * math.sqrt(n_el)) > 1e-6 * even[1]
+                or even[2] != 1.0 or poisoned[2] != 0.0):
+            raise AssertionError(
+                f"path 4e guard: committed guarded steps must equal "
+                f"unguarded ones bit for bit ({pairs}), the health vector "
+                f"must hold the gradient norm ({health} vs {norm}; "
+                f"{even} vs {0.5 * math.sqrt(n_el)}) and see a NaN in any "
+                f"layer ({poisoned})")
+
+        timed = M["CheckpointStore"](os.path.join(tmp, "timed"), keep_last=1)
+        save_ms = []
+        for i in range(2):
+            t0 = time.perf_counter()
+            path = timed.save(i, lambda p: M["write_model"](net, p,
+                                                            atomic=False))
+            save_ms.append(1e3 * (time.perf_counter() - t0))
+        n_state = sum(t.numel() * t.element_size() for t in
+                      [v for p in net._params for v in p.values()]
+                      + [t for u in net.get_updater_state()
+                         for st in u.values() for t in st.values()])
+        log(f"  checkpoint save (CheckpointStore.save of write_model: zip, "
+            f"fsync, manifest): {[round(t, 2) for t in save_ms]} ms for "
+            f"{n_state} bytes of params and RMSPROP state, "
+            f"{os.path.getsize(path)} bytes on disk")
+        trace = traced(torch, lambda: net.fit(spare))
+        peak = torch.cuda.max_memory_allocated()
+        log(f"  traced guarded step (torch.profiler): {trace}")
+        log(f"  peak device memory over fit, evaluate, restore and the "
+            f"pairs {peak / 2**30:.2f} GiB ({peak} bytes)")
+        del net
+        torch.cuda.empty_cache()
+
+        snet = M["MultiLayerNetwork"](
+            char_rnn_conf(M, V, H, seed=1, algo="lbfgs",
+                          iterations=LSTM_4E_LBFGS),
+            dtype=torch.float32, compute_dtype=torch.bfloat16, device="cuda")
+        snet.init()
+        first = snet.score(fit_batches[0])
+        torch.cuda.reset_peak_memory_stats()
+        L.reset_counts()
+        t0 = time.perf_counter()
+        snet.fit(fit_batches[0])
+        torch.cuda.synchronize()
+        lbfgs_s = time.perf_counter() - t0
+        solver = launch_counts(L)
+        last = snet.score_value
+        speak = torch.cuda.max_memory_allocated()
+        log(f"  LBFGS, {LSTM_4E_LBFGS} iterations on one batch: score "
+            f"{first!r} -> {last!r}, {1e3 * lbfgs_s / LSTM_4E_LBFGS:.2f} ms "
+            f"an iteration ({1e3 * lbfgs_s:.2f} ms), peak device memory "
+            f"{speak / 2**30:.2f} GiB; launches {solver[0]}, by route "
+            f"{solver[1]}, plain calls {solver[2]}")
+        fwd = solver[0].get(("fwd", False, False), 0)
+        bwd = solver[0].get(("bwd", False, False), 0)
+        if (not np.isfinite(last) or not last < first or bwd < 2
+                or fwd <= bwd or set(solver[0]) != {("fwd", False, False),
+                                                    ("bwd", False, False)}
+                or solver[1] != {("fwd", "bf16 clusters"): fwd,
+                                 ("bwd", "bf16 clusters"): bwd}
+                or any(solver[2])):
+            raise AssertionError(
+                f"path 4e LBFGS: the score must fall and stay finite "
+                f"({first} -> {last}), with value-and-gradient and "
+                f"value-only launches on \"bf16 clusters\" and no plain "
+                f"call: {solver}")
+        del snet
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"fit": fit[0], "evaluate": ev_counts[0], "solver": solver[0]}
+
+
+def lstm_4e_launches(rows, counts) -> None:
+    """Path 4e's launch counts added into the timing rows at its shape
+    (T=64, B=2048, H=1024): the fit's and the solver's into the bf16 rows
+    (the solver's value-only calls are forwards without the stash), and
+    evaluate's into the f32 forward row (`output` runs the f32 masters)."""
+    for name, key, runs in (
+            ("lstm_fwd_t64_b2048_h1024", "fwd", ("fit", "solver")),
+            ("lstm_bwd_t64_b2048_h1024", "bwd", ("fit", "solver")),
+            ("lstm_fwd_f32_t64_b2048_h1024", "fwd", ("evaluate",))):
+        for row in rows:
+            if row["name"] == name:
+                row["launches"] += sum(int(counts[r].get((key, False, False),
+                                                         0)) for r in runs)
+
+
 def lstm_mma_note(key, kind) -> str:
     """The replaced mma.sync kernel's time at a cooperative row's shape,
     where PERF.md has it."""
@@ -2809,6 +3180,53 @@ def lstm_timing_alone(torch, L, cuda_build) -> int:
     return 0
 
 
+def port_modules() -> dict:
+    """The port's entry points the phases drive, by name."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterators import (
+        AsyncDataSetIterator,
+        ListDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.datasets.normalizers import OneHotEncoder
+    from deeplearning4j_tpu_torch.models.transformer import (
+        generate,
+        gpt_configuration,
+    )
+    from deeplearning4j_tpu_torch.nn import conf as nn_conf
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.ops import lstm as L
+    from deeplearning4j_tpu_torch.ops.activations import Activation
+    from deeplearning4j_tpu_torch.ops.losses import LossFunction
+    from deeplearning4j_tpu_torch.optimize.health import HealthSentinel
+    from deeplearning4j_tpu_torch.optimize.listeners import (
+        CheckpointListener,
+        PerformanceListener,
+        ScoreIterationListener,
+    )
+    from deeplearning4j_tpu_torch.serving.decode_engine import DecodeEngine
+    from deeplearning4j_tpu_torch.util.checkpoint_store import (
+        CheckpointStore,
+    )
+    from deeplearning4j_tpu_torch.util.serialization import (
+        restore_model,
+        write_model,
+    )
+
+    return dict(generate=generate, gpt_configuration=gpt_configuration,
+                MultiLayerNetwork=MultiLayerNetwork, DecodeEngine=DecodeEngine,
+                DataSet=DataSet, fa=fa, lstm=L, conf=nn_conf,
+                OneHotEncoder=OneHotEncoder, Activation=Activation,
+                LossFunction=LossFunction, HealthSentinel=HealthSentinel,
+                AsyncDataSetIterator=AsyncDataSetIterator,
+                ListDataSetIterator=ListDataSetIterator,
+                ScoreIterationListener=ScoreIterationListener,
+                PerformanceListener=PerformanceListener,
+                CheckpointListener=CheckpointListener,
+                CheckpointStore=CheckpointStore, restore_model=restore_model,
+                write_model=write_model)
+
+
 def main(argv) -> int:
     """No arguments: every phase. `--lstm-timing [--package DIR]`: phase
     17 alone on the package at DIR (default: the checkout's), for an A/B
@@ -2823,27 +3241,12 @@ def main(argv) -> int:
         root = os.path.dirname(os.path.abspath(
             argv[argv.index("--package") + 1].rstrip("/")))
     sys.path.insert(0, root)
-    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
-    from deeplearning4j_tpu_torch.datasets.normalizers import OneHotEncoder
-    from deeplearning4j_tpu_torch.models.transformer import (
-        generate,
-        gpt_configuration,
-    )
-    from deeplearning4j_tpu_torch.nn import conf as nn_conf
-    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
     from deeplearning4j_tpu_torch.ops import cuda_build
-    from deeplearning4j_tpu_torch.ops import lstm as L
-    from deeplearning4j_tpu_torch.ops.activations import Activation
-    from deeplearning4j_tpu_torch.ops.losses import LossFunction
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
     from deeplearning4j_tpu_torch.ops import paged_attention as pa
-    from deeplearning4j_tpu_torch.serving.decode_engine import DecodeEngine
 
-    M = dict(generate=generate, gpt_configuration=gpt_configuration,
-             MultiLayerNetwork=MultiLayerNetwork, DecodeEngine=DecodeEngine,
-             DataSet=DataSet, fa=fa, lstm=L, conf=nn_conf,
-             OneHotEncoder=OneHotEncoder, Activation=Activation,
-             LossFunction=LossFunction)
+    M = port_modules()
+    L = M["lstm"]
     if not L.__file__.startswith(root + os.sep):
         raise RuntimeError(f"imported {L.__file__}, not the package in "
                            f"{root}")
@@ -2854,77 +3257,81 @@ def main(argv) -> int:
         return lstm_timing_alone(torch, L, cuda_build)
 
     card = nvidia_smi_line()
-    log(f"[1/19] card: {card}; {torch.cuda.get_device_name(0)}; torch "
+    log(f"[1/20] card: {card}; {torch.cuda.get_device_name(0)}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}; "
         f"{torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     built = cuda_build.build(KERNEL_SOURCES)
-    log(f"[2/19] build: {time.perf_counter() - t0:.1f} s for "
+    log(f"[2/20] build: {time.perf_counter() - t0:.1f} s for "
         f"{len(built)} source(s)")
     for name, res in built.items():
         for line in ptxas_summary(res.log):
             log(f"  {name}: {line}")
 
-    log("[3/19] paged kernels against their plain versions (TF32 off)")
+    log("[3/20] paged kernels against their plain versions (TF32 off)")
     phase_kernels(torch, pa)
-    log("[4/19] flash kernels against their plain versions (TF32 off)")
+    log("[4/20] flash kernels against their plain versions (TF32 off)")
     phase_flash(torch, fa)
-    log("[5/19] f32 DecodeEngine vs generate, 2 layers, d_model 1024")
+    log("[5/20] f32 DecodeEngine vs generate, 2 layers, d_model 1024")
     phase_parity(torch, M)
-    log("[6/19] f32 training, card (kernels) vs CPU (plain), 1 layer, "
+    log("[6/20] f32 training, card (kernels) vs CPU (plain), 1 layer, "
         "d_model 1024, T=1024")
     phase_train_parity(torch, M)
-    log("[7/19] serving the 8-layer bf16 GPT at full width")
+    log("[7/20] serving the 8-layer bf16 GPT at full width")
     launches = phase_serve(torch, M, pa, card)
-    log("[8/19] serving it with int8 KV, the prefix cache and "
+    log("[8/20] serving it with int8 KV, the prefix cache and "
         "self-speculation on shared-prefix traffic")
     launches.update(phase_serve_tier(torch, M, pa, card))
-    log("[9/19] training the 8-layer bf16 gpt_long GPT at full width")
+    log("[9/20] training the 8-layer bf16 gpt_long GPT at full width")
     flash_counts = phase_train(torch, M, card, torch.bfloat16, TRAIN_B,
                                TRAIN_STEPS, 13, "wgmma")
-    log("[9/19] path 2w: the same GPT with 4 heads of 256 (the bf16 "
+    log("[9/20] path 2w: the same GPT with 4 heads of 256 (the bf16 "
         "\"wgmma wide\" flash kernels)")
     flash_counts_wide = phase_train(torch, M, card, torch.bfloat16,
                                     TRAIN_WIDE_B, TRAIN_WIDE_STEPS, 15,
                                     "wgmma wide", n_heads=TRAIN_WIDE_HEADS)
-    log("[9/19] path 2x: the same GPT with 2 heads of 512 (the bf16 "
+    log("[9/20] path 2x: the same GPT with 2 heads of 512 (the bf16 "
         "\"wgmma wide\" forward, the \"wgmma cluster\" backward)")
     flash_counts_2x = phase_train(torch, M, card, torch.bfloat16,
                                   TRAIN_2X_B, TRAIN_2X_STEPS, 16,
                                   TRAIN_2X_ROUTES, n_heads=TRAIN_2X_HEADS)
-    log("[10/19] path 2f: training the 8-layer gpt_long GPT in f32 "
+    log("[10/20] path 2f: training the 8-layer gpt_long GPT in f32 "
         "(split-TF32 flash kernels)")
     flash_counts_f32 = phase_train(torch, M, card, None, TRAIN_F32_B,
                                    TRAIN_F32_STEPS, 14, "tf32")
-    log("[11/19] LSTM kernels against their plain versions (TF32 off)")
+    log("[11/20] LSTM kernels against their plain versions (TF32 off)")
     phase_lstm_kernels(torch, L, M)
-    log("[12/19] f32 char-RNN training, card (kernels) vs CPU (plain), "
+    log("[12/20] f32 char-RNN training, card (kernels) vs CPU (plain), "
         "H=256")
     phase_lstm_train_parity(torch, M)
-    log("[13/19] training the bf16 lstm_large char-RNN at full width")
-    lstm_counts = phase_lstm_train(torch, M, card, torch.bfloat16)
-    log("[14/19] training the bf16 lstm char-RNN with tBPTT 24 at full width")
+    log("[13/20] training the bf16 lstm_large char-RNN at full width")
+    lstm_counts, step4_ms = phase_lstm_train(torch, M, card, torch.bfloat16)
+    log("[14/20] training the bf16 lstm char-RNN with tBPTT 24 at full width")
     tbptt_counts = phase_lstm_tbptt(torch, M, card)
-    log("[15/19] path 4f: training the lstm_large char-RNN in f32 "
+    log("[15/20] path 4f: training the lstm_large char-RNN in f32 "
         "(split-TF32 LSTM kernels)")
-    f32_counts = phase_lstm_train(torch, M, card, None, LSTM_F32_STEPS,
-                                  "tf32 clusters", seed=2)
-    log("[16/19] timing at the serving and training shapes (bf16 and f32)")
+    f32_counts, _ = phase_lstm_train(torch, M, card, None, LSTM_F32_STEPS,
+                                     "tf32 clusters", seed=2)
+    log("[16/20] timing at the serving and training shapes (bf16 and f32)")
     rows = phase_timing(torch, pa, launches)
     rows += phase_flash_timing(torch, fa, flash_counts, flash_counts_f32,
                                flash_counts_wide, flash_counts_2x)
-    log("[17/19] timing the LSTM kernels at the char-RNN shapes (bf16 and "
+    log("[17/20] timing the LSTM kernels at the char-RNN shapes (bf16 and "
         "f32)")
     rows += phase_lstm_timing(torch, L, lstm_counts, tbptt_counts,
                               f32_counts)
-    log(f"[18/19] a GravesLSTM wider than the fused kernels (H={LSTM_WIDE}): "
+    log(f"[18/20] a GravesLSTM wider than the fused kernels (H={LSTM_WIDE}): "
         "the step loop, card vs CPU")
     phase_lstm_wide(torch, M)
-    log("[19/19] path 4s: the bf16 lstm_large char-RNN on "
+    log("[19/20] path 4s: the bf16 lstm_large char-RNN on "
         "GravesLSTMCharModellingExample's mini-batches (B=32 x T=1000, "
         "tBPTT 50)")
     lstm_4s_launches(rows, phase_lstm_4s(torch, M, card))
+    log("[20/20] path 4e: the bf16 lstm_large char-RNN through the training "
+        "loop (async iterator, health sentinel, listeners, checkpoints, "
+        "evaluate, restore, LBFGS)")
+    lstm_4e_launches(rows, phase_lstm_4e(torch, M, card, step4_ms))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -8,17 +8,23 @@ it (layer -> parameter name -> state name -> tensor). The flat view of
 layer order, then sorted dict keys, each tensor in C order; so a flat
 vector or a checkpoint written by the JAX package loads here unchanged.
 
-One training step (`_step_core`) is the JAX package's: the loss of the
-batch under the mixed-precision boundary of `_loss_pure`, its gradients
-by autograd, then every layer's update applied in place to the f32
-master weights under `torch.no_grad()`. PyTorch runs it eagerly; there
-is no jit and no scan.
+One training step is the JAX package's: the loss of the batch under the
+mixed-precision boundary of `_loss_pure`, its gradients by autograd
+(`_loss_and_grads`), then every layer's update applied in place to the
+f32 master weights under `torch.no_grad()` (`_apply_updates`). PyTorch
+runs it eagerly; there is no jit and no scan. With a health sentinel
+attached (`set_health_sentinel`), the step reads one `(loss, grad_norm,
+ok)` vector to the host between the two and applies the updates only
+when loss and gradient norm are finite; the arithmetic of a committed
+step is the unguarded step's. A line-search `optimization_algo` trains
+each batch through `optimize.solvers.Solver` instead.
 
 Layer state (`_layer_state`, one dict per layer) is empty except while
 truncated BPTT carries the recurrent layers' (h, c) from one window to
 the next (`_fit_tbptt`); `rnn_time_step` keeps its own streaming carry
-(`_rnn_state`). An id-consuming normalizer (`OneHotEncoder`) attached
-with `set_normalizer` expands raw ids on the device before layer 0.
+(`_rnn_state`). A normalizer attached with `set_normalizer` runs on the
+device before layer 0: `OneHotEncoder` expands raw ids, the statistics
+normalizers scale features cast to the parameter dtype.
 """
 from __future__ import annotations
 
@@ -77,6 +83,8 @@ class MultiLayerNetwork:
         self._rnn_state: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
         self._rnn_pos = 0
         self._normalizer = None
+        self._sentinel = None
+        self._last_batch: Optional[DataSet] = None
         self.iteration = 0
         self.epoch = 0
         self.listeners: List[Any] = []
@@ -133,14 +141,12 @@ class MultiLayerNetwork:
 
     # --------------------------------------------------------- normalizer
     def set_normalizer(self, normalizer) -> None:
-        """Attach an id-consuming normalizer (`OneHotEncoder`) whose
-        expansion runs on the device before layer 0; None detaches.
-        Other normalizers are not ported."""
+        """Attach a normalizer whose `device_transform` runs on the device
+        before layer 0 (`OneHotEncoder` on raw ids, the statistics
+        normalizers on features cast to the parameter dtype), so batches
+        cross to the device in their compact dtypes; it is also what
+        `write_model(..., normalizer=)` stores. None detaches."""
         if normalizer is not None:
-            if not getattr(normalizer, "consumes_integer_ids", False):
-                raise _not_ported(f"device-side normalizer "
-                                  f"{type(normalizer).__name__}",
-                                  "queue A14: data")
             normalizer.check_device_attachable()
             if self._int_input():
                 raise ValueError(
@@ -165,15 +171,21 @@ class MultiLayerNetwork:
         return "float"
 
     def _prep_features(self, features):
-        """Token ids as they are; ids through the attached normalizer and
-        any other features in the model dtype."""
+        """Token ids as they are; ids through the attached id-consuming
+        normalizer, then in the model dtype; any other features in the
+        model dtype, then through the attached normalizer."""
         mode = self._feature_wire_mode()
         if mode == "sink":
             return features
         if mode == "ids":
             features = self._normalizer.device_transform(features)
-        return features if features.dtype == self.dtype \
-            else features.to(self.dtype)
+            return features if features.dtype == self.dtype \
+                else features.to(self.dtype)
+        if features.dtype != self.dtype:
+            features = features.to(self.dtype)
+        if self._normalizer is not None:
+            features = self._normalizer.device_transform(features)
+        return features
 
     # ------------------------------------------------------------- forward
     def _int_input(self) -> bool:
@@ -269,12 +281,11 @@ class MultiLayerNetwork:
         return loss + regularization_score(zip(self.layers, params_in)), \
             new_state
 
-    def _step_core(self, features, labels, fmask, lmask) -> Tuple[
-            torch.Tensor, List[Dict[str, torch.Tensor]]]:
-        """One training step on one batch: loss, gradients, and every
-        layer's update applied in place; the new layer state (detached:
-        no gradient crosses batches or tBPTT windows) replaces the old.
-        Returns (loss, gradients)."""
+    def _loss_and_grads(self, features, labels, fmask, lmask):
+        """The loss of one batch and its gradients by autograd (a list of
+        per-layer dicts, zeros for unused parameters), at the current
+        parameters; the new layer state, detached (no gradient crosses
+        batches or tBPTT windows). Changes nothing."""
         leaves = [{k: v.detach().requires_grad_(True) for k, v in p.items()}
                   for p in self._params]
         flat = [t for p in leaves for t in p.values()]
@@ -287,13 +298,35 @@ class MultiLayerNetwork:
         for p in leaves:
             grads.append({k: (g if g is not None else torch.zeros_like(v))
                           for (k, v), g in zip(p.items(), it)})
+        new_state = [{k: v.detach() for k, v in st.items()}
+                     for st in new_state]
+        return loss.detach(), grads, new_state
+
+    def _apply_updates(self, grads, new_state) -> None:
+        """Every layer's update applied in place to the parameters and
+        the optimizer state; the new layer state replaces the old."""
         with torch.no_grad():
             for i, layer in enumerate(self.layers):
                 apply_layer_update(layer, self._upd_state[i], self._params[i],
                                    grads[i], self.iteration)
-        self._layer_state = [{k: v.detach() for k, v in st.items()}
-                             for st in new_state]
-        return loss.detach(), grads
+        self._layer_state = new_state
+
+    @staticmethod
+    def _health(loss, grads) -> torch.Tensor:
+        """`[loss, grad_norm, ok]` in f32 on the device: the global
+        gradient norm from each leaf's f32 sum of squares, added leaf by
+        leaf in the JAX package's order (layer order, sorted names); ok is
+        1 when loss and squared norm are both finite (a squared norm that
+        overflows f32 counts as non-finite)."""
+        gsq = None
+        for g in grads:
+            for k in sorted(g):
+                s = torch.sum(torch.square(g[k].float()))
+                gsq = s if gsq is None else gsq + s
+        if gsq is None:
+            gsq = torch.zeros((), dtype=torch.float32, device=loss.device)
+        ok = torch.isfinite(loss) & torch.isfinite(gsq)
+        return torch.stack([loss.float(), torch.sqrt(gsq), ok.float()])
 
     def _batch_arrays(self, ds: DataSet):
         from deeplearning4j_tpu_torch.nn.precision import wire_asarray
@@ -314,54 +347,106 @@ class MultiLayerNetwork:
         """Train on a DataSet, an iterator of DataSets, or (features,
         labels) arrays, for `epochs` passes. `scan_steps` is accepted for
         the JAX package's signature: its batches run one step each, which
-        gives the same results."""
+        gives the same results. A line-search `optimization_algo`
+        (LINE_GRADIENT_DESCENT, CONJUGATE_GRADIENT, LBFGS) runs each batch
+        through `optimize.solvers.Solver`. When an exception leaves the
+        loop, the producer thread of an `AsyncDataSetIterator` being
+        iterated is stopped before it propagates."""
+        from deeplearning4j_tpu_torch.datasets.iterators import (
+            AsyncDataSetIterator,
+        )
+
         self._ensure_init()
-        algo = self.conf.global_conf.optimization_algo
-        if algo != OptimizationAlgorithm.STOCHASTIC_GRADIENT_DESCENT:
-            raise _not_ported(f"line-search solvers ({algo.value})",
-                              "queue A10: optimize/solvers.py")
+        line_search = (self.conf.global_conf.optimization_algo
+                       != OptimizationAlgorithm.STOCHASTIC_GRADIENT_DESCENT)
         tbptt = self.conf.tbptt_fwd_length > 0
         if isinstance(data, (np.ndarray, torch.Tensor)):
             data = DataSet(data, labels)
         iterator = ListDataSetIterator([data]) if isinstance(data, DataSet) \
             else data
-        for _ in range(epochs):
-            for listener in self.listeners:
-                if hasattr(listener, "on_epoch_start"):
-                    listener.on_epoch_start(self)
-            n_batches = 0
-            for ds in iterator:
-                n_batches += 1
-                if tbptt and self._tbptt_applicable(ds):
-                    self._fit_tbptt(ds)
-                else:
-                    self._fit_batch(ds)
-            if n_batches == 0:
-                logger.warning("fit(): iterator produced no batches this "
-                               "epoch")
-            for listener in self.listeners:
-                if hasattr(listener, "on_epoch_end"):
-                    listener.on_epoch_end(self)
-            self.epoch += 1
+        try:
+            for _ in range(epochs):
+                for listener in self.listeners:
+                    if hasattr(listener, "on_epoch_start"):
+                        listener.on_epoch_start(self)
+                n_batches = 0
+                for ds in iterator:
+                    n_batches += 1
+                    if line_search:
+                        self._fit_batch_solver(ds)
+                    elif tbptt and self._tbptt_applicable(ds):
+                        self._fit_tbptt(ds)
+                    else:
+                        self._fit_batch(ds)
+                if n_batches == 0:
+                    logger.warning("fit(): iterator produced no batches "
+                                   "this epoch")
+                for listener in self.listeners:
+                    if hasattr(listener, "on_epoch_end"):
+                        listener.on_epoch_end(self)
+                self.epoch += 1
+        except BaseException:
+            if isinstance(iterator, AsyncDataSetIterator):
+                iterator.close()
+            raise
 
     def _fit_batch(self, ds: DataSet) -> None:
+        """One training step on one batch. With a health sentinel, the
+        step's health vector is read to the host (its one sync) before
+        the updates, which run only when it says finite; the iteration
+        advances either way, and the sentinel's verdict (which may raise)
+        comes before the listeners see the step."""
         self._validate_labels(ds)
         f, l, fm, lm = self._batch_arrays(ds)
-        self._score, _ = self._step_core(f, l, fm, lm)
+        loss, grads, new_state = self._loss_and_grads(f, l, fm, lm)
+        health = None
+        if self._sentinel is None:
+            self._apply_updates(grads, new_state)
+            self._score = loss
+        else:
+            health = self._health(loss, grads).cpu().numpy()
+            if health[2] >= 0.5:
+                self._apply_updates(grads, new_state)
+            self._score = float(health[0])
+        self._last_batch = ds
         self.iteration += 1
+        if health is not None:
+            self._sentinel.observe(self, health)
+        self._notify(ds)
+
+    def _notify(self, ds: DataSet) -> None:
         for listener in self.listeners:
             if hasattr(listener, "record_batch"):
                 listener.record_batch(ds.num_examples())
             listener.iteration_done(self, self.iteration)
+
+    def _fit_batch_solver(self, ds: DataSet) -> None:
+        """One batch through the line-search solver of
+        `optimization_algo` (reference `Solver.java:58-68`); an attached
+        sentinel sees the solver's final score, and a rejected
+        (non-finite) candidate as a skip."""
+        from deeplearning4j_tpu_torch.optimize.solvers import Solver
+
+        self._validate_labels(ds)
+        solver = Solver(self)
+        final = solver.optimize(ds)
+        self._last_batch = ds
+        self.iteration += 1
+        if self._sentinel is not None:
+            self._sentinel.observe_host(
+                self, final, committed=not solver.last_commit_rejected)
+        self._notify(ds)
 
     def _validate_labels(self, ds: DataSet) -> None:
         from deeplearning4j_tpu_torch.datasets.normalizers import (
             OneHotEncoder,
         )
 
+        ranges = getattr(ds, "_value_ranges", {})
         if isinstance(self._normalizer, OneHotEncoder):
             # an out-of-range id must fail here, not on the device
-            self._normalizer.check_ids(ds.features)
+            self._normalizer.check_ids(ds.features,
+                                       value_range=ranges.get("features"))
         if ds.labels is None:
             raise ValueError("fit() requires labels; got DataSet with "
                              "labels=None (pretrain() is not ported)")
@@ -375,7 +460,8 @@ class MultiLayerNetwork:
                 check_sparse_label_range,
             )
 
-            check_sparse_label_range(labels, n_out, mask=ds.labels_mask)
+            check_sparse_label_range(labels, n_out, mask=ds.labels_mask,
+                                     value_range=ranges.get("labels"))
             return
         if n_out and labels.shape[-1] != n_out:
             raise ValueError(
@@ -649,23 +735,39 @@ class MultiLayerNetwork:
         self._rnn_state = {int(i): (as_t(st["h"]), as_t(st["c"]))
                            for i, st in states.items()}
 
-    # --------------------------------------------------------- not ported
+    # ---------------------------------------------------- health sentinel
     def set_health_sentinel(self, sentinel) -> None:
-        raise _not_ported("the training health sentinel",
-                          "queue A10: optimize/health.py")
+        """Attach an `optimize.health.HealthSentinel` (None detaches): each
+        training step then computes one global gradient norm and a finite
+        flag, reads `(loss, grad_norm, ok)` to the host once, and applies
+        the parameter, optimizer and layer-state updates only when loss
+        and norm are finite (the iteration advances either way); the
+        sentinel runs its skip -> LR backoff -> rollback -> give-up ladder
+        on those scalars. Not copied by `clone()`."""
+        self._sentinel = sentinel
 
     def get_health_sentinel(self):
-        """The attached health sentinel: always None, since none can be
-        attached until queue A10 ports it (the JAX package returns None
-        for a network that was given none)."""
-        return None
+        return self._sentinel
 
+    # ------------------------------------------------------------ evaluate
+    def evaluate(self, iterator, labels=None, top_n: int = 1):
+        """Classification evaluation over a DataSet or an iterator: each
+        batch's `output` (inference, on the network's device, read back
+        to the host) accumulated into an `eval.evaluation.Evaluation`
+        with the batch's labels and labels mask. `labels`: class names."""
+        from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
+
+        ev = Evaluation(labels=labels, top_n=top_n)
+        if isinstance(iterator, DataSet):
+            iterator = ListDataSetIterator([iterator])
+        for ds in iterator:
+            ev.eval(ds.labels, self.output(ds.features), mask=ds.labels_mask)
+        return ev
+
+    # --------------------------------------------------------- not ported
     def pretrain(self, iterator, epochs: int = 1) -> None:
         raise _not_ported("layerwise pretraining",
                           "queue A9: AutoEncoder/RBM/VAE layers")
-
-    def evaluate(self, iterator, labels=None, top_n: int = 1):
-        raise _not_ported("evaluate", "queue A10: eval/evaluation.py")
 
     # ------------------------------------------------------------- helpers
     def set_listeners(self, *listeners) -> None:
@@ -678,7 +780,8 @@ class MultiLayerNetwork:
         """A network of the same configuration with its own copies of the
         parameters, optimizer state and layer state, and the same
         iteration, epoch and score (the clock travels with the optimizer
-        state); the normalizer is shared, listeners are not copied."""
+        state); the normalizer is shared, listeners and the health
+        sentinel are not copied."""
         net = MultiLayerNetwork(self.conf, self.dtype,
                                 compute_dtype=self.compute_dtype,
                                 device=self.device)

@@ -125,17 +125,29 @@ def _masked_row_mean(per_row, mask: Optional[torch.Tensor]):
 _range_skip_warned: set = set()
 
 
-def check_sparse_label_range(labels, n_classes, mask=None) -> None:
+def check_sparse_label_range(labels, n_classes, mask=None,
+                             where: str = "the output layer",
+                             value_range=None) -> None:
     """Raise when a sparse class id falls outside [0, n_classes) — inside
     the loss an out-of-range id would clamp and silently train the wrong
     class. Positions where `mask` == 0 are exempt (pad-with-sentinel plus
-    a labels mask). Labels already on the card are not read back for
-    the check: that is said once."""
+    a labels mask). Labels already on the card are not read back: they
+    are checked against `value_range`, the (min, max) taken on the host
+    when they were staged (`DeviceCacheDataSetIterator`), and without one
+    the skipped check is said once."""
     if isinstance(labels, torch.Tensor):
         if labels.is_floating_point():
             return
         if labels.device.type != "cpu":
-            if n_classes and not _range_skip_warned:
+            if value_range is not None and n_classes:
+                mn, mx = value_range
+                if mx >= n_classes or mn < 0:
+                    bad = mx if mx >= n_classes else mn
+                    raise ValueError(
+                        f"sparse label id {bad} out of range [0, "
+                        f"{n_classes}) for {where} (range recorded when the "
+                        "batch was staged on the device)")
+            elif n_classes and not _range_skip_warned:
                 _range_skip_warned.add(n_classes)
                 warnings.warn(
                     "sparse-label range check skipped: labels are on the "
@@ -157,6 +169,6 @@ def check_sparse_label_range(labels, n_classes, mask=None) -> None:
     if mx >= n_classes or mn < 0:
         bad = mx if mx >= n_classes else mn
         raise ValueError(
-            f"sparse label id {bad} out of range [0, {n_classes}) for the "
-            "output layer (mask padded positions with a labels mask "
-            "instead of unmasked sentinel ids)")
+            f"sparse label id {bad} out of range [0, {n_classes}) for "
+            f"{where} (mask padded positions with a labels mask instead of "
+            "unmasked sentinel ids)")

@@ -6,14 +6,16 @@ keys, each leaf in C order), `updaterState.npy` (the optimizer state in
 the same order: layer, then sorted parameter name, then sorted state
 name), `layerState.npy` (empty: the only layer state, tBPTT's LSTM carry,
 lives for one batch), `meta.json` (iteration, epoch, dtype, model type)
-and, when one is given, `normalizer.bin` (`OneHotEncoder` only; the
-statistics normalizers are queue A14). Either package reads what the
-other writes. `write_model` commits through
+and, when one is given, `normalizer.bin` (any normalizer of
+`datasets.normalizers`, in the JAX package's format). Either package
+reads what the other writes. `write_model` commits through
 `checkpoint_store.atomic_write`; zip-level damage on restore raises the
-typed `CheckpointCorruptError`.
+typed `CheckpointCorruptError`. `restore_model` reads the model type from
+the zip, as the JAX package's does.
 """
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import struct
@@ -42,7 +44,8 @@ _ZIP_DAMAGE = (zipfile.BadZipFile, KeyError, EOFError, zlib.error,
 
 __all__ = ["CheckpointCorruptError", "params_from_jax",
            "updater_state_from_jax", "write_model",
-           "restore_multi_layer_network", "restore_normalizer"]
+           "restore_model", "restore_multi_layer_network",
+           "restore_normalizer"]
 
 
 def params_from_jax(conf, params) -> List[Dict[str, torch.Tensor]]:
@@ -88,18 +91,26 @@ def _np_load(b: bytes) -> np.ndarray:
     return np.load(io.BytesIO(b))
 
 
-def write_model(net, path: Union[str, Path], normalizer=None) -> None:
+def write_model(net, path: Union[str, Path], save_updater: bool = True,
+                normalizer=None, atomic: bool = True) -> None:
     """Save a MultiLayerNetwork as the JAX package's zip, with its
-    optimizer state (and `normalizer` as `normalizer.bin`), committed
-    atomically."""
+    optimizer state unless `save_updater` is False, and `normalizer` as
+    `normalizer.bin`, committed atomically. `atomic=False` writes straight
+    to `path`: only for a caller that owns the atomic commit itself (a
+    `CheckpointStore.save` writer given the store's temp path), where a
+    second temp + fsync + replace pass would only double the fsyncs."""
     net._ensure_init()
-    with atomic_write(path) as tmp:
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with (atomic_write(path) if atomic
+          else contextlib.nullcontext(path)) as tmp:
         with zipfile.ZipFile(tmp, "w", zipfile.ZIP_DEFLATED) as z:
             z.writestr(CONFIG_JSON, net.conf.to_json())
             z.writestr(COEFFICIENTS,
                        _np_bytes(net.params().detach().cpu().numpy()))
-            z.writestr(UPDATER_STATE,
-                       _np_bytes(_flat_updater_state(net._upd_state)))
+            if save_updater:
+                z.writestr(UPDATER_STATE,
+                           _np_bytes(_flat_updater_state(net._upd_state)))
             z.writestr(LAYER_STATE, _np_bytes(np.zeros((0,), np.float32)))
             if normalizer is not None:
                 z.writestr(NORMALIZER, normalizer.to_bytes())
@@ -148,7 +159,7 @@ def restore_multi_layer_network(path: Union[str, Path],
     if model_type != "MultiLayerNetwork":
         raise NotImplementedError(
             f"checkpoint holds a {model_type}; only MultiLayerNetwork is "
-            "ported (ROADMAP queue A10 for ComputationGraph)")
+            "ported (ROADMAP queue A10: ComputationGraph)")
     net = MultiLayerNetwork(MultiLayerConfiguration.from_json(cfg_json),
                             dtype=_torch_dtype(meta.get("dtype", "float32")),
                             device=device)
@@ -159,6 +170,15 @@ def restore_multi_layer_network(path: Union[str, Path],
     net.iteration = meta.get("iteration", 0)
     net.epoch = meta.get("epoch", 0)
     return net
+
+
+def restore_model(path: Union[str, Path], load_updater: bool = True,
+                  device="cuda"):
+    """Type-sniffing restore (reference `util/ModelGuesser`): the model
+    type is read from the zip's `meta.json`. A MultiLayerNetwork is
+    rebuilt on `device` (the card by default); a ComputationGraph raises
+    NotImplementedError naming queue A10."""
+    return restore_multi_layer_network(path, load_updater, device)
 
 
 def _load_updater_state(net, flat: np.ndarray) -> None:
@@ -179,9 +199,8 @@ def _load_updater_state(net, flat: np.ndarray) -> None:
 
 
 def restore_normalizer(path: Union[str, Path]):
-    """The `normalizer.bin` of a checkpoint written by either package, or
-    None without one. Only `OneHotEncoder` is ported; another kind raises
-    NotImplementedError naming queue A14."""
+    """The `normalizer.bin` of a checkpoint written by either package
+    (any kind of `datasets.normalizers`), or None without one."""
     from deeplearning4j_tpu_torch.datasets.normalizers import (
         DataNormalization,
     )

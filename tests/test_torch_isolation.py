@@ -3,8 +3,10 @@ from it (also with int8 KV, the prefix cache and speculative decoding),
 training with it (fit through the flash-attention route, a checkpoint
 written and restored) and running the recurrent path (a GravesLSTM
 char-RNN fit with truncated BPTT, then streamed with rnn_time_step on
-uint8 ids through the OneHotEncoder) loads neither `jax` nor any module of
-`deeplearning4j_tpu`, and
+uint8 ids through the OneHotEncoder; the training loop with an async
+iterator, the health sentinel, listeners and checkpoints, then evaluate,
+restore, a statistics normalizer and an LBFGS fit) loads neither `jax`
+nor any module of `deeplearning4j_tpu`, and
 its entry points run on the card by default, raising where there is
 none rather than carrying on quietly on the CPU."""
 import os
@@ -129,6 +131,39 @@ _SCRIPT = textwrap.dedent("""
     assert lstm.lstm_bwd_plain.calls == 3
     rnet.set_normalizer(OneHotEncoder(8))             # uint8 ids from here
     assert rnet.rnn_time_step(ids[:, 0].astype(np.uint8)).shape == (2, 8)
+
+    # the training loop: async iterator, sentinel, listeners, checkpoints,
+    # evaluate, restore, a statistics normalizer and a line-search solver
+    from deeplearning4j_tpu_torch import eval as _eval  # noqa: F401
+    from deeplearning4j_tpu_torch.datasets.iterators import (
+        AsyncDataSetIterator)
+    from deeplearning4j_tpu_torch.datasets.normalizers import (
+        NormalizerStandardize)
+    from deeplearning4j_tpu_torch.optimize import (
+        CheckpointListener, HealthSentinel, ScoreIterationListener)
+    from deeplearning4j_tpu_torch.util.checkpoint_store import (
+        CheckpointStore)
+    from deeplearning4j_tpu_torch.util.serialization import restore_model
+
+    lnet = MultiLayerNetwork(rconf, device="cpu")
+    lnet.set_health_sentinel(HealthSentinel())
+    with tempfile.TemporaryDirectory() as d:
+        lnet.set_listeners(ScoreIterationListener(1),
+                           CheckpointListener(d, every_n_iterations=1))
+        x = np.eye(8, dtype=np.float32)[ids[:, :-1]]
+        y = ids[:, 1:].astype(np.int32)
+        lnet.fit(AsyncDataSetIterator(ListDataSetIterator(
+            [DataSet(x, y)] * 2)))
+        assert lnet.evaluate(DataSet(x, y)).confusion_matrix.sum() == 14
+        back, step = CheckpointStore(d).load_latest_verified(
+            lambda p: restore_model(p, device="cpu"))
+    assert step == 6 and back.iteration == 6
+    back.set_normalizer(NormalizerStandardize().fit(DataSet(x, y)))
+    back.conf.global_conf.optimization_algo = type(
+        back.conf.global_conf.optimization_algo)("lbfgs")
+    back.conf.tbptt_fwd_length = 0
+    back.fit(DataSet(x, y))
+    assert back.iteration == 7 and np.isfinite(back.score_value)
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")
                     or m == "deeplearning4j_tpu"

@@ -357,13 +357,22 @@ def test_one_hot_encoder_uint8_ids_match_jax():
 
 
 def test_only_id_normalizers_attach():
+    """A normalizer attaches when its whole transform runs on the device
+    (the statistics normalizers since queue A2, as in the JAX package);
+    one without a device transform is refused."""
     _, pnet = _pair()
+
+    class HostOnly(DataNormalization):
+        pass
 
     class Standardize(DataNormalization):
         supports_device = True
 
-    with pytest.raises(NotImplementedError, match="A14"):
-        pnet.set_normalizer(Standardize())
+    with pytest.raises(ValueError, match="no device-side transform"):
+        pnet.set_normalizer(HostOnly())
+    pnet.set_normalizer(Standardize())
+    assert isinstance(pnet.get_normalizer(), Standardize)
+    pnet.set_normalizer(None)
     assert OneHotEncoder().fit(DataSet(np.array([[3, 7]]))).n_classes == 8
 
 
