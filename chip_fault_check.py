@@ -9,8 +9,9 @@ kernel that is wrong?
 For the unchanged sources and for each planted fault below, the script
 copies `deeplearning4j_tpu_torch/` into a temporary directory, plants the
 fault in the copy's `csrc/flash_attention.cu`, `csrc/paged_attention.cu`
-or `csrc/lstm.cu`, or in `nn/multilayer.py` for the training loop's
-finite guard (the checkout is never changed), builds every copy with
+or `csrc/lstm.cu`, in `nn/multilayer.py` for the training loop's finite
+guard, or in `serving/` for the serving tier (the checkout is never
+changed), builds every copy with
 nvcc in parallel, and then runs the faulted family's check in one
 process per copy (the unchanged copy runs every family a selected fault
 belongs to):
@@ -54,7 +55,10 @@ belongs to):
   repeat rows 0-7 (`chip_smoke.lstm_mirror_units`, B = 64 and 128: the
   repeated rows must be bit-identical, "mirror bits");
 - guard: `chip_smoke.py`'s phase 20 (path 4e, the training loop on the
-  bf16 LSTM kernels), whose failed check counts as caught.
+  bf16 LSTM kernels), whose failed check counts as caught;
+- server: `chip_smoke.py`'s phase 21 (path 5, the GPT behind
+  `ModelServer` on the paged and flash kernels), whose failed check
+  counts as caught.
 
 The faults (`MUTATIONS`) drop tiles, terms or rows, and break each
 mechanism of the Hopper kernels: the forward's diagonal mask on the wrong
@@ -113,7 +117,11 @@ hand-over reading the warpgroup's own partials, the xw tile of step t+2
 used at step t and the stash stored at the next step's position; the
 training loop's finite guard: a non-finite step committed, every finite
 step after the first skip skipped, the iteration held on a skip, and the
-gradient norm without the first layer's gradients. A
+gradient norm without the first layer's gradients; the serving tier
+(`serving/model_server.py`, `serving/decode_engine.py`): predict's
+non-finite screen skipped, the breaker opening at the first failure
+whatever its threshold, the engine swapping weights while slots are
+occupied, and a reload that skips the canary. A
 fault that makes the kernel trap (an mbarrier wait that times out) fails
 its check process, which counts as caught.
 
@@ -140,6 +148,10 @@ FLASH, PAGED, LSTM = "flash_attention", "paged_attention", "lstm"
 # the training loop's finite guard (`nn/multilayer.py`), checked by
 # `chip_smoke.py`'s phase 20 (path 4e) on the LSTM kernels
 GUARD = "guard"
+# the serving tier's defenses (`serving/model_server.py`,
+# `serving/decode_engine.py`), checked by `chip_smoke.py`'s phase 21
+# (path 5) on the paged and flash kernels
+SERVER = "server"
 # (B, T, H, D, causal, dtype): bf16, the training path's kernels at D = 128,
 # the "wgmma wide" kernels at D = 256 and the "wgmma cluster" backward at
 # D = 384 and 512 (T = 192: the first diagonal tiles; T = 1024 full: every
@@ -610,6 +622,29 @@ MUTATIONS = [
      "    def _health(loss, grads) -> torch.Tensor:", [
          ("        for g in grads:\n", "        for g in grads[1:]:\n")],
      "nn/multilayer.py"),
+    # the serving tier's defenses, each caught by phase 21 (path 5): the
+    # non-finite live model, the breaker's ladder, the events around the
+    # reload under decode, the poisoned candidate
+    ("server: _execute skips the non-finite screen", SERVER,
+     "    def _execute(self, batch: List[_Request]) -> List[np.ndarray]:", [
+         ('            reason = non_finite_array_reason(out, "outputs")\n',
+          "            reason = None\n")],
+     "serving/model_server.py"),
+    ("server: the breaker ignores its threshold", SERVER,
+     "    def record_failure(self, probe: bool = False) -> None:", [
+         ("self._consecutive_failures >= self.failure_threshold:",
+          "self._consecutive_failures >= 1:")],
+     "serving/model_server.py"),
+    ("server: _maybe_swap swaps while slots are occupied", SERVER,
+     "    def _maybe_swap(self) -> None:", [
+         ("            if any(r is not None for r in self._slots):\n"
+          "                return  # still draining: in-flight finish on old "
+          "weights\n", "")],
+     "serving/decode_engine.py"),
+    ("server: reload skips the canary", SERVER,
+     "    def reload(self, source, step: Optional[int] = None,", [
+         ("                self._validate_candidate(candidate, canary)\n", "")],
+     "serving/model_server.py"),
 ]
 
 
@@ -659,11 +694,12 @@ def child_cmd(root: str, what: str, sources):
 
 def build(sources) -> None:
     """Build the CUDA sources the families need (the guard runs on the
-    LSTM kernels)."""
+    LSTM kernels, the server on the paged and flash kernels)."""
     from deeplearning4j_tpu_torch.ops import cuda_build
 
-    cuda_build.build(tuple(sorted({LSTM if s == GUARD else s
-                                   for s in sources})))
+    needs = {GUARD: (LSTM,), SERVER: (PAGED, FLASH)}
+    cuda_build.build(tuple(sorted({k for s in sources
+                                   for k in needs.get(s, (s,))})))
 
 
 def check(sources) -> None:
@@ -682,6 +718,8 @@ def check(sources) -> None:
         cases += lstm_cases(torch)
     if GUARD in sources:
         cases += guard_cases(torch)
+    if SERVER in sources:
+        cases += server_cases(torch)
     print(json.dumps({"package": fa.__file__, "cases": cases}), flush=True)
 
 
@@ -713,6 +751,21 @@ def guard_cases(torch):
         units = float("inf")
     return [{"case": "path 4e (chip_smoke phase 20)",
              "units": {"phase 20": units}, "old_units": None}]
+
+
+def server_cases(torch):
+    """`chip_smoke.py`'s phase 21 (path 5, the GPT behind ModelServer) on
+    the copy: passes, or its failed check counts as infinite."""
+    import chip_smoke as cs
+
+    try:
+        cs.phase_server(torch, cs.port_modules(), cs.nvidia_smi_line())
+        units = 0.0
+    except AssertionError as e:  # the check's verdict on this copy
+        log(f"phase 21 failed: {str(e)[:300]}")
+        units = float("inf")
+    return [{"case": "path 5 (chip_smoke phase 21)",
+             "units": {"phase 21": units}, "old_units": None}]
 
 
 def lstm_cases(torch):

@@ -4,12 +4,16 @@ NVIDIA card.
 
     python3 chip_smoke.py            # every phase, a few minutes on an H100
     python3 chip_smoke.py --lstm-timing [--package OLD/deeplearning4j_tpu_torch]
+    python3 chip_smoke.py --path5    # phase 21 alone (about 1.5 minutes)
 
 `--lstm-timing` runs phase 17 alone (the LSTM source built, the rows
 checked and timed, launch counts 0) on the checkout's package or, with
 `--package`, on another copy of it (an earlier commit's, unpacked with
 `git archive` into a git-ignored directory), and prints one JSON line of
 the rows' times. Run it old/new/new/old in one call for a kernel A/B.
+`--path5` builds the paged and flash sources and runs phase 21 (path 5,
+the GPT behind `ModelServer`) alone, then prints one JSON line of its
+launch counts.
 
 Phases, each of which makes the script exit non-zero when it fails:
 
@@ -277,7 +281,37 @@ Phases, each of which makes the script exit non-zero when it fails:
    caught); checkpoint save time; a traced guarded step; then a second
    `lstm_large` with `optimization_algo=LBFGS` fits one batch for 3
    iterations: its score falls and stays finite, every launch on "bf16
-   clusters". Its launch counts go into phase 17's rows at its shape.
+   clusters". Its launch counts go into phase 17's rows at its shape;
+21. serve (path 5): path 1's network behind `ModelServer(max_batch_size=4,
+   breaker_threshold=3, breaker_reset_timeout=1, generation=path 1's
+   engine)`, counts set to 0 after a warm-up and read after the last
+   server shuts down: 8 predicts of (1, 4096) token ids from 8 threads in
+   fewer device steps than requests, each (1, 4096, 256), finite and
+   within 1e-4 of `net.output` on its row alone (`output` runs the f32
+   masters: the f32 flash forward on its split-TF32 route); path 1's six
+   requests through `server.generate` from 6 threads (tokens/s beside
+   path 1's), again with 4 predicts beside them (`pending()` > 0); one
+   traced window; a candidate (the same network, its output bias raised
+   by 40 on token 7) saved once to a `CheckpointStore` and reloaded while
+   two long generations are in flight and two are queued (the scheduler
+   parked by a step hook until the engine drains): the in-flight requests
+   finish on the old weights (none all token 7, their tokens a
+   continuation of their earlier run), the queued and later requests run
+   on the candidate (all token 7), `model_version` 1, the recorder shows
+   "drain", "swap complete" and the in-flight retirements between them;
+   the reload's wall split by load and verify, canary, drain wait and
+   swap; a NaN candidate refused (`ModelValidationError`, version kept)
+   and a NaN live model's step failed by the non-finite screen; three
+   failed steps open the breaker (closed, closed, open), predict and
+   generate then fail fast with no device step, one probe after the
+   reset timeout closes it; a second server with int8 weights and the
+   drift gate on a (2, 512) eval set: its report at construction, a
+   reload accepted, the same reload refused with the gate set below the
+   drift it measured; `shutdown()` drains; `metrics_text()` carries the
+   predict-latency and engine histograms, `flight_record()` the served,
+   reload and breaker events; the paged kernel launched at C=1 and
+   C=256 (bf16 pools, before the reload) and the f32 flash forward, no
+   plain call. Its launch counts go into phase 16's rows.
 
 Prints one JSON line of per-kernel numbers, then the card's
 `nvidia-smi` line, then as the last line
@@ -337,6 +371,15 @@ TRAIN_WIDE_HEADS, TRAIN_WIDE_B, TRAIN_WIDE_STEPS = 4, 2, 3
 TRAIN_2X_HEADS, TRAIN_2X_B, TRAIN_2X_STEPS = 2, 2, 3
 TRAIN_2X_ROUTES = {"fwd": "wgmma wide", "dq": "wgmma cluster",
                    "dkv": "wgmma cluster"}
+# path 5: path 1's network and engine behind ModelServer
+SERVER_GEN = dict(n_slots=8, page_size=128, prefill_chunk=256,
+                  prompt_buckets=(128,), max_len=4224)
+SERVER_PREDICTS, SERVER_PREDICT_T = 8, 4096
+SERVER_PREDICT_ATOL = 1e-4  # f32 probabilities, one row alone vs batched
+SERVER_FAVOURED, SERVER_BIAS = 7, 40.0  # the reload candidate's tell
+SERVER_INFLIGHT_TOKENS, SERVER_QUEUED_TOKENS = 128, 32
+SERVER_PROMPT_T = (128, 4096)  # path 1's short and long prompts
+SERVER_DRIFT_EVAL = (2, 512)
 
 
 def log(*a):
@@ -770,7 +813,7 @@ def phase_serve(torch, M, pa, card):
                              f"launches {launches}, on the card's main path")
     del eng
     torch.cuda.empty_cache()
-    return launches
+    return launches, toks / wall
 
 
 def phase_serve_tier(torch, M, pa, card):
@@ -3159,11 +3202,504 @@ def lstm_4e_launches(rows, counts) -> None:
                                                          0)) for r in runs)
 
 
+# ------------------------------------------------- path 5: ModelServer
+def server_events(srv, kinds):
+    """(kind, decision or state, monotonic t) of the server's flight
+    recorder events of the given kinds, in order."""
+    return [(e["kind"], e.get("decision", e.get("state")), e["t"])
+            for e in srv.flight_record()["events"] if e["kind"] in kinds]
+
+
+def timed_method(obj, name, into):
+    """Wrap `obj.name` (on the instance) so each call adds its wall
+    seconds to `into[name]`: a reading of where a reload's time goes."""
+    fn = getattr(obj, name)
+
+    def wrapper(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            into[name] = into.get(name, 0.0) + time.perf_counter() - t0
+
+    setattr(obj, name, wrapper)
+
+
+def wait_for(pred, what, timeout=300.0):
+    end = time.monotonic() + timeout
+    while not pred():
+        if time.monotonic() > end:
+            raise AssertionError(f"path 5: timed out waiting for {what}")
+        time.sleep(0.005)
+
+
+def run_threads(fns, timeout=900.0):
+    """Run each callable on its own thread; their results (or raised
+    errors) in order."""
+    import threading
+
+    out = [None] * len(fns)
+
+    def run(i, fn):
+        try:
+            out[i] = fn()
+        except BaseException as e:  # handed to the caller, which checks
+            out[i] = e
+
+    threads = [threading.Thread(target=run, args=(i, fn))
+               for i, fn in enumerate(fns)]
+    for t in threads:
+        t.start()
+    return threads, out
+
+
+def joined(threads, out, timeout=900.0):
+    for t in threads:
+        t.join(timeout)
+        if t.is_alive():
+            raise AssertionError("path 5: a client thread did not finish")
+    for r in out:
+        if isinstance(r, BaseException):
+            raise r
+    return out
+
+
+def phase_server(torch, M, card, path1_tok_s=None):
+    """Path 5: path 1's network (the full-width 8-layer gpt_long GPT,
+    bf16 compute over f32 masters) behind `ModelServer(max_batch_size=4,
+    breaker_threshold=3, breaker_reset_timeout=1, generation=path 1's
+    engine)`: concurrent predicts coalesced and held to `net.output` row
+    by row, path 1's requests through `generate` with predicts beside
+    them, a hot reload from a `CheckpointStore` under active decode, a
+    poisoned candidate and a non-finite model refused, the breaker's
+    ladder, a second server with int8 weights and the drift gate, the
+    shutdown drain, metrics and the flight record. Raises on any failed
+    check; returns the launch counts for the kernel rows."""
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    S = M["serving"]
+    pa, fa = M["pa"], M["fa"]
+    V = SERVE["vocab_size"]
+    conf = M["gpt_configuration"](**SERVE, seed=11)
+    net = M["MultiLayerNetwork"](conf, dtype=torch.float32,
+                                 compute_dtype=torch.bfloat16, device="cuda")
+    net.init()
+    # the scheduler parks at its next decode step while `hold` is clear
+    hold, parked = threading.Event(), threading.Event()
+    hold.set()
+
+    def park(phase, info):
+        if phase == "pre_decode" and not hold.is_set():
+            parked.set()
+            if not hold.wait(300):
+                raise TimeoutError("path 5: the scheduler was never released")
+
+    srv = S.ModelServer(net, max_batch_size=4, breaker_threshold=3,
+                        breaker_reset_timeout=1.0,
+                        generation=dict(SERVER_GEN, step_hooks=[park]))
+    rng = np.random.default_rng(11)  # path 1's requests, as phase 7 draws them
+    short_t, long_t = SERVER_PROMPT_T
+    prompts = [rng.integers(0, V, short_t) for _ in range(4)] \
+        + [rng.integers(0, V, long_t) for _ in range(2)]
+    n_tok = [int(x) for x in rng.choice((32, 48, 64, 96, 128), 6)]
+    prng = np.random.default_rng(21)
+    xs = [prng.integers(0, V, (1, SERVER_PREDICT_T)).astype(np.int32)
+          for _ in range(SERVER_PREDICTS)]
+    small = prng.integers(0, V, (1, short_t)).astype(np.int32)
+    tmp = tempfile.mkdtemp(prefix="path5_")
+    closed = False
+    t_phase = time.perf_counter()
+    try:
+        # warm-up: cuBLAS handles, the allocator, the engine; the first
+        # served request donates the auto-canary
+        srv.predict(xs[0])
+        srv.generate(prompts[0][:16], 4)
+        torch.cuda.synchronize()
+        pa.reset_counts()
+        fa.reset_counts()
+
+        # -- predict: 8 concurrent requests of (1, 4096)
+        b0 = srv.stats()["batches"]
+        t0 = time.perf_counter()
+        threads, out = run_threads([lambda x=x: srv.predict(x, timeout=600)
+                                    for x in xs])
+        preds = joined(threads, out)
+        pred_wall = time.perf_counter() - t0
+        steps = srv.stats()["batches"] - b0
+        hist = srv.metrics.histogram("model_server_predict_latency_ms")
+        log(f"  predict: {SERVER_PREDICTS} requests of (1, {SERVER_PREDICT_T}) "
+            f"from {SERVER_PREDICTS} threads in {steps} device steps: wall "
+            f"{1e3 * pred_wall:.2f} ms, {SERVER_PREDICTS / pred_wall:.2f} "
+            f"rows/s ({SERVER_PREDICTS * SERVER_PREDICT_T / pred_wall:.1f} "
+            f"tokens/s), server latency histogram p50 <= "
+            f"{hist.quantile_bound(0.5)} ms, p99 <= "
+            f"{hist.quantile_bound(0.99)} ms; output dtype "
+            f"{preds[0].dtype} [{card}]")
+        if steps >= SERVER_PREDICTS:
+            raise AssertionError(f"path 5: {steps} device steps for "
+                                 f"{SERVER_PREDICTS} predicts: no coalescing")
+        for p in preds:
+            if p.shape != (1, SERVER_PREDICT_T, V) or not np.isfinite(p).all():
+                raise AssertionError(f"path 5: bad predict result {p.shape}")
+
+        # -- generate: path 1's six requests, alone, then beside predicts
+        t0 = time.perf_counter()
+        threads, out = run_threads([lambda p=p, n=n: srv.generate(p, n)
+                                    for p, n in zip(prompts, n_tok)])
+        alone = joined(threads, out)
+        gen_wall = time.perf_counter() - t0
+        toks = int(sum(n_tok))
+        side = f"; path 1's engine alone {path1_tok_s:.1f}" \
+            if path1_tok_s else ""
+        log(f"  generate: path 1's {len(prompts)} requests through "
+            f"server.generate from {len(prompts)} threads: wall "
+            f"{gen_wall:.4f} s, {toks / gen_wall:.1f} generated tokens/s"
+            f"{side} [{card}]")
+        pending = []
+        t0 = time.perf_counter()
+        gen_threads, gen_out = run_threads(
+            [lambda p=p, n=n: srv.generate(p, n)
+             for p, n in zip(prompts, n_tok)])
+        pred_threads, pred_out = run_threads(
+            [lambda x=x: srv.predict(x, timeout=600) for x in xs[:4]])
+        while any(t.is_alive() for t in gen_threads):
+            pending.append(srv.pending())
+            time.sleep(0.01)
+        mixed = joined(gen_threads, gen_out)
+        mixed_wall = time.perf_counter() - t0
+        joined(pred_threads, pred_out)
+        log(f"  generate beside 4 predicts of (1, {SERVER_PREDICT_T}): wall "
+            f"{mixed_wall:.4f} s, {toks / mixed_wall:.1f} generated tokens/s; "
+            f"pending() up to {max(pending)}; the same tokens as alone: "
+            f"{all(np.array_equal(a, b) for a, b in zip(alone, mixed))} "
+            f"[{card}]")
+        for o, n in zip(alone + mixed, n_tok + n_tok):
+            if o.shape != (n,) or o.min() < 0 or o.max() >= V:
+                raise AssertionError(f"path 5: bad tokens {o.shape} for n={n}")
+        if max(pending) <= 0:
+            raise AssertionError("path 5: pending() never counted a request")
+
+        # one traced window of mixed traffic
+        def window():
+            joined(*run_threads(
+                [lambda: srv.predict(xs[1], timeout=600),
+                 lambda: srv.predict(xs[2], timeout=600),
+                 lambda: srv.generate(prompts[0], 64),
+                 lambda: srv.generate(prompts[1], 64)]))
+
+        log(f"  traced window (2 predicts + 2 generates, torch.profiler): "
+            f"{traced(torch, window)}")
+        paged_bf16 = dict(pa.paged_attention.launches_by)
+
+        # -- reload under active decode
+        cand = net.clone()
+        with torch.no_grad():
+            cand._params[-1]["b"][SERVER_FAVOURED] += SERVER_BIAS
+        store = M["CheckpointStore"](os.path.join(tmp, "store"))
+        t0 = time.perf_counter()
+        store.save(1, lambda p: M["write_model"](cand, p, save_updater=False,
+                                                 atomic=False))
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(store.path_for(1))
+        del cand
+        torch.cuda.empty_cache()
+        firsts = [threading.Event() for _ in range(2)]
+        infl_threads, infl_out = run_threads(
+            [lambda i=i: srv.generate(
+                prompts[4 + i], SERVER_INFLIGHT_TOKENS,
+                on_token=lambda c, t, e, i=i: firsts[i].set())
+             for i in range(2)])
+        wait_for(lambda: all(f.is_set() for f in firsts),
+                 "the in-flight requests' first tokens")
+        hold.clear()
+        wait_for(parked.is_set, "the scheduler to park")
+        q_threads, q_out = run_threads(
+            [lambda i=i: srv.generate(prompts[i], SERVER_QUEUED_TOKENS)
+             for i in range(2)])
+        wait_for(lambda: srv.pending() == 4, "two in flight and two queued")
+        engine = srv._engine
+        parts: dict = {}
+        timed_method(srv, "_load_candidate", parts)
+        timed_method(srv, "_validate_candidate", parts)
+        timed_method(engine, "_build", parts)
+        t0 = time.perf_counter()
+        r_threads, r_out = run_threads([lambda: srv.reload(store)])
+        wait_for(lambda: engine._draining, "the engine to drain")
+        hold.set()
+        (version,) = joined(r_threads, r_out)
+        reload_s = time.perf_counter() - t0
+        inflight = joined(infl_threads, infl_out)
+        queued = joined(q_threads, q_out)
+        ev = server_events(srv, ("drain", "swap", "reload", "retire"))
+        t_drain = next(t for k, _, t in ev if k == "drain")
+        t_swap = next(t for k, d, t in ev if k == "swap")
+        retired = sum(1 for k, _, t in ev if k == "retire"
+                      and t_drain < t < t_swap)
+        order = [(k, d) for k, d, _ in ev if k != "retire"]
+        cdt = srv.net.compute_dtype
+        later_pred = srv.predict(xs[3], timeout=600)
+        later_gen = srv.generate(prompts[2], 16)
+        fav = SERVER_FAVOURED
+        # greedy: the earlier run's tokens are a prefix of the longer one's
+        same_old = [np.array_equal(o[:min(len(o), len(a))],
+                                   a[:min(len(o), len(a))])
+                    for o, a in zip(inflight, alone[4:])]
+        log(f"  reload: candidate saved once ({size} bytes, "
+            f"{1e3 * save_s:.2f} ms); reload wall {1e3 * reload_s:.2f} ms = "
+            f"load and verify {1e3 * parts.get('_load_candidate', 0):.2f} "
+            f"ms, canary {1e3 * parts.get('_validate_candidate', 0):.2f} ms, "
+            f"drain wait "
+            f"{1e3 * (t_swap - t_drain - parts.get('_build', 0)):.2f} ms, "
+            f"swap {1e3 * parts.get('_build', 0):.2f} ms; model_version "
+            f"{version}; "
+            f"candidate compute dtype "
+            f"{cdt if cdt is not None else 'float32 (none in the zip)'} "
+            f"[{card}]")
+        log(f"  reload: events {order}; {retired} retirements between drain "
+            f"and swap; in-flight outputs (first 8) "
+            f"{[list(o[:8]) for o in inflight]}, equal to their earlier run "
+            f"on the old weights {same_old}; queued outputs "
+            f"{[list(o[:8]) for o in queued]}")
+        if version != 1 or srv.stats()["model_version"] != 1:
+            raise AssertionError(f"path 5: model_version {version} after "
+                                 "one reload")
+        if order[:3] != [("drain", None), ("swap", "complete"),
+                         ("reload", "complete")] or retired < 2:
+            raise AssertionError(f"path 5: the swap did not wait for the "
+                                 f"in-flight requests: {order}, {retired} "
+                                 "retired between drain and swap")
+        if any(len(o) != SERVER_INFLIGHT_TOKENS or (o == fav).all()
+               or not same for o, same in zip(inflight, same_old)):
+            raise AssertionError("path 5: an in-flight request did not "
+                                 "finish on the old weights")
+        if any(len(o) != SERVER_QUEUED_TOKENS or not (o == fav).all()
+               for o in queued) or not (later_gen == fav).all() \
+                or not (later_pred.argmax(-1) == fav).all():
+            raise AssertionError("path 5: a queued or later request did not "
+                                 "run on the candidate")
+
+        # -- rejections: a poisoned candidate, a non-finite live model
+        bad = M["MultiLayerNetwork"](conf, dtype=torch.float32, device="cuda")
+        bad.init()
+        bad.set_params(torch.full_like(bad.params(), float("nan")))
+        t0 = time.perf_counter()
+        store.save(2, lambda p: M["write_model"](bad, p, save_updater=False,
+                                                 atomic=False))
+        nan_save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        try:
+            srv.reload(store)
+            raise AssertionError("path 5: the poisoned candidate was "
+                                 "swapped in")
+        except S.ModelValidationError as e:
+            refused = str(e)
+        refuse_s = time.perf_counter() - t0
+        still = srv.predict(small, timeout=600)
+        nan_srv = S.ModelServer(bad, breaker_threshold=1)
+        try:
+            nan_srv.predict(small, timeout=600)
+            raise AssertionError("path 5: non-finite outputs were served")
+        except S.InferenceFailedError as e:
+            screened = str(e)
+        finally:
+            nan_srv.shutdown()
+        log(f"  rejections: NaN candidate (saved in {1e3 * nan_save_s:.2f} "
+            f"ms) refused in {1e3 * refuse_s:.2f} ms: {refused[:90]}; "
+            f"model_version {srv.stats()['model_version']}; a non-finite "
+            f"live model's step failed: {screened[:70]}")
+        if srv.stats()["model_version"] != 1 \
+                or not (still.argmax(-1) == fav).all() \
+                or "non-finite" not in screened \
+                or nan_srv.breaker.state != "open":
+            raise AssertionError("path 5: a rejection changed what serves")
+        del bad
+        torch.cuda.empty_cache()
+
+        # -- the breaker: three failed steps open it
+        fails = {"left": 3}
+
+        def fail_step(phase, info):
+            if phase == "pre_step" and fails["left"] > 0:
+                fails["left"] -= 1
+                raise RuntimeError("injected step failure")
+
+        srv.infer_hooks.append(fail_step)
+        states = []
+        for _ in range(3):
+            try:
+                srv.predict(small, timeout=600)
+                raise AssertionError("path 5: an injected failure served")
+            except S.ServingError as e:
+                states.append((type(e).__name__, srv.breaker.state))
+        failed = "InferenceFailedError"
+        if states != [(failed, "closed"), (failed, "closed"),
+                      (failed, "open")]:
+            raise AssertionError(f"path 5: breaker ladder {states}")
+        st0 = srv.stats()
+        t0 = time.perf_counter()
+        try:
+            srv.predict(small, timeout=600)
+            raise AssertionError("path 5: the open breaker let a predict in")
+        except S.ServiceUnavailableError:
+            fast_ms = 1e3 * (time.perf_counter() - t0)
+        try:
+            srv.generate(prompts[0], 4)
+            raise AssertionError("path 5: the open breaker let a generate in")
+        except S.ServiceUnavailableError:
+            pass
+        st1 = srv.stats()
+        wait_for(lambda: srv.breaker.state == "half_open", "half-open", 30)
+        srv.predict(small, timeout=600)  # the probe
+        srv.infer_hooks.remove(fail_step)
+        log(f"  breaker: states after each failed step {states}; fast fail "
+            f"{fast_ms:.3f} ms; device steps while open "
+            f"{st1['batches'] - st0['batches']} (predict), "
+            f"{st1['generation']['decode_steps'] - st0['generation']['decode_steps']}"
+            f" (decode); after the probe {srv.breaker.state} [{card}]")
+        if st1["batches"] != st0["batches"] \
+                or st1["generation"]["decode_steps"] \
+                != st0["generation"]["decode_steps"] \
+                or srv.breaker.state != "closed":
+            raise AssertionError(f"path 5: breaker ladder {states}, "
+                                 f"{srv.breaker.state}")
+
+        # -- quantized weights behind the drift gate
+        eval_ids = prng.integers(0, V, SERVER_DRIFT_EVAL).astype(np.int32)
+        t0 = time.perf_counter()
+        qsrv = S.ModelServer(net, quantize={"weights": "int8"},
+                             canary=eval_ids[:1],
+                             drift_gate={"eval_set": eval_ids,
+                                         "max_argmax_drift": 1.0,
+                                         "max_ppl_delta": float("inf")})
+        try:
+            built_s = time.perf_counter() - t0
+            report0 = qsrv.stats()["drift"]
+            qsrv.reload(store, step=1)
+            report1 = qsrv.stats()["drift"]
+            qsrv._drift_gate["max_argmax_drift"] = \
+                report1["argmax_drift"] - 1e-3  # below the measured drift
+            try:
+                qsrv.reload(store, step=1)
+                raise AssertionError("path 5: the drift gate let a breach in")
+            except S.ModelValidationError as e:
+                gated = str(e)
+            qst = qsrv.stats()
+        finally:
+            qsrv.shutdown()
+        log(f"  int8 weights: built and gated in {1e3 * built_s:.2f} ms, "
+            f"drift at construction {report0}, of the candidate {report1}; "
+            f"with the gate below it: {gated[:80]}; model_version "
+            f"{qst['model_version']}, drift checks {qst['drift_gate_checks']}"
+            f", failures {qst['drift_gate_failures']} [{card}]")
+        if qst["model_version"] != 1 or qst["drift_gate_checks"] != 3 \
+                or qst["drift_gate_failures"] != 1 \
+                or qst["weight_bits"] != 8:
+            raise AssertionError(f"path 5: drift gate ladder {qst}")
+
+        # -- shutdown: drains and closes; metrics and the flight record
+        drained = srv.shutdown(drain_timeout=120)
+        closed = True
+        launches = dict(pa.paged_attention.launches_by)
+        routes = dict(fa.launches_by_route)
+        plain = (pa.paged_attention_plain.calls,
+                 fa.flash_attention_plain_fwd.calls,
+                 fa.flash_attention_plain_bwd.calls)
+        text = srv.metrics_text()
+        dump = srv.flight_record()
+        kinds = {e["kind"] for e in dump["events"]}
+        served = sum(1 for r in dump["requests"] if r["decision"] == "served")
+        log(f"  shutdown drained: {drained}; paged launches {launches} "
+            f"(before the reload {paged_bf16}); flash launches by route "
+            f"{routes}; plain calls (paged, flash fwd, flash bwd) {plain}; "
+            f"flight record: {served} served timelines, events {sorted(kinds)}")
+        if not drained:
+            raise AssertionError("path 5: shutdown did not drain")
+        for name in ("dl4j_model_server_predict_latency_ms_count",
+                     "dl4j_decode_engine_generate_latency_ms_count",
+                     "dl4j_decode_engine_ttft_ms_count"):
+            if name not in text:
+                raise AssertionError(f"path 5: {name} not in metrics_text")
+        if not served or not {"reload", "breaker", "drain", "swap"} <= kinds:
+            raise AssertionError(f"path 5: flight record events {kinds}")
+        try:
+            srv.predict(small)
+            raise AssertionError("path 5: a closed server served")
+        except S.ServerClosedError:
+            pass
+
+        # -- each predict held to the network's output on its row alone
+        errs = [float(np.abs(p - net.output(x).cpu().numpy()).max())
+                for p, x in zip(preds, xs)]
+        log(f"  predict vs net.output on each row alone: max abs err "
+            f"{max(errs):.3e} (tolerance {SERVER_PREDICT_ATOL})")
+        if max(errs) > SERVER_PREDICT_ATOL:
+            raise AssertionError(f"path 5: predict differs from output by "
+                                 f"{max(errs)}")
+        # the path went through the kernels: the dense paged kernel at
+        # C=1 and C=256, the f32 flash forward on its split-TF32 route
+        # (`output` runs the f32 masters), no plain call
+        if plain != (0, 0, 0):
+            raise AssertionError(f"path 5: plain calls {plain}")
+        if paged_bf16.get((1, "dense"), 0) == 0 \
+                or paged_bf16.get((256, "dense"), 0) == 0 \
+                or any(kind != "dense" for _, kind in launches):
+            raise AssertionError(f"path 5: paged launches {paged_bf16}")
+        if routes.get(("fwd", "tf32"), 0) == 0 \
+                or set(routes) != {("fwd", "tf32")}:
+            raise AssertionError(f"path 5: flash launches {routes}")
+        log(f"  path 5 wall {time.perf_counter() - t_phase:.1f} s")
+    finally:
+        if not closed:
+            hold.set()
+            srv.shutdown(drain_timeout=30)
+        shutil.rmtree(tmp, ignore_errors=True)
+    del srv, net
+    torch.cuda.empty_cache()
+    return {"paged": paged_bf16, "flash": routes}
+
+
+def serve5_launches(rows, counts) -> None:
+    """Path 5's launch counts into the timing rows: the paged kernel's
+    launches before the reload (bf16 pools) into rows 1 at C=1 and C=256,
+    predict's and the canary's f32 flash forwards into the f32 forward
+    row at T=4096."""
+    for name, n in (
+            ("paged_attention_decode", counts["paged"].get((1, "dense"), 0)),
+            ("paged_attention_prefill_chunk",
+             counts["paged"].get((256, "dense"), 0)),
+            ("flash_attention_fwd_f32_t4096",
+             counts["flash"].get(("fwd", "tf32"), 0))):
+        for row in rows:
+            if row["name"] == name:
+                row["launches"] += int(n)
+
+
 def lstm_mma_note(key, kind) -> str:
     """The replaced mma.sync kernel's time at a cooperative row's shape,
     where PERF.md has it."""
     ms = LSTM_COOP_MMA_MS.get(key) if kind == "fwd" else None
     return "" if ms is None else f" (the mma.sync kernel it replaced: {ms} ms)"
+
+
+def path5_alone(torch, M, cuda_build) -> int:
+    """`--path5`: phase 21 alone on the checkout's package (the paged and
+    flash sources built first), then one JSON line of its launch counts,
+    `{"card": ..., "paged": {"C,pools": n}, "flash": {"kind,route": n}}`."""
+    card = nvidia_smi_line()
+    t0 = time.perf_counter()
+    cuda_build.build(("paged_attention", "flash_attention"))
+    log(f"path 5 alone [{card}]; build {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    counts = phase_server(torch, M, card)
+    log(f"phase 21 {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"card": card, **{
+        k: {",".join(map(str, key)): n for key, n in v.items()}
+        for k, v in counts.items()}}), flush=True)
+    return 0
 
 
 def lstm_timing_alone(torch, L, cuda_build) -> int:
@@ -3204,6 +3740,8 @@ def port_modules() -> dict:
         PerformanceListener,
         ScoreIterationListener,
     )
+    from deeplearning4j_tpu_torch import serving
+    from deeplearning4j_tpu_torch.ops import paged_attention as pa
     from deeplearning4j_tpu_torch.serving.decode_engine import DecodeEngine
     from deeplearning4j_tpu_torch.util.checkpoint_store import (
         CheckpointStore,
@@ -3224,13 +3762,14 @@ def port_modules() -> dict:
                 PerformanceListener=PerformanceListener,
                 CheckpointListener=CheckpointListener,
                 CheckpointStore=CheckpointStore, restore_model=restore_model,
-                write_model=write_model)
+                write_model=write_model, serving=serving, pa=pa)
 
 
 def main(argv) -> int:
     """No arguments: every phase. `--lstm-timing [--package DIR]`: phase
     17 alone on the package at DIR (default: the checkout's), for an A/B
-    of the LSTM kernels against an earlier commit's package."""
+    of the LSTM kernels against an earlier commit's package. `--path5`:
+    phase 21 alone."""
     import torch
 
     if not torch.cuda.is_available():
@@ -3255,83 +3794,89 @@ def main(argv) -> int:
     torch.backends.cudnn.allow_tf32 = False
     if "--lstm-timing" in argv:
         return lstm_timing_alone(torch, L, cuda_build)
+    if "--path5" in argv:
+        return path5_alone(torch, M, cuda_build)
 
     card = nvidia_smi_line()
-    log(f"[1/20] card: {card}; {torch.cuda.get_device_name(0)}; torch "
+    log(f"[1/21] card: {card}; {torch.cuda.get_device_name(0)}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}; "
         f"{torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     built = cuda_build.build(KERNEL_SOURCES)
-    log(f"[2/20] build: {time.perf_counter() - t0:.1f} s for "
+    log(f"[2/21] build: {time.perf_counter() - t0:.1f} s for "
         f"{len(built)} source(s)")
     for name, res in built.items():
         for line in ptxas_summary(res.log):
             log(f"  {name}: {line}")
 
-    log("[3/20] paged kernels against their plain versions (TF32 off)")
+    log("[3/21] paged kernels against their plain versions (TF32 off)")
     phase_kernels(torch, pa)
-    log("[4/20] flash kernels against their plain versions (TF32 off)")
+    log("[4/21] flash kernels against their plain versions (TF32 off)")
     phase_flash(torch, fa)
-    log("[5/20] f32 DecodeEngine vs generate, 2 layers, d_model 1024")
+    log("[5/21] f32 DecodeEngine vs generate, 2 layers, d_model 1024")
     phase_parity(torch, M)
-    log("[6/20] f32 training, card (kernels) vs CPU (plain), 1 layer, "
+    log("[6/21] f32 training, card (kernels) vs CPU (plain), 1 layer, "
         "d_model 1024, T=1024")
     phase_train_parity(torch, M)
-    log("[7/20] serving the 8-layer bf16 GPT at full width")
-    launches = phase_serve(torch, M, pa, card)
-    log("[8/20] serving it with int8 KV, the prefix cache and "
+    log("[7/21] serving the 8-layer bf16 GPT at full width")
+    launches, path1_tok_s = phase_serve(torch, M, pa, card)
+    log("[8/21] serving it with int8 KV, the prefix cache and "
         "self-speculation on shared-prefix traffic")
     launches.update(phase_serve_tier(torch, M, pa, card))
-    log("[9/20] training the 8-layer bf16 gpt_long GPT at full width")
+    log("[9/21] training the 8-layer bf16 gpt_long GPT at full width")
     flash_counts = phase_train(torch, M, card, torch.bfloat16, TRAIN_B,
                                TRAIN_STEPS, 13, "wgmma")
-    log("[9/20] path 2w: the same GPT with 4 heads of 256 (the bf16 "
+    log("[9/21] path 2w: the same GPT with 4 heads of 256 (the bf16 "
         "\"wgmma wide\" flash kernels)")
     flash_counts_wide = phase_train(torch, M, card, torch.bfloat16,
                                     TRAIN_WIDE_B, TRAIN_WIDE_STEPS, 15,
                                     "wgmma wide", n_heads=TRAIN_WIDE_HEADS)
-    log("[9/20] path 2x: the same GPT with 2 heads of 512 (the bf16 "
+    log("[9/21] path 2x: the same GPT with 2 heads of 512 (the bf16 "
         "\"wgmma wide\" forward, the \"wgmma cluster\" backward)")
     flash_counts_2x = phase_train(torch, M, card, torch.bfloat16,
                                   TRAIN_2X_B, TRAIN_2X_STEPS, 16,
                                   TRAIN_2X_ROUTES, n_heads=TRAIN_2X_HEADS)
-    log("[10/20] path 2f: training the 8-layer gpt_long GPT in f32 "
+    log("[10/21] path 2f: training the 8-layer gpt_long GPT in f32 "
         "(split-TF32 flash kernels)")
     flash_counts_f32 = phase_train(torch, M, card, None, TRAIN_F32_B,
                                    TRAIN_F32_STEPS, 14, "tf32")
-    log("[11/20] LSTM kernels against their plain versions (TF32 off)")
+    log("[11/21] LSTM kernels against their plain versions (TF32 off)")
     phase_lstm_kernels(torch, L, M)
-    log("[12/20] f32 char-RNN training, card (kernels) vs CPU (plain), "
+    log("[12/21] f32 char-RNN training, card (kernels) vs CPU (plain), "
         "H=256")
     phase_lstm_train_parity(torch, M)
-    log("[13/20] training the bf16 lstm_large char-RNN at full width")
+    log("[13/21] training the bf16 lstm_large char-RNN at full width")
     lstm_counts, step4_ms = phase_lstm_train(torch, M, card, torch.bfloat16)
-    log("[14/20] training the bf16 lstm char-RNN with tBPTT 24 at full width")
+    log("[14/21] training the bf16 lstm char-RNN with tBPTT 24 at full width")
     tbptt_counts = phase_lstm_tbptt(torch, M, card)
-    log("[15/20] path 4f: training the lstm_large char-RNN in f32 "
+    log("[15/21] path 4f: training the lstm_large char-RNN in f32 "
         "(split-TF32 LSTM kernels)")
     f32_counts, _ = phase_lstm_train(torch, M, card, None, LSTM_F32_STEPS,
                                      "tf32 clusters", seed=2)
-    log("[16/20] timing at the serving and training shapes (bf16 and f32)")
+    log("[16/21] timing at the serving and training shapes (bf16 and f32)")
     rows = phase_timing(torch, pa, launches)
     rows += phase_flash_timing(torch, fa, flash_counts, flash_counts_f32,
                                flash_counts_wide, flash_counts_2x)
-    log("[17/20] timing the LSTM kernels at the char-RNN shapes (bf16 and "
+    log("[17/21] timing the LSTM kernels at the char-RNN shapes (bf16 and "
         "f32)")
     rows += phase_lstm_timing(torch, L, lstm_counts, tbptt_counts,
                               f32_counts)
-    log(f"[18/20] a GravesLSTM wider than the fused kernels (H={LSTM_WIDE}): "
+    log(f"[18/21] a GravesLSTM wider than the fused kernels (H={LSTM_WIDE}): "
         "the step loop, card vs CPU")
     phase_lstm_wide(torch, M)
-    log("[19/20] path 4s: the bf16 lstm_large char-RNN on "
+    log("[19/21] path 4s: the bf16 lstm_large char-RNN on "
         "GravesLSTMCharModellingExample's mini-batches (B=32 x T=1000, "
         "tBPTT 50)")
     lstm_4s_launches(rows, phase_lstm_4s(torch, M, card))
-    log("[20/20] path 4e: the bf16 lstm_large char-RNN through the training "
+    log("[20/21] path 4e: the bf16 lstm_large char-RNN through the training "
         "loop (async iterator, health sentinel, listeners, checkpoints, "
         "evaluate, restore, LBFGS)")
     lstm_4e_launches(rows, phase_lstm_4e(torch, M, card, step4_ms))
+    log("[21/21] path 5: the 8-layer bf16 GPT behind ModelServer (predict, "
+        "generate, reload under decode, rejections, the breaker, quantized "
+        "weights with the drift gate, shutdown)")
+    serve5_launches(rows, phase_server(torch, M, card, path1_tok_s))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -23,3 +23,11 @@ from deeplearning4j_tpu_torch.nn.conf import (  # noqa: F401
     NeuralNetConfiguration,
 )
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork  # noqa: F401
+
+
+def __getattr__(name):
+    if name in ("ComputationGraph", "ComputationGraphConfiguration"):
+        raise NotImplementedError(
+            f"{name} is not ported yet (ROADMAP queue A10: "
+            "ComputationGraph)")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -19,3 +19,23 @@ from deeplearning4j_tpu_torch.nn.conf.neural_net_configuration import (  # noqa:
     NeuralNetConfiguration,
     OptimizationAlgorithm,
 )
+
+_A9_NAMES = frozenset({
+    "ActivationLayer", "AutoEncoder", "BatchNormalization",
+    "BernoulliReconstructionDistribution",
+    "CompositeReconstructionDistribution", "ConvolutionLayer",
+    "ConvolutionMode", "DropoutLayer", "EmbeddingLayer",
+    "ExponentialReconstructionDistribution",
+    "GaussianReconstructionDistribution", "GlobalPoolingLayer",
+    "LocalResponseNormalization", "LossFunctionWrapper", "LossLayer",
+    "PoolingType", "RBM", "ReconstructionDistribution", "SelfAttention",
+    "SubsamplingLayer", "VariationalAutoencoder",
+})
+
+
+def __getattr__(name):
+    if name in _A9_NAMES:
+        raise NotImplementedError(
+            f"nn.conf.{name} is not ported yet (ROADMAP queue A9: the rest "
+            "of nn/)")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

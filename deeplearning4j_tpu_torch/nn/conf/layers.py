@@ -649,3 +649,21 @@ def ffn(layer: TransformerBlock, p: Params, x: torch.Tensor) -> torch.Tensor:
         return (F.silu(h2 @ p["W1"]) * (h2 @ p["W3"])) @ p["W2"] + p["b2"]
     return F.gelu(h2 @ p["W1"] + p["b1"], approximate="tanh") @ p["W2"] \
         + p["b2"]
+
+
+# the JAX package's layer types that belong to ROADMAP queue A9
+_A9_LAYERS = frozenset({
+    "ActivationLayer", "AutoEncoder", "BatchNormalization",
+    "ConvolutionLayer", "DropoutLayer", "EmbeddingLayer",
+    "GlobalPoolingLayer", "HiddenUnit", "LocalResponseNormalization",
+    "LossLayer", "MoELayer", "RBM", "SelfAttention", "SubsamplingLayer",
+    "VisibleUnit",
+})
+
+
+def __getattr__(name):
+    if name in _A9_LAYERS:
+        raise NotImplementedError(
+            f"nn.conf.layers.{name} is not ported yet (ROADMAP queue A9: "
+            "the rest of nn/)")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

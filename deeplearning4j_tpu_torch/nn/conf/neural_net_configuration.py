@@ -40,7 +40,7 @@ from deeplearning4j_tpu_torch.ops.activations import Activation
 from deeplearning4j_tpu_torch.ops.losses import LossFunction
 
 _NO_PREPROCESSORS = ("input preprocessors are not ported yet (ROADMAP "
-                     "queue A2: nn/conf/preprocessors.py)")
+                     "queue A9: nn/conf/preprocessors.py)")
 
 
 class OptimizationAlgorithm(str, enum.Enum):

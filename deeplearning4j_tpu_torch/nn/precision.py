@@ -35,3 +35,13 @@ def wire_asarray(a, dtype: torch.dtype, device, as_ids: bool = False):
     if a.is_floating_point():
         a = a.to(torch.int32) if as_ids else a.to(dtype)
     return a.to(device, non_blocking=True)
+
+
+def __getattr__(name):
+    if name == "stack_wire":
+        raise NotImplementedError(
+            "nn.precision.stack_wire stacks batches for the JAX package's "
+            "scanned fit dispatch; the port runs fit(scan_steps=) one step "
+            "a batch and needs none (ROADMAP queue C3, closed: not ported "
+            "by design)")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

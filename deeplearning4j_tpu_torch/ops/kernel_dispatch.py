@@ -54,3 +54,22 @@ def smem_limit_bytes(device) -> int:
     above the 48 KB default (227 KB on an H100)."""
     props = torch.cuda.get_device_properties(torch.device(device))
     return int(props.shared_memory_per_block_optin)
+
+
+# The JAX package's Pallas plumbing: VMEM limits, the TPU compiler
+# params, the XLA dot-precision helper and the kernel probes. The card
+# has none of these (`smem_limit_bytes` is the shared-memory limit the
+# kernels check), and the port has no probe (ROADMAP ground rule 4).
+_TPU_ONLY = frozenset({
+    "VMEM_LIMIT_BYTES", "dot", "probe_verdict", "run_probe_out_of_trace",
+    "tpu_compiler_params", "vmem_limit_bytes", "vmem_limit_for_kind",
+})
+
+
+def __getattr__(name):
+    if name in _TPU_ONLY:
+        raise NotImplementedError(
+            f"ops.kernel_dispatch.{name} is TPU plumbing with no "
+            "counterpart in the port (ROADMAP queue C3, closed: not "
+            "ported by design; ground rule 4: no probe)")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -122,7 +122,37 @@ def _masked_row_mean(per_row, mask: Optional[torch.Tensor]):
     return (per_row * mask).sum() / mask.sum().clamp(min=1.0)
 
 
+def loss_fn(loss):
+    """(labels, post-activation output, mask) -> scalar: the generic,
+    unfused path evaluation code uses (training scores pre-activations
+    with `loss_score`, which is more stable). Sum over output dims (MSE:
+    mean), mean over unmasked rows."""
+    loss = LossFunction(loss)
+
+    def f(labels, out, mask=None):
+        if loss == LossFunction.COSINE_PROXIMITY:
+            num = (labels * out).sum(dim=-1)
+            den = torch.linalg.norm(labels, dim=-1) \
+                * torch.linalg.norm(out, dim=-1)
+            return _masked_row_mean(-num / den.clamp(min=_EPS), mask)
+        per_elem = _elementwise_loss(loss, labels, out)
+        per_row = per_elem.mean(dim=-1) if loss == LossFunction.MSE \
+            else per_elem.sum(dim=-1)
+        return _masked_row_mean(per_row, mask)
+
+    return f
+
+
 _range_skip_warned: set = set()
+
+
+def warn_range_skip_once(key, message: str) -> None:
+    """Warn once per `key` that a batch on the device skipped its id or
+    label range check."""
+    if key in _range_skip_warned:
+        return
+    _range_skip_warned.add(key)
+    warnings.warn(message, stacklevel=3)
 
 
 def check_sparse_label_range(labels, n_classes, mask=None,
@@ -147,12 +177,12 @@ def check_sparse_label_range(labels, n_classes, mask=None,
                         f"sparse label id {bad} out of range [0, "
                         f"{n_classes}) for {where} (range recorded when the "
                         "batch was staged on the device)")
-            elif n_classes and not _range_skip_warned:
-                _range_skip_warned.add(n_classes)
-                warnings.warn(
+            elif n_classes:
+                warn_range_skip_once(
+                    "labels on the card",
                     "sparse-label range check skipped: labels are on the "
                     "card (pass host arrays to keep the check); "
-                    "out-of-range ids will clamp silently", stacklevel=3)
+                    "out-of-range ids will clamp silently")
             return
         labels = labels.numpy()
         if isinstance(mask, torch.Tensor):

@@ -45,13 +45,25 @@ over slotted iteration-level scheduling (counterpart of
 - **A host scheduler thread** admits, drives prefill chunks and decode
   steps, retires on EOS / max tokens / deadline, and delivers tokens.
 
+- **The serving seams `ModelServer` drives**: an optional shared
+  `CircuitBreaker` (`breaker=`) checked at the door and acquired at
+  admission, credited at retirement and debited at every failure;
+  request timelines, a flight recorder and a metrics registry
+  (`recorder=`, `metrics=`, `excursion=`; `serving/observability.py`);
+  per-token log-probabilities (`logprobs=K`, of the unscaled f32
+  log-softmax at every sampler site) and `on_token` sinks; `pending()`;
+  and `drain_and_swap(net)`, which lets the in-flight requests finish
+  on the old weights, swaps, and admits the queued ones on the new.
+
 Greedy decode equals whole-batch `models.transformer.generate` (the two
 share the per-block helpers) regardless of admission order, page/slot
 reuse or prefill chunking.
 
-Not ported yet (ROADMAP queue A11): tensor parallelism, QoS, KV handoff
-and migration, logprobs, breaker, observability and `drain_and_swap`.
-Passing any of those options raises `NotImplementedError`.
+Not ported yet (ROADMAP queue A11): tensor parallelism (`parallel`),
+QoS (`qos`, `tenant`, `priority="batch"`), the disaggregated roles
+(`role`, `handoff_ttl`), KV handoff and migration, and the cluster
+prefix directory. Passing any of those options raises
+`NotImplementedError`, and so do their methods.
 """
 from __future__ import annotations
 
@@ -64,13 +76,16 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.serving import observability
 from deeplearning4j_tpu_torch.serving.model_server import (
     DeadlineExceededError,
     InferenceFailedError,
     OutOfPagesError,
     ServerClosedError,
     ServerOverloadedError,
+    ServiceUnavailableError,
     ServingError,
+    _a11,
     _bucket,
 )
 from deeplearning4j_tpu_torch.serving.quantize import (
@@ -84,13 +99,9 @@ logger = logging.getLogger("deeplearning4j_tpu_torch")
 
 # JAX DecodeEngine options this port does not carry yet, with their
 # defaults; any other value raises NotImplementedError
-_UNPORTED_OPTIONS = {
-    "breaker": None, "recorder": None, "metrics": None, "excursion": None,
-    "parallel": None, "qos": None, "role": "both", "handoff_ttl": 30.0,
-    "logprobs": 0,
-}
-_UNPORTED_SUBMIT = {"tenant": None, "priority": "interactive",
-                    "logprobs": 0, "on_token": None}
+_UNPORTED_OPTIONS = {"parallel": None, "qos": None, "role": "both",
+                     "handoff_ttl": 30.0}
+_UNPORTED_SUBMIT = {"tenant": None, "priority": "interactive"}
 
 
 def _refuse_unported(where: str, given: dict, table: dict) -> None:
@@ -99,9 +110,7 @@ def _refuse_unported(where: str, given: dict, table: dict) -> None:
             raise TypeError(f"{where} got an unexpected keyword argument "
                             f"{name!r}")
         if value != table[name]:
-            raise NotImplementedError(
-                f"{where}({name}=...) is not ported yet (ROADMAP queue "
-                "A11: serving cluster tier)")
+            raise _a11(f"{where}({name}=...)")
 
 
 class _GenRequest:
@@ -113,11 +122,15 @@ class _GenRequest:
     cache, `hit_len` prompt positions ride shared pages: the first
     `n_shared` entries of `pages`, refcounted through `nodes`; only
     `pages[n_shared:]` are this request's to free. `digests` memoizes
-    the prompt's per-page digests."""
+    the prompt's per-page digests. `probe` is the breaker token taken at
+    admission, `trace` the request's timeline across the caller and
+    scheduler threads, `sink` the `on_token` callback, and `logprobs`
+    the top-K entries asked for, collected in `logprob_values`."""
 
     __slots__ = ("prompt", "n_tokens", "temperature", "seed", "deadline",
                  "event", "tokens", "error", "n_pages", "pages", "prefill_pos",
-                 "hit_len", "n_shared", "nodes", "digests")
+                 "hit_len", "n_shared", "nodes", "digests", "enqueued_at",
+                 "probe", "trace", "sink", "logprobs", "logprob_values")
 
     def __init__(self, prompt: np.ndarray, n_tokens: int,
                  temperature: float, seed: int, deadline: Optional[float]):
@@ -136,6 +149,12 @@ class _GenRequest:
         self.n_shared = 0
         self.nodes: Optional[list] = None
         self.digests: list = []
+        self.enqueued_at = time.monotonic()
+        self.probe = False
+        self.trace = observability.NULL_TRACE
+        self.sink: Optional[Callable] = None
+        self.logprobs = 0
+        self.logprob_values: List[dict] = []
 
     def expired(self, now: Optional[float] = None) -> bool:
         return self.deadline is not None and \
@@ -237,6 +256,24 @@ def _write_step(cache, pids, loff, k, v) -> None:
     cache[1][pids, :, loff, :] = v
 
 
+def _lp_math(logits, chosen, k: int):
+    """(chosen-token log-probability, top-k log-probabilities, their ids)
+    of the unscaled f32 log-softmax: a report on the model, not on the
+    temperature or top-k sampling transform, so greedy and sampled
+    requests read the same numbers. The top k come from a stable
+    descending sort: equal values keep the lower id first, the order
+    `jax.lax.top_k` gives them in the JAX package."""
+    lsm = torch.log_softmax(logits.float(), dim=-1)
+    chosen_lp = lsm.gather(-1, chosen.long()[..., None])[..., 0]
+    top_v, top_i = torch.sort(lsm, dim=-1, descending=True, stable=True)
+    return chosen_lp, top_v[..., :k], top_i[..., :k]
+
+
+def _host(lp):
+    """A logprob triple on the host (numpy), or None."""
+    return None if lp is None else tuple(t.cpu().numpy() for t in lp)
+
+
 def _dispatched(thunk):
     """Run one device dispatch including its host read-back, tagging any
     exception so the caller can tell a failed dispatch (which may have
@@ -263,8 +300,16 @@ class DecodeEngine:
     prefill and decode dispatches; `decode_chunk` the longest run of
     decode steps between token read-backs (ignored under `speculative`:
     the verify step is the multi-token dispatch). `prefix_cache`,
-    `speculative` and `quantize` as in the module docstring. `device`
-    defaults to the card and must be the network's device."""
+    `speculative` and `quantize` as in the module docstring. `breaker`
+    is an optional `CircuitBreaker` shared with a `ModelServer`:
+    admission is refused while it is open and device failures count.
+    `recorder` and `metrics` are a shared `FlightRecorder` and
+    `MetricsRegistry` (a standalone engine builds its own); `excursion`
+    arms the generate-latency histogram's p99-excursion pin (None: on at
+    the defaults, False: off, or ``{"quantile", "min_count"}``).
+    `logprobs=K` lets requests ask for up to K top log-probabilities
+    per token (not with `speculative`). `device` defaults to the card
+    and must be the network's device."""
 
     def __init__(self, net, *, n_slots: int = 4,
                  max_len: Optional[int] = None,
@@ -283,6 +328,11 @@ class DecodeEngine:
                  prefix_cache=None,
                  speculative: Optional[dict] = None,
                  quantize: Optional[dict] = None,
+                 breaker=None,
+                 recorder=None,
+                 metrics=None,
+                 excursion=None,
+                 logprobs: int = 0,
                  device="cuda",
                  **options):
         from deeplearning4j_tpu_torch.ops.kernel_dispatch import (
@@ -290,6 +340,15 @@ class DecodeEngine:
         )
 
         _refuse_unported("DecodeEngine", options, _UNPORTED_OPTIONS)
+        if logprobs < 0:
+            raise ValueError("logprobs must be >= 0")
+        if logprobs and speculative:
+            raise ValueError(
+                "logprobs=K cannot combine with speculative decoding: "
+                "accepted draft tokens have no single per-step target "
+                "distribution to report")
+        if excursion not in (None, False) and not isinstance(excursion, dict):
+            raise ValueError("excursion must be None, False, or a dict")
         if n_slots < 1:
             raise ValueError("n_slots must be >= 1")
         if max_queue < 1:
@@ -316,6 +375,7 @@ class DecodeEngine:
                                  % (quantize.get("kv"),))
         self._kv_quant = "int8" if quantize and quantize.get("kv") == "int8" \
             else None
+        self._logprobs_k = int(logprobs)
         self._prefix_cache_cfg = prefix_cache
         self._speculative_cfg = dict(speculative) if speculative else None
         self.device = resolve_device(device)
@@ -330,6 +390,7 @@ class DecodeEngine:
         self.decode_chunk = decode_chunk
         self.prefill_chunk_budget = prefill_chunk_budget
         self.step_hooks: List[Callable] = list(step_hooks)
+        self.breaker = breaker
         self._requested_max_len = max_len
         self._requested_page_size = page_size
         self._requested_pool_pages = pool_pages
@@ -342,6 +403,13 @@ class DecodeEngine:
         self._slots: List[Optional[_GenRequest]] = [None] * n_slots  # guarded by: _cond
         self._closed = False  # guarded by: _cond
         self._kill = False  # guarded by: _cond
+        # drain_and_swap: admission pauses while _draining; the scheduler
+        # swaps to _swap_net once every slot is empty
+        self._draining = False  # guarded by: _cond
+        self._swap_net = None  # guarded by: _cond
+        self._swap_in_progress = False  # guarded by: _cond
+        self._swap_error: Optional[BaseException] = None  # guarded by: _cond
+        self._swap_done = threading.Event()
         self._step_ewma = 0.01  # guarded by: _cond
         self._pages_demand_queued = 0  # guarded by: _cond
         # counters
@@ -350,7 +418,9 @@ class DecodeEngine:
         self.shed_overload = 0  # guarded by: _cond
         self.shed_out_of_pages = 0  # guarded by: _cond
         self.shed_deadline = 0  # guarded by: _cond
+        self.shed_unavailable = 0  # guarded by: _cond
         self.failures = 0  # guarded by: _cond
+        self.swaps = 0  # guarded by: _cond
         self.prefills = 0  # guarded by: _cond
         self.prefill_chunks = 0  # guarded by: _cond
         self.decode_steps = 0  # guarded by: _cond
@@ -366,6 +436,36 @@ class DecodeEngine:
         self.spec_proposed = 0  # guarded by: _cond
         self.spec_accepted = 0  # guarded by: _cond
         self.spec_emitted = 0  # guarded by: _cond
+        # observability: a ModelServer-owned engine shares the server's
+        # recorder and registry (one flight_record / metrics surface); a
+        # standalone engine gets its own
+        self.recorder = recorder if recorder is not None \
+            else observability.FlightRecorder()
+        self.metrics = metrics if metrics is not None \
+            else observability.MetricsRegistry()
+        self.metrics.register_stats("decode_engine", self.stats)
+        self._gen_latency_hist = self.metrics.histogram(
+            "decode_engine_generate_latency_ms")
+        # time to first token, observed at every request's first token
+        self._ttft_hist = self.metrics.histogram("decode_engine_ttft_ms")
+        if excursion is not False:
+            exc_cfg = dict(excursion) if excursion else {}
+            self._gen_latency_hist.enable_excursion(
+                quantile=float(exc_cfg.get("quantile", 0.99)),
+                min_count=int(exc_cfg.get("min_count", 50)),
+                hook=lambda v, bound, trace: self.recorder.pin(
+                    trace, "excursion", latency_ms=round(v, 3),
+                    bound_ms=round(bound, 3)))
+        self.metrics.gauge("decode_engine_queued", lambda: len(self._queue))
+        self.metrics.gauge(
+            "decode_engine_pages_in_use",
+            lambda: self.pool_pages - len(self._free_pages))
+        if self.breaker is not None \
+                and getattr(self.breaker, "on_event", None) is None:
+            # a standalone engine rings breaker transitions itself; a
+            # server-owned breaker already feeds the shared recorder
+            self.breaker.on_event = lambda state: self.recorder.event(
+                "breaker", state=state)
         self._build(net)
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="decode-engine-scheduler")
@@ -489,7 +589,8 @@ class DecodeEngine:
 
     def _first_token(self, slot: int, req: _GenRequest, logits, t0: int):
         """Draw a request's first token from its prefill logits and arm
-        the slot: token, position, sampling generator, temperature."""
+        the slot: token, position, sampling generator, temperature.
+        Returns (token, finite flag, logprob triple or None)."""
         from deeplearning4j_tpu_torch.models.transformer import _sample_logits
 
         gen = torch.Generator(device=self.device).manual_seed(req.seed)
@@ -498,14 +599,17 @@ class DecodeEngine:
         self._pos[slot] = t0
         self._gens[slot] = gen
         self._temps[slot] = req.temperature
-        return tok0[0], torch.isfinite(logits.float()).all()
+        lp = _lp_math(logits, tok0, self._logprobs_k) \
+            if self._logprobs_k else None
+        return tok0[0], torch.isfinite(logits.float()).all(), lp
 
     @torch.no_grad()
     def _prefill_math(self, slot: int, req: _GenRequest, ids: np.ndarray,
                       wpids: List[int]):
         """One-shot prefill of one prompt padded to `ids` (1, bucket):
         the same block math as `generate`'s prefill, K/V written into
-        the slot's pages. Returns the first token and its finite flag."""
+        the slot's pages. Returns the first token, its finite flag and
+        its logprob triple (None without logprobs)."""
         from deeplearning4j_tpu_torch.models.transformer import (
             _block_ffn,
             _block_heads,
@@ -536,7 +640,8 @@ class DecodeEngine:
         """One prefill chunk at absolute positions off..off+W-1: write
         its K/V into `wpids`, then attend through the slot's page row
         (the chunk sees itself through the cache, which is exactly
-        causal). Returns (first token or None, finite flag)."""
+        causal). Returns (first token or None, finite flag, logprob
+        triple or None)."""
         from deeplearning4j_tpu_torch.models.transformer import (
             _block_ffn,
             _block_heads,
@@ -564,19 +669,19 @@ class DecodeEngine:
                 p, att.reshape(1, W, -1)))
         ok = torch.isfinite(x.float()).all()
         if not final:
-            return None, ok
+            return None, ok, None
         t0 = req.prompt.shape[0]
         r = min(max(t0 - 1 - off, 0), W - 1)
         logits = plan.final_logits(bp, self._params, x[0, r][None])
-        tok0, ok_logits = self._first_token(slot, req, logits, t0)
-        return tok0, ok & ok_logits
+        tok0, ok_logits, lp = self._first_token(slot, req, logits, t0)
+        return tok0, ok & ok_logits, lp
 
     @torch.no_grad()
     def _decode_math(self, active_t):
         """Advance every slot one token. Inactive slots keep their token
         and position, and their cache writes go to the trash page 0, so a
         reallocated page is never corrupted. Returns (tokens (S,),
-        per-slot finite flags (S,))."""
+        per-slot finite flags (S,), logprob triple or None)."""
         from deeplearning4j_tpu_torch.models.transformer import (
             _block_ffn,
             _block_heads,
@@ -612,7 +717,9 @@ class DecodeEngine:
         self._tok = torch.where(active_t, nxt, tok)
         self._pos = torch.where(active_t, pos + 1, pos)
         ok = torch.isfinite(logits.float()).all(dim=-1) | ~active_t
-        return self._tok, ok
+        lp = _lp_math(logits, self._tok, self._logprobs_k) \
+            if self._logprobs_k else None
+        return self._tok, ok, lp
 
     # -- paging arithmetic -------------------------------------------------
     def _bucket_for(self, t0: int) -> int:
@@ -672,15 +779,94 @@ class DecodeEngine:
         # back to the pool — a cap-driven eviction must never leak
         self._free_pages.extend(freed)
 
+    # -- observability -----------------------------------------------------
+    def _finish_obs(self, req: _GenRequest,
+                    err: Optional[BaseException] = None, **attrs) -> None:
+        """Terminal path of one request: stamp the timeline's decision,
+        attach it to the typed error, ring the flight recorder, deliver.
+        Host-side work only."""
+        decision = "served" if err is None else type(err).__name__
+        req.trace.finish(decision)
+        if err is not None:
+            observability.attach_trace(err, req.trace)
+        self.recorder.record(req.trace, decision, kind="generate",
+                             tokens=len(req.tokens), **attrs)
+        req.finish(err)
+
+    def _shed_obs(self, trace, err: BaseException, **attrs) -> None:
+        """Door-shed path (no request handle yet): finish the timeline
+        with the typed decision and pin it in the failures ring."""
+        decision = type(err).__name__
+        trace.finish(decision)
+        observability.attach_trace(err, trace)
+        self.recorder.record(trace, decision, kind="generate", **attrs)
+
+    def _emit_token(self, req: _GenRequest, lp=None, lp_idx: int = 0) -> None:
+        """Bookkeeping for the token just appended to `req.tokens`: its
+        logprob entry (when the request asked for K > 0; `lp` is the
+        host (chosen, top values, top ids) batch, `lp_idx` this token's
+        row), the time to first token, and the request's `on_token`
+        sink. A raising sink is a consumer bug: it is logged and
+        detached, and the unary result still delivers."""
+        if lp is not None and req.logprobs:
+            kk = req.logprobs
+            chosen, top_v, top_i = lp
+            req.logprob_values.append({
+                "token": int(req.tokens[-1]),
+                "logprob": float(chosen[lp_idx]),
+                "top_tokens": [int(t) for t in top_i[lp_idx][:kk]],
+                "top_logprobs": [float(v) for v in top_v[lp_idx][:kk]],
+            })
+        if len(req.tokens) == 1:
+            self._ttft_hist.observe(
+                1e3 * (time.monotonic() - req.enqueued_at), trace=req.trace)
+        sink = req.sink
+        if sink is not None:
+            entry = req.logprob_values[-1] \
+                if req.logprobs and req.logprob_values else None
+            try:
+                sink(len(req.tokens), req.tokens[-1], entry)
+            # a broken sink costs the consumer its stream, not the engine
+            # its loop: logged, detached, decoding goes on
+            except Exception:
+                logger.exception(
+                    "decode engine: token sink failed; detaching it")
+                req.sink = None
+
+    def flight_record(self) -> dict:
+        """The flight recorder's dump (request timelines and scheduler
+        events), shared with the owning `ModelServer` when there is
+        one."""
+        return self.recorder.dump()
+
+    def metrics_snapshot(self) -> dict:
+        return self.metrics.snapshot()
+
+    def metrics_text(self, labels=None) -> str:
+        return self.metrics.exposition(labels=labels)
+
     # -- public surface ----------------------------------------------------
     def submit(self, prompt_ids, n_tokens: int, *,
                temperature: float = 0.0, seed: int = 0,
-               timeout: Optional[float] = None, **options) -> _GenRequest:
+               timeout: Optional[float] = None, logprobs: int = 0,
+               on_token: Optional[Callable] = None,
+               **options) -> _GenRequest:
         """Admit one generation request (non-blocking). Typed give-ups:
         `ServerOverloadedError` (queue full), `OutOfPagesError` (queued
         page demand over `max_queued_pages`), `DeadlineExceededError`,
-        `ServerClosedError`. `request.result()` blocks for the tokens."""
+        `ServiceUnavailableError` (breaker open), `ServerClosedError`.
+        `logprobs=K` (at most the engine's `logprobs`) asks for per-token
+        logprob entries; `on_token(cursor, token, entry)` is called from
+        the scheduler thread per emitted token and must not block.
+        `request.result()` blocks for the tokens."""
         _refuse_unported("DecodeEngine.submit", options, _UNPORTED_SUBMIT)
+        if logprobs < 0:
+            raise ValueError("logprobs must be >= 0")
+        if logprobs > self._logprobs_k:
+            raise ValueError(
+                f"logprobs={logprobs} exceeds the engine's configured "
+                f"logprobs={self._logprobs_k} — build the engine with "
+                "logprobs=K to enable per-token logprob returns")
         prompt = np.asarray(prompt_ids)
         if prompt.ndim == 2 and prompt.shape[0] == 1:
             prompt = prompt[0]
@@ -701,27 +887,58 @@ class DecodeEngine:
                 f"request needs {need} KV pages of {self.page_size} tokens "
                 f"but the pool holds only {self.pool_pages} — raise "
                 "pool_pages or shorten the request")
+        trace = observability.maybe_trace()
+        with self._cond:
+            if self._closed:  # before the breaker: a closed engine says
+                # "closed" (terminal), not "retry later"
+                err = ServerClosedError("decode engine is shut down")
+                self._shed_obs(trace, err)
+                raise err
+        if self.breaker is not None:
+            try:
+                self.breaker.reject_if_open()
+            except ServiceUnavailableError as e:
+                with self._cond:
+                    self.shed_unavailable += 1
+                self._shed_obs(trace, e)
+                raise
         timeout = self.default_timeout if timeout is None else timeout
         deadline = None if timeout is None else time.monotonic() + timeout
         req = _GenRequest(prompt.astype(np.int64), int(n_tokens),
                           float(temperature), int(seed), deadline)
         req.n_pages = need
+        req.trace = trace
+        req.logprobs = int(logprobs)
+        req.sink = on_token
         with self._cond:
             if self._closed:
-                raise ServerClosedError("decode engine is shut down")
+                err = ServerClosedError("decode engine is shut down")
+                self._shed_obs(trace, err)
+                raise err
             now = time.monotonic()
+            # expired entries are swept before any capacity verdict: a
+            # queue padded with dead requests is not real backpressure
+            if len(self._queue) >= self.max_queue \
+                    or (self._pages_demand_queued
+                        and self._pages_demand_queued + need
+                        > self.max_queued_pages):
+                self._sweep_expired_locked(now)
             if deadline is not None and deadline <= now:
                 self.shed_deadline += 1
-                raise DeadlineExceededError(
+                err = DeadlineExceededError(
                     "deadline expired before admission; request shed at "
                     "the door")
+                self._shed_obs(trace, err)
+                raise err
             if len(self._queue) >= self.max_queue:
                 self.shed_overload += 1
                 retry = max(0.001, self._step_ewma
                             * (len(self._queue) / self.n_slots + 1))
-                raise ServerOverloadedError(
+                err = ServerOverloadedError(
                     f"generation queue full ({self.max_queue} pending); "
                     f"retry in {retry:.3f}s", retry_after=retry)
+                self._shed_obs(trace, err, queue_depth=len(self._queue))
+                raise err
             if self._pages_demand_queued \
                     and self._pages_demand_queued + need \
                     > self.max_queued_pages:
@@ -731,23 +948,71 @@ class DecodeEngine:
                 n_live = sum(1 for r in self._slots if r is not None)
                 retry = max(0.001, self._step_ewma
                             * (len(self._queue) + n_live + 1))
-                raise OutOfPagesError(
+                err = OutOfPagesError(
                     f"KV page pool exhausted ({held}/{self.pool_pages} pages "
                     f"in use, {self._pages_demand_queued} queued demand of "
                     f"{self.max_queued_pages} allowed; {need} more needed); "
                     f"retry in {retry:.3f}s", retry_after=retry)
+                demand = self._pages_demand_queued
+                self._shed_obs(trace, err, pages_needed=need,
+                               pages_in_use=held, queued_page_demand=demand,
+                               max_queued_pages=self.max_queued_pages)
+                self.recorder.event(
+                    "shed", error="OutOfPagesError", pages_needed=need,
+                    pages_in_use=held, queued_page_demand=demand,
+                    max_queued_pages=self.max_queued_pages)
+                raise err
             self._pages_demand_queued += need
             self.submitted += 1
             self._queue.append(req)
+            trace.event("enqueue", queue_depth=len(self._queue),
+                        pages_reserved=need, prompt_len=int(T0),
+                        n_tokens=int(n_tokens))
             self._cond.notify_all()
         return req
 
+    def _sweep_expired_locked(self, now: float) -> None:
+        """Shed every already-expired queued request with its own
+        `DeadlineExceededError`, releasing its page reservation."""
+        assert_owned(self._cond, "DecodeEngine._sweep_expired_locked")
+        if not any(r.expired(now) for r in self._queue):
+            return
+        keep: collections.deque = collections.deque()
+        for req in self._queue:
+            if req.expired(now):
+                self._pages_demand_queued -= req.n_pages
+                self.shed_deadline += 1
+                req.trace.add_timed("queue-wait", req.enqueued_at, now,
+                                    decision="expired")
+                self._finish_obs(req, DeadlineExceededError(
+                    "deadline expired while queued; request shed before "
+                    "prefill"))
+            else:
+                keep.append(req)
+        self._queue = keep
+
     def generate(self, prompt_ids, n_tokens: int, *,
                  temperature: float = 0.0, seed: int = 0,
-                 timeout: Optional[float] = None) -> np.ndarray:
-        """Blocking convenience: submit + wait for the tokens."""
-        return self.submit(prompt_ids, n_tokens, temperature=temperature,
-                           seed=seed, timeout=timeout).result()
+                 timeout: Optional[float] = None, logprobs: int = 0,
+                 on_token: Optional[Callable] = None, **options):
+        """Blocking convenience: submit + wait. Returns the generated
+        tokens (1-D int32; shorter than `n_tokens` only on EOS), or with
+        `logprobs=K > 0` a dict ``{"tokens", "logprobs"}`` with one entry
+        (chosen-token logprob and the top K) per generated token."""
+        req = self.submit(prompt_ids, n_tokens, temperature=temperature,
+                          seed=seed, timeout=timeout, logprobs=logprobs,
+                          on_token=on_token, **options)
+        out = req.result()
+        if logprobs:
+            return {"tokens": out, "logprobs": list(req.logprob_values)}
+        return out
+
+    def pending(self) -> int:
+        """Queued + in-slot generation requests: the engine's share of
+        `ModelServer.pending()`."""
+        with self._cond:
+            return len(self._queue) \
+                + sum(1 for r in self._slots if r is not None)
 
     def stats(self) -> dict:
         with self._cond:
@@ -766,10 +1031,16 @@ class DecodeEngine:
                    "shed_overload": self.shed_overload,
                    "shed_out_of_pages": self.shed_out_of_pages,
                    "shed_deadline": self.shed_deadline,
+                   "shed_unavailable": self.shed_unavailable,
                    "failures": self.failures, "prefills": self.prefills,
                    "prefill_chunks": self.prefill_chunks,
                    "decode_steps": self.decode_steps,
-                   "tokens_generated": self.tokens_generated}
+                   "tokens_generated": self.tokens_generated,
+                   "swaps": self.swaps,
+                   # the QoS lane (ROADMAP queue A11) is not ported: no
+                   # request is preempted or shed by an SLO or a quota
+                   "preemptions": 0, "slo_sheds": 0, "shed_quota": 0,
+                   "shed_page_quota": 0}
             steps, slot_steps = self.decode_steps, self.active_slot_steps
         out.update({
             "slot_occupancy_pct": round(
@@ -811,6 +1082,92 @@ class DecodeEngine:
                     emitted=self.spec_emitted)
         return out
 
+    def drain_and_swap(self, net, timeout: Optional[float] = None) -> None:
+        """Hot-reload seam: pause admission, let every in-flight request
+        finish on the current weights (its KV pages were computed with
+        them), swap to `net`, and resume admission: queued requests
+        decode on the new weights. Raises `ServingError` when the drain
+        does not finish within `timeout` (the old weights keep serving),
+        and the swap's own error (e.g. `net` is not a GPT network) with
+        the old weights still serving."""
+        with self._cond:
+            if self._closed:
+                raise ServerClosedError("decode engine is shut down")
+            self._swap_net = net
+            self._swap_error = None
+            self._swap_done.clear()
+            self._draining = True
+            self._cond.notify_all()
+        self.recorder.event("drain", reason="weight-swap")
+        if not self._swap_done.wait(timeout):
+            with self._cond:
+                # the scheduler may already be past the _swap_net check
+                # and building: only a swap it has not picked up is
+                # abandoned
+                abandon = not self._swap_in_progress \
+                    and not self._swap_done.is_set()
+                if abandon:  # resume serving the old weights
+                    self._swap_net = None
+                    self._draining = False
+                    self._cond.notify_all()
+            if abandon:
+                raise ServingError(
+                    f"decode engine drain did not complete within "
+                    f"{timeout}s (long in-flight generations); old "
+                    "weights still serving")
+            self._swap_done.wait()  # the build is running: see it out
+        err = self._swap_error
+        if err is not None:
+            raise err
+
+    # -- not ported yet (ROADMAP queue A11) ---------------------------------
+    def model_bytes_per_chip(self) -> int:
+        raise _a11("DecodeEngine.model_bytes_per_chip")
+
+    def set_tenant_quota(self, tenant, rate=None, burst=None,
+                         max_pages=None, weight=None) -> None:
+        raise _a11("DecodeEngine.set_tenant_quota (QoS)")
+
+    def bind_prefix_directory(self, directory, holder_id, peers=None, **kw):
+        raise _a11("DecodeEngine.bind_prefix_directory (cluster prefix "
+                   "cache)")
+
+    def prefix_depth(self, prompt_ids, tenant=None) -> int:
+        raise _a11("DecodeEngine.prefix_depth (cluster prefix cache)")
+
+    def prefix_chains(self) -> dict:
+        raise _a11("DecodeEngine.prefix_chains (cluster prefix cache)")
+
+    def export_prefix(self, prompt_ids, have_pages=0, tenant=None,
+                      frame_pages=None, timeout=None) -> dict:
+        raise _a11("DecodeEngine.export_prefix (cluster prefix cache)")
+
+    def fetch_handoff(self, handoff_id) -> dict:
+        raise _a11("DecodeEngine.fetch_handoff (KV handoff)")
+
+    def fetch_handoff_header(self, handoff_id, skip_pages=0,
+                             frame_pages=None) -> dict:
+        raise _a11("DecodeEngine.fetch_handoff_header (KV handoff)")
+
+    def fetch_handoff_frame(self, handoff_id, frame, skip_pages=0,
+                            frame_pages=None) -> dict:
+        raise _a11("DecodeEngine.fetch_handoff_frame (KV handoff)")
+
+    def commit_handoff(self, handoff_id) -> bool:
+        raise _a11("DecodeEngine.commit_handoff (KV handoff)")
+
+    def abort_handoff(self, handoff_id) -> bool:
+        raise _a11("DecodeEngine.abort_handoff (KV handoff)")
+
+    def resume_submit(self, payload, timeout=None, *, on_token=None):
+        raise _a11("DecodeEngine.resume_submit (KV handoff)")
+
+    def resume_generate(self, payload, timeout=None, *, on_token=None):
+        raise _a11("DecodeEngine.resume_generate (KV handoff)")
+
+    def migrate_slots(self, wait=5.0) -> int:
+        raise _a11("DecodeEngine.migrate_slots (live migration)")
+
     def shutdown(self, drain_timeout: float = 10.0) -> bool:
         """Stop admission (`ServerClosedError` for queued and new
         requests), let in-flight generations finish for up to
@@ -849,19 +1206,24 @@ class DecodeEngine:
                 if self._kill:
                     self._fail_all_locked(ServerClosedError(
                         "engine shut down before this request finished"))
+                    self._abort_pending_swap_locked()
                     return
                 if self._closed:
                     while self._queue:
                         req = self._queue.popleft()
                         self._pages_demand_queued -= req.n_pages
-                        req.finish(ServerClosedError(
+                        self._finish_obs(req, ServerClosedError(
                             "engine shut down before this request could be "
                             "served"))
                     if not any(r is not None for r in self._slots):
+                        self._abort_pending_swap_locked()
                         self._cond.notify_all()
                         return
             try:
-                if not self._closed:
+                # a drained engine swaps before anything is admitted, so
+                # the queued requests start on the new weights
+                self._maybe_swap()
+                if not self._draining and not self._closed:
                     self._admit()
                 self._expire_in_flight()
                 self._step_prefills()
@@ -876,20 +1238,41 @@ class DecodeEngine:
                         "decode engine scheduler failure"))
                 self._reset_device_state()
 
+    def _abort_pending_swap_locked(self) -> None:
+        """A scheduler exit (shutdown or kill) with a drain pending
+        releases the `drain_and_swap` caller, which would otherwise wait
+        on a dead scheduler."""
+        assert_owned(self._cond, "DecodeEngine._abort_pending_swap_locked")
+        if self._draining or self._swap_net is not None:
+            self._swap_net = None
+            self._draining = False
+            self._swap_error = ServerClosedError(
+                "engine shut down while draining for a weight swap")
+            self._swap_done.set()
+
     def _work_pending(self) -> bool:
-        return any(r is not None for r in self._slots) or bool(self._queue)
+        if any(r is not None for r in self._slots):
+            return True
+        if self._draining:
+            return True  # reach _maybe_swap with every slot empty
+        return bool(self._queue)
 
     def _fail_all_locked(self, err: BaseException) -> None:
+        assert_owned(self._cond, "DecodeEngine._fail_all_locked")
         while self._queue:
             req = self._queue.popleft()
             self._pages_demand_queued -= req.n_pages
-            req.finish(err)
+            self._finish_obs(req, err)  # never took a breaker token
         for s, req in enumerate(self._slots):
             if req is not None:
                 self._slots[s] = None
                 self._active[s] = False
                 self._free_request_pages_locked(req)
-                req.finish(err)
+                if self.breaker is not None:
+                    # hand the request's breaker token back: a dropped
+                    # half-open probe would wedge the shared breaker
+                    self.breaker.record_failure(req.probe)
+                self._finish_obs(req, err)
         self._cond.notify_all()
 
     def _admit(self) -> None:
@@ -901,7 +1284,9 @@ class DecodeEngine:
         the slot's page table (refcounts bumped), only the uncached tail
         takes fresh pages, and prefill starts at the first uncached page
         boundary. A short cold prompt prefills one-shot at once; a long
-        or prefix-hit one is parked mid-prefill for `_step_prefills`."""
+        or prefix-hit one is parked mid-prefill for `_step_prefills`.
+        With a breaker, each admission takes a token (the half-open probe
+        is one request), and an open breaker fails the head typed."""
         while True:
             with self._cond:
                 if not self._queue:
@@ -936,17 +1321,35 @@ class DecodeEngine:
                             finally:
                                 self._prefix_cache.release(nodes)
                             self._free_pages.extend(reclaimed)
+                            if reclaimed:
+                                self.recorder.event(
+                                    "page-reclaim", pages=len(reclaimed),
+                                    free_after=len(self._free_pages))
                     if need > len(self._free_pages):
                         return
                 req = self._queue.popleft()
                 self._pages_demand_queued -= req.n_pages
-                if req.expired():
+            now = time.monotonic()
+            if req.expired(now):
+                with self._cond:
                     self.shed_deadline += 1
-                    req.finish(DeadlineExceededError(
-                        "deadline expired while queued; request shed before "
-                        "prefill"))
+                req.trace.add_timed("queue-wait", req.enqueued_at, now,
+                                    decision="expired")
+                self._finish_obs(req, DeadlineExceededError(
+                    "deadline expired while queued; request shed before "
+                    "prefill"))
+                continue
+            req.trace.add_timed("queue-wait", req.enqueued_at, now)
+            if self.breaker is not None:
+                try:
+                    req.probe = self.breaker.acquire()
+                except ServiceUnavailableError as e:
+                    with self._cond:
+                        self.shed_unavailable += 1
+                    self._finish_obs(req, e)
                     continue
-                slot = free[0]
+            slot = free[0]
+            with self._cond:
                 if nodes:
                     self._prefix_cache.acquire(nodes)
                     req.nodes = nodes
@@ -959,9 +1362,15 @@ class DecodeEngine:
                 self.prompt_tokens += int(req.prompt.shape[0])
                 req.pages = [n.page_id for n in nodes] + \
                     [self._free_pages.pop() for _ in range(need)]
-                self.pages_in_use_peak = max(
-                    self.pages_in_use_peak,
-                    self.pool_pages - len(self._free_pages))
+                held = self.pool_pages - len(self._free_pages)
+                self.pages_in_use_peak = max(self.pages_in_use_peak, held)
+            if nodes:
+                req.trace.event("prefix-bind", shared_pages=req.n_shared,
+                                hit_tokens=req.hit_len)
+            req.trace.event("admission", slot=slot, pages=len(req.pages),
+                            shared_pages=req.n_shared, pages_in_use=held)
+            self.recorder.event("admit", slot=slot, pages=len(req.pages),
+                                hit_tokens=req.hit_len, pages_in_use=held)
             row = np.zeros((self._n_pages_max,), np.int32)
             row[:len(req.pages)] = req.pages
             self._page_table[slot] = torch.from_numpy(row).to(self.device)
@@ -990,11 +1399,16 @@ class DecodeEngine:
         self._hook("pre_prefill", info)
 
         def run():
-            tok0, ok = self._prefill_math(slot, req, ids, wpids)
-            # the one host read-back of this dispatch
-            return torch.stack([tok0, ok.long()]).tolist()
+            tok0, ok, lp = self._prefill_math(slot, req, ids, wpids)
+            # the one host read-back of this dispatch (the logprob
+            # triple, when asked for, follows once the device is done)
+            first, ok = torch.stack([tok0, ok.long()]).tolist()
+            return first, ok, _host(lp)
 
-        first, ok = _dispatched(run)
+        tp0 = time.monotonic()
+        first, ok, lp0 = _dispatched(run)
+        req.trace.add_timed("prefill", tp0, time.monotonic(),
+                            bucket=bucket, prompt_len=t0)
         if not ok:
             raise InferenceFailedError(
                 "model produced non-finite logits during prefill")
@@ -1010,6 +1424,7 @@ class DecodeEngine:
         if self._spec is not None:
             self._spec.seed_slot(slot, req.seed)
         req.tokens.append(first)
+        self._emit_token(req, lp0)
         if len(req.tokens) >= req.n_tokens or first == self.eos_token:
             self._retire(slot, req, attached=False)
             return
@@ -1057,14 +1472,18 @@ class DecodeEngine:
         self._hook("pre_prefill", info)
 
         def run():
-            tok0, ok = self._prefill_chunk_math(slot, req, ids, off, woff,
-                                                pids, final)
+            tok0, ok, lp = self._prefill_chunk_math(slot, req, ids, off,
+                                                    woff, pids, final)
             if tok0 is None:
-                return None, bool(ok)
-            return torch.stack([tok0, ok.long()]).tolist()
+                return None, bool(ok), None
+            first, ok = torch.stack([tok0, ok.long()]).tolist()
+            return first, ok, _host(lp)
 
+        tp0 = time.monotonic()
         try:
-            first, ok = _dispatched(run)
+            first, ok, lp0 = _dispatched(run)
+            req.trace.add_timed("prefill-chunk", tp0, time.monotonic(),
+                                chunk_off=off, width=W, final=final)
             if not ok:
                 raise InferenceFailedError(
                     "model produced non-finite activations during chunked "
@@ -1089,6 +1508,7 @@ class DecodeEngine:
         if self._spec is not None:
             self._spec.seed_slot(slot, req.seed)
         req.tokens.append(first)
+        self._emit_token(req, lp0)
         if len(req.tokens) >= req.n_tokens or first == self.eos_token:
             self._retire(slot, req)
             return
@@ -1101,6 +1521,8 @@ class DecodeEngine:
         dispatch may have left the in-place pools half-written, which
         backs every in-flight slot: those fail too and the state
         rebuilds."""
+        if self.breaker is not None:
+            self.breaker.record_failure(req.probe)
         with self._cond:
             self.failures += 1
             if attached:
@@ -1111,7 +1533,7 @@ class DecodeEngine:
         err = e if isinstance(e, ServingError) else InferenceFailedError(
             f"prefill failed: {type(e).__name__}: {e}")
         logger.warning("decode engine: prefill failure (%s)", err)
-        req.finish(err)
+        self._finish_obs(req, err, phase="prefill")
         if getattr(e, "_dispatch_failure", False):
             self._fail_occupied_slots(InferenceFailedError(
                 "paged KV pool lost to a failed prefill dispatch"))
@@ -1125,12 +1547,15 @@ class DecodeEngine:
                     self._active[s] = False
                     r.pages = None  # the pools rebuild wholesale after this
                     r.nodes = None  # ... and the prefix cache clears
-                    r.finish(err)
+                    if self.breaker is not None:
+                        self.breaker.record_failure(r.probe)
+                    self._finish_obs(r, err)
             self._cond.notify_all()
 
     def _retire(self, slot: int, req: _GenRequest, *,
                 attached: bool = True) -> None:
-        """Successful completion: free the slot and its pages, deliver."""
+        """Successful completion: free the slot and its pages, credit the
+        breaker, deliver."""
         with self._cond:
             if attached:
                 self._slots[slot] = None
@@ -1138,35 +1563,37 @@ class DecodeEngine:
             self._free_request_pages_locked(req)
             self.served += 1
             self._cond.notify_all()
-        req.finish()
+        if self.breaker is not None:
+            self.breaker.record_success(req.probe)
+        # the trace rides along so a p99 excursion can pin this request's
+        # timeline in the failures ring
+        self._gen_latency_hist.observe(
+            1e3 * (time.monotonic() - req.enqueued_at), trace=req.trace)
+        self.recorder.event("retire", slot=slot, tokens=len(req.tokens))
+        self._finish_obs(req)
 
     def _expire_in_flight(self) -> None:
         """Shed expired queued requests, and free the slot and pages of
         an expired in-flight one (decoding or mid-prefill)."""
         now = time.monotonic()
         with self._cond:
-            keep = collections.deque()
-            for req in self._queue:
-                if req.expired(now):
-                    self._pages_demand_queued -= req.n_pages
-                    self.shed_deadline += 1
-                    req.finish(DeadlineExceededError(
-                        "deadline expired while queued; request shed before "
-                        "prefill"))
-                else:
-                    keep.append(req)
-            self._queue = keep
-            for s in range(self.n_slots):
-                req = self._slots[s]
-                if req is not None and req.expired(now):
+            self._sweep_expired_locked(now)
+        for s in range(self.n_slots):
+            req = self._slots[s]
+            if req is not None and req.expired(now):
+                with self._cond:
                     self._slots[s] = None
                     self._active[s] = False
                     self._free_request_pages_locked(req)
                     self.shed_deadline += 1
                     self._cond.notify_all()
-                    req.finish(DeadlineExceededError(
-                        f"deadline expired after {len(req.tokens)} of "
-                        f"{req.n_tokens} tokens; slot freed"))
+                if self.breaker is not None:
+                    # the device work so far was healthy: expiry is a
+                    # deadline event, not a model failure
+                    self.breaker.record_success(req.probe)
+                self._finish_obs(req, DeadlineExceededError(
+                    f"deadline expired after {len(req.tokens)} of "
+                    f"{req.n_tokens} tokens; slot freed"))
 
     def _chunk_eligible(self, live, now: float) -> bool:
         """Several decode steps may run between read-backs only when no
@@ -1196,22 +1623,27 @@ class DecodeEngine:
         logger.warning("decode engine: decode failure (%s)", err)
         with self._cond:
             self.failures += len(live)
-            for s, req in live:
+        for s, req in live:
+            if self.breaker is not None:
+                self.breaker.record_failure(req.probe)
+            with self._cond:
                 self._slots[s] = None
                 self._active[s] = False
                 self._free_request_pages_locked(req)
-                req.finish(err)
-            self._cond.notify_all()
+                self._cond.notify_all()
+            self._finish_obs(req, err, phase="decode")
         if getattr(e, "_dispatch_failure", False):
             self._fail_occupied_slots(InferenceFailedError(
                 "paged KV pool lost to a failed decode dispatch"))
             self._reset_device_state()
 
     def _retire_or_poison(self, s: int, req: _GenRequest, toks, oks,
-                          n_steps: int) -> None:
+                          n_steps: int, lps=None) -> None:
         """Append one slot's tokens from a decode run until done (count
         or EOS; overshoot is dropped with the slot) or until a non-finite
-        step fails the request while healthy neighbours keep decoding."""
+        step fails the request while healthy neighbours keep decoding.
+        `lps` is the slot's per-step (chosen, top values, top ids)
+        logprob batch when the engine computes logprobs."""
         for t in range(n_steps):
             if not oks[t]:
                 with self._cond:
@@ -1220,11 +1652,15 @@ class DecodeEngine:
                     self._active[s] = False
                     self._free_request_pages_locked(req)
                     self._cond.notify_all()
-                req.finish(InferenceFailedError(
-                    "model produced non-finite logits during decode"))
+                if self.breaker is not None:
+                    self.breaker.record_failure(req.probe)
+                self._finish_obs(req, InferenceFailedError(
+                    "model produced non-finite logits during decode"),
+                    phase="decode")
                 return
             tok = int(toks[t])
             req.tokens.append(tok)
+            self._emit_token(req, lps, t)
             with self._cond:
                 self.tokens_generated += 1
             if len(req.tokens) >= req.n_tokens or tok == self.eos_token:
@@ -1295,6 +1731,8 @@ class DecodeEngine:
         delivered = 0
         for s, req in live:
             n = max(1, int(n_emit[s]))
+            req.trace.add_timed("spec-verify", t0c, t1c, k=k, emitted=n,
+                                active=len(live))
             before = len(req.tokens)
             self._retire_or_poison(s, req, out[s, :n], np.repeat(oks[s], n),
                                    n)
@@ -1325,13 +1763,18 @@ class DecodeEngine:
                 active_t = torch.from_numpy(self._active.copy()).to(
                     self.device)
                 steps = [self._decode_math(active_t) for _ in range(n_steps)]
-                toks = torch.stack([t for t, _ in steps])
-                oks = torch.stack([o for _, o in steps])
+                toks = torch.stack([t for t, _, _ in steps])
+                oks = torch.stack([o for _, o, _ in steps])
+                lps = None
+                if self._logprobs_k:
+                    lps = tuple(torch.stack([lp[j] for _, _, lp in steps])
+                                for j in range(3))
                 # the one host read-back per run: (n_steps, S) tokens and
-                # per-step finite flags
-                return toks.cpu().numpy(), oks.cpu().numpy()
+                # per-step finite flags (the logprob triple, when asked
+                # for, follows once the device is done)
+                return toks.cpu().numpy(), oks.cpu().numpy(), _host(lps)
 
-            toks, oks = _dispatched(run)
+            toks, oks, lps = _dispatched(run)
             self._hook("post_decode", info)
         except Exception as e:
             self._decode_failure(live, e)
@@ -1343,4 +1786,82 @@ class DecodeEngine:
             self.decode_steps += n_steps
             self.active_slot_steps += len(live) * n_steps
         for s, req in live:
-            self._retire_or_poison(s, req, toks[:, s], oks[:, s], n_steps)
+            req.trace.add_timed("decode", t0, t1, steps=n_steps,
+                                active=len(live))
+            lp_s = None if lps is None else \
+                (lps[0][:, s], lps[1][:, s], lps[2][:, s])
+            self._retire_or_poison(s, req, toks[:, s], oks[:, s], n_steps,
+                                   lps=lp_s)
+
+    def _maybe_swap(self) -> None:
+        """Once a drain has emptied every slot, swap to the pending net:
+        rebuild the geometry, the pools, the prefix cache and the draft
+        for it, unless it is the very net the pools were built under
+        (`ModelServer.restore_model`'s rollback), which keeps them. Queued
+        requests are re-reserved against the new geometry; one that no
+        longer fits fails typed. A failed build keeps the old weights
+        serving and hands its error to `drain_and_swap`."""
+        if not self._draining:
+            return
+        with self._cond:
+            if any(r is not None for r in self._slots):
+                return  # still draining: in-flight finish on old weights
+            net = self._swap_net
+            if net is None:  # drain abandoned (timeout in drain_and_swap)
+                self._draining = False
+                return
+            # claimed: from here the swap completes or fails and sets
+            # _swap_done; a timing-out drain_and_swap waits it out
+            self._swap_in_progress = True
+        try:
+            if net is self._net:
+                with self._cond:
+                    self.swaps += 1
+                self.recorder.event("swap", decision="preserved-pools")
+                return
+            self._build(net)
+            misfit = []
+            with self._cond:
+                self.swaps += 1
+                keep: collections.deque = collections.deque()
+                reserved = 0
+                while self._queue:
+                    r = self._queue.popleft()
+                    r.digests = []  # page digests of the old geometry
+                    if r.prompt.shape[0] + r.n_tokens > self.max_len:
+                        misfit.append(r)
+                        continue
+                    r.n_pages = self._pages_for(r.prompt.shape[0],
+                                                r.n_tokens)
+                    if r.n_pages > self.pool_pages or \
+                            reserved + r.n_pages > self.max_queued_pages:
+                        misfit.append(r)
+                        continue
+                    reserved += r.n_pages
+                    keep.append(r)
+                self._queue = keep
+                self._pages_demand_queued = reserved
+            for r in misfit:
+                self._finish_obs(r, ServingError(
+                    f"request (prompt {r.prompt.shape[0]} + n_tokens "
+                    f"{r.n_tokens}) no longer fits the swapped engine's "
+                    f"max_len {self.max_len} / {self.pool_pages}-page "
+                    "pool"))
+            self.recorder.event("swap", decision="complete",
+                                misfit=len(misfit))
+        # a rejected swap keeps the old weights serving; the error goes
+        # to drain_and_swap's caller
+        except Exception as e:
+            with self._cond:
+                self._swap_error = e
+            self.recorder.event("swap", decision="rejected",
+                                error=type(e).__name__)
+            logger.warning("decode engine: weight swap rejected (%s); "
+                           "old weights still serving", e)
+        finally:
+            with self._cond:
+                self._swap_net = None
+                self._draining = False
+                self._swap_in_progress = False
+                self._cond.notify_all()
+            self._swap_done.set()

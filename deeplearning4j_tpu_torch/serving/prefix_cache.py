@@ -187,6 +187,9 @@ class PrefixCache:
     def bind_directory(self, directory, holder: str) -> "PrefixCache":
         self._unported("bind_directory")
 
+    def chains(self) -> dict:
+        self._unported("chains")
+
     # -- introspection -----------------------------------------------------
     @property
     def cached_pages(self) -> int:

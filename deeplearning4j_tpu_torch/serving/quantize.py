@@ -34,8 +34,9 @@ tables, biases and LayerNorm parameters keep full precision.
 
 **Drift gates** (`drift_report`): argmax disagreement and perplexity
 delta of a candidate against a reference on a pinned eval set (numpy).
-Enforcing them at a model swap belongs to `ModelServer`'s canary ladder,
-which is not ported yet (ROADMAP queue A11).
+`ModelServer(quantize={"weights": ...}, drift_gate={...})` enforces them
+at construction and on every reload candidate, after the canary and
+before the swap (`serving/model_server.py`, `_check_drift_gate`).
 
 Not carried over: the JAX package's `int8_kv_enabled` and its
 ``DL4J_TPU_NO_INT8_KV`` environment switch. This package has no switch
@@ -227,3 +228,12 @@ def drift_report(ref_out: np.ndarray, cand_out: np.ndarray,
             "ppl_ref": round(ppl_ref, 6),
             "ppl_cand": round(ppl_cand, 6),
             "ppl_delta": round(ppl_cand - ppl_ref, 6)}
+
+
+def __getattr__(name):
+    if name in ("KV_KILL_ENV", "int8_kv_enabled"):
+        raise NotImplementedError(
+            f"serving.quantize.{name} is not carried over: the port has no "
+            "switch that turns a tier off (ROADMAP queue C3, closed: not "
+            "ported by design; ground rule 4: no kill switch)")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

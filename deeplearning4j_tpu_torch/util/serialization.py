@@ -181,6 +181,14 @@ def restore_model(path: Union[str, Path], load_updater: bool = True,
     return restore_multi_layer_network(path, load_updater, device)
 
 
+def restore_computation_graph(path: Union[str, Path],
+                              load_updater: bool = True, device="cuda"):
+    """The JAX package's ComputationGraph restore: not ported yet."""
+    raise NotImplementedError(
+        "restore_computation_graph is not ported yet (ROADMAP queue A10: "
+        "ComputationGraph)")
+
+
 def _load_updater_state(net, flat: np.ndarray) -> None:
     slots = [(layer, k, sk) for layer in net._upd_state
              for k in sorted(layer) for sk in sorted(layer[k])]

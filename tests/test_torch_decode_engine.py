@@ -339,19 +339,27 @@ def test_eos_and_sampled_requests(nets):
 
 
 def test_unported_options_are_refused(nets):
+    """The cluster tier's options (tensor parallelism, QoS, the
+    disaggregated roles, tenants and the batch lane) still raise naming
+    A11; the serving seams `ModelServer` drives (breaker, logprobs,
+    on_token) are ported and accepted."""
     _, pnet = nets
     with pytest.raises(NotImplementedError, match="not ported"):
         _engine(pnet, parallel={"tp": 2})
     with pytest.raises(NotImplementedError, match="A11"):
         _engine(pnet, qos={"tenants": {}})
     with pytest.raises(NotImplementedError, match="not ported"):
-        _engine(pnet, logprobs=2)
+        _engine(pnet, role="prefill")
     with pytest.raises(TypeError, match="unexpected"):
         _engine(pnet, no_such_option=1)
-    eng = _engine(pnet, breaker=None)  # the JAX default is accepted
+    eng = _engine(pnet, breaker=None, logprobs=2)
     try:
         with pytest.raises(NotImplementedError, match="not ported"):
-            eng.submit(_prompts(1, 4)[0], 2, logprobs=2)
+            eng.submit(_prompts(1, 4)[0], 2, tenant="a")
+        with pytest.raises(NotImplementedError, match="A11"):
+            eng.submit(_prompts(1, 4)[0], 2, priority="batch")
+        out = eng.generate(_prompts(1, 4)[0], 2, logprobs=2)
+        assert len(out["tokens"]) == 2 and len(out["logprobs"]) == 2
     finally:
         eng.shutdown()
 

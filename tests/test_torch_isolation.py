@@ -1,5 +1,6 @@
 """The port stands alone: importing `deeplearning4j_tpu_torch`, serving
-from it (also with int8 KV, the prefix cache and speculative decoding),
+from it (also with int8 KV, the prefix cache and speculative decoding,
+and behind `ModelServer` with a hot reload),
 training with it (fit through the flash-attention route, a checkpoint
 written and restored) and running the recurrent path (a GravesLSTM
 char-RNN fit with truncated BPTT, then streamed with rnn_time_step on
@@ -24,7 +25,7 @@ from deeplearning4j_tpu_torch.models.transformer import (
     gpt_configuration,
 )
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
-from deeplearning4j_tpu_torch.serving import DecodeEngine
+from deeplearning4j_tpu_torch.serving import DecodeEngine, ModelServer
 from deeplearning4j_tpu_torch.util.serialization import (
     restore_multi_layer_network,
 )
@@ -164,6 +165,25 @@ _SCRIPT = textwrap.dedent("""
     back.conf.tbptt_fwd_length = 0
     back.fit(DataSet(x, y))
     assert back.iteration == 7 and np.isfinite(back.score_value)
+
+    # serving behind ModelServer: predict, generate, a hot reload from a
+    # checkpoint store, the breaker, metrics and the flight recorder
+    from deeplearning4j_tpu_torch.serving import ModelServer
+    srv = ModelServer(net, generation={"n_slots": 1, "max_len": 24,
+                                       "prompt_buckets": (8,)})
+    try:
+        probs = srv.predict((np.arange(10) % 16)[None])
+        tokens = srv.generate(np.arange(5) % 16, 3)
+        with tempfile.TemporaryDirectory() as d:
+            store = CheckpointStore(d)
+            store.save(1, lambda tmp: write_model(net, tmp, atomic=False))
+            assert srv.reload(store) == 1
+        assert (srv.generate(np.arange(5) % 16, 3) == tokens).all()
+        assert "dl4j_model_server_predict_latency_ms" in srv.metrics_text()
+        assert srv.flight_record()["events"]
+    finally:
+        assert srv.shutdown()
+    assert probs.shape == (1, 10, 16)
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")
                     or m == "deeplearning4j_tpu"
@@ -206,6 +226,15 @@ def test_entry_points_default_to_the_card():
     without a card it raises; with one it runs there."""
     cpu_net = _tiny_net("cpu")
     cpu_net.init()
+    # ModelServer serves on its network's device, and so does the engine
+    # it builds: a CPU network is served on the CPU
+    srv = ModelServer(cpu_net, generation={"n_slots": 1, "max_len": 24,
+                                           "prompt_buckets": (8,)})
+    try:
+        assert srv.generate(np.arange(3), 2).shape == (2,)
+        assert srv._engine.device.type == "cpu"
+    finally:
+        srv.shutdown()
     if torch.cuda.is_available():
         assert MultiLayerNetwork(cpu_net.conf).device.type == "cuda"
         with pytest.raises(ValueError, match="lives on"):
