@@ -58,7 +58,13 @@ belongs to):
   bf16 LSTM kernels), whose failed check counts as caught;
 - server: `chip_smoke.py`'s phase 21 (path 5, the GPT behind
   `ModelServer` on the paged and flash kernels), whose failed check
-  counts as caught.
+  counts as caught;
+- cnn: `chip_smoke.py`'s phase 22 (the CNN layers on the card against
+  the CPU and numpy, path 6's LeNet and its parity), whose failed check
+  counts as caught;
+- moe: `chip_smoke.py`'s phase 23 (SelfAttention on the flash kernels,
+  MoELayer against numpy, path 2m, the MoE engine against `generate`),
+  whose failed check counts as caught.
 
 The faults (`MUTATIONS`) drop tiles, terms or rows, and break each
 mechanism of the Hopper kernels: the forward's diagonal mask on the wrong
@@ -121,7 +127,15 @@ gradient norm without the first layer's gradients; the serving tier
 (`serving/model_server.py`, `serving/decode_engine.py`): predict's
 non-finite screen skipped, the breaker opening at the first failure
 whatever its threshold, the engine swapping weights while slots are
-occupied, and a reload that skips the canary. A
+occupied, and a reload that skips the canary; the CNN layers
+(`nn/conf/layers.py`, `nn/conf/preprocessors.py`): SAME padding applied
+symmetrically (the smaller pad on both sides, as a symmetric `padding=`
+would), MAX pooling padded with 0 instead of -inf, the CnnToFeedForward
+flatten in NCHW order instead of NHWC, and BatchNormalization's running
+variance moved by the unbiased batch variance; the Switch MoE
+(`parallel/experts.py`, `nn/multilayer.py`): capacity overflow not
+dropped (every expert's capacity N), and the load-balancing term left
+out of the training loss. A
 fault that makes the kernel trap (an mbarrier wait that times out) fails
 its check process, which counts as caught.
 
@@ -152,6 +166,12 @@ GUARD = "guard"
 # `serving/decode_engine.py`), checked by `chip_smoke.py`'s phase 21
 # (path 5) on the paged and flash kernels
 SERVER = "server"
+# the CNN layers (`nn/conf/layers.py`, `nn/conf/preprocessors.py`),
+# checked by `chip_smoke.py`'s phase 22 (no CUDA source of the port), and
+# the Switch MoE (`parallel/experts.py`, the aux loss in
+# `nn/multilayer.py`), checked by its phase 23 on the flash and paged
+# kernels
+CNN, MOE = "cnn", "moe"
 # (B, T, H, D, causal, dtype): bf16, the training path's kernels at D = 128,
 # the "wgmma wide" kernels at D = 256 and the "wgmma cluster" backward at
 # D = 384 and 512 (T = 192: the first diagonal tiles; T = 1024 full: every
@@ -645,6 +665,39 @@ MUTATIONS = [
      "    def reload(self, source, step: Optional[int] = None,", [
          ("                self._validate_candidate(candidate, canary)\n", "")],
      "serving/model_server.py"),
+    # the CNN layers, each caught by phase 22: the conv and pooling
+    # cases against numpy, LeNet's output against numpy, BatchNorm's
+    # running stats against the biased batch statistics
+    ("cnn: SAME padding symmetric", CNN, "class ConvolutionLayer(", [
+        ("y = F.conv2d(_nchw(_pad_hw(x, pad)),",
+         "y = F.conv2d(_nchw(_pad_hw(x, tuple((a, a) for a, _ in pad))),")],
+     "nn/conf/layers.py"),
+    ("cnn: MAX pooling padded with 0", CNN, "class SubsamplingLayer(", [
+        ('xp = _pad_hw(x, pad, float("-inf"))', "xp = _pad_hw(x, pad)")],
+     "nn/conf/layers.py"),
+    ("cnn: CnnToFeedForward flattens NCHW", CNN,
+     "class CnnToFeedForwardPreProcessor(", [
+         ("        return x.reshape(x.shape[0], -1)",
+          "        return x.permute(0, 3, 1, 2).reshape(x.shape[0], -1)")],
+     "nn/conf/preprocessors.py"),
+    ("cnn: BatchNormalization's running var unbiased", CNN,
+     "class BatchNormalization(", [
+         ('"var": d * state["var"] + (1 - d) * var}',
+          '"var": d * state["var"] + (1 - d) * var\n'
+          '                         * (x.numel() // x.shape[-1])\n'
+          '                         / (x.numel() // x.shape[-1] - 1)}')],
+     "nn/conf/layers.py"),
+    # the Switch MoE, each caught by phase 23: MoELayer against numpy
+    # with overflow, the load-balancing term of the loss
+    ("moe: capacity overflow not dropped", MOE,
+     "def moe_apply_reference(", [
+         ("    capacity = int(math.ceil(N / E * capacity_factor))",
+          "    capacity = N")],
+     "parallel/experts.py"),
+    ("moe: the aux loss left out of the loss", MOE,
+     "    def _loss_pure(self,", [
+         ("            loss = loss + term\n", "            pass\n")],
+     "nn/multilayer.py"),
 ]
 
 
@@ -697,7 +750,8 @@ def build(sources) -> None:
     LSTM kernels, the server on the paged and flash kernels)."""
     from deeplearning4j_tpu_torch.ops import cuda_build
 
-    needs = {GUARD: (LSTM,), SERVER: (PAGED, FLASH)}
+    needs = {GUARD: (LSTM,), SERVER: (PAGED, FLASH), CNN: (),
+             MOE: (PAGED, FLASH)}
     cuda_build.build(tuple(sorted({k for s in sources
                                    for k in needs.get(s, (s,))})))
 
@@ -720,6 +774,17 @@ def check(sources) -> None:
         cases += guard_cases(torch)
     if SERVER in sources:
         cases += server_cases(torch)
+    if CNN in sources:
+        cases += phase_cases(torch, "22", "the CNN layers and path 6",
+                             lambda cs, M, card: (
+                                 cs.phase_cnn_layers(torch, M),
+                                 cs.phase_lenet(torch, M, card)))
+    if MOE in sources:
+        import deeplearning4j_tpu_torch.ops.paged_attention as pa
+
+        cases += phase_cases(torch, "23", "SelfAttention, MoE, path 2m",
+                             lambda cs, M, card: cs.phase_attention_moe(
+                                 torch, M, pa, card))
     print(json.dumps({"package": fa.__file__, "cases": cases}), flush=True)
 
 
@@ -766,6 +831,22 @@ def server_cases(torch):
         units = float("inf")
     return [{"case": "path 5 (chip_smoke phase 21)",
              "units": {"phase 21": units}, "old_units": None}]
+
+
+def phase_cases(torch, phase: str, what: str, run):
+    """A phase of `chip_smoke.py` on the copy: passes, or its failed
+    check counts as infinite."""
+    import chip_smoke as cs
+
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        run(cs, cs.port_modules(), cs.nvidia_smi_line())
+        units = 0.0
+    except AssertionError as e:  # the check's verdict on this copy
+        log(f"phase {phase} failed: {str(e)[:300]}")
+        units = float("inf")
+    return [{"case": f"{what} (chip_smoke phase {phase})",
+             "units": {f"phase {phase}": units}, "old_units": None}]
 
 
 def lstm_cases(torch):

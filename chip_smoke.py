@@ -5,6 +5,7 @@ NVIDIA card.
     python3 chip_smoke.py            # every phase, a few minutes on an H100
     python3 chip_smoke.py --lstm-timing [--package OLD/deeplearning4j_tpu_torch]
     python3 chip_smoke.py --path5    # phase 21 alone (about 1.5 minutes)
+    python3 chip_smoke.py --phases-22-23   # the CNN and MoE phases alone
 
 `--lstm-timing` runs phase 17 alone (the LSTM source built, the rows
 checked and timed, launch counts 0) on the checkout's package or, with
@@ -13,7 +14,8 @@ checked and timed, launch counts 0) on the checkout's package or, with
 the rows' times. Run it old/new/new/old in one call for a kernel A/B.
 `--path5` builds the paged and flash sources and runs phase 21 (path 5,
 the GPT behind `ModelServer`) alone, then prints one JSON line of its
-launch counts.
+launch counts. `--phases-22-23` builds the paged and flash sources and
+runs phases 22 and 23 alone (their rows and launch counts logged).
 
 Phases, each of which makes the script exit non-zero when it fails:
 
@@ -311,7 +313,49 @@ Phases, each of which makes the script exit non-zero when it fails:
    predict-latency and engine histograms, `flight_record()` the served,
    reload and breaker events; the paged kernel launched at C=1 and
    C=256 (bf16 pools, before the reload) and the f32 flash forward, no
-   plain call. Its launch counts go into phase 16's rows.
+   plain call. Its launch counts go into phase 16's rows;
+22. the CNN layers and path 6 (f32 with TF32 off for the checks): each
+   layer's forward and its input and parameter gradients on the card
+   held to the same layer on the CPU, and its forward to this script's
+   numpy f64 version (written here, not taken from the port), within
+   1e-4 of the largest |reference| (`CNN_TOL`): convolutions in Truncate
+   (pad 1), Same (4x4, and 3x3 at stride 2: pads split with the extra at
+   the end), Strict (stride 2) and dilation 2; MAX, AVG, SUM and PNORM
+   pooling with SAME padding on negative inputs; BatchNormalization
+   (FF and NHWC) for 3 training steps, its running mean and variance
+   against the biased batch statistics, then in eval mode; LRN (n=5);
+   masked global MAX and AVG pooling. Then path 6: `lenet_configuration()`
+   at bench_lenet's shape (`bench.py:202-232`: B=4096 28x28x1 uint8
+   images, seeded class templates plus noise, through
+   `ImagePreProcessingScaler`, bf16 compute over f32 masters, Nesterovs
+   lr 0.01 momentum 0.9): a warm-up step, then 5 timed steps (step ms,
+   samples/s, losses finite and falling, peak device memory), one more
+   under torch.profiler (idle share, top kernels, copy kernels); then
+   LeNet in f32 on the card and on the CPU from one set of weights, 3
+   steps at B=64 (losses rtol 1e-4, parameters 1e-5 + 1e-5 |ref|), and
+   the card's `output` against a numpy forward (the flatten in (h, w, c)
+   order) within 1e-4;
+23. SelfAttention, MoE and path 2m: a non-causal `SelfAttention` of
+   gpt_long's width (1024, 8 heads of 128, block_size 1024) at B=2,
+   T=4096 in bf16 and in f32: output and every gradient on the flash
+   route against the same layer on its plain route (full attention) in
+   f32, within 2e-2 (bf16) / 1e-4 (f32) of the largest |reference| (dbk,
+   0 in exact arithmetic, at dbv's scale), one launch of each flash
+   kernel on "wgmma" / "tf32"; TokenEmbedding -> SelfAttention ->
+   GlobalPoolingLayer(AVG) -> OutputLayer takes 3 bf16 fit steps (3
+   launches of each kernel on "wgmma", no plain call); an `MoELayer`
+   network in f32 against numpy with capacity overflow (the output
+   within 1e-4, the load-balancing term of the training loss within
+   1e-5); path 2m: gpt_long with `moe_experts=8` (capacity factor 1.25,
+   aux weight 0.01), bf16 over f32 masters, B=8 x T=4096, Adam, as phase
+   9 with 3 timed steps (8 launches of each flash kernel a step on
+   "wgmma"), the load-balancing term and the dispatch's index kernels in
+   the traced step; the same network in f32 at capacity factor 8 behind
+   a `DecodeEngine`: two prompts (100 and 600 tokens) x 32 greedy tokens
+   equal `generate`'s, with paged launches at C=1 and C=256 and no plain
+   call. The non-causal flash rows at the SelfAttention shape (bf16 and
+   f32) are timed as in phase 16 with its launches; path 2m's launches
+   go into the causal rows at path 2's shape, its engine's into rows 1.
 
 Prints one JSON line of per-kernel numbers, then the card's
 `nvidia-smi` line, then as the last line
@@ -907,12 +951,13 @@ def traced_batch(torch, eng, prompts, n_tok) -> str:
     return traced(torch, run)
 
 
-def traced(torch, run) -> str:
+def traced(torch, run, per_name=None) -> str:
     """`run()` under torch.profiler: the device's busy time (union of
     kernel intervals), the host wall inside the trace, the idle share and
-    the kernels with the most device time. The profiler is a reading
-    only: one that cannot trace on this machine is reported, not fatal;
-    a failure of `run` propagates."""
+    the kernels with the most device time (and every kernel's device us,
+    by name, into the dict `per_name` when one is given). The profiler is
+    a reading only: one that cannot trace on this machine is reported,
+    not fatal; a failure of `run` propagates."""
     from torch.profiler import ProfilerActivity, profile
 
     def not_measured(e):
@@ -937,7 +982,7 @@ def traced(torch, run) -> str:
     if not dev:
         return "device busy share not measured (no device events traced)"
     busy, end = 0.0, None
-    per_name: dict = {}
+    per_name = {} if per_name is None else per_name
     for ev in sorted(dev, key=lambda ev: ev.time_range.start):
         a, b = ev.time_range.start, ev.time_range.end
         per_name[ev.name] = per_name.get(ev.name, 0.0) + (b - a)
@@ -1573,18 +1618,23 @@ def phase_train_parity(torch, M):
 
 
 def phase_train(torch, M, card, compute_dtype, B, steps, seed, route,
-                n_heads=TRAIN["n_heads"]):
+                n_heads=TRAIN["n_heads"], moe_experts=0):
     """Main path 2 (bf16 compute over f32 masters), 2f (f32, the
-    default), 2w (bf16, `n_heads` 4: head dim 256) or 2x (bf16, `n_heads`
-    2: head dim 512): full-width gpt_long training steps via fit at B x
-    T=4096: 1 warm-up step, the median of `steps` timed steps, the flash
-    launch counts over them (8 of each kernel a step, all on `route`, or
-    on `route[kind]` where it is a dict by kind, no plain call), one more
-    step under torch.profiler."""
+    default), 2w (bf16, `n_heads` 4: head dim 256), 2x (bf16, `n_heads`
+    2: head dim 512) or 2m (bf16, `moe_experts` 8: Switch MoE blocks):
+    full-width gpt_long training steps via fit at B x T=4096: 1 warm-up
+    step, the median of `steps` timed steps, the flash launch counts over
+    them (8 of each kernel a step, all on `route`, or on `route[kind]`
+    where it is a dict by kind, no plain call), one more step under
+    torch.profiler. With MoE blocks also the load-balancing term (the
+    train-mode score less the inference score on a timed batch, finite
+    and positive) and the device ms of the dispatch's scatter/gather
+    (the index kernels) in the traced step."""
     import numpy as np
 
     fa = M["fa"]
-    conf = M["gpt_configuration"](**{**TRAIN, "n_heads": n_heads}, seed=13)
+    conf = M["gpt_configuration"](**{**TRAIN, "n_heads": n_heads},
+                                  moe_experts=moe_experts, seed=13)
     net = M["MultiLayerNetwork"](conf, dtype=torch.float32,
                                  compute_dtype=compute_dtype, device="cuda")
     net.init()
@@ -1608,9 +1658,21 @@ def phase_train(torch, M, card, compute_dtype, B, steps, seed, route,
     plain = (fa.flash_attention_plain_fwd.calls,
              fa.flash_attention_plain_bwd.calls)
     peak = torch.cuda.max_memory_allocated()
-    trace = traced(torch, lambda: net.fit(batches[-1]))
+    kernels: dict = {}
+    trace = traced(torch, lambda: net.fit(batches[-1]), kernels)
     med = sorted(step_ms)[len(step_ms) // 2]
     tokens = B * TRAIN_T
+    if moe_experts:
+        aux = net.score(batches[1], train=True) \
+            - net.score(batches[1], train=False)
+        index_us = sum(t for n, t in kernels.items() if "index" in n.lower())
+        log(f"  MoE ({moe_experts} experts, capacity factor "
+            f"{conf.layers[1].moe_capacity_factor}, aux weight "
+            f"{conf.layers[1].moe_aux_weight}): load-balancing term "
+            f"{aux:.6f} of the loss; the dispatch's scatter/gather (index "
+            f"kernels) {index_us / 1e3:.2f} ms of the traced step")
+        if not (np.isfinite(aux) and aux > 0):
+            raise AssertionError(f"MoE load-balancing term {aux}")
     log(f"  {steps} steps of B={B} x T={TRAIN_T}, {n_heads} heads of "
         f"{TRAIN['d_model'] // n_heads} "
         f"({str(compute_dtype or torch.float32)[6:]}): step ms "
@@ -1635,13 +1697,13 @@ def phase_train(torch, M, card, compute_dtype, B, steps, seed, route,
     return counts
 
 
-def flash_work(B, H, T, D, kind, e=2):
-    """FLOPs and bytes of one causal launch at (B, H, T, D) with elements
-    of `e` bytes: the T(T+1)/2 visible (query, key) pairs per head, 2*D
-    flops per pair and product (2 products forward, 3 for dQ, 4 for
-    dK/dV); each input read once and each output written once (L and
-    dsum f32)."""
-    pairs = B * H * T * (T + 1) // 2
+def flash_work(B, H, T, D, kind, e=2, causal=True):
+    """FLOPs and bytes of one launch at (B, H, T, D) with elements of `e`
+    bytes: the T(T+1)/2 visible (query, key) pairs per head (T*T when not
+    causal), 2*D flops per pair and product (2 products forward, 3 for
+    dQ, 4 for dK/dV); each input read once and each output written once
+    (L and dsum f32)."""
+    pairs = B * H * T * (T + 1) // 2 if causal else B * H * T * T
     slab = B * H * T * D * e
     stats = B * H * T * 4
     if kind == "fwd":
@@ -1699,10 +1761,12 @@ def phase_flash_timing(torch, fa, counts, counts_f32, counts_wide,
     return rows
 
 
-def flash_rows(torch, fa, B, H, T, D, counts, err, seed, dtype=None, tag=""):
-    """The three kernels at (B, H, T, D) causal in `dtype` (bf16 unless
-    given), held to the plain versions, then timed beside them, SDPA and
-    the bound: one row each, named with `tag` appended. An f32 kernel on
+def flash_rows(torch, fa, B, H, T, D, counts, err, seed, dtype=None, tag="",
+               causal=True):
+    """The three kernels at (B, H, T, D), causal unless `causal` is
+    False, in `dtype` (bf16 unless given), held to the plain versions,
+    then timed beside them, SDPA and the bound: one row each, named with
+    `tag` appended. An f32 kernel on
     a split-TF32 route ("tf32", "tf32 cluster") is bound by its three TF32
     passes (3 x flops / 495 TFLOP/s) or its bytes; the f32-FMA bound is
     logged beside it, and a cluster kernel's clusters (blocks each, how
@@ -1712,33 +1776,35 @@ def flash_rows(torch, fa, B, H, T, D, counts, err, seed, dtype=None, tag=""):
     dtype = dtype or torch.bfloat16
     f32 = dtype == torch.float32
     q, k, v, do = flash_inputs(torch, B, T, H, D, dtype, seed=seed)
-    o, lse, dq, dk, dv = flash_run(fa, q, k, v, do, True)
+    o, lse, dq, dk, dv = flash_run(fa, q, k, v, do, causal)
     dsum = fa._dsum(o, do)
-    ref = flash_plain_f32(fa, q, k, v, do, True, (o, lse))
+    ref = flash_plain_f32(fa, q, k, v, do, causal, (o, lse))
     torch.cuda.synchronize()
     err = max(err, flash_check(
         torch, fa, (o, lse, dq, dk, dv), ref, dtype,
-        f"B={B} T={T} H={H} D={D} {str(dtype)[6:]} causal (timed shape)"))
+        f"B={B} T={T} H={H} D={D} {str(dtype)[6:]} "
+        f"{'causal' if causal else 'full'} (timed shape)"))
     del ref
     torch.cuda.empty_cache()
-    ms = {"fwd": time_ms(torch, lambda: fa.flash_forward(q, k, v, True, None,
+    ms = {"fwd": time_ms(torch, lambda: fa.flash_forward(q, k, v, causal, None,
                                                          with_lse=True)),
           "dq": time_ms(torch, lambda: fa.flash_bwd_dq(q, k, v, do, lse, dsum,
-                                                       True, None)),
+                                                       causal, None)),
           "dkv": time_ms(torch, lambda: fa.flash_bwd_dkv(q, k, v, do, lse,
-                                                         dsum, True, None))}
+                                                         dsum, causal, None))}
     plain_fwd = time_ms(torch, lambda: fa.flash_attention_plain_fwd(
-        q, k, v, True), iters=10)
+        q, k, v, causal), iters=10)
     plain_bwd = time_ms(torch, lambda: fa.flash_attention_plain_bwd(
-        q, k, v, o, lse, do, True), iters=10)
+        q, k, v, o, lse, do, causal), iters=10)
     torch.cuda.empty_cache()
     qt, kt, vt, dot = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
     lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True))
+        qt, kt, vt, is_causal=causal))
     leaves = [t.clone().requires_grad_() for t in (qt, kt, vt)]
 
     def sdpa_fwd_bwd():
-        F.scaled_dot_product_attention(*leaves, is_causal=True).backward(dot)
+        F.scaled_dot_product_attention(*leaves,
+                                       is_causal=causal).backward(dot)
 
     lib_bwd = time_ms(torch, sdpa_fwd_bwd) - lib_fwd
     rows = []
@@ -1748,7 +1814,8 @@ def flash_rows(torch, fa, B, H, T, D, counts, err, seed, dtype=None, tag=""):
                                          ("dq", "flash_attention_bwd_dq"),
                                          ("dkv", "flash_attention_bwd_dkv"))):
         route = fa.ROUTES[lib.dl4j_flash_route(code, int(not f32), D)]
-        flops, nbytes = flash_work(B, H, T, D, kind, q.element_size())
+        flops, nbytes = flash_work(B, H, T, D, kind, q.element_size(),
+                                   causal)
         t_ops = flops / (PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS)
         fma_ms = 1e3 * max(t_ops, nbytes / PEAK_BYTES)
         if route.startswith("tf32"):
@@ -1765,9 +1832,10 @@ def flash_rows(torch, fa, B, H, T, D, counts, err, seed, dtype=None, tag=""):
                "library_ms": lib_fwd if kind == "fwd" else lib_bwd}
         what = ("plain: the whole plain backward; library: SDPA fwd+bwd "
                 "minus fwd, both backward kernels together") \
-            if kind != "fwd" else "library: SDPA causal forward"
+            if kind != "fwd" else "library: SDPA forward"
         lib_flops = flops if kind == "fwd" else sum(
-            flash_work(B, H, T, D, k)[0] for k in ("dq", "dkv"))
+            flash_work(B, H, T, D, k, causal=causal)[0]
+            for k in ("dq", "dkv"))
         fma = f", f32-FMA bound {fma_ms:.4f} ms" if f32 else ""
         if kind == "fwd" and D in FLASH_FWD_MMA_MS and not f32 and T == 2048:
             fma += (f"; the mma.sync forward it replaced: "
@@ -3678,6 +3746,601 @@ def serve5_launches(rows, counts) -> None:
                 row["launches"] += int(n)
 
 
+# ------------------------------------------ phase 22: CNN layers, path 6
+# f32 with TF32 off: every layer output and gradient on the card within
+# CNN_TOL of the largest |reference| (the same layer on the CPU, and this
+# script's own numpy f64 version of the layer)
+CNN_TOL = 1e-4
+# bench.py bench_lenet (bench.py:202-232): B=4096 28x28x1 uint8 images
+# through ImagePreProcessingScaler, bf16 compute over f32 masters,
+# Nesterovs lr 0.01 momentum 0.9, 10 classes
+LENET_B, LENET_STEPS, LENET_PARITY_B, LENET_PARITY_STEPS = 4096, 5, 64, 3
+
+
+def np_same_pad(n, k, s, d=1):
+    """SAME padding (lo, hi) of one axis, the extra pad at the end: this
+    script's own copy of the rule, so that the check does not lean on
+    the port's `util/conv_utils.py`."""
+    ek = k + (k - 1) * (d - 1)
+    total = max(0, (-(-n // s) - 1) * s + ek - n)
+    return total // 2, total - total // 2
+
+
+def np_windows(np, x, kernel, stride, dilation, pad, value):
+    """(i, j, slab) for every kernel offset: the strided slab of the
+    padded NHWC `x` that offset reads, (B, OH, OW, C)."""
+    (t, b), (l, r) = pad
+    xp = np.pad(x, ((0, 0), (t, b), (l, r), (0, 0)), constant_values=value)
+    ekh = dilation[0] * (kernel[0] - 1) + 1
+    ekw = dilation[1] * (kernel[1] - 1) + 1
+    oh = (xp.shape[1] - ekh) // stride[0] + 1
+    ow = (xp.shape[2] - ekw) // stride[1] + 1
+    for i in range(kernel[0]):
+        for j in range(kernel[1]):
+            a, c = i * dilation[0], j * dilation[1]
+            yield i, j, xp[:, a:a + stride[0] * (oh - 1) + 1:stride[0],
+                           c:c + stride[1] * (ow - 1) + 1:stride[1], :]
+
+
+def np_conv(np, x, W, b, stride, dilation, pad):
+    out = 0.0
+    for i, j, slab in np_windows(np, x, W.shape[:2], stride, dilation, pad,
+                                 0.0):
+        out = out + slab @ W[i, j]
+    return out + b
+
+
+def np_pool(np, x, kind, kernel, stride, pad, pnorm=2):
+    """MAX pads with -inf; AVG divides by the whole window; SUM and
+    PNORM pad with 0."""
+    value = -np.inf if kind == "max" else 0.0
+    slabs = [s for _, _, s in np_windows(np, x, kernel, stride, (1, 1), pad,
+                                         value)]
+    if kind == "max":
+        return np.max(slabs, axis=0)
+    if kind == "pnorm":
+        return np.sum([np.abs(s) ** pnorm for s in slabs],
+                      axis=0) ** (1.0 / pnorm)
+    total = np.sum(slabs, axis=0)
+    return total / len(slabs) if kind == "avg" else total
+
+
+def np_lrn(np, x, k, n, alpha, beta):
+    C = x.shape[-1]
+    sq = np.pad(x * x, ((0, 0),) * 3 + ((n // 2, n - 1 - n // 2),))
+    s = sum(sq[..., i:i + C] for i in range(n))
+    return x / (k + alpha * s) ** beta
+
+
+def np_global_pool(np, x, mask, kind):
+    m = mask[:, :, None]
+    if kind == "max":
+        return np.where(m > 0, x, -np.inf).max(axis=1)
+    return (x * m).sum(axis=1) / np.maximum(m.sum(axis=1), 1.0)
+
+
+def np_lenet_probs(np, params, images):
+    """LeNet's inference forward in f64 from the network's parameters:
+    pixels / 255, two valid 5x5 convolutions each followed by 2x2 max
+    pooling, the maps flattened in (h, w, c) order, dense ReLU, softmax."""
+    p = [{k: v.detach().double().cpu().numpy() for k, v in q.items()}
+         for q in params]
+    h = (images.astype(np.float64) / 255.0).reshape(-1, 28, 28, 1)
+    none = ((0, 0), (0, 0))
+    for c in (0, 2):
+        h = np_conv(np, h, p[c]["W"], p[c]["b"], (1, 1), (1, 1), none)
+        h = np_pool(np, h, "max", (2, 2), (2, 2), none)
+    h = np.maximum(h.reshape(h.shape[0], -1) @ p[4]["W"] + p[4]["b"], 0.0)
+    z = h @ p[5]["W"] + p[5]["b"]
+    z = np.exp(z - z.max(axis=1, keepdims=True))
+    return z / z.sum(axis=1, keepdims=True)
+
+
+def rel_err(np, got, ref) -> float:
+    """Largest |got - ref| over the largest |ref|."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    if got.shape != ref.shape:
+        raise AssertionError(f"shape {got.shape} != {ref.shape}")
+    return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-30))
+
+
+def layer_run(torch, np, layer, params, x, device, *, state=None,
+              train=False, mask=None):
+    """The layer's forward in f32 on `device`, then the gradients of
+    sum(out * ct) (ct from a seed) for the input and every parameter;
+    with state, the new state. All as f64 numpy."""
+    p = {k: torch.tensor(v, device=device, requires_grad=True)
+         for k, v in params.items()}
+    xx = torch.tensor(x, device=device, requires_grad=True)
+    m = None if mask is None else torch.tensor(mask, device=device)
+    new = {}
+    if layer.stateful:
+        st = {k: torch.tensor(v, device=device) for k, v in state.items()}
+        out, new = layer.forward_with_state(p, st, xx, train=train, mask=m)
+    else:
+        out = layer.forward(p, xx, train=train, mask=m)
+    ct = np.random.default_rng(0).standard_normal(tuple(out.shape))
+    g = torch.autograd.grad(out, [xx, *p.values()],
+                            torch.tensor(ct, dtype=out.dtype, device=device))
+    res = {"out": out, "dx": g[0], **{f"d{k}": gk for k, gk in zip(p, g[1:])},
+           **{f"state {k}": v for k, v in new.items()}}
+    return {k: v.detach().double().cpu().numpy() for k, v in res.items()}
+
+
+def cnn_layer_case(torch, np, what, layer, params, x, ref, **kw):
+    """The layer on the card against itself on the CPU (forward, every
+    gradient, new state) and its forward against `ref`, this script's
+    numpy f64 version; each within CNN_TOL of the largest |reference|."""
+    card = layer_run(torch, np, layer, params, x, "cuda", **kw)
+    cpu = layer_run(torch, np, layer, params, x, "cpu", **kw)
+    errs = {k: rel_err(np, card[k], cpu[k]) for k in card}
+    errs["out vs numpy"] = rel_err(np, card["out"], ref)
+    worst = max(errs.values())
+    log(f"  {what:<34} worst {worst:.2e} (" + ", ".join(
+        f"{k} {e:.1e}" for k, e in errs.items()) + ")")
+    if not worst <= CNN_TOL:
+        raise AssertionError(f"{what}: {errs} beyond {CNN_TOL}")
+    return card
+
+
+def phase_cnn_layers(torch, M):
+    """Phase 22 (a): each CNN layer on the card in f32 against the CPU and
+    against numpy."""
+    import numpy as np
+
+    C = M["conf"]
+    rng = np.random.default_rng(22)
+    f32 = lambda *shape: rng.standard_normal(shape).astype(np.float32)
+    ident = M["Activation"].IDENTITY
+    for what, H, W, kw in (
+            ("conv truncate pad 1", 13, 14, dict(padding=(1, 1))),
+            ("conv same 4x4", 13, 14, dict(kernel=(4, 4),
+                                           convolution_mode="same")),
+            ("conv same stride 2", 14, 14, dict(stride=(2, 2),
+                                                convolution_mode="same")),
+            ("conv strict stride 2", 13, 15, dict(stride=(2, 2),
+                                                  convolution_mode="strict")),
+            ("conv dilation 2", 13, 14, dict(dilation=(2, 2))),
+            ("conv same stride 2 dilation 2", 13, 14,
+             dict(stride=(2, 2), dilation=(2, 2),
+                  convolution_mode="same"))):
+        kw = dict(dict(kernel=(3, 3), stride=(1, 1), padding=(0, 0),
+                       dilation=(1, 1), convolution_mode="truncate"), **kw)
+        layer = C.ConvolutionLayer(
+            n_in=3, n_out=8, activation=ident, kernel=kw["kernel"],
+            stride=kw["stride"], padding=kw["padding"],
+            dilation=kw["dilation"],
+            convolution_mode=C.ConvolutionMode(kw["convolution_mode"]))
+        params = {"W": f32(*kw["kernel"], 3, 8) * 0.3, "b": f32(8) * 0.1}
+        x = f32(2, H, W, 3)
+        pad = tuple(np_same_pad(n, k, s, d) for n, k, s, d in zip(
+            (H, W), kw["kernel"], kw["stride"], kw["dilation"])) \
+            if kw["convolution_mode"] == "same" \
+            else tuple((p, p) for p in kw["padding"])
+        ref = np_conv(np, x.astype(np.float64), params["W"], params["b"],
+                      kw["stride"], kw["dilation"], pad)
+        cnn_layer_case(torch, np, what, layer, params, x, ref)
+    x = f32(2, 8, 9, 4) - 3.0  # negative: a zero pad would win MAX
+    pad = (np_same_pad(8, 3, 2), np_same_pad(9, 3, 2))
+    for kind in ("max", "avg", "sum", "pnorm"):
+        layer = C.SubsamplingLayer(pooling_type=C.PoolingType(kind),
+                                   kernel=(3, 3), stride=(2, 2), pnorm=3,
+                                   convolution_mode=C.ConvolutionMode.SAME)
+        cnn_layer_case(torch, np, f"pool {kind} same 3x3 stride 2", layer,
+                       {}, x, np_pool(np, x.astype(np.float64), kind, (3, 3),
+                                      (2, 2), pad, 3))
+    for shape in ((32, 16), (4, 6, 6, 8)):
+        nf = shape[-1]
+        layer = C.BatchNormalization(n_in=nf, n_out=nf, decay=0.8,
+                                     activation=ident)
+        params = {"gamma": 1 + 0.2 * f32(nf), "beta": 0.2 * f32(nf)}
+        state = {"mean": f32(nf), "var": (0.5 + rng.random(nf)).astype(
+            np.float32)}
+        axes = tuple(range(len(shape) - 1))
+        for step in range(3):
+            x = 2 * f32(*shape) + 1
+            xd = x.astype(np.float64)
+            mean, var = xd.mean(axis=axes), xd.var(axis=axes)  # biased
+            ref = (xd - mean) / np.sqrt(var + layer.eps) * params["gamma"] \
+                + params["beta"]
+            got = cnn_layer_case(
+                torch, np, f"batchnorm {len(shape)}d train step {step + 1}",
+                layer, params, x, ref, state=state, train=True)
+            want = {"mean": 0.8 * state["mean"] + 0.2 * mean,
+                    "var": 0.8 * state["var"] + 0.2 * var}
+            for k in want:
+                e = rel_err(np, got[f"state {k}"], want[k])
+                if not e <= CNN_TOL:
+                    raise AssertionError(f"batchnorm running {k} off the "
+                                         f"biased batch statistics by {e}")
+            state = {k: got[f"state {k}"].astype(np.float32) for k in want}
+        x = f32(*shape)
+        ref = (x - state["mean"]) / np.sqrt(state["var"] + layer.eps) \
+            * params["gamma"] + params["beta"]
+        cnn_layer_case(torch, np, f"batchnorm {len(shape)}d eval", layer,
+                       params, x, ref, state=state)
+    layer = C.LocalResponseNormalization(k=1.5, n=5, alpha=0.3, beta=0.75)
+    x = f32(2, 5, 6, 7)
+    cnn_layer_case(torch, np, "lrn n=5", layer, {}, x,
+                   np_lrn(np, x.astype(np.float64), 1.5, 5, 0.3, 0.75))
+    x = f32(3, 10, 16)
+    mask = np.ones((3, 10), np.float32)
+    mask[0, 6:] = 0
+    mask[2, 1:] = 0
+    for kind in ("max", "avg"):
+        layer = C.GlobalPoolingLayer(pooling_type=C.PoolingType(kind))
+        cnn_layer_case(torch, np, f"global pooling {kind}, masked", layer,
+                       {}, x, np_global_pool(np, x.astype(np.float64), mask,
+                                             kind), mask=mask)
+
+
+def lenet_batches(np, B, n, seed):
+    """Seeded MNIST-shaped data: ten 28x28 uint8 class templates, each
+    image its class's template plus uniform noise, one-hot labels."""
+    rng = np.random.default_rng(seed)
+    templates = rng.integers(0, 256, (10, 784))
+    out = []
+    for _ in range(n):
+        y = rng.integers(0, 10, B)
+        x = np.clip(templates[y] + rng.integers(-60, 61, (B, 784)), 0, 255)
+        out.append((x.astype(np.uint8), np.eye(10, dtype=np.float32)[y]))
+    return out
+
+
+def lenet_net(torch, M, device, compute_dtype=None):
+    net = M["MultiLayerNetwork"](M["lenet_configuration"](),
+                                 dtype=torch.float32,
+                                 compute_dtype=compute_dtype, device=device)
+    net.init()
+    net.set_normalizer(M["ImagePreProcessingScaler"]())
+    return net
+
+
+def phase_lenet(torch, M, card):
+    """Phase 22 (b): path 6 at bench_lenet's shape, then LeNet's card-vs-
+    CPU f32 parity and its output against numpy."""
+    import numpy as np
+
+    DataSet = M["DataSet"]
+    net = lenet_net(torch, M, "cuda", torch.bfloat16)
+    batches = [DataSet(x, y) for x, y in lenet_batches(
+        np, LENET_B, LENET_STEPS + 2, seed=22)]
+    net.fit(batches[0])  # warm-up: cuDNN plans, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = [], []
+    for ds in batches[1:LENET_STEPS + 1]:
+        t0 = time.perf_counter()
+        net.fit(ds)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(net.score_value)
+    peak = torch.cuda.max_memory_allocated()
+    kernels: dict = {}
+    trace = traced(torch, lambda: net.fit(batches[-1]), kernels)
+    copies = {n: t for n, t in kernels.items() if "copy" in n.lower()}
+    med = sorted(step_ms)[len(step_ms) // 2]
+    log(f"  path 6: {LENET_STEPS} steps of B={LENET_B} 28x28x1 uint8 "
+        f"(bf16 over f32 masters, Nesterovs): step ms "
+        f"{[round(t, 2) for t in step_ms]}; median {med:.2f} ms, "
+        f"{LENET_B / med * 1e3:.1f} samples/s [{card}]")
+    log(f"  losses {losses}; peak device memory {peak / 2**30:.3f} GiB "
+        f"({peak} bytes)")
+    log(f"  traced step (torch.profiler, not in the step times): {trace}")
+    log(f"  copy kernels in the traced step: {len(copies)} kinds, "
+        f"{sum(copies.values()) / 1e3:.3f} ms")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"LeNet losses not finite and falling: {losses}")
+    del net
+    torch.cuda.empty_cache()
+
+    cpu = lenet_net(torch, M, "cpu")
+    card_net = lenet_net(torch, M, "cuda")
+    card_net.set_param_tree([{k: v.clone() for k, v in p.items()}
+                             for p in cpu._params])
+    got = {"card": [], "cpu": []}
+    for x, y in lenet_batches(np, LENET_PARITY_B, LENET_PARITY_STEPS,
+                              seed=23):
+        for name, n in (("card", card_net), ("cpu", cpu)):
+            n.fit(DataSet(x, y))
+            got[name].append(n.score_value)
+    np.testing.assert_allclose(got["card"], got["cpu"], rtol=1e-4)
+    worst = 0.0
+    for a, b in zip(card_net._params, cpu._params):
+        for k in a:
+            d = (a[k].cpu() - b[k]).abs()
+            worst = max(worst, d.max().item())
+            if not bool((d <= 1e-5 + 1e-5 * b[k].abs()).all()):
+                raise AssertionError(f"LeNet param {k} differs card vs CPU "
+                                     f"by {d.max().item()}")
+    images = lenet_batches(np, 16, 1, seed=24)[0][0]
+    e = rel_err(np, card_net.output(images).cpu().numpy(),
+                np_lenet_probs(np, card_net._params, images))
+    log(f"  f32 parity, B={LENET_PARITY_B}: losses card {got['card']} cpu "
+        f"{got['cpu']} (rtol 1e-4), params max abs diff {worst:.3e} "
+        f"(1e-5 + 1e-5 |ref|); output against numpy {e:.2e} "
+        f"(tolerance {CNN_TOL})")
+    if not e <= CNN_TOL:
+        raise AssertionError(f"LeNet output off the numpy forward by {e}")
+
+
+# ----------------------------- phase 23: SelfAttention, MoE, path 2m
+# SelfAttention at gpt_long's width, non-causal: B=2, T=4096, 8 heads of
+# 128, block_size 1024 (the flash route); held to the same layer on the
+# plain route (block_size None: full attention, plain torch ops) in f32,
+# each output and gradient within ATTN_TOL of its largest |reference|
+ATTN = dict(n_in=1024, n_out=1024, n_heads=8, causal=False, block_size=1024)
+ATTN_B, ATTN_T, ATTN_FIT_STEPS = 2, 4096, 3
+ATTN_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# path 2m: gpt_long with 8 Switch experts a block, capacity factor 1.25
+# and aux weight 0.01 (the JAX package's defaults, Switch Transformer's);
+# its engine check at capacity factor 8 = E (nothing overflows)
+MOE_EXPERTS, MOE_STEPS, MOE_B = 8, 3, 8
+MOE_SERVE_CF, MOE_SERVE_TOKENS = 8.0, 32
+
+
+def attention_case(torch, M, dtype):
+    """The non-causal SelfAttention layer in `dtype` on the flash route
+    against its plain route in f32; returns the flash launches by
+    (kind, route)."""
+    import numpy as np
+
+    C, fa = M["conf"], M["fa"]
+    ident = M["Activation"].IDENTITY
+    layer = C.SelfAttention(**ATTN, activation=ident)
+    plain = C.SelfAttention(**{**ATTN, "block_size": None},
+                            activation=ident)
+    g = torch.Generator(device="cuda").manual_seed(23)
+    it = C.InputType.recurrent(ATTN["n_in"], ATTN_T)
+    params = {k: v.to(dtype) for k, v in
+              layer.init_params(g, it, torch.float32).items()}
+    params = {k: (v + 0.02 * torch.randn(v.shape, generator=g,
+                                         device="cuda")).to(dtype)
+              if k.startswith("b") else v for k, v in params.items()}
+    x = torch.randn((ATTN_B, ATTN_T, ATTN["n_in"]), generator=g,
+                    device="cuda").to(dtype)
+    ct = torch.randn((ATTN_B, ATTN_T, ATTN["n_out"]), generator=g,
+                     device="cuda").to(dtype)
+
+    def run(lay, p, xx):
+        p = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+        xx = xx.detach().requires_grad_(True)
+        out = lay.forward(p, xx)
+        grads = torch.autograd.grad(out, [xx, *p.values()], ct.to(out.dtype))
+        return {"out": out.detach(), "dx": grads[0],
+                **{f"d{k}": gk for k, gk in zip(p, grads[1:])}}
+
+    fa.reset_counts()
+    got = run(layer, params, x)
+    torch.cuda.synchronize()
+    routes = dict(fa.launches_by_route)
+    ref = run(plain, {k: v.float() for k, v in params.items()}, x.float())
+    tol = ATTN_TOL[str(dtype)[6:]]
+    # dbk is 0 in exact arithmetic (a key bias moves each softmax row by
+    # a constant): it is held at the scale of dbv, the same shape's
+    errs = {}
+    for k in got:
+        g, r = got[k].float().cpu().numpy(), ref[k].cpu().numpy()
+        scale = max(np.abs(r).max(), np.abs(ref["dbv"].cpu().numpy()).max()
+                    if k == "dbk" else 0.0)
+        errs[k] = float(np.abs(g - r).max() / scale)
+    worst = max(errs.values())
+    log(f"  SelfAttention {str(dtype)[6:]} B={ATTN_B} T={ATTN_T} "
+        f"{ATTN['n_heads']} heads of {ATTN['n_out'] // ATTN['n_heads']}, "
+        f"non-causal: worst {worst:.2e} of tolerance {tol} (" +
+        ", ".join(f"{k} {e:.1e}" for k, e in errs.items()) +
+        f"); flash launches by route {routes}")
+    if not worst <= tol:
+        raise AssertionError(f"SelfAttention flash route off its plain "
+                             f"route: {errs}")
+    want = "wgmma" if dtype == torch.bfloat16 else "tf32"
+    if routes != {(k, want): 1 for k in ("fwd", "dq", "dkv")}:
+        raise AssertionError(f"expected one non-causal launch of each "
+                             f"flash kernel on {want}, got {routes}")
+    del got, ref, params, x, ct
+    torch.cuda.empty_cache()
+    return routes
+
+
+def attention_fit(torch, M):
+    """3 fit steps of TokenEmbedding -> SelfAttention(causal=False) ->
+    GlobalPoolingLayer(AVG) -> OutputLayer in bf16: finite losses, 3
+    launches of each flash kernel, no plain call."""
+    import numpy as np
+
+    C, fa = M["conf"], M["fa"]
+    conf = (C.NeuralNetConfiguration.Builder().seed(23).learning_rate(1e-3)
+            .updater("adam").list()
+            .layer(M["TokenEmbedding"](n_in=256, n_out=ATTN["n_in"],
+                                       max_length=ATTN_T))
+            .layer(C.SelfAttention(**ATTN,
+                                   activation=M["Activation"].IDENTITY))
+            .layer(C.GlobalPoolingLayer(pooling_type=C.PoolingType.AVG))
+            .layer(C.OutputLayer(n_out=16, activation="softmax"))
+            .set_input_type(C.InputType.recurrent(256, ATTN_T)).build())
+    net = M["MultiLayerNetwork"](conf, compute_dtype=torch.bfloat16,
+                                 device="cuda")
+    net.init()
+    rng = np.random.default_rng(23)
+    fa.reset_counts()
+    losses = []
+    for _ in range(ATTN_FIT_STEPS):
+        net.fit(M["DataSet"](
+            rng.integers(0, 256, (ATTN_B, ATTN_T)).astype(np.int32),
+            np.eye(16, dtype=np.float32)[rng.integers(0, 16, ATTN_B)]))
+        losses.append(net.score_value)
+    routes = dict(fa.launches_by_route)
+    plain = (fa.flash_attention_plain_fwd.calls,
+             fa.flash_attention_plain_bwd.calls)
+    log(f"  attention classifier, {ATTN_FIT_STEPS} bf16 fit steps: losses "
+        f"{losses}; flash launches by route {routes}, plain {plain}")
+    if not all(np.isfinite(losses)) or any(plain) or routes != {
+            (k, "wgmma"): ATTN_FIT_STEPS for k in ("fwd", "dq", "dkv")}:
+        raise AssertionError(f"attention classifier: losses {losses}, "
+                             f"launches {routes}, plain {plain}")
+    del net
+    torch.cuda.empty_cache()
+    return routes
+
+
+def np_switch(np, x, p, capacity_factor, act):
+    """Switch top-1 routing with a global capacity in token order, in
+    f64: (y with overflow passed through, aux loss, dropped count)."""
+    N = x.shape[0]
+    E = p["router"].shape[1]
+    cap = int(math.ceil(N / E * capacity_factor))
+    z = x @ p["router"]
+    top2 = np.sort(z, axis=1)[:, -2:]
+    if not np.min(top2[:, 1] - top2[:, 0]) > 1e-4:
+        raise ValueError("the MoE case's data leave two router logits of a "
+                         "token within 1e-4: its routing is not decided")
+    probs = np.exp(z - z.max(axis=1, keepdims=True))
+    probs /= probs.sum(axis=1, keepdims=True)
+    idx = probs.argmax(axis=1)
+    y, taken = x.copy(), np.zeros(E, int)
+    for n in range(N):
+        e = idx[n]
+        if taken[e] < cap:
+            taken[e] += 1
+            h = act(x[n] @ p["W1"][e] + p["b1"][e])
+            y[n] = probs[n, e] * (h @ p["W2"][e] + p["b2"][e])
+    frac = np.bincount(idx, minlength=E) / N
+    aux = E * np.sum(frac * probs.mean(axis=0))
+    return y, aux, N - int(taken.sum())
+
+
+def moe_reference_case(torch, M):
+    """An MoELayer network in f32 on the card against numpy: the output
+    with capacity overflow (tokens past their expert's capacity pass
+    through) and the load-balancing term of the training loss."""
+    import numpy as np
+
+    C = M["conf"]
+    d, E, B, T = 64, 4, 4, 32
+    conf = (C.NeuralNetConfiguration.Builder().seed(5).list()
+            .layer(C.MoELayer(n_in=d, n_out=d, n_experts=E, hidden_mult=2,
+                              capacity_factor=1.0))
+            .layer(C.LossLayer(loss=M["LossFunction"].MSE,
+                               activation=M["Activation"].IDENTITY))
+            .set_input_type(C.InputType.recurrent(d)).build())
+    net = M["MultiLayerNetwork"](conf, device="cuda")
+    rng = np.random.default_rng(5)
+    p = {"router": rng.standard_normal((d, E)) * 0.3,
+         "W1": rng.standard_normal((E, d, 2 * d)) / 8,
+         "b1": rng.standard_normal((E, 2 * d)) * 0.1,
+         "W2": rng.standard_normal((E, 2 * d, d)) / 11,
+         "b2": rng.standard_normal((E, d)) * 0.1}
+    x = rng.standard_normal((B, T, d))
+    p["router"][:, 0] += 0.5 * x.reshape(-1, d).mean(axis=0)  # skew: overflow
+    net.set_param_tree([{k: torch.tensor(v, dtype=torch.float32)
+                         for k, v in p.items()}, {}])
+    x32 = x.astype(np.float32)
+    labels = rng.standard_normal((B, T, d)).astype(np.float32)
+    ds = M["DataSet"](x32, labels)
+    got = net.output(x32).cpu().numpy()
+    aux = net.score(ds, train=True) - net.score(ds, train=False)
+    ref, ref_aux, dropped = np_switch(np, x32.astype(np.float64).reshape(
+        -1, d), p, 1.0, lambda h: np.maximum(h, 0.0))
+    e = rel_err(np, got, ref.reshape(B, T, d))
+    want = conf.layers[0].aux_loss_weight * ref_aux
+    log(f"  MoELayer f32 vs numpy ({dropped} of {B * T} tokens over "
+        f"capacity): output {e:.2e} (tolerance {CNN_TOL}); load-balancing "
+        f"term {aux:.7f} vs {want:.7f}")
+    if dropped == 0 or not e <= CNN_TOL or abs(aux - want) > 1e-5:
+        raise AssertionError(f"MoELayer off numpy: output {e}, aux {aux} vs "
+                             f"{want}, {dropped} dropped")
+
+
+def phase_moe_serve(torch, M, pa):
+    """Phase 23 (c): the 8-layer MoE GPT in f32 at capacity factor 8:
+    greedy engine tokens equal generate's for 2 prompts (one on the
+    one-shot prefill, one chunked), through the paged kernels."""
+    import numpy as np
+
+    conf = M["gpt_configuration"](**{**SERVE, "max_length": 1024},
+                                  moe_experts=MOE_EXPERTS, seed=17)
+    for layer in conf.layers:
+        if hasattr(layer, "moe_capacity_factor"):
+            layer.moe_capacity_factor = MOE_SERVE_CF
+    net = M["MultiLayerNetwork"](conf, device="cuda")
+    net.init()
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(0, SERVE["vocab_size"], t) for t in (100, 600)]
+    eng = M["DecodeEngine"](net, n_slots=2, page_size=128, prefill_chunk=256,
+                            prompt_buckets=(128,), max_len=1024,
+                            device="cuda")
+    try:
+        pa.reset_counts()
+        reqs = [eng.submit(p, MOE_SERVE_TOKENS) for p in prompts]
+        got = [r.result(timeout=600) for r in reqs]
+        launches = dict(pa.paged_attention.launches_by)
+        plain = pa.paged_attention_plain.calls
+    finally:
+        eng.shutdown()
+    for p, g in zip(prompts, got):
+        exp = M["generate"](net, p[None], MOE_SERVE_TOKENS, temperature=0.0,
+                            device="cuda")[0]
+        log(f"  MoE prompt {len(p):>4}: engine {g.tolist()}")
+        if not np.array_equal(g, exp):
+            raise AssertionError(f"MoE engine tokens differ from generate for "
+                                 f"the {len(p)}-token prompt: {exp.tolist()}")
+    log(f"  MoE engine == generate (f32, capacity factor {MOE_SERVE_CF}); "
+        f"paged launches by (C, pools) {launches}, plain calls {plain}")
+    if launches.get((1, "dense"), 0) == 0 \
+            or launches.get((256, "dense"), 0) == 0 or plain:
+        raise AssertionError(f"MoE serving: launches {launches}, plain "
+                             f"{plain}")
+    del eng, net
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_attention_moe(torch, M, pa, card):
+    """Phase 23: SelfAttention (a), path 2m (b), MoE serving (c); returns
+    the launch counts by path."""
+    routes = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for key, n in attention_case(torch, M, dtype).items():
+            routes[key] = routes.get(key, 0) + n
+    for key, n in attention_fit(torch, M).items():
+        routes[key] = routes.get(key, 0) + n
+    moe_reference_case(torch, M)
+    log(f"  path 2m: gpt_long with {MOE_EXPERTS} Switch experts a block")
+    counts_2m = phase_train(torch, M, card, torch.bfloat16, MOE_B, MOE_STEPS,
+                            24, "wgmma", moe_experts=MOE_EXPERTS)
+    paged = phase_moe_serve(torch, M, pa)
+    return {"attention": routes, "2m": counts_2m, "paged": paged}
+
+
+def attention_moe_rows(torch, fa, counts):
+    """The non-causal flash rows at the SelfAttention shape (bf16 and
+    f32, with its launches), and path 2m's and its engine's launches into
+    the causal bf16 rows at path 2's shape and the paged rows."""
+    H, D = ATTN["n_heads"], ATTN["n_out"] // ATTN["n_heads"]
+    att = counts["attention"]
+    rows = flash_rows(torch, fa, ATTN_B, H, ATTN_T, D,
+                      {k: n for (k, r), n in att.items() if r == "wgmma"},
+                      0.0, seed=51, tag="_noncausal_t4096", causal=False)
+    rows += flash_rows(torch, fa, ATTN_B, H, ATTN_T, D,
+                       {k: n for (k, r), n in att.items() if r == "tf32"},
+                       0.0, seed=52, dtype=torch.float32,
+                       tag="_noncausal_t4096", causal=False)
+    return rows
+
+
+def moe_launches(rows, counts) -> None:
+    """Path 2m's flash launches into the causal bf16 rows at its shape
+    (path 2's), its engine's paged launches into rows 1."""
+    adds = {"flash_attention_fwd": counts["2m"]["fwd"],
+            "flash_attention_bwd_dq": counts["2m"]["dq"],
+            "flash_attention_bwd_dkv": counts["2m"]["dkv"],
+            "paged_attention_decode": counts["paged"].get((1, "dense"), 0),
+            "paged_attention_prefill_chunk":
+                counts["paged"].get((256, "dense"), 0)}
+    for row in rows:
+        row["launches"] += int(adds.get(row["name"], 0))
+
+
 def lstm_mma_note(key, kind) -> str:
     """The replaced mma.sync kernel's time at a cooperative row's shape,
     where PERF.md has it."""
@@ -3723,12 +4386,17 @@ def port_modules() -> dict:
         AsyncDataSetIterator,
         ListDataSetIterator,
     )
-    from deeplearning4j_tpu_torch.datasets.normalizers import OneHotEncoder
+    from deeplearning4j_tpu_torch.datasets.normalizers import (
+        ImagePreProcessingScaler,
+        OneHotEncoder,
+    )
+    from deeplearning4j_tpu_torch.models import lenet_configuration
     from deeplearning4j_tpu_torch.models.transformer import (
         generate,
         gpt_configuration,
     )
     from deeplearning4j_tpu_torch.nn import conf as nn_conf
+    from deeplearning4j_tpu_torch.nn.conf.layers import TokenEmbedding
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
     from deeplearning4j_tpu_torch.ops import lstm as L
@@ -3762,14 +4430,34 @@ def port_modules() -> dict:
                 PerformanceListener=PerformanceListener,
                 CheckpointListener=CheckpointListener,
                 CheckpointStore=CheckpointStore, restore_model=restore_model,
-                write_model=write_model, serving=serving, pa=pa)
+                write_model=write_model, serving=serving, pa=pa,
+                lenet_configuration=lenet_configuration,
+                ImagePreProcessingScaler=ImagePreProcessingScaler,
+                TokenEmbedding=TokenEmbedding)
+
+
+def phases_22_23_alone(torch, M, pa, fa, cuda_build) -> int:
+    """`--phases-22-23`: the CNN and MoE phases alone (the paged and
+    flash sources built first), their rows logged."""
+    card = nvidia_smi_line()
+    t0 = time.perf_counter()
+    cuda_build.build(("paged_attention", "flash_attention"))
+    log(f"phases 22 and 23 alone [{card}]; build "
+        f"{time.perf_counter() - t0:.1f} s")
+    phase_cnn_layers(torch, M)
+    phase_lenet(torch, M, card)
+    counts = phase_attention_moe(torch, M, pa, card)
+    rows = attention_moe_rows(torch, fa, counts)
+    log(f"phases 22 and 23 {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"card": card, "kernels": rows}), flush=True)
+    return 0
 
 
 def main(argv) -> int:
     """No arguments: every phase. `--lstm-timing [--package DIR]`: phase
     17 alone on the package at DIR (default: the checkout's), for an A/B
     of the LSTM kernels against an earlier commit's package. `--path5`:
-    phase 21 alone."""
+    phase 21 alone. `--phases-22-23`: phases 22 and 23 alone."""
     import torch
 
     if not torch.cuda.is_available():
@@ -3796,87 +4484,98 @@ def main(argv) -> int:
         return lstm_timing_alone(torch, L, cuda_build)
     if "--path5" in argv:
         return path5_alone(torch, M, cuda_build)
+    if "--phases-22-23" in argv:
+        return phases_22_23_alone(torch, M, pa, fa, cuda_build)
 
     card = nvidia_smi_line()
-    log(f"[1/21] card: {card}; {torch.cuda.get_device_name(0)}; torch "
+    log(f"[1/23] card: {card}; {torch.cuda.get_device_name(0)}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}; "
         f"{torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     built = cuda_build.build(KERNEL_SOURCES)
-    log(f"[2/21] build: {time.perf_counter() - t0:.1f} s for "
+    log(f"[2/23] build: {time.perf_counter() - t0:.1f} s for "
         f"{len(built)} source(s)")
     for name, res in built.items():
         for line in ptxas_summary(res.log):
             log(f"  {name}: {line}")
 
-    log("[3/21] paged kernels against their plain versions (TF32 off)")
+    log("[3/23] paged kernels against their plain versions (TF32 off)")
     phase_kernels(torch, pa)
-    log("[4/21] flash kernels against their plain versions (TF32 off)")
+    log("[4/23] flash kernels against their plain versions (TF32 off)")
     phase_flash(torch, fa)
-    log("[5/21] f32 DecodeEngine vs generate, 2 layers, d_model 1024")
+    log("[5/23] f32 DecodeEngine vs generate, 2 layers, d_model 1024")
     phase_parity(torch, M)
-    log("[6/21] f32 training, card (kernels) vs CPU (plain), 1 layer, "
+    log("[6/23] f32 training, card (kernels) vs CPU (plain), 1 layer, "
         "d_model 1024, T=1024")
     phase_train_parity(torch, M)
-    log("[7/21] serving the 8-layer bf16 GPT at full width")
+    log("[7/23] serving the 8-layer bf16 GPT at full width")
     launches, path1_tok_s = phase_serve(torch, M, pa, card)
-    log("[8/21] serving it with int8 KV, the prefix cache and "
+    log("[8/23] serving it with int8 KV, the prefix cache and "
         "self-speculation on shared-prefix traffic")
     launches.update(phase_serve_tier(torch, M, pa, card))
-    log("[9/21] training the 8-layer bf16 gpt_long GPT at full width")
+    log("[9/23] training the 8-layer bf16 gpt_long GPT at full width")
     flash_counts = phase_train(torch, M, card, torch.bfloat16, TRAIN_B,
                                TRAIN_STEPS, 13, "wgmma")
-    log("[9/21] path 2w: the same GPT with 4 heads of 256 (the bf16 "
+    log("[9/23] path 2w: the same GPT with 4 heads of 256 (the bf16 "
         "\"wgmma wide\" flash kernels)")
     flash_counts_wide = phase_train(torch, M, card, torch.bfloat16,
                                     TRAIN_WIDE_B, TRAIN_WIDE_STEPS, 15,
                                     "wgmma wide", n_heads=TRAIN_WIDE_HEADS)
-    log("[9/21] path 2x: the same GPT with 2 heads of 512 (the bf16 "
+    log("[9/23] path 2x: the same GPT with 2 heads of 512 (the bf16 "
         "\"wgmma wide\" forward, the \"wgmma cluster\" backward)")
     flash_counts_2x = phase_train(torch, M, card, torch.bfloat16,
                                   TRAIN_2X_B, TRAIN_2X_STEPS, 16,
                                   TRAIN_2X_ROUTES, n_heads=TRAIN_2X_HEADS)
-    log("[10/21] path 2f: training the 8-layer gpt_long GPT in f32 "
+    log("[10/23] path 2f: training the 8-layer gpt_long GPT in f32 "
         "(split-TF32 flash kernels)")
     flash_counts_f32 = phase_train(torch, M, card, None, TRAIN_F32_B,
                                    TRAIN_F32_STEPS, 14, "tf32")
-    log("[11/21] LSTM kernels against their plain versions (TF32 off)")
+    log("[11/23] LSTM kernels against their plain versions (TF32 off)")
     phase_lstm_kernels(torch, L, M)
-    log("[12/21] f32 char-RNN training, card (kernels) vs CPU (plain), "
+    log("[12/23] f32 char-RNN training, card (kernels) vs CPU (plain), "
         "H=256")
     phase_lstm_train_parity(torch, M)
-    log("[13/21] training the bf16 lstm_large char-RNN at full width")
+    log("[13/23] training the bf16 lstm_large char-RNN at full width")
     lstm_counts, step4_ms = phase_lstm_train(torch, M, card, torch.bfloat16)
-    log("[14/21] training the bf16 lstm char-RNN with tBPTT 24 at full width")
+    log("[14/23] training the bf16 lstm char-RNN with tBPTT 24 at full width")
     tbptt_counts = phase_lstm_tbptt(torch, M, card)
-    log("[15/21] path 4f: training the lstm_large char-RNN in f32 "
+    log("[15/23] path 4f: training the lstm_large char-RNN in f32 "
         "(split-TF32 LSTM kernels)")
     f32_counts, _ = phase_lstm_train(torch, M, card, None, LSTM_F32_STEPS,
                                      "tf32 clusters", seed=2)
-    log("[16/21] timing at the serving and training shapes (bf16 and f32)")
+    log("[16/23] timing at the serving and training shapes (bf16 and f32)")
     rows = phase_timing(torch, pa, launches)
     rows += phase_flash_timing(torch, fa, flash_counts, flash_counts_f32,
                                flash_counts_wide, flash_counts_2x)
-    log("[17/21] timing the LSTM kernels at the char-RNN shapes (bf16 and "
+    log("[17/23] timing the LSTM kernels at the char-RNN shapes (bf16 and "
         "f32)")
     rows += phase_lstm_timing(torch, L, lstm_counts, tbptt_counts,
                               f32_counts)
-    log(f"[18/21] a GravesLSTM wider than the fused kernels (H={LSTM_WIDE}): "
+    log(f"[18/23] a GravesLSTM wider than the fused kernels (H={LSTM_WIDE}): "
         "the step loop, card vs CPU")
     phase_lstm_wide(torch, M)
-    log("[19/21] path 4s: the bf16 lstm_large char-RNN on "
+    log("[19/23] path 4s: the bf16 lstm_large char-RNN on "
         "GravesLSTMCharModellingExample's mini-batches (B=32 x T=1000, "
         "tBPTT 50)")
     lstm_4s_launches(rows, phase_lstm_4s(torch, M, card))
-    log("[20/21] path 4e: the bf16 lstm_large char-RNN through the training "
+    log("[20/23] path 4e: the bf16 lstm_large char-RNN through the training "
         "loop (async iterator, health sentinel, listeners, checkpoints, "
         "evaluate, restore, LBFGS)")
     lstm_4e_launches(rows, phase_lstm_4e(torch, M, card, step4_ms))
-    log("[21/21] path 5: the 8-layer bf16 GPT behind ModelServer (predict, "
+    log("[21/23] path 5: the 8-layer bf16 GPT behind ModelServer (predict, "
         "generate, reload under decode, rejections, the breaker, quantized "
         "weights with the drift gate, shutdown)")
     serve5_launches(rows, phase_server(torch, M, card, path1_tok_s))
+    log("[22/23] the CNN layers against the CPU and numpy (f32), path 6: "
+        "LeNet at bench_lenet's shape, its f32 parity")
+    phase_cnn_layers(torch, M)
+    phase_lenet(torch, M, card)
+    log("[23/23] SelfAttention on the non-causal flash kernels, MoELayer "
+        "against numpy, path 2m: the MoE gpt_long GPT, MoE serving")
+    counts = phase_attention_moe(torch, M, pa, card)
+    rows += attention_moe_rows(torch, fa, counts)
+    moe_launches(rows, counts)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

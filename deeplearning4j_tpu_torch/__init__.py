@@ -10,10 +10,13 @@ there is none; pass `device="cpu"` to run the plain PyTorch versions of
 the kernels on the CPU. This package imports neither `jax` nor anything
 of `deeplearning4j_tpu`.
 
-Ported so far: the GPT serving path (configuration DSL and JSON,
-`MultiLayerNetwork` init/output, `models.transformer.generate`, the
-continuous-batching `serving.decode_engine.DecodeEngine`, checkpoint
-reading) with the paged-attention kernel.
+Ported so far: the configuration DSL and JSON with the input
+preprocessors; `MultiLayerNetwork` (fit, tBPTT, the training loop,
+evaluate, checkpoints with BatchNormalization state); the dense, CNN,
+normalization, recurrent, attention, embedding and Switch-MoE layers;
+GPT training and serving (`models.transformer`, `serving`) on the flash
+and paged-attention kernels, the char-RNN on the LSTM kernels, and LeNet
+(`models.lenet`). ROADMAP.md's queue A lists what is still to port.
 """
 
 __version__ = "0.1.0"

@@ -1,12 +1,13 @@
-"""Model configurations — counterpart of `deeplearning4j_tpu.models`. The
-GPT's is `models.transformer.gpt_configuration`; the CNN ones (LeNet,
-ResNet) come with the CNN layers (ROADMAP queue A9)."""
+"""Model configurations — counterpart of `deeplearning4j_tpu.models`:
+`lenet_configuration` here, the GPT's in `models.transformer`. ResNet is
+a ComputationGraph, ROADMAP queue A10."""
+
+from deeplearning4j_tpu_torch.models.lenet import lenet_configuration  # noqa: F401
 
 
 def __getattr__(name):
-    if name in ("lenet_configuration", "resnet_configuration",
-                "resnet_tiny_configuration"):
+    if name in ("resnet_configuration", "resnet_tiny_configuration"):
         raise NotImplementedError(
-            f"models.{name} is not ported yet (ROADMAP queue A9: the CNN "
-            "layers and models/lenet.py, models/resnet.py)")
+            f"models.{name} is not ported yet (ROADMAP queue A10: "
+            "ComputationGraph, which models/resnet.py builds)")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -115,8 +115,6 @@ class GPTPlan:
                           if isinstance(l, RnnOutputLayer))
         self.dtype = net.dtype
         self.cdt = net.compute_dtype or net.dtype
-        for i in self.block_is:
-            layers[i]._check_ported()
 
     def kv_geometry(self):
         """Per-block (Hkv, head_dim) pairs: the KV-cache geometry."""
@@ -175,7 +173,9 @@ def _block_out_proj(p, att):
 
 
 def _block_ffn(layer, p, x):
-    """Post-attention half of the block: x + FFN(LN2(x))."""
+    """Post-attention half of the block: x + FFN(LN2(x)). An MoE block
+    routes the call's tokens (all of a prefill, one per row of a decode
+    step) among its experts with the inference capacity, no aux loss."""
     return x + ffn(layer, p, x)
 
 

@@ -2,13 +2,24 @@
 
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType  # noqa: F401
 from deeplearning4j_tpu_torch.nn.conf.layers import (  # noqa: F401
+    ActivationLayer,
+    BatchNormalization,
+    ConvolutionLayer,
     DenseLayer,
+    DropoutLayer,
+    EmbeddingLayer,
+    GlobalPoolingLayer,
     GravesBidirectionalLSTM,
     GravesLSTM,
     Layer,
     LayerNormalization,
+    LocalResponseNormalization,
+    LossLayer,
+    MoELayer,
     OutputLayer,
     RnnOutputLayer,
+    SelfAttention,
+    SubsamplingLayer,
     TokenEmbedding,
     TransformerBlock,
 )
@@ -19,23 +30,28 @@ from deeplearning4j_tpu_torch.nn.conf.neural_net_configuration import (  # noqa:
     NeuralNetConfiguration,
     OptimizationAlgorithm,
 )
+from deeplearning4j_tpu_torch.util.conv_utils import (  # noqa: F401
+    ConvolutionMode,
+    PoolingType,
+)
 
-_A9_NAMES = frozenset({
-    "ActivationLayer", "AutoEncoder", "BatchNormalization",
-    "BernoulliReconstructionDistribution",
-    "CompositeReconstructionDistribution", "ConvolutionLayer",
-    "ConvolutionMode", "DropoutLayer", "EmbeddingLayer",
+# the JAX package's pretraining family, ROADMAP queue A9b
+_A9B_NAMES = frozenset({
+    "AutoEncoder", "BernoulliReconstructionDistribution",
+    "CompositeReconstructionDistribution",
     "ExponentialReconstructionDistribution",
-    "GaussianReconstructionDistribution", "GlobalPoolingLayer",
-    "LocalResponseNormalization", "LossFunctionWrapper", "LossLayer",
-    "PoolingType", "RBM", "ReconstructionDistribution", "SelfAttention",
-    "SubsamplingLayer", "VariationalAutoencoder",
+    "GaussianReconstructionDistribution", "LossFunctionWrapper", "RBM",
+    "ReconstructionDistribution", "VariationalAutoencoder",
 })
 
 
 def __getattr__(name):
-    if name in _A9_NAMES:
+    if name in _A9B_NAMES:
         raise NotImplementedError(
-            f"nn.conf.{name} is not ported yet (ROADMAP queue A9: the rest "
-            "of nn/)")
+            f"nn.conf.{name} is not ported yet (ROADMAP queue A9b: the "
+            "pretraining layers and nn/conf/variational.py)")
+    if name in ("ComputationGraphConfiguration", "GraphBuilder"):
+        raise NotImplementedError(
+            f"nn.conf.{name} is not ported yet (ROADMAP queue A10: "
+            "ComputationGraph)")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

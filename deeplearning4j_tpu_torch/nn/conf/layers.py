@@ -1,21 +1,26 @@
 """Layer configurations with their parameter init, forward and loss
-(counterpart of `deeplearning4j_tpu/nn/conf/layers.py`, for the layers
-of the GPT and char-RNN paths).
+(counterpart of `deeplearning4j_tpu/nn/conf/layers.py`): the dense,
+convolution, pooling, normalization, recurrent, attention, embedding and
+mixture-of-experts layers. The pretraining family (`AutoEncoder`, `RBM`)
+is ROADMAP queue A9b.
 
 Each config is a dataclass whose fields, field order and JSON encoding
 are the JAX package's, so a configuration written by either package
 parses in the other and re-serializes equal. `init_params` draws from an
 explicit `torch.Generator`. `forward(params, x, train=, rng=, mask=)`
-serves inference and training. Only the recurrent layers carry state,
-the (h, c) carry of truncated BPTT: a layer with `stateful = True` also
-has `forward_with_state(params, state, x, ...) -> (out, new_state)`,
-which `MultiLayerNetwork` calls with its `_layer_state` slot. Dropout is inverted dropout drawn from a `torch.Generator` seeded
-from `rng`, a tuple of ints (the configuration's seed, the iteration,
-the layer index and the dropout site): deterministic per seed, never
-equal to the JAX package's threefry draws.
+serves inference and training. A layer with `stateful = True` carries
+state (`init_state`): BatchNormalization its running mean and variance,
+GravesLSTM the (h, c) carry of truncated BPTT. It has
+`forward_with_state(params, state, x, ...) -> (out, new_state)`, which
+`MultiLayerNetwork` calls with its `_layer_state` slot. Dropout and
+DropConnect are inverted, drawn from a `torch.Generator` seeded from
+`rng`, a tuple of ints (the configuration's seed, the iteration, the
+layer index and the dropout site): deterministic per seed, never equal
+to the JAX package's threefry draws.
 
-Layout conventions are the JAX package's: FF activations (B, F), RNN
-activations (B, T, F).
+Layout conventions are the JAX package's: FF activations (B, F), CNN
+activations NHWC with HWIO convolution weights, RNN activations
+(B, T, F). cuDNN is fed the NHWC tensors as channels-last NCHW views.
 """
 from __future__ import annotations
 
@@ -29,6 +34,8 @@ import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.nn.conf.inputs import (
     InputType,
+    InputTypeConvolutional,
+    InputTypeFeedForward,
     InputTypeRecurrent,
 )
 from deeplearning4j_tpu_torch.nn.updater import UpdaterConfig
@@ -40,8 +47,15 @@ from deeplearning4j_tpu_torch.nn.weights import (
 from deeplearning4j_tpu_torch.ops.activations import Activation, activation_fn
 from deeplearning4j_tpu_torch.ops.kernel_dispatch import stat_dtype
 from deeplearning4j_tpu_torch.ops.losses import LossFunction
+from deeplearning4j_tpu_torch.util.conv_utils import (
+    ConvolutionMode,
+    PoolingType,
+    conv_output_hw,
+    explicit_padding,
+)
 
 Params = Dict[str, torch.Tensor]
+State = Dict[str, torch.Tensor]
 Rng = Optional[Tuple[int, ...]]
 
 
@@ -65,6 +79,26 @@ def dropout(x: torch.Tensor, p: float, rng: Tuple[int, ...]) -> torch.Tensor:
     return torch.where(m, x / keep, torch.zeros((), dtype=x.dtype,
                                                 device=x.device))
 
+
+def _nchw(x: torch.Tensor) -> torch.Tensor:
+    """An NHWC tensor as the channels-last NCHW view cuDNN takes (no
+    copy)."""
+    return x.permute(0, 3, 1, 2)
+
+
+def _nhwc(y: torch.Tensor) -> torch.Tensor:
+    return y.permute(0, 2, 3, 1)
+
+
+def _pad_hw(x: torch.Tensor, pad, value: float = 0.0) -> torch.Tensor:
+    """Pad an NHWC tensor by ((top, bottom), (left, right)): asymmetric
+    pads (SAME mode puts the extra one at the end) are applied as they
+    are, before an unpadded convolution or pooling."""
+    (t, b), (l, r) = pad
+    if not (t or b or l or r):
+        return x
+    return F.pad(x, (0, 0, l, r, t, b), value=value)
+
 # ---------------------------------------------------------------------------
 # serde registry
 
@@ -76,8 +110,15 @@ _FIELD_DECODERS: Dict[str, Callable[[Any], Any]] = {
     "gate_activation": Activation,
     "weight_init": WeightInit,
     "dist": Distribution.from_json,
+    "expert_activation": Activation,
     "loss": LossFunction,
+    "pooling_type": PoolingType,
+    "convolution_mode": ConvolutionMode,
     "updater_cfg": UpdaterConfig.from_json,
+    "kernel": tuple,
+    "stride": tuple,
+    "padding": tuple,
+    "dilation": tuple,
 }
 
 
@@ -111,8 +152,9 @@ def layer_from_json(d: dict) -> "Layer":
     cls = _LAYER_REGISTRY.get(t)
     if cls is None:
         raise NotImplementedError(
-            f"layer type {t!r} is not ported yet (ROADMAP queue A: the "
-            f"port carries {sorted(_LAYER_REGISTRY)})")
+            f"layer type {t!r} is not ported yet (ROADMAP queue A9b: the "
+            f"pretraining layers; the port carries "
+            f"{sorted(_LAYER_REGISTRY)})")
     kwargs = {}
     names = {f.name for f in dataclasses.fields(cls)}
     for k, v in d.items():
@@ -165,6 +207,9 @@ class Layer:
                     dtype=torch.float32) -> Params:
         return {}
 
+    def init_state(self, it: InputType, device=None) -> State:
+        return {}
+
     def forward(self, params: Params, x: torch.Tensor, *, train=False,
                 rng: Rng = None, mask=None) -> torch.Tensor:
         raise NotImplementedError
@@ -182,6 +227,15 @@ class Layer:
         if not train or p <= 0.0 or rng is None:
             return x
         return dropout(x, p, rng)
+
+    def _maybe_drop_connect(self, W, train, rng: Rng):
+        """DropConnect: the weight matrix takes the dropout mask instead
+        of the input (inverted, so E[W] is kept), drawn from the layer's
+        rng folded with 1."""
+        p = self.dropout or 0.0
+        if not train or p <= 0.0 or rng is None:
+            return W
+        return dropout(W, p, fold_in(rng, 1))
 
     def _act(self):
         return activation_fn(self.activation or Activation.IDENTITY)
@@ -226,13 +280,12 @@ class DenseLayer(FeedForwardLayer):
         return {"W": W, "b": b}
 
     def pre_output(self, params, x, *, train=False, rng: Rng = None):
-        if self.use_drop_connect and train and (self.dropout or 0.0) > 0 \
-                and rng is not None:
-            raise NotImplementedError(
-                "DropConnect (use_drop_connect=True with dropout > 0) is not "
-                "ported yet (ROADMAP queue A9: the rest of nn/)")
-        x = self._maybe_dropout(x, train, rng)
-        return x @ params["W"] + params["b"]
+        W = params["W"]
+        if self.use_drop_connect:  # replaces input dropout, as in DL4J
+            W = self._maybe_drop_connect(W, train, rng)
+        else:
+            x = self._maybe_dropout(x, train, rng)
+        return x @ W + params["b"]
 
     def forward(self, params, x, *, train=False, rng: Rng = None, mask=None):
         return self._act()(self.pre_output(params, x, train=train, rng=rng))
@@ -293,6 +346,254 @@ class RnnOutputLayer(OutputLayer):
     def output_type(self, it: InputType) -> InputType:
         t = it.timeseries_length if isinstance(it, InputTypeRecurrent) else -1
         return InputType.recurrent(self.n_out, t)
+
+
+@register_layer
+@dataclass
+class LossLayer(Layer):
+    """Parameter-free loss head: the activation of its input, scored
+    against the labels."""
+
+    TYPE = "loss"
+    loss: LossFunction = LossFunction.MCXENT
+
+    @property
+    def has_params(self):
+        return False
+
+    def output_type(self, it: InputType) -> InputType:
+        return it
+
+    def forward(self, params, x, *, train=False, rng: Rng = None, mask=None):
+        return self._act()(x)
+
+    def pre_output(self, params, x, *, train=False, rng: Rng = None):
+        return x
+
+    loss_score = OutputLayer.loss_score
+    score_array = OutputLayer.score_array
+
+
+# ---------------------------------------------------------------------------
+# convolutional
+
+
+@register_layer
+@dataclass
+class ConvolutionLayer(FeedForwardLayer):
+    """2D convolution, NHWC activations and HWIO weights. The padding of
+    `convolution_mode` (SAME: asymmetric, the extra pad at the end) is
+    applied first, then cuDNN convolves unpadded through
+    `F.conv2d` on channels-last views."""
+
+    TYPE = "convolution"
+    input_kind = "cnn"
+    n_in: int = 0   # in channels (inferred from the input type if 0)
+    n_out: int = 0  # out channels
+    kernel: Tuple[int, int] = (3, 3)
+    stride: Tuple[int, int] = (1, 1)
+    padding: Tuple[int, int] = (0, 0)
+    dilation: Tuple[int, int] = (1, 1)
+    convolution_mode: ConvolutionMode = ConvolutionMode.TRUNCATE
+
+    def _in_channels(self, it: InputType) -> int:
+        if isinstance(it, InputTypeConvolutional):
+            return it.channels
+        return self.n_in
+
+    def output_type(self, it: InputType) -> InputType:
+        assert isinstance(it, InputTypeConvolutional), \
+            f"conv needs CNN input, got {it}"
+        oh, ow = conv_output_hw((it.height, it.width), self.kernel,
+                                self.stride, self.padding,
+                                self.convolution_mode, self.dilation)
+        return InputType.convolutional(oh, ow, self.n_out)
+
+    def init_params(self, gen, it, dtype=torch.float32) -> Params:
+        cin = self._in_channels(it)
+        kh, kw = self.kernel
+        W = self._winit(gen, (kh, kw, cin, self.n_out), cin * kh * kw,
+                        self.n_out * kh * kw, dtype)
+        b = torch.full((self.n_out,), float(self.bias_init or 0.0),
+                       dtype=dtype, device=gen.device)
+        return {"W": W, "b": b}
+
+    def pre_output(self, params, x, *, train=False, rng: Rng = None):
+        x = self._maybe_dropout(x, train, rng)
+        pad = explicit_padding((x.shape[1], x.shape[2]), self.kernel,
+                               self.stride, self.padding,
+                               self.convolution_mode, self.dilation)
+        w = params["W"].permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        y = F.conv2d(_nchw(_pad_hw(x, pad)), w, stride=tuple(self.stride),
+                     dilation=tuple(self.dilation))
+        return _nhwc(y) + params["b"]
+
+    def forward(self, params, x, *, train=False, rng: Rng = None, mask=None):
+        return self._act()(self.pre_output(params, x, train=train, rng=rng))
+
+
+@register_layer
+@dataclass
+class SubsamplingLayer(Layer):
+    """Pooling over NHWC windows: MAX pads with -inf, AVG divides by the
+    whole window (pads included), SUM and PNORM pad with 0; the pads are
+    applied first and the pooling runs unpadded."""
+
+    TYPE = "subsampling"
+    input_kind = "cnn"
+    pooling_type: PoolingType = PoolingType.MAX
+    kernel: Tuple[int, int] = (2, 2)
+    stride: Tuple[int, int] = (2, 2)
+    padding: Tuple[int, int] = (0, 0)
+    convolution_mode: ConvolutionMode = ConvolutionMode.TRUNCATE
+    pnorm: int = 2
+
+    @property
+    def has_params(self):
+        return False
+
+    def output_type(self, it: InputType) -> InputType:
+        assert isinstance(it, InputTypeConvolutional)
+        oh, ow = conv_output_hw((it.height, it.width), self.kernel,
+                                self.stride, self.padding,
+                                self.convolution_mode)
+        return InputType.convolutional(oh, ow, it.channels)
+
+    def forward(self, params, x, *, train=False, rng: Rng = None, mask=None):
+        pad = explicit_padding((x.shape[1], x.shape[2]), self.kernel,
+                               self.stride, self.padding,
+                               self.convolution_mode)
+        k, st = tuple(self.kernel), tuple(self.stride)
+        pt = self.pooling_type
+        if pt == PoolingType.MAX:
+            xp = _pad_hw(x, pad, float("-inf"))
+            return _nhwc(F.max_pool2d(_nchw(xp), k, st))
+        area = k[0] * k[1]
+        if pt == PoolingType.AVG:
+            return _nhwc(F.avg_pool2d(_nchw(_pad_hw(x, pad)), k, st))
+        if pt == PoolingType.SUM:
+            return _nhwc(F.avg_pool2d(_nchw(_pad_hw(x, pad)), k, st)) * area
+        if pt == PoolingType.PNORM:
+            p = float(self.pnorm)
+            s = F.avg_pool2d(_nchw(_pad_hw(x.abs() ** p, pad)), k, st) * area
+            return _nhwc(s ** (1.0 / p))
+        raise ValueError(pt)
+
+
+# ---------------------------------------------------------------------------
+# normalization
+
+
+@register_layer
+@dataclass
+class BatchNormalization(FeedForwardLayer):
+    """Batch normalization over every axis but the last. Its running
+    mean and variance are layer state (f32). Training normalizes by the
+    batch statistics, computed in >= f32 as one shifted pass around the
+    running mean (var = E[(x-m0)^2] - (mean-m0)^2, the biased batch
+    variance), and moves the running stats by
+    new = decay * old + (1 - decay) * batch; inference normalizes by the
+    running stats. The normalization is one x * scale + bias in the
+    activation dtype. (`F.batch_norm` keeps the unbiased variance and
+    takes momentum = 1 - decay: not this layer's arithmetic.)"""
+
+    TYPE = "batchnorm"
+    stateful = True
+    n_in: int = 0
+    n_out: int = 0
+    decay: float = 0.9
+    eps: float = 1e-5
+    lock_gamma_beta: bool = False
+
+    def output_type(self, it: InputType) -> InputType:
+        return it
+
+    def _nf(self, it: Optional[InputType]) -> int:
+        if isinstance(it, InputTypeConvolutional):
+            return it.channels
+        if isinstance(it, (InputTypeRecurrent, InputTypeFeedForward)):
+            return it.size
+        n = self.n_out or self.n_in
+        if not n:
+            raise ValueError(
+                "BatchNormalization needs either a resolved InputType "
+                "(set_input_type(s) on the builder) or an explicit n_in/n_out")
+        return n
+
+    def init_params(self, gen, it, dtype=torch.float32) -> Params:
+        if self.lock_gamma_beta:
+            return {}
+        nf = self._nf(it)
+        return {"gamma": torch.ones((nf,), dtype=dtype, device=gen.device),
+                "beta": torch.zeros((nf,), dtype=dtype, device=gen.device)}
+
+    def init_state(self, it: InputType, device=None) -> State:
+        nf = self._nf(it)
+        return {"mean": torch.zeros((nf,), dtype=torch.float32,
+                                    device=device),
+                "var": torch.ones((nf,), dtype=torch.float32, device=device)}
+
+    def forward_with_state(self, params, state, x, *, train=False,
+                           rng: Rng = None, mask=None):
+        axes = tuple(range(x.ndim - 1))
+        sdt = stat_dtype(x.dtype)
+        if train:
+            m0 = state["mean"].detach().to(x.dtype)
+            xc = x - m0
+            mean_c = torch.mean(xc, dim=axes, dtype=sdt)
+            msq_c = torch.mean(xc * xc, dim=axes, dtype=sdt)
+            var = torch.clamp(msq_c - mean_c * mean_c, min=0.0)
+            mean = mean_c + m0.to(sdt)
+            d = self.decay
+            new_state = {"mean": d * state["mean"] + (1 - d) * mean,
+                         "var": d * state["var"] + (1 - d) * var}
+        else:
+            mean, var = state["mean"], state["var"]
+            new_state = state
+        scale = torch.rsqrt(var.to(sdt) + self.eps)
+        if not self.lock_gamma_beta:
+            scale = scale * params["gamma"].to(sdt)
+        bias = -mean.to(sdt) * scale
+        if not self.lock_gamma_beta:
+            bias = bias + params["beta"].to(sdt)
+        y = x * scale.to(x.dtype) + bias.to(x.dtype)
+        return self._act()(y), new_state
+
+    def param_flags(self, name):
+        # gamma/beta: no l1/l2
+        return {"is_bias": name == "beta", "regularizable": False}
+
+
+@register_layer
+@dataclass
+class LocalResponseNormalization(Layer):
+    """Across-channel LRN: y = x / (k + alpha * sum_{window n} x^2)^beta,
+    the window padded (n // 2, n - 1 - n // 2) over the channels. alpha
+    is not divided by n (`F.local_response_norm` divides it)."""
+
+    TYPE = "lrn"
+    input_kind = "cnn"
+    k: float = 2.0
+    n: int = 5
+    alpha: float = 1e-4
+    beta: float = 0.75
+
+    @property
+    def has_params(self):
+        return False
+
+    def output_type(self, it: InputType) -> InputType:
+        return it
+
+    def forward(self, params, x, *, train=False, rng: Rng = None, mask=None):
+        half = self.n // 2
+        C = x.shape[-1]
+        sq = F.pad(x * x, (half, self.n - 1 - half))
+        s = sq[..., 0:C]
+        for i in range(1, self.n):
+            s = s + sq[..., i:i + C]
+        return x / (self.k + self.alpha * s) ** self.beta
 
 
 # ---------------------------------------------------------------------------
@@ -405,6 +706,215 @@ class GravesBidirectionalLSTM(GravesLSTM):
         return out_f + out_b
 
 
+@register_layer
+@dataclass
+class SelfAttention(FeedForwardLayer):
+    """Multi-head self-attention over a sequence, (B, T, n_in) ->
+    (B, T, n_out), through `ops.attention.multi_head_attention`: an
+    unmasked sequence longer than `block_size` takes the flash kernels
+    (non-causal unless `causal`), others blockwise or full attention.
+    Grouped-query K/V (`n_kv_heads`) need `project_input`."""
+
+    TYPE = "self_attention"
+    input_kind = "rnn"
+    n_in: int = 0
+    n_out: int = 0
+    n_heads: int = 1
+    n_kv_heads: int = 0
+    causal: bool = False
+    block_size: Optional[int] = 1024
+    project_input: bool = True
+
+    def __post_init__(self):
+        if not self.project_input and self.n_out not in (0, self.n_in):
+            raise ValueError(
+                f"project_input=False requires n_out == n_in (or 0); got "
+                f"n_in={self.n_in}, n_out={self.n_out}")
+        qkv = self.n_out or self.n_in if self.project_input else self.n_in
+        if qkv % self.n_heads != 0:
+            raise ValueError(f"attention width {qkv} not divisible by "
+                             f"n_heads={self.n_heads}")
+        if self.n_kv_heads:
+            if self.n_kv_heads < 0:
+                raise ValueError(f"n_kv_heads must be >= 0, got "
+                                 f"{self.n_kv_heads}")
+            if not self.project_input:
+                raise ValueError("n_kv_heads requires project_input=True")
+            if self.n_heads % self.n_kv_heads:
+                raise ValueError(
+                    f"n_heads {self.n_heads} not divisible by n_kv_heads "
+                    f"{self.n_kv_heads}")
+
+    @property
+    def _width(self) -> int:
+        return self.n_out or self.n_in
+
+    @property
+    def _kv_heads(self) -> int:
+        return self.n_kv_heads or self.n_heads
+
+    def output_type(self, it: InputType) -> InputType:
+        t = it.timeseries_length if isinstance(it, InputTypeRecurrent) else -1
+        return InputType.recurrent(self._width, t)
+
+    def init_params(self, gen, it, dtype=torch.float32) -> Params:
+        w = self._width
+        kvw = self._kv_heads * (w // self.n_heads)
+        zero = lambda n: torch.zeros((n,), dtype=dtype, device=gen.device)
+        p = {}
+        if self.project_input:
+            for name, cols in (("Wq", w), ("Wk", kvw), ("Wv", kvw)):
+                p[name] = self._winit(gen, (self.n_in, cols), self.n_in,
+                                      cols, dtype)
+            p["bq"], p["bk"], p["bv"] = zero(w), zero(kvw), zero(kvw)
+        p["Wo"] = self._winit(gen, (w, w), w, w, dtype)
+        p["bo"] = zero(w)
+        return p
+
+    def param_flags(self, name):
+        is_bias = name.startswith("b")
+        return {"is_bias": is_bias, "regularizable": not is_bias}
+
+    def _heads(self, x, n_heads=None):
+        B, T, _ = x.shape
+        return x.reshape(B, T, n_heads or self.n_heads, -1)
+
+    def forward(self, params, x, *, train=False, rng: Rng = None, mask=None):
+        from deeplearning4j_tpu_torch.ops.attention import (
+            multi_head_attention,
+        )
+
+        x = self._maybe_dropout(x, train, rng)
+        if self.project_input:
+            Hkv = self._kv_heads
+            q = self._heads(x @ params["Wq"] + params["bq"])
+            k = self._heads(x @ params["Wk"] + params["bk"], Hkv)
+            v = self._heads(x @ params["Wv"] + params["bv"], Hkv)
+        else:
+            q = k = v = self._heads(x)
+        out = multi_head_attention(q, k, v, causal=self.causal, key_mask=mask,
+                                   block_size=self.block_size)
+        B, T = out.shape[:2]
+        out = out.reshape(B, T, -1) @ params["Wo"] + params["bo"]
+        return self._act()(out)
+
+
+# ---------------------------------------------------------------------------
+# embedding / dropout / activation / pooling
+
+
+@register_layer
+@dataclass
+class EmbeddingLayer(FeedForwardLayer):
+    """Embedding lookup of int ids (B,) or (B, 1): act(W[ids] + b)."""
+
+    TYPE = "embedding"
+    input_kind = "ff"
+    integer_input = True
+    n_in: int = 0
+    n_out: int = 0
+
+    def output_type(self, it: InputType) -> InputType:
+        return InputType.feed_forward(self.n_out)
+
+    def init_params(self, gen, it, dtype=torch.float32) -> Params:
+        W = self._winit(gen, (self.n_in, self.n_out), self.n_in, self.n_out,
+                        dtype)
+        b = torch.full((self.n_out,), float(self.bias_init or 0.0),
+                       dtype=dtype, device=gen.device)
+        return {"W": W, "b": b}
+
+    def forward(self, params, x, *, train=False, rng: Rng = None, mask=None):
+        idx = x.long()
+        if idx.ndim == 2 and idx.shape[-1] == 1:
+            idx = idx[:, 0]
+        return self._act()(params["W"][idx] + params["b"])
+
+
+@register_layer
+@dataclass
+class DropoutLayer(Layer):
+    """Standalone (inverted) dropout."""
+
+    TYPE = "dropout_layer"
+
+    @property
+    def has_params(self):
+        return False
+
+    def output_type(self, it: InputType) -> InputType:
+        return it
+
+    def forward(self, params, x, *, train=False, rng: Rng = None, mask=None):
+        return self._maybe_dropout(x, train, rng)
+
+
+@register_layer
+@dataclass
+class ActivationLayer(Layer):
+    """Standalone activation."""
+
+    TYPE = "activation_layer"
+
+    @property
+    def has_params(self):
+        return False
+
+    def output_type(self, it: InputType) -> InputType:
+        return it
+
+    def forward(self, params, x, *, train=False, rng: Rng = None, mask=None):
+        return self._act()(x)
+
+
+@register_layer
+@dataclass
+class GlobalPoolingLayer(Layer):
+    """Global pooling over time ((B, T, F), with the (B, T) mask: masked
+    steps never win a MAX, add nothing to SUM/PNORM and AVG divides by
+    the unmasked count, at least 1) or over space ((B, H, W, C))."""
+
+    TYPE = "global_pooling"
+    pooling_type: PoolingType = PoolingType.MAX
+    pnorm: int = 2
+
+    @property
+    def has_params(self):
+        return False
+
+    def output_type(self, it: InputType) -> InputType:
+        if isinstance(it, InputTypeRecurrent):
+            return InputType.feed_forward(it.size)
+        if isinstance(it, InputTypeConvolutional):
+            return InputType.feed_forward(it.channels)
+        return it
+
+    def forward(self, params, x, *, train=False, rng: Rng = None, mask=None):
+        if x.ndim == 3:
+            axes = (1,)
+            m = None if mask is None else mask[:, :, None].to(x.dtype)
+        elif x.ndim == 4:
+            axes, m = (1, 2), None
+        else:
+            raise ValueError(f"global pooling needs 3d/4d input, got "
+                             f"{tuple(x.shape)}")
+        pt = self.pooling_type
+        if pt == PoolingType.MAX:
+            xm = x if m is None else x.masked_fill(m <= 0, float("-inf"))
+            return xm.amax(dim=axes)
+        if pt == PoolingType.SUM:
+            return (x if m is None else x * m).sum(dim=axes)
+        if pt == PoolingType.AVG:
+            if m is None:
+                return x.mean(dim=axes)
+            return (x * m).sum(dim=axes) / m.sum(dim=axes).clamp(min=1.0)
+        if pt == PoolingType.PNORM:
+            p = float(self.pnorm)
+            xs = x.abs() ** p if m is None else (x.abs() * m) ** p
+            return xs.sum(dim=axes) ** (1.0 / p)
+        raise ValueError(pt)
+
+
 # ---------------------------------------------------------------------------
 # transformer tier
 
@@ -496,16 +1006,15 @@ class TokenEmbedding(FeedForwardLayer):
         return super().param_flags(name)
 
 
-_NOT_PORTED_MOE = ("TransformerBlock(moe_experts>0) is not ported yet "
-                   "(ROADMAP queue A9: MoELayer with ops/aux_loss)")
-
-
 @register_layer
 @dataclass
 class TransformerBlock(FeedForwardLayer):
     """Pre-LN transformer block: x + MHA(LN(x)), then x + FFN(LN(x)).
-    Dense gelu (tanh form) or swiglu FFN, grouped-query attention
-    (`n_kv_heads`) and rotary embeddings (`rope`)."""
+    Dense gelu (tanh form) or swiglu FFN, or with `moe_experts` > 0 a
+    Switch mixture of experts (gelu experts, `parallel.experts.
+    switch_ffn`, its load-balancing loss added to the training loss);
+    grouped-query attention (`n_kv_heads`) and rotary embeddings
+    (`rope`)."""
 
     TYPE = "transformer_block"
     input_kind = "rnn"
@@ -546,6 +1055,9 @@ class TransformerBlock(FeedForwardLayer):
         if self.ffn_activation not in ("gelu", "swiglu"):
             raise ValueError(f"unknown ffn_activation "
                              f"{self.ffn_activation!r}: gelu | swiglu")
+        if self.ffn_activation == "swiglu" and self.moe_experts > 0:
+            raise ValueError("swiglu applies to the dense FFN only; the "
+                             "Switch-MoE expert FFN keeps gelu")
 
     @property
     def _d(self) -> int:
@@ -555,15 +1067,10 @@ class TransformerBlock(FeedForwardLayer):
     def _kv_heads(self) -> int:
         return self.n_kv_heads or self.n_heads
 
-    def _check_ported(self):
-        if self.moe_experts > 0:
-            raise NotImplementedError(_NOT_PORTED_MOE)
-
     def output_type(self, it: InputType) -> InputType:
         return it
 
     def init_params(self, gen, it, dtype=torch.float32) -> Params:
-        self._check_ported()
         d = self._d
         h = d * self.ffn_mult
         kvw = self._kv_heads * (d // self.n_heads)
@@ -579,8 +1086,17 @@ class TransformerBlock(FeedForwardLayer):
         params = {"ln1_g": const(d, 1.0), "ln1_b": const(d, 0.0),
                   "Wqkv": mk((d, w3), d, w3), "bqkv": const(w3, 0.0),
                   "Wo": mk((d, d), d, d), "bo": const(d, 0.0),
-                  "ln2_g": const(d, 1.0), "ln2_b": const(d, 0.0),
-                  "W1": mk((d, h), d, h)}
+                  "ln2_g": const(d, 1.0), "ln2_b": const(d, 0.0)}
+        E = self.moe_experts
+        if E > 0:  # Switch experts, stacked on axis 0
+            params.update({"router": mk((d, E), d, E),
+                           "W1": mk((E, d, h), d, h),
+                           "b1": torch.zeros((E, h), dtype=dtype, device=dev),
+                           "W2": mk((E, h, d), h, d),
+                           "b2": torch.zeros((E, d), dtype=dtype,
+                                             device=dev)})
+            return params
+        params["W1"] = mk((d, h), d, h)
         if self.ffn_activation == "swiglu":
             params["W3"] = mk((d, h), d, h)
         else:
@@ -592,12 +1108,14 @@ class TransformerBlock(FeedForwardLayer):
     def forward(self, params, x, *, train=False, rng: Rng = None,
                 mask=None):
         """x + MHA(LN1(x)), then + FFN(LN2(x)); `mask` (B, T) is the key
-        mask. With `remat` the training forward is recomputed in the
-        backward (`torch.utils.checkpoint`, non-reentrant) instead of
-        keeping its activations; dropout masks come from `rng`, so the
-        recomputation draws the same ones."""
-        self._check_ported()
-        if self.remat and train and torch.is_grad_enabled():
+        mask. With `remat` the training forward of a dense block is
+        recomputed in the backward (`torch.utils.checkpoint`,
+        non-reentrant) instead of keeping its activations; dropout masks
+        come from `rng`, so the recomputation draws the same ones. An MoE
+        block is never recomputed: its load-balancing term would be added
+        twice."""
+        if self.remat and self.moe_experts == 0 and train \
+                and torch.is_grad_enabled():
             from torch.utils.checkpoint import checkpoint
 
             return checkpoint(self._block_body, params, x, rng, mask, train,
@@ -632,7 +1150,8 @@ class TransformerBlock(FeedForwardLayer):
                                    key_mask=mask, block_size=self.block_size)
         att = att.reshape(B, T, d) @ params["Wo"] + params["bo"]
         x = x + self._maybe_dropout(att, train, rng)
-        return x + self._maybe_dropout(ffn(self, params, x), train,
+        return x + self._maybe_dropout(ffn(self, params, x, mask=mask,
+                                           train=train), train,
                                        fold_in(rng, 1))
 
     def param_flags(self, name):
@@ -642,28 +1161,105 @@ class TransformerBlock(FeedForwardLayer):
                 "regularizable": not is_bias and not norm_scale}
 
 
-def ffn(layer: TransformerBlock, p: Params, x: torch.Tensor) -> torch.Tensor:
-    """The block's FFN term on LN2(x): gelu (tanh form) or swiglu."""
+def ffn(layer: TransformerBlock, p: Params, x: torch.Tensor, *,
+        mask=None, train: bool = False) -> torch.Tensor:
+    """The block's FFN term on LN2(x): gelu (tanh form), swiglu, or the
+    Switch experts over the flattened tokens with `passthrough="zero"`
+    (the block adds its own residual, so a dropped token's term is 0;
+    `mask` (B, T) keeps padding out of the routing; `train` adds the
+    load-balancing loss)."""
     h2 = layer_norm(x, p["ln2_g"], p["ln2_b"], layer.eps)
+    if layer.moe_experts > 0:
+        from deeplearning4j_tpu_torch.parallel.experts import switch_ffn
+
+        lead = h2.shape[:-1]
+        return switch_ffn(p, h2.reshape(-1, h2.shape[-1]),
+                          act=lambda t: F.gelu(t, approximate="tanh"),
+                          capacity_factor=layer.moe_capacity_factor,
+                          aux_weight=layer.moe_aux_weight,
+                          token_mask=None if mask is None
+                          else mask.reshape(-1),
+                          train=train,
+                          passthrough="zero").reshape(*lead, -1)
     if layer.ffn_activation == "swiglu":
         return (F.silu(h2 @ p["W1"]) * (h2 @ p["W3"])) @ p["W2"] + p["b2"]
     return F.gelu(h2 @ p["W1"] + p["b1"], approximate="tanh") @ p["W2"] \
         + p["b2"]
 
 
-# the JAX package's layer types that belong to ROADMAP queue A9
-_A9_LAYERS = frozenset({
-    "ActivationLayer", "AutoEncoder", "BatchNormalization",
-    "ConvolutionLayer", "DropoutLayer", "EmbeddingLayer",
-    "GlobalPoolingLayer", "HiddenUnit", "LocalResponseNormalization",
-    "LossLayer", "MoELayer", "RBM", "SelfAttention", "SubsamplingLayer",
-    "VisibleUnit",
-})
+@register_layer
+@dataclass
+class MoELayer(FeedForwardLayer):
+    """Switch-style top-1 mixture-of-experts FFN: (B, T, D) or (B, D) ->
+    the same shape; the router picks one expert per token, overflow
+    tokens pass through (`parallel.experts.switch_ffn`, global capacity
+    over the flattened tokens); the load-balancing loss joins the
+    training loss. `expert_axis` names the expert-parallel mesh axis of
+    the JAX package; with no mesh (the only case the port has: the
+    sharded path is ROADMAP queue A12) the layer runs replicated."""
+
+    TYPE = "moe"
+    input_kind = "rnn"
+    n_in: int = 0
+    n_out: int = 0
+    n_experts: int = 4
+    hidden_mult: int = 4
+    capacity_factor: float = 1.25
+    aux_loss_weight: float = 0.01
+    expert_axis: Optional[str] = None
+    # its own field, so the builder's global activation cannot change it
+    expert_activation: Activation = Activation.RELU
+
+    def __post_init__(self):
+        if self.n_in and self.n_out and self.n_in != self.n_out:
+            raise ValueError("MoELayer keeps width: n_in == n_out")
+
+    @property
+    def _d(self) -> int:
+        return self.n_out or self.n_in
+
+    def output_type(self, it: InputType) -> InputType:
+        return it
+
+    def init_params(self, gen, it, dtype=torch.float32) -> Params:
+        d = self._d
+        h = d * self.hidden_mult
+        E = self.n_experts
+        return {
+            "router": self._winit(gen, (d, E), d, E, dtype),
+            "W1": self._winit(gen, (E, d, h), d, h, dtype),
+            "b1": torch.zeros((E, h), dtype=dtype, device=gen.device),
+            "W2": self._winit(gen, (E, h, d), h, d, dtype),
+            "b2": torch.zeros((E, d), dtype=dtype, device=gen.device),
+        }
+
+    def forward(self, params, x, *, train=False, rng: Rng = None, mask=None):
+        from deeplearning4j_tpu_torch.parallel.experts import switch_ffn
+
+        x = self._maybe_dropout(x, train, rng)
+        shape = x.shape
+        # padding tokens neither route, take capacity nor weigh the loss
+        token_mask = (mask.reshape(-1) if mask is not None
+                      and len(shape) == 3 else None)
+        y = switch_ffn(params, x.reshape(-1, shape[-1]),
+                       act=activation_fn(self.expert_activation),
+                       capacity_factor=self.capacity_factor,
+                       aux_weight=self.aux_loss_weight,
+                       token_mask=token_mask, train=train)
+        return y.reshape(shape)
+
+    def param_flags(self, name):
+        is_bias = name.startswith("b")
+        return {"is_bias": is_bias, "regularizable": not is_bias}
+
+
+# the JAX package's pretraining layers, ROADMAP queue A9b
+_A9B_LAYERS = frozenset({"AutoEncoder", "HiddenUnit", "RBM", "VisibleUnit"})
 
 
 def __getattr__(name):
-    if name in _A9_LAYERS:
+    if name in _A9B_LAYERS:
         raise NotImplementedError(
-            f"nn.conf.layers.{name} is not ported yet (ROADMAP queue A9: "
-            "the rest of nn/)")
+            f"nn.conf.layers.{name} is not ported yet (ROADMAP queue A9b: "
+            "the pretraining layers)")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -4,8 +4,10 @@ configuration (counterpart of
 
 `MultiLayerConfiguration.to_json` writes the JAX package's format
 ("deeplearning4j_tpu/MultiLayerConfiguration/v1") field for field, so
-JSON round-trips between the two packages. Input preprocessors are not
-ported yet: the GPT stack needs none.
+JSON round-trips between the two packages, input preprocessors
+included. `build()` infers each layer's `n_in` from the input type and
+inserts FeedForwardToCnn / CnnToFeedForward preprocessors where a layer
+of one kind follows another, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -23,11 +25,19 @@ from deeplearning4j_tpu_torch.nn.conf.inputs import (
     InputTypeRecurrent,
 )
 from deeplearning4j_tpu_torch.nn.conf.layers import (
+    ConvolutionLayer,
     DenseLayer,
     FeedForwardLayer,
     Layer,
     layer_from_json,
     layer_to_json,
+)
+from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
+    CnnToFeedForwardPreProcessor,
+    FeedForwardToCnnPreProcessor,
+    InputPreProcessor,
+    preprocessor_from_json,
+    preprocessor_to_json,
 )
 from deeplearning4j_tpu_torch.nn.updater import (
     GradientNormalization,
@@ -38,9 +48,6 @@ from deeplearning4j_tpu_torch.nn.updater import (
 from deeplearning4j_tpu_torch.nn.weights import Distribution, WeightInit
 from deeplearning4j_tpu_torch.ops.activations import Activation
 from deeplearning4j_tpu_torch.ops.losses import LossFunction
-
-_NO_PREPROCESSORS = ("input preprocessors are not ported yet (ROADMAP "
-                     "queue A9: nn/conf/preprocessors.py)")
 
 
 class OptimizationAlgorithm(str, enum.Enum):
@@ -214,6 +221,7 @@ class ListBuilder:
     def __init__(self, g: GlobalConf):
         self._g = g
         self._layers: List[Layer] = []
+        self._preprocessors: Dict[int, InputPreProcessor] = {}
         self._input_type: Optional[InputType] = None
         self._backprop = True
         self._pretrain = False
@@ -231,8 +239,9 @@ class ListBuilder:
             self._layers[idx] = conf
         return self
 
-    def input_pre_processor(self, idx: int, p):
-        raise NotImplementedError(_NO_PREPROCESSORS)
+    def input_pre_processor(self, idx: int, p: InputPreProcessor):
+        self._preprocessors[idx] = p
+        return self
 
     def set_input_type(self, it: InputType):
         self._input_type = it
@@ -259,10 +268,12 @@ class ListBuilder:
         merged = [_merge_layer_defaults(l, self._g) for l in layers]
         for i, l in enumerate(merged):
             _warn_loss_activation_mismatch(l, i)
+        pre = dict(self._preprocessors)
         if self._input_type is not None:
-            _infer_shapes(merged, self._input_type)
+            _infer_shapes(merged, pre, self._input_type)
         return MultiLayerConfiguration(
             layers=merged,
+            preprocessors=pre,
             global_conf=self._g,
             input_type=self._input_type,
             backprop=self._backprop,
@@ -353,23 +364,49 @@ def _merge_layer_defaults(layer: Layer, g: GlobalConf) -> Layer:
     return l
 
 
-def _infer_shapes(layers: List[Layer], input_type: InputType) -> None:
-    """Walk the stack inferring n_in. Stacks that would need an
-    automatically inserted preprocessor are refused."""
+def _infer_shapes(layers: List[Layer], pre: Dict[int, InputPreProcessor],
+                  input_type: InputType) -> None:
+    """Walk the stack inferring n_in and inserting the preprocessors a
+    change of layer kind needs (into `pre`, by layer index)."""
     it = input_type
-    for layer in layers:
-        kind = layer.input_kind
-        if isinstance(it, (InputTypeConvolutional, InputTypeConvolutionalFlat)):
-            raise NotImplementedError(_NO_PREPROCESSORS)
-        if kind == "rnn" and isinstance(it, InputTypeFeedForward):
-            raise ValueError(
-                f"cannot feed FeedForward({it.size}) into RNN layer "
-                f"{layer.TYPE} without a FeedForwardToRnnPreProcessor")
+    for i, layer in enumerate(layers):
+        if i in pre:
+            it = pre[i].output_type(it)
+        else:
+            p = _auto_preprocessor(layer, it)
+            if p is not None:
+                pre[i] = p
+                it = p.output_type(it)
         if isinstance(layer, FeedForwardLayer) \
-                and getattr(layer, "n_in", 0) in (0, None) \
-                and isinstance(it, (InputTypeFeedForward, InputTypeRecurrent)):
-            layer.n_in = it.size
+                and getattr(layer, "n_in", 0) in (0, None):
+            if isinstance(it, (InputTypeFeedForward, InputTypeRecurrent)):
+                layer.n_in = it.size
+            elif isinstance(it, InputTypeConvolutional):
+                layer.n_in = it.channels \
+                    if isinstance(layer, ConvolutionLayer) \
+                    else it.height * it.width * it.channels
+            elif isinstance(it, InputTypeConvolutionalFlat):
+                layer.n_in = it.flattened_size
         it = layer.output_type(it)
+
+
+def _auto_preprocessor(layer: Layer, it: InputType
+                       ) -> Optional[InputPreProcessor]:
+    kind = layer.input_kind
+    if kind == "cnn" and isinstance(it, InputTypeConvolutionalFlat):
+        return FeedForwardToCnnPreProcessor(it.height, it.width, it.channels)
+    if kind == "ff" and isinstance(it, InputTypeConvolutional):
+        return CnnToFeedForwardPreProcessor(it.height, it.width, it.channels)
+    if kind == "cnn" and isinstance(it, InputTypeFeedForward):
+        raise ValueError(
+            f"cannot feed FeedForward({it.size}) into CNN layer {layer.TYPE}; "
+            "set an explicit input_pre_processor (reference: "
+            "MultiLayerConfiguration preprocessor validation)")
+    if kind == "rnn" and isinstance(it, InputTypeFeedForward):
+        raise ValueError(
+            f"cannot feed FeedForward({it.size}) into RNN layer {layer.TYPE} "
+            "without a FeedForwardToRnnPreProcessor")
+    return None
 
 
 @dataclass
@@ -377,6 +414,7 @@ class MultiLayerConfiguration:
     """Built, fully-resolved network config."""
 
     layers: List[Layer]
+    preprocessors: Dict[int, InputPreProcessor] = field(default_factory=dict)
     global_conf: GlobalConf = field(default_factory=GlobalConf)
     input_type: Optional[InputType] = None
     backprop: bool = True
@@ -401,7 +439,8 @@ class MultiLayerConfiguration:
             "format": "deeplearning4j_tpu/MultiLayerConfiguration/v1",
             "global_conf": g,
             "layers": [layer_to_json(l) for l in self.layers],
-            "preprocessors": {},
+            "preprocessors": {str(k): preprocessor_to_json(p)
+                              for k, p in self.preprocessors.items()},
             "input_type": self.input_type.to_json() if self.input_type else None,
             "backprop": self.backprop,
             "pretrain": self.pretrain,
@@ -413,8 +452,6 @@ class MultiLayerConfiguration:
     @staticmethod
     def from_json(s: str) -> "MultiLayerConfiguration":
         d = json.loads(s)
-        if d.get("preprocessors"):
-            raise NotImplementedError(_NO_PREPROCESSORS)
         g = GlobalConf()
         gd = d.get("global_conf", {})
         for k, v in gd.items():
@@ -430,6 +467,8 @@ class MultiLayerConfiguration:
             setattr(g, k, v)
         return MultiLayerConfiguration(
             layers=[layer_from_json(l) for l in d["layers"]],
+            preprocessors={int(k): preprocessor_from_json(p)
+                           for k, p in d.get("preprocessors", {}).items()},
             global_conf=g,
             input_type=InputType.from_json(d["input_type"])
             if d.get("input_type") else None,

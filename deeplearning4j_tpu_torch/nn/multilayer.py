@@ -19,12 +19,17 @@ when loss and gradient norm are finite; the arithmetic of a committed
 step is the unguarded step's. A line-search `optimization_algo` trains
 each batch through `optimize.solvers.Solver` instead.
 
-Layer state (`_layer_state`, one dict per layer) is empty except while
-truncated BPTT carries the recurrent layers' (h, c) from one window to
-the next (`_fit_tbptt`); `rnn_time_step` keeps its own streaming carry
-(`_rnn_state`). A normalizer attached with `set_normalizer` runs on the
-device before layer 0: `OneHotEncoder` expands raw ids, the statistics
-normalizers scale features cast to the parameter dtype.
+Layer state (`_layer_state`, one dict per layer, from each layer's
+`init_state`) holds BatchNormalization's running mean and variance,
+which a training step moves and inference reads, and, while truncated
+BPTT runs, the recurrent layers' (h, c) carried from one window to the
+next (`_fit_tbptt`); `rnn_time_step` keeps its own streaming carry
+(`_rnn_state`). The configuration's input preprocessors run before their
+layers on every path. A layer may add a loss term during the training
+forward (the MoE load-balancing loss, `ops.aux_loss`); `_loss_pure` adds
+them to the loss. A normalizer attached with `set_normalizer` runs on
+the device before layer 0: `OneHotEncoder` expands raw ids, the
+statistics normalizers scale features cast to the parameter dtype.
 """
 from __future__ import annotations
 
@@ -100,7 +105,9 @@ class MultiLayerNetwork:
             it = InputType.recurrent(n_in) if l0.input_kind == "rnn" \
                 else InputType.feed_forward(n_in)
         out = []
-        for layer in self.layers:
+        for i, layer in enumerate(self.layers):
+            if i in self.conf.preprocessors:
+                it = self.conf.preprocessors[i].output_type(it)
             out.append(it)
             it = layer.output_type(it)
         return out
@@ -108,7 +115,7 @@ class MultiLayerNetwork:
     def init(self) -> None:
         """Draw every layer's parameters from one generator seeded with
         the configuration's seed, on the network's device, and zero the
-        optimizer state and the layer state."""
+        optimizer state; each layer's state from its `init_state`."""
         gen = torch.Generator(device=self.device).manual_seed(self.conf.seed)
         self._params = [
             layer.init_params(gen, self._input_types[i], self.dtype)
@@ -118,7 +125,9 @@ class MultiLayerNetwork:
             {name: init_updater_state(layer.updater_cfg, v)
              for name, v in p.items()} if layer.updater_cfg is not None
             else {} for layer, p in zip(self.layers, self._params)]
-        self._layer_state = [{} for _ in self.layers]
+        self._layer_state = [layer.init_state(self._input_types[i],
+                                              self.device)
+                             for i, layer in enumerate(self.layers)]
 
     def _ensure_init(self):
         if self._params is None:
@@ -194,22 +203,34 @@ class MultiLayerNetwork:
     def _forward_pure(self, params: Params, x, *, train: bool, rng,
                       fmask=None, upto: Optional[int] = None,
                       lstate: Optional[LState] = None):
-        """Every layer up to `upto`: (activations, new layer state). A
-        stateful layer gets its `lstate` slot and returns the next one."""
+        """Every layer up to `upto`, each after its input preprocessor:
+        (activations, new layer state). A stateful layer gets its
+        `lstate` slot and returns the next one."""
         n = len(self.layers) if upto is None else upto
         new_state = list(lstate) if lstate is not None \
             else [{} for _ in self.layers]
         for i in range(n):
-            layer = self.layers[i]
+            lrng = fold_in(rng, i)
+            x = self._preprocess(i, x, lrng, train)
             mask = fmask if x.ndim == 3 else None
-            if layer.stateful:
-                x, new_state[i] = layer.forward_with_state(
-                    params[i], new_state[i], x, train=train,
-                    rng=fold_in(rng, i), mask=mask)
-            else:
-                x = layer.forward(params[i], x, train=train,
-                                  rng=fold_in(rng, i), mask=mask)
+            x, new_state[i] = self._layer_forward(i, params[i], new_state[i],
+                                                  x, train, lrng, mask)
         return x, new_state
+
+    def _preprocess(self, i: int, x, rng=None, train: bool = False):
+        """Layer i's input preprocessor, if the configuration has one."""
+        pre = self.conf.preprocessors.get(i)
+        return x if pre is None else pre.preprocess(x, rng=rng, train=train)
+
+    def _layer_forward(self, i: int, p, state, x, train: bool, rng,
+                       mask=None):
+        """(out, new state) of layer i: a stateful layer reads and
+        returns its state, the others keep theirs."""
+        layer = self.layers[i]
+        if layer.stateful:
+            return layer.forward_with_state(p, state, x, train=train,
+                                            rng=rng, mask=mask)
+        return layer.forward(p, x, train=train, rng=rng, mask=mask), state
 
     def _wire_features(self, x):
         from deeplearning4j_tpu_torch.nn.precision import wire_asarray
@@ -241,24 +262,26 @@ class MultiLayerNetwork:
         self._ensure_init()
         h = self._prep_features(self._wire_features(x))
         acts = []
-        for p, layer in zip(self._params, self.layers):
-            h = layer.forward(p, h, train=False, rng=None)
+        for i, p in enumerate(self._params):
+            h, _ = self._layer_forward(i, p, self._layer_state[i],
+                                       self._preprocess(i, h), False, None)
             acts.append(h)
         return acts
 
     # ------------------------------------------------------------ training
     def _loss_pure(self, params: Params, features, labels, fmask, lmask,
                    rng, train: bool = True, lstate: Optional[LState] = None):
-        """(output-layer loss + L1/L2, new layer state). Mixed precision:
-        every layer but the output layer runs in the compute dtype (token
-        ids are never cast); the activations return to the parameter
-        dtype before the output layer, which computes the loss, and the
-        penalties, in the parameter dtype; carried state keeps its
-        dtype."""
+        """(output-layer loss + L1/L2 + the layers' aux-loss terms, new
+        layer state). Mixed precision: every layer but the output layer
+        runs in the compute dtype (token ids are never cast); the
+        activations return to the parameter dtype before the output
+        layer, which computes the loss, and the penalties, in the
+        parameter dtype; carried state keeps its dtype."""
         from deeplearning4j_tpu_torch.nn.precision import (
             restore_dtypes,
             tree_cast,
         )
+        from deeplearning4j_tpu_torch.ops.aux_loss import aux_loss_scope
 
         params_in = params
         features = self._prep_features(features)
@@ -267,19 +290,24 @@ class MultiLayerNetwork:
             if not self._int_input():
                 features = features.to(self.compute_dtype)
         n = len(self.layers)
-        x, new_state = self._forward_pure(params, features, train=train,
-                                          rng=rng, fmask=fmask, upto=n - 1,
-                                          lstate=lstate)
+        with aux_loss_scope() as aux_terms:
+            x, new_state = self._forward_pure(params, features, train=train,
+                                              rng=rng, fmask=fmask,
+                                              upto=n - 1, lstate=lstate)
         if self.compute_dtype is not None:
             x = x.to(self.dtype)
             if lstate is not None:
                 new_state = restore_dtypes(new_state, lstate)
+        out_rng = fold_in(rng, n - 1)
+        x = self._preprocess(n - 1, x, out_rng, train)
         mask = lmask if lmask is not None else (fmask if x.ndim == 3 else None)
         loss = self.layers[-1].loss_score(params_in[-1], x, labels,
-                                          train=train, rng=fold_in(rng, n - 1),
+                                          train=train, rng=out_rng,
                                           mask=mask)
-        return loss + regularization_score(zip(self.layers, params_in)), \
-            new_state
+        loss = loss + regularization_score(zip(self.layers, params_in))
+        for term in aux_terms:  # mid-network losses (MoE load balancing)
+            loss = loss + term
+        return loss, new_state
 
     def _loss_and_grads(self, features, labels, fmask, lmask):
         """The loss of one batch and its gradients by autograd (a list of
@@ -449,7 +477,8 @@ class MultiLayerNetwork:
                                        value_range=ranges.get("features"))
         if ds.labels is None:
             raise ValueError("fit() requires labels; got DataSet with "
-                             "labels=None (pretrain() is not ported)")
+                             "labels=None (pretrain() is not ported: ROADMAP "
+                             "queue A9b)")
         n_out = getattr(self.layers[-1], "n_out", None)
         labels = ds.labels
         sparse = (not labels.is_floating_point()
@@ -608,6 +637,7 @@ class MultiLayerNetwork:
                                train=False, rng=None, fmask=fm,
                                upto=len(self.layers) - 1,
                                lstate=self._layer_state)[0]
+        x = self._preprocess(len(self.layers) - 1, x)
         mask = lm if lm is not None else (fm if x.ndim == 3 else None)
         scores = self.layers[-1].score_array(self._params[-1], x, l,
                                              mask=mask)
@@ -692,6 +722,7 @@ class MultiLayerNetwork:
             pos = self._rnn_pos + t
             for i, layer in enumerate(self.layers):
                 p = self._params[i]
+                h = self._preprocess(i, h)
                 if type(layer) is GravesLSTM:
                     h, self._rnn_state[i] = layer.step(p, h,
                                                        *self._rnn_state[i])
@@ -707,7 +738,8 @@ class MultiLayerNetwork:
                 elif h.ndim == 2 and layer.input_kind == "rnn" \
                         and not getattr(layer, "integer_input", False):
                     h = h[:, None, :]
-                h = layer.forward(p, h, train=False, rng=None)
+                h, _ = self._layer_forward(i, p, self._layer_state[i], h,
+                                           False, None)
                 if h.ndim == 3 and h.shape[1] == 1:
                     h = h[:, 0]
             outs.append(h)
@@ -767,7 +799,7 @@ class MultiLayerNetwork:
     # --------------------------------------------------------- not ported
     def pretrain(self, iterator, epochs: int = 1) -> None:
         raise _not_ported("layerwise pretraining",
-                          "queue A9: AutoEncoder/RBM/VAE layers")
+                          "queue A9b: AutoEncoder/RBM/VAE layers")
 
     # ------------------------------------------------------------- helpers
     def set_listeners(self, *listeners) -> None:
@@ -862,13 +894,29 @@ class MultiLayerNetwork:
         `util.serialization.params_from_jax`), checked against this
         network's names and shapes, cast to its dtype and device."""
         self._ensure_init()
-        if len(params) != len(self._params):
-            raise ValueError(f"{len(params)} layers given, network has "
-                             f"{len(self._params)}")
+        self._params = self._checked_copy(self._params, params, "parameter",
+                                          self.dtype)
+
+    def set_layer_state(self, state: LState) -> None:
+        """Load a per-layer list of layer-state dicts (BatchNormalization's
+        running `mean`/`var`; the JAX network's `_layer_state` through
+        `util.serialization.params_from_jax`), checked against this
+        network's names and shapes, on its device in each slot's dtype."""
+        self._ensure_init()
+        self._layer_state = self._checked_copy(self._layer_state, state,
+                                               "state", None)
+
+    def _checked_copy(self, mine_tree, theirs_tree, what: str, dtype):
+        """Copies of `theirs_tree`'s tensors on this network's device, in
+        `dtype` (None: the dtype of the slot each replaces), after checking
+        its layer count, names and shapes against `mine_tree`."""
+        if len(theirs_tree) != len(mine_tree):
+            raise ValueError(f"{len(theirs_tree)} layers given, network has "
+                             f"{len(mine_tree)}")
         new = []
-        for i, (mine, theirs) in enumerate(zip(self._params, params)):
+        for i, (mine, theirs) in enumerate(zip(mine_tree, theirs_tree)):
             if set(mine) != set(theirs):
-                raise ValueError(f"layer {i}: parameter names "
+                raise ValueError(f"layer {i}: {what} names "
                                  f"{sorted(theirs)} != {sorted(mine)}")
             q = {}
             for k, v in theirs.items():
@@ -876,17 +924,19 @@ class MultiLayerNetwork:
                 if tuple(t.shape) != tuple(mine[k].shape):
                     raise ValueError(f"layer {i} {k}: shape {tuple(t.shape)} "
                                      f"!= {tuple(mine[k].shape)}")
-                q[k] = t.to(device=self.device, dtype=self.dtype, copy=True)
+                q[k] = t.to(device=self.device, dtype=dtype or mine[k].dtype,
+                            copy=True)
             new.append(q)
-        self._params = new
+        return new
 
     def num_params(self) -> int:
         self._ensure_init()
         return sum(v.numel() for p in self._params for v in p.values())
 
     def summary(self) -> str:
-        """The architecture as a table: each layer's index, type, input
-        and output types and parameter count, and the total (the JAX
+        """The architecture as a table: each layer's index, type (marked
+        "* " where an input preprocessor runs before it), input and
+        output types and parameter count, and the total (the JAX
         package's text)."""
         from deeplearning4j_tpu_torch.util.text_table import format_table
 
@@ -897,6 +947,10 @@ class MultiLayerNetwork:
             it_in = self._input_types[i]
             n = sum(v.numel() for v in self._params[i].values())
             total += n
-            rows.append((str(i), type(layer).__name__, str(it_in),
+            pre = "* " if i in self.conf.preprocessors else ""
+            rows.append((str(i), pre + type(layer).__name__, str(it_in),
                          str(layer.output_type(it_in)), f"{n:,}"))
-        return format_table(rows, f"total parameters: {total:,}")
+        return format_table(
+            rows, f"total parameters: {total:,}"
+            + ("  (* = input preprocessor applied)"
+               if self.conf.preprocessors else ""))

@@ -4,8 +4,11 @@ The zip holds `configuration.json`, `coefficients.npy` (the flat
 parameter vector in `ravel_pytree` order: layer order, then sorted dict
 keys, each leaf in C order), `updaterState.npy` (the optimizer state in
 the same order: layer, then sorted parameter name, then sorted state
-name), `layerState.npy` (empty: the only layer state, tBPTT's LSTM carry,
-lives for one batch), `meta.json` (iteration, epoch, dtype, model type)
+name), `layerState.npy` (the persistent layer state in the same order:
+layer, then sorted state name; BatchNormalization's running `mean` and
+`var`, f32; empty for a network without one; tBPTT's LSTM carry lives
+for one batch and is never saved), `meta.json` (iteration, epoch, dtype,
+model type)
 and, when one is given, `normalizer.bin` (any normalizer of
 `datasets.normalizers`, in the JAX package's format). Either package
 reads what the other writes. `write_model` commits through
@@ -52,7 +55,12 @@ def params_from_jax(conf, params) -> List[Dict[str, torch.Tensor]]:
     """The JAX network's `_params` (a list of per-layer dicts of numpy or
     JAX arrays) as this package's parameter list: CPU tensors with the
     same names, shapes and dtypes, checked against `conf`'s layer count.
-    Load them with `MultiLayerNetwork.set_param_tree`."""
+    Every layer keeps the JAX package's layout, so this is a copy: HWIO
+    convolution weights, BatchNormalization's gamma/beta, SelfAttention's
+    Wq/Wk/Wv/Wo, the MoE router and experts stacked on axis 0. Load them
+    with `MultiLayerNetwork.set_param_tree`. The JAX network's
+    `_layer_state` (BatchNormalization's running `mean`/`var`) converts
+    the same way; load it with `MultiLayerNetwork.set_layer_state`."""
     if len(params) != len(conf.layers):
         raise ValueError(f"{len(params)} parameter dicts for "
                          f"{len(conf.layers)} layers")
@@ -70,6 +78,40 @@ def updater_state_from_jax(conf, upd_state):
     return [{k: {sk: torch.from_numpy(np.array(a, copy=True))
                  for sk, a in st.items()} for k, st in layer.items()}
             for layer in upd_state]
+
+
+def _state_slots(net):
+    """(state dict, name) of every persistent layer-state tensor in ravel
+    order: the names each layer's `init_state` gives (a transient tBPTT
+    carry is never among them)."""
+    return [(st, k) for layer, it, st in zip(net.layers, net._input_types,
+                                             net._layer_state)
+            for k in sorted(layer.init_state(it))]
+
+
+def _flat_layer_state(net) -> np.ndarray:
+    """The persistent layer state in ravel order, f32."""
+    leaves = [st[k].detach().reshape(-1).cpu().float()
+              for st, k in _state_slots(net)]
+    if not leaves:
+        return np.zeros((0,), np.float32)
+    return torch.cat(leaves).numpy()
+
+
+def _load_layer_state(net, flat: np.ndarray) -> None:
+    slots = _state_slots(net)
+    n = sum(st[k].numel() for st, k in slots)
+    if flat.size and flat.shape != (n,):
+        raise ValueError(f"checkpoint layer state has {flat.size} values "
+                         f"but the rebuilt network expects {n}")
+    if not n or not flat.size:
+        return
+    t = torch.from_numpy(flat).to(device=net.device)
+    off = 0
+    for st, k in slots:
+        m = st[k].numel()
+        st[k] = t[off:off + m].reshape(st[k].shape).to(st[k].dtype).clone()
+        off += m
 
 
 def _flat_updater_state(upd_state) -> np.ndarray:
@@ -111,7 +153,7 @@ def write_model(net, path: Union[str, Path], save_updater: bool = True,
             if save_updater:
                 z.writestr(UPDATER_STATE,
                            _np_bytes(_flat_updater_state(net._upd_state)))
-            z.writestr(LAYER_STATE, _np_bytes(np.zeros((0,), np.float32)))
+            z.writestr(LAYER_STATE, _np_bytes(_flat_layer_state(net)))
             if normalizer is not None:
                 z.writestr(NORMALIZER, normalizer.to_bytes())
             z.writestr(META_JSON, json.dumps({
@@ -151,6 +193,8 @@ def restore_multi_layer_network(path: Union[str, Path],
             upd = (_np_load(z.read(UPDATER_STATE))
                    if load_updater and UPDATER_STATE in z.namelist()
                    else None)
+            lstate = (_np_load(z.read(LAYER_STATE))
+                      if LAYER_STATE in z.namelist() else None)
     except _ZIP_DAMAGE as e:
         raise CheckpointCorruptError(
             f"checkpoint {path} is corrupt or truncated "
@@ -167,6 +211,8 @@ def restore_multi_layer_network(path: Union[str, Path],
     net.set_params(flat)
     if upd is not None:
         _load_updater_state(net, upd)
+    if lstate is not None:
+        _load_layer_state(net, lstate)
     net.iteration = meta.get("iteration", 0)
     net.epoch = meta.get("epoch", 0)
     return net

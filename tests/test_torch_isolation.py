@@ -6,8 +6,10 @@ written and restored) and running the recurrent path (a GravesLSTM
 char-RNN fit with truncated BPTT, then streamed with rnn_time_step on
 uint8 ids through the OneHotEncoder; the training loop with an async
 iterator, the health sentinel, listeners and checkpoints, then evaluate,
-restore, a statistics normalizer and an LBFGS fit) loads neither `jax`
-nor any module of `deeplearning4j_tpu`, and
+restore, a statistics normalizer and an LBFGS fit; a CNN with
+BatchNormalization state through a checkpoint, LeNet, a SelfAttention
+classifier on the flash route, an MoE GPT trained and generated from)
+loads neither `jax` nor any module of `deeplearning4j_tpu`, and
 its entry points run on the card by default, raising where there is
 none rather than carrying on quietly on the CPU."""
 import os
@@ -184,6 +186,54 @@ _SCRIPT = textwrap.dedent("""
     finally:
         assert srv.shutdown()
     assert probs.shape == (1, 10, 16)
+    # the CNN and MoE slice: LeNet, a CNN with BatchNormalization state
+    # through a checkpoint, a SelfAttention classifier on the flash route, an
+    # MoE GPT trained, generated from and served
+    from deeplearning4j_tpu_torch.models import lenet_configuration
+    from deeplearning4j_tpu_torch.nn.conf import preprocessors  # noqa: F401
+    from deeplearning4j_tpu_torch.nn.conf.layers import TokenEmbedding
+    from deeplearning4j_tpu_torch.ops import aux_loss  # noqa: F401
+    from deeplearning4j_tpu_torch.parallel import experts  # noqa: F401
+    from deeplearning4j_tpu_torch.util import conv_utils  # noqa: F401
+
+    cnet = MultiLayerNetwork(lenet_configuration(), device="cpu")
+    imgs = (np.arange(2 * 784).reshape(2, 784) % 255).astype(np.uint8)
+    cnet.fit(DataSet(imgs, np.eye(10, dtype=np.float32)[[1, 2]]))
+    assert np.isfinite(cnet.score_value)
+    bconf = (C.NeuralNetConfiguration.Builder().seed(1).list()
+             .layer(C.ConvolutionLayer(n_out=2, kernel=(3, 3)))
+             .layer(C.BatchNormalization(activation="identity"))
+             .layer(C.OutputLayer(n_out=3, activation="softmax"))
+             .set_input_type(C.InputType.convolutional_flat(6, 6, 1))
+             .build())
+    bnet = MultiLayerNetwork(bconf, device="cpu")
+    bnet.fit(DataSet(np.ones((4, 36), np.float32),
+                     np.eye(3, dtype=np.float32)[[0, 1, 2, 0]]))
+    with tempfile.TemporaryDirectory() as d:
+        write_model(bnet, os.path.join(d, "b.zip"))
+        bback = restore_multi_layer_network(os.path.join(d, "b.zip"),
+                                            device="cpu")
+    assert (bback._layer_state[1]["var"] == bnet._layer_state[1]["var"]).all()
+    anet = MultiLayerNetwork(
+        C.NeuralNetConfiguration.Builder().list()
+        .layer(TokenEmbedding(n_in=16, n_out=128, max_length=256))
+        .layer(C.SelfAttention(n_in=128, n_out=128, block_size=128))
+        .layer(C.GlobalPoolingLayer())
+        .layer(C.OutputLayer(n_out=2, activation="softmax"))
+        .set_input_type(C.InputType.recurrent(16)).build(), device="cpu")
+    calls = fa.flash_attention_plain_fwd.calls
+    anet.fit(DataSet((np.arange(512).reshape(2, 256) % 16).astype(np.int32),
+                     np.eye(2, dtype=np.float32)))
+    assert fa.flash_attention_plain_fwd.calls > calls
+    mnet = MultiLayerNetwork(gpt_configuration(16, d_model=16, n_heads=2,
+                                               n_layers=1, max_length=32,
+                                               moe_experts=2), device="cpu")
+    ids = np.arange(2 * 9).reshape(2, 9) % 16
+    mnet.fit(DataSet(ids[:, :-1].astype(np.int32),
+                     ids[:, 1:].astype(np.int32)))
+    assert generate(mnet, ids[:, :4], 3, temperature=0.0,
+                    device="cpu").shape == (2, 3)
+
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")
                     or m == "deeplearning4j_tpu"

@@ -95,3 +95,44 @@ def test_reference_names_resolve_or_name_a_queue_item(module):
         except Exception as e:  # the failure this test exists to catch
             wrong.append(f"{name}: {type(e).__name__}: {e}")
     assert not wrong, wrong
+
+
+def test_the_walk_covers_the_cnn_and_moe_modules():
+    assert {f"{PORT}.util.conv_utils", f"{PORT}.nn.conf.preprocessors",
+            f"{PORT}.models.lenet", f"{PORT}.models", f"{PORT}.ops.aux_loss",
+            f"{PORT}.parallel", f"{PORT}.parallel.experts"} <= set(MODULES)
+
+
+@pytest.mark.parametrize("module,name,item", [
+    ("nn.conf", "AutoEncoder", "A9b"),
+    ("nn.conf", "RBM", "A9b"),
+    ("nn.conf", "VariationalAutoencoder", "A9b"),
+    ("nn.conf", "GaussianReconstructionDistribution", "A9b"),
+    ("nn.conf.layers", "AutoEncoder", "A9b"),
+    ("nn.conf.layers", "HiddenUnit", "A9b"),
+    ("nn.conf", "ComputationGraphConfiguration", "A10"),
+    ("", "ComputationGraph", "A10"),
+    ("models", "resnet_configuration", "A10"),
+    ("models", "resnet_tiny_configuration", "A10"),
+    ("parallel", "ParallelWrapper", "A12"),
+    ("parallel", "make_mesh", "A12"),
+])
+def test_unported_families_raise_naming_their_item(module, name, item):
+    """The pretraining family (A9b), ComputationGraph and ResNet (A10)
+    and parallel training (A12) raise NotImplementedError naming their
+    queue item, never AttributeError or ImportError."""
+    mod = importlib.import_module(f"{PORT}.{module}" if module else PORT)
+    with pytest.raises(NotImplementedError, match=rf"queue {item}\b"):
+        getattr(mod, name)
+
+
+def test_pretrain_and_sharded_experts_raise_naming_their_item():
+    from deeplearning4j_tpu_torch.models.lenet import lenet_configuration
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.parallel import experts
+
+    net = MultiLayerNetwork(lenet_configuration(), device="cpu")
+    with pytest.raises(NotImplementedError, match=r"queue A9b\b"):
+        net.pretrain(None)
+    with pytest.raises(NotImplementedError, match=r"queue A12\b"):
+        experts.switch_ffn_sharded(None, None, None)
