@@ -64,7 +64,11 @@ belongs to):
   counts as caught;
 - moe: `chip_smoke.py`'s phase 23 (SelfAttention on the flash kernels,
   MoELayer against numpy, path 2m, the MoE engine against `generate`),
-  whose failed check counts as caught.
+  whose failed check counts as caught;
+- graph, pretrain: `chip_smoke.py`'s phases 24-26 (path 7's ResNet-50
+  graph, the graph on the LSTM kernels against the list container, the
+  CPU and numpy, pretraining against the CPU, numpy and the greedy
+  reference), whose failed check counts as caught.
 
 The faults (`MUTATIONS`) drop tiles, terms or rows, and break each
 mechanism of the Hopper kernels: the forward's diagonal mask on the wrong
@@ -135,7 +139,14 @@ flatten in NCHW order instead of NHWC, and BatchNormalization's running
 variance moved by the unbiased batch variance; the Switch MoE
 (`parallel/experts.py`, `nn/multilayer.py`): capacity overflow not
 dropped (every expert's capacity N), and the load-balancing term left
-out of the training loss. A
+out of the training loss; the graph: ElementWiseVertex's ADD computing
+the average, a topological sort that counts only each node's last input
+(a vertex then runs before one of its inputs), and BatchNormalization's
+running stats dropped by the graph's forward (never committed); layerwise
+pretraining: the RBM free energy's visible term with the wrong sign, the
+VAE's KL term left out of the negative ELBO, and `pretrain` training
+every pretraining layer up to the current one again (an upstream layer
+that should be frozen updated). A
 fault that makes the kernel trap (an mbarrier wait that times out) fails
 its check process, which counts as caught.
 
@@ -166,6 +177,12 @@ GUARD = "guard"
 # `serving/decode_engine.py`), checked by `chip_smoke.py`'s phase 21
 # (path 5) on the paged and flash kernels
 SERVER = "server"
+# the graph (`nn/conf/computation_graph_configuration.py`,
+# `nn/graph/computation_graph.py`) and layerwise pretraining (the RBM and
+# VAE losses, `MultiLayerNetwork.pretrain`), both checked by
+# `chip_smoke.py`'s phases 24-26 (ResNet-50, the graph on the LSTM
+# kernels, pretraining on the card)
+GRAPH, PRETRAIN = "graph", "pretrain"
 # the CNN layers (`nn/conf/layers.py`, `nn/conf/preprocessors.py`),
 # checked by `chip_smoke.py`'s phase 22 (no CUDA source of the port), and
 # the Switch MoE (`parallel/experts.py`, the aux loss in
@@ -640,7 +657,8 @@ MUTATIONS = [
      "nn/multilayer.py"),
     ("guard: the gradient norm leaves out the first layer", GUARD,
      "    def _health(loss, grads) -> torch.Tensor:", [
-         ("        for g in grads:\n", "        for g in grads[1:]:\n")],
+         ("        for _, g in _tree_items(grads):\n",
+          "        for _, g in _tree_items(grads)[1:]:\n")],
      "nn/multilayer.py"),
     # the serving tier's defenses, each caught by phase 21 (path 5): the
     # non-finite live model, the breaker's ladder, the events around the
@@ -698,6 +716,51 @@ MUTATIONS = [
      "    def _loss_pure(self,", [
          ("            loss = loss + term\n", "            pass\n")],
      "nn/multilayer.py"),
+    # the graph, each caught by phases 24-26: the numpy forward of
+    # resnet_tiny, the topological order check, BatchNormalization's
+    # running stats moving on path 7 and the conv-BN graph against the
+    # list container
+    ("graph: ElementWiseVertex ADD computes AVERAGE", GRAPH,
+     "class ElementWiseVertex(", [
+         ("            for x in inputs[1:]:\n                out = out + x\n"
+          "            return out\n",
+          "            for x in inputs[1:]:\n                out = out + x\n"
+          "            return out / len(inputs)\n")],
+     "nn/conf/computation_graph_configuration.py"),
+    ("graph: a vertex runs before one of its inputs", GRAPH,
+     "    def _topological_sort(self) -> List[str]:", [
+         ("            for i in node.inputs:\n",
+          "            for i in node.inputs[-1:]:\n")],
+     "nn/conf/computation_graph_configuration.py"),
+    ("graph: BatchNormalization's running stats not committed", GRAPH,
+     "    def _forward_pure(self, params: Params, inputs", [
+         ("                acts[name], new_state[name] = run_layer(",
+          "                acts[name], _ = run_layer(")],
+     "nn/graph/computation_graph.py"),
+    # layerwise pretraining, each caught by phase 26: the RBM's CD loss
+    # and gradient and the VAE's ELBO against numpy in f64, the
+    # AutoEncoder stack against the greedy reference
+    ("pretrain: RBM free energy's visible term with the wrong sign",
+     PRETRAIN, "    def free_energy(self, params, v):", [
+         ('        return -(v @ params["vb"]) - hidden_term',
+          '        return (v @ params["vb"]) - hidden_term')],
+     "nn/conf/layers.py"),
+    ("pretrain: the VAE's KL term left out", PRETRAIN,
+     "    def pretrain_loss(self, params, x, rng=None):", [
+         ("        return torch.mean(kl - rec)",
+          "        return torch.mean(-rec)")],
+     "nn/conf/variational.py"),
+    ("pretrain: an upstream frozen layer updated", PRETRAIN,
+     "    def pretrain(self, iterator, epochs: int = 1) -> None:", [
+         ("            self._pretrain_layer(i, i, layer, iterator, epochs, "
+          "layer_input)\n",
+          "            for j in range(i + 1):  # every pretraining layer so "
+          "far\n"
+          "                if hasattr(self.layers[j], \"pretrain_loss\"):\n"
+          "                    self._pretrain_layer(\n"
+          "                        j, j, self.layers[j], iterator, epochs,\n"
+          "                        lambda ds, j=j: layer_input(ds, j))\n")],
+     "nn/multilayer.py"),
 ]
 
 
@@ -751,7 +814,7 @@ def build(sources) -> None:
     from deeplearning4j_tpu_torch.ops import cuda_build
 
     needs = {GUARD: (LSTM,), SERVER: (PAGED, FLASH), CNN: (),
-             MOE: (PAGED, FLASH)}
+             MOE: (PAGED, FLASH), GRAPH: (LSTM,), PRETRAIN: (LSTM,)}
     cuda_build.build(tuple(sorted({k for s in sources
                                    for k in needs.get(s, (s,))})))
 
@@ -785,6 +848,12 @@ def check(sources) -> None:
         cases += phase_cases(torch, "23", "SelfAttention, MoE, path 2m",
                              lambda cs, M, card: cs.phase_attention_moe(
                                  torch, M, pa, card))
+    if {GRAPH, PRETRAIN} & set(sources):
+        cases += phase_cases(
+            torch, "24-26", "ResNet-50, the graph, pretraining",
+            lambda cs, M, card: (cs.phase_resnet(torch, M, card),
+                                 cs.phase_graph_lstm(torch, M, card),
+                                 cs.phase_pretrain(torch, M, card)))
     print(json.dumps({"package": fa.__file__, "cases": cases}), flush=True)
 
 

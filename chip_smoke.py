@@ -6,6 +6,7 @@ NVIDIA card.
     python3 chip_smoke.py --lstm-timing [--package OLD/deeplearning4j_tpu_torch]
     python3 chip_smoke.py --path5    # phase 21 alone (about 1.5 minutes)
     python3 chip_smoke.py --phases-22-23   # the CNN and MoE phases alone
+    python3 chip_smoke.py --phases-24-26   # the graph and pretraining phases
 
 `--lstm-timing` runs phase 17 alone (the LSTM source built, the rows
 checked and timed, launch counts 0) on the checkout's package or, with
@@ -16,6 +17,8 @@ the rows' times. Run it old/new/new/old in one call for a kernel A/B.
 the GPT behind `ModelServer`) alone, then prints one JSON line of its
 launch counts. `--phases-22-23` builds the paged and flash sources and
 runs phases 22 and 23 alone (their rows and launch counts logged).
+`--phases-24-26` builds the LSTM source and runs phases 24 to 26 alone,
+then prints one JSON line of phase 25's launch counts.
 
 Phases, each of which makes the script exit non-zero when it fails:
 
@@ -355,7 +358,60 @@ Phases, each of which makes the script exit non-zero when it fails:
    equal `generate`'s, with paged launches at C=1 and C=256 and no plain
    call. The non-causal flash rows at the SelfAttention shape (bf16 and
    f32) are timed as in phase 16 with its launches; path 2m's launches
-   go into the causal rows at path 2's shape, its engine's into rows 1.
+   go into the causal rows at path 2's shape, its engine's into rows 1;
+24. the graph builder and path 7: a residual DAG whose nodes are added
+   before their inputs must come out of `GraphBuilder.build()` in an order
+   that runs every node after its inputs (checked here, not by the
+   package), and so must ResNet-50's; then path 7, `resnet_configuration(
+   depth=50, n_classes=10)` as `bench_resnet50` builds it (`bench.py:256-
+   295`: a ComputationGraph of 53 convolutions in SAME mode, each followed
+   by BatchNormalization, and 16 residual add vertices; B=256 32x32x3
+   uint8 images, seeded class templates plus noise, through
+   `ImagePreProcessingScaler`, bf16 compute over f32 masters, Nesterovs lr
+   0.1 momentum 0.9, l2 1e-4): a warm-up step, 5 timed steps (step ms,
+   median and spread, samples/s, losses finite, peak device memory,
+   `num_params`), one more under torch.profiler (idle share, top
+   kernels); every BatchNormalization node's running mean must have moved;
+   `output` of one batch ((256, 10) probabilities, finite, rows summing to
+   1 within 1e-3) and `evaluate` of it (its accuracy equal to numpy's on
+   that output, the confusion matrix totalling 256);
+25. the graph on the LSTM kernels: path 4's char-RNN (vocab 256, two
+   GravesLSTM(1024), RnnOutputLayer, RMSPROP lr 0.1, bf16 over f32
+   masters, OneHotEncoder on uint8 ids, B=2048 x T=64) as a linear-chain
+   ComputationGraph and as the list container, from one seed (the same
+   flat parameters), 3 fit steps each on the same batches: 6 + 6
+   unmasked launches (rows 5 and 6) each, no plain call, losses within
+   1e-5 relative and parameters within lr / 1000 of each other; path 4b's
+   char-RNN (vocab 64, H=256, B=8192 x T=48) as a graph with tBPTT 24 on
+   ragged rows: 4 masked forward and 4 masked backward launches (rows 7
+   and 8) in one fit, no plain call; an f32 masked tBPTT graph (vocab 64,
+   H=256, B=16, T=30, windows of 12, SGD lr 0.1) on the card against the
+   CPU for 2 fits (losses rtol 1e-5, parameters 1e-4 + 1e-5 |ref|) and
+   its `rnn_time_step` in two chunks against its `output` (1e-5);
+   `resnet_tiny_configuration()` in f32 on the card against the CPU for
+   3 Nesterovs steps (losses rtol 1e-4, parameters and running stats
+   1e-5 + 1e-5 |ref|), its `output` against this script's numpy forward
+   (f64, in the script's own dependency order) within 1e-4, and a conv ->
+   BN -> softmax chain as a graph against the list container on the card
+   (parameters and running stats after 3 steps within 1e-6). Its
+   launches go into rows 5-8 at path 4's and path 4b's shapes;
+26. pretraining on the card: a VAE at Deeplearning4j's MNIST VAE
+   example's widths (784 -> encoder 256, 256 -> z 2 -> decoder 256, 256,
+   Bernoulli through a sigmoid, leaky ReLU, RMSPROP 1e-3, l2 1e-4,
+   B=128) pretrains 60 steps on seeded binarised templates (5% of pixels
+   flipped): its negative ELBO (eps = 0, a held-out batch) must fall by
+   10%; DeepAutoEncoderExample's RBM stack (784-1000-500-250-100-30 and
+   back, k=1, SGD 0.1, B=1000) pretrains 9 steps a layer: the first RBM's
+   reconstruction error must fall by 10%; `pretrain_loss(rng=None)` and
+   its gradient on the card against the CPU (f32, TF32 off: loss 1e-5
+   relative, gradients 1e-4 of the largest |reference|) for the VAE and
+   the first RBM, and against this script's numpy f64 versions (the RBM's
+   CD-1 surrogate and gradient, the VAE's negative ELBO) within 1e-4; an
+   AutoEncoder stack with no corruption (784 -> 256 tanh dense, frozen ->
+   64 -> 16, SGD 0.1, B=128, 2 epochs of 4 batches) on the card against
+   the CPU and against this script's greedy reference (f64 autograd,
+   layer by layer) within 1e-5 + 1e-4 |ref|; ms per pretrain step of
+   each.
 
 Prints one JSON line of per-kernel numbers, then the card's
 `nvidia-smi` line, then as the last line
@@ -4341,6 +4397,786 @@ def moe_launches(rows, counts) -> None:
         row["launches"] += int(adds.get(row["name"], 0))
 
 
+# ------------------------------ phase 24: path 7, ResNet-50 on CIFAR-10
+# bench_resnet50 (bench.py:256-295): resnet_configuration(depth=50,
+# n_classes=10), B=256 32x32x3 uint8 images through
+# ImagePreProcessingScaler, bf16 compute over f32 masters, Nesterovs lr 0.1,
+# momentum 0.9, l2 1e-4; seeded class templates plus noise as the data
+RESNET_B, RESNET_STEPS, RESNET_HW = 256, 5, 32
+
+
+def cifar_batches(np, B, n, seed, hw=RESNET_HW, classes=10):
+    """Seeded CIFAR-shaped data: ten hw x hw x 3 uint8 class templates,
+    each image its class's template plus uniform noise, one-hot labels."""
+    rng = np.random.default_rng(seed)
+    templates = rng.integers(0, 256, (classes, hw, hw, 3))
+    out = []
+    for _ in range(n):
+        y = rng.integers(0, classes, B)
+        x = np.clip(templates[y] + rng.integers(-40, 41, (B, hw, hw, 3)),
+                    0, 255)
+        out.append((x.astype(np.uint8), np.eye(classes, dtype=np.float32)[y]))
+    return out
+
+
+def check_topological_order(conf) -> None:
+    """Every node after all of its inputs, each node once."""
+    pos = {n: i for i, n in enumerate(conf.topological_order)}
+    if sorted(pos) != sorted(conf.nodes) \
+            or len(pos) != len(conf.topological_order):
+        raise AssertionError("topological order does not list every node "
+                             "once")
+    for name, node in conf.nodes.items():
+        late = [i for i in node.inputs if i in pos and pos[i] > pos[name]]
+        if late:
+            raise AssertionError(f"node {name!r} runs before its inputs "
+                                 f"{late}")
+
+
+# device kernels by kind, from their names: the first kind whose words a
+# kernel's name holds (lower case)
+KERNEL_KINDS = (("convolution", ("conv", "cudnn", "xmma", "implicit",
+                                 "wgrad", "dgrad", "fprop")),
+                ("GEMM", ("gemm", "cutlass")),
+                ("reduction", ("reduce",)),
+                ("copy, pad, cat", ("copy", "pad", "cat")),
+                ("element-wise", ("elementwise",)))
+
+
+def kernel_kinds(per_name) -> str:
+    """Device ms by kernel kind (`KERNEL_KINDS`) of a traced run."""
+    ms: dict = {}
+    for name, us in per_name.items():
+        low = name.lower()
+        kind = next((k for k, words in KERNEL_KINDS
+                     if any(w in low for w in words)), "other")
+        ms[kind] = ms.get(kind, 0.0) + us / 1e3
+    return ", ".join(f"{k} {v:.1f} ms" for k, v in
+                     sorted(ms.items(), key=lambda kv: -kv[1]))
+
+
+def bn_means(net):
+    return {n: net._layer_state[n]["mean"].clone()
+            for n, layer in net._layer_slots()
+            if type(layer).__name__ == "BatchNormalization"}
+
+
+def out_of_order_dag(M):
+    """A residual DAG whose nodes are added before their inputs (the add
+    first, its second input's layer last), built without input types."""
+    C = M["conf"]
+    return (C.NeuralNetConfiguration.Builder().graph_builder()
+            .add_inputs("in")
+            .add_vertex("add", M["ElementWiseVertex"](), "b", "a")
+            .add_layer("out", C.OutputLayer(n_in=4, n_out=2,
+                                            activation="softmax"), "add")
+            .add_layer("b", C.DenseLayer(n_in=4, n_out=4), "a")
+            .add_layer("a", C.DenseLayer(n_in=4, n_out=4), "in")
+            .set_outputs("out").build())
+
+
+def phase_resnet(torch, M, card):
+    """Phase 24: the builder's topological order, then path 7, ResNet-50
+    at bench_resnet50's shape."""
+    import numpy as np
+
+    DataSet = M["DataSet"]
+    check_topological_order(out_of_order_dag(M))
+    conf = M["resnet_configuration"](depth=50, n_classes=10)
+    check_topological_order(conf)
+    net = M["ComputationGraph"](conf, dtype=torch.float32,
+                                compute_dtype=torch.bfloat16, device="cuda")
+    net.init()
+    net.set_normalizer(M["ImagePreProcessingScaler"]())
+    n_params = net.num_params()
+    adds = sum(1 for n in conf.nodes.values() if n.vertex is not None)
+    batches = [DataSet(x, y) for x, y in cifar_batches(
+        np, RESNET_B, RESNET_STEPS + 3, seed=24)]
+    before = bn_means(net)
+    t0 = time.perf_counter()
+    net.fit(batches[0])  # warm-up: cuDNN plans, allocator
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = [], []
+    for ds in batches[1:RESNET_STEPS + 1]:
+        t0 = time.perf_counter()
+        net.fit(ds)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(net.score_value)
+    peak = torch.cuda.max_memory_allocated()
+    kernels: dict = {}
+    trace = traced(torch, lambda: net.fit(batches[-2]), kernels)
+    after = bn_means(net)
+    still = [n for n in before if torch.equal(before[n], after[n])]
+    med = sorted(step_ms)[len(step_ms) // 2]
+    log(f"  path 7: ResNet-50 ({len(conf.nodes)} nodes, {adds} residual "
+        f"adds, {n_params} parameters), {RESNET_STEPS} steps of "
+        f"B={RESNET_B} {RESNET_HW}x{RESNET_HW}x3 uint8 (bf16 over f32 "
+        f"masters, Nesterovs): warm-up {1e3 * warm:.1f} ms; step ms "
+        f"{[round(t, 2) for t in step_ms]}; median {med:.2f} ms (spread "
+        f"{min(step_ms):.2f}-{max(step_ms):.2f}), "
+        f"{RESNET_B / med * 1e3:.1f} samples/s [{card}]")
+    log(f"  losses {losses}; peak device memory {peak / 2**30:.3f} GiB "
+        f"({peak} bytes)")
+    log(f"  traced step (torch.profiler, not in the step times): {trace}")
+    log(f"  its device time by kernel kind: {kernel_kinds(kernels)}; "
+        f"{len(kernels)} kernel names")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"ResNet-50 losses not finite: {losses}")
+    if still:
+        raise AssertionError(f"BatchNormalization running stats of "
+                             f"{len(still)} of {len(before)} nodes never "
+                             f"moved: {still[:4]}")
+    x, y = batches[-1].features, batches[-1].labels
+    out = net.output(x)[0]
+    probs = out.float().cpu().numpy()
+    ev = net.evaluate(batches[-1])
+    acc = float((probs.argmax(1) == y.argmax(1)).mean())
+    log(f"  output {tuple(out.shape)} {out.dtype}, rows sum to 1 within "
+        f"{np.abs(probs.sum(1) - 1).max():.2e}; evaluate: accuracy "
+        f"{ev.accuracy():.4f} (numpy on output {acc:.4f}), confusion total "
+        f"{int(ev.confusion_matrix.sum())}")
+    if probs.shape != (RESNET_B, 10) or not np.isfinite(probs).all() \
+            or np.abs(probs.sum(1) - 1).max() > 1e-3 \
+            or int(ev.confusion_matrix.sum()) != RESNET_B \
+            or abs(ev.accuracy() - acc) > 1e-9:
+        raise AssertionError("ResNet-50 output or evaluate wrong")
+    del net
+    torch.cuda.empty_cache()
+
+
+# ------------------------ phase 25: the graph on the LSTM kernels, parity
+GRAPH_STEPS = 3  # fit steps of path 4's char-RNN as a graph and as a list
+
+
+def char_rnn_graph_conf(M, vocab, hidden, seed=1, tbptt=0, lr=0.1,
+                        updater="rmsprop"):
+    """`char_rnn_conf`'s network as a linear-chain ComputationGraph (node
+    names in chain order, so the flat parameters line up)."""
+    C, A, LF = M["conf"], M["Activation"], M["LossFunction"]
+    b = (C.NeuralNetConfiguration.Builder().seed(seed).learning_rate(lr)
+         .updater(updater).graph_builder().add_inputs("in")
+         .add_layer("l0", C.GravesLSTM(n_out=hidden, activation=A.TANH),
+                    "in")
+         .add_layer("l1", C.GravesLSTM(n_out=hidden, activation=A.TANH),
+                    "l0")
+         .add_layer("out", C.RnnOutputLayer(n_out=vocab, loss=LF.MCXENT,
+                                            activation=A.SOFTMAX), "l1")
+         .set_outputs("out").set_input_types(C.InputType.recurrent(vocab)))
+    if tbptt:
+        b = b.t_bptt_forward_length(tbptt)
+    return b.build()
+
+
+def ragged_mask(np, B, T, seed):
+    """(B, T) f32: row lengths from T/2 to T, some rows whole."""
+    lens = np.random.default_rng(seed).integers(T // 2, T + 1, B)
+    lens[::7] = T
+    return (np.arange(T)[None] < lens[:, None]).astype(np.float32)
+
+
+def graph_vs_list(torch, M, V, H, B, T, steps):
+    """Path 4's char-RNN as a graph and as the list container, from the
+    same parameters, `steps` fit steps each on the same batches: (losses,
+    launches and step ms of each, largest parameter difference)."""
+    import numpy as np
+
+    L = M["lstm"]
+    nets = {"graph": M["ComputationGraph"](char_rnn_graph_conf(M, V, H),
+                                           dtype=torch.float32,
+                                           compute_dtype=torch.bfloat16,
+                                           device="cuda"),
+            "list": M["MultiLayerNetwork"](char_rnn_conf(M, V, H, seed=1),
+                                           dtype=torch.float32,
+                                           compute_dtype=torch.bfloat16,
+                                           device="cuda")}
+    for n in nets.values():
+        n.init()
+        n.set_normalizer(M["OneHotEncoder"](V))
+    if not torch.equal(nets["graph"].params(), nets["list"].params()):
+        raise AssertionError("the graph's init differs from the list "
+                             "container's")
+    ids = np.random.default_rng(25).integers(0, V, (steps, B, T + 1))
+    res = {}
+    for name, net in nets.items():
+        L.reset_counts()
+        losses, ms = [], []
+        for i in range(steps):
+            t0 = time.perf_counter()
+            net.fit(M["DataSet"](ids[i, :, :-1].astype(np.uint8),
+                                 ids[i, :, 1:].astype(np.int32)))
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            losses.append(net.score_value)
+        res[name] = (losses, dict(L.launches), dict(L.launches_by_route),
+                     (L.lstm_fwd_plain.calls, L.lstm_bwd_plain.calls), ms)
+    diff = max(
+        (nets["graph"]._params[n][k] - p[k]).abs().max().item()
+        for (n, _), p in zip(nets["graph"]._layer_slots(),
+                             nets["list"]._params) for k in p)
+    del nets
+    torch.cuda.empty_cache()
+    return res, diff
+
+
+def masked_graph_fit(torch, M, V, H, B, T, W):
+    """Path 4b's char-RNN as a bf16 graph with tBPTT W on ragged rows
+    (every window masked): (launches, routes, plain calls, loss)."""
+    import numpy as np
+
+    L = M["lstm"]
+    net = M["ComputationGraph"](char_rnn_graph_conf(M, V, H, tbptt=W),
+                                dtype=torch.float32,
+                                compute_dtype=torch.bfloat16, device="cuda")
+    net.init()
+    (x, y), = one_hot_batches(np, V, B, T, 1, 26)
+    mask = ragged_mask(np, B, T, 26)
+    mds = M["MultiDataSet"]([x], [y], features_masks=[mask],
+                            labels_masks=[mask])
+    net.fit(mds)  # warm-up
+    torch.cuda.synchronize()
+    L.reset_counts()
+    t0 = time.perf_counter()
+    net.fit(mds)
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    out = (dict(L.launches), dict(L.launches_by_route),
+           (L.lstm_fwd_plain.calls, L.lstm_bwd_plain.calls),
+           net.score_value, wall)
+    del net
+    torch.cuda.empty_cache()
+    return out
+
+
+def small_lstm_graph_parity(torch, M):
+    """An f32 masked tBPTT graph (vocab 64, H=256, B=16, T=30, windows of
+    12) on the card against the CPU for 2 fits; then rnn_time_step over
+    the sequence against the full forward on the card."""
+    import numpy as np
+
+    V, H, B, T = 64, 256, 16, 30
+    nets = {}
+    for dev in ("cuda", "cpu"):
+        nets[dev] = M["ComputationGraph"](
+            char_rnn_graph_conf(M, V, H, seed=3, tbptt=12, lr=0.1,
+                                updater="sgd"), dtype=torch.float32,
+            device=dev)
+        nets[dev].init()
+    nets["cuda"].set_params(nets["cpu"].params())
+    mask = ragged_mask(np, B, T, 27)
+    losses = {"cuda": [], "cpu": []}
+    for x, y in one_hot_batches(np, V, B, T, 2, 27):
+        for dev, net in nets.items():
+            net.fit(M["MultiDataSet"]([x], [y], features_masks=[mask],
+                                      labels_masks=[mask]))
+            losses[dev].append(net.score_value)
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)
+    worst = 0.0
+    for name, p in nets["cpu"]._params.items():
+        for k, v in p.items():
+            d = (nets["cuda"]._params[name][k].cpu() - v).abs()
+            worst = max(worst, d.max().item())
+            if not bool((d <= 1e-4 + 1e-5 * v.abs()).all()):
+                raise AssertionError(f"graph tBPTT param {name}.{k} differs "
+                                     f"card vs CPU by {d.max().item()}")
+    g = nets["cuda"]
+    (x, _), = one_hot_batches(np, V, B, T, 1, 28)
+    full = g.output(x)[0]
+    streamed = torch.cat([g.rnn_time_step(x[:, :11])[0],
+                          g.rnn_time_step(x[:, 11:])[0]], dim=1)
+    e = (streamed - full).abs().max().item()
+    log(f"  f32 masked tBPTT graph (H={H}, B={B}, T={T}, windows of 12): "
+        f"losses card {losses['cuda']} cpu {losses['cpu']} (rtol 1e-5), "
+        f"params max abs diff {worst:.3e} (1e-4 + 1e-5 |ref|); "
+        f"rnn_time_step in two chunks against output {e:.3e} (1e-5)")
+    if not e <= 1e-5:
+        raise AssertionError(f"graph rnn_time_step off output by {e}")
+
+
+def np_resnet_probs(np, net, images):
+    """A ResNet graph's inference forward in f64 from the network's
+    parameters and running stats, in this function's own dependency
+    order: SAME convolutions, BatchNormalization on the running stats,
+    ReLU, residual sums, global average pooling, dense softmax."""
+    conf = net.conf
+    p = {n: {k: v.detach().double().cpu().numpy() for k, v in d.items()}
+         for n, d in net._params.items()}
+    st = {n: {k: v.detach().double().cpu().numpy() for k, v in d.items()}
+          for n, d in net._layer_state.items()}
+    acts = {conf.network_inputs[0]: images.astype(np.float64)}
+
+    def value(name):
+        if name in acts:
+            return acts[name]
+        node = conf.nodes[name]
+        xs = [value(i) for i in node.inputs]
+        if node.vertex is not None:
+            out = xs[0]
+            for x in xs[1:]:
+                out = out + x
+        else:
+            layer, x = node.layer, xs[0]
+            kind = type(layer).__name__
+            act = str(getattr(layer.activation, "value", layer.activation))
+            if kind == "ConvolutionLayer":
+                pad = tuple(np_same_pad(n, k, s) for n, k, s in zip(
+                    x.shape[1:3], layer.kernel, layer.stride))
+                out = np_conv(np, x, p[name]["W"], p[name]["b"],
+                              layer.stride, (1, 1), pad)
+            elif kind == "BatchNormalization":
+                out = (x - st[name]["mean"]) / np.sqrt(
+                    st[name]["var"] + layer.eps) * p[name]["gamma"] \
+                    + p[name]["beta"]
+            elif kind == "ActivationLayer":
+                out = x
+            elif kind == "GlobalPoolingLayer":  # no activation
+                out = x.mean(axis=(1, 2))
+                act = "identity"
+            elif kind == "OutputLayer":
+                z = x @ p[name]["W"] + p[name]["b"]
+                z = np.exp(z - z.max(axis=1, keepdims=True))
+                out = z / z.sum(axis=1, keepdims=True)
+                act = "identity"
+            else:
+                raise AssertionError(f"numpy forward has no {kind}")
+            if act == "relu":
+                out = np.maximum(out, 0.0)
+            elif act != "identity":
+                raise AssertionError(f"numpy forward has no {act}")
+        acts[name] = out
+        return out
+
+    return value(conf.network_outputs[0])
+
+
+def conv_bn_chain(M, graph):
+    """conv -> BatchNormalization -> dense softmax, as a graph or as the
+    list container (node names in chain order)."""
+    C = M["conf"]
+    b = (C.NeuralNetConfiguration.Builder().seed(9).learning_rate(0.05)
+         .updater("nesterovs").momentum(0.9))
+    layers = [C.ConvolutionLayer(n_out=16, kernel=(3, 3), stride=(2, 2),
+                                 convolution_mode="same",
+                                 activation="identity"),
+              C.BatchNormalization(activation="relu"),
+              C.OutputLayer(n_out=10, activation="softmax")]
+    it = C.InputType.convolutional(16, 16, 3)
+    if not graph:
+        lb = b.list()
+        for layer in layers:
+            lb = lb.layer(layer)
+        return lb.set_input_type(it).build()
+    gb = b.graph_builder().add_inputs("in")
+    prev = "in"
+    for name, layer in zip(("a_conv", "b_bn", "c_out"), layers):
+        gb = gb.add_layer(name, layer, prev)
+        prev = name
+    return gb.set_outputs("c_out").set_input_types(it).build()
+
+
+def resnet_tiny_parity(torch, M):
+    """resnet_tiny in f32 on the card against the CPU for 3 Nesterovs
+    steps (TF32 off), the card's output against the numpy forward, and a
+    conv -> BN -> softmax chain as a graph against the list container on
+    the card (parameters and running stats after 3 steps)."""
+    import numpy as np
+
+    DataSet = M["DataSet"]
+    nets = {}
+    for dev in ("cuda", "cpu"):
+        nets[dev] = M["ComputationGraph"](M["resnet_tiny_configuration"](),
+                                          dtype=torch.float32, device=dev)
+        nets[dev].init()
+    nets["cuda"].set_params(nets["cpu"].params())
+    losses = {"cuda": [], "cpu": []}
+    for x, y in cifar_batches(np, 32, 3, seed=29, hw=8):
+        x = x.astype(np.float32) / 255.0
+        for dev, net in nets.items():
+            net.fit(DataSet(x, y))
+            losses[dev].append(net.score_value)
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+    worst = 0.0
+    for tree in ("_params", "_layer_state"):
+        for name, d in getattr(nets["cpu"], tree).items():
+            for k, v in d.items():
+                got = getattr(nets["cuda"], tree)[name][k].cpu()
+                diff = (got - v).abs()
+                worst = max(worst, diff.max().item())
+                if not bool((diff <= 1e-5 + 1e-5 * v.abs()).all()):
+                    raise AssertionError(f"resnet_tiny {name}.{k} differs "
+                                         f"card vs CPU by "
+                                         f"{diff.max().item()}")
+    x = cifar_batches(np, 16, 1, seed=30, hw=8)[0][0].astype(np.float32) \
+        / 255.0
+    e = rel_err(np, nets["cuda"].output(x)[0].cpu().numpy(),
+                np_resnet_probs(np, nets["cuda"], x))
+    chain = {"graph": M["ComputationGraph"](conv_bn_chain(M, True),
+                                            device="cuda"),
+             "list": M["MultiLayerNetwork"](conv_bn_chain(M, False),
+                                            device="cuda")}
+    chain["graph"].init()
+    chain["list"].set_param_tree([chain["graph"]._params[n]
+                                  for n in ("a_conv", "b_bn", "c_out")])
+    for x, y in cifar_batches(np, 64, 3, seed=31, hw=16):
+        for net in chain.values():
+            net.fit(DataSet(x.astype(np.float32) / 255.0, y))
+    cd = 0.0
+    for i, n in enumerate(("a_conv", "b_bn", "c_out")):
+        for tree in ("_params", "_layer_state"):
+            mine = getattr(chain["graph"], tree)[n]
+            theirs = getattr(chain["list"], tree)[i]
+            if set(mine) != set(theirs):
+                raise AssertionError(f"chain {n} {tree} names differ")
+            for k in mine:
+                cd = max(cd, (mine[k] - theirs[k]).abs().max().item())
+    log(f"  resnet_tiny f32, B=32: losses card {losses['cuda']} cpu "
+        f"{losses['cpu']} (rtol 1e-4), params and running stats max abs "
+        f"diff {worst:.3e} (1e-5 + 1e-5 |ref|); output against numpy "
+        f"{e:.2e} ({CNN_TOL}); conv -> BN -> softmax graph against the "
+        f"list container, 3 steps: params and running stats max abs diff "
+        f"{cd:.3e} (1e-6)")
+    if not e <= CNN_TOL:
+        raise AssertionError(f"resnet_tiny output off numpy by {e}")
+    if not cd <= 1e-6:
+        raise AssertionError(f"conv-BN graph differs from the list "
+                             f"container by {cd}")
+
+
+def phase_graph_lstm(torch, M, card):
+    """Phase 25: path 4's char-RNN as a graph against the list container
+    on rows 5-6, a masked tBPTT graph on rows 7-8, f32 graph parity with
+    the CPU (LSTM and resnet_tiny); returns the launches by run."""
+    import numpy as np
+
+    V, H, B, T = (LSTM_LARGE[k] for k in ("vocab", "hidden", "B", "T"))
+    res, diff = graph_vs_list(torch, M, V, H, B, T, GRAPH_STEPS)
+    for name, (losses, launches, routes, plain, ms) in res.items():
+        log(f"  {name}: losses {losses}; step ms "
+            f"{[round(t, 2) for t in ms]}; LSTM launches {launches}, by "
+            f"route {routes}, plain {plain} [{card}]")
+        want = {("fwd", False, False): 2 * GRAPH_STEPS,
+                ("bwd", False, False): 2 * GRAPH_STEPS}
+        if launches != want or any(plain) or not all(np.isfinite(losses)):
+            raise AssertionError(f"{name}: expected {want}, no plain call "
+                                 f"and finite losses: {launches}, {plain}, "
+                                 f"{losses}")
+    gl, ll = res["graph"][0], res["list"][0]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(gl, ll))
+    log(f"  graph against list container, {GRAPH_STEPS} bf16 RMSPROP "
+        f"steps: losses max relative difference {rel:.3e} (1e-5), params "
+        f"max abs difference {diff:.3e} (lr / 1000 = 1e-4)")
+    if not (rel <= 1e-5 and diff <= 1e-4):
+        raise AssertionError(f"graph and list container differ: losses "
+                             f"{rel}, params {diff}")
+    Vs, Hs, Bs, W = (LSTM_SMALL[k] for k in ("vocab", "hidden", "B",
+                                             "tbptt"))
+    launches, routes, plain, loss, wall = masked_graph_fit(
+        torch, M, Vs, Hs, Bs, 2 * W, W)
+    log(f"  masked tBPTT graph (path 4b's net, B={Bs} x T={2 * W}, windows "
+        f"of {W}, ragged rows): one fit {wall:.2f} ms, loss {loss}; LSTM "
+        f"launches {launches}, by route {routes}, plain {plain}")
+    want = {("fwd", True, False): 4, ("bwd", True, False): 4}
+    if launches != want or any(plain) or not np.isfinite(loss):
+        raise AssertionError(f"masked graph: expected {want}, no plain "
+                             f"call, a finite loss: {launches}, {plain}, "
+                             f"{loss}")
+    small_lstm_graph_parity(torch, M)
+    resnet_tiny_parity(torch, M)
+    return {"chain": res["graph"][1], "masked": launches}
+
+
+def graph_launches(rows, counts) -> None:
+    """Phase 25's launches into rows 5-8 at the shapes that made them:
+    the char-RNN graph's at path 4's (T=64, B=2048, H=1024), the masked
+    graph's at path 4b's window (T=24, B=8192, H=256)."""
+    adds = {"lstm_fwd_t64_b2048_h1024": counts["chain"].get(
+                ("fwd", False, False), 0),
+            "lstm_bwd_t64_b2048_h1024": counts["chain"].get(
+                ("bwd", False, False), 0),
+            f"lstm_fwd_masked_t{LSTM_SMALL['tbptt']}_b8192_h256":
+                counts["masked"].get(("fwd", True, False), 0),
+            f"lstm_bwd_masked_t{LSTM_SMALL['tbptt']}_b8192_h256":
+                counts["masked"].get(("bwd", True, False), 0)}
+    for row in rows:
+        row["launches"] += int(adds.get(row["name"], 0))
+
+
+# ----------------------------------------- phase 26: pretraining on the card
+# Deeplearning4j's MNIST VAE example: 784 -> encoder (256, 256) -> z 2 ->
+# decoder (256, 256), Bernoulli reconstruction through a sigmoid, RMSPROP
+# 1e-3, l2 1e-4, leaky ReLU, B=128; DeepAutoEncoderExample's RBM stack
+# 784-1000-500-250-100-30 and back (k=1), B=1000
+VAE_B, VAE_BATCHES, VAE_EPOCHS = 128, 20, 3
+DAE_WIDTHS = (784, 1000, 500, 250, 100, 30)
+DAE_B, DAE_BATCHES, DAE_EPOCHS = 1000, 3, 3
+AE_B, AE_BATCHES, AE_EPOCHS, AE_LR = 128, 4, 2, 0.1
+
+
+def binarised_templates(np, B, n, seed, d=784, classes=10):
+    """Seeded MNIST-shaped binary data: ten 784-pixel binary templates,
+    5% of each image's pixels flipped."""
+    rng = np.random.default_rng(seed)
+    templates = (rng.random((classes, d)) < 0.3).astype(np.float32)
+    return [np.abs(templates[rng.integers(0, classes, B)]
+                   - (rng.random((B, d)) < 0.05)).astype(np.float32)
+            for _ in range(n)]
+
+
+def vae_conf(M):
+    C = M["conf"]
+    return (C.NeuralNetConfiguration.Builder().seed(26).learning_rate(1e-3)
+            .updater("rmsprop").l2(1e-4).activation("leakyrelu")
+            .weight_init("xavier").list()
+            .layer(C.VariationalAutoencoder(
+                n_out=2, encoder_layer_sizes=(256, 256),
+                decoder_layer_sizes=(256, 256), pzx_activation="identity",
+                reconstruction_distribution=
+                C.BernoulliReconstructionDistribution(activation="sigmoid")))
+            .layer(C.OutputLayer(n_out=10, activation="softmax"))
+            .set_input_type(C.InputType.feed_forward(784)).build())
+
+
+def dae_conf(M):
+    C = M["conf"]
+    b = (C.NeuralNetConfiguration.Builder().seed(27).learning_rate(0.1)
+         .list())
+    widths = DAE_WIDTHS + DAE_WIDTHS[-2:0:-1]
+    for n in widths[1:]:
+        b = b.layer(C.RBM(n_out=n, k=1, activation="sigmoid"))
+    return (b.layer(C.OutputLayer(n_out=784, loss="mse",
+                                  activation="sigmoid"))
+            .set_input_type(C.InputType.feed_forward(784)).build())
+
+
+def np_softplus(np, z):
+    return np.logaddexp(0.0, z)
+
+
+def np_sigmoid(np, z):
+    return 1.0 / (1.0 + np.exp(-z))
+
+
+def np_rbm_cd(np, p, x):
+    """A binary RBM's CD-1 surrogate on means, in f64, and its gradient:
+    F(v) = -v.vb - sum softplus(v W + b), loss = mean(F(x) - F(v1)), v1
+    the mean-field reconstruction (held fixed)."""
+    W, b, vb = p["W"], p["b"], p["vb"]
+    v1 = np_sigmoid(np, np_sigmoid(np, x @ W + b) @ W.T + vb)
+
+    def free(v):
+        return -(v @ vb) - np_softplus(np, v @ W + b).sum(axis=1)
+
+    def dfree(v):
+        h = np_sigmoid(np, v @ W + b)
+        return {"W": -v.T @ h, "b": -h.sum(0), "vb": -v.sum(0)}
+
+    n = x.shape[0]
+    loss = float(np.mean(free(x) - free(v1)))
+    g0, g1 = dfree(x), dfree(v1)
+    return loss, {k: (g0[k] - g1[k]) / n for k in g0}
+
+
+def np_vae_elbo(np, p, x, n_enc, n_dec, slope=0.01):
+    """The VAE's negative ELBO at eps = 0 in f64 (leaky ReLU layers,
+    Bernoulli through a sigmoid): mean(KL(q(z|x) || N(0, I)) - log p(x|
+    z = mean))."""
+    act = lambda z: np.where(z > 0, z, slope * z)
+    h = x
+    for i in range(n_enc):
+        h = act(h @ p[f"eW{i}"] + p[f"eb{i}"])
+    mean = h @ p["ezMeanW"] + p["ezMeanb"]
+    log_var = h @ p["ezLogVarW"] + p["ezLogVarb"]
+    kl = -0.5 * np.sum(1.0 + log_var - mean ** 2 - np.exp(log_var), axis=1)
+    h = mean
+    for i in range(n_dec):
+        h = act(h @ p[f"dW{i}"] + p[f"db{i}"])
+    pre = h @ p["pxzW"] + p["pxzb"]
+    rec = np.sum(x * pre - np_softplus(np, pre), axis=1)
+    return float(np.mean(kl - rec))
+
+
+def loss_parity(torch, np, layer, params, x, what):
+    """`pretrain_loss(params, x, rng=None)` and its gradient on the card
+    against the CPU (f32, TF32 off): (loss rel, worst grad units)."""
+    got = {}
+    for dev in ("cuda", "cpu"):
+        leaves = {k: torch.tensor(v, device=dev, requires_grad=True)
+                  for k, v in params.items()}
+        loss = layer.pretrain_loss(leaves, torch.tensor(x, device=dev), None)
+        g = torch.autograd.grad(loss, list(leaves.values()),
+                                allow_unused=True)
+        got[dev] = (float(loss.detach()),
+                    {k: np.zeros(v.shape) if gk is None
+                     else gk.double().cpu().numpy()
+                     for (k, v), gk in zip(params.items(), g)})
+    lr = abs(got["cuda"][0] - got["cpu"][0]) / abs(got["cpu"][0])
+    ge = max(rel_err(np, got["cuda"][1][k], got["cpu"][1][k])
+             for k in params)
+    if not (lr <= 1e-5 and ge <= 1e-4):
+        raise AssertionError(f"{what} pretrain_loss card vs CPU: loss "
+                             f"{lr}, gradients {ge}")
+    return got["cpu"][0], got["cpu"][1], lr, ge
+
+
+def timed_pretrain(torch, net, batches, epochs):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.pretrain(batches, epochs=epochs)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def ae_stack_conf(M):
+    C = M["conf"]
+    return (C.NeuralNetConfiguration.Builder().seed(28).learning_rate(AE_LR)
+            .list()
+            .layer(C.DenseLayer(n_out=256, activation="tanh"))
+            .layer(C.AutoEncoder(n_out=64, corruption_level=0.0,
+                                 activation="sigmoid"))
+            .layer(C.AutoEncoder(n_out=16, corruption_level=0.0,
+                                 activation="sigmoid"))
+            .layer(C.OutputLayer(n_out=10, activation="softmax"))
+            .set_input_type(C.InputType.feed_forward(784)).build())
+
+
+def ref_greedy_ae(torch, params, xs):
+    """The AutoEncoder stack's greedy pretraining written out here, in
+    f64 on the CPU: the tanh dense layer frozen; AutoEncoder 1 trained
+    first, AE_EPOCHS passes of SGD (lr AE_LR) on the mean squared error of
+    sigmoid(sigmoid(x W + b) W^T + vb) against x, then AutoEncoder 2 the
+    same way on AutoEncoder 1's output. Returns the final parameters."""
+    p = [{k: v.detach().double().cpu().clone() for k, v in d.items()}
+         for d in params]
+
+    def feed(x, upto):
+        h = torch.tanh(x @ p[0]["W"] + p[0]["b"])
+        for j in range(1, upto):
+            h = torch.sigmoid(h @ p[j]["W"] + p[j]["b"])
+        return h
+
+    for j in (1, 2):
+        for _ in range(AE_EPOCHS):
+            for x in xs:
+                h_in = feed(torch.tensor(x, dtype=torch.float64), j)
+                leaves = {k: v.clone().requires_grad_(True)
+                          for k, v in p[j].items()}
+                h = torch.sigmoid(h_in @ leaves["W"] + leaves["b"])
+                r = torch.sigmoid(h @ leaves["W"].T + leaves["vb"])
+                g = torch.autograd.grad(((r - h_in) ** 2).mean(),
+                                        list(leaves.values()))
+                p[j] = {k: v - AE_LR * gk
+                        for (k, v), gk in zip(p[j].items(), g)}
+    return p
+
+
+def phase_pretrain(torch, M, card):
+    """Phase 26: the VAE at the MNIST VAE example's widths, the
+    DeepAutoEncoder RBM stack, pretrain_loss parity with the CPU and
+    numpy, an uncorrupted AutoEncoder stack against the greedy
+    reference."""
+    import numpy as np
+
+    DataSet, ListIt = M["DataSet"], M["ListDataSetIterator"]
+    rng = np.random.default_rng(26)
+    # VAE
+    vae = M["MultiLayerNetwork"](vae_conf(M), device="cuda")
+    vae.init()
+    layer = vae.layers[0]
+    xs = binarised_templates(np, VAE_B, VAE_BATCHES + 1, seed=26)
+    held = torch.tensor(xs[-1], device="cuda")
+    elbo = lambda: float(layer.pretrain_loss(vae._params[0], held, None))
+    before = elbo()
+    params = {k: (v.detach().cpu().numpy() + rng.normal(
+        scale=0.1, size=tuple(v.shape)).astype(np.float32))
+        for k, v in vae._params[0].items()}
+    loss_c, _, lr_v, ge_v = loss_parity(torch, np, layer, params, xs[-1],
+                                        "VAE")
+    ref = np_vae_elbo(np, {k: v.astype(np.float64) for k, v in
+                           params.items()}, xs[-1].astype(np.float64), 2, 2)
+    e_np = abs(loss_c - ref) / abs(ref)
+    wall = timed_pretrain(torch, vae, ListIt([DataSet(x, None)
+                                              for x in xs[:-1]]), VAE_EPOCHS)
+    after = elbo()
+    n = VAE_BATCHES * VAE_EPOCHS
+    log(f"  VAE 784-(256,256)-2-(256,256), B={VAE_B}, RMSPROP 1e-3: "
+        f"negative ELBO (eps = 0, held-out batch) {before:.4f} -> "
+        f"{after:.4f} over {n} steps, {1e3 * wall / n:.3f} ms a pretrain "
+        f"step; last sampled score {vae.score_value:.4f} [{card}]; "
+        f"pretrain_loss card vs CPU: loss {lr_v:.2e} (1e-5), gradients "
+        f"{ge_v:.2e} (1e-4); against numpy f64 {e_np:.2e} (1e-4)")
+    if not (e_np <= 1e-4 and after < 0.9 * before
+            and np.isfinite(vae.score_value)):
+        raise AssertionError(f"VAE: numpy {e_np}, ELBO {before} -> {after}")
+    del vae
+    # DeepAutoEncoder RBM stack
+    dae = M["MultiLayerNetwork"](dae_conf(M), device="cuda")
+    dae.init()
+    rbm = dae.layers[0]
+    xs = binarised_templates(np, DAE_B, DAE_BATCHES + 1, seed=27)
+    held = torch.tensor(xs[-1], device="cuda")
+    err0 = rbm.reconstruction_error(dae._params[0], held)
+    params = {k: (v.detach().cpu().numpy() + rng.normal(
+        scale=0.05, size=tuple(v.shape)).astype(np.float32))
+        for k, v in dae._params[0].items()}
+    loss_c, grads_c, lr_r, ge_r = loss_parity(torch, np, rbm, params,
+                                              xs[-1], "RBM")
+    ref_loss, ref_grads = np_rbm_cd(np, {k: v.astype(np.float64) for k, v
+                                         in params.items()},
+                                    xs[-1].astype(np.float64))
+    e_rbm = max([abs(loss_c - ref_loss) / abs(ref_loss)]
+                + [rel_err(np, grads_c[k], ref_grads[k]) for k in ref_grads])
+    wall = timed_pretrain(torch, dae, ListIt([DataSet(x, None)
+                                              for x in xs[:-1]]), DAE_EPOCHS)
+    err1 = rbm.reconstruction_error(dae._params[0], held)
+    n = (len(dae.layers) - 1) * DAE_BATCHES * DAE_EPOCHS
+    log(f"  DeepAutoEncoder RBM stack {'-'.join(map(str, DAE_WIDTHS))} and "
+        f"back (k=1), B={DAE_B}: first RBM's reconstruction error "
+        f"{err0:.4f} -> {err1:.4f}; {n} pretrain steps, "
+        f"{1e3 * wall / n:.3f} ms each; pretrain_loss card vs CPU: loss "
+        f"{lr_r:.2e}, gradients {ge_r:.2e}; against numpy f64 {e_rbm:.2e} "
+        f"(1e-4)")
+    if not (e_rbm <= 1e-4 and err1 < 0.9 * err0
+            and np.isfinite(dae.score_value)):
+        raise AssertionError(f"RBM: numpy {e_rbm}, reconstruction error "
+                             f"{err0} -> {err1}")
+    del dae
+    # uncorrupted AutoEncoder stack: card, CPU and the greedy reference
+    xs = binarised_templates(np, AE_B, AE_BATCHES, seed=28)
+    nets = {}
+    for dev in ("cuda", "cpu"):
+        nets[dev] = M["MultiLayerNetwork"](ae_stack_conf(M), device=dev)
+        nets[dev].init()
+    nets["cuda"].set_params(nets["cpu"].params())
+    ref = ref_greedy_ae(torch, nets["cpu"]._params, xs)
+    walls = {}
+    for dev, net in nets.items():
+        t0 = time.perf_counter()
+        net.pretrain(ListIt([DataSet(x, None) for x in xs]),
+                     epochs=AE_EPOCHS)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        walls[dev] = time.perf_counter() - t0
+    worst = {"cpu": 0.0, "ref": 0.0}
+    for i, p in enumerate(nets["cuda"]._params):
+        for k, v in p.items():
+            got = v.double().cpu()
+            for what, want in (("cpu", nets["cpu"]._params[i][k].double()),
+                               ("ref", ref[i][k])):
+                d = (got - want).abs()
+                worst[what] = max(worst[what], d.max().item())
+                if not bool((d <= 1e-5 + 1e-4 * want.abs()).all()):
+                    raise AssertionError(f"AutoEncoder stack layer {i} {k} "
+                                         f"off the {what} by "
+                                         f"{d.max().item()}")
+    n = 2 * AE_BATCHES * AE_EPOCHS
+    log(f"  AutoEncoder stack 784-256(frozen)-64-16, corruption 0, SGD "
+        f"{AE_LR}: {n} pretrain steps, {1e3 * walls['cuda'] / n:.3f} ms "
+        f"each; card against CPU max abs {worst['cpu']:.3e}, against the "
+        f"greedy f64 reference {worst['ref']:.3e} (1e-5 + 1e-4 |ref|)")
+
+
 def lstm_mma_note(key, kind) -> str:
     """The replaced mma.sync kernel's time at a cooperative row's shape,
     where PERF.md has it."""
@@ -4381,7 +5217,10 @@ def lstm_timing_alone(torch, L, cuda_build) -> int:
 
 def port_modules() -> dict:
     """The port's entry points the phases drive, by name."""
-    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.datasets.dataset import (
+        DataSet,
+        MultiDataSet,
+    )
     from deeplearning4j_tpu_torch.datasets.iterators import (
         AsyncDataSetIterator,
         ListDataSetIterator,
@@ -4390,13 +5229,21 @@ def port_modules() -> dict:
         ImagePreProcessingScaler,
         OneHotEncoder,
     )
-    from deeplearning4j_tpu_torch.models import lenet_configuration
+    from deeplearning4j_tpu_torch.models import (
+        lenet_configuration,
+        resnet_configuration,
+        resnet_tiny_configuration,
+    )
     from deeplearning4j_tpu_torch.models.transformer import (
         generate,
         gpt_configuration,
     )
     from deeplearning4j_tpu_torch.nn import conf as nn_conf
+    from deeplearning4j_tpu_torch.nn.conf.computation_graph_configuration import (  # noqa: E501
+        ElementWiseVertex,
+    )
     from deeplearning4j_tpu_torch.nn.conf.layers import TokenEmbedding
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
     from deeplearning4j_tpu_torch.ops import lstm as L
@@ -4433,7 +5280,11 @@ def port_modules() -> dict:
                 write_model=write_model, serving=serving, pa=pa,
                 lenet_configuration=lenet_configuration,
                 ImagePreProcessingScaler=ImagePreProcessingScaler,
-                TokenEmbedding=TokenEmbedding)
+                TokenEmbedding=TokenEmbedding, MultiDataSet=MultiDataSet,
+                ComputationGraph=ComputationGraph,
+                ElementWiseVertex=ElementWiseVertex,
+                resnet_configuration=resnet_configuration,
+                resnet_tiny_configuration=resnet_tiny_configuration)
 
 
 def phases_22_23_alone(torch, M, pa, fa, cuda_build) -> int:
@@ -4453,11 +5304,30 @@ def phases_22_23_alone(torch, M, pa, fa, cuda_build) -> int:
     return 0
 
 
+def phases_24_26_alone(torch, M, cuda_build) -> int:
+    """`--phases-24-26`: the graph and pretraining phases alone (the LSTM
+    source built first), then one JSON line of phase 25's launches."""
+    card = nvidia_smi_line()
+    t0 = time.perf_counter()
+    cuda_build.build(["lstm"])
+    log(f"phases 24-26 alone [{card}]; build {time.perf_counter() - t0:.1f} "
+        "s")
+    phase_resnet(torch, M, card)
+    counts = phase_graph_lstm(torch, M, card)
+    phase_pretrain(torch, M, card)
+    log(f"phases 24-26 {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"card": card, **{
+        k: {",".join(map(str, key)): n for key, n in v.items()}
+        for k, v in counts.items()}}), flush=True)
+    return 0
+
+
 def main(argv) -> int:
     """No arguments: every phase. `--lstm-timing [--package DIR]`: phase
     17 alone on the package at DIR (default: the checkout's), for an A/B
     of the LSTM kernels against an earlier commit's package. `--path5`:
-    phase 21 alone. `--phases-22-23`: phases 22 and 23 alone."""
+    phase 21 alone. `--phases-22-23`: phases 22 and 23 alone.
+    `--phases-24-26`: phases 24 to 26 alone."""
     import torch
 
     if not torch.cuda.is_available():
@@ -4486,96 +5356,108 @@ def main(argv) -> int:
         return path5_alone(torch, M, cuda_build)
     if "--phases-22-23" in argv:
         return phases_22_23_alone(torch, M, pa, fa, cuda_build)
+    if "--phases-24-26" in argv:
+        return phases_24_26_alone(torch, M, cuda_build)
 
     card = nvidia_smi_line()
-    log(f"[1/23] card: {card}; {torch.cuda.get_device_name(0)}; torch "
+    log(f"[1/26] card: {card}; {torch.cuda.get_device_name(0)}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}; "
         f"{torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     built = cuda_build.build(KERNEL_SOURCES)
-    log(f"[2/23] build: {time.perf_counter() - t0:.1f} s for "
+    log(f"[2/26] build: {time.perf_counter() - t0:.1f} s for "
         f"{len(built)} source(s)")
     for name, res in built.items():
         for line in ptxas_summary(res.log):
             log(f"  {name}: {line}")
 
-    log("[3/23] paged kernels against their plain versions (TF32 off)")
+    log("[3/26] paged kernels against their plain versions (TF32 off)")
     phase_kernels(torch, pa)
-    log("[4/23] flash kernels against their plain versions (TF32 off)")
+    log("[4/26] flash kernels against their plain versions (TF32 off)")
     phase_flash(torch, fa)
-    log("[5/23] f32 DecodeEngine vs generate, 2 layers, d_model 1024")
+    log("[5/26] f32 DecodeEngine vs generate, 2 layers, d_model 1024")
     phase_parity(torch, M)
-    log("[6/23] f32 training, card (kernels) vs CPU (plain), 1 layer, "
+    log("[6/26] f32 training, card (kernels) vs CPU (plain), 1 layer, "
         "d_model 1024, T=1024")
     phase_train_parity(torch, M)
-    log("[7/23] serving the 8-layer bf16 GPT at full width")
+    log("[7/26] serving the 8-layer bf16 GPT at full width")
     launches, path1_tok_s = phase_serve(torch, M, pa, card)
-    log("[8/23] serving it with int8 KV, the prefix cache and "
+    log("[8/26] serving it with int8 KV, the prefix cache and "
         "self-speculation on shared-prefix traffic")
     launches.update(phase_serve_tier(torch, M, pa, card))
-    log("[9/23] training the 8-layer bf16 gpt_long GPT at full width")
+    log("[9/26] training the 8-layer bf16 gpt_long GPT at full width")
     flash_counts = phase_train(torch, M, card, torch.bfloat16, TRAIN_B,
                                TRAIN_STEPS, 13, "wgmma")
-    log("[9/23] path 2w: the same GPT with 4 heads of 256 (the bf16 "
+    log("[9/26] path 2w: the same GPT with 4 heads of 256 (the bf16 "
         "\"wgmma wide\" flash kernels)")
     flash_counts_wide = phase_train(torch, M, card, torch.bfloat16,
                                     TRAIN_WIDE_B, TRAIN_WIDE_STEPS, 15,
                                     "wgmma wide", n_heads=TRAIN_WIDE_HEADS)
-    log("[9/23] path 2x: the same GPT with 2 heads of 512 (the bf16 "
+    log("[9/26] path 2x: the same GPT with 2 heads of 512 (the bf16 "
         "\"wgmma wide\" forward, the \"wgmma cluster\" backward)")
     flash_counts_2x = phase_train(torch, M, card, torch.bfloat16,
                                   TRAIN_2X_B, TRAIN_2X_STEPS, 16,
                                   TRAIN_2X_ROUTES, n_heads=TRAIN_2X_HEADS)
-    log("[10/23] path 2f: training the 8-layer gpt_long GPT in f32 "
+    log("[10/26] path 2f: training the 8-layer gpt_long GPT in f32 "
         "(split-TF32 flash kernels)")
     flash_counts_f32 = phase_train(torch, M, card, None, TRAIN_F32_B,
                                    TRAIN_F32_STEPS, 14, "tf32")
-    log("[11/23] LSTM kernels against their plain versions (TF32 off)")
+    log("[11/26] LSTM kernels against their plain versions (TF32 off)")
     phase_lstm_kernels(torch, L, M)
-    log("[12/23] f32 char-RNN training, card (kernels) vs CPU (plain), "
+    log("[12/26] f32 char-RNN training, card (kernels) vs CPU (plain), "
         "H=256")
     phase_lstm_train_parity(torch, M)
-    log("[13/23] training the bf16 lstm_large char-RNN at full width")
+    log("[13/26] training the bf16 lstm_large char-RNN at full width")
     lstm_counts, step4_ms = phase_lstm_train(torch, M, card, torch.bfloat16)
-    log("[14/23] training the bf16 lstm char-RNN with tBPTT 24 at full width")
+    log("[14/26] training the bf16 lstm char-RNN with tBPTT 24 at full width")
     tbptt_counts = phase_lstm_tbptt(torch, M, card)
-    log("[15/23] path 4f: training the lstm_large char-RNN in f32 "
+    log("[15/26] path 4f: training the lstm_large char-RNN in f32 "
         "(split-TF32 LSTM kernels)")
     f32_counts, _ = phase_lstm_train(torch, M, card, None, LSTM_F32_STEPS,
                                      "tf32 clusters", seed=2)
-    log("[16/23] timing at the serving and training shapes (bf16 and f32)")
+    log("[16/26] timing at the serving and training shapes (bf16 and f32)")
     rows = phase_timing(torch, pa, launches)
     rows += phase_flash_timing(torch, fa, flash_counts, flash_counts_f32,
                                flash_counts_wide, flash_counts_2x)
-    log("[17/23] timing the LSTM kernels at the char-RNN shapes (bf16 and "
+    log("[17/26] timing the LSTM kernels at the char-RNN shapes (bf16 and "
         "f32)")
     rows += phase_lstm_timing(torch, L, lstm_counts, tbptt_counts,
                               f32_counts)
-    log(f"[18/23] a GravesLSTM wider than the fused kernels (H={LSTM_WIDE}): "
+    log(f"[18/26] a GravesLSTM wider than the fused kernels (H={LSTM_WIDE}): "
         "the step loop, card vs CPU")
     phase_lstm_wide(torch, M)
-    log("[19/23] path 4s: the bf16 lstm_large char-RNN on "
+    log("[19/26] path 4s: the bf16 lstm_large char-RNN on "
         "GravesLSTMCharModellingExample's mini-batches (B=32 x T=1000, "
         "tBPTT 50)")
     lstm_4s_launches(rows, phase_lstm_4s(torch, M, card))
-    log("[20/23] path 4e: the bf16 lstm_large char-RNN through the training "
+    log("[20/26] path 4e: the bf16 lstm_large char-RNN through the training "
         "loop (async iterator, health sentinel, listeners, checkpoints, "
         "evaluate, restore, LBFGS)")
     lstm_4e_launches(rows, phase_lstm_4e(torch, M, card, step4_ms))
-    log("[21/23] path 5: the 8-layer bf16 GPT behind ModelServer (predict, "
+    log("[21/26] path 5: the 8-layer bf16 GPT behind ModelServer (predict, "
         "generate, reload under decode, rejections, the breaker, quantized "
         "weights with the drift gate, shutdown)")
     serve5_launches(rows, phase_server(torch, M, card, path1_tok_s))
-    log("[22/23] the CNN layers against the CPU and numpy (f32), path 6: "
+    log("[22/26] the CNN layers against the CPU and numpy (f32), path 6: "
         "LeNet at bench_lenet's shape, its f32 parity")
     phase_cnn_layers(torch, M)
     phase_lenet(torch, M, card)
-    log("[23/23] SelfAttention on the non-causal flash kernels, MoELayer "
+    log("[23/26] SelfAttention on the non-causal flash kernels, MoELayer "
         "against numpy, path 2m: the MoE gpt_long GPT, MoE serving")
     counts = phase_attention_moe(torch, M, pa, card)
     rows += attention_moe_rows(torch, fa, counts)
     moe_launches(rows, counts)
+    log("[24/26] path 7: ResNet-50 on CIFAR-10 at bench_resnet50's shape "
+        "(a ComputationGraph, bf16, B=256)")
+    phase_resnet(torch, M, card)
+    log("[25/26] the graph on the LSTM kernels: path 4's char-RNN as a "
+        "graph against the list container, a masked tBPTT graph, f32 "
+        "graph parity with the CPU and numpy")
+    graph_launches(rows, phase_graph_lstm(torch, M, card))
+    log("[26/26] pretraining on the card: the MNIST VAE example's VAE, the "
+        "DeepAutoEncoder RBM stack, an AutoEncoder stack")
+    phase_pretrain(torch, M, card)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -1,13 +1,8 @@
 """Model configurations — counterpart of `deeplearning4j_tpu.models`:
-`lenet_configuration` here, the GPT's in `models.transformer`. ResNet is
-a ComputationGraph, ROADMAP queue A10."""
+LeNet and ResNet here, the GPT's in `models.transformer`."""
 
 from deeplearning4j_tpu_torch.models.lenet import lenet_configuration  # noqa: F401
-
-
-def __getattr__(name):
-    if name in ("resnet_configuration", "resnet_tiny_configuration"):
-        raise NotImplementedError(
-            f"models.{name} is not ported yet (ROADMAP queue A10: "
-            "ComputationGraph, which models/resnet.py builds)")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+from deeplearning4j_tpu_torch.models.resnet import (  # noqa: F401
+    resnet_configuration,
+    resnet_tiny_configuration,
+)

@@ -3,6 +3,7 @@
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType  # noqa: F401
 from deeplearning4j_tpu_torch.nn.conf.layers import (  # noqa: F401
     ActivationLayer,
+    AutoEncoder,
     BatchNormalization,
     ConvolutionLayer,
     DenseLayer,
@@ -17,11 +18,21 @@ from deeplearning4j_tpu_torch.nn.conf.layers import (  # noqa: F401
     LossLayer,
     MoELayer,
     OutputLayer,
+    RBM,
     RnnOutputLayer,
     SelfAttention,
     SubsamplingLayer,
     TokenEmbedding,
     TransformerBlock,
+)
+from deeplearning4j_tpu_torch.nn.conf.variational import (  # noqa: F401
+    BernoulliReconstructionDistribution,
+    CompositeReconstructionDistribution,
+    ExponentialReconstructionDistribution,
+    GaussianReconstructionDistribution,
+    LossFunctionWrapper,
+    ReconstructionDistribution,
+    VariationalAutoencoder,
 )
 from deeplearning4j_tpu_torch.nn.conf.neural_net_configuration import (  # noqa: F401
     GlobalConf,
@@ -35,23 +46,13 @@ from deeplearning4j_tpu_torch.util.conv_utils import (  # noqa: F401
     PoolingType,
 )
 
-# the JAX package's pretraining family, ROADMAP queue A9b
-_A9B_NAMES = frozenset({
-    "AutoEncoder", "BernoulliReconstructionDistribution",
-    "CompositeReconstructionDistribution",
-    "ExponentialReconstructionDistribution",
-    "GaussianReconstructionDistribution", "LossFunctionWrapper", "RBM",
-    "ReconstructionDistribution", "VariationalAutoencoder",
-})
-
 
 def __getattr__(name):
-    if name in _A9B_NAMES:
-        raise NotImplementedError(
-            f"nn.conf.{name} is not ported yet (ROADMAP queue A9b: the "
-            "pretraining layers and nn/conf/variational.py)")
+    # the graph configuration is its own module, imported on first use
     if name in ("ComputationGraphConfiguration", "GraphBuilder"):
-        raise NotImplementedError(
-            f"nn.conf.{name} is not ported yet (ROADMAP queue A10: "
-            "ComputationGraph)")
+        from deeplearning4j_tpu_torch.nn.conf import (
+            computation_graph_configuration as m,
+        )
+
+        return getattr(m, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,8 +1,8 @@
 """Layer configurations with their parameter init, forward and loss
 (counterpart of `deeplearning4j_tpu/nn/conf/layers.py`): the dense,
 convolution, pooling, normalization, recurrent, attention, embedding and
-mixture-of-experts layers. The pretraining family (`AutoEncoder`, `RBM`)
-is ROADMAP queue A9b.
+mixture-of-experts layers, and the pretraining family (`AutoEncoder`,
+`RBM`; the VAE is `nn/conf/variational.py`).
 
 Each config is a dataclass whose fields, field order and JSON encoding
 are the JAX package's, so a configuration written by either package
@@ -25,6 +25,7 @@ activations NHWC with HWIO convolution weights, RNN activations
 from __future__ import annotations
 
 import dataclasses
+import enum
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -46,7 +47,7 @@ from deeplearning4j_tpu_torch.nn.weights import (
 )
 from deeplearning4j_tpu_torch.ops.activations import Activation, activation_fn
 from deeplearning4j_tpu_torch.ops.kernel_dispatch import stat_dtype
-from deeplearning4j_tpu_torch.ops.losses import LossFunction
+from deeplearning4j_tpu_torch.ops.losses import LossFunction, loss_fn
 from deeplearning4j_tpu_torch.util.conv_utils import (
     ConvolutionMode,
     PoolingType,
@@ -151,10 +152,8 @@ def layer_from_json(d: dict) -> "Layer":
     t = d.pop("type")
     cls = _LAYER_REGISTRY.get(t)
     if cls is None:
-        raise NotImplementedError(
-            f"layer type {t!r} is not ported yet (ROADMAP queue A9b: the "
-            f"pretraining layers; the port carries "
-            f"{sorted(_LAYER_REGISTRY)})")
+        raise KeyError(f"unknown layer type {t!r} (known: "
+                       f"{sorted(_LAYER_REGISTRY)})")
     kwargs = {}
     names = {f.name for f in dataclasses.fields(cls)}
     for k, v in d.items():
@@ -1253,13 +1252,201 @@ class MoELayer(FeedForwardLayer):
         return {"is_bias": is_bias, "regularizable": not is_bias}
 
 
-# the JAX package's pretraining layers, ROADMAP queue A9b
-_A9B_LAYERS = frozenset({"AutoEncoder", "HiddenUnit", "RBM", "VisibleUnit"})
+# ---------------------------------------------------------------------------
+# pretraining layers: a `pretrain_loss(params, x, rng)` each, which
+# `MultiLayerNetwork.pretrain` minimises layer by layer; `rng` is a
+# torch.Generator on x's device, or None for the deterministic route
+# (no corruption, Gibbs chains on means)
 
 
-def __getattr__(name):
-    if name in _A9B_LAYERS:
-        raise NotImplementedError(
-            f"nn.conf.layers.{name} is not ported yet (ROADMAP queue A9b: "
-            "the pretraining layers)")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+@register_layer
+@dataclass
+class AutoEncoder(FeedForwardLayer):
+    """Denoising autoencoder: act(x W + b) forward; pretraining
+    reconstructs act(h W^T + vb) from an input whose elements are zeroed
+    with probability `corruption_level`, scored by `loss` against the
+    clean input."""
+
+    TYPE = "autoencoder"
+    input_kind = "ff"
+    n_in: int = 0
+    n_out: int = 0
+    corruption_level: float = 0.3
+    sparsity: float = 0.0
+    loss: LossFunction = LossFunction.MSE
+
+    def output_type(self, it: InputType) -> InputType:
+        return InputType.feed_forward(self.n_out)
+
+    def init_params(self, gen, it, dtype=torch.float32) -> Params:
+        W = self._winit(gen, (self.n_in, self.n_out), self.n_in, self.n_out,
+                        dtype)
+        return {"W": W,
+                "b": torch.zeros((self.n_out,), dtype=dtype,
+                                 device=gen.device),
+                "vb": torch.zeros((self.n_in,), dtype=dtype,
+                                  device=gen.device)}
+
+    def forward(self, params, x, *, train=False, rng: Rng = None, mask=None):
+        x = self._maybe_dropout(x, train, rng)
+        return self._act()(x @ params["W"] + params["b"])
+
+    def pretrain_loss(self, params, x, rng=None):
+        if self.corruption_level > 0 and rng is not None:
+            keep = torch.rand(x.shape, generator=rng, device=x.device) \
+                < 1.0 - self.corruption_level
+            xc = torch.where(keep, x, torch.zeros((), dtype=x.dtype,
+                                                  device=x.device))
+        else:
+            xc = x
+        act = self._act()
+        h = act(xc @ params["W"] + params["b"])
+        recon = act(h @ params["W"].T + params["vb"])
+        return loss_fn(self.loss)(x, recon)
+
+
+class HiddenUnit(str, enum.Enum):
+    BINARY = "binary"
+    GAUSSIAN = "gaussian"
+    RECTIFIED = "rectified"
+    SOFTMAX = "softmax"
+
+
+class VisibleUnit(str, enum.Enum):
+    BINARY = "binary"
+    GAUSSIAN = "gaussian"
+    SOFTMAX = "softmax"
+    LINEAR = "linear"
+
+
+def _bernoulli(mean, gen):
+    return torch.bernoulli(mean, generator=gen).to(mean.dtype)
+
+
+def _normal_like(pre, gen):
+    return torch.randn(pre.shape, generator=gen, dtype=pre.dtype,
+                       device=pre.device)
+
+
+@register_layer
+@dataclass
+class RBM(FeedForwardLayer):
+    """Restricted Boltzmann machine trained by contrastive divergence
+    (CD-k): the update is the gradient of the free-energy surrogate
+    F(v_data) - F(detach(v_model)), v_model the mean-field end of a k-step
+    Gibbs chain from the data, so autograd gives the CD-k gradient."""
+
+    TYPE = "rbm"
+    input_kind = "ff"
+    n_in: int = 0
+    n_out: int = 0
+    hidden_unit: HiddenUnit = HiddenUnit.BINARY
+    visible_unit: VisibleUnit = VisibleUnit.BINARY
+    k: int = 1
+    sparsity: float = 0.0
+
+    def output_type(self, it: InputType) -> InputType:
+        return InputType.feed_forward(self.n_out)
+
+    init_params = AutoEncoder.init_params
+
+    def forward(self, params, x, *, train=False, rng: Rng = None, mask=None):
+        x = self._maybe_dropout(x, train, rng)
+        act = self._act() if self.activation is not None else torch.sigmoid
+        return act(x @ params["W"] + params["b"])
+
+    # -- Gibbs machinery: (mean, sample); gen None samples the mean ------
+    def _h_given_v(self, params, v, gen):
+        pre = v @ params["W"] + params["b"]
+        u = HiddenUnit(self.hidden_unit)
+        if u == HiddenUnit.BINARY:
+            mean = torch.sigmoid(pre)
+            return mean, mean if gen is None else _bernoulli(mean, gen)
+        if u == HiddenUnit.RECTIFIED:
+            mean = torch.relu(pre)
+            if gen is None:
+                return mean, mean
+            # NReLU: relu(pre + N(0, sigmoid(pre)))
+            noise = _normal_like(pre, gen) * torch.sqrt(torch.sigmoid(pre))
+            return mean, torch.relu(pre + noise)
+        if u == HiddenUnit.GAUSSIAN:
+            return pre, pre if gen is None else pre + _normal_like(pre, gen)
+        if u == HiddenUnit.SOFTMAX:
+            mean = torch.softmax(pre, dim=-1)
+            return mean, mean
+        raise ValueError(self.hidden_unit)
+
+    def _v_given_h(self, params, h, gen):
+        pre = h @ params["W"].T + params["vb"]
+        u = VisibleUnit(self.visible_unit)
+        if u == VisibleUnit.BINARY:
+            mean = torch.sigmoid(pre)
+            return mean, mean if gen is None else _bernoulli(mean, gen)
+        if u == VisibleUnit.GAUSSIAN:
+            return pre, pre if gen is None else pre + _normal_like(pre, gen)
+        if u == VisibleUnit.SOFTMAX:
+            mean = torch.softmax(pre, dim=-1)
+            return mean, mean
+        if u == VisibleUnit.LINEAR:
+            return pre, pre
+        raise ValueError(self.visible_unit)
+
+    def free_energy(self, params, v):
+        """F(v) per row. Hidden term: BINARY and RECTIFIED sum
+        softplus(pre), GAUSSIAN sum pre^2 / 2, SOFTMAX logsumexp(pre).
+        Visible term: BINARY and SOFTMAX -v.vb, GAUSSIAN and LINEAR
+        sum (v - vb)^2 / 2."""
+        pre = v @ params["W"] + params["b"]
+        hu = HiddenUnit(self.hidden_unit)
+        if hu == HiddenUnit.GAUSSIAN:
+            hidden_term = 0.5 * torch.sum(pre ** 2, dim=-1)
+        elif hu == HiddenUnit.SOFTMAX:
+            hidden_term = torch.logsumexp(pre, dim=-1)
+        else:  # BINARY, RECTIFIED
+            hidden_term = torch.sum(F.softplus(pre), dim=-1)
+        if VisibleUnit(self.visible_unit) in (VisibleUnit.GAUSSIAN,
+                                              VisibleUnit.LINEAR):
+            vis_term = 0.5 * torch.sum((v - params["vb"]) ** 2, dim=-1)
+            return vis_term - hidden_term
+        return -(v @ params["vb"]) - hidden_term
+
+    def gibbs_chain(self, params, v0, rng, k: int):
+        """The mean-field visible reconstruction after k Gibbs steps from
+        v0 (each step samples h, then v, from `rng`)."""
+        if k < 1:
+            raise ValueError(f"RBM contrastive divergence needs k >= 1, "
+                             f"got k={k}")
+        v = v0
+        for _ in range(k):
+            _, h = self._h_given_v(params, v, rng)
+            v_mean, v = self._v_given_h(params, h, rng)
+        return v_mean
+
+    def pretrain_loss(self, params, x, rng=None):
+        with torch.no_grad():
+            vk = self.gibbs_chain(params, x, rng, self.k)
+        cd = torch.mean(self.free_energy(params, x)
+                        - self.free_energy(params, vk))
+        if self.sparsity > 0:
+            h_mean, _ = self._h_given_v(params, x, None)
+            cd = cd + self.sparsity * torch.mean(
+                (torch.mean(h_mean, dim=0) - self.sparsity) ** 2)
+        return cd
+
+    def reconstruction_error(self, params, x, rng=None) -> float:
+        """The mean-field reconstruction's error: cross-entropy for binary
+        visible units, squared error otherwise (the score the reference
+        reports)."""
+        with torch.no_grad():
+            _, h = self._h_given_v(params, x, None)
+            v_mean, _ = self._v_given_h(params, h, None)
+            v_mean = torch.clamp(v_mean, 1e-7, 1 - 1e-7)
+            if VisibleUnit(self.visible_unit) == VisibleUnit.BINARY:
+                return float(-torch.mean(torch.sum(
+                    x * torch.log(v_mean) + (1 - x) * torch.log(1 - v_mean),
+                    dim=-1)))
+            return float(torch.mean(torch.sum((x - v_mean) ** 2, dim=-1)))
+
+
+_FIELD_DECODERS["hidden_unit"] = HiddenUnit
+_FIELD_DECODERS["visible_unit"] = VisibleUnit

@@ -210,9 +210,11 @@ class NeuralNetConfiguration:
             return ListBuilder(self._g)
 
         def graph_builder(self):
-            raise NotImplementedError(
-                "ComputationGraph configuration is not ported yet (ROADMAP "
-                "queue A10)")
+            from deeplearning4j_tpu_torch.nn.conf.computation_graph_configuration import (  # noqa: E501
+                GraphBuilder,
+            )
+
+            return GraphBuilder(self._g)
 
 
 class ListBuilder:

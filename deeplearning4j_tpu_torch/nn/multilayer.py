@@ -1,5 +1,8 @@
 """MultiLayerNetwork: sequential network container and its training
-loop (counterpart of `deeplearning4j_tpu/nn/multilayer.py`).
+loop (counterpart of `deeplearning4j_tpu/nn/multilayer.py`). What it
+shares with `nn.graph.ComputationGraph` (the step, the guard, tBPTT's
+window loop, the flat views, the tree loads, layerwise pretraining's
+step) is `NetworkBase`.
 
 Parameters are a list (one entry per layer) of dicts of tensors on the
 network's device, the JAX package's pytree; the optimizer state mirrors
@@ -30,6 +33,9 @@ forward (the MoE load-balancing loss, `ops.aux_loss`); `_loss_pure` adds
 them to the loss. A normalizer attached with `set_normalizer` runs on
 the device before layer 0: `OneHotEncoder` expands raw ids, the
 statistics normalizers scale features cast to the parameter dtype.
+`pretrain` trains each layer that has a `pretrain_loss` (AutoEncoder,
+RBM, VariationalAutoencoder) in turn on its input through the frozen
+layers before it.
 """
 from __future__ import annotations
 
@@ -45,7 +51,7 @@ from deeplearning4j_tpu_torch.datasets.iterators import (
     ListDataSetIterator,
 )
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
-from deeplearning4j_tpu_torch.nn.conf.layers import Layer, fold_in
+from deeplearning4j_tpu_torch.nn.conf.layers import Layer, _generator, fold_in
 from deeplearning4j_tpu_torch.nn.conf.neural_net_configuration import (
     MultiLayerConfiguration,
     OptimizationAlgorithm,
@@ -64,14 +70,42 @@ LState = List[Dict[str, torch.Tensor]]
 logger = logging.getLogger("deeplearning4j_tpu_torch")
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+def _tree_items(tree):
+    """(key, per-layer dict) pairs of a network tree in `ravel_pytree`
+    order: a list in layer order, a dict (a graph's, by node name) in
+    sorted key order, as jax flattens a dict."""
+    return list(enumerate(tree)) if isinstance(tree, list) \
+        else sorted(tree.items())
 
 
-class MultiLayerNetwork:
-    def __init__(self, conf: MultiLayerConfiguration, dtype=torch.float32,
-                 compute_dtype: Optional[torch.dtype] = None,
-                 device="cuda"):
+def _tree_map(fn, tree):
+    """`fn` of every per-layer entry, in a tree of the same kind."""
+    if isinstance(tree, list):
+        return [fn(v) for v in tree]
+    return {k: fn(v) for k, v in tree.items()}
+
+
+def run_layer(layer: Layer, p, state, x, train: bool, rng, mask=None):
+    """(out, new state) of one layer: a stateful layer reads and returns
+    its state, the others keep theirs."""
+    if layer.stateful:
+        return layer.forward_with_state(p, state, x, train=train, rng=rng,
+                                        mask=mask)
+    return layer.forward(p, x, train=train, rng=rng, mask=mask), state
+
+
+class NetworkBase:
+    """What the list container and the graph share: the training step
+    (loss and gradients by autograd, the optional finite guard, every
+    layer's update in place, the listeners), truncated BPTT's window
+    loop, the flat parameter view in `ravel_pytree` order, the checked
+    loads of parameter, optimizer and layer-state trees, and the loss
+    surfaces for gradient checks. A subclass keeps its trees (`_params`,
+    `_upd_state`, `_layer_state`) as a list by layer or a dict by node
+    name, and supplies `_layer_slots`, `_batch_arrays`, `_loss_pure`,
+    `_validate_labels`, `_check_sparse_labels` and the tBPTT windows."""
+
+    def __init__(self, conf, dtype, compute_dtype, device):
         """`dtype` is the parameter (master) dtype; `compute_dtype`
         (e.g. torch.bfloat16) the dtype the forward and backward run in,
         with parameters and optimizer state kept in `dtype`. `device`
@@ -81,20 +115,438 @@ class MultiLayerNetwork:
         self.conf = conf
         self.dtype = dtype
         self.compute_dtype = compute_dtype
-        self.layers: List[Layer] = conf.layers
-        self._params: Optional[Params] = None
-        self._upd_state: Optional[UpdState] = None
-        self._layer_state: Optional[LState] = None
-        self._rnn_state: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self._params = None
+        self._upd_state = None
+        self._layer_state = None
+        self._rnn_state: Dict[Any, Tuple[torch.Tensor, torch.Tensor]] = {}
         self._rnn_pos = 0
         self._normalizer = None
         self._sentinel = None
-        self._last_batch: Optional[DataSet] = None
+        self._last_batch = None
         self.iteration = 0
         self.epoch = 0
         self.listeners: List[Any] = []
         self._score: Optional[Any] = None
+
+    def _layer_slots(self) -> List[Tuple[Any, Layer]]:
+        """(tree key, layer) of every layer."""
+        raise NotImplementedError
+
+    def _ensure_init(self):
+        if self._params is None:
+            self.init()
+
+    # ----------------------------------------------------------------- score
+    @property
+    def score_value(self) -> Optional[float]:
+        """Loss of the most recent iteration. Kept as a device tensor by
+        the training loop and turned into a float on first read (a read
+        waits for the device)."""
+        if self._score is None or isinstance(self._score, float):
+            return self._score
+        self._score = float(self._score)
+        return self._score
+
+    @score_value.setter
+    def score_value(self, v) -> None:
+        self._score = v if (v is None or isinstance(v, float)) else float(v)
+
+    def get_normalizer(self):
+        return self._normalizer
+
+    # ------------------------------------------------------------ training
+    def _loss_and_grads(self, features, labels, fmask, lmask):
+        """The loss of one batch and its gradients by autograd (a tree of
+        per-layer dicts, zeros for unused parameters), at the current
+        parameters; the new layer state, detached (no gradient crosses
+        batches or tBPTT windows). Changes nothing."""
+        leaves = _tree_map(lambda p: {k: v.detach().requires_grad_(True)
+                                      for k, v in p.items()}, self._params)
+        flat = [t for _, p in _tree_items(leaves) for t in p.values()]
+        with torch.enable_grad():
+            loss, new_state = self._loss_pure(
+                leaves, features, labels, fmask, lmask,
+                (self.conf.seed, self.iteration), True, self._layer_state)
+            g_flat = torch.autograd.grad(loss, flat, allow_unused=True)
+        it = iter(g_flat)
+        grads = {key: {k: (g if g is not None else torch.zeros_like(v))
+                       for (k, v), g in zip(p.items(), it)}
+                 for key, p in _tree_items(leaves)}
+        if isinstance(leaves, list):
+            grads = [grads[i] for i in range(len(leaves))]
+        new_state = _tree_map(lambda st: {k: v.detach()
+                                          for k, v in st.items()}, new_state)
+        return loss.detach(), grads, new_state
+
+    def _apply_updates(self, grads, new_state) -> None:
+        """Every layer's update applied in place to the parameters and
+        the optimizer state; the new layer state replaces the old."""
+        with torch.no_grad():
+            for key, layer in self._layer_slots():
+                apply_layer_update(layer, self._upd_state[key],
+                                   self._params[key], grads[key],
+                                   self.iteration)
+        self._layer_state = new_state
+
+    @staticmethod
+    def _health(loss, grads) -> torch.Tensor:
+        """`[loss, grad_norm, ok]` in f32 on the device: the global
+        gradient norm from each leaf's f32 sum of squares, added leaf by
+        leaf in the JAX package's order (layer order, sorted names); ok is
+        1 when loss and squared norm are both finite (a squared norm that
+        overflows f32 counts as non-finite)."""
+        gsq = None
+        for _, g in _tree_items(grads):
+            for k in sorted(g):
+                s = torch.sum(torch.square(g[k].float()))
+                gsq = s if gsq is None else gsq + s
+        if gsq is None:
+            gsq = torch.zeros((), dtype=torch.float32, device=loss.device)
+        ok = torch.isfinite(loss) & torch.isfinite(gsq)
+        return torch.stack([loss.float(), torch.sqrt(gsq), ok.float()])
+
+    def _fit_batch(self, ds: DataSet) -> None:
+        """One training step on one batch. With a health sentinel, the
+        step's health vector is read to the host (its one sync) before
+        the updates, which run only when it says finite; the iteration
+        advances either way, and the sentinel's verdict (which may raise)
+        comes before the listeners see the step."""
+        self._validate_labels(ds)
+        f, l, fm, lm = self._batch_arrays(ds)
+        loss, grads, new_state = self._loss_and_grads(f, l, fm, lm)
+        health = None
+        if self._sentinel is None:
+            self._apply_updates(grads, new_state)
+            self._score = loss
+        else:
+            health = self._health(loss, grads).cpu().numpy()
+            if health[2] >= 0.5:
+                self._apply_updates(grads, new_state)
+            self._score = float(health[0])
+        self._last_batch = ds
+        self.iteration += 1
+        if health is not None:
+            self._sentinel.observe(self, health)
+        self._notify(ds)
+
+    def _notify(self, ds) -> None:
+        for listener in self.listeners:
+            if hasattr(listener, "record_batch"):
+                listener.record_batch(ds.num_examples())
+            listener.iteration_done(self, self.iteration)
+
+    def _fit_epochs(self, iterator, epochs: int, fit_one) -> None:
+        """`epochs` passes of `fit_one(batch)` over `iterator`, with the
+        listeners' epoch hooks. When an exception leaves the loop, the
+        producer thread of an `AsyncDataSetIterator` being iterated is
+        stopped before it propagates."""
+        from deeplearning4j_tpu_torch.datasets.iterators import (
+            AsyncDataSetIterator,
+        )
+
+        try:
+            for _ in range(epochs):
+                for listener in self.listeners:
+                    if hasattr(listener, "on_epoch_start"):
+                        listener.on_epoch_start(self)
+                n_batches = 0
+                for ds in iterator:
+                    n_batches += 1
+                    fit_one(ds)
+                if n_batches == 0:
+                    logger.warning("fit(): iterator produced no batches "
+                                   "this epoch")
+                for listener in self.listeners:
+                    if hasattr(listener, "on_epoch_end"):
+                        listener.on_epoch_end(self)
+                self.epoch += 1
+        except BaseException:
+            if isinstance(iterator, AsyncDataSetIterator):
+                iterator.close()
+            raise
+
+    # ------------------------------------------------------ truncated BPTT
+    def _fit_tbptt(self, ds) -> None:
+        """Truncated BPTT: the time axis in `tbptt_fwd_length` windows,
+        one training step each, the LSTM (h, c) carried from window to
+        window without a gradient; the score is the windows' mean loss.
+        The windows (and their label checks) are built before the carries
+        are seeded, and the persistent state slots are restored whatever
+        happens."""
+        windows = self._tbptt_windows(ds)
+        saved = self._tbptt_seed_carries(ds.num_examples())
+        losses = []
+        try:
+            for window in windows:
+                self._fit_batch(window)
+                losses.append(self._score)
+        finally:
+            self._tbptt_restore_carries(saved)
+        self.score_value = float(np.mean([float(l) for l in losses]))
+
+    def _tbptt_seed_carries(self, B: int):
+        """Zero (h, c) carries in every GravesLSTM slot (not the
+        bidirectional one); returns the saved slots."""
+        from deeplearning4j_tpu_torch.nn.conf.layers import GravesLSTM
+
+        saved = {}
+        for key, layer in self._layer_slots():
+            if type(layer) is GravesLSTM:
+                zero = torch.zeros((B, layer.n_out), dtype=self.dtype,
+                                   device=self.device)
+                saved[key] = self._layer_state[key]
+                self._layer_state[key] = {"h": zero, "c": zero.clone()}
+        return saved
+
+    def _tbptt_restore_carries(self, saved) -> None:
+        for key, st in saved.items():
+            self._layer_state[key] = st
+
+    # ------------------------------------------------------ scores, checks
+    def score(self, ds, train: bool = False) -> float:
+        """Loss on a dataset without updating, no dropout (`train=True`:
+        the layers' train-mode forward, still without a dropout draw, as
+        in the JAX package)."""
+        self._ensure_init()
+        self._check_sparse_labels(ds)
+        f, l, fm, lm = self._batch_arrays(ds)
+        with torch.no_grad():
+            return float(self._loss_pure(self._params, f, l, fm, lm, None,
+                                         train, self._layer_state)[0])
+
+    def score_function(self, ds):
+        """A closure flat parameters (`params()` order) -> loss on this
+        fixed batch, without dropout, for gradient checks by central
+        differences; differentiable in the flat vector."""
+        self._ensure_init()
+        self._check_sparse_labels(ds)
+        f, l, fm, lm = self._batch_arrays(ds)
+
+        def score_at(flat) -> torch.Tensor:
+            return self._loss_pure(self._unravel(flat), f, l, fm, lm, None,
+                                   True, self._layer_state)[0]
+
+        return score_at
+
+    def compute_gradient_and_score(self, ds) -> Tuple[np.ndarray, float]:
+        """Flat gradient (ravel order) and score at the current
+        parameters, without dropout."""
+        self._ensure_init()
+        self._check_sparse_labels(ds)
+        f, l, fm, lm = self._batch_arrays(ds)
+        leaves = _tree_map(lambda p: {k: v.detach().requires_grad_(True)
+                                      for k, v in p.items()}, self._params)
+        ordered = [p[k] for _, p in _tree_items(leaves) for k in sorted(p)]
+        with torch.enable_grad():
+            loss = self._loss_pure(leaves, f, l, fm, lm, None, True,
+                                   self._layer_state)[0]
+            grads = torch.autograd.grad(loss, ordered, allow_unused=True)
+        flat = torch.cat([(g if g is not None else torch.zeros_like(t))
+                          .reshape(-1) for g, t in zip(grads, ordered)])
+        return flat.detach().cpu().numpy(), float(loss.detach())
+
+    # ---------------------------------------------------- health sentinel
+    def set_health_sentinel(self, sentinel) -> None:
+        """Attach an `optimize.health.HealthSentinel` (None detaches): each
+        training step then computes one global gradient norm and a finite
+        flag, reads `(loss, grad_norm, ok)` to the host once, and applies
+        the parameter, optimizer and layer-state updates only when loss
+        and norm are finite (the iteration advances either way); the
+        sentinel runs its skip -> LR backoff -> rollback -> give-up ladder
+        on those scalars. Not copied by `clone()`."""
+        self._sentinel = sentinel
+
+    def get_health_sentinel(self):
+        return self._sentinel
+
+    # ------------------------------------------------------------- helpers
+    def set_listeners(self, *listeners) -> None:
+        self.listeners = list(listeners)
+
+    def get_updater_state(self):
+        return self._upd_state
+
+    def _copy_into(self, net) -> None:
+        """The normalizer (shared), copies of the parameters, optimizer
+        state and layer state, and the iteration, epoch and score, into
+        `net`, a fresh network of the same configuration."""
+        net._normalizer = self._normalizer
+        if self._params is not None:
+            copy = lambda d: {k: v.clone() for k, v in d.items()}
+            net._params = _tree_map(copy, self._params)
+            net._upd_state = _tree_map(
+                lambda u: {k: copy(st) for k, st in u.items()},
+                self._upd_state)
+            net._layer_state = _tree_map(copy, self._layer_state)
+        net.iteration = self.iteration
+        net.epoch = self.epoch
+        net.score_value = self.score_value
+
+    def set_updater_state(self, state) -> None:
+        """Load an optimizer-state tree (for example from
+        `util.serialization.updater_state_from_jax`), checked against this
+        network's names and shapes, cast to its dtype and device."""
+        self._ensure_init()
+        self._check_keys(self._upd_state, state, "updater state")
+        for key, mine in _tree_items(self._upd_state):
+            theirs = state[key]
+            if set(mine) != set(theirs) or any(
+                    set(mine[k]) != set(theirs[k]) for k in mine):
+                raise ValueError(f"layer {key}: updater state names differ")
+            for k in mine:
+                for sk, t in theirs[k].items():
+                    t = torch.as_tensor(np.asarray(t) if not isinstance(
+                        t, torch.Tensor) else t)
+                    if tuple(t.shape) != tuple(mine[k][sk].shape):
+                        raise ValueError(f"layer {key} {k}.{sk}: shape "
+                                         f"{tuple(t.shape)} != "
+                                         f"{tuple(mine[k][sk].shape)}")
+                    mine[k][sk] = t.to(device=self.device, dtype=self.dtype,
+                                       copy=True)
+
+    # ---------------------------------------------------- params / serde
+    def params(self) -> torch.Tensor:
+        """Flat parameter vector in `ravel_pytree` order."""
+        self._ensure_init()
+        return torch.cat([p[k].reshape(-1)
+                          for _, p in _tree_items(self._params)
+                          for k in sorted(p)])
+
+    def _unravel(self, flat):
+        """A flat vector (numpy or tensor) in `ravel_pytree` order as this
+        network's parameter tree, on its device in its dtype (views of
+        the vector where it already is one)."""
+        flat = torch.as_tensor(np.asarray(flat) if not isinstance(
+            flat, torch.Tensor) else flat)
+        n = self.num_params()
+        if flat.ndim != 1 or flat.numel() != n:
+            raise ValueError(f"flat parameter vector has shape "
+                             f"{tuple(flat.shape)}; the network expects ({n},)")
+        flat = flat.to(device=self.device, dtype=self.dtype)
+        off = 0
+        tree = {}
+        for key, p in _tree_items(self._params):
+            q = {}
+            for k in sorted(p):
+                m = p[k].numel()
+                q[k] = flat[off:off + m].reshape(p[k].shape)
+                off += m
+            tree[key] = q
+        if isinstance(self._params, list):
+            return [tree[i] for i in range(len(self._params))]
+        return tree
+
+    def set_params(self, flat) -> None:
+        """Load a flat vector (numpy or tensor) in `ravel_pytree` order."""
+        self._ensure_init()
+        self._params = _tree_map(lambda p: {k: v.clone()
+                                            for k, v in p.items()},
+                                 self._unravel(flat))
+
+    def set_param_tree(self, params) -> None:
+        """Load a parameter tree (for example from
+        `util.serialization.params_from_jax`), checked against this
+        network's names and shapes, cast to its dtype and device."""
+        self._ensure_init()
+        self._params = self._checked_copy(self._params, params, "parameter",
+                                          self.dtype)
+
+    def set_layer_state(self, state) -> None:
+        """Load a layer-state tree (BatchNormalization's running
+        `mean`/`var`; the JAX network's `_layer_state` through
+        `util.serialization.params_from_jax`), checked against this
+        network's names and shapes, on its device in each slot's dtype."""
+        self._ensure_init()
+        self._layer_state = self._checked_copy(self._layer_state, state,
+                                               "state", None)
+
+    @staticmethod
+    def _check_keys(mine_tree, theirs_tree, what: str) -> None:
+        if isinstance(mine_tree, list):
+            if len(theirs_tree) != len(mine_tree):
+                raise ValueError(f"{len(theirs_tree)} layers given, network "
+                                 f"has {len(mine_tree)}")
+        elif set(theirs_tree) != set(mine_tree):
+            raise ValueError(f"{what} nodes {sorted(theirs_tree)} != "
+                             f"{sorted(mine_tree)}")
+
+    def _checked_copy(self, mine_tree, theirs_tree, what: str, dtype):
+        """Copies of `theirs_tree`'s tensors on this network's device, in
+        `dtype` (None: the dtype of the slot each replaces), after checking
+        its layers, names and shapes against `mine_tree`."""
+        self._check_keys(mine_tree, theirs_tree, what)
+        new = {}
+        for key, mine in _tree_items(mine_tree):
+            theirs = theirs_tree[key]
+            if set(mine) != set(theirs):
+                raise ValueError(f"layer {key}: {what} names "
+                                 f"{sorted(theirs)} != {sorted(mine)}")
+            q = {}
+            for k, v in theirs.items():
+                t = torch.as_tensor(v)
+                if tuple(t.shape) != tuple(mine[k].shape):
+                    raise ValueError(f"layer {key} {k}: shape "
+                                     f"{tuple(t.shape)} != "
+                                     f"{tuple(mine[k].shape)}")
+                q[k] = t.to(device=self.device, dtype=dtype or mine[k].dtype,
+                            copy=True)
+            new[key] = q
+        if isinstance(mine_tree, list):
+            return [new[i] for i in range(len(mine_tree))]
+        return new
+
+    def num_params(self) -> int:
+        self._ensure_init()
+        return sum(v.numel() for _, p in _tree_items(self._params)
+                   for v in p.values())
+
+    # ------------------------------------------------------------ pretrain
+    def _pretrain_layer(self, key, position: int, layer, batches,
+                        epochs: int, layer_input) -> None:
+        """Greedy layerwise pretraining of one layer: `epochs` passes over
+        `batches` (an iterator of DataSets or MultiDataSets), each step
+        the gradient of `layer.pretrain_loss` on the layer's input
+        (`layer_input(batch)`, computed through the frozen layers before
+        it without a gradient) applied with the layer's own updater and
+        state; `score_value` is each step's loss. Each step draws from a
+        generator of its own, made from (seed + position, step): the same
+        stream for layer i of the list container and node i of a
+        linear-chain graph's topological order."""
+        it_count = 0
+        for _ in range(epochs):
+            for ds in batches:
+                with torch.no_grad():
+                    x = layer_input(ds)
+                leaves = {k: v.detach().requires_grad_(True)
+                          for k, v in self._params[key].items()}
+                gen = _generator((self.conf.seed + position, it_count),
+                                 self.device)
+                with torch.enable_grad():
+                    loss = layer.pretrain_loss(leaves, x, gen)
+                    g = torch.autograd.grad(loss, list(leaves.values()),
+                                            allow_unused=True)
+                grads = {k: (gk if gk is not None else torch.zeros_like(v))
+                         for (k, v), gk in zip(leaves.items(), g)}
+                with torch.no_grad():
+                    apply_layer_update(layer, self._upd_state[key],
+                                       self._params[key], grads, it_count)
+                self._score = loss.detach()
+                it_count += 1
+
+
+class MultiLayerNetwork(NetworkBase):
+    def __init__(self, conf: MultiLayerConfiguration, dtype=torch.float32,
+                 compute_dtype: Optional[torch.dtype] = None,
+                 device="cuda"):
+        super().__init__(conf, dtype, compute_dtype, device)
+        self.layers: List[Layer] = conf.layers
         self._input_types = self._resolve_input_types()
+
+    def _layer_slots(self):
+        return list(enumerate(self.layers))
+
+    def _layer_input_type(self, i: int) -> InputType:
+        return self._input_types[i]
 
     def _resolve_input_types(self) -> List[InputType]:
         """Per-layer input InputType, as inferred at config build time."""
@@ -129,25 +581,6 @@ class MultiLayerNetwork:
                                               self.device)
                              for i, layer in enumerate(self.layers)]
 
-    def _ensure_init(self):
-        if self._params is None:
-            self.init()
-
-    # ----------------------------------------------------------------- score
-    @property
-    def score_value(self) -> Optional[float]:
-        """Loss of the most recent iteration. Kept as a device tensor by
-        the training loop and turned into a float on first read (a read
-        waits for the device)."""
-        if self._score is None or isinstance(self._score, float):
-            return self._score
-        self._score = float(self._score)
-        return self._score
-
-    @score_value.setter
-    def score_value(self, v) -> None:
-        self._score = v if (v is None or isinstance(v, float)) else float(v)
-
     # --------------------------------------------------------- normalizer
     def set_normalizer(self, normalizer) -> None:
         """Attach a normalizer whose `device_transform` runs on the device
@@ -164,9 +597,6 @@ class MultiLayerNetwork:
                     f"({type(self.layers[0]).__name__}): ids are never "
                     "scaled, so the normalizer would be silently ignored")
         self._normalizer = normalizer
-
-    def get_normalizer(self):
-        return self._normalizer
 
     def _feature_wire_mode(self) -> str:
         """'sink' (an integer-id first layer: ids pass straight through),
@@ -213,24 +643,14 @@ class MultiLayerNetwork:
             lrng = fold_in(rng, i)
             x = self._preprocess(i, x, lrng, train)
             mask = fmask if x.ndim == 3 else None
-            x, new_state[i] = self._layer_forward(i, params[i], new_state[i],
-                                                  x, train, lrng, mask)
+            x, new_state[i] = run_layer(self.layers[i], params[i],
+                                        new_state[i], x, train, lrng, mask)
         return x, new_state
 
     def _preprocess(self, i: int, x, rng=None, train: bool = False):
         """Layer i's input preprocessor, if the configuration has one."""
         pre = self.conf.preprocessors.get(i)
         return x if pre is None else pre.preprocess(x, rng=rng, train=train)
-
-    def _layer_forward(self, i: int, p, state, x, train: bool, rng,
-                       mask=None):
-        """(out, new state) of layer i: a stateful layer reads and
-        returns its state, the others keep theirs."""
-        layer = self.layers[i]
-        if layer.stateful:
-            return layer.forward_with_state(p, state, x, train=train,
-                                            rng=rng, mask=mask)
-        return layer.forward(p, x, train=train, rng=rng, mask=mask), state
 
     def _wire_features(self, x):
         from deeplearning4j_tpu_torch.nn.precision import wire_asarray
@@ -263,8 +683,8 @@ class MultiLayerNetwork:
         h = self._prep_features(self._wire_features(x))
         acts = []
         for i, p in enumerate(self._params):
-            h, _ = self._layer_forward(i, p, self._layer_state[i],
-                                       self._preprocess(i, h), False, None)
+            h, _ = run_layer(self.layers[i], p, self._layer_state[i],
+                             self._preprocess(i, h), False, None)
             acts.append(h)
         return acts
 
@@ -309,53 +729,6 @@ class MultiLayerNetwork:
             loss = loss + term
         return loss, new_state
 
-    def _loss_and_grads(self, features, labels, fmask, lmask):
-        """The loss of one batch and its gradients by autograd (a list of
-        per-layer dicts, zeros for unused parameters), at the current
-        parameters; the new layer state, detached (no gradient crosses
-        batches or tBPTT windows). Changes nothing."""
-        leaves = [{k: v.detach().requires_grad_(True) for k, v in p.items()}
-                  for p in self._params]
-        flat = [t for p in leaves for t in p.values()]
-        with torch.enable_grad():
-            loss, new_state = self._loss_pure(
-                leaves, features, labels, fmask, lmask,
-                (self.conf.seed, self.iteration), True, self._layer_state)
-            g_flat = torch.autograd.grad(loss, flat, allow_unused=True)
-        grads, it = [], iter(g_flat)
-        for p in leaves:
-            grads.append({k: (g if g is not None else torch.zeros_like(v))
-                          for (k, v), g in zip(p.items(), it)})
-        new_state = [{k: v.detach() for k, v in st.items()}
-                     for st in new_state]
-        return loss.detach(), grads, new_state
-
-    def _apply_updates(self, grads, new_state) -> None:
-        """Every layer's update applied in place to the parameters and
-        the optimizer state; the new layer state replaces the old."""
-        with torch.no_grad():
-            for i, layer in enumerate(self.layers):
-                apply_layer_update(layer, self._upd_state[i], self._params[i],
-                                   grads[i], self.iteration)
-        self._layer_state = new_state
-
-    @staticmethod
-    def _health(loss, grads) -> torch.Tensor:
-        """`[loss, grad_norm, ok]` in f32 on the device: the global
-        gradient norm from each leaf's f32 sum of squares, added leaf by
-        leaf in the JAX package's order (layer order, sorted names); ok is
-        1 when loss and squared norm are both finite (a squared norm that
-        overflows f32 counts as non-finite)."""
-        gsq = None
-        for g in grads:
-            for k in sorted(g):
-                s = torch.sum(torch.square(g[k].float()))
-                gsq = s if gsq is None else gsq + s
-        if gsq is None:
-            gsq = torch.zeros((), dtype=torch.float32, device=loss.device)
-        ok = torch.isfinite(loss) & torch.isfinite(gsq)
-        return torch.stack([loss.float(), torch.sqrt(gsq), ok.float()])
-
     def _batch_arrays(self, ds: DataSet):
         from deeplearning4j_tpu_torch.nn.precision import wire_asarray
 
@@ -380,10 +753,6 @@ class MultiLayerNetwork:
         through `optimize.solvers.Solver`. When an exception leaves the
         loop, the producer thread of an `AsyncDataSetIterator` being
         iterated is stopped before it propagates."""
-        from deeplearning4j_tpu_torch.datasets.iterators import (
-            AsyncDataSetIterator,
-        )
-
         self._ensure_init()
         line_search = (self.conf.global_conf.optimization_algo
                        != OptimizationAlgorithm.STOCHASTIC_GRADIENT_DESCENT)
@@ -392,61 +761,16 @@ class MultiLayerNetwork:
             data = DataSet(data, labels)
         iterator = ListDataSetIterator([data]) if isinstance(data, DataSet) \
             else data
-        try:
-            for _ in range(epochs):
-                for listener in self.listeners:
-                    if hasattr(listener, "on_epoch_start"):
-                        listener.on_epoch_start(self)
-                n_batches = 0
-                for ds in iterator:
-                    n_batches += 1
-                    if line_search:
-                        self._fit_batch_solver(ds)
-                    elif tbptt and self._tbptt_applicable(ds):
-                        self._fit_tbptt(ds)
-                    else:
-                        self._fit_batch(ds)
-                if n_batches == 0:
-                    logger.warning("fit(): iterator produced no batches "
-                                   "this epoch")
-                for listener in self.listeners:
-                    if hasattr(listener, "on_epoch_end"):
-                        listener.on_epoch_end(self)
-                self.epoch += 1
-        except BaseException:
-            if isinstance(iterator, AsyncDataSetIterator):
-                iterator.close()
-            raise
 
-    def _fit_batch(self, ds: DataSet) -> None:
-        """One training step on one batch. With a health sentinel, the
-        step's health vector is read to the host (its one sync) before
-        the updates, which run only when it says finite; the iteration
-        advances either way, and the sentinel's verdict (which may raise)
-        comes before the listeners see the step."""
-        self._validate_labels(ds)
-        f, l, fm, lm = self._batch_arrays(ds)
-        loss, grads, new_state = self._loss_and_grads(f, l, fm, lm)
-        health = None
-        if self._sentinel is None:
-            self._apply_updates(grads, new_state)
-            self._score = loss
-        else:
-            health = self._health(loss, grads).cpu().numpy()
-            if health[2] >= 0.5:
-                self._apply_updates(grads, new_state)
-            self._score = float(health[0])
-        self._last_batch = ds
-        self.iteration += 1
-        if health is not None:
-            self._sentinel.observe(self, health)
-        self._notify(ds)
+        def fit_one(ds):
+            if line_search:
+                self._fit_batch_solver(ds)
+            elif tbptt and self._tbptt_applicable(ds):
+                self._fit_tbptt(ds)
+            else:
+                self._fit_batch(ds)
 
-    def _notify(self, ds: DataSet) -> None:
-        for listener in self.listeners:
-            if hasattr(listener, "record_batch"):
-                listener.record_batch(ds.num_examples())
-            listener.iteration_done(self, self.iteration)
+        self._fit_epochs(iterator, epochs, fit_one)
 
     def _fit_batch_solver(self, ds: DataSet) -> None:
         """One batch through the line-search solver of
@@ -477,8 +801,8 @@ class MultiLayerNetwork:
                                        value_range=ranges.get("features"))
         if ds.labels is None:
             raise ValueError("fit() requires labels; got DataSet with "
-                             "labels=None (pretrain() is not ported: ROADMAP "
-                             "queue A9b)")
+                             "labels=None (use pretrain() for unsupervised "
+                             "layerwise training)")
         n_out = getattr(self.layers[-1], "n_out", None)
         labels = ds.labels
         sparse = (not labels.is_floating_point()
@@ -500,24 +824,6 @@ class MultiLayerNetwork:
                 f"{tuple(labels.shape)})")
 
     # ------------------------------------------------------ truncated BPTT
-    def _fit_tbptt(self, ds: DataSet) -> None:
-        """Truncated BPTT: the time axis in `tbptt_fwd_length` windows,
-        one training step each, the LSTM (h, c) carried from window to
-        window without a gradient; the score is the windows' mean loss.
-        The windows (and their label checks) are built before the carries
-        are seeded, and the persistent state slots are restored whatever
-        happens."""
-        windows = self._tbptt_windows(ds)
-        saved = self._tbptt_seed_carries(ds.features.shape[0])
-        losses = []
-        try:
-            for window in windows:
-                self._fit_batch(window)
-                losses.append(self._score)
-        finally:
-            self._tbptt_restore_carries(saved)
-        self.score_value = float(np.mean([float(l) for l in losses]))
-
     def _tbptt_applicable(self, ds) -> bool:
         """3-D sequences always; (B, T) integer ids only when the first
         layer consumes id sequences (not ids that a normalizer expands,
@@ -534,24 +840,6 @@ class MultiLayerNetwork:
             return False
         dt = f.dtype if hasattr(f, "dtype") else np.asarray(f).dtype
         return np.issubdtype(dt, np.integer)
-
-    def _tbptt_seed_carries(self, B: int):
-        """Zero (h, c) carries in every GravesLSTM slot (not the
-        bidirectional one); returns the saved slots."""
-        from deeplearning4j_tpu_torch.nn.conf.layers import GravesLSTM
-
-        saved = {}
-        for i, layer in enumerate(self.layers):
-            if type(layer) is GravesLSTM:
-                zero = torch.zeros((B, layer.n_out), dtype=self.dtype,
-                                   device=self.device)
-                saved[i] = self._layer_state[i]
-                self._layer_state[i] = {"h": zero, "c": zero.clone()}
-        return saved
-
-    def _tbptt_restore_carries(self, saved) -> None:
-        for i, st in saved.items():
-            self._layer_state[i] = st
 
     def _tbptt_windows(self, ds: DataSet) -> List[DataSet]:
         """Window batches of `tbptt_fwd_length` steps; a short tail
@@ -610,17 +898,6 @@ class MultiLayerNetwork:
                                  getattr(self.layers[-1], "n_out", None),
                                  mask=ds.labels_mask)
 
-    def score(self, ds: DataSet, train: bool = False) -> float:
-        """Loss on a dataset without updating, no dropout (`train=True`:
-        the layers' train-mode forward, still without a dropout draw, as
-        in the JAX package)."""
-        self._ensure_init()
-        self._check_sparse_labels(ds)
-        f, l, fm, lm = self._batch_arrays(ds)
-        with torch.no_grad():
-            return float(self._loss_pure(self._params, f, l, fm, lm, None,
-                                         train, self._layer_state)[0])
-
     @torch.no_grad()
     def score_examples(self, ds: DataSet,
                        add_regularization: bool = False) -> torch.Tensor:
@@ -645,37 +922,6 @@ class MultiLayerNetwork:
             scores = scores + regularization_score(
                 zip(self.layers, self._params))
         return scores
-
-    def score_function(self, ds: DataSet):
-        """A closure flat parameters (`params()` order) -> loss on this
-        fixed batch, without dropout, for gradient checks by central
-        differences; differentiable in the flat vector."""
-        self._ensure_init()
-        self._check_sparse_labels(ds)
-        f, l, fm, lm = self._batch_arrays(ds)
-
-        def score_at(flat) -> torch.Tensor:
-            return self._loss_pure(self._unravel(flat), f, l, fm, lm, None,
-                                   True, self._layer_state)[0]
-
-        return score_at
-
-    def compute_gradient_and_score(self, ds: DataSet
-                                   ) -> Tuple[np.ndarray, float]:
-        """Flat gradient (ravel order) and score at the current
-        parameters, without dropout."""
-        self._ensure_init()
-        f, l, fm, lm = self._batch_arrays(ds)
-        leaves = [{k: v.detach().requires_grad_(True) for k, v in p.items()}
-                  for p in self._params]
-        ordered = [p[k] for p in leaves for k in sorted(p)]
-        with torch.enable_grad():
-            loss = self._loss_pure(leaves, f, l, fm, lm, None, True,
-                                   self._layer_state)[0]
-            grads = torch.autograd.grad(loss, ordered, allow_unused=True)
-        flat = torch.cat([(g if g is not None else torch.zeros_like(t))
-                          .reshape(-1) for g, t in zip(grads, ordered)])
-        return flat.detach().cpu().numpy(), float(loss.detach())
 
     # --------------------------------------------------------- rnn support
     @torch.no_grad()
@@ -738,8 +984,8 @@ class MultiLayerNetwork:
                 elif h.ndim == 2 and layer.input_kind == "rnn" \
                         and not getattr(layer, "integer_input", False):
                     h = h[:, None, :]
-                h, _ = self._layer_forward(i, p, self._layer_state[i], h,
-                                           False, None)
+                h, _ = run_layer(layer, p, self._layer_state[i], h, False,
+                                 None)
                 if h.ndim == 3 and h.shape[1] == 1:
                     h = h[:, 0]
             outs.append(h)
@@ -767,20 +1013,6 @@ class MultiLayerNetwork:
         self._rnn_state = {int(i): (as_t(st["h"]), as_t(st["c"]))
                            for i, st in states.items()}
 
-    # ---------------------------------------------------- health sentinel
-    def set_health_sentinel(self, sentinel) -> None:
-        """Attach an `optimize.health.HealthSentinel` (None detaches): each
-        training step then computes one global gradient norm and a finite
-        flag, reads `(loss, grad_norm, ok)` to the host once, and applies
-        the parameter, optimizer and layer-state updates only when loss
-        and norm are finite (the iteration advances either way); the
-        sentinel runs its skip -> LR backoff -> rollback -> give-up ladder
-        on those scalars. Not copied by `clone()`."""
-        self._sentinel = sentinel
-
-    def get_health_sentinel(self):
-        return self._sentinel
-
     # ------------------------------------------------------------ evaluate
     def evaluate(self, iterator, labels=None, top_n: int = 1):
         """Classification evaluation over a DataSet or an iterator: each
@@ -796,17 +1028,28 @@ class MultiLayerNetwork:
             ev.eval(ds.labels, self.output(ds.features), mask=ds.labels_mask)
         return ev
 
-    # --------------------------------------------------------- not ported
+    # ------------------------------------------------------------ pretrain
     def pretrain(self, iterator, epochs: int = 1) -> None:
-        raise _not_ported("layerwise pretraining",
-                          "queue A9b: AutoEncoder/RBM/VAE layers")
+        """Greedy layerwise unsupervised pretraining of every layer that
+        has a `pretrain_loss` (AutoEncoder, RBM, VariationalAutoencoder),
+        in layer order: each for `epochs` passes over `iterator`, on its
+        input through the frozen layers before it (with `fit`'s feature
+        preparation: the wire dtype and the normalizer), with its own
+        updater configuration and state."""
+        self._ensure_init()
+        if isinstance(iterator, DataSet):
+            iterator = ListDataSetIterator([iterator])
+        for i, layer in enumerate(self.layers):
+            if not hasattr(layer, "pretrain_loss"):
+                continue
 
-    # ------------------------------------------------------------- helpers
-    def set_listeners(self, *listeners) -> None:
-        self.listeners = list(listeners)
+            def layer_input(ds, i=i):
+                x = self._prep_features(self._wire_features(ds.features))
+                x = self._forward_pure(self._params, x, train=False, rng=None,
+                                       upto=i, lstate=self._layer_state)[0]
+                return self._preprocess(i, x)
 
-    def get_updater_state(self) -> UpdState:
-        return self._upd_state
+            self._pretrain_layer(i, i, layer, iterator, epochs, layer_input)
 
     def clone(self) -> "MultiLayerNetwork":
         """A network of the same configuration with its own copies of the
@@ -817,121 +1060,8 @@ class MultiLayerNetwork:
         net = MultiLayerNetwork(self.conf, self.dtype,
                                 compute_dtype=self.compute_dtype,
                                 device=self.device)
-        net._normalizer = self._normalizer
-        if self._params is not None:
-            net._params = [{k: v.clone() for k, v in p.items()}
-                           for p in self._params]
-            net._upd_state = [{k: {sk: t.clone() for sk, t in st.items()}
-                               for k, st in u.items()}
-                              for u in self._upd_state]
-            net._layer_state = [{k: v.clone() for k, v in st.items()}
-                                for st in self._layer_state]
-        net.iteration = self.iteration
-        net.epoch = self.epoch
-        net.score_value = self.score_value
+        self._copy_into(net)
         return net
-
-    def set_updater_state(self, state) -> None:
-        """Load an optimizer-state tree (for example from
-        `util.serialization.updater_state_from_jax`), checked against this
-        network's names and shapes, cast to its dtype and device."""
-        self._ensure_init()
-        if len(state) != len(self._upd_state):
-            raise ValueError(f"{len(state)} layers given, network has "
-                             f"{len(self._upd_state)}")
-        for i, (mine, theirs) in enumerate(zip(self._upd_state, state)):
-            if set(mine) != set(theirs) or any(
-                    set(mine[k]) != set(theirs[k]) for k in mine):
-                raise ValueError(f"layer {i}: updater state names differ")
-            for k in mine:
-                for sk, t in theirs[k].items():
-                    t = torch.as_tensor(np.asarray(t) if not isinstance(
-                        t, torch.Tensor) else t)
-                    if tuple(t.shape) != tuple(mine[k][sk].shape):
-                        raise ValueError(f"layer {i} {k}.{sk}: shape "
-                                         f"{tuple(t.shape)} != "
-                                         f"{tuple(mine[k][sk].shape)}")
-                    mine[k][sk] = t.to(device=self.device, dtype=self.dtype,
-                                       copy=True)
-
-    # ---------------------------------------------------- params / serde
-    def params(self) -> torch.Tensor:
-        """Flat parameter vector in `ravel_pytree` order."""
-        self._ensure_init()
-        return torch.cat([p[k].reshape(-1) for p in self._params
-                          for k in sorted(p)])
-
-    def _unravel(self, flat) -> Params:
-        """A flat vector (numpy or tensor) in `ravel_pytree` order as this
-        network's parameter tree, on its device in its dtype (views of
-        the vector where it already is one)."""
-        flat = torch.as_tensor(np.asarray(flat) if not isinstance(
-            flat, torch.Tensor) else flat)
-        n = sum(v.numel() for p in self._params for v in p.values())
-        if flat.ndim != 1 or flat.numel() != n:
-            raise ValueError(f"flat parameter vector has shape "
-                             f"{tuple(flat.shape)}; the network expects ({n},)")
-        flat = flat.to(device=self.device, dtype=self.dtype)
-        off = 0
-        tree = []
-        for p in self._params:
-            q = {}
-            for k in sorted(p):
-                m = p[k].numel()
-                q[k] = flat[off:off + m].reshape(p[k].shape)
-                off += m
-            tree.append(q)
-        return tree
-
-    def set_params(self, flat) -> None:
-        """Load a flat vector (numpy or tensor) in `ravel_pytree` order."""
-        self._ensure_init()
-        self._params = [{k: v.clone() for k, v in p.items()}
-                        for p in self._unravel(flat)]
-
-    def set_param_tree(self, params: Params) -> None:
-        """Load a per-layer list of parameter dicts (for example from
-        `util.serialization.params_from_jax`), checked against this
-        network's names and shapes, cast to its dtype and device."""
-        self._ensure_init()
-        self._params = self._checked_copy(self._params, params, "parameter",
-                                          self.dtype)
-
-    def set_layer_state(self, state: LState) -> None:
-        """Load a per-layer list of layer-state dicts (BatchNormalization's
-        running `mean`/`var`; the JAX network's `_layer_state` through
-        `util.serialization.params_from_jax`), checked against this
-        network's names and shapes, on its device in each slot's dtype."""
-        self._ensure_init()
-        self._layer_state = self._checked_copy(self._layer_state, state,
-                                               "state", None)
-
-    def _checked_copy(self, mine_tree, theirs_tree, what: str, dtype):
-        """Copies of `theirs_tree`'s tensors on this network's device, in
-        `dtype` (None: the dtype of the slot each replaces), after checking
-        its layer count, names and shapes against `mine_tree`."""
-        if len(theirs_tree) != len(mine_tree):
-            raise ValueError(f"{len(theirs_tree)} layers given, network has "
-                             f"{len(mine_tree)}")
-        new = []
-        for i, (mine, theirs) in enumerate(zip(mine_tree, theirs_tree)):
-            if set(mine) != set(theirs):
-                raise ValueError(f"layer {i}: {what} names "
-                                 f"{sorted(theirs)} != {sorted(mine)}")
-            q = {}
-            for k, v in theirs.items():
-                t = torch.as_tensor(v)
-                if tuple(t.shape) != tuple(mine[k].shape):
-                    raise ValueError(f"layer {i} {k}: shape {tuple(t.shape)} "
-                                     f"!= {tuple(mine[k].shape)}")
-                q[k] = t.to(device=self.device, dtype=dtype or mine[k].dtype,
-                            copy=True)
-            new.append(q)
-        return new
-
-    def num_params(self) -> int:
-        self._ensure_init()
-        return sum(v.numel() for p in self._params for v in p.values())
 
     def summary(self) -> str:
         """The architecture as a table: each layer's index, type (marked

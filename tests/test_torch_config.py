@@ -55,8 +55,9 @@ def test_builders_write_the_same_json(name):
 
 
 def test_unported_layer_type_is_refused_by_name():
-    """A layer type still to port (the pretraining family, queue A9b) is
-    refused naming its queue item; LeNet's CNN layers now parse."""
+    """Every layer type of the JAX package parses now (the pretraining
+    family, queue A9b, was the last); a type neither package knows is
+    refused naming it."""
     from deeplearning4j_tpu.models.lenet import lenet_configuration
     from deeplearning4j_tpu.nn import conf as JC
 
@@ -65,8 +66,11 @@ def test_unported_layer_type_is_refused_by_name():
     jconf = (JC.NeuralNetConfiguration.Builder().list()
              .layer(JC.AutoEncoder(n_in=4, n_out=3))
              .layer(JC.OutputLayer(n_in=3, n_out=2)).build())
-    with pytest.raises(NotImplementedError, match="not ported.*A9b"):
-        MultiLayerConfiguration.from_json(jconf.to_json())
+    text = jconf.to_json()
+    assert MultiLayerConfiguration.from_json(text).to_json() == text
+    with pytest.raises(KeyError, match="unknown layer type 'capsule'"):
+        MultiLayerConfiguration.from_json(text.replace('"autoencoder"',
+                                                       '"capsule"'))
 
 
 @pytest.mark.parametrize("kw,match", [

@@ -8,7 +8,10 @@ uint8 ids through the OneHotEncoder; the training loop with an async
 iterator, the health sentinel, listeners and checkpoints, then evaluate,
 restore, a statistics normalizer and an LBFGS fit; a CNN with
 BatchNormalization state through a checkpoint, LeNet, a SelfAttention
-classifier on the flash route, an MoE GPT trained and generated from)
+classifier on the flash route, an MoE GPT trained and generated from;
+ResNet's tiny network as a ComputationGraph fit, saved and restored, a
+masked tBPTT graph streamed with rnn_time_step, an AutoEncoder, RBM and
+VAE stack pretrained layer by layer, a gradient check)
 loads neither `jax` nor any module of `deeplearning4j_tpu`, and
 its entry points run on the card by default, raising where there is
 none rather than carrying on quietly on the CPU."""
@@ -234,6 +237,56 @@ _SCRIPT = textwrap.dedent("""
     assert generate(mnet, ids[:, :4], 3, temperature=0.0,
                     device="cpu").shape == (2, 3)
 
+    # the graph and pretraining slice: ResNet's tiny network as a graph
+    # through a checkpoint, a masked tBPTT graph streamed, a pretrained
+    # AutoEncoder / RBM / VAE stack, a gradient check
+    import torch
+    from deeplearning4j_tpu_torch import gradientcheck
+    from deeplearning4j_tpu_torch.datasets.dataset import MultiDataSet
+    from deeplearning4j_tpu_torch.models import resnet_tiny_configuration
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.util import time_series  # noqa: F401
+    from deeplearning4j_tpu_torch.util.serialization import (
+        restore_computation_graph)
+
+    gnet = ComputationGraph(resnet_tiny_configuration(n_classes=2),
+                            device="cpu")
+    gnet.fit(DataSet(np.ones((2, 8, 8, 3), np.float32),
+                     np.eye(2, dtype=np.float32)))
+    with tempfile.TemporaryDirectory() as d:
+        write_model(gnet, os.path.join(d, "g.zip"))
+        gback = restore_computation_graph(os.path.join(d, "g.zip"),
+                                          device="cpu")
+    assert torch.equal(gback.params(), gnet.params())
+    tconf = (C.NeuralNetConfiguration.Builder().seed(1).graph_builder()
+             .add_inputs("in")
+             .add_layer("lstm", C.GravesLSTM(n_in=8, n_out=16), "in")
+             .add_layer("out", C.RnnOutputLayer(n_in=16, n_out=8,
+                                                activation="softmax"), "lstm")
+             .set_outputs("out").t_bptt_forward_length(3).build())
+    tnet = ComputationGraph(tconf, device="cpu")
+    mask = np.ones((2, 7), np.float32)
+    mask[1, 5:] = 0
+    tids = np.arange(16).reshape(2, 8) % 8
+    x = np.eye(8, dtype=np.float32)[tids[:, :-1]]
+    tnet.fit(MultiDataSet([x], [tids[:, 1:].astype(np.int32)],
+                          features_masks=[mask], labels_masks=[mask]))
+    calls = lstm.lstm_bwd_plain.calls
+    assert tnet.iteration == 3 and calls >= 6
+    assert tnet.rnn_time_step(x)[0].shape == (2, 7, 8)
+    pconf = (C.NeuralNetConfiguration.Builder().seed(2).list()
+             .layer(C.AutoEncoder(n_out=6))
+             .layer(C.RBM(n_out=4))
+             .layer(C.VariationalAutoencoder(n_out=2))
+             .layer(C.OutputLayer(n_out=2, activation="softmax"))
+             .set_input_type(C.InputType.feed_forward(8)).build())
+    pnet = MultiLayerNetwork(pconf, device="cpu")
+    pnet.pretrain(DataSet(np.eye(8, dtype=np.float32), None), epochs=2)
+    assert np.isfinite(pnet.score_value)
+    gc = MultiLayerNetwork(pconf, dtype=torch.float64, device="cpu")
+    assert gradientcheck.check_gradients(
+        gc, DataSet(np.eye(8), np.eye(2)[np.arange(8) % 2]), subset=20)
+
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")
                     or m == "deeplearning4j_tpu"
@@ -301,3 +354,13 @@ def test_entry_points_default_to_the_card():
         generate(cpu_net, np.zeros((1, 3), np.int32), 2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         restore_multi_layer_network(REPO / "no-such.zip")
+    from deeplearning4j_tpu_torch.models import resnet_tiny_configuration
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.util.serialization import (
+        restore_computation_graph,
+    )
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ComputationGraph(resnet_tiny_configuration())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        restore_computation_graph(REPO / "no-such.zip")

@@ -103,36 +103,44 @@ def test_the_walk_covers_the_cnn_and_moe_modules():
             f"{PORT}.parallel", f"{PORT}.parallel.experts"} <= set(MODULES)
 
 
+def test_the_walk_covers_the_graph_and_pretraining_modules():
+    assert {f"{PORT}.nn.graph", f"{PORT}.nn.graph.computation_graph",
+            f"{PORT}.nn.conf.computation_graph_configuration",
+            f"{PORT}.nn.conf.variational", f"{PORT}.models.resnet",
+            f"{PORT}.util.time_series", f"{PORT}.gradientcheck"} \
+        <= set(MODULES)
+
+
 @pytest.mark.parametrize("module,name,item", [
-    ("nn.conf", "AutoEncoder", "A9b"),
-    ("nn.conf", "RBM", "A9b"),
-    ("nn.conf", "VariationalAutoencoder", "A9b"),
-    ("nn.conf", "GaussianReconstructionDistribution", "A9b"),
-    ("nn.conf.layers", "AutoEncoder", "A9b"),
-    ("nn.conf.layers", "HiddenUnit", "A9b"),
-    ("nn.conf", "ComputationGraphConfiguration", "A10"),
-    ("", "ComputationGraph", "A10"),
-    ("models", "resnet_configuration", "A10"),
-    ("models", "resnet_tiny_configuration", "A10"),
+    ("", "earlystopping", "A10b"),
+    ("", "profiler", "A10b"),
+    ("util", "determinism", "A10b"),
     ("parallel", "ParallelWrapper", "A12"),
     ("parallel", "make_mesh", "A12"),
 ])
 def test_unported_families_raise_naming_their_item(module, name, item):
-    """The pretraining family (A9b), ComputationGraph and ResNet (A10)
-    and parallel training (A12) raise NotImplementedError naming their
-    queue item, never AttributeError or ImportError."""
+    """Early stopping, the determinism check and the profiler (A10b) and
+    parallel training (A12) raise NotImplementedError naming their queue
+    item, never AttributeError or ImportError."""
     mod = importlib.import_module(f"{PORT}.{module}" if module else PORT)
     with pytest.raises(NotImplementedError, match=rf"queue {item}\b"):
         getattr(mod, name)
+    with pytest.raises(NotImplementedError, match=rf"queue {item}\b"):
+        exec(f"from {mod.__name__} import {name}", {})
 
 
 def test_pretrain_and_sharded_experts_raise_naming_their_item():
+    """Layerwise pretraining is ported (A9b): on a network without a
+    pretraining layer it changes nothing; the expert-parallel MoE still
+    raises naming A12."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
     from deeplearning4j_tpu_torch.models.lenet import lenet_configuration
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
     from deeplearning4j_tpu_torch.parallel import experts
 
     net = MultiLayerNetwork(lenet_configuration(), device="cpu")
-    with pytest.raises(NotImplementedError, match=r"queue A9b\b"):
-        net.pretrain(None)
+    before = net.params().clone()
+    net.pretrain(DataSet(torch.zeros((2, 784)).numpy(), None))
+    assert torch.equal(net.params(), before)
     with pytest.raises(NotImplementedError, match=r"queue A12\b"):
         experts.switch_ffn_sharded(None, None, None)

@@ -226,10 +226,11 @@ def test_fit_iterator_epochs_and_listeners():
 
 
 def test_unported_training_paths_raise_naming_the_queue():
-    """Layerwise pretraining still raises naming its queue item; what
-    queue A2 ported now runs: `evaluate`, the health sentinel, a
-    normalizer refused (as the JAX package refuses it) by a network whose
-    first layer consumes token ids, truncated BPTT and an LBFGS fit."""
+    """What queues A2 and A9b ported now runs: layerwise pretraining
+    (a network with no pretraining layer keeps its parameters),
+    `evaluate`, the health sentinel, a normalizer refused (as the JAX
+    package refuses it) by a network whose first layer consumes token
+    ids, truncated BPTT and an LBFGS fit."""
     from deeplearning4j_tpu_torch.datasets.normalizers import (
         ImagePreProcessingScaler,
     )
@@ -238,10 +239,11 @@ def test_unported_training_paths_raise_naming_the_queue():
     net = MultiLayerNetwork(gpt_configuration(16, d_model=16, n_heads=2,
                                               n_layers=1, max_length=16),
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        net.pretrain(None)
     ids = np.random.default_rng(3).integers(0, 16, (2, 9))
     data = DataSet(ids[:, :-1].astype(np.int32), ids[:, 1:].astype(np.int32))
+    before = net.params().clone()
+    net.pretrain(data)
+    assert torch.equal(net.params(), before)
     ev = net.evaluate(data)
     assert ev.confusion_matrix.sum() == 16 and ev.num_classes == 16
     with pytest.raises(ValueError, match="integer token ids"):
