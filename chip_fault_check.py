@@ -189,6 +189,11 @@ GRAPH, PRETRAIN = "graph", "pretrain"
 # `nn/multilayer.py`), checked by its phase 23 on the flash and paged
 # kernels
 CNN, MOE = "cnn", "moe"
+# the cluster tier's in-process half: KV handoff and disaggregation
+# (`serving/kv_transfer.py`, the engine's handoff), checked by
+# `chip_smoke.py`'s phase 27 (path 8), and the QoS lanes with the early
+# stopping saver, checked by its phases 28-29
+DISAGG, QOS = "disagg", "qos"
 # (B, T, H, D, causal, dtype): bf16, the training path's kernels at D = 128,
 # the "wgmma wide" kernels at D = 256 and the "wgmma cluster" backward at
 # D = 384 and 512 (T = 192: the first diagonal tiles; T = 1024 full: every
@@ -761,6 +766,54 @@ MUTATIONS = [
           "                        j, j, self.layers[j], iterator, epochs,\n"
           "                        lambda ds, j=j: layer_input(ds, j))\n")],
      "nn/multilayer.py"),
+    # the KV handoff, each caught by phase 27: the corrupted last page
+    # refused (8b), the page ledgers whole (8a-8c), warm resumes equal
+    # to the colocated and uninterrupted runs (8a, 8b)
+    ("disagg: verify_payload skips the last page's checksum", DISAGG,
+     "def verify_payload(", [
+         ("            for i in range(shipped):",
+          "            for i in range(shipped - 1):")],
+     "serving/kv_transfer.py"),
+    ("disagg: commit_handoff frees the lease's pages twice", DISAGG,
+     "    def commit_handoff(self, handoff_id: str) -> bool:", [
+         ("            self._release_lease_locked(lease)\n",
+          "            self._free_pages.extend((lease.pages or [])"
+          "[lease.n_shared:])\n"
+          "            self._release_lease_locked(lease)\n")],
+     "serving/decode_engine.py"),
+    ("disagg: a warm resume drops the pos register", DISAGG,
+     "    def _import_into(self, slot: int, req: _GenRequest) -> None:", [
+         ("        self._pos[slot] = pos\n", "")],
+     "serving/decode_engine.py"),
+    # the QoS lanes and the saver, each caught by phases 28-29: the
+    # preempted request equal to its unpreempted run (f32), a migrated
+    # request resumed where its receiver's bucket could not pay for it,
+    # the best model restored from its zip
+    ("qos: a preempted victim's tokens not folded into its prompt", QOS,
+     "    def _maybe_preempt_locked(", [
+         ("        if emitted > v.resumed_at:\n"
+          "            v.prompt = np.concatenate(\n"
+          "                [v.prompt, np.asarray(v.tokens[v.resumed_at:], "
+          "np.int64)])\n", "")],
+     "serving/decode_engine.py"),
+    ("qos: resume_submit bills the tenant's token quota", QOS,
+     "    def resume_submit(", [
+         ("                tstate.submitted += 1\n",
+          "                if tstate.rate:\n"
+          "                    tstate.refill(now)\n"
+          "                    if tstate.tokens < n_tokens:\n"
+          "                        raise TenantQuotaExceededError(\n"
+          "                            \"quota exhausted on resume\")\n"
+          "                    tstate.tokens -= n_tokens\n"
+          "                tstate.submitted += 1\n")],
+     "serving/decode_engine.py"),
+    ("qos: LocalFileModelSaver restores the latest model as the best", QOS,
+     "class LocalFileModelSaver(", [
+         ("    def get_best_model(self):\n"
+          "        return self._load(self.best_path)",
+          "    def get_best_model(self):\n"
+          "        return self._load(self.latest_path)")],
+     "earlystopping/saver.py"),
 ]
 
 
@@ -814,7 +867,8 @@ def build(sources) -> None:
     from deeplearning4j_tpu_torch.ops import cuda_build
 
     needs = {GUARD: (LSTM,), SERVER: (PAGED, FLASH), CNN: (),
-             MOE: (PAGED, FLASH), GRAPH: (LSTM,), PRETRAIN: (LSTM,)}
+             MOE: (PAGED, FLASH), GRAPH: (LSTM,), PRETRAIN: (LSTM,),
+             DISAGG: (PAGED,), QOS: (PAGED, FLASH, LSTM)}
     cuda_build.build(tuple(sorted({k for s in sources
                                    for k in needs.get(s, (s,))})))
 
@@ -854,7 +908,34 @@ def check(sources) -> None:
             lambda cs, M, card: (cs.phase_resnet(torch, M, card),
                                  cs.phase_graph_lstm(torch, M, card),
                                  cs.phase_pretrain(torch, M, card)))
+    if DISAGG in sources:
+        cases += phase_cases(torch, "27", "path 8, disaggregated",
+                             lambda cs, M, card: disagg_run(torch, cs, M,
+                                                            card))
+    if QOS in sources:
+        cases += phase_cases(torch, "28-29", "QoS, early stopping",
+                             lambda cs, M, card: qos_run(torch, cs, M, card))
     print(json.dumps({"package": fa.__file__, "cases": cases}), flush=True)
+
+
+def disagg_run(torch, cs, M, card) -> None:
+    """`chip_smoke.py`'s phase 27: path 8a, 8b and 8c."""
+    import deeplearning4j_tpu_torch.ops.paged_attention as pa
+
+    cs.phase_disagg(torch, M, pa, card)
+    net, _ = cs.phase_migration(torch, M, pa, card)
+    cs.phase_prefix_cluster(torch, M, pa, card, net)
+
+
+def qos_run(torch, cs, M, card) -> None:
+    """`chip_smoke.py`'s phases 28 and 29."""
+    import deeplearning4j_tpu_torch.ops.paged_attention as pa
+
+    net = cs.path1_net(torch, M, torch.bfloat16)
+    cs.phase_qos(torch, M, pa, card, net)
+    del net
+    torch.cuda.empty_cache()
+    cs.phase_extras(torch, M, card)
 
 
 def paged_cases(torch):

@@ -7,6 +7,7 @@ NVIDIA card.
     python3 chip_smoke.py --path5    # phase 21 alone (about 1.5 minutes)
     python3 chip_smoke.py --phases-22-23   # the CNN and MoE phases alone
     python3 chip_smoke.py --phases-24-26   # the graph and pretraining phases
+    python3 chip_smoke.py --phases-27-29   # the cluster half and A10b phases
 
 `--lstm-timing` runs phase 17 alone (the LSTM source built, the rows
 checked and timed, launch counts 0) on the checkout's package or, with
@@ -18,7 +19,9 @@ the GPT behind `ModelServer`) alone, then prints one JSON line of its
 launch counts. `--phases-22-23` builds the paged and flash sources and
 runs phases 22 and 23 alone (their rows and launch counts logged).
 `--phases-24-26` builds the LSTM source and runs phases 24 to 26 alone,
-then prints one JSON line of phase 25's launch counts.
+then prints one JSON line of phase 25's launch counts. `--phases-27-29`
+builds every source and runs phases 27 to 29 alone, then prints one JSON
+line of their launch counts.
 
 Phases, each of which makes the script exit non-zero when it fails:
 
@@ -411,7 +414,46 @@ Phases, each of which makes the script exit non-zero when it fails:
    64 -> 16, SGD 0.1, B=128, 2 epochs of 4 batches) on the card against
    the CPU and against this script's greedy reference (f64 autograd,
    layer by layer) within 1e-5 + 1e-4 |ref|; ms per pretrain step of
-   each.
+   each;
+27. path 8: path 1's network (bf16, its engine settings) disaggregated.
+   8a: a `DisaggCoordinator` (one prefill-role, one decode-role
+   `ModelServer`) beside one colocated `ModelServer`, bench_serve_disagg's
+   two Poisson mixes at path 1's lengths (prompts of 4096 with 32 tokens
+   out, prompts of 128 with 128 out; 6 requests each, greedy), then the
+   decode-heavy mix with int8 KV: every request's tokens equal the
+   colocated server's, one handoff a request, 0 fallbacks, the prefill
+   server never decodes and the decode server never prefills; tokens/s of
+   each, handoff MB and MB/s. 8b: a 4096-token prompt migrated
+   (`migrate_slots`) after 16 of 64 tokens and resumed on a second engine:
+   warm in bf16 and int8 (bit-identical to the uninterrupted run, whose
+   top-2 log-probabilities it records), a sampled request (temperature
+   1.0) warm (equal to its uninterrupted run), cold (re-prefill of prompt
+   and emitted tokens: equal in f32 pools, asserted; in bf16 its first
+   divergence and the top-2 margin there printed); export, verify and
+   resume ms; page ledgers whole, nothing left in use. 8c: path 3's
+   shared-prefix traffic (1024 shared + 64 own tokens, 8 requests) through
+   `DisaggCoordinator(prefill_replicas=2, prefix_cluster=True)` and
+   `prefix_cluster=False`: identical tokens, delta pages skipped, MB
+   shipped full against delta. The paged kernel launched at C=1 and C=256,
+   dense and int8;
+28. QoS on path 1's engine: bench_serve_qos part A at path 1's width (24
+   interactive requests of 128 + 32 tokens, Poisson arrivals; a flood
+   tenant at 60 tokens/s, burst 24, from 2 threads sending 8-token batch
+   requests; `preempt` and `slo_shed` on): the flooder meets only its own
+   `TenantQuotaExceededError`, no interactive request fails; interactive
+   p99 flooded against unloaded, the batch lane's share of tokens,
+   preemptions; one preempted greedy batch request (n_slots 1) equal to
+   its unpreempted run in f32 pools (asserted) and in bf16 (printed);
+29. path 4's char-RNN (bf16 over f32 masters, B=2048 x T=64) through
+   `EarlyStoppingTrainer` (3 epochs of 4 batches, a DataSetLossCalculator
+   on 2 held-out batches, a LocalFileModelSaver): the best model restored
+   from its zip scores exactly what the result recorded; a
+   `ProfilerListener(sync=True)`'s p50/p90 step ms; an `XlaTraceListener`
+   over 2 iterations writes a Chrome trace holding the LSTM kernels;
+   `assert_deterministic` bit-exact on path 2's GPT (B=2 x T=4096, 3
+   steps, every flash launch on "wgmma") and on the char-RNN (3 steps);
+   whether resnet_tiny is bit-exact under cuDNN's defaults, printed. Its
+   launches go into rows 2-6.
 
 Prints one JSON line of per-kernel numbers, then the card's
 `nvidia-smi` line, then as the last line
@@ -5177,6 +5219,824 @@ def phase_pretrain(torch, M, card):
         f"greedy f64 reference {worst['ref']:.3e} (1e-5 + 1e-4 |ref|)")
 
 
+# ------------------------------------------- phase 27: path 8, disaggregated
+# bench.py bench_serve_disagg's two Poisson mixes (bench.py:2026-2035,
+# :2038) at path 1's prompt and output lengths (bench.py:1327-1333):
+# (prompt length, tokens out), 6 requests each, greedy
+DISAGG_MIXES = {"prefill_heavy": (4096, 32), "decode_heavy": (128, 128)}
+DISAGG_REQUESTS, DISAGG_INTERARRIVAL = 6, 0.01
+# path 8b: a 4096-token prompt migrated once `MIGRATE_AT` tokens are out
+MIGRATE_PROMPT, MIGRATE_TOKENS, MIGRATE_AT = 4096, 64, 16
+# phase 28: bench.py bench_serve_qos part A (bench.py:1772-1781) at path
+# 1's width: 24 interactive requests (prompts of 128, 32 tokens out) with
+# Poisson arrivals; a flood tenant quota'd at 60 tokens/s, burst 24, from
+# 2 threads, sending bench_serve_qos's 8-token requests (a 32-token
+# request could never fit a burst of 24)
+QOS_INTERACTIVE, QOS_PROMPT, QOS_TOKENS = 24, 128, 32
+QOS_FLOOD = dict(rate=60.0, burst=24.0, threads=2, tokens=8)
+QOS_INTERARRIVAL = 0.01
+QOS_PREEMPT_TOKENS = 64
+# phase 29: path 4's char-RNN (LSTM_LARGE) through EarlyStoppingTrainer:
+# 3 epochs of 4 batches, 2 held-out batches; assert_deterministic on path
+# 2's GPT at B=2 x T=4096 and on the char-RNN, 3 steps each
+ES_EPOCHS, ES_BATCHES, ES_HELD = 3, 4, 2
+DET_STEPS, DET_GPT_B = 3, 2
+
+
+def path1_net(torch, M, compute_dtype):
+    """Path 1's GPT (phase 7's network: the same seed, so the same
+    weights) in `compute_dtype` over f32 masters (None: f32)."""
+    net = M["MultiLayerNetwork"](M["gpt_configuration"](**SERVE, seed=11),
+                                 dtype=torch.float32,
+                                 compute_dtype=compute_dtype, device="cuda")
+    net.init()
+    return net
+
+
+def until(pred, what, timeout=600.0):
+    end = time.monotonic() + timeout
+    while not pred():
+        if time.monotonic() > end:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.002)
+
+
+def poisson_run(np, fn, prompts, n_tokens, seed, gap):
+    """Each request on its own thread, started at seeded Poisson arrival
+    times (mean gap `gap` s): (results in order, wall s, per-request
+    latency s from its arrival)."""
+    import threading
+
+    arrivals = np.cumsum(np.random.default_rng(seed).exponential(
+        gap, len(prompts)))
+    out = [None] * len(prompts)
+    done = [None] * len(prompts)
+    t0 = time.perf_counter()
+
+    def one(i):
+        try:
+            out[i] = fn(prompts[i], n_tokens)
+        except BaseException as e:  # raised to the caller below
+            out[i] = e
+        done[i] = time.perf_counter()
+
+    threads = []
+    for i in range(len(prompts)):
+        lag = t0 + arrivals[i] - time.perf_counter()
+        if lag > 0:
+            time.sleep(lag)
+        threads.append(threading.Thread(target=one, args=(i,)))
+        threads[-1].start()
+    for t in threads:
+        t.join(900.0)
+        if t.is_alive():
+            raise AssertionError("a request thread did not finish")
+    wall = time.perf_counter() - t0
+    for r in out:
+        if isinstance(r, BaseException):
+            raise r
+    return out, wall, [done[i] - (t0 + arrivals[i])
+                       for i in range(len(prompts))]
+
+
+def ledger_whole(eng, what):
+    """Free pages, pages owned by slots and leases, and prefix-cache
+    pages are `pool_pages` distinct ids: none freed twice, none lost."""
+    with eng._cond:
+        ids = list(eng._free_pages)
+        for r in eng._slots:
+            if r is not None and r.pages:
+                ids += r.pages[r.n_shared:]
+        for lease in eng._leases._leases.values():
+            if lease.pages:
+                ids += lease.pages[lease.n_shared:]
+        if eng._prefix_cache is not None:
+            ids += [n.page_id for n in eng._prefix_cache._nodes.values()]
+    if not len(ids) == len(set(ids)) == eng.pool_pages:
+        raise AssertionError(f"{what}: page ledger broken ({len(ids)} ids, "
+                             f"{len(set(ids))} distinct, pool "
+                             f"{eng.pool_pages})")
+
+
+def roles_check(co, what):
+    """The prefill server only prefills, the decode server only decodes,
+    and both ledgers are whole."""
+    pre = co.prefill[0]._engine.stats()
+    dec = co.decode[0]._engine.stats()
+    if pre["decode_steps"] or not pre["prefills"] or dec["prefills"] \
+            or not dec["decode_steps"]:
+        raise AssertionError(f"{what}: roles crossed (prefill server "
+                             f"{pre['prefills']} prefills, "
+                             f"{pre['decode_steps']} decode steps; decode "
+                             f"server {dec['prefills']} prefills, "
+                             f"{dec['decode_steps']} decode steps)")
+    for srv in co._servers:
+        ledger_whole(srv._engine, what)
+    return pre, dec
+
+
+def disagg_mix(np, co, srv, prompts, n, seed, what, card):
+    """One mix through the colocated server and the coordinator: the
+    tokens must be equal; the tokens/s of each and the mix's handoff
+    figures."""
+    b0, s0, h0, f0 = (co.transfer_bytes, co.transfer_seconds, co.handoffs,
+                      co.fallbacks)
+    col, col_wall, _ = poisson_run(np, srv.generate, prompts, n, seed,
+                                   DISAGG_INTERARRIVAL)
+    dis, dis_wall, _ = poisson_run(np, co.generate, prompts, n, seed,
+                                   DISAGG_INTERARRIVAL)
+    for i, (a, b) in enumerate(zip(col, dis)):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"{what}: request {i} disaggregated "
+                                 f"{b[:8]}... != colocated {a[:8]}...")
+    toks = sum(len(t) for t in col)
+    mb = (co.transfer_bytes - b0) / 1e6
+    secs = co.transfer_seconds - s0
+    handoffs, fallbacks = co.handoffs - h0, co.fallbacks - f0
+    log(f"  {what}: {len(prompts)} requests of {len(prompts[0])} + {n}: "
+        f"colocated {toks / col_wall:.1f} tokens/s ({col_wall:.3f} s), "
+        f"disaggregated {toks / dis_wall:.1f} tokens/s ({dis_wall:.3f} s), "
+        f"ratio {col_wall / dis_wall:.3f}; handoffs {handoffs}, fallbacks "
+        f"{fallbacks}; kv_transfer_mbytes {mb:.3f}, "
+        f"{mb / secs if secs else 0.0:.1f} MB/s over {secs:.3f} s of "
+        f"resume; tokens equal [{card}]")
+    if handoffs != len(prompts) or fallbacks:
+        raise AssertionError(f"{what}: {handoffs} handoffs, {fallbacks} "
+                             "fallbacks")
+    return mb, secs
+
+
+def phase_disagg(torch, M, pa, card):
+    """Path 8a: path 1's network behind a `DisaggCoordinator` (one
+    prefill-role and one decode-role `ModelServer` on the card) and one
+    colocated `ModelServer`, both with path 1's engine settings: the two
+    mixes in bf16, then the decode-heavy one with int8 KV. Every
+    disaggregated request's tokens equal the colocated server's; 0
+    fallbacks; the roles stay apart. Returns the paged kernel's launches
+    over the timed runs."""
+    import numpy as np
+
+    S = M["serving"]
+    V = SERVE["vocab_size"]
+    net = path1_net(torch, M, torch.bfloat16)
+    rng = np.random.default_rng(27)
+    mixes = {m: [rng.integers(0, V, t0) for _ in range(DISAGG_REQUESTS)]
+             for m, (t0, _) in DISAGG_MIXES.items()}
+    launches: dict = {}
+    for kv in (None, "int8"):
+        gen = dict(SERVER_GEN, max_queue=256)
+        if kv:
+            gen["quantize"] = {"kv": kv}
+        srv = S.ModelServer(net, generation=gen)
+        co = S.DisaggCoordinator(net, server_kwargs={"generation": gen})
+        try:
+            srv.generate(mixes["decode_heavy"][0][:16], 4)  # warm-up
+            co.generate(mixes["decode_heavy"][0][:16], 4)
+            torch.cuda.synchronize()
+            pa.reset_counts()
+            mbs = {}
+            for m, (t0, n) in DISAGG_MIXES.items():
+                if kv and m != "decode_heavy":
+                    continue
+                mbs[m] = disagg_mix(np, co, srv, mixes[m], n, 28,
+                                    f"{m} {kv or 'bf16'}", card)
+            got = dict(pa.paged_attention.launches_by)
+            pre, dec = roles_check(co, f"path 8a {kv or 'bf16'}")
+            st = co.stats()
+        finally:
+            co.shutdown()
+            srv.shutdown()
+        log(f"  {kv or 'bf16'} KV: paged launches {got}; prefill server "
+            f"{pre['prefills']} prefills, {pre['prefill_chunks']} chunks, "
+            f"{pre['migrations_out']} exports; decode server "
+            f"{dec['decode_steps']} decode steps, {dec['migrations_in']} "
+            f"imports; coordinator handoffs {st['handoffs']}, fallbacks "
+            f"{st['fallbacks']}, kv_transfer_mbytes "
+            f"{st['kv_transfer_mbytes']:.3f}, "
+            f"{st['kv_transfer_mbytes_per_sec']:.1f} MB/s")
+        kind = "int8" if kv else "dense"
+        want = [(1, kind)] + ([] if kv else [(256, kind)])
+        if any(got.get(k, 0) == 0 for k in want) \
+                or any(k != kind for _, k in got):
+            raise AssertionError(f"path 8a: paged kernel launches {got}")
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+    del net
+    torch.cuda.empty_cache()
+    return launches
+
+
+def resume_timed(dst, payload):
+    """Resume `payload` on `dst`: (tail tokens, ms from the call to the
+    first tail token)."""
+    first = []
+
+    def sink(cursor, tok, entry):
+        if not first:
+            first.append(time.perf_counter())
+
+    t0 = time.perf_counter()
+    tail = dst.resume_generate(payload, timeout=900, on_token=sink)
+    return tail, 1e3 * (first[0] - t0)
+
+
+def migrate_once(np, src, prompt, exc, **kw):
+    """Submit on `src`, migrate once MIGRATE_AT tokens are out: (the
+    redirect, its payload, export ms)."""
+    req = src.submit(prompt, MIGRATE_TOKENS, timeout=900, **kw)
+    until(lambda: len(req.tokens) >= MIGRATE_AT, "tokens before migration")
+    t0 = time.perf_counter()
+    src.migrate_slots(wait=120)
+    try:
+        req.result(timeout=120)
+    except exc as e:
+        ms = 1e3 * (time.perf_counter() - t0)
+        return e, src.fetch_handoff(e.handoff_id), ms
+    raise AssertionError("the request finished before its migration")
+
+
+def cold_of(payload):
+    """The degradation ladder's cold variant of a warm payload: no
+    pages; the receiver re-prefills the prompt and the emitted tokens."""
+    out = {k: v for k, v in payload.items()
+           if k not in ("blocks", "sums", "dtypes")}
+    out.update(kind="cold", blocks=[], sums=[], pages_shipped=0,
+               pages_omitted=0)
+    return out
+
+
+def flip_last_page(np, payload):
+    """A copy of `payload` with one byte of its last page of V flipped
+    in its last block."""
+    blocks = [dict(b) for b in payload["blocks"]]
+    v = np.array(blocks[-1]["v"], copy=True)
+    v[-1].reshape(-1).view(np.uint8)[5] ^= 0x40
+    blocks[-1]["v"] = v
+    return dict(payload, blocks=blocks)
+
+
+def first_divergence(ref_tokens, ref_lp, got):
+    for i, (a, b) in enumerate(zip(ref_tokens, got)):
+        if a != b:
+            tl = ref_lp[i]["top_logprobs"]
+            return i, tl[0] - tl[1]
+    return None
+
+
+def phase_migration(torch, M, pa, card):
+    """Path 8b: a 4096-token prompt migrated mid-decode between two of
+    path 1's engines: warm in bf16 and int8 (bit-identical to the
+    uninterrupted run), one sampled request (temperature 1.0) warm (its
+    uninterrupted run's tokens), and cold (re-prefill): held to the
+    uninterrupted run in f32 pools, its first divergence and the top-2
+    margin there printed in bf16. Resume ms warm against cold; page
+    ledgers. Returns the paged launches of the bf16 and int8 legs."""
+    import numpy as np
+
+    S = M["serving"]
+    Eng = M["DecodeEngine"]
+    V = SERVE["vocab_size"]
+    prompt = np.random.default_rng(81).integers(0, V, MIGRATE_PROMPT)
+    gen = dict(SERVER_GEN, logprobs=2)
+    # f32 pools: the cold resume recomputes the KV and must reproduce
+    net32 = path1_net(torch, M, None)
+    src, dst = Eng(net32, **gen), Eng(net32, **gen)
+    try:
+        ref = src.generate(prompt, MIGRATE_TOKENS, logprobs=2)
+        red, payload, _ = migrate_once(np, src, prompt, S.SlotMigratedError)
+        warm, warm_ms = resume_timed(dst, payload)
+        cold, cold_ms = resume_timed(dst, cold_of(payload))
+        src.commit_handoff(red.handoff_id)
+        for what, tail in (("warm", warm), ("cold", cold)):
+            got = np.concatenate([red.tokens, tail])
+            if not np.array_equal(got, ref["tokens"]):
+                raise AssertionError(
+                    f"path 8b f32 {what} resume: first divergence "
+                    f"{first_divergence(ref['tokens'], ref['logprobs'], got)}")
+        for e in (src, dst):
+            ledger_whole(e, "path 8b f32")
+        log(f"  f32 pools: warm resume {warm_ms:.1f} ms, cold (re-prefill "
+            f"of {MIGRATE_PROMPT} + {len(red.tokens)}) {cold_ms:.1f} ms; "
+            f"both equal the uninterrupted run [{card}]")
+    finally:
+        src.shutdown()
+        dst.shutdown()
+    del net32
+    torch.cuda.empty_cache()
+    net = path1_net(torch, M, torch.bfloat16)
+    pa.reset_counts()
+    for kv in (None, "int8"):
+        g = dict(gen, quantize={"kv": kv}) if kv else gen
+        src, dst = Eng(net, **g), Eng(net, **g)
+        try:
+            ref = src.generate(prompt, MIGRATE_TOKENS, logprobs=2)
+            red, payload, export_ms = migrate_once(np, src, prompt,
+                                                   S.SlotMigratedError)
+            nbytes = M["kv_transfer"].payload_nbytes(payload)
+            t0 = time.perf_counter()
+            M["kv_transfer"].verify_payload(payload)
+            verify_ms = 1e3 * (time.perf_counter() - t0)
+            if kv is None:
+                # one flipped byte in the last shipped page is refused,
+                # typed, before anything binds
+                try:
+                    dst.resume_generate(flip_last_page(np, payload),
+                                        timeout=900)
+                except S.KVTransferError as e:
+                    if "checksum" not in str(e):
+                        raise AssertionError(f"path 8b: {e}")
+                except S.ServingError as e:
+                    raise AssertionError(f"path 8b: a corrupted last page "
+                                         f"was accepted ({e})")
+                else:
+                    raise AssertionError("path 8b: a corrupted last page "
+                                         "was accepted")
+            warm, warm_ms = resume_timed(dst, payload)
+            got = np.concatenate([red.tokens, warm])
+            if not np.array_equal(got, ref["tokens"]):
+                raise AssertionError(
+                    f"path 8b {kv or 'bf16'} warm resume differs from the "
+                    f"uninterrupted run: "
+                    f"{first_divergence(ref['tokens'], ref['logprobs'], got)}")
+            line = (f"  {kv or 'bf16'}: {payload['pages_shipped']} pages, "
+                    f"{nbytes / 2**20:.1f} MiB; export (migrate_slots to "
+                    f"redirect) {export_ms:.1f} ms, verify_payload "
+                    f"{verify_ms:.1f} ms, warm resume {warm_ms:.1f} ms: "
+                    "bit-identical")
+            if kv is None:
+                cold, cold_ms = resume_timed(dst, cold_of(payload))
+                div = first_divergence(ref["tokens"], ref["logprobs"],
+                                       np.concatenate([red.tokens, cold]))
+                line += (f"; cold resume {cold_ms:.1f} ms: "
+                         + ("equal" if div is None else
+                            f"first divergence at token {div[0]}, top-2 "
+                            f"log-probability margin there {div[1]:.4f}"))
+            src.commit_handoff(red.handoff_id)
+            if kv is None:
+                # a sampled request keeps its generator through the move
+                want = src.generate(prompt, MIGRATE_TOKENS, temperature=1.0,
+                                    seed=3)
+                red, payload, _ = migrate_once(np, src, prompt,
+                                               S.SlotMigratedError,
+                                               temperature=1.0, seed=3)
+                tail, _ = resume_timed(dst, payload)
+                src.commit_handoff(red.handoff_id)
+                if not np.array_equal(np.concatenate([red.tokens, tail]),
+                                      want):
+                    raise AssertionError("path 8b: a sampled request "
+                                         "migrated warm left its stream")
+                line += "; sampled (temperature 1.0) warm: equal"
+            for e in (src, dst):
+                st = e.stats()
+                if st["pages_in_use"] or st["handoff_leases"]:
+                    raise AssertionError(f"path 8b: {st['pages_in_use']} "
+                                         f"pages, {st['handoff_leases']} "
+                                         "leases left")
+                ledger_whole(e, "path 8b")
+            log(line + f"; ledgers whole, pages in use 0 [{card}]")
+        finally:
+            src.shutdown()
+            dst.shutdown()
+    launches = dict(pa.paged_attention.launches_by)
+    log(f"  paged launches (bf16 and int8 legs): {launches}")
+    for k in ((1, "dense"), (256, "dense"), (1, "int8"), (256, "int8")):
+        if not launches.get(k):
+            raise AssertionError(f"path 8b: no paged launch at {k}: "
+                                 f"{launches}")
+    torch.cuda.empty_cache()
+    return net, launches
+
+
+def phase_prefix_cluster(torch, M, pa, card, net):
+    """Path 8c: path 3's shared-prefix traffic (a 1024-token system
+    prompt, 64-token tails; bench.py:1335-1340) through
+    `DisaggCoordinator(prefill_replicas=2, prefix_cluster=True)` against
+    `prefix_cluster=False`, sequentially: identical tokens, 0 fallbacks;
+    the delta pages skipped and the MB shipped, full against delta."""
+    import numpy as np
+
+    S = M["serving"]
+    V = SERVE["vocab_size"]
+    rng = np.random.default_rng(83)
+    shared = rng.integers(0, V, SHARED_PREFIX)
+    prompts = [np.concatenate([shared, rng.integers(0, V, SHARED_TAIL)])
+               for _ in range(SHARED_REQUESTS)]
+    n_tok = [int(x) for x in rng.choice((32, 64), SHARED_REQUESTS)]
+    gen = dict(SERVER_GEN, prefix_cache=True)
+    outs, stats = {}, {}
+    pa.reset_counts()
+    for cluster in (False, True):
+        co = S.DisaggCoordinator(net, prefill_replicas=2,
+                                 server_kwargs={"generation": gen},
+                                 prefix_cluster=cluster, frame_pages=8)
+        try:
+            t0 = time.perf_counter()
+            outs[cluster] = [co.generate(p, n, timeout=900)
+                             for p, n in zip(prompts, n_tok)]
+            wall = time.perf_counter() - t0
+            st = co.stats()
+            fetches = sum(s.get("generation", {}).get("prefix_fetches", 0)
+                          for s in st["prefill"] + st["decode"])
+            for srv in co._servers:
+                if srv._engine is not None:
+                    ledger_whole(srv._engine, "path 8c")
+        finally:
+            co.shutdown()
+        stats[cluster] = st
+        log(f"  prefix_cluster={cluster}: {SHARED_REQUESTS} requests in "
+            f"{wall:.3f} s; handoffs {st['handoffs']}, fallbacks "
+            f"{st['fallbacks']}, kv_transfer_mbytes "
+            f"{st['kv_transfer_mbytes']:.3f}, delta_pages_skipped "
+            f"{st['delta_pages_skipped']}, affinity_routes "
+            f"{st['affinity_routes']}, prefix fetches {fetches} [{card}]")
+        if st["handoffs"] != SHARED_REQUESTS or st["fallbacks"]:
+            raise AssertionError(f"path 8c: {st['handoffs']} handoffs, "
+                                 f"{st['fallbacks']} fallbacks")
+    for i, (a, b) in enumerate(zip(outs[False], outs[True])):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"path 8c: request {i} differs with the "
+                                 "cluster prefix cache")
+    full, delta = (stats[c]["kv_transfer_mbytes"] for c in (False, True))
+    log(f"  MB shipped full {full:.3f} against delta {delta:.3f} "
+        f"({delta / full:.3f} of full); tokens identical")
+    if not stats[True]["delta_pages_skipped"]:
+        raise AssertionError("path 8c: no delta handoff skipped a page")
+    return dict(pa.paged_attention.launches_by)
+
+
+def phase_qos(torch, M, pa, card, net):
+    """Phase 28: bench_serve_qos part A on path 1's engine: the flood
+    tenant's requests meet only its own `TenantQuotaExceededError`, no
+    interactive request fails; interactive p99 flooded against
+    unloaded, the batch lane's share of tokens, preemptions. Then one
+    preempted greedy batch request against its unpreempted run: equal in
+    f32 pools (asserted), and in bf16 (printed)."""
+    import threading
+
+    import numpy as np
+
+    S = M["serving"]
+    V = SERVE["vocab_size"]
+    rng = np.random.default_rng(28)
+    prompts = [rng.integers(0, V, QOS_PROMPT) for _ in range(QOS_INTERACTIVE)]
+    eng = M["DecodeEngine"](
+        net, **dict(SERVER_GEN, max_queue=256, max_queued_pages=10 ** 9),
+        qos={"tenants": {"flood": {"rate": QOS_FLOOD["rate"],
+                                   "burst": QOS_FLOOD["burst"]}},
+             "preempt": True, "slo_shed": True})
+
+    def interactive(seed):
+        out, wall, lats = poisson_run(
+            np, lambda p, n: eng.generate(p, n, timeout=120, tenant="user",
+                                          priority="interactive"),
+            prompts, QOS_TOKENS, seed, QOS_INTERARRIVAL)
+        if any(len(o) != QOS_TOKENS for o in out):
+            raise AssertionError("phase 28: an interactive request came "
+                                 "back short")
+        return lats
+
+    flood = {"served": 0, "quota": 0, "other": []}
+    stop = threading.Event()
+
+    def flooder():
+        while not stop.is_set():
+            try:
+                eng.generate(prompts[0], QOS_FLOOD["tokens"], timeout=5.0,
+                             tenant="flood", priority="batch")
+                flood["served"] += 1
+            except S.TenantQuotaExceededError as e:
+                flood["quota"] += 1
+                time.sleep(min(e.retry_after or 0.01, 0.05))
+            except Exception as e:  # counted: the check below fails on it
+                flood["other"].append(repr(e))
+
+    try:
+        interactive(1)  # warm-up
+        pa.reset_counts()
+        base = interactive(2)
+        pre = eng.stats()
+        threads = [threading.Thread(target=flooder)
+                   for _ in range(QOS_FLOOD["threads"])]
+        for t in threads:
+            t.start()
+        try:
+            flooded = interactive(2)
+            # the quota must have bitten: the flood runs on until it has
+            until(lambda: flood["quota"] > 0, "a quota rejection", 60.0)
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(60.0)
+        post = eng.stats()
+        launches = dict(pa.paged_attention.launches_by)
+        ledger_whole(eng, "phase 28")
+    finally:
+        eng.shutdown()
+    p99 = [float(np.percentile(x, 99)) * 1e3 for x in (base, flooded)]
+    flood_toks = post["tenants"]["flood"]["tokens_generated"] \
+        - pre["tenants"].get("flood", {}).get("tokens_generated", 0)
+    total = post["tokens_generated"] - pre["tokens_generated"]
+    log(f"  interactive p99 {p99[0]:.1f} ms unloaded, {p99[1]:.1f} ms "
+        f"flooded (ratio {p99[1] / p99[0]:.3f}); p50 "
+        f"{float(np.percentile(base, 50)) * 1e3:.1f} / "
+        f"{float(np.percentile(flooded, 50)) * 1e3:.1f} ms; batch lane "
+        f"{100.0 * flood_toks / max(1, total):.1f}% of {total} tokens; "
+        f"flooder: {flood['served']} served, {flood['quota']} quota "
+        f"rejections, {len(flood['other'])} other errors; preemptions "
+        f"{post['preemptions'] - pre['preemptions']}, slo sheds "
+        f"{post['slo_sheds']} [{card}]")
+    if flood["other"] or not flood["quota"]:
+        raise AssertionError(f"phase 28: the flooder met {flood['other'][:3]}"
+                             f" ({flood['quota']} quota rejections)")
+    # a migrated request is not billed again by its receiver: the
+    # receiver's bucket could not pay for it
+    billed = {"rate": 0.001, "burst": float(QOS_TOKENS)}
+    src = M["DecodeEngine"](net, **SERVER_GEN,
+                            qos={"tenants": {"billed": billed}})
+    dst = M["DecodeEngine"](net, **SERVER_GEN,
+                            qos={"tenants": {"billed": dict(billed,
+                                                            burst=8.0)}})
+    try:
+        req = src.submit(prompts[5], QOS_TOKENS, tenant="billed")
+        until(lambda: len(req.tokens) >= 4, "billed tokens")
+        src.migrate_slots(wait=120)
+        try:
+            req.result(timeout=120)
+            raise AssertionError("phase 28: the billed request finished "
+                                 "before its migration")
+        except S.SlotMigratedError as e:
+            red = e
+        try:
+            tail = dst.resume_generate(src.fetch_handoff(red.handoff_id))
+        except S.TenantQuotaExceededError as e:
+            raise AssertionError(f"phase 28: the receiver billed a migrated "
+                                 f"request ({e})")
+        src.commit_handoff(red.handoff_id)
+        if len(red.tokens) + len(tail) != QOS_TOKENS \
+                or dst.stats()["tenants"]["billed"]["shed_quota"]:
+            raise AssertionError("phase 28: the receiver billed a migrated "
+                                 "request")
+        for e in (src, dst):
+            ledger_whole(e, "phase 28 migration")
+    finally:
+        src.shutdown()
+        dst.shutdown()
+    log(f"  a tenant's request migrated to an engine whose bucket holds "
+        f"8 of its {QOS_TOKENS} tokens: resumed, not billed again")
+    # one preempted batch request against its unpreempted run: greedy,
+    # and sampled (its generator kept through the preemption; a random
+    # network's greedy tokens may repeat one id, the sampled ones do not)
+    for cdt in (None, torch.bfloat16):
+        pnet = net if cdt is not None else path1_net(torch, M, None)
+        e = M["DecodeEngine"](pnet, **dict(SERVER_GEN, n_slots=1),
+                              qos={"preempt": True})
+        try:
+            for temp in (0.0, 1.0):
+                p_batch, p_int = prompts[3], prompts[4]
+                ref = e.generate(p_batch, QOS_PREEMPT_TOKENS,
+                                 temperature=temp, seed=9)
+                n0 = e.stats()["preemptions"]
+                victim = e.submit(p_batch, QOS_PREEMPT_TOKENS,
+                                  temperature=temp, seed=9, tenant="bulk",
+                                  priority="batch")
+                until(lambda: len(victim.tokens) >= 8, "batch tokens")
+                e.generate(p_int, 8, tenant="live", priority="interactive")
+                got = victim.result(timeout=120)
+                n_pre = e.stats()["preemptions"] - n0
+                same = np.array_equal(got, ref)
+                log(f"  preempted {'greedy' if temp == 0 else 'sampled'} "
+                    f"batch request ({'f32' if cdt is None else 'bf16'} "
+                    f"pools, {n_pre} preemption, {len(set(ref.tolist()))} "
+                    "distinct tokens): "
+                    + ("equal to its unpreempted run" if same else
+                       f"first divergence at token "
+                       f"{int(np.flatnonzero(got != ref)[0])}"))
+                if n_pre != 1 or (cdt is None and not same):
+                    raise AssertionError(f"phase 28: {n_pre} preemptions, "
+                                         f"equal {same}")
+            ledger_whole(e, "phase 28 preemption")
+        finally:
+            e.shutdown()
+        if cdt is None:
+            del pnet
+            torch.cuda.empty_cache()
+    if not launches.get((1, "dense")):
+        raise AssertionError(f"phase 28: paged launches {launches}")
+    return launches
+
+
+def trace_kernel_names(path):
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return {e.get("name", "") for e in events
+            if str(e.get("cat", "")).lower() == "kernel"}
+
+
+def phase_extras(torch, M, card):
+    """Phase 29: `EarlyStoppingTrainer` drives path 4's char-RNN (bf16
+    over f32 masters, B=2048 x T=64, f32 one-hot rows) for
+    MaxEpochsTerminationCondition(3), 4 batches an epoch, a
+    DataSetLossCalculator on 2 held-out batches and a LocalFileModelSaver:
+    the best model restored from its zip scores what the result recorded;
+    a ProfilerListener(sync=True) gives p50/p90 step ms, an
+    XlaTraceListener over 2 iterations a Chrome trace holding the LSTM
+    kernels. Then `assert_deterministic` bit-exact on path 2's GPT (B=2 x
+    T=4096, 3 steps: the flash kernels) and on the char-RNN (3 steps: the
+    LSTM kernels); resnet_tiny's verdict under cuDNN's defaults printed.
+    Returns the LSTM and flash launch counts."""
+    import tempfile
+
+    import numpy as np
+
+    ES, prof, det = M["earlystopping"], M["profiler"], M["determinism"]
+    L, fa = M["lstm"], M["fa"]
+    DataSet, It = M["DataSet"], M["ListDataSetIterator"]
+    V, H, B, T = (LSTM_LARGE[k] for k in ("vocab", "hidden", "B", "T"))
+    ids = np.random.default_rng(29).integers(0, V, (ES_BATCHES + ES_HELD, B,
+                                                    T + 1))
+    eye = np.eye(V, dtype=np.float32)
+    batches = [DataSet(eye[i[:, :-1]], i[:, 1:].astype(np.int32))
+               for i in ids]
+    train, held = batches[:ES_BATCHES], batches[ES_BATCHES:]
+
+    def char_rnn():
+        net = M["MultiLayerNetwork"](char_rnn_conf(M, V, H, seed=1),
+                                     dtype=torch.float32,
+                                     compute_dtype=torch.bfloat16,
+                                     device="cuda")
+        net.init()
+        return net
+
+    net = char_rnn()
+    net.fit(train[0])  # warm-up: handles, allocator
+    torch.cuda.synchronize()
+    timer = prof.ProfilerListener(sync=True)
+    with tempfile.TemporaryDirectory() as d:
+        tracer = prof.XlaTraceListener(os.path.join(d, "trace"),
+                                       start_iteration=net.iteration + 5,
+                                       num_iterations=2)
+        net.set_listeners(timer, tracer)
+        cfg = (ES.EarlyStoppingConfiguration.Builder()
+               .epoch_termination_conditions(
+                   ES.MaxEpochsTerminationCondition(ES_EPOCHS))
+               .score_calculator(ES.DataSetLossCalculator(It(held)))
+               .model_saver(ES.LocalFileModelSaver(os.path.join(d, "es")))
+               .build())
+        L.reset_counts()
+        t0 = time.perf_counter()
+        res = ES.EarlyStoppingTrainer(cfg, net, It(train)).fit()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        es_counts = (dict(L.launches), dict(L.launches_by_route))
+        tracer.stop()
+        names = trace_kernel_names(tracer.trace_path)
+        best = res.best_model
+        if best is None:
+            raise AssertionError("phase 29: the saver restored no best "
+                                 "model")
+        rescore = ES.DataSetLossCalculator(It(held)).calculate_score(best)
+        restored_device = str(best.device)
+    s = timer.summary()
+    lstm_names = sorted(n for n in names if "lstm" in n.lower())
+    log(f"  early stopping: {res.termination_reason.value} "
+        f"({res.termination_details}), {res.total_epochs} epochs in "
+        f"{wall:.2f} s; held-out scores {res.score_vs_epoch}; best epoch "
+        f"{res.best_model_epoch} ({res.best_model_score!r}), restored from "
+        f"its zip on {restored_device}: {rescore!r}; step ms p50 "
+        f"{s['p50_ms']:.2f}, p90 {s['p90_ms']:.2f} over {s['iterations']} "
+        f"intervals [{card}]")
+    log(f"  LSTM launches {es_counts[0]}, by route {es_counts[1]}; traced "
+        f"2 iterations: {len(names)} kernel names, LSTM kernels "
+        f"{lstm_names[:4]}")
+    if res.termination_reason.value != "epoch_termination_condition" \
+            or res.total_epochs != ES_EPOCHS \
+            or not all(np.isfinite(list(res.score_vs_epoch.values()))):
+        raise AssertionError(f"phase 29: early stopping result {res}")
+    if rescore != res.best_model_score:
+        raise AssertionError(f"phase 29: the restored best model scores "
+                             f"{rescore!r}, the result {res.best_model_score!r}")
+    if net.listeners != [timer, tracer] or not lstm_names:
+        raise AssertionError(f"phase 29: listeners {net.listeners}, LSTM "
+                             f"kernels in the trace {lstm_names}")
+    del net, best
+    torch.cuda.empty_cache()
+    # determinism on the kernels
+    L.reset_counts()
+    fa.reset_counts()
+    t0 = time.perf_counter()
+    det.assert_deterministic(char_rnn, train[:DET_STEPS])
+    rnn_s = time.perf_counter() - t0
+    lstm_counts = dict(L.launches)
+
+    def gpt():
+        net = M["MultiLayerNetwork"](M["gpt_configuration"](**TRAIN, seed=13),
+                                     dtype=torch.float32,
+                                     compute_dtype=torch.bfloat16,
+                                     device="cuda")
+        net.init()
+        return net
+
+    gbatches = [DataSet(x, y) for x, y in gpt_batches(
+        np, TRAIN["vocab_size"], DET_GPT_B, TRAIN_T, DET_STEPS, seed=31)]
+    t0 = time.perf_counter()
+    det.assert_deterministic(gpt, gbatches)
+    gpt_s = time.perf_counter() - t0
+    flash_counts = {"fwd": fa.flash_forward.launches,
+                    "dq": fa.flash_bwd_dq.launches,
+                    "dkv": fa.flash_bwd_dkv.launches}
+    routes = dict(fa.launches_by_route)
+    want = 2 * DET_STEPS * TRAIN["n_layers"]
+    if routes != {(k, "wgmma"): want for k in flash_counts}:
+        raise AssertionError(f"phase 29: flash launches {routes}")
+    log(f"  assert_deterministic bit-exact: char-RNN {DET_STEPS} steps x 2 "
+        f"runs ({rnn_s:.1f} s, LSTM launches {lstm_counts}); path 2's GPT "
+        f"B={DET_GPT_B} x T={TRAIN_T} {DET_STEPS} steps x 2 runs "
+        f"({gpt_s:.1f} s, flash launches {routes})")
+    # resnet_tiny under cuDNN's default algorithms: printed, not asserted
+    cif = [DataSet(x.astype(np.float32) / 255.0, y)
+           for x, y in cifar_batches(np, 64, DET_STEPS, seed=37, hw=8)]
+    try:
+        det.assert_deterministic(
+            lambda: M["ComputationGraph"](M["resnet_tiny_configuration"](),
+                                          device="cuda"), cif)
+        verdict = "bit-exact"
+    except AssertionError as e:
+        verdict = f"not bit-exact ({e})"
+    log(f"  resnet_tiny (f32, cudnn.benchmark "
+        f"{torch.backends.cudnn.benchmark}, cudnn.deterministic "
+        f"{torch.backends.cudnn.deterministic}), {DET_STEPS} steps x 2 "
+        f"runs: {verdict}")
+    torch.cuda.empty_cache()
+    return {"es": es_counts[0], "det": lstm_counts}, flash_counts
+
+
+def cluster_launches(rows, paged, extras) -> None:
+    """Phases 27-29's launches into the timing rows: the paged kernel's
+    at C=1 and C=256, dense and int8, into rows 1 and 1q; phase 29's
+    LSTM launches (bf16, T=64, B=2048, H=1024) into rows 5-6, its flash
+    launches (bf16, D=128, T=4096) into rows 2-4."""
+    lstm, flash = extras
+    adds = {"paged_attention_decode": paged.get((1, "dense"), 0),
+            "paged_attention_prefill_chunk": paged.get((256, "dense"), 0),
+            "paged_attention_int8_decode": paged.get((1, "int8"), 0),
+            "paged_attention_int8_prefill_chunk": paged.get((256, "int8"), 0),
+            "lstm_fwd_t64_b2048_h1024": sum(
+                c.get(("fwd", False, False), 0) for c in lstm.values()),
+            "lstm_bwd_t64_b2048_h1024": sum(
+                c.get(("bwd", False, False), 0) for c in lstm.values()),
+            "flash_attention_fwd": flash["fwd"],
+            "flash_attention_bwd_dq": flash["dq"],
+            "flash_attention_bwd_dkv": flash["dkv"]}
+    for row in rows:
+        row["launches"] += int(adds.get(row["name"], 0))
+
+
+def phases_27_29(torch, M, pa, card):
+    """Phases 27-29 in order; returns (paged launches, phase 29's)."""
+    paged: dict = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            paged[k] = paged.get(k, 0) + n
+
+    log("[27/29] path 8: path 1's GPT disaggregated (8a: the two mixes, "
+        "bf16 and int8 KV, against a colocated server), live migration "
+        "(8b: warm, cold, sampled, int8), the cluster prefix cache (8c)")
+    add(phase_disagg(torch, M, pa, card))
+    net, counts = phase_migration(torch, M, pa, card)
+    add(counts)
+    add(phase_prefix_cluster(torch, M, pa, card, net))
+    log("[28/29] QoS on path 1's engine: a flood tenant under quota beside "
+        "Poisson interactive traffic, preemption of the batch lane")
+    add(phase_qos(torch, M, pa, card, net))
+    del net
+    torch.cuda.empty_cache()
+    log("[29/29] early stopping, the profiler and assert_deterministic on "
+        "the LSTM and flash kernels")
+    extras = phase_extras(torch, M, card)
+    return paged, extras
+
+
+def phases_27_29_alone(torch, M, pa, cuda_build) -> int:
+    """`--phases-27-29`: phases 27-29 alone (every source built first),
+    then one JSON line of their launch counts."""
+    card = nvidia_smi_line()
+    t0 = time.perf_counter()
+    cuda_build.build(KERNEL_SOURCES)
+    log(f"phases 27-29 alone [{card}]; build {time.perf_counter() - t0:.1f} "
+        "s")
+    paged, (lstm, flash) = phases_27_29(torch, M, pa, card)
+    log(f"phases 27-29 {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"card": card,
+                      "paged": {",".join(map(str, k)): n
+                                for k, n in paged.items()},
+                      "lstm": {w: {",".join(map(str, k)): n
+                                   for k, n in c.items()}
+                               for w, c in lstm.items()},
+                      "flash": flash}), flush=True)
+    return 0
+
+
 def lstm_mma_note(key, kind) -> str:
     """The replaced mma.sync kernel's time at a cooperative row's shape,
     where PERF.md has it."""
@@ -5265,8 +6125,13 @@ def port_modules() -> dict:
         restore_model,
         write_model,
     )
+    from deeplearning4j_tpu_torch import earlystopping, profiler
+    from deeplearning4j_tpu_torch.serving import kv_transfer
+    from deeplearning4j_tpu_torch.util import determinism
 
-    return dict(generate=generate, gpt_configuration=gpt_configuration,
+    return dict(earlystopping=earlystopping, profiler=profiler,
+                determinism=determinism, kv_transfer=kv_transfer,
+                generate=generate, gpt_configuration=gpt_configuration,
                 MultiLayerNetwork=MultiLayerNetwork, DecodeEngine=DecodeEngine,
                 DataSet=DataSet, fa=fa, lstm=L, conf=nn_conf,
                 OneHotEncoder=OneHotEncoder, Activation=Activation,
@@ -5327,7 +6192,8 @@ def main(argv) -> int:
     17 alone on the package at DIR (default: the checkout's), for an A/B
     of the LSTM kernels against an earlier commit's package. `--path5`:
     phase 21 alone. `--phases-22-23`: phases 22 and 23 alone.
-    `--phases-24-26`: phases 24 to 26 alone."""
+    `--phases-24-26`: phases 24 to 26 alone. `--phases-27-29`: phases 27
+    to 29 alone."""
     import torch
 
     if not torch.cuda.is_available():
@@ -5358,106 +6224,109 @@ def main(argv) -> int:
         return phases_22_23_alone(torch, M, pa, fa, cuda_build)
     if "--phases-24-26" in argv:
         return phases_24_26_alone(torch, M, cuda_build)
+    if "--phases-27-29" in argv:
+        return phases_27_29_alone(torch, M, pa, cuda_build)
 
     card = nvidia_smi_line()
-    log(f"[1/26] card: {card}; {torch.cuda.get_device_name(0)}; torch "
+    log(f"[1/29] card: {card}; {torch.cuda.get_device_name(0)}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}; "
         f"{torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     built = cuda_build.build(KERNEL_SOURCES)
-    log(f"[2/26] build: {time.perf_counter() - t0:.1f} s for "
+    log(f"[2/29] build: {time.perf_counter() - t0:.1f} s for "
         f"{len(built)} source(s)")
     for name, res in built.items():
         for line in ptxas_summary(res.log):
             log(f"  {name}: {line}")
 
-    log("[3/26] paged kernels against their plain versions (TF32 off)")
+    log("[3/29] paged kernels against their plain versions (TF32 off)")
     phase_kernels(torch, pa)
-    log("[4/26] flash kernels against their plain versions (TF32 off)")
+    log("[4/29] flash kernels against their plain versions (TF32 off)")
     phase_flash(torch, fa)
-    log("[5/26] f32 DecodeEngine vs generate, 2 layers, d_model 1024")
+    log("[5/29] f32 DecodeEngine vs generate, 2 layers, d_model 1024")
     phase_parity(torch, M)
-    log("[6/26] f32 training, card (kernels) vs CPU (plain), 1 layer, "
+    log("[6/29] f32 training, card (kernels) vs CPU (plain), 1 layer, "
         "d_model 1024, T=1024")
     phase_train_parity(torch, M)
-    log("[7/26] serving the 8-layer bf16 GPT at full width")
+    log("[7/29] serving the 8-layer bf16 GPT at full width")
     launches, path1_tok_s = phase_serve(torch, M, pa, card)
-    log("[8/26] serving it with int8 KV, the prefix cache and "
+    log("[8/29] serving it with int8 KV, the prefix cache and "
         "self-speculation on shared-prefix traffic")
     launches.update(phase_serve_tier(torch, M, pa, card))
-    log("[9/26] training the 8-layer bf16 gpt_long GPT at full width")
+    log("[9/29] training the 8-layer bf16 gpt_long GPT at full width")
     flash_counts = phase_train(torch, M, card, torch.bfloat16, TRAIN_B,
                                TRAIN_STEPS, 13, "wgmma")
-    log("[9/26] path 2w: the same GPT with 4 heads of 256 (the bf16 "
+    log("[9/29] path 2w: the same GPT with 4 heads of 256 (the bf16 "
         "\"wgmma wide\" flash kernels)")
     flash_counts_wide = phase_train(torch, M, card, torch.bfloat16,
                                     TRAIN_WIDE_B, TRAIN_WIDE_STEPS, 15,
                                     "wgmma wide", n_heads=TRAIN_WIDE_HEADS)
-    log("[9/26] path 2x: the same GPT with 2 heads of 512 (the bf16 "
+    log("[9/29] path 2x: the same GPT with 2 heads of 512 (the bf16 "
         "\"wgmma wide\" forward, the \"wgmma cluster\" backward)")
     flash_counts_2x = phase_train(torch, M, card, torch.bfloat16,
                                   TRAIN_2X_B, TRAIN_2X_STEPS, 16,
                                   TRAIN_2X_ROUTES, n_heads=TRAIN_2X_HEADS)
-    log("[10/26] path 2f: training the 8-layer gpt_long GPT in f32 "
+    log("[10/29] path 2f: training the 8-layer gpt_long GPT in f32 "
         "(split-TF32 flash kernels)")
     flash_counts_f32 = phase_train(torch, M, card, None, TRAIN_F32_B,
                                    TRAIN_F32_STEPS, 14, "tf32")
-    log("[11/26] LSTM kernels against their plain versions (TF32 off)")
+    log("[11/29] LSTM kernels against their plain versions (TF32 off)")
     phase_lstm_kernels(torch, L, M)
-    log("[12/26] f32 char-RNN training, card (kernels) vs CPU (plain), "
+    log("[12/29] f32 char-RNN training, card (kernels) vs CPU (plain), "
         "H=256")
     phase_lstm_train_parity(torch, M)
-    log("[13/26] training the bf16 lstm_large char-RNN at full width")
+    log("[13/29] training the bf16 lstm_large char-RNN at full width")
     lstm_counts, step4_ms = phase_lstm_train(torch, M, card, torch.bfloat16)
-    log("[14/26] training the bf16 lstm char-RNN with tBPTT 24 at full width")
+    log("[14/29] training the bf16 lstm char-RNN with tBPTT 24 at full width")
     tbptt_counts = phase_lstm_tbptt(torch, M, card)
-    log("[15/26] path 4f: training the lstm_large char-RNN in f32 "
+    log("[15/29] path 4f: training the lstm_large char-RNN in f32 "
         "(split-TF32 LSTM kernels)")
     f32_counts, _ = phase_lstm_train(torch, M, card, None, LSTM_F32_STEPS,
                                      "tf32 clusters", seed=2)
-    log("[16/26] timing at the serving and training shapes (bf16 and f32)")
+    log("[16/29] timing at the serving and training shapes (bf16 and f32)")
     rows = phase_timing(torch, pa, launches)
     rows += phase_flash_timing(torch, fa, flash_counts, flash_counts_f32,
                                flash_counts_wide, flash_counts_2x)
-    log("[17/26] timing the LSTM kernels at the char-RNN shapes (bf16 and "
+    log("[17/29] timing the LSTM kernels at the char-RNN shapes (bf16 and "
         "f32)")
     rows += phase_lstm_timing(torch, L, lstm_counts, tbptt_counts,
                               f32_counts)
-    log(f"[18/26] a GravesLSTM wider than the fused kernels (H={LSTM_WIDE}): "
+    log(f"[18/29] a GravesLSTM wider than the fused kernels (H={LSTM_WIDE}): "
         "the step loop, card vs CPU")
     phase_lstm_wide(torch, M)
-    log("[19/26] path 4s: the bf16 lstm_large char-RNN on "
+    log("[19/29] path 4s: the bf16 lstm_large char-RNN on "
         "GravesLSTMCharModellingExample's mini-batches (B=32 x T=1000, "
         "tBPTT 50)")
     lstm_4s_launches(rows, phase_lstm_4s(torch, M, card))
-    log("[20/26] path 4e: the bf16 lstm_large char-RNN through the training "
+    log("[20/29] path 4e: the bf16 lstm_large char-RNN through the training "
         "loop (async iterator, health sentinel, listeners, checkpoints, "
         "evaluate, restore, LBFGS)")
     lstm_4e_launches(rows, phase_lstm_4e(torch, M, card, step4_ms))
-    log("[21/26] path 5: the 8-layer bf16 GPT behind ModelServer (predict, "
+    log("[21/29] path 5: the 8-layer bf16 GPT behind ModelServer (predict, "
         "generate, reload under decode, rejections, the breaker, quantized "
         "weights with the drift gate, shutdown)")
     serve5_launches(rows, phase_server(torch, M, card, path1_tok_s))
-    log("[22/26] the CNN layers against the CPU and numpy (f32), path 6: "
+    log("[22/29] the CNN layers against the CPU and numpy (f32), path 6: "
         "LeNet at bench_lenet's shape, its f32 parity")
     phase_cnn_layers(torch, M)
     phase_lenet(torch, M, card)
-    log("[23/26] SelfAttention on the non-causal flash kernels, MoELayer "
+    log("[23/29] SelfAttention on the non-causal flash kernels, MoELayer "
         "against numpy, path 2m: the MoE gpt_long GPT, MoE serving")
     counts = phase_attention_moe(torch, M, pa, card)
     rows += attention_moe_rows(torch, fa, counts)
     moe_launches(rows, counts)
-    log("[24/26] path 7: ResNet-50 on CIFAR-10 at bench_resnet50's shape "
+    log("[24/29] path 7: ResNet-50 on CIFAR-10 at bench_resnet50's shape "
         "(a ComputationGraph, bf16, B=256)")
     phase_resnet(torch, M, card)
-    log("[25/26] the graph on the LSTM kernels: path 4's char-RNN as a "
+    log("[25/29] the graph on the LSTM kernels: path 4's char-RNN as a "
         "graph against the list container, a masked tBPTT graph, f32 "
         "graph parity with the CPU and numpy")
     graph_launches(rows, phase_graph_lstm(torch, M, card))
-    log("[26/26] pretraining on the card: the MNIST VAE example's VAE, the "
+    log("[26/29] pretraining on the card: the MNIST VAE example's VAE, the "
         "DeepAutoEncoder RBM stack, an AutoEncoder stack")
     phase_pretrain(torch, M, card)
+    cluster_launches(rows, *phases_27_29(torch, M, pa, card))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -41,7 +41,7 @@ def __getattr__(name):
 
         return ComputationGraphConfiguration
     if name in ("earlystopping", "profiler"):
-        raise NotImplementedError(
-            f"{name} is not ported yet (ROADMAP queue A10b: early "
-            "stopping, util.determinism, the profiler)")
+        import importlib
+
+        return importlib.import_module(f"{__name__}.{name}")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -67,10 +67,17 @@ by `metrics_text()` / `metrics_snapshot()` / `flight_record()`.
 Test seam: `infer_hooks=[hook]` calls `hook(phase, info)` at `pre_step`
 and `post_step` around every device step.
 
-Not ported yet (ROADMAP queue A11): tensor-parallel serving
-(`parallel=`), tenants and the batch lane, KV handoff and live migration,
-and the cluster prefix directory; their methods raise
-`NotImplementedError`.
+**The cluster seams** (`serving/kv_transfer.py`,
+`serving/prefix_directory.py`): `generation={..., "role", "qos",
+"handoff_ttl"}` reach the engine; `set_tenant_quota`, `migrate_slots`,
+`fetch_handoff`, `fetch_handoff_header`, `fetch_handoff_frame`,
+`commit_handoff`, `abort_handoff`, `resume_generate`,
+`bind_prefix_directory`, `prefix_depth`, `prefix_chains` and
+`export_prefix` delegate to it, as the JAX server's do; a
+`DisaggCoordinator` drives them across in-process servers.
+
+Not ported yet: tensor-parallel serving (`parallel=`, ROADMAP queue A12)
+raises `NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -392,12 +399,6 @@ class _Request:
         self.event.set()
 
 
-def _a11(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue A11: serving cluster "
-        "tier)")
-
-
 def _bucket(n: int, max_batch: int) -> int:
     """Next power-of-two >= n, capped at max_batch: the batch shapes a
     server runs stay O(log max_batch)."""
@@ -470,7 +471,7 @@ class ModelServer:
         if parallel is not None:
             raise NotImplementedError(
                 "ModelServer(parallel=...) is not ported yet (ROADMAP "
-                "queue A11: tensor-parallel serving, with A12's mesh)")
+                "queue A12: tensor-parallel serving on a mesh)")
         if drift_gate is not None:
             unknown = set(drift_gate) - {"eval_set", "max_argmax_drift",
                                          "max_ppl_delta"}
@@ -540,6 +541,9 @@ class ModelServer:
         self._generation_cfg = {} if generation is True else generation
         self._engine = None  # guarded by: _engine_lock
         self._engine_lock = threading.Lock()
+        # a prefix-directory binding made before the lazy engine exists,
+        # applied when it is built
+        self._prefix_bind = None  # guarded by: _engine_lock
         # counters
         self.served = 0          # guarded by: _cond — requests completed
         self.batches = 0         # guarded by: _cond — device steps dispatched
@@ -810,6 +814,9 @@ class ModelServer:
                         "quantize", {"kv": self._quantize_cfg["kv"]})
                 cfg.setdefault("device", self._net.device)
                 self._engine = DecodeEngine(self._net, **cfg)
+                if self._prefix_bind is not None:
+                    a, kw = self._prefix_bind
+                    self._engine.bind_prefix_directory(*a, **kw)
             return self._engine
 
     def generate(self, prompt_ids, n_tokens: int, *,
@@ -824,8 +831,9 @@ class ModelServer:
         Returns the generated token ids (1-D int32), or with
         `logprobs=K > 0` a dict ``{"tokens", "logprobs"}``;
         `on_token(cursor, token, logprob_entry)` is called per emitted
-        token. `tenant` and `priority="batch"` belong to the QoS lane,
-        which is not ported yet (ROADMAP queue A11)."""
+        token. `tenant` and `priority` feed the engine's QoS admission
+        (per-tenant quotas; "interactive" preempts the "batch" lane under
+        pressure)."""
         engine = self._ensure_engine()
         timeout = self.default_timeout if timeout is None else timeout
         return engine.generate(prompt_ids, n_tokens,
@@ -834,66 +842,93 @@ class ModelServer:
                                priority=priority, logprobs=logprobs,
                                on_token=on_token)
 
-    # -- not ported yet (ROADMAP queue A11) ---------------------------------
-    def set_tenant_quota(self, tenant: str, rate=None, burst=None,
-                         max_pages=None, weight=None) -> None:
-        raise _a11("ModelServer.set_tenant_quota (QoS)")
+    def set_tenant_quota(self, tenant: str, rate: Optional[float] = None,
+                         burst: Optional[float] = None,
+                         max_pages: Optional[int] = None,
+                         weight: Optional[float] = None) -> None:
+        """Set (or clear, with `rate=None` / `max_pages=None`) a tenant's
+        token-rate quota, page ceiling and batch-lane `weight` on the
+        decode engine. Needs generation serving."""
+        self._ensure_engine().set_tenant_quota(
+            tenant, rate=rate, burst=burst, max_pages=max_pages,
+            weight=weight)
 
+    # -- KV handoff and live migration (kv_transfer) -----------------------
     def migrate_slots(self, wait: Optional[float] = 5.0) -> int:
-        """0 when generation was never exercised: an idle engine is not
-        built to migrate nothing."""
+        """Export every in-flight generation as a leased handoff (its
+        waiter raises the `SlotMigratedError` redirect). 0 when
+        generation was never exercised: an idle engine is not built to
+        migrate nothing."""
         with self._engine_lock:
             if self._engine is None:
                 return 0
-        raise _a11("ModelServer.migrate_slots (live migration)")
+        return self._ensure_engine().migrate_slots(wait=wait)
 
     def resume_generate(self, payload: dict,
                         timeout: Optional[float] = None, *,
                         on_token: Optional[Callable] = None):
-        raise _a11("ModelServer.resume_generate (KV handoff)")
+        """Admit a fetched handoff payload and return the tail tokens
+        this server generates (`KVTransferError` when the payload fails
+        validation against this server's weights or geometry)."""
+        timeout = self.default_timeout if timeout is None else timeout
+        return self._ensure_engine().resume_generate(
+            payload, timeout=timeout, on_token=on_token)
 
     def fetch_handoff(self, handoff_id: str) -> dict:
-        raise _a11("ModelServer.fetch_handoff (KV handoff)")
+        return self._ensure_engine().fetch_handoff(handoff_id)
 
     def commit_handoff(self, handoff_id: str) -> bool:
-        raise _a11("ModelServer.commit_handoff (KV handoff)")
+        return self._ensure_engine().commit_handoff(handoff_id)
 
     def abort_handoff(self, handoff_id: str) -> bool:
-        raise _a11("ModelServer.abort_handoff (KV handoff)")
+        return self._ensure_engine().abort_handoff(handoff_id)
 
+    # -- cluster prefix cache (prefix_directory) ---------------------------
     def bind_prefix_directory(self, directory, holder_id: str,
                               peers=None, **kw) -> "ModelServer":
-        raise _a11("ModelServer.bind_prefix_directory (cluster prefix "
-                   "cache)")
+        """Join a cluster prefix directory (chainable): applied to the
+        engine now if it exists, else when the lazy engine is built, so
+        binding never builds an engine a server may never use."""
+        with self._engine_lock:
+            self._prefix_bind = ((directory, holder_id, peers), kw)
+            if self._engine is not None:
+                self._engine.bind_prefix_directory(directory, holder_id,
+                                                   peers, **kw)
+        return self
 
     def prefix_depth(self, prompt_ids, tenant=None) -> int:
         """0 when generation was never exercised: nothing is resident."""
         with self._engine_lock:
             if self._engine is None:
                 return 0
-        raise _a11("ModelServer.prefix_depth (cluster prefix cache)")
+        return self._ensure_engine().prefix_depth(prompt_ids, tenant=tenant)
 
     def prefix_chains(self) -> dict:
-        """{} when generation was never exercised: nothing is resident
-        to publish."""
+        """{} when generation was never exercised: nothing is resident to
+        publish."""
         with self._engine_lock:
             if self._engine is None:
                 return {}
-        raise _a11("ModelServer.prefix_chains (cluster prefix cache)")
+        return self._ensure_engine().prefix_chains()
 
     def export_prefix(self, prompt_ids, have_pages: int = 0,
                       tenant=None, frame_pages=None,
                       timeout=None) -> dict:
-        raise _a11("ModelServer.export_prefix (cluster prefix cache)")
+        return self._ensure_engine().export_prefix(
+            prompt_ids, have_pages=have_pages, tenant=tenant,
+            frame_pages=frame_pages, timeout=timeout)
 
     def fetch_handoff_header(self, handoff_id: str, skip_pages: int = 0,
                              frame_pages=None) -> dict:
-        raise _a11("ModelServer.fetch_handoff_header (KV handoff)")
+        return self._ensure_engine().fetch_handoff_header(
+            handoff_id, skip_pages=skip_pages, frame_pages=frame_pages)
 
     def fetch_handoff_frame(self, handoff_id: str, frame: int,
                             skip_pages: int = 0,
                             frame_pages=None) -> dict:
-        raise _a11("ModelServer.fetch_handoff_frame (KV handoff)")
+        return self._ensure_engine().fetch_handoff_frame(
+            handoff_id, frame, skip_pages=skip_pages,
+            frame_pages=frame_pages)
 
     # -- batch assembly ----------------------------------------------------
     def _pop_expired(self, req: _Request, now: float) -> bool:

@@ -757,9 +757,10 @@ class FlightRecorder:
 # JAX package (tests and external scrapers rely on them), copied as
 # they are. Layers may ADD keys; removing or renaming one is a breaking
 # change. The port's `ModelServer` carries every MODEL_SERVER_STATS_KEYS
-# key (tests/test_torch_model_server.py); its `DecodeEngine` carries the
-# DECODE_ENGINE_STATS_KEYS of the ported tiers, and the tensor-parallel,
-# QoS, KV-transfer and cluster-prefix keys arrive with ROADMAP queue A11.
+# key (tests/test_torch_model_server.py) and its `DecodeEngine` every
+# DECODE_ENGINE_STATS_KEYS key, the QoS, KV-transfer and cluster-prefix
+# keys included (tests/test_torch_qos.py), with `tp_degree` 1: tensor-
+# parallel serving is ROADMAP queue A12.
 
 MODEL_SERVER_STATS_KEYS = frozenset({
     "served", "batches", "batch_fill_pct", "shed_overload",

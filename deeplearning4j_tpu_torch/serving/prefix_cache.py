@@ -1,9 +1,7 @@
 """Refcounted shared-prefix KV cache over the decode engine's paged pool
 (counterpart of `deeplearning4j_tpu/serving/prefix_cache.py`: host
-bookkeeping only, numpy and hashlib, the same keys, refcounts and
-eviction order). `bind_recorder`, `bind_version` and `bind_directory`
-belong to the observability and cluster tiers and raise
-`NotImplementedError` until those are ported (ROADMAP queue A11).
+bookkeeping only, numpy and hashlib, the same keys, refcounts, eviction
+order, weight-version tags and directory publication).
 
 Production chat traffic is dominated by requests sharing a long system
 prompt, yet a paged decode engine without it re-prefills that prefix per
@@ -36,8 +34,13 @@ style prefix caching, Kwon et al., SOSP '23):
   reduces the pool's effective capacity (`OutOfPagesError` semantics
   are unchanged).
 - **invalidation**: `clear()` drops every node; the engine calls it
-  whenever the paged pools rebuild (post-failure recovery) so a stale
-  page id can never be served.
+  whenever the paged pools rebuild (weight swap via `drain_and_swap`,
+  post-failure recovery) so stale pages can never serve new weights.
+  A swap back to the SAME net object the pools were built under — the
+  canary ladder's rollback (`ModelServer.restore_model` hands back the
+  exact old net) — skips the rebuild entirely and PRESERVES the cache:
+  the pages were computed under precisely those weights, so a failed
+  deploy no longer pays a cold prefix cache on top of the rollback.
 - **quantized pools**: with the engine's int8 KV tier
   (`quantize={"kv": "int8"}`, serving/quantize.py) cached pages hold
   int8 payloads plus their f32 scale-pool rows. Sharing is unchanged —
@@ -64,15 +67,17 @@ class _PrefixNode:
     `requests` the number of slots currently bound to it, `children`
     how many cached nodes extend this chain (a node with children can
     not be evicted — its descendants would become unreachable pages).
-    `chain` is the node's instance-independent identity — the cumulative
-    content digest of everything up to and including this page (see
-    `chain_keys`)."""
+    `chain` is the node's CLUSTER identity — the cumulative content
+    digest of everything up to and including this page (see
+    `chain_keys`) — and `version` the weight digest its KV was computed
+    under."""
 
     __slots__ = ("seq", "parent", "page_id", "tokens", "requests",
-                 "children", "last_used", "key", "chain")
+                 "children", "last_used", "key", "chain", "version")
 
     def __init__(self, seq: int, parent: Optional["_PrefixNode"],
-                 page_id: int, tokens: np.ndarray, key, chain: str = ""):
+                 page_id: int, tokens: np.ndarray, key,
+                 chain: str = "", version: Optional[str] = None):
         self.seq = seq
         self.parent = parent
         self.page_id = page_id
@@ -82,6 +87,7 @@ class _PrefixNode:
         self.last_used = 0
         self.key = key
         self.chain = chain
+        self.version = version
 
 
 def _digest(tokens: np.ndarray) -> bytes:
@@ -91,9 +97,9 @@ def _digest(tokens: np.ndarray) -> bytes:
 
 def _chain_root(tenant: Optional[str]) -> bytes:
     """Seed of the cumulative chain digest. The tenant is folded in
-    HERE, at the root, so every downstream chain key is tenant-scoped:
-    one tenant's prefixes are unreachable from another tenant's
-    lookups."""
+    HERE, at the root, so every downstream chain key — and therefore
+    every directory entry — is tenant-scoped: one tenant's published
+    prefixes are simply unreachable from another tenant's lookups."""
     h = hashlib.blake2b(b"dl4j-prefix-chain-v1", digest_size=16)
     if tenant is not None:
         h.update(b"\x00tenant\x00" + str(tenant).encode())
@@ -106,8 +112,8 @@ def chain_keys(prompt: np.ndarray, page_size: int,
     """Instance-independent cumulative content keys, one per FULL page
     of `prompt`: ``key[i] = H(key[i-1] || digest(chunk_i))`` rooted at
     the tenant-scoped seed. Two hosts compute identical keys for
-    identical (tenant, token-prefix) pairs. `digest_cache` memoizes
-    per-chunk digests exactly like
+    identical (tenant, token-prefix) pairs — the directory's address
+    space. `digest_cache` memoizes per-chunk digests exactly like
     `PrefixCache.lookup`'s."""
     prompt = np.asarray(prompt)
     page = int(page_size)
@@ -164,6 +170,18 @@ class PrefixCache:
         # head re-runs lookup every scheduler iteration)
         self.insertions = 0  # guarded by: _guard [external]
         self.evictions = 0  # guarded by: _guard [external]
+        self._recorder = None  # optional FlightRecorder (engine's)
+        # weight-version tag (`bind_version`): every cached page holds
+        # KV computed under exactly these weights. The engine re-binds
+        # the tag on every (re)build — shipped pages from a KV handoff
+        # may only promote here after the transfer layer proved the
+        # sender's version equal (kv_transfer.verify_payload)
+        self.weight_version: Optional[str] = None
+        # optional cluster directory (`bind_directory`): promotions
+        # publish their chain keys, evictions retract, clear drops the
+        # holder wholesale — the in-process push half of the protocol
+        self._directory = None
+        self._holder: Optional[str] = None
 
     def bind_guard(self, lock) -> "PrefixCache":
         """Register the owner's lock. Every mutating method then runs
@@ -172,23 +190,35 @@ class PrefixCache:
         self._guard = lock
         return self
 
-    def _unported(self, what: str):
-        raise NotImplementedError(
-            f"PrefixCache.{what} is not ported yet (ROADMAP queue A11: "
-            "serving cluster tier — flight recorder, weight versions, "
-            "cluster prefix directory)")
-
     def bind_recorder(self, recorder) -> "PrefixCache":
-        self._unported("bind_recorder")
+        """Register the owner's flight recorder: cache invalidations and
+        cap-driven eviction bursts land in the scheduler-event ring (its
+        lock is a leaf, so emitting under the engine's condition lock is
+        deadlock-free)."""
+        self._recorder = recorder
+        return self
 
-    def bind_version(self, version) -> "PrefixCache":
-        self._unported("bind_version")
+    def bind_version(self, version: Optional[str]) -> "PrefixCache":
+        """Tag the cache with the serving weights' content digest (the
+        key under which cached KV is valid). Nodes are STAMPED with the
+        version live at their insert and `lookup` only walks nodes
+        matching the CURRENT tag — so re-binding to a different version
+        invalidates every older entry without dropping it, and binding
+        BACK to the original version (a rollback to the same weights)
+        makes those entries hittable again: the pages were computed
+        under exactly those weights."""
+        self.weight_version = version
+        return self
 
     def bind_directory(self, directory, holder: str) -> "PrefixCache":
-        self._unported("bind_directory")
-
-    def chains(self) -> dict:
-        self._unported("chains")
+        """Register the cluster prefix directory and this cache's
+        holder id: every promotion publishes its chain keys, every
+        eviction retracts, `clear()` drops the holder wholesale. The
+        directory's lock is a leaf — publishing under the engine's
+        condition lock is deadlock-free."""
+        self._directory = directory
+        self._holder = holder
+        return self
 
     # -- introspection -----------------------------------------------------
     @property
@@ -202,7 +232,8 @@ class PrefixCache:
                 "insertions": self.insertions,
                 "evictions": self.evictions,
                 "page_size": self.page_size,
-                "max_pages": self.max_pages}
+                "max_pages": self.max_pages,
+                "weight_version": self.weight_version}
 
     # -- lookup / binding --------------------------------------------------
     def _max_hit_pages(self, t0: int) -> int:
@@ -228,8 +259,8 @@ class PrefixCache:
               digest_cache: Optional[list],
               tenant: Optional[str]) -> List[_PrefixNode]:
         """Shared chain walk for `lookup`/`match`: longest cached chain
-        matching `prompt`'s first `cap` pages under `tenant`'s root.
-        Touches matched LRU clocks."""
+        matching `prompt`'s first `cap` pages under `tenant`'s root,
+        current weight version only. Touches matched LRU clocks."""
         page = self.page_size
         out: List[_PrefixNode] = []
         parent_seq = self._root_seq(tenant)
@@ -243,7 +274,8 @@ class PrefixCache:
                 if digest_cache is not None:
                     digest_cache.append(dig)
             node = self._nodes.get((parent_seq, dig))
-            if node is None or not np.array_equal(node.tokens, chunk):
+            if node is None or node.version != self.weight_version \
+                    or not np.array_equal(node.tokens, chunk):
                 break
             out.append(node)
             parent_seq = node.seq
@@ -271,11 +303,21 @@ class PrefixCache:
     def match(self, prompt: np.ndarray,
               tenant: Optional[str] = None) -> List[_PrefixNode]:
         """Longest cached chain over EVERY full page of `prompt` — no
-        `_max_hit_pages` cap, because the caller is not binding a slot
-        (depth queries)."""
+        `_max_hit_pages` cap, because the caller is not binding a slot:
+        used by the cluster export path (a peer asking for exactly the
+        pages it saw in the directory) and by delta-transfer depth
+        queries."""
         assert_owned(self._guard, "PrefixCache.match")
         t0 = int(prompt.shape[0])
         return self._walk(prompt, t0 // self.page_size, None, tenant)
+
+    def chains(self) -> List[str]:
+        """Chain keys of every resident node at the CURRENT weight
+        version — the pull-mode directory refresh payload
+        (`prefix_chains` RPC)."""
+        assert_owned(self._guard, "PrefixCache.chains")
+        return [n.chain for n in self._nodes.values()
+                if n.version == self.weight_version and n.chain]
 
     def acquire(self, nodes: List[_PrefixNode]) -> None:
         assert_owned(self._guard, "PrefixCache.acquire")
@@ -315,6 +357,7 @@ class PrefixCache:
         chain = (bytes.fromhex(parent.chain) if parent is not None
                  and parent.chain else _chain_root(tenant))
         self._clock += 1
+        published: List[str] = []
         for i in range(len(held), cacheable):
             parent_seq = (parent.seq if parent is not None
                           else self._root_seq(tenant))
@@ -337,7 +380,8 @@ class PrefixCache:
             chain = hashlib.blake2b(chain + dig, digest_size=16).digest()
             self._seq += 1
             node = _PrefixNode(self._seq, parent, int(pages[i]), chunk,
-                               key, chain=chain.hex())
+                               key, chain=chain.hex(),
+                               version=self.weight_version)
             node.requests = 1  # the promoting request's reference
             node.last_used = self._clock
             if parent is not None:
@@ -346,6 +390,22 @@ class PrefixCache:
             nodes.append(node)
             parent = node
             self.insertions += 1
+            published.append(node.chain)
+        if freed and self._recorder is not None:
+            # cap pressure displaced resident prefixes — one aggregated
+            # event per promotion, not one per page
+            self._recorder.event("prefix-cache", decision="cap-evict",
+                                 pages=len(freed),
+                                 cached_pages=len(self._nodes))
+        if published and self._directory is not None:
+            # publish-on-promotion: the cluster learns this holder has
+            # the chain the moment it becomes shareable locally
+            self._directory.publish(self.weight_version, page,
+                                    published, self._holder)
+            if self._recorder is not None:
+                self._recorder.event("prefix-publish",
+                                     pages=len(published),
+                                     holder=self._holder)
         return nodes, freed
 
     # -- eviction ----------------------------------------------------------
@@ -367,6 +427,11 @@ class PrefixCache:
         if best.parent is not None:
             best.parent.children -= 1
         self.evictions += 1
+        if self._directory is not None and best.chain:
+            # retract-on-evict: the directory must never advertise a
+            # chain whose pages are back on the free list
+            self._directory.retract(best.version, (best.chain,),
+                                    self._holder)
         return best.page_id
 
     def reclaim(self, n_pages: int) -> List[int]:
@@ -386,8 +451,15 @@ class PrefixCache:
 
     def clear(self) -> None:
         """Drop every node WITHOUT returning pages (the engine rebuilds
-        its free list wholesale after a pool rebuild, which is the only
-        time this runs)."""
+        its free list wholesale after a pool rebuild — weight swap or
+        post-failure recovery — which is the only time this runs). A
+        stale page can never serve new weights."""
         assert_owned(self._guard, "PrefixCache.clear")
+        dropped = len(self._nodes)
         self._nodes.clear()
         self._roots.clear()
+        if self._directory is not None:
+            self._directory.drop_holder(self._holder)
+        if dropped and self._recorder is not None:
+            self._recorder.event("prefix-cache", decision="invalidate",
+                                 dropped=dropped)

@@ -339,25 +339,28 @@ def test_eos_and_sampled_requests(nets):
 
 
 def test_unported_options_are_refused(nets):
-    """The cluster tier's options (tensor parallelism, QoS, the
-    disaggregated roles, tenants and the batch lane) still raise naming
-    A11; the serving seams `ModelServer` drives (breaker, logprobs,
-    on_token) are ported and accepted."""
+    """Tensor parallelism past one device still raises naming A12; the
+    cluster tier's in-process options (QoS, the disaggregated roles,
+    tenants and the batch lane) are ported and validated as the JAX
+    engine validates them; the serving seams `ModelServer` drives
+    (breaker, logprobs, on_token) are accepted."""
     _, pnet = nets
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(NotImplementedError, match="A12"):
         _engine(pnet, parallel={"tp": 2})
-    with pytest.raises(NotImplementedError, match="A11"):
-        _engine(pnet, qos={"tenants": {}})
-    with pytest.raises(NotImplementedError, match="not ported"):
-        _engine(pnet, role="prefill")
+    with pytest.raises(ValueError, match="unknown qos keys"):
+        _engine(pnet, qos={"tenants": {}, "lanes": 2})
+    with pytest.raises(ValueError, match="role"):
+        _engine(pnet, role="middle")
     with pytest.raises(TypeError, match="unexpected"):
         _engine(pnet, no_such_option=1)
-    eng = _engine(pnet, breaker=None, logprobs=2)
+    eng = _engine(pnet, breaker=None, logprobs=2, qos={"tenants": {}})
     try:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            eng.submit(_prompts(1, 4)[0], 2, tenant="a")
-        with pytest.raises(NotImplementedError, match="A11"):
-            eng.submit(_prompts(1, 4)[0], 2, priority="batch")
+        with pytest.raises(ValueError, match="priority"):
+            eng.submit(_prompts(1, 4)[0], 2, priority="bulk")
+        out = eng.generate(_prompts(1, 4)[0], 2, tenant="a",
+                           priority="batch")
+        assert len(out) == 2
+        assert eng.stats()["tenants"]["a"]["served"] == 1
         out = eng.generate(_prompts(1, 4)[0], 2, logprobs=2)
         assert len(out["tokens"]) == 2 and len(out["logprobs"]) == 2
     finally:

@@ -11,7 +11,9 @@ BatchNormalization state through a checkpoint, LeNet, a SelfAttention
 classifier on the flash route, an MoE GPT trained and generated from;
 ResNet's tiny network as a ComputationGraph fit, saved and restored, a
 masked tBPTT graph streamed with rnn_time_step, an AutoEncoder, RBM and
-VAE stack pretrained layer by layer, a gradient check)
+VAE stack pretrained layer by layer, a gradient check; early stopping,
+the determinism check and a profiler trace; QoS lanes, a warm migration,
+a cluster prefix fetch and disaggregated serving)
 loads neither `jax` nor any module of `deeplearning4j_tpu`, and
 its entry points run on the card by default, raising where there is
 none rather than carrying on quietly on the CPU."""
@@ -286,6 +288,67 @@ _SCRIPT = textwrap.dedent("""
     gc = MultiLayerNetwork(pconf, dtype=torch.float64, device="cpu")
     assert gradientcheck.check_gradients(
         gc, DataSet(np.eye(8), np.eye(2)[np.arange(8) % 2]), subset=20)
+
+    # the training-loop extras and the cluster tier's in-process half:
+    # early stopping through a zip saver, the determinism check, a
+    # torch.profiler trace, QoS lanes, a warm migration, a cluster
+    # prefix fetch and disaggregated serving
+    from deeplearning4j_tpu_torch import earlystopping as ES
+    from deeplearning4j_tpu_torch import profiler
+    from deeplearning4j_tpu_torch.serving import (
+        DisaggCoordinator, PrefixDirectory, SlotMigratedError)
+    from deeplearning4j_tpu_torch.util.determinism import (
+        assert_deterministic)
+
+    held = ListDataSetIterator([DataSet(x, y)])
+    with tempfile.TemporaryDirectory() as d:
+        cfg = (ES.EarlyStoppingConfiguration.Builder()
+               .epoch_termination_conditions(
+                   ES.MaxEpochsTerminationCondition(2))
+               .score_calculator(ES.DataSetLossCalculator(held))
+               .model_saver(ES.LocalFileModelSaver(d)).build())
+        res = ES.EarlyStoppingTrainer(cfg, MultiLayerNetwork(rconf,
+                                                             device="cpu"),
+                                      ListDataSetIterator([DataSet(x, y)])
+                                      ).fit()
+        assert res.total_epochs == 2 and res.best_model is not None
+        with profiler.trace_capture(d):
+            with profiler.trace_annotation("phase"):
+                torch.ones(2).sum()
+    assert_deterministic(lambda: MultiLayerNetwork(rconf, device="cpu"),
+                         [DataSet(x, y)])
+    gen = {"n_slots": 2, "max_len": 24, "prompt_buckets": (8,),
+           "page_size": 8, "prefill_chunk": 8, "prefix_cache": True,
+           "decode_chunk": 1}
+    src = DecodeEngine(net, device="cpu", qos={"preempt": True}, **gen)
+    dst = DecodeEngine(net, device="cpu", **gen)
+    pd = PrefixDirectory()
+    src.bind_prefix_directory(pd, "src", {"src": src}.get)
+    dst.bind_prefix_directory(pd, "dst", {"src": src}.get)
+    try:
+        prompt = np.arange(12) % 16
+        want = src.generate(prompt, 6, priority="batch")
+        assert (dst.generate(prompt, 6) == want).all()
+        assert dst.stats()["prefix_fetches"] == 1
+        req = src.submit(prompt, 6)
+        while not req.tokens:
+            pass
+        src.migrate_slots(wait=10.0)
+        try:
+            tail = req.result()[len(req.tokens):]
+            head = req.tokens
+        except SlotMigratedError as e:
+            head = e.tokens
+            tail = dst.resume_generate(src.fetch_handoff(e.handoff_id))
+        assert (np.concatenate([head, tail]) == want).all()
+    finally:
+        src.shutdown()
+        dst.shutdown()
+    co = DisaggCoordinator(net, server_kwargs={"generation": gen})
+    try:
+        assert (co.generate(prompt, 6) == want).all()
+    finally:
+        co.shutdown()
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")

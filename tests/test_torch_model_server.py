@@ -54,6 +54,7 @@ from deeplearning4j_tpu_torch.serving import (  # noqa: E402
     ServerClosedError,
     ServerOverloadedError,
     ServiceUnavailableError,
+    ServingError,
 )
 from deeplearning4j_tpu_torch.serving.observability import (  # noqa: E402
     MODEL_SERVER_STATS_KEYS,
@@ -731,17 +732,20 @@ def test_generation_and_cluster_methods_without_an_engine(pair, servers, x):
     assert srv.migrate_slots() == 0
     assert srv.prefix_depth(np.arange(4)) == 0
     assert srv.prefix_chains() == {}
+    # the cluster methods delegate to the engine, as the JAX server's
+    # do: without generation serving there is none to delegate to
     for call in (lambda: srv.set_tenant_quota("t", rate=1.0),
                  lambda: srv.fetch_handoff("h"),
                  lambda: srv.commit_handoff("h"),
                  lambda: srv.abort_handoff("h"),
                  lambda: srv.resume_generate({}),
-                 lambda: srv.bind_prefix_directory(None, "me"),
                  lambda: srv.export_prefix(np.arange(4)),
                  lambda: srv.fetch_handoff_header("h"),
                  lambda: srv.fetch_handoff_frame("h", 0)):
-        with pytest.raises(NotImplementedError, match="A11"):
+        with pytest.raises(ServingError, match="generation"):
             call()
+    # a directory binding is kept for the engine built later
+    assert srv.bind_prefix_directory(None, "me") is srv
 
 
 # ----------------------------------------------- quantized weights, drift

@@ -165,7 +165,7 @@ def test_prefix_cache_follows_the_jax_class_call_for_call(max_pages):
 
 def test_prefix_cache_guard_and_unported_binds():
     """Mutating calls without the owner's lock fail hard; the binds of the
-    observability and cluster tiers raise, naming the queue."""
+    observability and cluster tiers (ported now) chain and take effect."""
     lock = threading.RLock()
     cache = ppc.PrefixCache(4).bind_guard(lock)
     prompt = np.arange(9, dtype=np.int32)
@@ -176,8 +176,10 @@ def test_prefix_cache_guard_and_unported_binds():
         assert cache._max_hit_pages(9) == 2 and cache._max_hit_pages(8) == 1
     for bind, args in (("bind_recorder", (None,)), ("bind_version", ("v",)),
                        ("bind_directory", (None, "h"))):
-        with pytest.raises(NotImplementedError, match="A11"):
-            getattr(cache, bind)(*args)
+        assert getattr(cache, bind)(*args) is cache
+    assert cache.weight_version == "v" and cache._holder == "h"
+    with lock:
+        assert cache.chains() == []
     with pytest.raises(ValueError):
         ppc.PrefixCache(0)
     with pytest.raises(ValueError):

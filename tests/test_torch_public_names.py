@@ -111,17 +111,25 @@ def test_the_walk_covers_the_graph_and_pretraining_modules():
         <= set(MODULES)
 
 
+def test_the_walk_covers_the_training_extras_and_the_cluster_half():
+    assert {f"{PORT}.earlystopping", f"{PORT}.earlystopping.trainer",
+            f"{PORT}.earlystopping.saver", f"{PORT}.util.determinism",
+            f"{PORT}.profiler", f"{PORT}.serving.kv_transfer",
+            f"{PORT}.serving.prefix_directory"} <= set(MODULES)
+
+
 @pytest.mark.parametrize("module,name,item", [
-    ("", "earlystopping", "A10b"),
-    ("", "profiler", "A10b"),
-    ("util", "determinism", "A10b"),
+    ("serving", "ReplicaPool", "A11b"),
+    ("serving", "TokenStream", "A11b"),
+    ("serving", "RemoteReplica", "A11c"),
     ("parallel", "ParallelWrapper", "A12"),
     ("parallel", "make_mesh", "A12"),
 ])
 def test_unported_families_raise_naming_their_item(module, name, item):
-    """Early stopping, the determinism check and the profiler (A10b) and
-    parallel training (A12) raise NotImplementedError naming their queue
-    item, never AttributeError or ImportError."""
+    """The replica pool and what builds on it (A11b), the wire and the
+    remote replicas (A11c) and parallel training (A12) raise
+    NotImplementedError naming their queue item, never AttributeError or
+    ImportError."""
     mod = importlib.import_module(f"{PORT}.{module}" if module else PORT)
     with pytest.raises(NotImplementedError, match=rf"queue {item}\b"):
         getattr(mod, name)

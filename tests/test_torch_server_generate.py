@@ -39,6 +39,7 @@ from deeplearning4j_tpu.util.serialization import (  # noqa: E402
 from deeplearning4j_tpu_torch.serving import (  # noqa: E402
     DecodeEngine,
     InferenceFailedError,
+    KVTransferError,
     ModelServer,
     PrefixCache,
     ServerClosedError,
@@ -449,8 +450,8 @@ def test_generate_after_shutdown_is_refused(old, servers):
     ({"logprobs": -1}, ValueError),
     ({"logprobs": 2, "speculative": {"draft": "self", "k": 2}}, ValueError),
     ({"excursion": 0.99}, ValueError),
-    ({"role": "decode"}, NotImplementedError),
-    ({"handoff_ttl": 5.0}, NotImplementedError),
+    ({"role": "decoder"}, ValueError),
+    ({"handoff_ttl": 0.0}, ValueError),
 ])
 def test_engine_refuses_bad_options(old, kw, err):
     with pytest.raises(err):
@@ -516,12 +517,38 @@ def idle_engine(old):
     eng.shutdown()
 
 
+# what each cluster-tier method does on an idle engine, now that the
+# in-process half of the tier is ported: a value, or the typed error
+_IDLE_OUTCOMES = {
+    "model_bytes_per_chip": lambda v: isinstance(v, int) and v > 0,
+    "set_tenant_quota": lambda v: v is None,
+    "bind_prefix_directory": lambda v: isinstance(v, DecodeEngine),
+    "prefix_depth": lambda v: v == 0,
+    "prefix_chains": lambda v: v["chains"] == [] and v["page_size"] == 8,
+    "commit_handoff": lambda v: v is False,
+    "abort_handoff": lambda v: v is False,
+    "migrate_slots": lambda v: v == 0,
+    "export_prefix": KVTransferError, "fetch_handoff": KVTransferError,
+    "fetch_handoff_header": KVTransferError,
+    "fetch_handoff_frame": KVTransferError,
+    "resume_submit": KVTransferError, "resume_generate": KVTransferError,
+}
+
+
 @pytest.mark.parametrize("name", sorted(_ENGINE_STUBS))
 def test_cluster_tier_engine_methods_raise_naming_a11(idle_engine, name):
-    with pytest.raises(NotImplementedError, match="queue A11"):
-        getattr(idle_engine, name)(*_ENGINE_STUBS[name])
+    """The methods that raised naming queue A11 before the cluster tier's
+    in-process half was ported now answer as the JAX engine does: an
+    unknown lease or a malformed payload is a typed `KVTransferError`,
+    the rest return their idle values."""
+    want = _IDLE_OUTCOMES[name]
+    if isinstance(want, type):
+        with pytest.raises(want):
+            getattr(idle_engine, name)(*_ENGINE_STUBS[name])
+    else:
+        assert want(getattr(idle_engine, name)(*_ENGINE_STUBS[name]))
 
 
 def test_prefix_cache_chains_raises_naming_a11():
-    with pytest.raises(NotImplementedError, match="queue A11"):
-        PrefixCache(8).chains()
+    """`chains` is ported: an empty cache publishes no chain key."""
+    assert PrefixCache(8).chains() == []
