@@ -68,7 +68,12 @@ belongs to):
 - graph, pretrain: `chip_smoke.py`'s phases 24-26 (path 7's ResNet-50
   graph, the graph on the LSTM kernels against the list container, the
   CPU and numpy, pretraining against the CPU, numpy and the greedy
-  reference), whose failed check counts as caught.
+  reference), whose failed check counts as caught;
+- disagg, qos: `chip_smoke.py`'s phases 27 and 28-29, whose failed
+  check counts as caught;
+- pool, stream: `chip_smoke.py`'s phases 30 and 31 (path 9, the replica
+  pool; the streams and the exactly-once door on its pool), one run for
+  both families, whose failed check counts as caught.
 
 The faults (`MUTATIONS`) drop tiles, terms or rows, and break each
 mechanism of the Hopper kernels: the forward's diagonal mask on the wrong
@@ -146,7 +151,14 @@ running stats dropped by the graph's forward (never committed); layerwise
 pretraining: the RBM free energy's visible term with the wrong sign, the
 VAE's KL term left out of the negative ELBO, and `pretrain` training
 every pretraining layer up to the current one again (an upstream layer
-that should be frozen updated). A
+that should be frozen updated); the replica pool
+(`serving/replica_pool.py`): a failover that returns the failed
+replica's partial tokens, a migrated slot's head spliced twice, a
+rolling reload that skips the rollback after replica k's failed probe,
+and a scale-down that removes its victim undrained; the streams and the
+door (`serving/streaming.py`, `serving/exactly_once.py`): a
+`TokenStream` that accepts a duplicate cursor and a `DedupCache` that
+re-executes a completed id. A
 fault that makes the kernel trap (an mbarrier wait that times out) fails
 its check process, which counts as caught.
 
@@ -194,6 +206,11 @@ CNN, MOE = "cnn", "moe"
 # `chip_smoke.py`'s phase 27 (path 8), and the QoS lanes with the early
 # stopping saver, checked by its phases 28-29
 DISAGG, QOS = "disagg", "qos"
+# the replica pool tier (`serving/replica_pool.py`), checked by
+# `chip_smoke.py`'s phase 30 (path 9), and the streams and the dedup door
+# (`serving/streaming.py`, `serving/exactly_once.py`), checked by its
+# phase 31 on path 9's pool; one run of both phases checks either family
+POOL, STREAM = "pool", "stream"
 # (B, T, H, D, causal, dtype): bf16, the training path's kernels at D = 128,
 # the "wgmma wide" kernels at D = 256 and the "wgmma cluster" backward at
 # D = 384 and 512 (T = 192: the first diagonal tiles; T = 1024 full: every
@@ -814,6 +831,71 @@ MUTATIONS = [
           "    def get_best_model(self):\n"
           "        return self._load(self.latest_path)")],
      "earlystopping/saver.py"),
+    # the replica pool, each caught by phase 30: every request of the
+    # crash drill (9b) whole, the fingerprints after a rollback at
+    # replica 2 (9c), the migrated decode equal to the uninterrupted run
+    # and migrations >= 1 (9d)
+    ("pool: failover returns the failed replica's partial tokens", POOL,
+     "    def generate(self, prompt_ids, n_tokens: int, *,", [
+         ("                rem = self._remaining(deadline)\n"
+          "                try:\n",
+          "                rem = self._remaining(deadline)\n"
+          "                partial = []\n"
+          "                sink = genkw.get(\"on_token\")\n"
+          "\n"
+          "                def collect(c, t, e=None):\n"
+          "                    partial.append(t)\n"
+          "                    if sink is not None:\n"
+          "                        sink(c, t, e)\n"
+          "\n"
+          "                kw = dict(genkw, on_token=collect)\n"
+          "                try:\n"),
+         ("priority=priority, **genkw),", "priority=priority, **kw),"),
+         ("                except SlotMigratedError as e:\n",
+          "                except self._RETRYABLE:\n"
+          "                    return np.asarray(partial, np.int32)\n"
+          "                except SlotMigratedError as e:\n")],
+     "serving/replica_pool.py"),
+    ("pool: _resume_migrated splices the head twice", POOL,
+     "    def _resume_migrated(self, victim: _Replica,", [
+         ("        head = np.asarray(redirect.tokens, np.int32)\n",
+          "        head = np.asarray(redirect.tokens, np.int32)\n"
+          "        head = np.concatenate([head, head])\n")],
+     "serving/replica_pool.py"),
+    ("pool: rolling reload skips the rollback after replica k's failed "
+     "probe", POOL,
+     "    def rolling_reload(self, source,", [
+         ("                for rep, old_net, was_stale in reversed(done):",
+          "                for rep, old_net, was_stale in reversed(done[:0]):")],
+     "serving/replica_pool.py"),
+    ("pool: scale_down removes the victim undrained", POOL,
+     "    def remove_replica(self, replica_id: int, *,", [
+         ("        self._drain_replica(rep, drain_timeout, "
+          "reason=\"scale-down\")\n"
+          "        if rep.server.pending():",
+          "        if False:")],
+     "serving/replica_pool.py"),
+    # the stream and the door, each caught by phase 31: the failed-over
+    # stream's frames equal to the unary tokens, the retry answered from
+    # the ring
+    ("stream: TokenStream accepts a duplicate cursor", STREAM,
+     "    def publish(self, cursor: int, token: int,", [
+         ("            if cursor <= self._cursor:\n"
+          "                self.duplicate_tokens_dropped += 1\n"
+          "                return False\n",
+          "            if cursor <= self._cursor:\n"
+          "                self._ring.append((int(token), logprob))\n"
+          "                self._cond.notify_all()\n"
+          "                return True\n")],
+     "serving/streaming.py"),
+    ("stream: DedupCache re-executes a completed id", STREAM,
+     "    def begin(self, request_id: str) -> Tuple[str, Any]:", [
+         ("            ent = self._done.get(request_id)\n"
+          "            if ent is not None:\n"
+          "                self._hits += 1\n"
+          "                return \"cached\", ent.outcome\n",
+          "            ent = None\n")],
+     "serving/exactly_once.py"),
 ]
 
 
@@ -868,7 +950,8 @@ def build(sources) -> None:
 
     needs = {GUARD: (LSTM,), SERVER: (PAGED, FLASH), CNN: (),
              MOE: (PAGED, FLASH), GRAPH: (LSTM,), PRETRAIN: (LSTM,),
-             DISAGG: (PAGED,), QOS: (PAGED, FLASH, LSTM)}
+             DISAGG: (PAGED,), QOS: (PAGED, FLASH, LSTM),
+             POOL: (PAGED, FLASH), STREAM: (PAGED, FLASH)}
     cuda_build.build(tuple(sorted({k for s in sources
                                    for k in needs.get(s, (s,))})))
 
@@ -915,6 +998,12 @@ def check(sources) -> None:
     if QOS in sources:
         cases += phase_cases(torch, "28-29", "QoS, early stopping",
                              lambda cs, M, card: qos_run(torch, cs, M, card))
+    if {POOL, STREAM} & set(sources):
+        import deeplearning4j_tpu_torch.ops.paged_attention as pa
+
+        cases += phase_cases(torch, "30-31", "path 9, streams, the door",
+                             lambda cs, M, card: cs.phases_30_31(
+                                 torch, M, pa, card, None))
     print(json.dumps({"package": fa.__file__, "cases": cases}), flush=True)
 
 

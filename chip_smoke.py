@@ -8,6 +8,7 @@ NVIDIA card.
     python3 chip_smoke.py --phases-22-23   # the CNN and MoE phases alone
     python3 chip_smoke.py --phases-24-26   # the graph and pretraining phases
     python3 chip_smoke.py --phases-27-29   # the cluster half and A10b phases
+    python3 chip_smoke.py --phases-30-31   # path 9: the replica pool tier
 
 `--lstm-timing` runs phase 17 alone (the LSTM source built, the rows
 checked and timed, launch counts 0) on the checkout's package or, with
@@ -21,7 +22,9 @@ runs phases 22 and 23 alone (their rows and launch counts logged).
 `--phases-24-26` builds the LSTM source and runs phases 24 to 26 alone,
 then prints one JSON line of phase 25's launch counts. `--phases-27-29`
 builds every source and runs phases 27 to 29 alone, then prints one JSON
-line of their launch counts.
+line of their launch counts. `--phases-30-31` builds the paged and flash
+sources and runs phase 7 (path 1, for its tokens/s) and phases 30 and 31
+alone, then prints one JSON line of their launch counts.
 
 Phases, each of which makes the script exit non-zero when it fails:
 
@@ -453,7 +456,52 @@ Phases, each of which makes the script exit non-zero when it fails:
    `assert_deterministic` bit-exact on path 2's GPT (B=2 x T=4096, 3
    steps, every flash launch on "wgmma") and on the char-RNN (3 steps);
    whether resnet_tiny is bit-exact under cuDNN's defaults, printed. Its
-   launches go into rows 2-6.
+   launches go into rows 2-6;
+30. path 9: path 1's network and engine (bf16, `max_queue` 256) behind
+   `ReplicaPool.from_net(net, 3)` on the one card (a (1, 16) probe and
+   canary batch, probes every second, `breaker_reset_timeout` 1 s).
+   9a: a 2-layer f32 GPT at path 1's width (TF32 off) gives through a
+   3-replica pool the tokens of a single `ModelServer` for path 1's six
+   requests (asserted equal); at full width in bf16, path 1's six
+   requests from six client threads: tokens/s beside phase 7's, requests
+   served per replica, 0 failovers, the paged launches equal to 8 layers
+   times the engines' summed decode steps and prefill chunks (dense, at
+   C=1 and C=256, no plain call), each request's tokens equal to a single
+   server's or first diverging below a top-2 log-probability margin of
+   0.05 (printed); a `pool.predict` of (1, 4096) launches the f32 flash
+   forward once a layer and equals `net.output` within 1e-4. 9b: a
+   `ReplicaCrashInjector` on replica 1 (its predict and engine steps)
+   under 12 live requests of 128 + 32 tokens: 0 failed, failovers > 0,
+   evicted, readmitted after the revival (walls printed); with every
+   replica broken the pool answers the typed `ServiceUnavailableError`
+   and recovers by itself. 9c: `rolling_reload(CheckpointStore(d))` of a
+   candidate (seed 12, f32) that replica 2 cannot serve (its post-reload
+   probe fails): replicas 0 and 1 rolled back, every weight digest
+   unchanged; the same candidate under live traffic: 0 failed,
+   `rolling_reloads == 1`, every replica on it, computing in f32 (the
+   reloaded zip has no compute dtype; printed), its tokens equal to the
+   candidate's in f32 behind its own engine; a
+   `ReloadCorruptionInjector` candidate (NaN parameters) refused and
+   rolled back, digests unchanged; `sync_net` restores path 1's
+   weights. 9d: an `Autoscaler` (spawn: a `ModelServer` on `net.clone()`)
+   under a `LoadSpikeInjector` of 16 clients scales up; the new replica
+   enters evicted and the probes readmit it; 0 failed or shed spike
+   requests; then a scale-down forced onto the replica decoding a
+   4096-token prompt after 16 of 64 tokens migrates it (`migrations >=
+   1`, `migration_fallbacks == 0`), the spliced tokens equal to the
+   uninterrupted run, the scale-down ms printed;
+31. streams and the exactly-once door on path 9's pool: a
+   `pool.generate(..., on_token=registry.open(rid).publish)` of 48 tokens
+   with a concurrent reader: the frames concatenate to the unary tokens;
+   an attach at cursor 16 resumes there; a crash planted on the serving
+   replica at cursor 16 fails over, the re-run's cursors 1..16 are
+   dropped as duplicates and the frames stay contiguous and equal to the
+   unary tokens; a ring of 8 overflows typed (`StreamBackpressureError`);
+   an `ExactlyOnceDoor(journal_dir=...)` around `pool.generate` answers a
+   retry from its ring with no paged launch and `double_executions == 0`;
+   an admitted but incomplete journal record replays through a fresh door
+   and its claim equals a direct run. Path 9's bf16 paged launches go
+   into rows 1, its f32 predict into the f32 forward row at T=4096.
 
 Prints one JSON line of per-kernel numbers, then the card's
 `nvidia-smi` line, then as the last line
@@ -897,6 +945,16 @@ def phase_parity_tier(torch, M, net, rng):
                              "the CPU")
 
 
+def path1_requests(np):
+    """Path 1's six requests, as phase 7 draws them."""
+    rng = np.random.default_rng(11)
+    V = SERVE["vocab_size"]
+    prompts = [rng.integers(0, V, SERVER_PROMPT_T[0]) for _ in range(4)] \
+        + [rng.integers(0, V, SERVER_PROMPT_T[1]) for _ in range(2)]
+    n_tok = [int(x) for x in rng.choice((32, 48, 64, 96, 128), 6)]
+    return prompts, n_tok
+
+
 def phase_serve(torch, M, pa, card):
     """The main path: full-width 8-layer bf16 GPT behind the engine."""
     import numpy as np
@@ -908,11 +966,8 @@ def phase_serve(torch, M, pa, card):
     eng = M["DecodeEngine"](net, n_slots=8, page_size=128, prefill_chunk=256,
                             prompt_buckets=(128,), max_len=4224,
                             device="cuda")
-    rng = np.random.default_rng(11)
     V = SERVE["vocab_size"]
-    prompts = [rng.integers(0, V, 128) for _ in range(4)] \
-        + [rng.integers(0, V, 4096) for _ in range(2)]
-    n_tok = [int(x) for x in rng.choice((32, 48, 64, 96, 128), 6)]
+    prompts, n_tok = path1_requests(np)
     walls = []
     try:
         eng.generate(prompts[0][:16], 4)  # warm-up: cuBLAS handles, caching
@@ -3467,15 +3522,11 @@ def phase_server(torch, M, card, path1_tok_s=None):
     srv = S.ModelServer(net, max_batch_size=4, breaker_threshold=3,
                         breaker_reset_timeout=1.0,
                         generation=dict(SERVER_GEN, step_hooks=[park]))
-    rng = np.random.default_rng(11)  # path 1's requests, as phase 7 draws them
-    short_t, long_t = SERVER_PROMPT_T
-    prompts = [rng.integers(0, V, short_t) for _ in range(4)] \
-        + [rng.integers(0, V, long_t) for _ in range(2)]
-    n_tok = [int(x) for x in rng.choice((32, 48, 64, 96, 128), 6)]
+    prompts, n_tok = path1_requests(np)
     prng = np.random.default_rng(21)
     xs = [prng.integers(0, V, (1, SERVER_PREDICT_T)).astype(np.int32)
           for _ in range(SERVER_PREDICTS)]
-    small = prng.integers(0, V, (1, short_t)).astype(np.int32)
+    small = prng.integers(0, V, (1, SERVER_PROMPT_T[0])).astype(np.int32)
     tmp = tempfile.mkdtemp(prefix="path5_")
     closed = False
     t_phase = time.perf_counter()
@@ -5999,19 +6050,19 @@ def phases_27_29(torch, M, pa, card):
         for k, n in counts.items():
             paged[k] = paged.get(k, 0) + n
 
-    log("[27/29] path 8: path 1's GPT disaggregated (8a: the two mixes, "
+    log("[27/31] path 8: path 1's GPT disaggregated (8a: the two mixes, "
         "bf16 and int8 KV, against a colocated server), live migration "
         "(8b: warm, cold, sampled, int8), the cluster prefix cache (8c)")
     add(phase_disagg(torch, M, pa, card))
     net, counts = phase_migration(torch, M, pa, card)
     add(counts)
     add(phase_prefix_cluster(torch, M, pa, card, net))
-    log("[28/29] QoS on path 1's engine: a flood tenant under quota beside "
+    log("[28/31] QoS on path 1's engine: a flood tenant under quota beside "
         "Poisson interactive traffic, preemption of the batch lane")
     add(phase_qos(torch, M, pa, card, net))
     del net
     torch.cuda.empty_cache()
-    log("[29/29] early stopping, the profiler and assert_deterministic on "
+    log("[29/31] early stopping, the profiler and assert_deterministic on "
         "the LSTM and flash kernels")
     extras = phase_extras(torch, M, card)
     return paged, extras
@@ -6034,6 +6085,698 @@ def phases_27_29_alone(torch, M, pa, cuda_build) -> int:
                                    for k, n in c.items()}
                                for w, c in lstm.items()},
                       "flash": flash}), flush=True)
+    return 0
+
+
+# ------------------------------------------- phases 30-31: path 9, the pool
+# path 9: path 1's network and engine behind ReplicaPool.from_net(net, 3)
+POOL_REPLICAS, POOL_PROBE_S = 3, 1.0
+POOL_PROBE_T = 16           # the probe and canary batch: (1, 16) ids
+POOL_PARITY_LAYERS = 2      # the f32 parity pool: path 1's width, 2 layers
+POOL_MARGIN = 0.05          # a bf16 divergence must sit below this margin
+# 9b-9c live traffic: clients sending prompts of 128 with 32 tokens out
+POOL_CLIENTS, POOL_DRILL_TOKENS = 6, 32
+# 9d: a load spike of 16 closed-loop clients (16-token requests) against
+# 3 x 8 slots; the scale-down while a 4096-token prompt decodes 64 tokens
+POOL_SPIKE, POOL_SPIKE_TOKENS = 16, 16
+# phase 31: streams of 48 tokens, a crash or an attach at cursor 16, a
+# ring of 8 for the overflow
+STREAM_TOKENS, STREAM_K, STREAM_RING = 48, 16, 8
+
+
+def pool_digests(M, pool):
+    """Every replica's weight digest (the engine's: blake2b over the
+    parameters' bytes)."""
+    return [M["weight_digest"](r.server.net._params) for r in pool._replicas]
+
+
+def engines_steps(pool):
+    """Decode steps + prefill chunks of every replica's engine, by server
+    id."""
+    out = {}
+    for srv in [r.server for r in pool._replicas]:
+        eng = srv._engine
+        if eng is not None:
+            st = eng.stats()
+            out[id(srv)] = st["decode_steps"] + st["prefill_chunks"]
+    return out
+
+
+def take_paged(pa, into=None):
+    """The paged kernel's launches since the last reset (added to
+    `into`), then the counts set to 0."""
+    got = dict(pa.paged_attention.launches_by)
+    plain = pa.paged_attention_plain.calls
+    pa.reset_counts()
+    if plain:
+        raise AssertionError(f"path 9: the paged plain version ran {plain} "
+                             "times on the card")
+    if into is not None:
+        for k, n in got.items():
+            into[k] = into.get(k, 0) + n
+    return got
+
+
+def crash_hooks(crash):
+    """An engine step hook firing `crash` (a ReplicaCrashInjector, whose
+    own phase is the predict step's) at every prefill and decode step."""
+    def hook(phase, info):
+        if phase in ("pre_prefill", "pre_decode"):
+            crash("pre_step", info)
+    return hook
+
+
+def client_load(pool, prompts, n, stop=None, rounds=None):
+    """Closed-loop clients, one thread a prompt: each sends
+    `pool.generate(prompt, n)` `rounds` times or until `stop` is set.
+    Returns (threads, results, failures)."""
+    import threading
+
+    results, failures = [], []
+    lock = threading.Lock()
+
+    def run(p):
+        done = 0
+        while (rounds is None or done < rounds) \
+                and not (stop is not None and stop.is_set()):
+            try:
+                out = pool.generate(p, n, timeout=600)
+                with lock:
+                    results.append(out)
+            except Exception as e:  # counted: the caller fails on any
+                with lock:
+                    failures.append(repr(e))
+            done += 1
+
+    threads = [threading.Thread(target=run, args=(p,)) for p in prompts]
+    for t in threads:
+        t.start()
+    return threads, results, failures
+
+
+def joined_clients(threads, results, failures, n, what):
+    for t in threads:
+        t.join(900.0)
+        if t.is_alive():
+            raise AssertionError(f"{what}: a client thread did not finish")
+    if failures:
+        raise AssertionError(f"{what}: {len(failures)} failed requests: "
+                             f"{failures[:3]}")
+    bad = [o.shape for o in results if o.shape != (n,)]
+    if bad:
+        raise AssertionError(f"{what}: requests came back with shapes {bad}")
+    return len(results)
+
+
+def pool_parity_f32(torch, M, card):
+    """9a's f32 leg: a 2-layer f32 GPT at path 1's width (TF32 off): path
+    1's requests through a 3-replica pool equal a single ModelServer's."""
+    import numpy as np
+
+    S = M["serving"]
+    V = SERVE["vocab_size"]
+    net = M["MultiLayerNetwork"](
+        M["gpt_configuration"](**dict(SERVE, n_layers=POOL_PARITY_LAYERS),
+                               seed=30),
+        dtype=torch.float32, device="cuda")
+    net.init()
+    prompts, n_tok = path1_requests(np)
+    srv = S.ModelServer(net, generation=SERVER_GEN)
+    try:
+        single = joined(*run_threads([lambda p=p, n=n: srv.generate(p, n)
+                                      for p, n in zip(prompts, n_tok)]))
+    finally:
+        srv.shutdown()
+    pool = S.ReplicaPool.from_net(net, POOL_REPLICAS, probe_interval=30.0,
+                                  server_kwargs={"generation": SERVER_GEN})
+    try:
+        pooled = joined(*run_threads([lambda p=p, n=n: pool.generate(p, n)
+                                      for p, n in zip(prompts, n_tok)]))
+        per = {k: v["generation"]["served"]
+               for k, v in pool.stats()["replicas"].items()}
+    finally:
+        pool.shutdown(drain_timeout=60)
+    for i, (a, b) in enumerate(zip(single, pooled)):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"path 9a f32: request {i} through the pool "
+                                 f"{b[:8]}... != the single server's "
+                                 f"{a[:8]}...")
+    log(f"  9a f32 ({POOL_PARITY_LAYERS} layers, TF32 off): path 1's "
+        f"{len(prompts)} requests through the pool (served per replica "
+        f"{per}) equal a single ModelServer's, token for token [{card}]")
+    del net
+    torch.cuda.empty_cache()
+
+
+def phase_pool(torch, M, pa, card, path1_tok_s):
+    """Path 9 (phase 30): path 1's network and engine behind
+    `ReplicaPool.from_net(net, 3)` on one card: 9a routing, token parity
+    and the f32 predict; 9b a crash drill and degraded mode; 9c rolling
+    reloads (a rollback at replica 2, one under live traffic, a poisoned
+    candidate); 9d the autoscaler under a load spike and a scale-down
+    that migrates a live 4096-token decode. Returns (the pool, the
+    bf16 paged launches, the f32 flash forward launches)."""
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    S, fa = M["serving"], M["fa"]
+    V = SERVE["vocab_size"]
+    n_layers = SERVE["n_layers"]
+    pool_wall = time.perf_counter()
+    pool_parity_f32(torch, M, card)
+
+    net = path1_net(torch, M, torch.bfloat16)
+    prompts, n_tok = path1_requests(np)
+    toks = int(sum(n_tok))
+    probe = np.random.default_rng(30).integers(0, V, (1, POOL_PROBE_T)) \
+        .astype(np.int32)
+    gen = dict(SERVER_GEN, max_queue=256)
+    # the bf16 reference for 9a: one server (all six in one engine), with
+    # the top-2 log-probabilities a divergence is read against
+    ref = S.ModelServer(net, generation=dict(gen, logprobs=2))
+    try:
+        ref_out = joined(*run_threads(
+            [lambda p=p, n=n: ref.generate(p, n, logprobs=2)
+             for p, n in zip(prompts, n_tok)]))
+    finally:
+        ref.shutdown()
+    skw = {"generation": gen, "canary": probe, "breaker_reset_timeout": 1.0}
+    pool = S.ReplicaPool.from_net(
+        net, POOL_REPLICAS, server_kwargs=skw, probe_batch=probe,
+        probe_interval=POOL_PROBE_S, probe_timeout=60.0,
+        watchdog_timeout=60.0, readmit_successes=2)
+    spawned = []
+    rows_paged, flash = {}, {}
+    tmp = tempfile.mkdtemp(prefix="path9_")
+    try:
+        for rep in pool._replicas:  # warm-up: engines, cuBLAS handles
+            rep.server.generate(prompts[0][:16], 4)
+            rep.server.predict(probe)
+        torch.cuda.synchronize()
+
+        # -- 9a: path 1's requests from 6 client threads
+        pa.reset_counts()
+        before = engines_steps(pool)
+        s0 = pool.stats()
+        t0 = time.perf_counter()
+        outs = joined(*run_threads([lambda p=p, n=n: pool.generate(
+            p, n, timeout=900) for p, n in zip(prompts, n_tok)]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = take_paged(pa, rows_paged)
+        after = engines_steps(pool)
+        steps = sum(after[k] - before.get(k, 0) for k in after)
+        s1 = pool.stats()
+        per = {k: v["generation"]["served"] - s0["replicas"][k][
+            "generation"]["served"] for k, v in s1["replicas"].items()}
+        log(f"  9a: path 1's {len(prompts)} requests from {len(prompts)} "
+            f"threads through {POOL_REPLICAS} replicas: wall {wall:.4f} s, "
+            f"{toks / wall:.1f} generated tokens/s"
+            + (f" (path 1's engine alone {path1_tok_s:.1f}, ratio "
+               f"{toks / wall / path1_tok_s:.3f})" if path1_tok_s else "")
+            + f"; served per replica {per}, failovers "
+            f"{s1['failovers'] - s0['failovers']}; paged launches {got} = "
+            f"{n_layers} layers x {steps} engine steps and chunks [{card}]")
+        if s1["failovers"] != s0["failovers"] or sum(per.values()) != 6:
+            raise AssertionError(f"path 9a: failovers or served per replica "
+                                 f"{per} wrong")
+        if sum(got.values()) != n_layers * steps or not got.get((1, "dense")) \
+                or not got.get((256, "dense")) \
+                or any(k != "dense" for _, k in got):
+            raise AssertionError(f"path 9a: paged launches {got} against "
+                                 f"{n_layers} x {steps} engine steps")
+        worst = 0.0
+        for i, (o, r, n) in enumerate(zip(outs, ref_out, n_tok)):
+            if o.shape != (n,):
+                raise AssertionError(f"path 9a: request {i} gave {o.shape}")
+            div = first_divergence(r["tokens"], r["logprobs"], o)
+            if div is not None:
+                log(f"  9a: request {i} diverges from the single server at "
+                    f"token {div[0]}, top-2 margin {div[1]:.4f}")
+                if div[1] >= POOL_MARGIN:
+                    raise AssertionError(f"path 9a: request {i} diverged at a "
+                                         f"margin of {div[1]:.4f}")
+                worst = max(worst, div[1])
+        log(f"  9a bf16: every request equal to the single server's or "
+            f"diverging below a top-2 margin of {POOL_MARGIN} (largest "
+            f"{worst:.4f})")
+        trace = traced(torch, lambda: joined(*run_threads(
+            [lambda p=p, n=n: pool.generate(p, n, timeout=900)
+             for p, n in zip(prompts, n_tok)])))
+        log(f"  9a traced batch (torch.profiler, not in tokens/s): {trace}")
+        fa.reset_counts()
+        x = np.random.default_rng(31).integers(0, V, (1, SERVER_PREDICT_T)) \
+            .astype(np.int32)
+        t0 = time.perf_counter()
+        pred = pool.predict(x, timeout=600)
+        torch.cuda.synchronize()
+        pred_ms = 1e3 * (time.perf_counter() - t0)
+        flash = dict(fa.launches_by_route)
+        want = net.output(x).float().cpu().numpy()
+        err = float(np.abs(pred - want).max())
+        log(f"  9a predict of (1, {SERVER_PREDICT_T}) through the pool: "
+            f"{pred_ms:.2f} ms, flash launches {flash}, max |pool - "
+            f"net.output| {err:.3g} [{card}]")
+        if flash.get(("fwd", "tf32"), 0) != n_layers or err > SERVER_PREDICT_ATOL:
+            raise AssertionError(f"path 9a: predict flash launches {flash}, "
+                                 f"error {err}")
+
+        # -- 9b: a crash under live generate traffic, then every replica
+        rng = np.random.default_rng(32)
+        crash = S.ReplicaCrashInjector()
+        victim = pool._replicas[1].server
+        victim.infer_hooks.append(crash)
+        victim._engine.step_hooks.append(crash_hooks(crash))
+        s0 = pool.stats()
+        drill = [rng.integers(0, V, SERVER_PROMPT_T[0])
+                 for _ in range(POOL_CLIENTS)]
+        threads, res, fails = client_load(pool, drill, POOL_DRILL_TOKENS,
+                                          rounds=2)
+        until(lambda: victim._engine.stats()["active_slots"] > 0,
+              "a live slot on replica 1", 120)
+        t_crash = time.perf_counter()
+        crash.crash()
+        n = joined_clients(threads, res, fails, POOL_DRILL_TOKENS, "path 9b")
+        until(lambda: pool.stats()["replicas"]["1"]["state"] == "evicted",
+              "replica 1's eviction", 120)
+        evict_s = time.perf_counter() - t_crash
+        crash.revive()
+        t1 = time.perf_counter()
+        until(lambda: pool.healthy_replicas() == POOL_REPLICAS,
+              "replica 1's readmission", 120)
+        readmit_s = time.perf_counter() - t1
+        s1 = pool.stats()
+        fo = s1["failovers"] - s0["failovers"]
+        log(f"  9b: {n} requests of {SERVER_PROMPT_T[0]} + "
+            f"{POOL_DRILL_TOKENS} from {POOL_CLIENTS} clients, replica 1 "
+            f"crashed under them: 0 failed, failovers {fo}, steps killed "
+            f"{crash.steps_killed}; evicted {evict_s:.2f} s after the "
+            f"crash, readmitted {readmit_s:.2f} s after the revival "
+            f"(readmissions {s1['readmissions'] - s0['readmissions']}) "
+            f"[{card}]")
+        if fo < 1 or not crash.steps_killed \
+                or s1["readmissions"] <= s0["readmissions"]:
+            raise AssertionError("path 9b: no failover, no crash or no "
+                                 "readmission")
+        dead = S.ReplicaCrashInjector(crashed=True)
+        for rep in pool._replicas:
+            rep.server.infer_hooks.append(dead)
+            rep.server._engine.step_hooks.append(crash_hooks(dead))
+        until(lambda: pool.healthy_replicas() == 0, "every replica evicted",
+              120)
+        try:
+            pool.generate(drill[0], 4, timeout=60)
+        except S.ServiceUnavailableError as e:
+            if "no healthy replica" not in str(e) or not e.retry_after:
+                raise AssertionError(f"path 9b: degraded answer {e!r}")
+        else:
+            raise AssertionError("path 9b: a pool with every replica "
+                                 "evicted served a request")
+        dead.revive()
+        t1 = time.perf_counter()
+        until(lambda: pool.healthy_replicas() == POOL_REPLICAS,
+              "the pool's recovery", 120)
+        recover_s = time.perf_counter() - t1
+        if pool.generate(drill[0], 4, timeout=120).shape != (4,):
+            raise AssertionError("path 9b: no answer after the recovery")
+        log(f"  9b: every replica broken: typed ServiceUnavailableError "
+            f"(shed_unavailable {pool.stats()['shed_unavailable']}), "
+            f"recovered by itself {recover_s:.2f} s after the revival")
+        take_paged(pa, rows_paged)
+
+        # -- 9c: rolling reloads from a CheckpointStore
+        store = M["CheckpointStore"](tmp)
+        cand = M["MultiLayerNetwork"](M["gpt_configuration"](**SERVE,
+                                                             seed=12),
+                                      dtype=torch.float32, device="cuda")
+        cand.init()
+        t0 = time.perf_counter()
+        store.save(1, lambda p: M["write_model"](cand, p, atomic=False))
+        save_s = time.perf_counter() - t0
+        fp0 = pool_digests(M, pool)
+        v2 = pool._replicas[2].server.model_version
+
+        def refuse_candidate(phase, info):
+            if phase == "pre_step" and info["model_version"] == v2 + 1:
+                raise RuntimeError("replica 2 cannot serve the candidate")
+
+        pool._replicas[2].server.infer_hooks.append(refuse_candidate)
+        s0 = pool.stats()
+        try:
+            pool.rolling_reload(store, step=1, drain_timeout=120)
+        except S.InferenceFailedError as e:
+            if "post-reload probe" not in str(e):
+                raise AssertionError(f"path 9c: {e!r}")
+        else:
+            raise AssertionError("path 9c: replica 2's failed probe did not "
+                                 "stop the deploy")
+        fp = pool_digests(M, pool)
+        s1 = pool.stats()
+        if fp != fp0 or s1["rollbacks"] != s0["rollbacks"] + 1 \
+                or pool.healthy_replicas() != POOL_REPLICAS:
+            raise AssertionError(f"path 9c: after replica 2's failed probe "
+                                 f"the weights moved ({fp} != {fp0}) or the "
+                                 "pool was not rolled back")
+        log("  9c: a candidate replica 2 cannot serve: its post-reload probe "
+            "failed, replicas 0 and 1 rolled back, every weight digest "
+            "unchanged")
+        stop = threading.Event()
+        threads, res, fails = client_load(
+            pool, [rng.integers(0, V, SERVER_PROMPT_T[0])
+                      for _ in range(4)], POOL_DRILL_TOKENS, stop=stop)
+        time.sleep(1.0)
+        t0 = time.perf_counter()
+        versions = pool.rolling_reload(store, step=1, drain_timeout=120)
+        reload_s = time.perf_counter() - t0
+        time.sleep(1.0)
+        stop.set()
+        n = joined_clients(threads, res, fails, POOL_DRILL_TOKENS, "path 9c")
+        s2 = pool.stats()
+        dtypes = sorted({str(r.server.net.compute_dtype or r.server.net.dtype)
+                         for r in pool._replicas})
+        log(f"  9c: rolling_reload under {n} live requests in "
+            f"{reload_s:.2f} s (zip written in {save_s:.2f} s): 0 failed, "
+            f"versions {versions}, rolling_reloads "
+            f"{s2['rolling_reloads']}, migrations "
+            f"{s2['migrations'] - s1['migrations']}, fallbacks "
+            f"{s2['migration_fallbacks'] - s1['migration_fallbacks']}; "
+            f"replicas compute in {dtypes} [{card}]")
+        if s2["rolling_reloads"] != 1:
+            raise AssertionError("path 9c: rolling_reloads != 1")
+        fp1 = pool_digests(M, pool)
+        if fp1 != [M["weight_digest"](cand._params)] * POOL_REPLICAS:
+            raise AssertionError("path 9c: a replica is not on the candidate")
+        # a reloaded candidate computes in f32: its tokens against the
+        # candidate in f32 behind its own engine
+        ref_eng = M["DecodeEngine"](cand, **SERVER_GEN)
+        try:
+            for p in (prompts[0], prompts[4]):
+                a = ref_eng.generate(p, POOL_DRILL_TOKENS, timeout=600)
+                b = pool.generate(p, POOL_DRILL_TOKENS, timeout=600)
+                if not np.array_equal(a, b):
+                    raise AssertionError(f"path 9c: tokens after the reload "
+                                         f"{b[:8]}... != the f32 candidate's "
+                                         f"{a[:8]}...")
+        finally:
+            ref_eng.shutdown()
+        log(f"  9c: after the reload, prompts of {len(prompts[0])} and "
+            f"{len(prompts[4])} give the f32 candidate's tokens")
+        S.ReloadCorruptionInjector().poison_params(store, 2, cand)
+        try:
+            pool.rolling_reload(store, step=2, drain_timeout=120)
+        except S.ModelValidationError as e:
+            if "non-finite" not in str(e):
+                raise AssertionError(f"path 9c: {e!r}")
+        else:
+            raise AssertionError("path 9c: a NaN candidate was deployed")
+        s3 = pool.stats()
+        if pool_digests(M, pool) != fp1 \
+                or s3["rollbacks"] != s2["rollbacks"] + 1:
+            raise AssertionError("path 9c: the poisoned candidate moved a "
+                                 "replica's weights")
+        log("  9c: a poisoned candidate (NaN parameters, manifest valid) "
+            "refused by replica 0's canary, the pool rolled back, "
+            "digests unchanged")
+        del cand
+        pool.sync_net(net)
+        if pool_digests(M, pool) != fp0:
+            raise AssertionError("path 9c: sync_net did not restore path 1's "
+                                 "weights")
+        take_paged(pa)  # f32 pools after the reload: not rows 1's launches
+
+        # -- 9d: the autoscaler under a load spike, then a scale-down that
+        # migrates a live decode
+        def spawn():
+            spawned.append(S.ModelServer(net.clone(), **skw))
+            return spawned[-1]
+
+        scaler = S.Autoscaler(pool, min_replicas=POOL_REPLICAS,
+                              max_replicas=POOL_REPLICAS + 1, interval=0.25,
+                              alpha=1.0, high_watermark=0.5,
+                              low_watermark=0.05, hysteresis=2, cooldown=2.0,
+                              drain_timeout=120, spawn=spawn,
+                              dispose=lambda s: s.shutdown(drain_timeout=60))
+        spike = S.LoadSpikeInjector(pool, prompt=drill[1],
+                                    n_tokens=POOL_SPIKE_TOKENS,
+                                    concurrency=POOL_SPIKE, timeout=600)
+        s0 = pool.stats()
+        t0 = time.perf_counter()
+        scaler.start()
+        spike.start()
+        try:
+            until(lambda: scaler.stats()["scale_ups"] >= 1, "a scale-up", 120)
+            up_s = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            until(lambda: pool.healthy_replicas() == POOL_REPLICAS + 1,
+                  "the new replica's readmission", 120)
+            readmit_s = time.perf_counter() - t1
+        finally:
+            scaler.stop()
+            spike.release()
+        c = spike.counters()
+        added = [e for e in pool.recorder.dump()["events"]
+                 if e["kind"] == "add-replica"]
+        log(f"  9d: a spike of {POOL_SPIKE} clients: scaled up after "
+            f"{up_s:.2f} s (pressure {scaler.stats()['pressure']}), the "
+            f"new replica entered {added[-1]['state'] if added else '?'} "
+            f"and was readmitted {readmit_s:.2f} s later; spike served "
+            f"{c['served']}, failures {c['failures']}, sheds {c['sheds']}, "
+            f"p99 {1e3 * spike.p99():.1f} ms [{card}]")
+        if c["failures"] or c["sheds"] or not added \
+                or added[-1]["state"] != "evicted":
+            raise AssertionError(f"path 9d: spike {c}, added {added}")
+        take_paged(pa, rows_paged)
+        long_p = prompts[4]
+        uninterrupted = pool.generate(long_p, MIGRATE_TOKENS, timeout=600)
+        seen = []
+        res = {}
+
+        def run():
+            res["out"] = pool.generate(long_p, MIGRATE_TOKENS, timeout=600,
+                                       on_token=lambda c, t, e=None:
+                                       seen.append(t))
+
+        t = threading.Thread(target=run)
+        t.start()
+        until(lambda: len(seen) >= MIGRATE_AT, "tokens before the "
+              "scale-down", 300)
+
+        def busy():
+            for rid, r in pool.stats()["replicas"].items():
+                if r.get("generation", {}).get("active_slots", 0) > 0:
+                    return int(rid)
+            return None
+
+        scaler._pick_victim = busy
+        at = len(seen)
+        victim = scaler.scale_down()
+        t.join(600)
+        s1 = pool.stats()
+        ms = scaler.stats()["last_scale_down_ms"]
+        log(f"  9d: scale-down of replica {victim} after {at} of "
+            f"{MIGRATE_TOKENS} tokens of a {len(long_p)}-token prompt: "
+            f"{ms} ms, migrations {s1['migrations'] - s0['migrations']}, "
+            f"fallbacks {s1['migration_fallbacks'] - s0['migration_fallbacks']}"
+            f"; spliced tokens equal the uninterrupted run: "
+            f"{np.array_equal(res.get('out'), uninterrupted)} [{card}]")
+        if s1["migrations"] - s0["migrations"] < 1 \
+                or s1["migration_fallbacks"] != s0["migration_fallbacks"] \
+                or not np.array_equal(res.get("out"), uninterrupted):
+            raise AssertionError("path 9d: the scale-down did not migrate "
+                                 "the live decode bit-identically")
+        if pool.n_replicas != POOL_REPLICAS:
+            raise AssertionError(f"path 9d: {pool.n_replicas} replicas after "
+                                 "the scale-down")
+        take_paged(pa, rows_paged)
+    except BaseException:
+        pool.shutdown(drain_timeout=60)
+        raise
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"  phase 30 {time.perf_counter() - pool_wall:.1f} s")
+    return pool, rows_paged, flash
+
+
+def phase_streams(torch, M, pa, card, pool, rows_paged):
+    """Phase 31: token streams and the exactly-once door on path 9's
+    pool. Shuts the pool down."""
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    S = M["serving"]
+    V = SERVE["vocab_size"]
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(33)
+    p = rng.integers(0, V, SERVER_PROMPT_T[0])
+    tmp = tempfile.mkdtemp(prefix="phase31_")
+    try:
+        for rep in pool._replicas:  # every engine built: the hooks below
+            rep.server.generate(p[:16], 2, timeout=600)
+        unary = pool.generate(p, STREAM_TOKENS, timeout=600)
+        reg = S.StreamRegistry(ring=4 * STREAM_TOKENS)
+
+        def read_all(stream, frames):
+            cur = 0
+            while True:
+                toks, _, cur, body = stream.read(cur, timeout=300)
+                frames.extend(toks)
+                if body is not None and not toks:
+                    return
+
+        def streamed(rid, sink=None):
+            stream = reg.open(rid)
+            frames = []
+            t = threading.Thread(target=read_all, args=(stream, frames))
+            t.start()
+            out = pool.generate(p, STREAM_TOKENS, timeout=600,
+                                on_token=sink(stream) if sink
+                                else stream.publish)
+            reg.finish(stream, {"result": out.tolist()})
+            t.join(300)
+            if t.is_alive():
+                raise AssertionError("phase 31: the reader did not finish")
+            return stream, frames, out
+
+        stream, frames, out = streamed("s1")
+        if frames != out.tolist() or not np.array_equal(out, unary):
+            raise AssertionError("phase 31: the frames differ from the "
+                                 "unary tokens")
+        again = reg.attach("s1")
+        toks, _, cur, _ = again.read(STREAM_K, timeout=0)
+        if toks != unary.tolist()[STREAM_K:] or cur != STREAM_TOKENS:
+            raise AssertionError(f"phase 31: an attach at cursor {STREAM_K} "
+                                 "did not resume there")
+        # a crash planted on the serving replica once k tokens are out
+        crashes = [S.ReplicaCrashInjector() for _ in pool._replicas]
+        hooks = []
+        for rep, inj in zip(pool._replicas, crashes):
+            hooks.append(crash_hooks(inj))
+            rep.server._engine.step_hooks.append(hooks[-1])
+        engines = {rep.server._engine._thread: i
+                   for i, rep in enumerate(pool._replicas)}
+        crashed = []
+
+        def crashing(stream):
+            def sink(cursor, token, entry=None):
+                stream.publish(cursor, token, entry)
+                if cursor == STREAM_K and not crashed:
+                    i = engines[threading.current_thread()]
+                    crashed.append(i)
+                    crashes[i].crash()
+            return sink
+
+        f0 = pool.stats()["failovers"]
+        try:
+            stream, frames, out = streamed("s2", crashing)
+        finally:
+            for inj in crashes:
+                inj.revive()
+            for rep, hook in zip(pool._replicas, hooks):
+                rep.server._engine.step_hooks.remove(hook)
+        fo = pool.stats()["failovers"] - f0
+        log(f"  31: a stream of {STREAM_TOKENS} tokens with a concurrent "
+            f"reader equals the unary tokens; an attach at cursor {STREAM_K} "
+            f"resumes there; replica {crashed} crashed at cursor {STREAM_K}: "
+            f"failovers {fo}, duplicates dropped "
+            f"{stream.duplicate_tokens_dropped}, gaps "
+            f"{stream.gap_tokens_dropped}, frames contiguous and equal to "
+            f"unary: {frames == unary.tolist()} [{card}]")
+        if fo < 1 or frames != out.tolist() or frames != unary.tolist() \
+                or stream.duplicate_tokens_dropped < STREAM_K \
+                or stream.gap_tokens_dropped:
+            raise AssertionError("phase 31: the failed-over stream is not "
+                                 "contiguous and deduplicated")
+        small = S.StreamRegistry(ring=STREAM_RING)
+        s = small.open("o1")
+        pool.generate(p, STREAM_TOKENS, timeout=600, on_token=s.publish)
+        try:
+            s.read(0, timeout=0)
+        except S.StreamBackpressureError:
+            pass
+        else:
+            raise AssertionError("phase 31: a ring overflow was not typed")
+        # the exactly-once door around pool.generate
+        door = S.ExactlyOnceDoor(journal_dir=os.path.join(tmp, "door"))
+        params = {"prompt": p.tolist(), "n_tokens": STREAM_TOKENS}
+
+        def execute(method, prm):
+            o = pool.generate(np.asarray(prm["prompt"]), prm["n_tokens"],
+                              timeout=600)
+            return {"result": o.tolist()}
+
+        if door.admit("e1", "generate", params)[0] != "execute":
+            raise AssertionError("phase 31: a fresh id was not executed")
+        outcome = execute("generate", params)
+        door.complete("e1", outcome)
+        take_paged(pa, rows_paged)
+        verdict, cached = door.admit("e1", "generate", params)
+        retry = take_paged(pa)
+        st = door.stats()["cache"]
+        if verdict != "cached" or cached != outcome or retry \
+                or st["double_executions"]:
+            raise AssertionError(f"phase 31: the retry gave {verdict}, "
+                                 f"launches {retry}, {st}")
+        door.close()
+        jdir = os.path.join(tmp, "orphan")
+        j = S.RequestJournal(jdir)
+        q = rng.integers(0, V, SERVER_PROMPT_T[0])
+        j.admit("orphan", "generate", {"prompt": q.tolist(), "n_tokens": 24})
+        j.close()
+        door2 = S.ExactlyOnceDoor(journal_dir=jdir)
+        n = door2.replay(execute)
+        claim = door2.claim("orphan")["result"]
+        direct = pool.generate(q, 24, timeout=600).tolist()
+        st2 = door2.stats()
+        door2.close()
+        log(f"  31: the door: a retry answered from the ring (no paged "
+            f"launch, double_executions {st['double_executions']}); an "
+            f"admitted but incomplete journal record replayed through a "
+            f"fresh door ({n} replay), its claim equal to a direct run: "
+            f"{claim == direct}")
+        if n != 1 or st2["replays"] != 1 or claim != direct:
+            raise AssertionError("phase 31: the orphan's replay differs")
+        take_paged(pa, rows_paged)
+    finally:
+        pool.shutdown(drain_timeout=60)
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"  phase 31 {time.perf_counter() - t_phase:.1f} s")
+    torch.cuda.empty_cache()
+
+
+def phases_30_31(torch, M, pa, card, path1_tok_s):
+    """Phases 30 and 31; returns the bf16 paged launches and the f32
+    flash launches for the kernel rows."""
+    log("[30/31] path 9: path 1's GPT behind ReplicaPool.from_net(net, 3): "
+        "routing and parity, a crash drill, rolling reloads, the autoscaler")
+    pool, paged, flash = phase_pool(torch, M, pa, card, path1_tok_s)
+    log("[31/31] token streams and the exactly-once door on path 9's pool")
+    phase_streams(torch, M, pa, card, pool, paged)
+    return {"paged": paged, "flash": flash}
+
+
+def phases_30_31_alone(torch, M, pa, cuda_build) -> int:
+    """`--phases-30-31`: path 1 (phase 7, for its tokens/s) and phases 30
+    and 31 alone (the paged and flash sources built first), then one JSON
+    line of their launch counts."""
+    card = nvidia_smi_line()
+    t0 = time.perf_counter()
+    cuda_build.build(("paged_attention", "flash_attention"))
+    log(f"phases 30-31 alone [{card}]; build {time.perf_counter() - t0:.1f} "
+        "s")
+    _, path1_tok_s = phase_serve(torch, M, pa, card)
+    t1 = time.perf_counter()
+    counts = phases_30_31(torch, M, pa, card, path1_tok_s)
+    log(f"phases 30-31 {time.perf_counter() - t1:.1f} s; all "
+        f"{time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"card": card, **{
+        k: {",".join(map(str, key)): n for key, n in v.items()}
+        for k, v in counts.items()}}), flush=True)
     return 0
 
 
@@ -6117,7 +6860,10 @@ def port_modules() -> dict:
     )
     from deeplearning4j_tpu_torch import serving
     from deeplearning4j_tpu_torch.ops import paged_attention as pa
-    from deeplearning4j_tpu_torch.serving.decode_engine import DecodeEngine
+    from deeplearning4j_tpu_torch.serving.decode_engine import (
+        DecodeEngine,
+        weight_digest,
+    )
     from deeplearning4j_tpu_torch.util.checkpoint_store import (
         CheckpointStore,
     )
@@ -6130,6 +6876,7 @@ def port_modules() -> dict:
     from deeplearning4j_tpu_torch.util import determinism
 
     return dict(earlystopping=earlystopping, profiler=profiler,
+                weight_digest=weight_digest,
                 determinism=determinism, kv_transfer=kv_transfer,
                 generate=generate, gpt_configuration=gpt_configuration,
                 MultiLayerNetwork=MultiLayerNetwork, DecodeEngine=DecodeEngine,
@@ -6193,7 +6940,7 @@ def main(argv) -> int:
     of the LSTM kernels against an earlier commit's package. `--path5`:
     phase 21 alone. `--phases-22-23`: phases 22 and 23 alone.
     `--phases-24-26`: phases 24 to 26 alone. `--phases-27-29`: phases 27
-    to 29 alone."""
+    to 29 alone. `--phases-30-31`: phase 7 and phases 30 and 31 alone."""
     import torch
 
     if not torch.cuda.is_available():
@@ -6226,107 +6973,112 @@ def main(argv) -> int:
         return phases_24_26_alone(torch, M, cuda_build)
     if "--phases-27-29" in argv:
         return phases_27_29_alone(torch, M, pa, cuda_build)
+    if "--phases-30-31" in argv:
+        return phases_30_31_alone(torch, M, pa, cuda_build)
 
     card = nvidia_smi_line()
-    log(f"[1/29] card: {card}; {torch.cuda.get_device_name(0)}; torch "
+    log(f"[1/31] card: {card}; {torch.cuda.get_device_name(0)}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}; "
         f"{torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     built = cuda_build.build(KERNEL_SOURCES)
-    log(f"[2/29] build: {time.perf_counter() - t0:.1f} s for "
+    log(f"[2/31] build: {time.perf_counter() - t0:.1f} s for "
         f"{len(built)} source(s)")
     for name, res in built.items():
         for line in ptxas_summary(res.log):
             log(f"  {name}: {line}")
 
-    log("[3/29] paged kernels against their plain versions (TF32 off)")
+    log("[3/31] paged kernels against their plain versions (TF32 off)")
     phase_kernels(torch, pa)
-    log("[4/29] flash kernels against their plain versions (TF32 off)")
+    log("[4/31] flash kernels against their plain versions (TF32 off)")
     phase_flash(torch, fa)
-    log("[5/29] f32 DecodeEngine vs generate, 2 layers, d_model 1024")
+    log("[5/31] f32 DecodeEngine vs generate, 2 layers, d_model 1024")
     phase_parity(torch, M)
-    log("[6/29] f32 training, card (kernels) vs CPU (plain), 1 layer, "
+    log("[6/31] f32 training, card (kernels) vs CPU (plain), 1 layer, "
         "d_model 1024, T=1024")
     phase_train_parity(torch, M)
-    log("[7/29] serving the 8-layer bf16 GPT at full width")
+    log("[7/31] serving the 8-layer bf16 GPT at full width")
     launches, path1_tok_s = phase_serve(torch, M, pa, card)
-    log("[8/29] serving it with int8 KV, the prefix cache and "
+    log("[8/31] serving it with int8 KV, the prefix cache and "
         "self-speculation on shared-prefix traffic")
     launches.update(phase_serve_tier(torch, M, pa, card))
-    log("[9/29] training the 8-layer bf16 gpt_long GPT at full width")
+    log("[9/31] training the 8-layer bf16 gpt_long GPT at full width")
     flash_counts = phase_train(torch, M, card, torch.bfloat16, TRAIN_B,
                                TRAIN_STEPS, 13, "wgmma")
-    log("[9/29] path 2w: the same GPT with 4 heads of 256 (the bf16 "
+    log("[9/31] path 2w: the same GPT with 4 heads of 256 (the bf16 "
         "\"wgmma wide\" flash kernels)")
     flash_counts_wide = phase_train(torch, M, card, torch.bfloat16,
                                     TRAIN_WIDE_B, TRAIN_WIDE_STEPS, 15,
                                     "wgmma wide", n_heads=TRAIN_WIDE_HEADS)
-    log("[9/29] path 2x: the same GPT with 2 heads of 512 (the bf16 "
+    log("[9/31] path 2x: the same GPT with 2 heads of 512 (the bf16 "
         "\"wgmma wide\" forward, the \"wgmma cluster\" backward)")
     flash_counts_2x = phase_train(torch, M, card, torch.bfloat16,
                                   TRAIN_2X_B, TRAIN_2X_STEPS, 16,
                                   TRAIN_2X_ROUTES, n_heads=TRAIN_2X_HEADS)
-    log("[10/29] path 2f: training the 8-layer gpt_long GPT in f32 "
+    log("[10/31] path 2f: training the 8-layer gpt_long GPT in f32 "
         "(split-TF32 flash kernels)")
     flash_counts_f32 = phase_train(torch, M, card, None, TRAIN_F32_B,
                                    TRAIN_F32_STEPS, 14, "tf32")
-    log("[11/29] LSTM kernels against their plain versions (TF32 off)")
+    log("[11/31] LSTM kernels against their plain versions (TF32 off)")
     phase_lstm_kernels(torch, L, M)
-    log("[12/29] f32 char-RNN training, card (kernels) vs CPU (plain), "
+    log("[12/31] f32 char-RNN training, card (kernels) vs CPU (plain), "
         "H=256")
     phase_lstm_train_parity(torch, M)
-    log("[13/29] training the bf16 lstm_large char-RNN at full width")
+    log("[13/31] training the bf16 lstm_large char-RNN at full width")
     lstm_counts, step4_ms = phase_lstm_train(torch, M, card, torch.bfloat16)
-    log("[14/29] training the bf16 lstm char-RNN with tBPTT 24 at full width")
+    log("[14/31] training the bf16 lstm char-RNN with tBPTT 24 at full width")
     tbptt_counts = phase_lstm_tbptt(torch, M, card)
-    log("[15/29] path 4f: training the lstm_large char-RNN in f32 "
+    log("[15/31] path 4f: training the lstm_large char-RNN in f32 "
         "(split-TF32 LSTM kernels)")
     f32_counts, _ = phase_lstm_train(torch, M, card, None, LSTM_F32_STEPS,
                                      "tf32 clusters", seed=2)
-    log("[16/29] timing at the serving and training shapes (bf16 and f32)")
+    log("[16/31] timing at the serving and training shapes (bf16 and f32)")
     rows = phase_timing(torch, pa, launches)
     rows += phase_flash_timing(torch, fa, flash_counts, flash_counts_f32,
                                flash_counts_wide, flash_counts_2x)
-    log("[17/29] timing the LSTM kernels at the char-RNN shapes (bf16 and "
+    log("[17/31] timing the LSTM kernels at the char-RNN shapes (bf16 and "
         "f32)")
     rows += phase_lstm_timing(torch, L, lstm_counts, tbptt_counts,
                               f32_counts)
-    log(f"[18/29] a GravesLSTM wider than the fused kernels (H={LSTM_WIDE}): "
+    log(f"[18/31] a GravesLSTM wider than the fused kernels (H={LSTM_WIDE}): "
         "the step loop, card vs CPU")
     phase_lstm_wide(torch, M)
-    log("[19/29] path 4s: the bf16 lstm_large char-RNN on "
+    log("[19/31] path 4s: the bf16 lstm_large char-RNN on "
         "GravesLSTMCharModellingExample's mini-batches (B=32 x T=1000, "
         "tBPTT 50)")
     lstm_4s_launches(rows, phase_lstm_4s(torch, M, card))
-    log("[20/29] path 4e: the bf16 lstm_large char-RNN through the training "
+    log("[20/31] path 4e: the bf16 lstm_large char-RNN through the training "
         "loop (async iterator, health sentinel, listeners, checkpoints, "
         "evaluate, restore, LBFGS)")
     lstm_4e_launches(rows, phase_lstm_4e(torch, M, card, step4_ms))
-    log("[21/29] path 5: the 8-layer bf16 GPT behind ModelServer (predict, "
+    log("[21/31] path 5: the 8-layer bf16 GPT behind ModelServer (predict, "
         "generate, reload under decode, rejections, the breaker, quantized "
         "weights with the drift gate, shutdown)")
     serve5_launches(rows, phase_server(torch, M, card, path1_tok_s))
-    log("[22/29] the CNN layers against the CPU and numpy (f32), path 6: "
+    log("[22/31] the CNN layers against the CPU and numpy (f32), path 6: "
         "LeNet at bench_lenet's shape, its f32 parity")
     phase_cnn_layers(torch, M)
     phase_lenet(torch, M, card)
-    log("[23/29] SelfAttention on the non-causal flash kernels, MoELayer "
+    log("[23/31] SelfAttention on the non-causal flash kernels, MoELayer "
         "against numpy, path 2m: the MoE gpt_long GPT, MoE serving")
     counts = phase_attention_moe(torch, M, pa, card)
     rows += attention_moe_rows(torch, fa, counts)
     moe_launches(rows, counts)
-    log("[24/29] path 7: ResNet-50 on CIFAR-10 at bench_resnet50's shape "
+    log("[24/31] path 7: ResNet-50 on CIFAR-10 at bench_resnet50's shape "
         "(a ComputationGraph, bf16, B=256)")
     phase_resnet(torch, M, card)
-    log("[25/29] the graph on the LSTM kernels: path 4's char-RNN as a "
+    log("[25/31] the graph on the LSTM kernels: path 4's char-RNN as a "
         "graph against the list container, a masked tBPTT graph, f32 "
         "graph parity with the CPU and numpy")
     graph_launches(rows, phase_graph_lstm(torch, M, card))
-    log("[26/29] pretraining on the card: the MNIST VAE example's VAE, the "
+    log("[26/31] pretraining on the card: the MNIST VAE example's VAE, the "
         "DeepAutoEncoder RBM stack, an AutoEncoder stack")
     phase_pretrain(torch, M, card)
     cluster_launches(rows, *phases_27_29(torch, M, pa, card))
+    # path 9's bf16 paged launches go into rows 1, its f32 predict into
+    # the f32 forward row at T=4096, as path 5's
+    serve5_launches(rows, phases_30_31(torch, M, pa, card, path1_tok_s))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

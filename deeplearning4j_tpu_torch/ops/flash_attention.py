@@ -37,11 +37,14 @@ route)]` (the same by kernel family: kind "fwd", "dq" or "dkv"; route
 "tf32", "tf32 cluster", "wgmma", "wgmma wide" or "wgmma cluster", as the
 library reports it),
 `flash_attention_plain_fwd.calls` and `flash_attention_plain_bwd.calls`.
+Every increment is made under `_COUNT_LOCK`, so the counts stay exact
+when several engines' threads call in at once.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+import threading
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -49,6 +52,8 @@ import torch
 from deeplearning4j_tpu_torch.ops.kernel_dispatch import mxu_dtype, stat_dtype
 
 NEG_INF = -1e30
+
+_COUNT_LOCK = threading.Lock()
 
 # Tolerance of the kernels against the plain versions computed in f32 on
 # the same inputs (bf16 cast up exactly); see `error_in_tolerances`. O,
@@ -133,7 +138,8 @@ def flash_attention_plain_fwd(q, k, v, causal: bool = False,
     """Plain forward: (O, L) with O (B, Tq, H, D) in q's dtype and L the
     row logsumexp (B*H, Tq) in the statistic dtype; rows with no visible
     key give O = 0 and L = NEG_INF."""
-    flash_attention_plain_fwd.calls += 1
+    with _COUNT_LOCK:
+        flash_attention_plain_fwd.calls += 1
     B, Tq, H, D = q.shape
     scale = _scale(D, sm_scale)
     s = _scores(q, k, causal, scale)
@@ -155,7 +161,8 @@ def flash_attention_plain_bwd(q, k, v, o, lse, do, causal: bool = False,
                               sm_scale: Optional[float] = None):
     """Plain backward from the forward's O and L: (dQ, dK, dV) with
     P = exp(S - L), dsum = rowsum(dO * O), dS = P * (dO V^T - dsum)."""
-    flash_attention_plain_bwd.calls += 1
+    with _COUNT_LOCK:
+        flash_attention_plain_bwd.calls += 1
     B, Tq, H, D = q.shape
     scale = _scale(D, sm_scale)
     s = _scores(q, k, causal, scale)
@@ -275,9 +282,10 @@ def _raise_on(rc, what, shape):
 
 def _counted(wrapper, lib, kind, code, D):
     """One launch of `wrapper`'s kernel: its count and its route's."""
-    wrapper.launches += 1
     key = (_KIND_NAMES[kind], ROUTES[lib.dl4j_flash_route(kind, code, D)])
-    launches_by_route[key] = launches_by_route.get(key, 0) + 1
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+        launches_by_route[key] = launches_by_route.get(key, 0) + 1
 
 
 def flash_forward(q, k, v, causal: bool, sm_scale: Optional[float],
@@ -429,9 +437,10 @@ def flash_attention(q, k, v, *, causal: bool = False,
 def reset_counts() -> None:
     """Set the kernels' launch counts and the plain versions' call counts
     to 0."""
-    flash_forward.launches = 0
-    flash_bwd_dq.launches = 0
-    flash_bwd_dkv.launches = 0
-    launches_by_route.clear()
-    flash_attention_plain_fwd.calls = 0
-    flash_attention_plain_bwd.calls = 0
+    with _COUNT_LOCK:
+        flash_forward.launches = 0
+        flash_bwd_dq.launches = 0
+        flash_bwd_dkv.launches = 0
+        launches_by_route.clear()
+        flash_attention_plain_fwd.calls = 0
+        flash_attention_plain_bwd.calls = 0

@@ -25,13 +25,17 @@ Each function keeps a plain integer count: `paged_attention.launches`
 (calls that launched the kernels; `launches_by` splits them by
 `(C, kind)`, the chunk width and "dense" or "int8") and
 `paged_attention_plain.calls`. A run can set them to 0 and read them
-after to show which path it took.
+after to show which path it took. Several engines' scheduler threads
+call these functions at once (a replica pool in one process), so every
+increment is made under `_COUNT_LOCK`: a bare `+=` is a read, an add and
+a write that a thread switch can split, losing counts.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
+import threading
 from typing import NamedTuple, Optional
 
 import torch
@@ -50,6 +54,8 @@ from deeplearning4j_tpu_torch.ops.attention import (
 # rounds the dequantized K/V to q's type, as the kernel does (`kv_dtype`).
 TOLERANCE = {torch.float32: 2e-4, torch.bfloat16: 4e-3}
 
+_COUNT_LOCK = threading.Lock()
+
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -64,7 +70,8 @@ def paged_attention_plain(q, k_pool, v_pool, page_table, positions,
     dequantized values rounded to `kv_dtype` (default: q's type, the
     JAX package's rounding point) before the products. Returns
     (S, C, H, hd) in q's dtype."""
-    paged_attention_plain.calls += 1
+    with _COUNT_LOCK:
+        paged_attention_plain.calls += 1
     S, C, H, hd = q.shape
     if k_scale is not None:
         kd, vd = paged_gather_quant(k_pool, v_pool, k_scale, v_scale,
@@ -253,15 +260,20 @@ def paged_attention(q, k_pool, v_pool, page_table, positions, *,
                            f"{rc} (S={S}, C={C}, H={H}, Hkv={Hkv}, hd={hd}, "
                            f"page={page}, pools {k_pool.dtype}, {p}, "
                            f"smem={smem})")
-    key = (C, "int8" if int8 else "dense")
-    paged_attention.launches += 1
-    paged_attention.launches_by[key] = \
-        paged_attention.launches_by.get(key, 0) + 1
+    _count_launch((C, "int8" if int8 else "dense"))
     return out
 
 
 paged_attention.launches = 0
 paged_attention.launches_by = {}
+
+
+def _count_launch(key) -> None:
+    """One launch of the kernels at `key` = (C, "dense" or "int8")."""
+    with _COUNT_LOCK:
+        paged_attention.launches += 1
+        paged_attention.launches_by[key] = \
+            paged_attention.launches_by.get(key, 0) + 1
 
 
 def _library() -> ctypes.CDLL:
@@ -285,6 +297,7 @@ def _library() -> ctypes.CDLL:
 def reset_counts() -> None:
     """Set the kernel's launch counts and the plain version's call count
     to 0."""
-    paged_attention.launches = 0
-    paged_attention.launches_by = {}
-    paged_attention_plain.calls = 0
+    with _COUNT_LOCK:
+        paged_attention.launches = 0
+        paged_attention.launches_by = {}
+        paged_attention_plain.calls = 0

@@ -819,6 +819,10 @@ class ModelServer:
                     self._engine.bind_prefix_directory(*a, **kw)
             return self._engine
 
+    # streaming sinks (`on_token=`) reach the engine in-process here; an
+    # adapter that cannot ship a callable over a wire says False
+    supports_stream_sink = True
+
     def generate(self, prompt_ids, n_tokens: int, *,
                  temperature: float = 0.0, seed: int = 0,
                  timeout: Optional[float] = None,

@@ -119,22 +119,54 @@ def test_the_walk_covers_the_training_extras_and_the_cluster_half():
 
 
 @pytest.mark.parametrize("module,name,item", [
-    ("serving", "ReplicaPool", "A11b"),
-    ("serving", "TokenStream", "A11b"),
+    ("serving", "ChaosProxy", "A11c"),
+    ("serving.chaos", "SlowConsumerInjector", "A11c"),
     ("serving", "RemoteReplica", "A11c"),
     ("parallel", "ParallelWrapper", "A12"),
     ("parallel", "make_mesh", "A12"),
 ])
 def test_unported_families_raise_naming_their_item(module, name, item):
-    """The replica pool and what builds on it (A11b), the wire and the
-    remote replicas (A11c) and parallel training (A12) raise
-    NotImplementedError naming their queue item, never AttributeError or
-    ImportError."""
+    """The wire, the remote replicas and the network injectors (A11c) and
+    parallel training (A12) raise NotImplementedError naming their queue
+    item, never AttributeError or ImportError."""
     mod = importlib.import_module(f"{PORT}.{module}" if module else PORT)
     with pytest.raises(NotImplementedError, match=rf"queue {item}\b"):
         getattr(mod, name)
     with pytest.raises(NotImplementedError, match=rf"queue {item}\b"):
         exec(f"from {mod.__name__} import {name}", {})
+
+
+def test_the_walk_covers_the_replica_pool_tier():
+    assert {f"{PORT}.serving.streaming", f"{PORT}.serving.exactly_once",
+            f"{PORT}.serving.replica_pool", f"{PORT}.serving.autoscaler",
+            f"{PORT}.serving.chaos"} <= set(MODULES)
+
+
+A11B = ("Autoscaler", "DedupCache", "ExactlyOnceDoor", "ReplicaEvictedError",
+        "ReplicaPool", "RequestJournal", "ResultPendingError",
+        "StreamBackpressureError", "StreamRegistry", "TokenStream",
+        "UnknownRequestError")
+CHAOS_IN_PROCESS = (
+    "BrokenModelInjector", "InjectedServingFault", "JournalCorruptionInjector",
+    "KVTransferCorruptionInjector", "LoadSpikeInjector", "PrefixFetchSaboteur",
+    "ReloadCorruptionInjector", "ReplicaCrashInjector", "ReplicaHangInjector",
+    "SlowInferenceInjector", "TenantFloodInjector")
+
+
+@pytest.mark.parametrize("name", A11B + CHAOS_IN_PROCESS)
+def test_the_replica_pool_tier_resolves_from_serving(name):
+    """The replica pool, the autoscaler, the streams, the exactly-once
+    door and the in-process injectors are ported: `serving` exports the
+    class its module defines, and the JAX package's `serving` has a
+    name of the same kind."""
+    serving = importlib.import_module(f"{PORT}.serving")
+    ref = importlib.import_module(f"{REF}.serving")
+    obj = getattr(serving, name)
+    assert inspect.isclass(obj) and name in serving.__all__
+    assert obj.__module__.startswith(f"{PORT}.serving.")
+    assert inspect.isclass(getattr(ref, name))
+    assert issubclass(obj, Exception) == issubclass(getattr(ref, name),
+                                                    Exception)
 
 
 def test_pretrain_and_sharded_experts_raise_naming_their_item():
