@@ -73,7 +73,11 @@ belongs to):
   check counts as caught;
 - pool, stream: `chip_smoke.py`'s phases 30 and 31 (path 9, the replica
   pool; the streams and the exactly-once door on its pool), one run for
-  both families, whose failed check counts as caught.
+  both families, whose failed check counts as caught;
+- wire: `chip_smoke.py`'s phases 32 and 33 (path 10, three replica
+  processes behind a gateway; the wire's streams, claims, door and
+  journal), whose failed check counts as caught. The replica processes
+  of a copy run that copy's modules.
 
 The faults (`MUTATIONS`) drop tiles, terms or rows, and break each
 mechanism of the Hopper kernels: the forward's diagonal mask on the wrong
@@ -158,7 +162,12 @@ rolling reload that skips the rollback after replica k's failed probe,
 and a scale-down that removes its victim undrained; the streams and the
 door (`serving/streaming.py`, `serving/exactly_once.py`): a
 `TokenStream` that accepts a duplicate cursor and a `DedupCache` that
-re-executes a completed id. A
+re-executes a completed id; the wire and the processes (`gateway.py`,
+`serving/remote_replica.py`): a codec that sends every array as f32,
+the remote `ServerClosedError` mapped to the terminal `ServerClosedError`
+instead of a failover, a supervisor that never respawns, a gateway door
+that re-executes a retried `fit`, and a stream pump that resumes one
+token past the client's cursor. A
 fault that makes the kernel trap (an mbarrier wait that times out) fails
 its check process, which counts as caught.
 
@@ -211,6 +220,11 @@ DISAGG, QOS = "disagg", "qos"
 # (`serving/streaming.py`, `serving/exactly_once.py`), checked by its
 # phase 31 on path 9's pool; one run of both phases checks either family
 POOL, STREAM = "pool", "stream"
+# the wire and replicas as processes (`gateway.py`,
+# `serving/remote_replica.py`), checked by `chip_smoke.py`'s phases 32-33
+# (path 10: three replica processes on the card behind a gateway; the
+# wire's streams, claims, door and journal)
+WIRE = "wire"
 # (B, T, H, D, causal, dtype): bf16, the training path's kernels at D = 128,
 # the "wgmma wide" kernels at D = 256 and the "wgmma cluster" backward at
 # D = 384 and 512 (T = 192: the first diagonal tiles; T = 1024 full: every
@@ -888,6 +902,37 @@ MUTATIONS = [
           "                self._cond.notify_all()\n"
           "                return True\n")],
      "serving/streaming.py"),
+    # the wire and the processes, each caught by phases 32-33: the tokens'
+    # dtype through the gateway (10a), the closing replica's refusals all
+    # failovers (10e), the killed replica respawned (10b), the retried fit
+    # answered from the door and the torn stream equal to unary (33)
+    ("wire: the codec drops an array's dtype", WIRE,
+     "def encode_array(a) -> Dict[str, str]:", [
+         ("np.save(buf, _host_array(a), allow_pickle=False)",
+          "np.save(buf, _host_array(a).astype(np.float32), "
+          "allow_pickle=False)")],
+     "gateway.py"),
+    ("wire: ServerClosedError maps to a terminal error", WIRE,
+     "_WIRE_ERRORS: Dict[str, type] = {", [
+         ('"ServerClosedError": ServiceUnavailableError,',
+          '"ServerClosedError": ServerClosedError,')],
+     "serving/remote_replica.py"),
+    ("wire: the supervisor never respawns", WIRE,
+     "    def _monitor_loop(self) -> None:", [
+         ("                    self._spawn(i)\n"
+          "                    self.respawns += 1\n",
+          "                    pass\n")],
+     "serving/remote_replica.py"),
+    ("wire: the door re-executes a retried fit", WIRE,
+     "                            verdict, info = door.admit(", [
+         ('if verdict == "cached":',
+          'if verdict == "cached" and req["method"] != "fit":')],
+     "gateway.py"),
+    ("wire: the stream pump skips a frame on resume", WIRE,
+     "            def _resume_stream(self, req, req_id):", [
+         ("return self._pump(stream, cursor, req_id)",
+          "return self._pump(stream, cursor + 1, req_id)")],
+     "gateway.py"),
     ("stream: DedupCache re-executes a completed id", STREAM,
      "    def begin(self, request_id: str) -> Tuple[str, Any]:", [
          ("            ent = self._done.get(request_id)\n"
@@ -951,7 +996,8 @@ def build(sources) -> None:
     needs = {GUARD: (LSTM,), SERVER: (PAGED, FLASH), CNN: (),
              MOE: (PAGED, FLASH), GRAPH: (LSTM,), PRETRAIN: (LSTM,),
              DISAGG: (PAGED,), QOS: (PAGED, FLASH, LSTM),
-             POOL: (PAGED, FLASH), STREAM: (PAGED, FLASH)}
+             POOL: (PAGED, FLASH), STREAM: (PAGED, FLASH),
+             WIRE: (PAGED, FLASH, LSTM)}
     cuda_build.build(tuple(sorted({k for s in sources
                                    for k in needs.get(s, (s,))})))
 
@@ -1004,6 +1050,12 @@ def check(sources) -> None:
         cases += phase_cases(torch, "30-31", "path 9, streams, the door",
                              lambda cs, M, card: cs.phases_30_31(
                                  torch, M, pa, card, None))
+    if WIRE in sources:
+        import deeplearning4j_tpu_torch.ops.paged_attention as pa
+
+        cases += phase_cases(torch, "32-33", "path 10, the wire",
+                             lambda cs, M, card: cs.phases_32_33(
+                                 torch, M, pa, card))
     print(json.dumps({"package": fa.__file__, "cases": cases}), flush=True)
 
 
@@ -1222,7 +1274,7 @@ def main() -> int:
         results = []
         for (name, m), root in zip(runs, roots):
             p = subprocess.run(child_cmd(root, "check", families(m, selected)), cwd=root,
-                               capture_output=True, text=True, timeout=600)
+                               capture_output=True, text=True, timeout=1800)
             if p.returncode != 0:
                 log(f"{name}: the check process failed (exit "
                     f"{p.returncode}): {p.stderr.strip()[-400:]}")

@@ -9,6 +9,7 @@ NVIDIA card.
     python3 chip_smoke.py --phases-24-26   # the graph and pretraining phases
     python3 chip_smoke.py --phases-27-29   # the cluster half and A10b phases
     python3 chip_smoke.py --phases-30-31   # path 9: the replica pool tier
+    python3 chip_smoke.py --phases-32-33   # path 10: the wire, processes
 
 `--lstm-timing` runs phase 17 alone (the LSTM source built, the rows
 checked and timed, launch counts 0) on the checkout's package or, with
@@ -24,7 +25,10 @@ then prints one JSON line of phase 25's launch counts. `--phases-27-29`
 builds every source and runs phases 27 to 29 alone, then prints one JSON
 line of their launch counts. `--phases-30-31` builds the paged and flash
 sources and runs phase 7 (path 1, for its tokens/s) and phases 30 and 31
-alone, then prints one JSON line of their launch counts.
+alone, then prints one JSON line of their launch counts. `--phases-32-33`
+builds the paged and flash sources and runs phases 32 and 33 alone, then
+times row 1's f32 rows and prints one JSON line of those rows and the
+launch counts.
 
 Phases, each of which makes the script exit non-zero when it fails:
 
@@ -450,7 +454,9 @@ Phases, each of which makes the script exit non-zero when it fails:
 29. path 4's char-RNN (bf16 over f32 masters, B=2048 x T=64) through
    `EarlyStoppingTrainer` (3 epochs of 4 batches, a DataSetLossCalculator
    on 2 held-out batches, a LocalFileModelSaver): the best model restored
-   from its zip scores exactly what the result recorded; a
+   from its zip computes in f32 (a zip holds no compute dtype, as in the
+   JAX package) and, given the run's bf16 compute back, scores exactly
+   what the result recorded; a
    `ProfilerListener(sync=True)`'s p50/p90 step ms; an `XlaTraceListener`
    over 2 iterations writes a Chrome trace holding the LSTM kernels;
    `assert_deterministic` bit-exact on path 2's GPT (B=2 x T=4096, 3
@@ -501,7 +507,52 @@ Phases, each of which makes the script exit non-zero when it fails:
    retry from its ring with no paged launch and `double_executions == 0`;
    an admitted but incomplete journal record replays through a fresh door
    and its claim equals a direct run. Path 9's bf16 paged launches go
-   into rows 1, its f32 predict into the f32 forward row at T=4096.
+   into rows 1, its f32 predict into the f32 forward row at T=4096;
+32. path 10: path 1's network (f32, seed 11, written to a zip here and
+   served by `load_model` over the wire) behind a port `GatewayServer`
+   with `serving={"replicas": 3,
+   "remote": ..., "generation": path 1's engine settings}`: three
+   replica PROCESSES on the one card (`python -m
+   deeplearning4j_tpu_torch.serving.remote_replica --device cuda`, the
+   kernels built in this process first), each restoring the zip the
+   pool wrote, so each decodes in f32 pools. 10a: path 1's six requests
+   from six client threads through a `GatewayClient`: every request's
+   tokens (int32) equal to one f32 `DecodeEngine` on the same zip in
+   this process and to an in-process 3-replica pool on it (asserted;
+   both timed before any replica process exists); tokens/s of the
+   three (medians of 3 runs), the card's busy share over each window
+   (`nvidia-smi --query-gpu=utilization.gpu` every 100 ms), no paged
+   launch in this process; a (1, 4096) predict through the wire within
+   1e-4 of `net.output`. 10b: kill -9 of replica 1 under live traffic
+   (4 clients of 128 + 32 through the gateway): 0 failed, evicted,
+   respawned and readmitted (times from the kill). 10c: a `ChaosProxy`
+   partition of replica 2 (a drill pool over the same processes): 0
+   failed, evicted, readmitted after the heal, the process never
+   restarted. 10d: `rolling_reload` of the zip over the wire under live
+   traffic: 0 failed, versions [1, 1, 1], no rollback, tokens after it
+   equal the f32 engine's. 10e: a graceful stop (SIGTERM, the slot
+   retired) of replica 0 under live predicts through the gateway: 0
+   failed, and every refusal of the closing replica on a kept-alive
+   connection is a failover (`ServiceUnavailableError`, the closing
+   server's `ServerClosedError` mapped so, or `InferenceFailedError`).
+   Path 10's launches are 10a's window: each replica writes its counts
+   to its log on SIGUSR1, before the runs and after the predict, and
+   their difference (dense, C=1 and C=256, no plain call) equals 8
+   layers times its engine's decode steps and prefill chunks in the
+   window; the predict's flash forward launched in a replica. Each
+   process that stopped cleanly is held to the same rule over its life;
+33. the wire on the card: a `GatewayServer` (exactly-once door with a
+   journal) serving path 1's network in f32 and a small MLP: a
+   `generate_stream` of 96 tokens torn after its first frame resumes
+   and concatenates to the unary tokens; a `generate` whose client
+   disconnected is claimed, equal to a direct run; a `fit` retried with
+   its request id returns the same float (a new fit does not), with no
+   double execution; a gateway restarted on the journal replays an
+   admitted request that never completed, its claim equal to a direct
+   run, nothing pending, no double execution. Path 10's and phase 33's
+   paged launches (f32 pools) go into row 1's f32 rows, timed at path
+   1's shapes; the replicas' f32 predict into the f32 forward row at
+   T=4096.
 
 Prints one JSON line of per-kernel numbers, then the card's
 `nvidia-smi` line, then as the last line
@@ -676,12 +727,19 @@ def work(inp):
 
 
 def bound_ms(inp):
+    """(bound in ms, what bounds it, f32-FMA bound in ms or None). f32
+    work is bounded by split TF32 on the tensor cores (3 products per
+    f32 product), as the f32 flash rows are; the rate outside the tensor
+    cores is returned beside it."""
     flops, nbytes = work(inp)
-    peak = PEAK_BF16_FLOPS if inp["q"].dtype.itemsize == 2 \
-        else PEAK_F32_FLOPS
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    t_bytes = nbytes / PEAK_BYTES
+    if inp["q"].dtype.itemsize == 2:
+        t_ops, fma_ms = flops / PEAK_BF16_FLOPS, None
+    else:
+        t_ops = 3 * flops / PEAK_TF32_FLOPS
+        fma_ms = 1e3 * max(flops / PEAK_F32_FLOPS, t_bytes)
     return 1e3 * max(t_ops, t_bytes), \
-        ("operations" if t_ops > t_bytes else "bytes")
+        ("operations" if t_ops > t_bytes else "bytes"), fma_ms
 
 
 def time_ms(torch, fn, iters=20, warmup=3):
@@ -1185,12 +1243,20 @@ def sdpa_yardstick(torch, inp):
     return lambda: F.scaled_dot_product_attention(qd, kt, vd, attn_mask=mask)
 
 
+# path 1's serving shapes: 8 heads of 128, pages of 128, 34 pages a slot;
+# a decode step of 8 slots (two long, four short, two inactive) and a
+# prefill chunk of 256 at position 3840
+PAGED_SERVING = dict(H=8, Hkv=8, hd=128, page=128, n_pages=34)
+PAGED_SHAPES = {
+    "decode": dict(S=8, C=1, positions=[4160, 4160, 192, 192, 192, 192, 0, 0],
+                   inactive=(6, 7)),
+    "chunk": dict(S=1, C=256, positions=[3840])}
+
+
 def phase_timing(torch, pa, launches):
     """Kernel / plain / library times at the serving shapes, bf16 q."""
-    serving = dict(H=8, Hkv=8, hd=128, page=128, n_pages=34)
-    decode = dict(S=8, C=1, positions=[4160, 4160, 192, 192, 192, 192, 0, 0],
-                  inactive=(6, 7))
-    chunk = dict(S=1, C=256, positions=[3840])
+    serving = PAGED_SERVING
+    decode, chunk = PAGED_SHAPES["decode"], PAGED_SHAPES["chunk"]
     # main path 3's slots: a 1088-token prompt and 32-64 outputs each
     tier_pos = [1100, 1110, 1120, 1130, 1140, 1100, 1110, 1120]
     shapes = [
@@ -1205,55 +1271,60 @@ def phase_timing(torch, pa, launches):
         ("paged_attention_int8_prefill_chunk_c128", "int8",
          dict(S=1, C=128, positions=[1024])),
     ]
-    rows = []
-    for name, kind, sh in shapes:
-        kw = dict(serving, dtype=torch.bfloat16, seed=7, garbage=False, **sh)
-        inp = paged_inputs(torch, int8=kind == "int8", **kw)
-        args = (inp["q"], inp["k_pool"], inp["v_pool"], inp["page_table"],
-                inp["positions"])
-        sc = scale_kw(inp)
-        out = pa.paged_attention(*args, active=inp["active"], **sc)
-        ref = plain_f32(pa, inp)
-        torch.cuda.synchronize()
-        err = (out.float() - ref).abs().max().item()
-        t = pa.TOLERANCE[torch.bfloat16]
-        if not torch.allclose(out.float(), ref, atol=t, rtol=t):
-            raise AssertionError(f"{name}: kernel disagrees with plain, "
-                                 f"max_abs_err={err} (tolerance {t})")
-        ms = time_ms(torch, lambda: pa.paged_attention(
-            *args, active=inp["active"], **sc))
-        plain_ms = time_ms(torch, lambda: pa.paged_attention_plain(
-            *args, inp["active"], **sc))
-        lib_ms = time_ms(torch, sdpa_yardstick(torch, inp))
-        host = host_us(torch, lambda: pa.paged_attention(
-            *args, active=inp["active"], **sc))
-        b_ms, b_by = bound_ms(inp)
-        row = {"name": name, "route": "cuda",
-               "source": "deeplearning4j_tpu_torch/csrc/paged_attention.cu",
-               "replaces": REPLACES,
-               "launches": int(launches.get((sh["C"], kind), 0)),
-               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
-        extra = ""
-        if kind == "int8":  # the dense kernel on bf16 pools, same positions
-            dense = paged_inputs(torch, **kw)
-            dense_ms = time_ms(torch, lambda: pa.paged_attention(
-                dense["q"], dense["k_pool"], dense["v_pool"],
-                dense["page_table"], dense["positions"],
-                active=dense["active"]))
-            extra = f", dense kernel on bf16 pools {dense_ms:.4f} ms"
-        S, C, H, hd = inp["q"].shape
-        Hkv, page = inp["k_pool"].shape[1], inp["k_pool"].shape[3]
-        plan = pa.plan(True, kind == "int8", S, C, H, Hkv, hd, page,
-                       inp["page_table"].shape[1],
-                       torch.cuda.get_device_properties(0)
-                       .multi_processor_count)
-        log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-            f"max_abs_err {err:.3e}; wrapper host time {host:.1f} us/call"
-            f"{extra}; {plan}")
-        rows.append(row)
-    return rows
+    return [paged_row(torch, pa, name, kind, dict(serving, **sh),
+                      torch.bfloat16, launches.get((sh["C"], kind), 0))
+            for name, kind, sh in shapes]
+
+
+def paged_row(torch, pa, name, kind, shape, dtype, launches):
+    """One kernels-line row of the paged kernel: held against its plain
+    version in f32 on the same inputs, then kernel / plain / library
+    times and the bound at `shape`, with q and the dense pools in
+    `dtype`."""
+    kw = dict(shape, dtype=dtype, seed=7, garbage=False)
+    inp = paged_inputs(torch, int8=kind == "int8", **kw)
+    args = (inp["q"], inp["k_pool"], inp["v_pool"], inp["page_table"],
+            inp["positions"])
+    sc = scale_kw(inp)
+    out = pa.paged_attention(*args, active=inp["active"], **sc)
+    ref = plain_f32(pa, inp)
+    torch.cuda.synchronize()
+    err = (out.float() - ref).abs().max().item()
+    t = pa.TOLERANCE[dtype]
+    if not torch.allclose(out.float(), ref, atol=t, rtol=t):
+        raise AssertionError(f"{name}: kernel disagrees with plain, "
+                             f"max_abs_err={err} (tolerance {t})")
+    ms = time_ms(torch, lambda: pa.paged_attention(
+        *args, active=inp["active"], **sc))
+    plain_ms = time_ms(torch, lambda: pa.paged_attention_plain(
+        *args, inp["active"], **sc))
+    lib_ms = time_ms(torch, sdpa_yardstick(torch, inp))
+    host = host_us(torch, lambda: pa.paged_attention(
+        *args, active=inp["active"], **sc))
+    b_ms, b_by, fma_ms = bound_ms(inp)
+    row = {"name": name, "route": "cuda",
+           "source": "deeplearning4j_tpu_torch/csrc/paged_attention.cu",
+           "replaces": REPLACES, "launches": int(launches),
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+    extra = "" if fma_ms is None else f", f32-FMA bound {fma_ms:.4f} ms"
+    if kind == "int8":  # the dense kernel on bf16 pools, same positions
+        dense = paged_inputs(torch, **kw)
+        dense_ms = time_ms(torch, lambda: pa.paged_attention(
+            dense["q"], dense["k_pool"], dense["v_pool"],
+            dense["page_table"], dense["positions"],
+            active=dense["active"]))
+        extra += f", dense kernel on bf16 pools {dense_ms:.4f} ms"
+    S, C, H, hd = inp["q"].shape
+    Hkv, page = inp["k_pool"].shape[1], inp["k_pool"].shape[3]
+    plan = pa.plan(dtype == torch.bfloat16, kind == "int8", S, C, H, Hkv,
+                   hd, page, inp["page_table"].shape[1],
+                   torch.cuda.get_device_properties(0).multi_processor_count)
+    log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+        f"max_abs_err {err:.3e}; wrapper host time {host:.1f} us/call"
+        f"{extra}; {plan}")
+    return row
 
 
 # ----------------------------------------------------- flash attention
@@ -5304,12 +5375,14 @@ def path1_net(torch, M, compute_dtype):
     return net
 
 
-def until(pred, what, timeout=600.0):
+def until(pred, what, timeout=600.0, tick=0.002):
+    """Wait for `pred()`, polled every `tick` s, within `timeout` s, or
+    fail naming `what`."""
     end = time.monotonic() + timeout
     while not pred():
         if time.monotonic() > end:
             raise AssertionError(f"timed out waiting for {what}")
-        time.sleep(0.002)
+        time.sleep(tick)
 
 
 def poisson_run(np, fn, prompts, n_tokens, seed, gap):
@@ -5945,6 +6018,11 @@ def phase_extras(torch, M, card):
         if best is None:
             raise AssertionError("phase 29: the saver restored no best "
                                  "model")
+        # a zip holds no compute dtype: the best model loads computing in
+        # f32, as the reference's does; given the run's bf16 compute back
+        # it scores exactly what the result recorded
+        restored_dtype = best.compute_dtype
+        best.compute_dtype = torch.bfloat16
         rescore = ES.DataSetLossCalculator(It(held)).calculate_score(best)
         restored_device = str(best.device)
     s = timer.summary()
@@ -5953,7 +6031,8 @@ def phase_extras(torch, M, card):
         f"({res.termination_details}), {res.total_epochs} epochs in "
         f"{wall:.2f} s; held-out scores {res.score_vs_epoch}; best epoch "
         f"{res.best_model_epoch} ({res.best_model_score!r}), restored from "
-        f"its zip on {restored_device}: {rescore!r}; step ms p50 "
+        f"its zip on {restored_device} computing in {restored_dtype} (f32), "
+        f"in bf16 scoring {rescore!r}; step ms p50 "
         f"{s['p50_ms']:.2f}, p90 {s['p90_ms']:.2f} over {s['iterations']} "
         f"intervals [{card}]")
     log(f"  LSTM launches {es_counts[0]}, by route {es_counts[1]}; traced "
@@ -5963,9 +6042,10 @@ def phase_extras(torch, M, card):
             or res.total_epochs != ES_EPOCHS \
             or not all(np.isfinite(list(res.score_vs_epoch.values()))):
         raise AssertionError(f"phase 29: early stopping result {res}")
-    if rescore != res.best_model_score:
-        raise AssertionError(f"phase 29: the restored best model scores "
-                             f"{rescore!r}, the result {res.best_model_score!r}")
+    if rescore != res.best_model_score or restored_dtype is not None:
+        raise AssertionError(f"phase 29: the restored best model computes "
+                             f"in {restored_dtype} and scores {rescore!r} in "
+                             f"bf16, the result {res.best_model_score!r}")
     if net.listeners != [timer, tracer] or not lstm_names:
         raise AssertionError(f"phase 29: listeners {net.listeners}, LSTM "
                              f"kernels in the trace {lstm_names}")
@@ -6050,19 +6130,19 @@ def phases_27_29(torch, M, pa, card):
         for k, n in counts.items():
             paged[k] = paged.get(k, 0) + n
 
-    log("[27/31] path 8: path 1's GPT disaggregated (8a: the two mixes, "
+    log("[27/33] path 8: path 1's GPT disaggregated (8a: the two mixes, "
         "bf16 and int8 KV, against a colocated server), live migration "
         "(8b: warm, cold, sampled, int8), the cluster prefix cache (8c)")
     add(phase_disagg(torch, M, pa, card))
     net, counts = phase_migration(torch, M, pa, card)
     add(counts)
     add(phase_prefix_cluster(torch, M, pa, card, net))
-    log("[28/31] QoS on path 1's engine: a flood tenant under quota beside "
+    log("[28/33] QoS on path 1's engine: a flood tenant under quota beside "
         "Poisson interactive traffic, preemption of the batch lane")
     add(phase_qos(torch, M, pa, card, net))
     del net
     torch.cuda.empty_cache()
-    log("[29/31] early stopping, the profiler and assert_deterministic on "
+    log("[29/33] early stopping, the profiler and assert_deterministic on "
         "the LSTM and flash kernels")
     extras = phase_extras(torch, M, card)
     return paged, extras
@@ -6752,10 +6832,10 @@ def phase_streams(torch, M, pa, card, pool, rows_paged):
 def phases_30_31(torch, M, pa, card, path1_tok_s):
     """Phases 30 and 31; returns the bf16 paged launches and the f32
     flash launches for the kernel rows."""
-    log("[30/31] path 9: path 1's GPT behind ReplicaPool.from_net(net, 3): "
+    log("[30/33] path 9: path 1's GPT behind ReplicaPool.from_net(net, 3): "
         "routing and parity, a crash drill, rolling reloads, the autoscaler")
     pool, paged, flash = phase_pool(torch, M, pa, card, path1_tok_s)
-    log("[31/31] token streams and the exactly-once door on path 9's pool")
+    log("[31/33] token streams and the exactly-once door on path 9's pool")
     phase_streams(torch, M, pa, card, pool, paged)
     return {"paged": paged, "flash": flash}
 
@@ -6777,6 +6857,773 @@ def phases_30_31_alone(torch, M, pa, cuda_build) -> int:
     print(json.dumps({"card": card, **{
         k: {",".join(map(str, key)): n for key, n in v.items()}
         for k, v in counts.items()}}), flush=True)
+    return 0
+
+
+# ------------------------------------------ phases 32-33: path 10, the wire
+# path 10: path 1's network behind a port GatewayServer whose model is
+# served by 3 replica PROCESSES on the one card (serving={"replicas": 3,
+# "remote": ...}), as bench_serve_pool's cross-process line
+# (bench.py:1040-1076); path 1's six requests from six client threads
+WIRE_REPLICAS = 3
+# the drills' live traffic: 4 clients sending prompts of 128 with 32
+# tokens out through the gateway
+WIRE_CLIENTS, WIRE_DRILL_TOKENS = 4, 32
+# a replica restores the 8-layer zip (~1.2 GB with its optimizer state)
+WIRE_SPAWN_S = 600.0
+# phase 33: a stream of 96 tokens torn after its first frame
+WIRE_STREAM_TOKENS = 96
+# 10a: the single engine and the process pool each serve path 1's six
+# requests this many times (tokens/s: the median run; the busy share over
+# all of them)
+WIRE_RUNS = 3
+# the polling interval of phases 32-33's waits (a remote pool's stats
+# are RPCs)
+WIRE_TICK = 0.05
+
+
+class BusySampler:
+    """The card's busy share over a window, as `nvidia-smi
+    --query-gpu=utilization.gpu` samples it every 100 ms (the percent of
+    each sample period in which a kernel ran). `share` is None where
+    nvidia-smi gave no sample."""
+
+    def __enter__(self):
+        self.samples = []
+        self._proc = None
+        if shutil.which("nvidia-smi"):
+            self._proc = subprocess.Popen(
+                ["nvidia-smi", "--query-gpu=utilization.gpu",
+                 "--format=csv,noheader,nounits", "-lms", "100"],
+                stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        if self._proc is not None:
+            self._proc.terminate()
+            out, _ = self._proc.communicate(timeout=30)
+            self.samples = [float(x) for x in out.split()
+                            if x.replace(".", "", 1).isdigit()]
+        return False
+
+    @property
+    def share(self):
+        return (sum(self.samples) / len(self.samples) / 100.0
+                if self.samples else None)
+
+
+class WireTraffic:
+    """`generate` through a gateway client with a pool's signature, for
+    `client_load`."""
+
+    def __init__(self, client, name):
+        self.client, self.name = client, name
+
+    def generate(self, prompt_ids, n_tokens, timeout=None):
+        import numpy as np
+
+        out = self.client.call("generate", name=self.name,
+                               prompt_ids=prompt_ids, n_tokens=n_tokens,
+                               timeout=timeout, _timeout=900.0)
+        if out.dtype != np.int32:
+            raise AssertionError(f"path 10: tokens came back as {out.dtype}")
+        return out
+
+
+def replica_steps(pool):
+    """Decode steps + prefill chunks of each replica's engine, by pool
+    replica id (from its server's stats over the wire)."""
+    out = {}
+    for rid, st in pool.stats()["replicas"].items():
+        gen = st.get("generation") or {}
+        out[int(rid)] = gen.get("decode_steps", 0) \
+            + gen.get("prefill_chunks", 0)
+    return out
+
+
+def counts_now(RR, sup, scratch):
+    """Each live replica's kernel counts so far, by slot: the counts line
+    that SIGUSR1 makes it write to its log."""
+    import signal
+
+    out = {}
+    for slot, proc in enumerate(sup._procs):
+        path = os.path.join(scratch, f"replica-{slot}.log")
+        n = len(RR.replica_launch_counts(path))
+        os.kill(proc.pid, signal.SIGUSR1)
+        until(lambda: len(RR.replica_launch_counts(path)) > n,
+              f"replica {slot}'s counts line", 60, tick=WIRE_TICK)
+        c = RR.replica_launch_counts(path)[-1]
+        if c["pid"] != proc.pid or c["final"]:
+            raise AssertionError(f"path 10: replica {slot} (pid {proc.pid})"
+                                 f" wrote {c}")
+        out[slot] = c
+    return out
+
+
+def diff_counts(b, a):
+    """Launches by key in `b` less those in `a` (keys with 0 left out)."""
+    return {k: v - a.get(k, 0) for k, v in b.items() if v != a.get(k, 0)}
+
+
+def phase_wire_pool(torch, M, pa, card):
+    """Path 10 (phase 32): path 1's network behind a GatewayServer whose
+    model is served by 3 replica processes on the card. 10a: path 1's
+    requests through the gateway, token-identical to one f32 engine on
+    the same zip in this process; tokens/s beside that engine's and an
+    in-process 3-replica pool's on the restored net; the card's busy
+    share; a (1, 4096) predict. 10b: kill -9 of a replica under live
+    traffic, respawn and readmission. 10c: a ChaosProxy partition of a
+    replica. 10d: a rolling reload across the processes under live
+    traffic. 10e: a replica stopped gracefully (SIGTERM) under live
+    traffic, its closing server's refusal typed as a failover. Then each
+    clean life's paged launches (the counts line it wrote as it stopped)
+    against its engine's steps. Returns the replicas' launches in 10a's
+    window (the difference of the counts lines each writes on SIGUSR1
+    before and after it), by (C, pools) and (kind, route)."""
+    import signal
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    S, G, RR = M["serving"], M["gateway"], M["remote_replica"]
+    V, n_layers = SERVE["vocab_size"], SERVE["n_layers"]
+    t_phase = time.perf_counter()
+    prompts, n_tok = path1_requests(np)
+    toks = int(sum(n_tok))
+    rng = np.random.default_rng(32)
+    probe = rng.integers(0, V, (1, POOL_PROBE_T)).astype(np.int32)
+    x = rng.integers(0, V, (1, SERVER_PREDICT_T)).astype(np.int32)
+    scratch = tempfile.mkdtemp(prefix="path10_")
+    gen = dict(SERVER_GEN, max_queue=256)
+    pool_kw = dict(probe_batch=probe, probe_interval=POOL_PROBE_S,
+                   probe_timeout=60.0, watchdog_timeout=60.0,
+                   readmit_successes=2)
+    serving = {"replicas": WIRE_REPLICAS, "generation": gen,
+               "breaker_reset_timeout": 1.0, "pool": pool_kw,
+               "remote": {"scratch_dir": scratch, "rpc_timeout": 900.0,
+                          "admin_timeout": 900.0,
+                          "supervisor_kwargs": {
+                              "restart_backoff": 0.25, "poll_interval": 0.1,
+                              "spawn_timeout": WIRE_SPAWN_S}}}
+
+    def busy_line(b):
+        return "not measured" if b.share is None else (
+            f"{100 * b.share:.1f}% ({len(b.samples)} samples of 100 ms)")
+
+    def served(fn):
+        """Path 1's six requests from six threads through `fn`,
+        WIRE_RUNS times: (the outputs of each run, wall s of each run,
+        the card's busy share over all of them)."""
+        outs, walls = [], []
+        with BusySampler() as busy:
+            for _ in range(WIRE_RUNS):
+                t0 = time.perf_counter()
+                outs.append(joined(*run_threads([
+                    lambda p=p, n=n: fn(p, n, timeout=900)
+                    for p, n in zip(prompts, n_tok)])))
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+        return outs, walls, busy
+
+    def median(ws):
+        return sorted(ws)[len(ws) // 2]
+
+    # -- 10a: the f32 references in this process, from the zip the
+    # replicas will serve, timed before any replica process exists
+    conf = M["gpt_configuration"](**SERVE, seed=11)
+    ref_zip = os.path.join(scratch, "reference.zip")
+    t0 = time.perf_counter()
+    net = M["MultiLayerNetwork"](conf, device="cuda")
+    net.init()
+    M["write_model"](net, ref_zip)
+    del net
+    zip_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref_net = M["restore_model"](ref_zip, device="cuda")
+    restore_s = time.perf_counter() - t0
+    if ref_net.compute_dtype is not None:
+        raise AssertionError("path 10: the restored net has a compute dtype")
+    want_pred = ref_net.output(x).float().cpu().numpy()
+    eng = M["DecodeEngine"](ref_net, **SERVER_GEN)
+    try:
+        eng.generate(prompts[0][:16], 4)
+        torch.cuda.synchronize()
+        ref_runs, singles, busy1 = served(
+            lambda p, n, timeout: eng.submit(p, n).result(timeout=timeout))
+    finally:
+        eng.shutdown()
+    ref_out = ref_runs[0]
+    ip = S.ReplicaPool.from_net(ref_net, WIRE_REPLICAS, probe_interval=30.0,
+                                server_kwargs={"generation": SERVER_GEN})
+    try:
+        for rep in ip._replicas:
+            rep.server.generate(prompts[0][:16], 4)
+        torch.cuda.synchronize()
+        ip_runs, inprocs, busy_ip = served(ip.generate)
+    finally:
+        ip.shutdown(drain_timeout=60)
+    del ip, ref_net, eng
+    torch.cuda.empty_cache()
+    single_s, inproc_s = median(singles), median(inprocs)
+    log(f"  10a: in this process, before any replica process exists: the "
+        f"{n_layers}-layer net made and written to a zip in {zip_s:.2f} s, "
+        f"restored (f32) in {restore_s:.2f} s; path 1's {len(prompts)} "
+        f"requests from {len(prompts)} threads, {WIRE_RUNS} runs each: one "
+        f"f32 engine, wall s {[round(w, 4) for w in singles]}, median "
+        f"{toks / single_s:.1f} tokens/s, busy {busy_line(busy1)}; an "
+        f"in-process {WIRE_REPLICAS}-replica pool on the restored net, wall "
+        f"s {[round(w, 4) for w in inprocs]}, median "
+        f"{toks / inproc_s:.1f} tokens/s, busy {busy_line(busy_ip)} "
+        f"[{card}]")
+
+    gw = G.GatewayServer(serving=serving, device="cuda").start()
+    client = G.GatewayClient(port=gw.port, timeout=900.0)
+    traffic = WireTraffic(client, "gpt")
+    pool = None
+    extra = []  # drill pools, proxies, clients: closed on the way out
+    lives = {}  # (slot, pid) -> engine steps read before that life ended
+    stops = []  # the live-traffic threads' stop events: set on the way out
+    try:
+        # -- the pool, through the gateway's entry point, on the same zip
+        t0 = time.perf_counter()
+        client.call("load_model", name="gpt", path=ref_zip)
+        spawn_s = time.perf_counter() - t0
+        pool = gw.entry._servers["gpt"]
+        sup = pool.supervisor
+        zip_path = os.path.join(scratch, "model.zip")
+        t0 = time.perf_counter()
+        for rep in pool._replicas:  # warm-up: engines, cuBLAS handles
+            rep.server.generate(prompts[0][:16], 4, timeout=900)
+            rep.server.predict(probe, timeout=900)
+        warm_s = time.perf_counter() - t0
+        log(f"  10: load_model over the wire spawned {WIRE_REPLICAS} "
+            f"replica processes (pids {[p.pid for p in sup._procs]}, "
+            f"device {sup.device}) in {spawn_s:.2f} s (the zip restored in "
+            f"the gateway, written for the replicas and restored by each), "
+            f"warmed in {warm_s:.2f} s [{card}]")
+
+        # the process pool: path 1's six requests through the gateway,
+        # then a (1, 4096) predict; the window's launches are the
+        # difference of each replica's counts lines before and after it
+        pa.reset_counts()
+        c0 = counts_now(RR, sup, scratch)
+        before = replica_steps(pool)
+        s0 = pool.stats()
+        runs, walls, busy = served(traffic.generate)
+        wall = median(walls)
+        after = replica_steps(pool)
+        s1 = pool.stats()
+        steps = {k: after[k] - before.get(k, 0) for k in after}
+        per = {k: v["generation"]["served"] - s0["replicas"][k][
+            "generation"]["served"] for k, v in s1["replicas"].items()}
+        t0 = time.perf_counter()
+        pred = client.call("predict", name="gpt", features=x, _timeout=900)
+        pred_ms = 1e3 * (time.perf_counter() - t0)
+        c1 = counts_now(RR, sup, scratch)
+        here = dict(pa.paged_attention.launches_by)
+        window = {slot: {kind: diff_counts(c1[slot][kind], c0[slot][kind])
+                         for kind in ("paged", "flash")}
+                  for slot in c1}
+        log(f"  10a: the same through the gateway to {WIRE_REPLICAS} "
+            f"replica processes, {WIRE_RUNS} runs: wall s "
+            f"{[round(w, 4) for w in walls]}, median {toks / wall:.1f} "
+            f"generated tokens/s; processes / engine {single_s / wall:.3f}, "
+            f"processes / in-process pool {inproc_s / wall:.3f}; served per "
+            f"replica {per}, engine steps and chunks per replica {steps}; "
+            f"the card's busy share (nvidia-smi utilization.gpu) under the "
+            f"processes {busy_line(busy)}; launches in this process {here}; "
+            f"each replica's launches in the window (SIGUSR1 counts lines "
+            f"before and after) {window} [{card}]")
+        if here or pa.paged_attention_plain.calls:
+            raise AssertionError(f"path 10a: the parent launched {here} "
+                                 "(the replicas' engines must)")
+        if sum(per.values()) != WIRE_RUNS * len(prompts) \
+                or s1["failovers"] != s0["failovers"]:
+            raise AssertionError(f"path 10a: served per replica {per}, "
+                                 "failovers moved")
+        for slot, w in window.items():
+            got = sum(w["paged"].values())
+            if got != n_layers * steps[slot] or c1[slot]["paged_plain"] \
+                    or c1[slot]["flash_plain"] \
+                    or set(w["paged"]) - {"1,dense", "256,dense"}:
+                raise AssertionError(
+                    f"path 10a: replica {slot} launched {w} in the window "
+                    f"for {steps[slot]} engine steps and chunks")
+        for outs in runs:
+            for i, (o, r, q, n) in enumerate(zip(outs, ref_out, ip_runs[0],
+                                                 n_tok)):
+                if o.shape != (n,) or not np.array_equal(o, r) \
+                        or not np.array_equal(q, r):
+                    raise AssertionError(
+                        f"path 10a: request {i} through the processes "
+                        f"{o[:8]}... (in-process pool {q[:8]}...) != the f32 "
+                        f"engine's {r[:8]}...")
+        for outs in ref_runs[1:] + ip_runs[1:]:
+            if not all(np.array_equal(o, r) for o, r in zip(outs, ref_out)):
+                raise AssertionError("path 10a: a repeated reference run "
+                                     "differs from the first")
+        log(f"  10a: every request's tokens equal the single f32 engine's "
+            f"(and the in-process pool's), token for token")
+        err = float(np.abs(pred - want_pred).max())
+        log(f"  10a: a predict of (1, {SERVER_PREDICT_T}) through the wire "
+            f"{pred_ms:.2f} ms ({pred.dtype}), max |wire - net.output| "
+            f"{err:.3g}")
+        if pred.dtype != np.float32 or pred.shape != want_pred.shape \
+                or err > SERVER_PREDICT_ATOL:
+            raise AssertionError(f"path 10a: predict {pred.dtype} "
+                                 f"{pred.shape}, error {err}")
+
+        # -- 10b: kill -9 of replica 1 under live traffic
+        drill = [rng.integers(0, V, SERVER_PROMPT_T[0])
+                 for _ in range(WIRE_CLIENTS)]
+        stop = threading.Event()
+        stops.append(stop)
+        threads, res, fails = client_load(traffic, drill, WIRE_DRILL_TOKENS,
+                                          stop=stop)
+        until(lambda: len(res) >= WIRE_CLIENTS, "traffic", 300, tick=WIRE_TICK)
+        s0 = pool.stats()
+        t_kill = time.perf_counter()
+        killed = sup.kill(1)
+        until(lambda: pool.stats()["replicas"]["1"]["state"]
+              == "evicted", "replica 1's eviction", 120, tick=WIRE_TICK)
+        evict_s = time.perf_counter() - t_kill
+        until(lambda: sup.respawns >= 1 and sup.is_alive(1),
+              "replica 1's respawn", 120, tick=WIRE_TICK)
+        respawn_s = time.perf_counter() - t_kill
+        until(lambda: pool.stats()["replicas"]["1"]["state"]
+              == "healthy", "replica 1's readmission", WIRE_SPAWN_S,
+              tick=WIRE_TICK)
+        readmit_s = time.perf_counter() - t_kill
+        n_before = len(res)
+        until(lambda: len(res) >= n_before + WIRE_CLIENTS,
+              "traffic after the readmission", 300, tick=WIRE_TICK)
+        stop.set()
+        n = joined_clients(threads, res, fails, WIRE_DRILL_TOKENS,
+                           "path 10b")
+        s1 = pool.stats()
+        log(f"  10b: kill -9 of replica 1 (pid {killed}) under {n} live "
+            f"requests of {SERVER_PROMPT_T[0]} + {WIRE_DRILL_TOKENS} "
+            f"through the gateway: 0 failed, failovers "
+            f"{s1['failovers'] - s0['failovers']}; evicted {evict_s:.2f} s, "
+            f"respawned (pid {sup._procs[1].pid}) {respawn_s:.2f} s, "
+            f"readmitted {readmit_s:.2f} s after the kill [{card}]")
+
+        # -- 10c: a partition of replica 2, through a ChaosProxy in front
+        # of its process (a drill pool over the same processes)
+        proxy = S.ChaosProxy("127.0.0.1", sup.ports[2])
+        extra.append(proxy)
+        reps = [S.RemoteReplica("127.0.0.1", port, scratch_dir=scratch,
+                                rpc_timeout=900.0)
+                for port in (sup.ports[0], sup.ports[1], proxy.port)]
+        dpool = S.RemoteReplicaPool(reps, scratch_dir=scratch, **pool_kw)
+        extra.append(dpool)
+        stop = threading.Event()
+        stops.append(stop)
+        threads, res, fails = client_load(dpool, drill, WIRE_DRILL_TOKENS,
+                                          stop=stop)
+        until(lambda: len(res) >= WIRE_CLIENTS, "traffic", 300, tick=WIRE_TICK)
+        part = S.PartitionInjector(proxy)
+        t0 = time.perf_counter()
+        part.partition()
+        until(lambda: dpool.stats()["replicas"]["2"]["state"]
+              == "evicted", "replica 2's eviction", 120, tick=WIRE_TICK)
+        evict_p = time.perf_counter() - t0
+        n_before = len(res)
+        until(lambda: len(res) >= n_before + WIRE_CLIENTS,
+              "service from the other replicas", 300, tick=WIRE_TICK)
+        t1 = time.perf_counter()
+        part.heal()
+        until(lambda: dpool.stats()["replicas"]["2"]["state"]
+              == "healthy", "replica 2's readmission", 120,
+              tick=WIRE_TICK)
+        readmit_p = time.perf_counter() - t1
+        stop.set()
+        n = joined_clients(threads, res, fails, WIRE_DRILL_TOKENS,
+                           "path 10c")
+        if not sup.is_alive(2) or sup.respawns != 1:
+            raise AssertionError("path 10c: the partition restarted a "
+                                 "process (only its network was cut)")
+        dpool.shutdown(drain_timeout=60)
+        log(f"  10c: a ChaosProxy partition of replica 2 under {n} live "
+            f"requests: 0 failed; evicted {evict_p:.2f} s after the cut, "
+            f"readmitted {readmit_p:.2f} s after the heal; the process "
+            f"never restarted [{card}]")
+
+        # -- 10d: a rolling reload across the processes under live
+        # traffic, through the gateway
+        stop = threading.Event()
+        stops.append(stop)
+        threads, res, fails = client_load(traffic, drill, WIRE_DRILL_TOKENS,
+                                          stop=stop)
+        until(lambda: len(res) >= WIRE_CLIENTS, "traffic", 300, tick=WIRE_TICK)
+        admin = G.GatewayClient(port=gw.port, timeout=900.0)
+        extra.append(admin)
+        t0 = time.perf_counter()
+        versions = admin.call("rolling_reload", name="gpt", path=zip_path,
+                              _timeout=1800.0)
+        reload_s = time.perf_counter() - t0
+        stop.set()
+        n = joined_clients(threads, res, fails, WIRE_DRILL_TOKENS,
+                           "path 10d")
+        s2 = pool.stats()
+        log(f"  10d: rolling_reload across the {WIRE_REPLICAS} processes "
+            f"under {n} live requests in {reload_s:.2f} s (each replica "
+            f"snapshots its weights to a zip, then reloads): 0 failed, "
+            f"versions {versions}, rolling_reloads {s2['rolling_reloads']}, "
+            f"rollbacks {s2['rollbacks']} [{card}]")
+        if versions != [1] * WIRE_REPLICAS or s2["rolling_reloads"] != 1 \
+                or s2["rollbacks"]:
+            raise AssertionError(f"path 10d: versions {versions}, {s2}")
+        for i, (p, n) in enumerate(zip(prompts, n_tok)):
+            if i in (0, 4):  # after the reload: the f32 engine's tokens
+                o = traffic.generate(p, n, timeout=900)
+                if not np.array_equal(o, ref_out[i]):
+                    raise AssertionError(f"path 10d: request {i} after the "
+                                         "reload differs")
+
+        # -- 10e: a graceful stop (SIGTERM) of replica 0 under live
+        # predict traffic, while a generation is in flight on it: its
+        # server drains that generation and refuses the rest typed, and
+        # the pool fails over (the remote ServerClosedError is the replica
+        # going away, not this pool closing)
+        lp = drill[0]
+        direct = S.RemoteReplica("127.0.0.1", sup.ports[0],
+                                 scratch_dir=scratch, rpc_timeout=600.0)
+        other = S.RemoteReplica("127.0.0.1", sup.ports[2],
+                                scratch_dir=scratch, rpc_timeout=600.0)
+        extra += [direct, other]
+        b = replica_steps(pool)[2]
+        long_ref = other.generate(lp, WIRE_STREAM_TOKENS, timeout=600)
+        long_steps = replica_steps(pool)[2] - b  # the same request alone
+        steps0 = replica_steps(pool)[0]
+        pid0 = sup._procs[0].pid
+        small = probe[:, :1]
+        direct.predict(small, timeout=60)
+        preds, pfails, long_out = [], [], []
+        stop = threading.Event()
+        stops.append(stop)
+
+        def predict_load():
+            while not stop.is_set():
+                try:
+                    preds.append(client.call("predict", name="gpt",
+                                             features=probe, timeout=60,
+                                             _timeout=120.0))
+                except Exception as e:  # counted: the check fails on any
+                    pfails.append(repr(e))
+
+        pthreads = [threading.Thread(target=predict_load)
+                    for _ in range(WIRE_CLIENTS)]
+        for t in pthreads:
+            t.start()
+        until(lambda: len(preds) >= 10, "predict traffic", 120, tick=WIRE_TICK)
+        longt = threading.Thread(target=lambda: long_out.append(
+            direct.generate(lp, WIRE_STREAM_TOKENS, timeout=600)))
+        longt.start()
+        until(lambda: direct.stats()["generation"]["active_slots"] > 0,
+              "the generation in flight on replica 0", 120, tick=0.005)
+        stopper = threading.Thread(target=sup.retire_slot, args=(0,))
+        stopper.start()  # SIGTERM, then waits for the exit
+        # a kept-alive connection to the closing replica: every refusal
+        # until the process is gone must be one the pool fails over on
+        errs = []
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < 120:
+            try:
+                direct.predict(small, timeout=60)
+            except Exception as e:  # each refusal, checked below
+                errs.append(e)
+            if errs and not stopper.is_alive():
+                break
+        stopper.join(120)
+        longt.join(600)
+        until(lambda: pool.stats()["replicas"]["0"]["state"]
+              == "evicted", "replica 0's eviction", 120, tick=WIRE_TICK)
+        n_before = len(preds)
+        until(lambda: len(preds) >= n_before + 10,
+              "predicts after the stop", 120, tick=WIRE_TICK)
+        stop.set()
+        for t in pthreads:
+            t.join(300)
+        lives[(0, pid0)] = steps0 + long_steps
+        kinds = {}
+        for e in errs:
+            kinds[type(e).__name__] = kinds.get(type(e).__name__, 0) + 1
+        closed = sum("ServerClosedError" in str(e) for e in errs)
+        drained = bool(long_out) and np.array_equal(long_out[0], long_ref)
+        log(f"  10e: SIGTERM of replica 0 (pid {pid0}) with a generation of "
+            f"{WIRE_STREAM_TOKENS} tokens in flight, under {len(preds)} live "
+            f"predicts through the gateway: {len(pfails)} failed; the "
+            f"in-flight generation drained, equal to replica 2's run: "
+            f"{drained}; a kept-alive connection to it saw {kinds} ({closed} "
+            f"of them the closing server's ServerClosedError) [{card}]")
+        if pfails:
+            raise AssertionError(f"path 10e: {len(pfails)} predicts failed: "
+                                 f"{pfails[:3]}")
+        bad = [e for e in errs if not isinstance(
+            e, (S.ServiceUnavailableError, S.InferenceFailedError))]
+        if bad or not closed or not drained:
+            raise AssertionError(f"path 10e: the closing replica answered "
+                                 f"{bad[:3]} ({closed} closed refusals), "
+                                 f"drained: {drained}")
+        # quiescent: the surviving lives' steps, then a clean shutdown
+        steps = replica_steps(pool)
+        for slot in (1, 2):
+            lives[(slot, sup._procs[slot].pid)] = steps[slot]
+    finally:
+        for e in stops:
+            e.set()
+        for obj in reversed(extra):
+            for m in ("shutdown", "close"):
+                if hasattr(obj, m):
+                    getattr(obj, m)()
+                    break
+        client.close()
+        gw.stop(drain_timeout=60)
+    # every process that stopped cleanly wrote its counts over its life
+    # to its log: each life's launches against its engine's steps
+    counts = {}
+    for slot in range(WIRE_REPLICAS):
+        for c in RR.replica_launch_counts(
+                os.path.join(scratch, f"replica-{slot}.log")):
+            if c["final"]:
+                counts[(slot, c["pid"])] = c
+    shutil.rmtree(scratch, ignore_errors=True)
+    lines = []
+    for (slot, pid), want_steps in sorted(lives.items()):
+        c = counts.get((slot, pid))
+        if c is None:
+            raise AssertionError(f"path 10: replica {slot} (pid {pid}) "
+                                 "wrote no launch counts")
+        got = sum(c["paged"].values())
+        lines.append(f"replica {slot} pid {pid}: paged {c['paged']} = "
+                     f"{got} for {want_steps} engine steps and chunks, "
+                     f"flash {c['flash']}")
+        if got <= 0 or got != n_layers * want_steps or c["paged_plain"] \
+                or c["flash_plain"] \
+                or set(c["paged"]) - {"1,dense", "256,dense"}:
+            raise AssertionError(f"path 10: replica {slot}'s counts {c} "
+                                 f"against {n_layers} x {want_steps} steps")
+    log("  10: over each clean life: " + "; ".join(lines))
+    # path 10's launches: 10a's window, summed over the replicas
+    total, flash = {}, {}
+    for w in window.values():
+        for k, v in w["paged"].items():
+            total[k] = total.get(k, 0) + v
+        for k, v in w["flash"].items():
+            flash[k] = flash.get(k, 0) + v
+    if not total.get("1,dense") or not total.get("256,dense") \
+            or flash.get("fwd,tf32", 0) < n_layers:
+        raise AssertionError(f"path 10: launches {total}, flash {flash}")
+    log(f"  phase 32 {time.perf_counter() - t_phase:.1f} s")
+    return {"paged": {(int(k.split(",")[0]), k.split(",")[1]): v
+                      for k, v in total.items()},
+            "flash": {tuple(k.split(",")): v for k, v in flash.items()}}
+
+
+def phase_wire(torch, M, pa, card):
+    """Phase 33: the wire on the card. Path 1's network (f32, created over
+    the wire) behind a GatewayServer with the exactly-once door and a
+    journal: `generate_stream` over TCP, torn after its first frame,
+    concatenates to the unary tokens; `claim` returns the tokens of a
+    `generate` whose client disconnected; a retried `fit` (a small MLP)
+    with the same request id returns the same float; a gateway restarted
+    on the journal replays an orphaned admitted request, with no double
+    execution. Returns the paged launches (f32 pools)."""
+    import json as _json
+    import socket
+    import tempfile
+
+    import numpy as np
+
+    G, S = M["gateway"], M["serving"]
+    V = SERVE["vocab_size"]
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(33)
+    p = rng.integers(0, V, SERVER_PROMPT_T[0]).astype(np.int32)
+    q = rng.integers(0, V, SERVER_PROMPT_T[0]).astype(np.int32)
+    orphan_p = rng.integers(0, V, SERVER_PROMPT_T[0]).astype(np.int32)
+    conf = M["gpt_configuration"](**SERVE, seed=11)
+    mlp = (M["conf"].NeuralNetConfiguration.Builder().seed(7)
+           .learning_rate(0.3).list()
+           .layer(M["conf"].DenseLayer(n_in=4, n_out=8))
+           .layer(M["conf"].OutputLayer(n_in=8, n_out=3,
+                                        activation="softmax",
+                                        loss="mcxent")).build())
+    xs = rng.normal(size=(24, 4)).astype(np.float32)
+    ys = np.eye(3, dtype=np.float32)[rng.integers(0, 3, 24)]
+    tmp = tempfile.mkdtemp(prefix="phase33_")
+    journal = os.path.join(tmp, "journal")
+    serving = {"generation": SERVER_GEN}
+    once = {"journal_dir": journal, "replay_timeout": 600.0}
+    launches = {}
+    gw = G.GatewayServer(serving=serving, exactly_once=once,
+                         device="cuda").start()
+    client = G.GatewayClient(port=gw.port, timeout=900.0, exactly_once=True)
+    try:
+        client.call("create_model", name="gpt", config=conf.to_json())
+        client.call("create_model", name="m", config=mlp.to_json())
+        client.call("generate", name="gpt", prompt_ids=p[:16], n_tokens=4)
+        pa.reset_counts()
+        unary = client.call("generate", name="gpt", prompt_ids=p,
+                            n_tokens=WIRE_STREAM_TOKENS, _timeout=900.0)
+        frames = 0
+        with client.generate_stream("gpt", p, WIRE_STREAM_TOKENS,
+                                    _timeout=900.0) as s:
+            next(s)
+            frames += 1
+            s._conn.sock.shutdown(socket.SHUT_RDWR)  # the tear
+            for _ in s:
+                frames += 1
+        st = gw.entry.streams.stats()
+        log(f"  33: generate_stream of {WIRE_STREAM_TOKENS} tokens over TCP, "
+            f"torn after its first frame: {frames} frames, resumes "
+            f"{s.resumes} (server stream_resumes {st['stream_resumes']}), "
+            f"equal to the unary tokens: "
+            f"{np.array_equal(np.asarray(s.tokens), unary)} [{card}]")
+        if unary.dtype != np.int32 or s.resumes < 1 \
+                or not np.array_equal(np.asarray(s.tokens), unary):
+            raise AssertionError(
+                f"phase 33: the resumed stream {s.tokens[:8]}... != unary "
+                f"{unary[:8]}... ({unary.dtype})")
+        # a generate whose client disconnected, claimed afterwards
+        direct = client.call("generate", name="gpt", prompt_ids=q,
+                             n_tokens=WIRE_DRILL_TOKENS, _timeout=900.0)
+        before = client.call("exactly_once_stats")["cache"]["executions"]
+        raw = socket.create_connection(("127.0.0.1", gw.port), timeout=60)
+        req = {"id": 1, "method": "generate", "request_id": "detached-1",
+               "params": G.encode_value({"name": "gpt", "prompt_ids": q,
+                                         "n_tokens": WIRE_DRILL_TOKENS})}
+        raw.sendall((_json.dumps(req) + "\n").encode())
+        raw.close()
+        until(lambda: client.call("exactly_once_stats")["cache"][
+            "executions"] > before, "the detached generate's admission",
+            120, tick=WIRE_TICK)
+        claimed = client.claim("detached-1", timeout=600.0)
+        log(f"  33: a generate whose client disconnected, claimed: equal to "
+            f"a direct run: {np.array_equal(claimed, direct)}")
+        if not np.array_equal(claimed, direct):
+            raise AssertionError("phase 33: the claimed tokens differ")
+        # a retried fit answered from the door
+        score = client.call("fit", name="m", features=xs, labels=ys)
+        rid = client.last_request_id
+        again = client.call("fit", _request_id=rid, name="m", features=xs,
+                            labels=ys)
+        fresh = client.call("fit", name="m", features=xs, labels=ys)
+        eo = client.call("exactly_once_stats")
+        log(f"  33: fit {score!r}, its retry {again!r}, a new fit {fresh!r}; "
+            f"dedup hits {eo['cache']['dedup_hits']}, double executions "
+            f"{eo['cache']['double_executions']}")
+        if again != score or fresh == score \
+                or eo["cache"]["double_executions"]:
+            raise AssertionError("phase 33: the retried fit ran again")
+        launches = dict(pa.paged_attention.launches_by)
+    finally:
+        client.close()
+        gw.stop(drain_timeout=60)
+    pa.reset_counts()
+    # a crash after an admission: the journal holds an admitted request
+    # that never completed; a gateway restarted on it replays the request
+    j = S.RequestJournal(journal)
+    j.admit("orphan-1", "generate", G.encode_value(
+        {"name": "gpt", "prompt_ids": orphan_p,
+         "n_tokens": WIRE_DRILL_TOKENS}))
+    j.close()
+    gw = G.GatewayServer(serving=serving, exactly_once=once,
+                         device="cuda").start()
+    client = G.GatewayClient(port=gw.port, timeout=900.0, exactly_once=True)
+    try:
+        client.call("create_model", name="gpt", config=conf.to_json())
+        until(lambda: client.call("exactly_once_stats")["replays"] >= 1,
+              "the journal replay", 600, tick=WIRE_TICK)
+        got = client.claim("orphan-1", timeout=600.0)
+        want = client.call("generate", name="gpt", prompt_ids=orphan_p,
+                           n_tokens=WIRE_DRILL_TOKENS, _timeout=900.0)
+        eo = client.call("exactly_once_stats")
+        log(f"  33: a gateway restarted on the journal replayed the orphaned "
+            f"request ({eo['replays']} replay, pending "
+            f"{eo['journal']['pending']}, double executions "
+            f"{eo['cache']['double_executions']}); its claim equals a direct "
+            f"run: {np.array_equal(got, want)}")
+        if not np.array_equal(got, want) or eo["journal"]["pending"] \
+                or eo["cache"]["double_executions"]:
+            raise AssertionError("phase 33: the journal replay failed")
+        for k, v in pa.paged_attention.launches_by.items():
+            launches[k] = launches.get(k, 0) + v
+    finally:
+        client.close()
+        gw.stop(drain_timeout=60)
+        shutil.rmtree(tmp, ignore_errors=True)
+    if pa.paged_attention_plain.calls or any(k != "dense"
+                                             for _, k in launches):
+        raise AssertionError(f"phase 33: launches {launches}")
+    log(f"  phase 33 {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+WIRE_F32_ROWS = (("paged_attention_decode_f32", "decode"),
+                 ("paged_attention_prefill_chunk_f32", "chunk"))
+
+
+def wire_rows(torch, pa, by_path):
+    """Row 1's f32 rows (path 10's replicas and phase 33 decode in f32
+    pools: a zip holds no compute dtype), timed at path 1's serving
+    shapes with f32 q and pools. `by_path`: each path's paged launches
+    by (C, pools); a row's `launches` is their sum, and
+    `launches_by_path` keeps them apart."""
+    rows = []
+    for name, which in WIRE_F32_ROWS:
+        key = (PAGED_SHAPES[which]["C"], "dense")
+        each = {path: int(paged.get(key, 0))
+                for path, paged in by_path.items()}
+        row = paged_row(torch, pa, name, "dense",
+                        dict(PAGED_SERVING, **PAGED_SHAPES[which]),
+                        torch.float32, sum(each.values()))
+        row["launches_by_path"] = each
+        rows.append(row)
+    return rows
+
+
+def phases_32_33(torch, M, pa, card):
+    """Phases 32 and 33: `{"path 10": its replicas' launches in 10a's
+    window, "phase 33": phase 33's}`, each `{"paged": {(C, pools): n},
+    "flash": {(kind, route): n}}` (f32 pools)."""
+    log("[32/33] path 10: path 1's GPT behind a GatewayServer, served by 3 "
+        "replica processes on the card: parity, tokens/s, kill -9, "
+        "a partition, a rolling reload, a graceful stop")
+    path10 = phase_wire_pool(torch, M, pa, card)
+    log("[33/33] the wire on the card: a torn stream resumed, a claim, a "
+        "retried fit, a journal replay after a restart")
+    return {"path 10": path10,
+            "phase 33": {"paged": phase_wire(torch, M, pa, card),
+                         "flash": {}}}
+
+
+def wire_paged(counts):
+    """Each path's paged launches, from `phases_32_33`'s counts."""
+    return {path: c["paged"] for path, c in counts.items()}
+
+
+def phases_32_33_alone(torch, M, pa, cuda_build) -> int:
+    """`--phases-32-33`: phases 32 and 33 alone (the paged and flash
+    sources built first), then row 1's f32 rows and one JSON line of the
+    rows and each path's launch counts."""
+    card = nvidia_smi_line()
+    t0 = time.perf_counter()
+    cuda_build.build(("paged_attention", "flash_attention"))
+    log(f"phases 32-33 alone [{card}]; build {time.perf_counter() - t0:.1f} "
+        "s")
+    t1 = time.perf_counter()
+    counts = phases_32_33(torch, M, pa, card)
+    rows = wire_rows(torch, pa, wire_paged(counts))
+    log(f"phases 32-33 {time.perf_counter() - t1:.1f} s; all "
+        f"{time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"card": card, "kernels": rows, **{
+        path: {k: {",".join(map(str, key)): n for key, n in v.items()}
+               for k, v in c.items()}
+        for path, c in counts.items()}}), flush=True)
     return 0
 
 
@@ -6871,11 +7718,12 @@ def port_modules() -> dict:
         restore_model,
         write_model,
     )
-    from deeplearning4j_tpu_torch import earlystopping, profiler
-    from deeplearning4j_tpu_torch.serving import kv_transfer
+    from deeplearning4j_tpu_torch import earlystopping, gateway, profiler
+    from deeplearning4j_tpu_torch.serving import kv_transfer, remote_replica
     from deeplearning4j_tpu_torch.util import determinism
 
     return dict(earlystopping=earlystopping, profiler=profiler,
+                gateway=gateway, remote_replica=remote_replica,
                 weight_digest=weight_digest,
                 determinism=determinism, kv_transfer=kv_transfer,
                 generate=generate, gpt_configuration=gpt_configuration,
@@ -6940,7 +7788,8 @@ def main(argv) -> int:
     of the LSTM kernels against an earlier commit's package. `--path5`:
     phase 21 alone. `--phases-22-23`: phases 22 and 23 alone.
     `--phases-24-26`: phases 24 to 26 alone. `--phases-27-29`: phases 27
-    to 29 alone. `--phases-30-31`: phase 7 and phases 30 and 31 alone."""
+    to 29 alone. `--phases-30-31`: phase 7 and phases 30 and 31 alone.
+    `--phases-32-33`: phases 32 and 33 alone."""
     import torch
 
     if not torch.cuda.is_available():
@@ -6975,110 +7824,117 @@ def main(argv) -> int:
         return phases_27_29_alone(torch, M, pa, cuda_build)
     if "--phases-30-31" in argv:
         return phases_30_31_alone(torch, M, pa, cuda_build)
+    if "--phases-32-33" in argv:
+        return phases_32_33_alone(torch, M, pa, cuda_build)
 
     card = nvidia_smi_line()
-    log(f"[1/31] card: {card}; {torch.cuda.get_device_name(0)}; torch "
+    log(f"[1/33] card: {card}; {torch.cuda.get_device_name(0)}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}; "
         f"{torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     built = cuda_build.build(KERNEL_SOURCES)
-    log(f"[2/31] build: {time.perf_counter() - t0:.1f} s for "
+    log(f"[2/33] build: {time.perf_counter() - t0:.1f} s for "
         f"{len(built)} source(s)")
     for name, res in built.items():
         for line in ptxas_summary(res.log):
             log(f"  {name}: {line}")
 
-    log("[3/31] paged kernels against their plain versions (TF32 off)")
+    log("[3/33] paged kernels against their plain versions (TF32 off)")
     phase_kernels(torch, pa)
-    log("[4/31] flash kernels against their plain versions (TF32 off)")
+    log("[4/33] flash kernels against their plain versions (TF32 off)")
     phase_flash(torch, fa)
-    log("[5/31] f32 DecodeEngine vs generate, 2 layers, d_model 1024")
+    log("[5/33] f32 DecodeEngine vs generate, 2 layers, d_model 1024")
     phase_parity(torch, M)
-    log("[6/31] f32 training, card (kernels) vs CPU (plain), 1 layer, "
+    log("[6/33] f32 training, card (kernels) vs CPU (plain), 1 layer, "
         "d_model 1024, T=1024")
     phase_train_parity(torch, M)
-    log("[7/31] serving the 8-layer bf16 GPT at full width")
+    log("[7/33] serving the 8-layer bf16 GPT at full width")
     launches, path1_tok_s = phase_serve(torch, M, pa, card)
-    log("[8/31] serving it with int8 KV, the prefix cache and "
+    log("[8/33] serving it with int8 KV, the prefix cache and "
         "self-speculation on shared-prefix traffic")
     launches.update(phase_serve_tier(torch, M, pa, card))
-    log("[9/31] training the 8-layer bf16 gpt_long GPT at full width")
+    log("[9/33] training the 8-layer bf16 gpt_long GPT at full width")
     flash_counts = phase_train(torch, M, card, torch.bfloat16, TRAIN_B,
                                TRAIN_STEPS, 13, "wgmma")
-    log("[9/31] path 2w: the same GPT with 4 heads of 256 (the bf16 "
+    log("[9/33] path 2w: the same GPT with 4 heads of 256 (the bf16 "
         "\"wgmma wide\" flash kernels)")
     flash_counts_wide = phase_train(torch, M, card, torch.bfloat16,
                                     TRAIN_WIDE_B, TRAIN_WIDE_STEPS, 15,
                                     "wgmma wide", n_heads=TRAIN_WIDE_HEADS)
-    log("[9/31] path 2x: the same GPT with 2 heads of 512 (the bf16 "
+    log("[9/33] path 2x: the same GPT with 2 heads of 512 (the bf16 "
         "\"wgmma wide\" forward, the \"wgmma cluster\" backward)")
     flash_counts_2x = phase_train(torch, M, card, torch.bfloat16,
                                   TRAIN_2X_B, TRAIN_2X_STEPS, 16,
                                   TRAIN_2X_ROUTES, n_heads=TRAIN_2X_HEADS)
-    log("[10/31] path 2f: training the 8-layer gpt_long GPT in f32 "
+    log("[10/33] path 2f: training the 8-layer gpt_long GPT in f32 "
         "(split-TF32 flash kernels)")
     flash_counts_f32 = phase_train(torch, M, card, None, TRAIN_F32_B,
                                    TRAIN_F32_STEPS, 14, "tf32")
-    log("[11/31] LSTM kernels against their plain versions (TF32 off)")
+    log("[11/33] LSTM kernels against their plain versions (TF32 off)")
     phase_lstm_kernels(torch, L, M)
-    log("[12/31] f32 char-RNN training, card (kernels) vs CPU (plain), "
+    log("[12/33] f32 char-RNN training, card (kernels) vs CPU (plain), "
         "H=256")
     phase_lstm_train_parity(torch, M)
-    log("[13/31] training the bf16 lstm_large char-RNN at full width")
+    log("[13/33] training the bf16 lstm_large char-RNN at full width")
     lstm_counts, step4_ms = phase_lstm_train(torch, M, card, torch.bfloat16)
-    log("[14/31] training the bf16 lstm char-RNN with tBPTT 24 at full width")
+    log("[14/33] training the bf16 lstm char-RNN with tBPTT 24 at full width")
     tbptt_counts = phase_lstm_tbptt(torch, M, card)
-    log("[15/31] path 4f: training the lstm_large char-RNN in f32 "
+    log("[15/33] path 4f: training the lstm_large char-RNN in f32 "
         "(split-TF32 LSTM kernels)")
     f32_counts, _ = phase_lstm_train(torch, M, card, None, LSTM_F32_STEPS,
                                      "tf32 clusters", seed=2)
-    log("[16/31] timing at the serving and training shapes (bf16 and f32)")
+    log("[16/33] timing at the serving and training shapes (bf16 and f32)")
     rows = phase_timing(torch, pa, launches)
     rows += phase_flash_timing(torch, fa, flash_counts, flash_counts_f32,
                                flash_counts_wide, flash_counts_2x)
-    log("[17/31] timing the LSTM kernels at the char-RNN shapes (bf16 and "
+    log("[17/33] timing the LSTM kernels at the char-RNN shapes (bf16 and "
         "f32)")
     rows += phase_lstm_timing(torch, L, lstm_counts, tbptt_counts,
                               f32_counts)
-    log(f"[18/31] a GravesLSTM wider than the fused kernels (H={LSTM_WIDE}): "
+    log(f"[18/33] a GravesLSTM wider than the fused kernels (H={LSTM_WIDE}): "
         "the step loop, card vs CPU")
     phase_lstm_wide(torch, M)
-    log("[19/31] path 4s: the bf16 lstm_large char-RNN on "
+    log("[19/33] path 4s: the bf16 lstm_large char-RNN on "
         "GravesLSTMCharModellingExample's mini-batches (B=32 x T=1000, "
         "tBPTT 50)")
     lstm_4s_launches(rows, phase_lstm_4s(torch, M, card))
-    log("[20/31] path 4e: the bf16 lstm_large char-RNN through the training "
+    log("[20/33] path 4e: the bf16 lstm_large char-RNN through the training "
         "loop (async iterator, health sentinel, listeners, checkpoints, "
         "evaluate, restore, LBFGS)")
     lstm_4e_launches(rows, phase_lstm_4e(torch, M, card, step4_ms))
-    log("[21/31] path 5: the 8-layer bf16 GPT behind ModelServer (predict, "
+    log("[21/33] path 5: the 8-layer bf16 GPT behind ModelServer (predict, "
         "generate, reload under decode, rejections, the breaker, quantized "
         "weights with the drift gate, shutdown)")
     serve5_launches(rows, phase_server(torch, M, card, path1_tok_s))
-    log("[22/31] the CNN layers against the CPU and numpy (f32), path 6: "
+    log("[22/33] the CNN layers against the CPU and numpy (f32), path 6: "
         "LeNet at bench_lenet's shape, its f32 parity")
     phase_cnn_layers(torch, M)
     phase_lenet(torch, M, card)
-    log("[23/31] SelfAttention on the non-causal flash kernels, MoELayer "
+    log("[23/33] SelfAttention on the non-causal flash kernels, MoELayer "
         "against numpy, path 2m: the MoE gpt_long GPT, MoE serving")
     counts = phase_attention_moe(torch, M, pa, card)
     rows += attention_moe_rows(torch, fa, counts)
     moe_launches(rows, counts)
-    log("[24/31] path 7: ResNet-50 on CIFAR-10 at bench_resnet50's shape "
+    log("[24/33] path 7: ResNet-50 on CIFAR-10 at bench_resnet50's shape "
         "(a ComputationGraph, bf16, B=256)")
     phase_resnet(torch, M, card)
-    log("[25/31] the graph on the LSTM kernels: path 4's char-RNN as a "
+    log("[25/33] the graph on the LSTM kernels: path 4's char-RNN as a "
         "graph against the list container, a masked tBPTT graph, f32 "
         "graph parity with the CPU and numpy")
     graph_launches(rows, phase_graph_lstm(torch, M, card))
-    log("[26/31] pretraining on the card: the MNIST VAE example's VAE, the "
+    log("[26/33] pretraining on the card: the MNIST VAE example's VAE, the "
         "DeepAutoEncoder RBM stack, an AutoEncoder stack")
     phase_pretrain(torch, M, card)
     cluster_launches(rows, *phases_27_29(torch, M, pa, card))
     # path 9's bf16 paged launches go into rows 1, its f32 predict into
     # the f32 forward row at T=4096, as path 5's
     serve5_launches(rows, phases_30_31(torch, M, pa, card, path1_tok_s))
+    # path 10's replicas decode in f32 pools: row 1's f32 rows; their f32
+    # predict into the f32 forward row at T=4096
+    wire = phases_32_33(torch, M, pa, card)
+    rows += wire_rows(torch, pa, wire_paged(wire))
+    serve5_launches(rows, {"paged": {}, "flash": wire["path 10"]["flash"]})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -16,8 +16,9 @@ preprocessors and the graph builder; `MultiLayerNetwork` and
 loop, evaluate, checkpoints with BatchNormalization state); the dense,
 CNN, normalization, recurrent, attention, embedding, Switch-MoE and
 pretraining (AutoEncoder, RBM, VAE) layers; GPT training and serving
-(`models.transformer`, `serving`) on the flash and paged-attention
-kernels, the char-RNN on the LSTM kernels, LeNet (`models.lenet`) and
+(`models.transformer`, `serving`, down to the gateway wire and replicas
+as processes: `gateway`, `serving.remote_replica`) on the flash and
+paged-attention kernels, the char-RNN on the LSTM kernels, LeNet (`models.lenet`) and
 ResNet (`models.resnet`); `gradientcheck`. ROADMAP.md's queue A lists what is still to port.
 """
 

@@ -50,9 +50,8 @@ class LocalFileModelSaver(EarlyStoppingModelSaver):
     the sidecar and raise the typed `CheckpointCorruptError` for a
     truncated or bit-rotted file. `device` is where loads rebuild the
     network: by default the device of the last network this saver
-    wrote, else the card. A zip holds no compute dtype, so a load gives
-    the network the compute dtype of the last one written (bf16 compute
-    over f32 masters scores as it trained)."""
+    wrote, else the card. A zip holds no compute dtype, so a loaded
+    network computes in f32, as the reference's does."""
 
     def __init__(self, directory, device=None):
         self.directory = Path(directory)
@@ -60,7 +59,6 @@ class LocalFileModelSaver(EarlyStoppingModelSaver):
         self.best_path = self.directory / "bestModel.bin"
         self.latest_path = self.directory / "latestModel.bin"
         self.device = device
-        self.compute_dtype = None
 
     def _save(self, net, path) -> None:
         import contextlib
@@ -80,7 +78,6 @@ class LocalFileModelSaver(EarlyStoppingModelSaver):
         write_manifest_for(path, step=net.iteration)
         if self.device is None:
             self.device = net.device
-        self.compute_dtype = net.compute_dtype
 
     def save_best_model(self, net, score):
         self._save(net, self.best_path)
@@ -102,9 +99,7 @@ class LocalFileModelSaver(EarlyStoppingModelSaver):
             # central directory); manifest-less files still get the
             # typed-error translation in restore
             verify_manifest(path)
-        net = restore_model(path, device=self.device or "cuda")
-        net.compute_dtype = self.compute_dtype
-        return net
+        return restore_model(path, device=self.device or "cuda")
 
     def get_best_model(self):
         return self._load(self.best_path)

@@ -10,25 +10,30 @@ and live migration (`serving.kv_transfer`: `DisaggCoordinator`,
 (`serving.prefix_directory.PrefixDirectory`), the replica pool
 (`serving.replica_pool.ReplicaPool`) with its `Autoscaler`, resumable
 token streams (`serving.streaming`), the exactly-once door
-(`serving.exactly_once`) and the in-process chaos injectors
-(`serving.chaos`).
-
-The rest of the cluster tier resolves here to a `NotImplementedError`
-naming its ROADMAP queue item: the gateway, remote replicas and the
-network injectors (A11c).
+(`serving.exactly_once`), the chaos injectors (`serving.chaos`), and
+the cross-process pool: replicas as processes behind the gateway wire
+(`serving.remote_replica`: `RemoteReplica`, `RemoteReplicaPool`,
+`ReplicaSupervisor`, `spawn_replica_pool`).
 """
 from deeplearning4j_tpu_torch.serving.autoscaler import Autoscaler
 from deeplearning4j_tpu_torch.serving.chaos import (
     BrokenModelInjector,
+    ChaosProxy,
+    ConnectionResetInjector,
+    GarbageResponseInjector,
     InjectedServingFault,
     JournalCorruptionInjector,
     KVTransferCorruptionInjector,
     LoadSpikeInjector,
+    NetworkLatencyInjector,
+    PartitionInjector,
     PrefixFetchSaboteur,
     ReloadCorruptionInjector,
     ReplicaCrashInjector,
     ReplicaHangInjector,
+    SlowConsumerInjector,
     SlowInferenceInjector,
+    SlowLorisInjector,
     TenantFloodInjector,
 )
 from deeplearning4j_tpu_torch.serving.decode_engine import DecodeEngine
@@ -91,36 +96,44 @@ from deeplearning4j_tpu_torch.serving.streaming import (
     TokenStream,
 )
 
-# the JAX package's serving cluster tier still to port: the wire, the
-# processes and the network injectors (A11c)
-_A11C = frozenset({
-    "ChaosProxy", "ConnectionResetInjector", "GarbageResponseInjector",
-    "NetworkLatencyInjector", "PartitionInjector", "RemoteReplica",
-    "RemoteReplicaPool", "ReplicaEntryPoint", "ReplicaSpawnError",
-    "ReplicaSupervisor", "SlowConsumerInjector", "SlowLorisInjector",
+# the cross-process tier resolves lazily (PEP 562): remote_replica
+# imports gateway, and gateway imports THIS package for observability —
+# an eager import here would close that cycle while gateway is still
+# half-executed. By the time anyone touches these names, gateway is
+# fully loaded.
+_REMOTE_NAMES = frozenset({
+    "RemoteReplica",
+    "RemoteReplicaPool",
+    "ReplicaEntryPoint",
+    "ReplicaSpawnError",
+    "ReplicaSupervisor",
     "spawn_replica_pool",
 })
 
 
 def __getattr__(name):
-    if name in _A11C:
-        raise NotImplementedError(
-            f"serving.{name} is not ported yet (ROADMAP queue A11c: the "
-            "gateway, remote replicas, the network injectors)")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    if name in _REMOTE_NAMES:
+        from deeplearning4j_tpu_torch.serving import remote_replica
+
+        return getattr(remote_replica, name)
+    raise AttributeError(
+        f"module {__name__!r} has no attribute {name!r}")
 
 
 __all__ = [
     "AutoscaleError",
     "Autoscaler",
     "BrokenModelInjector",
+    "ChaosProxy",
     "CircuitBreaker",
+    "ConnectionResetInjector",
     "DeadlineExceededError",
     "DecodeEngine",
     "DedupCache",
     "DisaggCoordinator",
     "ExactlyOnceDoor",
     "FlightRecorder",
+    "GarbageResponseInjector",
     "InferenceFailedError",
     "InjectedServingFault",
     "JournalCorruptionInjector",
@@ -131,31 +144,41 @@ __all__ = [
     "MetricsRegistry",
     "ModelServer",
     "ModelValidationError",
+    "NetworkLatencyInjector",
     "OutOfPagesError",
+    "PartitionInjector",
     "PrefixCache",
     "PrefixDirectory",
     "PrefixFetchSaboteur",
+    "RemoteReplica",
+    "RemoteReplicaPool",
+    "ReplicaEntryPoint",
+    "ReplicaSpawnError",
+    "ReplicaSupervisor",
+    "RequestJournal",
+    "ResultPendingError",
+    "SpeculativeDecoder",
     "ReloadCorruptionInjector",
     "ReplicaCrashInjector",
     "ReplicaEvictedError",
     "ReplicaHangInjector",
     "ReplicaPool",
-    "RequestJournal",
-    "ResultPendingError",
     "ServerClosedError",
     "ServerOverloadedError",
     "ServiceUnavailableError",
     "ServingError",
     "SlotMigratedError",
+    "SlowConsumerInjector",
     "SlowInferenceInjector",
-    "SpeculativeDecoder",
-    "StreamBackpressureError",
-    "StreamRegistry",
+    "SlowLorisInjector",
     "TenantFloodInjector",
     "TenantQuotaExceededError",
     "TokenStream",
+    "StreamBackpressureError",
+    "StreamRegistry",
     "Trace",
     "UnknownRequestError",
+    "spawn_replica_pool",
     "argmax_drift_rate",
     "attach_trace",
     "chain_keys",

@@ -27,18 +27,26 @@ device step (predict batches and the engine's generation steps alike).
 `ReloadCorruptionInjector` damages checkpoint artifacts on disk; its
 `poison_params` writes the port's zip, which the JAX package also reads.
 
-The network injectors (`ChaosProxy` and the injectors built on it,
-`SlowConsumerInjector` on a gateway client) need the gateway and resolve
-here to a `NotImplementedError` naming their ROADMAP queue item.
+The network injectors drive the cross-process pool: `ChaosProxy` is a
+man-in-the-middle in front of one gateway endpoint (partition, latency,
+slow-loris, garbage and mid-response reset), the injectors built on it
+name one fault each, and `SlowConsumerInjector` stalls a streaming
+consumer on a gateway client.
 """
 from __future__ import annotations
 
+import contextlib
+import logging
+import socket
+import struct
 import threading
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
+
+logger = logging.getLogger("deeplearning4j_tpu_torch")
 
 
 class InjectedServingFault(RuntimeError):
@@ -545,18 +553,345 @@ class LoadSpikeInjector:
                     "sheds": self.sheds, "n_latencies": len(self.latencies)}
 
 
-# the network half: a man-in-the-middle proxy and the injectors that
-# drive it, and a streaming consumer on a gateway client
-_A11C = frozenset({
-    "ChaosProxy", "ConnectionResetInjector", "GarbageResponseInjector",
-    "NetworkLatencyInjector", "PartitionInjector", "SlowConsumerInjector",
-    "SlowLorisInjector",
-})
+# -- network chaos (cross-process replica pool) ---------------------------
+
+class ChaosProxy:
+    """Network-fault man-in-the-middle for ONE gateway endpoint: point
+    a `RemoteReplica` at `proxy.port` instead of the replica's real
+    port and every wire hazard becomes injectable without touching the
+    replica process. Modes (exactly one active; `heal()` returns to
+    clean forwarding):
+
+    - ``forward``   — transparent TCP relay (the healthy baseline)
+    - ``partition`` — existing connections are RESET (SO_LINGER 0) and
+      new ones reset right after accept: the filtered-network shape a
+      pool must answer with eviction, then re-admission after `heal()`
+    - ``latency``   — each response chunk is delayed `delay` seconds
+      before forwarding (slow network, alive replica)
+    - ``slowloris`` — responses dribble one byte per `interval`: the
+      connection is alive but the response never completes inside any
+      reasonable deadline
+    - ``garbage``   — responses are replaced with bytes that do not
+      parse as a gateway response line (protocol corruption)
+    - ``reset``     — the connection is RESET the moment a response
+      chunk arrives: death mid-response, the ambiguous failure retries
+      must respect
+
+    The proxy accepts on an ephemeral port (`.port`) at construction;
+    `close()` tears everything down. Thread-safe."""
+
+    _MODES = frozenset({"forward", "partition", "latency", "slowloris",
+                        "garbage", "reset"})
+    GARBAGE_LINE = b"!!chaos-garbage-not-a-gateway-response!!\n"
+
+    def __init__(self, upstream_host: str, upstream_port: int,
+                 listen_host: str = "127.0.0.1"):
+        self._upstream = (upstream_host, upstream_port)
+        self._mode = "forward"  # guarded by: _lock
+        self._delay = 0.0
+        self._interval = 0.05
+        self._lock = threading.Lock()
+        self._conns: list = []  # guarded by: _lock
+        self._closed = False  # guarded by: _lock
+        self._listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self._listener.setsockopt(socket.SOL_SOCKET,
+                                  socket.SO_REUSEADDR, 1)
+        self._listener.bind((listen_host, 0))
+        self._listener.listen(64)
+        self.host = listen_host
+        self.port = self._listener.getsockname()[1]
+        threading.Thread(target=self._accept_loop, daemon=True,
+                         name=f"chaos-proxy-{self.port}").start()
+
+    # -- mode control ------------------------------------------------------
+    def _set_mode(self, mode: str) -> None:
+        if mode not in self._MODES:
+            raise ValueError(f"unknown chaos mode {mode!r}")
+        with self._lock:
+            self._mode = mode
+
+    def heal(self) -> None:
+        self._set_mode("forward")
+
+    def partition(self) -> None:
+        """Cut the replica off: reset every live connection and every
+        future one until `heal()`."""
+        self._set_mode("partition")
+        with self._lock:
+            conns, self._conns = self._conns, []
+        for s in conns:
+            self._reset_close(s)
+
+    def inject_latency(self, delay: float) -> None:
+        self._delay = float(delay)
+        self._set_mode("latency")
+
+    def inject_slowloris(self, interval: float = 0.05) -> None:
+        self._interval = float(interval)
+        self._set_mode("slowloris")
+
+    def inject_garbage(self) -> None:
+        self._set_mode("garbage")
+
+    def inject_reset(self) -> None:
+        self._set_mode("reset")
+
+    # -- plumbing ----------------------------------------------------------
+    @staticmethod
+    def _reset_close(sock) -> None:
+        """Close with SO_LINGER 0 — the peer sees RST, not FIN: real
+        partition/crash behavior, not a polite shutdown."""
+        with contextlib.suppress(OSError):
+            sock.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER,
+                            struct.pack("ii", 1, 0))
+        with contextlib.suppress(OSError):
+            sock.close()
+
+    def _accept_loop(self) -> None:
+        # the suppress ends this loop when close() shuts the listener
+        with contextlib.suppress(OSError):
+            while True:
+                client, _ = self._listener.accept()
+                threading.Thread(target=self._open_link, args=(client,),
+                                 daemon=True).start()
+
+    def _open_link(self, client) -> None:
+        with self._lock:
+            refuse = self._closed or self._mode == "partition"
+        if refuse:
+            self._reset_close(client)
+            return
+        try:
+            upstream = socket.create_connection(self._upstream,
+                                                timeout=10.0)
+        except OSError as e:
+            logger.info("chaos proxy: upstream %s:%d unreachable (%s)",
+                        self._upstream[0], self._upstream[1],
+                        type(e).__name__)
+            self._reset_close(client)
+            return
+        with self._lock:
+            if self._closed:
+                self._reset_close(client)
+                self._reset_close(upstream)
+                return
+            self._conns += [client, upstream]
+        threading.Thread(target=self._pump, args=(client, upstream, False),
+                         daemon=True).start()
+        threading.Thread(target=self._pump, args=(upstream, client, True),
+                         daemon=True).start()
+
+    # pump recv poll tick: a linger-0 close from the sibling pump (or
+    # partition()/close()) cannot tear the kernel socket down — and so
+    # cannot emit its RST — while this thread is parked inside recv()
+    # on the same fd; the syscall holds the last reference.  Bounded
+    # recv waits mean a closed socket is noticed within one tick, the
+    # reference drops, and the deferred RST actually reaches the peer.
+    _PUMP_POLL = 0.25
+
+    def _pump(self, src, dst, response_path: bool) -> None:
+        # OSErrors end the link (either side vanishing is normal here)
+        with contextlib.suppress(OSError):
+            src.settimeout(self._PUMP_POLL)
+            while True:
+                try:
+                    data = src.recv(65536)
+                # idle poll tick, not a failure: re-enter recv so a concurrently closed socket raises and ends the link
+                except TimeoutError:
+                    continue
+                if not data:
+                    break
+                mode = self._mode
+                if mode == "partition":
+                    break
+                if response_path and mode == "latency":
+                    time.sleep(self._delay)
+                elif response_path and mode == "slowloris":
+                    for i in range(len(data)):
+                        if self._mode != "slowloris":
+                            dst.sendall(data[i:])
+                            break
+                        time.sleep(self._interval)
+                        dst.sendall(data[i:i + 1])
+                    continue
+                elif response_path and mode == "garbage":
+                    dst.sendall(self.GARBAGE_LINE)
+                    continue
+                elif response_path and mode == "reset":
+                    self._reset_close(dst)
+                    self._reset_close(src)
+                    break
+                dst.sendall(data)
+        self._reset_close(src)
+        self._reset_close(dst)
+        with self._lock:
+            for s in (src, dst):
+                if s in self._conns:
+                    self._conns.remove(s)
+
+    def close(self) -> None:
+        with self._lock:
+            self._closed = True
+            conns, self._conns = self._conns, []
+        with contextlib.suppress(OSError):
+            self._listener.close()
+        for s in conns:
+            self._reset_close(s)
 
 
-def __getattr__(name):
-    if name in _A11C:
-        raise NotImplementedError(
-            f"serving.chaos.{name} is not ported yet (ROADMAP queue A11c: "
-            "the gateway, remote replicas, the network injectors)")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+class PartitionInjector:
+    """Network partition of one replica: every connection through the
+    proxy is reset until `heal()` — the pool must evict on failed
+    probes and re-admit after `readmit_successes` passes post-heal.
+    `partitions` counts injections."""
+
+    def __init__(self, proxy: ChaosProxy):
+        self.proxy = proxy
+        self.partitions = 0
+
+    def partition(self) -> None:
+        self.partitions += 1
+        self.proxy.partition()
+
+    def heal(self) -> None:
+        self.proxy.heal()
+
+
+class NetworkLatencyInjector:
+    """Slow network to one replica: responses arrive `delay` seconds
+    late. Below the caller deadline this is a tail-latency drill
+    (hedging); above it, a deadline drill. `release()` restores clean
+    forwarding."""
+
+    def __init__(self, proxy: ChaosProxy, delay: float = 0.2):
+        self.proxy = proxy
+        self.delay = delay
+
+    def inject(self) -> None:
+        self.proxy.inject_latency(self.delay)
+
+    def release(self) -> None:
+        self.proxy.heal()
+
+
+class SlowLorisInjector:
+    """Byte-at-a-time responses: the connection looks alive while the
+    response never completes inside any reasonable deadline — the
+    drill proving read deadlines (not liveness checks) bound a call."""
+
+    def __init__(self, proxy: ChaosProxy, interval: float = 0.05):
+        self.proxy = proxy
+        self.interval = interval
+
+    def inject(self) -> None:
+        self.proxy.inject_slowloris(self.interval)
+
+    def release(self) -> None:
+        self.proxy.heal()
+
+
+class GarbageResponseInjector:
+    """Protocol corruption: responses are replaced with bytes that do
+    not parse as a gateway response line. The client must answer with
+    the typed protocol error (mapped to retryable sickness), never a
+    hang or an unhandled decode crash."""
+
+    def __init__(self, proxy: ChaosProxy):
+        self.proxy = proxy
+
+    def inject(self) -> None:
+        self.proxy.inject_garbage()
+
+    def release(self) -> None:
+        self.proxy.heal()
+
+
+class ConnectionResetInjector:
+    """Death mid-response: the connection is RESET the moment response
+    bytes arrive — the ambiguous failure (did the side effect land?)
+    that only idempotent calls may retry."""
+
+    def __init__(self, proxy: ChaosProxy):
+        self.proxy = proxy
+
+    def inject(self) -> None:
+        self.proxy.inject_reset()
+
+    def release(self) -> None:
+        self.proxy.heal()
+
+
+class SlowConsumerInjector:
+    """A streaming consumer that reads `read_frames` frames and then
+    stops draining — the slow-consumer drill for `generate_stream`.
+
+    The contract under drill: the decode slot keeps emitting at full
+    speed (a stalled socket must never block the scheduler loop or
+    other requests), the gateway pump sheds THIS consumer once a frame
+    write stalls past `stream_send_timeout`, and the consumer's
+    recovery ladder is typed the whole way down — ring replay on
+    reconnect while the cursor is retained, `StreamBackpressureError`
+    + parked-outcome `claim` once it fell out. `run()` executes one
+    stalled consumption end to end and returns the outcome record;
+    counters aggregate across runs. `client` is a `GatewayClient`
+    against a server with streaming enabled."""
+
+    def __init__(self, client, name: str, prompt=None,
+                 n_tokens: int = 8, read_frames: int = 1,
+                 stall: float = 1.0, **gen_kw):
+        self.client = client
+        self.name = name
+        self.prompt = (np.arange(8, dtype=np.int32)
+                       if prompt is None else np.asarray(prompt, np.int32))
+        self.n_tokens = int(n_tokens)
+        self.read_frames = int(read_frames)
+        self.stall = float(stall)
+        self.gen_kw = gen_kw
+        self.runs = 0             # guarded by: _lock
+        self.stalls = 0           # guarded by: _lock
+        self.completions = 0      # guarded by: _lock
+        self.backpressure_errors = 0  # guarded by: _lock
+        self.other_errors = 0     # guarded by: _lock
+        self._lock = threading.Lock()
+
+    def run(self) -> dict:
+        from deeplearning4j_tpu_torch.gateway import GatewayError
+
+        with self._lock:
+            self.runs += 1
+        stream = self.client.generate_stream(
+            self.name, self.prompt, self.n_tokens, **self.gen_kw)
+        frames = 0
+        outcome = {"error_type": None}
+        try:
+            for _ in stream:
+                frames += 1
+                if frames == self.read_frames and self.stall > 0:
+                    with self._lock:
+                        self.stalls += 1
+                    # the stall: the socket stays open but nothing
+                    # drains — the server-side pump, not the decode
+                    # slot, must absorb this
+                    time.sleep(self.stall)
+            with self._lock:
+                self.completions += 1
+        except GatewayError as err:
+            outcome["error_type"] = err.error_type
+            with self._lock:
+                if err.error_type == "StreamBackpressureError":
+                    self.backpressure_errors += 1
+                else:
+                    self.other_errors += 1
+        finally:
+            stream.close()
+        outcome.update(frames=frames, resumes=stream.resumes,
+                       tokens=list(stream.tokens),
+                       request_id=stream.request_id)
+        return outcome
+
+    def counters(self) -> dict:
+        with self._lock:
+            return {"runs": self.runs, "stalls": self.stalls,
+                    "completions": self.completions,
+                    "backpressure_errors": self.backpressure_errors,
+                    "other_errors": self.other_errors}

@@ -382,3 +382,52 @@ def test_graph_trainer_alias_and_in_memory_saver():
     assert saver.get_best_model() is not net
     torch.testing.assert_close(saver.get_latest_model().params(),
                                net.params(), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("container", CONTAINERS)
+def test_best_model_of_a_bf16_run_computes_in_f32(tmp_path, container):
+    """A zip records no compute dtype, so the best model of an early
+    stopping run with bf16 compute loads computing in f32 in both
+    packages: its `compute_dtype` is None, and each best zip scores the
+    held-out set the same in either package to f32 tolerance (the port
+    once gave the loaded model the bf16 compute of the run, which moved
+    its score by bf16 rounding)."""
+    import jax.numpy as jnp
+
+    jconf, pconf = _conf(JC, container, 0.3), _conf(PC, container, 0.3)
+    if container == "multilayer":
+        jnet = JNet(jconf, compute_dtype=jnp.bfloat16)
+        pnet = MultiLayerNetwork(pconf, compute_dtype=torch.bfloat16,
+                                 device="cpu")
+    else:
+        jnet = JGraph(jconf, compute_dtype=jnp.bfloat16)
+        pnet = ComputationGraph(pconf, compute_dtype=torch.bfloat16,
+                                device="cpu")
+    jnet.init()
+    pnet.set_param_tree(pser.params_from_jax(pconf, jnet._params))
+    jtrain, ptrain = _iterators()
+    jheld, pheld = _iterators(seed=1)
+
+    def cfg(E, held):
+        return (E.EarlyStoppingConfiguration.Builder()
+                .epoch_termination_conditions(
+                    E.MaxEpochsTerminationCondition(2))
+                .score_calculator(E.DataSetLossCalculator(held))
+                .model_saver(E.LocalFileModelSaver(
+                    tmp_path / E.__name__.split(".")[0]))
+                .build())
+
+    jres = JE.EarlyStoppingTrainer(cfg(JE, jheld), jnet, jtrain).fit()
+    pres = PE.EarlyStoppingTrainer(cfg(PE, pheld), pnet, ptrain).fit()
+    assert pres.best_model.compute_dtype is None
+    assert jres.best_model.compute_dtype is None
+    X, y = _blobs(seed=1)
+    for pkg in ("deeplearning4j_tpu_torch", "deeplearning4j_tpu"):
+        path = tmp_path / pkg / "bestModel.bin"
+        jbest = JE.LocalFileModelSaver(tmp_path / pkg)._load(path)
+        pbest = PE.LocalFileModelSaver(tmp_path / pkg, device="cpu")._load(
+            path)
+        assert pbest.compute_dtype is None
+        jscore, pscore = jbest.score(JDataSet(X, y)), \
+            pbest.score(DataSet(X, y))
+        assert pscore == pytest.approx(float(jscore), rel=1e-6, abs=1e-6)

@@ -13,7 +13,8 @@ ResNet's tiny network as a ComputationGraph fit, saved and restored, a
 masked tBPTT graph streamed with rnn_time_step, an AutoEncoder, RBM and
 VAE stack pretrained layer by layer, a gradient check; early stopping,
 the determinism check and a profiler trace; QoS lanes, a warm migration,
-a cluster prefix fetch and disaggregated serving)
+a cluster prefix fetch and disaggregated serving; the gateway wire, a
+remote replica behind a chaos proxy)
 loads neither `jax` nor any module of `deeplearning4j_tpu`, and
 its entry points run on the card by default, raising where there is
 none rather than carrying on quietly on the CPU."""
@@ -349,6 +350,29 @@ _SCRIPT = textwrap.dedent("""
         assert (co.generate(prompt, 6) == want).all()
     finally:
         co.shutdown()
+
+    # the wire: a gateway serving the GPT, a client, a remote replica
+    # reached through a chaos proxy, and the cross-process pool's module
+    from deeplearning4j_tpu_torch.gateway import GatewayClient, GatewayServer
+    from deeplearning4j_tpu_torch.serving import (
+        ChaosProxy, RemoteReplica, ReplicaEntryPoint, spawn_replica_pool)
+    from deeplearning4j_tpu_torch.serving import remote_replica  # noqa: F401
+
+    rep_ep = ReplicaEntryPoint(serving={"generation": gen}, device="cpu")
+    rep_ep.serve_net(net)
+    gw = GatewayServer(entry_point=rep_ep).start()
+    proxy = ChaosProxy("127.0.0.1", gw.port)
+    rep = RemoteReplica("127.0.0.1", proxy.port)
+    client = GatewayClient(port=gw.port)
+    try:
+        assert (rep.generate(prompt, 6) == want).all()
+        assert client.call("health")["ok"]
+    finally:
+        client.close()
+        rep.shutdown()
+        proxy.close()
+        gw.stop(drain_timeout=5.0)
+    assert callable(spawn_replica_pool)
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")

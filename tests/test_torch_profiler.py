@@ -182,3 +182,41 @@ def test_assert_deterministic_reports_a_difference():
     with pytest.raises(AssertionError, match="training diverged"):
         pdet.assert_deterministic(
             lambda: MultiLayerNetwork(_conf(PC), device="cpu"), bad)
+
+
+class _FixedNet:
+    """A stand-in network whose `params()` is a fixed vector: the factory
+    hands out one per run, so the two runs differ by what the test says."""
+
+    def __init__(self, value, torch_params):
+        self._value = np.asarray([value, 1.0], np.float32)
+        self._torch = torch_params
+
+    def fit(self, iterator, epochs=1):
+        pass
+
+    def params(self):
+        return torch.from_numpy(self._value) if self._torch \
+            else self._value
+
+
+@pytest.mark.parametrize("second,accepted", [
+    (1e4 + 9.8e-4, True),    # inside atol + 1e-7 |b|, past atol alone
+    (1e4 + 2.5e-3, False),   # past both
+])
+def test_assert_deterministic_tolerance_matches_numpy(second, accepted):
+    """With `atol > 0` the verdict is numpy's `assert_allclose`, whose
+    rtol is 1e-7: at 1e4 against 1e4 + 9.8e-4 and atol 1e-4 both
+    packages accept (the port once compared with rtol 0 and refused),
+    and a gap past atol + 1e-7 |b| both refuse."""
+    for det, is_torch in ((jdet, False), (pdet, True)):
+        values = iter([1e4, second])
+
+        def factory():
+            return _FixedNet(next(values), is_torch)
+
+        if accepted:
+            det.assert_deterministic(factory, [None], atol=1e-4)
+        else:
+            with pytest.raises(AssertionError):
+                det.assert_deterministic(factory, [None], atol=1e-4)

@@ -126,10 +126,17 @@ def test_the_walk_covers_the_training_extras_and_the_cluster_half():
     ("parallel", "make_mesh", "A12"),
 ])
 def test_unported_families_raise_naming_their_item(module, name, item):
-    """The wire, the remote replicas and the network injectors (A11c) and
-    parallel training (A12) raise NotImplementedError naming their queue
-    item, never AttributeError or ImportError."""
+    """Parallel training (A12) raises NotImplementedError naming its
+    queue item, never AttributeError or ImportError. The wire, the
+    remote replicas and the network injectors (A11c) raised so until
+    they were ported: now they resolve, and no name raises naming
+    A11c."""
     mod = importlib.import_module(f"{PORT}.{module}" if module else PORT)
+    if item == "A11c":
+        obj = getattr(mod, name)
+        assert inspect.isclass(obj)
+        exec(f"from {mod.__name__} import {name}", {})
+        return
     with pytest.raises(NotImplementedError, match=rf"queue {item}\b"):
         getattr(mod, name)
     with pytest.raises(NotImplementedError, match=rf"queue {item}\b"):
@@ -184,3 +191,37 @@ def test_pretrain_and_sharded_experts_raise_naming_their_item():
     assert torch.equal(net.params(), before)
     with pytest.raises(NotImplementedError, match=r"queue A12\b"):
         experts.switch_ffn_sharded(None, None, None)
+
+
+def test_the_walk_covers_the_wire_tier():
+    assert {f"{PORT}.gateway", f"{PORT}.serving.remote_replica",
+            f"{PORT}.serving.chaos", f"{PORT}.serving"} <= set(MODULES)
+
+
+A11C = ("ChaosProxy", "ConnectionResetInjector", "GarbageResponseInjector",
+        "NetworkLatencyInjector", "PartitionInjector", "RemoteReplica",
+        "RemoteReplicaPool", "ReplicaEntryPoint", "ReplicaSpawnError",
+        "ReplicaSupervisor", "SlowConsumerInjector", "SlowLorisInjector",
+        "spawn_replica_pool")
+
+
+@pytest.mark.parametrize("name", A11C)
+def test_the_wire_tier_resolves_from_serving(name):
+    """The cross-process pool and the network injectors are ported:
+    `serving` exports the port's object of the JAX package's kind (a
+    class, an exception, a function), defined in the port's modules."""
+    serving = importlib.import_module(f"{PORT}.serving")
+    ref = importlib.import_module(f"{REF}.serving")
+    obj, robj = getattr(serving, name), getattr(ref, name)
+    assert name in serving.__all__
+    assert obj.__module__ in (f"{PORT}.serving.remote_replica",
+                              f"{PORT}.serving.chaos")
+    assert inspect.isclass(obj) == inspect.isclass(robj)
+    if inspect.isclass(obj):
+        assert issubclass(obj, Exception) == issubclass(robj, Exception)
+
+
+def test_no_port_name_raises_naming_a11c():
+    """No module of the port keeps a name that raises naming A11c."""
+    for path in (REPO / PORT).rglob("*.py"):
+        assert "queue A11c" not in path.read_text(), path
