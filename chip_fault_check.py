@@ -77,7 +77,11 @@ belongs to):
 - wire: `chip_smoke.py`'s phases 32 and 33 (path 10, three replica
   processes behind a gateway; the wire's streams, claims, door and
   journal), whose failed check counts as caught. The replica processes
-  of a copy run that copy's modules.
+  of a copy run that copy's modules;
+- nlp: `chip_smoke.py`'s phases 34 and 35 (path 11, Word2Vec at
+  bench_word2vec_50k's shape with its checks; the NLP steps against the
+  CPU and numpy, host-drawn fits against the CPU), whose failed check
+  counts as caught.
 
 The faults (`MUTATIONS`) drop tiles, terms or rows, and break each
 mechanism of the Hopper kernels: the forward's diagonal mask on the wrong
@@ -167,7 +171,13 @@ re-executes a completed id; the wire and the processes (`gateway.py`,
 the remote `ServerClosedError` mapped to the terminal `ServerClosedError`
 instead of a failover, a supervisor that never respawns, a gateway door
 that re-executes a retried `fit`, and a stream pump that resumes one
-token past the client's cursor. A
+token past the client's cursor; the NLP package (`nlp/kernels.py`,
+`nlp/sequence_vectors.py`): the row clip dropped from `_scatter_clipped`
+(both regimes), the negative-sampling cdf rounded to f32 (the tail of a
+large table collapses), negatives equal to their context left unmasked,
+the per-pair learning-rate decay lost (one rate a chunk), `glove_step`
+reading the AdaGrad histories before the batch's add, and the pair
+batcher sending its page-locked staging arrays without a copy. A
 fault that makes the kernel trap (an mbarrier wait that times out) fails
 its check process, which counts as caught.
 
@@ -225,6 +235,10 @@ POOL, STREAM = "pool", "stream"
 # (path 10: three replica processes on the card behind a gateway; the
 # wire's streams, claims, door and journal)
 WIRE = "wire"
+# the NLP package (`nlp/kernels.py`, `nlp/sequence_vectors.py`), checked
+# by `chip_smoke.py`'s phases 34-35 (path 11 and its checks; the NLP
+# steps against the CPU and numpy)
+NLP = "nlp"
 # (B, T, H, D, causal, dtype): bf16, the training path's kernels at D = 128,
 # the "wgmma wide" kernels at D = 256 and the "wgmma cluster" backward at
 # D = 384 and 512 (T = 192: the first diagonal tiles; T = 1024 full: every
@@ -933,6 +947,55 @@ MUTATIONS = [
          ("return self._pump(stream, cursor, req_id)",
           "return self._pump(stream, cursor + 1, req_id)")],
      "gateway.py"),
+    # the NLP package, each caught by phases 34-35: the clip by the
+    # clipped rows of `_scatter_clipped` and the skip-gram step against
+    # numpy (35); the f32 cdf by the tail of the heavy-head table (34);
+    # the unmasked negatives by `_ns_batch` with given negatives (35);
+    # the alpha decay by the planted corpus's falling rates (34); the
+    # history order by `glove_step` on duplicate rows (35); the staging
+    # copy by the fit whose device lags behind the host (34)
+    ("nlp: the row clip dropped from _scatter_clipped", NLP,
+     "def _scatter_clipped(", [
+         ("return table.add_(agg * _clip_scale(agg))",
+          "return table.add_(agg)"),
+         ("contrib = agg[ranks] * scale[ranks] * first[:, None]",
+          "contrib = agg[ranks] * first[:, None]")],
+     "nlp/kernels.py"),
+    ("nlp: the NS cdf held in f32 (the tail collapses)", NLP,
+     "    def _ns_device_state(self):", [
+         ("torch.from_numpy(fixed.astype(np.int64))",
+          "torch.from_numpy(fixed.astype(np.float32).astype(np.int64))")],
+     "nlp/sequence_vectors.py"),
+    ("nlp: negatives equal to the context left unmasked", NLP,
+     "def _ns_targets(", [
+         ("mask = torch.cat([one, (negs != context[:, None]).float()], dim=1)",
+          "mask = torch.cat([one, torch.ones_like(negs, dtype=torch.float32)"
+          "], dim=1)")],
+     "nlp/kernels.py"),
+    ("nlp: the per-pair alpha decay lost (one rate a chunk)", NLP,
+     "    def _fit_vectorized(self,", [
+         ("* (1.0 - (words_seen + pos) / total_words)",
+          "* (1.0 - (words_seen + 0 * pos) / total_words)")],
+     "nlp/sequence_vectors.py"),
+    ("nlp: glove_step reads the histories before the add", NLP,
+     "def glove_step(", [
+         ("    hW.index_add_(0, rows, gWi ** 2)\n",
+          "    sW, sWc, sb, sbc = (hW[rows].clone(), hWc[cols].clone(),\n"
+          "                        hb[rows].clone(), hbc[cols].clone())\n"
+          "    hW.index_add_(0, rows, gWi ** 2)\n"),
+         ("torch.sqrt(hW[rows] + eps)", "torch.sqrt(sW + eps)"),
+         ("torch.sqrt(hWc[cols] + eps)", "torch.sqrt(sWc + eps)"),
+         ("torch.sqrt(hb[rows] + eps)", "torch.sqrt(sb + eps)"),
+         ("torch.sqrt(hbc[cols] + eps)", "torch.sqrt(sbc + eps)")],
+     "nlp/kernels.py"),
+    ("nlp: the staging buffers sent without a copy", NLP,
+     "def _send(a: np.ndarray, device: torch.device) -> torch.Tensor:", [
+         ("    buf = torch.empty(a.shape, dtype=_TORCH_DTYPES[a.dtype], "
+          "pin_memory=True)\n"
+          "    buf.numpy()[...] = a\n"
+          "    return buf.to(device, non_blocking=True)",
+          "    return torch.from_numpy(a).to(device, non_blocking=True)")],
+     "nlp/sequence_vectors.py"),
     ("stream: DedupCache re-executes a completed id", STREAM,
      "    def begin(self, request_id: str) -> Tuple[str, Any]:", [
          ("            ent = self._done.get(request_id)\n"
@@ -997,7 +1060,7 @@ def build(sources) -> None:
              MOE: (PAGED, FLASH), GRAPH: (LSTM,), PRETRAIN: (LSTM,),
              DISAGG: (PAGED,), QOS: (PAGED, FLASH, LSTM),
              POOL: (PAGED, FLASH), STREAM: (PAGED, FLASH),
-             WIRE: (PAGED, FLASH, LSTM)}
+             WIRE: (PAGED, FLASH, LSTM), NLP: ()}
     cuda_build.build(tuple(sorted({k for s in sources
                                    for k in needs.get(s, (s,))})))
 
@@ -1056,6 +1119,10 @@ def check(sources) -> None:
         cases += phase_cases(torch, "32-33", "path 10, the wire",
                              lambda cs, M, card: cs.phases_32_33(
                                  torch, M, pa, card))
+    if NLP in sources:
+        cases += phase_cases(torch, "34-35", "path 11, the NLP steps",
+                             lambda cs, M, card: cs.phases_34_35(
+                                 torch, M, card))
     print(json.dumps({"package": fa.__file__, "cases": cases}), flush=True)
 
 
@@ -1280,6 +1347,9 @@ def main() -> int:
                     f"{p.returncode}): {p.stderr.strip()[-400:]}")
                 results.append((name, None))
                 continue
+            for line in p.stdout.splitlines():  # which check caught it
+                if line.startswith("phase ") and " failed: " in line:
+                    log(f"{name}: {line[:300]}")
             res = json.loads(p.stdout.strip().splitlines()[-1])
             if not res["package"].startswith(root):
                 raise RuntimeError(f"'{name}' ran {res['package']}")

@@ -10,6 +10,7 @@ NVIDIA card.
     python3 chip_smoke.py --phases-27-29   # the cluster half and A10b phases
     python3 chip_smoke.py --phases-30-31   # path 9: the replica pool tier
     python3 chip_smoke.py --phases-32-33   # path 10: the wire, processes
+    python3 chip_smoke.py --phases-34-35   # path 11: Word2Vec, NLP parity
 
 `--lstm-timing` runs phase 17 alone (the LSTM source built, the rows
 checked and timed, launch counts 0) on the checkout's package or, with
@@ -28,7 +29,9 @@ sources and runs phase 7 (path 1, for its tokens/s) and phases 30 and 31
 alone, then prints one JSON line of their launch counts. `--phases-32-33`
 builds the paged and flash sources and runs phases 32 and 33 alone, then
 times row 1's f32 rows and prints one JSON line of those rows and the
-launch counts.
+launch counts. `--phases-34-35` runs phases 34 and 35 alone (path 11 and
+the NLP steps; no CUDA source of the port runs there) and prints one JSON
+line of path 11's figures.
 
 Phases, each of which makes the script exit non-zero when it fails:
 
@@ -339,7 +342,8 @@ Phases, each of which makes the script exit non-zero when it fails:
    against the biased batch statistics, then in eval mode; LRN (n=5);
    masked global MAX and AVG pooling. Then path 6: `lenet_configuration()`
    at bench_lenet's shape (`bench.py:202-232`: B=4096 28x28x1 uint8
-   images, seeded class templates plus noise, through
+   images from the port's `MnistDataSetIterator(4096, raw_uint8=True)`,
+   the synthetic stand-in without cached MNIST, through
    `ImagePreProcessingScaler`, bf16 compute over f32 masters, Nesterovs
    lr 0.01 momentum 0.9): a warm-up step, then 5 timed steps (step ms,
    samples/s, losses finite and falling, peak device memory), one more
@@ -552,7 +556,44 @@ Phases, each of which makes the script exit non-zero when it fails:
    run, nothing pending, no double execution. Path 10's and phase 33's
    paged launches (f32 pools) go into row 1's f32 rows, timed at path
    1's shapes; the replicas' f32 predict into the f32 forward row at
-   T=4096.
+   T=4096;
+34. path 11: `Word2Vec` skip-gram with negative sampling at
+   bench_word2vec_50k's shape (`bench.py:1198-1221`: this script's copy
+   of `_zipf_corpus(50_000, 50_000, 40)`, 2,000,000 words; layer_size
+   128, window 5, negative 5, min_word_frequency 1, epochs 1, seed 1,
+   batch_size 16384, scan_flushes 32) on the card: the vocabulary built
+   by `Word2Vec.build_vocab` and from the corpus written to a file by
+   `VocabConstructor.build_vocab_from_files`, which must take the native
+   counter (`native.loader.route`) and give the same vocabulary (ms of
+   both); a warm-up fit, then 3 timed passes, each ended by a
+   synchronize: median wall, words/s, pairs/s, pairs and batches a pass;
+   one more pass under torch.profiler (idle share, top kernels), and one
+   with its host parts timed (encode, windows, staging, flushes, the
+   rest, the final synchronize). Checks:
+   the negatives drawn on the card from the fit's fixed-point cdf against
+   the 0.75-power table (a chi-square, |z| < 6, and every one of the 1000
+   rarest words drawn) and, on a table whose tail words sit below f32's
+   resolution near 1, 90% of the tail drawn in 1e8 draws; two same-seed
+   fits on the card (atomic adds) nearer by the tables' relative
+   Frobenius difference than `W2V_ATOMIC_RATIO` times seeds 1 and 2, and
+   their largest entry difference printed; under
+   `torch.use_deterministic_algorithms` two
+   same-seed fits bit-identical (their walls printed) and a fit whose
+   device lags ~20 ms a flush behind the host bit-identical to a prompt
+   one (the staging arrays are copied before they are sent); the
+   planted-topic corpus separated by `tests/test_nlp.py`'s criterion, and
+   its learning rates, read at the device step, strictly falling batch by
+   batch inside its one chunk;
+35. the NLP steps at path 11's shapes, each on the card and on the CPU
+   against this script's numpy f64 version (`W2V_STEP_TOL`, TF32 off):
+   `_scatter_clipped` in both regimes (V=50,000: the table-shaped
+   accumulator; V=200,000: argsort and segment sums) with rows clipped,
+   `skipgram_step`, `_ns_batch` with given negatives (some equal to their
+   context, a partial batch), `cbow_step`, `infer_step`, `glove_step`
+   with duplicate rows; then fits that draw everything on the host on a
+   small planted corpus, card against CPU (`W2V_FIT_TOL`): CBOW with host
+   negatives, hierarchical softmax, ParagraphVectors DBOW with
+   hierarchical softmax (and `infer_vector`), GloVe.
 
 Prints one JSON line of per-kernel numbers, then the card's
 `nvidia-smi` line, then as the last line
@@ -4194,17 +4235,27 @@ def phase_cnn_layers(torch, M):
                                              kind), mask=mask)
 
 
-def lenet_batches(np, B, n, seed):
-    """Seeded MNIST-shaped data: ten 28x28 uint8 class templates, each
-    image its class's template plus uniform noise, one-hot labels."""
-    rng = np.random.default_rng(seed)
-    templates = rng.integers(0, 256, (10, 784))
+def lenet_batches(M, B, n, seed):
+    """n batches of B MNIST examples from the port's fetcher, as
+    bench_lenet takes them (`bench.py:202-232`):
+    `MnistDataSetIterator(B, raw_uint8=True)`, uint8 (B, 784) pixels and
+    one-hot labels. Without cached MNIST under `DL4J_TPU_DATA_DIR` it is
+    the fetcher's synthetic stand-in made from `seed`."""
+    it = M["MnistDataSetIterator"](B, num_examples=B * n, seed=seed,
+                                   raw_uint8=True)
     out = []
-    for _ in range(n):
-        y = rng.integers(0, 10, B)
-        x = np.clip(templates[y] + rng.integers(-60, 61, (B, 784)), 0, 255)
-        out.append((x.astype(np.uint8), np.eye(10, dtype=np.float32)[y]))
+    while it.has_next():
+        ds = it.next()
+        out.append((ds.features, ds.labels))
     return out
+
+
+def mnist_source(M) -> str:
+    """Where `MnistDataSetIterator` takes its pixels from on this
+    machine."""
+    cache = M["fetchers"].DATA_DIR / "mnist"
+    return (f"cached idx files under {cache}" if cache.exists()
+            else "the fetcher's synthetic stand-in (no cached MNIST)")
 
 
 def lenet_net(torch, M, device, compute_dtype=None):
@@ -4224,7 +4275,7 @@ def phase_lenet(torch, M, card):
     DataSet = M["DataSet"]
     net = lenet_net(torch, M, "cuda", torch.bfloat16)
     batches = [DataSet(x, y) for x, y in lenet_batches(
-        np, LENET_B, LENET_STEPS + 2, seed=22)]
+        M, LENET_B, LENET_STEPS + 2, seed=6)]
     net.fit(batches[0])  # warm-up: cuDNN plans, allocator
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -4240,8 +4291,9 @@ def phase_lenet(torch, M, card):
     trace = traced(torch, lambda: net.fit(batches[-1]), kernels)
     copies = {n: t for n, t in kernels.items() if "copy" in n.lower()}
     med = sorted(step_ms)[len(step_ms) // 2]
-    log(f"  path 6: {LENET_STEPS} steps of B={LENET_B} 28x28x1 uint8 "
-        f"(bf16 over f32 masters, Nesterovs): step ms "
+    log(f"  path 6: {LENET_STEPS} steps of B={LENET_B} 28x28x1 uint8 from "
+        f"MnistDataSetIterator ({mnist_source(M)}; bf16 over f32 masters, "
+        f"Nesterovs): step ms "
         f"{[round(t, 2) for t in step_ms]}; median {med:.2f} ms, "
         f"{LENET_B / med * 1e3:.1f} samples/s [{card}]")
     log(f"  losses {losses}; peak device memory {peak / 2**30:.3f} GiB "
@@ -4259,7 +4311,7 @@ def phase_lenet(torch, M, card):
     card_net.set_param_tree([{k: v.clone() for k, v in p.items()}
                              for p in cpu._params])
     got = {"card": [], "cpu": []}
-    for x, y in lenet_batches(np, LENET_PARITY_B, LENET_PARITY_STEPS,
+    for x, y in lenet_batches(M, LENET_PARITY_B, LENET_PARITY_STEPS,
                               seed=23):
         for name, n in (("card", card_net), ("cpu", cpu)):
             n.fit(DataSet(x, y))
@@ -4273,7 +4325,7 @@ def phase_lenet(torch, M, card):
             if not bool((d <= 1e-5 + 1e-5 * b[k].abs()).all()):
                 raise AssertionError(f"LeNet param {k} differs card vs CPU "
                                      f"by {d.max().item()}")
-    images = lenet_batches(np, 16, 1, seed=24)[0][0]
+    images = lenet_batches(M, 16, 1, seed=24)[0][0]
     e = rel_err(np, card_net.output(images).cpu().numpy(),
                 np_lenet_probs(np, card_net._params, images))
     log(f"  f32 parity, B={LENET_PARITY_B}: losses card {got['card']} cpu "
@@ -6130,19 +6182,19 @@ def phases_27_29(torch, M, pa, card):
         for k, n in counts.items():
             paged[k] = paged.get(k, 0) + n
 
-    log("[27/33] path 8: path 1's GPT disaggregated (8a: the two mixes, "
+    log("[27/35] path 8: path 1's GPT disaggregated (8a: the two mixes, "
         "bf16 and int8 KV, against a colocated server), live migration "
         "(8b: warm, cold, sampled, int8), the cluster prefix cache (8c)")
     add(phase_disagg(torch, M, pa, card))
     net, counts = phase_migration(torch, M, pa, card)
     add(counts)
     add(phase_prefix_cluster(torch, M, pa, card, net))
-    log("[28/33] QoS on path 1's engine: a flood tenant under quota beside "
+    log("[28/35] QoS on path 1's engine: a flood tenant under quota beside "
         "Poisson interactive traffic, preemption of the batch lane")
     add(phase_qos(torch, M, pa, card, net))
     del net
     torch.cuda.empty_cache()
-    log("[29/33] early stopping, the profiler and assert_deterministic on "
+    log("[29/35] early stopping, the profiler and assert_deterministic on "
         "the LSTM and flash kernels")
     extras = phase_extras(torch, M, card)
     return paged, extras
@@ -6832,10 +6884,10 @@ def phase_streams(torch, M, pa, card, pool, rows_paged):
 def phases_30_31(torch, M, pa, card, path1_tok_s):
     """Phases 30 and 31; returns the bf16 paged launches and the f32
     flash launches for the kernel rows."""
-    log("[30/33] path 9: path 1's GPT behind ReplicaPool.from_net(net, 3): "
+    log("[30/35] path 9: path 1's GPT behind ReplicaPool.from_net(net, 3): "
         "routing and parity, a crash drill, rolling reloads, the autoscaler")
     pool, paged, flash = phase_pool(torch, M, pa, card, path1_tok_s)
-    log("[31/33] token streams and the exactly-once door on path 9's pool")
+    log("[31/35] token streams and the exactly-once door on path 9's pool")
     phase_streams(torch, M, pa, card, pool, paged)
     return {"paged": paged, "flash": flash}
 
@@ -7590,11 +7642,11 @@ def phases_32_33(torch, M, pa, card):
     """Phases 32 and 33: `{"path 10": its replicas' launches in 10a's
     window, "phase 33": phase 33's}`, each `{"paged": {(C, pools): n},
     "flash": {(kind, route): n}}` (f32 pools)."""
-    log("[32/33] path 10: path 1's GPT behind a GatewayServer, served by 3 "
+    log("[32/35] path 10: path 1's GPT behind a GatewayServer, served by 3 "
         "replica processes on the card: parity, tokens/s, kill -9, "
         "a partition, a rolling reload, a graceful stop")
     path10 = phase_wire_pool(torch, M, pa, card)
-    log("[33/33] the wire on the card: a torn stream resumed, a claim, a "
+    log("[33/35] the wire on the card: a torn stream resumed, a claim, a "
         "retried fit, a journal replay after a restart")
     return {"path 10": path10,
             "phase 33": {"paged": phase_wire(torch, M, pa, card),
@@ -7624,6 +7676,671 @@ def phases_32_33_alone(torch, M, pa, cuda_build) -> int:
         path: {k: {",".join(map(str, key)): n for key, n in v.items()}
                for k, v in c.items()}
         for path, c in counts.items()}}), flush=True)
+    return 0
+
+
+# ------------------------------------ phases 34-35: path 11, Word2Vec
+# bench_word2vec_50k (bench.py:1198-1221): skip-gram with negative
+# sampling on a 50,000-type Zipf corpus of 2,000,000 words
+W2V = dict(layer_size=128, window=5, negative=5, min_word_frequency=1,
+           epochs=1, seed=1, batch_size=16384, scan_flushes=32)
+W2V_CORPUS = (50_000, 50_000, 40)   # vocab, sentences, words a sentence
+W2V_PASSES = 3
+# Two fits from one seed on the card in torch's default mode:
+# `index_add_` adds with atomics, so a row a batch hits more than once
+# sums in another order, and the most frequent words' rows, clipped to a
+# unit step every batch, carry those last bits on: the largest entry
+# differences were 0.0317 and 0.147 in two runs on an H100, against 0.52
+# for seeds 1 and 2. So the pair is held by the whole tables: the
+# Frobenius norm of the difference of syn0 and syn1neg, over that of the
+# tables, at most W2V_ATOMIC_RATIO of the same for seeds 1 and 2 in the
+# same run. Under `torch.use_deterministic_algorithms` the fits must be
+# bit-identical.
+W2V_ATOMIC_RATIO = 0.25
+# phase 35: a step on the card against the same step on the CPU and
+# against this script's numpy f64 version: the largest |difference| within
+# W2V_STEP_TOL of max(1, largest |reference|). The steps sum in f32, and
+# at path 11's shapes one Zipf-frequent row takes ~30,000 of a batch's
+# 98,304 updates: the f32 sum of those drifts from f64 by up to ~1e-5 of
+# the row (7e-6 measured on the CPU), whatever the order. A planted fault
+# moves the outputs by 1e-3 or more. Fits (every draw on the host), card
+# against CPU, within W2V_FIT_TOL of the same.
+W2V_STEP_TOL, W2V_FIT_TOL = 1e-4, 1e-4
+# the lagging-device run: a GPU sleep of this many cycles (~20 ms) queued
+# before every flush, so the device runs each flush's transfer well after
+# the host has refilled its staging arrays
+W2V_LAG_CYCLES = 40_000_000
+
+
+def zipf_corpus(np, vocab_size, n_sentences, sent_len, seed=0):
+    """bench.py's `_zipf_corpus` (`bench.py:1127-1134`): pre-tokenized
+    sentences of Zipf-drawn words."""
+    rng = np.random.default_rng(seed)
+    probs = 1.0 / np.arange(1, vocab_size + 1)
+    probs /= probs.sum()
+    words = np.array([f"w{i}" for i in range(vocab_size)])
+    draws = rng.choice(vocab_size, (n_sentences, sent_len), p=probs)
+    return [list(words[row]) for row in draws]
+
+
+def topic_corpus(np, n_sentences=300, seed=0):
+    """`tests/test_nlp.py`'s planted corpus: two disjoint topic
+    vocabularies, words inside a topic co-occur, across topics never."""
+    rng = np.random.default_rng(seed)
+    topics = [["cat", "dog", "pet", "fur", "paw", "tail"],
+              ["sun", "moon", "star", "sky", "orbit", "comet"]]
+    return [list(rng.choice(topics[int(rng.integers(0, 2))], size=8))
+            for _ in range(n_sentences)]
+
+
+def topics_separate(w2v) -> bool:
+    """`tests/test_nlp.py::test_word2vec_topic_separation`'s criterion."""
+    nearest = [w for w, _ in w2v.words_nearest("sun", 3)]
+    return (w2v.similarity("cat", "dog") > w2v.similarity("cat", "moon")
+            and len(set(nearest) & {"moon", "star", "sky", "orbit",
+                                    "comet"}) >= 2)
+
+
+def tables_diff(torch, a, b):
+    """(largest |difference|, Frobenius norm of the difference over that
+    of `a`'s tables) between two fits' syn0 and syn1neg."""
+    ta = [getattr(a.lookup_table, n) for n in ("syn0", "syn1neg")]
+    tb = [getattr(b.lookup_table, n) for n in ("syn0", "syn1neg")]
+    largest = max((x - y).abs().max().item() for x, y in zip(ta, tb))
+    rel = math.sqrt(sum((x - y).double().pow(2).sum().item()
+                        for x, y in zip(ta, tb))
+                    / sum(x.double().pow(2).sum().item() for x in ta))
+    return largest, rel
+
+
+def counting_step(nlp, into):
+    """The NS device step, counting its batches (host shapes only: no
+    read of the device) into `into["batches"]`."""
+    def step(*args):
+        into["batches"] += args[2].shape[0]
+        return nlp.kernels.skipgram_ns_scan(*args)
+    return step
+
+
+def recording_step(nlp, into):
+    """The NS device step, recording each batch's learning rate (valid
+    batches only; reads the device, for a small check)."""
+    def step(*args):
+        lrs, nv = args[7].cpu().numpy(), args[8].cpu().numpy()
+        into.extend(lrs[nv > 0].tolist())
+        return nlp.kernels.skipgram_ns_scan(*args)
+    return step
+
+
+def ns_draw_checks(torch, np, nlp, w2v, card):
+    """The negatives the card draws (`kernels._draw_negatives` on the
+    fit's fixed-point cdf, a fresh generator) against the 0.75-power
+    table: a chi-square over words expected 5 times or more (the rest
+    pooled), and every one of the 1000 rarest words drawn; then a table
+    whose tail words sit below f32's resolution near 1 (a head of count
+    1e10 over 2^14 words of count 1, each about 3.2e-8): with 1e8 draws
+    at least 90% of the tail is drawn (an f32 cdf would give about half
+    of the tail no slot at all)."""
+    k = nlp.kernels
+    cdf, _ = w2v._ns_device_state()
+    p = w2v.vocab.unigram_table()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(101)
+    counts = torch.zeros(len(p), dtype=torch.int64, device="cuda")
+    n, chunk = 0, 1 << 22
+    for _ in range(4):
+        negs = k._draw_negatives(cdf, gen, chunk // 8, 8)
+        counts += torch.bincount(negs.reshape(-1), minlength=len(p))
+        n += chunk
+    counts = counts.cpu().numpy().astype(np.float64)
+    expected = n * p
+    big = expected >= 5
+    obs, exp = counts[big], expected[big]
+    if not big.all():  # the words expected fewer than 5 times, pooled
+        obs = np.append(obs, counts[~big].sum())
+        exp = np.append(exp, expected[~big].sum())
+    chi2 = float(((obs - exp) ** 2 / exp).sum())
+    dof = len(obs) - 1
+    z = (chi2 - dof) / math.sqrt(2 * dof)
+    rare = np.argsort(p, kind="stable")[:1000]
+    rare_drawn = float((counts[rare] > 0).mean())
+    log(f"  negatives on the card: {n} draws over V={len(p)}: chi-square "
+        f"{chi2:.1f} on {dof} dof (z {z:.2f}); the 1000 rarest words "
+        f"(expected {expected[rare].min():.1f}-{expected[rare].max():.1f} "
+        f"draws each) drawn: {rare_drawn:.4f} [{card}]")
+    if not (abs(z) < 6 and rare_drawn == 1.0):
+        raise AssertionError(f"device negatives off the unigram table: "
+                             f"z {z:.2f}, rarest drawn {rare_drawn}")
+    cache = nlp.vocab.AbstractCache()
+    cache.add_token(nlp.vocab.VocabWord("head", 1e10))
+    n_tail = 1 << 14
+    for i in range(n_tail):
+        cache.add_token(nlp.vocab.VocabWord(f"t{i}", 1.0))
+    cache.update_indices()
+    sv = nlp.SequenceVectors(negative=5, device="cuda")
+    sv.vocab, sv._unigram = cache, cache.unigram_table()
+    cdf, _ = sv._ns_device_state()
+    gen.manual_seed(102)
+    tail_counts = torch.zeros(n_tail + 1, dtype=torch.int64, device="cuda")
+    draws = 0
+    while draws < 100_000_000:
+        negs = k._draw_negatives(cdf, gen, 1 << 21, 8)
+        tail_counts += torch.bincount(negs.reshape(-1), minlength=n_tail + 1)
+        draws += 1 << 24
+    drawn = (tail_counts[1:] > 0).float().mean().item()
+    p_tail = float(cache.unigram_table()[1])
+    log(f"  a head of count 1e10 over {n_tail} words of count 1 (p "
+        f"{p_tail:.3g} each): {draws} draws reach {100 * drawn:.2f}% of "
+        f"the tail (at least 90% required; "
+        f"{100 * (1 - math.exp(-draws * p_tail)):.1f}% expected)")
+    if not drawn >= 0.9:
+        raise AssertionError(f"the tail collapsed: {drawn:.3f} of the "
+                             "tail words drawn")
+
+
+class deterministic_algorithms:
+    """`torch.use_deterministic_algorithms(True)` inside the block (CUDA
+    `index_add_` then sums in a fixed order), the earlier setting after
+    it."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __enter__(self):
+        self.was = self.torch.are_deterministic_algorithms_enabled()
+        self.torch.use_deterministic_algorithms(True)
+
+    def __exit__(self, *exc):
+        self.torch.use_deterministic_algorithms(self.was)
+
+
+def same_tables(torch, a, b) -> bool:
+    return all(torch.equal(getattr(a.lookup_table, n),
+                           getattr(b.lookup_table, n))
+               for n in ("syn0", "syn1neg"))
+
+
+def host_breakdown(torch, nlp, w2v, sentences):
+    """One more pass with the host pipeline's parts timed on the host
+    clock (s): encoding the corpus to ids, the windows (`_window_pairs`),
+    staging pairs (`add_pairs` less its flushes), the flushes (copies,
+    transfers and the queued device steps; the device runs behind), the
+    rest of the pass (sentence copies, chunking, subsampling, per-pair
+    alphas), and the synchronize that ends it."""
+    sv_mod = nlp.sequence_vectors
+    cls, batcher = sv_mod.SequenceVectors, sv_mod._PairBatcher
+    parts = dict.fromkeys(("encode", "windows", "staging", "flush"), 0.0)
+    orig = (cls._encode_corpus, sv_mod._window_pairs, batcher.add_pairs,
+            batcher.flush)
+
+    def timed(fn, key, less=None):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            before = parts[less] if less else 0.0
+            try:
+                return fn(*a, **k)
+            finally:
+                parts[key] += time.perf_counter() - t0 - (
+                    parts[less] - before if less else 0.0)
+        return run
+
+    cls._encode_corpus = timed(orig[0], "encode")
+    sv_mod._window_pairs = timed(orig[1], "windows")
+    batcher.add_pairs = timed(orig[2], "staging", less="flush")
+    batcher.flush = timed(orig[3], "flush")
+    try:
+        t0 = time.perf_counter()
+        w2v.fit(sentences)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    finally:
+        (cls._encode_corpus, sv_mod._window_pairs, batcher.add_pairs,
+         batcher.flush) = orig
+    parts["rest"] = t1 - t0 - sum(parts.values())
+    parts["synchronize"] = t2 - t1
+    return {k: round(v, 4) for k, v in parts.items()}
+
+
+def lagging_device_fit(torch, nlp, sentences, lag):
+    """A Word2Vec fit whose device runs each flush's transfer late: with
+    `lag`, a GPU sleep of W2V_LAG_CYCLES is queued before every flush, so
+    the host refills its staging arrays while the transfer of the rows
+    it flushed is still queued. A batcher that sends its staging arrays
+    without a copy trains on the next batch's rows then."""
+    batcher = nlp.sequence_vectors._PairBatcher
+    orig = batcher.flush
+
+    def flush(self):
+        torch.cuda._sleep(W2V_LAG_CYCLES)
+        return orig(self)
+
+    w2v = nlp.Word2Vec(**{**W2V, "batch_size": 2048, "scan_flushes": 4},
+                       device="cuda")
+    if lag:
+        batcher.flush = flush
+    try:
+        w2v.fit(sentences)
+    finally:
+        batcher.flush = orig
+    torch.cuda.synchronize()
+    return w2v
+
+
+def phase_word2vec(torch, M, card):
+    """Phase 34 (path 11): Word2Vec at bench_word2vec_50k's shape on the
+    card, then its checks. Returns the path's figures."""
+    import tempfile
+
+    import numpy as np
+
+    nlp, native = M["nlp"], M["native"]
+    t0 = time.perf_counter()
+    sentences = zipf_corpus(np, *W2V_CORPUS)
+    n_words = sum(len(s) for s in sentences)
+    log(f"  corpus: {len(sentences)} sentences, {n_words} words "
+        f"({time.perf_counter() - t0:.1f} s to make)")
+    t0 = time.perf_counter()
+    built = native.native_available()  # g++ builds the library here
+    build_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "corpus.txt")
+        with open(path, "w") as f:
+            f.write("\n".join(" ".join(s) for s in sentences))
+        t0 = time.perf_counter()
+        files_vocab = nlp.VocabConstructor(1).build_vocab_from_files(
+            [path], lowercase=False)
+        files_ms = 1e3 * (time.perf_counter() - t0)
+        route = native.loader.route
+    w2v = nlp.Word2Vec(**W2V, device="cuda")
+    t0 = time.perf_counter()
+    w2v.build_vocab(sentences)
+    vocab_ms = 1e3 * (time.perf_counter() - t0)
+    V = w2v.vocab.num_words()
+    same_vocab = [(v.word, v.count, v.index) for v in
+                  files_vocab.vocab_words()] == \
+        [(v.word, v.count, v.index) for v in w2v.vocab.vocab_words()]
+    log(f"  vocabulary: V={V}; Word2Vec.build_vocab {vocab_ms:.1f} ms; "
+        f"build_vocab_from_files {files_ms:.1f} ms on the {route} counter "
+        f"route (the native library built by g++ in {build_s:.2f} s "
+        f"before: {built}); the same vocabulary: {same_vocab}")
+    if route != "native" or not same_vocab:
+        raise AssertionError(f"vocabulary from files: route {route}, same "
+                             f"as build_vocab: {same_vocab}")
+
+    stats = {"batches": 0}
+    w2v._ns_kernel = lambda: counting_step(nlp, stats)
+    batcher = nlp.sequence_vectors._PairBatcher
+    pairs = {"n": 0}
+    orig_add = batcher.add_pairs
+
+    def add_pairs(self, centers, contexts, alpha):
+        pairs["n"] += len(centers)
+        return orig_add(self, centers, contexts, alpha)
+
+    w2v.fit(sentences[:300])  # warm-up: allocator, pinned blocks, cuBLAS
+    torch.cuda.synchronize()
+    walls, per_pass = [], []
+    batcher.add_pairs = add_pairs
+    try:
+        for _ in range(W2V_PASSES):
+            stats["batches"], pairs["n"] = 0, 0
+            t0 = time.perf_counter()
+            w2v.fit(sentences)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            per_pass.append((pairs["n"], stats["batches"]))
+    finally:
+        batcher.add_pairs = orig_add
+    med = sorted(walls)[len(walls) // 2]
+    n_pairs, n_batches = per_pass[len(per_pass) // 2]
+    loss = w2v.mean_loss
+    per_name: dict = {}
+    trace = traced(torch, lambda: w2v.fit(sentences), per_name)
+    figures = {"vocab_ms": round(vocab_ms, 1),
+               "vocab_from_files_ms": round(files_ms, 1),
+               "counter_route": route, "fit_s": round(med, 4),
+               "words_per_s": round(n_words / med, 1),
+               "pairs_per_s": round(n_pairs / med, 1),
+               "pairs_per_pass": n_pairs, "batches_per_pass": n_batches}
+    log(f"  path 11: fit walls {[round(t, 3) for t in walls]} s; median "
+        f"{med:.3f} s = {n_words / med:.1f} words/s, "
+        f"{n_pairs / med:.1f} pairs/s; {n_pairs} pairs in {n_batches} "
+        f"batches of {W2V['batch_size']} a pass; mean loss {loss:.4f} "
+        f"[{card}]")
+    log(f"  traced pass (torch.profiler, not in the walls): {trace}")
+    figures["host_s"] = host_breakdown(torch, nlp, w2v, sentences)
+    log(f"  one more pass, its host parts (s, host clock): "
+        f"{figures['host_s']}")
+    if not (math.isfinite(loss) and loss > 0 and n_batches > 0):
+        raise AssertionError(f"path 11: loss {loss}, {n_batches} batches")
+    ns_draw_checks(torch, np, nlp, w2v, card)
+
+    # the same seed twice on the card: apart only by the atomics' order;
+    # under torch's deterministic algorithms, bit for bit, and so is a
+    # fit whose device lags behind the host (each flush trains on the
+    # rows it staged)
+    fits = [nlp.Word2Vec(**{**W2V, "seed": seed}, device="cuda")
+            for seed in (1, 1, 2)]
+    for m in fits:
+        m.fit(sentences)
+    torch.cuda.synchronize()
+    (same_seed, same_rel), (other_seed, other_rel) = (
+        tables_diff(torch, fits[0], fits[1]),
+        tables_diff(torch, fits[0], fits[2]))
+    bits = int((fits[0].lookup_table.syn0 !=
+                fits[1].lookup_table.syn0).sum().item())
+    del fits
+    det, det_walls = [], []
+    with deterministic_algorithms(torch):
+        for _ in range(2):
+            m = nlp.Word2Vec(**W2V, device="cuda")
+            m.build_vocab(sentences)
+            t0 = time.perf_counter()
+            m.fit(sentences)
+            torch.cuda.synchronize()
+            det_walls.append(time.perf_counter() - t0)
+            det.append(m)
+        det_equal = same_tables(torch, *det)
+        del det
+        small = sentences[:5000]
+        lag_equal = same_tables(
+            torch, lagging_device_fit(torch, nlp, small, False),
+            lagging_device_fit(torch, nlp, small, True))
+    figures.update(same_seed_max_diff=same_seed, same_seed_rel=same_rel,
+                   other_seed_max_diff=other_seed, other_seed_rel=other_rel,
+                   deterministic_fit_s=round(min(det_walls), 4))
+    log(f"  same seed twice on the card: syn0/syn1neg max |diff| "
+        f"{same_seed:.4g}, relative Frobenius {same_rel:.4g} ({bits} of "
+        f"{V * W2V['layer_size']} syn0 entries differ); seeds 1 and 2: "
+        f"{other_seed:.4g}, {other_rel:.4g} (ratio {same_rel / other_rel:.4g}"
+        f", at most {W2V_ATOMIC_RATIO}); under "
+        f"torch.use_deterministic_algorithms: "
+        f"bit-identical {det_equal} (fit walls "
+        f"{[round(t, 3) for t in det_walls]} s against {med:.3f}), and "
+        f"the device lagging {W2V_LAG_CYCLES} cycles a flush against "
+        f"prompt, 200,000 words: bit-identical {lag_equal}")
+    if not (same_rel <= W2V_ATOMIC_RATIO * other_rel and det_equal
+            and lag_equal):
+        raise AssertionError(
+            f"same-seed fits {same_rel} apart (seeds 1, 2: {other_rel}); "
+            f"deterministic fits equal {det_equal}, the lagging fit equal "
+            f"{lag_equal}")
+
+    # the reference's topic separation, and the per-pair alpha decay
+    lrs = []
+    topic = nlp.Word2Vec(negative=5, layer_size=24, window=3, epochs=3,
+                         batch_size=256, learning_rate=0.05, seed=7,
+                         device="cuda")
+    topic._ns_kernel = lambda: recording_step(nlp, lrs)
+    topic.fit(topic_corpus(np))
+    decays = (lrs[0] == float(np.float32(0.05))
+              and all(x > y for x, y in zip(lrs, lrs[1:]))
+              and lrs[-1] < 0.1 * lrs[0])
+    log(f"  planted topics on the card: cat~dog "
+        f"{topic.similarity('cat', 'dog'):.3f}, cat~moon "
+        f"{topic.similarity('cat', 'moon'):.3f}, nearest to sun "
+        f"{[w for w, _ in topic.words_nearest('sun', 3)]}; {len(lrs)} "
+        f"batches' alphas {lrs[0]:.5f} .. {lrs[-1]:.6f}, strictly falling "
+        f"within the one chunk: {decays}")
+    if not (topics_separate(topic) and decays):
+        raise AssertionError(f"planted topics: separated "
+                             f"{topics_separate(topic)}, alpha decays "
+                             f"{decays}")
+    return figures
+
+
+# numpy f64 versions of the NLP steps, written here from the JAX
+# package's math (not taken from the port), for phase 35
+def np_log_sigmoid(np, z):
+    return -np.logaddexp(0.0, -z)
+
+
+def np_scatter_clipped(np, table, idx, upd, clip=1.0):
+    agg = np.zeros_like(table)
+    np.add.at(agg, idx.reshape(-1), upd.reshape(-1, upd.shape[-1]))
+    norms = np.linalg.norm(agg, axis=-1, keepdims=True)
+    return table + agg * np.minimum(1.0, clip / np.maximum(norms, 1e-12))
+
+
+def np_ll_loss(np, logits, labels, mask):
+    ll = np.where(labels > 0, np_log_sigmoid(np, logits),
+                  np_log_sigmoid(np, -logits))
+    return -np.sum(ll * mask) / max(np.sum(mask), 1.0)
+
+
+def np_pair_update(np, syn0, syn1, center, targets, labels, mask, lr):
+    v, u = syn0[center], syn1[targets]
+    logits = np.einsum("bd,bkd->bk", v, u)
+    g = (labels - 1 / (1 + np.exp(-logits))) * mask * lr
+    dv = np.einsum("bk,bkd->bd", g, u)
+    du = g[..., None] * v[:, None, :]
+    return (np_scatter_clipped(np, syn0, center, dv),
+            np_scatter_clipped(np, syn1, targets, du),
+            np_ll_loss(np, logits, labels, mask))
+
+
+def np_cbow(np, syn0, syn1, ctx, cmask, targets, labels, tmask, lr):
+    cv = syn0[ctx] * cmask[..., None]
+    denom = np.maximum(cmask.sum(1, keepdims=True), 1.0)
+    h = cv.sum(1) / denom
+    u = syn1[targets]
+    logits = np.einsum("bd,bkd->bk", h, u)
+    g = (labels - 1 / (1 + np.exp(-logits))) * tmask * lr
+    dh = np.einsum("bk,bkd->bd", g, u)
+    du = g[..., None] * h[:, None, :]
+    dctx = np.broadcast_to(dh[:, None, :], cv.shape) * cmask[..., None] \
+        / denom[..., None]
+    return (np_scatter_clipped(np, syn0, ctx, dctx),
+            np_scatter_clipped(np, syn1, targets, du),
+            np_ll_loss(np, logits, labels, tmask))
+
+
+def np_infer(np, vec, syn1, targets, labels, mask, lr):
+    u = syn1[targets]
+    logits = np.einsum("d,bkd->bk", vec, u)
+    g = (labels - 1 / (1 + np.exp(-logits))) * mask * lr
+    return vec + np.einsum("bk,bkd->d", g, u), \
+        np_ll_loss(np, logits, labels, mask)
+
+
+def np_glove(np, W, b, hW, hb, Wc, bc, hWc, hbc, rows, cols, logX, fX, lr):
+    W, b, hW, hb, Wc, bc, hWc, hbc = (a.copy() for a in (W, b, hW, hb, Wc,
+                                                         bc, hWc, hbc))
+    wi, wj = W[rows], Wc[cols]
+    diff = (wi * wj).sum(1) + b[rows] + bc[cols] - logX
+    wd = fX * diff
+    gWi, gWj = wd[:, None] * wj, wd[:, None] * wi
+    np.add.at(hW, rows, gWi ** 2)
+    np.add.at(hWc, cols, gWj ** 2)
+    np.add.at(hb, rows, wd ** 2)
+    np.add.at(hbc, cols, wd ** 2)
+    np.add.at(W, rows, -lr * gWi / np.sqrt(hW[rows] + 1e-8))
+    np.add.at(Wc, cols, -lr * gWj / np.sqrt(hWc[cols] + 1e-8))
+    np.add.at(b, rows, -lr * wd / np.sqrt(hb[rows] + 1e-8))
+    np.add.at(bc, cols, -lr * wd / np.sqrt(hbc[cols] + 1e-8))
+    return W, b, hW, hb, Wc, bc, hWc, hbc, 0.5 * np.mean(fX * diff ** 2)
+
+
+def step_case(torch, np, what, run, ref, tol=W2V_STEP_TOL):
+    """`run(device)` on the card and on the CPU against `ref` (numpy
+    f64): each output within tol * max(1, max|ref|), card and CPU alike,
+    and card within the same of CPU. Logs each output's worst error in
+    those units; returns the worst."""
+    card, cpu = run("cuda"), run("cpu")
+    host = lambda g: (g.detach().cpu().double().numpy()
+                      if isinstance(g, torch.Tensor)
+                      else np.asarray(g, np.float64))
+    units = []
+    for g_card, g_cpu, r in zip(card, cpu, ref):
+        r = np.asarray(r, np.float64)
+        scale = tol * max(1.0, float(np.abs(r).max()))
+        a, b = host(g_card), host(g_cpu)
+        units.append(max(float(np.abs(a - r).max()),
+                         float(np.abs(b - r).max()),
+                         float(np.abs(a - b).max())) / scale)
+    worst = max(units)
+    log(f"  {what}: card and CPU against numpy f64, each output's worst "
+        f"in units of the tolerance {[round(u, 4) for u in units]}")
+    if not worst <= 1.0:
+        raise AssertionError(f"{what}: {worst:.3g} times the tolerance")
+    return worst
+
+
+def phase_word2vec_parity(torch, M):
+    """Phase 35: the NLP steps on the card against the CPU and numpy at
+    path 11's shapes, then CBOW, hierarchical-softmax, ParagraphVectors
+    and GloVe fits on the card against the CPU (TF32 off)."""
+    import numpy as np
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    nlp = M["nlp"]
+    k = nlp.kernels
+    rng = np.random.default_rng(35)
+    B, D, N = W2V["batch_size"], W2V["layer_size"], W2V["negative"]
+    f32 = lambda a: np.asarray(a, np.float32)
+    # a fresh copy each call: the steps update their tables in place
+    T = lambda a, dev: torch.from_numpy(np.array(a)).to(dev)
+    L = lambda a, dev: T(np.asarray(a, np.int64), dev)
+    zipf = lambda V, shape: np.minimum(
+        rng.zipf(1.3, shape) - 1, V - 1).astype(np.int64)
+
+    # _scatter_clipped: both regimes, updates large enough that the clip
+    # binds on the frequent rows
+    for V, regime in ((50_000, "table-shaped accumulator"),
+                      (200_000, "argsort + segment sum")):
+        table = f32(0.3 * rng.standard_normal((V, D)))
+        idx = zipf(V, (B,))
+        upd = f32(0.05 * rng.standard_normal((B, D)))
+        ref = np_scatter_clipped(np, table.astype(np.float64), idx,
+                                 upd.astype(np.float64))
+        clipped = int((np.linalg.norm(ref - table, axis=1) > 0.999).sum())
+        step_case(torch, np, f"_scatter_clipped V={V} ({regime}; "
+                  f"{clipped} rows clipped)",
+                  lambda dev: [k._scatter_clipped(T(table, dev),
+                                                  L(idx, dev),
+                                                  T(upd, dev))], [ref])
+        if clipped == 0:
+            raise AssertionError("the _scatter_clipped case clips no row")
+
+    V = W2V_CORPUS[0]
+    syn0 = f32(0.3 * rng.standard_normal((V, D)))
+    syn1 = f32(0.3 * rng.standard_normal((V, D)))
+    center, context = zipf(V, (B,)), zipf(V, (B,))
+    negs = zipf(V, (B, N))
+    negs[::7, 2] = context[::7]  # negatives equal to their context
+    nvalid = B - 1000
+    targets = np.concatenate([context[:, None], negs], 1)
+    labels = np.zeros((B, N + 1))
+    labels[:, 0] = 1
+    mask = np.concatenate([np.ones((B, 1)), (negs != context[:, None])], 1)
+    mask[nvalid:] = 0
+    lr = 0.025
+    d64 = lambda *a: [np.asarray(x, np.float64) for x in a]
+    ref = np_pair_update(np, *d64(syn0, syn1), center, targets, labels, mask,
+                         lr)
+    step_case(torch, np, f"skipgram_step B={B} K={N + 1} V={V}",
+              lambda dev: k.skipgram_step(
+                  T(syn0, dev), T(syn1, dev), L(center, dev),
+                  L(targets, dev), T(f32(labels), dev), T(f32(mask), dev),
+                  lr), ref)
+    step_case(torch, np, f"_ns_batch with given negatives ({len(negs[::7])} "
+              f"equal to their context, rows past {nvalid} masked)",
+              lambda dev: k._ns_batch(
+                  T(syn0, dev), T(syn1, dev), None, L(center, dev),
+                  L(context, dev), None, lr,
+                  torch.tensor(nvalid, device=dev), N,
+                  negs=L(negs, dev))[:3], ref)
+    W = 2 * W2V["window"]
+    ctx = zipf(V, (B, W))
+    cmask = (rng.random((B, W)) < 0.8).astype(np.float64)
+    ref = np_cbow(np, *d64(syn0, syn1), ctx, cmask, targets, labels, mask, lr)
+    step_case(torch, np, f"cbow_step B={B} W={W}",
+              lambda dev: k.cbow_step(
+                  T(syn0, dev), T(syn1, dev), L(ctx, dev),
+                  T(f32(cmask), dev), L(targets, dev), T(f32(labels), dev),
+                  T(f32(mask), dev), lr), ref)
+    vec = f32(0.1 * rng.standard_normal(D))
+    ref = np_infer(np, *d64(vec, syn1), targets[:512], labels[:512],
+                   mask[:512], 0.05)
+    step_case(torch, np, "infer_step 512 words",
+              lambda dev: k.infer_step(
+                  T(vec, dev), T(syn1, dev), L(targets[:512], dev),
+                  T(f32(labels[:512]), dev), T(f32(mask[:512]), dev),
+                  0.05), ref)
+    Vg = 5000
+    tabs = [f32(0.1 * rng.standard_normal((Vg, D))), f32(np.zeros(Vg)),
+            f32(np.ones((Vg, D))), f32(np.ones(Vg)),
+            f32(0.1 * rng.standard_normal((Vg, D))), f32(np.zeros(Vg)),
+            f32(np.ones((Vg, D))), f32(np.ones(Vg))]
+    rows, cols = zipf(Vg, (B,)), zipf(Vg, (B,))
+    x = rng.uniform(0.5, 200.0, B)
+    logX, fX = f32(np.log(x)), f32(np.minimum((x / 100.0) ** 0.75, 1.0))
+    ref = np_glove(np, *d64(*tabs), rows, cols, *d64(logX, fX), 0.05)
+    step_case(torch, np, f"glove_step B={B} V={Vg} (duplicate rows)",
+              lambda dev: k.glove_step(
+                  *[T(t, dev) for t in tabs], L(rows, dev), L(cols, dev),
+                  T(logX, dev), T(fX, dev), 0.05), ref)
+
+    # fits whose draws are all on the host: the card against the CPU
+    corpus = topic_corpus(np, 400, seed=5)
+    kw = dict(layer_size=32, window=3, batch_size=512, seed=7)
+    docs = [(f"d{i}", " ".join(s)) for i, s in enumerate(corpus[:120])]
+    fits = {
+        "CBOW (host negatives)": lambda dev: nlp.Word2Vec(
+            negative=5, elements_learning_algorithm="cbow", epochs=3,
+            learning_rate=0.1, device=dev, **kw),
+        "hierarchical softmax": lambda dev: nlp.Word2Vec(
+            negative=0, use_hierarchic_softmax=True, epochs=3,
+            learning_rate=0.05, device=dev, **kw),
+        "ParagraphVectors DBOW HS": lambda dev: nlp.ParagraphVectors(
+            negative=0, use_hierarchic_softmax=True, epochs=4,
+            device=dev, **kw),
+        "GloVe": lambda dev: nlp.Glove(layer_size=32, epochs=10,
+                                       batch_size=256, device=dev),
+    }
+    for what, make in fits.items():
+        got = {}
+        for dev in ("cuda", "cpu"):
+            m = make(dev)
+            m.fit(docs if "Paragraph" in what else corpus)
+            out = [m.lookup_table.syn0]
+            if "Paragraph" in what:
+                out.append(torch.from_numpy(
+                    m.infer_vector("cat dog pet fur", steps=10)))
+            got[dev] = out
+        worst = max(
+            (a.cpu() - b).abs().max().item()
+            / (W2V_FIT_TOL * max(1.0, b.abs().max().item()))
+            for a, b in zip(got["cuda"], got["cpu"]))
+        log(f"  {what} fit, card against CPU: worst {worst:.3g} of "
+            f"{W2V_FIT_TOL} x max(1, |ref|)")
+        if not worst <= 1.0:
+            raise AssertionError(f"{what}: card off the CPU by {worst:.3g} "
+                                 "times the tolerance")
+
+
+def phases_34_35(torch, M, card):
+    """Phases 34 and 35; path 11's figures."""
+    log("[34/35] path 11: Word2Vec skip-gram NS at bench_word2vec_50k's "
+        "shape (V=50,000, 2,000,000 words, D=128, B=16384, 32 batches a "
+        "flush) on the card")
+    figures = phase_word2vec(torch, M, card)
+    log("[35/35] the NLP steps and host-drawn fits, card against CPU and "
+        "numpy (TF32 off)")
+    phase_word2vec_parity(torch, M)
+    return figures
+
+
+def phases_34_35_alone(torch, M) -> int:
+    """`--phases-34-35`: phases 34 and 35 alone (no CUDA source of the
+    port runs there), then one JSON line of path 11's figures."""
+    card = nvidia_smi_line()
+    t0 = time.perf_counter()
+    log(f"phases 34-35 alone [{card}]")
+    figures = phases_34_35(torch, M, card)
+    log(f"phases 34-35 {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"card": card, "path 11": figures}), flush=True)
     return 0
 
 
@@ -7675,6 +8392,10 @@ def port_modules() -> dict:
         AsyncDataSetIterator,
         ListDataSetIterator,
     )
+    from deeplearning4j_tpu_torch.datasets import fetchers
+    from deeplearning4j_tpu_torch.datasets.fetchers import (
+        MnistDataSetIterator,
+    )
     from deeplearning4j_tpu_torch.datasets.normalizers import (
         ImagePreProcessingScaler,
         OneHotEncoder,
@@ -7719,6 +8440,7 @@ def port_modules() -> dict:
         write_model,
     )
     from deeplearning4j_tpu_torch import earlystopping, gateway, profiler
+    from deeplearning4j_tpu_torch import native, nlp
     from deeplearning4j_tpu_torch.serving import kv_transfer, remote_replica
     from deeplearning4j_tpu_torch.util import determinism
 
@@ -7744,7 +8466,9 @@ def port_modules() -> dict:
                 ComputationGraph=ComputationGraph,
                 ElementWiseVertex=ElementWiseVertex,
                 resnet_configuration=resnet_configuration,
-                resnet_tiny_configuration=resnet_tiny_configuration)
+                resnet_tiny_configuration=resnet_tiny_configuration,
+                fetchers=fetchers, MnistDataSetIterator=MnistDataSetIterator,
+                nlp=nlp, native=native)
 
 
 def phases_22_23_alone(torch, M, pa, fa, cuda_build) -> int:
@@ -7789,7 +8513,8 @@ def main(argv) -> int:
     phase 21 alone. `--phases-22-23`: phases 22 and 23 alone.
     `--phases-24-26`: phases 24 to 26 alone. `--phases-27-29`: phases 27
     to 29 alone. `--phases-30-31`: phase 7 and phases 30 and 31 alone.
-    `--phases-32-33`: phases 32 and 33 alone."""
+    `--phases-32-33`: phases 32 and 33 alone. `--phases-34-35`: phases 34
+    and 35 alone."""
     import torch
 
     if not torch.cuda.is_available():
@@ -7826,104 +8551,106 @@ def main(argv) -> int:
         return phases_30_31_alone(torch, M, pa, cuda_build)
     if "--phases-32-33" in argv:
         return phases_32_33_alone(torch, M, pa, cuda_build)
+    if "--phases-34-35" in argv:
+        return phases_34_35_alone(torch, M)
 
     card = nvidia_smi_line()
-    log(f"[1/33] card: {card}; {torch.cuda.get_device_name(0)}; torch "
+    log(f"[1/35] card: {card}; {torch.cuda.get_device_name(0)}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}; "
         f"{torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     built = cuda_build.build(KERNEL_SOURCES)
-    log(f"[2/33] build: {time.perf_counter() - t0:.1f} s for "
+    log(f"[2/35] build: {time.perf_counter() - t0:.1f} s for "
         f"{len(built)} source(s)")
     for name, res in built.items():
         for line in ptxas_summary(res.log):
             log(f"  {name}: {line}")
 
-    log("[3/33] paged kernels against their plain versions (TF32 off)")
+    log("[3/35] paged kernels against their plain versions (TF32 off)")
     phase_kernels(torch, pa)
-    log("[4/33] flash kernels against their plain versions (TF32 off)")
+    log("[4/35] flash kernels against their plain versions (TF32 off)")
     phase_flash(torch, fa)
-    log("[5/33] f32 DecodeEngine vs generate, 2 layers, d_model 1024")
+    log("[5/35] f32 DecodeEngine vs generate, 2 layers, d_model 1024")
     phase_parity(torch, M)
-    log("[6/33] f32 training, card (kernels) vs CPU (plain), 1 layer, "
+    log("[6/35] f32 training, card (kernels) vs CPU (plain), 1 layer, "
         "d_model 1024, T=1024")
     phase_train_parity(torch, M)
-    log("[7/33] serving the 8-layer bf16 GPT at full width")
+    log("[7/35] serving the 8-layer bf16 GPT at full width")
     launches, path1_tok_s = phase_serve(torch, M, pa, card)
-    log("[8/33] serving it with int8 KV, the prefix cache and "
+    log("[8/35] serving it with int8 KV, the prefix cache and "
         "self-speculation on shared-prefix traffic")
     launches.update(phase_serve_tier(torch, M, pa, card))
-    log("[9/33] training the 8-layer bf16 gpt_long GPT at full width")
+    log("[9/35] training the 8-layer bf16 gpt_long GPT at full width")
     flash_counts = phase_train(torch, M, card, torch.bfloat16, TRAIN_B,
                                TRAIN_STEPS, 13, "wgmma")
-    log("[9/33] path 2w: the same GPT with 4 heads of 256 (the bf16 "
+    log("[9/35] path 2w: the same GPT with 4 heads of 256 (the bf16 "
         "\"wgmma wide\" flash kernels)")
     flash_counts_wide = phase_train(torch, M, card, torch.bfloat16,
                                     TRAIN_WIDE_B, TRAIN_WIDE_STEPS, 15,
                                     "wgmma wide", n_heads=TRAIN_WIDE_HEADS)
-    log("[9/33] path 2x: the same GPT with 2 heads of 512 (the bf16 "
+    log("[9/35] path 2x: the same GPT with 2 heads of 512 (the bf16 "
         "\"wgmma wide\" forward, the \"wgmma cluster\" backward)")
     flash_counts_2x = phase_train(torch, M, card, torch.bfloat16,
                                   TRAIN_2X_B, TRAIN_2X_STEPS, 16,
                                   TRAIN_2X_ROUTES, n_heads=TRAIN_2X_HEADS)
-    log("[10/33] path 2f: training the 8-layer gpt_long GPT in f32 "
+    log("[10/35] path 2f: training the 8-layer gpt_long GPT in f32 "
         "(split-TF32 flash kernels)")
     flash_counts_f32 = phase_train(torch, M, card, None, TRAIN_F32_B,
                                    TRAIN_F32_STEPS, 14, "tf32")
-    log("[11/33] LSTM kernels against their plain versions (TF32 off)")
+    log("[11/35] LSTM kernels against their plain versions (TF32 off)")
     phase_lstm_kernels(torch, L, M)
-    log("[12/33] f32 char-RNN training, card (kernels) vs CPU (plain), "
+    log("[12/35] f32 char-RNN training, card (kernels) vs CPU (plain), "
         "H=256")
     phase_lstm_train_parity(torch, M)
-    log("[13/33] training the bf16 lstm_large char-RNN at full width")
+    log("[13/35] training the bf16 lstm_large char-RNN at full width")
     lstm_counts, step4_ms = phase_lstm_train(torch, M, card, torch.bfloat16)
-    log("[14/33] training the bf16 lstm char-RNN with tBPTT 24 at full width")
+    log("[14/35] training the bf16 lstm char-RNN with tBPTT 24 at full width")
     tbptt_counts = phase_lstm_tbptt(torch, M, card)
-    log("[15/33] path 4f: training the lstm_large char-RNN in f32 "
+    log("[15/35] path 4f: training the lstm_large char-RNN in f32 "
         "(split-TF32 LSTM kernels)")
     f32_counts, _ = phase_lstm_train(torch, M, card, None, LSTM_F32_STEPS,
                                      "tf32 clusters", seed=2)
-    log("[16/33] timing at the serving and training shapes (bf16 and f32)")
+    log("[16/35] timing at the serving and training shapes (bf16 and f32)")
     rows = phase_timing(torch, pa, launches)
     rows += phase_flash_timing(torch, fa, flash_counts, flash_counts_f32,
                                flash_counts_wide, flash_counts_2x)
-    log("[17/33] timing the LSTM kernels at the char-RNN shapes (bf16 and "
+    log("[17/35] timing the LSTM kernels at the char-RNN shapes (bf16 and "
         "f32)")
     rows += phase_lstm_timing(torch, L, lstm_counts, tbptt_counts,
                               f32_counts)
-    log(f"[18/33] a GravesLSTM wider than the fused kernels (H={LSTM_WIDE}): "
+    log(f"[18/35] a GravesLSTM wider than the fused kernels (H={LSTM_WIDE}): "
         "the step loop, card vs CPU")
     phase_lstm_wide(torch, M)
-    log("[19/33] path 4s: the bf16 lstm_large char-RNN on "
+    log("[19/35] path 4s: the bf16 lstm_large char-RNN on "
         "GravesLSTMCharModellingExample's mini-batches (B=32 x T=1000, "
         "tBPTT 50)")
     lstm_4s_launches(rows, phase_lstm_4s(torch, M, card))
-    log("[20/33] path 4e: the bf16 lstm_large char-RNN through the training "
+    log("[20/35] path 4e: the bf16 lstm_large char-RNN through the training "
         "loop (async iterator, health sentinel, listeners, checkpoints, "
         "evaluate, restore, LBFGS)")
     lstm_4e_launches(rows, phase_lstm_4e(torch, M, card, step4_ms))
-    log("[21/33] path 5: the 8-layer bf16 GPT behind ModelServer (predict, "
+    log("[21/35] path 5: the 8-layer bf16 GPT behind ModelServer (predict, "
         "generate, reload under decode, rejections, the breaker, quantized "
         "weights with the drift gate, shutdown)")
     serve5_launches(rows, phase_server(torch, M, card, path1_tok_s))
-    log("[22/33] the CNN layers against the CPU and numpy (f32), path 6: "
+    log("[22/35] the CNN layers against the CPU and numpy (f32), path 6: "
         "LeNet at bench_lenet's shape, its f32 parity")
     phase_cnn_layers(torch, M)
     phase_lenet(torch, M, card)
-    log("[23/33] SelfAttention on the non-causal flash kernels, MoELayer "
+    log("[23/35] SelfAttention on the non-causal flash kernels, MoELayer "
         "against numpy, path 2m: the MoE gpt_long GPT, MoE serving")
     counts = phase_attention_moe(torch, M, pa, card)
     rows += attention_moe_rows(torch, fa, counts)
     moe_launches(rows, counts)
-    log("[24/33] path 7: ResNet-50 on CIFAR-10 at bench_resnet50's shape "
+    log("[24/35] path 7: ResNet-50 on CIFAR-10 at bench_resnet50's shape "
         "(a ComputationGraph, bf16, B=256)")
     phase_resnet(torch, M, card)
-    log("[25/33] the graph on the LSTM kernels: path 4's char-RNN as a "
+    log("[25/35] the graph on the LSTM kernels: path 4's char-RNN as a "
         "graph against the list container, a masked tBPTT graph, f32 "
         "graph parity with the CPU and numpy")
     graph_launches(rows, phase_graph_lstm(torch, M, card))
-    log("[26/33] pretraining on the card: the MNIST VAE example's VAE, the "
+    log("[26/35] pretraining on the card: the MNIST VAE example's VAE, the "
         "DeepAutoEncoder RBM stack, an AutoEncoder stack")
     phase_pretrain(torch, M, card)
     cluster_launches(rows, *phases_27_29(torch, M, pa, card))
@@ -7935,6 +8662,7 @@ def main(argv) -> int:
     wire = phases_32_33(torch, M, pa, card)
     rows += wire_rows(torch, pa, wire_paged(wire))
     serve5_launches(rows, {"paged": {}, "flash": wire["path 10"]["flash"]})
+    log(f"  path 11: {json.dumps(phases_34_35(torch, M, card))}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

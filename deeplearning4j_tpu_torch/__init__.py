@@ -19,7 +19,10 @@ pretraining (AutoEncoder, RBM, VAE) layers; GPT training and serving
 (`models.transformer`, `serving`, down to the gateway wire and replicas
 as processes: `gateway`, `serving.remote_replica`) on the flash and
 paged-attention kernels, the char-RNN on the LSTM kernels, LeNet (`models.lenet`) and
-ResNet (`models.resnet`); `gradientcheck`. ROADMAP.md's queue A lists what is still to port.
+ResNet (`models.resnet`); `gradientcheck`; the dataset fetchers
+(`datasets.fetchers`, `datasets.hdf5`), the native host library
+(`native`) and the NLP package (`nlp`: Word2Vec, ParagraphVectors, GloVe
+and the text pipeline). ROADMAP.md's queue A lists what is still to port.
 """
 
 __version__ = "0.1.0"

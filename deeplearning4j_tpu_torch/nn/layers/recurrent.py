@@ -11,9 +11,10 @@ below, the counterpart of the JAX package's `lax.scan` cell (its
 recurrent product a plain `torch.matmul`, as XLA computes the scan's
 outside any Pallas kernel; gradients by autograd). The route is chosen
 from the arguments before any launch, never by a failure, and counted in
-`lstm_forward.routes`. The JAX package's TPU preconditions (H a multiple
-of 128, T >= 2, a batch block dividing B) are not carried over: the
-kernels take any H up to MAX_H and any B.
+`lstm_forward.routes` (through `ops.lstm.count`, under its lock). The JAX
+package's TPU preconditions (H a multiple of 128, T >= 2, a batch block
+dividing B) are not carried over: the kernels take any H up to MAX_H and
+any B.
 
 Layout: activations (B, T, size); gate order [i, f, o, g]. Masked steps
 pass the state through unchanged and emit zeros.
@@ -35,14 +36,14 @@ def lstm_forward(x: torch.Tensor, W: torch.Tensor, RW: torch.Tensor,
                  gate_is_sigmoid: bool = False, cell_is_tanh: bool = False):
     """The LSTM over x (B, T, nIn): (outputs (B, T, nOut), (hT, cT)).
     `mask` (B, T), 1 = valid."""
-    from deeplearning4j_tpu_torch.ops.lstm import MAX_H, lstm_fused
+    from deeplearning4j_tpu_torch.ops.lstm import MAX_H, count, lstm_fused
 
     if gate_is_sigmoid and cell_is_tanh and RW.shape[0] <= MAX_H \
             and x.dtype in (torch.float32, torch.bfloat16):
-        lstm_forward.routes["fused"] += 1
+        count((lstm_forward.routes, "fused"))
         return lstm_fused(x, W, RW, b, peephole, h0, c0, mask=mask,
                           reverse=reverse)
-    lstm_forward.routes["loop"] += 1
+    count((lstm_forward.routes, "loop"))
     B, T, _ = x.shape
     n_out = RW.shape[0]
     zero = torch.zeros((B, n_out), dtype=x.dtype, device=x.device)

@@ -44,13 +44,18 @@ kernel and plain version differ only in the order of their f32 sums.
 
 Counts: `launches[("fwd" | "bwd", masked, reverse)]` (kernel launches),
 `launches_by_route[("fwd" | "bwd", route)]` (the same, by `plan`'s
-route), `lstm_fwd_plain.calls` and `lstm_bwd_plain.calls`.
+route), `lstm_fwd_plain.calls` and `lstm_bwd_plain.calls`. Every
+increment goes through `count`, under `_COUNT_LOCK`, so the counts stay
+exact when several threads run LSTM networks at once (a `ModelServer`
+with `max_concurrent > 1`): a bare `+=` is a read, an add and a write,
+and two threads can lose one of their increments between them.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, NamedTuple, Optional, Tuple
+import threading
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -77,6 +82,21 @@ MAX_H = 2048
 
 launches: Dict[Tuple[str, bool, bool], int] = {}
 launches_by_route: Dict[Tuple[str, str], int] = {}
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count(*items: Tuple[Any, Any]) -> None:
+    """Add one to each (counter, key) of `items`, all under one hold of
+    `_COUNT_LOCK`: a dict counter gains one at `key`, any other object in
+    its attribute `key` (`count((lstm_fwd_plain, "calls"))`). The one
+    helper for every LSTM launch, call and route count."""
+    with _COUNT_LOCK:
+        for counter, key in items:
+            if isinstance(counter, dict):
+                counter[key] = counter.get(key, 0) + 1
+            else:
+                setattr(counter, key, getattr(counter, key) + 1)
 
 
 def error_in_tolerances(got: torch.Tensor, ref: torch.Tensor,
@@ -108,7 +128,7 @@ def lstm_fwd_plain(xw, rw, peep, h0, c0, mask=None, *, reverse=False,
     (B, H), mask (T, B) or None, all of one dtype: (h_out (T, B, H), hT
     (B, H) masked else None, cT, h_sel (T, B, H) masked with stash else
     None, c (c_sel) (T, B, H) or None, gates (T, B, 4H) or None)."""
-    lstm_fwd_plain.calls += 1
+    count((lstm_fwd_plain, "calls"))
     T, B, G = xw.shape
     H = G // 4
     sdt, dt = stat_dtype(xw.dtype), mxu_dtype(xw.dtype)
@@ -154,7 +174,7 @@ def lstm_bwd_plain(gates, c_st, dh_out, dhT, dcT, rw, peep, c0, mask=None,
     """Plain backward from the forward's stash: (dz (T, B, 4H) in the
     gates' type, dhc0 (2, B, H) = (dh0, dc0) in the statistic type).
     `c_st` is the c stash (c_sel when masked); `dhT` is None unmasked."""
-    lstm_bwd_plain.calls += 1
+    count((lstm_bwd_plain, "calls"))
     T, B, G = gates.shape
     H = G // 4
     sdt, dt = stat_dtype(gates.dtype), mxu_dtype(gates.dtype)
@@ -318,10 +338,8 @@ def _raise_on(rc, kind, shape, p):
 
 
 def _count(kind, masked, reverse, route):
-    key = (kind, bool(masked), bool(reverse))
-    launches[key] = launches.get(key, 0) + 1
-    launches_by_route[(kind, route)] = \
-        launches_by_route.get((kind, route), 0) + 1
+    count((launches, (kind, bool(masked), bool(reverse))),
+          (launches_by_route, (kind, route)))
 
 
 def _ceil(x: int, m: int) -> int:
@@ -621,7 +639,8 @@ def lstm_fused(x, W, RW, b, peephole, h0, c0, *, mask=None,
 def reset_counts() -> None:
     """Set the kernels' launch counts and the plain versions' call counts
     to 0."""
-    launches.clear()
-    launches_by_route.clear()
-    lstm_fwd_plain.calls = 0
-    lstm_bwd_plain.calls = 0
+    with _COUNT_LOCK:
+        launches.clear()
+        launches_by_route.clear()
+        lstm_fwd_plain.calls = 0
+        lstm_bwd_plain.calls = 0

@@ -14,7 +14,8 @@ masked tBPTT graph streamed with rnn_time_step, an AutoEncoder, RBM and
 VAE stack pretrained layer by layer, a gradient check; early stopping,
 the determinism check and a profiler trace; QoS lanes, a warm migration,
 a cluster prefix fetch and disaggregated serving; the gateway wire, a
-remote replica behind a chaos proxy)
+remote replica behind a chaos proxy; a MNIST fetcher batch, a Word2Vec
+fit, the native word count and a serialized table)
 loads neither `jax` nor any module of `deeplearning4j_tpu`, and
 its entry points run on the card by default, raising where there is
 none rather than carrying on quietly on the CPU."""
@@ -374,6 +375,40 @@ _SCRIPT = textwrap.dedent("""
         gw.stop(drain_timeout=5.0)
     assert callable(spawn_replica_pool)
 
+    # the dataset fetchers and the NLP package: a MNIST batch through the
+    # uint8 scaler, a Word2Vec fit (the NS path's device draws), the
+    # native word count and a serialized table read back
+    from deeplearning4j_tpu_torch.datasets.fetchers import (
+        MnistDataSetIterator)
+    from deeplearning4j_tpu_torch.datasets import hdf5  # noqa: F401
+    from deeplearning4j_tpu_torch.native import loader
+    from deeplearning4j_tpu_torch.nlp import (
+        Word2Vec, WordVectorSerializer)
+    ds = MnistDataSetIterator(16, num_examples=32, raw_uint8=True).next()
+    assert ds.features.dtype == np.uint8 and ds.features.shape == (16, 784)
+    rng = np.random.default_rng(0)
+    words = [f"w{i}" for i in range(30)]
+    corpus = [" ".join(words[j] for j in rng.integers(0, 30, 10))
+              for _ in range(40)]
+    with tempfile.TemporaryDirectory() as d:
+        with open(os.path.join(d, "c.txt"), "w") as f:
+            f.write("\\n".join(corpus))
+        w2v = Word2Vec(layer_size=8, window=2, negative=2, batch_size=64,
+                       device="cpu")
+        w2v.fit(corpus)
+        vocab = w2v.vocab.words()
+        from deeplearning4j_tpu_torch.nlp.vocab import VocabConstructor
+        files_vocab = VocabConstructor().build_vocab_from_files(
+            [os.path.join(d, "c.txt")])
+        assert sorted(files_vocab.words()) == sorted(vocab)
+        assert loader.route in ("native", "python")
+        WordVectorSerializer.write_lookup_table(w2v.lookup_table,
+                                                os.path.join(d, "t.npz"))
+        back = WordVectorSerializer.read_lookup_table(
+            os.path.join(d, "t.npz"), device="cpu")
+        assert back.vocab.words() == vocab
+    assert np.isfinite(w2v.mean_loss)
+
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")
                     or m == "deeplearning4j_tpu"
@@ -451,3 +486,11 @@ def test_entry_points_default_to_the_card():
         ComputationGraph(resnet_tiny_configuration())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         restore_computation_graph(REPO / "no-such.zip")
+    from deeplearning4j_tpu_torch.nlp import Glove, ParagraphVectors, Word2Vec
+    from deeplearning4j_tpu_torch.nlp.lookup_table import InMemoryLookupTable
+    from deeplearning4j_tpu_torch.nlp.vocab import AbstractCache
+
+    for make in (Word2Vec, ParagraphVectors, Glove,
+                 lambda: InMemoryLookupTable(AbstractCache(), 4)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()

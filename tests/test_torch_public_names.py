@@ -225,3 +225,26 @@ def test_no_port_name_raises_naming_a11c():
     """No module of the port keeps a name that raises naming A11c."""
     for path in (REPO / PORT).rglob("*.py"):
         assert "queue A11c" not in path.read_text(), path
+
+
+def test_the_walk_covers_the_fetchers_nlp_and_native():
+    assert {f"{PORT}.datasets.fetchers", f"{PORT}.datasets.hdf5",
+            f"{PORT}.native", f"{PORT}.native.loader", f"{PORT}.nlp",
+            f"{PORT}.nlp.kernels", f"{PORT}.nlp.vocab",
+            f"{PORT}.nlp.lookup_table", f"{PORT}.nlp.sequence_vectors",
+            f"{PORT}.nlp.word2vec", f"{PORT}.nlp.paragraph_vectors",
+            f"{PORT}.nlp.glove", f"{PORT}.nlp.serializer",
+            f"{PORT}.nlp.bagofwords", f"{PORT}.nlp.tokenization",
+            f"{PORT}.nlp.sentence_iterator", f"{PORT}.nlp.language",
+            f"{PORT}.nlp.dictionary", f"{PORT}.nlp.uima"} <= set(MODULES)
+
+
+def test_nlp_names_without_a_card_meaning_raise_naming_their_item():
+    """`mesh=` (sharded embedding training) is parallel training (A12);
+    `require_partitionable_rng` is JAX PRNG plumbing (C3)."""
+    from deeplearning4j_tpu_torch.nlp import SequenceVectors, kernels
+
+    with pytest.raises(NotImplementedError, match=r"queue A12\b"):
+        SequenceVectors(mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match=r"queue C3\b"):
+        kernels.require_partitionable_rng()
