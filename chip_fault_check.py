@@ -81,6 +81,11 @@ belongs to):
 - nlp: `chip_smoke.py`'s phases 34 and 35 (path 11, Word2Vec at
   bench_word2vec_50k's shape with its checks; the NLP steps against the
   CPU and numpy, host-drawn fits against the CPU), whose failed check
+  counts as caught;
+- embed: `chip_smoke.py`'s phases 36 and 37 (path 12: DeepWalk, k-means
+  and t-SNE on the card, the training UI; the Lloyd and t-SNE steps
+  against the CPU and numpy, the TF32 guard, a hierarchical-softmax
+  DeepWalk fit against the CPU, the weighted walks), whose failed check
   counts as caught.
 
 The faults (`MUTATIONS`) drop tiles, terms or rows, and break each
@@ -177,7 +182,15 @@ token past the client's cursor; the NLP package (`nlp/kernels.py`,
 large table collapses), negatives equal to their context left unmasked,
 the per-pair learning-rate decay lost (one rate a chunk), `glove_step`
 reading the AdaGrad histories before the batch's add, and the pair
-batcher sending its page-locked staging arrays without a copy. A
+batcher sending its page-locked staging arrays without a copy; graph
+embeddings, clustering and the UI (`clustering/tsne.py`,
+`clustering/kmeans.py`, `graph/walks.py`, `ui/stats_listener.py`): the
+t-SNE Gram product left to the caller's TF32 setting, the diagonal mask
+dropped from the affinities, k-means' empty-cluster rule lost (an empty
+centroid goes to 0), `labels_` taken from the centroids before the last
+update, weighted walks that ignore the weights, and a `StatsListener`
+that reads the device memory of the wrong device or reports a stale
+host copy of the parameters. A
 fault that makes the kernel trap (an mbarrier wait that times out) fails
 its check process, which counts as caught.
 
@@ -239,6 +252,10 @@ WIRE = "wire"
 # by `chip_smoke.py`'s phases 34-35 (path 11 and its checks; the NLP
 # steps against the CPU and numpy)
 NLP = "nlp"
+# graph embeddings, clustering and the training UI (`graph/walks.py`,
+# `clustering/kmeans.py`, `clustering/tsne.py`, `ui/stats_listener.py`),
+# checked by `chip_smoke.py`'s phases 36-37 (path 12 and its parity phase)
+EMBED = "embed"
 # (B, T, H, D, causal, dtype): bf16, the training path's kernels at D = 128,
 # the "wgmma wide" kernels at D = 256 and the "wgmma cluster" backward at
 # D = 384 and 512 (T = 192: the first diagonal tiles; T = 1024 full: every
@@ -996,6 +1013,52 @@ MUTATIONS = [
           "    return buf.to(device, non_blocking=True)",
           "    return torch.from_numpy(a).to(device, non_blocking=True)")],
      "nlp/sequence_vectors.py"),
+    # path 12, each caught by phases 36-37: the TF32 Gram by the t-SNE
+    # step run with the caller's TF32 on (37); the unmasked diagonal by
+    # the t-SNE step against numpy (37); the empty-cluster rule by the
+    # Lloyd step's far centroid (37); the stale labels by the labels of
+    # path 12's fit and of a one-iteration fit (36, 37); the unweighted
+    # walks by the weighted-walk criterion (37); the listener's device
+    # and its stale copy by the UI's system and parameter feeds (36)
+    ("embed: the t-SNE Gram in TF32", EMBED,
+     "def _affinities(", [
+         ("    with full_f32():\n        num = torch.mm(Y, Y.T)",
+          "    num = torch.mm(Y, Y.T)")],
+     "clustering/tsne.py"),
+    ("embed: the diagonal mask dropped from num", EMBED,
+     "def _affinities(", [
+         ("    num.fill_diagonal_(0.0)\n", "")],
+     "clustering/tsne.py"),
+    ("embed: k-means' empty-cluster rule lost", EMBED,
+     "def _lloyd_step(", [
+         ("    new_c = torch.where(counts[:, None] > 0,\n"
+          "                        sums / torch.clamp(counts[:, None], "
+          "min=1.0),\n"
+          "                        centroids)",
+          "    new_c = sums / torch.clamp(counts[:, None], min=1.0)")],
+     "clustering/kmeans.py"),
+    ("embed: labels_ from the pre-update centroids", EMBED,
+     "    def fit(self, X)", [
+         ("        _, assign, cost = _lloyd_step(Xd, c)\n"
+          "        self.cost = float(cost)",
+          "        self.cost = float(cost)")],
+     "clustering/kmeans.py"),
+    ("embed: weighted walks ignore the weights", EMBED,
+     "class WeightedRandomWalkIterator(", [
+         ("p = w / w.sum()", "p = np.full(len(w), 1.0 / len(w))")],
+     "graph/walks.py"),
+    ("embed: StatsListener reads the memory of the wrong device", EMBED,
+     "    def iteration_done(self, model, iteration: int) -> None:", [
+         ("_system_stats(self._model_device(model))",
+          "_system_stats(torch.device(\"cpu\"))")],
+     "ui/stats_listener.py"),
+    ("embed: StatsListener reports a stale host copy of the parameters",
+     EMBED,
+     "    def iteration_done(self, model, iteration: int) -> None:", [
+         ("params[name] = _array_stats(arr)",
+          "params[name] = _array_stats(self.__dict__.setdefault("
+          "f\"_host_{name}\", _host_array(arr)))")],
+     "ui/stats_listener.py"),
     ("stream: DedupCache re-executes a completed id", STREAM,
      "    def begin(self, request_id: str) -> Tuple[str, Any]:", [
          ("            ent = self._done.get(request_id)\n"
@@ -1060,7 +1123,7 @@ def build(sources) -> None:
              MOE: (PAGED, FLASH), GRAPH: (LSTM,), PRETRAIN: (LSTM,),
              DISAGG: (PAGED,), QOS: (PAGED, FLASH, LSTM),
              POOL: (PAGED, FLASH), STREAM: (PAGED, FLASH),
-             WIRE: (PAGED, FLASH, LSTM), NLP: ()}
+             WIRE: (PAGED, FLASH, LSTM), NLP: (), EMBED: ()}
     cuda_build.build(tuple(sorted({k for s in sources
                                    for k in needs.get(s, (s,))})))
 
@@ -1122,6 +1185,10 @@ def check(sources) -> None:
     if NLP in sources:
         cases += phase_cases(torch, "34-35", "path 11, the NLP steps",
                              lambda cs, M, card: cs.phases_34_35(
+                                 torch, M, card))
+    if EMBED in sources:
+        cases += phase_cases(torch, "36-37", "path 12, its device parts",
+                             lambda cs, M, card: cs.phases_36_37(
                                  torch, M, card))
     print(json.dumps({"package": fa.__file__, "cases": cases}), flush=True)
 

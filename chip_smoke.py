@@ -11,6 +11,7 @@ NVIDIA card.
     python3 chip_smoke.py --phases-30-31   # path 9: the replica pool tier
     python3 chip_smoke.py --phases-32-33   # path 10: the wire, processes
     python3 chip_smoke.py --phases-34-35   # path 11: Word2Vec, NLP parity
+    python3 chip_smoke.py --phases-36-37   # path 12: DeepWalk, t-SNE, the UI
 
 `--lstm-timing` runs phase 17 alone (the LSTM source built, the rows
 checked and timed, launch counts 0) on the checkout's package or, with
@@ -31,7 +32,9 @@ builds the paged and flash sources and runs phases 32 and 33 alone, then
 times row 1's f32 rows and prints one JSON line of those rows and the
 launch counts. `--phases-34-35` runs phases 34 and 35 alone (path 11 and
 the NLP steps; no CUDA source of the port runs there) and prints one JSON
-line of path 11's figures.
+line of path 11's figures. `--phases-36-37` runs phases 36 and 37 alone
+(path 12 and its parity phase; no CUDA source of the port runs there)
+and prints one JSON line of path 12's figures.
 
 Phases, each of which makes the script exit non-zero when it fails:
 
@@ -593,7 +596,40 @@ Phases, each of which makes the script exit non-zero when it fails:
    with duplicate rows; then fits that draw everything on the host on a
    small planted corpus, card against CPU (`W2V_FIT_TOL`): CBOW with host
    negatives, hierarchical softmax, ParagraphVectors DBOW with
-   hierarchical softmax (and `infer_vector`), GloVe.
+   hierarchical softmax (and `infer_vector`), GloVe;
+36. path 12: a planted-partition graph with BlogCatalog's counts (10,312
+   vertices, 333,983 undirected edges, 39 groups, each edge inside its
+   vertex's group with probability 0.8; made from a seed), `DeepWalk`
+   with the DeepWalk paper's d=128, w=10, t=40 and 2 walks a vertex (the
+   paper's 80 cut, for time), negative 5, batch 16384, on the card: the
+   walk wall (host Python), the fit wall and words/s, one more epoch
+   under torch.profiler (idle share); `KMeansClustering(39)` of the
+   10,312 vectors on the card twice (the fits identical, labels_ equal
+   to `predict`, the NMI against the planted groups at least
+   `EMBED_NMI_FLOOR`); exact `Tsne(perplexity=30, n_iter=1000)` of all
+   of them on the card (the host perplexity search's wall, the median
+   iteration, the KL history, which must fall after the lying phase,
+   the peak device memory, and the share of each vertex's 10 nearest
+   neighbours in the embedding that share its planted group, at least
+   `EMBED_KNN_FLOOR`); then a `UIServer` with in-memory storage: a
+   `StatsListener` reports 5 fit steps of a classifier of the vectors
+   on the card through `RemoteUIStatsStorageRouter`, `/train/system`
+   must carry device bytes in use above 0 (and the card's total as the
+   limit), `/train/histograms` counts for every parameter, the last
+   report the trained parameters' statistics; the 10,312 t-SNE points
+   with their vertex ids go to `/tsne/upload`, which must answer 10,312
+   points, and `/tsne` must render 10,312 (upload and render walls);
+37. path 12's device parts on the card against the CPU (within
+   `EMBED_STEP_TOL` of each output's largest value) and against this
+   script's numpy f64 version (`EMBED_F64_TOL`), TF32 off: one Lloyd
+   step at path 12's shape with an empty cluster (assignments equal to
+   numpy's, the empty cluster's centroid kept), `_tsne_step` (lying and
+   not) and `_tsne_kl` at N=2048; each again with the caller's
+   `allow_tf32 = True`, bit-identical to TF32 off; a one-iteration
+   k-means fit whose `labels_` and cost must be the returned
+   centroids'; a DeepWalk fit with hierarchical softmax and no
+   negatives, card against CPU (`W2V_FIT_TOL`); the weighted walks
+   following their weights.
 
 Prints one JSON line of per-kernel numbers, then the card's
 `nvidia-smi` line, then as the last line
@@ -6182,19 +6218,19 @@ def phases_27_29(torch, M, pa, card):
         for k, n in counts.items():
             paged[k] = paged.get(k, 0) + n
 
-    log("[27/35] path 8: path 1's GPT disaggregated (8a: the two mixes, "
+    log("[27/37] path 8: path 1's GPT disaggregated (8a: the two mixes, "
         "bf16 and int8 KV, against a colocated server), live migration "
         "(8b: warm, cold, sampled, int8), the cluster prefix cache (8c)")
     add(phase_disagg(torch, M, pa, card))
     net, counts = phase_migration(torch, M, pa, card)
     add(counts)
     add(phase_prefix_cluster(torch, M, pa, card, net))
-    log("[28/35] QoS on path 1's engine: a flood tenant under quota beside "
+    log("[28/37] QoS on path 1's engine: a flood tenant under quota beside "
         "Poisson interactive traffic, preemption of the batch lane")
     add(phase_qos(torch, M, pa, card, net))
     del net
     torch.cuda.empty_cache()
-    log("[29/35] early stopping, the profiler and assert_deterministic on "
+    log("[29/37] early stopping, the profiler and assert_deterministic on "
         "the LSTM and flash kernels")
     extras = phase_extras(torch, M, card)
     return paged, extras
@@ -6884,10 +6920,10 @@ def phase_streams(torch, M, pa, card, pool, rows_paged):
 def phases_30_31(torch, M, pa, card, path1_tok_s):
     """Phases 30 and 31; returns the bf16 paged launches and the f32
     flash launches for the kernel rows."""
-    log("[30/35] path 9: path 1's GPT behind ReplicaPool.from_net(net, 3): "
+    log("[30/37] path 9: path 1's GPT behind ReplicaPool.from_net(net, 3): "
         "routing and parity, a crash drill, rolling reloads, the autoscaler")
     pool, paged, flash = phase_pool(torch, M, pa, card, path1_tok_s)
-    log("[31/35] token streams and the exactly-once door on path 9's pool")
+    log("[31/37] token streams and the exactly-once door on path 9's pool")
     phase_streams(torch, M, pa, card, pool, paged)
     return {"paged": paged, "flash": flash}
 
@@ -7642,11 +7678,11 @@ def phases_32_33(torch, M, pa, card):
     """Phases 32 and 33: `{"path 10": its replicas' launches in 10a's
     window, "phase 33": phase 33's}`, each `{"paged": {(C, pools): n},
     "flash": {(kind, route): n}}` (f32 pools)."""
-    log("[32/35] path 10: path 1's GPT behind a GatewayServer, served by 3 "
+    log("[32/37] path 10: path 1's GPT behind a GatewayServer, served by 3 "
         "replica processes on the card: parity, tokens/s, kill -9, "
         "a partition, a rolling reload, a graceful stop")
     path10 = phase_wire_pool(torch, M, pa, card)
-    log("[33/35] the wire on the card: a torn stream resumed, a claim, a "
+    log("[33/37] the wire on the card: a torn stream resumed, a claim, a "
         "retried fit, a journal replay after a restart")
     return {"path 10": path10,
             "phase 33": {"paged": phase_wire(torch, M, pa, card),
@@ -8322,11 +8358,11 @@ def phase_word2vec_parity(torch, M):
 
 def phases_34_35(torch, M, card):
     """Phases 34 and 35; path 11's figures."""
-    log("[34/35] path 11: Word2Vec skip-gram NS at bench_word2vec_50k's "
+    log("[34/37] path 11: Word2Vec skip-gram NS at bench_word2vec_50k's "
         "shape (V=50,000, 2,000,000 words, D=128, B=16384, 32 batches a "
         "flush) on the card")
     figures = phase_word2vec(torch, M, card)
-    log("[35/35] the NLP steps and host-drawn fits, card against CPU and "
+    log("[35/37] the NLP steps and host-drawn fits, card against CPU and "
         "numpy (TF32 off)")
     phase_word2vec_parity(torch, M)
     return figures
@@ -8341,6 +8377,555 @@ def phases_34_35_alone(torch, M) -> int:
     figures = phases_34_35(torch, M, card)
     log(f"phases 34-35 {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"card": card, "path 11": figures}), flush=True)
+    return 0
+
+
+# ---------------------------------------------------------------- path 12
+# The graph: a planted partition with BlogCatalog's counts (Tang & Liu,
+# KDD 2009; one of the DeepWalk paper's datasets, Perozzi et al., KDD
+# 2014): 10,312 vertices, 333,983 undirected edges, 39 groups, 80% of the
+# edges inside a group; made on the host from a seed (no dataset is
+# downloaded).
+EMBED_GRAPH = dict(n=10_312, edges=333_983, groups=39, p_in=0.8, seed=12)
+# DeepWalk with the paper's settings (d=128, w=10, t=40; gamma=80 walks a
+# vertex cut to 2, for time), negative 5, path 11's batch of 16384
+EMBED_DW = dict(vector_size=128, window_size=10, walk_length=40,
+                walks_per_vertex=2, negative=5, batch_size=16384, seed=12)
+EMBED_TSNE = dict(perplexity=30.0, n_iter=1000, seed=12)  # the defaults
+# floors set from a CPU rehearsal at the same shape (PERF.md §6: NMI
+# 0.690, neighbour share 0.969), less a margin for the card's
+# negatives, which are other draws: the NMI of k-means (K=39, one Lloyd
+# iteration, the reference's stop rule) against the planted groups, and
+# the share of each vertex's 10 nearest t-SNE neighbours in its group
+EMBED_NMI_FLOOR = 0.6
+EMBED_KNN_FLOOR = 0.85
+EMBED_KNN = 10
+EMBED_UI_STEPS = 5
+# phase 37: a step on the card against the same step on the CPU, each
+# output's largest |difference| within EMBED_STEP_TOL of its largest
+# |value|; both against this script's numpy f64 version within
+# EMBED_F64_TOL of the same (the f32 expansion |yi|² - 2 yi.yj + |yj|²
+# and the sums' order put ~1e-6 there)
+EMBED_STEP_TOL, EMBED_F64_TOL = 1e-5, 1e-4
+EMBED_TSNE_N = 2048
+
+
+def sync(torch, dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def planted_graph(np, Graph, n, edges, groups, p_in, seed):
+    """(graph, group of each vertex, share of edges inside a group): each
+    edge draws a vertex, then with probability p_in a partner in its
+    group, else one outside it; self-loops and repeated pairs are
+    dropped until `edges` distinct undirected edges remain."""
+    rng = np.random.default_rng(seed)
+    group = rng.permutation(np.arange(n) % groups)
+    order = np.argsort(group, kind="stable")  # vertices grouped
+    sizes = np.bincount(group, minlength=groups)
+    offs = np.cumsum(sizes) - sizes
+    m = int(edges * 1.25)
+    src = rng.integers(0, n, m)
+    gs = group[src]
+    inside = rng.random(m) < p_in
+    dst_in = order[offs[gs] + (rng.random(m) * sizes[gs]).astype(np.int64)]
+    r = (rng.random(m) * (n - sizes[gs])).astype(np.int64)
+    dst_out = order[np.where(r >= offs[gs], r + sizes[gs], r)]
+    dst = np.where(inside, dst_in, dst_out)
+    keep = src != dst
+    a, b = np.minimum(src, dst)[keep], np.maximum(src, dst)[keep]
+    _, first = np.unique(a * n + b, return_index=True)
+    first = np.sort(first)[:edges]
+    if len(first) != edges:
+        raise AssertionError(f"planted graph: {len(first)} of {edges} edges")
+    a, b = a[first], b[first]
+    g = Graph(n)
+    for s, d in zip(a.tolist(), b.tolist()):
+        g.add_edge(s, d)
+    return g, group, float(np.mean(group[a] == group[b]))
+
+
+def nmi(np, a, b) -> float:
+    """Normalized mutual information of two labelings (the arithmetic
+    mean of the entropies as the normalizer)."""
+    _, ai = np.unique(a, return_inverse=True)
+    _, bi = np.unique(b, return_inverse=True)
+    C = np.zeros((ai.max() + 1, bi.max() + 1))
+    np.add.at(C, (ai, bi), 1.0)
+    pij = C / C.sum()
+    pi, pj = pij.sum(1), pij.sum(0)
+    nz = pij > 0
+    mi = float((pij[nz] * np.log(pij[nz] / np.outer(pi, pj)[nz])).sum())
+    h = lambda p: float(-(p[p > 0] * np.log(p[p > 0])).sum())
+    return mi / max((h(pi) + h(pj)) / 2, 1e-12)
+
+
+def nearest_within_rounding(np, X, C, labels) -> bool:
+    """Whether each label names a nearest centroid of `C`, by f64
+    distances, up to f32 rounding of the expansion |x|² - 2 x.c + |c|²
+    (1e-5 of |x|² + |c|², far above it): DeepWalk's vectors sit ~1e-3
+    from their centroids, and two centroids can be within 1e-6, so an
+    f32 argmin may take either."""
+    X, C = X.astype(np.float64), C.astype(np.float64)
+    x2, c2 = (X * X).sum(1), (C * C).sum(1)
+    d2 = x2[:, None] - 2.0 * X @ C.T + c2[None]
+    gap = d2[np.arange(len(X)), labels] - d2.min(1)
+    return bool((gap <= 1e-5 * (x2 + c2.max())).all())
+
+
+def embed_deepwalk(torch, M, g, dev):
+    """Path 12's DeepWalk fit: (model, its walks, figures). The fit's
+    walk and training parts are timed apart (the walks are host Python,
+    the reference's `RandomWalkIterator`)."""
+    dw = M["graph"].DeepWalk(**EMBED_DW, device=dev)
+    sv, rec = dw._sv, {}
+    fit = sv.fit
+
+    def timed_fit(walks):
+        rec["walks"], rec["t0"] = walks, time.perf_counter()
+        fit(walks)
+        sync(torch, dev)
+        rec["t1"] = time.perf_counter()
+
+    sv.fit = timed_fit
+    t0 = time.perf_counter()
+    try:
+        dw.fit(g)
+    finally:
+        del sv.fit
+    words = sum(len(w) for w in rec["walks"])
+    fig = {"walks": len(rec["walks"]), "words": words,
+           "walk_s": round(rec["t0"] - t0, 3),
+           "fit_s": round(rec["t1"] - rec["t0"], 3),
+           "words_per_s": round(words / (rec["t1"] - rec["t0"]), 1),
+           "mean_loss": round(sv.mean_loss, 5)}
+    if not (math.isfinite(sv.mean_loss) and sv.mean_loss > 0
+            and dw.vocab.num_words() == g.num_vertices()):
+        raise AssertionError(f"DeepWalk: loss {sv.mean_loss}, "
+                             f"{dw.vocab.num_words()} vertices in the vocab")
+    return dw, rec["walks"], fig
+
+
+def embed_kmeans(torch, np, M, X, truth, dev):
+    """k-means with K=39 of the DeepWalk vectors: figures; two same-seed
+    fits identical, labels consistent with `predict`, the NMI against the
+    planted groups at least EMBED_NMI_FLOOR."""
+    K = EMBED_GRAPH["groups"]
+    Xd = torch.from_numpy(X).to(dev)
+    fits, walls = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        fits.append(M["clustering"].KMeansClustering(
+            K, seed=EMBED_GRAPH["seed"], device=dev).fit(Xd))
+        walls.append(time.perf_counter() - t0)
+    km = fits[0]
+    same = (np.array_equal(fits[0].labels_, fits[1].labels_)
+            and np.array_equal(fits[0].centroids, fits[1].centroids))
+    consistent = nearest_within_rounding(np, X, km.centroids, km.labels_)
+    score = nmi(np, truth, km.labels_)
+    fig = {"fit_s": round(walls[0], 4), "fit_s_again": round(walls[1], 4),
+           "iterations": km.n_iter_, "cost": km.cost, "nmi": round(score, 4)}
+    log(f"  k-means K={K} on the card: fits {walls[0]:.3f} / "
+        f"{walls[1]:.3f} s, {km.n_iter_} iterations, cost {km.cost:.4g}; "
+        f"NMI against the planted groups {score:.4f} (floor "
+        f"{EMBED_NMI_FLOOR}); same seed twice identical: {same}; labels_ "
+        f"a nearest stored centroid within f32 rounding: {consistent} "
+        f"({int((km.labels_ != km.predict(X)).sum())} differ from "
+        "`predict`'s host f32 argmin)")
+    if not (same and consistent and score >= EMBED_NMI_FLOOR):
+        raise AssertionError(f"k-means: same-seed fits identical {same}, "
+                             f"labels consistent {consistent}, NMI {score}")
+    return km, fig
+
+
+def embed_tsne(torch, np, M, X, truth, dev):
+    """Exact t-SNE of every vector: (embedding, figures); the KL falls
+    after the lying phase, and most of each vertex's nearest neighbours
+    in the embedding share its planted group."""
+    ts_mod = M["tsne"]
+    ts = M["clustering"].Tsne(**EMBED_TSNE, device=dev)
+    search, steps = {}, []
+    probs = ts._input_probabilities
+
+    def timed_probs(x):
+        t0 = time.perf_counter()
+        out = probs(x)
+        search["s"] = time.perf_counter() - t0
+        return out
+
+    step = ts_mod._tsne_step
+
+    def timed_step(*a):
+        t0 = time.perf_counter()
+        out = step(*a)
+        sync(torch, dev)
+        steps.append(time.perf_counter() - t0)
+        return out
+
+    ts._input_probabilities = timed_probs
+    ts_mod._tsne_step = timed_step
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        Y = ts.fit_transform(X)
+    finally:
+        ts_mod._tsne_step = step
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if dev == "cuda" else None
+    h = ts.error_history_
+    lying = ts._stop_lying() // ts.error_every  # reports before it ends
+    falls = all(map(math.isfinite, h)) and h[-1] < h[lying]
+    Yd = torch.from_numpy(Y).to(dev)
+    d = torch.cdist(Yd, Yd)
+    d.fill_diagonal_(float("inf"))
+    nbrs = d.topk(EMBED_KNN, largest=False).indices.cpu().numpy()
+    del d
+    share = float((truth[nbrs] == truth[:, None]).mean())
+    med = sorted(steps)[len(steps) // 2]
+    fig = {"wall_s": round(wall, 3), "search_s": round(search["s"], 3),
+           "iteration_ms_median": round(1e3 * med, 4),
+           "kl_history": [round(k, 4) for k in h],
+           "knn_share": round(share, 4),
+           "peak_device_mb": None if peak is None else round(peak / 2**20, 1)}
+    log(f"  t-SNE of {len(X)} vectors ({EMBED_TSNE}): "
+        f"{wall:.2f} s, the host perplexity search {search['s']:.2f} s, "
+        f"an iteration {1e3 * med:.3f} ms (median); KL "
+        f"{[round(k, 3) for k in h]}; after the lying phase it falls: "
+        f"{falls}; {EMBED_KNN} nearest neighbours in the planted group: "
+        f"{share:.4f} (floor {EMBED_KNN_FLOOR}); peak device memory "
+        f"{fig['peak_device_mb']} MB")
+    if not (falls and np.isfinite(Y).all() and Y.shape == (len(X), 2)
+            and share >= EMBED_KNN_FLOOR):
+        raise AssertionError(f"t-SNE: KL falls {falls}, shape {Y.shape}, "
+                             f"neighbour share {share}")
+    return Y, fig
+
+
+def embed_ui(torch, np, M, X, truth, Y, vids):
+    """The training UI on the card's host: a UIServer with in-memory
+    storage, a StatsListener reporting a few fit steps of a classifier of
+    the vectors on the card through the remote router, the system and
+    histogram feeds checked, then the t-SNE points uploaded and
+    rendered."""
+    import urllib.request
+
+    ui, C = M["ui"], M["conf"]
+    server = ui.UIServer(port=0)
+    try:
+        storage = ui.InMemoryStatsStorage()
+        server.attach(storage)
+        base = f"http://127.0.0.1:{server.port}"
+        router = ui.RemoteUIStatsStorageRouter(base)
+        K = EMBED_GRAPH["groups"]
+        conf = (C.NeuralNetConfiguration.Builder().seed(12)
+                .learning_rate(0.05).list()
+                .layer(C.DenseLayer(n_in=X.shape[1], n_out=256,
+                                    activation=M["Activation"].RELU))
+                .layer(C.OutputLayer(n_in=256, n_out=K,
+                                     loss=M["LossFunction"].MCXENT,
+                                     activation=M["Activation"].SOFTMAX))
+                .build())
+        net = M["MultiLayerNetwork"](conf, device="cuda")
+        net.init()
+        net.set_listeners(ui.StatsListener(router, session_id="path-12"))
+        data = M["DataSet"](X, np.eye(K, dtype=np.float32)[truth])
+        for _ in range(EMBED_UI_STEPS):
+            net.fit(data)
+        router.shutdown()
+        get = lambda p: json.loads(urllib.request.urlopen(base + p).read())
+        sysd = get("/train/system")
+        hist = get("/train/histograms")
+        latest = storage.get_latest_record("path-12", "stats").data
+        named = dict(ui.StatsListener._named_params(net))
+        current = all(latest["parameters"][n] ==
+                      M["stats_listener"]._array_stats(a)
+                      for n, a in named.items())
+        counts_ok = set(hist["parameters"]) == set(named) and all(
+            sum(hist["parameters"][n]["histogram_counts"]) == a.numel()
+            for n, a in named.items())
+        in_use = sysd["device_bytes_in_use"]
+        limit = latest["system"].get("device_bytes_limit")
+        total = torch.cuda.get_device_properties(0).total_memory
+        payload = json.dumps({"coords": Y.tolist(),
+                              "labels": [str(v) for v in vids]}).encode()
+        t0 = time.perf_counter()
+        req = urllib.request.Request(base + "/tsne/upload", data=payload,
+                                     method="POST")
+        up = json.loads(urllib.request.urlopen(req).read())
+        upload_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        page = urllib.request.urlopen(base + "/tsne").read().decode()
+        render_s = time.perf_counter() - t0
+        circles = page.count("<circle")
+    finally:
+        server.stop()
+    fig = {"reports": len(sysd["iterations"]),
+           "device_bytes_in_use": in_use[-1] if in_use else None,
+           "upload_s": round(upload_s, 4), "render_s": round(render_s, 4),
+           "page_mb": round(len(page) / 2**20, 2),
+           "dropped": router.dropped_count}
+    log(f"  UI: {fig['reports']} reports through the remote router "
+        f"({router.dropped_count} dropped); /train/system device bytes in "
+        f"use {in_use}, limit {limit} (the card's {total}); histograms for "
+        f"every parameter: {counts_ok}; the last report's statistics are "
+        f"the trained parameters': {current}; /tsne/upload of {len(Y)} "
+        f"points answered {up} in {upload_s:.3f} s; /tsne rendered "
+        f"{circles} points in {render_s:.3f} s ({fig['page_mb']} MB)")
+    if not (fig["reports"] == EMBED_UI_STEPS and in_use
+            and all(b is not None and b > 0 for b in in_use)
+            and limit == total and counts_ok and current
+            and up.get("points") == len(Y) and circles == len(Y)):
+        raise AssertionError(f"UI: reports {fig['reports']}, device bytes "
+                             f"{in_use}, limit {limit}, histograms "
+                             f"{counts_ok}, current {current}, upload {up}"
+                             f", circles {circles}")
+    return fig
+
+
+def phase_embed(torch, M, card):
+    """Phase 36 (path 12): the planted graph, DeepWalk on the card,
+    k-means and exact t-SNE of its vectors on the card, the UI. Returns
+    the path's figures."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    g, group, inside = planted_graph(np, M["graph"].Graph, **EMBED_GRAPH)
+    graph_s = time.perf_counter() - t0
+    log(f"  planted graph: {g.num_vertices()} vertices, "
+        f"{EMBED_GRAPH['edges']} edges ({100 * inside:.1f}% inside a "
+        f"group), {EMBED_GRAPH['groups']} groups, built in {graph_s:.2f} s")
+    dw, walks, fig_dw = embed_deepwalk(torch, M, g, "cuda")
+    log(f"  DeepWalk: {fig_dw['walks']} walks of {EMBED_DW['walk_length']} "
+        f"({fig_dw['words']} words) in {fig_dw['walk_s']} s of host "
+        f"Python; the fit {fig_dw['fit_s']} s on the card = "
+        f"{fig_dw['words_per_s']} words/s; mean loss {fig_dw['mean_loss']} "
+        f"[{card}]")
+    X = dw.lookup_table.syn0.float().cpu().numpy()
+    vids = np.array([int(dw.vocab.word_at_index(i)) for i in range(len(X))])
+    truth = group[vids]
+    _, fig_km = embed_kmeans(torch, np, M, X, truth, "cuda")
+    Y, fig_ts = embed_tsne(torch, np, M, X, truth, "cuda")
+    fig_ui = embed_ui(torch, np, M, X, truth, Y, vids)
+    trace = traced(torch, lambda: dw._sv.fit(walks))
+    log(f"  one more DeepWalk epoch on the same walks under torch.profiler: "
+        f"{trace}")
+    return {"graph_s": round(graph_s, 3), "deepwalk": fig_dw,
+            "deepwalk_traced": trace, "kmeans": fig_km, "tsne": fig_ts,
+            "ui": fig_ui}
+
+
+# numpy f64 versions of k-means' Lloyd step and t-SNE's step and KL,
+# written here from the JAX package's math (not taken from the port), for
+# phase 37
+def np_lloyd(np, X, C):
+    d2 = ((X * X).sum(1)[:, None] - 2.0 * X @ C.T + (C * C).sum(1)[None])
+    a = d2.argmin(1)
+    counts = np.bincount(a, minlength=len(C)).astype(np.float64)
+    sums = np.zeros_like(C)
+    np.add.at(sums, a, X)
+    new = np.where(counts[:, None] > 0,
+                   sums / np.maximum(counts, 1.0)[:, None], C)
+    return new, a, d2.min(1).sum()
+
+
+def np_tsne_num(np, Y):
+    y2 = (Y * Y).sum(1)
+    num = 1.0 / (1.0 + (y2[:, None] - 2.0 * Y @ Y.T + y2[None]))
+    np.fill_diagonal(num, 0.0)
+    return num
+
+
+def np_tsne_step(np, Y, V, G, P, momentum, lr, min_gain):
+    num = np_tsne_num(np, Y)
+    Q = num / max(num.sum(), 1e-12)
+    PQ = (P - np.maximum(Q, 1e-12)) * num
+    grad = 4.0 * ((np.diag(PQ.sum(1)) - PQ) @ Y)
+    G = np.maximum(np.where(grad * V > 0, G * 0.8, G + 0.2), min_gain)
+    V = momentum * V - lr * G * grad
+    Y = Y + V
+    return Y - Y.mean(0), V, G
+
+
+def np_tsne_kl(np, Y, P):
+    num = np_tsne_num(np, Y)
+    Q = num / max(num.sum(), 1e-12)
+    return float((P * np.log(np.maximum(P, 1e-12)
+                             / np.maximum(Q, 1e-12))).sum())
+
+
+def embed_case(torch, np, what, run, ref):
+    """`run(device)` on the card and on the CPU: each output's largest
+    |difference| card against CPU within EMBED_STEP_TOL, and card and CPU
+    against `ref` (numpy f64) within EMBED_F64_TOL, of the output's
+    largest |ref|. Logs the worst of each in units of its tolerance; the
+    card's outputs are returned."""
+    card, cpu = run("cuda"), run("cpu")
+    host = lambda g: (g.detach().cpu().double().numpy()
+                      if isinstance(g, torch.Tensor)
+                      else np.asarray(g, np.float64))
+    units = []
+    for a, b, r in zip(card, cpu, ref):
+        a, b, r = host(a), host(b), np.asarray(r, np.float64)
+        scale = max(float(np.abs(r).max()), 1e-30)
+        units.append((float(np.abs(a - b).max()) / (EMBED_STEP_TOL * scale),
+                      max(float(np.abs(a - r).max()),
+                          float(np.abs(b - r).max()))
+                      / (EMBED_F64_TOL * scale)))
+    worst = max(max(u) for u in units)
+    log(f"  {what}: card-CPU / against f64, in units of the tolerances "
+        f"{[(round(x, 4), round(y, 4)) for x, y in units]}")
+    if not worst <= 1.0:
+        raise AssertionError(f"{what}: {worst:.3g} times the tolerance")
+    return card
+
+
+def tf32_on_equal(torch, what, run, want):
+    """`run()` with the caller's TF32 on must give `want` (computed with
+    it off) bit for bit: the function forces full f32 itself."""
+    m = torch.backends.cuda.matmul
+    m.allow_tf32 = True
+    try:
+        got = run()
+    finally:
+        m.allow_tf32 = False
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    log(f"  {what} with the caller's allow_tf32 = True: bit-identical to "
+        f"TF32 off: {same}")
+    if not same:
+        raise AssertionError(f"{what}: TF32 reached the products")
+
+
+def phase_embed_parity(torch, M):
+    """Phase 37: path 12's device parts on the card against the CPU and
+    numpy f64 (TF32 off), the TF32 guard, a hierarchical-softmax DeepWalk
+    fit card against CPU, and the host parts' own checks."""
+    import numpy as np
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    km_mod, ts_mod = M["kmeans"], M["tsne"]
+    rng = np.random.default_rng(37)
+    T = lambda a, dev: torch.from_numpy(np.array(a)).to(dev)
+
+    # one Lloyd step at path 12's shape: 38 blobs, a centroid near each,
+    # and a 39th far from every point (the empty-cluster rule)
+    n, K = EMBED_GRAPH["n"], EMBED_GRAPH["groups"]
+    D = EMBED_DW["vector_size"]
+    centers = 3.0 * rng.standard_normal((K, D))
+    X = (centers[rng.integers(0, K - 1, n)]
+         + rng.standard_normal((n, D))).astype(np.float32)
+    C = (centers + 0.5 * rng.standard_normal((K, D))).astype(np.float32)
+    C[K - 1] = 15.0
+    ref = np_lloyd(np, X.astype(np.float64), C.astype(np.float64))
+    card = embed_case(torch, np, f"Lloyd step N={n} D={D} K={K} (one "
+                      "empty cluster)",
+                      lambda dev: km_mod._lloyd_step(T(X, dev), T(C, dev)),
+                      ref)
+    same_assign = np.array_equal(card[1].cpu().numpy(), ref[1])
+    kept = torch.equal(card[0][K - 1].cpu(), torch.from_numpy(C[K - 1]))
+    log(f"  assignments equal to numpy's: {same_assign}; the empty "
+        f"cluster's centroid kept: {kept}")
+    if not (same_assign and kept):
+        raise AssertionError(f"Lloyd step: assignments {same_assign}, "
+                             f"empty centroid kept {kept}")
+    tf32_on_equal(torch, "the Lloyd step",
+                  lambda: km_mod._lloyd_step(T(X, "cuda"), T(C, "cuda")),
+                  card)
+    # a fit of one iteration: labels_ and cost describe the centroids it
+    # returns, not the seeds the step started from
+    Xs = np.concatenate([rng.normal(size=(40, 2)) + c for c in
+                         ((0, 0), (3, 0), (0, 3), (3, 3))]).astype(np.float32)
+    km = M["clustering"].KMeansClustering(4, max_iterations=1, seed=2,
+                                          device="cuda").fit(Xs)
+    d = ((Xs[:, None, :] - km.centroids[None]) ** 2).sum(-1)
+    d_seed = ((Xs[:, None, :] - km._seed_centroids(Xs)[None]) ** 2).sum(-1)
+    moved = bool((d.argmin(1) != d_seed.argmin(1)).any())
+    described = (np.array_equal(km.labels_, d.argmin(1))
+                 and abs(km.cost - d.min(1).sum()) <= 1e-4 * d.min(1).sum())
+    log(f"  a one-iteration fit: its step moved labels {moved}; labels_ and "
+        f"cost those of the returned centroids: {described}")
+    if not (moved and described):
+        raise AssertionError(f"k-means labels_: moved {moved}, described "
+                             f"{described}")
+
+    # the t-SNE step and KL from identical inputs
+    N = EMBED_TSNE_N
+    Y = (5.0 * rng.standard_normal((N, 2))).astype(np.float32)
+    V = (0.1 * rng.standard_normal((N, 2))).astype(np.float32)
+    G = rng.uniform(0.5, 2.0, (N, 2)).astype(np.float32)
+    P = rng.random((N, N))
+    P = P + P.T
+    np.fill_diagonal(P, 0.0)
+    P = (P / P.sum()).astype(np.float32)
+    f64 = lambda *a: [np.asarray(x, np.float64) for x in a]
+    for exag, mom in ((12.0, 0.5), (1.0, 0.8)):
+        Pe = (P * np.float32(exag)).astype(np.float32)
+        ref = np_tsne_step(np, *f64(Y, V, G, Pe), mom, 200.0, 0.01)
+        run = lambda dev: ts_mod._tsne_step(T(Y, dev), T(V, dev), T(G, dev),
+                                            T(Pe, dev), mom, 200.0, 0.01)
+        card = embed_case(torch, np, f"_tsne_step N={N} exaggeration "
+                          f"{exag} momentum {mom}", run, ref)
+        tf32_on_equal(torch, "the t-SNE step", lambda: run("cuda"), card)
+    kl = lambda dev: [ts_mod._tsne_kl(T(Y, dev), T(P, dev))]
+    card = embed_case(torch, np, f"_tsne_kl N={N}", kl,
+                      [np_tsne_kl(np, *f64(Y, P))])
+    tf32_on_equal(torch, "the t-SNE KL", lambda: kl("cuda"), card)
+
+    # DeepWalk with hierarchical softmax and no negatives (every draw on
+    # the host): card against CPU
+    G_mod = M["graph"]
+    g, _, _ = planted_graph(np, G_mod.Graph, 300, 2000, 6, 0.8, 5)
+    fits = {}
+    for dev in ("cuda", "cpu"):
+        dw = G_mod.DeepWalk(vector_size=32, window_size=5, walk_length=20,
+                            walks_per_vertex=2, negative=0,
+                            use_hierarchic_softmax=True, batch_size=512,
+                            seed=5, device=dev)
+        dw.fit(g)
+        fits[dev] = [dw.lookup_table.syn0, dw.lookup_table.syn1]
+    worst = max((a.cpu() - b).abs().max().item()
+                / (W2V_FIT_TOL * max(1.0, b.abs().max().item()))
+                for a, b in zip(fits["cuda"], fits["cpu"]))
+    log(f"  DeepWalk HS fit (300 vertices), card against CPU: syn0 and "
+        f"syn1 worst {worst:.3g} of {W2V_FIT_TOL} x max(1, |ref|)")
+    if not worst <= 1.0:
+        raise AssertionError(f"DeepWalk HS: card off the CPU by {worst:.3g} "
+                             "times the tolerance")
+
+    # the weighted walks follow the weights (the reference's criterion)
+    wg = G_mod.Graph(3, directed=True)
+    for s, d_, w in ((0, 1, 100.0), (0, 2, 0.001), (1, 0, 1.0), (2, 0, 1.0)):
+        wg.add_edge(s, d_, weight=w)
+    walks = list(G_mod.WeightedRandomWalkIterator(wg, 30, seed=2))
+    v1, v2 = (sum(w.count(v) for w in walks) for v in (1, 2))
+    log(f"  weighted walks: vertex 1 (weight 100) visited {v1} times, "
+        f"vertex 2 (weight 0.001) {v2}")
+    if not v1 > 3 * v2:
+        raise AssertionError(f"weighted walks ignore the weights: {v1}, {v2}")
+
+
+def phases_36_37(torch, M, card):
+    """Phases 36 and 37; path 12's figures."""
+    log("[36/37] path 12: a planted graph with BlogCatalog's counts, "
+        "DeepWalk (d=128, w=10, t=40, 2 walks a vertex), k-means (K=39) "
+        "and exact t-SNE of its vectors on the card, the training UI")
+    figures = phase_embed(torch, M, card)
+    log("[37/37] path 12's device parts, card against CPU and numpy (TF32 "
+        "off), the TF32 guard, a hierarchical-softmax DeepWalk fit")
+    phase_embed_parity(torch, M)
+    return figures
+
+
+def phases_36_37_alone(torch, M) -> int:
+    """`--phases-36-37`: phases 36 and 37 alone (no CUDA source of the
+    port runs there), then one JSON line of path 12's figures."""
+    card = nvidia_smi_line()
+    t0 = time.perf_counter()
+    log(f"phases 36-37 alone [{card}]")
+    figures = phases_36_37(torch, M, card)
+    log(f"phases 36-37 {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"card": card, "path 12": figures}), flush=True)
     return 0
 
 
@@ -8443,8 +9028,13 @@ def port_modules() -> dict:
     from deeplearning4j_tpu_torch import native, nlp
     from deeplearning4j_tpu_torch.serving import kv_transfer, remote_replica
     from deeplearning4j_tpu_torch.util import determinism
+    from deeplearning4j_tpu_torch import clustering, graph, ui
+    from deeplearning4j_tpu_torch.clustering import kmeans, tsne
+    from deeplearning4j_tpu_torch.ui import stats_listener
 
-    return dict(earlystopping=earlystopping, profiler=profiler,
+    return dict(graph=graph, clustering=clustering, kmeans=kmeans,
+                tsne=tsne, ui=ui, stats_listener=stats_listener,
+                earlystopping=earlystopping, profiler=profiler,
                 gateway=gateway, remote_replica=remote_replica,
                 weight_digest=weight_digest,
                 determinism=determinism, kv_transfer=kv_transfer,
@@ -8514,7 +9104,7 @@ def main(argv) -> int:
     `--phases-24-26`: phases 24 to 26 alone. `--phases-27-29`: phases 27
     to 29 alone. `--phases-30-31`: phase 7 and phases 30 and 31 alone.
     `--phases-32-33`: phases 32 and 33 alone. `--phases-34-35`: phases 34
-    and 35 alone."""
+    and 35 alone. `--phases-36-37`: phases 36 and 37 alone."""
     import torch
 
     if not torch.cuda.is_available():
@@ -8553,104 +9143,106 @@ def main(argv) -> int:
         return phases_32_33_alone(torch, M, pa, cuda_build)
     if "--phases-34-35" in argv:
         return phases_34_35_alone(torch, M)
+    if "--phases-36-37" in argv:
+        return phases_36_37_alone(torch, M)
 
     card = nvidia_smi_line()
-    log(f"[1/35] card: {card}; {torch.cuda.get_device_name(0)}; torch "
+    log(f"[1/37] card: {card}; {torch.cuda.get_device_name(0)}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}; "
         f"{torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     built = cuda_build.build(KERNEL_SOURCES)
-    log(f"[2/35] build: {time.perf_counter() - t0:.1f} s for "
+    log(f"[2/37] build: {time.perf_counter() - t0:.1f} s for "
         f"{len(built)} source(s)")
     for name, res in built.items():
         for line in ptxas_summary(res.log):
             log(f"  {name}: {line}")
 
-    log("[3/35] paged kernels against their plain versions (TF32 off)")
+    log("[3/37] paged kernels against their plain versions (TF32 off)")
     phase_kernels(torch, pa)
-    log("[4/35] flash kernels against their plain versions (TF32 off)")
+    log("[4/37] flash kernels against their plain versions (TF32 off)")
     phase_flash(torch, fa)
-    log("[5/35] f32 DecodeEngine vs generate, 2 layers, d_model 1024")
+    log("[5/37] f32 DecodeEngine vs generate, 2 layers, d_model 1024")
     phase_parity(torch, M)
-    log("[6/35] f32 training, card (kernels) vs CPU (plain), 1 layer, "
+    log("[6/37] f32 training, card (kernels) vs CPU (plain), 1 layer, "
         "d_model 1024, T=1024")
     phase_train_parity(torch, M)
-    log("[7/35] serving the 8-layer bf16 GPT at full width")
+    log("[7/37] serving the 8-layer bf16 GPT at full width")
     launches, path1_tok_s = phase_serve(torch, M, pa, card)
-    log("[8/35] serving it with int8 KV, the prefix cache and "
+    log("[8/37] serving it with int8 KV, the prefix cache and "
         "self-speculation on shared-prefix traffic")
     launches.update(phase_serve_tier(torch, M, pa, card))
-    log("[9/35] training the 8-layer bf16 gpt_long GPT at full width")
+    log("[9/37] training the 8-layer bf16 gpt_long GPT at full width")
     flash_counts = phase_train(torch, M, card, torch.bfloat16, TRAIN_B,
                                TRAIN_STEPS, 13, "wgmma")
-    log("[9/35] path 2w: the same GPT with 4 heads of 256 (the bf16 "
+    log("[9/37] path 2w: the same GPT with 4 heads of 256 (the bf16 "
         "\"wgmma wide\" flash kernels)")
     flash_counts_wide = phase_train(torch, M, card, torch.bfloat16,
                                     TRAIN_WIDE_B, TRAIN_WIDE_STEPS, 15,
                                     "wgmma wide", n_heads=TRAIN_WIDE_HEADS)
-    log("[9/35] path 2x: the same GPT with 2 heads of 512 (the bf16 "
+    log("[9/37] path 2x: the same GPT with 2 heads of 512 (the bf16 "
         "\"wgmma wide\" forward, the \"wgmma cluster\" backward)")
     flash_counts_2x = phase_train(torch, M, card, torch.bfloat16,
                                   TRAIN_2X_B, TRAIN_2X_STEPS, 16,
                                   TRAIN_2X_ROUTES, n_heads=TRAIN_2X_HEADS)
-    log("[10/35] path 2f: training the 8-layer gpt_long GPT in f32 "
+    log("[10/37] path 2f: training the 8-layer gpt_long GPT in f32 "
         "(split-TF32 flash kernels)")
     flash_counts_f32 = phase_train(torch, M, card, None, TRAIN_F32_B,
                                    TRAIN_F32_STEPS, 14, "tf32")
-    log("[11/35] LSTM kernels against their plain versions (TF32 off)")
+    log("[11/37] LSTM kernels against their plain versions (TF32 off)")
     phase_lstm_kernels(torch, L, M)
-    log("[12/35] f32 char-RNN training, card (kernels) vs CPU (plain), "
+    log("[12/37] f32 char-RNN training, card (kernels) vs CPU (plain), "
         "H=256")
     phase_lstm_train_parity(torch, M)
-    log("[13/35] training the bf16 lstm_large char-RNN at full width")
+    log("[13/37] training the bf16 lstm_large char-RNN at full width")
     lstm_counts, step4_ms = phase_lstm_train(torch, M, card, torch.bfloat16)
-    log("[14/35] training the bf16 lstm char-RNN with tBPTT 24 at full width")
+    log("[14/37] training the bf16 lstm char-RNN with tBPTT 24 at full width")
     tbptt_counts = phase_lstm_tbptt(torch, M, card)
-    log("[15/35] path 4f: training the lstm_large char-RNN in f32 "
+    log("[15/37] path 4f: training the lstm_large char-RNN in f32 "
         "(split-TF32 LSTM kernels)")
     f32_counts, _ = phase_lstm_train(torch, M, card, None, LSTM_F32_STEPS,
                                      "tf32 clusters", seed=2)
-    log("[16/35] timing at the serving and training shapes (bf16 and f32)")
+    log("[16/37] timing at the serving and training shapes (bf16 and f32)")
     rows = phase_timing(torch, pa, launches)
     rows += phase_flash_timing(torch, fa, flash_counts, flash_counts_f32,
                                flash_counts_wide, flash_counts_2x)
-    log("[17/35] timing the LSTM kernels at the char-RNN shapes (bf16 and "
+    log("[17/37] timing the LSTM kernels at the char-RNN shapes (bf16 and "
         "f32)")
     rows += phase_lstm_timing(torch, L, lstm_counts, tbptt_counts,
                               f32_counts)
-    log(f"[18/35] a GravesLSTM wider than the fused kernels (H={LSTM_WIDE}): "
+    log(f"[18/37] a GravesLSTM wider than the fused kernels (H={LSTM_WIDE}): "
         "the step loop, card vs CPU")
     phase_lstm_wide(torch, M)
-    log("[19/35] path 4s: the bf16 lstm_large char-RNN on "
+    log("[19/37] path 4s: the bf16 lstm_large char-RNN on "
         "GravesLSTMCharModellingExample's mini-batches (B=32 x T=1000, "
         "tBPTT 50)")
     lstm_4s_launches(rows, phase_lstm_4s(torch, M, card))
-    log("[20/35] path 4e: the bf16 lstm_large char-RNN through the training "
+    log("[20/37] path 4e: the bf16 lstm_large char-RNN through the training "
         "loop (async iterator, health sentinel, listeners, checkpoints, "
         "evaluate, restore, LBFGS)")
     lstm_4e_launches(rows, phase_lstm_4e(torch, M, card, step4_ms))
-    log("[21/35] path 5: the 8-layer bf16 GPT behind ModelServer (predict, "
+    log("[21/37] path 5: the 8-layer bf16 GPT behind ModelServer (predict, "
         "generate, reload under decode, rejections, the breaker, quantized "
         "weights with the drift gate, shutdown)")
     serve5_launches(rows, phase_server(torch, M, card, path1_tok_s))
-    log("[22/35] the CNN layers against the CPU and numpy (f32), path 6: "
+    log("[22/37] the CNN layers against the CPU and numpy (f32), path 6: "
         "LeNet at bench_lenet's shape, its f32 parity")
     phase_cnn_layers(torch, M)
     phase_lenet(torch, M, card)
-    log("[23/35] SelfAttention on the non-causal flash kernels, MoELayer "
+    log("[23/37] SelfAttention on the non-causal flash kernels, MoELayer "
         "against numpy, path 2m: the MoE gpt_long GPT, MoE serving")
     counts = phase_attention_moe(torch, M, pa, card)
     rows += attention_moe_rows(torch, fa, counts)
     moe_launches(rows, counts)
-    log("[24/35] path 7: ResNet-50 on CIFAR-10 at bench_resnet50's shape "
+    log("[24/37] path 7: ResNet-50 on CIFAR-10 at bench_resnet50's shape "
         "(a ComputationGraph, bf16, B=256)")
     phase_resnet(torch, M, card)
-    log("[25/35] the graph on the LSTM kernels: path 4's char-RNN as a "
+    log("[25/37] the graph on the LSTM kernels: path 4's char-RNN as a "
         "graph against the list container, a masked tBPTT graph, f32 "
         "graph parity with the CPU and numpy")
     graph_launches(rows, phase_graph_lstm(torch, M, card))
-    log("[26/35] pretraining on the card: the MNIST VAE example's VAE, the "
+    log("[26/37] pretraining on the card: the MNIST VAE example's VAE, the "
         "DeepAutoEncoder RBM stack, an AutoEncoder stack")
     phase_pretrain(torch, M, card)
     cluster_launches(rows, *phases_27_29(torch, M, pa, card))
@@ -8663,6 +9255,7 @@ def main(argv) -> int:
     rows += wire_rows(torch, pa, wire_paged(wire))
     serve5_launches(rows, {"paged": {}, "flash": wire["path 10"]["flash"]})
     log(f"  path 11: {json.dumps(phases_34_35(torch, M, card))}")
+    log(f"  path 12: {json.dumps(phases_36_37(torch, M, card))}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

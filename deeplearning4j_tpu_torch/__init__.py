@@ -22,7 +22,13 @@ paged-attention kernels, the char-RNN on the LSTM kernels, LeNet (`models.lenet`
 ResNet (`models.resnet`); `gradientcheck`; the dataset fetchers
 (`datasets.fetchers`, `datasets.hdf5`), the native host library
 (`native`) and the NLP package (`nlp`: Word2Vec, ParagraphVectors, GloVe
-and the text pipeline). ROADMAP.md's queue A lists what is still to port.
+and the text pipeline); graph embeddings (`graph`: the graph, its walks,
+DeepWalk on `nlp.SequenceVectors`, the vector files), clustering
+(`clustering`: k-means and exact t-SNE on the card, Barnes-Hut t-SNE and
+the kd, vp, quad and sp trees on the host), `util.berkeley`, and the
+training UI (`ui`: `StatsListener`, stats storage, the remote router and
+`UIServer` with its t-SNE page). ROADMAP.md's queue A lists what is
+still to port.
 """
 
 __version__ = "0.1.0"

@@ -15,7 +15,9 @@ VAE stack pretrained layer by layer, a gradient check; early stopping,
 the determinism check and a profiler trace; QoS lanes, a warm migration,
 a cluster prefix fetch and disaggregated serving; the gateway wire, a
 remote replica behind a chaos proxy; a MNIST fetcher batch, a Word2Vec
-fit, the native word count and a serialized table)
+fit, the native word count and a serialized table; a DeepWalk fit,
+k-means and t-SNE of its vectors, a StatsListener reporting into a
+UIServer)
 loads neither `jax` nor any module of `deeplearning4j_tpu`, and
 its entry points run on the card by default, raising where there is
 none rather than carrying on quietly on the CPU."""
@@ -409,6 +411,58 @@ _SCRIPT = textwrap.dedent("""
         assert back.vocab.words() == vocab
     assert np.isfinite(w2v.mean_loss)
 
+    # graph embeddings, clustering and the training UI: a DeepWalk fit,
+    # k-means and t-SNE of its vectors, the vectors written, a
+    # StatsListener reporting through the remote router into a UIServer,
+    # a t-SNE upload
+    import json
+    import urllib.request
+    from deeplearning4j_tpu_torch.clustering import (
+        BarnesHutTsne, KMeansClustering, Tsne)
+    from deeplearning4j_tpu_torch.graph import (
+        DeepWalk, Graph, GraphVectorSerializer)
+    from deeplearning4j_tpu_torch.ui import (
+        InMemoryStatsStorage, RemoteUIStatsStorageRouter, StatsListener,
+        UIServer)
+    from deeplearning4j_tpu_torch.util.berkeley import Counter
+    g = Graph.from_edge_list([(i, (i + 1) % 12) for i in range(12)]
+                             + [(0, 6)], n_vertices=12)
+    dw = DeepWalk(vector_size=8, window_size=2, walk_length=8,
+                  walks_per_vertex=2, negative=2, batch_size=64,
+                  device="cpu")
+    dw.fit(g)
+    vecs = dw.lookup_table.syn0.numpy()
+    km = KMeansClustering(3, device="cpu").fit(vecs)
+    assert (km.labels_ == km.predict(vecs)).all()
+    emb = Tsne(perplexity=3.0, n_iter=30, device="cpu").fit_transform(vecs)
+    assert emb.shape == (12, 2) and BarnesHutTsne().theta == 0.5
+    with tempfile.TemporaryDirectory() as d:
+        GraphVectorSerializer.write_graph_vectors(dw, os.path.join(d, "g"))
+        assert GraphVectorSerializer.read_graph_vectors(
+            os.path.join(d, "g"))[1] == list(range(12))
+    Counter().increment_count("a")
+    ui = UIServer(port=0)
+    storage = InMemoryStatsStorage()
+    ui.attach(storage)
+    base = f"http://127.0.0.1:{ui.port}"
+    router = RemoteUIStatsStorageRouter(base)
+    from deeplearning4j_tpu_torch.nn.conf import (
+        DenseLayer, NeuralNetConfiguration, OutputLayer)
+    unet = MultiLayerNetwork(
+        NeuralNetConfiguration.Builder().seed(1).list()
+        .layer(DenseLayer(n_in=8, n_out=4))
+        .layer(OutputLayer(n_in=4, n_out=3)).build(), device="cpu")
+    unet.init()
+    unet.set_listeners(StatsListener(router))
+    unet.fit(DataSet(vecs, np.eye(3, dtype=np.float32)[km.labels_]))
+    router.shutdown()
+    assert storage.list_session_ids()
+    req = urllib.request.Request(base + "/tsne/upload", method="POST",
+                                 data=json.dumps({"coords": emb.tolist()})
+                                 .encode())
+    assert json.loads(urllib.request.urlopen(req).read())["points"] == 12
+    ui.stop()
+
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")
                     or m == "deeplearning4j_tpu"
@@ -490,7 +544,11 @@ def test_entry_points_default_to_the_card():
     from deeplearning4j_tpu_torch.nlp.lookup_table import InMemoryLookupTable
     from deeplearning4j_tpu_torch.nlp.vocab import AbstractCache
 
+    from deeplearning4j_tpu_torch.clustering import KMeansClustering, Tsne
+    from deeplearning4j_tpu_torch.graph import DeepWalk
+
     for make in (Word2Vec, ParagraphVectors, Glove,
-                 lambda: InMemoryLookupTable(AbstractCache(), 4)):
+                 lambda: InMemoryLookupTable(AbstractCache(), 4),
+                 lambda: KMeansClustering(3), Tsne, DeepWalk):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()

@@ -248,3 +248,15 @@ def test_nlp_names_without_a_card_meaning_raise_naming_their_item():
         SequenceVectors(mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match=r"queue C3\b"):
         kernels.require_partitionable_rng()
+
+
+def test_the_walk_covers_graph_clustering_berkeley_and_the_ui():
+    assert {f"{PORT}.graph", f"{PORT}.graph.graph", f"{PORT}.graph.walks",
+            f"{PORT}.graph.deepwalk", f"{PORT}.graph.serializer",
+            f"{PORT}.clustering", f"{PORT}.clustering.kmeans",
+            f"{PORT}.clustering.tsne", f"{PORT}.clustering.kdtree",
+            f"{PORT}.clustering.vptree", f"{PORT}.clustering.quadtree",
+            f"{PORT}.clustering.sptree", f"{PORT}.util.berkeley",
+            f"{PORT}.ui", f"{PORT}.ui.storage", f"{PORT}.ui.components",
+            f"{PORT}.ui.stats_listener", f"{PORT}.ui.flow",
+            f"{PORT}.ui.remote", f"{PORT}.ui.server"} <= set(MODULES)
