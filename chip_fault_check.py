@@ -86,7 +86,15 @@ belongs to):
   and t-SNE on the card, the training UI; the Lloyd and t-SNE steps
   against the CPU and numpy, the TF32 guard, a hierarchical-softmax
   DeepWalk fit against the CPU, the weighted walks), whose failed check
-  counts as caught.
+  counts as caught;
+- parallel: `chip_smoke.py`'s phases 38 and 39 (path 13: the wrapper and
+  the device prefetcher on the GPT, the prefetcher at path 4e's shape
+  behind a lagging copy stream, the averaging master against the same
+  shards run one after another with its crash, NaN and straggler drills,
+  the parameter server over TCP, FaultTolerantTrainer, the CLI; the
+  wrapper over an 8-slot mesh of the card against the CPU), whose failed
+  check counts as caught. The worker processes and the CLI of a copy
+  run that copy's modules.
 
 The faults (`MUTATIONS`) drop tiles, terms or rows, and break each
 mechanism of the Hopper kernels: the forward's diagonal mask on the wrong
@@ -190,7 +198,14 @@ dropped from the affinities, k-means' empty-cluster rule lost (an empty
 centroid goes to 0), `labels_` taken from the centroids before the last
 update, weighted walks that ignore the weights, and a `StatsListener`
 that reads the device memory of the wrong device or reports a stale
-host copy of the parameters. A
+host copy of the parameters; the data-parallel tier
+(`parallel/device_prefetch.py`, `parallel/training_master.py`,
+`parallel/wrapper.py`, `parallel/parameter_server.py`): a pinned staging
+buffer refilled before its copy's event has completed, the master
+averaging unweighted although `example_weighted` is set, a non-finite
+worker result averaged in, the wrapper skipping the data-axis trim, the
+tBPTT carries not restored after a batch's windows, and the parameter
+server applying a duplicate idempotent (`V`) push. A
 fault that makes the kernel trap (an mbarrier wait that times out) fails
 its check process, which counts as caught.
 
@@ -256,6 +271,12 @@ NLP = "nlp"
 # `clustering/kmeans.py`, `clustering/tsne.py`, `ui/stats_listener.py`),
 # checked by `chip_smoke.py`'s phases 36-37 (path 12 and its parity phase)
 EMBED = "embed"
+# the data-parallel tier (`parallel/device_prefetch.py`,
+# `parallel/training_master.py`, `parallel/wrapper.py`,
+# `parallel/parameter_server.py`), checked by `chip_smoke.py`'s phases
+# 38-39 (path 13 on the flash and LSTM kernels, the wrapper over an
+# 8-slot mesh of the card)
+PARALLEL = "parallel"
 # (B, T, H, D, causal, dtype): bf16, the training path's kernels at D = 128,
 # the "wgmma wide" kernels at D = 256 and the "wgmma cluster" backward at
 # D = 384 and 512 (T = 192: the first diagonal tiles; T = 1024 full: every
@@ -1059,6 +1080,42 @@ MUTATIONS = [
           "params[name] = _array_stats(self.__dict__.setdefault("
           "f\"_host_{name}\", _host_array(arr)))")],
      "ui/stats_listener.py"),
+    # path 13, each caught by phases 38-39: the early refill by 13b's
+    # batches staged behind a lagging copy stream; the unweighted average
+    # by 13c's tail window (shards of 8192, 8192 and 4096 examples)
+    # against the shards run one after another; the non-finite result by
+    # 13c's NaN drill; the skipped trim and the unrestored carries by
+    # phase 39's wrapper checks; the duplicate push by 13d's retried V
+    # push
+    ("parallel: a pinned buffer refilled before its copy completes",
+     PARALLEL, "    def _take(self, nbytes: int) -> torch.Tensor:", [
+         ("        done.synchronize()\n", "")],
+     "parallel/device_prefetch.py"),
+    ("parallel: the master averages unweighted", PARALLEL,
+     "    def _do_iteration(", [
+         ("            if self.example_weighted:\n",
+          "            if False:\n")],
+     "parallel/training_master.py"),
+    ("parallel: a non-finite worker result averaged in", PARALLEL,
+     "    def _run_shard(", [
+         ("            self._check_result_finite(result, wid, task.index)\n",
+          "")],
+     "parallel/training_master.py"),
+    ("parallel: the wrapper skips the data-axis trim", PARALLEL,
+     "    def _shard_batch(self, ds):", [
+         ("        if usable == B:\n            return ds\n",
+          "        return ds\n")],
+     "parallel/wrapper.py"),
+    ("parallel: tBPTT carries not restored after the windows", PARALLEL,
+     "    def _fit_tbptt(self, ds) -> None:", [
+         ("            net._tbptt_restore_carries(saved)\n",
+          "            pass\n")],
+     "parallel/wrapper.py"),
+    ("parallel: the server applies a duplicate V push", PARALLEL,
+     "    def _serve(self, conn) -> None:", [
+         (",\n                                            request_id=rid)",
+          ")")],
+     "parallel/parameter_server.py"),
     ("stream: DedupCache re-executes a completed id", STREAM,
      "    def begin(self, request_id: str) -> Tuple[str, Any]:", [
          ("            ent = self._done.get(request_id)\n"
@@ -1123,7 +1180,8 @@ def build(sources) -> None:
              MOE: (PAGED, FLASH), GRAPH: (LSTM,), PRETRAIN: (LSTM,),
              DISAGG: (PAGED,), QOS: (PAGED, FLASH, LSTM),
              POOL: (PAGED, FLASH), STREAM: (PAGED, FLASH),
-             WIRE: (PAGED, FLASH, LSTM), NLP: (), EMBED: ()}
+             WIRE: (PAGED, FLASH, LSTM), NLP: (), EMBED: (),
+             PARALLEL: (FLASH, LSTM)}
     cuda_build.build(tuple(sorted({k for s in sources
                                    for k in needs.get(s, (s,))})))
 
@@ -1189,6 +1247,10 @@ def check(sources) -> None:
     if EMBED in sources:
         cases += phase_cases(torch, "36-37", "path 12, its device parts",
                              lambda cs, M, card: cs.phases_36_37(
+                                 torch, M, card))
+    if PARALLEL in sources:
+        cases += phase_cases(torch, "38-39", "path 13, data parallel",
+                             lambda cs, M, card: cs.phases_38_39(
                                  torch, M, card))
     print(json.dumps({"package": fa.__file__, "cases": cases}), flush=True)
 

@@ -12,6 +12,7 @@ NVIDIA card.
     python3 chip_smoke.py --phases-32-33   # path 10: the wire, processes
     python3 chip_smoke.py --phases-34-35   # path 11: Word2Vec, NLP parity
     python3 chip_smoke.py --phases-36-37   # path 12: DeepWalk, t-SNE, the UI
+    python3 chip_smoke.py --phases-38-39   # path 13: data-parallel training
 
 `--lstm-timing` runs phase 17 alone (the LSTM source built, the rows
 checked and timed, launch counts 0) on the checkout's package or, with
@@ -34,7 +35,10 @@ launch counts. `--phases-34-35` runs phases 34 and 35 alone (path 11 and
 the NLP steps; no CUDA source of the port runs there) and prints one JSON
 line of path 11's figures. `--phases-36-37` runs phases 36 and 37 alone
 (path 12 and its parity phase; no CUDA source of the port runs there)
-and prints one JSON line of path 12's figures.
+and prints one JSON line of path 12's figures. `--phases-38-39` builds
+the flash and LSTM sources and runs phases 38 and 39 alone (path 13 and
+its parity phase), then prints one JSON line of path 13's figures and
+launch counts.
 
 Phases, each of which makes the script exit non-zero when it fails:
 
@@ -515,7 +519,8 @@ Phases, each of which makes the script exit non-zero when it fails:
    an admitted but incomplete journal record replays through a fresh door
    and its claim equals a direct run. Path 9's bf16 paged launches go
    into rows 1, its f32 predict into the f32 forward row at T=4096;
-32. path 10: path 1's network (f32, seed 11, written to a zip here and
+32. path 10: path 1's network at full width, its depth cut to 4 layers
+   (`WIRE_SERVE`: f32, seed 11, written to a zip here and
    served by `load_model` over the wire) behind a port `GatewayServer`
    with `serving={"replicas": 3,
    "remote": ..., "generation": path 1's engine settings}`: three
@@ -629,7 +634,43 @@ Phases, each of which makes the script exit non-zero when it fails:
    k-means fit whose `labels_` and cost must be the returned
    centroids'; a DeepWalk fit with hierarchical softmax and no
    negatives, card against CPU (`W2V_FIT_TOL`); the weighted walks
-   following their weights.
+   following their weights;
+38. path 13, the data-parallel tier: (13a) `ParallelWrapper(net)` over
+   the default mesh (the one card) trains bench_gpt_long's GPT at full
+   width, depth cut to 2 layers (bf16 over f32, B=8 x T=4096), 5 steps
+   through a `DevicePrefetchIterator`: 2 x 5 launches of each flash
+   kernel, its losses within rtol 1e-5 and its parameters within 5 x lr
+   (Adam) of `net.fit` of a clone on the card; (13b) the prefetcher at
+   path 4e's shape (lstm_large, f32 one-hot batches from pageable
+   memory): step ms and the traced idle share with path 4e's
+   `AsyncDataSetIterator` and with the prefetcher, 2 x 6 LSTM launches
+   each way, then every batch staged behind a copy stream that lags the
+   host (~60 ms of GPU sleep before each copy) bit-identical to its host
+   batch; (13c) `DistributedMultiLayer` with
+   `ParameterAveragingTrainingMaster(num_workers=4,
+   averaging_frequency=5)` trains bench_lstm's char-RNN (vocab 64, H=256,
+   B=8192 x T=64, bf16, RMSPROP) over a full window and a tail of two
+   batches and a half one: every worker thread's LSTM launches counted,
+   the result within `PAR_RMSPROP_ATOL` of the same shards fit one after
+   another and averaged example-weighted, a worker crash and a
+   NaN-gradient worker (re-dispatched, nothing non-finite averaged in,
+   the re-runs counted), a straggler past `worker_timeout` whose
+   abandoned replica's device memory is released, and the window's wall
+   against one network's fit; (13d) `ParameterServerParallelWrapper(
+   workers=2)` against a `NetworkParameterServer` (every push counted,
+   the net on the server's params, a duplicate idempotent push dropped),
+   then 2 worker processes on the card pushing over TCP, one after the
+   other, equal to the in-process store (rtol 1e-6, atol 1e-7); (13e)
+   `FaultTolerantTrainer` over the master with a crash after the first
+   window: one restart, finite parameters; (13f) `python -m
+   deeplearning4j_tpu_torch.parallel.main --mode averaging` trains a
+   saved zip on the card;
+39. the wrapper over an 8-slot mesh of the card against the CPU (f32,
+   TF32 off): a batch of 61 trained as its first 56 rows, a
+   BatchNormalization net on the whole batch's statistics (card vs CPU
+   within 1e-5; a per-slot average far off), a masked tBPTT char-RNN
+   whose carries are restored after its windows (its output equal to
+   `net.fit`'s network's), and the averaging master card vs CPU.
 
 Prints one JSON line of per-kernel numbers, then the card's
 `nvidia-smi` line, then as the last line
@@ -639,6 +680,7 @@ checkout of the repository. Weights and inputs are made from seeds.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -700,7 +742,14 @@ SERVER_PROMPT_T = (128, 4096)  # path 1's short and long prompts
 SERVER_DRIFT_EVAL = (2, 512)
 
 
+_T_IMPORT = time.perf_counter()
+
+
 def log(*a):
+    """Print a line; a phase header (`[n/39] ...`) carries the seconds
+    since the script started, so the log shows each phase's wall."""
+    if a and isinstance(a[0], str) and a[0][:1] == "[" and "/39]" in a[0][:8]:
+        a = (f"{a[0]} (at {time.perf_counter() - _T_IMPORT:.1f} s)",) + a[1:]
     print(*a, flush=True)
 
 
@@ -3070,7 +3119,9 @@ def phase_lstm_timing(torch, L, counts4, counts4b, counts4f):
     cooperative kernel at B=128, with and without the stash and masked,
     the cluster kernel at B=129 and 256), and the f32 kernels (split
     TF32) at T=8, B=2048, H=1024, at path 4f's shape (T=64, with its
-    launch counts) and masked at path 4b's window. The cooperative rows
+    launch counts) and masked at path 4b's window; last bench_lstm's full
+    sequence (T=64, B=8192, H=256: path 13c-13e's shape, their launch
+    counts added by `par_launches` once phase 38 has run). The cooperative rows
     print the replaced mma.sync kernel's time beside theirs
     (`LSTM_COOP_MMA_MS`). An f32 row on the split-TF32 route is
     bound by its three TF32 passes (3 x flops / 495 TFLOP/s) or its
@@ -3091,7 +3142,9 @@ def phase_lstm_timing(torch, L, counts4, counts4b, counts4f):
               (64, 256, 1024, False, {}, torch.bfloat16),
               (8, 2048, 1024, False, {}, torch.float32),
               (64, 2048, 1024, False, counts4f, torch.float32),
-              (LSTM_SMALL["tbptt"], 8192, 256, True, {}, torch.float32)]
+              (LSTM_SMALL["tbptt"], 8192, 256, True, {}, torch.float32),
+              (PAR_LSTM["T"], PAR_LSTM["B"], PAR_LSTM["hidden"], False, {},
+               torch.bfloat16)]
     rows, yard = [], {}
     for T, B, H, masked, counts, dt in shapes:
         inp = lstm_inputs(torch, T, B, H, dt, 77, masked)
@@ -6218,19 +6271,19 @@ def phases_27_29(torch, M, pa, card):
         for k, n in counts.items():
             paged[k] = paged.get(k, 0) + n
 
-    log("[27/37] path 8: path 1's GPT disaggregated (8a: the two mixes, "
+    log("[27/39] path 8: path 1's GPT disaggregated (8a: the two mixes, "
         "bf16 and int8 KV, against a colocated server), live migration "
         "(8b: warm, cold, sampled, int8), the cluster prefix cache (8c)")
     add(phase_disagg(torch, M, pa, card))
     net, counts = phase_migration(torch, M, pa, card)
     add(counts)
     add(phase_prefix_cluster(torch, M, pa, card, net))
-    log("[28/37] QoS on path 1's engine: a flood tenant under quota beside "
+    log("[28/39] QoS on path 1's engine: a flood tenant under quota beside "
         "Poisson interactive traffic, preemption of the batch lane")
     add(phase_qos(torch, M, pa, card, net))
     del net
     torch.cuda.empty_cache()
-    log("[29/37] early stopping, the profiler and assert_deterministic on "
+    log("[29/39] early stopping, the profiler and assert_deterministic on "
         "the LSTM and flash kernels")
     extras = phase_extras(torch, M, card)
     return paged, extras
@@ -6920,10 +6973,10 @@ def phase_streams(torch, M, pa, card, pool, rows_paged):
 def phases_30_31(torch, M, pa, card, path1_tok_s):
     """Phases 30 and 31; returns the bf16 paged launches and the f32
     flash launches for the kernel rows."""
-    log("[30/37] path 9: path 1's GPT behind ReplicaPool.from_net(net, 3): "
+    log("[30/39] path 9: path 1's GPT behind ReplicaPool.from_net(net, 3): "
         "routing and parity, a crash drill, rolling reloads, the autoscaler")
     pool, paged, flash = phase_pool(torch, M, pa, card, path1_tok_s)
-    log("[31/37] token streams and the exactly-once door on path 9's pool")
+    log("[31/39] token streams and the exactly-once door on path 9's pool")
     phase_streams(torch, M, pa, card, pool, paged)
     return {"paged": paged, "flash": flash}
 
@@ -6954,10 +7007,14 @@ def phases_30_31_alone(torch, M, pa, cuda_build) -> int:
 # "remote": ...}), as bench_serve_pool's cross-process line
 # (bench.py:1040-1076); path 1's six requests from six client threads
 WIRE_REPLICAS = 3
+# path 10's network: path 1's at full width, its depth cut 8 -> 4 layers
+# so the whole run fits its time limit (its zips, written and restored by
+# every replica process, took most of the phase's 287 s at 8 layers)
+WIRE_SERVE = dict(SERVE, n_layers=4)
 # the drills' live traffic: 4 clients sending prompts of 128 with 32
 # tokens out through the gateway
 WIRE_CLIENTS, WIRE_DRILL_TOKENS = 4, 32
-# a replica restores the 8-layer zip (~1.2 GB with its optimizer state)
+# a replica restores the 4-layer zip (~0.6 GB with its optimizer state)
 WIRE_SPAWN_S = 600.0
 # phase 33: a stream of 96 tokens torn after its first frame
 WIRE_STREAM_TOKENS = 96
@@ -7076,7 +7133,7 @@ def phase_wire_pool(torch, M, pa, card):
     import numpy as np
 
     S, G, RR = M["serving"], M["gateway"], M["remote_replica"]
-    V, n_layers = SERVE["vocab_size"], SERVE["n_layers"]
+    V, n_layers = WIRE_SERVE["vocab_size"], WIRE_SERVE["n_layers"]
     t_phase = time.perf_counter()
     prompts, n_tok = path1_requests(np)
     toks = int(sum(n_tok))
@@ -7120,7 +7177,7 @@ def phase_wire_pool(torch, M, pa, card):
 
     # -- 10a: the f32 references in this process, from the zip the
     # replicas will serve, timed before any replica process exists
-    conf = M["gpt_configuration"](**SERVE, seed=11)
+    conf = M["gpt_configuration"](**WIRE_SERVE, seed=11)
     ref_zip = os.path.join(scratch, "reference.zip")
     t0 = time.perf_counter()
     net = M["MultiLayerNetwork"](conf, device="cuda")
@@ -7678,11 +7735,12 @@ def phases_32_33(torch, M, pa, card):
     """Phases 32 and 33: `{"path 10": its replicas' launches in 10a's
     window, "phase 33": phase 33's}`, each `{"paged": {(C, pools): n},
     "flash": {(kind, route): n}}` (f32 pools)."""
-    log("[32/37] path 10: path 1's GPT behind a GatewayServer, served by 3 "
+    log("[32/39] path 10: path 1's GPT (4 layers) behind a GatewayServer, "
+        "served by 3 "
         "replica processes on the card: parity, tokens/s, kill -9, "
         "a partition, a rolling reload, a graceful stop")
     path10 = phase_wire_pool(torch, M, pa, card)
-    log("[33/37] the wire on the card: a torn stream resumed, a claim, a "
+    log("[33/39] the wire on the card: a torn stream resumed, a claim, a "
         "retried fit, a journal replay after a restart")
     return {"path 10": path10,
             "phase 33": {"paged": phase_wire(torch, M, pa, card),
@@ -8358,11 +8416,11 @@ def phase_word2vec_parity(torch, M):
 
 def phases_34_35(torch, M, card):
     """Phases 34 and 35; path 11's figures."""
-    log("[34/37] path 11: Word2Vec skip-gram NS at bench_word2vec_50k's "
+    log("[34/39] path 11: Word2Vec skip-gram NS at bench_word2vec_50k's "
         "shape (V=50,000, 2,000,000 words, D=128, B=16384, 32 batches a "
         "flush) on the card")
     figures = phase_word2vec(torch, M, card)
-    log("[35/37] the NLP steps and host-drawn fits, card against CPU and "
+    log("[35/39] the NLP steps and host-drawn fits, card against CPU and "
         "numpy (TF32 off)")
     phase_word2vec_parity(torch, M)
     return figures
@@ -8907,11 +8965,11 @@ def phase_embed_parity(torch, M):
 
 def phases_36_37(torch, M, card):
     """Phases 36 and 37; path 12's figures."""
-    log("[36/37] path 12: a planted graph with BlogCatalog's counts, "
+    log("[36/39] path 12: a planted graph with BlogCatalog's counts, "
         "DeepWalk (d=128, w=10, t=40, 2 walks a vertex), k-means (K=39) "
         "and exact t-SNE of its vectors on the card, the training UI")
     figures = phase_embed(torch, M, card)
-    log("[37/37] path 12's device parts, card against CPU and numpy (TF32 "
+    log("[37/39] path 12's device parts, card against CPU and numpy (TF32 "
         "off), the TF32 guard, a hierarchical-softmax DeepWalk fit")
     phase_embed_parity(torch, M)
     return figures
@@ -8926,6 +8984,840 @@ def phases_36_37_alone(torch, M) -> int:
     figures = phases_36_37(torch, M, card)
     log(f"phases 36-37 {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"card": card, "path 12": figures}), flush=True)
+    return 0
+
+
+# ------------------------------------ phases 38-39: path 13, data parallel
+# path 13a: ParallelWrapper over the default one-card mesh trains the GPT
+# at bench_gpt_long's width (bench.py:563-568), depth cut 8 -> 2 layers
+# for time, through a DevicePrefetchIterator; 13b: the prefetcher at path
+# 4e's shape (lstm_large, f32 one-hot batches from pageable memory);
+# 13c-13f: bench_lstm's char-RNN (bench.py:393-404: vocab 64, H=256,
+# T=64, B=8192, bf16) under the averaging master (4 workers, 5 batches a
+# window), the parameter server, FaultTolerantTrainer and the CLI
+PAR_GPT = dict(TRAIN, n_layers=2)
+PAR_GPT_STEPS = 5
+PAR_GPT_LR = 3e-4          # gpt_configuration's Adam learning rate
+PAR_4E_STEPS = 6           # 13b: steps timed with and without the prefetcher
+PAR_LAG_CYCLES = 120_000_000  # 13b's lagging copy stream: ~60 ms a batch
+PAR_LSTM = dict(vocab=64, hidden=256, B=8192, T=64, workers=4, freq=5)
+PAR_LSTM_WINDOWS = 1       # full windows of workers x freq batches
+PAR_LSTM_TAIL = 3          # then a tail window: two full batches, one half
+# RMSPROP parity (ROADMAP queue C's caveat): lr / 1000
+PAR_RMSPROP_ATOL = 1e-4
+PAR_PS_BATCHES = 8         # 13d: batches through the in-process PS wrapper
+PAR_STRAGGLER = dict(delay=6.0, timeout=4.0)  # seconds; a shard ~1.4 s
+PAR_CLI_BATCHES = 10       # 13f: the CLI's data factory, B=512
+PAR_DEV = "cuda"           # the device path 13 runs on
+
+
+def par_device_args():
+    """The worker processes' and the CLI's device flag: none for the card
+    (their default)."""
+    return [] if PAR_DEV == "cuda" else ["--device", PAR_DEV]
+
+
+def par_lstm_batches(np, n_full, tail, seed, B=None, half_last=True):
+    """bench_lstm's char-RNN batches: f32 one-hot (B, T, 64) features
+    from pageable host memory, int32 next-char labels; `n_full` batches,
+    then `tail` more, the last of them half as wide."""
+    V, T = PAR_LSTM["vocab"], PAR_LSTM["T"]
+    B = B or PAR_LSTM["B"]
+    eye = np.eye(V, dtype=np.float32)
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n_full + tail):
+        b = B // 2 if (half_last and tail and i == n_full + tail - 1) else B
+        ids = rng.integers(0, V, (b, T + 1))
+        out.append((eye[ids[:, :-1]], ids[:, 1:].astype(np.int32)))
+    return out
+
+
+def par13_cli_iterator():
+    """Path 13f's data factory (`--data-factory chip_smoke:par13_cli_iterator`):
+    bench_lstm's char-RNN batches at B=512."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterators import (
+        ListDataSetIterator,
+    )
+
+    return ListDataSetIterator([DataSet(x, y) for x, y in par_lstm_batches(
+        np, PAR_CLI_BATCHES, 0, seed=31, B=512)])
+
+
+def flat_diff(torch, a, b) -> float:
+    return (a.params() - b.params()).abs().max().item()
+
+
+def par_13a(torch, M, card):
+    """13a: ParallelWrapper(net) over the default mesh (one card) trains
+    the 2-layer bf16 GPT 5 steps through a DevicePrefetchIterator; the
+    flash kernels' launches are read around the wrapper's fit alone; its
+    losses and parameters are held against `net.fit` of a clone on the
+    same card over the same batches."""
+    import numpy as np
+
+    P, fa = M["parallel"], M["fa"]
+    conf = M["gpt_configuration"](**PAR_GPT, seed=17,
+                                  learning_rate=PAR_GPT_LR)
+    net = M["MultiLayerNetwork"](conf, dtype=torch.float32,
+                                 compute_dtype=torch.bfloat16, device=PAR_DEV)
+    net.init()
+    batches = [M["DataSet"](x, y) for x, y in gpt_batches(
+        np, PAR_GPT["vocab_size"], TRAIN_B, TRAIN_T, PAR_GPT_STEPS + 1,
+        seed=17)]
+    net.fit(batches[0])  # warm-up: cuBLAS handles, the allocator
+    ref = net.clone()
+    mesh = P.make_mesh()
+    pw = P.ParallelWrapper(net)
+    rec = StepRecorder(())
+    net.set_listeners(rec)
+    it = M["device_prefetch"].DevicePrefetchIterator(
+        M["ListDataSetIterator"](batches[1:]), depth=2, device=PAR_DEV)
+    torch.cuda.synchronize()
+    fa.reset_counts()
+    t0 = time.perf_counter()
+    pw.fit(it)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"fwd": fa.flash_forward.launches,
+              "dq": fa.flash_bwd_dq.launches,
+              "dkv": fa.flash_bwd_dkv.launches}
+    routes = dict(fa.launches_by_route)
+    plain = (fa.flash_attention_plain_fwd.calls,
+             fa.flash_attention_plain_bwd.calls)
+    ref_scores = []
+    for ds in batches[1:]:
+        ref.fit(ds)
+        ref_scores.append(ref.score_value)
+    d = flat_diff(torch, net, ref)
+    same = d == 0.0 and rec.scores == ref_scores
+    lr = PAR_GPT_LR
+    log(f"  13a: ParallelWrapper over {mesh} ({mesh.size} slot) trained "
+        f"{PAR_GPT['n_layers']} layers of bench_gpt_long's GPT (d_model "
+        f"{PAR_GPT['d_model']}, {PAR_GPT['n_heads']} heads, B={TRAIN_B} x "
+        f"T={TRAIN_T}, bf16 over f32) {PAR_GPT_STEPS} steps through the "
+        f"device prefetcher ({it.staged} arrays staged) in {1e3 * wall:.1f} "
+        f"ms ({1e3 * wall / PAR_GPT_STEPS:.2f} ms a step) [{card}]")
+    log(f"      losses {rec.scores}; net.fit of a clone {ref_scores}; max "
+        f"param diff {d:.3e} (bit-identical: {same}); flash launches "
+        f"{counts}, by route {routes}, plain calls {plain}")
+    want = PAR_GPT["n_layers"] * PAR_GPT_STEPS
+    if routes != {(k, "wgmma"): want for k in counts} or any(plain):
+        raise AssertionError(f"13a: expected {want} launches of each flash "
+                             f"kernel on the wgmma route under "
+                             f"ParallelWrapper, got {routes}, {plain}")
+    # the same kernels, inputs and order: the runs agree to rounding; Adam
+    # moves an element whose gradient is noise by up to lr a step, hence
+    # the parameters' bound (phase 6's reasoning)
+    if not np.allclose(rec.scores, ref_scores, rtol=1e-5, atol=0) \
+            or d > PAR_GPT_STEPS * lr or net.iteration != ref.iteration:
+        raise AssertionError(f"13a: wrapper losses {rec.scores} vs "
+                             f"{ref_scores} (rtol 1e-5), params {d} (atol "
+                             f"{PAR_GPT_STEPS * lr})")
+    del net, ref, pw, it
+    torch.cuda.empty_cache()
+    return {"counts": counts, "step_ms": 1e3 * wall / PAR_GPT_STEPS,
+            "bit_identical": same}
+
+
+class LaggingCopies:
+    """A DataSetIterator over `batches` that queues a GPU sleep on the
+    prefetcher's copy stream before each batch is staged, so the copies
+    lag the host: a pinned buffer refilled before its copy completes
+    would show in the staged batch."""
+
+    def __init__(self, torch, M, batches, cycles):
+        self._torch, self.it = torch, None
+        self._inner = M["ListDataSetIterator"](batches)
+        self._cycles = cycles
+
+    def __iter__(self):
+        self._inner.reset()
+        return self
+
+    def __next__(self):
+        if not self._inner.has_next():
+            raise StopIteration
+        with self._torch.cuda.stream(self.it.copy_stream):
+            self._torch.cuda._sleep(self._cycles)
+        return self._inner.next()
+
+    def reset(self):
+        self._inner.reset()
+
+    def batch(self):
+        return self._inner.batch()
+
+    @property
+    def async_supported(self):
+        return False
+
+
+def par_13b(torch, M, card):
+    """13b: the prefetcher at path 4e's shape (bench_lstm_large's
+    char-RNN, bf16 over f32, f32 one-hot (2048, 64, 256) batches from
+    pageable memory): step ms and the device's idle share with path 4e's
+    `AsyncDataSetIterator` and with `DevicePrefetchIterator`; then every
+    staged batch against its host batch, bit for bit, behind a copy stream
+    that lags the host."""
+    import numpy as np
+
+    L, DP = M["lstm"], M["device_prefetch"]
+    V, H, B, T = (LSTM_LARGE[k] for k in ("vocab", "hidden", "B", "T"))
+    net = M["MultiLayerNetwork"](char_rnn_conf(M, V, H, seed=1),
+                                 dtype=torch.float32,
+                                 compute_dtype=torch.bfloat16, device=PAR_DEV)
+    net.init()
+    data = [M["DataSet"](x, y) for x, y in one_hot_batches(
+        np, V, B, T, PAR_4E_STEPS + 1, seed=23)]
+    net.fit(data[0])
+    runs = {}
+    for name, make in (
+            ("async (path 4e's)", lambda: M["AsyncDataSetIterator"](
+                M["ListDataSetIterator"](data[1:]), queue_size=2)),
+            ("device prefetch", lambda: DP.DevicePrefetchIterator(
+                M["ListDataSetIterator"](data[1:]), depth=2,
+                device=PAR_DEV))):
+        torch.cuda.synchronize()
+        L.reset_counts()
+        t0 = time.perf_counter()
+        net.fit(make())
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / PAR_4E_STEPS
+        launches = dict(L.launches)
+        trace = traced(torch, lambda: net.fit(make()))
+        runs[name] = {"step_ms": ms, "launches": launches, "trace": trace}
+        log(f"  13b: {PAR_4E_STEPS} steps of lstm_large (B={B} x T={T}, "
+            f"vocab {V}, H={H}, f32 one-hot batches of "
+            f"{data[1].features.nbytes / 2**20:.0f} MiB from pageable "
+            f"memory) through the {name} iterator: {ms:.2f} ms a step; "
+            f"LSTM launches {launches} [{card}]")
+        log(f"      traced pass (torch.profiler): {trace}")
+    n = 2 * PAR_4E_STEPS
+    if runs["device prefetch"]["launches"] != {("fwd", False, False): n,
+                                               ("bwd", False, False): n}:
+        raise AssertionError(f"13b: expected {n} + {n} LSTM launches through "
+                             f"the prefetcher, got {runs}")
+    # the race check: copies lag the host by ~60 ms a batch
+    lag = LaggingCopies(torch, M, data, PAR_LAG_CYCLES)
+    it = DP.DevicePrefetchIterator(lag, depth=2, device=PAR_DEV)
+    lag.it = it
+    staged = [(torch.as_tensor(ds.features).clone(),
+               torch.as_tensor(ds.labels).clone()) for ds in it]
+    torch.cuda.synchronize()
+    equal = [torch.equal(f, torch.from_numpy(d.features).to(PAR_DEV))
+             and torch.equal(l, torch.from_numpy(d.labels).to(PAR_DEV))
+             for (f, l), d in zip(staged, data)]
+    log(f"  13b: {len(staged)} batches staged behind a lagging copy stream "
+        f"(~{PAR_LAG_CYCLES / 2e9 * 1e3:.0f} ms of GPU sleep before each "
+        f"copy): bit-identical to the host batches {equal}")
+    if len(staged) != len(data) or not all(equal):
+        raise AssertionError(f"13b: a staged batch differs from its host "
+                             f"batch: {equal}")
+    del net, staged, it
+    torch.cuda.empty_cache()
+    return {k: {"step_ms": v["step_ms"], "trace": v["trace"]}
+            for k, v in runs.items()}, runs["device prefetch"]["launches"]
+
+
+class LaunchesByWorker:
+    """Attributes each LSTM kernel launch to the worker whose shard thread
+    made it (`training_master.current_worker_id()`), by wrapping the
+    module's launch-count helper for the length of a `with` block; the
+    counts themselves are the module's."""
+
+    def __init__(self, L, tm):
+        self.L, self.tm = L, tm
+        self.by = {}
+
+    def __enter__(self):
+        import threading
+
+        lock, orig = threading.Lock(), self.L._count
+
+        def spy(kind, masked, reverse, route):
+            key = (self.tm.current_worker_id(), kind)
+            with lock:
+                self.by[key] = self.by.get(key, 0) + 1
+            orig(kind, masked, reverse, route)
+
+        self._orig = orig
+        self.L._count = spy
+        return self.by
+
+    def __exit__(self, *exc):
+        self.L._count = self._orig
+        return False
+
+
+def par_lstm_net(torch, M, seed=3):
+    V, H = PAR_LSTM["vocab"], PAR_LSTM["hidden"]
+    net = M["MultiLayerNetwork"](char_rnn_conf(M, V, H, seed=seed),
+                                 dtype=torch.float32,
+                                 compute_dtype=torch.bfloat16, device=PAR_DEV)
+    net.init()
+    return net
+
+
+def par_sequential_reference(np, tm, start, windows):
+    """The master's arithmetic done by hand: each window's batches dealt
+    round robin to the workers, each shard fit one after another on a
+    clone of the window's starting network, the flat parameters and
+    updater states averaged example-weighted in f64."""
+    net = start.clone()
+    for batches in windows:
+        n_w = min(PAR_LSTM["workers"], len(batches))
+        shards = [batches[i::n_w] for i in range(n_w)]
+        params, upd, w = [], [], []
+        for shard in shards:
+            rep = net.clone()
+            for ds in shard:
+                rep.fit(ds)
+            params.append(rep.params().detach().cpu().numpy())
+            upd.append(tm._flat_updater_state(rep))
+            w.append(sum(ds.num_examples() for ds in shard))
+        net.set_params(np.average(params, axis=0, weights=w))
+        tm._set_updater_state_flat(net, np.average(upd, axis=0, weights=w))
+        net.iteration += max(len(s) for s in shards)
+    return net
+
+
+def par_13c(torch, M, card, lstm_counts):
+    """13c: DistributedMultiLayer with ParameterAveragingTrainingMaster(4
+    workers, 5 batches a window) trains bench_lstm's char-RNN: the
+    replicas on the card in 4 threads, every worker's LSTM launches
+    counted; the averaged result against the same shards run one after
+    another; a worker crash and a NaN-gradient worker (nothing
+    non-finite averaged in, the re-runs counted); a straggler whose
+    abandoned replica releases its device memory; the window's wall
+    against one network fitting the same batches."""
+    import numpy as np
+
+    P, tm, L = M["parallel"], M["training_master"], M["lstm"]
+    W, F = PAR_LSTM["workers"], PAR_LSTM["freq"]
+    arrays = par_lstm_batches(np, PAR_LSTM_WINDOWS * W * F, PAR_LSTM_TAIL,
+                              seed=29)
+    batches = [M["DataSet"](x, y) for x, y in arrays]
+    start = par_lstm_net(torch, M)
+    start.fit(batches[-1])  # warm-up: handles, allocator at this shape
+    start.iteration, start.epoch = 0, 0
+    windows = [batches[i:i + W * F] for i in range(0, len(batches), W * F)]
+
+    def master_run(injector=None, **kw):
+        net = start.clone()
+        worker = P.ParameterAveragingTrainingWorker(net)
+        if injector is not None:
+            worker.add_hook(injector)
+        master = P.ParameterAveragingTrainingMaster(
+            num_workers=W, averaging_frequency=F, worker=worker,
+            collect_training_stats=True, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        P.DistributedMultiLayer(net, master).fit(
+            M["ListDataSetIterator"](batches))
+        torch.cuda.synchronize()
+        return net, master, time.perf_counter() - t0
+
+    L.reset_counts()
+    with LaunchesByWorker(L, tm) as by_worker:
+        net, master, wall = master_run()
+    launches = dict(L.launches)
+    for k, v in launches.items():
+        lstm_counts[k] = lstm_counts.get(k, 0) + v
+    stats = master.get_training_stats()
+    fits = sum(len(w) for w in windows)
+    want = {("fwd", False, False): 2 * fits, ("bwd", False, False): 2 * fits}
+    log(f"  13c: the averaging master, {W} workers x {F} batches a window "
+        f"({len(windows)} windows, the tail's last batch of "
+        f"{batches[-1].num_examples()}), bench_lstm's char-RNN (vocab "
+        f"{PAR_LSTM['vocab']}, H={PAR_LSTM['hidden']}, B={PAR_LSTM['B']} x "
+        f"T={PAR_LSTM['T']}, bf16, RMSPROP): {1e3 * wall:.1f} ms, score "
+        f"{net.score_value:.6f}; LSTM launches {launches}, by worker "
+        f"thread {by_worker} (None: autograd's device thread, which runs "
+        f"every worker's backward); phases {dict((k, round(stats.total_ms(k), 1)) for k in stats.get_keys())} ms [{card}]")
+    # each worker's forward launches: 2 layers x the batches it was
+    # dealt (round robin within each window); the backward launches run
+    # on autograd's device thread, which serves every worker (None)
+    dealt = {w: 0 for w in range(W)}
+    for win in windows:
+        for i in range(len(win)):
+            dealt[i % min(W, len(win))] += 1
+    per_worker = {w: by_worker.get((w, "fwd"), 0) for w in range(W)}
+    if launches != want or per_worker != {w: 2 * n for w, n in dealt.items()}:
+        raise AssertionError(f"13c: expected {want} LSTM launches, "
+                             f"forwards from every worker thread ({dealt} "
+                             f"batches dealt); got {launches}, {by_worker}")
+    ref = par_sequential_reference(np, tm, start, windows)
+    d = flat_diff(torch, net, ref)
+    log(f"  13c: the same shards one after another on the card, averaged "
+        f"example-weighted: max param diff {d:.3e} (atol "
+        f"{PAR_RMSPROP_ATOL}; bit-identical: {d == 0.0})")
+    if d > PAR_RMSPROP_ATOL or net.iteration != ref.iteration:
+        raise AssertionError(f"13c: averaged params differ from the "
+                             f"sequential shards by {d}")
+    # one network over the same batches, for the wall
+    one = start.clone()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one.fit(M["ListDataSetIterator"](batches))
+    torch.cuda.synchronize()
+    one_wall = time.perf_counter() - t0
+    log(f"  13c: one network fitting the same {fits} batches: "
+        f"{1e3 * one_wall:.1f} ms (the master's windows "
+        f"{wall / one_wall:.2f}x that)")
+    drills = {}
+    for name, inj in (("crash", P.WorkerCrashInjector(worker_id=2)),
+                      ("nan", P.NaNGradientInjector(worker_id=1))):
+        got, m, _ = master_run(inj)
+        st = m.get_training_stats()
+        dd = flat_diff(torch, got, net)
+        finite = bool(torch.isfinite(got.params()).all())
+        drills[name] = st.get_counters()
+        log(f"  13c drill {name}: fired {inj.fired}, counters "
+            f"{st.get_counters()}, params finite {finite}, max diff from "
+            f"the healthy run {dd:.3e}")
+        if inj.fired != 1 or not finite or dd > PAR_RMSPROP_ATOL \
+                or st.get_count("worker_retries") != 1 \
+                or (name == "nan" and st.get_count("nonfinite_results") != 1):
+            raise AssertionError(f"13c drill {name}: {st.get_counters()}, "
+                                 f"finite {finite}, diff {dd}")
+    # a straggler: its shard times out and re-dispatches; its abandoned
+    # thread fits one more minibatch, then lets its replica go
+    del ref, one
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    slow = TrackedSlowWorker(P, worker_id=3, delay=PAR_STRAGGLER["delay"])
+    got, m, swall = master_run(slow, worker_timeout=PAR_STRAGGLER["timeout"])
+    held = torch.cuda.memory_allocated() - base
+    t0 = time.perf_counter()
+    slow.thread.join(60.0)  # its one more minibatch, then it bails out
+    gc.collect()
+    torch.cuda.synchronize()
+    released = torch.cuda.memory_allocated() - base
+    st = m.get_training_stats()
+    dd = flat_diff(torch, got, net)
+    log(f"  13c drill straggler (delay {PAR_STRAGGLER['delay']} s, timeout "
+        f"{PAR_STRAGGLER['timeout']} s): {1e3 * swall:.0f} ms, counters "
+        f"{st.get_counters()}; device memory above the start when fit "
+        f"returned {held / 2**20:.1f} MiB, {released / 2**20:.1f} MiB after "
+        f"{time.perf_counter() - t0:.2f} s (the new network's own "
+        f"{got_bytes(got) / 2**20:.1f} MiB); max diff from the healthy run "
+        f"{dd:.3e}")
+    if st.get_count("worker_timeouts") < 1 or released > got_bytes(got) \
+            or dd > PAR_RMSPROP_ATOL:
+        raise AssertionError(f"13c straggler: {st.get_counters()}, memory "
+                             f"{released} bytes above the start, diff {dd}")
+    drills["straggler"] = st.get_counters()
+    del got
+    return {"wall_ms": 1e3 * wall, "one_net_ms": 1e3 * one_wall,
+            "launches_by_worker": {str(k): v for k, v in by_worker.items()},
+            "drills": drills}, net, start, batches
+
+
+def TrackedSlowWorker(P, **kw):
+    """A `SlowWorkerInjector` that keeps the thread it delayed, so the
+    caller can wait for that abandoned shard thread to end."""
+    import threading
+
+    class Tracked(P.SlowWorkerInjector):
+        thread = None
+
+        def pre_update(self, ds, net):
+            if self.remaining > 0 and (P.current_worker_id()
+                                       == self.worker_id):
+                self.thread = threading.current_thread()
+            super().pre_update(ds, net)
+
+    return Tracked(**kw)
+
+
+def got_bytes(net) -> int:
+    """Device bytes of a network's parameters and optimizer state."""
+    n = sum(t.numel() * t.element_size() for p in net._params
+            for t in p.values())
+    n += sum(t.numel() * t.element_size() for u in net.get_updater_state()
+             for st in u.values() for t in st.values())
+    return n
+
+
+def par_13d(torch, M, card, start, batches, lstm_counts):
+    """13d: ParameterServerParallelWrapper(workers=2) on the card against
+    a NetworkParameterServer over TCP (every push counted, the net ends on
+    the server's params, a duplicate idempotent push dropped); then 2
+    worker processes on the card push the fixture's deltas over TCP, one
+    after the other, and the server's params equal the in-process store
+    fed the same sequences."""
+    import numpy as np
+
+    PS, MP, L = M["parameter_server"], M["multiprocess"], M["lstm"]
+    net = start.clone()
+    srv = PS.NetworkParameterServer(net.params())
+    try:
+        client = PS.RemoteParameterServerClient(*srv.address, timeout=60.0)
+        L.reset_counts()
+        t0 = time.perf_counter()
+        PS.ParameterServerParallelWrapper(net, workers=2, sync_frequency=1,
+                                          server=client).fit(
+            M["ListDataSetIterator"](batches[:PAR_PS_BATCHES]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(L.launches)
+        for k, v in launches.items():
+            lstm_counts[k] = lstm_counts.get(k, 0) + v
+        pushes = srv.num_pushes
+        equal = np.array_equal(net.params().cpu().numpy(), srv.pull())
+        rid = "5e" * 16
+        delta = np.full(srv.pull().shape, 0.25, np.float32)
+        before = srv.pull()
+        client.push_update(delta, request_id=rid)
+        client.push_update(delta, request_id=rid)  # a retried push
+        dup_ok = srv.num_pushes == pushes + 1 and np.array_equal(
+            srv.pull(), (before + delta).astype(np.float32))
+        client.close()
+    finally:
+        srv.close()
+    log(f"  13d: ParameterServerParallelWrapper(workers=2) over TCP, "
+        f"{PAR_PS_BATCHES} batches of B={PAR_LSTM['B']}: {1e3 * wall:.1f} "
+        f"ms, {pushes} pushes, the net equals the server's params {equal}, "
+        f"a duplicate V push dropped {dup_ok}; LSTM launches {launches} "
+        f"[{card}]")
+    n = 2 * PAR_PS_BATCHES
+    if pushes != PAR_PS_BATCHES or not equal or not dup_ok \
+            or launches != {("fwd", False, False): n,
+                            ("bwd", False, False): n}:
+        raise AssertionError(f"13d: pushes {pushes}, equal {equal}, "
+                             f"duplicate dropped {dup_ok}, {launches}")
+    # 2 worker processes on the card
+    fix = MP._parity_fixture_net(PAR_DEV)
+    init = fix.params().cpu().numpy()
+    srv = PS.NetworkParameterServer(init)
+    try:
+        env = dict(os.environ)
+        t0 = time.perf_counter()
+        logs = []
+        for w in range(2):
+            cmd = [sys.executable, "-m",
+                   "deeplearning4j_tpu_torch.parallel.parameter_server",
+                   "localhost", str(srv.address[1]), str(w), "2", "1",
+                   "train"] + par_device_args()
+            procs, lg = MP.run_workers([cmd], env, timeout=300)
+            if procs[0].returncode != 0:
+                raise AssertionError(f"13d worker {w} failed: "
+                                     f"{(lg[0] or '')[-2000:]}")
+            logs += lg
+        proc_wall = time.perf_counter() - t0
+        tcp, proc_pushes = srv.pull(), srv.num_pushes
+    finally:
+        srv.close()
+    store = PS.ParameterServer(init)
+    feats, labels = MP._parity_fixture_data()
+    for w in range(2):
+        PS.run_worker_protocol(
+            store, MP._parity_fixture_net(PAR_DEV),
+            [M["DataSet"](feats[i], labels[i])
+             for i in range(feats.shape[0]) if i % 2 == w], 1)
+    d = float(np.abs(tcp - store.pull()).max())
+    on_card = all(f"device={PAR_DEV}" in lg for lg in logs)
+    log(f"  13d: 2 worker processes on the card ({on_card}) pushed "
+        f"{proc_pushes} deltas over TCP in {proc_wall:.1f} s; the server's "
+        f"params against the in-process store fed the same sequences: max "
+        f"diff {d:.3e} (rtol 1e-6, atol 1e-7)")
+    if proc_pushes != 6 or not on_card or not np.allclose(
+            tcp, store.pull(), rtol=1e-6, atol=1e-7):
+        raise AssertionError(f"13d processes: pushes {proc_pushes}, on the "
+                             f"card {on_card}, diff {d}")
+    return {"wall_ms": 1e3 * wall, "pushes": pushes,
+            "process_pushes": proc_pushes, "process_diff": d}
+
+
+def par_13e(torch, M, card, start, batches, lstm_counts):
+    """13e: FaultTolerantTrainer over 13c's handle (the master on the
+    card) with a FaultInjectionListener crash after the first window: it
+    restores the newest verified checkpoint and finishes."""
+    import tempfile
+
+    P, L = M["parallel"], M["lstm"]
+    net = start.clone()
+    master = P.ParameterAveragingTrainingMaster(
+        num_workers=PAR_LSTM["workers"], averaging_frequency=PAR_LSTM["freq"],
+        collect_training_stats=True)
+    handle = P.DistributedMultiLayer(net, master)
+    first = PAR_LSTM["freq"] * PAR_LSTM_WINDOWS
+    fault = P.FaultInjectionListener(fail_at_iteration=first + 1)
+    net.set_listeners(fault)
+    tmp = tempfile.mkdtemp(prefix="path13e_")
+    try:
+        trainer = P.FaultTolerantTrainer(
+            handle, M["ListDataSetIterator"](batches),
+            checkpoint_dir=os.path.join(tmp, "ck"), checkpoint_every=1,
+            max_restarts=2)
+        L.reset_counts()
+        t0 = time.perf_counter()
+        trainer.fit(epochs=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(L.launches)
+        steps = trainer.checkpoint_store.steps()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for k, v in launches.items():
+        lstm_counts[k] = lstm_counts.get(k, 0) + v
+    finite = bool(torch.isfinite(net.params()).all())
+    log(f"  13e: FaultTolerantTrainer over the master, a crash at iteration "
+        f"{first + 1}: restarts {trainer.restarts}, master counters "
+        f"{master.get_training_stats().get_counters()}, iteration "
+        f"{net.iteration}, checkpoints {steps}, params finite {finite}, "
+        f"{1e3 * wall:.0f} ms; LSTM launches {launches} [{card}]")
+    if fault.fired != 1 or trainer.restarts != 1 or not finite \
+            or master.get_training_stats().get_count("restarts") != 1:
+        raise AssertionError(f"13e: fired {fault.fired}, restarts "
+                             f"{trainer.restarts}, finite {finite}")
+    return {"restarts": trainer.restarts, "wall_ms": 1e3 * wall,
+            "iteration": net.iteration}
+
+
+def par_13f(torch, M, card, start):
+    """13f: `python -m deeplearning4j_tpu_torch.parallel.main --mode
+    averaging` trains a saved zip on the card (its default device)."""
+    import tempfile
+
+    import numpy as np
+
+    tmp = tempfile.mkdtemp(prefix="path13f_")
+    try:
+        src, out = os.path.join(tmp, "in.zip"), os.path.join(tmp, "out.zip")
+        M["write_model"](start, src)
+        cmd = [sys.executable, "-m", "deeplearning4j_tpu_torch.parallel.main",
+               "--model-path", src, "--data-factory",
+               "chip_smoke:par13_cli_iterator", "--output-path", out,
+               "--mode", "averaging", "--workers", "4", "--avg-frequency",
+               "2"] + par_device_args()
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [os.path.dirname(os.path.abspath(__file__))]
+            + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+        t0 = time.perf_counter()
+        procs, logs = M["multiprocess"].run_workers([cmd], env, timeout=300)
+        wall = time.perf_counter() - t0
+        if procs[0].returncode != 0:
+            raise AssertionError(f"13f: the CLI failed: "
+                                 f"{(logs[0] or '')[-2000:]}")
+        back = M["restore_model"](out, device=PAR_DEV)
+        moved = float((back.params() - start.params()).abs().max())
+        finite = bool(torch.isfinite(back.params()).all())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"  13f: the CLI (--mode averaging, 4 workers, on the card) trained "
+        f"the saved zip over {PAR_CLI_BATCHES} batches in {wall:.1f} s (the "
+        f"process included): params moved by up to {moved:.3e}, finite "
+        f"{finite}, iteration {back.iteration} [{card}]")
+    if not finite or not moved > 0 or back.iteration <= start.iteration:
+        raise AssertionError(f"13f: moved {moved}, finite {finite}, "
+                             f"iteration {back.iteration}")
+    return {"wall_s": wall}
+
+
+def phase_parallel(torch, M, card):
+    """Phase 38, path 13 (13a-13f). Returns (figures, launch counts by
+    kernel row)."""
+    figures, rows = {}, {}
+    r = par_13a(torch, M, card)
+    figures["13a"] = {k: v for k, v in r.items() if k != "counts"}
+    rows["flash"] = r["counts"]
+    figures["13b"], rows["4e"] = par_13b(torch, M, card)
+    rows["13c"] = {}
+    figures["13c"], net, start, batches = par_13c(torch, M, card,
+                                                  rows["13c"])
+    del net
+    figures["13d"] = par_13d(torch, M, card, start, batches, rows["13c"])
+    figures["13e"] = par_13e(torch, M, card, start, batches, rows["13c"])
+    figures["13f"] = par_13f(torch, M, card, start)
+    del start, batches
+    torch.cuda.empty_cache()
+    return figures, rows
+
+
+def par_card_cpu_pair(torch, M, make_conf, graph=False):
+    """The same network on the card and on the CPU, from one set of
+    weights (the CPU's)."""
+    cls = M["ComputationGraph"] if graph else M["MultiLayerNetwork"]
+    cpu = cls(make_conf(), device="cpu")
+    cpu.init()
+    card = cls(make_conf(), device=PAR_DEV)
+    card.init()
+    card.set_params(cpu.params())
+    card.set_layer_state(cpu._layer_state)
+    return card, cpu
+
+
+def phase_parallel_parity(torch, M):
+    """Phase 39: the wrapper's global view and its bookkeeping on the
+    card, over an 8-slot mesh of the one card, against the CPU (TF32 off;
+    f32): a batch of 61 trimmed to 56 (equal to `net.fit` on the first 56
+    rows); a BatchNormalization net (the whole batch's statistics, card
+    against CPU within 1e-5, a per-slot average far off); a masked tBPTT
+    char-RNN whose carries are restored after the windows (its output
+    equals `net.fit`'s network's); and the averaging master on the parity
+    fixture, card against CPU."""
+    import numpy as np
+
+    P, C, A, LF = M["parallel"], M["conf"], M["Activation"], M["LossFunction"]
+    DS, tol = M["DataSet"], 1e-5
+    card8 = P.make_mesh({"data": 8}, devices=[torch.device(PAR_DEV)] * 8)
+    cpu8 = P.make_mesh({"data": 8}, devices=[torch.device("cpu")] * 8)
+    rng = np.random.default_rng(39)
+    # the trim
+    X = rng.normal(size=(61, 6)).astype(np.float32)
+    Y = np.eye(3, dtype=np.float32)[rng.integers(0, 3, 61)]
+    net = M["multiprocess"]._parity_fixture_net(PAR_DEV)
+    ref = net.clone()
+    P.ParallelWrapper(net, mesh=card8).fit(DS(X, Y))
+    ref.fit(DS(X[:56], Y[:56]))
+    d_trim = flat_diff(torch, net, ref)
+    log(f"  trim: a batch of 61 over 8 slots trains as its first 56 rows: "
+        f"max diff {d_trim:.3e} (atol 1e-6)")
+    if d_trim > 1e-6:
+        raise AssertionError(f"the wrapper's trim: {d_trim}")
+
+    # BatchNormalization: the whole batch's statistics
+    def bn_conf():
+        return (C.NeuralNetConfiguration.Builder().seed(5).learning_rate(0.1)
+                .updater("sgd").activation(A.TANH).list()
+                .layer(C.DenseLayer(n_out=64))
+                .layer(C.BatchNormalization())
+                .layer(C.OutputLayer(n_out=3, loss=LF.MCXENT,
+                                     activation=A.SOFTMAX))
+                .set_input_type(C.InputType.feed_forward(6)).build())
+
+    Xb = rng.normal(size=(64, 6)).astype(np.float32)
+    Xb[:32] += 3.0
+    Yb = np.eye(3, dtype=np.float32)[rng.integers(0, 3, 64)]
+    card, cpu = par_card_cpu_pair(torch, M, bn_conf)
+    start = card.clone()
+    P.ParallelWrapper(card, mesh=card8).fit(DS(Xb, Yb))
+    P.ParallelWrapper(cpu, mesh=cpu8).fit(DS(Xb, Yb))
+    d_bn = float((card.params().cpu() - cpu.params()).abs().max())
+    flats = []
+    for s in range(8):
+        rep = start.clone()
+        rep.fit(DS(Xb[8 * s:8 * s + 8], Yb[8 * s:8 * s + 8]))
+        flats.append(rep.params().cpu().numpy())
+    d_slot = float(np.abs(np.mean(flats, axis=0)
+                          - card.params().cpu().numpy()).max())
+    log(f"  BatchNormalization over 8 slots: card vs CPU max diff "
+        f"{d_bn:.3e} (atol {tol}); a per-slot average would differ by "
+        f"{d_slot:.3e}")
+    if d_bn > tol or d_slot < 100 * tol:
+        raise AssertionError(f"BN global view: {d_bn}, per-slot {d_slot}")
+
+    # masked tBPTT: the carries restored after the windows
+    Xr = rng.normal(size=(16, 10, 5)).astype(np.float32)
+    Yr = np.eye(4, dtype=np.float32)[rng.integers(0, 4, (16, 10))]
+    mask = np.ones((16, 10), np.float32)
+    mask[3, 7:] = 0
+    mask[:2, 2:] = 0
+
+    def tbptt_conf():
+        return (C.NeuralNetConfiguration.Builder().seed(31).learning_rate(0.1)
+                .list()
+                .layer(C.GravesLSTM(n_out=8, activation=A.TANH))
+                .layer(C.RnnOutputLayer(n_out=4, loss=LF.MCXENT,
+                                        activation=A.SOFTMAX))
+                .set_input_type(C.InputType.recurrent(5))
+                .t_bptt_forward_length(4).t_bptt_backward_length(4).build())
+
+    card, cpu = par_card_cpu_pair(torch, M, tbptt_conf)
+    ref = card.clone()
+    P.ParallelWrapper(card, mesh=card8).fit(DS(Xr, Yr, mask, mask))
+    P.ParallelWrapper(cpu, mesh=cpu8).fit(DS(Xr, Yr, mask, mask))
+    ref.fit(DS(Xr, Yr, mask, mask))
+    d_t = flat_diff(torch, card, ref)
+    d_out = float((card.output(Xr) - ref.output(Xr)).abs().max())
+    d_cpu = float((card.params().cpu() - cpu.params()).abs().max())
+    carried = "h" in card._layer_state[0]
+    log(f"  masked tBPTT over 8 slots: against net.fit params {d_t:.3e}, "
+        f"output {d_out:.3e}; card vs CPU {d_cpu:.3e} (atol {tol}); a carry "
+        f"left in the layer state: {carried}")
+    if d_t > 1e-6 or d_out > 1e-6 or d_cpu > tol or carried:
+        raise AssertionError(f"tBPTT under the wrapper: {d_t}, {d_out}, "
+                             f"{d_cpu}, carried {carried}")
+
+    # the averaging master, card against CPU
+    feats, labels = M["multiprocess"]._parity_fixture_data()
+    data = [DS(feats[i], labels[i]) for i in range(feats.shape[0])]
+    nets = {}
+    for where, dev in (("card", PAR_DEV), ("cpu", "cpu")):
+        n = M["multiprocess"]._parity_fixture_net(dev)
+        if where == "cpu":
+            n.set_params(nets["card"][1])
+        nets[where] = (n, n.params().detach().cpu().clone())
+        P.DistributedMultiLayer(n, P.ParameterAveragingTrainingMaster(
+            num_workers=2, averaging_frequency=2)).fit(
+            M["ListDataSetIterator"](data), epochs=2)
+    d_m = float((nets["card"][0].params().cpu()
+                 - nets["cpu"][0].params()).abs().max())
+    log(f"  the averaging master on the fixture, card vs CPU: max diff "
+        f"{d_m:.3e} (atol {tol})")
+    if d_m > tol:
+        raise AssertionError(f"the master card vs CPU: {d_m}")
+
+
+def par_launches(rows, counts) -> None:
+    """Path 13's launch counts into the timing rows at the shapes that
+    made them: 13a's flash launches into rows 2-4 at path 2's shape, 13b's
+    LSTM launches into rows 5-6 at path 4's, 13c-13e's into rows 5-6 at
+    bench_lstm's (T=64, B=8192, H=256)."""
+    adds = {"flash_attention_fwd": counts["flash"]["fwd"],
+            "flash_attention_bwd_dq": counts["flash"]["dq"],
+            "flash_attention_bwd_dkv": counts["flash"]["dkv"],
+            "lstm_fwd_t64_b2048_h1024": counts["4e"].get(
+                ("fwd", False, False), 0),
+            "lstm_bwd_t64_b2048_h1024": counts["4e"].get(
+                ("bwd", False, False), 0),
+            "lstm_fwd_t64_b8192_h256": counts["13c"].get(
+                ("fwd", False, False), 0),
+            "lstm_bwd_t64_b8192_h256": counts["13c"].get(
+                ("bwd", False, False), 0)}
+    for row in rows:
+        row["launches"] += int(adds.get(row["name"], 0))
+
+
+def phases_38_39(torch, M, card):
+    """Phases 38 and 39; path 13's figures and launch counts."""
+    log("[38/39] path 13: the data-parallel tier on the card (ParallelWrapper "
+        "and the device prefetcher on the GPT, the prefetcher at path 4e's "
+        "shape, the averaging master with its drills, the parameter server "
+        "over TCP, FaultTolerantTrainer, the CLI)")
+    t0 = time.perf_counter()
+    figures, counts = phase_parallel(torch, M, card)
+    log(f"  phase 38 {time.perf_counter() - t0:.1f} s")
+    log("[39/39] the wrapper's global view and bookkeeping over an 8-slot "
+        "mesh of the card, card against CPU (f32, TF32 off)")
+    t0 = time.perf_counter()
+    phase_parallel_parity(torch, M)
+    log(f"  phase 39 {time.perf_counter() - t0:.1f} s")
+    return figures, counts
+
+
+def phases_38_39_alone(torch, M, cuda_build) -> int:
+    """`--phases-38-39`: phases 38 and 39 alone (the flash and LSTM
+    sources built first), then one JSON line of path 13's figures and
+    launch counts."""
+    card = nvidia_smi_line()
+    t0 = time.perf_counter()
+    cuda_build.build(("flash_attention", "lstm"))
+    log(f"phases 38-39 alone [{card}]; build {time.perf_counter() - t0:.1f} "
+        "s")
+    t0 = time.perf_counter()
+    figures, counts = phases_38_39(torch, M, card)
+    log(f"phases 38-39 {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"card": card, "path 13": figures, "launches": {
+        k: {",".join(map(str, key)) if isinstance(key, tuple) else key: n
+            for key, n in v.items()} for k, v in counts.items()}}),
+        flush=True)
     return 0
 
 
@@ -9031,8 +9923,17 @@ def port_modules() -> dict:
     from deeplearning4j_tpu_torch import clustering, graph, ui
     from deeplearning4j_tpu_torch.clustering import kmeans, tsne
     from deeplearning4j_tpu_torch.ui import stats_listener
+    from deeplearning4j_tpu_torch import parallel
+    from deeplearning4j_tpu_torch.parallel import (
+        device_prefetch,
+        multiprocess,
+        parameter_server,
+        training_master,
+    )
 
-    return dict(graph=graph, clustering=clustering, kmeans=kmeans,
+    return dict(parallel=parallel, device_prefetch=device_prefetch,
+                multiprocess=multiprocess, parameter_server=parameter_server,
+                training_master=training_master, graph=graph, clustering=clustering, kmeans=kmeans,
                 tsne=tsne, ui=ui, stats_listener=stats_listener,
                 earlystopping=earlystopping, profiler=profiler,
                 gateway=gateway, remote_replica=remote_replica,
@@ -9104,7 +10005,8 @@ def main(argv) -> int:
     `--phases-24-26`: phases 24 to 26 alone. `--phases-27-29`: phases 27
     to 29 alone. `--phases-30-31`: phase 7 and phases 30 and 31 alone.
     `--phases-32-33`: phases 32 and 33 alone. `--phases-34-35`: phases 34
-    and 35 alone. `--phases-36-37`: phases 36 and 37 alone."""
+    and 35 alone. `--phases-36-37`: phases 36 and 37 alone.
+    `--phases-38-39`: phases 38 and 39 alone."""
     import torch
 
     if not torch.cuda.is_available():
@@ -9145,104 +10047,106 @@ def main(argv) -> int:
         return phases_34_35_alone(torch, M)
     if "--phases-36-37" in argv:
         return phases_36_37_alone(torch, M)
+    if "--phases-38-39" in argv:
+        return phases_38_39_alone(torch, M, cuda_build)
 
     card = nvidia_smi_line()
-    log(f"[1/37] card: {card}; {torch.cuda.get_device_name(0)}; torch "
+    log(f"[1/39] card: {card}; {torch.cuda.get_device_name(0)}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}; "
         f"{torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     built = cuda_build.build(KERNEL_SOURCES)
-    log(f"[2/37] build: {time.perf_counter() - t0:.1f} s for "
+    log(f"[2/39] build: {time.perf_counter() - t0:.1f} s for "
         f"{len(built)} source(s)")
     for name, res in built.items():
         for line in ptxas_summary(res.log):
             log(f"  {name}: {line}")
 
-    log("[3/37] paged kernels against their plain versions (TF32 off)")
+    log("[3/39] paged kernels against their plain versions (TF32 off)")
     phase_kernels(torch, pa)
-    log("[4/37] flash kernels against their plain versions (TF32 off)")
+    log("[4/39] flash kernels against their plain versions (TF32 off)")
     phase_flash(torch, fa)
-    log("[5/37] f32 DecodeEngine vs generate, 2 layers, d_model 1024")
+    log("[5/39] f32 DecodeEngine vs generate, 2 layers, d_model 1024")
     phase_parity(torch, M)
-    log("[6/37] f32 training, card (kernels) vs CPU (plain), 1 layer, "
+    log("[6/39] f32 training, card (kernels) vs CPU (plain), 1 layer, "
         "d_model 1024, T=1024")
     phase_train_parity(torch, M)
-    log("[7/37] serving the 8-layer bf16 GPT at full width")
+    log("[7/39] serving the 8-layer bf16 GPT at full width")
     launches, path1_tok_s = phase_serve(torch, M, pa, card)
-    log("[8/37] serving it with int8 KV, the prefix cache and "
+    log("[8/39] serving it with int8 KV, the prefix cache and "
         "self-speculation on shared-prefix traffic")
     launches.update(phase_serve_tier(torch, M, pa, card))
-    log("[9/37] training the 8-layer bf16 gpt_long GPT at full width")
+    log("[9/39] training the 8-layer bf16 gpt_long GPT at full width")
     flash_counts = phase_train(torch, M, card, torch.bfloat16, TRAIN_B,
                                TRAIN_STEPS, 13, "wgmma")
-    log("[9/37] path 2w: the same GPT with 4 heads of 256 (the bf16 "
+    log("[9/39] path 2w: the same GPT with 4 heads of 256 (the bf16 "
         "\"wgmma wide\" flash kernels)")
     flash_counts_wide = phase_train(torch, M, card, torch.bfloat16,
                                     TRAIN_WIDE_B, TRAIN_WIDE_STEPS, 15,
                                     "wgmma wide", n_heads=TRAIN_WIDE_HEADS)
-    log("[9/37] path 2x: the same GPT with 2 heads of 512 (the bf16 "
+    log("[9/39] path 2x: the same GPT with 2 heads of 512 (the bf16 "
         "\"wgmma wide\" forward, the \"wgmma cluster\" backward)")
     flash_counts_2x = phase_train(torch, M, card, torch.bfloat16,
                                   TRAIN_2X_B, TRAIN_2X_STEPS, 16,
                                   TRAIN_2X_ROUTES, n_heads=TRAIN_2X_HEADS)
-    log("[10/37] path 2f: training the 8-layer gpt_long GPT in f32 "
+    log("[10/39] path 2f: training the 8-layer gpt_long GPT in f32 "
         "(split-TF32 flash kernels)")
     flash_counts_f32 = phase_train(torch, M, card, None, TRAIN_F32_B,
                                    TRAIN_F32_STEPS, 14, "tf32")
-    log("[11/37] LSTM kernels against their plain versions (TF32 off)")
+    log("[11/39] LSTM kernels against their plain versions (TF32 off)")
     phase_lstm_kernels(torch, L, M)
-    log("[12/37] f32 char-RNN training, card (kernels) vs CPU (plain), "
+    log("[12/39] f32 char-RNN training, card (kernels) vs CPU (plain), "
         "H=256")
     phase_lstm_train_parity(torch, M)
-    log("[13/37] training the bf16 lstm_large char-RNN at full width")
+    log("[13/39] training the bf16 lstm_large char-RNN at full width")
     lstm_counts, step4_ms = phase_lstm_train(torch, M, card, torch.bfloat16)
-    log("[14/37] training the bf16 lstm char-RNN with tBPTT 24 at full width")
+    log("[14/39] training the bf16 lstm char-RNN with tBPTT 24 at full width")
     tbptt_counts = phase_lstm_tbptt(torch, M, card)
-    log("[15/37] path 4f: training the lstm_large char-RNN in f32 "
+    log("[15/39] path 4f: training the lstm_large char-RNN in f32 "
         "(split-TF32 LSTM kernels)")
     f32_counts, _ = phase_lstm_train(torch, M, card, None, LSTM_F32_STEPS,
                                      "tf32 clusters", seed=2)
-    log("[16/37] timing at the serving and training shapes (bf16 and f32)")
+    log("[16/39] timing at the serving and training shapes (bf16 and f32)")
     rows = phase_timing(torch, pa, launches)
     rows += phase_flash_timing(torch, fa, flash_counts, flash_counts_f32,
                                flash_counts_wide, flash_counts_2x)
-    log("[17/37] timing the LSTM kernels at the char-RNN shapes (bf16 and "
+    log("[17/39] timing the LSTM kernels at the char-RNN shapes (bf16 and "
         "f32)")
     rows += phase_lstm_timing(torch, L, lstm_counts, tbptt_counts,
                               f32_counts)
-    log(f"[18/37] a GravesLSTM wider than the fused kernels (H={LSTM_WIDE}): "
+    log(f"[18/39] a GravesLSTM wider than the fused kernels (H={LSTM_WIDE}): "
         "the step loop, card vs CPU")
     phase_lstm_wide(torch, M)
-    log("[19/37] path 4s: the bf16 lstm_large char-RNN on "
+    log("[19/39] path 4s: the bf16 lstm_large char-RNN on "
         "GravesLSTMCharModellingExample's mini-batches (B=32 x T=1000, "
         "tBPTT 50)")
     lstm_4s_launches(rows, phase_lstm_4s(torch, M, card))
-    log("[20/37] path 4e: the bf16 lstm_large char-RNN through the training "
+    log("[20/39] path 4e: the bf16 lstm_large char-RNN through the training "
         "loop (async iterator, health sentinel, listeners, checkpoints, "
         "evaluate, restore, LBFGS)")
     lstm_4e_launches(rows, phase_lstm_4e(torch, M, card, step4_ms))
-    log("[21/37] path 5: the 8-layer bf16 GPT behind ModelServer (predict, "
+    log("[21/39] path 5: the 8-layer bf16 GPT behind ModelServer (predict, "
         "generate, reload under decode, rejections, the breaker, quantized "
         "weights with the drift gate, shutdown)")
     serve5_launches(rows, phase_server(torch, M, card, path1_tok_s))
-    log("[22/37] the CNN layers against the CPU and numpy (f32), path 6: "
+    log("[22/39] the CNN layers against the CPU and numpy (f32), path 6: "
         "LeNet at bench_lenet's shape, its f32 parity")
     phase_cnn_layers(torch, M)
     phase_lenet(torch, M, card)
-    log("[23/37] SelfAttention on the non-causal flash kernels, MoELayer "
+    log("[23/39] SelfAttention on the non-causal flash kernels, MoELayer "
         "against numpy, path 2m: the MoE gpt_long GPT, MoE serving")
     counts = phase_attention_moe(torch, M, pa, card)
     rows += attention_moe_rows(torch, fa, counts)
     moe_launches(rows, counts)
-    log("[24/37] path 7: ResNet-50 on CIFAR-10 at bench_resnet50's shape "
+    log("[24/39] path 7: ResNet-50 on CIFAR-10 at bench_resnet50's shape "
         "(a ComputationGraph, bf16, B=256)")
     phase_resnet(torch, M, card)
-    log("[25/37] the graph on the LSTM kernels: path 4's char-RNN as a "
+    log("[25/39] the graph on the LSTM kernels: path 4's char-RNN as a "
         "graph against the list container, a masked tBPTT graph, f32 "
         "graph parity with the CPU and numpy")
     graph_launches(rows, phase_graph_lstm(torch, M, card))
-    log("[26/37] pretraining on the card: the MNIST VAE example's VAE, the "
+    log("[26/39] pretraining on the card: the MNIST VAE example's VAE, the "
         "DeepAutoEncoder RBM stack, an AutoEncoder stack")
     phase_pretrain(torch, M, card)
     cluster_launches(rows, *phases_27_29(torch, M, pa, card))
@@ -9256,6 +10160,9 @@ def main(argv) -> int:
     serve5_launches(rows, {"paged": {}, "flash": wire["path 10"]["flash"]})
     log(f"  path 11: {json.dumps(phases_34_35(torch, M, card))}")
     log(f"  path 12: {json.dumps(phases_36_37(torch, M, card))}")
+    path13, par_counts = phases_38_39(torch, M, card)
+    log(f"  path 13: {json.dumps(path13)}")
+    par_launches(rows, par_counts)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -47,7 +47,7 @@ Robustness (the serving-tier hardening pass):
   `spec_accept_rate` / `spec_tokens_per_step` top-level).
   `serving={"parallel": {"tp": N}}` (tensor-parallel serving on a mesh)
   is not ported yet and raises `NotImplementedError` naming ROADMAP
-  queue A12.
+  queue A12b.
 - **client retries** — `GatewayClient` retries idempotent methods once
   with backoff after a `ConnectionResetError`/`BrokenPipeError`
   (server restart, LB connection recycle), and surfaces server-side
@@ -278,7 +278,7 @@ class EntryPoint:
         if cfg.get("parallel") is not None:
             raise NotImplementedError(
                 "serving={'parallel': ...} is not ported yet (ROADMAP "
-                "queue A12: tensor-parallel serving on a mesh)")
+                "queue A12b: tensor-parallel serving on a mesh)")
         disagg_cfg = cfg.pop("disagg", None)
         raw_replicas = cfg.pop("replicas", 1)
         n_replicas = 1 if raw_replicas is None else int(raw_replicas)

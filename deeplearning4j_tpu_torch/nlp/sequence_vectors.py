@@ -16,8 +16,11 @@ packages. The negatives of the NS skip-gram path are drawn on the device
 from a `torch.Generator` seeded from `seed` and carried across flushes
 (where the JAX package carries a threefry key): that path's draws differ
 from the JAX package's, and its results are compared by quality, not bit
-for bit. `mesh=` (data-parallel training over a device mesh) is ROADMAP
-queue A12.
+for bit. `mesh=` (the JAX package's data-parallel training over a device
+mesh) takes a `parallel.mesh.Mesh` on one device: after the JAX
+package's check that the batch divides by the data axis, training is the
+single-device path, which is what the sharded step computes; a mesh over
+several distinct devices raises naming ROADMAP queue A12b.
 """
 from __future__ import annotations
 
@@ -64,10 +67,15 @@ class SequenceVectors:
                  data_axis: str = "data",
                  device="cuda"):
         if mesh is not None:
-            raise NotImplementedError(
-                "SequenceVectors(mesh=...): data-parallel embedding "
-                "training over a device mesh is not ported yet (ROADMAP "
-                "queue A12: parallel training)")
+            mesh_dev = mesh.single_device("SequenceVectors(mesh=...)")
+            if mesh_dev.type != resolve_device(device).type:
+                raise ValueError(f"the mesh's device {mesh_dev} is not "
+                                 f"device={device!r}")
+            n = mesh.shape[data_axis]
+            if batch_size % n != 0:
+                raise ValueError(
+                    f"batch_size {batch_size} must divide by the "
+                    f"'{data_axis}' mesh axis size {n}")
         if negative <= 0 and not use_hierarchic_softmax:
             raise ValueError("need negative sampling (negative>0) and/or "
                              "hierarchical softmax")

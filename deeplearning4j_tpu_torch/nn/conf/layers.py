@@ -1195,7 +1195,7 @@ class MoELayer(FeedForwardLayer):
     over the flattened tokens); the load-balancing loss joins the
     training loss. `expert_axis` names the expert-parallel mesh axis of
     the JAX package; with no mesh (the only case the port has: the
-    sharded path is ROADMAP queue A12) the layer runs replicated."""
+    sharded path is ROADMAP queue A12b) the layer runs replicated."""
 
     TYPE = "moe"
     input_kind = "rnn"

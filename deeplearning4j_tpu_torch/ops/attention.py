@@ -159,7 +159,7 @@ _SEQ_PARALLEL: list = []
 def sequence_parallel_scope(mesh, axis_name: str = "seq",
                             batch_axis: Optional[str] = None):
     """Ring attention over a sequence-sharded mesh: not ported. Inside
-    this scope `multi_head_attention` raises (ROADMAP queue A12)."""
+    this scope `multi_head_attention` raises (ROADMAP queue A12b)."""
     _SEQ_PARALLEL.append((mesh, axis_name, batch_axis))
     try:
         yield
@@ -193,7 +193,8 @@ def multi_head_attention(q, k, v, *, causal=False, key_mask=None,
     if _SEQ_PARALLEL:
         raise NotImplementedError(
             "sequence-parallel (ring) attention is not ported yet "
-            "(ROADMAP queue A12: parallel training)")
+            "(ROADMAP queue A12b: the multi-device half of parallel "
+            "training)")
 
     def widened():
         if Hkv == H:

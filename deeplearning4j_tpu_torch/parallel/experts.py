@@ -19,7 +19,7 @@ E * sum_e(fraction routed to e * mean router probability of e), over the
 real tokens.
 
 The expert-parallel path over a device mesh (`moe_apply`,
-`switch_ffn_sharded`, `expert_mesh_scope`) is ROADMAP queue A12.
+`switch_ffn_sharded`, `expert_mesh_scope`) is ROADMAP queue A12b.
 """
 from __future__ import annotations
 
@@ -33,7 +33,8 @@ import torch.nn.functional as F
 def _a12(name: str):
     return NotImplementedError(
         f"parallel.experts.{name} (expert parallelism over a device mesh) "
-        "is not ported yet (ROADMAP queue A12: parallel training)")
+        "is not ported yet (ROADMAP queue A12b: the multi-device half of "
+        "parallel training)")
 
 
 def expert_mesh_scope(mesh, data_axis=None):

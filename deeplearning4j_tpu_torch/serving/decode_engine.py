@@ -86,7 +86,7 @@ requests keep their `torch.Generator` through preemption and warm
 handoff, so their tokens equal the uninterrupted run's.
 
 Not ported yet: tensor parallelism (`parallel={"tp": N}` with N > 1,
-ROADMAP queue A12) raises `NotImplementedError`.
+ROADMAP queue A12b) raises `NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -137,7 +137,7 @@ def _parallel_degree(parallel) -> int:
     if tp > 1:
         raise NotImplementedError(
             "DecodeEngine(parallel={'tp': N > 1}) is not ported yet "
-            "(ROADMAP queue A12: tensor-parallel serving on a mesh)")
+            "(ROADMAP queue A12b: tensor-parallel serving on a mesh)")
     return 1
 
 

@@ -76,7 +76,7 @@ and `post_step` around every device step.
 `export_prefix` delegate to it, as the JAX server's do; a
 `DisaggCoordinator` drives them across in-process servers.
 
-Not ported yet: tensor-parallel serving (`parallel=`, ROADMAP queue A12)
+Not ported yet: tensor-parallel serving (`parallel=`, ROADMAP queue A12b)
 raises `NotImplementedError`.
 """
 from __future__ import annotations
@@ -471,7 +471,7 @@ class ModelServer:
         if parallel is not None:
             raise NotImplementedError(
                 "ModelServer(parallel=...) is not ported yet (ROADMAP "
-                "queue A12: tensor-parallel serving on a mesh)")
+                "queue A12b: tensor-parallel serving on a mesh)")
         if drift_gate is not None:
             unknown = set(drift_gate) - {"eval_set", "max_argmax_drift",
                                          "max_ppl_delta"}

@@ -760,7 +760,7 @@ class FlightRecorder:
 # key (tests/test_torch_model_server.py) and its `DecodeEngine` every
 # DECODE_ENGINE_STATS_KEYS key, the QoS, KV-transfer and cluster-prefix
 # keys included (tests/test_torch_qos.py), with `tp_degree` 1: tensor-
-# parallel serving is ROADMAP queue A12.
+# parallel serving is ROADMAP queue A12b.
 
 MODEL_SERVER_STATS_KEYS = frozenset({
     "served", "batches", "batch_fill_pct", "shed_overload",

@@ -43,7 +43,7 @@ a page promotion shares both models' KV in one move.
 
 Where the JAX package scans the k+1 draft steps inside one compiled
 dispatch, this module loops in Python; the pools are updated in place.
-Tensor-parallel drafts (`tp=`) are not ported (ROADMAP queue A12).
+Tensor-parallel drafts (`tp=`) are not ported (ROADMAP queue A12b).
 """
 from __future__ import annotations
 
@@ -119,7 +119,7 @@ class SpeculativeDecoder:
         if tp is not None or tp_params is not None:
             raise NotImplementedError(
                 "SpeculativeDecoder(tp=...) is not ported yet (ROADMAP "
-                "queue A12: tensor-parallel serving on a mesh)")
+                "queue A12b: tensor-parallel serving on a mesh)")
         # the engine's KV quantization mode is inherited verbatim: the
         # verify step writes into the ENGINE's pools, and the draft
         # pools mirror the same layout

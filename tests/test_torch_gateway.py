@@ -519,7 +519,7 @@ def test_serving_tier_survives_stop_start_cycle():
 def test_entry_point_builds_on_its_device_and_defaults_to_the_card():
     """Models created or loaded through the wire live on the entry
     point's device; without `device` it asks for the card, which raises
-    where there is none. `serving={"parallel": ...}` names A12."""
+    where there is none. `serving={"parallel": ...}` names A12b."""
     ep = EntryPoint(device="cpu")
     ep.create_model("m", _conf().to_json())
     assert ep._models["m"].device.type == "cpu"
@@ -529,7 +529,7 @@ def test_entry_point_builds_on_its_device_and_defaults_to_the_card():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             GatewayServer()
     tp = EntryPoint(serving={"parallel": {"tp": 2}}, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"queue A12\b"):
+    with pytest.raises(NotImplementedError, match=r"queue A12b\b"):
         tp.create_model("m", _conf().to_json())
     for bad, match in (({"replicas": 0}, "replicas"),
                        ({"pool": {"probe_interval": 1.0}}, "pool"),

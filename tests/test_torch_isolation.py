@@ -17,7 +17,10 @@ a cluster prefix fetch and disaggregated serving; the gateway wire, a
 remote replica behind a chaos proxy; a MNIST fetcher batch, a Word2Vec
 fit, the native word count and a serialized table; a DeepWalk fit,
 k-means and t-SNE of its vectors, a StatsListener reporting into a
-UIServer)
+UIServer; the data-parallel tier: ParallelWrapper over an 8-slot mesh
+fed by the device prefetcher, the averaging master with a crash drill,
+the parameter server over TCP, a fault-tolerant restart, parallel early
+stopping and an export; and `parallel.main` run as a module)
 loads neither `jax` nor any module of `deeplearning4j_tpu`, and
 its entry points run on the card by default, raising where there is
 none rather than carrying on quietly on the CPU."""
@@ -463,6 +466,57 @@ _SCRIPT = textwrap.dedent("""
     assert json.loads(urllib.request.urlopen(req).read())["points"] == 12
     ui.stop()
 
+    # the data-parallel tier on the CPU
+    import torch
+    from deeplearning4j_tpu_torch.parallel import (
+        DistributedMultiLayer, EarlyStoppingParallelTrainer,
+        FaultInjectionListener, FaultTolerantTrainer, ParallelWrapper,
+        ParameterAveragingTrainingMaster, ParameterAveragingTrainingWorker,
+        ParameterServerParallelWrapper, WorkerCrashInjector, make_mesh)
+    from deeplearning4j_tpu_torch.parallel.device_prefetch import (
+        DevicePrefetchIterator)
+    from deeplearning4j_tpu_torch.parallel.export import batch_and_export
+    from deeplearning4j_tpu_torch.parallel.parameter_server import (
+        NetworkParameterServer, RemoteParameterServerClient)
+    from deeplearning4j_tpu_torch import earlystopping as ES
+    pnet = unet.clone()
+    pdata = [DataSet(vecs, np.eye(3, dtype=np.float32)[km.labels_])] * 4
+    mesh = make_mesh({"data": 4}, devices=[torch.device("cpu")] * 4)
+    ParallelWrapper(pnet, mesh=mesh).fit(DevicePrefetchIterator(
+        ListDataSetIterator(pdata), device="cpu"))
+    assert pnet.iteration == unet.iteration + 4
+    worker = ParameterAveragingTrainingWorker(pnet)
+    crash = WorkerCrashInjector(worker_id=1)
+    worker.add_hook(crash)
+    master = ParameterAveragingTrainingMaster(
+        num_workers=2, averaging_frequency=2, worker=worker,
+        collect_training_stats=True)
+    DistributedMultiLayer(pnet, master).fit(ListDataSetIterator(pdata))
+    assert crash.fired == 1
+    assert master.get_training_stats().get_count("worker_retries") == 1
+    srv = NetworkParameterServer(pnet.params())
+    client = RemoteParameterServerClient(*srv.address)
+    ParameterServerParallelWrapper(pnet, workers=2, server=client).fit(
+        ListDataSetIterator(pdata))
+    assert srv.num_pushes == 4
+    client.close()
+    srv.close()
+    with tempfile.TemporaryDirectory() as d:
+        pnet.set_listeners(FaultInjectionListener(pnet.iteration + 2))
+        ft = FaultTolerantTrainer(pnet, ListDataSetIterator(pdata),
+                                  checkpoint_dir=os.path.join(d, "ck"),
+                                  checkpoint_every=1)
+        ft.fit(epochs=1)
+        assert ft.restarts == 1
+        pnet.set_listeners()
+        assert len(batch_and_export(pdata, os.path.join(d, "x"), 6)) == 8
+    cfg = (ES.EarlyStoppingConfiguration.Builder()
+           .epoch_termination_conditions(ES.MaxEpochsTerminationCondition(2))
+           .model_saver(ES.InMemoryModelSaver()).build())
+    assert EarlyStoppingParallelTrainer(
+        cfg, pnet, ListDataSetIterator(pdata), mesh=mesh).fit() \
+        .total_epochs == 2
+
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")
                     or m == "deeplearning4j_tpu"
@@ -475,6 +529,70 @@ _SCRIPT = textwrap.dedent("""
 def test_port_imports_neither_jax_nor_the_jax_package():
     env = dict(os.environ, PYTHONPATH=str(REPO))
     r = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=str(REPO),
+                       env=env, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "LEAKED []" in r.stdout
+
+
+_MAIN_SCRIPT = textwrap.dedent("""
+    import os
+    import runpy
+    import sys
+    import tempfile
+    import numpy as np
+    d = tempfile.mkdtemp()
+    with open(os.path.join(d, "pw_factory.py"), "w") as f:
+        f.write(
+            "import numpy as np\\n"
+            "from deeplearning4j_tpu_torch.datasets.dataset import DataSet\\n"
+            "from deeplearning4j_tpu_torch.datasets.iterators import "
+            "ListDataSetIterator\\n"
+            "def make():\\n"
+            "    rng = np.random.default_rng(0)\\n"
+            "    return ListDataSetIterator([DataSet(\\n"
+            "        rng.normal(size=(8, 4)).astype(np.float32),\\n"
+            "        np.eye(3, dtype=np.float32)[rng.integers(0, 3, 8)])\\n"
+            "        for _ in range(4)])\\n")
+    sys.path.insert(0, d)
+    from deeplearning4j_tpu_torch.nn.conf import (
+        DenseLayer, NeuralNetConfiguration, OutputLayer)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.util.serialization import (
+        restore_model, write_model)
+    net = MultiLayerNetwork(
+        NeuralNetConfiguration.Builder().seed(1).list()
+        .layer(DenseLayer(n_in=4, n_out=8))
+        .layer(OutputLayer(n_in=8, n_out=3)).build(), device="cpu")
+    net.init()
+    write_model(net, os.path.join(d, "in.zip"))
+    for mode in ("wrapper", "averaging", "ps"):
+        sys.argv = ["deeplearning4j_tpu_torch.parallel.main",
+                    "--model-path", os.path.join(d, "in.zip"),
+                    "--data-factory", "pw_factory:make",
+                    "--output-path", os.path.join(d, mode + ".zip"),
+                    "--mode", mode, "--device", "cpu"]
+        try:
+            runpy.run_module("deeplearning4j_tpu_torch.parallel.main",
+                             run_name="__main__")
+        except SystemExit as e:
+            assert e.code == 0, e.code
+        out = restore_model(os.path.join(d, mode + ".zip"), device="cpu")
+        assert not np.allclose(out.params().numpy(), net.params().numpy())
+    leaked = sorted(m for m in sys.modules
+                    if m == "jax" or m.startswith("jax.")
+                    or m == "deeplearning4j_tpu"
+                    or m.startswith("deeplearning4j_tpu."))
+    print("LEAKED", leaked)
+    sys.exit(1 if leaked else 0)
+""")
+
+
+def test_parallel_main_as_a_module_imports_neither():
+    """`python -m deeplearning4j_tpu_torch.parallel.main` (run the way
+    `-m` runs it, through runpy) trains a saved zip in each mode on the
+    CPU without loading jax or the JAX package."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run([sys.executable, "-c", _MAIN_SCRIPT], cwd=str(REPO),
                        env=env, capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     assert "LEAKED []" in r.stdout
@@ -547,8 +665,17 @@ def test_entry_points_default_to_the_card():
     from deeplearning4j_tpu_torch.clustering import KMeansClustering, Tsne
     from deeplearning4j_tpu_torch.graph import DeepWalk
 
+    from deeplearning4j_tpu_torch.datasets.iterators import (
+        ListDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.parallel import make_mesh
+    from deeplearning4j_tpu_torch.parallel.device_prefetch import (
+        DevicePrefetchIterator,
+    )
+
     for make in (Word2Vec, ParagraphVectors, Glove,
                  lambda: InMemoryLookupTable(AbstractCache(), 4),
-                 lambda: KMeansClustering(3), Tsne, DeepWalk):
+                 lambda: KMeansClustering(3), Tsne, DeepWalk, make_mesh,
+                 lambda: DevicePrefetchIterator(ListDataSetIterator([]))):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()

@@ -124,17 +124,21 @@ def test_the_walk_covers_the_training_extras_and_the_cluster_half():
     ("serving", "RemoteReplica", "A11c"),
     ("parallel", "ParallelWrapper", "A12"),
     ("parallel", "make_mesh", "A12"),
+    ("parallel", "SequenceParallelWrapper", "A12b"),
+    ("parallel", "PipelineParallelWrapper", "A12b"),
+    ("parallel.multiprocess", "MultiProcessParallelWrapper", "A12b"),
+    ("parallel.multiprocess", "initialize_multiprocess", "A12b"),
 ])
 def test_unported_families_raise_naming_their_item(module, name, item):
-    """Parallel training (A12) raises NotImplementedError naming its
-    queue item, never AttributeError or ImportError. The wire, the
-    remote replicas and the network injectors (A11c) raised so until
-    they were ported: now they resolve, and no name raises naming
-    A11c."""
+    """The multi-device half of parallel training (A12b) raises
+    NotImplementedError naming its queue item, never AttributeError or
+    ImportError. The wire, the remote replicas and the network injectors
+    (A11c) and the data-parallel tier (A12, now A12a: the wrapper, the
+    meshes) raised so until they were ported: now they resolve."""
     mod = importlib.import_module(f"{PORT}.{module}" if module else PORT)
-    if item == "A11c":
+    if item in ("A11c", "A12"):
         obj = getattr(mod, name)
-        assert inspect.isclass(obj)
+        assert inspect.isclass(obj) or inspect.isfunction(obj)
         exec(f"from {mod.__name__} import {name}", {})
         return
     with pytest.raises(NotImplementedError, match=rf"queue {item}\b"):
@@ -179,7 +183,7 @@ def test_the_replica_pool_tier_resolves_from_serving(name):
 def test_pretrain_and_sharded_experts_raise_naming_their_item():
     """Layerwise pretraining is ported (A9b): on a network without a
     pretraining layer it changes nothing; the expert-parallel MoE still
-    raises naming A12."""
+    raises naming A12b."""
     from deeplearning4j_tpu_torch.datasets.dataset import DataSet
     from deeplearning4j_tpu_torch.models.lenet import lenet_configuration
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
@@ -189,7 +193,7 @@ def test_pretrain_and_sharded_experts_raise_naming_their_item():
     before = net.params().clone()
     net.pretrain(DataSet(torch.zeros((2, 784)).numpy(), None))
     assert torch.equal(net.params(), before)
-    with pytest.raises(NotImplementedError, match=r"queue A12\b"):
+    with pytest.raises(NotImplementedError, match=r"queue A12b\b"):
         experts.switch_ffn_sharded(None, None, None)
 
 
@@ -240,12 +244,18 @@ def test_the_walk_covers_the_fetchers_nlp_and_native():
 
 
 def test_nlp_names_without_a_card_meaning_raise_naming_their_item():
-    """`mesh=` (sharded embedding training) is parallel training (A12);
+    """`mesh=` over several distinct devices (sharded embedding
+    training) is the multi-device half of parallel training (A12b; a
+    mesh on one device trains like the single-device path);
     `require_partitionable_rng` is JAX PRNG plumbing (C3)."""
     from deeplearning4j_tpu_torch.nlp import SequenceVectors, kernels
+    from deeplearning4j_tpu_torch.parallel import make_mesh
 
-    with pytest.raises(NotImplementedError, match=r"queue A12\b"):
-        SequenceVectors(mesh=object(), device="cpu")
+    two = make_mesh(devices=[torch.device("cpu"), torch.device("meta")])
+    with pytest.raises(NotImplementedError, match=r"queue A12b\b"):
+        SequenceVectors(mesh=two, batch_size=64, device="cpu")
+    one = make_mesh(devices=[torch.device("cpu")] * 2)
+    assert SequenceVectors(mesh=one, batch_size=64, device="cpu").mesh is one
     with pytest.raises(NotImplementedError, match=r"queue C3\b"):
         kernels.require_partitionable_rng()
 
@@ -260,3 +270,53 @@ def test_the_walk_covers_graph_clustering_berkeley_and_the_ui():
             f"{PORT}.ui", f"{PORT}.ui.storage", f"{PORT}.ui.components",
             f"{PORT}.ui.stats_listener", f"{PORT}.ui.flow",
             f"{PORT}.ui.remote", f"{PORT}.ui.server"} <= set(MODULES)
+
+
+def test_the_walk_covers_the_data_parallel_tier():
+    assert {f"{PORT}.parallel.mesh", f"{PORT}.parallel.wrapper",
+            f"{PORT}.parallel.device_prefetch", f"{PORT}.parallel.stats",
+            f"{PORT}.parallel.time_source", f"{PORT}.parallel.repartition",
+            f"{PORT}.parallel.training_master",
+            f"{PORT}.parallel.parameter_server",
+            f"{PORT}.parallel.multiprocess",
+            f"{PORT}.parallel.fault_tolerance",
+            f"{PORT}.parallel.early_stopping", f"{PORT}.parallel.export",
+            f"{PORT}.parallel.main"} <= set(MODULES)
+
+
+A12A = ("DistributedComputationGraph", "DistributedMultiLayer",
+        "EarlyStoppingDistributedTrainer", "EarlyStoppingParallelTrainer",
+        "FaultInjectionListener", "FaultTolerantTrainer", "InjectedFault",
+        "NaNGradientInjector", "NoHealthyWorkersError",
+        "NonFiniteWorkerResultError", "ParallelWrapper",
+        "ParameterAveragingTrainingMaster",
+        "ParameterAveragingTrainingWorker", "ParameterServer",
+        "ParameterServerParallelWrapper", "ParameterServerStallInjector",
+        "ParameterServerTimeoutError", "PoisonBatchInjector", "Repartition",
+        "RepartitionStrategy", "RetryingParameterServerClient",
+        "SlowWorkerInjector", "TrainingHook", "TrainingMaster",
+        "TrainingResult", "TrainingStats", "TrainingWorker",
+        "WorkerCrashInjector", "WorkerFailureError", "WorkerHealth",
+        "balanced_partitions", "current_worker_id", "make_mesh")
+
+
+@pytest.mark.parametrize("name", A12A)
+def test_the_data_parallel_tier_resolves_from_parallel(name):
+    """Every name of the JAX package's `parallel` resolves in the port's
+    to an object of the same kind, defined in the port's modules."""
+    port = importlib.import_module(f"{PORT}.parallel")
+    ref = importlib.import_module(f"{REF}.parallel")
+    obj, robj = getattr(port, name), getattr(ref, name)
+    assert obj.__module__.startswith(f"{PORT}.parallel.")
+    assert inspect.isclass(obj) == inspect.isclass(robj)
+    if inspect.isclass(obj):
+        assert issubclass(obj, Exception) == issubclass(robj, Exception)
+
+
+def test_no_port_name_raises_naming_a12_alone():
+    """Every message of the port that named queue A12 now names A12b,
+    the multi-device half; A12a is ported."""
+    import re as _re
+
+    for path in (REPO / PORT).rglob("*.py"):
+        assert not _re.search(r"queue A12(?![ab])", path.read_text()), path
