@@ -94,7 +94,12 @@ belongs to):
   the parameter server over TCP, FaultTolerantTrainer, the CLI; the
   wrapper over an 8-slot mesh of the card against the CPU), whose failed
   check counts as caught. The worker processes and the CLI of a copy
-  run that copy's modules.
+  run that copy's modules;
+- spmd: `chip_smoke.py`'s phases 40 and 41 (path 14: tensor-parallel
+  serving, the pipeline, ring and Ulysses attention, the expert-parallel
+  MoE and the global view on slots of the card; the collectives and the
+  bodies card against CPU, the pipeline with dropout against one
+  device), whose failed check counts as caught.
 
 The faults (`MUTATIONS`) drop tiles, terms or rows, and break each
 mechanism of the Hopper kernels: the forward's diagonal mask on the wrong
@@ -205,8 +210,13 @@ buffer refilled before its copy's event has completed, the master
 averaging unweighted although `example_weighted` is set, a non-finite
 worker result averaged in, the wrapper skipping the data-axis trim, the
 tBPTT carries not restored after a batch's windows, and the parameter
-server applying a duplicate idempotent (`V`) push. A
-fault that makes the kernel trap (an mbarrier wait that times out) fails
+server applying a duplicate idempotent (`V`) push. The SPMD half: `psum`
+dropping a slot's partial, `ppermute` rotating the wrong way,
+`shard_pool` splitting the page axis, the `[Q_t | K_t | V_t]`
+permutation skipped, `bo` added before the all-reduce, the pipeline
+skipping its last tick, `all_to_all` joining on its split axis, dropout
+keyed by the local row, and the pipeline's trunk gradients scaled by
+1/M. A fault that makes the kernel trap (an mbarrier wait that times out) fails
 its check process, which counts as caught.
 
 Arguments, if any, keep only the faults whose names contain one of them
@@ -277,6 +287,12 @@ EMBED = "embed"
 # 38-39 (path 13 on the flash and LSTM kernels, the wrapper over an
 # 8-slot mesh of the card)
 PARALLEL = "parallel"
+# the in-process SPMD half (`parallel/spmd.py`, `serving/tp_engine.py`,
+# `models/transformer.py`'s shard hooks, `parallel/pipeline.py`,
+# `parallel/pipeline_wrapper.py`), checked by `chip_smoke.py`'s phases
+# 40-41 (path 14 on the paged and flash kernels, the collectives and the
+# bodies card vs CPU)
+SPMD = "spmd"
 # (B, T, H, D, causal, dtype): bf16, the training path's kernels at D = 128,
 # the "wgmma wide" kernels at D = 256 and the "wgmma cluster" backward at
 # D = 384 and 512 (T = 192: the first diagonal tiles; T = 1024 full: every
@@ -1116,6 +1132,62 @@ MUTATIONS = [
          (",\n                                            request_id=rid)",
           ")")],
      "parallel/parameter_server.py"),
+    # path 14, each caught by phases 40-41: the dropped partial, the
+    # skipped permutation and the bias before the all-reduce by 14a's f32
+    # tokens against one device (its biases are drawn, not zero); the
+    # wrong-way ring by 14b's losses and the ring against whole-sequence
+    # attention; the pool split on the page axis by 14a (the odd page
+    # count does not split: the run raises); the missing last tick by 14b
+    # (the last microbatch never reaches the output: the run raises); the
+    # all-to-all joined on its split axis by Ulysses against whole-sequence
+    # attention; dropout keyed by the local row by phase 41's pipeline
+    # with dropout against one device; the trunk's gradients scaled by
+    # 1/M by 14b's SGD step against net.fit (Adam's steps hide a scale)
+    ("spmd: psum drops the last slot's partial", SPMD,
+     "def _psum(x: torch.Tensor, axis_name):", [
+         ("    for t in xs[1:]:\n", "    for t in xs[1:-1]:\n")],
+     "parallel/spmd.py"),
+    ("spmd: ppermute rotates the wrong way", SPMD,
+     "def ppermute(x: torch.Tensor, axis_name, perm) -> torch.Tensor:", [
+         ("    src = [i for i, j in perm if j == rank]\n",
+          "    src = [j for i, j in perm if i == rank]\n")],
+     "parallel/spmd.py"),
+    ("spmd: shard_pool splits the page axis", SPMD,
+     "    def shard_pool(self, x):", [
+         ("        spec = P(*([None, TP_AXIS] + [None] * (x.ndim - 2)))\n",
+          "        spec = P(*([TP_AXIS, None] + [None] * (x.ndim - 2)))\n")],
+     "serving/tp_engine.py"),
+    ("spmd: the [Q_t | K_t | V_t] permutation skipped", SPMD,
+     "    def shard_params(self, params):", [
+         ("                    v = v[:, perm.to(v.device)]\n",
+          "                    pass\n")],
+     "serving/tp_engine.py"),
+    ("spmd: bo added before the all-reduce", SPMD,
+     "def _block_out_proj(p, att, axis_name=None):", [
+         ('    return _psum_partial(att @ p["Wo"], axis_name) + p["bo"]\n',
+          '    return _psum_partial(att @ p["Wo"] + p["bo"], axis_name)\n')],
+     "models/transformer.py"),
+    ("spmd: the pipeline schedule skips its last tick", SPMD,
+     "def pipeline_apply(", [
+         ("    n_steps = S + M - 1\n", "    n_steps = S + M - 2\n")],
+     "parallel/pipeline.py"),
+    ("spmd: all_to_all joins on the split axis", SPMD,
+     "def all_to_all(x: torch.Tensor, axis_name, split_axis: int,", [
+         ("                          for t in xs], dim=concat_axis)\n",
+          "                          for t in xs], dim=split_axis)\n")],
+     "parallel/spmd.py"),
+    ("spmd: dropout keyed by the local row", SPMD,
+     "    def _loss_pipe(self, head_p,", [
+         ("                    with row_offset_scope(row_off):\n",
+          "                    with row_offset_scope(0):\n")],
+     "parallel/pipeline_wrapper.py"),
+    ("spmd: the pipeline's trunk gradients scaled by 1/M", SPMD,
+     "    def _step(self, f, l, fm, lm):", [
+         ("                                   g_trunk[j], net.iteration)\n",
+          "                                   {n: g / self.microbatches\n"
+          "                                    for n, g in g_trunk[j].items()},"
+          "\n                                   net.iteration)\n")],
+     "parallel/pipeline_wrapper.py"),
     ("stream: DedupCache re-executes a completed id", STREAM,
      "    def begin(self, request_id: str) -> Tuple[str, Any]:", [
          ("            ent = self._done.get(request_id)\n"
@@ -1181,7 +1253,7 @@ def build(sources) -> None:
              DISAGG: (PAGED,), QOS: (PAGED, FLASH, LSTM),
              POOL: (PAGED, FLASH), STREAM: (PAGED, FLASH),
              WIRE: (PAGED, FLASH, LSTM), NLP: (), EMBED: (),
-             PARALLEL: (FLASH, LSTM)}
+             PARALLEL: (FLASH, LSTM), SPMD: (PAGED, FLASH)}
     cuda_build.build(tuple(sorted({k for s in sources
                                    for k in needs.get(s, (s,))})))
 
@@ -1252,6 +1324,12 @@ def check(sources) -> None:
         cases += phase_cases(torch, "38-39", "path 13, data parallel",
                              lambda cs, M, card: cs.phases_38_39(
                                  torch, M, card))
+    if SPMD in sources:
+        import deeplearning4j_tpu_torch.ops.paged_attention as pa
+
+        cases += phase_cases(torch, "40-41", "path 14, the SPMD half",
+                             lambda cs, M, card: cs.phases_40_41(
+                                 torch, M, pa, fa, card))
     print(json.dumps({"package": fa.__file__, "cases": cases}), flush=True)
 
 

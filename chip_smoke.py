@@ -13,6 +13,7 @@ NVIDIA card.
     python3 chip_smoke.py --phases-34-35   # path 11: Word2Vec, NLP parity
     python3 chip_smoke.py --phases-36-37   # path 12: DeepWalk, t-SNE, the UI
     python3 chip_smoke.py --phases-38-39   # path 13: data-parallel training
+    python3 chip_smoke.py --phases-40-41   # path 14: the SPMD half
 
 `--lstm-timing` runs phase 17 alone (the LSTM source built, the rows
 checked and timed, launch counts 0) on the checkout's package or, with
@@ -38,7 +39,9 @@ line of path 11's figures. `--phases-36-37` runs phases 36 and 37 alone
 and prints one JSON line of path 12's figures. `--phases-38-39` builds
 the flash and LSTM sources and runs phases 38 and 39 alone (path 13 and
 its parity phase), then prints one JSON line of path 13's figures and
-launch counts.
+launch counts. `--phases-40-41` builds the paged and flash sources and
+runs phases 40 and 41 alone (path 14 and its parity phase), then prints
+one JSON line of path 14's figures and launch counts.
 
 Phases, each of which makes the script exit non-zero when it fails:
 
@@ -474,7 +477,8 @@ Phases, each of which makes the script exit non-zero when it fails:
    steps, every flash launch on "wgmma") and on the char-RNN (3 steps);
    whether resnet_tiny is bit-exact under cuDNN's defaults, printed. Its
    launches go into rows 2-6;
-30. path 9: path 1's network and engine (bf16, `max_queue` 256) behind
+30. path 9: path 1's network at 4 layers (`POOL_SERVE`: depth cut from 8
+   for the run's time limit) and engine (bf16, `max_queue` 256) behind
    `ReplicaPool.from_net(net, 3)` on the one card (a (1, 16) probe and
    canary batch, probes every second, `breaker_reset_timeout` 1 s).
    9a: a 2-layer f32 GPT at path 1's width (TF32 off) gives through a
@@ -670,7 +674,35 @@ Phases, each of which makes the script exit non-zero when it fails:
    BatchNormalization net on the whole batch's statistics (card vs CPU
    within 1e-5; a per-slot average far off), a masked tBPTT char-RNN
    whose carries are restored after its windows (its output equal to
-   `net.fit`'s network's), and the averaging master card vs CPU.
+   `net.fit`'s network's), and the averaging master card vs CPU;
+40. path 14, the in-process SPMD half on 8 slots of the card
+   (`parallel.mesh.set_local_slots`): (14a) path 1's GPT at full width
+   served at `parallel={"tp": 2}`, two 4096-token prompts (chunked
+   prefill) and 64 tokens each: f32 tokens identical to one device, each
+   shard launching the paged kernel as often as one device does (rows 1
+   and 1q at Hkv/2 heads), int8 KV identical to one device's int8 and
+   self-speculation identical to f32 `generate` (one 1024-token prompt,
+   32 tokens), bf16 teacher-forced
+   logits within `P14_LOGIT_TOL` with the first divergent generated step
+   printed, tokens/s and the traced idle share against one device,
+   weight bytes per slot, one request through a `GatewayServer` with
+   `serving={"parallel": {"tp": 2}}`; (14b) `PipelineParallelWrapper`
+   over pipe=4 trains TRAIN's GPT (bf16 over f32, B=8 x T=4096, 2 layers
+   a stage, 4 microbatches) 3 steps, flash rows 2-4 launched in every
+   stage, losses and params against `net.fit` of a clone (`P14_BF16_RTOL`,
+   4 lr a step), step ms against path 2's; (14c) `SequenceParallelWrapper`
+   over seq=2 trains a 2-layer full-width GPT (f32, B=4 x T=4096) 2 steps
+   against `net.fit`, ring and Ulysses attention against whole-sequence
+   attention at that shape; (14d) two `MoELayer(expert_axis="expert")`
+   of 4 experts behind full-width blocks, f32, B=8 x T=1024, over
+   expert=4 under `ParallelWrapper` against the replicated MoE; (14e)
+   `ParallelWrapper(param_specs=...)` over {data 2, model 4}: steps
+   bit-identical to `net.fit`;
+41. the SPMD runtime on the card against CPU slots (f32, TF32 off): the
+   collectives bit-identical, ring and Ulysses attention, the pipeline
+   and the expert-parallel MoE within 1e-5, a tp=2 engine's tokens
+   equal; a 4-stage pipeline with dropout 0.1 against one device under
+   `row_offset_scope(0)` (losses within rtol 1e-5).
 
 Prints one JSON line of per-kernel numbers, then the card's
 `nvidia-smi` line, then as the last line
@@ -746,9 +778,9 @@ _T_IMPORT = time.perf_counter()
 
 
 def log(*a):
-    """Print a line; a phase header (`[n/39] ...`) carries the seconds
+    """Print a line; a phase header (`[n/41] ...`) carries the seconds
     since the script started, so the log shows each phase's wall."""
-    if a and isinstance(a[0], str) and a[0][:1] == "[" and "/39]" in a[0][:8]:
+    if a and isinstance(a[0], str) and a[0][:1] == "[" and "/41]" in a[0][:8]:
         a = (f"{a[0]} (at {time.perf_counter() - _T_IMPORT:.1f} s)",) + a[1:]
     print(*a, flush=True)
 
@@ -1434,13 +1466,14 @@ def paged_row(torch, pa, name, kind, shape, dtype, launches):
            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
     extra = "" if fma_ms is None else f", f32-FMA bound {fma_ms:.4f} ms"
-    if kind == "int8":  # the dense kernel on bf16 pools, same positions
+    if kind == "int8":  # the dense kernel on `dtype` pools, same positions
         dense = paged_inputs(torch, **kw)
         dense_ms = time_ms(torch, lambda: pa.paged_attention(
             dense["q"], dense["k_pool"], dense["v_pool"],
             dense["page_table"], dense["positions"],
             active=dense["active"]))
-        extra += f", dense kernel on bf16 pools {dense_ms:.4f} ms"
+        extra += (f", dense kernel on {str(dtype).split('.')[-1]} pools "
+                  f"{dense_ms:.4f} ms")
     S, C, H, hd = inp["q"].shape
     Hkv, page = inp["k_pool"].shape[1], inp["k_pool"].shape[3]
     plan = pa.plan(dtype == torch.bfloat16, kind == "int8", S, C, H, Hkv,
@@ -6271,19 +6304,19 @@ def phases_27_29(torch, M, pa, card):
         for k, n in counts.items():
             paged[k] = paged.get(k, 0) + n
 
-    log("[27/39] path 8: path 1's GPT disaggregated (8a: the two mixes, "
+    log("[27/41] path 8: path 1's GPT disaggregated (8a: the two mixes, "
         "bf16 and int8 KV, against a colocated server), live migration "
         "(8b: warm, cold, sampled, int8), the cluster prefix cache (8c)")
     add(phase_disagg(torch, M, pa, card))
     net, counts = phase_migration(torch, M, pa, card)
     add(counts)
     add(phase_prefix_cluster(torch, M, pa, card, net))
-    log("[28/39] QoS on path 1's engine: a flood tenant under quota beside "
+    log("[28/41] QoS on path 1's engine: a flood tenant under quota beside "
         "Poisson interactive traffic, preemption of the batch lane")
     add(phase_qos(torch, M, pa, card, net))
     del net
     torch.cuda.empty_cache()
-    log("[29/39] early stopping, the profiler and assert_deterministic on "
+    log("[29/41] early stopping, the profiler and assert_deterministic on "
         "the LSTM and flash kernels")
     extras = phase_extras(torch, M, card)
     return paged, extras
@@ -6312,6 +6345,9 @@ def phases_27_29_alone(torch, M, pa, cuda_build) -> int:
 # ------------------------------------------- phases 30-31: path 9, the pool
 # path 9: path 1's network and engine behind ReplicaPool.from_net(net, 3)
 POOL_REPLICAS, POOL_PROBE_S = 3, 1.0
+# path 9's network: path 1's width, depth cut 8 -> 4 layers (the run's
+# time limit: 9c's zip write and rolling reload at 8 layers took ~60 s)
+POOL_SERVE = dict(SERVE, n_layers=4)
 POOL_PROBE_T = 16           # the probe and canary batch: (1, 16) ids
 POOL_PARITY_LAYERS = 2      # the f32 parity pool: path 1's width, 2 layers
 POOL_MARGIN = 0.05          # a bf16 divergence must sit below this margin
@@ -6465,11 +6501,15 @@ def phase_pool(torch, M, pa, card, path1_tok_s):
 
     S, fa = M["serving"], M["fa"]
     V = SERVE["vocab_size"]
-    n_layers = SERVE["n_layers"]
+    n_layers = POOL_SERVE["n_layers"]
     pool_wall = time.perf_counter()
     pool_parity_f32(torch, M, card)
 
-    net = path1_net(torch, M, torch.bfloat16)
+    net = M["MultiLayerNetwork"](M["gpt_configuration"](**POOL_SERVE,
+                                                        seed=11),
+                                 dtype=torch.float32,
+                                 compute_dtype=torch.bfloat16, device="cuda")
+    net.init()
     prompts, n_tok = path1_requests(np)
     toks = int(sum(n_tok))
     probe = np.random.default_rng(30).integers(0, V, (1, POOL_PROBE_T)) \
@@ -6516,8 +6556,9 @@ def phase_pool(torch, M, pa, card, path1_tok_s):
         log(f"  9a: path 1's {len(prompts)} requests from {len(prompts)} "
             f"threads through {POOL_REPLICAS} replicas: wall {wall:.4f} s, "
             f"{toks / wall:.1f} generated tokens/s"
-            + (f" (path 1's engine alone {path1_tok_s:.1f}, ratio "
-               f"{toks / wall / path1_tok_s:.3f})" if path1_tok_s else "")
+            + (f" (path 1's 8-layer engine alone {path1_tok_s:.1f}, "
+               f"ratio {toks / wall / path1_tok_s:.3f})"
+               if path1_tok_s else "")
             + f"; served per replica {per}, failovers "
             f"{s1['failovers'] - s0['failovers']}; paged launches {got} = "
             f"{n_layers} layers x {steps} engine steps and chunks [{card}]")
@@ -6630,7 +6671,7 @@ def phase_pool(torch, M, pa, card, path1_tok_s):
 
         # -- 9c: rolling reloads from a CheckpointStore
         store = M["CheckpointStore"](tmp)
-        cand = M["MultiLayerNetwork"](M["gpt_configuration"](**SERVE,
+        cand = M["MultiLayerNetwork"](M["gpt_configuration"](**POOL_SERVE,
                                                              seed=12),
                                       dtype=torch.float32, device="cuda")
         cand.init()
@@ -6973,10 +7014,10 @@ def phase_streams(torch, M, pa, card, pool, rows_paged):
 def phases_30_31(torch, M, pa, card, path1_tok_s):
     """Phases 30 and 31; returns the bf16 paged launches and the f32
     flash launches for the kernel rows."""
-    log("[30/39] path 9: path 1's GPT behind ReplicaPool.from_net(net, 3): "
+    log("[30/41] path 9: path 1's GPT behind ReplicaPool.from_net(net, 3): "
         "routing and parity, a crash drill, rolling reloads, the autoscaler")
     pool, paged, flash = phase_pool(torch, M, pa, card, path1_tok_s)
-    log("[31/39] token streams and the exactly-once door on path 9's pool")
+    log("[31/41] token streams and the exactly-once door on path 9's pool")
     phase_streams(torch, M, pa, card, pool, paged)
     return {"paged": paged, "flash": flash}
 
@@ -7735,12 +7776,12 @@ def phases_32_33(torch, M, pa, card):
     """Phases 32 and 33: `{"path 10": its replicas' launches in 10a's
     window, "phase 33": phase 33's}`, each `{"paged": {(C, pools): n},
     "flash": {(kind, route): n}}` (f32 pools)."""
-    log("[32/39] path 10: path 1's GPT (4 layers) behind a GatewayServer, "
+    log("[32/41] path 10: path 1's GPT (4 layers) behind a GatewayServer, "
         "served by 3 "
         "replica processes on the card: parity, tokens/s, kill -9, "
         "a partition, a rolling reload, a graceful stop")
     path10 = phase_wire_pool(torch, M, pa, card)
-    log("[33/39] the wire on the card: a torn stream resumed, a claim, a "
+    log("[33/41] the wire on the card: a torn stream resumed, a claim, a "
         "retried fit, a journal replay after a restart")
     return {"path 10": path10,
             "phase 33": {"paged": phase_wire(torch, M, pa, card),
@@ -8416,11 +8457,11 @@ def phase_word2vec_parity(torch, M):
 
 def phases_34_35(torch, M, card):
     """Phases 34 and 35; path 11's figures."""
-    log("[34/39] path 11: Word2Vec skip-gram NS at bench_word2vec_50k's "
+    log("[34/41] path 11: Word2Vec skip-gram NS at bench_word2vec_50k's "
         "shape (V=50,000, 2,000,000 words, D=128, B=16384, 32 batches a "
         "flush) on the card")
     figures = phase_word2vec(torch, M, card)
-    log("[35/39] the NLP steps and host-drawn fits, card against CPU and "
+    log("[35/41] the NLP steps and host-drawn fits, card against CPU and "
         "numpy (TF32 off)")
     phase_word2vec_parity(torch, M)
     return figures
@@ -8965,11 +9006,11 @@ def phase_embed_parity(torch, M):
 
 def phases_36_37(torch, M, card):
     """Phases 36 and 37; path 12's figures."""
-    log("[36/39] path 12: a planted graph with BlogCatalog's counts, "
+    log("[36/41] path 12: a planted graph with BlogCatalog's counts, "
         "DeepWalk (d=128, w=10, t=40, 2 walks a vertex), k-means (K=39) "
         "and exact t-SNE of its vectors on the card, the training UI")
     figures = phase_embed(torch, M, card)
-    log("[37/39] path 12's device parts, card against CPU and numpy (TF32 "
+    log("[37/41] path 12's device parts, card against CPU and numpy (TF32 "
         "off), the TF32 guard, a hierarchical-softmax DeepWalk fit")
     phase_embed_parity(torch, M)
     return figures
@@ -9787,14 +9828,14 @@ def par_launches(rows, counts) -> None:
 
 def phases_38_39(torch, M, card):
     """Phases 38 and 39; path 13's figures and launch counts."""
-    log("[38/39] path 13: the data-parallel tier on the card (ParallelWrapper "
+    log("[38/41] path 13: the data-parallel tier on the card (ParallelWrapper "
         "and the device prefetcher on the GPT, the prefetcher at path 4e's "
         "shape, the averaging master with its drills, the parameter server "
         "over TCP, FaultTolerantTrainer, the CLI)")
     t0 = time.perf_counter()
     figures, counts = phase_parallel(torch, M, card)
     log(f"  phase 38 {time.perf_counter() - t0:.1f} s")
-    log("[39/39] the wrapper's global view and bookkeeping over an 8-slot "
+    log("[39/41] the wrapper's global view and bookkeeping over an 8-slot "
         "mesh of the card, card against CPU (f32, TF32 off)")
     t0 = time.perf_counter()
     phase_parallel_parity(torch, M)
@@ -9856,6 +9897,798 @@ def lstm_timing_alone(torch, L, cuda_build) -> int:
     rows = phase_lstm_timing(torch, L, {}, {}, {})
     print(json.dumps({"package": pkg, "card": card,
                       "ms": {r["name"]: r["ms"] for r in rows}}), flush=True)
+    return 0
+
+
+# ---------------------------------- phases 40-41: path 14, the SPMD half
+# path 14: the JAX package's per-device bodies (tensor-parallel decode,
+# GPipe, ring and Ulysses attention, the expert-parallel MoE) once per
+# slot of one card (`parallel.mesh.set_local_slots`, `parallel.spmd`)
+P14_SLOTS = 8
+P14_DEV = "cuda"           # the device path 14's slots name
+# 14a: SERVE's GPT at tp=2: two 4096-token prompts (chunked prefill),
+# 64 tokens each
+P14_PROMPT_T, P14_TOKENS = 4096, 64
+# 14a's int8 and self-speculation runs: one 1024-token prompt, 32 tokens
+P14_SHORT_T, P14_SHORT_TOKENS = 1024, 32
+P14_GEN = dict(n_slots=2, page_size=128, prefill_chunk=256,
+               prompt_buckets=(128,), max_len=4224)
+# bf16 logits, teacher-forced over P14_LOGIT_T tokens, tp=2 against one
+# device: |diff| <= atol + rtol * max|logit| (the row-parallel products
+# add two bf16-rounded partials where one device adds one sum)
+P14_LOGIT_T, P14_LOGIT_TOL = 512, (0.05, 0.02)
+P14_GATEWAY_T, P14_GATEWAY_TOKENS = 512, 16
+# 14b: TRAIN's GPT (8 layers, B=8, T=4096, bf16 over f32 masters) over
+# pipe=4 (2 layers a stage), 4 microbatches
+P14_PIPE, P14_MICRO, P14_PIPE_STEPS = 4, 4, 3
+# 14c: a 2-layer full-width GPT over seq=2, f32, B=4 x T=4096
+P14_SEQ_LAYERS, P14_SEQ_B, P14_SEQ_STEPS = 2, 4, 2
+# 14d: a full-width GPT block + a 4-expert MoELayer (expert_axis) x 2,
+# f32, B=8 x T=1024, over expert=4; capacity factor 8: no overflow
+P14_MOE = dict(E=4, B=8, T=1024, blocks=2, steps=3, capacity_factor=8.0)
+# 14e: the global view, a 2-layer GPT over {data 2, model 4}, bf16
+P14_GLOBAL = dict(n_layers=2, B=4, T=1024, steps=2)
+# losses of the wrapped runs against net.fit of a clone on the card: f32
+# runs to P14_F32_RTOL; bf16 pipeline microbatches to P14_BF16_RTOL (the
+# matmuls see 2 rows where path 2's see 8, another bf16 rounding; the
+# first card runs measured 1.5e-5); params to 4 lr a step (Adam maps a
+# near-zero gradient's sign to a step of about lr, so two runs that round
+# differently part by up to ~2 lr)
+P14_F32_RTOL, P14_BF16_RTOL = 1e-4, 1e-3
+# Adam steps each weight by about lr whatever its gradient, so the Adam
+# runs cannot show a gradient scaled wrong or taken from part of the
+# batch: one SGD step (lr 1) of each wrapper against net.fit holds the
+# gradients themselves, the worst leaf's max |difference| over its max
+# |step| to P14_GRAD_TOL (a gradient scaled by the microbatch count
+# misses by 0.75). The first card run measured 7.8e-3 (14b, bf16),
+# 1.9e-5 (14c, f32) and 7.1e-4 (14d, f32: the experts' products see
+# their tokens grouped by expert, another order of the TF32 sums)
+P14_GRAD_TOL = {"14b": 5e-2, "14c": 1e-3, "14d": 5e-3}
+
+
+def p14_first_divergence(a, b):
+    """The first generated step at which two token rows differ, or None."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return None
+
+
+def p14_serve(torch, M, pa, net, prompts, parallel=None, trace=False,
+              n_tokens=P14_TOKENS, **kw):
+    """One 14a batch on a fresh engine (one warm-up request first): the
+    tokens, wall, paged launches (by (C, kind) and by slot), plain
+    calls, stats and bytes per slot."""
+    t_build = time.perf_counter()
+    eng = M["DecodeEngine"](net, parallel=parallel, device=P14_DEV,
+                            **P14_GEN, **kw)
+    try:
+        eng.generate(prompts[0][:16], 4)  # warm-up: handles, allocator
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t_build
+        pa.reset_counts()
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, n_tokens) for p in prompts]
+        toks = [r.result(timeout=900) for r in reqs]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        res = dict(tokens=toks, wall=wall,
+                   launches=dict(pa.paged_attention.launches_by),
+                   by_slot=dict(pa.paged_attention.launches_by_slot),
+                   plain=pa.paged_attention_plain.calls, stats=eng.stats(),
+                   bytes=eng.model_bytes_per_chip(), tp=eng._tp)
+        if trace:
+            res["trace"] = traced(torch, lambda: [
+                r.result(timeout=900) for r in
+                [eng.submit(p, n_tokens) for p in prompts]])
+    finally:
+        eng.shutdown()
+    log(f"  14a batch: parallel={parallel} {kw or ''}: engine and warm-up "
+        f"{t_build:.2f} s, batch {res['wall']:.3f} s")
+    return res
+
+
+def p14_check_launches(what, single, tp):
+    """Every shard launched the paged kernels the single engine launched,
+    nothing ran plain, nothing launched outside a slot."""
+    n1 = sum(single["launches"].values())
+    if single["plain"] or tp["plain"] or n1 == 0:
+        raise AssertionError(f"14a {what}: plain calls {single['plain']}, "
+                             f"{tp['plain']}; single launches {n1}")
+    if tp["by_slot"] != {0: n1, 1: n1} \
+            or sum(tp["launches"].values()) != 2 * n1:
+        raise AssertionError(f"14a {what}: tp=2 launches by slot "
+                             f"{tp['by_slot']}, want {n1} on each shard")
+
+
+def p14_logits(torch, M, net, tp, ids):
+    """Teacher-forced logits of `ids` (1, T) through the prefill block
+    math, on one device (`tp` None) or per tp slot."""
+    from deeplearning4j_tpu_torch.models import transformer as TR
+    from deeplearning4j_tpu_torch.serving.tp_engine import run_blocks
+
+    plan = TR.GPTPlan(net)
+    bp = plan.cast_blocks(net._params)
+    sp = bp if tp is None else tp.shard_params(bp)
+    T = ids.shape[1]
+    qpos = torch.arange(T, device=P14_DEV)
+    x = (bp[0]["W"][ids] + bp[0]["P"][:T]).to(plan.cdt)
+
+    def blocks(p_, caches, x, shard, axis_name):
+        for i in plan.block_is:
+            p, layer = p_[i], plan.layers[i]
+            q, k, v = TR._block_heads(layer, p, x, qpos, shard=shard)
+            att = TR._prefill_block_attention(layer, q, k, v)
+            x = TR._block_ffn(layer, p, x + TR._block_out_proj(
+                p, att.reshape(1, T, -1), axis_name), axis_name)
+        return x
+
+    with torch.no_grad():
+        x = run_blocks(tp, blocks, sp, [], x)
+        return plan.final_logits(bp, net._params, x).float()
+
+
+def p14a_serving(torch, M, pa, card):
+    """14a: tensor-parallel serving of SERVE's GPT over 2 slots of the
+    card, f32 tokens identical to one device; bf16 with a logit
+    tolerance; int8 KV and self-speculation; bytes per slot; one request
+    through the GatewayServer."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.models.transformer import GPTPlan
+    from deeplearning4j_tpu_torch.serving.tp_engine import TPPlan
+
+    V = SERVE["vocab_size"]
+    rng = np.random.default_rng(41)
+    prompts = [rng.integers(0, V, P14_PROMPT_T) for _ in range(2)]
+
+    def gpt(cdt):
+        """SERVE's GPT with every bias and LN shift drawn from the seed
+        too (N(0, 0.02)): a bias added on the wrong side of an
+        all-reduce then shows."""
+        net = M["MultiLayerNetwork"](M["gpt_configuration"](**SERVE, seed=41),
+                                     dtype=torch.float32, compute_dtype=cdt,
+                                     device=P14_DEV)
+        net.init()
+        g = torch.Generator(device=P14_DEV).manual_seed(41)
+        with torch.no_grad():
+            for p in net._params:
+                for name, t in sorted(p.items()):
+                    if name.startswith("b") or name.endswith("_b"):
+                        t.add_(0.02 * torch.randn(t.shape, generator=g,
+                                                  device=P14_DEV))
+        return net
+
+    out = {}
+    net32 = gpt(None)
+    s32 = p14_serve(torch, M, pa, net32, prompts)
+    t32 = p14_serve(torch, M, pa, net32, prompts, {"tp": 2})
+    p14_check_launches("f32", s32, t32)
+    same = all(np.array_equal(a, b)
+               for a, b in zip(s32["tokens"], t32["tokens"]))
+    log(f"  14a f32: tp=2 tokens identical to one device: {same}; paged "
+        f"launches one device {s32['launches']}, tp=2 by (C, kind) "
+        f"{t32['launches']} and by slot {t32['by_slot']}; wall "
+        f"{s32['wall']:.3f} s / {t32['wall']:.3f} s")
+    if not same:
+        at = [p14_first_divergence(a, b)
+              for a, b in zip(s32["tokens"], t32["tokens"])]
+        raise AssertionError(f"14a: f32 tp=2 tokens differ from one device "
+                             f"at steps {at}")
+    short = [prompts[0][:P14_SHORT_T]]
+    i8 = p14_serve(torch, M, pa, net32, short, n_tokens=P14_SHORT_TOKENS,
+                   quantize={"kv": "int8"})
+    t8 = p14_serve(torch, M, pa, net32, short, {"tp": 2},
+                   n_tokens=P14_SHORT_TOKENS, quantize={"kv": "int8"})
+    p14_check_launches("int8", i8, t8)
+    same8 = np.array_equal(i8["tokens"][0], t8["tokens"][0])
+    spec = p14_serve(torch, M, pa, net32, short, {"tp": 2},
+                     n_tokens=P14_SHORT_TOKENS,
+                     speculative={"draft": "self", "k": 4})
+    want_spec = M["generate"](net32, short[0][None], P14_SHORT_TOKENS,
+                              temperature=0.0, device=P14_DEV)[0]
+    same_spec = np.array_equal(spec["tokens"][0], want_spec)
+    log(f"  14a int8 KV (f32 compute; a {P14_SHORT_T}-token prompt, "
+        f"{P14_SHORT_TOKENS} tokens): tp=2 tokens identical to one "
+        f"device's int8: {same8}, launches by slot {t8['by_slot']}; "
+        f"self-speculation (k=4) at tp=2 identical to f32 `generate`: "
+        f"{same_spec}, launches {spec['launches']}, accept rate "
+        f"{spec['stats'].get('spec_accept_rate')}")
+    if not (same8 and same_spec) or spec["plain"] \
+            or set(spec["by_slot"]) != {0, 1}:
+        raise AssertionError(f"14a: int8 {same8}, speculative {same_spec}, "
+                             f"plain {spec['plain']}, {spec['by_slot']}")
+    tp = TPPlan(net32, GPTPlan(net32), 2)
+    full = sum(t.numel() * t.element_size() for p in net32._params
+               for t in p.values())
+    wpc = tp.weight_bytes_per_chip(net32._params)
+    log(f"  14a bytes: weights {full} unsharded, {wpc} per slot at tp=2 "
+        f"({wpc / full:.3f}); engine bytes per slot one device "
+        f"{s32['bytes']}, tp=2 {t32['bytes']}")
+    if not wpc < full or not t32["bytes"] < s32["bytes"]:
+        raise AssertionError(f"14a: bytes per slot {wpc} vs {full}")
+    ids = torch.as_tensor(prompts[0][None, :P14_LOGIT_T].astype(np.int64),
+                          device=P14_DEV)
+    tp_sh = t32["tp"]
+    d32 = (p14_logits(torch, M, net32, None, ids)
+           - p14_logits(torch, M, net32, tp_sh, ids)).abs().max().item()
+    del net32
+    torch.cuda.empty_cache()
+
+    net16 = gpt(torch.bfloat16)
+    s16 = p14_serve(torch, M, pa, net16, prompts, trace=True)
+    t16 = p14_serve(torch, M, pa, net16, prompts, {"tp": 2}, trace=True)
+    p14_check_launches("bf16", s16, t16)
+    tp16 = TPPlan(net16, GPTPlan(net16), 2)
+    l1 = p14_logits(torch, M, net16, None, ids)
+    d16 = (l1 - p14_logits(torch, M, net16, tp16, ids)).abs().max().item()
+    atol, rtol = P14_LOGIT_TOL
+    bound = atol + rtol * l1.abs().max().item()
+    div = [p14_first_divergence(a, b)
+           for a, b in zip(s16["tokens"], t16["tokens"])]
+    toks = 2 * P14_TOKENS
+    log(f"  14a bf16: teacher-forced logits over {P14_LOGIT_T} tokens, "
+        f"max |tp=2 - one device| {d16:.4e} (tolerance {bound:.4e}; f32 "
+        f"{d32:.4e}); first divergent generated step per request {div}; "
+        f"{toks / s16['wall']:.1f} generated tokens/s on one device, "
+        f"{toks / t16['wall']:.1f} at tp=2 [{card}]")
+    log(f"  14a traced batch, one device: {s16['trace']}")
+    log(f"  14a traced batch, tp=2: {t16['trace']}")
+    if not d16 <= bound:
+        raise AssertionError(f"14a: bf16 logits differ by {d16} > {bound}")
+
+    G = M["gateway"]
+    gw = G.GatewayServer(serving={"generation": dict(P14_GEN),
+                                  "parallel": {"tp": 2}},
+                         device=P14_DEV).start()
+    try:
+        client = G.GatewayClient(port=gw.port, timeout=900.0)
+        client.call("create_model", name="m",
+                    config=json.loads(net16.conf.to_json()))
+        gw.entry._models["m"].set_param_tree(net16._params)
+        p = prompts[1][:P14_GATEWAY_T]
+        got = client.call("generate", name="m", prompt_ids=p,
+                          n_tokens=P14_GATEWAY_TOKENS, _timeout=900.0)
+        st = gw.entry._servers["m"]._engine.stats()
+        client.close()
+    finally:
+        gw.stop(drain_timeout=5.0)
+    want = M["generate"](net16, p[None], P14_GATEWAY_TOKENS, temperature=0.0,
+                         device=P14_DEV)[0]
+    log(f"  14a gateway: one request over the wire at tp={st['tp_degree']}: "
+        f"{got.tolist()[:8]}...; generate on one device: first divergent "
+        f"step {p14_first_divergence(got, want)}")
+    if st["tp_degree"] != 2 or got.shape != (P14_GATEWAY_TOKENS,):
+        raise AssertionError(f"14a gateway: {st['tp_degree']}, {got.shape}")
+    out.update({"f32_identical": same, "int8_identical": same8,
+                "spec_identical": same_spec, "bf16_logit_maxdiff": d16,
+                "tokens_per_s": {"one": toks / s16["wall"],
+                                 "tp2": toks / t16["wall"]},
+                "weight_bytes": {"unsharded": full, "per_slot": wpc}})
+    # paged launches by (compute dtype, C, kind): the f32 runs and the
+    # bf16 run go to different rows of the kernels line
+    paged = {}
+    for cdt, res in (("f32", t32), ("f32", t8), ("f32", spec),
+                     ("bf16", t16)):
+        for (C, kind), n in res["launches"].items():
+            paged[(cdt, C, kind)] = paged.get((cdt, C, kind), 0) + n
+    del net16
+    torch.cuda.empty_cache()
+    return out, paged
+
+
+def p14_params_diff(torch, a, b) -> float:
+    return max((x - y).abs().max().item()
+               for pa_, pb in zip(a._params, b._params)
+               for x, y in zip(pa_.values(), pb.values()))
+
+
+def p14_fit_pair(torch, M, wrapper, net, ref, batches, name):
+    """Train the wrapper and a clone's net.fit on the same batches: the
+    step ms of each, the losses of each."""
+    w_ms, r_ms, wl, rl = [], [], [], []
+    for x, y in batches:
+        ds = M["DataSet"](x, y)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wrapper.fit(ds)
+        torch.cuda.synchronize()
+        w_ms.append(1e3 * (time.perf_counter() - t0))
+        wl.append(net.score_value)
+        t0 = time.perf_counter()
+        ref.fit(ds)
+        torch.cuda.synchronize()
+        r_ms.append(1e3 * (time.perf_counter() - t0))
+        rl.append(ref.score_value)
+    log(f"  {name}: losses {wl} against net.fit {rl}; step ms "
+        f"{[round(t, 1) for t in w_ms]} against "
+        f"{[round(t, 1) for t in r_ms]}")
+    return w_ms, r_ms, wl, rl
+
+
+def p14_check_fit(torch, name, net, ref, wl, rl, rtol, lr, steps):
+    import numpy as np
+
+    dp = p14_params_diff(torch, net, ref)
+    ptol = 4 * lr * steps
+    log(f"  {name}: max |param diff| {dp:.3e} (tolerance {ptol:.1e}); loss "
+        f"rtol {rtol:.0e}")
+    if not (np.all(np.isfinite(wl))
+            and np.allclose(wl, rl, rtol=rtol, atol=0) and dp <= ptol):
+        raise AssertionError(f"{name}: losses {wl} vs {rl}, params {dp}")
+
+
+def p14_grad_check(torch, M, name, net, wrap, batch, tol):
+    """One SGD step (lr 1) of `wrap(net)` against net.fit of a clone on
+    `batch`: each param moves by minus its gradient, so the worst leaf's
+    max |wrapper - net.fit| over its max |net.fit step| is the wrapper's
+    relative gradient error. A leaf that net.fit leaves still must stay
+    still."""
+    ref = net.clone()
+    before = [{k: t.detach().clone() for k, t in p.items()}
+              for p in net._params]
+    ds = M["DataSet"](*batch)
+    wrap(net).fit(ds)
+    ref.fit(ds)
+    worst, at = 0.0, None
+    for i, (p0, pw, pr) in enumerate(zip(before, net._params, ref._params)):
+        for k, t0 in p0.items():
+            err = (pw[k] - pr[k]).abs().max().item()
+            step = (pr[k] - t0).abs().max().item()
+            r = err / step if step else (0.0 if err == 0 else float("inf"))
+            if r >= worst:
+                worst, at = r, f"{i}.{k}"
+    log(f"  {name}: one SGD step (lr 1) against net.fit: worst leaf {at}, "
+        f"max |param diff| / max |step| {worst:.3e} (tolerance {tol:.0e})")
+    if not worst <= tol:
+        raise AssertionError(f"{name}: the wrapper's gradients differ from "
+                             f"net.fit's by {worst} of a step at {at}")
+    return worst
+
+
+def p14b_pipeline(torch, M, fa, card):
+    """14b: PipelineParallelWrapper over pipe=4 slots trains TRAIN's GPT;
+    the flash kernels launch in every stage."""
+    import numpy as np
+
+    P = M["parallel"]
+    net = M["MultiLayerNetwork"](M["gpt_configuration"](**TRAIN, seed=42),
+                                 dtype=torch.float32,
+                                 compute_dtype=torch.bfloat16, device=P14_DEV)
+    net.init()
+    ref = net.clone()
+    batches = gpt_batches(np, TRAIN["vocab_size"], TRAIN_B, TRAIN_T,
+                          P14_PIPE_STEPS, seed=42)
+    mesh = P.make_mesh({"pipe": P14_PIPE}, devices=[P14_DEV] * P14_PIPE)
+    sgd = M["MultiLayerNetwork"](
+        M["gpt_configuration"](**TRAIN, seed=42, updater="sgd",
+                               learning_rate=1.0),
+        dtype=torch.float32, compute_dtype=torch.bfloat16, device=P14_DEV)
+    sgd.init()
+    grad_err = p14_grad_check(
+        torch, M, "14b", sgd, lambda n: P.PipelineParallelWrapper(
+            n, mesh, microbatches=P14_MICRO), batches[0],
+        P14_GRAD_TOL["14b"])
+    del sgd
+    pw = P.PipelineParallelWrapper(net, mesh, microbatches=P14_MICRO)
+    k = pw.layers_per_stage
+    fa.reset_counts()
+    w_ms, r_ms, wl, rl = p14_fit_pair(torch, M, pw, net, ref, batches,
+                                      "14b pipeline")
+    by = dict(fa.launches_by_slot)
+    want = P14_PIPE_STEPS * P14_MICRO * k
+    per_stage = {kind: [by.get((kind, s), 0) for s in range(P14_PIPE)]
+                 for kind in ("fwd", "dq", "dkv")}
+    ref_n = {kind: by.get((kind, None), 0) for kind in ("fwd", "dq", "dkv")}
+    log(f"  14b: {P14_PIPE} stages x {k} layers, {P14_MICRO} microbatches "
+        f"of {TRAIN_B // P14_MICRO}; flash launches per stage {per_stage} "
+        f"(want {want} each), net.fit's {ref_n}; median step "
+        f"{sorted(w_ms)[1]:.1f} ms, path 2's (net.fit, B={TRAIN_B}) "
+        f"{sorted(r_ms)[1]:.1f} ms [{card}]")
+    if any(v != [want] * P14_PIPE for v in per_stage.values()) \
+            or fa.flash_attention_plain_fwd.calls:
+        raise AssertionError(f"14b: flash launches per stage {per_stage}")
+    p14_check_fit(torch, "14b", net, ref, wl, rl, P14_BF16_RTOL, 3e-4,
+                  P14_PIPE_STEPS)
+    counts = {kind: sum(per_stage[kind]) for kind in per_stage}
+    del net, ref, pw
+    torch.cuda.empty_cache()
+    return {"step_ms": sorted(w_ms)[1], "path2_ms": sorted(r_ms)[1],
+            "losses": wl, "sgd_grad_err": grad_err}, counts
+
+
+def p14c_sequence(torch, M, card):
+    """14c: SequenceParallelWrapper over seq=2 trains a 2-layer
+    full-width GPT at T=4096 (f32); ring and Ulysses attention against
+    whole-sequence attention at that shape."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.ops.attention import full_attention
+
+    P = M["parallel"]
+    conf = M["gpt_configuration"](**{**TRAIN, "n_layers": P14_SEQ_LAYERS},
+                                  seed=43)
+    net = M["MultiLayerNetwork"](conf, device=P14_DEV)
+    net.init()
+    ref = net.clone()
+    batches = gpt_batches(np, TRAIN["vocab_size"], P14_SEQ_B, TRAIN_T,
+                          P14_SEQ_STEPS, seed=43)
+    mesh = P.make_mesh({"seq": 2}, devices=[P14_DEV] * 2)
+    sgd = M["MultiLayerNetwork"](M["gpt_configuration"](
+        **{**TRAIN, "n_layers": P14_SEQ_LAYERS}, seed=43, updater="sgd",
+        learning_rate=1.0), device=P14_DEV)
+    sgd.init()
+    grad_err = p14_grad_check(
+        torch, M, "14c", sgd, lambda n: P.SequenceParallelWrapper(n, mesh),
+        batches[0], P14_GRAD_TOL["14c"])
+    del sgd
+    sp = P.SequenceParallelWrapper(net, mesh)
+    torch.cuda.reset_peak_memory_stats()
+    w_ms, r_ms, wl, rl = p14_fit_pair(torch, M, sp, net, ref, batches,
+                                      "14c sequence parallel (ring)")
+    peak = torch.cuda.max_memory_allocated()
+    p14_check_fit(torch, "14c", net, ref, wl, rl, P14_F32_RTOL, 3e-4,
+                  P14_SEQ_STEPS)
+    del net, ref, sp
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=P14_DEV).manual_seed(43)
+    H, D = TRAIN["n_heads"], TRAIN["d_model"] // TRAIN["n_heads"]
+    q, k, v = (torch.randn((P14_SEQ_B, TRAIN_T, H, D), generator=g,
+                           device=P14_DEV) for _ in range(3))
+    with torch.no_grad():
+        want = full_attention(q, k, v, causal=True)
+        errs = {}
+        for fn in (P.ring_attention, P.ulysses_attention):
+            errs[fn.__name__] = (fn(q, k, v, mesh, causal=True)
+                                 - want).abs().max().item()
+    log(f"  14c: ring and Ulysses against whole-sequence attention at "
+        f"({P14_SEQ_B}, {TRAIN_T}, {H}, {D}) f32: max abs err {errs} "
+        f"(tolerance 1e-4); peak memory of the wrapped steps "
+        f"{peak / 2**30:.2f} GiB; median step {sorted(w_ms)[0]:.1f} ms "
+        f"against net.fit's {sorted(r_ms)[0]:.1f} ms [{card}]")
+    if max(errs.values()) > 1e-4:
+        raise AssertionError(f"14c: ring/Ulysses errors {errs}")
+    del q, k, v, want
+    torch.cuda.empty_cache()
+    return {"step_ms": sorted(w_ms)[0], "fit_ms": sorted(r_ms)[0],
+            "attention_err": errs, "sgd_grad_err": grad_err}
+
+
+def p14d_experts(torch, M, card):
+    """14d: MoELayers with expert_axis over expert=4 slots under
+    ParallelWrapper, against the replicated MoE (net.fit of a clone)."""
+    import numpy as np
+
+    P, C = M["parallel"], M["conf"]
+    d, V = TRAIN["d_model"], TRAIN["vocab_size"]
+
+    def moe_net(updater, lr):
+        b = (C.NeuralNetConfiguration.Builder().seed(44).learning_rate(lr)
+             .updater(updater).list()
+             .layer(M["TokenEmbedding"](n_in=V, n_out=d,
+                                        max_length=P14_MOE["T"])))
+        for _ in range(P14_MOE["blocks"]):
+            b = (b.layer(C.TransformerBlock(n_in=d, n_out=d,
+                                            n_heads=TRAIN["n_heads"],
+                                            block_size=512))
+                 .layer(C.MoELayer(
+                     n_in=d, n_out=d, n_experts=P14_MOE["E"],
+                     capacity_factor=P14_MOE["capacity_factor"],
+                     expert_axis="expert")))
+        conf = (b.layer(C.LayerNormalization(n_in=d, n_out=d))
+                .layer(C.RnnOutputLayer(n_in=d, n_out=V,
+                                        activation="softmax",
+                                        loss="mcxent"))
+                .set_input_type(C.InputType.recurrent(V)).build())
+        net = M["MultiLayerNetwork"](conf, device=P14_DEV)
+        net.init()
+        return net
+
+    mesh = P.make_mesh({"expert": P14_MOE["E"]},
+                       devices=[P14_DEV] * P14_MOE["E"])
+    batches = gpt_batches(np, V, P14_MOE["B"], P14_MOE["T"],
+                          P14_MOE["steps"], seed=44)
+    grad_err = p14_grad_check(
+        torch, M, "14d", moe_net("sgd", 1.0),
+        lambda n: P.ParallelWrapper(n, mesh=mesh), batches[0],
+        P14_GRAD_TOL["14d"])
+    net = moe_net("adam", 3e-4)
+    ref = net.clone()
+    pw = P.ParallelWrapper(net, mesh=mesh)
+    w_ms, r_ms, wl, rl = p14_fit_pair(
+        torch, M, pw, net, ref, batches, "14d expert parallel")
+    p14_check_fit(torch, "14d", net, ref, wl, rl, 1e-3, 3e-4,
+                  P14_MOE["steps"])
+    log(f"  14d: median step {sorted(w_ms)[1]:.1f} ms over {P14_MOE['E']} "
+        f"expert slots against the replicated MoE's "
+        f"{sorted(r_ms)[1]:.1f} ms [{card}]")
+    del net, ref, pw
+    torch.cuda.empty_cache()
+    return {"step_ms": sorted(w_ms)[1], "replicated_ms": sorted(r_ms)[1],
+            "sgd_grad_err": grad_err}
+
+
+def p14e_global_view(torch, M):
+    """14e: ParallelWrapper(param_specs=...) over {data 2, model 4} on one
+    card: every step bit-identical to net.fit."""
+    import numpy as np
+
+    P = M["parallel"]
+    conf = M["gpt_configuration"](
+        **{**TRAIN, "n_layers": P14_GLOBAL["n_layers"],
+           "max_length": P14_GLOBAL["T"]}, seed=45)
+    net = M["MultiLayerNetwork"](conf, dtype=torch.float32,
+                                 compute_dtype=torch.bfloat16, device=P14_DEV)
+    net.init()
+    ref = net.clone()
+    mesh = P.make_mesh({"data": 2, "model": 4}, devices=[P14_DEV] * 8)
+    specs = {i: {"Wqkv": (None, "model"), "Wo": ("model", None),
+                 "W1": (None, "model"), "W2": ("model", None)}
+             for i in (1, 2)}
+    pw = P.ParallelWrapper(net, mesh=mesh, param_specs=specs)
+    for x, y in gpt_batches(np, TRAIN["vocab_size"], P14_GLOBAL["B"],
+                            P14_GLOBAL["T"], P14_GLOBAL["steps"], seed=45):
+        pw.fit(M["DataSet"](x, y))
+        ref.fit(M["DataSet"](x, y))
+        if net.score_value != ref.score_value:
+            raise AssertionError(f"14e: {net.score_value} != "
+                                 f"{ref.score_value}")
+    same = all(torch.equal(a, b) for p, q in zip(net._params, ref._params)
+               for a, b in zip(p.values(), q.values()))
+    log(f"  14e: {P14_GLOBAL['steps']} steps over {dict(mesh.shape)} with "
+        f"Megatron param_specs: bit-identical to net.fit: {same}")
+    if not same:
+        raise AssertionError("14e: the global view's params differ")
+    del net, ref, pw
+    torch.cuda.empty_cache()
+
+
+def phase_spmd(torch, M, pa, fa, card):
+    """Phase 40: path 14 on P14_SLOTS slots of the card."""
+    from deeplearning4j_tpu_torch.parallel import mesh as pmesh
+
+    saved = pmesh._SLOTS
+    pmesh.set_local_slots(P14_SLOTS, P14_DEV)
+    try:
+        t0 = time.perf_counter()
+        a, paged = p14a_serving(torch, M, pa, card)
+        log(f"  14a {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        b, flash = p14b_pipeline(torch, M, fa, card)
+        log(f"  14b {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        c = p14c_sequence(torch, M, card)
+        log(f"  14c {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        d = p14d_experts(torch, M, card)
+        log(f"  14d {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        p14e_global_view(torch, M)
+        log(f"  14e {time.perf_counter() - t0:.1f} s")
+    finally:
+        pmesh._SLOTS = saved
+    return {"14a": a, "14b": b, "14c": c, "14d": d}, {"paged": paged,
+                                                      "flash": flash}
+
+
+def p41_collectives(torch, spmd, P, mesh_of):
+    """The SPMD runtime's collectives on 4 slots of the card against 4
+    CPU slots, same inputs: bit-identical (slot-order sums, copies)."""
+    g = torch.Generator().manual_seed(46)
+    x = torch.randn((16, 8, 6), generator=g)
+    spec = P(("a", "b"))
+
+    def body(t):
+        return (spmd.psum(t, "b"), spmd.pmean(t, ("a", "b")),
+                spmd.ppermute(t, "b", [(0, 1), (1, 0)]),
+                spmd.all_to_all(t, "a", 1, 0, tiled=True),
+                spmd.all_gather(t, ("a", "b"), axis=2, tiled=True))
+
+    outs = {}
+    for dev in (P14_DEV, "cpu"):
+        fn = spmd.shard_map(body, mesh_of({"a": 2, "b": 2}, dev),
+                            in_specs=(spec,), out_specs=(spec,) * 5)
+        outs[dev] = [o.cpu() for o in fn(x.to(dev))]
+    same = [torch.equal(a, b) for a, b in zip(outs[P14_DEV], outs["cpu"])]
+    log(f"  collectives (psum, pmean, ppermute, all_to_all, all_gather) "
+        f"card vs CPU bit-identical: {same}")
+    if not all(same):
+        raise AssertionError(f"phase 41: collectives differ: {same}")
+
+
+def phase_spmd_parity(torch, M):
+    """Phase 41: the SPMD runtime and the new bodies, card against CPU
+    (f32, TF32 off): the collectives bit-identical; ring and Ulysses
+    attention, the pipeline and the expert-parallel MoE to 1e-5; a tp=2
+    DecodeEngine on slots of the card and on CPU slots, tokens
+    identical."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.parallel import experts as EX
+    from deeplearning4j_tpu_torch.parallel import mesh as pmesh
+    from deeplearning4j_tpu_torch.parallel import spmd
+
+    P = M["parallel"]
+
+    def mesh_of(axes, dev):
+        n = int(np.prod(list(axes.values())))
+        return P.make_mesh(axes, devices=[dev] * n)
+
+    p41_collectives(torch, spmd, spmd.P, mesh_of)
+    g = torch.Generator().manual_seed(47)
+    q, k, v = (torch.randn((2, 256, 4, 32), generator=g) for _ in range(3))
+    W = torch.randn((4, 32, 32), generator=g) * 0.2
+    xs = torch.randn((16, 32), generator=g)
+    rw = torch.randn((32, 4), generator=g)
+    ex = {"W1": torch.randn((4, 32, 64), generator=g) * 0.2,
+          "W2": torch.randn((4, 64, 32), generator=g) * 0.2}
+    res = {}
+    for dev in (P14_DEV, "cpu"):
+        m = mesh_of({"seq": 4}, dev)
+        qq, kk, vv = (t.to(dev) for t in (q, k, v))
+        r = [P.ring_attention(qq, kk, vv, m, causal=True),
+             P.ulysses_attention(qq, kk, vv, m, causal=True),
+             P.pipeline_apply(lambda p, t: torch.tanh(t @ p), W.to(dev),
+                              xs.to(dev), mesh_of({"pipe": 4}, dev),
+                              microbatches=4),
+             EX.moe_apply(lambda p, t: torch.relu(t @ p["W1"]) @ p["W2"],
+                          {n: t.to(dev) for n, t in ex.items()}, xs.to(dev),
+                          rw.to(dev), mesh_of({"expert": 4}, dev),
+                          capacity_factor=8.0)[0]]
+        res[dev] = [t.cpu() for t in r]
+    errs = [(a - b).abs().max().item() for a, b in zip(res[P14_DEV],
+                                                       res["cpu"])]
+    log(f"  ring, Ulysses, pipeline_apply, moe_apply card vs CPU: max abs "
+        f"err {errs} (tolerance 1e-5)")
+    if max(errs) > 1e-5:
+        raise AssertionError(f"phase 41: bodies card vs CPU {errs}")
+    conf = M["gpt_configuration"](vocab_size=64, d_model=256, n_heads=4,
+                                  n_layers=2, max_length=64, seed=48)
+    toks = {}
+    saved = pmesh._SLOTS
+    try:
+        for dev in (P14_DEV, "cpu"):
+            net = M["MultiLayerNetwork"](conf, device=dev)
+            net.init() if dev == P14_DEV else net.set_param_tree(
+                [{n: t.cpu() for n, t in p.items()} for p in card_params])
+            if dev == P14_DEV:
+                card_params = net._params
+            pmesh.set_local_slots(2, dev)
+            eng = M["DecodeEngine"](net, n_slots=2, max_len=48, page_size=8,
+                                    prefill_chunk=8, prompt_buckets=(8,),
+                                    parallel={"tp": 2}, device=dev)
+            try:
+                p = np.arange(20) % 64
+                toks[dev] = eng.generate(p, 12)
+            finally:
+                eng.shutdown()
+    finally:
+        pmesh._SLOTS = saved
+    log(f"  tp=2 DecodeEngine (chunked prefill), card vs CPU slots: "
+        f"{toks[P14_DEV].tolist()} / {toks['cpu'].tolist()}")
+    if not np.array_equal(toks[P14_DEV], toks["cpu"]):
+        raise AssertionError("phase 41: tp=2 tokens differ card vs CPU")
+    p41_pipeline_dropout(torch, M, mesh_of)
+
+
+def p41_pipeline_dropout(torch, M, mesh_of):
+    """A 4-stage pipeline with dropout 0.1 on the card against one device
+    under `row_offset_scope(0)`: each microbatch draws its global rows'
+    masks, so the losses agree to f32 summation order (rtol 1e-5); a
+    stage keyed by its local row would miss by far more."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.ops.rng_rows import row_offset_scope
+
+    conf = M["gpt_configuration"](vocab_size=64, d_model=256, n_heads=2,
+                                  n_layers=4, max_length=256, dropout=0.1,
+                                  attention_block_size=128, seed=49)
+    ref = M["MultiLayerNetwork"](conf, device=P14_DEV)
+    ref.init()
+    net = ref.clone()
+    batches = [M["DataSet"](x, y) for x, y in gpt_batches(
+        np, 64, 8, 256, 2, seed=49)]
+    pw = M["parallel"].PipelineParallelWrapper(
+        net, mesh_of({"pipe": 4}, P14_DEV))
+    got, want = [], []
+    for ds in batches:
+        pw.fit(ds)
+        got.append(net.score_value)
+        with row_offset_scope(0):
+            ref.fit(ds)
+        want.append(ref.score_value)
+    log(f"  pipeline with dropout 0.1 on the card: losses {got} against one "
+        f"device under row_offset_scope(0) {want} (rtol 1e-5)")
+    if not np.allclose(got, want, rtol=1e-5, atol=0):
+        raise AssertionError(f"phase 41: pipeline dropout {got} vs {want}")
+
+
+# path 14's paged launches by (compute dtype, C, kind) -> the kernels
+# line's row: the bf16 rows of phase 1, the f32 rows of path 10
+# (`WIRE_F32_ROWS`), and three rows only 14a's f32 runs reach, timed at
+# the shape of one of its shards (Hkv/2 = 4 heads, 2 engine slots, the
+# 1024-token prompt) by `spmd_rows`
+P14_PAGED_ROWS = {
+    ("bf16", 1, "dense"): "paged_attention_decode",
+    ("bf16", 256, "dense"): "paged_attention_prefill_chunk",
+    ("f32", 1, "dense"): "paged_attention_decode_f32",
+    ("f32", 256, "dense"): "paged_attention_prefill_chunk_f32",
+    ("f32", 5, "dense"): "paged_attention_verify_f32",
+    ("f32", 1, "int8"): "paged_attention_int8_decode_f32",
+    ("f32", 256, "int8"): "paged_attention_int8_prefill_chunk_f32"}
+P14_SHARD = dict(H=4, Hkv=4, hd=128, page=128, n_pages=34)
+P14_F32_ROWS = (
+    ("paged_attention_verify_f32", "dense",
+     dict(S=2, C=5, positions=[1040, 0], inactive=(1,))),
+    ("paged_attention_int8_decode_f32", "int8",
+     dict(S=2, C=1, positions=[1040, 0], inactive=(1,))),
+    ("paged_attention_int8_prefill_chunk_f32", "int8",
+     dict(S=1, C=256, positions=[768])))
+
+
+def spmd_rows(torch, pa, rows, counts) -> list:
+    """Path 14's launch counts into the timing rows: 14a's paged
+    launches by compute dtype, chunk width and kind (at Hkv/2 heads a
+    shard; a key with no row raises), 14b's flash launches into rows 2-4
+    at path 2's shape (B=2 a microbatch). The f32 rows carry path 14's
+    share in `launches_by_path`. Returns the rows only path 14 reaches,
+    timed here."""
+    adds = {"flash_attention_fwd": counts["flash"]["fwd"],
+            "flash_attention_bwd_dq": counts["flash"]["dq"],
+            "flash_attention_bwd_dkv": counts["flash"]["dkv"]}
+    for key, n in counts["paged"].items():
+        if key not in P14_PAGED_ROWS:
+            raise AssertionError(f"path 14: paged launches {key} x {n} "
+                                 "have no row in the kernels line")
+        name = P14_PAGED_ROWS[key]
+        adds[name] = adds.get(name, 0) + n
+    new = [paged_row(torch, pa, name, kind, dict(P14_SHARD, **shape),
+                     torch.float32, 0)
+           for name, kind, shape in P14_F32_ROWS]
+    f32 = {name for (cdt, _, _), name in P14_PAGED_ROWS.items()
+           if cdt == "f32"}
+    for row in rows + new:
+        n = int(adds.pop(row["name"], 0))
+        row["launches"] += n
+        if row["name"] in f32:
+            row.setdefault("launches_by_path", {})["path 14"] = n
+    if any(adds.values()):
+        raise AssertionError(f"path 14: launches {adds} matched no row")
+    return new
+
+
+def phases_40_41(torch, M, pa, fa, card):
+    """Phases 40 and 41; path 14's figures and launch counts."""
+    log("[40/41] path 14: the in-process SPMD half on slots of the card "
+        "(tensor-parallel serving, the GPipe pipeline, ring and Ulysses "
+        "sequence parallelism, the expert-parallel MoE, the global view)")
+    t0 = time.perf_counter()
+    figures, counts = phase_spmd(torch, M, pa, fa, card)
+    log(f"  phase 40 {time.perf_counter() - t0:.1f} s")
+    log("[41/41] the SPMD runtime's collectives and the new bodies, card "
+        "against CPU (f32, TF32 off)")
+    t0 = time.perf_counter()
+    phase_spmd_parity(torch, M)
+    log(f"  phase 41 {time.perf_counter() - t0:.1f} s")
+    return figures, counts
+
+
+def phases_40_41_alone(torch, M, pa, fa, cuda_build) -> int:
+    """`--phases-40-41`: phases 40 and 41 alone (the paged and flash
+    sources built first), then one JSON line of path 14's figures and
+    launch counts."""
+    card = nvidia_smi_line()
+    t0 = time.perf_counter()
+    cuda_build.build(("paged_attention", "flash_attention"))
+    log(f"phases 40-41 alone [{card}]; build {time.perf_counter() - t0:.1f} "
+        "s")
+    t0 = time.perf_counter()
+    figures, counts = phases_40_41(torch, M, pa, fa, card)
+    log(f"phases 40-41 {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"card": card, "path 14": figures, "launches": {
+        "paged": {f"{d},{c},{k}": n
+                  for (d, c, k), n in counts["paged"].items()},
+        "flash": counts["flash"]}}, default=str), flush=True)
     return 0
 
 
@@ -10006,7 +10839,8 @@ def main(argv) -> int:
     to 29 alone. `--phases-30-31`: phase 7 and phases 30 and 31 alone.
     `--phases-32-33`: phases 32 and 33 alone. `--phases-34-35`: phases 34
     and 35 alone. `--phases-36-37`: phases 36 and 37 alone.
-    `--phases-38-39`: phases 38 and 39 alone."""
+    `--phases-38-39`: phases 38 and 39 alone. `--phases-40-41`: phases
+    40 and 41 alone."""
     import torch
 
     if not torch.cuda.is_available():
@@ -10049,104 +10883,106 @@ def main(argv) -> int:
         return phases_36_37_alone(torch, M)
     if "--phases-38-39" in argv:
         return phases_38_39_alone(torch, M, cuda_build)
+    if "--phases-40-41" in argv:
+        return phases_40_41_alone(torch, M, pa, fa, cuda_build)
 
     card = nvidia_smi_line()
-    log(f"[1/39] card: {card}; {torch.cuda.get_device_name(0)}; torch "
+    log(f"[1/41] card: {card}; {torch.cuda.get_device_name(0)}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}; "
         f"{torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     built = cuda_build.build(KERNEL_SOURCES)
-    log(f"[2/39] build: {time.perf_counter() - t0:.1f} s for "
+    log(f"[2/41] build: {time.perf_counter() - t0:.1f} s for "
         f"{len(built)} source(s)")
     for name, res in built.items():
         for line in ptxas_summary(res.log):
             log(f"  {name}: {line}")
 
-    log("[3/39] paged kernels against their plain versions (TF32 off)")
+    log("[3/41] paged kernels against their plain versions (TF32 off)")
     phase_kernels(torch, pa)
-    log("[4/39] flash kernels against their plain versions (TF32 off)")
+    log("[4/41] flash kernels against their plain versions (TF32 off)")
     phase_flash(torch, fa)
-    log("[5/39] f32 DecodeEngine vs generate, 2 layers, d_model 1024")
+    log("[5/41] f32 DecodeEngine vs generate, 2 layers, d_model 1024")
     phase_parity(torch, M)
-    log("[6/39] f32 training, card (kernels) vs CPU (plain), 1 layer, "
+    log("[6/41] f32 training, card (kernels) vs CPU (plain), 1 layer, "
         "d_model 1024, T=1024")
     phase_train_parity(torch, M)
-    log("[7/39] serving the 8-layer bf16 GPT at full width")
+    log("[7/41] serving the 8-layer bf16 GPT at full width")
     launches, path1_tok_s = phase_serve(torch, M, pa, card)
-    log("[8/39] serving it with int8 KV, the prefix cache and "
+    log("[8/41] serving it with int8 KV, the prefix cache and "
         "self-speculation on shared-prefix traffic")
     launches.update(phase_serve_tier(torch, M, pa, card))
-    log("[9/39] training the 8-layer bf16 gpt_long GPT at full width")
+    log("[9/41] training the 8-layer bf16 gpt_long GPT at full width")
     flash_counts = phase_train(torch, M, card, torch.bfloat16, TRAIN_B,
                                TRAIN_STEPS, 13, "wgmma")
-    log("[9/39] path 2w: the same GPT with 4 heads of 256 (the bf16 "
+    log("[9/41] path 2w: the same GPT with 4 heads of 256 (the bf16 "
         "\"wgmma wide\" flash kernels)")
     flash_counts_wide = phase_train(torch, M, card, torch.bfloat16,
                                     TRAIN_WIDE_B, TRAIN_WIDE_STEPS, 15,
                                     "wgmma wide", n_heads=TRAIN_WIDE_HEADS)
-    log("[9/39] path 2x: the same GPT with 2 heads of 512 (the bf16 "
+    log("[9/41] path 2x: the same GPT with 2 heads of 512 (the bf16 "
         "\"wgmma wide\" forward, the \"wgmma cluster\" backward)")
     flash_counts_2x = phase_train(torch, M, card, torch.bfloat16,
                                   TRAIN_2X_B, TRAIN_2X_STEPS, 16,
                                   TRAIN_2X_ROUTES, n_heads=TRAIN_2X_HEADS)
-    log("[10/39] path 2f: training the 8-layer gpt_long GPT in f32 "
+    log("[10/41] path 2f: training the 8-layer gpt_long GPT in f32 "
         "(split-TF32 flash kernels)")
     flash_counts_f32 = phase_train(torch, M, card, None, TRAIN_F32_B,
                                    TRAIN_F32_STEPS, 14, "tf32")
-    log("[11/39] LSTM kernels against their plain versions (TF32 off)")
+    log("[11/41] LSTM kernels against their plain versions (TF32 off)")
     phase_lstm_kernels(torch, L, M)
-    log("[12/39] f32 char-RNN training, card (kernels) vs CPU (plain), "
+    log("[12/41] f32 char-RNN training, card (kernels) vs CPU (plain), "
         "H=256")
     phase_lstm_train_parity(torch, M)
-    log("[13/39] training the bf16 lstm_large char-RNN at full width")
+    log("[13/41] training the bf16 lstm_large char-RNN at full width")
     lstm_counts, step4_ms = phase_lstm_train(torch, M, card, torch.bfloat16)
-    log("[14/39] training the bf16 lstm char-RNN with tBPTT 24 at full width")
+    log("[14/41] training the bf16 lstm char-RNN with tBPTT 24 at full width")
     tbptt_counts = phase_lstm_tbptt(torch, M, card)
-    log("[15/39] path 4f: training the lstm_large char-RNN in f32 "
+    log("[15/41] path 4f: training the lstm_large char-RNN in f32 "
         "(split-TF32 LSTM kernels)")
     f32_counts, _ = phase_lstm_train(torch, M, card, None, LSTM_F32_STEPS,
                                      "tf32 clusters", seed=2)
-    log("[16/39] timing at the serving and training shapes (bf16 and f32)")
+    log("[16/41] timing at the serving and training shapes (bf16 and f32)")
     rows = phase_timing(torch, pa, launches)
     rows += phase_flash_timing(torch, fa, flash_counts, flash_counts_f32,
                                flash_counts_wide, flash_counts_2x)
-    log("[17/39] timing the LSTM kernels at the char-RNN shapes (bf16 and "
+    log("[17/41] timing the LSTM kernels at the char-RNN shapes (bf16 and "
         "f32)")
     rows += phase_lstm_timing(torch, L, lstm_counts, tbptt_counts,
                               f32_counts)
-    log(f"[18/39] a GravesLSTM wider than the fused kernels (H={LSTM_WIDE}): "
+    log(f"[18/41] a GravesLSTM wider than the fused kernels (H={LSTM_WIDE}): "
         "the step loop, card vs CPU")
     phase_lstm_wide(torch, M)
-    log("[19/39] path 4s: the bf16 lstm_large char-RNN on "
+    log("[19/41] path 4s: the bf16 lstm_large char-RNN on "
         "GravesLSTMCharModellingExample's mini-batches (B=32 x T=1000, "
         "tBPTT 50)")
     lstm_4s_launches(rows, phase_lstm_4s(torch, M, card))
-    log("[20/39] path 4e: the bf16 lstm_large char-RNN through the training "
+    log("[20/41] path 4e: the bf16 lstm_large char-RNN through the training "
         "loop (async iterator, health sentinel, listeners, checkpoints, "
         "evaluate, restore, LBFGS)")
     lstm_4e_launches(rows, phase_lstm_4e(torch, M, card, step4_ms))
-    log("[21/39] path 5: the 8-layer bf16 GPT behind ModelServer (predict, "
+    log("[21/41] path 5: the 8-layer bf16 GPT behind ModelServer (predict, "
         "generate, reload under decode, rejections, the breaker, quantized "
         "weights with the drift gate, shutdown)")
     serve5_launches(rows, phase_server(torch, M, card, path1_tok_s))
-    log("[22/39] the CNN layers against the CPU and numpy (f32), path 6: "
+    log("[22/41] the CNN layers against the CPU and numpy (f32), path 6: "
         "LeNet at bench_lenet's shape, its f32 parity")
     phase_cnn_layers(torch, M)
     phase_lenet(torch, M, card)
-    log("[23/39] SelfAttention on the non-causal flash kernels, MoELayer "
+    log("[23/41] SelfAttention on the non-causal flash kernels, MoELayer "
         "against numpy, path 2m: the MoE gpt_long GPT, MoE serving")
     counts = phase_attention_moe(torch, M, pa, card)
     rows += attention_moe_rows(torch, fa, counts)
     moe_launches(rows, counts)
-    log("[24/39] path 7: ResNet-50 on CIFAR-10 at bench_resnet50's shape "
+    log("[24/41] path 7: ResNet-50 on CIFAR-10 at bench_resnet50's shape "
         "(a ComputationGraph, bf16, B=256)")
     phase_resnet(torch, M, card)
-    log("[25/39] the graph on the LSTM kernels: path 4's char-RNN as a "
+    log("[25/41] the graph on the LSTM kernels: path 4's char-RNN as a "
         "graph against the list container, a masked tBPTT graph, f32 "
         "graph parity with the CPU and numpy")
     graph_launches(rows, phase_graph_lstm(torch, M, card))
-    log("[26/39] pretraining on the card: the MNIST VAE example's VAE, the "
+    log("[26/41] pretraining on the card: the MNIST VAE example's VAE, the "
         "DeepAutoEncoder RBM stack, an AutoEncoder stack")
     phase_pretrain(torch, M, card)
     cluster_launches(rows, *phases_27_29(torch, M, pa, card))
@@ -10163,6 +10999,9 @@ def main(argv) -> int:
     path13, par_counts = phases_38_39(torch, M, card)
     log(f"  path 13: {json.dumps(path13)}")
     par_launches(rows, par_counts)
+    path14, spmd_counts = phases_40_41(torch, M, pa, fa, card)
+    log(f"  path 14: {json.dumps(path14, default=str)}")
+    rows += spmd_rows(torch, pa, rows, spmd_counts)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

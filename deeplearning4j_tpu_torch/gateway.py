@@ -45,9 +45,10 @@ Robustness (the serving-tier hardening pass):
   and speculative decoding without shipping a net object.
   (`server_stats` then carries `prefix_hit_tokens_pct` /
   `spec_accept_rate` / `spec_tokens_per_step` top-level).
-  `serving={"parallel": {"tp": N}}` (tensor-parallel serving on a mesh)
-  is not ported yet and raises `NotImplementedError` naming ROADMAP
-  queue A12b.
+  `serving={"parallel": {"tp": N}}` flows to each ModelServer the same
+  way and shards its decode engine over an N-slot tensor-parallel mesh
+  (`serving/tp_engine.py`; `parallel.mesh.set_local_slots` exposes N
+  slots of one card).
 - **client retries** — `GatewayClient` retries idempotent methods once
   with backoff after a `ConnectionResetError`/`BrokenPipeError`
   (server restart, LB connection recycle), and surfaces server-side
@@ -275,10 +276,6 @@ class EntryPoint:
         gateway wire protocol — a replica crash costs a failover plus a
         supervised respawn, not the service."""
         cfg = dict(self._serving)
-        if cfg.get("parallel") is not None:
-            raise NotImplementedError(
-                "serving={'parallel': ...} is not ported yet (ROADMAP "
-                "queue A12b: tensor-parallel serving on a mesh)")
         disagg_cfg = cfg.pop("disagg", None)
         raw_replicas = cfg.pop("replicas", 1)
         n_replicas = 1 if raw_replicas is None else int(raw_replicas)

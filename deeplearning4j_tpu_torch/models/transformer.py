@@ -144,12 +144,20 @@ class GPTPlan:
         return x @ params[self.out_i]["W"] + params[self.out_i]["b"]
 
 
-def _block_heads(layer, p, x, positions=None):
+def _block_heads(layer, p, x, positions=None, shard=None):
     """(..., d) -> q (..., H, hd) and k/v (..., Hkv, hd) for one block;
-    under RoPE q and k are rotated at `positions`."""
+    under RoPE q and k are rotated at `positions`.
+
+    `shard`: the tensor-parallel degree, inside a per-slot body over
+    head-sharded `Wqkv`/`bqkv` whose columns are permuted so each slot's
+    block is [Q_t | K_t | V_t] (`serving/tp_engine.py`): the local
+    projection yields H/shard query and Hkv/shard KV heads. RoPE rotates
+    per head, so the local heads rotate as they would globally. With
+    `shard=None` this is the single-device computation, unchanged."""
     d = x.shape[-1]
-    H, Hkv = layer.n_heads, layer._kv_heads
-    hd = d // H
+    hd = d // layer.n_heads
+    H = layer.n_heads // shard if shard else layer.n_heads
+    Hkv = layer._kv_heads // shard if shard else layer._kv_heads
     qw, kvw = H * hd, Hkv * hd
     h1 = layer_norm(x, p["ln1_g"], p["ln1_b"], layer.eps)
     qkv = h1 @ p["Wqkv"] + p["bqkv"]
@@ -167,16 +175,39 @@ def _block_heads(layer, p, x, positions=None):
     return q, k, v
 
 
-def _block_out_proj(p, att):
-    """Attention output projection on flattened head outputs (..., H*hd)."""
-    return att @ p["Wo"] + p["bo"]
+def _psum_partial(y, axis_name):
+    """Sum a row-parallel product's partials over the tensor-parallel
+    mesh axis `axis_name` (`parallel.spmd.psum`, inside a per-slot
+    body): the one all-reduce each Megatron-sharded half-block makes.
+    Identity when `axis_name` is None (one device)."""
+    if axis_name is None:
+        return y
+    from deeplearning4j_tpu_torch.parallel.spmd import psum
+
+    return psum(y, axis_name)
 
 
-def _block_ffn(layer, p, x):
+def _block_out_proj(p, att, axis_name=None):
+    """Attention output projection on flattened head outputs
+    (..., H*hd). Under tensor parallelism `att` holds the local H/tp
+    heads and `Wo` the matching rows; the replicated bias is added
+    after the all-reduce, so it lands once."""
+    return _psum_partial(att @ p["Wo"], axis_name) + p["bo"]
+
+
+def _block_ffn(layer, p, x, axis_name=None):
     """Post-attention half of the block: x + FFN(LN2(x)). An MoE block
     routes the call's tokens (all of a prefill, one per row of a decode
-    step) among its experts with the inference capacity, no aux loss."""
-    return x + ffn(layer, p, x)
+    step) among its experts with the inference capacity, no aux loss.
+
+    `axis_name`: the tensor-parallel mesh axis when `W1`/`W3` are split
+    by columns and `W2` by rows (Megatron FFN): the partial W2 product
+    is all-reduced before the replicated `b2` is added. MoE blocks do
+    not take tensor parallelism (`TPPlan` refuses them)."""
+    if axis_name is None or layer.moe_experts > 0:
+        return x + ffn(layer, p, x)
+    return x + ffn(layer, p, x,
+                   reduce=lambda y: _psum_partial(y, axis_name))
 
 
 def _top_k_filter(logits, top_k: int):

@@ -39,8 +39,9 @@ def require_partitionable_rng() -> None:
     """JAX PRNG plumbing: the JAX package warns when
     `jax_threefry_partitionable` is off, which voids its mesh-vs-single-
     chip parity of sharded negative draws. The port draws its negatives
-    from a `torch.Generator` on the table's device and has no sharded
-    path (A12b), so the flag has no counterpart."""
+    from a `torch.Generator` on the table's device and shards no draw
+    (a mesh over several devices is A12c), so the flag has no
+    counterpart."""
     raise NotImplementedError(
         "nlp.kernels.require_partitionable_rng is JAX PRNG plumbing with no "
         "counterpart in the port: negatives come from a torch.Generator "

@@ -20,7 +20,7 @@ for bit. `mesh=` (the JAX package's data-parallel training over a device
 mesh) takes a `parallel.mesh.Mesh` on one device: after the JAX
 package's check that the batch divides by the data axis, training is the
 single-device path, which is what the sharded step computes; a mesh over
-several distinct devices raises naming ROADMAP queue A12b.
+several distinct devices raises naming ROADMAP queue A12c.
 """
 from __future__ import annotations
 

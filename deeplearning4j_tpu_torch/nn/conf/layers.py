@@ -71,12 +71,30 @@ def _generator(rng: Tuple[int, ...], device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed)
 
 
+# marks a per-row key, so a row's key never equals a bulk draw's
+_ROW_KEY = 0x726F77
+
+
 def dropout(x: torch.Tensor, p: float, rng: Tuple[int, ...]) -> torch.Tensor:
     """Inverted dropout: zero each element with probability p, scale the
-    kept ones by 1 / (1 - p), the mask drawn from `rng`."""
+    kept ones by 1 / (1 - p), the mask drawn from `rng`. Inside an
+    `ops.rng_rows.row_offset_scope` each batch row draws its mask from
+    its own generator, keyed by `rng` and its global row (the scope's
+    offset plus the local row), so the masks do not depend on how the
+    batch is split; outside one, the mask is one draw over the whole
+    tensor."""
+    from deeplearning4j_tpu_torch.ops.rng_rows import current_row_offset
+
     keep = 1.0 - p
-    m = torch.rand(x.shape, generator=_generator(rng, x.device),
-                   device=x.device) < keep
+    off = current_row_offset()
+    if off is None:
+        m = torch.rand(x.shape, generator=_generator(rng, x.device),
+                       device=x.device) < keep
+    else:
+        rows = [_generator(tuple(rng) + (_ROW_KEY, int(off) + r), x.device)
+                for r in range(x.shape[0])]
+        m = torch.stack([torch.rand(x.shape[1:], generator=g,
+                                    device=x.device) for g in rows]) < keep
     return torch.where(m, x / keep, torch.zeros((), dtype=x.dtype,
                                                 device=x.device))
 
@@ -1161,12 +1179,14 @@ class TransformerBlock(FeedForwardLayer):
 
 
 def ffn(layer: TransformerBlock, p: Params, x: torch.Tensor, *,
-        mask=None, train: bool = False) -> torch.Tensor:
+        mask=None, train: bool = False, reduce=None) -> torch.Tensor:
     """The block's FFN term on LN2(x): gelu (tanh form), swiglu, or the
     Switch experts over the flattened tokens with `passthrough="zero"`
     (the block adds its own residual, so a dropped token's term is 0;
     `mask` (B, T) keeps padding out of the routing; `train` adds the
-    load-balancing loss)."""
+    load-balancing loss). `reduce`: applied to the dense W2 product
+    before `b2` is added (tensor parallelism's all-reduce of the
+    row-parallel partials); None on one device."""
     h2 = layer_norm(x, p["ln2_g"], p["ln2_b"], layer.eps)
     if layer.moe_experts > 0:
         from deeplearning4j_tpu_torch.parallel.experts import switch_ffn
@@ -1181,9 +1201,10 @@ def ffn(layer: TransformerBlock, p: Params, x: torch.Tensor, *,
                           train=train,
                           passthrough="zero").reshape(*lead, -1)
     if layer.ffn_activation == "swiglu":
-        return (F.silu(h2 @ p["W1"]) * (h2 @ p["W3"])) @ p["W2"] + p["b2"]
-    return F.gelu(h2 @ p["W1"] + p["b1"], approximate="tanh") @ p["W2"] \
-        + p["b2"]
+        y = (F.silu(h2 @ p["W1"]) * (h2 @ p["W3"])) @ p["W2"]
+    else:
+        y = F.gelu(h2 @ p["W1"] + p["b1"], approximate="tanh") @ p["W2"]
+    return (y if reduce is None else reduce(y)) + p["b2"]
 
 
 @register_layer
@@ -1193,9 +1214,10 @@ class MoELayer(FeedForwardLayer):
     the same shape; the router picks one expert per token, overflow
     tokens pass through (`parallel.experts.switch_ffn`, global capacity
     over the flattened tokens); the load-balancing loss joins the
-    training loss. `expert_axis` names the expert-parallel mesh axis of
-    the JAX package; with no mesh (the only case the port has: the
-    sharded path is ROADMAP queue A12b) the layer runs replicated."""
+    training loss. `expert_axis` names the expert-parallel mesh axis:
+    inside `parallel.experts.expert_mesh_scope` over a mesh with that
+    axis (`ParallelWrapper` opens it) the experts run one per slot
+    (`switch_ffn_sharded`), elsewhere the layer runs replicated."""
 
     TYPE = "moe"
     input_kind = "rnn"
@@ -1233,15 +1255,35 @@ class MoELayer(FeedForwardLayer):
         }
 
     def forward(self, params, x, *, train=False, rng: Rng = None, mask=None):
-        from deeplearning4j_tpu_torch.parallel.experts import switch_ffn
+        from deeplearning4j_tpu_torch.parallel.experts import (
+            current_expert_mesh,
+            switch_ffn,
+            switch_ffn_sharded,
+        )
 
         x = self._maybe_dropout(x, train, rng)
         shape = x.shape
         # padding tokens neither route, take capacity nor weigh the loss
         token_mask = (mask.reshape(-1) if mask is not None
                       and len(shape) == 3 else None)
+        act = activation_fn(self.expert_activation)
+        scope = current_expert_mesh()
+        if (self.expert_axis and scope is not None
+                and self.expert_axis in scope[0].shape):
+            if token_mask is not None:
+                raise NotImplementedError(
+                    "masked sequences are not supported on the expert-"
+                    "parallel path yet — train unmasked batches, or drop "
+                    "expert_axis to use the replicated path")
+            mesh, data_axis = scope
+            y = switch_ffn_sharded(
+                params, x.reshape(-1, shape[-1]), mesh,
+                axis_name=self.expert_axis, data_axis=data_axis, act=act,
+                capacity_factor=self.capacity_factor,
+                aux_weight=self.aux_loss_weight, train=train)
+            return y.reshape(shape)
         y = switch_ffn(params, x.reshape(-1, shape[-1]),
-                       act=activation_fn(self.expert_activation),
+                       act=act,
                        capacity_factor=self.capacity_factor,
                        aux_weight=self.aux_loss_weight,
                        token_mask=token_mask, train=train)

@@ -7,8 +7,8 @@ cached attention; the paged pools K (P+1, Hkv, D, page) and
 V (P+1, Hkv, page, D), page 0 the trash page, for paged attention.
 
 `multi_head_attention` is the layers' entry to whole-sequence attention
-and decides its route from shape and mask alone, as the JAX package
-does: flash attention (`ops/flash_attention.py`) for unmasked sequences
+and decides its route from shape and mask alone (ring attention inside a
+`sequence_parallel_scope`), as the JAX package does: flash attention (`ops/flash_attention.py`) for unmasked sequences
 longer than `block_size` that its kernels take, blockwise attention for
 the other long sequences, full attention otherwise. The `*_auto`
 functions are the serving path's entry to paged attention. Both dispatch
@@ -18,18 +18,36 @@ kernel or raises.
 """
 from __future__ import annotations
 
+import math
 from contextlib import contextmanager
 from typing import Optional
 
+import numpy as np
 import torch
 
 NEG_INF = -1e30  # large-negative instead of -inf: keeps exp()/where() NaN-free
 
 
+def _round_bf16(x: np.float32) -> float:
+    """`x` rounded to bfloat16 (to nearest, ties to even), as a float."""
+    b = int(np.array([x], np.float32).view(np.uint32)[0])
+    b = (b + 0x7FFF + ((b >> 16) & 1)) & 0xFFFF0000
+    return float(np.array([b], np.uint32).view(np.float32)[0])
+
+
 def _sqrt_d(d: int, dtype: torch.dtype) -> float:
     """sqrt(d) rounded to `dtype`, as the JAX package divides by
-    `jnp.sqrt(jnp.asarray(d, q.dtype))`."""
-    return float(torch.tensor(float(d), dtype=dtype).sqrt())
+    `jnp.sqrt(jnp.asarray(d, q.dtype))`: the correctly rounded square
+    root (numpy's; torch's CPU square root is not correctly rounded at
+    every d, and this runs on the host for every attention call, slot
+    threads included), bf16 and f16 through f32 as XLA computes them."""
+    if dtype == torch.float64:
+        return math.sqrt(d)
+    if dtype == torch.float16:
+        return float(np.sqrt(np.float16(d)))
+    if dtype == torch.bfloat16:
+        return _round_bf16(np.sqrt(np.float32(_round_bf16(np.float32(d)))))
+    return float(np.sqrt(np.float32(d)))
 
 
 def _causal_keep(Tq: int, Tk: int, device) -> torch.Tensor:
@@ -158,8 +176,13 @@ _SEQ_PARALLEL: list = []
 @contextmanager
 def sequence_parallel_scope(mesh, axis_name: str = "seq",
                             batch_axis: Optional[str] = None):
-    """Ring attention over a sequence-sharded mesh: not ported. Inside
-    this scope `multi_head_attention` raises (ROADMAP queue A12b)."""
+    """Within this scope `multi_head_attention` (so every attention layer
+    run inside it) computes by ring attention with the time axis split
+    over `axis_name` of `mesh` (`parallel.sequence.ring_attention`), as
+    `SequenceParallelWrapper`'s steps do."""
+    if mesh is None or axis_name not in getattr(mesh, "shape", {}):
+        raise ValueError(f"sequence_parallel_scope needs a mesh with a "
+                         f"{axis_name!r} axis, got {mesh!r}")
     _SEQ_PARALLEL.append((mesh, axis_name, batch_axis))
     try:
         yield
@@ -180,21 +203,18 @@ def _flash_route(q, k, causal: bool) -> bool:
 
 def multi_head_attention(q, k, v, *, causal=False, key_mask=None,
                          block_size: Optional[int] = None):
-    """Whole-sequence attention for the layer forward. Long sequences
-    (longer than `block_size`) with no key mask go to `flash_attention`
-    when its shape test passes (the kernels on a CUDA tensor, the plain
-    version on a CPU tensor), other long sequences to
-    `blockwise_attention`, short ones to full attention.
+    """Whole-sequence attention for the layer forward. Inside a
+    `sequence_parallel_scope` every call is ring attention over the
+    scope's mesh. Otherwise long sequences (longer than `block_size`)
+    with no key mask go to `flash_attention` when its shape test passes
+    (the kernels on a CUDA tensor, the plain version on a CPU tensor),
+    other long sequences to `blockwise_attention`, short ones to full
+    attention.
 
     GQA: `k`/`v` may carry fewer heads than `q`. Full attention groups
-    them; the flash and blockwise routes widen them with
+    them; the ring, flash and blockwise routes widen them with
     `repeat_interleave`, and autograd sums dK/dV over each group."""
     H, Hkv = q.shape[2], k.shape[2]
-    if _SEQ_PARALLEL:
-        raise NotImplementedError(
-            "sequence-parallel (ring) attention is not ported yet "
-            "(ROADMAP queue A12b: the multi-device half of parallel "
-            "training)")
 
     def widened():
         if Hkv == H:
@@ -202,6 +222,15 @@ def multi_head_attention(q, k, v, *, causal=False, key_mask=None,
         g = H // Hkv
         return (torch.repeat_interleave(k, g, dim=2),
                 torch.repeat_interleave(v, g, dim=2))
+
+    if _SEQ_PARALLEL:
+        from deeplearning4j_tpu_torch.parallel.sequence import ring_attention
+
+        kf, vf = widened()
+        mesh, axis_name, batch_axis = _SEQ_PARALLEL[-1]
+        return ring_attention(q, kf, vf, mesh, axis_name=axis_name,
+                              causal=causal, key_mask=key_mask,
+                              batch_axis=batch_axis)
 
     long_seq = block_size is not None and k.shape[1] > block_size
     if long_seq and key_mask is None and _flash_route(q, k, causal):

@@ -36,9 +36,14 @@ Counts: `flash_forward.launches`, `flash_bwd_dq.launches` and
 route)]` (the same by kernel family: kind "fwd", "dq" or "dkv"; route
 "tf32", "tf32 cluster", "wgmma", "wgmma wide" or "wgmma cluster", as the
 library reports it),
-`flash_attention_plain_fwd.calls` and `flash_attention_plain_bwd.calls`.
-Every increment is made under `_COUNT_LOCK`, so the counts stay exact
-when several engines' threads call in at once.
+`flash_attention_plain_fwd.calls` and `flash_attention_plain_bwd.calls`;
+`launches_by_slot[(kind, slot)]` and `plain_calls_by_slot[(kind, slot)]`
+split them by the SPMD slot whose forward made the call
+(`parallel.spmd.current_slot()`, None outside a per-slot body; a
+backward is counted under its forward's slot, as autograd may run it on
+another thread), so a pipeline run shows each stage's launches. Every
+increment is made under `_COUNT_LOCK`, so the counts stay exact when
+several engines' threads call in at once.
 """
 from __future__ import annotations
 
@@ -49,11 +54,19 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from deeplearning4j_tpu_torch.ops.kernel_dispatch import mxu_dtype, stat_dtype
+from deeplearning4j_tpu_torch.ops.kernel_dispatch import (
+    current_slot,
+    mxu_dtype,
+    stat_dtype,
+)
 
 NEG_INF = -1e30
 
 _COUNT_LOCK = threading.Lock()
+
+# a call counts under the slot of the thread that makes it, unless its
+# forward's slot is handed in (autograd may run a backward elsewhere)
+_SLOT_OF_CALLER = object()
 
 # Tolerance of the kernels against the plain versions computed in f32 on
 # the same inputs (bf16 cast up exactly); see `error_in_tolerances`. O,
@@ -84,6 +97,13 @@ _KIND_NAMES = {_FWD: "fwd", _DQ: "dq", _DKV: "dkv"}
 ROUTES = {0: "tf32 cluster", 1: "tf32", 2: "wgmma cluster", 3: "wgmma",
           4: "wgmma wide"}
 launches_by_route: Dict[Tuple[str, str], int] = {}
+launches_by_slot: Dict[Tuple[str, Optional[int]], int] = {}
+plain_calls_by_slot: Dict[Tuple[str, Optional[int]], int] = {}
+
+
+def _tally(table, kind: str, slot) -> None:
+    """One count of `kind` in `slot`; the caller holds `_COUNT_LOCK`."""
+    table[(kind, slot)] = table.get((kind, slot), 0) + 1
 
 
 def error_in_tolerances(name: str, got: torch.Tensor, ref: torch.Tensor,
@@ -134,12 +154,16 @@ def _rounded(x, dt):
 
 
 def flash_attention_plain_fwd(q, k, v, causal: bool = False,
-                              sm_scale: Optional[float] = None):
+                              sm_scale: Optional[float] = None,
+                              slot=_SLOT_OF_CALLER):
     """Plain forward: (O, L) with O (B, Tq, H, D) in q's dtype and L the
     row logsumexp (B*H, Tq) in the statistic dtype; rows with no visible
     key give O = 0 and L = NEG_INF."""
+    if slot is _SLOT_OF_CALLER:
+        slot = current_slot()
     with _COUNT_LOCK:
         flash_attention_plain_fwd.calls += 1
+        _tally(plain_calls_by_slot, "fwd", slot)
     B, Tq, H, D = q.shape
     scale = _scale(D, sm_scale)
     s = _scores(q, k, causal, scale)
@@ -158,11 +182,15 @@ flash_attention_plain_fwd.calls = 0
 
 
 def flash_attention_plain_bwd(q, k, v, o, lse, do, causal: bool = False,
-                              sm_scale: Optional[float] = None):
+                              sm_scale: Optional[float] = None,
+                              slot=_SLOT_OF_CALLER):
     """Plain backward from the forward's O and L: (dQ, dK, dV) with
     P = exp(S - L), dsum = rowsum(dO * O), dS = P * (dO V^T - dsum)."""
+    if slot is _SLOT_OF_CALLER:
+        slot = current_slot()
     with _COUNT_LOCK:
         flash_attention_plain_bwd.calls += 1
+        _tally(plain_calls_by_slot, "bwd", slot)
     B, Tq, H, D = q.shape
     scale = _scale(D, sm_scale)
     s = _scores(q, k, causal, scale)
@@ -280,16 +308,20 @@ def _raise_on(rc, what, shape):
                            f"(q shape {shape})")
 
 
-def _counted(wrapper, lib, kind, code, D):
-    """One launch of `wrapper`'s kernel: its count and its route's."""
+def _counted(wrapper, lib, kind, code, D, slot=_SLOT_OF_CALLER):
+    """One launch of `wrapper`'s kernel: its count, its route's and its
+    slot's."""
     key = (_KIND_NAMES[kind], ROUTES[lib.dl4j_flash_route(kind, code, D)])
+    if slot is _SLOT_OF_CALLER:
+        slot = current_slot()
     with _COUNT_LOCK:
         wrapper.launches += 1
         launches_by_route[key] = launches_by_route.get(key, 0) + 1
+        _tally(launches_by_slot, key[0], slot)
 
 
 def flash_forward(q, k, v, causal: bool, sm_scale: Optional[float],
-                  with_lse: bool):
+                  with_lse: bool, slot=_SLOT_OF_CALLER):
     """Launch the forward kernel: (O, L or None)."""
     lib, code, B, H, Tq, Tk, D = _check_cuda(q, k, v, causal)
     q, k, v = (_kernel_ready(t) for t in (q, k, v))
@@ -303,7 +335,7 @@ def flash_forward(q, k, v, causal: bool, sm_scale: Optional[float],
             code, B, H, Tq, Tk, D, int(causal), _scale(D, sm_scale),
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, "flash forward", tuple(q.shape))
-    _counted(flash_forward, lib, _FWD, code, D)
+    _counted(flash_forward, lib, _FWD, code, D, slot)
     return o, lse
 
 
@@ -318,7 +350,8 @@ def _dsum(o, do):
         .reshape(B * H, Tq).contiguous()
 
 
-def flash_bwd_dq(q, k, v, do, lse, dsum, causal, sm_scale):
+def flash_bwd_dq(q, k, v, do, lse, dsum, causal, sm_scale,
+                 slot=_SLOT_OF_CALLER):
     """Launch the dQ kernel."""
     lib, code, B, H, Tq, Tk, D = _check_cuda(q, k, v, causal)
     q, k, v, do = (_kernel_ready(t) for t in (q, k, v, do))
@@ -332,14 +365,15 @@ def flash_bwd_dq(q, k, v, do, lse, dsum, causal, sm_scale):
             _scale(D, sm_scale),
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, "flash dQ", tuple(q.shape))
-    _counted(flash_bwd_dq, lib, _DQ, code, D)
+    _counted(flash_bwd_dq, lib, _DQ, code, D, slot)
     return dq
 
 
 flash_bwd_dq.launches = 0
 
 
-def flash_bwd_dkv(q, k, v, do, lse, dsum, causal, sm_scale):
+def flash_bwd_dkv(q, k, v, do, lse, dsum, causal, sm_scale,
+                  slot=_SLOT_OF_CALLER):
     """Launch the dK/dV kernel."""
     lib, code, B, H, Tq, Tk, D = _check_cuda(q, k, v, causal)
     q, k, v, do = (_kernel_ready(t) for t in (q, k, v, do))
@@ -354,7 +388,7 @@ def flash_bwd_dkv(q, k, v, do, lse, dsum, causal, sm_scale):
             int(causal), _scale(D, sm_scale),
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, "flash dK/dV", tuple(q.shape))
-    _counted(flash_bwd_dkv, lib, _DKV, code, D)
+    _counted(flash_bwd_dkv, lib, _DKV, code, D, slot)
     return dk, dv
 
 
@@ -396,6 +430,7 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, sm_scale: Optional[float]):
+        ctx.slot = current_slot()
         if _on_cpu(q, k, v):
             o, lse = flash_attention_plain_fwd(q, k, v, causal, sm_scale)
         else:
@@ -410,11 +445,14 @@ class _FlashAttention(torch.autograd.Function):
         causal, sm_scale = ctx.causal, ctx.sm_scale
         if _on_cpu(q, k, v, do):
             dq, dk, dv = flash_attention_plain_bwd(q, k, v, o, lse, do,
-                                                   causal, sm_scale)
+                                                   causal, sm_scale,
+                                                   slot=ctx.slot)
         else:
             dsum = _dsum(o, do)
-            dq = flash_bwd_dq(q, k, v, do, lse, dsum, causal, sm_scale)
-            dk, dv = flash_bwd_dkv(q, k, v, do, lse, dsum, causal, sm_scale)
+            dq = flash_bwd_dq(q, k, v, do, lse, dsum, causal, sm_scale,
+                              slot=ctx.slot)
+            dk, dv = flash_bwd_dkv(q, k, v, do, lse, dsum, causal, sm_scale,
+                                   slot=ctx.slot)
         return dq, dk, dv, None, None
 
 
@@ -442,5 +480,7 @@ def reset_counts() -> None:
         flash_bwd_dq.launches = 0
         flash_bwd_dkv.launches = 0
         launches_by_route.clear()
+        launches_by_slot.clear()
+        plain_calls_by_slot.clear()
         flash_attention_plain_fwd.calls = 0
         flash_attention_plain_bwd.calls = 0

@@ -49,6 +49,14 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+def current_slot():
+    """The SPMD slot of the calling thread (`parallel.spmd`), or None
+    outside a per-slot body: the kernel wrappers tally launches by it."""
+    from deeplearning4j_tpu_torch.parallel.spmd import current_slot as slot
+
+    return slot()
+
+
 def smem_limit_bytes(device) -> int:
     """Shared memory one block may use on `device` after opting in
     above the 48 KB default (227 KB on an H100)."""

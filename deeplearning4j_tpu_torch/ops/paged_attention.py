@@ -24,11 +24,15 @@ version and no switch to turn the kernel off.
 Each function keeps a plain integer count: `paged_attention.launches`
 (calls that launched the kernels; `launches_by` splits them by
 `(C, kind)`, the chunk width and "dense" or "int8") and
-`paged_attention_plain.calls`. A run can set them to 0 and read them
-after to show which path it took. Several engines' scheduler threads
-call these functions at once (a replica pool in one process), so every
-increment is made under `_COUNT_LOCK`: a bare `+=` is a read, an add and
-a write that a thread switch can split, losing counts.
+`paged_attention_plain.calls`; `paged_attention.launches_by_slot` and
+`paged_attention_plain.calls_by_slot` split them by the SPMD slot that
+made the call (`parallel.spmd.current_slot()`, None outside a per-slot
+body), so a tensor-parallel run shows each shard's launches. A run can
+set them to 0 and read them after to show which path it took. Several
+engines' scheduler threads call these functions at once (a replica pool
+in one process), so every increment is made under `_COUNT_LOCK`: a bare
+`+=` is a read, an add and a write that a thread switch can split,
+losing counts.
 """
 from __future__ import annotations
 
@@ -45,6 +49,7 @@ from deeplearning4j_tpu_torch.ops.attention import (
     paged_gather,
     paged_gather_quant,
 )
+from deeplearning4j_tpu_torch.ops.kernel_dispatch import current_slot
 
 # atol = rtol of the kernel against `paged_attention_plain` computed in f32
 # on the same inputs (bf16 inputs cast up exactly). The kernel keeps scores,
@@ -70,8 +75,11 @@ def paged_attention_plain(q, k_pool, v_pool, page_table, positions,
     dequantized values rounded to `kv_dtype` (default: q's type, the
     JAX package's rounding point) before the products. Returns
     (S, C, H, hd) in q's dtype."""
+    slot = current_slot()
     with _COUNT_LOCK:
         paged_attention_plain.calls += 1
+        by = paged_attention_plain.calls_by_slot
+        by[slot] = by.get(slot, 0) + 1
     S, C, H, hd = q.shape
     if k_scale is not None:
         kd, vd = paged_gather_quant(k_pool, v_pool, k_scale, v_scale,
@@ -88,6 +96,7 @@ def paged_attention_plain(q, k_pool, v_pool, page_table, positions,
 
 
 paged_attention_plain.calls = 0
+paged_attention_plain.calls_by_slot = {}
 
 
 class Plan(NamedTuple):
@@ -266,14 +275,19 @@ def paged_attention(q, k_pool, v_pool, page_table, positions, *,
 
 paged_attention.launches = 0
 paged_attention.launches_by = {}
+paged_attention.launches_by_slot = {}
 
 
 def _count_launch(key) -> None:
-    """One launch of the kernels at `key` = (C, "dense" or "int8")."""
+    """One launch of the kernels at `key` = (C, "dense" or "int8"), in
+    the SPMD slot that made it."""
+    slot = current_slot()
     with _COUNT_LOCK:
         paged_attention.launches += 1
         paged_attention.launches_by[key] = \
             paged_attention.launches_by.get(key, 0) + 1
+        by = paged_attention.launches_by_slot
+        by[slot] = by.get(slot, 0) + 1
 
 
 def _library() -> ctypes.CDLL:
@@ -300,4 +314,6 @@ def reset_counts() -> None:
     with _COUNT_LOCK:
         paged_attention.launches = 0
         paged_attention.launches_by = {}
+        paged_attention.launches_by_slot = {}
         paged_attention_plain.calls = 0
+        paged_attention_plain.calls_by_slot = {}

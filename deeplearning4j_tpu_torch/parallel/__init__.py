@@ -10,13 +10,20 @@ global-view result), device-side batch prefetch, the parameter-averaging
 `TrainingMaster` with its elastic worker pool and the distributed
 handles, the parameter server with its TCP wire, fault tolerance and
 its injectors, parallel early stopping, export-staged training and the
-CLI (`parallel.main`). The replicated Switch mixture of experts is
-`parallel.experts`.
+CLI (`parallel.main`).
 
-The multi-device half (ROADMAP queue A12b: meshes over several cards,
-`multiprocess` on `torch.distributed`, tensor-parallel `param_specs`,
-pipeline and sequence parallelism, the expert-parallel MoE) raises
-`NotImplementedError` naming A12b.
+The in-process SPMD half runs the JAX package's per-device bodies once
+per slot of a mesh (`parallel.spmd`; `parallel.mesh.set_local_slots`
+puts N slots on one card): the GPipe pipeline (`parallel.pipeline`,
+`parallel.pipeline_wrapper`), ring and Ulysses attention
+(`parallel.sequence`), the expert-parallel mixture of experts
+(`parallel.experts`) and tensor-parallel serving
+(`serving.tp_engine`). Their names resolve here lazily, as the modules
+import this package's wrapper.
+
+The multi-process half (ROADMAP queue A12c: `multiprocess` on
+`torch.distributed`, meshes over several cards, the sharded
+checkpoints) raises `NotImplementedError` naming A12c.
 """
 
 from deeplearning4j_tpu_torch.parallel.mesh import make_mesh  # noqa: F401
@@ -67,20 +74,33 @@ from deeplearning4j_tpu_torch.parallel.training_master import (  # noqa: F401
     current_worker_id,
 )
 
-# the multi-device half's names (the JAX package's `multiprocess`,
-# `pipeline`, `pipeline_wrapper` and `sequence` modules)
-_A12B_NAMES = frozenset({
+# the in-process SPMD half's names, by module (resolved on first use)
+_A12B_NAMES = {
+    "PipelineParallelWrapper": "pipeline_wrapper",
+    "find_trunk": "pipeline_wrapper",
+    "pipeline_apply": "pipeline",
+    "shard_stacked_params": "pipeline",
+    "stack_stage_params": "pipeline",
+    "SequenceParallelWrapper": "sequence",
+    "ring_attention": "sequence",
+    "ulysses_attention": "sequence",
+}
+
+# the multi-process half's names (the JAX package's `multiprocess`)
+_A12C_NAMES = frozenset({
     "MultiProcessParallelWrapper", "MultiProcessTrainingMaster",
-    "PipelineParallelWrapper", "SequenceParallelWrapper", "find_trunk",
-    "global_mesh", "initialize_multiprocess", "pipeline_apply",
-    "ring_attention", "shard_stacked_params", "stack_stage_params",
-    "ulysses_attention",
+    "global_mesh", "initialize_multiprocess",
 })
 
 
 def __getattr__(name):
     if name in _A12B_NAMES:
+        import importlib
+
+        mod = importlib.import_module(f"{__name__}.{_A12B_NAMES[name]}")
+        return getattr(mod, name)
+    if name in _A12C_NAMES:
         raise NotImplementedError(
-            f"parallel.{name} is not ported yet (ROADMAP queue A12b: the "
-            "multi-device half of parallel training on torch.distributed)")
+            f"parallel.{name} is not ported yet (ROADMAP queue A12c: the "
+            "multi-process half of parallel training on torch.distributed)")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

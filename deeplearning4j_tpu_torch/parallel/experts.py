@@ -1,6 +1,6 @@
-"""Switch-style top-1 mixture of experts, replicated on one card
-(counterpart of the single-device part of
-`deeplearning4j_tpu/parallel/experts.py`).
+"""Switch-style top-1 mixture of experts (counterpart of
+`deeplearning4j_tpu/parallel/experts.py`): replicated on one device, and
+expert-parallel over a mesh axis of slots.
 
 A linear router gives each token a softmax over E experts and picks the
 largest (argmax: the lower index on ties). Each expert takes at most
@@ -18,39 +18,52 @@ router probability. The load-balancing loss is Switch's
 E * sum_e(fraction routed to e * mean router probability of e), over the
 real tokens.
 
-The expert-parallel path over a device mesh (`moe_apply`,
-`switch_ffn_sharded`, `expert_mesh_scope`) is ROADMAP queue A12b.
+The expert-parallel path (`moe_apply`, `switch_ffn_sharded`) splits the
+stacked experts one per slot of the `expert` axis and the tokens over
+(data, expert), and runs the JAX package's per-device body once per slot
+(`parallel.spmd`): route the local tokens, fill (E, capacity / E, D)
+buffers (GShard's static capacity per expert and source slot), an
+`all_to_all` to the experts' slots, one expert product, an `all_to_all`
+back. `ParallelWrapper` opens `expert_mesh_scope` around its steps, so a
+`MoELayer(expert_axis=...)` finds the mesh there.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from deeplearning4j_tpu_torch.parallel.spmd import (
+    P,
+    all_to_all,
+    pmean,
+    shard_map,
+)
 
-def _a12(name: str):
-    return NotImplementedError(
-        f"parallel.experts.{name} (expert parallelism over a device mesh) "
-        "is not ported yet (ROADMAP queue A12b: the multi-device half of "
-        "parallel training)")
+# -- expert-parallel mesh scope ------------------------------------------
+# ParallelWrapper enters this scope around its steps so that
+# MoELayer.forward, which has no mesh in its signature, can find the mesh
+# and route through the all_to_all path
+_MESH_SCOPE: list = []
 
 
-def expert_mesh_scope(mesh, data_axis=None):
-    raise _a12("expert_mesh_scope")
+@contextlib.contextmanager
+def expert_mesh_scope(mesh, data_axis: Optional[str] = None):
+    """Declare the active mesh (and its data axis, if any) for the
+    expert-parallel MoE layers run within the scope."""
+    _MESH_SCOPE.append((mesh, data_axis))
+    try:
+        yield
+    finally:
+        _MESH_SCOPE.pop()
 
 
 def current_expert_mesh():
-    raise _a12("current_expert_mesh")
-
-
-def moe_apply(expert_fn, stacked_params, x, router_w, mesh, **kw):
-    raise _a12("moe_apply")
-
-
-def switch_ffn_sharded(params, tokens, mesh, **kw):
-    raise _a12("switch_ffn_sharded")
+    """(mesh, data axis) of the innermost `expert_mesh_scope`, or None."""
+    return _MESH_SCOPE[-1] if _MESH_SCOPE else None
 
 
 def router_probs(x: torch.Tensor, router_w: torch.Tensor) -> torch.Tensor:
@@ -118,6 +131,115 @@ def moe_apply_reference(expert_fn: Callable, stacked_params,
         mean_prob = probs.mean(dim=0)
     aux = E * torch.sum(frac_routed * mean_prob)
     return y, aux
+
+
+def _first_leaf(tree):
+    if isinstance(tree, dict):
+        return _first_leaf(tree[sorted(tree)[0]])
+    return tree
+
+
+def moe_apply(expert_fn: Callable, stacked_params, x: torch.Tensor,
+              router_w: torch.Tensor, mesh, *, axis_name: str = "expert",
+              capacity_factor: float = 1.25, passthrough: str = "identity",
+              data_axis: Optional[str] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel MoE: the experts split over `axis_name`, the
+    tokens dispatched and returned by `all_to_all`. `expert_fn(p, t)`
+    maps ONE expert's params and its (n, D) tokens to outputs.
+
+    Equals `moe_apply_reference` while no expert overflows. Under
+    overflow the two drop different tokens: here the capacity holds per
+    (expert, source slot), GShard's static dispatch shape, while the
+    reference caps each expert globally in token order.
+
+    `data_axis`: tokens split over (data_axis, axis_name) jointly, the
+    all_to_all rides the expert axis within each data row, and the
+    load-balancing loss means over both axes.
+
+    x: (N, D) tokens; stacked_params: a tree with leading expert dim
+    E == the axis size; router_w: (D, E). Returns (y, aux_loss)."""
+    E = mesh.shape[axis_name]
+    leaf = _first_leaf(stacked_params)
+    if leaf.shape[0] != E:
+        raise ValueError(f"{leaf.shape[0]} experts but mesh axis "
+                         f"'{axis_name}' has size {E}")
+    dp = mesh.shape.get(data_axis, 1) if data_axis else 1
+    N, D = x.shape
+    if N % (E * dp):
+        raise ValueError(f"token count {N} not divisible by expert axis "
+                         f"{E} x data axis {dp}")
+    # capacity from the tokens ONE data row routes among E experts, then
+    # whole per-slot slices
+    capacity = int(math.ceil(N / dp / E * capacity_factor))
+    capacity = int(math.ceil(capacity / E) * E)
+    if passthrough not in ("identity", "zero"):
+        raise ValueError(f"unknown passthrough {passthrough!r}")
+    reduce_axes = (data_axis, axis_name) if dp > 1 else axis_name
+    cap_local = capacity // E  # slots per (expert, source slot)
+
+    def local(stage_p, x_local, rw):
+        # x_local: this slot's (N / (E dp), D) tokens; stage_p: its
+        # expert's params (leading dim 1)
+        p = {k: v[0] for k, v in stage_p.items()}
+        probs = router_probs(x_local, rw)
+        expert_idx = torch.argmax(probs, dim=-1)
+        gate = torch.gather(probs, 1, expert_idx[:, None])[:, 0]
+        pos, keep = _dispatch_indices(expert_idx, E, cap_local)
+        slot = expert_idx * cap_local + torch.where(keep, pos, 0)
+        kept = torch.where(keep[:, None], x_local,
+                           torch.zeros((), dtype=x_local.dtype,
+                                       device=x_local.device))
+        d = x_local.shape[1]
+        buf = torch.zeros((E * cap_local, d), dtype=x_local.dtype,
+                          device=x_local.device)
+        buf = buf.index_add(0, slot, kept).reshape(E, cap_local, d)
+        # expert e's slot receives every source's slice for e
+        recv = all_to_all(buf, axis_name, split_axis=0, concat_axis=0,
+                          tiled=True)
+        out = expert_fn(p, recv.reshape(-1, d)).reshape(E, cap_local, -1)
+        back = all_to_all(out, axis_name, split_axis=0, concat_axis=0,
+                          tiled=True)
+        y_expert = torch.index_select(back.reshape(E * cap_local, -1), 0,
+                                      slot)
+        dropped = x_local if passthrough == "identity" \
+            else torch.zeros_like(x_local)
+        y = torch.where(keep[:, None], gate[:, None] * y_expert, dropped)
+        frac = F.one_hot(expert_idx, E).to(torch.float32).mean(dim=0)
+        mean_prob = probs.mean(dim=0)
+        aux = E * torch.sum(pmean(frac, reduce_axes)
+                            * pmean(mean_prob, reduce_axes))
+        return y, aux
+
+    tok = P((data_axis, axis_name)) if dp > 1 else P(axis_name)
+    return shard_map(local, mesh, in_specs=(P(axis_name), tok, P()),
+                     out_specs=(tok, P()))(stacked_params, x, router_w)
+
+
+def switch_ffn_sharded(params, tokens: torch.Tensor, mesh, *,
+                       axis_name: str, data_axis: Optional[str],
+                       act: Callable, capacity_factor: float,
+                       aux_weight: float, train: bool = False,
+                       passthrough: str = "identity") -> torch.Tensor:
+    """The expert-parallel twin of `switch_ffn`: the same stacked
+    router/W1/b1/W2/b2 params and aux-loss contract, the dispatch through
+    `moe_apply`'s all_to_all over `axis_name` (composed with data
+    parallelism over `data_axis`). `MoELayer(expert_axis=...)` takes it
+    under `ParallelWrapper`."""
+    from deeplearning4j_tpu_torch.ops.aux_loss import add_aux_loss
+
+    def expert_fn(p, t):
+        return act(t @ p["W1"] + p["b1"]) @ p["W2"] + p["b2"]
+
+    stacked = {"W1": params["W1"], "b1": params["b1"],
+               "W2": params["W2"], "b2": params["b2"]}
+    y, aux = moe_apply(expert_fn, stacked, tokens, params["router"], mesh,
+                       axis_name=axis_name, data_axis=data_axis,
+                       capacity_factor=capacity_factor,
+                       passthrough=passthrough)
+    if train:
+        add_aux_loss(aux_weight * aux)
+    return y
 
 
 def switch_ffn(params, tokens: torch.Tensor, *, act: Callable,

@@ -5,20 +5,30 @@ route the collectives. The port's `Mesh` is its own small record of the
 same layout: the axis names, `shape` as an ordered {axis: size} dict, and
 `devices`, a numpy array of `torch.device`s in that shape.
 
-On one card every slot of the mesh is the same `torch.device`, and the
-data-parallel tier (`ParallelWrapper`, `DevicePrefetchIterator`,
-`SequenceVectors(mesh=)`) runs the single-device computation on the whole
-batch: that is what the JAX package's global-view step computes. A mesh
-whose slots name more than one distinct device is the multi-device half
-(ROADMAP queue A12b: `torch.distributed` across cards), which those
-entry points refuse. Tests build an 8-slot mesh on the CPU,
-`make_mesh(devices=[torch.device("cpu")] * 8)`, the counterpart of the
-JAX test session's eight virtual CPU devices.
+The process exposes a list of slots, the counterpart of the devices
+`jax.devices()` lists: by default one per CUDA device;
+`set_local_slots(n, device)` exposes n slots of one device instead (N
+slots of `cuda:0` on one card, or N CPU slots in the tests), the
+counterpart of `XLA_FLAGS=--xla_force_host_platform_device_count=N`.
+`make_mesh()` and `serving.tp_engine.tp_mesh` take their slots from it.
+
+Two kinds of entry point use a mesh. The global-view ones
+(`ParallelWrapper`, `DevicePrefetchIterator`, `SequenceVectors(mesh=)`)
+compute what the JAX package's partitioned step computes, the
+single-device computation on the whole batch: on a mesh whose slots are
+all one device they run it there, and a mesh over several distinct
+devices is the multi-process half (ROADMAP queue A12c:
+`torch.distributed` across cards), which they refuse. The per-slot
+bodies the JAX package writes under `shard_map` (tensor-parallel
+decode, ring and Ulysses attention, the pipeline, the expert-parallel
+MoE) run once per slot through `parallel.spmd`, whatever devices the
+slots name. Tests build an 8-slot mesh on the CPU,
+`make_mesh(devices=[torch.device("cpu")] * 8)`.
 """
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -50,14 +60,15 @@ class Mesh:
         return out
 
     def single_device(self, what: str) -> torch.device:
-        """The one device every slot names; a mesh over several distinct
-        devices raises naming A12b (`what` names the caller)."""
+        """The one device every slot names, for the global-view entry
+        points; a mesh over several distinct devices raises naming A12c
+        (`what` names the caller)."""
         devs = self.distinct_devices()
         if len(devs) != 1:
             raise NotImplementedError(
                 f"{what} over a mesh of {len(devs)} distinct devices "
-                f"({devs}) is the multi-device half of parallel training "
-                "(ROADMAP queue A12b: torch.distributed across cards); a "
+                f"({devs}) is the multi-process half of parallel training "
+                "(ROADMAP queue A12c: torch.distributed across cards); a "
                 "mesh on one device runs the single-device step on the "
                 "whole batch")
         return devs[0]
@@ -90,21 +101,60 @@ class DataPlacement:
         return f"DataPlacement({self.axis!r}, {self.mesh!r})"
 
 
-def _default_devices() -> list:
+_SLOTS: Optional[List[torch.device]] = None
+
+
+def set_local_slots(n: Optional[int], device="cuda") -> None:
+    """Expose `n` slots of `device` to this process (`local_slots`,
+    `make_mesh()`, `tp_mesh`): N slots of one card, or N CPU slots. `n`
+    None restores the default, one slot per CUDA device. Asking for CUDA
+    slots without a card raises."""
+    global _SLOTS
+    if n is None:
+        _SLOTS = None
+        return
+    if not isinstance(n, int) or n < 1:
+        raise ValueError(f"slot count must be a positive int, got {n!r}")
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{n} slots of {dev} requested but no CUDA device is "
+                "available; pass device='cpu' for CPU slots")
+        if dev.index is None:
+            dev = torch.device("cuda", 0)
+    _SLOTS = [dev] * n
+
+
+def local_slots() -> List[torch.device]:
+    """The process's slots: those `set_local_slots` set, else one per
+    CUDA device (none without a card)."""
+    if _SLOTS is not None:
+        return list(_SLOTS)
     if not torch.cuda.is_available():
-        raise RuntimeError(
-            "make_mesh() covers every CUDA device by default, but no CUDA "
-            "device is available; pass devices=[torch.device('cpu')] * n "
-            "to build a mesh on the CPU")
+        return []
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def _default_devices() -> list:
+    slots = local_slots()
+    if not slots:
+        raise RuntimeError(
+            "make_mesh() covers the process's slots by default (one per "
+            "CUDA device), but no CUDA device is available; pass "
+            "devices=[torch.device('cpu')] * n, or call "
+            "set_local_slots(n, 'cpu'), to build a mesh on the CPU")
+    return slots
 
 
 def make_mesh(axes: Optional[Dict[str, int]] = None,
               devices: Optional[Sequence] = None) -> Mesh:
     """Build a Mesh from {axis_name: size}. Sizes must multiply to the
     device count; a single -1 axis absorbs the remainder (numpy reshape
-    convention). `devices` defaults to every CUDA device (raises without
-    one); entries may be `torch.device`s or strings."""
+    convention). `devices` defaults to the process's slots
+    (`local_slots`: one per CUDA device unless `set_local_slots` says
+    otherwise; raises with none); entries may be `torch.device`s or
+    strings."""
     devices = [torch.device(d) for d in (
         devices if devices is not None else _default_devices())]
     n = len(devices)

@@ -7,26 +7,26 @@ drain their output on threads, kill every one on timeout) and the parity
 fixtures (`_parity_fixture_net`, `_parity_fixture_data`: one definition
 for the worker entry, the tests and the card's run).
 
-Not ported (ROADMAP queue A12b, the multi-device half of parallel
+Not ported (ROADMAP queue A12c, the multi-process half of parallel
 training on `torch.distributed`): `initialize_multiprocess`,
 `global_mesh`, `MultiProcessParallelWrapper` and
-`MultiProcessTrainingMaster` raise `NotImplementedError` naming A12b.
+`MultiProcessTrainingMaster` raise `NotImplementedError` naming A12c.
 """
 from __future__ import annotations
 
 import numpy as np
 
-_A12B_NAMES = frozenset({
+_A12C_NAMES = frozenset({
     "initialize_multiprocess", "global_mesh", "MultiProcessParallelWrapper",
     "MultiProcessTrainingMaster",
 })
 
 
 def __getattr__(name):
-    if name in _A12B_NAMES:
+    if name in _A12C_NAMES:
         raise NotImplementedError(
             f"parallel.multiprocess.{name} is not ported yet (ROADMAP queue "
-            "A12b: the multi-device half of parallel training on "
+            "A12c: the multi-process half of parallel training on "
             "torch.distributed)")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 

@@ -4,14 +4,24 @@ of `deeplearning4j_tpu/parallel/wrapper.py`; reference
 
 The JAX wrapper is single-controller and global-view: its step over the
 mesh computes exactly the single-device step on the global batch (XLA
-inserts the gradient all-reduce inside the compiled step). So batch-wide
-reductions span the whole batch: BatchNormalization's statistics, masked
-loss means, MoE capacity. The port keeps that contract on one device:
-where every slot of the mesh is one torch device (the card, or CPU slots
-in tests), `fit` runs the network's own training step on the whole batch,
-trimmed to a multiple of the data axis as the JAX wrapper trims it. It
-never runs one replica per slot, whose per-shard statistics and masked
-means would differ from the reference.
+inserts the gradient all-reduce inside the compiled step, and a
+tensor-parallel `param_specs` entry or a `model` axis changes where the
+math runs, not what it computes). So batch-wide reductions span the
+whole batch: BatchNormalization's statistics, masked loss means, MoE
+capacity. The port keeps that contract on one device: where every slot
+of the mesh is one torch device (the card, or CPU slots in tests), `fit`
+runs the network's own training step on the whole batch, trimmed to a
+multiple of the data axis as the JAX wrapper trims it. It never runs one
+replica per slot, whose per-shard statistics and masked means would
+differ from the reference. `param_specs` and a `model` axis are checked
+as the JAX wrapper checks them (the axes exist, the sizes divide) and
+then computed unsplit.
+
+Expert parallelism is the exception the JAX wrapper also writes by hand:
+a `MoELayer` with `expert_axis` runs its experts one per slot of that
+axis (`parallel.experts.moe_apply`, through `parallel.spmd`) inside
+`expert_mesh_scope`, which `fit` opens around every step; batches are
+trimmed further so the tokens split over expert x data.
 
 Kept from the JAX wrapper: the trim and its logging (a batch smaller
 than the data axis is dropped), the `AsyncDataSetIterator` wrap by
@@ -19,16 +29,15 @@ than the data axis is dropped), the `AsyncDataSetIterator` wrap by
 epoch hooks), data-parallel truncated BPTT with the carries seeded and
 restored around each batch's windows, and `get_network()`.
 
-Not ported here (ROADMAP queue A12b, the multi-device half on
-`torch.distributed`): a mesh over more than one distinct device,
-tensor-parallel `param_specs` (any non-replicated entry) and a `model`
-axis, expert-parallel layers (`expert_axis`), and the sharded checkpoints
-(`save_checkpoint` / `load_checkpoint`: orbax in the JAX package,
-`util/sharded_checkpoint.py` in A12b). Each raises `NotImplementedError`
-naming A12b.
+Not ported here (ROADMAP queue A12c, the multi-process half on
+`torch.distributed`): a mesh over more than one distinct device and the
+sharded checkpoints (`save_checkpoint` / `load_checkpoint`: orbax in the
+JAX package, `util/sharded_checkpoint.py`). Each raises
+`NotImplementedError` naming A12c.
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 from typing import Dict, Optional, Union
 
@@ -44,13 +53,14 @@ from deeplearning4j_tpu_torch.parallel.mesh import Mesh, make_mesh
 
 logger = logging.getLogger("deeplearning4j_tpu_torch")
 
-_A12B = "ROADMAP queue A12b: the multi-device half of parallel training"
+_A12C = "ROADMAP queue A12c: the multi-process half of parallel training"
 
 
-def _replicated(spec) -> bool:
-    """A PartitionSpec-like entry that shards nothing: None, or a
-    sequence of Nones (the JAX package's `P()` / `P(None, None)`)."""
-    return spec is None or all(s is None for s in tuple(spec))
+def _spec_axes(part):
+    """The mesh axes one entry of a PartitionSpec-like names."""
+    if part is None:
+        return ()
+    return (part,) if isinstance(part, str) else tuple(part)
 
 
 def _same_device(a, b) -> bool:
@@ -65,9 +75,10 @@ class ParallelWrapper:
         pw = ParallelWrapper(net)            # DP over the default mesh
         pw.fit(iterator, epochs=...)
 
-    `param_specs`: {layer_index or vertex name: {param_name: spec}}; only
-    replicated entries are accepted on one device (tensor parallelism is
-    A12b).
+    `param_specs`: {layer_index or vertex name: {param_name: spec}}, a
+    spec one entry per leading dimension (None or mesh axis names);
+    checked, then computed unsplit on the mesh's one device (the module
+    docstring).
     """
 
     def __init__(self, net, mesh: Optional[Mesh] = None,
@@ -83,24 +94,63 @@ class ParallelWrapper:
         if not _same_device(dev, net.device):
             raise ValueError(f"the mesh's device {dev} is not the network's "
                              f"({net.device})")
-        if "model" in self.mesh.shape:
-            raise NotImplementedError(
-                f"ParallelWrapper over a mesh with a 'model' axis "
-                f"({dict(self.mesh.shape)}): tensor parallelism is not "
-                f"ported yet ({_A12B})")
-        for key, specs in (param_specs or {}).items():
-            for name, spec in dict(specs).items():
-                if not _replicated(spec):
-                    raise NotImplementedError(
-                        f"param_specs[{key!r}][{name!r}] = {spec!r} shards a "
-                        f"parameter: tensor parallelism is not ported yet "
-                        f"({_A12B})")
+        self.param_specs = {k: dict(v)
+                            for k, v in (param_specs or {}).items()}
+        self._check_param_specs()
+        # expert parallelism: a MoELayer carrying expert_axis runs its
+        # experts one per slot of that axis inside expert_mesh_scope
+        self._expert_layers = []
+        self._expert_axes = set()
         for key, layer in net._layer_slots():
-            if getattr(layer, "expert_axis", None):
-                raise NotImplementedError(
-                    f"layer {key!r} has expert_axis="
-                    f"{layer.expert_axis!r}: expert-parallel MoE is not "
-                    f"ported yet ({_A12B})")
+            ax = getattr(layer, "expert_axis", None)
+            if not ax:
+                continue
+            if ax not in self.mesh.shape:
+                raise ValueError(
+                    f"layer {key!r} wants expert_axis '{ax}' but the mesh "
+                    f"axes are {dict(self.mesh.shape)}")
+            if layer.n_experts != self.mesh.shape[ax]:
+                raise ValueError(
+                    f"layer {key!r} has {layer.n_experts} experts but mesh "
+                    f"axis '{ax}' has size {self.mesh.shape[ax]} — expert-"
+                    f"parallel execution shards one expert per device")
+            self._expert_layers.append(key)
+            self._expert_axes.add(ax)
+            ep = self.param_specs.setdefault(key, {})
+            for name in ("W1", "b1", "W2", "b2"):
+                ep.setdefault(name, (ax,))
+        if self._expert_layers and net.conf.tbptt_fwd_length > 0:
+            raise NotImplementedError(
+                "expert_axis with truncated BPTT is not supported yet "
+                "(the padded tail window is masked, and masked tokens "
+                "cannot ride the expert-parallel dispatch) — drop "
+                "expert_axis or disable tbptt")
+
+    def _check_param_specs(self) -> None:
+        """Every axis a spec names is a mesh axis, and the dimension it
+        splits divides by the axis size."""
+        params = dict(self.net._layer_slots())
+        for key, specs in self.param_specs.items():
+            p = self.net._params[key] if key in params else None
+            for name, spec in specs.items():
+                parts = () if spec is None else tuple(spec)
+                for dim, part in enumerate(parts):
+                    axes = _spec_axes(part)
+                    n = 1
+                    for ax in axes:
+                        if ax not in self.mesh.shape:
+                            raise ValueError(
+                                f"param_specs[{key!r}][{name!r}] = {spec!r} "
+                                f"names {ax!r}, not a mesh axis: "
+                                f"{dict(self.mesh.shape)}")
+                        n *= self.mesh.shape[ax]
+                    v = None if p is None else p.get(name)
+                    if v is not None and n > 1 and (
+                            dim >= v.ndim or v.shape[dim] % n):
+                        raise ValueError(
+                            f"param_specs[{key!r}][{name!r}] = {spec!r} "
+                            f"splits dimension {dim} of a "
+                            f"{tuple(v.shape)} parameter {n} ways")
 
     def get_network(self):
         """The wrapped network: the same accessor `DistributedMultiLayer`
@@ -113,14 +163,34 @@ class ParallelWrapper:
         raise NotImplementedError(
             "ParallelWrapper.save_checkpoint writes a sharded checkpoint "
             f"(util/sharded_checkpoint.py), which is not ported yet "
-            f"({_A12B}); use util.serialization.write_model or a "
+            f"({_A12C}); use util.serialization.write_model or a "
             "CheckpointListener")
 
     def load_checkpoint(self, path) -> None:
         raise NotImplementedError(
             "ParallelWrapper.load_checkpoint reads a sharded checkpoint "
             f"(util/sharded_checkpoint.py), which is not ported yet "
-            f"({_A12B}); use util.serialization.restore_model")
+            f"({_A12C}); use util.serialization.restore_model")
+
+    # subclass hooks (SequenceParallelWrapper overrides _step_scope) -----
+    def _step_scope(self):
+        """The context every step runs in."""
+        return contextlib.nullcontext()
+
+    def _expert_scope(self):
+        """`expert_mesh_scope` when the network has expert-parallel MoE
+        layers."""
+        import contextlib
+
+        if not self._expert_layers:
+            return contextlib.nullcontext()
+        from deeplearning4j_tpu_torch.parallel.experts import (
+            expert_mesh_scope,
+        )
+
+        data_axis = (self.data_axis if self.data_axis in self.mesh.shape
+                     else None)
+        return expert_mesh_scope(self.mesh, data_axis)
 
     @property
     def num_devices(self) -> int:
@@ -132,6 +202,21 @@ class ParallelWrapper:
         n_data = self.mesh.shape.get(self.data_axis, 1)
         B = ds.num_examples()
         usable = (B // n_data) * n_data
+        if self._expert_layers and usable:
+            # moe_apply's all_to_all is static-shaped: the token count
+            # B*T must divide by every expert axis x data
+            f = ds.features[0] if isinstance(ds.features, list) \
+                else ds.features
+            first = (self.net.layers[0]
+                     if getattr(self.net, "layers", None) else None)
+            int_ids = (f.ndim == 2 and first is not None
+                       and getattr(first, "integer_input", False))
+            T = f.shape[1] if (f.ndim == 3 or int_ids) else 1
+            need = n_data
+            for ax in self._expert_axes:
+                need = int(np.lcm(need, self.mesh.shape[ax] * n_data))
+            while usable and (usable * T) % need:
+                usable -= n_data
         if usable == 0:
             logger.warning("dropping batch of %d < %d devices", B, n_data)
             return None
@@ -180,10 +265,11 @@ class ParallelWrapper:
             if ds is None:
                 return
             ds = self._step_input(ds)
-            if tbptt and net._tbptt_applicable(ds):
-                self._fit_tbptt(ds)
-            else:
-                net._fit_batch(ds)
+            with self._step_scope(), self._expert_scope():
+                if tbptt and net._tbptt_applicable(ds):
+                    self._fit_tbptt(ds)
+                else:
+                    net._fit_batch(ds)
 
         net._fit_epochs(iterator, epochs, fit_one)
 

@@ -85,8 +85,13 @@ reuse, prefill chunking, preemption or a warm migration. Sampled
 requests keep their `torch.Generator` through preemption and warm
 handoff, so their tokens equal the uninterrupted run's.
 
-Not ported yet: tensor parallelism (`parallel={"tp": N}` with N > 1,
-ROADMAP queue A12b) raises `NotImplementedError`.
+- **Tensor parallelism** (`parallel={"tp": N}`, `serving/tp_engine.py`):
+  the block stack of every step runs once per slot of an N-slot `tp`
+  mesh (`parallel.mesh.set_local_slots`), each slot with its share of
+  the heads and FFN width and its own contiguous `(P+1, Hkv/N, ...)`
+  pools; the page table, free list, refcounts and prefix-cache
+  promotions stay host-global. `logprobs` with `tp > 1` is refused, as
+  in the JAX package.
 """
 from __future__ import annotations
 
@@ -131,14 +136,10 @@ def _parallel_degree(parallel) -> int:
     if unknown:
         raise ValueError("unknown parallel keys: %s" % sorted(unknown))
     tp = parallel.get("tp", 1)
-    if not isinstance(tp, int) or tp < 1:
+    if not isinstance(tp, int) or isinstance(tp, bool) or tp < 1:
         raise ValueError("parallel['tp'] must be a positive int, got %r"
                          % (tp,))
-    if tp > 1:
-        raise NotImplementedError(
-            "DecodeEngine(parallel={'tp': N > 1}) is not ported yet "
-            "(ROADMAP queue A12b: tensor-parallel serving on a mesh)")
-    return 1
+    return tp
 
 
 def _validate_qos(qos) -> None:
@@ -469,9 +470,10 @@ class DecodeEngine:
     `logprobs=K` lets requests ask for up to K top log-probabilities
     per token (not with `speculative`). `qos`, `role` ("both",
     "prefill" or "decode") and `handoff_ttl` (seconds a leased handoff
-    waits for its receiver) as in the module docstring; `parallel` may
-    only be None or ``{"tp": 1}``. `device` defaults to the card and must
-    be the network's device."""
+    waits for its receiver) as in the module docstring; `parallel` is
+    None or ``{"tp": N}`` (tensor parallelism over the process's first N
+    slots). `device` defaults to the card and must be the network's
+    device."""
 
     def __init__(self, net, *, n_slots: int = 4,
                  max_len: Optional[int] = None,
@@ -511,9 +513,14 @@ class DecodeEngine:
         if handoff_ttl <= 0:
             raise ValueError("handoff_ttl must be > 0")
         self._tp_degree = _parallel_degree(parallel)
+        self._tp = None  # TPPlan, built per (re)build when the degree > 1
         _validate_qos(qos)
         if logprobs < 0:
             raise ValueError("logprobs must be >= 0")
+        if logprobs and self._tp_degree > 1:
+            raise ValueError(
+                "logprobs=K cannot combine with tensor parallelism yet "
+                "(the top-K gather is not sharded)")
         if logprobs and speculative:
             raise ValueError(
                 "logprobs=K cannot combine with speculative decoding: "
@@ -692,6 +699,14 @@ class DecodeEngine:
         self.metrics.gauge(
             "decode_engine_pages_in_use",
             lambda: self.pool_pages - len(self._free_pages))
+        if self._tp_degree > 1:
+            # per-shard gauges carry a {tp_rank} label; the shards are
+            # symmetric, so every rank reports the same KV residency
+            for _r in range(self._tp_degree):
+                self.metrics.gauge(
+                    'decode_engine_tp_shard_kv_bytes_per_token'
+                    '{tp_rank="%d"}' % _r,
+                    lambda: self._kv_bytes_per_token // self._tp_degree)
         if self.breaker is not None \
                 and getattr(self.breaker, "on_event", None) is None:
             # a standalone engine rings breaker transitions itself; a
@@ -731,11 +746,23 @@ class DecodeEngine:
         max_queued_pages = self._requested_max_queued_pages
         if max_queued_pages is None:
             max_queued_pages = 4 * pool_pages
+        # tensor-parallel plan: the geometry is checked here (at
+        # construction and at every weight swap), a typed ValueError
+        # before any request runs
+        tp = None
+        if self._tp_degree > 1:
+            from deeplearning4j_tpu_torch.serving.tp_engine import TPPlan
+
+            tp = TPPlan(net, plan, self._tp_degree)
+        self._tp = tp
         self._plan = plan
         self._net = net
         self._params = net._params
-        # compute-dtype copies made once: the steps reuse them
+        # compute-dtype copies made once: the steps reuse them; under
+        # tensor parallelism the blocks' copies are split over the slots
         self._bparams = plan.cast_blocks(net._params)
+        self._sparams = tp.shard_params(self._bparams) if tp is not None \
+            else self._bparams
         self.max_len = L
         self.page_size = page
         self.pool_pages = pool_pages
@@ -793,7 +820,8 @@ class DecodeEngine:
                 draft_net=resolve_draft_net(draft, net), k=k, n_slots=S,
                 page=page, L_logical=L_logical, pool_pages=pool_pages,
                 top_k=self.top_k, kv_quant=self._kv_quant,
-                target_bparams=self._bparams)
+                target_bparams=self._bparams, tp=tp,
+                tp_params=self._sparams if tp is not None else None)
         self._reset_device_state()
 
     def _reset_device_state(self) -> None:
@@ -803,6 +831,11 @@ class DecodeEngine:
         S, dev, P = self.n_slots, self.device, self.pool_pages
         self._caches = _new_pools(self._plan, P, self.page_size,
                                   self._kv_quant, dev)
+        if self._tp is not None:
+            # the pools' head axis (axis 1 of every pool) split over the
+            # slots: each owns Hkv/N heads of every page
+            self._caches = [tuple(self._tp.shard_pool(x) for x in c)
+                            for c in self._caches]
         self._page_table = torch.zeros((S, self._n_pages_max),
                                        dtype=torch.int32, device=dev)
         self._tok = torch.zeros((S,), dtype=torch.int64, device=dev)
@@ -867,20 +900,28 @@ class DecodeEngine:
             _prefill_block_attention,
         )
 
-        plan, bp, dev = self._plan, self._bparams, self.device
+        from deeplearning4j_tpu_torch.serving.tp_engine import run_blocks
+
+        plan, dev, page = self._plan, self.device, self.page_size
         P = ids.shape[1]
         t0 = req.prompt.shape[0]
         qpos = torch.arange(P, device=dev)
         x = self._embed(torch.as_tensor(ids, device=dev), qpos)
-        for bi, i in enumerate(plan.block_is):
-            p, layer = bp[i], plan.layers[i]
-            q, k, v = _block_heads(layer, p, x, qpos)
-            att = _prefill_block_attention(layer, q, k, v)
-            x = _block_ffn(layer, p, x + _block_out_proj(
-                p, att.reshape(1, P, -1)))
-            _write_span(self._caches[bi], k.permute(0, 2, 3, 1),
-                        v.permute(0, 2, 1, 3), wpids, 0, self.page_size)
-        logits = plan.final_logits(bp, self._params, x[0, t0 - 1][None])
+
+        def blocks(bp, caches, x, shard, axis_name):
+            for bi, i in enumerate(plan.block_is):
+                p, layer = bp[i], plan.layers[i]
+                q, k, v = _block_heads(layer, p, x, qpos, shard=shard)
+                att = _prefill_block_attention(layer, q, k, v)
+                x = _block_ffn(layer, p, x + _block_out_proj(
+                    p, att.reshape(1, P, -1), axis_name), axis_name)
+                _write_span(caches[bi], k.permute(0, 2, 3, 1),
+                            v.permute(0, 2, 1, 3), wpids, 0, page)
+            return x
+
+        x = run_blocks(self._tp, blocks, self._sparams, self._caches, x)
+        logits = plan.final_logits(self._bparams, self._params,
+                                   x[0, t0 - 1][None])
         return self._first_token(slot, req, logits, t0)
 
     @torch.no_grad()
@@ -901,28 +942,37 @@ class DecodeEngine:
             paged_attention_chunk_auto,
         )
 
-        plan, bp, dev = self._plan, self._bparams, self.device
+        from deeplearning4j_tpu_torch.serving.tp_engine import run_blocks
+
+        plan, dev, page = self._plan, self.device, self.page_size
         W = ids.shape[1]
         qpos = off + torch.arange(W, device=dev)
         x = self._embed(torch.as_tensor(ids, device=dev), qpos)
         page_row = self._page_table[slot:slot + 1]
         pos0 = torch.tensor([off], dtype=torch.int32, device=dev)
-        for bi, i in enumerate(plan.block_is):
-            p, layer = bp[i], plan.layers[i]
-            q, k, v = _block_heads(layer, p, x, qpos)
-            cache = self._caches[bi]
-            _write_span(cache, k.permute(0, 2, 3, 1), v.permute(0, 2, 1, 3),
-                        wpids, woff, self.page_size)
-            att = paged_attention_chunk_auto(q, cache[0], cache[1], page_row,
-                                             pos0, **_scales(cache))
-            x = _block_ffn(layer, p, x + _block_out_proj(
-                p, att.reshape(1, W, -1)))
+
+        def blocks(bp, caches, x, shard, axis_name):
+            for bi, i in enumerate(plan.block_is):
+                p, layer = bp[i], plan.layers[i]
+                q, k, v = _block_heads(layer, p, x, qpos, shard=shard)
+                cache = caches[bi]
+                _write_span(cache, k.permute(0, 2, 3, 1),
+                            v.permute(0, 2, 1, 3), wpids, woff, page)
+                att = paged_attention_chunk_auto(q, cache[0], cache[1],
+                                                 page_row, pos0,
+                                                 **_scales(cache))
+                x = _block_ffn(layer, p, x + _block_out_proj(
+                    p, att.reshape(1, W, -1), axis_name), axis_name)
+            return x
+
+        x = run_blocks(self._tp, blocks, self._sparams, self._caches, x)
         ok = torch.isfinite(x.float()).all()
         if not final:
             return None, ok, None
         t0 = req.prompt.shape[0]
         r = min(max(t0 - 1 - off, 0), W - 1)
-        logits = plan.final_logits(bp, self._params, x[0, r][None])
+        logits = plan.final_logits(self._bparams, self._params,
+                                   x[0, r][None])
         tok0, ok_logits, lp = self._first_token(slot, req, logits, t0)
         return tok0, ok & ok_logits, lp
 
@@ -942,24 +992,32 @@ class DecodeEngine:
             paged_attention_step_auto,
         )
 
-        plan, bp, page = self._plan, self._bparams, self.page_size
-        tok, pos = self._tok, self._pos
+        from deeplearning4j_tpu_torch.serving.tp_engine import run_blocks
+
+        plan, page = self._plan, self.page_size
+        tok, pos, table = self._tok, self._pos, self._page_table
         x = self._embed(tok, pos)
         wpos = pos.clamp(max=self._L_logical - 1).long()
         lpage, loff = wpos // page, wpos % page
-        pids = torch.where(active_t, self._page_table[self._rows, lpage].long(),
-                           0)
-        for bi, i in enumerate(plan.block_is):
-            p, layer = bp[i], plan.layers[i]
-            q, k, v = _block_heads(layer, p, x[:, None, :], pos[:, None])
-            q, k, v = q[:, 0], k[:, 0], v[:, 0]
-            cache = self._caches[bi]
-            _write_step(cache, pids, loff, k, v)
-            att = paged_attention_step_auto(q, cache[0], cache[1],
-                                            self._page_table, pos, active_t,
-                                            **_scales(cache))
-            x = _block_ffn(layer, p, x + _block_out_proj(p, att))
-        logits = plan.final_logits(bp, self._params, x)
+        pids = torch.where(active_t, table[self._rows, lpage].long(), 0)
+
+        def blocks(bp, caches, x, shard, axis_name):
+            for bi, i in enumerate(plan.block_is):
+                p, layer = bp[i], plan.layers[i]
+                q, k, v = _block_heads(layer, p, x[:, None, :],
+                                       pos[:, None], shard=shard)
+                q, k, v = q[:, 0], k[:, 0], v[:, 0]
+                cache = caches[bi]
+                _write_step(cache, pids, loff, k, v)
+                att = paged_attention_step_auto(q, cache[0], cache[1],
+                                                table, pos, active_t,
+                                                **_scales(cache))
+                x = _block_ffn(layer, p, x + _block_out_proj(
+                    p, att, axis_name), axis_name)
+            return x
+
+        x = run_blocks(self._tp, blocks, self._sparams, self._caches, x)
+        logits = plan.final_logits(self._bparams, self._params, x)
         nxt = torch.argmax(logits, dim=-1)
         for s in np.flatnonzero((self._temps > 0) & self._active):
             nxt[s] = _sample_logits(logits[s:s + 1], self._gens[s],
@@ -2073,10 +2131,16 @@ class DecodeEngine:
             raise err
 
     def model_bytes_per_chip(self) -> int:
-        """Bytes this engine keeps on its device: the network's
-        parameters plus every KV pool and scale pool."""
+        """Bytes this engine keeps on one slot: the network's parameters
+        plus every KV pool and scale pool. Under parallel={"tp": N} the
+        split matmul slices and the pools' head axis each divide by N
+        (the replicated tensors do not)."""
         pool_bytes = sum(x.numel() * x.element_size()
-                         for c in self._caches for x in c)
+                         for c in self._caches
+                         for x in c) // self._tp_degree
+        if self._tp is not None:
+            return self._tp.weight_bytes_per_chip(self._net._params) \
+                + pool_bytes
         weight_bytes = sum(
             t.numel() * t.element_size()
             for p in self._net._params
@@ -3195,7 +3259,7 @@ class DecodeEngine:
                                          self._pos, self._temps, active_t,
                                          active_np, wlimit)
                 self._tok, self._pos, out, n_emit, oks = spec.verify(
-                    self._bparams, self._params, self._caches,
+                    self._sparams, self._params, self._caches,
                     self._page_table, self._tok, self._pos, self._temps,
                     self._gens, active_t, active_np, wlimit, props, qd)
                 # the one host read-back of the iteration

@@ -76,8 +76,9 @@ and `post_step` around every device step.
 `export_prefix` delegate to it, as the JAX server's do; a
 `DisaggCoordinator` drives them across in-process servers.
 
-Not ported yet: tensor-parallel serving (`parallel=`, ROADMAP queue A12b)
-raises `NotImplementedError`.
+`parallel={"tp": N}` shards the lazily built decode engine over the
+process's first N slots (`serving/tp_engine.py`); it is checked when
+the engine is built, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -468,10 +469,11 @@ class ModelServer:
                 raise ValueError("quantize['kv'] must be 'int8', got "
                                  f"{quantize.get('kv')!r}")
         self._quantize_cfg = dict(quantize) if quantize else None
-        if parallel is not None:
-            raise NotImplementedError(
-                "ModelServer(parallel=...) is not ported yet (ROADMAP "
-                "queue A12b: tensor-parallel serving on a mesh)")
+        # tensor-parallel serving (serving/tp_engine.py): checked when
+        # the decode engine is built, as it is the engine that shards
+        if parallel is not None and not isinstance(parallel, dict):
+            raise ValueError('parallel must be a dict like {"tp": N}')
+        self._parallel_cfg = dict(parallel) if parallel else None
         if drift_gate is not None:
             unknown = set(drift_gate) - {"eval_set", "max_argmax_drift",
                                          "max_ppl_delta"}
@@ -813,6 +815,8 @@ class ModelServer:
                     cfg.setdefault(
                         "quantize", {"kv": self._quantize_cfg["kv"]})
                 cfg.setdefault("device", self._net.device)
+                if self._parallel_cfg:
+                    cfg.setdefault("parallel", self._parallel_cfg)
                 self._engine = DecodeEngine(self._net, **cfg)
                 if self._prefix_bind is not None:
                     a, kw = self._prefix_bind

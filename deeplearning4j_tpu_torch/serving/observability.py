@@ -759,8 +759,8 @@ class FlightRecorder:
 # change. The port's `ModelServer` carries every MODEL_SERVER_STATS_KEYS
 # key (tests/test_torch_model_server.py) and its `DecodeEngine` every
 # DECODE_ENGINE_STATS_KEYS key, the QoS, KV-transfer and cluster-prefix
-# keys included (tests/test_torch_qos.py), with `tp_degree` 1: tensor-
-# parallel serving is ROADMAP queue A12b.
+# keys included (tests/test_torch_qos.py); `tp_degree` is the engine's
+# tensor-parallel degree (`serving/tp_engine.py`), 1 without one.
 
 MODEL_SERVER_STATS_KEYS = frozenset({
     "served", "batches", "batch_fill_pct", "shed_overload",

@@ -29,7 +29,9 @@ for the pool:
   `--device` (default ``cuda``) is where the replica serves, and a
   replica asked for the card on a machine without one dies at startup
   (its supervisor raises `ReplicaSpawnError` with the log tail) rather
-  than serving on the CPU.
+  than serving on the CPU. `--slots N` exposes N slots of that device
+  (`parallel.mesh.set_local_slots`), so a `parallel={"tp": N}` replica
+  runs on one card; the supervisor passes it from the serving config.
 - **`ReplicaSupervisor`** — spawns (each a fresh interpreter, never a
   fork of a process holding a CUDA context; the CUDA sources are built
   once in the parent first), watches, and respawns replica
@@ -827,9 +829,16 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     parser.add_argument("--device", default="cuda",
                         help="where the replica serves: cuda (default; "
                              "startup fails without a card) or cpu")
+    parser.add_argument("--slots", type=int, default=None,
+                        help="expose this many slots of --device (a "
+                             "tensor-parallel replica on one device)")
     parser.add_argument("--chaos-die-on-reload", action="store_true",
                         help="chaos drill: SIGKILL self on reload_model")
     args = parser.parse_args(argv)
+    if args.slots is not None:
+        from deeplearning4j_tpu_torch.parallel.mesh import set_local_slots
+
+        set_local_slots(args.slots, args.device)
 
     serving = json.loads(args.serving) if args.serving else {}
     chaos = {"die_on_reload": True} if args.chaos_die_on_reload else None
@@ -975,6 +984,9 @@ class ReplicaSupervisor:
                "--scratch", str(self._scratch),
                "--ready-file", str(self._ready_path(i)),
                "--device", self.device]
+        tp = ((self._serving or {}).get("parallel") or {}).get("tp", 1)
+        if isinstance(tp, int) and tp > 1:
+            cmd += ["--slots", str(tp)]
         if self._serving:
             cmd += ["--serving", json.dumps(self._serving)]
         if i in self._chaos:

@@ -43,7 +43,11 @@ a page promotion shares both models' KV in one move.
 
 Where the JAX package scans the k+1 draft steps inside one compiled
 dispatch, this module loops in Python; the pools are updated in place.
-Tensor-parallel drafts (`tp=`) are not ported (ROADMAP queue A12b).
+Under tensor parallelism (`tp=`, the engine's `TPPlan`) the draft's and
+the verify's block stacks run once per tp slot (`serving/tp_engine.py`):
+a self-draft reuses the engine's split params, a separate draft gets
+its own `TPPlan` (its geometry checked on its own), and the draft pools
+are split over the slots' head axis like the engine's.
 """
 from __future__ import annotations
 
@@ -60,6 +64,7 @@ from deeplearning4j_tpu_torch.models.transformer import (
     _prefill_block_attention,
     _top_k_filter,
 )
+from deeplearning4j_tpu_torch.serving.tp_engine import leaf0, run_blocks
 from deeplearning4j_tpu_torch.ops.attention import (
     paged_attention_chunk_auto,
     paged_attention_step_auto,
@@ -114,12 +119,13 @@ class SpeculativeDecoder:
                  pool_pages: int, top_k: int,
                  kv_quant: Optional[str] = None, target_bparams=None,
                  tp=None, tp_params=None):
+        from deeplearning4j_tpu_torch.serving.tp_engine import TPPlan
+
         if k < 1:
             raise ValueError("speculative k must be >= 1")
-        if tp is not None or tp_params is not None:
-            raise NotImplementedError(
-                "SpeculativeDecoder(tp=...) is not ported yet (ROADMAP "
-                "queue A12b: tensor-parallel serving on a mesh)")
+        if tp is not None and not isinstance(tp, TPPlan):
+            raise ValueError(f"tp must be the engine's TPPlan or None, got "
+                             f"{type(tp).__name__}")
         # the engine's KV quantization mode is inherited verbatim: the
         # verify step writes into the ENGINE's pools, and the draft
         # pools mirror the same layout
@@ -158,6 +164,16 @@ class SpeculativeDecoder:
         self._dbparams = target_bparams \
             if self.self_draft and target_bparams is not None \
             else dplan.cast_blocks(draft_net._params)
+        # under tensor parallelism: a self-draft shares the engine's
+        # split params, a separate draft is split by its own plan
+        self._tp = tp
+        if tp is None:
+            self._dtp, self._dsparams = None, self._dbparams
+        elif self.self_draft and tp_params is not None:
+            self._dtp, self._dsparams = tp, tp_params
+        else:
+            self._dtp = TPPlan(draft_net, dplan, tp.degree)
+            self._dsparams = self._dtp.shard_params(self._dbparams)
         self._rows = torch.arange(n_slots, device=self.device)
         self.reset_state()
 
@@ -168,6 +184,9 @@ class SpeculativeDecoder:
         `_reset_device_state`, so draft and target pages can never skew)."""
         self._caches = _new_pools(self.draft_plan, self.pool_pages,
                                   self.page, self._kv_quant, self.device)
+        if self._dtp is not None:
+            self._caches = [tuple(self._dtp.shard_pool(x) for x in c)
+                            for c in self._caches]
         self._gens: List[Optional[torch.Generator]] = [
             torch.Generator(device=self.device).manual_seed(1000 + i)
             for i in range(self.n_slots)]
@@ -199,41 +218,54 @@ class SpeculativeDecoder:
         pages, same padded ids). Reads one scalar back so that a failed
         draft dispatch surfaces HERE, attributable, not inside a later
         verify."""
-        dplan, bp, dev = self.draft_plan, self._dbparams, self.device
+        dplan, dev, page = self.draft_plan, self.device, self.page
         P = ids.shape[1]
         qpos = torch.arange(P, device=dev)
-        x = self._embed(dplan, bp, torch.as_tensor(ids, device=dev), qpos)
-        for bi, i in enumerate(dplan.block_is):
-            p, layer = bp[i], dplan.layers[i]
-            q, kh, vh = _block_heads(layer, p, x, qpos)
-            att = _prefill_block_attention(layer, q, kh, vh)
-            x = _block_ffn(layer, p, x + _block_out_proj(
-                p, att.reshape(1, P, -1)))
-            _write_span(self._caches[bi], kh.permute(0, 2, 3, 1),
-                        vh.permute(0, 2, 1, 3), wpids, 0, self.page)
-        self._caches[0][0][0, 0, 0, 0].item()
+        x = self._embed(dplan, self._dbparams,
+                        torch.as_tensor(ids, device=dev), qpos)
+
+        def blocks(bp, caches, x, shard, axis_name):
+            for bi, i in enumerate(dplan.block_is):
+                p, layer = bp[i], dplan.layers[i]
+                q, kh, vh = _block_heads(layer, p, x, qpos, shard=shard)
+                att = _prefill_block_attention(layer, q, kh, vh)
+                x = _block_ffn(layer, p, x + _block_out_proj(
+                    p, att.reshape(1, P, -1), axis_name), axis_name)
+                _write_span(caches[bi], kh.permute(0, 2, 3, 1),
+                            vh.permute(0, 2, 1, 3), wpids, 0, page)
+            return x
+
+        run_blocks(self._dtp, blocks, self._dsparams, self._caches, x)
+        leaf0(self._caches[0][0])[0, 0, 0, 0].item()
         self.draft_prefills += 1
 
     @torch.no_grad()
     def prefill_chunk(self, page_row, ids: np.ndarray, off: int, woff: int,
                       pids) -> None:
         """Mirror one target prefill chunk into the draft pools."""
-        dplan, bp, dev = self.draft_plan, self._dbparams, self.device
+        dplan, dev, page = self.draft_plan, self.device, self.page
         Cw = ids.shape[1]
         qpos = off + torch.arange(Cw, device=dev)
-        x = self._embed(dplan, bp, torch.as_tensor(ids, device=dev), qpos)
+        x = self._embed(dplan, self._dbparams,
+                        torch.as_tensor(ids, device=dev), qpos)
         pos0 = torch.tensor([off], dtype=torch.int32, device=dev)
-        for bi, i in enumerate(dplan.block_is):
-            p, layer = bp[i], dplan.layers[i]
-            q, kh, vh = _block_heads(layer, p, x, qpos)
-            cache = self._caches[bi]
-            _write_span(cache, kh.permute(0, 2, 3, 1), vh.permute(0, 2, 1, 3),
-                        pids, woff, self.page)
-            att = paged_attention_chunk_auto(q, cache[0], cache[1], page_row,
-                                             pos0, **_scales(cache))
-            x = _block_ffn(layer, p, x + _block_out_proj(
-                p, att.reshape(1, Cw, -1)))
-        self._caches[0][0][0, 0, 0, 0].item()
+
+        def blocks(bp, caches, x, shard, axis_name):
+            for bi, i in enumerate(dplan.block_is):
+                p, layer = bp[i], dplan.layers[i]
+                q, kh, vh = _block_heads(layer, p, x, qpos, shard=shard)
+                cache = caches[bi]
+                _write_span(cache, kh.permute(0, 2, 3, 1),
+                            vh.permute(0, 2, 1, 3), pids, woff, page)
+                att = paged_attention_chunk_auto(q, cache[0], cache[1],
+                                                 page_row, pos0,
+                                                 **_scales(cache))
+                x = _block_ffn(layer, p, x + _block_out_proj(
+                    p, att.reshape(1, Cw, -1), axis_name), axis_name)
+            return x
+
+        run_blocks(self._dtp, blocks, self._dsparams, self._caches, x)
+        leaf0(self._caches[0][0])[0, 0, 0, 0].item()
         self.draft_chunk_prefills += 1
 
     # -- draft proposal: k+1 draft steps -----------------------------------
@@ -269,16 +301,24 @@ class SpeculativeDecoder:
             x = self._embed(dplan, bp, cur, p_j)
             pids, loff = self._write_targets(page_table, p_j, j, active,
                                              wlimit)
-            for bi, i in enumerate(dplan.block_is):
-                p, layer = bp[i], dplan.layers[i]
-                q, kh, vh = _block_heads(layer, p, x[:, None, :],
-                                         p_j[:, None])
-                cache = self._caches[bi]
-                _write_step(cache, pids, loff, kh[:, 0], vh[:, 0])
-                att = paged_attention_step_auto(q[:, 0], cache[0], cache[1],
-                                                page_table, p_j, active,
-                                                **_scales(cache))
-                x = _block_ffn(layer, p, x + _block_out_proj(p, att))
+
+            def blocks(bp, caches, x, shard, axis_name, p_j=p_j, pids=pids,
+                       loff=loff):
+                for bi, i in enumerate(dplan.block_is):
+                    p, layer = bp[i], dplan.layers[i]
+                    q, kh, vh = _block_heads(layer, p, x[:, None, :],
+                                             p_j[:, None], shard=shard)
+                    cache = caches[bi]
+                    _write_step(cache, pids, loff, kh[:, 0], vh[:, 0])
+                    att = paged_attention_step_auto(
+                        q[:, 0], cache[0], cache[1], page_table, p_j,
+                        active, **_scales(cache))
+                    x = _block_ffn(layer, p, x + _block_out_proj(
+                        p, att, axis_name), axis_name)
+                return x
+
+            x = run_blocks(self._dtp, blocks, self._dsparams, self._caches,
+                           x)
             if j == self.k:
                 break  # the completion step only writes the draft's KV
             logits = dplan.final_logits(bp, self._dparams, x)
@@ -314,17 +354,23 @@ class SpeculativeDecoder:
         x = self._embed(tplan, bp, block, qpos)
         targets = [self._write_targets(page_table, pos + j, j, active,
                                        wlimit) for j in range(C)]
-        for bi, i in enumerate(tplan.block_is):
-            p, layer = bp[i], tplan.layers[i]
-            q, kh, vh = _block_heads(layer, p, x, qpos)
-            cache = caches[bi]
-            for j, (pids, loff) in enumerate(targets):
-                _write_step(cache, pids, loff, kh[:, j], vh[:, j])
-            # one (k+1)-wide paged chunk per slot
-            att = paged_attention_chunk_auto(q, cache[0], cache[1],
-                                             page_table, pos, active,
-                                             **_scales(cache))
-            x = _block_ffn(layer, p, x + _block_out_proj(p, att))
+
+        def blocks(bp, caches, x, shard, axis_name):
+            for bi, i in enumerate(tplan.block_is):
+                p, layer = bp[i], tplan.layers[i]
+                q, kh, vh = _block_heads(layer, p, x, qpos, shard=shard)
+                cache = caches[bi]
+                for j, (pids, loff) in enumerate(targets):
+                    _write_step(cache, pids, loff, kh[:, j], vh[:, j])
+                # one (k+1)-wide paged chunk per slot
+                att = paged_attention_chunk_auto(q, cache[0], cache[1],
+                                                 page_table, pos, active,
+                                                 **_scales(cache))
+                x = _block_ffn(layer, p, x + _block_out_proj(
+                    p, att, axis_name), axis_name)
+            return x
+
+        x = run_blocks(self._tp, blocks, bp, caches, x)
         logits = tplan.final_logits(bp, params, x)                  # (S, C, V)
 
         # acceptance. Query j consumed [tok, props][j] and its

@@ -339,14 +339,23 @@ def test_eos_and_sampled_requests(nets):
 
 
 def test_unported_options_are_refused(nets):
-    """Tensor parallelism past one device still raises naming A12; the
-    cluster tier's in-process options (QoS, the disaggregated roles,
+    """Tensor parallelism (A12b, ported) needs as many slots as its
+    degree: with one slot exposed, tp=2 is a ValueError naming the
+    device count, as the JAX engine's; the cluster tier's in-process
+    options (QoS, the disaggregated roles,
     tenants and the batch lane) are ported and validated as the JAX
     engine validates them; the serving seams `ModelServer` drives
     (breaker, logprobs, on_token) are accepted."""
+    from deeplearning4j_tpu_torch.parallel import mesh as pmesh
+
     _, pnet = nets
-    with pytest.raises(NotImplementedError, match="A12"):
-        _engine(pnet, parallel={"tp": 2})
+    saved = pmesh._SLOTS
+    pmesh.set_local_slots(1, "cpu")
+    try:
+        with pytest.raises(ValueError, match="needs 2 devices"):
+            _engine(pnet, parallel={"tp": 2})
+    finally:
+        pmesh._SLOTS = saved
     with pytest.raises(ValueError, match="unknown qos keys"):
         _engine(pnet, qos={"tenants": {}, "lanes": 2})
     with pytest.raises(ValueError, match="role"):

@@ -205,10 +205,21 @@ def test_mha_gqa_widens_for_flash_and_sums_grads():
 
 
 def test_sequence_parallel_scope_is_refused():
-    q = torch.zeros((1, 8, 1, 8))
-    with patt.sequence_parallel_scope(mesh=None):
-        with pytest.raises(NotImplementedError, match="A12"):
-            patt.multi_head_attention(q, q, q)
+    """A scope without a mesh is refused; over a 2-slot `seq` mesh the
+    layers' attention is ring attention, equal to full attention."""
+    from deeplearning4j_tpu_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(ValueError, match="needs a mesh"):
+        with patt.sequence_parallel_scope(mesh=None):
+            pass
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn((1, 8, 2, 8), generator=g, dtype=torch.float64)
+               for _ in range(3))
+    mesh = make_mesh({"seq": 2}, devices=[torch.device("cpu")] * 2)
+    with patt.sequence_parallel_scope(mesh):
+        out = patt.multi_head_attention(q, k, v, causal=True)
+    torch.testing.assert_close(out, patt.full_attention(q, k, v, causal=True),
+                               rtol=1e-12, atol=1e-12)
 
 
 def test_causal_flash_needs_equal_lengths():

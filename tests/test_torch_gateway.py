@@ -519,7 +519,9 @@ def test_serving_tier_survives_stop_start_cycle():
 def test_entry_point_builds_on_its_device_and_defaults_to_the_card():
     """Models created or loaded through the wire live on the entry
     point's device; without `device` it asks for the card, which raises
-    where there is none. `serving={"parallel": ...}` names A12b."""
+    where there is none. `serving={"parallel": ...}` (A12b, ported)
+    needs its slots: with one exposed, tp=2 is the engine's ValueError
+    at the first generate."""
     ep = EntryPoint(device="cpu")
     ep.create_model("m", _conf().to_json())
     assert ep._models["m"].device.type == "cpu"
@@ -528,9 +530,21 @@ def test_entry_point_builds_on_its_device_and_defaults_to_the_card():
             EntryPoint()
         with pytest.raises(RuntimeError, match="no CUDA device"):
             GatewayServer()
-    tp = EntryPoint(serving={"parallel": {"tp": 2}}, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"queue A12b\b"):
-        tp.create_model("m", _conf().to_json())
+    from deeplearning4j_tpu_torch.parallel import mesh as pmesh
+
+    tp = EntryPoint(serving={"parallel": {"tp": 2},
+                             "generation": {"n_slots": 1, "max_len": 16,
+                                            "prompt_buckets": (8,)}},
+                    device="cpu")
+    tp.create_model("m", _gpt_conf().to_json())
+    saved = pmesh._SLOTS
+    pmesh.set_local_slots(1, "cpu")
+    try:
+        with pytest.raises(Exception, match="needs 2 devices"):
+            tp.generate("m", np.zeros(4, np.int32), 2)
+    finally:
+        pmesh._SLOTS = saved
+        tp.shutdown()
     for bad, match in (({"replicas": 0}, "replicas"),
                        ({"pool": {"probe_interval": 1.0}}, "pool"),
                        ({"autoscale": True}, "autoscale"),

@@ -517,6 +517,34 @@ _SCRIPT = textwrap.dedent("""
         cfg, pnet, ListDataSetIterator(pdata), mesh=mesh).fit() \
         .total_epochs == 2
 
+    # the in-process SPMD half (A12b): slots, tensor-parallel serving,
+    # ring attention, the pipeline and the expert-parallel MoE
+    from deeplearning4j_tpu_torch.parallel import (
+        PipelineParallelWrapper, ring_attention, spmd)
+    from deeplearning4j_tpu_torch.parallel.experts import moe_apply
+    from deeplearning4j_tpu_torch.parallel.mesh import set_local_slots
+    from deeplearning4j_tpu_torch.serving.tp_engine import TPPlan  # noqa
+    set_local_slots(2, "cpu")
+    tnet = MultiLayerNetwork(gpt_configuration(16, d_model=16, n_heads=2,
+                                               n_layers=2, max_length=16),
+                             device="cpu")
+    tnet.init()
+    eng = DecodeEngine(tnet, n_slots=1, max_len=12, prompt_buckets=(4,),
+                       parallel={"tp": 2}, device="cpu")
+    assert eng.generate(np.arange(3), 2).shape == (2,)
+    eng.shutdown()
+    two = make_mesh({"seq": 2}, devices=[torch.device("cpu")] * 2)
+    qkv = torch.ones((1, 4, 2, 8))
+    assert ring_attention(qkv, qkv, qkv, two).shape == (1, 4, 2, 8)
+    ids = np.zeros((4, 4), np.int32)
+    PipelineParallelWrapper(tnet, make_mesh(
+        {"pipe": 2}, devices=[torch.device("cpu")] * 2)).fit(
+        DataSet(ids, np.eye(16, dtype=np.float32)[ids]))
+    ex = make_mesh({"expert": 2}, devices=[torch.device("cpu")] * 2)
+    y, _ = moe_apply(lambda p, t: t @ p["W"], {"W": torch.ones((2, 8, 8))},
+                     torch.ones((4, 8)), torch.ones((8, 2)), ex)
+    assert y.shape == (4, 8) and spmd.current_slot() is None
+
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")
                     or m == "deeplearning4j_tpu"
@@ -599,11 +627,11 @@ def test_parallel_main_as_a_module_imports_neither():
 
 
 def test_no_port_source_names_jax():
-    """No module of the port, and none of its card scripts
-    (`chip_*.py`), imports jax or the JAX package."""
+    """No module of the port, none of its card scripts (`chip_*.py`) and
+    not its thread stress check imports jax or the JAX package."""
     bad = []
     for path in [*(REPO / "deeplearning4j_tpu_torch").rglob("*.py"),
-                 *REPO.glob("chip_*.py")]:
+                 *REPO.glob("chip_*.py"), REPO / "spmd_thread_stress.py"]:
         for line in path.read_text().splitlines():
             s = line.strip()
             if s.startswith(("import ", "from ")) and (

@@ -718,7 +718,7 @@ def test_metrics_and_flight_record_carry_predicts_and_sheds(pair, servers,
     ({"quantize": {"weights": "int8"},
       "drift_gate": {"max_argmax_drift": 0.1}}, ValueError),
     ({"drift_gate": {"eval_set": [[1]], "max_drift": 0.1}}, ValueError),
-    ({"parallel": {"tp": 2}}, NotImplementedError),
+    ({"parallel": [2]}, ValueError),
 ])
 def test_server_refuses_bad_configuration(pair, kw, err):
     with pytest.raises(err):

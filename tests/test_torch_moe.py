@@ -165,17 +165,27 @@ def test_switch_ffn_output_grads_and_aux(cf, masked, passthrough):
 
 
 def test_expert_parallel_names_raise_naming_a12():
-    """The expert-parallel path and the rest of the multi-device half
-    raise naming A12b (the data-parallel tier, A12a, is ported)."""
+    """The expert-parallel path (A12b) is ported: its names are the
+    port's own functions, and `moe_apply` checks the expert count
+    against the mesh axis as the JAX package does; the multi-process
+    half still raises naming A12c."""
+    from deeplearning4j_tpu_torch.parallel.mesh import make_mesh
+
     for name in ("expert_mesh_scope", "current_expert_mesh", "moe_apply",
                  "switch_ffn_sharded"):
-        with pytest.raises(NotImplementedError, match=r"queue A12b\b"):
-            fn = getattr(pex, name)
-            fn(*([None] * (fn.__code__.co_argcount)))
+        assert getattr(pex, name).__module__ == pex.__name__
+    assert pex.current_expert_mesh() is None
+    mesh = make_mesh({"expert": 2}, devices=[torch.device("cpu")] * 2)
+    with pex.expert_mesh_scope(mesh, "data"):
+        assert pex.current_expert_mesh() == (mesh, "data")
+    with pytest.raises(ValueError, match="3 experts but mesh axis"):
+        pex.moe_apply(None, {"W1": torch.zeros((3, 2, 2))},
+                      torch.zeros((4, 2)), torch.zeros((2, 3)), mesh)
     import deeplearning4j_tpu_torch.parallel as par
 
-    with pytest.raises(NotImplementedError, match=r"queue A12b\b"):
-        par.SequenceParallelWrapper
+    assert par.SequenceParallelWrapper.__name__ == "SequenceParallelWrapper"
+    with pytest.raises(NotImplementedError, match=r"queue A12c\b"):
+        par.MultiProcessParallelWrapper
 
 
 def _moe_net(C, L, **kw):

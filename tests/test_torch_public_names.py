@@ -130,13 +130,17 @@ def test_the_walk_covers_the_training_extras_and_the_cluster_half():
     ("parallel.multiprocess", "initialize_multiprocess", "A12b"),
 ])
 def test_unported_families_raise_naming_their_item(module, name, item):
-    """The multi-device half of parallel training (A12b) raises
+    """The multi-process half of parallel training (A12c) raises
     NotImplementedError naming its queue item, never AttributeError or
     ImportError. The wire, the remote replicas and the network injectors
-    (A11c) and the data-parallel tier (A12, now A12a: the wrapper, the
-    meshes) raised so until they were ported: now they resolve."""
+    (A11c), the data-parallel tier (A12, now A12a: the wrapper, the
+    meshes) and the in-process SPMD half (A12b: the pipeline and
+    sequence wrappers) raised so until they were ported: now they
+    resolve; A12b's `multiprocess` names moved to A12c."""
     mod = importlib.import_module(f"{PORT}.{module}" if module else PORT)
-    if item in ("A11c", "A12"):
+    if item == "A12b" and module == "parallel.multiprocess":
+        item = "A12c"
+    if item in ("A11c", "A12", "A12b"):
         obj = getattr(mod, name)
         assert inspect.isclass(obj) or inspect.isfunction(obj)
         exec(f"from {mod.__name__} import {name}", {})
@@ -182,8 +186,8 @@ def test_the_replica_pool_tier_resolves_from_serving(name):
 
 def test_pretrain_and_sharded_experts_raise_naming_their_item():
     """Layerwise pretraining is ported (A9b): on a network without a
-    pretraining layer it changes nothing; the expert-parallel MoE still
-    raises naming A12b."""
+    pretraining layer it changes nothing; the expert-parallel MoE (A12b)
+    is ported and routes a MoE layer's tokens one expert per slot."""
     from deeplearning4j_tpu_torch.datasets.dataset import DataSet
     from deeplearning4j_tpu_torch.models.lenet import lenet_configuration
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
@@ -193,8 +197,22 @@ def test_pretrain_and_sharded_experts_raise_naming_their_item():
     before = net.params().clone()
     net.pretrain(DataSet(torch.zeros((2, 784)).numpy(), None))
     assert torch.equal(net.params(), before)
-    with pytest.raises(NotImplementedError, match=r"queue A12b\b"):
-        experts.switch_ffn_sharded(None, None, None)
+    from deeplearning4j_tpu_torch.parallel.mesh import make_mesh
+
+    g = torch.Generator().manual_seed(0)
+    p = {"router": torch.randn((4, 2), generator=g),
+         "W1": torch.randn((2, 4, 8), generator=g),
+         "b1": torch.zeros((2, 8)),
+         "W2": torch.randn((2, 8, 4), generator=g),
+         "b2": torch.zeros((2, 4))}
+    tokens = torch.randn((8, 4), generator=g)
+    mesh = make_mesh({"expert": 2}, devices=[torch.device("cpu")] * 2)
+    y = experts.switch_ffn_sharded(p, tokens, mesh, axis_name="expert",
+                                   data_axis=None, act=torch.relu,
+                                   capacity_factor=4.0, aux_weight=0.01)
+    ref = experts.switch_ffn(p, tokens, act=torch.relu,
+                             capacity_factor=4.0, aux_weight=0.01)
+    torch.testing.assert_close(y, ref, rtol=1e-6, atol=1e-6)
 
 
 def test_the_walk_covers_the_wire_tier():
@@ -245,14 +263,14 @@ def test_the_walk_covers_the_fetchers_nlp_and_native():
 
 def test_nlp_names_without_a_card_meaning_raise_naming_their_item():
     """`mesh=` over several distinct devices (sharded embedding
-    training) is the multi-device half of parallel training (A12b; a
+    training) is the multi-process half of parallel training (A12c; a
     mesh on one device trains like the single-device path);
     `require_partitionable_rng` is JAX PRNG plumbing (C3)."""
     from deeplearning4j_tpu_torch.nlp import SequenceVectors, kernels
     from deeplearning4j_tpu_torch.parallel import make_mesh
 
     two = make_mesh(devices=[torch.device("cpu"), torch.device("meta")])
-    with pytest.raises(NotImplementedError, match=r"queue A12b\b"):
+    with pytest.raises(NotImplementedError, match=r"queue A12c\b"):
         SequenceVectors(mesh=two, batch_size=64, device="cpu")
     one = make_mesh(devices=[torch.device("cpu")] * 2)
     assert SequenceVectors(mesh=one, batch_size=64, device="cpu").mesh is one
@@ -282,6 +300,30 @@ def test_the_walk_covers_the_data_parallel_tier():
             f"{PORT}.parallel.fault_tolerance",
             f"{PORT}.parallel.early_stopping", f"{PORT}.parallel.export",
             f"{PORT}.parallel.main"} <= set(MODULES)
+
+
+def test_the_walk_covers_the_spmd_half():
+    assert {f"{PORT}.serving.tp_engine", f"{PORT}.parallel.pipeline",
+            f"{PORT}.parallel.pipeline_wrapper", f"{PORT}.parallel.sequence",
+            f"{PORT}.parallel.experts", f"{PORT}.ops.rng_rows"} \
+        <= set(MODULES)
+
+
+A12B = ("PipelineParallelWrapper", "SequenceParallelWrapper", "find_trunk",
+        "pipeline_apply", "ring_attention", "shard_stacked_params",
+        "stack_stage_params", "ulysses_attention")
+
+
+@pytest.mark.parametrize("name", A12B)
+def test_the_spmd_half_resolves_from_parallel(name):
+    """The in-process SPMD half's names resolve from `parallel` to the
+    port's own objects, of the JAX modules' kinds."""
+    port = importlib.import_module(f"{PORT}.parallel")
+    obj = getattr(port, name)
+    mod = obj.__module__.rsplit(".", 1)[-1]
+    robj = getattr(importlib.import_module(f"{REF}.parallel.{mod}"), name)
+    assert obj.__module__.startswith(f"{PORT}.parallel.")
+    assert inspect.isclass(obj) == inspect.isclass(robj)
 
 
 A12A = ("DistributedComputationGraph", "DistributedMultiLayer",
@@ -314,9 +356,12 @@ def test_the_data_parallel_tier_resolves_from_parallel(name):
 
 
 def test_no_port_name_raises_naming_a12_alone():
-    """Every message of the port that named queue A12 now names A12b,
-    the multi-device half; A12a is ported."""
+    """Every message of the port that named queue A12 names one of its
+    parts: A12a and A12b are ported, A12c (the multi-process half) is
+    what still raises; no message names A12b any more."""
     import re as _re
 
     for path in (REPO / PORT).rglob("*.py"):
-        assert not _re.search(r"queue A12(?![ab])", path.read_text()), path
+        text = path.read_text()
+        assert not _re.search(r"queue A12(?![abc])", text), path
+        assert not _re.search(r"queue A12b\b", text), path

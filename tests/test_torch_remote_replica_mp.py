@@ -38,6 +38,10 @@ from deeplearning4j_tpu.nn.conf.layers import (  # noqa: E402
     OutputLayer,
 )
 from deeplearning4j_tpu.ops.activations import Activation  # noqa: E402
+from deeplearning4j_tpu.models.transformer import (  # noqa: E402
+    generate as jax_generate,
+    gpt_configuration as jax_gpt_configuration,
+)
 from deeplearning4j_tpu.ops.losses import LossFunction  # noqa: E402
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet  # noqa: E402
 from deeplearning4j_tpu_torch.nn.conf import (  # noqa: E402
@@ -63,6 +67,7 @@ from deeplearning4j_tpu_torch.util.checkpoint_store import (  # noqa: E402
     CheckpointStore,
 )
 from deeplearning4j_tpu_torch.util.serialization import (  # noqa: E402
+    params_from_jax,
     write_model,
 )
 
@@ -155,11 +160,12 @@ def net():
 
 
 class _PoissonTraffic:
-    """Live load: threads issuing `pool.predict` with exponential gaps.
-    Every exception is a failed request; the drills assert none."""
+    """Live load: threads issuing `pool.predict` (or `call()`) with
+    exponential gaps. Every exception is a failed request; the drills
+    assert none."""
 
-    def __init__(self, pool, x, rate_hz=20.0, n_threads=2):
-        self._pool, self._x = pool, x
+    def __init__(self, pool, x, rate_hz=20.0, n_threads=2, call=None):
+        self._call = call or (lambda: pool.predict(x, timeout=15.0))
         self._rate = rate_hz / n_threads
         self._stop = threading.Event()
         self._lock = threading.Lock()
@@ -173,7 +179,7 @@ class _PoissonTraffic:
         rng = np.random.default_rng(seed)
         while not self._stop.is_set():
             try:
-                self._pool.predict(self._x, timeout=15.0)
+                self._call()
                 with self._lock:
                     self.served += 1
             except Exception as e:  # the drill's metric
@@ -356,6 +362,87 @@ def test_rolling_reload_crash_mid_deploy_rolls_back_pool_wide(net,
         np.testing.assert_allclose(pool.predict(x, timeout=30.0),
                                    baseline, atol=1e-5)
         assert not np.allclose(baseline, _out(candidate, x), atol=1e-3)
+    finally:
+        pool.shutdown(drain_timeout=5.0)
+
+
+def _gpt_pair(seed):
+    """A small JAX GPT and the port's copy of its weights."""
+    jnet = dl4j.MultiLayerNetwork(jax_gpt_configuration(
+        vocab_size=48, d_model=32, n_heads=2, n_layers=1, max_length=24,
+        seed=seed))
+    jnet.init()
+    pnet = MultiLayerNetwork(
+        MultiLayerConfiguration.from_json(jnet.conf.to_json()), device="cpu")
+    pnet.set_param_tree(params_from_jax(pnet.conf, [
+        {k: np.asarray(v) for k, v in p.items()} for p in jnet._params]))
+    return jnet, pnet
+
+
+def test_pool_of_tp2_replicas_kill9_and_rolling_reload(tmp_path):
+    """The JAX package's composition drill
+    (`tests/test_tp_engine.py::test_remote_pool_of_tp2_replicas_kill9_and_rolling_reload`):
+    a cross-process pool whose replicas are each a tp=2 engine (the
+    supervisor starts them with `--slots 2`) survives kill -9 failover
+    and a rolling reload under live generate traffic with zero failed
+    requests (a slot live at a replica's drain is migrated to its peer
+    or, where the peer cannot take it, run again; the handoff between
+    tp engines is pinned in `tests/test_torch_tp_engine.py`). Tokens
+    equal the JAX `generate` before and after the reload."""
+    jnet, pnet = _gpt_pair(12345)
+    prompt = np.random.default_rng(0).integers(0, 48, 5).astype(np.int32)
+    expected = jax_generate(jnet, prompt[None], 4, temperature=0.0)[0]
+    pool = spawn_replica_pool(
+        pnet, 2, scratch_dir=tmp_path,
+        server_kwargs={"generation": {"n_slots": 2, "max_len": 24,
+                                      "prompt_buckets": (8,),
+                                      "page_size": 8},
+                       "parallel": {"tp": 2}},
+        pool_kwargs=dict(probe_interval=0.5, probe_timeout=15.0,
+                         watchdog_timeout=15.0, evict_threshold=2,
+                         readmit_successes=2, max_failovers=3),
+        supervisor_kwargs=SUP_KW, rpc_timeout=60.0)
+    sup = pool.supervisor
+    try:
+        cmd = sup._cmd(0)
+        assert cmd[cmd.index("--slots") + 1] == "2"
+        np.testing.assert_array_equal(
+            pool.generate(prompt, 4, temperature=0.0, seed=0,
+                          timeout=60.0), expected)
+        with _PoissonTraffic(pool, None, call=lambda: pool.generate(
+                prompt, 4, temperature=0.0, seed=0,
+                timeout=30.0)) as traffic:
+            _await(lambda: traffic.served >= 3, 30.0, "traffic warmup")
+            sup.kill(1)
+            # the pool must first notice the death (a probe cycle)
+            _await(lambda: (pool.stats()["replicas"]["1"]["state"]
+                            != "healthy"), 30.0,
+                   "eviction of the killed replica")
+            _await(lambda: sup.respawns >= 1 and sup.is_alive(1),
+                   30.0, "supervisor respawn of replica 1")
+            _await(lambda: (pool.stats()["replicas"]["1"]["state"]
+                            == "healthy"), 30.0,
+                   "re-admission of the respawned tp replica")
+            before = traffic.served
+            _await(lambda: traffic.served >= before + 3, 30.0,
+                   "post-kill traffic")
+            store_dir = tmp_path / "store"
+            store_dir.mkdir()
+            store = CheckpointStore(store_dir)
+            cjnet, candidate = _gpt_pair(999)
+            store.save(1, lambda p: write_model(candidate, p, atomic=False))
+            pool.rolling_reload(store, step=1, drain_timeout=30.0)
+            before = traffic.served
+            _await(lambda: traffic.served >= before + 3, 30.0,
+                   "post-reload traffic")
+        assert traffic.failures == [], traffic.failures
+        got = pool.generate(prompt, 4, temperature=0.0, seed=0,
+                            timeout=60.0)
+        np.testing.assert_array_equal(
+            got, jax_generate(cjnet, prompt[None], 4, temperature=0.0)[0])
+        st = pool.stats()
+        assert st["rolling_reloads"] == 1
+        assert st["healthy_replicas"] == 2
     finally:
         pool.shutdown(drain_timeout=5.0)
 

@@ -362,7 +362,7 @@ def test_draft_from_config_dict_and_bad_drafts(nets):
     _, small_vocab = _pair(vocab_size=VOCAB - 8)
     with pytest.raises(ValueError, match="vocab"):
         _engine(pnet, speculative={"draft": small_vocab})
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(ValueError, match="TPPlan"):
         SpeculativeDecoder(target_plan=None, target_net=pnet, draft_net=pnet,
                            k=2, n_slots=1, page=8, L_logical=16,
                            pool_pages=2, top_k=0, tp=object())
