@@ -74,6 +74,12 @@ belongs to):
 - pool, stream: `chip_smoke.py`'s phases 30 and 31 (path 9, the replica
   pool; the streams and the exactly-once door on its pool), one run for
   both families, whose failed check counts as caught;
+- multiprocess, etl: `chip_smoke.py`'s phases 42 and 43 (path 15, two
+  processes training one GPT on the card, the sharded checkpoint, the
+  export, the collectives across processes; path 16, a Keras import,
+  CSV sequences, the broker, the streaming trainer, storage and the serve
+  route), whose failed check counts as caught. The worker processes of a
+  copy run that copy's package;
 - wire: `chip_smoke.py`'s phases 32 and 33 (path 10, three replica
   processes behind a gateway; the wire's streams, claims, door and
   journal), whose failed check counts as caught. The replica processes
@@ -216,7 +222,11 @@ dropping a slot's partial, `ppermute` rotating the wrong way,
 permutation skipped, `bo` added before the all-reduce, the pipeline
 skipping its last tick, `all_to_all` joining on its split axis, dropout
 keyed by the local row, and the pipeline's trunk gradients scaled by
-1/M. A fault that makes the kernel trap (an mbarrier wait that times out) fails
+1/M. The multi-process half: one rank keeping its own gradient instead
+of the sum, the psum across processes adding the slots out of order, and
+the sharded restore skipping its manifest. Data and interop: the Keras
+LSTM's gates copied in the wrong order, the sequence iterator dropping
+its masks, and the stream's consumer skipping a record. A fault that makes the kernel trap (an mbarrier wait that times out) fails
 its check process, which counts as caught.
 
 Arguments, if any, keep only the faults whose names contain one of them
@@ -293,6 +303,13 @@ PARALLEL = "parallel"
 # 40-41 (path 14 on the paged and flash kernels, the collectives and the
 # bodies card vs CPU)
 SPMD = "spmd"
+# the multi-process half (`parallel/multiprocess.py`, `parallel/spmd.py`
+# across processes, `util/sharded_checkpoint.py`), checked by
+# `chip_smoke.py`'s phase 42 (path 15: two processes on the card over
+# gloo, the collectives across processes), and data and interop
+# (`modelimport/keras.py`, `datavec/iterators.py`,
+# `streaming/pipeline.py`), checked by its phase 43 (path 16)
+MULTIPROCESS, ETL = "multiprocess", "etl"
 # (B, T, H, D, causal, dtype): bf16, the training path's kernels at D = 128,
 # the "wgmma wide" kernels at D = 256 and the "wgmma cluster" backward at
 # D = 384 and 512 (T = 192: the first diagonal tiles; T = 1024 full: every
@@ -1188,6 +1205,53 @@ MUTATIONS = [
           "                                    for n, g in g_trunk[j].items()},"
           "\n                                   net.iteration)\n")],
      "parallel/pipeline_wrapper.py"),
+    # path 15, each caught by phase 42: the rank that keeps its own
+    # gradient by the ranks' parameter digests (they must be
+    # bit-identical); the psum across processes added out of slot order
+    # by the collectives' outputs against one process, bit for bit; the
+    # unverified manifest by the restore of a checkpoint with a flipped
+    # byte, which must raise CheckpointCorruptError
+    ("multiprocess: one rank keeps its own gradient, not the sum",
+     MULTIPROCESS, "    def _step(self, ds) -> None:", [
+         ("        vec = _sum_in_rank_order(vec)\n",
+          "        summed = _sum_in_rank_order(vec)\n"
+          "        vec = summed if process_index() == 0 else vec\n")],
+     "parallel/multiprocess.py"),
+    ("multiprocess: the psum across processes adds out of slot order",
+     MULTIPROCESS, "def _psum(x: torch.Tensor, axis_name):", [
+         ('    xs, _, dev = _collective("psum", x, axis_name)\n',
+          '    xs, _, dev = _collective("psum", x, axis_name)\n'
+          '    if _ctx("psum").rt.lay.multiprocess:\n'
+          '        xs = xs[::-1]\n')],
+     "parallel/spmd.py"),
+    ("multiprocess: the sharded restore skips the manifest", MULTIPROCESS,
+     "def restore_sharded_checkpoint(", [
+         ("            verify_manifest(abspath)\n", "            pass\n")],
+     "util/sharded_checkpoint.py"),
+    # path 16, each caught by phase 43: the Keras gates in the wrong
+    # order by the import against Keras's own forward in numpy; the
+    # dropped masks by the batches' mask check; the skipped record by the
+    # streamed fit's record count (the trainer waits for a fourth record
+    # that never comes, then the count is short)
+    ("etl: the Keras LSTM gates in the wrong order", ETL,
+     "def _lstm_weights(", [
+         ("            return np.concatenate([i, f, o, c], axis=-1)\n",
+          "            return np.concatenate([i, f, c, o], axis=-1)\n")],
+     "modelimport/keras.py"),
+    ("etl: the sequence iterator drops the masks", ETL,
+     "    def _emit(self, items) -> DataSet:", [
+         ("        return DataSet(feats, labs,\n"
+          "                       None if full else fmask,\n"
+          "                       None if full and same else lmask)\n",
+          "        return DataSet(feats, labs)\n")],
+     "datavec/iterators.py"),
+    ("etl: the consumer skips a record", ETL, "class KafkaSource:", [
+        ("        for msg in self._consumer:\n"
+         "            yield decode_dataset(msg.value)\n",
+         "        for i, msg in enumerate(self._consumer):\n"
+         "            if i != 1:\n"
+         "                yield decode_dataset(msg.value)\n")],
+     "streaming/pipeline.py"),
     ("stream: DedupCache re-executes a completed id", STREAM,
      "    def begin(self, request_id: str) -> Tuple[str, Any]:", [
          ("            ent = self._done.get(request_id)\n"
@@ -1253,7 +1317,8 @@ def build(sources) -> None:
              DISAGG: (PAGED,), QOS: (PAGED, FLASH, LSTM),
              POOL: (PAGED, FLASH), STREAM: (PAGED, FLASH),
              WIRE: (PAGED, FLASH, LSTM), NLP: (), EMBED: (),
-             PARALLEL: (FLASH, LSTM), SPMD: (PAGED, FLASH)}
+             PARALLEL: (FLASH, LSTM), SPMD: (PAGED, FLASH),
+             MULTIPROCESS: (FLASH,), ETL: (LSTM,)}
     cuda_build.build(tuple(sorted({k for s in sources
                                    for k in needs.get(s, (s,))})))
 
@@ -1330,6 +1395,16 @@ def check(sources) -> None:
         cases += phase_cases(torch, "40-41", "path 14, the SPMD half",
                              lambda cs, M, card: cs.phases_40_41(
                                  torch, M, pa, fa, card))
+    if MULTIPROCESS in sources:
+        cases += phase_cases(torch, "42", "path 15, two processes",
+                             lambda cs, M, card: (
+                                 cs.phase_two_processes(torch, M, card),
+                                 cs.phase_collectives_across(torch, M,
+                                                             card)))
+    if ETL in sources:
+        cases += phase_cases(torch, "43", "path 16, files to a served model",
+                             lambda cs, M, card: cs.phase_etl(torch, M,
+                                                              card))
     print(json.dumps({"package": fa.__file__, "cases": cases}), flush=True)
 
 

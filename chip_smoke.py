@@ -14,6 +14,7 @@ NVIDIA card.
     python3 chip_smoke.py --phases-36-37   # path 12: DeepWalk, t-SNE, the UI
     python3 chip_smoke.py --phases-38-39   # path 13: data-parallel training
     python3 chip_smoke.py --phases-40-41   # path 14: the SPMD half
+    python3 chip_smoke.py --phases-42-43   # paths 15-16: processes, data
 
 `--lstm-timing` runs phase 17 alone (the LSTM source built, the rows
 checked and timed, launch counts 0) on the checkout's package or, with
@@ -41,7 +42,10 @@ the flash and LSTM sources and runs phases 38 and 39 alone (path 13 and
 its parity phase), then prints one JSON line of path 13's figures and
 launch counts. `--phases-40-41` builds the paged and flash sources and
 runs phases 40 and 41 alone (path 14 and its parity phase), then prints
-one JSON line of path 14's figures and launch counts.
+one JSON line of path 14's figures and launch counts. `--phases-42-43`
+builds the flash and LSTM sources and runs phases 42 and 43 alone (paths
+15 and 16), then prints one JSON line of their figures and launch
+counts.
 
 Phases, each of which makes the script exit non-zero when it fails:
 
@@ -477,7 +481,7 @@ Phases, each of which makes the script exit non-zero when it fails:
    steps, every flash launch on "wgmma") and on the char-RNN (3 steps);
    whether resnet_tiny is bit-exact under cuDNN's defaults, printed. Its
    launches go into rows 2-6;
-30. path 9: path 1's network at 4 layers (`POOL_SERVE`: depth cut from 8
+30. path 9: path 1's network at 2 layers (`POOL_SERVE`: depth cut from 8
    for the run's time limit) and engine (bf16, `max_queue` 256) behind
    `ReplicaPool.from_net(net, 3)` on the one card (a (1, 16) probe and
    canary batch, probes every second, `breaker_reset_timeout` 1 s).
@@ -523,7 +527,7 @@ Phases, each of which makes the script exit non-zero when it fails:
    an admitted but incomplete journal record replays through a fresh door
    and its claim equals a direct run. Path 9's bf16 paged launches go
    into rows 1, its f32 predict into the f32 forward row at T=4096;
-32. path 10: path 1's network at full width, its depth cut to 4 layers
+32. path 10: path 1's network at full width, its depth cut to 2 layers
    (`WIRE_SERVE`: f32, seed 11, written to a zip here and
    served by `load_model` over the wire) behind a port `GatewayServer`
    with `serving={"replicas": 3,
@@ -702,7 +706,41 @@ Phases, each of which makes the script exit non-zero when it fails:
    collectives bit-identical, ring and Ulysses attention, the pipeline
    and the expert-parallel MoE within 1e-5, a tp=2 engine's tokens
    equal; a 4-stage pipeline with dropout 0.1 against one device under
-   `row_offset_scope(0)` (losses within rtol 1e-5).
+   `row_offset_scope(0)` (losses within rtol 1e-5);
+42. path 15, the multi-process half: the one-process reference
+   (`ParallelWrapper` on TRAIN's GPT, bf16 over f32, B=8 x T=4096, 3 SGD
+   and 3 Adam steps), then two worker processes on the card joined by
+   gloo over `tcp://localhost` (`--p15-worker`), each training the same
+   nets on its 4 rows through `MultiProcessParallelWrapper` and saving a
+   sharded checkpoint from both ranks before the last Adam step: the
+   ranks' parameters bit-identical, SGD within `P15_SGD_TOL` of one
+   process (the worst leaf's difference over its movement), Adam losses
+   within `P15_LOSS_RTOL`, flash rows 2-4 launched on the "wgmma" route
+   in each process; the checkpoint restored into this process (state bit
+   for bit the ranks', then the last step against the uninterrupted
+   two-process step) and, with a flipped byte, refused; the net's f32
+   `output` at B=1 x T=4096 exported (`util.stablehlo_export`), loaded
+   in a fresh process (`--p15-load`) and held to `output` (the "tf32"
+   flash forward a layer there); the step ms of two processes against
+   one; then psum, all_to_all, ppermute and all_gather in one body over 2
+   processes x 2 slots of the card (`--p42-spmd`) against 4 slots in
+   this process: both ranks' outputs bit-identical, gradients within
+   1e-5;
+43. path 16, from files to a served model: a tf.keras-style char model
+   at bench_lstm's width (one-hot over 64 symbols, LSTM(256) with
+   sigmoid gates, softmax Dense) written with h5py (or, on a machine
+   without h5py, its layout held in memory), imported with
+   `KerasModelImport` on the card and on the CPU (weights equal; f32
+   outputs within `ETL_IMPORT_TOL` of each other and of this script's
+   numpy forward of the Keras model); 4096 sequences of 32-64 steps
+   written as CSV files, read through `CSVSequenceRecordReader` and
+   `SequenceRecordReaderDataSetIterator` (ALIGN_END: masked) into 4
+   batches of 1024, sent through the embedded broker into
+   `StreamingTrainPipeline` in bf16 (the masked LSTM kernels, rows 7-8;
+   losses finite and falling, every record seen); its checkpoint through
+   `CheckpointStore.upload` to a `LocalStorage` and `download` into a
+   fresh store; a `ServeRoute` on the restored network answering with
+   `output` bit for bit.
 
 Prints one JSON line of per-kernel numbers, then the card's
 `nvidia-smi` line, then as the last line
@@ -778,9 +816,9 @@ _T_IMPORT = time.perf_counter()
 
 
 def log(*a):
-    """Print a line; a phase header (`[n/41] ...`) carries the seconds
+    """Print a line; a phase header (`[n/43] ...`) carries the seconds
     since the script started, so the log shows each phase's wall."""
-    if a and isinstance(a[0], str) and a[0][:1] == "[" and "/41]" in a[0][:8]:
+    if a and isinstance(a[0], str) and a[0][:1] == "[" and "/43]" in a[0][:8]:
         a = (f"{a[0]} (at {time.perf_counter() - _T_IMPORT:.1f} s)",) + a[1:]
     print(*a, flush=True)
 
@@ -3177,7 +3215,8 @@ def phase_lstm_timing(torch, L, counts4, counts4b, counts4f):
               (64, 2048, 1024, False, counts4f, torch.float32),
               (LSTM_SMALL["tbptt"], 8192, 256, True, {}, torch.float32),
               (PAR_LSTM["T"], PAR_LSTM["B"], PAR_LSTM["hidden"], False, {},
-               torch.bfloat16)]
+               torch.bfloat16),
+              (ETL["T"], ETL["B"], ETL["hidden"], True, {}, torch.bfloat16)]
     rows, yard = [], {}
     for T, B, H, masked, counts, dt in shapes:
         inp = lstm_inputs(torch, T, B, H, dt, 77, masked)
@@ -3218,7 +3257,7 @@ def phase_lstm_timing(torch, L, counts4, counts4b, counts4f):
         f32 = dt == torch.float32
         if (T, B, H, f32) not in yard:
             yard[(T, B, H, f32)] = cudnn_lstm_ms(torch, T, B, H, f32)
-        kinds = ("fwd", "bwd") if B in (2048, 8192, LSTM_4S["B"]) \
+        kinds = ("fwd", "bwd") if B in (2048, 8192, LSTM_4S["B"], ETL["B"]) \
             else ("fwd",)
         for j, kind in enumerate(kinds):
             ms = time_ms(torch, fns[kind][0])
@@ -3261,20 +3300,31 @@ def phase_lstm_timing(torch, L, counts4, counts4b, counts4f):
     inp = lstm_inputs(torch, T, B, H, torch.bfloat16, 77, False)
     rows.append(lstm_nostash_row(torch, L, inp, T, B, H,
                                  cudnn_lstm_ms(torch, T, B, H)[0]))
+    # path 16's f32 answers (`output` on the imported model: the card
+    # against the CPU, the serve route)
+    T, B, H = ETL["T"], ETL["serve_B"], ETL["hidden"]
+    inp = lstm_inputs(torch, T, B, H, torch.float32, 77, False)
+    rows.append(lstm_nostash_row(torch, L, inp, T, B, H,
+                                 cudnn_lstm_ms(torch, T, B, H, True)[0],
+                                 torch.float32))
     return rows
 
 
-def lstm_nostash_row(torch, L, inp, T, B, H, library_ms):
-    """The bf16 forward without the training stash (inference) on an
-    unmasked case: held to the plain version (`lstm.error_in_tolerances`),
-    then timed beside it; the row of the kernels line."""
+def lstm_nostash_row(torch, L, inp, T, B, H, library_ms,
+                     dt=None):
+    """The forward without the training stash (inference; bf16 unless
+    `dt`) on an unmasked case: held to the plain version
+    (`lstm.error_in_tolerances`), then timed beside it; the row of the
+    kernels line. An f32 row (split TF32) is bound by its three TF32
+    passes or its bytes."""
+    dt = dt or torch.bfloat16
     lean = lstm_fwd_no_stash(L, inp, False)
     ref = L.lstm_fwd_plain(inp["xw"], inp["rw"], inp["peep"], inp["h0"],
                            inp["c0"], with_stash=False)[:3]
     torch.cuda.synchronize()
     err = max((a.float() - b.float()).abs().max().item()
               for a, b in zip(lean, ref) if a is not None)
-    units = max(L.error_in_tolerances(a, b, torch.bfloat16)
+    units = max(L.error_in_tolerances(a, b, dt)
                 for a, b in zip(lean, ref) if a is not None)
     if units > 1:
         raise AssertionError(f"LSTM forward without the stash disagrees "
@@ -3285,9 +3335,14 @@ def lstm_nostash_row(torch, L, inp, T, B, H, library_ms):
     plain_ms = time_ms(torch, lambda: L.lstm_fwd_plain(
         inp["xw"], inp["rw"], inp["peep"], inp["h0"], inp["c0"],
         with_stash=False), iters=5, warmup=1)
-    flops, nbytes = lstm_work("fwd", False, T, B, H, 2, stash=False)
+    f32 = dt == torch.float32
+    flops, nbytes = lstm_work("fwd", False, T, B, H, 4 if f32 else 2,
+                              stash=False)
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-    row = {"name": f"lstm_fwd_nostash_t{T}_b{B}_h{H}", "route": "cuda",
+    if f32:
+        t_ops = 3 * flops / PEAK_TF32_FLOPS
+    row = {"name": f"lstm_fwd_nostash{'_f32' if f32 else ''}_t{T}_b{B}_h{H}",
+           "route": "cuda",
            "source": LSTM_SOURCE, "replaces": LSTM_REPLACES[("fwd", False)],
            "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": 1e3 * max(t_ops, t_bytes),
@@ -3296,8 +3351,8 @@ def lstm_nostash_row(torch, L, inp, T, B, H, library_ms):
     log(f"  {row['name']} (inference): kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, cuDNN LSTM {library_ms:.4f} ms, bound "
         f"{row['bound_ms']:.4f} ms ({row['bound_by']}), worst {units:.3f} "
-        f"of tolerance [{L.plan('fwd', torch.bfloat16, False, B, H).route}]"
-        + lstm_mma_note((T, B, False, False), "fwd"))
+        f"of tolerance [{L.plan('fwd', dt, False, B, H).route}]"
+        + ("" if f32 else lstm_mma_note((T, B, False, False), "fwd")))
     return row
 
 
@@ -6304,19 +6359,19 @@ def phases_27_29(torch, M, pa, card):
         for k, n in counts.items():
             paged[k] = paged.get(k, 0) + n
 
-    log("[27/41] path 8: path 1's GPT disaggregated (8a: the two mixes, "
+    log("[27/43] path 8: path 1's GPT disaggregated (8a: the two mixes, "
         "bf16 and int8 KV, against a colocated server), live migration "
         "(8b: warm, cold, sampled, int8), the cluster prefix cache (8c)")
     add(phase_disagg(torch, M, pa, card))
     net, counts = phase_migration(torch, M, pa, card)
     add(counts)
     add(phase_prefix_cluster(torch, M, pa, card, net))
-    log("[28/41] QoS on path 1's engine: a flood tenant under quota beside "
+    log("[28/43] QoS on path 1's engine: a flood tenant under quota beside "
         "Poisson interactive traffic, preemption of the batch lane")
     add(phase_qos(torch, M, pa, card, net))
     del net
     torch.cuda.empty_cache()
-    log("[29/41] early stopping, the profiler and assert_deterministic on "
+    log("[29/43] early stopping, the profiler and assert_deterministic on "
         "the LSTM and flash kernels")
     extras = phase_extras(torch, M, card)
     return paged, extras
@@ -6345,9 +6400,10 @@ def phases_27_29_alone(torch, M, pa, cuda_build) -> int:
 # ------------------------------------------- phases 30-31: path 9, the pool
 # path 9: path 1's network and engine behind ReplicaPool.from_net(net, 3)
 POOL_REPLICAS, POOL_PROBE_S = 3, 1.0
-# path 9's network: path 1's width, depth cut 8 -> 4 layers (the run's
-# time limit: 9c's zip write and rolling reload at 8 layers took ~60 s)
-POOL_SERVE = dict(SERVE, n_layers=4)
+# path 9's network: path 1's width, depth cut 8 -> 2 layers (the run's
+# time limit: 9c's zip write and rolling reload at 8 layers took ~60 s;
+# at 4 layers phase 30 took 103 s of a 1067 s run)
+POOL_SERVE = dict(SERVE, n_layers=2)
 POOL_PROBE_T = 16           # the probe and canary batch: (1, 16) ids
 POOL_PARITY_LAYERS = 2      # the f32 parity pool: path 1's width, 2 layers
 POOL_MARGIN = 0.05          # a bf16 divergence must sit below this margin
@@ -7014,10 +7070,10 @@ def phase_streams(torch, M, pa, card, pool, rows_paged):
 def phases_30_31(torch, M, pa, card, path1_tok_s):
     """Phases 30 and 31; returns the bf16 paged launches and the f32
     flash launches for the kernel rows."""
-    log("[30/41] path 9: path 1's GPT behind ReplicaPool.from_net(net, 3): "
+    log("[30/43] path 9: path 1's GPT behind ReplicaPool.from_net(net, 3): "
         "routing and parity, a crash drill, rolling reloads, the autoscaler")
     pool, paged, flash = phase_pool(torch, M, pa, card, path1_tok_s)
-    log("[31/41] token streams and the exactly-once door on path 9's pool")
+    log("[31/43] token streams and the exactly-once door on path 9's pool")
     phase_streams(torch, M, pa, card, pool, paged)
     return {"paged": paged, "flash": flash}
 
@@ -7048,14 +7104,15 @@ def phases_30_31_alone(torch, M, pa, cuda_build) -> int:
 # "remote": ...}), as bench_serve_pool's cross-process line
 # (bench.py:1040-1076); path 1's six requests from six client threads
 WIRE_REPLICAS = 3
-# path 10's network: path 1's at full width, its depth cut 8 -> 4 layers
+# path 10's network: path 1's at full width, its depth cut 8 -> 2 layers
 # so the whole run fits its time limit (its zips, written and restored by
-# every replica process, took most of the phase's 287 s at 8 layers)
-WIRE_SERVE = dict(SERVE, n_layers=4)
+# every replica process, took most of the phase's 287 s at 8 layers and
+# of its 183 s at 4)
+WIRE_SERVE = dict(SERVE, n_layers=2)
 # the drills' live traffic: 4 clients sending prompts of 128 with 32
 # tokens out through the gateway
 WIRE_CLIENTS, WIRE_DRILL_TOKENS = 4, 32
-# a replica restores the 4-layer zip (~0.6 GB with its optimizer state)
+# a replica restores the 2-layer zip (~0.3 GB with its optimizer state)
 WIRE_SPAWN_S = 600.0
 # phase 33: a stream of 96 tokens torn after its first frame
 WIRE_STREAM_TOKENS = 96
@@ -7776,12 +7833,13 @@ def phases_32_33(torch, M, pa, card):
     """Phases 32 and 33: `{"path 10": its replicas' launches in 10a's
     window, "phase 33": phase 33's}`, each `{"paged": {(C, pools): n},
     "flash": {(kind, route): n}}` (f32 pools)."""
-    log("[32/41] path 10: path 1's GPT (4 layers) behind a GatewayServer, "
+    log(f"[32/43] path 10: path 1's GPT ({WIRE_SERVE['n_layers']} layers) "
+        "behind a GatewayServer, "
         "served by 3 "
         "replica processes on the card: parity, tokens/s, kill -9, "
         "a partition, a rolling reload, a graceful stop")
     path10 = phase_wire_pool(torch, M, pa, card)
-    log("[33/41] the wire on the card: a torn stream resumed, a claim, a "
+    log("[33/43] the wire on the card: a torn stream resumed, a claim, a "
         "retried fit, a journal replay after a restart")
     return {"path 10": path10,
             "phase 33": {"paged": phase_wire(torch, M, pa, card),
@@ -8457,11 +8515,11 @@ def phase_word2vec_parity(torch, M):
 
 def phases_34_35(torch, M, card):
     """Phases 34 and 35; path 11's figures."""
-    log("[34/41] path 11: Word2Vec skip-gram NS at bench_word2vec_50k's "
+    log("[34/43] path 11: Word2Vec skip-gram NS at bench_word2vec_50k's "
         "shape (V=50,000, 2,000,000 words, D=128, B=16384, 32 batches a "
         "flush) on the card")
     figures = phase_word2vec(torch, M, card)
-    log("[35/41] the NLP steps and host-drawn fits, card against CPU and "
+    log("[35/43] the NLP steps and host-drawn fits, card against CPU and "
         "numpy (TF32 off)")
     phase_word2vec_parity(torch, M)
     return figures
@@ -9006,11 +9064,11 @@ def phase_embed_parity(torch, M):
 
 def phases_36_37(torch, M, card):
     """Phases 36 and 37; path 12's figures."""
-    log("[36/41] path 12: a planted graph with BlogCatalog's counts, "
+    log("[36/43] path 12: a planted graph with BlogCatalog's counts, "
         "DeepWalk (d=128, w=10, t=40, 2 walks a vertex), k-means (K=39) "
         "and exact t-SNE of its vectors on the card, the training UI")
     figures = phase_embed(torch, M, card)
-    log("[37/41] path 12's device parts, card against CPU and numpy (TF32 "
+    log("[37/43] path 12's device parts, card against CPU and numpy (TF32 "
         "off), the TF32 guard, a hierarchical-softmax DeepWalk fit")
     phase_embed_parity(torch, M)
     return figures
@@ -9828,14 +9886,14 @@ def par_launches(rows, counts) -> None:
 
 def phases_38_39(torch, M, card):
     """Phases 38 and 39; path 13's figures and launch counts."""
-    log("[38/41] path 13: the data-parallel tier on the card (ParallelWrapper "
+    log("[38/43] path 13: the data-parallel tier on the card (ParallelWrapper "
         "and the device prefetcher on the GPT, the prefetcher at path 4e's "
         "shape, the averaging master with its drills, the parameter server "
         "over TCP, FaultTolerantTrainer, the CLI)")
     t0 = time.perf_counter()
     figures, counts = phase_parallel(torch, M, card)
     log(f"  phase 38 {time.perf_counter() - t0:.1f} s")
-    log("[39/41] the wrapper's global view and bookkeeping over an 8-slot "
+    log("[39/43] the wrapper's global view and bookkeeping over an 8-slot "
         "mesh of the card, card against CPU (f32, TF32 off)")
     t0 = time.perf_counter()
     phase_parallel_parity(torch, M)
@@ -10659,13 +10717,13 @@ def spmd_rows(torch, pa, rows, counts) -> list:
 
 def phases_40_41(torch, M, pa, fa, card):
     """Phases 40 and 41; path 14's figures and launch counts."""
-    log("[40/41] path 14: the in-process SPMD half on slots of the card "
+    log("[40/43] path 14: the in-process SPMD half on slots of the card "
         "(tensor-parallel serving, the GPipe pipeline, ring and Ulysses "
         "sequence parallelism, the expert-parallel MoE, the global view)")
     t0 = time.perf_counter()
     figures, counts = phase_spmd(torch, M, pa, fa, card)
     log(f"  phase 40 {time.perf_counter() - t0:.1f} s")
-    log("[41/41] the SPMD runtime's collectives and the new bodies, card "
+    log("[41/43] the SPMD runtime's collectives and the new bodies, card "
         "against CPU (f32, TF32 off)")
     t0 = time.perf_counter()
     phase_spmd_parity(torch, M)
@@ -10689,6 +10747,852 @@ def phases_40_41_alone(torch, M, pa, fa, cuda_build) -> int:
         "paged": {f"{d},{c},{k}": n
                   for (d, c, k), n in counts["paged"].items()},
         "flash": counts["flash"]}}, default=str), flush=True)
+    return 0
+
+
+# ---------------------------------- path 15: two processes train one GPT
+# bench.py gpt_long's width (bench.py:563-568), bf16 compute over f32
+# masters; a global batch of P15_B x T=4096 split over P15_PROCS worker
+# processes on one card, joined by gloo over tcp://localhost (NCCL refuses
+# two ranks on one device)
+P15_PROCS, P15_B, P15_STEPS = 2, 8, 3
+P15_SGD_LR = 0.1
+P15_ADAM_LR = 3e-4          # gpt_configuration's Adam learning rate
+# after 3 SGD steps: the worst leaf's max |2 processes - 1 process| over
+# its max movement in the 1-process run (bf16 products over 4 rows
+# against 8, the row sums split in two: rounding, as path 14b's bound)
+P15_SGD_TOL = 5e-2
+P15_LOSS_RTOL = 5e-3        # Adam losses, 2 processes against 1
+# the step after the restore (1 process, from the ranks' state bit for
+# bit) against the uninterrupted 2-process step: its loss, computed from
+# that same state, to P15_RESUME_LOSS_RTOL (rounding of the row split);
+# its parameters as the SGD check holds them, the worst leaf's max |diff|
+# over its max movement in that step: sound runs read ~3e-2 (Adam turns
+# the row split's rounding into steps of up to lr, ROADMAP queue C's
+# caveat), a step skipped after the restore reads 1
+P15_RESUME_LOSS_RTOL = 1e-4
+P15_RESUME_TOL = 0.2
+P15_EXPORT_T = 4096         # the f32 export at B=1: the "tf32" flash route
+P15_EXPORT_ATOL = 1e-5      # f32 probabilities, exported against output
+P15_TIMEOUT = 900           # seconds the worker processes may take
+
+
+def p15_net(torch, M, which):
+    """TRAIN's GPT in bf16 over f32 masters, SGD at P15_SGD_LR or Adam,
+    from one seed (the same bits in every process on one card)."""
+    from deeplearning4j_tpu_torch.nn.updater import Updater
+
+    kw = dict(updater=Updater.SGD, learning_rate=P15_SGD_LR) \
+        if which == "sgd" else {}
+    conf = M["gpt_configuration"](**TRAIN, seed=21, **kw)
+    net = M["MultiLayerNetwork"](conf, dtype=torch.float32,
+                                 compute_dtype=torch.bfloat16,
+                                 device="cuda")
+    net.init()
+    return net
+
+
+def p15_batches(np):
+    return gpt_batches(np, TRAIN["vocab_size"], P15_B, TRAIN_T, P15_STEPS,
+                       seed=42)
+
+
+def p15_digest(torch, net, updater=False) -> str:
+    """SHA-256 of the flat f32 parameters (and the updater state's leaves,
+    in tree order)."""
+    import hashlib
+
+    h = hashlib.sha256(net.params().detach().float().cpu().numpy()
+                       .tobytes())
+    if updater:
+        for _, st in sorted(((str(k), v) for k, v in (
+                enumerate(net._upd_state) if isinstance(net._upd_state, list)
+                else net._upd_state.items()))):
+            for name in sorted(st):
+                for sk in sorted(st[name]):
+                    h.update(st[name][sk].detach().float().cpu().numpy()
+                             .tobytes())
+    return h.hexdigest()
+
+
+def p15_flash_counts(fa) -> dict:
+    return {"fwd": fa.flash_forward.launches, "dq": fa.flash_bwd_dq.launches,
+            "dkv": fa.flash_bwd_dkv.launches,
+            "by_route": {f"{k},{r}": n
+                         for (k, r), n in fa.launches_by_route.items()},
+            "plain": [fa.flash_attention_plain_fwd.calls,
+                      fa.flash_attention_plain_bwd.calls]}
+
+
+def p15_worker(torch, M, argv) -> int:
+    """`--p15-worker <rank> <port> <dir>`: one of path 15's
+    processes. Joins the process group, trains the SGD net, then the Adam
+    net (a sharded checkpoint from every rank before the last step) on
+    its rows of the global batches through MultiProcessParallelWrapper;
+    rank 0 writes the flat parameters; prints one `P15_WORKER {json}`
+    line: losses, step ms, digests, flash launches by route."""
+    import numpy as np
+
+    i = argv.index("--p15-worker")
+    rank, port, out = int(argv[i + 1]), argv[i + 2], argv[i + 3]
+    mp = M["multiprocess"]
+    fa = M["fa"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mp.initialize_multiprocess(f"localhost:{port}", P15_PROCS, rank,
+                               local_device_count=1)
+    per = P15_B // P15_PROCS
+    rows = slice(rank * per, (rank + 1) * per)
+    res = {"rank": rank}
+    try:
+        fa.reset_counts()
+        for which in ("sgd", "adam"):
+            net = p15_net(torch, M, which)
+            res[f"{which}_init"] = p15_digest(torch, net)
+            pw = mp.MultiProcessParallelWrapper(net)
+            ms, losses = [], []
+            for k, (x, y) in enumerate(p15_batches(np)):
+                if which == "adam" and k == P15_STEPS - 1:
+                    pw.save_checkpoint(os.path.join(out, "ckpt"))
+                    res["ckpt_digest"] = p15_digest(torch, net, True)
+                    res["ckpt_iteration"] = net.iteration
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pw.fit(M["DataSet"](x[rows], y[rows]))
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0))
+                losses.append(net.score_value)
+            res[f"{which}_ms"], res[f"{which}_losses"] = ms, losses
+            res[f"{which}_digest"] = p15_digest(torch, net)
+            res["route"] = pw.route
+            if rank == 0:
+                np.save(os.path.join(out, f"{which}.npy"),
+                        net.params().detach().float().cpu().numpy())
+            del pw, net
+            torch.cuda.empty_cache()
+        res["flash"] = p15_flash_counts(fa)
+    finally:
+        mp.shutdown_multiprocess()
+    print("P15_WORKER " + json.dumps(res), flush=True)
+    return 0
+
+
+def p15_load_worker(torch, M, argv) -> int:
+    """`--p15-load <artifact> <ids.npy> <out.npy>`: load the exported
+    network in this fresh process (no network object), run it on the ids,
+    write the output; prints `P15_LOAD {json}` with the flash launches."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.util.stablehlo_export import (
+        load_inference,
+    )
+
+    i = argv.index("--p15-load")
+    art, ids, out = argv[i + 1], argv[i + 2], argv[i + 3]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fa = M["fa"]
+    fa.reset_counts()
+    run = load_inference(art)
+    t0 = time.perf_counter()
+    y = run(np.load(ids))
+    ms = 1e3 * (time.perf_counter() - t0)
+    np.save(out, y)
+    print("P15_LOAD " + json.dumps({"flash": p15_flash_counts(fa),
+                                    "ms": ms}), flush=True)
+    return 0
+
+
+def p15_package_args(M) -> list:
+    """`--package <the package this process runs>`, so that the worker
+    processes import the same copy of the port (a fault check's)."""
+    return ["--package",
+            os.path.dirname(os.path.dirname(os.path.abspath(
+                M["fa"].__file__)))]
+
+
+def p15_worker_line(log_text, tag):
+    for line in (log_text or "").splitlines():
+        if line.startswith(tag + " "):
+            return json.loads(line[len(tag) + 1:])
+    return None
+
+
+def p15_leaf_ratio(torch, net, got, want, init):
+    """The worst leaf's max |got - want| over its max |want - init|
+    (flat f32 vectors in the net's parameter order)."""
+    import numpy as np
+
+    worst, at, off = 0.0, None, 0
+    for i, p in enumerate(net._params):
+        for k in sorted(p):
+            n = p[k].numel()
+            err = float(np.abs(got[off:off + n] - want[off:off + n]).max())
+            step = float(np.abs(want[off:off + n] - init[off:off + n]).max())
+            r = err / step if step else (0.0 if err == 0 else float("inf"))
+            if r >= worst:
+                worst, at = r, f"{i}.{k}"
+            off += n
+    return worst, at
+
+
+def phase_two_processes(torch, M, card):
+    """Path 15: two processes train one GPT on the card. The one-process
+    reference first (ParallelWrapper on the global batches: 3 SGD and 3
+    Adam steps), then two worker processes (`--p15-worker`) on cuda:0
+    over gloo, each on its rows; held: the ranks' parameters
+    bit-identical, SGD parameters within P15_SGD_TOL of the one process's
+    step, Adam losses within P15_LOSS_RTOL, flash launches (rows 2-4, the
+    "wgmma" route) in each process. Then the ranks' sharded checkpoint
+    restored into this one process (parameters, updater state and
+    iteration bit-identical to the ranks' at the save) takes the last
+    step, held to the uninterrupted two-process step; last the net's f32
+    `output` at B=1 x T=4096 exported, loaded in a fresh process
+    (`--p15-load`) and held to `output`."""
+    import tempfile
+
+    import numpy as np
+
+    mp, fa = M["multiprocess"], M["fa"]
+    batches = p15_batches(np)
+    figures, counts = {}, {"ref": {}, "workers": [], "export": {}}
+    with tempfile.TemporaryDirectory(prefix="p15-") as out:
+        fa.reset_counts()
+        ref = {}
+        for which in ("sgd", "adam"):
+            net = p15_net(torch, M, which)
+            ref[f"{which}_init_digest"] = p15_digest(torch, net)
+            if which == "sgd":
+                init = net.params().detach().float().cpu().numpy()
+            pw = M["parallel"].ParallelWrapper(
+                net, mesh=M["parallel"].make_mesh(devices=["cuda"]))
+            ms, losses = [], []
+            for x, y in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pw.fit(M["DataSet"](x, y))
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0))
+                losses.append(net.score_value)
+            ref[f"{which}_ms"], ref[f"{which}_losses"] = ms, losses
+            ref[which] = net.params().detach().float().cpu().numpy()
+            if which == "sgd":
+                tree = net
+            else:
+                del net, pw
+        counts["ref"] = p15_flash_counts(fa)
+        torch.cuda.empty_cache()
+        port = mp.free_port()
+        here = os.path.abspath(__file__)
+        cmds = [[sys.executable, here, "--p15-worker", str(r), str(port),
+                 out] + p15_package_args(M) for r in range(P15_PROCS)]
+        env = dict(os.environ, OMP_NUM_THREADS="1")
+        t0 = time.perf_counter()
+        procs, logs = mp.run_workers(cmds, env, timeout=P15_TIMEOUT)
+        wall = time.perf_counter() - t0
+        res = [p15_worker_line(text, "P15_WORKER") for text in logs]
+        for r, (p, text, got) in enumerate(zip(procs, logs, res)):
+            if p.returncode != 0 or got is None:
+                raise AssertionError(f"path 15: worker {r} exited "
+                                     f"{p.returncode}:\n{text[-3000:]}")
+        for r, got in enumerate(res):
+            log(f"  worker {r} ({got['route']} step): SGD losses "
+                f"{got['sgd_losses']}, Adam losses {got['adam_losses']}; "
+                f"step ms SGD {[round(t, 1) for t in got['sgd_ms']]}, Adam "
+                f"{[round(t, 1) for t in got['adam_ms']]}; flash launches "
+                f"{got['flash']}")
+        log(f"  one process: SGD losses {ref['sgd_losses']}, Adam losses "
+            f"{ref['adam_losses']}; step ms SGD "
+            f"{[round(t, 1) for t in ref['sgd_ms']]}, Adam "
+            f"{[round(t, 1) for t in ref['adam_ms']]}; flash launches "
+            f"{counts['ref']}; the workers' wall {wall:.1f} s [{card}]")
+        for key in ("sgd_init", "sgd_digest", "adam_init", "adam_digest",
+                    "ckpt_digest"):
+            if len({got[key] for got in res}) != 1:
+                raise AssertionError(f"path 15: the ranks' {key} differ: "
+                                     f"{[got[key] for got in res]}")
+        if res[0]["sgd_init"] != ref["sgd_init_digest"] \
+                or res[0]["adam_init"] != ref["adam_init_digest"]:
+            raise AssertionError("path 15: the workers' initial parameters "
+                                 "are not the one process's")
+        two_sgd = np.load(os.path.join(out, "sgd.npy"))
+        worst, at = p15_leaf_ratio(torch, tree, two_sgd, ref["sgd"], init)
+        log(f"  SGD (lr {P15_SGD_LR}, {P15_STEPS} steps): two processes "
+            f"against one, worst leaf {at}: max |diff| / max |movement| "
+            f"{worst:.3e} (tolerance {P15_SGD_TOL:.0e}); ranks "
+            "bit-identical")
+        if not worst <= P15_SGD_TOL:
+            raise AssertionError(f"path 15: SGD parameters differ from one "
+                                 f"process by {worst} of a step at {at}")
+        if not np.allclose(res[0]["adam_losses"], ref["adam_losses"],
+                           rtol=P15_LOSS_RTOL, atol=0):
+            raise AssertionError(f"path 15: Adam losses {res[0]['adam_losses']}"
+                                 f" against {ref['adam_losses']}")
+        for r, got in enumerate(res):
+            fl = got["flash"]
+            wg = {k: fl["by_route"].get(f"{k},wgmma", 0)
+                  for k in ("fwd", "dq", "dkv")}
+            if min(wg.values()) == 0 or fl["plain"] != [0, 0]:
+                raise AssertionError(f"path 15: worker {r} launched the "
+                                     f"flash kernels {fl}")
+        counts["workers"] = [got["flash"] for got in res]
+        # the sharded checkpoint of both ranks, restored into this process
+        net = p15_net(torch, M, "adam")
+        pw = M["parallel"].ParallelWrapper(
+            net, mesh=M["parallel"].make_mesh(devices=["cuda"]))
+        pw.load_checkpoint(os.path.join(out, "ckpt"))
+        exact = (p15_digest(torch, net, True) == res[0]["ckpt_digest"]
+                 and net.iteration == res[0]["ckpt_iteration"])
+        saved = net.params().detach().float().cpu().numpy()
+        fa.reset_counts()
+        pw.fit(M["DataSet"](*batches[-1]))
+        torch.cuda.synchronize()
+        counts["resume"] = p15_flash_counts(fa)
+        two_adam = np.load(os.path.join(out, "adam.npy"))
+        resumed = net.params().detach().float().cpu().numpy()
+        d_resume = float(np.abs(resumed - two_adam).max())
+        # the worst leaf's |diff| over that step's movement, and the same
+        # reading for a step skipped after the restore
+        r_resume, at_resume = p15_leaf_ratio(torch, net, resumed, two_adam,
+                                             saved)
+        r_skipped, _ = p15_leaf_ratio(torch, net, saved, two_adam, saved)
+        log(f"  sharded checkpoint (both ranks) restored into one process: "
+            f"state bit-identical to the ranks' at the save {exact}; its "
+            f"step against the uninterrupted two-process step: loss "
+            f"{net.score_value} against {res[0]['adam_losses'][-1]} (rtol "
+            f"{P15_RESUME_LOSS_RTOL:.0e}); max |param diff| {d_resume:.3e}; "
+            f"worst leaf {at_resume}: max |diff| / max |movement| "
+            f"{r_resume:.3e} (tolerance {P15_RESUME_TOL}; a skipped step "
+            f"reads {r_skipped:.3e})")
+        if not exact or not r_resume <= P15_RESUME_TOL or not np.isclose(
+                net.score_value, res[0]["adam_losses"][-1],
+                rtol=P15_RESUME_LOSS_RTOL, atol=0):
+            raise AssertionError("path 15: the restored checkpoint does not "
+                                 "resume the two-process run")
+        # a flipped byte in the checkpoint: the restore must refuse it
+        ck = os.path.join(out, "ckpt")
+        victim = max((os.path.join(ck, f) for f in os.listdir(ck)),
+                     key=os.path.getsize)
+        with open(victim, "r+b") as f:
+            f.seek(os.path.getsize(victim) // 2)
+            byte = f.read(1)
+            f.seek(-1, 1)
+            f.write(bytes([byte[0] ^ 0xFF]))
+        try:
+            M["sharded_checkpoint"].restore_sharded_checkpoint(ck, net)
+        except M["CheckpointCorruptError"]:
+            log("  a flipped byte in the checkpoint: the restore refuses it "
+                "(CheckpointCorruptError)")
+        else:
+            raise AssertionError("path 15: a corrupted sharded checkpoint "
+                                 "restored without complaint")
+        # the export of the net's f32 output, loaded in a fresh process
+        ids = np.random.default_rng(7).integers(
+            0, TRAIN["vocab_size"], (1, P15_EXPORT_T)).astype(np.int32)
+        np.save(os.path.join(out, "ids.npy"), ids)
+        fa.reset_counts()
+        want = net.output(ids).detach().cpu().numpy()
+        t0 = time.perf_counter()
+        art = os.path.join(out, "gpt.pt2")
+        blob = M["stablehlo_export"].export_inference(net, ids, path=art)
+        t_export = time.perf_counter() - t0
+        counts["export"] = p15_flash_counts(fa)
+        p = subprocess.run([sys.executable, here, "--p15-load", art,
+                            os.path.join(out, "ids.npy"),
+                            os.path.join(out, "y.npy")]
+                           + p15_package_args(M),
+                           capture_output=True, text=True, env=env,
+                           timeout=P15_TIMEOUT)
+        loaded = p15_worker_line(p.stdout, "P15_LOAD")
+        if p.returncode != 0 or loaded is None:
+            raise AssertionError(f"path 15: the fresh process could not run "
+                                 f"the export ({p.returncode}):\n"
+                                 f"{(p.stdout + p.stderr)[-3000:]}")
+        got = np.load(os.path.join(out, "y.npy"))
+        d_export = float(np.abs(got - want).max())
+        tf32 = loaded["flash"]["by_route"].get("fwd,tf32", 0)
+        log(f"  export of the f32 output at B=1 x T={P15_EXPORT_T}: "
+            f"{len(blob)} bytes in {t_export:.1f} s; loaded in a fresh "
+            f"process: max |diff| against output {d_export:.3e} (tolerance "
+            f"{P15_EXPORT_ATOL:.0e}), {loaded['ms']:.1f} ms, flash launches "
+            f"there {loaded['flash']}")
+        if d_export > P15_EXPORT_ATOL or tf32 != TRAIN["n_layers"] \
+                or loaded["flash"]["plain"] != [0, 0]:
+            raise AssertionError("path 15: the exported network disagrees "
+                                 "with output or missed the flash kernel")
+        counts["loaded"] = loaded["flash"]
+        del net, pw
+        torch.cuda.empty_cache()
+    med = lambda v: sorted(v)[len(v) // 2]  # noqa: E731
+    figures = {
+        "sgd_worst_leaf": worst, "resume_max_diff": d_resume,
+        "resume_worst_leaf": r_resume, "skipped_step_worst_leaf": r_skipped,
+        "export_max_diff": d_export,
+        "step_ms_two_processes_sgd": med(res[0]["sgd_ms"]),
+        "step_ms_one_process_sgd": med(ref["sgd_ms"]),
+        "step_ms_two_processes_adam": med(res[0]["adam_ms"]),
+        "step_ms_one_process_adam": med(ref["adam_ms"]),
+        "adam_losses": res[0]["adam_losses"], "route": res[0]["route"],
+        "card": card}
+    log(f"  path 15: step ms (median of {P15_STEPS}) two processes "
+        f"{figures['step_ms_two_processes_adam']:.1f} against one "
+        f"{figures['step_ms_one_process_adam']:.1f} (Adam), "
+        f"{figures['step_ms_two_processes_sgd']:.1f} against "
+        f"{figures['step_ms_one_process_sgd']:.1f} (SGD) [{card}]")
+    return figures, counts
+
+
+# --------------------------------- the SPMD collectives across processes
+P42_SLOTS = 2               # slots per process in the collectives check
+
+
+def p42_collectives_worker(torch, M, argv) -> int:
+    """`--p42-spmd <rank> <port> <out>`: a psum + all_to_all +
+    ppermute + all_gather body over 2 processes x P42_SLOTS slots of the
+    card, forward and backward (the loss weighted 1/world, the gradients
+    summed in rank order); each rank writes its results."""
+    import numpy as np
+
+    i = argv.index("--p42-spmd")
+    rank, port, out = int(argv[i + 1]), argv[i + 2], argv[i + 3]
+    mp = M["multiprocess"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mp.initialize_multiprocess(f"localhost:{port}", 2, rank,
+                               local_device_count=P42_SLOTS)
+    try:
+        mesh = mp.global_mesh(axes={"a": 2 * P42_SLOTS})
+        y, gx, gw = p42_collectives(torch, mesh, 0.5)
+        gx, gw = mp._sum_in_rank_order(gx), mp._sum_in_rank_order(gw)
+        np.savez(f"{out}.rank{rank}.npz", y=y.cpu().numpy(),
+                 gx=gx.cpu().numpy(), gw=gw.cpu().numpy())
+    finally:
+        mp.shutdown_multiprocess()
+    print("P42_SPMD ok", flush=True)
+    return 0
+
+
+def p42_collectives(torch, mesh, scale):
+    from deeplearning4j_tpu_torch.parallel import spmd
+
+    n = 2 * P42_SLOTS
+
+    def body(x, w):
+        y = x * w
+        s = spmd.psum(y, "a")
+        t = spmd.all_to_all(y, "a", split_axis=0, concat_axis=0, tiled=True)
+        p = spmd.ppermute(t, "a", [(i, (i + 1) % n) for i in range(n)])
+        g = spmd.all_gather(p.sum(0, keepdim=True), "a", tiled=True)
+        return torch.tanh(s) + p.sum() + g.mean()
+
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    x = torch.randn(16 * n, 64, generator=gen).cuda().requires_grad_()
+    w = torch.randn(64, generator=gen).cuda().requires_grad_()
+    y = spmd.shard_map(body, mesh, in_specs=(spmd.P("a"), spmd.P()),
+                       out_specs=spmd.P("a"))(x, w)
+    wt = torch.arange(y.numel(), device="cuda",
+                      dtype=y.dtype).reshape(y.shape)
+    ((y * wt).sum() * scale).backward()
+    return y.detach(), x.grad, w.grad
+
+
+def phase_collectives_across(torch, M, card):
+    """The SPMD runtime's collectives across processes: the body of
+    `p42_collectives` over 2 processes x 2 slots of the card against 4
+    slots in this process, the outputs bit for bit (the sums run in
+    global slot order), the gradients within 1e-5 of the largest."""
+    import tempfile
+
+    import numpy as np
+
+    mp = M["multiprocess"]
+    mesh = M["parallel"].make_mesh({"a": 2 * P42_SLOTS},
+                                   devices=["cuda"] * (2 * P42_SLOTS))
+    y, gx, gw = p42_collectives(torch, mesh, 1.0)
+    with tempfile.TemporaryDirectory(prefix="p42-") as d:
+        out = os.path.join(d, "spmd.npz")
+        port = mp.free_port()
+        here = os.path.abspath(__file__)
+        procs, logs = mp.run_workers(
+            [[sys.executable, here, "--p42-spmd", str(r), str(port), out]
+             + p15_package_args(M) for r in range(2)],
+            dict(os.environ, OMP_NUM_THREADS="1"), timeout=300)
+        if any(p.returncode != 0 for p in procs):
+            raise AssertionError("the collectives across processes failed:\n"
+                                 + "\n".join(t[-2000:] for t in logs))
+        ranks = [np.load(f"{out}.rank{r}.npz") for r in range(2)]
+        same = all(np.array_equal(got["y"], y.cpu().numpy())
+                   for got in ranks)
+        dg = max(float(np.abs(got[k] - r.cpu().numpy()).max()
+                       / max(float(r.abs().max()), 1e-30))
+                 for got in ranks for k, r in (("gx", gx), ("gw", gw)))
+    log(f"  psum, all_to_all, ppermute, all_gather over 2 processes x "
+        f"{P42_SLOTS} slots against {2 * P42_SLOTS} slots in one process: "
+        f"both ranks' outputs bit-identical {same}; gradients max relative "
+        f"diff "
+        f"{dg:.3e} (tolerance 1e-5) [{card}]")
+    if not same or dg > 1e-5:
+        raise AssertionError("the SPMD collectives across processes differ "
+                             "from one process")
+
+
+def p15_launches(rows, counts) -> None:
+    """Path 15's launch counts into rows 2-4: the bf16 "wgmma" launches
+    of the one-process reference and the restored step (B=8 x T=4096,
+    path 2's shape) and of the two workers (B=4 each) into the bf16 rows;
+    the export's and the fresh process's f32 forwards (B=1 x T=4096) into
+    the f32 forward row at T=4096."""
+    adds = {}
+    runs = [counts["ref"], counts["resume"]] + counts["workers"]
+    for name, kind in (("flash_attention_fwd", "fwd"),
+                       ("flash_attention_bwd_dq", "dq"),
+                       ("flash_attention_bwd_dkv", "dkv")):
+        adds[name] = sum(c["by_route"].get(f"{kind},wgmma", 0) for c in runs)
+    adds["flash_attention_fwd_f32_t4096"] = sum(
+        c["by_route"].get("fwd,tf32", 0)
+        for c in (counts["export"], counts["loaded"]))
+    for row in rows:
+        row["launches"] += int(adds.get(row["name"], 0))
+
+
+# ------------------------------- path 16: from files to a served model
+# A tf.keras-style char model at bench_lstm's width (bench.py:393-404):
+# one-hot inputs over 64 symbols -> LSTM(256, return_sequences=True),
+# sigmoid gates, tanh cell -> Dense(64, softmax); sequences of 32-64
+# steps as CSV files (one a sequence: 64 one-hot columns, then the next
+# symbol), read with ALIGN_END so each batch carries masks; 4 batches of
+# 1024 through the embedded broker into StreamingTrainPipeline (bf16 over
+# f32 masters: the masked LSTM kernels, rows 7-8)
+ETL = dict(vocab=64, hidden=256, B=1024, batches=4, T=64, min_T=32,
+           serve_B=64, serve_records=4, seed=16)
+ETL_IMPORT_TOL = 1e-4       # f32 outputs, card (kernels) against CPU
+ETL_STREAM_TIMEOUT = 60     # seconds the streamed fit may take
+
+
+class H5Layout(dict):
+    """A group of a Keras HDF5 file held in memory: its attributes in
+    `attrs`, its groups and datasets as items; the reading surface
+    `KerasModelImport` uses (`modelimport.keras._open_h5`)."""
+
+    def __init__(self, attrs=None, **items):
+        super().__init__(items)
+        self.attrs = dict(attrs or {})
+
+
+def etl_write_h5(h5py, group, layout):
+    for k, v in layout.attrs.items():
+        group.attrs[k] = v
+    for k, v in layout.items():
+        if isinstance(v, H5Layout):
+            etl_write_h5(h5py, group.create_group(k), v)
+        else:
+            group.create_dataset(k, data=v)
+
+
+def etl_keras(np, path):
+    """The Keras model: LSTM kernel (64, 1024), recurrent kernel (256,
+    1024), bias (1024,) in Keras 2's i, f, c, o gate order; Dense (256,
+    64). Written with h5py to `path` where h5py is installed, returning
+    (path, "an HDF5 file"); on a machine without h5py (the card's has
+    none), the same layout in memory (`H5Layout`), for
+    `KerasModelImport` to read as it reads the file."""
+    V, H = ETL["vocab"], ETL["hidden"]
+    rng = np.random.default_rng(ETL["seed"])
+    w = {"kernel": rng.normal(0, V ** -0.5, (V, 4 * H)),
+         "recurrent_kernel": rng.normal(0, H ** -0.5, (H, 4 * H)),
+         "bias": rng.normal(0, 0.1, (4 * H,)),
+         "d_kernel": rng.normal(0, H ** -0.5, (H, V)),
+         "d_bias": rng.normal(0, 0.1, (V,))}
+    w = {k: v.astype(np.float32) for k, v in w.items()}
+    cfg = {"class_name": "Sequential", "config": {"name": "char_model",
+           "layers": [
+               {"class_name": "LSTM", "config": {
+                   "name": "lstm", "units": H, "activation": "tanh",
+                   "recurrent_activation": "sigmoid",
+                   "return_sequences": True,
+                   "batch_input_shape": [None, None, V]}},
+               {"class_name": "Dense", "config": {
+                   "name": "dense", "units": V, "activation": "softmax"}}]}}
+    names = lambda *n: np.array([x.encode() for x in n])  # noqa: E731
+    layout = H5Layout(
+        {"model_config": json.dumps(cfg).encode(),
+         "training_config": json.dumps(
+             {"loss": "categorical_crossentropy",
+              "optimizer": {"class_name": "Adam"}}).encode()},
+        model_weights=H5Layout(
+            {"layer_names": names("lstm", "dense")},
+            lstm=H5Layout({"weight_names": names(
+                "kernel", "recurrent_kernel", "bias")},
+                kernel=w["kernel"], recurrent_kernel=w["recurrent_kernel"],
+                bias=w["bias"]),
+            dense=H5Layout({"weight_names": names("kernel", "bias")},
+                           kernel=w["d_kernel"], bias=w["d_bias"])))
+    try:
+        import h5py
+    except ImportError:
+        return layout, "the file's layout in memory (no h5py here)", w
+    with h5py.File(path, "w") as f:
+        etl_write_h5(h5py, f, layout)
+    return path, "an HDF5 file written with h5py", w
+
+
+def np_keras_char_model(np, w, x):
+    """This script's own f64 numpy forward of the Keras model as Keras
+    computes it (gates in Keras's i, f, c, o column order, sigmoid gates,
+    tanh cell, no peepholes; then the softmax Dense), independent of the
+    port's import."""
+    x = x.astype(np.float64)
+    B, T, _ = x.shape
+    H = ETL["hidden"]
+    K, R, b = (w[k].astype(np.float64)
+               for k in ("kernel", "recurrent_kernel", "bias"))
+    sig = lambda z: 1.0 / (1.0 + np.exp(-z))  # noqa: E731
+    h, c, outs = np.zeros((B, H)), np.zeros((B, H)), []
+    for t in range(T):
+        zi, zf, zc, zo = np.split(x[:, t] @ K + h @ R + b, 4, axis=1)
+        c = sig(zf) * c + sig(zi) * np.tanh(zc)
+        h = sig(zo) * np.tanh(c)
+        outs.append(h)
+    logits = np.stack(outs, 1) @ w["d_kernel"].astype(np.float64) \
+        + w["d_bias"].astype(np.float64)
+    e = np.exp(logits - logits.max(-1, keepdims=True))
+    return e / e.sum(-1, keepdims=True)
+
+
+def etl_write_csvs(np, d):
+    """ETL["batches"] x ETL["B"] sequence files: random lengths in
+    [min_T, T], a random walk over the symbols; each line the step's
+    one-hot (64 columns) then the next symbol."""
+    rng = np.random.default_rng(ETL["seed"] + 1)
+    V = ETL["vocab"]
+    eye = [",".join("1" if j == i else "0" for j in range(V))
+           for i in range(V)]
+    paths = []
+    for s in range(ETL["batches"] * ETL["B"]):
+        n = int(rng.integers(ETL["min_T"], ETL["T"] + 1))
+        ids = np.cumsum(rng.integers(-2, 3, n + 1)) % V
+        p = os.path.join(d, f"seq_{s:05d}.csv")
+        with open(p, "w") as f:
+            f.write("".join(f"{eye[ids[t]]},{ids[t + 1]}\n"
+                            for t in range(n)))
+        paths.append(p)
+    return paths
+
+
+def phase_etl(torch, M, card):
+    """Path 16: from files to a served model. The Keras file imported on
+    the card and on the CPU (weights equal, f32 outputs within
+    ETL_IMPORT_TOL, TF32 off); the CSV sequences read with
+    `CSVSequenceRecordReader` and `SequenceRecordReaderDataSetIterator`
+    (ALIGN_END: every batch masked); the batches through the embedded
+    broker into `StreamingTrainPipeline` in bf16 (the masked LSTM
+    kernels; every loss finite, the last below the first); the
+    pipeline's checkpoint through `CheckpointStore.upload` to a
+    `LocalStorage` and `download` into a fresh store; a `ServeRoute` on
+    the network restored from it, whose answers equal the trained
+    network's `output` bit for bit."""
+    import tempfile
+
+    import numpy as np
+
+    L = M["lstm"]
+    dv, st, cl = M["datavec"], M["streaming"], M["cloud"]
+    KerasModelImport = M["modelimport"].KerasModelImport
+    figures, counts = {}, {}
+    with tempfile.TemporaryDirectory(prefix="etl-") as d:
+        h5, how, weights = etl_keras(np, os.path.join(d, "char_model.h5"))
+        t0 = time.perf_counter()
+        net = KerasModelImport.import_keras_sequential_model_and_weights(
+            h5, device="cuda")
+        cpu = KerasModelImport.import_keras_sequential_model_and_weights(
+            h5, device="cpu")
+        t_import = time.perf_counter() - t0
+        same_w = torch.equal(net.params().cpu(), cpu.params())
+        recs = list(np.eye(ETL["vocab"], dtype=np.float32)[
+            np.random.default_rng(3).integers(
+                0, ETL["vocab"], (ETL["serve_records"], ETL["serve_B"],
+                                  ETL["T"]))])
+        L.reset_counts()
+        a = net.output(recs[0]).cpu()
+        b = cpu.output(recs[0])
+        d_import = float((a - b).abs().max())
+        counts["import"] = dict(L.launches)
+        d_keras = float(np.abs(a.numpy() - np_keras_char_model(
+            np, weights, recs[0])).max())
+        log(f"  Keras import from {how} ({t_import:.2f} s, card and CPU): "
+            f"{[type(l).__name__ for l in net.layers]}, weights equal "
+            f"{same_w}; f32 output card against CPU max |diff| "
+            f"{d_import:.3e}, against Keras's own forward in numpy f64 "
+            f"{d_keras:.3e} (tolerance {ETL_IMPORT_TOL:.0e}); LSTM "
+            f"launches {counts['import']}")
+        if not same_w or max(d_import, d_keras) > ETL_IMPORT_TOL:
+            raise AssertionError("path 16: the Keras import on the card "
+                                 "disagrees with the CPU's")
+        t0 = time.perf_counter()
+        csvs = etl_write_csvs(np, d)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        it = dv.SequenceRecordReaderDataSetIterator(
+            dv.CSVSequenceRecordReader(csvs), batch_size=ETL["B"],
+            num_classes=ETL["vocab"], label_index=-1,
+            alignment=dv.AlignmentMode.ALIGN_END)
+        batches = list(it)
+        t_read = time.perf_counter() - t0
+        shapes = [b.features.shape for b in batches]
+        masked = all(b.features_mask is not None for b in batches)
+        log(f"  {len(csvs)} CSV sequences written in {t_write:.1f} s, read "
+            f"into {len(batches)} batches {shapes} in {t_read:.1f} s "
+            f"({len(csvs) / t_read:.0f} sequences/s), masked {masked}")
+        if len(batches) != ETL["batches"] or not masked \
+                or any(s != (ETL["B"], ETL["T"], ETL["vocab"])
+                       for s in shapes):
+            raise AssertionError(f"path 16: batches {shapes}, masked "
+                                 f"{masked}")
+        # through the embedded broker into the streaming trainer
+        broker = st.embedded_kafka.EmbeddedKafkaBroker()
+        try:
+            topic = "char-train"
+            source = st.KafkaSource(topic, broker.bootstrap_servers,
+                                    client="embedded",
+                                    auto_offset_reset="earliest")
+            sink = st.KafkaSink(topic, broker.bootstrap_servers,
+                                client="embedded")
+            for b in batches:
+                sink.send_dataset(b.features, b.labels, b.features_mask,
+                                  b.labels_mask)
+            net.compute_dtype = torch.bfloat16
+            scores = []
+
+            def until():
+                """The broker's records until every batch has arrived."""
+                n = 0
+                for ds in source:
+                    yield ds
+                    n += 1
+                    if n == ETL["batches"]:
+                        return
+
+            ckdir = os.path.join(d, "ckpt")
+            pipe = st.StreamingTrainPipeline(
+                net, until(), on_batch=lambda ev: scores.append(ev["score"]),
+                checkpoint_dir=ckdir, checkpoint_every=2)
+            L.reset_counts()
+            t0 = time.perf_counter()
+            pipe.start()
+            pipe.join(ETL_STREAM_TIMEOUT)
+            source.close()  # a stream short of its records ends here
+            pipe.join(30)
+            torch.cuda.synchronize()
+            t_fit = time.perf_counter() - t0
+            counts["stream"] = dict(L.launches)
+        finally:
+            source.close()
+            sink.close()
+            broker.close()
+        log(f"  streamed fit: {pipe.batches_seen} batches in {t_fit:.2f} s "
+            f"({pipe.batches_seen * ETL['B'] / t_fit:.0f} sequences/s), "
+            f"losses {scores}; LSTM launches {counts['stream']}, routes "
+            f"{dict(M['recurrent'].lstm_forward.routes)} [{card}]")
+        fwd = counts["stream"].get(("fwd", True, False), 0)
+        bwd = counts["stream"].get(("bwd", True, False), 0)
+        if pipe.batches_seen != ETL["batches"] \
+                or pipe.records_seen != ETL["batches"] or not np.all(
+                np.isfinite(scores)) or not scores[-1] < scores[0] \
+                or fwd < ETL["batches"] or bwd < ETL["batches"]:
+            raise AssertionError(f"path 16: the streamed fit saw "
+                                 f"{pipe.batches_seen} batches, losses "
+                                 f"{scores}, masked launches {fwd}, {bwd}")
+        # the checkpoint through storage, a fresh net, the serve route
+        store = M["CheckpointStore"](ckdir)
+        bucket = cl.LocalStorage(os.path.join(d, "bucket"))
+        key = store.upload(bucket, key_prefix="runs/char")
+        local = M["CheckpointStore"](os.path.join(d, "restored"))
+        path = local.download(bucket, key_prefix="runs/char")
+        fresh = M["restore_model"](path, device="cuda")
+        same = torch.equal(fresh.params(), net.params())
+        src, out = st.QueueSource(), st.QueueSink()
+        for r in recs:
+            src.put(r)
+        src.close()
+        L.reset_counts()
+        route = st.ServeRoute(fresh, src, out)
+        route.run()
+        counts["serve"] = dict(L.launches)
+        want = [net.output(r).cpu().numpy() for r in recs]
+        equal = len(out.items) == len(recs) and all(
+            np.array_equal(g, w) for g, w in zip(out.items, want))
+        log(f"  checkpoint step {store.steps()[-1]} uploaded as {key!r}, "
+            f"downloaded to {os.path.basename(str(path))}: parameters equal "
+            f"{same}; ServeRoute served {route.served} records of "
+            f"{recs[0].shape}, answers equal output {equal}; LSTM launches "
+            f"{counts['serve']}")
+        if not (same and equal):
+            raise AssertionError("path 16: the downloaded model's answers "
+                                 "differ from the trained network's")
+        figures = {"import_max_diff": d_import, "keras_max_diff": d_keras,
+                   "losses": scores,
+                   "fit_s": t_fit, "read_s": t_read,
+                   "sequences_per_s_read": len(csvs) / t_read,
+                   "sequences_per_s_fit": pipe.batches_seen * ETL["B"] / t_fit,
+                   "card": card}
+    return figures, counts
+
+
+def etl_launches(rows, counts) -> None:
+    """Path 16's LSTM launches into the rows at its shapes: the streamed
+    fit's masked bf16 forwards and backwards (T=64, B=1024, H=256) into
+    rows 7-8 at that shape, the f32 answers of `output` (the card
+    against the CPU, the serve route: T=64, B=64) into the f32 forward
+    row without the stash at that shape."""
+    T, B, H = ETL["T"], ETL["B"], ETL["hidden"]
+    adds = {f"lstm_fwd_masked_t{T}_b{B}_h{H}":
+            counts["stream"].get(("fwd", True, False), 0),
+            f"lstm_bwd_masked_t{T}_b{B}_h{H}":
+            counts["stream"].get(("bwd", True, False), 0),
+            f"lstm_fwd_nostash_f32_t{T}_b{ETL['serve_B']}_h{H}":
+            sum(c.get(("fwd", False, False), 0)
+                for c in (counts["import"], counts["serve"]))}
+    for row in rows:
+        row["launches"] += int(adds.pop(row["name"], 0))
+    if any(adds.values()):
+        raise AssertionError(f"path 16: launches {adds} matched no row")
+
+
+def phases_42_43(torch, M, card):
+    """Phases 42 and 43; paths 15 and 16's figures and launch counts."""
+    log("[42/43] path 15: two processes train one GPT on the card (gloo, "
+        "MultiProcessParallelWrapper), the sharded checkpoint, the export; "
+        "the SPMD collectives across processes")
+    t0 = time.perf_counter()
+    figures15, counts15 = phase_two_processes(torch, M, card)
+    phase_collectives_across(torch, M, card)
+    log(f"  phase 42 {time.perf_counter() - t0:.1f} s")
+    log("[43/43] path 16: from files to a served model (Keras import, "
+        "CSV sequences, the embedded broker, the streaming trainer, cloud "
+        "storage, the serve route)")
+    t0 = time.perf_counter()
+    figures16, counts16 = phase_etl(torch, M, card)
+    log(f"  phase 43 {time.perf_counter() - t0:.1f} s")
+    return {"path 15": figures15, "path 16": figures16}, \
+        {"path 15": counts15, "path 16": counts16}
+
+
+def phases_42_43_alone(torch, M, cuda_build) -> int:
+    """`--phases-42-43`: phases 42 and 43 alone (the flash and LSTM
+    sources built first), then one JSON line of paths 15 and 16's figures
+    and launch counts."""
+    card = nvidia_smi_line()
+    t0 = time.perf_counter()
+    cuda_build.build(("flash_attention", "lstm"))
+    log(f"phases 42-43 alone [{card}]; build {time.perf_counter() - t0:.1f} "
+        "s")
+    t0 = time.perf_counter()
+    figures, counts = phases_42_43(torch, M, card)
+    log(f"phases 42-43 {time.perf_counter() - t0:.1f} s")
+    counts["path 16"] = {k: {",".join(map(str, key)): n
+                             for key, n in v.items()}
+                         for k, v in counts["path 16"].items()}
+    print(json.dumps({"card": card, **figures, "launches": counts},
+                     default=str), flush=True)
     return 0
 
 
@@ -10743,6 +11647,7 @@ def port_modules() -> dict:
         weight_digest,
     )
     from deeplearning4j_tpu_torch.util.checkpoint_store import (
+        CheckpointCorruptError,
         CheckpointStore,
     )
     from deeplearning4j_tpu_torch.util.serialization import (
@@ -10763,8 +11668,20 @@ def port_modules() -> dict:
         parameter_server,
         training_master,
     )
+    from deeplearning4j_tpu_torch import cloud, datavec, modelimport
+    from deeplearning4j_tpu_torch import streaming
+    from deeplearning4j_tpu_torch.nn.layers import recurrent
+    from deeplearning4j_tpu_torch.streaming import embedded_kafka  # noqa: F401
+    from deeplearning4j_tpu_torch.util import (
+        sharded_checkpoint,
+        stablehlo_export,
+    )
 
-    return dict(parallel=parallel, device_prefetch=device_prefetch,
+    return dict(CheckpointCorruptError=CheckpointCorruptError,
+                cloud=cloud, datavec=datavec, modelimport=modelimport,
+                streaming=streaming, recurrent=recurrent,
+                sharded_checkpoint=sharded_checkpoint,
+                stablehlo_export=stablehlo_export, parallel=parallel, device_prefetch=device_prefetch,
                 multiprocess=multiprocess, parameter_server=parameter_server,
                 training_master=training_master, graph=graph, clustering=clustering, kmeans=kmeans,
                 tsne=tsne, ui=ui, stats_listener=stats_listener,
@@ -10840,7 +11757,9 @@ def main(argv) -> int:
     `--phases-32-33`: phases 32 and 33 alone. `--phases-34-35`: phases 34
     and 35 alone. `--phases-36-37`: phases 36 and 37 alone.
     `--phases-38-39`: phases 38 and 39 alone. `--phases-40-41`: phases
-    40 and 41 alone."""
+    40 and 41 alone. `--phases-42-43`: phases 42 and 43 alone.
+    `--p15-worker`, `--p15-load` and `--p42-spmd` are the worker
+    processes phase 42 starts."""
     import torch
 
     if not torch.cuda.is_available():
@@ -10863,6 +11782,12 @@ def main(argv) -> int:
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if "--p15-worker" in argv:
+        return p15_worker(torch, M, argv)
+    if "--p15-load" in argv:
+        return p15_load_worker(torch, M, argv)
+    if "--p42-spmd" in argv:
+        return p42_collectives_worker(torch, M, argv)
     if "--lstm-timing" in argv:
         return lstm_timing_alone(torch, L, cuda_build)
     if "--path5" in argv:
@@ -10885,104 +11810,106 @@ def main(argv) -> int:
         return phases_38_39_alone(torch, M, cuda_build)
     if "--phases-40-41" in argv:
         return phases_40_41_alone(torch, M, pa, fa, cuda_build)
+    if "--phases-42-43" in argv:
+        return phases_42_43_alone(torch, M, cuda_build)
 
     card = nvidia_smi_line()
-    log(f"[1/41] card: {card}; {torch.cuda.get_device_name(0)}; torch "
+    log(f"[1/43] card: {card}; {torch.cuda.get_device_name(0)}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}; "
         f"{torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     built = cuda_build.build(KERNEL_SOURCES)
-    log(f"[2/41] build: {time.perf_counter() - t0:.1f} s for "
+    log(f"[2/43] build: {time.perf_counter() - t0:.1f} s for "
         f"{len(built)} source(s)")
     for name, res in built.items():
         for line in ptxas_summary(res.log):
             log(f"  {name}: {line}")
 
-    log("[3/41] paged kernels against their plain versions (TF32 off)")
+    log("[3/43] paged kernels against their plain versions (TF32 off)")
     phase_kernels(torch, pa)
-    log("[4/41] flash kernels against their plain versions (TF32 off)")
+    log("[4/43] flash kernels against their plain versions (TF32 off)")
     phase_flash(torch, fa)
-    log("[5/41] f32 DecodeEngine vs generate, 2 layers, d_model 1024")
+    log("[5/43] f32 DecodeEngine vs generate, 2 layers, d_model 1024")
     phase_parity(torch, M)
-    log("[6/41] f32 training, card (kernels) vs CPU (plain), 1 layer, "
+    log("[6/43] f32 training, card (kernels) vs CPU (plain), 1 layer, "
         "d_model 1024, T=1024")
     phase_train_parity(torch, M)
-    log("[7/41] serving the 8-layer bf16 GPT at full width")
+    log("[7/43] serving the 8-layer bf16 GPT at full width")
     launches, path1_tok_s = phase_serve(torch, M, pa, card)
-    log("[8/41] serving it with int8 KV, the prefix cache and "
+    log("[8/43] serving it with int8 KV, the prefix cache and "
         "self-speculation on shared-prefix traffic")
     launches.update(phase_serve_tier(torch, M, pa, card))
-    log("[9/41] training the 8-layer bf16 gpt_long GPT at full width")
+    log("[9/43] training the 8-layer bf16 gpt_long GPT at full width")
     flash_counts = phase_train(torch, M, card, torch.bfloat16, TRAIN_B,
                                TRAIN_STEPS, 13, "wgmma")
-    log("[9/41] path 2w: the same GPT with 4 heads of 256 (the bf16 "
+    log("[9/43] path 2w: the same GPT with 4 heads of 256 (the bf16 "
         "\"wgmma wide\" flash kernels)")
     flash_counts_wide = phase_train(torch, M, card, torch.bfloat16,
                                     TRAIN_WIDE_B, TRAIN_WIDE_STEPS, 15,
                                     "wgmma wide", n_heads=TRAIN_WIDE_HEADS)
-    log("[9/41] path 2x: the same GPT with 2 heads of 512 (the bf16 "
+    log("[9/43] path 2x: the same GPT with 2 heads of 512 (the bf16 "
         "\"wgmma wide\" forward, the \"wgmma cluster\" backward)")
     flash_counts_2x = phase_train(torch, M, card, torch.bfloat16,
                                   TRAIN_2X_B, TRAIN_2X_STEPS, 16,
                                   TRAIN_2X_ROUTES, n_heads=TRAIN_2X_HEADS)
-    log("[10/41] path 2f: training the 8-layer gpt_long GPT in f32 "
+    log("[10/43] path 2f: training the 8-layer gpt_long GPT in f32 "
         "(split-TF32 flash kernels)")
     flash_counts_f32 = phase_train(torch, M, card, None, TRAIN_F32_B,
                                    TRAIN_F32_STEPS, 14, "tf32")
-    log("[11/41] LSTM kernels against their plain versions (TF32 off)")
+    log("[11/43] LSTM kernels against their plain versions (TF32 off)")
     phase_lstm_kernels(torch, L, M)
-    log("[12/41] f32 char-RNN training, card (kernels) vs CPU (plain), "
+    log("[12/43] f32 char-RNN training, card (kernels) vs CPU (plain), "
         "H=256")
     phase_lstm_train_parity(torch, M)
-    log("[13/41] training the bf16 lstm_large char-RNN at full width")
+    log("[13/43] training the bf16 lstm_large char-RNN at full width")
     lstm_counts, step4_ms = phase_lstm_train(torch, M, card, torch.bfloat16)
-    log("[14/41] training the bf16 lstm char-RNN with tBPTT 24 at full width")
+    log("[14/43] training the bf16 lstm char-RNN with tBPTT 24 at full width")
     tbptt_counts = phase_lstm_tbptt(torch, M, card)
-    log("[15/41] path 4f: training the lstm_large char-RNN in f32 "
+    log("[15/43] path 4f: training the lstm_large char-RNN in f32 "
         "(split-TF32 LSTM kernels)")
     f32_counts, _ = phase_lstm_train(torch, M, card, None, LSTM_F32_STEPS,
                                      "tf32 clusters", seed=2)
-    log("[16/41] timing at the serving and training shapes (bf16 and f32)")
+    log("[16/43] timing at the serving and training shapes (bf16 and f32)")
     rows = phase_timing(torch, pa, launches)
     rows += phase_flash_timing(torch, fa, flash_counts, flash_counts_f32,
                                flash_counts_wide, flash_counts_2x)
-    log("[17/41] timing the LSTM kernels at the char-RNN shapes (bf16 and "
+    log("[17/43] timing the LSTM kernels at the char-RNN shapes (bf16 and "
         "f32)")
     rows += phase_lstm_timing(torch, L, lstm_counts, tbptt_counts,
                               f32_counts)
-    log(f"[18/41] a GravesLSTM wider than the fused kernels (H={LSTM_WIDE}): "
+    log(f"[18/43] a GravesLSTM wider than the fused kernels (H={LSTM_WIDE}): "
         "the step loop, card vs CPU")
     phase_lstm_wide(torch, M)
-    log("[19/41] path 4s: the bf16 lstm_large char-RNN on "
+    log("[19/43] path 4s: the bf16 lstm_large char-RNN on "
         "GravesLSTMCharModellingExample's mini-batches (B=32 x T=1000, "
         "tBPTT 50)")
     lstm_4s_launches(rows, phase_lstm_4s(torch, M, card))
-    log("[20/41] path 4e: the bf16 lstm_large char-RNN through the training "
+    log("[20/43] path 4e: the bf16 lstm_large char-RNN through the training "
         "loop (async iterator, health sentinel, listeners, checkpoints, "
         "evaluate, restore, LBFGS)")
     lstm_4e_launches(rows, phase_lstm_4e(torch, M, card, step4_ms))
-    log("[21/41] path 5: the 8-layer bf16 GPT behind ModelServer (predict, "
+    log("[21/43] path 5: the 8-layer bf16 GPT behind ModelServer (predict, "
         "generate, reload under decode, rejections, the breaker, quantized "
         "weights with the drift gate, shutdown)")
     serve5_launches(rows, phase_server(torch, M, card, path1_tok_s))
-    log("[22/41] the CNN layers against the CPU and numpy (f32), path 6: "
+    log("[22/43] the CNN layers against the CPU and numpy (f32), path 6: "
         "LeNet at bench_lenet's shape, its f32 parity")
     phase_cnn_layers(torch, M)
     phase_lenet(torch, M, card)
-    log("[23/41] SelfAttention on the non-causal flash kernels, MoELayer "
+    log("[23/43] SelfAttention on the non-causal flash kernels, MoELayer "
         "against numpy, path 2m: the MoE gpt_long GPT, MoE serving")
     counts = phase_attention_moe(torch, M, pa, card)
     rows += attention_moe_rows(torch, fa, counts)
     moe_launches(rows, counts)
-    log("[24/41] path 7: ResNet-50 on CIFAR-10 at bench_resnet50's shape "
+    log("[24/43] path 7: ResNet-50 on CIFAR-10 at bench_resnet50's shape "
         "(a ComputationGraph, bf16, B=256)")
     phase_resnet(torch, M, card)
-    log("[25/41] the graph on the LSTM kernels: path 4's char-RNN as a "
+    log("[25/43] the graph on the LSTM kernels: path 4's char-RNN as a "
         "graph against the list container, a masked tBPTT graph, f32 "
         "graph parity with the CPU and numpy")
     graph_launches(rows, phase_graph_lstm(torch, M, card))
-    log("[26/41] pretraining on the card: the MNIST VAE example's VAE, the "
+    log("[26/43] pretraining on the card: the MNIST VAE example's VAE, the "
         "DeepAutoEncoder RBM stack, an AutoEncoder stack")
     phase_pretrain(torch, M, card)
     cluster_launches(rows, *phases_27_29(torch, M, pa, card))
@@ -11002,6 +11929,10 @@ def main(argv) -> int:
     path14, spmd_counts = phases_40_41(torch, M, pa, fa, card)
     log(f"  path 14: {json.dumps(path14, default=str)}")
     rows += spmd_rows(torch, pa, rows, spmd_counts)
+    paths, etl_counts = phases_42_43(torch, M, card)
+    log(f"  paths 15 and 16: {json.dumps(paths, default=str)}")
+    p15_launches(rows, etl_counts["path 15"])
+    etl_launches(rows, etl_counts["path 16"])
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -33,6 +33,12 @@ still to port.
 
 __version__ = "0.1.0"
 
+# the first CPU vector-math call of the process, made alone before any of
+# the port's thread pools can start (`util.host_math`)
+from deeplearning4j_tpu_torch.util.host_math import settle_host_math
+
+settle_host_math()
+
 from deeplearning4j_tpu_torch.nn.conf import (  # noqa: F401
     MultiLayerConfiguration,
     NeuralNetConfiguration,

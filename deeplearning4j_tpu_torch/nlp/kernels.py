@@ -40,7 +40,7 @@ def require_partitionable_rng() -> None:
     `jax_threefry_partitionable` is off, which voids its mesh-vs-single-
     chip parity of sharded negative draws. The port draws its negatives
     from a `torch.Generator` on the table's device and shards no draw
-    (a mesh over several devices is A12c), so the flag has no
+    (one process per card: `parallel.mesh`), so the flag has no
     counterpart."""
     raise NotImplementedError(
         "nlp.kernels.require_partitionable_rng is JAX PRNG plumbing with no "

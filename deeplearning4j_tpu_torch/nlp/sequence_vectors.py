@@ -19,8 +19,9 @@ from the JAX package's, and its results are compared by quality, not bit
 for bit. `mesh=` (the JAX package's data-parallel training over a device
 mesh) takes a `parallel.mesh.Mesh` on one device: after the JAX
 package's check that the batch divides by the data axis, training is the
-single-device path, which is what the sharded step computes; a mesh over
-several distinct devices raises naming ROADMAP queue A12c.
+single-device path, which is what the sharded step computes; a mesh whose
+slots in one process name several distinct devices raises (one process
+per card: `parallel.mesh`).
 """
 from __future__ import annotations
 

@@ -248,11 +248,15 @@ class Layer:
     def _maybe_drop_connect(self, W, train, rng: Rng):
         """DropConnect: the weight matrix takes the dropout mask instead
         of the input (inverted, so E[W] is kept), drawn from the layer's
-        rng folded with 1."""
+        rng folded with 1: one draw over W inside a row-offset scope too,
+        since W's rows are not batch rows (as the JAX package draws it)."""
+        from deeplearning4j_tpu_torch.ops.rng_rows import row_offset_scope
+
         p = self.dropout or 0.0
         if not train or p <= 0.0 or rng is None:
             return W
-        return dropout(W, p, fold_in(rng, 1))
+        with row_offset_scope(None):
+            return dropout(W, p, fold_in(rng, 1))
 
     def _act(self):
         return activation_fn(self.activation or Activation.IDENTITY)

@@ -258,6 +258,10 @@ class ComputationGraph(NetworkBase):
         the same rng as in the forward."""
         from deeplearning4j_tpu_torch.nn.precision import tree_cast
         from deeplearning4j_tpu_torch.ops.aux_loss import aux_loss_scope
+        from deeplearning4j_tpu_torch.ops.losses import (
+            add_penalties,
+            weigh_share,
+        )
 
         conf = self.conf
         params_in = params
@@ -290,10 +294,10 @@ class ComputationGraph(NetworkBase):
             total = total + node.layer.loss_score(
                 params_in[oname], x, labels[oi], train=train, rng=lrng,
                 mask=lmasks[oi] if lmasks is not None else None)
-        total = total + self._reg_score(params_in)
+        total = add_penalties(total, self._reg_score(params_in))
         for term in aux_terms:  # mid-network losses (MoE load balancing)
             total = total + term
-        return total, new_state
+        return weigh_share(total), new_state
 
     def _reg_score(self, params: Params):
         return regularization_score(

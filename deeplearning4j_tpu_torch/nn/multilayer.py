@@ -702,6 +702,10 @@ class MultiLayerNetwork(NetworkBase):
             tree_cast,
         )
         from deeplearning4j_tpu_torch.ops.aux_loss import aux_loss_scope
+        from deeplearning4j_tpu_torch.ops.losses import (
+            add_penalties,
+            weigh_share,
+        )
 
         params_in = params
         features = self._prep_features(features)
@@ -724,10 +728,11 @@ class MultiLayerNetwork(NetworkBase):
         loss = self.layers[-1].loss_score(params_in[-1], x, labels,
                                           train=train, rng=out_rng,
                                           mask=mask)
-        loss = loss + regularization_score(zip(self.layers, params_in))
+        loss = add_penalties(loss,
+                             regularization_score(zip(self.layers, params_in)))
         for term in aux_terms:  # mid-network losses (MoE load balancing)
             loss = loss + term
-        return loss, new_state
+        return weigh_share(loss), new_state
 
     def _batch_arrays(self, ds: DataSet):
         from deeplearning4j_tpu_torch.nn.precision import wire_asarray

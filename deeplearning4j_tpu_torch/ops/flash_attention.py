@@ -456,6 +456,30 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+def _flash_attention_fwd_op(q, k, v, causal, sm_scale):
+    if _on_cpu(q, k, v):
+        return flash_attention_plain_fwd(q, k, v, causal,
+                                         sm_scale)[0].contiguous()
+    return flash_forward(q, k, v, causal, sm_scale, with_lse=False)[0]
+
+
+# the inference forward as one registered op (`dl4j::flash_attention_fwd`):
+# `torch.export` cannot trace into the ctypes launch, so an exported
+# network (`util.stablehlo_export`) holds the kernel as this op, and the
+# op's body is the wrapper: the kernel on CUDA tensors (counted), the
+# plain version on CPU tensors
+flash_attention_fwd_op = torch.library.custom_op(
+    "dl4j::flash_attention_fwd", _flash_attention_fwd_op, mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, bool causal, float? sm_scale) "
+           "-> Tensor")
+
+
+@flash_attention_fwd_op.register_fake
+def _(q, k, v, causal, sm_scale):
+    B, Tq, H, _ = q.shape
+    return q.new_empty((B, Tq, H, v.shape[-1]))
+
+
 def flash_attention(q, k, v, *, causal: bool = False,
                     sm_scale: Optional[float] = None) -> torch.Tensor:
     """Exact attention, (B, T, H, D) layout, no key mask, differentiable.
@@ -467,9 +491,7 @@ def flash_attention(q, k, v, *, causal: bool = False,
         raise ValueError("causal flash path requires Tq == Tk")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FlashAttention.apply(q, k, v, causal, sm_scale)
-    if _on_cpu(q, k, v):
-        return flash_attention_plain_fwd(q, k, v, causal, sm_scale)[0]
-    return flash_forward(q, k, v, causal, sm_scale, with_lse=False)[0]
+    return flash_attention_fwd_op(q, k, v, causal, sm_scale)
 
 
 def reset_counts() -> None:

@@ -9,9 +9,11 @@ class ids (shape preout.shape[:-1]) are taken by MCXENT/NLL + SOFTMAX.
 """
 from __future__ import annotations
 
+import contextlib
 import enum
+import threading
 import warnings
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -115,11 +117,70 @@ def loss_score(loss, activation, labels, preout,
 
 def _masked_row_mean(per_row, mask: Optional[torch.Tensor]):
     """Mean over rows; with a mask, masked rows contribute 0 and the
-    divisor is the unmasked count (at least 1)."""
+    divisor is the unmasked count (at least 1). Inside a
+    `loss_share_scope` with a denominator, the divisor is the count over
+    every process's rows (this process's rows are a share of the
+    batch)."""
+    share = current_loss_share()
     if mask is None:
-        return per_row.mean()
+        if share is None or share.denominator is None:
+            return per_row.mean()
+        return per_row.sum() / share.denominator(float(per_row.numel()))
     mask = mask.reshape(per_row.shape).to(per_row.dtype)
-    return (per_row * mask).sum() / mask.sum().clamp(min=1.0)
+    if share is None or share.denominator is None:
+        return (per_row * mask).sum() / mask.sum().clamp(min=1.0)
+    return (per_row * mask).sum() / max(
+        share.denominator(float(mask.sum())), 1.0)
+
+
+class _LossShare:
+    __slots__ = ("denominator", "penalties", "weight")
+
+    def __init__(self, denominator, penalties, weight):
+        self.denominator = denominator
+        self.penalties = penalties
+        self.weight = weight
+
+
+_SHARE = threading.local()
+
+
+@contextlib.contextmanager
+def loss_share_scope(denominator: Optional[Callable[[float], float]] = None,
+                     penalties: bool = True, weight: float = 1.0):
+    """The loss of one process's share of a batch trained across
+    processes (`parallel.multiprocess`), on the calling thread:
+    `denominator(local count)` gives the row (or unmasked-row) count over
+    every process, the divisor of the row means; `penalties` False leaves
+    the L1/L2 terms to another process; the whole loss is multiplied by
+    `weight`. The shares' gradients then add up to the whole batch's."""
+    prev = getattr(_SHARE, "v", None)
+    _SHARE.v = _LossShare(denominator, penalties, weight)
+    try:
+        yield
+    finally:
+        _SHARE.v = prev
+
+
+def current_loss_share() -> Optional[_LossShare]:
+    return getattr(_SHARE, "v", None)
+
+
+def add_penalties(loss, penalties):
+    """`loss` + `penalties` (the L1/L2 terms), unless the current
+    `loss_share_scope` leaves them to another process."""
+    share = current_loss_share()
+    if share is not None and not share.penalties:
+        return loss
+    return loss + penalties
+
+
+def weigh_share(loss):
+    """`loss` times the current `loss_share_scope`'s weight."""
+    share = current_loss_share()
+    if share is None or share.weight == 1.0:
+        return loss
+    return loss * share.weight
 
 
 def loss_fn(loss):

@@ -598,6 +598,46 @@ class _LSTMCoreMasked(torch.autograd.Function):
                 None, None)
 
 
+def _lstm_fwd_op(xw, rw, peep, h0, c0, reverse):
+    h_out, _, cT, *_ = lstm_fwd(xw, rw, peep, h0, c0, reverse=reverse,
+                                with_stash=False)
+    return h_out.contiguous(), cT.contiguous()
+
+
+def _lstm_fwd_masked_op(xw, rw, peep, h0, c0, mask, reverse):
+    h_out, hT, cT, *_ = lstm_fwd(xw, rw, peep, h0, c0, mask,
+                                 reverse=reverse, with_stash=False)
+    return h_out.contiguous(), hT.contiguous(), cT.contiguous()
+
+
+# the inference forwards as registered ops (`dl4j::lstm_fwd`,
+# `dl4j::lstm_fwd_masked`): `torch.export` cannot trace into the ctypes
+# launch, so an exported network (`util.stablehlo_export`) holds each
+# kernel as one op whose body is `lstm_fwd` (the kernel on CUDA tensors,
+# counted; the plain version on CPU tensors)
+lstm_fwd_op = torch.library.custom_op(
+    "dl4j::lstm_fwd", _lstm_fwd_op, mutates_args=(),
+    schema="(Tensor xw, Tensor rw, Tensor peep, Tensor h0, Tensor c0, "
+           "bool reverse) -> (Tensor, Tensor)")
+lstm_fwd_masked_op = torch.library.custom_op(
+    "dl4j::lstm_fwd_masked", _lstm_fwd_masked_op, mutates_args=(),
+    schema="(Tensor xw, Tensor rw, Tensor peep, Tensor h0, Tensor c0, "
+           "Tensor mask, bool reverse) -> (Tensor, Tensor, Tensor)")
+
+
+@lstm_fwd_op.register_fake
+def _(xw, rw, peep, h0, c0, reverse):
+    T, B, G = xw.shape
+    return xw.new_empty((T, B, G // 4)), xw.new_empty((B, G // 4))
+
+
+@lstm_fwd_masked_op.register_fake
+def _(xw, rw, peep, h0, c0, mask, reverse):
+    T, B, G = xw.shape
+    return (xw.new_empty((T, B, G // 4)), xw.new_empty((B, G // 4)),
+            xw.new_empty((B, G // 4)))
+
+
 def lstm_fused(x, W, RW, b, peephole, h0, c0, *, mask=None,
                reverse: bool = False):
     """The LSTM over x (B, T, nIn) with W (nIn, 4H), RW (H, 4H), b (4H,),
@@ -624,14 +664,13 @@ def lstm_fused(x, W, RW, b, peephole, h0, c0, *, mask=None,
             h_tbh, hT, cT = _LSTMCoreMasked.apply(xw, RW, peep, h0, c0, m,
                                                   reverse)
         else:
-            h_tbh, hT, cT, *_ = lstm_fwd(xw, RW, peep, h0, c0, m,
-                                         reverse=reverse, with_stash=False)
+            h_tbh, hT, cT = lstm_fwd_masked_op(xw, RW, peep, h0, c0, m,
+                                               reverse)
     else:
         if grad:
             h_tbh, cT = _LSTMCore.apply(xw, RW, peep, h0, c0, reverse)
         else:
-            h_tbh, _, cT, *_ = lstm_fwd(xw, RW, peep, h0, c0,
-                                        reverse=reverse, with_stash=False)
+            h_tbh, cT = lstm_fwd_op(xw, RW, peep, h0, c0, reverse)
         hT = h_tbh[0] if reverse else h_tbh[-1]
     return h_tbh.transpose(0, 1), (hT, cT)
 

@@ -21,9 +21,12 @@ puts N slots on one card): the GPipe pipeline (`parallel.pipeline`,
 (`serving.tp_engine`). Their names resolve here lazily, as the modules
 import this package's wrapper.
 
-The multi-process half (ROADMAP queue A12c: `multiprocess` on
-`torch.distributed`, meshes over several cards, the sharded
-checkpoints) raises `NotImplementedError` naming A12c.
+The multi-process half runs one process per card, joined by
+`torch.distributed` (`parallel.multiprocess`: `initialize_multiprocess`,
+`global_mesh`, `MultiProcessParallelWrapper`,
+`MultiProcessTrainingMaster`); `parallel.spmd` bodies run across
+processes on a global mesh, and `util.sharded_checkpoint` saves and
+restores the training state with `torch.distributed.checkpoint`.
 """
 
 from deeplearning4j_tpu_torch.parallel.mesh import make_mesh  # noqa: F401
@@ -86,21 +89,19 @@ _A12B_NAMES = {
     "ulysses_attention": "sequence",
 }
 
-# the multi-process half's names (the JAX package's `multiprocess`)
-_A12C_NAMES = frozenset({
+# the multi-process half's names (`parallel.multiprocess`, resolved on
+# first use)
+_MULTIPROCESS_NAMES = frozenset({
     "MultiProcessParallelWrapper", "MultiProcessTrainingMaster",
     "global_mesh", "initialize_multiprocess",
 })
 
 
 def __getattr__(name):
-    if name in _A12B_NAMES:
+    if name in _A12B_NAMES or name in _MULTIPROCESS_NAMES:
         import importlib
 
-        mod = importlib.import_module(f"{__name__}.{_A12B_NAMES[name]}")
+        mod = importlib.import_module(
+            f"{__name__}.{_A12B_NAMES.get(name, 'multiprocess')}")
         return getattr(mod, name)
-    if name in _A12C_NAMES:
-        raise NotImplementedError(
-            f"parallel.{name} is not ported yet (ROADMAP queue A12c: the "
-            "multi-process half of parallel training on torch.distributed)")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -12,18 +12,24 @@ slots of `cuda:0` on one card, or N CPU slots in the tests), the
 counterpart of `XLA_FLAGS=--xla_force_host_platform_device_count=N`.
 `make_mesh()` and `serving.tp_engine.tp_mesh` take their slots from it.
 
+A mesh may span processes (`parallel.multiprocess.global_mesh`): then
+`processes` holds, for each slot, the rank of the process that owns it,
+the counterpart of `jax.Device.process_index`; a mesh of one process has
+`processes` None.
+
 Two kinds of entry point use a mesh. The global-view ones
 (`ParallelWrapper`, `DevicePrefetchIterator`, `SequenceVectors(mesh=)`)
 compute what the JAX package's partitioned step computes, the
-single-device computation on the whole batch: on a mesh whose slots are
-all one device they run it there, and a mesh over several distinct
-devices is the multi-process half (ROADMAP queue A12c:
-`torch.distributed` across cards), which they refuse. The per-slot
-bodies the JAX package writes under `shard_map` (tensor-parallel
-decode, ring and Ulysses attention, the pipeline, the expert-parallel
-MoE) run once per slot through `parallel.spmd`, whatever devices the
-slots name. Tests build an 8-slot mesh on the CPU,
-`make_mesh(devices=[torch.device("cpu")] * 8)`.
+single-device computation on the whole batch: on a mesh whose slots in
+this process are all one device they run it there. The port maps cards
+to processes: one process per card, the processes joined by
+`torch.distributed` under `MultiProcessParallelWrapper`. So a mesh whose
+slots in one process name several distinct devices is refused with a
+message that says so. The per-slot bodies the JAX package writes under
+`shard_map` (tensor-parallel decode, ring and Ulysses attention, the
+pipeline, the expert-parallel MoE) run once per slot of this process
+through `parallel.spmd`, whatever devices the slots name. Tests build an
+8-slot mesh on the CPU, `make_mesh(devices=[torch.device("cpu")] * 8)`.
 """
 from __future__ import annotations
 
@@ -38,7 +44,8 @@ class Mesh:
     """Axis names, `shape` ({axis: size}, in axis order) and `devices`
     (a numpy object array of `torch.device`s of that shape)."""
 
-    def __init__(self, devices: np.ndarray, axis_names: Sequence[str]):
+    def __init__(self, devices: np.ndarray, axis_names: Sequence[str],
+                 processes: Optional[np.ndarray] = None):
         devices = np.asarray(devices, dtype=object)
         if devices.ndim != len(axis_names):
             raise ValueError(f"{len(axis_names)} axis names for a "
@@ -46,31 +53,63 @@ class Mesh:
         self.devices = devices
         self.axis_names = tuple(axis_names)
         self.shape = OrderedDict(zip(self.axis_names, devices.shape))
+        if processes is not None:
+            processes = np.asarray(processes, dtype=np.int64).reshape(
+                devices.shape)
+        self.processes = processes
+
+    @property
+    def is_multiprocess(self) -> bool:
+        return self.processes is not None \
+            and len(set(self.processes.reshape(-1).tolist())) > 1
+
+    def process_of(self, slot: int) -> int:
+        """The rank owning flat slot `slot` (0 on a one-process mesh)."""
+        if self.processes is None:
+            return 0
+        return int(self.processes.reshape(-1)[slot])
+
+    def local_slot_indices(self) -> list:
+        """The flat slots this process owns (all of them on a
+        one-process mesh)."""
+        if self.processes is None:
+            return list(range(self.size))
+        from deeplearning4j_tpu_torch.parallel.multiprocess import (
+            process_index,
+        )
+
+        me = process_index()
+        return [s for s, p in enumerate(self.processes.reshape(-1))
+                if int(p) == me]
 
     @property
     def size(self) -> int:
         return int(self.devices.size)
 
     def distinct_devices(self) -> list:
-        """The distinct `torch.device`s the slots name, in slot order."""
+        """The distinct `torch.device`s this process's slots name, in
+        slot order."""
+        flat = self.devices.reshape(-1)
         out = []
-        for d in self.devices.reshape(-1):
-            if d not in out:
-                out.append(d)
+        for s in self.local_slot_indices():
+            if flat[s] not in out:
+                out.append(flat[s])
         return out
 
     def single_device(self, what: str) -> torch.device:
-        """The one device every slot names, for the global-view entry
-        points; a mesh over several distinct devices raises naming A12c
-        (`what` names the caller)."""
+        """The one device every slot of this process names, for the
+        global-view entry points (`what` names the caller). Slots in one
+        process over several distinct devices raise: the port runs one
+        process per card, under `MultiProcessParallelWrapper`."""
         devs = self.distinct_devices()
         if len(devs) != 1:
-            raise NotImplementedError(
-                f"{what} over a mesh of {len(devs)} distinct devices "
-                f"({devs}) is the multi-process half of parallel training "
-                "(ROADMAP queue A12c: torch.distributed across cards); a "
-                "mesh on one device runs the single-device step on the "
-                "whole batch")
+            raise ValueError(
+                f"{what} over a mesh whose slots in one process name "
+                f"{len(devs)} distinct devices ({devs}): the port runs one "
+                "process per card, joined by torch.distributed under "
+                "parallel.multiprocess.MultiProcessParallelWrapper "
+                "(initialize_multiprocess, global_mesh); a mesh on one "
+                "device runs the single-device step on the whole batch")
         return devs[0]
 
     def data_placement(self, axis: str = "data") -> "DataPlacement":

@@ -23,8 +23,9 @@ with its share of every argument:
   the deposits, moved to its device with `.to(device)`. A reduction adds
   the slots' tensors in slot order, so every slot's result has the same
   bits, and one run's bits do not depend on thread timing;
-- outputs join by their out-specs: a replicated output is slot 0's, a
-  split one is concatenated over its axes (a `shard_map(...,
+- outputs join by their out-specs: a replicated output is slot 0's (on
+  a mesh over processes, this process's first slot's), a split one is
+  concatenated over its axes (a `shard_map(...,
   join=False)` returns `Sharded` values instead).
 
 The collectives are plain differentiable torch ops on the slots'
@@ -38,8 +39,8 @@ row-offset scope
 (`ops.rng_rows`); aux-loss terms a body adds (`ops.aux_loss`) reach the
 caller's scope from slot 0, once, as the single trace of the JAX body
 adds them once. Between two rendezvous the slots take turns, one body
-at a time, and the first call makes the process's first call of the
-CPU's vector math before any slot thread starts (`_settle_host_math`). If a body raises, the rendezvous is aborted, so the
+at a time, and the process's first call of the CPU's vector math is made before
+any slot thread starts (`util.host_math`). If a body raises, the rendezvous is aborted, so the
 other slots fail out of their waits instead of hanging, and the call
 raises the first body's exception. A slot that finishes while others
 still wait at a collective is a body that called different collectives
@@ -48,7 +49,8 @@ on different slots: the mismatch raises in every slot.
 from __future__ import annotations
 
 import threading
-from contextlib import ExitStack
+from types import SimpleNamespace
+from contextlib import ExitStack, nullcontext
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -102,6 +104,13 @@ class _Layout:
         self.coords = [dict(zip(self.names, np.unravel_index(i, self.sizes)))
                        for i in range(self.n)]
         self._groups: Dict[Tuple[str, ...], List[Tuple[List[int], int]]] = {}
+        # the slots this process runs; on a mesh over processes the rest
+        # run in their owners (`Mesh.processes`)
+        self.multiprocess = bool(getattr(mesh, "is_multiprocess", False))
+        self.local = (mesh.local_slot_indices() if self.multiprocess
+                      else list(range(self.n)))
+        self.owner = [mesh.process_of(s) if self.multiprocess else 0
+                      for s in range(self.n)]
 
     def check_axes(self, axes: Tuple[str, ...]) -> None:
         for a in axes:
@@ -255,7 +264,7 @@ def _join(per_slot: Sequence[Any], spec, lay: _Layout):
         if any(int(lay.coords[s][a]) for a in lay.names if a not in used):
             continue
         blocks[tuple(lay.index(s, axes) for _, axes in parts)] = per_slot[s]
-    dev = lay.devices[0]
+    dev = lay.devices[lay.local[0]]
 
     def build(prefix, k):
         if k == len(parts):
@@ -282,10 +291,19 @@ class _Runtime:
 
     def __init__(self, lay: _Layout):
         self.lay = lay
-        self.barrier = threading.Barrier(lay.n)
+        self.barrier = threading.Barrier(
+            len(lay.local),
+            action=self._across_processes if lay.multiprocess else None)
         self.inbox = [[None] * lay.n, [None] * lay.n]
         self.rounds = [0] * lay.n
         self.turn = threading.Lock()
+
+    def _across_processes(self) -> None:
+        """The barrier's action on a mesh over processes: once every
+        local slot has deposited, fill the other processes' deposits into
+        this round's inbox (`_exchange_across`)."""
+        r = self.rounds[self.lay.local[0]] - 1
+        _exchange_across(self.lay, self.inbox[r % 2])
 
     def exchange(self, ctx: "_Ctx", op: tuple, payload):
         slot = ctx.slot
@@ -304,6 +322,153 @@ class _Runtime:
                     f"SPMD mismatch at collective {r}: slot {slot} called "
                     f"{op}, slot {s} called {other}")
         return [p for _, p in box]
+
+
+# -- across processes --------------------------------------------------------
+# A mesh over processes (`parallel.multiprocess.global_mesh`) runs each
+# process's own slots here; at every rendezvous the deposits of the other
+# processes' slots arrive through the default `torch.distributed` process
+# group, one round for all of a process's slots. gloo does not take CUDA
+# tensors in every collective, so the deposits are staged through pinned
+# host memory (`host_copy` here, `.to(device)` on arrival). The exchange is an
+# autograd function: the cotangents of the copies another process used
+# travel back to the slot that deposited them and add there, in process
+# order, so `backward()` across processes runs the reverse program as it
+# does within one.
+def host_copy(t: torch.Tensor) -> torch.Tensor:
+    """`t` in host memory for a gloo collective: a card's tensor copied
+    into a pinned buffer, a host tensor as it is (contiguous)."""
+    t = t.detach()
+    if t.device.type != "cuda":
+        return t.contiguous()
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t)
+    return out
+
+
+def _all_gather_host(t: torch.Tensor) -> List[torch.Tensor]:
+    import torch.distributed as dist
+
+    t = t.contiguous()
+    out = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+    dist.all_gather(out, t)
+    return out
+
+
+# The backward of every exchange is a collective too, so every process
+# must run them in one order. The autograd engine orders independent
+# branches by sequence numbers that are per thread, and the exchanges are
+# made on whichever slot thread reaches the barrier last; so each
+# exchange takes the previous one's `token` output as an input: its
+# backward then waits for the next one's, and the backward runs the
+# exchanges in exactly the reverse of their order in every process. The
+# chain runs over one `shard_map` call, or over every call inside an
+# `exchange_chain()` scope (a training step with several expert layers).
+_CHAIN: Dict[str, Any] = {"token": None, "scoped": 0}
+
+
+def _chain_token() -> torch.Tensor:
+    t = _CHAIN["token"]
+    return t if t is not None else torch.zeros((), requires_grad=True)
+
+
+class exchange_chain:
+    """Chain the cross-process exchanges of every `shard_map` call
+    inside the scope (see `_CHAIN`)."""
+
+    def __enter__(self):
+        if not _CHAIN["scoped"]:
+            _CHAIN["token"] = None
+        _CHAIN["scoped"] += 1
+        return self
+
+    def __exit__(self, *exc):
+        _CHAIN["scoped"] -= 1
+        if not _CHAIN["scoped"]:
+            _CHAIN["token"] = None
+
+
+class _Exchange(torch.autograd.Function):
+    """(the chain's token, the local slots' deposits) -> (the next token,
+    the remote slots' deposits in flat slot order, on `device`)."""
+
+    @staticmethod
+    def forward(ctx, lay, device, token, *local):
+        ctx.lay, ctx.devices = lay, [t.device for t in local]
+        stacked = host_copy(torch.stack([t.detach() for t in local]))
+        per_proc = _all_gather_host(stacked)
+        rank = {p: [s for s in range(lay.n) if lay.owner[s] == p]
+                for p in set(lay.owner)}
+        outs = []
+        for s in range(lay.n):
+            if s in lay.local:
+                continue
+            p = lay.owner[s]
+            outs.append(per_proc[p][rank[p].index(s)].to(device))
+        ctx.shape, ctx.dtype = stacked.shape[1:], stacked.dtype
+        return (torch.zeros(()),) + tuple(outs)
+
+    @staticmethod
+    def backward(ctx, _token_grad, *grads):
+        lay = ctx.lay
+        full = torch.zeros((lay.n,) + tuple(ctx.shape), dtype=ctx.dtype)
+        remote = [s for s in range(lay.n) if s not in lay.local]
+        for s, g in zip(remote, grads):
+            if g is not None:
+                full[s] = host_copy(g)
+        per_proc = _all_gather_host(full)
+        from deeplearning4j_tpu_torch.parallel.multiprocess import (
+            process_index,
+        )
+
+        me = process_index()
+        out = []
+        for s, dev in zip(lay.local, ctx.devices):
+            acc = None
+            for p, cot in enumerate(per_proc):
+                if p == me:
+                    continue
+                acc = cot[s] if acc is None else acc + cot[s]
+            out.append(acc.to(dev))
+        return (None, None, torch.zeros(())) + tuple(out)
+
+
+def _exchange_across(lay: _Layout, box: list) -> None:
+    """Fill the remote slots of one round's inbox from their owners: the
+    collective each slot called (checked against every slot's, as within
+    a process) and its tensor."""
+    import torch.distributed as dist
+
+    mine = [box[s] for s in lay.local]
+    ops = [None] * dist.get_world_size()
+    dist.all_gather_object(ops, [op for op, _ in mine])
+    remote = [s for s in range(lay.n) if s not in lay.local]
+    seen = {p: 0 for p in set(lay.owner)}
+    remote_ops = {}
+    for s in range(lay.n):
+        p = lay.owner[s]
+        remote_ops[s] = ops[p][seen[p]]
+        seen[p] += 1
+    if any(remote_ops[s] != mine[0][0] for s in remote):
+        for s in remote:
+            box[s] = (remote_ops[s], None)
+        return  # every slot's mismatch check raises
+    payloads = [p for _, p in mine]
+    if not isinstance(payloads[0], torch.Tensor):
+        for s in remote:
+            box[s] = (remote_ops[s], None)
+        return
+    device = payloads[0].device
+    if torch.is_grad_enabled() and payloads[0].is_floating_point() \
+            and any(t.requires_grad for t in payloads):
+        token, *got = _Exchange.apply(lay, device, _chain_token(), *payloads)
+        _CHAIN["token"] = token
+    else:
+        with torch.no_grad():
+            _, *got = _Exchange.forward(SimpleNamespace(), lay, device, None,
+                                        *payloads)
+    for s, t in zip(remote, got):
+        box[s] = (remote_ops[s], t)
 
 
 class _Ctx:
@@ -326,24 +491,11 @@ class _Ctx:
 
 _tls = threading.local()
 
-# torch sends the CPU's f32 and f64 unary math (sqrt, exp, log, ...) to
-# MKL's vector math library, which sets itself up at its first call in a
-# process; several threads making that first call at once sometimes get
-# a 12-bit result (sqrt(8) = 2.82763671875: `spmd_thread_stress.py`).
-# The first `shard_map` makes that call alone, before any slot thread
-# exists; after it, calls from any thread give one thread's bits.
-_HOST_MATH_LOCK = threading.Lock()
-_host_math_ready = False
-
-
-def _settle_host_math() -> None:
-    global _host_math_ready
-    if _host_math_ready:
-        return
-    with _HOST_MATH_LOCK:
-        if not _host_math_ready:
-            torch.exp(torch.zeros(1))
-            _host_math_ready = True
+# the process's first CPU vector-math call is made alone, before any slot
+# thread exists (`util.host_math`: the package import makes it)
+from deeplearning4j_tpu_torch.util.host_math import (  # noqa: E402
+    settle_host_math as _settle_host_math,
+)
 
 
 def _ctx(what: str) -> _Ctx:
@@ -496,8 +648,12 @@ def _split_tree(arg, spec: PartitionSpec, lay: _Layout, slot: int):
 
 
 def _join_out(outs: List[Any], spec, lay: _Layout, join: bool):
-    """Join one output (tree) over the slots."""
-    first = outs[0]
+    """Join one output (tree) over the slots. A replicated output is the
+    first slot's of this process (slot 0's within one process): on a
+    mesh over processes each process computes it from the same
+    collectives' results, so every process's backward takes the same
+    path."""
+    first = outs[lay.local[0]]
     if _is_leaf_spec(spec) and not isinstance(first, (dict, list, tuple)):
         spec = spec or P()
         if not isinstance(first, torch.Tensor) or _is_replicated(spec):
@@ -564,6 +720,8 @@ def _run_slots(lay: _Layout, fn: Callable, per_slot_args: Sequence[tuple]):
     results: List[Any] = [None] * lay.n
     errors: List[Optional[BaseException]] = [None] * lay.n
     aux_terms: List[Optional[list]] = [None] * lay.n
+    remote_leaves: Dict[int, list] = {s: [] for s in range(lay.n)
+                                      if s not in lay.local}
 
     def work(s: int) -> None:
         ctx = _tls.ctx = _Ctx(rt, s)
@@ -572,6 +730,16 @@ def _run_slots(lay: _Layout, fn: Callable, per_slot_args: Sequence[tuple]):
             with ExitStack() as stack:
                 aux_terms[s] = _enter_state(stack, state, lay.devices[s])
                 results[s] = fn(*per_slot_args[s])
+                if lay.multiprocess:
+                    # the other processes' outputs, leaf by leaf, for
+                    # the join
+                    for i, leaf in enumerate(_leaves(results[s])):
+                        if not isinstance(leaf, torch.Tensor):
+                            continue
+                        got = rt.exchange(ctx, ("join", i), leaf)
+                        if s == lay.local[0]:
+                            for r in remote_leaves:
+                                remote_leaves[r].append(got[r])
                 # leave together: a slot that ran fewer collectives than
                 # the others meets their next one here and raises
                 rt.exchange(ctx, ("exit",), None)
@@ -584,18 +752,42 @@ def _run_slots(lay: _Layout, fn: Callable, per_slot_args: Sequence[tuple]):
 
     threads = [threading.Thread(target=work, args=(s,), daemon=True,
                                 name=f"spmd-slot-{s}")
-               for s in range(lay.n)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
+               for s in lay.local]
+    with exchange_chain() if lay.multiprocess else nullcontext():
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
     real = [e for e in errors if e is not None
             and not isinstance(e, threading.BrokenBarrierError)]
     if real or any(e is not None for e in errors):
         raise (real or [e for e in errors if e is not None])[0]
-    if state["aux"] is not None and aux_terms[0]:
-        state["aux"].extend(aux_terms[0])
+    first = lay.local[0]
+    if state["aux"] is not None and aux_terms[first]:
+        state["aux"].extend(aux_terms[first])
+    for r, leaves in remote_leaves.items():
+        it = iter(leaves)
+        results[r] = _map_leaves(
+            lambda v: next(it) if isinstance(v, torch.Tensor) else v,
+            results[first])
     return results
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [v for k in tree for v in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [v for x in tree for v in _leaves(x)]
+    return [tree]
+
+
+def _map_leaves(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        out = [_map_leaves(fn, x) for x in tree]
+        return out if isinstance(tree, list) else tuple(out)
+    return fn(tree)
 
 
 def shard_map(fn: Callable, mesh, in_specs, out_specs, *,
@@ -615,6 +807,7 @@ def shard_map(fn: Callable, mesh, in_specs, out_specs, *,
                              f"arguments, got {len(args)}")
         per_slot = [tuple(_split_arg(a, s, lay, slot)
                           for a, s in zip(args, in_specs))
+                    if slot in lay.local else None
                     for slot in range(lay.n)]
         outs = _run_slots(lay, fn, per_slot)
         return _join_out(outs, out_specs, lay, join)

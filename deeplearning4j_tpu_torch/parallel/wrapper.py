@@ -29,11 +29,12 @@ than the data axis is dropped), the `AsyncDataSetIterator` wrap by
 epoch hooks), data-parallel truncated BPTT with the carries seeded and
 restored around each batch's windows, and `get_network()`.
 
-Not ported here (ROADMAP queue A12c, the multi-process half on
-`torch.distributed`): a mesh over more than one distinct device and the
-sharded checkpoints (`save_checkpoint` / `load_checkpoint`: orbax in the
-JAX package, `util/sharded_checkpoint.py`). Each raises
-`NotImplementedError` naming A12c.
+A mesh whose slots in this process name several distinct devices is
+refused: the port runs one process per card, under
+`parallel.multiprocess.MultiProcessParallelWrapper`, whose steps this
+class's surface carries. `save_checkpoint` / `load_checkpoint` write and
+read `util.sharded_checkpoint` (`torch.distributed.checkpoint`; orbax in
+the JAX package).
 """
 from __future__ import annotations
 
@@ -52,8 +53,6 @@ from deeplearning4j_tpu_torch.datasets.iterators import (
 from deeplearning4j_tpu_torch.parallel.mesh import Mesh, make_mesh
 
 logger = logging.getLogger("deeplearning4j_tpu_torch")
-
-_A12C = "ROADMAP queue A12c: the multi-process half of parallel training"
 
 
 def _spec_axes(part):
@@ -160,17 +159,23 @@ class ParallelWrapper:
 
     # -- sharded checkpointing ---------------------------------------------
     def save_checkpoint(self, path) -> None:
-        raise NotImplementedError(
-            "ParallelWrapper.save_checkpoint writes a sharded checkpoint "
-            f"(util/sharded_checkpoint.py), which is not ported yet "
-            f"({_A12C}); use util.serialization.write_model or a "
-            "CheckpointListener")
+        """Write the training state as a sharded checkpoint
+        (`util.sharded_checkpoint`; every process of a multi-process run
+        calls it)."""
+        from deeplearning4j_tpu_torch.util.sharded_checkpoint import (
+            save_sharded_checkpoint,
+        )
+
+        save_sharded_checkpoint(path, self.net)
 
     def load_checkpoint(self, path) -> None:
-        raise NotImplementedError(
-            "ParallelWrapper.load_checkpoint reads a sharded checkpoint "
-            f"(util/sharded_checkpoint.py), which is not ported yet "
-            f"({_A12C}); use util.serialization.restore_model")
+        """Restore the training state in place from a sharded
+        checkpoint, written by any number of processes."""
+        from deeplearning4j_tpu_torch.util.sharded_checkpoint import (
+            restore_sharded_checkpoint,
+        )
+
+        restore_sharded_checkpoint(path, self.net)
 
     # subclass hooks (SequenceParallelWrapper overrides _step_scope) -----
     def _step_scope(self):

@@ -21,8 +21,9 @@ imports nothing of the JAX package).
 
 `CheckpointStore(save_hooks=[...])` calls each hook at the named phases
 of a save (`pre_write`, `mid_write`, `pre_publish`, `post_payload`): the
-seam a crash drill plants its fault in. The verified cloud transfer
-(`upload`/`download`) needs `cloud/storage.py`, which is not ported.
+seam a crash drill plants its fault in. `upload`/`download` move a
+checkpoint and its manifest through a `cloud.storage` backend, verified
+on both sides, under the JAX package's keys.
 """
 from __future__ import annotations
 
@@ -435,16 +436,80 @@ class CheckpointStore:
         return removed
 
     # -- verified cloud transfer -----------------------------------------
+    # one verified-transfer implementation: both directions ride
+    # `cloud.storage.RetryingStorage` (read-back digest verify on put,
+    # expected-digest verify on get, bounded backoff retry on both)
+    def _transfer_keys(self, key_prefix: str, name: str) -> Tuple[str, str]:
+        base = f"{key_prefix.rstrip('/')}/{name}" if key_prefix else name
+        return base, base + MANIFEST_SUFFIX
+
+    @staticmethod
+    def _retrying(storage, max_retries: int, backoff: float):
+        from deeplearning4j_tpu_torch.cloud.storage import RetryingStorage
+
+        if isinstance(storage, RetryingStorage):
+            return storage
+        return RetryingStorage(storage, max_retries=max_retries,
+                               backoff=backoff)
+
     def upload(self, storage, key_prefix: str = "",
                step: Optional[int] = None, max_retries: int = 3,
                backoff: float = 0.05) -> str:
-        raise NotImplementedError(
-            "CheckpointStore.upload is not ported yet (ROADMAP queue A14: "
-            "cloud/storage.py)")
+        """Upload one checkpoint (newest verified when `step` is None)
+        through a `DataSetStorage` backend with the payload's digest
+        re-verified after the transfer (read-back compare) — a transfer
+        that corrupts bytes in flight is retried, and exhaustion raises
+        `CheckpointCorruptError`. Returns the payload key."""
+        if step is None:
+            latest = self.latest_verified()
+            if latest is None:
+                raise FileNotFoundError(
+                    f"no checkpoints under {self.directory}")
+            step, path = latest
+        else:
+            path = self.path_for(step)
+        self.verify(step)
+        key, mkey = self._transfer_keys(key_prefix, path.name)
+        st = self._retrying(storage, max_retries, backoff)
+        # payload strictly before manifest, mirroring the local publish
+        # order: a crash between the two leaves an unverifiable remote
+        # orphan, never a manifest vouching for missing bytes
+        st.put_bytes(key, path.read_bytes())
+        st.put_bytes(mkey, manifest_path_for(path).read_bytes())
+        return key
 
     def download(self, storage, key_prefix: str = "",
                  step: Optional[int] = None, max_retries: int = 3,
                  backoff: float = 0.05) -> Path:
-        raise NotImplementedError(
-            "CheckpointStore.download is not ported yet (ROADMAP queue "
-            "A14: cloud/storage.py)")
+        """Fetch a checkpoint (newest remote step when `step` is None)
+        from a `DataSetStorage` backend into this store, re-verifying the
+        manifest digests after transfer and retrying a corrupt download.
+        The local copy is committed atomically (payload before manifest).
+        Returns the local payload path."""
+        st = self._retrying(storage, max_retries, backoff)
+        if step is None:
+            pref = f"{key_prefix.rstrip('/')}/" if key_prefix else ""
+            remote_steps = []
+            for k in st.list_keys(pref + self.prefix):
+                m = self._step_re.match(k[len(pref):])
+                if m:
+                    remote_steps.append(int(m.group(1)))
+            if not remote_steps:
+                raise FileNotFoundError(
+                    f"no remote checkpoints under {key_prefix!r}")
+            step = max(remote_steps)
+        final = self.path_for(step)
+        key, mkey = self._transfer_keys(key_prefix, final.name)
+        manifest_bytes = st.get_bytes(mkey)
+        manifest = json.loads(manifest_bytes.decode())
+        want = manifest["files"][final.name]
+        data = st.get_bytes(key, expected_sha256=want["sha256"])
+        if len(data) != want["size"]:
+            raise CheckpointCorruptError(
+                f"download of {key} corrupted in transit "
+                f"({len(data)} bytes, manifest says {want['size']})")
+        atomic_write_bytes(final, data)
+        atomic_write_bytes(manifest_path_for(final), manifest_bytes)
+        self.verify(step)
+        self.gc()
+        return final

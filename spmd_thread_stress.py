@@ -24,7 +24,17 @@ thread, as the port's tests do. Then, by mode:
 - spmd-noturn: the same with the slots' turn-taking switched off, so the
   8 slot threads run their bodies at once;
 - spmd-nosetup: the runtime without that first call;
-- spmd-bare: without either.
+- spmd-bare: without either;
+- master: the averaging master (`ParameterAveragingTrainingMaster`) trains
+  the parity fixture network with 4 workers, each on its own thread, on
+  CPU slots; its parameters are compared bit for bit with the same
+  training run again with its workers one at a time on one thread.
+
+Importing `deeplearning4j_tpu_torch` makes the process's first call of the
+CPU vector math (`util.host_math`), so in the modes that import the port
+(spmd*, master) that call is made alone, at import, whatever the mode
+switches off in `shard_map` itself; the threads* modes import nothing of
+the port and show the race as it is.
 
 The ops: the f32, bf16 and f16 square roots of scalar head dims (the
 attention scale was once taken so), then a vector square root, exp and
@@ -42,7 +52,7 @@ import threading
 from concurrent.futures import ThreadPoolExecutor
 
 MODES = ("threads", "threads-locked", "threads-warm", "threads-warm-exp",
-         "spmd", "spmd-noturn", "spmd-nosetup", "spmd-bare")
+         "spmd", "spmd-noturn", "spmd-nosetup", "spmd-bare", "master")
 N_THREADS = 8
 
 
@@ -59,7 +69,57 @@ def ops(torch):
     return out
 
 
+def master_child() -> int:
+    """The averaging master's 4 worker threads against its workers run
+    one at a time on one thread, bit for bit."""
+    import concurrent.futures as cf
+
+    import torch
+
+    torch.set_num_threads(1)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterators import (
+        ListDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.parallel import training_master as tm
+    from deeplearning4j_tpu_torch.parallel.multiprocess import (
+        _parity_fixture_data,
+        _parity_fixture_net,
+    )
+
+    feats, labels = _parity_fixture_data()
+    batches = [DataSet(feats[i, lo:lo + 4], labels[i, lo:lo + 4])
+               for i in range(feats.shape[0]) for lo in range(0, 16, 4)]
+
+    def train():
+        net = _parity_fixture_net(device="cpu")
+        master = tm.ParameterAveragingTrainingMaster(
+            num_workers=4, averaging_frequency=2)
+        master.execute_training(net, ListDataSetIterator(batches))
+        return net.params().numpy().tolist()
+
+    threaded = train()
+    real_pool = tm.ThreadPoolExecutor
+    tm.ThreadPoolExecutor = lambda max_workers=None, **kw: \
+        cf.ThreadPoolExecutor(max_workers=1, **kw)
+    try:
+        one = train()
+    finally:
+        tm.ThreadPoolExecutor = real_pool
+    bad = [i for i, (a, b) in enumerate(zip(threaded, one)) if a != b]
+    if not bad:
+        print("ok")
+        return 0
+    print("BAD " + json.dumps({"differences": len(bad), "first": bad[0],
+                               "got": threaded[bad[0]],
+                               "want": one[bad[0]]}))
+    return 0
+
+
 def child(mode: str) -> int:
+    if mode == "master":
+        return master_child()
     import torch
 
     torch.set_num_threads(1)
@@ -96,7 +156,7 @@ def child(mode: str) -> int:
             spmd._Ctx.take_turn = lambda self: None
             spmd._Ctx.give_turn = lambda self: None
         if mode in ("spmd-nosetup", "spmd-bare"):
-            spmd._host_math_ready = True  # as if made: skipped
+            spmd._settle_host_math = lambda: None  # skipped in shard_map
         mesh = make_mesh({"a": N_THREADS},
                          devices=[torch.device("cpu")] * N_THREADS)
 

@@ -286,10 +286,20 @@ def test_directories_load_in_the_other_package(tmp_path, pnet):
 
 
 def test_transfer_needs_the_unported_cloud_module(tmp_path):
-    store = pcs.CheckpointStore(tmp_path)
-    for call in (store.upload, store.download):
-        with pytest.raises(NotImplementedError, match="A14"):
-            call(object())
+    """The cloud module is ported: `upload` and `download` move a
+    verified checkpoint through a `cloud.storage` backend under the JAX
+    package's keys, and a store with nothing to upload says so."""
+    from deeplearning4j_tpu_torch.cloud.storage import LocalStorage
+
+    store = pcs.CheckpointStore(tmp_path / "src")
+    with pytest.raises(FileNotFoundError, match="no checkpoints"):
+        store.upload(LocalStorage(tmp_path / "bucket"))
+    store.save_bytes(3, b"payload")
+    bucket = LocalStorage(tmp_path / "bucket")
+    key = store.upload(bucket, key_prefix="run")
+    assert key == "run/" + store.path_for(3).name
+    got = pcs.CheckpointStore(tmp_path / "dst").download(bucket, "run")
+    assert got.read_bytes() == b"payload"
 
 
 # ----------------------------------------------------------------- retry

@@ -20,7 +20,11 @@ k-means and t-SNE of its vectors, a StatsListener reporting into a
 UIServer; the data-parallel tier: ParallelWrapper over an 8-slot mesh
 fed by the device prefetcher, the averaging master with a crash drill,
 the parameter server over TCP, a fault-tolerant restart, parallel early
-stopping and an export; and `parallel.main` run as a module)
+stopping and an export; and `parallel.main` run as a module; the
+multi-process tier: a two-process fit over gloo, a sharded checkpoint,
+an export loaded back; data and interop: CSV sequences through datavec,
+a Keras import, a streamed fit through the embedded broker, a checkpoint
+through cloud storage)
 loads neither `jax` nor any module of `deeplearning4j_tpu`, and
 its entry points run on the card by default, raising where there is
 none rather than carrying on quietly on the CPU."""
@@ -622,6 +626,136 @@ def test_parallel_main_as_a_module_imports_neither():
     env = dict(os.environ, PYTHONPATH=str(REPO))
     r = subprocess.run([sys.executable, "-c", _MAIN_SCRIPT], cwd=str(REPO),
                        env=env, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "LEAKED []" in r.stdout
+
+
+_A12C_A14_SCRIPT = textwrap.dedent("""
+    import json
+    import os
+    import sys
+    import tempfile
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.cloud import LocalStorage
+    from deeplearning4j_tpu_torch.datavec import (
+        AlignmentMode, CSVSequenceRecordReader,
+        SequenceRecordReaderDataSetIterator)
+    from deeplearning4j_tpu_torch.modelimport import KerasModelImport
+    from deeplearning4j_tpu_torch.parallel import multiprocess as mp
+    from deeplearning4j_tpu_torch.streaming import (
+        KafkaSink, KafkaSource, StreamingTrainPipeline)
+    from deeplearning4j_tpu_torch.streaming.embedded_kafka import (
+        EmbeddedKafkaBroker)
+    from deeplearning4j_tpu_torch.util import sharded_checkpoint
+    from deeplearning4j_tpu_torch.util.checkpoint_store import (
+        CheckpointStore)
+    from deeplearning4j_tpu_torch.util.stablehlo_export import (
+        export_inference, load_inference)
+
+    LEAK = ("import sys; leaked = sorted(m for m in sys.modules if "
+            "m.split('.')[0] in ('jax', 'deeplearning4j_tpu')); "
+            "print('WORKER LEAKED', leaked)")
+    d = tempfile.mkdtemp()
+    # two processes over gloo, each checking what it loaded
+    port = mp.free_port()
+    out = os.path.join(d, "p.npy")
+    worker = ("import sys; from deeplearning4j_tpu_torch.parallel "
+              "import multiprocess as mp; mp._parity_worker_main("
+              "sys.argv[1:]); " + LEAK)
+    procs, logs = mp.run_workers(
+        [[sys.executable, "-c", worker, str(r), "2", f"localhost:{port}",
+          "2", out, "--device", "cpu"] for r in range(2)],
+        dict(os.environ, OMP_NUM_THREADS="1"), timeout=90)
+    assert all(p.returncode == 0 for p in procs), logs
+    assert all("WORKER LEAKED []" in log for log in logs), logs
+    net = mp._parity_fixture_net(device="cpu")
+    sharded_checkpoint.save_sharded_checkpoint(os.path.join(d, "ck"), net)
+    sharded_checkpoint.restore_sharded_checkpoint(os.path.join(d, "ck"),
+                                                  net)
+    x = np.zeros((2, 6), np.float32)
+    run = load_inference(export_inference(net, x))
+    assert np.array_equal(run(x), net.output(x).numpy())
+
+    # a Keras model held in memory (an h5py-shaped layout), CSV sequences,
+    # the embedded broker, the streaming trainer, cloud storage
+    class Layout(dict):
+        def __init__(self, attrs, **items):
+            super().__init__(items)
+            self.attrs = attrs
+    cfg = {"class_name": "Sequential", "config": {"layers": [
+        {"class_name": "LSTM", "config": {
+            "name": "lstm", "units": 4, "activation": "tanh",
+            "recurrent_activation": "sigmoid", "return_sequences": True,
+            "batch_input_shape": [None, None, 3]}},
+        {"class_name": "Dense", "config": {"name": "dense", "units": 3,
+                                           "activation": "softmax"}}]}}
+    rng = np.random.default_rng(0)
+    w = lambda *s: rng.normal(size=s).astype(np.float32)
+    model = Layout({"model_config": json.dumps(cfg).encode()},
+                   model_weights=Layout(
+                       {"layer_names": np.array([b"lstm", b"dense"])},
+                       lstm=Layout({"weight_names": np.array(
+                           [b"kernel", b"recurrent_kernel", b"bias"])},
+                           kernel=w(3, 16), recurrent_kernel=w(4, 16),
+                           bias=w(16)),
+                       dense=Layout({"weight_names": np.array(
+                           [b"kernel", b"bias"])}, kernel=w(4, 3),
+                           bias=w(3))))
+    knet = KerasModelImport.import_keras_sequential_model_and_weights(
+        model, device="cpu")
+    paths = []
+    for s in range(4):
+        p = os.path.join(d, f"s{s}.csv")
+        with open(p, "w") as f:
+            f.write("".join(f"{t % 3 == 0:d},{t % 3 == 1:d},"
+                            f"{t % 3 == 2:d},{(t + 1) % 3}\\n"
+                            for t in range(2 + s)))
+        paths.append(p)
+    it = SequenceRecordReaderDataSetIterator(
+        CSVSequenceRecordReader(paths), batch_size=2, num_classes=3,
+        label_index=-1, alignment=AlignmentMode.ALIGN_END)
+    broker = EmbeddedKafkaBroker()
+    sink = KafkaSink("t", broker.bootstrap_servers, client="embedded")
+    for b in it:
+        sink.send_dataset(b.features, b.labels, b.features_mask,
+                          b.labels_mask)
+    src = KafkaSource("t", broker.bootstrap_servers, client="embedded",
+                      auto_offset_reset="earliest", poll_timeout_s=0.2)
+    def two():
+        for i, ds in enumerate(src):
+            assert ds.features_mask is not None
+            yield ds
+            if i == 1:
+                return
+    pipe = StreamingTrainPipeline(knet, two(),
+                                  checkpoint_dir=os.path.join(d, "sk"))
+    pipe.run()
+    src.close()
+    sink.close()
+    broker.close()
+    assert pipe.batches_seen == 2
+    key = CheckpointStore(os.path.join(d, "sk")).upload(
+        LocalStorage(os.path.join(d, "bucket")))
+    assert key.endswith(".zip")
+    leaked = sorted(m for m in sys.modules
+                    if m == "jax" or m.startswith("jax.")
+                    or m == "deeplearning4j_tpu"
+                    or m.startswith("deeplearning4j_tpu."))
+    print("LEAKED", leaked)
+    sys.exit(1 if leaked else 0)
+""")
+
+
+def test_multiprocess_tier_and_data_interop_import_neither():
+    """Two gloo processes train, a sharded checkpoint and an export
+    round-trip, a Keras model imports, CSV sequences stream through the
+    embedded broker into the trainer and its checkpoint goes to storage:
+    neither this process nor the workers load jax or the JAX package."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run([sys.executable, "-c", _A12C_A14_SCRIPT],
+                       cwd=str(REPO), env=env, capture_output=True,
+                       text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     assert "LEAKED []" in r.stdout
 

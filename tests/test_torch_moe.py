@@ -168,7 +168,7 @@ def test_expert_parallel_names_raise_naming_a12():
     """The expert-parallel path (A12b) is ported: its names are the
     port's own functions, and `moe_apply` checks the expert count
     against the mesh axis as the JAX package does; the multi-process
-    half still raises naming A12c."""
+    half (A12c) is ported too: its wrapper is the port's own class."""
     from deeplearning4j_tpu_torch.parallel.mesh import make_mesh
 
     for name in ("expert_mesh_scope", "current_expert_mesh", "moe_apply",
@@ -184,8 +184,8 @@ def test_expert_parallel_names_raise_naming_a12():
     import deeplearning4j_tpu_torch.parallel as par
 
     assert par.SequenceParallelWrapper.__name__ == "SequenceParallelWrapper"
-    with pytest.raises(NotImplementedError, match=r"queue A12c\b"):
-        par.MultiProcessParallelWrapper
+    assert par.MultiProcessParallelWrapper.__module__ \
+        == "deeplearning4j_tpu_torch.parallel.multiprocess"
 
 
 def _moe_net(C, L, **kw):

@@ -397,9 +397,9 @@ def test_listeners_and_async_wrap():
 def test_the_multi_device_half_raises_naming_a12b(what, tmp_path):
     """A12b is ported: a `model` axis and splitting `param_specs` are
     checked and computed unsplit (the global view), an `expert_axis` the
-    mesh lacks is the JAX wrapper's ValueError. What needs several
-    processes (a mesh over distinct devices, the sharded checkpoints)
-    raises naming A12c."""
+    mesh lacks is the JAX wrapper's ValueError. A12c is ported too: a
+    mesh over distinct devices in one process is refused, since the port
+    runs one process per card, and the sharded checkpoints round-trip."""
     net = MultiLayerNetwork(_dense_conf(PC), device="cpu")
     if what == "model_axis":
         ParallelWrapper(net, mesh=pmesh.make_mesh(
@@ -423,14 +423,20 @@ def test_the_multi_device_half_raises_naming_a12b(what, tmp_path):
             del net.layers[0].expert_axis
             del net.layers[0].n_experts
         return
-    with pytest.raises(NotImplementedError, match=r"queue A12c\b"):
-        if what == "two_devices":
+    if what == "two_devices":
+        with pytest.raises(ValueError, match="one process per card"):
             ParallelWrapper(net, mesh=pmesh.make_mesh(
                 devices=[torch.device("cpu"), torch.device("meta")]))
-        elif what == "save":
-            ParallelWrapper(net, mesh=_mesh8()).save_checkpoint(tmp_path)
+    else:
+        ck = tmp_path / "ck"
+        other = MultiLayerNetwork(_dense_conf(PC), device="cpu")
+        if what == "save":
+            ParallelWrapper(net, mesh=_mesh8()).save_checkpoint(ck)
+            ParallelWrapper(other, mesh=_mesh8()).load_checkpoint(ck)
         else:
-            ParallelWrapper(net, mesh=_mesh8()).load_checkpoint(tmp_path)
+            ParallelWrapper(other, mesh=_mesh8()).save_checkpoint(ck)
+            ParallelWrapper(net, mesh=_mesh8()).load_checkpoint(ck)
+        assert torch.equal(net.params(), other.params())
     # replicated specs are accepted
     ParallelWrapper(net, mesh=_mesh8(),
                     param_specs={0: {"W": (None, None), "b": ()}})
@@ -478,7 +484,7 @@ def test_device_prefetch_iterator():
 
 def test_device_prefetch_placement_rules():
     two = pmesh.make_mesh(devices=[torch.device("cpu"), torch.device("meta")])
-    with pytest.raises(NotImplementedError, match=r"queue A12c\b"):
+    with pytest.raises(ValueError, match="one process per card"):
         DevicePrefetchIterator(ListDataSetIterator([]),
                                sharding=two.data_placement("data"))
     if not torch.cuda.is_available():

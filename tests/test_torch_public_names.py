@@ -126,21 +126,18 @@ def test_the_walk_covers_the_training_extras_and_the_cluster_half():
     ("parallel", "make_mesh", "A12"),
     ("parallel", "SequenceParallelWrapper", "A12b"),
     ("parallel", "PipelineParallelWrapper", "A12b"),
-    ("parallel.multiprocess", "MultiProcessParallelWrapper", "A12b"),
-    ("parallel.multiprocess", "initialize_multiprocess", "A12b"),
+    ("parallel.multiprocess", "MultiProcessParallelWrapper", "A12c"),
+    ("parallel.multiprocess", "initialize_multiprocess", "A12c"),
 ])
 def test_unported_families_raise_naming_their_item(module, name, item):
-    """The multi-process half of parallel training (A12c) raises
-    NotImplementedError naming its queue item, never AttributeError or
-    ImportError. The wire, the remote replicas and the network injectors
-    (A11c), the data-parallel tier (A12, now A12a: the wrapper, the
-    meshes) and the in-process SPMD half (A12b: the pipeline and
-    sequence wrappers) raised so until they were ported: now they
-    resolve; A12b's `multiprocess` names moved to A12c."""
+    """The wire, the remote replicas and the network injectors (A11c),
+    the data-parallel tier (A12, now A12a: the wrapper, the meshes), the
+    in-process SPMD half (A12b: the pipeline and sequence wrappers) and
+    the multi-process half (A12c: `multiprocess`) raised
+    NotImplementedError naming their queue items until they were ported:
+    now they resolve to the port's classes and functions."""
     mod = importlib.import_module(f"{PORT}.{module}" if module else PORT)
-    if item == "A12b" and module == "parallel.multiprocess":
-        item = "A12c"
-    if item in ("A11c", "A12", "A12b"):
+    if item in ("A11c", "A12", "A12b", "A12c"):
         obj = getattr(mod, name)
         assert inspect.isclass(obj) or inspect.isfunction(obj)
         exec(f"from {mod.__name__} import {name}", {})
@@ -262,15 +259,15 @@ def test_the_walk_covers_the_fetchers_nlp_and_native():
 
 
 def test_nlp_names_without_a_card_meaning_raise_naming_their_item():
-    """`mesh=` over several distinct devices (sharded embedding
-    training) is the multi-process half of parallel training (A12c; a
-    mesh on one device trains like the single-device path);
-    `require_partitionable_rng` is JAX PRNG plumbing (C3)."""
+    """`mesh=` over several distinct devices in one process is refused
+    (the port runs one process per card; a mesh on one device trains
+    like the single-device path); `require_partitionable_rng` is JAX
+    PRNG plumbing (C3)."""
     from deeplearning4j_tpu_torch.nlp import SequenceVectors, kernels
     from deeplearning4j_tpu_torch.parallel import make_mesh
 
     two = make_mesh(devices=[torch.device("cpu"), torch.device("meta")])
-    with pytest.raises(NotImplementedError, match=r"queue A12c\b"):
+    with pytest.raises(ValueError, match="one process per card"):
         SequenceVectors(mesh=two, batch_size=64, device="cpu")
     one = make_mesh(devices=[torch.device("cpu")] * 2)
     assert SequenceVectors(mesh=one, batch_size=64, device="cpu").mesh is one
@@ -357,11 +354,61 @@ def test_the_data_parallel_tier_resolves_from_parallel(name):
 
 def test_no_port_name_raises_naming_a12_alone():
     """Every message of the port that named queue A12 names one of its
-    parts: A12a and A12b are ported, A12c (the multi-process half) is
-    what still raises; no message names A12b any more."""
+    parts; A12a, A12b and A12c are ported, and no message names A12b or
+    A12c any more."""
     import re as _re
 
     for path in (REPO / PORT).rglob("*.py"):
         text = path.read_text()
         assert not _re.search(r"queue A12(?![abc])", text), path
         assert not _re.search(r"queue A12b\b", text), path
+        assert not _re.search(r"queue A12c\b", text), path
+
+
+def test_the_walk_covers_the_multiprocess_half_and_data_interop():
+    assert {f"{PORT}.parallel.multiprocess", f"{PORT}.util.sharded_checkpoint",
+            f"{PORT}.util.stablehlo_export", f"{PORT}.datavec",
+            f"{PORT}.datavec.records", f"{PORT}.datavec.iterators",
+            f"{PORT}.cloud", f"{PORT}.cloud.storage",
+            f"{PORT}.cloud.provision", f"{PORT}.streaming",
+            f"{PORT}.streaming.pipeline", f"{PORT}.streaming.embedded_kafka",
+            f"{PORT}.modelimport", f"{PORT}.modelimport.keras"} \
+        <= set(MODULES)
+
+
+A12C_A14 = [("parallel.multiprocess", n) for n in (
+    "MultiProcessParallelWrapper", "MultiProcessTrainingMaster",
+    "global_mesh", "initialize_multiprocess")] + [
+    ("util.sharded_checkpoint", "save_sharded_checkpoint"),
+    ("util.sharded_checkpoint", "restore_sharded_checkpoint"),
+    ("util.stablehlo_export", "export_inference"),
+    ("util.stablehlo_export", "load_inference"),
+    ("datavec", "SequenceRecordReaderDataSetIterator"),
+    ("datavec", "AlignmentMode"), ("cloud", "GCSStorage"),
+    ("cloud", "StorageDataSetIterator"), ("cloud", "TpuPodSpec"),
+    ("cloud.provision", "ClusterSetup"), ("cloud.storage", "RetryingStorage"),
+    ("streaming", "StreamingTrainPipeline"), ("streaming", "ServeRoute"),
+    ("streaming.embedded_kafka", "EmbeddedKafkaBroker"),
+    ("modelimport", "KerasModelImport"),
+    ("modelimport", "UnsupportedKerasConfigurationException")]
+
+
+@pytest.mark.parametrize("module,name", A12C_A14)
+def test_the_multiprocess_half_and_data_interop_resolve(module, name):
+    """A12c and A14 are ported: each name is the port's own object, of
+    the JAX package's kind."""
+    port = importlib.import_module(f"{PORT}.{module}")
+    ref = importlib.import_module(f"{REF}.{module}")
+    obj, robj = getattr(port, name), getattr(ref, name)
+    assert obj.__module__.startswith(f"{PORT}.")
+    assert inspect.isclass(obj) == inspect.isclass(robj)
+    if inspect.isclass(obj):
+        assert issubclass(obj, Exception) == issubclass(robj, Exception)
+
+
+def test_no_port_name_raises_naming_a14_or_a12c():
+    """No module of the port keeps a name that refuses naming A14 or
+    A12c."""
+    for path in (REPO / PORT).rglob("*.py"):
+        text = path.read_text()
+        assert "queue A14" not in text and "queue A12c" not in text, path
