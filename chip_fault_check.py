@@ -20,17 +20,19 @@ belongs to):
   D = 128 the wgmma kernels; at D = 256, 384 and 512 the "wgmma wide"
   forward; the "wgmma wide" backward at D = 256 and the "wgmma cluster"
   backward at D = 384 and 512) and f32 (the
-  split-TF32 kernels at D = 128 and 256, and the cluster backward at
-  D = 384 and 512), held to the plain versions in f32 with
+  split-TF32 kernels at D = 128, and the cluster forward, dQ and dK/dV
+  at D = 256, 384 and 512), held to the plain versions in f32 with
   `flash_attention.error_in_tolerances` (O, dQ, dK, dV row by row; L
   absolute; 2^-6 bf16, 1e-4 f32), as `chip_smoke.py` does. Beside it,
   each case is also read against the earlier bound (the largest absolute
   error within 2e-2 of the reference's largest magnitude), to show what
-  that bound let through. At f32 D = 384 and 512 also, as phase 4 does,
-  inputs whose 128-column slices repeat (the clusters' output slices
-  must be bit-identical: "slice bits", infinite when not) and inputs
-  whose score products cancel within each slice, held to the plain
-  versions in f64; at bf16 D = 256, 384 and 512, as phase 4 does, inputs
+  that bound let through. At f32 D = 256, 384 and 512 also, as phase 4
+  does, inputs whose 128-column slices of q, k and dO repeat (the
+  backward clusters' output slices must be bit-identical: "slice bits",
+  infinite when not), inputs whose v slices repeat (O's slices must be
+  bit-identical: "slice bits") and inputs whose score products cancel
+  within each slice, held to the plain versions in f64; at bf16 D = 256,
+  384 and 512, as phase 4 does, inputs
   whose V column halves are equal (O's halves must be bit-identical:
   "halves bits"), the P-rounding inputs (`chip_smoke.
   flash_rounding_inputs`, the forward alone against the plain forward on
@@ -143,11 +145,17 @@ one TF32 pass, and the big part not rounded by cvt.rna, which the tensor
 cores then truncate, and the block's split pass over the streamed tiles
 writing no small parts), their fresh accumulators overwriting the running
 sums, each f32 kernel's diagonal tile skipped and its final K/V (or Q)
-tile dropped; the f32 cluster backward's exchange (a member that leaves
-out one peer's partial scores, members that add the partials in
-different orders, which only the slice bits show) and a score product
-chained on one tensor-core accumulator over all of D (which only the
-cancelling cases show); the paged walk's
+tile dropped; the f32 clusters' exchange (a member that leaves out one
+peer's partial scores, members that add the partials in different
+orders, which only the slice bits show and which at D = 256, two
+partials, gives the same sum) and a score product chained on one
+tensor-core accumulator over all of D (which only the cancelling cases
+show), in the forward and the backward, whose dQ and dK/dV clusters
+also skip their diagonal tile and drop their final one; the f32 cluster
+forward's diagonal K/V tile skipped, its final K/V tile dropped, each
+member's softmax taken over its own partial scores (no exchange), and
+one partial buffer instead of two (a race that opens only if a member
+falls a whole step behind its peers); the paged walk's
 split merge, key slices and int8 rounding point; the bf16 LSTM
 backward's cluster barrier between its two phases, and its row tile
 reading dz from the next tile's rows; the bf16 LSTM forward's h rows
@@ -314,7 +322,7 @@ MULTIPROCESS, ETL = "multiprocess", "etl"
 # the "wgmma wide" kernels at D = 256 and the "wgmma cluster" backward at
 # D = 384 and 512 (T = 192: the first diagonal tiles; T = 1024 full: every
 # tile unmasked); f32, the split-TF32 kernels (path 2f's at D = 128; the
-# cluster backward at D = 384 and 512)
+# clusters at D = 256, 384 and 512)
 CASES = [(2, 512, 2, 128, False, "bfloat16"), (2, 512, 2, 128, True,
                                                "bfloat16"),
          (1, 4096, 2, 128, True, "bfloat16"),
@@ -328,7 +336,8 @@ CASES = [(2, 512, 2, 128, False, "bfloat16"), (2, 512, 2, 128, True,
                                               "float32"),
          (1, 4096, 2, 128, True, "float32"),
          (1, 4096, 2, 128, False, "float32"),
-         (2, 512, 2, 256, True, "float32"),
+         (2, 512, 2, 256, True, "float32"), (1, 1024, 2, 256, False,
+                                             "float32"),
          (1, 512, 2, 384, True, "float32"), (1, 512, 2, 384, False,
                                              "float32"),
          (1, 512, 2, 512, True, "float32"), (1, 1024, 2, 512, False,
@@ -371,6 +380,7 @@ NK_TF = "const int nk = a.causal ? (q0 + BLK) / KB : a.Tk / KB;"
 WABT = "__device__ __forceinline__ void warp_abt_tf32("
 SUMR = "__device__ __forceinline__ void sum_ranks("
 DQTC = "flash_bwd_dq_tf32_cluster_kernel(const Args a) {"
+FWDTC = "flash_fwd_tf32_cluster_kernel(const Args a) {"
 DKVTC = "flash_bwd_dkv_tf32_cluster_kernel(const Args a) {"
 SCAL = "paged_attention_kernel(const Call c) {"
 PV = "// acc (TR, hd) = acc * corr + P . V"
@@ -618,6 +628,20 @@ MUTATIONS = [
               "const int q_first = a.causal ? k0 / KB + 1 : 0;")]),
     ("f32 dK/dV (TF32 cluster) drops the final Q tile", FLASH, DKVTC, [
         ("const int nq = a.Tq / KB;", "const int nq = a.Tq / KB - 1;")]),
+    # the f32 cluster forward at D = 256, 384 and 512
+    ("f32 forward (TF32 cluster) skips its diagonal K/V tile", FLASH,
+     FWDTC, [(NK_TF,
+              "const int nk = a.causal ? (q0 + BLK) / KB - 1 : a.Tk / KB;")]),
+    ("f32 forward (TF32 cluster) drops the final K/V tile", FLASH, FWDTC, [
+        (NK_TF, "const int nk = a.causal ? (q0 + BLK) / KB : a.Tk / KB - 1;")]),
+    ("f32 forward (TF32 cluster): each member's softmax over its own "
+     "partial scores", FLASH, FWDTC, [
+         ("      sum_partials<C>(sm.partial(kj), s);\n", "")]),
+    ("f32 forward (TF32 cluster): one partial buffer instead of two", FLASH,
+     FWDTC, [("put_partial(sm.partial(kj), s);",
+              "put_partial(sm.partial(0), s);"),
+             ("sum_partials<C>(sm.partial(kj), s);",
+              "sum_partials<C>(sm.partial(0), s);")]),
     ("int8: V dequantized with the K scales", PAGED, PV, [
         ("if constexpr (kQuant) vsc = cVs[kk + x];",
          "if constexpr (kQuant) vsc = cKs[kk + x];")]),
@@ -1541,18 +1565,22 @@ def flash_cases(torch, fa):
                       "units": {n: u for n, _, u in errs},
                       "old_units": max(old)})
     f32 = torch.float32
-    for i, D in enumerate((384, 512)):
-        # the clusters' output slices must agree bit for bit
-        q, k, v, do = cs.flash_inputs_sliced(torch, 1, 512, 2, D,
-                                             seed=90 + i)
-        got = cs.flash_run(fa, q, k, v, do, True)
-        ref = cs.flash_plain_f32(fa, q, k, v, do, True, got)
-        units = {n: u for n, _, u in cs.flash_errors(fa, got, ref, f32)}
-        units["slice bits"] = 0.0 if all(cs.flash_slices_equal(torch, got)) \
-            else float("inf")
-        cases.append({"case": f"B=1 T=512 H=2 D={D} float32 causal, "
-                              "repeated slices",
-                      "units": units, "old_units": None})
+    for i, D in ((0, 384), (1, 512), (10, 256)):
+        # the clusters' output slices must agree bit for bit: the
+        # backward's on q, k, dO slices that repeat, O's on v slices
+        for inputs, outs, what in ((cs.flash_inputs_sliced, slice(2, 5),
+                                    "repeated slices"),
+                                   (cs.flash_fwd_sliced_inputs, slice(0, 1),
+                                    "repeated V slices")):
+            q, k, v, do = inputs(torch, 1, 512, 2, D, seed=90 + i)
+            got = cs.flash_run(fa, q, k, v, do, True)
+            ref = cs.flash_plain_f32(fa, q, k, v, do, True, got)
+            units = {n: u for n, _, u in cs.flash_errors(fa, got, ref, f32)}
+            units["slice bits"] = 0.0 if all(
+                cs.flash_slices_equal(torch, got[outs])) else float("inf")
+            cases.append({"case": f"B=1 T=512 H=2 D={D} float32 causal, "
+                                  + what,
+                          "units": units, "old_units": None})
         # score products that cancel within a slice, against f64
         cases.append({"case": f"B=1 T=512 H=2 D={D} float32 causal, "
                               "cancelling",

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Where the LSTM kernels' steps and the flash backward's tiles go (bf16
-at D=128, f32 at D=384 and 512), on one NVIDIA card.
+"""Where the LSTM kernels' steps and the flash kernels' tiles go (the bf16
+backward at D=128, the f32 clusters at D=256-512), on one NVIDIA card.
 
     python3 chip_phase_profile.py    # about a minute on an H100
     python3 chip_phase_profile.py --package OLD/deeplearning4j_tpu_torch
@@ -15,8 +15,8 @@ Copies `deeplearning4j_tpu_torch/` into a temporary directory, plants
 `lstm_fwd_kernel` (the cooperative forward), `lstm_fwd_cluster_kernel`,
 `lstm_fwd_tf32_kernel` and `lstm_bwd_tf32_kernel` (the copy's
 `csrc/lstm.cu`) and of
-`flash_bwd_dq_wgmma_kernel`, `flash_bwd_dkv_wgmma_kernel` and the two
-`flash_bwd_*_tf32_cluster_kernel` (its `csrc/flash_attention.cu`; the
+`flash_bwd_dq_wgmma_kernel`, `flash_bwd_dkv_wgmma_kernel` and the three
+`flash_*_tf32_cluster_kernel` (its `csrc/flash_attention.cu`; the
 checkout is never changed), builds it, and runs:
 - the cooperative bf16 forward (B <= 128) at row 5's shape (T=64,
   B=128, H=1024; with and without the stash, and masked) and at path
@@ -48,12 +48,14 @@ checkout is never changed), builds it, and runs:
   the hand-over (the wait for the P^T buffer and the stores), the dV
   product; warpgroup 1: the stage wait, dP^T, the wait for P^T, dS^T, the
   dK product;
-- the f32 backward at D = 384 and 512 (split-TF32 clusters; B=2, H=4,
-  T=2048, causal): each warp of block (0, 0, 0) (the longest rows of dQ,
-  the longest columns of dK/dV; the cluster's first member) prints its SM
-  cycles per streamed step: the stage wait, the in-place split, the
-  partial scores, the cluster barrier, the exchange (the members'
-  partials read and added) and P, dS and the output products.
+- the f32 forward, dQ and dK/dV at D = 256, 384 and 512 (split-TF32
+  clusters; B=2, H=4, T=2048, causal): each warp of block (0, 0, 0) (the
+  longest rows of the forward and dQ, the longest columns of dK/dV; the
+  cluster's first member) prints its SM cycles per streamed step: the
+  stage wait, the in-place split, the partial scores, the cluster
+  barrier, the exchange (the members' partials read and added) and the
+  rest (the forward's softmax and P V; P, dS and the backward's output
+  products).
 The instrumented kernels are slower than the real ones by the readings'
 cost; the shares, not the sums, are what it shows. Exits non-zero without
 a CUDA device.
@@ -507,15 +509,15 @@ TF32_EDITS = [
 
 
 def _cluster_edits(kind: str, wait: str, split: str, sync: str, sums: str,
-                   last: str, end: str) -> list:
+                   last: str, end: str,
+                   rest: str = "P, dS and products") -> list:
     """The f32 cluster backward (`kind` "dQ" or "dK/dV"): each warp of block
     (0, 0, 0) sums its SM cycles per streamed step over the step's phases:
     the stage wait (cp.async and the block barrier), the in-place split,
     the partial scores, the cluster barrier, the exchange (the C members'
     partials read and added), and P, dS and the output products (the last
     two 0 where the warp's rows skip the tile)."""
-    names = ["stage wait", "split", "scores", "barrier", "exchange",
-             "P, dS and products"]
+    names = ["stage wait", "split", "scores", "barrier", "exchange", rest]
     acc = [f"tk{i}" for i in range(len(names))]
     decl = "  long long " + ", ".join(f"{x} = 0" for x in acc) \
         + ";\n  int steps = 0;\n"
@@ -544,8 +546,22 @@ def _cluster_edits(kind: str, wait: str, split: str, sync: str, sums: str,
     ]
 
 
-# the f32 backward at D = 384 and 512 (split-TF32 clusters)
+# the f32 kernels at D = 256, 384 and 512 (split-TF32 clusters)
 CLUSTER_EDITS = _cluster_edits(
+    "fwd",
+    "  for (int kj = 0; kj < nk; ++kj) {\n"
+    "    cp_async_wait<0>();  // the K, V slices of tile kj staged\n"
+    "    __syncthreads();     // ... and every warp done with kj - 1\n",
+    "    const TfStage kv = tc_split(sm, kj & 1);  // K, V\n",
+    "    sm90::cluster_sync();  // every member's partial scores of tile kj "
+    "stored\n",
+    "      sum_partials<C>(sm.partial(kj), s);\n",
+    "      warp_pb_tf32<NO, NS, LD, true>(o, s, kv.tile[1]);  // P V\n"
+    "    }\n  }\n",
+    "  sm90::cluster_sync();  // the peers have read this member's last "
+    "partials\n  tf_fwd_store(o, m, lsum, a, bh, row, c0, blockIdx.z == 0);\n",
+    rest="softmax and P V",
+) + _cluster_edits(
     "dQ",
     "  for (int kj = 0; kj < nk; ++kj) {\n"
     "    cp_async_wait<0>();  // K, V of tile kj staged\n"
@@ -636,8 +652,8 @@ def run(root: str) -> None:
     torch.cuda.synchronize()
     fa.flash_bwd_dkv(q, k, v, do, lse, dsum, True, None)
     torch.cuda.synchronize()
-    for D, dt in ((384, torch.float32), (512, torch.float32),
-                  (512, torch.bfloat16)):
+    for D, dt in ((256, torch.float32), (384, torch.float32),
+                  (512, torch.float32), (512, torch.bfloat16)):
         q, k, v, do = cs.flash_inputs(torch, 2, 2048, 4, D, dt, seed=D)
         o, lse = fa.flash_forward(q, k, v, True, None, with_lse=True)
         dsum = fa._dsum(o, do)

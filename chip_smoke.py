@@ -4,6 +4,7 @@ NVIDIA card.
 
     python3 chip_smoke.py            # every phase, a few minutes on an H100
     python3 chip_smoke.py --lstm-timing [--package OLD/deeplearning4j_tpu_torch]
+    python3 chip_smoke.py --flash-timing [--package OLD/deeplearning4j_tpu_torch]
     python3 chip_smoke.py --path5    # phase 21 alone (about 1.5 minutes)
     python3 chip_smoke.py --phases-22-23   # the CNN and MoE phases alone
     python3 chip_smoke.py --phases-24-26   # the graph and pretraining phases
@@ -21,6 +22,9 @@ checked and timed, launch counts 0) on the checkout's package or, with
 `--package`, on another copy of it (an earlier commit's, unpacked with
 `git archive` into a git-ignored directory), and prints one JSON line of
 the rows' times. Run it old/new/new/old in one call for a kernel A/B.
+`--flash-timing` does the same for phase 16's f32 flash rows at head
+dims 256-512 (B=2, H=4, T=2048, and paths 2fw's and 2fx's shapes;
+`f32_cluster_rows`).
 `--path5` builds the paged and flash sources and runs phase 21 (path 5,
 the GPT behind `ModelServer`) alone, then prints one JSON line of its
 launch counts. `--phases-22-23` builds the paged and flash sources and
@@ -85,14 +89,15 @@ Phases, each of which makes the script exit non-zero when it fails:
    128 and 192, the first 64-row tiles, where the diagonal crosses two
    32-row tiles at D = 384 and 512, and at D = 256 at T = 64, one 64-row
    block alone;
-   f32 the split-TF32 kernels, the
-   backward at D = 384 and 512 as clusters, all of whose f32 launches
-   must take that route);
+   f32 the split-TF32 kernels, at D = 256, 384 and 512 all three as
+   clusters, every launch of which must take that route);
    each backward run twice, with bit-identical dQ, dK and dV (no
-   atomics); at f32 D = 384 and 512 also q/k/v sliced from one fused qkv
-   tensor, inputs whose 128-column slices repeat (the clusters' output
-   slices must then be bit-identical: every block sums the partial
-   scores in the same order), and inputs whose score products cancel
+   atomics); at f32 D = 256, 384 and 512 also q/k/v sliced from one
+   fused qkv tensor, inputs whose 128-column slices of q, k and dO repeat
+   (the backward clusters' output slices must then be bit-identical:
+   every block sums the partial scores in the same order), inputs whose
+   v slices repeat (`flash_fwd_sliced_inputs`: O's slices must be
+   bit-identical), and inputs whose score products cancel
    within each slice (partial sums many times the result), held to the
    plain versions in f64 (a score accumulator chained over a slice
    fails there); at bf16 D = 256, 384 and 512 also q/k/v sliced from one
@@ -119,8 +124,9 @@ Phases, each of which makes the script exit non-zero when it fails:
    "self", "k": 4}` must give the same, cold and on a prefix hit; the
    same engine with `quantize={"kv": "int8"}` on the card is held to
    itself on the CPU (argmax drift at most 0.2, printed);
-6. training parity: a 1-layer full-width f32 GPT (d_model 1024, 8 heads,
-   T=1024, attention_block_size=512, B=2) from one seed takes 3 Adam
+6. training parity: a 1-layer full-width f32 GPT (d_model 1024, 8 heads
+   of 128, then 4 of 256 and 2 of 512 on "tf32 cluster", T=1024,
+   attention_block_size=512, B=2) from one seed takes 3 Adam
    steps on the card through the flash kernels and 3 on the CPU through
    the plain versions: per-step losses within rtol 1e-5, parameters
    within rtol 1e-5 + atol 3e-5 (a tenth of the learning rate: Adam moves
@@ -166,7 +172,9 @@ Phases, each of which makes the script exit non-zero when it fails:
    device memory); counts set to 0 before and read after: 8 forward, 8 dQ
    and 8 dK/dV launches per step, all on the split-TF32 route
    (`flash_attention.launches_by_route`), no plain call; one more step
-   under torch.profiler;
+   under torch.profiler; then paths 2fw and 2fx, the same f32 network
+   with 4 heads of 256 and with 2 heads of 512, read the same way, all
+   24 launches a step on "tf32 cluster";
 11. LSTM kernels: the forward (with its training stash) and backward
    kernels, unmasked and masked, forward and reverse, against the plain
    versions on the card (TF32 off), f32 and bf16, every case of
@@ -241,9 +249,12 @@ Phases, each of which makes the script exit non-zero when it fails:
    path 2x's launch counts), and for the f32 kernels at
    phase 6's shape (B=2,
    H=8, T=1024, D=128), at path 2f's (B=1, H=8, T=4096, with path 2f's
-   launch counts) and at head dims 256, 384 and 512 (B=2, H=4, T=2048;
-   the backward at 384 and 512 on the cluster route, logged with its
-   clusters: blocks each and how many fit at once); SDPA in f32, TF32
+   launch counts), at head dims 256, 384 and 512 (B=2, H=4, T=2048, on
+   the cluster route, logged with their clusters: blocks each and how
+   many fit at once, and beside the time of the grid-z kernel each
+   replaced, PERF.md's) and at path 2fw's and 2fx's shapes (B=1, H=4,
+   T=4096, D=256; B=1, H=2, T=4096, D=512; with their launch counts);
+   SDPA in f32, TF32
    off; bound 3 x flops / 495 TFLOP/s for the split-TF32 routes, the
    f32-FMA bound printed beside it; the
    int8 kernel also at a
@@ -680,7 +691,8 @@ Phases, each of which makes the script exit non-zero when it fails:
    whose carries are restored after its windows (its output equal to
    `net.fit`'s network's), and the averaging master card vs CPU;
 40. path 14, the in-process SPMD half on 8 slots of the card
-   (`parallel.mesh.set_local_slots`): (14a) path 1's GPT at full width
+   (`parallel.mesh.set_local_slots`): (14a) path 1's GPT at full width,
+   depth cut to `P14_SERVE_LAYERS` (2 of 8) for the run's time limit,
    served at `parallel={"tp": 2}`, two 4096-token prompts (chunked
    prefill) and 64 tokens each: f32 tokens identical to one device, each
    shard launching the paged kernel as often as one device does (rows 1
@@ -708,7 +720,9 @@ Phases, each of which makes the script exit non-zero when it fails:
    equal; a 4-stage pipeline with dropout 0.1 against one device under
    `row_offset_scope(0)` (losses within rtol 1e-5);
 42. path 15, the multi-process half: the one-process reference
-   (`ParallelWrapper` on TRAIN's GPT, bf16 over f32, B=8 x T=4096, 3 SGD
+   (`ParallelWrapper` on TRAIN's GPT at full width, depth cut to
+   `P15_LAYERS` (2 of 8) for the run's time limit, bf16 over f32, B=8 x
+   T=4096, 3 SGD
    and 3 Adam steps), then two worker processes on the card joined by
    gloo over `tcp://localhost` (`--p15-worker`), each training the same
    nets on its 4 rows through `MultiProcessParallelWrapper` and saving a
@@ -779,6 +793,12 @@ FLASH_FWD_MMA_MS = {256: 0.2193, 384: 0.5471, 512: 0.7686}
 FLASH_BWD_MMA_MS = {256: {"dq": 0.3806, "dkv": 0.3897},
                     384: {"dq": 0.7328, "dkv": 0.7240},
                     512: {"dq": 1.2334, "dkv": 1.3158}}
+# the f32 kernels at head dims 256-512 before "tf32 cluster" took them
+# over: the grid-z forward (each block recomputing the full-D scores) and
+# the D = 256 backward, at B=2, H=4, T=2048, causal (PERF.md section 6,
+# in brackets; NVIDIA H100 80GB HBM3 at 700 W)
+FLASH_F32_GRIDZ_MS = {256: {"fwd": 0.8867, "dq": 1.9498, "dkv": 2.4335},
+                      384: {"fwd": 2.5333}, 512: {"fwd": 4.1168}}
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12     # H100 SXM f32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12   # H100 SXM dense TF32 tensor-core rate
@@ -793,6 +813,9 @@ TRAIN = dict(vocab_size=256, d_model=1024, n_heads=8, n_layers=8,
 TRAIN_B, TRAIN_T, TRAIN_STEPS = 8, 4096, 5
 # path 2f: the same network in f32 (MultiLayerNetwork's default precision)
 TRAIN_F32_B, TRAIN_F32_STEPS = 1, 3
+# paths 2fw and 2fx: path 2f's network with 4 heads of 256 and with 2 of
+# 512 (the f32 flash kernels on "tf32 cluster"), B and steps as path 2f's
+TRAIN_2FW_HEADS, TRAIN_2FX_HEADS = 4, 2
 # path 2w: the same network with 4 heads of 256 (the bf16 flash kernels
 # at head dim 256)
 TRAIN_WIDE_HEADS, TRAIN_WIDE_B, TRAIN_WIDE_STEPS = 4, 2, 3
@@ -1582,7 +1605,7 @@ def flash_inputs_fused(torch, B, T, H, D, dtype, seed):
 
 def flash_inputs_sliced(torch, B, T, H, D, seed):
     """f32 q, k, v, dO (B, T, H, D) whose 128-column slices of q, k and dO
-    repeat one slice (v's do not): the f32 backward at D > 256 gives each
+    repeat one slice (v's do not): the f32 backward at D > 128 gives each
     slice to one block of a cluster, and with these inputs every block's
     output slice (dQ = dS K, dK = dS^T Q, dV = P^T dO) is computed from
     bit-identical operands if the blocks share bit-identical P and dS,
@@ -1593,6 +1616,21 @@ def flash_inputs_sliced(torch, B, T, H, D, seed):
            for _ in range(3)]
     q, k, do = (x.repeat(1, 1, 1, D // 128) for x in one)
     v = torch.randn((B, T, H, D), generator=g, device="cuda")
+    return q, k, v, do
+
+
+def flash_fwd_sliced_inputs(torch, B, T, H, D, seed, device="cuda"):
+    """f32 q, k, v, dO (B, T, H, D) whose 128-column slices of v repeat one
+    slice (q's and k's do not): the f32 forward at D > 128 gives each
+    slice to one block of a cluster, and each block's slice of O = P V is
+    computed from bit-identical operands if the blocks share bit-identical
+    P (and the same m and l), while the partial scores of the slices
+    differ, so their sum depends on its order."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, k, do = (torch.randn((B, T, H, D), generator=g, device=device)
+                for _ in range(3))
+    v = torch.randn((B, T, H, 128), generator=g,
+                    device=device).repeat(1, 1, 1, D // 128)
     return q, k, v, do
 
 
@@ -1719,11 +1757,12 @@ def flash_cancel_units(torch, fa, D, causal, seed):
     return {n: u for n, _, u in flash_errors(fa, got, ref, torch.float32)}
 
 
-def flash_slices_equal(torch, got):
-    """Whether each of dQ, dK, dV (`got[2:]`) has bit-identical 128-column
-    slices (see `flash_inputs_sliced`)."""
+def flash_slices_equal(torch, outs):
+    """Whether each output of `outs` has bit-identical 128-column slices
+    (dQ, dK, dV on `flash_inputs_sliced`; O on
+    `flash_fwd_sliced_inputs`)."""
     return [all(torch.equal(g[..., :128], g[..., i:i + 128])
-                for i in range(128, g.shape[-1], 128)) for g in got[2:]]
+                for i in range(128, g.shape[-1], 128)) for g in outs]
 
 
 def flash_halves_equal(torch, o):
@@ -1750,6 +1789,15 @@ def flash_rounding_units(torch, fa, D):
     torch.cuda.synchronize()
     return {n: u for n, _, u in flash_errors(fa, got, ref, torch.bfloat16,
                                              names=("O", "L"))}
+
+
+def cluster_routes_only(fa, n, what):
+    """Require the launches since the counts were set to 0 to be `n` of
+    each kernel, all on the "tf32 cluster" route (f32 at D >= 256)."""
+    routes = dict(fa.launches_by_route)
+    want = {(kind, "tf32 cluster"): n for kind in ("fwd", "dq", "dkv")}
+    if routes != want:
+        raise AssertionError(f"{what} routes {routes}")
 
 
 def wide_routes_only(fa, n, what):
@@ -1811,14 +1859,14 @@ def phase_flash(torch, fa):
               for causal in (False, True)]
     cases += [(1, 4096, 2, 256, torch.bfloat16, False)]
     # head dims 384 and 512: 32-row streamed tiles and clusters of two
-    # blocks, one column half each (bf16 backward), 16-key tiles (f32
-    # forward), clusters of D / 128 blocks (f32 backward)
+    # blocks, one column half each (bf16 backward), clusters of D / 128
+    # blocks (f32, from D = 256 on)
     cases += [(1, 512, 2, D, dt, causal)
               for dt in (torch.float32, torch.bfloat16)
               for D in (384, 512) for causal in (False, True)]
     cases += [(1, 2048, 2, 512, torch.bfloat16, True)]
     cases += [(1, 2048, 2, D, torch.float32, causal)
-              for D in (384, 512) for causal in (False, True)]
+              for D in (256, 384, 512) for causal in (False, True)]
     # the bf16 forward at D >= 256 ("wgmma wide", 64-row blocks): the
     # first query tiles alone (T = 128; T = 192, three tiles), where at
     # D = 384 and 512 the diagonal crosses two 32-key tiles, and long rows
@@ -1841,12 +1889,8 @@ def phase_flash(torch, fa):
                                                       dt, what))
         flash_same_bits(torch, fa, q, k, v, do, causal, got, what)
         D = q.shape[-1]
-        if dt == torch.float32 and D > 256:
-            routes = {key: n for key, n in fa.launches_by_route.items()
-                      if key[0] != "fwd"}
-            if routes != {("dq", "tf32 cluster"): 2,
-                          ("dkv", "tf32 cluster"): 2}:
-                raise AssertionError(f"f32 D={D} backward routes {routes}")
+        if dt == torch.float32 and D > 128:
+            cluster_routes_only(fa, 2, f"f32 D={D}")
         if dt == torch.bfloat16 and D > 128:
             wide_routes_only(fa, 2, f"bf16 D={D}")
             bwd_routes_only(fa, D, 2, f"bf16 D={D}")
@@ -1865,13 +1909,14 @@ def phase_flash(torch, fa):
                                  (512, torch.float32),
                                  (256, torch.bfloat16),
                                  (384, torch.bfloat16),
-                                 (512, torch.bfloat16))):
+                                 (512, torch.bfloat16),
+                                 (256, torch.float32))):
         q, do = flash_inputs(torch, 2, 512, 2, D, dt, seed=70 + i)[:2]
         k, v = flash_inputs(torch, 2, 1024, 2, D, dt, seed=72 + i)[:2]
         check(q, k, v, do, False, dt,
               f"B=2 Tq=512 Tk=1024 H=2 D={D} {str(dt)[6:]} full")
     f32 = torch.float32
-    for i, D in enumerate((384, 512)):
+    for i, D in ((0, 384), (1, 512), (10, 256)):
         # the clusters on q/k/v read in place from one fused qkv tensor
         q, k, v, do = flash_inputs_fused(torch, 1, 1024, 2, D, f32,
                                          seed=84 + i)
@@ -1884,10 +1929,20 @@ def phase_flash(torch, fa):
             what = (f"B=1 T=512 H=2 D={D} float32 "
                     f"{'causal' if causal else 'full'}, repeated slices")
             got = check(q, k, v, do, causal, f32, what)
-            same = flash_slices_equal(torch, got)
+            same = flash_slices_equal(torch, got[2:])
             if not all(same):
                 raise AssertionError(f"{what}: the 128-column slices of dQ, "
                                      f"dK, dV differ in bits ({same})")
+            # the forward's members form one P: O's slices on V slices
+            # that repeat
+            q, k, v, do = flash_fwd_sliced_inputs(torch, 1, 512, 2, D,
+                                                  seed=90 + i)
+            what = (f"B=1 T=512 H=2 D={D} float32 "
+                    f"{'causal' if causal else 'full'}, repeated V slices")
+            got = check(q, k, v, do, causal, f32, what)
+            if not all(flash_slices_equal(torch, got[:1])):
+                raise AssertionError(f"{what}: the 128-column slices of O "
+                                     "differ in bits")
         # score products that cancel within a slice, against f64
         units = flash_cancel_units(torch, fa, D, True, seed=88 + i)
         what = f"B=1 T=512 H=2 D={D} float32 causal, cancelling"
@@ -1982,52 +2037,65 @@ def gpt_batches(np, vocab, B, T, n, seed):
 
 def phase_train_parity(torch, M):
     """f32, 1 layer at full width: 3 Adam steps on the card (kernels)
-    against 3 on the CPU (plain versions), from one seed; then one
+    against 3 on the CPU (plain versions), from one seed, with 8 heads of
+    128 ("tf32"), 4 of 256 and 2 of 512 ("tf32 cluster"); then one
     remat=True step against one remat=False step on the card."""
     import numpy as np
 
     kw = dict(vocab_size=256, d_model=1024, n_heads=8, n_layers=1,
               max_length=1024, attention_block_size=512, seed=5)
     batches = gpt_batches(np, 256, 2, 1024, 3, seed=5)
-    cpu = M["MultiLayerNetwork"](M["gpt_configuration"](**kw), device="cpu")
-    cpu.init()
-    card = M["MultiLayerNetwork"](M["gpt_configuration"](**kw),
-                                  device="cuda")
-    card.set_param_tree([{k: v.clone() for k, v in p.items()}
-                         for p in cpu._params])
     fa = M["fa"]
-    fa.reset_counts()
-    losses = {"cuda": [], "cpu": []}
-    for x, y in batches:
-        for net in (card, cpu):
-            net.fit(M["DataSet"](x, y))
-            losses[net.device.type].append(net.score_value)
-    counts = (fa.flash_forward.launches, fa.flash_bwd_dq.launches,
-              fa.flash_bwd_dkv.launches, fa.flash_attention_plain_fwd.calls,
-              fa.flash_attention_plain_bwd.calls)
-    log(f"  losses card {losses['cuda']}")
-    log(f"         cpu  {losses['cpu']}")
-    log(f"  launches (fwd, dQ, dK/dV, plain fwd, plain bwd): {counts}")
-    if counts != (3, 3, 3, 3, 3):
-        raise AssertionError(f"expected 3 kernel launches on the card and 3 "
-                             f"plain calls on the CPU, got {counts}")
-    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)
-    worst = 0.0
-    for a, b in zip(card._params, cpu._params):
-        for k in a:
-            d = (a[k].cpu() - b[k]).abs()
-            worst = max(worst, d.max().item())
-            if not bool((d <= 3e-5 + 1e-5 * b[k].abs()).all()):
-                raise AssertionError(f"param {k} differs card vs CPU by "
-                                     f"{d.max().item()}")
-    log(f"  params after 3 steps: max abs diff card vs CPU {worst:.3e} "
-        "(rtol 1e-5 + atol 3e-5)")
+    for n_heads in (8, 4, 2):
+        cpu = M["MultiLayerNetwork"](M["gpt_configuration"](
+            **{**kw, "n_heads": n_heads}), device="cpu")
+        cpu.init()
+        card = M["MultiLayerNetwork"](M["gpt_configuration"](
+            **{**kw, "n_heads": n_heads}), device="cuda")
+        card.set_param_tree([{k: v.clone() for k, v in p.items()}
+                             for p in cpu._params])
+        fa.reset_counts()
+        losses = {"cuda": [], "cpu": []}
+        for x, y in batches:
+            for net in (card, cpu):
+                net.fit(M["DataSet"](x, y))
+                losses[net.device.type].append(net.score_value)
+        counts = (fa.flash_forward.launches, fa.flash_bwd_dq.launches,
+                  fa.flash_bwd_dkv.launches,
+                  fa.flash_attention_plain_fwd.calls,
+                  fa.flash_attention_plain_bwd.calls)
+        route = "tf32" if n_heads == 8 else "tf32 cluster"
+        what = f"{n_heads} heads of {kw['d_model'] // n_heads}"
+        log(f"  {what}: losses card {losses['cuda']}")
+        log(f"  {what}: losses cpu  {losses['cpu']}")
+        log(f"  launches (fwd, dQ, dK/dV, plain fwd, plain bwd): {counts}, "
+            f"by route {dict(fa.launches_by_route)}")
+        if counts != (3, 3, 3, 3, 3) or set(fa.launches_by_route) != {
+                (kind, route) for kind in ("fwd", "dq", "dkv")}:
+            raise AssertionError(f"expected 3 kernel launches on the card "
+                                 f"(route {route}) and 3 plain calls on the "
+                                 f"CPU, got {counts}, "
+                                 f"{fa.launches_by_route}")
+        np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)
+        worst = 0.0
+        for a, b in zip(card._params, cpu._params):
+            for k in a:
+                d = (a[k].cpu() - b[k]).abs()
+                worst = max(worst, d.max().item())
+                if not bool((d <= 3e-5 + 1e-5 * b[k].abs()).all()):
+                    raise AssertionError(f"{n_heads} heads: param {k} "
+                                         f"differs card vs CPU by "
+                                         f"{d.max().item()}")
+        log(f"  {what}: params after 3 steps: max abs diff card vs CPU "
+            f"{worst:.3e} (rtol 1e-5 + atol 3e-5)")
+        if n_heads == kw["n_heads"]:
+            trained = cpu._params
     nets = []
     for remat in (False, True):
         net = M["MultiLayerNetwork"](M["gpt_configuration"](
             **{**kw, "remat": remat}), device="cuda")
         net.set_param_tree([{k: v.clone() for k, v in p.items()}
-                            for p in cpu._params])
+                            for p in trained])
         net.fit(M["DataSet"](*batches[0]))
         nets.append(net)
     d = (nets[0].params() - nets[1].params()).abs().max().item()
@@ -2135,10 +2203,10 @@ def flash_work(B, H, T, D, kind, e=2, causal=True):
 
 
 def phase_flash_timing(torch, fa, counts, counts_f32, counts_wide,
-                       counts_2x):
+                       counts_2x, counts_2fw, counts_2fx):
     """Flash kernels, plain versions and SDPA at the training shapes (bf16
-    at path 2's, path 2w's and path 2x's, f32 at path 2f's, each with its
-    launch counts)."""
+    at path 2's, path 2w's and path 2x's, f32 at path 2f's, 2fw's and
+    2fx's, each with its launch counts)."""
     B, H, T, D = TRAIN_B, TRAIN["n_heads"], TRAIN_T, \
         TRAIN["d_model"] // TRAIN["n_heads"]
     # first as the training path hands them over: slices of the fused qkv
@@ -2174,11 +2242,22 @@ def phase_flash_timing(torch, fa, counts, counts_f32, counts_wide,
                        dtype=torch.float32)
     rows += flash_rows(torch, fa, TRAIN_F32_B, H, T, 128, counts_f32, 0.0,
                        seed=33, dtype=torch.float32, tag="_t4096")
-    # f32 at head dims 256 (split TF32), 384 and 512 (split-TF32 forward,
-    # split-TF32 cluster backward), the shapes of the bf16 rows above
+    return rows + f32_cluster_rows(torch, fa, counts_2fw, counts_2fx)
+
+
+def f32_cluster_rows(torch, fa, counts_2fw, counts_2fx):
+    """The f32 kernels at head dims 256, 384 and 512 ("tf32 cluster") at
+    the shape of the bf16 rows at those head dims (B=2, H=4, T=2048), then
+    at path 2fw's and path 2fx's shapes with their launch counts."""
+    rows = []
     for D in (256, 384, 512):
         rows += flash_rows(torch, fa, 2, 4, 2048, D, {}, 0.0, seed=40 + D,
                            dtype=torch.float32)
+    for heads, counts, seed in ((TRAIN_2FW_HEADS, counts_2fw, 36),
+                                (TRAIN_2FX_HEADS, counts_2fx, 37)):
+        rows += flash_rows(torch, fa, TRAIN_F32_B, heads, TRAIN_T,
+                           TRAIN["d_model"] // heads, counts, 0.0, seed=seed,
+                           dtype=torch.float32, tag="_t4096")
     return rows
 
 
@@ -2264,6 +2343,9 @@ def flash_rows(torch, fa, B, H, T, D, counts, err, seed, dtype=None, tag="",
         if kind != "fwd" and D in FLASH_BWD_MMA_MS and not f32 and T == 2048:
             fma += (f"; the mma.sync kernel it replaced: "
                     f"{FLASH_BWD_MMA_MS[D][kind]:.4f} ms (PERF.md)")
+        if f32 and kind in FLASH_F32_GRIDZ_MS.get(D, {}) and T == 2048:
+            fma += (f"; the grid-z kernel it replaced: "
+                    f"{FLASH_F32_GRIDZ_MS[D][kind]:.4f} ms (PERF.md)")
         if route in ("tf32 cluster", "wgmma cluster"):
             fma += ("; clusters of %d blocks, %d fit at once"
                     % fa.cluster_plan(kind, D, dtype))
@@ -9944,6 +10026,21 @@ def path5_alone(torch, M, cuda_build) -> int:
     return 0
 
 
+def flash_timing_alone(torch, fa, cuda_build) -> int:
+    """`--flash-timing`: phase 16's f32 rows at head dims 256-512
+    (`f32_cluster_rows`) alone, on the package that was imported (launch
+    counts 0: no main path runs), then one JSON line of their kernel
+    times, `{"package": ..., "card": ..., "ms": {row: ms}}`."""
+    card = nvidia_smi_line()
+    pkg = os.path.dirname(os.path.dirname(os.path.abspath(fa.__file__)))
+    log(f"flash timing of {pkg} [{card}]")
+    cuda_build.build(["flash_attention"])
+    rows = f32_cluster_rows(torch, fa, {}, {})
+    print(json.dumps({"package": pkg, "card": card,
+                      "ms": {r["name"]: r["ms"] for r in rows}}), flush=True)
+    return 0
+
+
 def lstm_timing_alone(torch, L, cuda_build) -> int:
     """`--lstm-timing`: phase 17 alone, on the package that was imported
     (launch counts 0: no main path runs), then one JSON line of its rows'
@@ -9965,8 +10062,11 @@ def lstm_timing_alone(torch, L, cuda_build) -> int:
 P14_SLOTS = 8
 P14_DEV = "cuda"           # the device path 14's slots name
 # 14a: SERVE's GPT at tp=2: two 4096-token prompts (chunked prefill),
-# 64 tokens each
+# 64 tokens each; depth cut 8 -> 2 for the run's time limit (each layer
+# is the same full-width block, sharded the same way: 2 layers launch
+# every kernel shape and take every collective 8 do)
 P14_PROMPT_T, P14_TOKENS = 4096, 64
+P14_SERVE_LAYERS = 2
 # 14a's int8 and self-speculation runs: one 1024-token prompt, 32 tokens
 P14_SHORT_T, P14_SHORT_TOKENS = 1024, 32
 P14_GEN = dict(n_slots=2, page_size=128, prefill_chunk=256,
@@ -10104,9 +10204,9 @@ def p14a_serving(torch, M, pa, card):
         """SERVE's GPT with every bias and LN shift drawn from the seed
         too (N(0, 0.02)): a bias added on the wrong side of an
         all-reduce then shows."""
-        net = M["MultiLayerNetwork"](M["gpt_configuration"](**SERVE, seed=41),
-                                     dtype=torch.float32, compute_dtype=cdt,
-                                     device=P14_DEV)
+        net = M["MultiLayerNetwork"](M["gpt_configuration"](
+            **{**SERVE, "n_layers": P14_SERVE_LAYERS}, seed=41),
+            dtype=torch.float32, compute_dtype=cdt, device=P14_DEV)
         net.init()
         g = torch.Generator(device=P14_DEV).manual_seed(41)
         with torch.no_grad():
@@ -10754,8 +10854,11 @@ def phases_40_41_alone(torch, M, pa, fa, cuda_build) -> int:
 # bench.py gpt_long's width (bench.py:563-568), bf16 compute over f32
 # masters; a global batch of P15_B x T=4096 split over P15_PROCS worker
 # processes on one card, joined by gloo over tcp://localhost (NCCL refuses
-# two ranks on one device)
+# two ranks on one device); depth cut 8 -> 2 for the run's time limit
+# (every layer is the same full-width block: 2 layers launch every kernel
+# shape 8 do, and the exchange is one flat gradient vector at any depth)
 P15_PROCS, P15_B, P15_STEPS = 2, 8, 3
+P15_LAYERS = 2
 P15_SGD_LR = 0.1
 P15_ADAM_LR = 3e-4          # gpt_configuration's Adam learning rate
 # after 3 SGD steps: the worst leaf's max |2 processes - 1 process| over
@@ -10778,13 +10881,15 @@ P15_TIMEOUT = 900           # seconds the worker processes may take
 
 
 def p15_net(torch, M, which):
-    """TRAIN's GPT in bf16 over f32 masters, SGD at P15_SGD_LR or Adam,
-    from one seed (the same bits in every process on one card)."""
+    """TRAIN's GPT (P15_LAYERS deep) in bf16 over f32 masters, SGD at
+    P15_SGD_LR or Adam, from one seed (the same bits in every process on
+    one card)."""
     from deeplearning4j_tpu_torch.nn.updater import Updater
 
     kw = dict(updater=Updater.SGD, learning_rate=P15_SGD_LR) \
         if which == "sgd" else {}
-    conf = M["gpt_configuration"](**TRAIN, seed=21, **kw)
+    conf = M["gpt_configuration"](**{**TRAIN, "n_layers": P15_LAYERS},
+                                  seed=21, **kw)
     net = M["MultiLayerNetwork"](conf, dtype=torch.float32,
                                  compute_dtype=torch.bfloat16,
                                  device="cuda")
@@ -11116,7 +11221,7 @@ def phase_two_processes(torch, M, card):
             f"process: max |diff| against output {d_export:.3e} (tolerance "
             f"{P15_EXPORT_ATOL:.0e}), {loaded['ms']:.1f} ms, flash launches "
             f"there {loaded['flash']}")
-        if d_export > P15_EXPORT_ATOL or tf32 != TRAIN["n_layers"] \
+        if d_export > P15_EXPORT_ATOL or tf32 != P15_LAYERS \
                 or loaded["flash"]["plain"] != [0, 0]:
             raise AssertionError("path 15: the exported network disagrees "
                                  "with output or missed the flash kernel")
@@ -11750,7 +11855,9 @@ def phases_24_26_alone(torch, M, cuda_build) -> int:
 def main(argv) -> int:
     """No arguments: every phase. `--lstm-timing [--package DIR]`: phase
     17 alone on the package at DIR (default: the checkout's), for an A/B
-    of the LSTM kernels against an earlier commit's package. `--path5`:
+    of the LSTM kernels against an earlier commit's package;
+    `--flash-timing [--package DIR]` the same for phase 16's f32 flash
+    rows at head dims 256-512. `--path5`:
     phase 21 alone. `--phases-22-23`: phases 22 and 23 alone.
     `--phases-24-26`: phases 24 to 26 alone. `--phases-27-29`: phases 27
     to 29 alone. `--phases-30-31`: phase 7 and phases 30 and 31 alone.
@@ -11790,6 +11897,8 @@ def main(argv) -> int:
         return p42_collectives_worker(torch, M, argv)
     if "--lstm-timing" in argv:
         return lstm_timing_alone(torch, L, cuda_build)
+    if "--flash-timing" in argv:
+        return flash_timing_alone(torch, fa, cuda_build)
     if "--path5" in argv:
         return path5_alone(torch, M, cuda_build)
     if "--phases-22-23" in argv:
@@ -11857,6 +11966,16 @@ def main(argv) -> int:
         "(split-TF32 flash kernels)")
     flash_counts_f32 = phase_train(torch, M, card, None, TRAIN_F32_B,
                                    TRAIN_F32_STEPS, 14, "tf32")
+    log("[10/43] path 2fw: the same f32 GPT with 4 heads of 256 (the "
+        "\"tf32 cluster\" flash kernels)")
+    flash_counts_2fw = phase_train(torch, M, card, None, TRAIN_F32_B,
+                                   TRAIN_F32_STEPS, 17, "tf32 cluster",
+                                   n_heads=TRAIN_2FW_HEADS)
+    log("[10/43] path 2fx: the same f32 GPT with 2 heads of 512 (the "
+        "\"tf32 cluster\" flash kernels)")
+    flash_counts_2fx = phase_train(torch, M, card, None, TRAIN_F32_B,
+                                   TRAIN_F32_STEPS, 18, "tf32 cluster",
+                                   n_heads=TRAIN_2FX_HEADS)
     log("[11/43] LSTM kernels against their plain versions (TF32 off)")
     phase_lstm_kernels(torch, L, M)
     log("[12/43] f32 char-RNN training, card (kernels) vs CPU (plain), "
@@ -11873,7 +11992,8 @@ def main(argv) -> int:
     log("[16/43] timing at the serving and training shapes (bf16 and f32)")
     rows = phase_timing(torch, pa, launches)
     rows += phase_flash_timing(torch, fa, flash_counts, flash_counts_f32,
-                               flash_counts_wide, flash_counts_2x)
+                               flash_counts_wide, flash_counts_2x,
+                               flash_counts_2fw, flash_counts_2fx)
     log("[17/43] timing the LSTM kernels at the char-RNN shapes (bf16 and "
         "f32)")
     rows += phase_lstm_timing(torch, L, lstm_counts, tbptt_counts,

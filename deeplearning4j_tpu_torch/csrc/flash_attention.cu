@@ -55,10 +55,10 @@
 //    each score is computed once per cluster (their section says more);
 //  - f32 (MultiLayerNetwork's default precision): every kernel at every
 //    head dim on the tensor cores in split TF32 (three TF32 products per
-//    f32 product, f32 accuracy; their section below); the backward at
-//    D = 384 and 512 as thread block clusters of D / 128 blocks, each
-//    block a 128-column slice, which add their partial scores through
-//    distributed shared memory (the section after it).
+//    f32 product, f32 accuracy; their section below); at D = 256, 384
+//    and 512 the forward, dQ and dK/dV as thread block clusters of D / 128
+//    blocks, each block a 128-column slice, which add their partial
+//    scores through distributed shared memory (the section after it).
 //
 // What bounds it on an H100: at the training shape (T = 4096, D = 128) the
 // work is far above the card's ridge (about 2 * D * T / 2 flops per byte
@@ -2061,9 +2061,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 }
 
 // ================================= f32: split-TF32 tensor-core kernels
-// The f32 forward at every head dim, and dQ and dK/dV at every head dim,
-// run every product of the body on the tensor cores in split TF32
-// ("3xTF32"), the counterpart of the reference's HIGHEST precision (bf16x3
+// The f32 forward, dQ and dK/dV at every head dim run every product of
+// the body on the tensor cores in split TF32 ("3xTF32"), the counterpart
+// of the reference's HIGHEST precision (bf16x3
 // passes on the MXU, ops/kernel_dispatch.py): each operand x is split once
 // into big = rna_tf32(x) and small = rna_tf32(x - big), and
 // a.b ~ a_small.b_big + a_big.b_small + a_big.b_big (small terms first),
@@ -2071,9 +2071,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 // 13 bits of an f32 register, so an operand that skipped the conversion
 // would lose accuracy without any error: every operand goes through
 // split_tf32. Scores, softmax statistics and accumulators stay f32 in
-// registers. At D = 384 and 512 the backward's two owned tiles at full D
-// would not fit a block: there it runs as thread block clusters that
-// share the scores (the section after these kernels).
+// registers. The kernels of this section take D = 128; at D = 256, 384
+// and 512 all three run as thread block clusters of D / 128 blocks, one
+// 128-column slice each, that share the scores (the section after these
+// kernels).
 //
 // mma.sync, not wgmma: wgmma takes tf32 operands from shared memory only
 // K-major, and four of the six products (P V, dS K, P^T dO, dS^T Q) sum
@@ -2089,8 +2090,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 //  - the streamed tiles (K and V; Q and dO for dK/dV), which every warp
 //    reads whole, are split once per block: cp.async lands a tile raw in
 //    its stage, one pass of the block writes its big and small parts to two
-//    split tiles, and the warps read both parts (PRE: the backward at
-//    D = 128; at wider heads the split tiles would not fit, and the
+//    split tiles, and the warps read both parts (PRE: the backward; the
 //    forward keeps two blocks an SM without them, which measured faster);
 //  - the block's own tiles (Q; dO; K and V for dK/dV) are split as each
 //    warp reads its 16 rows, once per streamed tile.
@@ -2116,10 +2116,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 //    at a time, one for each n-tile of a group of 4: n-tile i's column g is
 //    output column C(g) + i, C(g) = 4 (g / 2) + 16 (g % 2), so lane (g, t)
 //    holds columns 4t .. 4t + 3 and 16 + 4t .. of each group of 32.
-// Blocks accumulate kTfCols output columns (grid z splits the forward's
-// wider heads and the backward's D = 256, each block recomputing the
-// scores); dQ and the forward take their query tiles
-// in reverse, so under the causal mask the longest rows start first.
+// A block accumulates all kTfCols = D output columns; dQ and the forward
+// take their query tiles in reverse, so under the causal mask the longest
+// rows start first.
 //
 // What bounds it: at phase 6's shape (T = 1024, D = 128) the work is far
 // above the ridge, so operations: 3 tensor-core passes at 495 TFLOP/s
@@ -2130,17 +2129,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 // and spills a few hundred bytes at ptxas' 255.
 constexpr int kTfBlk = 64;    // rows a block owns: 4 warps of 16
 constexpr int kTfCols = 128;  // output columns a block accumulates
+constexpr int kTfKeys = 32;   // rows of a streamed tile
 
 __host__ __device__ constexpr int tf_ld(int W) { return W + 4; }
-// Rows per streamed tile: the forward's (K, V) and the backward's (K, V or
-// Q, dO with their L and dsum), so that two stages fit a block.
-__host__ __device__ constexpr int tf_kb(int fwd, int D) {
-  return fwd ? (D <= 256 ? 32 : 16) : (D == 128 ? 32 : 16);
-}
-// Whether the streamed tiles are split once per block (see above).
-__host__ __device__ constexpr bool tf_presplit(int fwd, int D) {
-  return !fwd && D == 128;
-}
 
 __device__ __forceinline__ int perm8(int g) {
   return (g >> 1) | ((g & 1) << 2);
@@ -2303,9 +2294,6 @@ __device__ __forceinline__ void ld_b_tf32(TfB (&b)[4], const float* base,
 // and small parts (PRE).
 struct TfTile {
   const float *big, *small;
-  __device__ TfTile cols(int c) const {
-    return {big + c, small == nullptr ? nullptr : small + c};
-  }
 };
 
 // acc (16 x 8 NT) += A (rows r0 .. r0 + 15 of a row-major tile) . B^T
@@ -2409,17 +2397,15 @@ struct TfStage {
 
 // The block's own tiles (own0, own1: Q and dO, or K and V; the forward
 // uses own0 only); two stages, each holding the streamed pair raw (K and
-// V, or Q and dO; the forward's V tile holds kTfCols columns, rows of LD1)
-// and the streamed rows' L and dsum (dK/dV); when PRE the split parts of
-// the current pair and a copy of its L and dsum. Stage s starts at
-// stages + s * kStage.
-template <int D, bool FWD>
+// V, or Q and dO) and the streamed rows' L and dsum (dK/dV); when PRE
+// (the backward) the split parts of the current pair and a copy of its L
+// and dsum. Stage s starts at stages + s * kStage.
+template <bool FWD>
 struct TfSmem {
-  static constexpr int KB = tf_kb(FWD, D), LD = tf_ld(D);
-  static constexpr int LD1 = FWD ? tf_ld(kTfCols) : LD;
-  static constexpr bool PRE = tf_presplit(FWD, D);
-  static constexpr int kT0 = KB * LD, kT1 = KB * LD1;  // floats a tile
-  static constexpr int kStage = (kT0 + kT1 + 2 * KB + 31) / 32 * 32;
+  static constexpr int KB = kTfKeys, LD = tf_ld(kTfCols);
+  static constexpr bool PRE = !FWD;
+  static constexpr int kT = KB * LD;  // floats a tile
+  static constexpr int kStage = (2 * kT + 2 * KB + 31) / 32 * 32;
   float *own0, *own1, *stages;
   float *big0 = nullptr, *small0 = nullptr, *big1 = nullptr,
         *small1 = nullptr, *ls = nullptr, *ds = nullptr;
@@ -2429,10 +2415,10 @@ struct TfSmem {
     x.own1 = FWD ? nullptr : c.take<float>(kTfBlk * LD);
     x.stages = c.take<float>(2 * kStage);
     if (PRE) {
-      x.big0 = c.take<float>(kT0);
-      x.small0 = c.take<float>(kT0);
-      x.big1 = c.take<float>(kT1);
-      x.small1 = c.take<float>(kT1);
+      x.big0 = c.take<float>(kT);
+      x.small0 = c.take<float>(kT);
+      x.big1 = c.take<float>(kT);
+      x.small1 = c.take<float>(kT);
       x.ls = c.take<float>(KB);
       x.ds = c.take<float>(KB);
     }
@@ -2440,8 +2426,8 @@ struct TfSmem {
     return c.off;
   }
   __device__ float* raw0(int s) const { return stages + s * kStage; }
-  __device__ float* raw1(int s) const { return raw0(s) + kT0; }
-  __device__ float* lse(int s) const { return raw1(s) + kT1; }
+  __device__ float* raw1(int s) const { return raw0(s) + kT; }
+  __device__ float* lse(int s) const { return raw1(s) + kT; }
   __device__ float* dsum(int s) const { return lse(s) + KB; }
 };
 
@@ -2453,8 +2439,8 @@ template <class Sm>
 __device__ __forceinline__ TfStage tf_ready(const Sm& sm, int s) {
   __syncthreads();
   if constexpr (Sm::PRE) {
-    split_tile<Sm::kT0>(sm.raw0(s), sm.big0, sm.small0);
-    split_tile<Sm::kT1>(sm.raw1(s), sm.big1, sm.small1);
+    split_tile<Sm::kT>(sm.raw0(s), sm.big0, sm.small0);
+    split_tile<Sm::kT>(sm.raw1(s), sm.big1, sm.small1);
     if (threadIdx.x < Sm::KB) {
       sm.ls[threadIdx.x] = sm.lse(s)[threadIdx.x];
       sm.ds[threadIdx.x] = sm.dsum(s)[threadIdx.x];
@@ -2467,21 +2453,94 @@ __device__ __forceinline__ TfStage tf_ready(const Sm& sm, int s) {
   }
 }
 
-template <int D>
+// The forward's online softmax over one streamed tile of KB keys from k0:
+// the scores s (raw products) scaled and masked, the running maximum m
+// and sum lsum of this lane's rows (row, row + 8) moved on, O rescaled,
+// and P left in s for P V.
+template <int NS, int NO>
+__device__ __forceinline__ void tf_softmax_step(float (&s)[NS][4],
+                                                float (&o)[NO][4],
+                                                float (&m)[2],
+                                                float (&lsum)[2],
+                                                const Args& a, int k0,
+                                                int row) {
+  const int t = threadIdx.x % 4;
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[j][e] * a.scale;
+      const int key = k0 + 8 * j + t + 4 * (e & 1);
+      if (a.causal && key > row + 8 * (e >> 1)) x = kNegInf;
+      s[j][e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+  float corr[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float m_new = fmaxf(m[i], quad_max(mx[i]));
+    corr[i] = expf(m[i] - m_new);
+    m[i] = m_new;
+    lsum[i] *= corr[i];
+  }
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      // masked entries stay exactly 0, also on rows masked so far
+      const float x = s[j][e];
+      const float p = x <= kNegInf * 0.5f ? 0.f : expf(x - m[e >> 1]);
+      s[j][e] = p;
+      lsum[e >> 1] += p;
+    }
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] *= corr[e >> 1];
+}
+
+// The forward's end: O divided by the row sums and stored into columns
+// c0 .. c0 + 8 NO of this lane's rows; L = m + log l too when `with_lse`
+// (and the caller asked for L).
+template <int NO>
+__device__ __forceinline__ void tf_fwd_store(float (&o)[NO][4],
+                                             const float (&m)[2],
+                                             float (&lsum)[2], const Args& a,
+                                             int bh, int row, int c0,
+                                             bool with_lse) {
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    lsum[i] = quad_sum(lsum[i]);
+    inv[i] = lsum[i] > 0.f ? 1.f / lsum[i] : 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] *= inv[e >> 1];  // l == 0 gives 0
+  store_acc_tf32(o, 1.f, a.out0, a.so0, bh / a.H, bh % a.H, row, c0);
+  if (with_lse && a.lse != nullptr && threadIdx.x % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      a.lse[(long long)bh * a.Tq + row + 8 * i] =
+          lsum[i] > 0.f ? m[i] + logf(lsum[i]) : kNegInf;
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_tf32_kernel(const Args a) {
-  using Sm = TfSmem<D, true>;
-  constexpr int BLK = kTfBlk, KB = Sm::KB, LD = Sm::LD, LDV = Sm::LD1;
-  constexpr int NO = kTfCols / 8, NS = KB / 8;
+  using Sm = TfSmem<true>;
+  constexpr int D = kTfCols, BLK = kTfBlk, KB = Sm::KB, LD = Sm::LD;
+  constexpr int NO = D / 8, NS = KB / 8;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Carver cv{smem_raw};
   Sm sm;
   Sm::carve(cv, &sm);
   const int qi = gridDim.y - 1 - blockIdx.y, bh = blockIdx.x;
-  const int c0 = kTfCols * blockIdx.z;
   const int b = bh / a.H, h = bh % a.H, q0 = qi * BLK;
   const int warp = threadIdx.x / 32, l = threadIdx.x % 32;
-  const int t = l % 4, r0 = 16 * warp;
+  const int r0 = 16 * warp;
   const int row = q0 + r0 + perm8(l / 4);  // this lane's rows: row, row + 8
   // key tiles strictly above the diagonal contribute nothing
   const int nk = a.causal ? (q0 + BLK) / KB : a.Tk / KB;
@@ -2490,9 +2549,8 @@ __global__ void __launch_bounds__(kThreads)
       const int k0 = kj * KB;
       stage16<KB, D, LD>(sm.raw0(kj & 1),
                          row_ptr<float>(a.k, a.sk, b, h, k0), a.sk.t);
-      stage16<KB, kTfCols, LDV>(sm.raw1(kj & 1),
-                                row_ptr<float>(a.v, a.sv, b, h, k0) + c0,
-                                a.sv.t);
+      stage16<KB, D, LD>(sm.raw1(kj & 1),
+                         row_ptr<float>(a.v, a.sv, b, h, k0), a.sv.t);
     }
     cp_async_commit();  // an empty group past the last tile keeps the count
   };
@@ -2511,76 +2569,26 @@ __global__ void __launch_bounds__(kThreads)
       float s[NS][4];
       zero_acc(s);
       warp_abt_tf32<NS, D, LD, Sm::PRE>(s, sm.own0, r0, kv.tile[0]);
-      float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-      for (int j = 0; j < NS; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float x = s[j][e] * a.scale;
-          const int key = k0 + 8 * j + t + 4 * (e & 1);
-          if (a.causal && key > row + 8 * (e >> 1)) x = kNegInf;
-          s[j][e] = x;
-          mx[e >> 1] = fmaxf(mx[e >> 1], x);
-        }
-      float corr[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const float m_new = fmaxf(m[i], quad_max(mx[i]));
-        corr[i] = expf(m[i] - m_new);
-        m[i] = m_new;
-        lsum[i] *= corr[i];
-      }
-#pragma unroll
-      for (int j = 0; j < NS; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          // masked entries stay exactly 0, also on rows masked so far
-          const float x = s[j][e];
-          const float p = x <= kNegInf * 0.5f ? 0.f : expf(x - m[e >> 1]);
-          s[j][e] = p;
-          lsum[e >> 1] += p;
-        }
-#pragma unroll
-      for (int j = 0; j < NO; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[j][e] *= corr[e >> 1];
-      warp_pb_tf32<NO, NS, LDV, Sm::PRE>(o, s, kv.tile[1]);
+      tf_softmax_step(s, o, m, lsum, a, k0, row);
+      warp_pb_tf32<NO, NS, LD, Sm::PRE>(o, s, kv.tile[1]);
     }
     // without PRE the raw stage is read until here: restaged two tiles on
     if constexpr (!Sm::PRE) __syncthreads();
   }
   cp_async_wait<0>();
-  float inv[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    lsum[i] = quad_sum(lsum[i]);
-    inv[i] = lsum[i] > 0.f ? 1.f / lsum[i] : 0.f;
-  }
-#pragma unroll
-  for (int j = 0; j < NO; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[j][e] *= inv[e >> 1];  // l == 0 gives 0
-  store_acc_tf32(o, 1.f, a.out0, a.so0, b, h, row, c0);
-  if (a.lse != nullptr && blockIdx.z == 0 && t == 0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      a.lse[(long long)bh * a.Tq + row + 8 * i] =
-          lsum[i] > 0.f ? m[i] + logf(lsum[i]) : kNegInf;
-  }
+  tf_fwd_store(o, m, lsum, a, bh, row, 0, true);
 }
 
-template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_tf32_kernel(const Args a) {
-  using Sm = TfSmem<D, false>;
-  constexpr int BLK = kTfBlk, KB = Sm::KB, LD = Sm::LD;
-  constexpr int NO = kTfCols / 8, NS = KB / 8;
+  using Sm = TfSmem<false>;
+  constexpr int D = kTfCols, BLK = kTfBlk, KB = Sm::KB, LD = Sm::LD;
+  constexpr int NO = D / 8, NS = KB / 8;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Carver cv{smem_raw};
   Sm sm;  // own: Q, dO; streamed: K, V
   Sm::carve(cv, &sm);
   const int qi = gridDim.y - 1 - blockIdx.y, bh = blockIdx.x;
-  const int c0 = kTfCols * blockIdx.z;
   const int b = bh / a.H, h = bh % a.H, q0 = qi * BLK;
   const int warp = threadIdx.x / 32, l = threadIdx.x % 32;
   const int t = l % 4, r0 = 16 * warp;
@@ -2632,26 +2640,24 @@ __global__ void __launch_bounds__(kThreads)
           const float p = x <= kNegInf * 0.5f ? 0.f : expf(x - lse[i]);
           s[j][e] = p * (dp[j][e] - dsum[i]);  // dS
         }
-      // dS K, this block's columns
-      warp_pb_tf32<NO, NS, LD, Sm::PRE>(dq, s, kv.tile[0].cols(c0));
+      warp_pb_tf32<NO, NS, LD, Sm::PRE>(dq, s, kv.tile[0]);  // dS K
     }
     if constexpr (!Sm::PRE) __syncthreads();
   }
   cp_async_wait<0>();
-  store_acc_tf32(dq, a.scale, a.out0, a.so0, b, h, row, c0);
+  store_acc_tf32(dq, a.scale, a.out0, a.so0, b, h, row, 0);
 }
 
-template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_tf32_kernel(const Args a) {
-  using Sm = TfSmem<D, false>;
-  constexpr int BLK = kTfBlk, KB = Sm::KB, LD = Sm::LD;
-  constexpr int NO = kTfCols / 8, NS = KB / 8;
+  using Sm = TfSmem<false>;
+  constexpr int D = kTfCols, BLK = kTfBlk, KB = Sm::KB, LD = Sm::LD;
+  constexpr int NO = D / 8, NS = KB / 8;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Carver cv{smem_raw};
   Sm sm;  // own: K, V; streamed: Q, dO with their L and dsum
   Sm::carve(cv, &sm);
-  const int kj = blockIdx.y, bh = blockIdx.x, c0 = kTfCols * blockIdx.z;
+  const int kj = blockIdx.y, bh = blockIdx.x;
   const int b = bh / a.H, h = bh % a.H, k0 = kj * BLK;
   const int warp = threadIdx.x / 32, l = threadIdx.x % 32;
   const int t = l % 4, r0 = 16 * warp;
@@ -2706,69 +2712,81 @@ __global__ void __launch_bounds__(kThreads, 1)
           s[j][e] = x <= kNegInf * 0.5f ? 0.f : expf(x - Ls[col]);
           dp[j][e] = s[j][e] * (dp[j][e] - Ds[col]);
         }
-      // P^T dO and dS^T Q, this block's columns
-      warp_pb_tf32<NO, NS, LD, Sm::PRE>(dv, s, st.tile[1].cols(c0));
-      warp_pb_tf32<NO, NS, LD, Sm::PRE>(dk, dp, st.tile[0].cols(c0));
+      warp_pb_tf32<NO, NS, LD, Sm::PRE>(dv, s, st.tile[1]);   // P^T dO
+      warp_pb_tf32<NO, NS, LD, Sm::PRE>(dk, dp, st.tile[0]);  // dS^T Q
     }
     if constexpr (!Sm::PRE) __syncthreads();
   }
   cp_async_wait<0>();
-  store_acc_tf32(dk, a.scale, a.out0, a.so0, b, h, key, c0);
-  store_acc_tf32(dv, 1.f, a.out1, a.so1, b, h, key, c0);
+  store_acc_tf32(dk, a.scale, a.out0, a.so0, b, h, key, 0);
+  store_acc_tf32(dv, 1.f, a.out1, a.so1, b, h, key, 0);
 }
 
-// ==================== f32 backward at D = 384, 512: split-TF32 clusters
-// dQ and dK/dV at the head dims whose two owned 64-row tiles at full D
-// would not fit a block (198,656 B at D = 384, 264 KB at D = 512), with
-// every score product computed once. Each 64-row tile (queries for dQ,
-// keys for dK/dV) is one thread block cluster of C = D / 128 blocks along
-// grid z (3 at D = 384, 4 at D = 512). Member z owns columns 128 z ..
-// 128 z + 127: that slice of its two owned tiles (Q, dO; K, V), of each
-// streamed tile (K, V; Q, dO) and of its outputs, which is the D = 128
-// kernels' tile and register shape. Per streamed tile of 32 rows:
+// ============ f32 at D = 256, 384, 512: split-TF32 thread block clusters
+// The forward, dQ and dK/dV at the head dims above 128, with every score
+// product computed once. Each 64-row tile (queries for the forward and
+// dQ, keys for dK/dV) is one thread block cluster of C = D / 128 blocks
+// along grid z (2 at D = 256, 3 at D = 384, 4 at D = 512). Member z owns
+// columns 128 z .. 128 z + 127: that slice of its owned tiles (Q; Q, dO;
+// K, V), of each streamed tile (K, V; K, V; Q, dO) and of its outputs (O;
+// dQ; dK, dV), which is the D = 128 kernels' tile and register shape.
+// Per streamed tile of 32 rows:
 //  1. the block splits its slices of the streamed pair once, in place
 //     (big parts over the raw tile, small parts beside it);
-//  2. each warp computes partial S and dP of its 16 rows over the
-//     member's 128 columns (fresh accumulators every two k-steps, added in
-//     f32) and stores them to the step's partial buffer;
+//  2. each warp computes partial S (and, backward, dP) of its 16 rows over
+//     the member's 128 columns (fresh accumulators every two k-steps,
+//     added in f32) and stores them to the step's partial buffer;
 //  3. one barrier.cluster;
 //  4. each warp reads the C members' partials of its rows through
 //     distributed shared memory and adds them in rank order 0 .. C - 1, so
-//     every member of the cluster holds bit-identical S and dP, then P and
-//     dS;
-//  5. the output products over the member's columns (dS K; P^T dO and
-//     dS^T Q).
-// The grid-z split of the kernels above would have each of the C blocks
-// recompute the full-D scores (2.3x the work of dQ at D = 384, 2x that of
-// dK/dV). The partials are double-buffered, so the one cluster barrier of
-// a step serves as "ready" (this step's partials are stored) and as
-// "free" (a member writes a buffer again two steps on, after every peer
-// has read it and arrived at the barrier between). Every member walks the
-// same streamed tiles and its warps take the same causal skips, so all
+//     every member of the cluster holds bit-identical S (and dP), then the
+//     same mask, online softmax statistics and P (forward), or P and dS;
+//  5. the output products over the member's columns (P V; dS K; P^T dO
+//     and dS^T Q).
+// A grid-z split of the D = 128 kernels would have each of the C blocks
+// recompute the full-D scores: C (C + 1) units of work where 2C do in the
+// forward (1.5x at D = 256, 2.5x at D = 512), 2.3x the work of dQ at
+// D = 384 and 2x that of dK/dV; its full-D owned tiles would also leave
+// room for only 16-row streamed tiles. The partials are double-buffered,
+// so the one cluster barrier of a step serves as "ready" (this step's
+// partials are stored) and as "free" (a member writes a buffer again two
+// steps on, after every peer has read it and arrived at the barrier
+// between). Every member walks the same streamed tiles and its warps take
+// the same causal skips, which skip products and never a barrier, so all
 // arrive at each barrier; a last barrier keeps each member resident until
-// its peers have read its final partials.
+// its peers have read its final partials. The forward's member 0 writes
+// L (every member holds the same m and l).
 //
-// Budget per block (128 threads, one block an SM): owned slices 2 x 64 x
-// 132 x 4 = 67,584 B; two stages of the streamed slices with the streamed
-// rows' L and dsum, 2 x (2 x 32 x 132 + 64) x 4 = 68,096 B; the small
-// parts of the current pair 33,792 B; partial S and dP, two buffers of
-// 2 x 64 x 32 x 4 = 32,768 B: 202,240 B in all. Registers as the D = 128
-// kernels' (ptxas: dQ 236 at D = 384, 244 at 512, no spills; dK/dV, which
-// holds dK and dV in 128 a thread, 255 and 432 bytes of spills, as at
-// D = 128); on an H100 (132 SMs) clusters of 3 blocks fit 39 at once,
-// of 4 blocks 30 (the wrapper's `cluster_plan`). What bounds it:
-// operations, as above; the exchange adds per step one cluster barrier
-// and, per member, C reads of 16 KB of distributed shared memory.
+// Budget per block (128 threads, one block an SM), backward: owned slices
+// 2 x 64 x 132 x 4 = 67,584 B; two stages of the streamed slices with the
+// streamed rows' L and dsum, 2 x (2 x 32 x 132 + 64) x 4 = 68,096 B; the
+// small parts of the current pair 33,792 B; partial S and dP, two buffers
+// of 2 x 64 x 32 x 4 = 32,768 B: 202,240 B in all. Forward: the Q slice
+// 33,792 B (split as each warp reads its rows, once per streamed tile: a
+// Q split once in place, its small parts stored beside it, measured 2-3%
+// slower); two stages of the K and V slices 67,584 B; the small parts of
+// the current pair 33,792 B; partial S, two buffers of 64 x 32 x 4 =
+// 16,384 B: 151,552 B in all (both under the 232,448 B a block may opt
+// into). Registers as the D = 128 kernels' (ptxas: the forward 246 at
+// every D, dQ 236 at D = 256 and 384, 244 at 512, no spills; dK/dV,
+// which holds dK and dV in 128 a thread, 255 and 432-496 bytes of
+// spills, as at D = 128); on an H100 (132 SMs) clusters of 2 blocks fit
+// 66 at once, of 3 blocks 39, of 4 blocks 30 (the wrapper's
+// `cluster_plan`). What bounds it: operations, as above; the
+// exchange adds per step one cluster barrier and, per member, C reads of
+// 8 KB (forward) or 16 KB (backward) of distributed shared memory.
+template <bool FWD>
 struct TcSmem {
-  static constexpr int KB = 32, LD = tf_ld(kTfCols);
-  static constexpr int kTile = KB * LD;              // a streamed slice
-  static constexpr int kStage = 2 * kTile + 2 * KB;  // the pair, L, dsum
-  static constexpr int kPart = 2 * kTfBlk * KB;      // partial S and dP
+  static constexpr int KB = kTfKeys, LD = tf_ld(kTfCols);
+  static constexpr int kTile = KB * LD;  // a streamed slice
+  // the pair (backward: with the streamed rows' L and dsum)
+  static constexpr int kStage = 2 * kTile + (FWD ? 0 : 2 * KB);
+  static constexpr int kPart = (FWD ? 1 : 2) * kTfBlk * KB;  // S (and dP)
   float *own0, *own1, *stages, *small, *part;
   __host__ __device__ static size_t carve(Carver& c, TcSmem* t) {
     TcSmem x;
     x.own0 = c.take<float>(kTfBlk * LD);
-    x.own1 = c.take<float>(kTfBlk * LD);
+    x.own1 = FWD ? nullptr : c.take<float>(kTfBlk * LD);
     x.stages = c.take<float>(2 * kStage);
     x.small = c.take<float>(2 * kTile);
     x.part = c.take<float>(2 * kPart);
@@ -2784,31 +2802,36 @@ struct TcSmem {
 };
 
 // Step 1: the streamed pair of stage s split in place by the block, and
-// the barrier after it.
-__device__ __forceinline__ TfStage tc_split(const TcSmem& sm, int s) {
-  constexpr int N = TcSmem::kTile;
+// the barrier after it (the forward's stage has no L and dsum).
+template <bool FWD>
+__device__ __forceinline__ TfStage tc_split(const TcSmem<FWD>& sm, int s) {
+  constexpr int N = TcSmem<FWD>::kTile;
   split_tile<N>(sm.raw0(s), sm.raw0(s), sm.small);
   split_tile<N>(sm.raw1(s), sm.raw1(s), sm.small + N);
   __syncthreads();
-  return {{{sm.raw0(s), sm.small}, {sm.raw1(s), sm.small + N}}, sm.lse(s),
-          sm.dsum(s)};
+  return {{{sm.raw0(s), sm.small}, {sm.raw1(s), sm.small + N}},
+          FWD ? nullptr : sm.lse(s), FWD ? nullptr : sm.dsum(s)};
 }
 
-// Step 2: a thread's partial S and dP in fragment order, S's n-tile j at
-// float4 j * kThreads + threadIdx.x, dP's at (NS + j) * kThreads + ..., so
-// each warp access is 512 contiguous bytes.
+// Step 2: a thread's partial S in fragment order, n-tile j at float4
+// j * kThreads + threadIdx.x, so each warp access is 512 contiguous
+// bytes; the backward's dP follows S, at (NS + j) * kThreads + ....
+template <int NS>
+__device__ __forceinline__ void put_partial(float* part,
+                                            const float (&s)[NS][4]) {
+  float* p = part + 4 * threadIdx.x;
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+    sts128(p + 4 * kThreads * j,
+           make_float4(s[j][0], s[j][1], s[j][2], s[j][3]));
+}
+
 template <int NS>
 __device__ __forceinline__ void put_partial(float* part,
                                             const float (&s)[NS][4],
                                             const float (&dp)[NS][4]) {
-  float* p = part + 4 * threadIdx.x;
-#pragma unroll
-  for (int j = 0; j < NS; ++j) {
-    sts128(p + 4 * kThreads * j,
-           make_float4(s[j][0], s[j][1], s[j][2], s[j][3]));
-    sts128(p + 4 * kThreads * (NS + j),
-           make_float4(dp[j][0], dp[j][1], dp[j][2], dp[j][3]));
-  }
+  put_partial(part, s);
+  put_partial(part + 4 * kThreads * NS, dp);
 }
 
 // Step 4: one accumulator fragment over all of D, the C members' partials
@@ -2827,25 +2850,93 @@ __device__ __forceinline__ void sum_ranks(const float* p, float (&d)[4]) {
 
 template <int C, int NS>
 __device__ __forceinline__ void sum_partials(const float* part,
-                                             float (&s)[NS][4],
-                                             float (&dp)[NS][4]) {
+                                             float (&s)[NS][4]) {
   const float* p = part + 4 * threadIdx.x;
 #pragma unroll
   for (int j = 0; j < NS; ++j) sum_ranks<C>(p + 4 * kThreads * j, s[j]);
-#pragma unroll
-  for (int j = 0; j < NS; ++j)
-    sum_ranks<C>(p + 4 * kThreads * (NS + j), dp[j]);
+}
+
+template <int C, int NS>
+__device__ __forceinline__ void sum_partials(const float* part,
+                                             float (&s)[NS][4],
+                                             float (&dp)[NS][4]) {
+  sum_partials<C>(part, s);
+  sum_partials<C>(part + 4 * kThreads * NS, dp);
+}
+
+// The forward: O and L of one 64-row query tile, this member's columns
+// of O (steps 1-5 above, P V as the output product).
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_tf32_cluster_kernel(const Args a) {
+  using Sm = TcSmem<true>;
+  constexpr int C = D / kTfCols, BLK = kTfBlk, KB = Sm::KB;
+  constexpr int LD = Sm::LD, NO = kTfCols / 8, NS = KB / 8;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  Carver cv{smem_raw};
+  Sm sm;  // own: Q; streamed: K, V (this member's columns)
+  Sm::carve(cv, &sm);
+  const int qi = gridDim.y - 1 - blockIdx.y, bh = blockIdx.x;
+  const int c0 = kTfCols * blockIdx.z;  // member z's columns
+  const int b = bh / a.H, h = bh % a.H, q0 = qi * BLK;
+  const int warp = threadIdx.x / 32, l = threadIdx.x % 32;
+  const int r0 = 16 * warp;
+  const int row = q0 + r0 + perm8(l / 4);  // this lane's rows: row, row + 8
+  // key tiles strictly above the diagonal contribute nothing
+  const int nk = a.causal ? (q0 + BLK) / KB : a.Tk / KB;
+  auto stage_kv = [&](int kj) {
+    if (kj < nk) {
+      const int k0 = kj * KB;
+      stage16<KB, kTfCols, LD>(
+          sm.raw0(kj & 1), row_ptr<float>(a.k, a.sk, b, h, k0) + c0, a.sk.t);
+      stage16<KB, kTfCols, LD>(
+          sm.raw1(kj & 1), row_ptr<float>(a.v, a.sv, b, h, k0) + c0, a.sv.t);
+    }
+    cp_async_commit();  // an empty group past the last tile keeps the count
+  };
+  stage16<BLK, kTfCols, LD>(
+      sm.own0, row_ptr<float>(a.q, a.sq, b, h, q0) + c0, a.sq.t);
+  stage_kv(0);
+  float o[NO][4], m[2] = {kNegInf, kNegInf}, lsum[2] = {0.f, 0.f};
+  zero_acc(o);
+  for (int kj = 0; kj < nk; ++kj) {
+    cp_async_wait<0>();  // the K, V slices of tile kj staged
+    __syncthreads();     // ... and every warp done with kj - 1
+    stage_kv(kj + 1);    // copied during this step
+    const TfStage kv = tc_split(sm, kj & 1);  // K, V
+    const int k0 = kj * KB;
+    // a tile wholly after the diagonal of this warp's 16 rows adds nothing
+    // (the same warps skip in every member)
+    const bool live = !a.causal || k0 <= q0 + r0 + 15;
+    float s[NS][4];
+    if (live) {
+      zero_acc(s);
+      warp_abt_tf32<NS, kTfCols, LD, true>(s, sm.own0, r0,
+                                           kv.tile[0]);  // Q K^T
+      put_partial(sm.partial(kj), s);
+    }
+    sm90::cluster_sync();  // every member's partial scores of tile kj stored
+    if (live) {
+      sum_partials<C>(sm.partial(kj), s);
+      tf_softmax_step(s, o, m, lsum, a, k0, row);
+      warp_pb_tf32<NO, NS, LD, true>(o, s, kv.tile[1]);  // P V
+    }
+  }
+  cp_async_wait<0>();
+  sm90::cluster_sync();  // the peers have read this member's last partials
+  tf_fwd_store(o, m, lsum, a, bh, row, c0, blockIdx.z == 0);
 }
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dq_tf32_cluster_kernel(const Args a) {
-  constexpr int C = D / kTfCols, BLK = kTfBlk, KB = TcSmem::KB;
-  constexpr int LD = TcSmem::LD, NO = kTfCols / 8, NS = KB / 8;
+  using Sm = TcSmem<false>;
+  constexpr int C = D / kTfCols, BLK = kTfBlk, KB = Sm::KB;
+  constexpr int LD = Sm::LD, NO = kTfCols / 8, NS = KB / 8;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Carver cv{smem_raw};
-  TcSmem sm;  // own: Q, dO; streamed: K, V (this member's columns)
-  TcSmem::carve(cv, &sm);
+  Sm sm;  // own: Q, dO; streamed: K, V (this member's columns)
+  Sm::carve(cv, &sm);
   const int qi = gridDim.y - 1 - blockIdx.y, bh = blockIdx.x;
   const int c0 = kTfCols * blockIdx.z;  // member z's columns
   const int b = bh / a.H, h = bh % a.H, q0 = qi * BLK;
@@ -2920,12 +3011,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_tf32_cluster_kernel(const Args a) {
-  constexpr int C = D / kTfCols, BLK = kTfBlk, KB = TcSmem::KB;
-  constexpr int LD = TcSmem::LD, NO = kTfCols / 8, NS = KB / 8;
+  using Sm = TcSmem<false>;
+  constexpr int C = D / kTfCols, BLK = kTfBlk, KB = Sm::KB;
+  constexpr int LD = Sm::LD, NO = kTfCols / 8, NS = KB / 8;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Carver cv{smem_raw};
-  TcSmem sm;  // own: K, V; streamed: Q, dO with their L and dsum
-  TcSmem::carve(cv, &sm);
+  Sm sm;  // own: K, V; streamed: Q, dO with their L and dsum
+  Sm::carve(cv, &sm);
   const int kj = blockIdx.y, bh = blockIdx.x, c0 = kTfCols * blockIdx.z;
   const int b = bh / a.H, h = bh % a.H, k0 = kj * BLK;
   const int warp = threadIdx.x / 32, l = threadIdx.x % 32;
@@ -3002,10 +3094,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
 
 // The kernel family that runs (kind, dtype, D): 0 split TF32 in clusters
-// (the f32 backward at D = 384, 512), 1 split TF32, 2 bf16 wgmma in
-// clusters of two blocks (the backward at D = 384, 512), 3 bf16 wgmma
-// (D = 128), 4 bf16 wgmma at D >= 256 (the forward at D = 256-512, D split
-// over two warpgroups; the backward at D = 256).
+// of D / 128 blocks (f32 at D = 256-512), 1 split TF32 (f32 at D = 128),
+// 2 bf16 wgmma in clusters of two blocks (the backward at D = 384, 512),
+// 3 bf16 wgmma (D = 128), 4 bf16 wgmma at D >= 256 (the forward at
+// D = 256-512, D split over two warpgroups; the backward at D = 256).
 enum Route {
   kTf32Cluster = 0,
   kTf32 = 1,
@@ -3018,17 +3110,17 @@ __host__ __device__ constexpr int route_of(int kind, int dtype, int D) {
     return D == 128 ? kWgmma
            : kind == kFwd || D == 256 ? kWide
                                       : kWgmmaCluster;
-  return kind == kFwd || D <= 256 ? kTf32 : kTf32Cluster;
+  return D == 128 ? kTf32 : kTf32Cluster;
 }
 
 template <int D>
 size_t smem_f32(int kind) {
   Carver c{nullptr};
-  if (kind == kFwd) return TfSmem<D, true>::carve(c, nullptr);
-  if constexpr (route_of(kDq, 0, D) == kTf32)
-    return TfSmem<D, false>::carve(c, nullptr);
-  else
-    return TcSmem::carve(c, nullptr);
+  if (D == 128)
+    return kind == kFwd ? TfSmem<true>::carve(c, nullptr)
+                        : TfSmem<false>::carve(c, nullptr);
+  return kind == kFwd ? TcSmem<true>::carve(c, nullptr)
+                      : TcSmem<false>::carve(c, nullptr);
 }
 
 template <int D>
@@ -3223,14 +3315,15 @@ int run(void (*kern)(const Args), size_t smem, dim3 grid, const Args& a,
   return (int)cudaGetLastError();
 }
 
-// The split-TF32 cluster backward over `grid`, one cluster of the D / 128
-// blocks along z per row tile, launched after the kernel's shared-memory
-// limit is raised; or, given `active`, not launched: how many clusters
-// fit on the card at once, into `active`.
+// The split-TF32 cluster kernel `kind` over `grid`, one cluster of the
+// D / 128 blocks along z per row tile, launched after the kernel's
+// shared-memory limit is raised; or, given `active`, not launched: how
+// many clusters fit on the card at once, into `active`.
 template <int D>
 int run_cluster(int kind, dim3 grid, const Args& a, cudaStream_t st,
                 int* active) {
-  void (*kern)(const Args) = kind == kDq
+  void (*kern)(const Args) = kind == kFwd ? flash_fwd_tf32_cluster_kernel<D>
+                             : kind == kDq
                                  ? flash_bwd_dq_tf32_cluster_kernel<D>
                                  : flash_bwd_dkv_tf32_cluster_kernel<D>;
   const size_t smem = smem_f32<D>(kind);
@@ -3257,19 +3350,17 @@ int run_cluster(int kind, dim3 grid, const Args& a, cudaStream_t st,
   return (int)cudaGetLastError();
 }
 
-// Split TF32: blocks of kTfBlk rows, grid (B * H, row tiles, column
-// blocks of kTfCols), at D = 384 and 512 the backward's blocks in
-// clusters along z.
+// Split TF32: blocks of kTfBlk rows, grid (B * H, row tiles, D / kTfCols
+// column slices), above D = 128 the blocks in clusters along z.
 template <int D>
 int launch_f32(int kind, const Args& a, cudaStream_t st) {
   const int rows = kind == kDkv ? a.Tk : a.Tq;
-  const size_t smem = smem_f32<D>(kind);
   const dim3 grid(a.B * a.H, rows / kTfBlk, D / kTfCols);
-  if (kind == kFwd) return run(flash_fwd_tf32_kernel<D>, smem, grid, a, st);
-  if constexpr (route_of(kDq, 0, D) == kTf32)
-    return run(kind == kDq ? flash_bwd_dq_tf32_kernel<D>
-                           : flash_bwd_dkv_tf32_kernel<D>,
-               smem, grid, a, st);
+  if constexpr (D == 128)
+    return run(kind == kFwd ? flash_fwd_tf32_kernel
+               : kind == kDq ? flash_bwd_dq_tf32_kernel
+                             : flash_bwd_dkv_tf32_kernel,
+               smem_f32<D>(kind), grid, a, st);
   else
     return run_cluster<D>(kind, grid, a, st, nullptr);
 }
@@ -3376,8 +3467,9 @@ int dl4j_flash_block_rows(int dtype, int D) {
 }
 
 // The kernel family that runs kernel `kind` (0 forward, 1 dQ, 2 dK/dV) at
-// dtype and D: 0 f32 split TF32 on mma.sync in thread block clusters, 1
-// f32 split TF32 on mma.sync, 2 bf16 wgmma in clusters of two blocks
+// dtype and D: 0 f32 split TF32 on mma.sync in thread block clusters of
+// D / 128 blocks (D = 256-512), 1 f32 split TF32 on mma.sync (D = 128), 2
+// bf16 wgmma in clusters of two blocks
 // ("wgmma cluster": the backward at D = 384, 512), 3 bf16 wgmma
 // (D = 128), 4 bf16 wgmma at D >= 256 ("wgmma wide": the forward at
 // D = 256-512, the backward at D = 256); -1 for an unsupported D.
@@ -3395,18 +3487,18 @@ size_t dl4j_flash_smem_bytes(int kind, int dtype, int D) {
   return rc < 0 ? 0 : (size_t)rc;
 }
 
-// The clusters of kernel `kind` (1 dQ, 2 dK/dV) at dtype (0 f32, 1 bf16)
-// and head dim D: the blocks a cluster holds into `cluster`, and how many
-// such clusters fit on the card at once into `active`; `cluster` 1 and
-// `active` 0 where the kernel runs no clusters. Returns a cudaError_t.
+// The clusters of kernel `kind` (0 forward, 1 dQ, 2 dK/dV) at dtype (0
+// f32, 1 bf16) and head dim D: the blocks a cluster holds into `cluster`,
+// and how many such clusters fit on the card at once into `active`;
+// `cluster` 1 and `active` 0 where the kernel runs no clusters. Returns a
+// cudaError_t.
 int dl4j_flash_cluster_plan(int kind, int dtype, int D, int* cluster,
                             int* active) {
   *cluster = 1;
   *active = 0;
   const int rc = with_head_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
-    if (kind == kFwd) return 0;
-    if constexpr (route_of(kDq, 0, kD) == kTf32Cluster) {
+    if constexpr (route_of(kFwd, 0, kD) == kTf32Cluster) {
       if (dtype == 0) {
         *cluster = kD / kTfCols;
         return run_cluster<kD>(kind, dim3(1, 1, kD / kTfCols), Args{},
@@ -3414,7 +3506,7 @@ int dl4j_flash_cluster_plan(int kind, int dtype, int D, int* cluster,
       }
     }
     if constexpr (route_of(kDq, 1, kD) == kWgmmaCluster) {
-      if (dtype == 1) {
+      if (dtype == 1 && kind != kFwd) {
         *cluster = 2;
         return launch_bwd_cluster<kD>(kind, Args{}, nullptr, active);
       }

@@ -19,10 +19,11 @@ writes no L, as the JAX package's inference primal does.
 In f32 (`MultiLayerNetwork`'s default precision) every kernel runs on the
 tensor cores in split TF32: each operand is split into two TF32 parts and
 every product takes three TF32 passes, which keeps f32 accuracy (the
-reference's HIGHEST precision). The f32 backward at D = 384 and 512 runs
-as thread block clusters of D / 128 blocks, one 128-column slice each,
-which add their partial scores through distributed shared memory
-(`cluster_plan` says how many such clusters fit on the card at once).
+reference's HIGHEST precision). At D = 256, 384 and 512 the f32 forward,
+dQ and dK/dV run as thread block clusters of D / 128 blocks, one
+128-column slice each, which add their partial scores through
+distributed shared memory ("tf32 cluster"; `cluster_plan` says how many
+such clusters fit on the card at once).
 The bf16 forward at D = 256, 384 and 512 ("wgmma wide") splits D over two
 warpgroups of one block, which add their partial scores through shared
 memory; the bf16 backward at D = 256 ("wgmma wide" too) keeps accumulators
@@ -398,11 +399,11 @@ flash_bwd_dkv.launches = 0
 def cluster_plan(kind: str, D: int,
                  dtype: torch.dtype = torch.float32) -> Tuple[int, int]:
     """(blocks a cluster holds, clusters that fit on the card at once) of
-    the backward kernel `kind` ("dq" or "dkv") in `dtype` at head dim D;
+    the kernel `kind` ("fwd", "dq" or "dkv") in `dtype` at head dim D;
     (1, 0) where that kernel runs no clusters."""
     lib = _library()
     cluster, active = ctypes.c_int(), ctypes.c_int()
-    code = {"dq": _DQ, "dkv": _DKV}[kind]
+    code = {"fwd": _FWD, "dq": _DQ, "dkv": _DKV}[kind]
     rc = lib.dl4j_flash_cluster_plan(code, _DTYPE_CODE[dtype], D,
                                      ctypes.byref(cluster),
                                      ctypes.byref(active))

@@ -12,10 +12,12 @@ computed in f32 (`python -m pytest -m gpu tests/test_torch_*.py`). The
 f32 kernels compute their products in split TF32: a CPU emulation of
 those products (TF32 rounding by integer masking) shows that the f32
 tolerance accepts three TF32 passes and rejects one, also with the score
-products summed as the f32 backward's clusters sum them at D = 384 and
-512 (partials over 128-column slices, added in f32 in rank order); with
-the tensor cores' truncation emulated too, scores that cancel within a
-slice tell fresh accumulators from one chained over the slice. The bf16
+products summed as the f32 clusters sum them at D = 256, 384 and 512, in
+the forward and the backward (partials over 128-column slices, added in
+f32 in rank order); with the tensor cores' truncation emulated too,
+scores that cancel within a slice tell fresh accumulators from one
+chained over the slice, and inputs whose V slices repeat tell cluster
+members that add the partial scores in different orders. The bf16
 backward kernels at D = 256 ("wgmma wide") and at D = 384 and 512
 ("wgmma cluster": two blocks, one column half each, whose partial scores
 are added in rank order) are emulated in plain torch (their tile order,
@@ -91,11 +93,11 @@ def test_plain_forward_and_gradients_match_jax(causal):
         _close(got.grad, want)
 
 
-@pytest.mark.parametrize("Dh", [384, 512])
+@pytest.mark.parametrize("Dh", [256, 384, 512])
 @pytest.mark.parametrize("causal", [False, True])
 def test_plain_at_wide_heads_matches_jax(Dh, causal):
-    """Head dims 384 and 512 (the kernels' column-split and 32-key tiles
-    on the card): the plain forward and its gradients against the JAX
+    """Head dims 256, 384 and 512 (the kernels' column-split and 32-key
+    tiles on the card): the plain forward and its gradients against the JAX
     package's flash path in interpret mode (B=1, T=256, H=2, blocks of
     128), atol = rtol = 1e-5."""
     q, k, v, do = _inputs(10 + Dh, shape=(1, T, 2, Dh))
@@ -398,9 +400,9 @@ def _mm_tf32(eq, a, b, passes):
 
 def _scores_tf32(a, b, passes, slice_cols):
     """The score product a.b^T over D ("bqhd,bkhd->bhqk") in TF32: over all
-    of D at once, or (`slice_cols`) as the f32 backward's clusters compute
-    it at D > 256: one partial per slice of `slice_cols` columns (one
-    cluster member's), the partials added in f32 in rank order."""
+    of D at once, or (`slice_cols`) as the f32 clusters compute it at
+    D > 128: one partial per slice of `slice_cols` columns (one cluster
+    member's), the partials added in f32 in rank order."""
     eq = "bqhd,bkhd->bhqk"
     if slice_cols is None:
         return _mm_tf32(eq, a, b, passes)
@@ -415,9 +417,9 @@ def _scores_tf32(a, b, passes, slice_cols):
 def _emulated(q, k, v, do, causal, passes, slice_cols=None):
     """(O, L, dQ, dK, dV) of the f32 kernels' arithmetic with every product
     in TF32 (`passes` 1 or 3): the plain versions' formulas, f32 softmax,
-    statistics and dsum, masked entries exactly 0. The backward's score
-    products (S recomputed, dP) are summed over slices of `slice_cols`
-    columns when given (`_scores_tf32`)."""
+    statistics and dsum, masked entries exactly 0. The score products (the
+    forward's S, the backward's S recomputed and dP) are summed over
+    slices of `slice_cols` columns when given (`_scores_tf32`)."""
     B, Tq, H, D = q.shape
     scale = 1.0 / np.sqrt(D)
     keep = fa._keep(Tq, k.shape[1], q.device)
@@ -425,7 +427,7 @@ def _emulated(q, k, v, do, causal, passes, slice_cols=None):
     def scaled(s):
         return s.masked_fill(~keep, fa.NEG_INF) if causal else s
 
-    s = scaled(_mm_tf32("bqhd,bkhd->bhqk", q, k, passes) * scale)
+    s = scaled(_scores_tf32(q, k, passes, slice_cols) * scale)
     masked = s <= fa.NEG_INF / 2
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m).masked_fill(masked, 0.0)
@@ -487,11 +489,12 @@ def test_f32_tolerance_accepts_split_tf32_and_rejects_one_pass(causal):
                                           torch.float32) > 1.0, name
 
 
-@pytest.mark.parametrize("Dh", [384, 512])
+@pytest.mark.parametrize("Dh", [256, 384, 512])
 @pytest.mark.parametrize("causal", [False, True])
 def test_f32_wide_head_tolerance_accepts_sliced_split_tf32(Dh, causal):
-    """The f32 backward at D = 384 and 512 (clusters of D / 128 blocks)
-    sums each score product as partials over 128-column slices, one per
+    """The f32 kernels at D = 256, 384 and 512 (clusters of D / 128
+    blocks) sum each score product, the forward's and the backward's, as
+    partials over 128-column slices, one per
     block, added in f32 in rank order: emulated so with three TF32 passes,
     O, dQ, dK and dV stay within 0.1 of the f32 tolerance of the plain f32
     version (L too), and with one pass each lands above it (B=1, H=2,
@@ -520,8 +523,8 @@ def _rz(x):
 
 
 def _scores_tc(a, b, chained):
-    """The score a.b^T (a, b: (T, D) f32) as the f32 backward's clusters
-    sum it at D > 256: one partial per 128-column slice (one cluster
+    """The score a.b^T (a, b: (T, D) f32) as the f32 clusters sum it at
+    D > 128: one partial per 128-column slice (one cluster
     member's), computed as the tensor cores sum it, and the partials added
     in f32 in rank order. A partial takes, per k-step of 8, three m16n8k8
     passes (small terms first), each adding its exact products to the
@@ -548,14 +551,14 @@ def _scores_tc(a, b, chained):
     return total
 
 
-@pytest.mark.parametrize("Dh", [384, 512])
+@pytest.mark.parametrize("Dh", [256, 384, 512])
 def test_cancelling_scores_tell_a_chained_accumulator(Dh):
     """What the card check's cancelling case (`chip_smoke.
     flash_cancel_inputs`, a = 3) rests on: q = a r u + n / a, k = a s +
     n' / a (r, s a sign per query and per key, u = +1 on the first 64
     columns of each 128-column slice and -1 on the last 64), so each
     slice's running score sum climbs to about 64 a^2 and falls back.
-    Scores summed as the f32 backward's clusters sum them (tensor-core
+    Scores summed as the f32 clusters sum them (tensor-core
     truncation emulated: `_scores_tc`), P, dS and the outputs in f64
     from them, against the plain backward in f64 (causal, B=1, H=1,
     T=256): fresh accumulators stay within 0.5 of the f32 tolerance in
@@ -590,6 +593,52 @@ def test_cancelling_scores_tell_a_chained_accumulator(Dh):
             fa.error_in_tolerances(n, g[None, :, None], w, torch.float32)
             for n, g, w in zip(("dQ", "dK", "dV"), got, ref))
     assert worst[False] <= 0.5 and worst[True] > 1.0, worst
+
+
+def _scores_from_rank(a, b, first):
+    """a.b^T (a, b: (T, D) f32) as one cluster member sums it: partials
+    over 128-column slices added in f32 in rank order around the cluster
+    from rank `first` (0 in every member of the kernels)."""
+    parts = [a[:, c:c + 128] @ b[:, c:c + 128].T
+             for c in range(0, a.shape[1], 128)]
+    total = parts[first]
+    for r in range(1, len(parts)):
+        total = total + parts[(first + r) % len(parts)]
+    return total
+
+
+@pytest.mark.parametrize("Dh", [384, 512])
+@pytest.mark.parametrize("causal", [False, True])
+def test_repeated_v_slices_tell_members_that_order_partials_apart(Dh,
+                                                                  causal):
+    """What the card check's forward slice bits rest on (`chip_smoke.
+    flash_fwd_sliced_inputs`: q and k random, v's 128-column slices one
+    slice repeated; B=1, H=1, T=256): member r's slice of O is softmax(S)
+    v's slice r, with S as member r sums the partial scores. Members that
+    all add them in rank order give bit-identical O slices; members that
+    each start from their own rank give O slices that differ in bits,
+    though each stays within the f32 tolerance of the plain forward, so
+    only the bits tell. (At D = 256 both orders of two partials give the
+    same f32 sum.)"""
+    q, k, v, _ = _chip_smoke().flash_fwd_sliced_inputs(
+        torch, 1, 256, 1, Dh, seed=Dh + causal, device="cpu")
+    scale = 1.0 / np.sqrt(Dh)
+    keep = fa._keep(256, 256, q.device)
+    ref, _ = fa.flash_attention_plain_fwd(q, k, v, causal)
+
+    def o_slice(first):
+        s = _scores_from_rank(q[0, :, 0], k[0, :, 0], first) * scale
+        if causal:
+            s = s.masked_fill(~keep, fa.NEG_INF)
+        return torch.softmax(s, dim=-1) @ v[0, :, 0, :128]
+
+    ranked = [o_slice(0) for _ in range(Dh // 128)]
+    own = [o_slice(r) for r in range(Dh // 128)]
+    assert all(torch.equal(ranked[0], o) for o in ranked[1:])
+    assert not all(torch.equal(own[0], o) for o in own[1:])
+    for r, o in enumerate(own):
+        want = ref[0, :, 0, 128 * r:128 * (r + 1)]
+        assert fa.error_in_tolerances("O", o, want, torch.float32) <= 1.0
 
 
 def _chip_smoke():
@@ -1009,23 +1058,25 @@ def test_tf32_kernels_cases_and_bits():
 
 @pytest.mark.gpu
 def test_f32_wide_head_backward_cases_and_bits():
-    """The f32 backward at D = 384 and 512 (split-TF32 clusters of D / 128
-    blocks, by their route counts; shared memory within the card's limit)
-    against the plain backward in f32 on the forward kernel's O and L, row
-    by row within `fa.error_in_tolerances`: T = 512 and 2048, causal and
-    full, Tq=512 x Tk=1024 full, and q, k, v sliced from one fused qkv
-    tensor; each call twice, with identical bits. On inputs whose
-    128-column slices of q, k and dO repeat, each output's slices are
-    bit-identical (every block of a cluster sums the partial scores in
-    the same order)."""
+    """The f32 forward, dQ and dK/dV at D = 256, 384 and 512 (split-TF32
+    clusters of D / 128 blocks, by their route counts; shared memory
+    within the card's limit) against the plain versions in f32 (the
+    backward on the forward kernel's O and L), row by row within
+    `fa.error_in_tolerances`: T = 512 and 2048, causal and full, Tq=512 x
+    Tk=1024 full, and q, k, v sliced from one fused qkv tensor; each
+    backward twice, with identical bits. On inputs whose 128-column slices
+    of q, k and dO repeat, each backward output's slices are
+    bit-identical, and on inputs whose v slices repeat, O's are (every
+    block of a cluster sums the partial scores in the same order)."""
     _card()
     from deeplearning4j_tpu_torch.ops.kernel_dispatch import smem_limit_bytes
 
     g = torch.Generator(device="cuda").manual_seed(41)
     r = lambda *s: torch.randn(s, generator=g, device="cuda")
     lib = fa._library()
-    for Dh in (384, 512):
-        for kind in (1, 2):
+    cs = _chip_smoke()
+    for Dh in (256, 384, 512):
+        for kind in (0, 1, 2):
             assert lib.dl4j_flash_route(kind, 0, Dh) == 0  # "tf32 cluster"
             assert lib.dl4j_flash_smem_bytes(kind, 0, Dh) <= \
                 smem_limit_bytes(torch.device("cuda"))
@@ -1038,9 +1089,12 @@ def test_f32_wide_head_backward_cases_and_bits():
         sliced.insert(2, r(1, 512, 2, Dh))  # q, k, v, dO: v's slices differ
         cases = [([r(1, T, 2, Dh) for _ in range(4)], causal)
                  for T in (512, 2048) for causal in (False, True)]
+        v_sliced = list(cs.flash_fwd_sliced_inputs(torch, 1, 512, 2, Dh,
+                                                   seed=Dh))
         cases += [([r(1, 512, 2, Dh), r(1, 1024, 2, Dh), r(1, 1024, 2, Dh),
                     r(1, 512, 2, Dh)], False),
-                  (fused, True), (sliced, False), (sliced, True)]
+                  (fused, True), (sliced, False), (sliced, True),
+                  (v_sliced, False), (v_sliced, True)]
         for i, ((q, k, v, do), causal) in enumerate(cases):
             fa.reset_counts()
             o, lse = fa.flash_forward(q, k, v, causal, None, with_lse=True)
@@ -1049,10 +1103,19 @@ def test_f32_wide_head_backward_cases_and_bits():
                     + fa.flash_bwd_dkv(q, k, v, do, lse, dsum, causal, None)
                     for _ in range(2)]
             assert fa.launches_by_route == {
-                ("fwd", "tf32"): 1, ("dq", "tf32 cluster"): 2,
+                ("fwd", "tf32 cluster"): 1, ("dq", "tf32 cluster"): 2,
                 ("dkv", "tf32 cluster"): 2}
+            ro, rl = fa.flash_attention_plain_fwd(q, k, v, causal)
             ref = fa.flash_attention_plain_bwd(q, k, v, o, lse, do, causal)
             torch.cuda.synchronize()
+            assert fa.error_in_tolerances("O", o, ro,
+                                          torch.float32) <= 1.0, (Dh, i)
+            assert fa.error_in_tolerances("L", lse, rl,
+                                          torch.float32) <= 1.0, (Dh, i)
+            if v is v_sliced[2]:
+                for c in range(128, Dh, 128):
+                    assert torch.equal(o[..., :128],
+                                       o[..., c:c + 128]), (Dh, i)
             for name, a, b, want in zip(("dQ", "dK", "dV"), runs[0], runs[1],
                                         ref):
                 assert torch.equal(a, b), (Dh, i, name)
