@@ -43,9 +43,9 @@ belongs to):
   of dQ, dK and dV must be bit-identical, "halves bits");
 - paged: every case of `chip_smoke.paged_cases` (dense and int8 pools,
   decode, verify and chunk widths, the ragged row tiles, head dims 64 to
-  256, pages of 1 to 512), read in units of the tolerance atol + rtol *
-  |ref|; a non-finite output or a written inactive lane counts as
-  infinite;
+  256, pages of 1 to 512, f32 q on a chunk with sharp scores), read in
+  units of the tolerance atol + rtol * |ref|; a non-finite output or a
+  written inactive lane counts as infinite;
 - lstm: every case of `chip_smoke.lstm_cases` (forward and backward
   kernels, f32 and bf16, masked and not, forward and reverse, both bf16
   forward routes, the ragged H=196, odd 195 and 385, B=37 and 300,
@@ -53,9 +53,9 @@ belongs to):
   to the plain versions (`lstm.error_in_tolerances`), as phase 11 does,
   and the f32 kernels on one step whose product cancels
   (`chip_smoke.lstm_cancel_units`, against the plain version in f64), and
-  the cooperative bf16 forward on inputs whose rows 8-15 of every 16
-  repeat rows 0-7 (`chip_smoke.lstm_mirror_units`, B = 64 and 128: the
-  repeated rows must be bit-identical, "mirror bits");
+  the cooperative bf16 forward and backward on inputs whose rows 8-15 of
+  every 16 repeat rows 0-7 (`chip_smoke.lstm_mirror_units`, B = 64 and
+  128: the repeated rows must be bit-identical, "mirror bits");
 - guard: `chip_smoke.py`'s phase 20 (path 4e, the training loop on the
   bf16 LSTM kernels), whose failed check counts as caught;
 - server: `chip_smoke.py`'s phase 21 (path 5, the GPT behind
@@ -156,7 +156,11 @@ forward's diagonal K/V tile skipped, its final K/V tile dropped, each
 member's softmax taken over its own partial scores (no exchange), and
 one partial buffer instead of two (a race that opens only if a member
 falls a whole step behind its peers); the paged walk's
-split merge, key slices and int8 rounding point; the bf16 LSTM
+split merge, key slices and int8 rounding point; the f32 chunk kernel's
+split TF32 (the small parts dropped from the score product or from P.V,
+which only the sharp chunk case shows), its score tile's keys in the
+wrong order, int8 slices dequantized with the other stage's scales and
+the last slice of a block's walk dropped; the bf16 LSTM
 backward's cluster barrier between its two phases, and its row tile
 reading dz from the next tile's rows; the bf16 LSTM forward's h rows
 loaded before the cluster barrier and its xw tile of the wrong step; the
@@ -170,6 +174,12 @@ read before its TMA arrival, one warpgroup adding the split-K partials
 in its own order (which only the mirror bits show), the split-K
 hand-over reading the warpgroup's own partials, the xw tile of step t+2
 used at step t and the stash stored at the next step's position; the
+cooperative bf16 backward's step counter (not waited for, or waited for
+at the previous step's count: dz[t] read before it is stored), a dz
+stage read before its TMA arrival, a ring stage refilled before its
+release, the block's RW slice one unit off, the split-K hand-over
+reading the warpgroup's own partials and the next step's stash loaded
+from the same step; the
 training loop's finite guard: a non-finite step committed, every finite
 step after the first skip skipped, the iteration held on a skip, and the
 gradient norm without the first layer's gradients; the serving tier
@@ -383,11 +393,16 @@ DQTC = "flash_bwd_dq_tf32_cluster_kernel(const Args a) {"
 FWDTC = "flash_fwd_tf32_cluster_kernel(const Args a) {"
 DKVTC = "flash_bwd_dkv_tf32_cluster_kernel(const Args a) {"
 SCAL = "paged_attention_kernel(const Call c) {"
+TFK = "paged_attention_tf32_kernel(const Call c) {"
+DEQ32 = "__device__ __forceinline__ void dequantize_f32("
 PV = "// acc (TR, hd) = acc * corr + P . V"
 STAGE = "__device__ __forceinline__ void stage_slice("
 KVV = "__device__ __forceinline__ float kv_value("
 MERGE = "paged_merge_kernel(const Call c) {"
 CELL = "__device__ void coop_consumer(CoopSmem& sm,"
+BCONS = "__device__ void bwd_coop_consumer(BwdCoopSmem& sm,"
+BPROD = "__device__ void bwd_coop_producer(BwdCoopSmem& sm,"
+BKER = "    lstm_bwd_coop_kernel(const __grid_constant__ BwdCoopMaps maps,"
 CONS = "__device__ void cluster_consumer(ClusterSmem& sm,"
 PROD = "__device__ void cluster_producer(ClusterSmem& sm,"
 COOPP = "__device__ void coop_producer(CoopSmem& sm,"
@@ -576,7 +591,7 @@ MUTATIONS = [
          "if (qi != 40) issue_pb64(dv, p, sm.dO[st][0]);")]),
     ("f32 (TF32): the small terms dropped (one TF32 pass)", FLASH, MMA3, [
         ("  mma_tf32(d, a.small, b.big[0], b.big[1]);\n"
-         "  mma_tf32(d, a.big, b.small[0], b.small[1]);\n", "")]),
+         "  mma_tf32(d, a.big, b.small[0], b.small[1]);\n", "")], "sm90.cuh"),
     ("f32 (TF32): the big part not rounded by cvt.rna (truncated)", FLASH,
      SPLIT, [("big = tf32_rna(x);", "big = __float_as_uint(x);")],
      "sm90.cuh"),
@@ -586,7 +601,7 @@ MUTATIONS = [
                    "__uint_as_float(s[3])));",
                    "make_float4(0.f, 0.f, 0.f, 0.f));")]),
     ("f32 (TF32): a fresh accumulator overwrites the running sum", FLASH,
-     ADD_ACC, [("acc[e] += t[e];", "acc[e] = t[e];")]),
+     ADD_ACC, [("acc[e] += t[e];", "acc[e] = t[e];")], "sm90.cuh"),
     ("f32 forward (TF32) skips its diagonal K/V tile", FLASH, FWDT, [
         (NK_TF, "const int nk = a.causal ? (q0 + BLK) / KB - 1 : a.Tk / KB;")]),
     ("f32 forward (TF32) drops the final K/V tile", FLASH, FWDT, [
@@ -663,6 +678,26 @@ MUTATIONS = [
     ("paged: the int8 scale applied after the rounding to q's type", PAGED,
      KVV, [("return to_f32(from_f32<T>((float)v * scale));",
             "return to_f32(from_f32<T>((float)v)) * scale;")]),
+    # the f32 chunk kernel (split TF32 on mma.sync)
+    ("paged tf32: the small TF32 parts dropped from the score product",
+     PAGED, TFK, [("          sm90::mma3(tacc, a[x], b);",
+                   "          sm90::mma_tf32(tacc, a[x].big, b.big[0], "
+                   "b.big[1]);")]),
+    ("paged tf32: the small TF32 parts dropped from the P.V product",
+     PAGED, TFK, [("          sm90::mma3(tacc[i], pa[kk], b);",
+                   "          sm90::mma_tf32(tacc[i], pa[kk].big, b.big[0], "
+                   "b.big[1]);")]),
+    ("paged tf32: the score tile's keys not permuted (perm8 dropped)",
+     PAGED, TFK, [("(k0 + 8 * x + t) * kLdk + 8 * n + perm8(g);",
+                   "(k0 + 8 * x + t) * kLdk + 8 * n + g;")]),
+    ("paged tf32: an int8 slice dequantized with the other stage's scales",
+     PAGED, DEQ32, [("const float* sc = sm.rks[buf] + kk;",
+                     "const float* sc = sm.rks[buf ^ 1] + kk;"),
+                    ("const float sc = sm.rvs[buf][kk];",
+                     "const float sc = sm.rvs[buf ^ 1][kk];")]),
+    ("paged tf32: the last slice of a block's walk dropped", PAGED, TFK, [
+        ("  for (int j = w.j0; j < w.j1; ++j) {",
+         "  for (int j = w.j0; j < w.j1 - (w.j1 - w.j0 > 1); ++j) {")]),
     ("lstm: the input gate's peephole term dropped", LSTM, CELL, [
         ("const float ig = sigm_fast(z(0) + pI[e] * cp);",
          "const float ig = sigm_fast(z(0));")]),
@@ -703,6 +738,30 @@ MUTATIONS = [
          "      const int tn = a.reverse ? (t > 0 ? t - 1 : t)\n"
          "                               : (t + 1 < a.T ? t + 1 : t);\n"
          "      const long long row = (long long)tn * B + r, o = row * H + u;")]),
+    # the cooperative bf16 backward (B <= 128, H <= 1024)
+    ("lstm bwd coop: dz[t] read without waiting for the step counter",
+     LSTM, BPROD, [("        sm90::flag_wait(a.sync, gridDim.x * "
+                    "(unsigned)(s + 1));\n", "")]),
+    ("lstm bwd coop: the step counter waited for at the previous step's "
+     "count", LSTM, BPROD, [
+         ("sm90::flag_wait(a.sync, gridDim.x * (unsigned)(s + 1));",
+          "sm90::flag_wait(a.sync, gridDim.x * (unsigned)s);")]),
+    ("lstm bwd coop: a dz stage read before its TMA arrival", LSTM, BCONS, [
+        ("      sm90::mbar_wait(&sm.full[st], (q / S) & 1);",
+         "      if (c + cstep < nst) sm90::mbar_wait(&sm.full[st], "
+         "(q / S) & 1);")]),
+    ("lstm bwd coop: a ring stage refilled before its release", LSTM,
+     BPROD, [("      sm90::mbar_wait_cluster(&sm.empty[st], "
+              "((q / S) & 1) ^ 1);\n", "")]),
+    ("lstm bwd coop: the RW slice one unit off", LSTM, BKER, [
+        ("                        blockIdx.x * kBcUnits);",
+         "                        blockIdx.x * kBcUnits + 1);")]),
+    ("lstm bwd coop: the split-K hand-over reads the warpgroup's own "
+     "partials", LSTM, BCONS, [("peer[i] = sm.xchg[1 - wg][i][wt];",
+                                "peer[i] = sm.xchg[wg][i][wt];")]),
+    ("lstm bwd coop: the next step's stash loaded from this step", LSTM,
+     BCONS, [("if (s + 1 < a.T) load_stash(s + 1);",
+              "if (s + 1 < a.T) load_stash(s);")]),
     # f32 keeps a ragged H (196 = 128 + 68 units in two blocks)
     ("lstm: the last 4 units of a ragged f32 block never written", LSTM,
      TFF, [("      if (u < H) {\n        const float pI",

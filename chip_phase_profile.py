@@ -208,6 +208,106 @@ COOP_EDITS = [
 }
 """),
 ]
+# The cooperative bf16 backward: block 0's consumer warpgroups sum their
+# SM cycles a step over the cell phase (the gate chain from the stash in
+# registers, the dz[t] stores), the publication (fence, block barrier,
+# the arrival on the step counter), the issue of the next step's stash
+# loads, the waits for the dz[t] stages (the TMA loads, and behind them
+# the counter), the rest of the product (the wgmma commit groups, one a
+# stage) and the hand-over with the dh carry; its producer warp the wait
+# for the counter and the arming of the ring's stages
+BWD_COOP_EDITS = [
+    ("""  float acc[4][8];
+  uint32_t q0 = 0;  // stages of earlier steps
+  for (int s = 0; s < a.T; ++s) {
+    const CoopStep sp(a, s);
+""", """  float acc[4][8];
+  uint32_t q0 = 0;  // stages of earlier steps
+  long long pc = 0, pu = 0, pl = 0, pw = 0, pp = 0, ph = 0;
+  for (int s = 0; s < a.T; ++s) {
+    const CoopStep sp(a, s);
+    const long long k0 = clock64();
+    long long kw = 0;
+"""),
+    ("""    // ---- dz[t] published: fenced for the TMA loads that read it, then
+""", """    const long long k1 = clock64();
+    // ---- dz[t] published: fenced for the TMA loads that read it, then
+"""),
+    ("""    if (s + 1 < a.T) load_stash(s + 1);  // in flight during the product
+""", """    const long long k2 = clock64();
+    if (s + 1 < a.T) load_stash(s + 1);  // in flight during the product
+    const long long k3 = clock64();
+"""),
+    ("""      const uint32_t q = q0 + c, st = q % S;
+      sm90::mbar_wait(&sm.full[st], (q / S) & 1);
+""", """      const uint32_t q = q0 + c, st = q % S;
+      const long long kw0 = clock64();
+      sm90::mbar_wait(&sm.full[st], (q / S) & 1);
+      kw += clock64() - kw0;
+"""),
+    ("""    // this warpgroup's partial of accumulator element i (split K with
+    // one stage: warpgroup 1 has none)
+    auto part = [&](int i) { return n > 0 ? sum[i] : 0.f; };
+    float peer[4] = {};""", """    const long long k4 = clock64();
+    // this warpgroup's partial of accumulator element i (split K with
+    // one stage: warpgroup 1 has none)
+    auto part = [&](int i) { return n > 0 ? sum[i] : 0.f; };
+    float peer[4] = {};"""),
+    ("""          if (sp.first && live(rr, j))
+            a.dhc0[(long long)(rb + 8 * rr) * H + u0 + 8 * j + e] =
+                dhc[rr][j][e];
+        }
+  }
+}
+""", """          if (sp.first && live(rr, j))
+            a.dhc0[(long long)(rb + 8 * rr) * H + u0 + 8 * j + e] =
+                dhc[rr][j][e];
+        }
+    const long long k5 = clock64();
+    pc += k1 - k0, pu += k2 - k1, pl += k3 - k2, pw += kw;
+    pp += k4 - k3 - kw, ph += k5 - k4;
+  }
+  if (blockIdx.x == 0 && tid % 128 == 0)
+    printf("PHASES bwd coop T=%d B=%d H=%d masked=%d split=%d stages=%d "
+           "cluster=%d wg=%d: cell %lld, publish %lld, stash issue %lld, "
+           "dz waits %lld, product %lld, hand-over %lld cycles per step\\n",
+           a.T, B, H, (int)MASKED, (int)split, S, C, wg, pc / a.T, pu / a.T,
+           pl / a.T, pw / a.T, pp / a.T, ph / a.T);
+}
+"""),
+    ("""  const uint32_t cb = a.rows * kChunk * 2;  // bytes of a chunk's box
+  uint32_t q = 0;  // stages armed so far
+""", """  const uint32_t cb = a.rows * kChunk * 2;  // bytes of a chunk's box
+  uint32_t q = 0;  // stages armed so far
+  long long fw = 0, fe = 0;
+"""),
+    ("""      sm90::mbar_wait_cluster(&sm.empty[st], ((q / S) & 1) ^ 1);
+      sm90::mbar_expect_tx(&sm.full[st], NB * cb);""", """      const long long e0 = clock64();
+      sm90::mbar_wait_cluster(&sm.empty[st], ((q / S) & 1) ^ 1);
+      fe += clock64() - e0;
+      sm90::mbar_expect_tx(&sm.full[st], NB * cb);"""),
+    ("""        sm90::flag_wait(a.sync, gridDim.x * (unsigned)(s + 1));
+""", """        const long long f0 = clock64();
+        sm90::flag_wait(a.sync, gridDim.x * (unsigned)(s + 1));
+        fw += clock64() - f0;
+"""),
+    ("""          sm90::tma_load_3d_multicast(dst, &m.dz, &sm.full[st], mask, k0, 0,
+                                      sp.t);
+      }
+    }
+  }
+}
+""", """          sm90::tma_load_3d_multicast(dst, &m.dz, &sm.full[st], mask, k0, 0,
+                                      sp.t);
+      }
+    }
+  }
+  if (blockIdx.x == 0)
+    printf("PHASES bwd coop producer T=%d: counter wait %lld, stage arming "
+           "%lld cycles per step\\n", a.T, fw / a.T, fe / a.T);
+}
+"""),
+]
 # The cooperative forward on mma.sync (h rows from L2, grid.sync), as the
 # commits before its redesign hold it: block (0, 0)'s warp 0 sums its
 # cycles a step over the h loads and products (one 16-row tile), the
@@ -633,6 +733,12 @@ def run(root: str) -> None:
         L.lstm_fwd(inp["xw"], inp["rw"], inp["peep"], inp["h0"], inp["c0"],
                    inp["mask"], with_stash=stash)
         torch.cuda.synchronize()
+    # the bf16 backward at the same shapes (the cooperative kernel where
+    # the package has one); the forward's prints come first
+    for T, B, masked in ((50, 32, False), (64, 128, False), (64, 128, True)):
+        inp = cs.lstm_inputs(torch, T, B, 1024, torch.bfloat16, 79, masked)
+        cs.lstm_run(L, inp, False)
+        torch.cuda.synchronize()
     for T, B, H, masked in ((8, 2048, 1024, False), (8, 8192, 256, False),
                             (8, 8192, 256, True)):
         inp = cs.lstm_inputs(torch, T, B, H, torch.bfloat16, 77, masked)
@@ -681,10 +787,13 @@ def main(argv) -> int:
                         ignore=shutil.ignore_patterns("_build", "__pycache__"))
         path = os.path.join(root, PKG, "csrc", "lstm.cu")
         with open(path) as f:
-            old_coop = "cg::this_grid()" in f.read()
+            text = f.read()
+        old_coop = "cg::this_grid()" in text
+        has_bwd_coop = "lstm_bwd_coop_kernel" in text
         for name, edits in (
                 ("lstm", LSTM_EDITS + TF32_EDITS
-                 + (COOP_OLD_EDITS if old_coop else COOP_EDITS)),
+                 + (COOP_OLD_EDITS if old_coop else COOP_EDITS)
+                 + (BWD_COOP_EDITS if has_bwd_coop else [])),
                 ("flash_attention",
                  FLASH_EDITS + CLUSTER_EDITS + CLUSTER_BF16_EDITS)):
             path = os.path.join(root, PKG, "csrc", f"{name}.cu")

@@ -5,6 +5,7 @@ NVIDIA card.
     python3 chip_smoke.py            # every phase, a few minutes on an H100
     python3 chip_smoke.py --lstm-timing [--package OLD/deeplearning4j_tpu_torch]
     python3 chip_smoke.py --flash-timing [--package OLD/deeplearning4j_tpu_torch]
+    python3 chip_smoke.py --paged-timing [--package OLD/deeplearning4j_tpu_torch]
     python3 chip_smoke.py --path5    # phase 21 alone (about 1.5 minutes)
     python3 chip_smoke.py --phases-22-23   # the CNN and MoE phases alone
     python3 chip_smoke.py --phases-24-26   # the graph and pretraining phases
@@ -24,7 +25,8 @@ checked and timed, launch counts 0) on the checkout's package or, with
 the rows' times. Run it old/new/new/old in one call for a kernel A/B.
 `--flash-timing` does the same for phase 16's f32 flash rows at head
 dims 256-512 (B=2, H=4, T=2048, and paths 2fw's and 2fx's shapes;
-`f32_cluster_rows`).
+`f32_cluster_rows`), `--paged-timing` for row 1's f32 chunk rows (C=256:
+dense at path 1's shapes, int8 at one 14a shard's; `paged_f32_rows`).
 `--path5` builds the paged and flash sources and runs phase 21 (path 5,
 the GPT behind `ModelServer`) alone, then prints one JSON line of its
 launch counts. `--phases-22-23` builds the paged and flash sources and
@@ -74,9 +76,15 @@ Phases, each of which makes the script exit non-zero when it fails:
    that rounds the dequantized K/V to q's type as the kernel does, same
    tolerances, and at a decode with sharp scores (q x16: the softmax
    magnifies any error in the dequantized K); both families also at
-   head_dim 256 with pages of 256 and 128, head_dim 128 with pages of 512,
-   and head_dim 64 and 128 with pages of 1 and 2 positions (decode,
-   verify and chunk widths);
+   head_dim 256 with pages of 256 and 128, head_dim 128 with pages of 512
+   and 64, and head_dim 64 and 128 with pages of 1 and 2 positions
+   (decode, verify and chunk widths); f32 q also on a chunk with sharp
+   scores over few keys (q x4 at position 600, GQA: one TF32 pass in
+   either product falls outside the f32 tolerance there); every call on
+   the route `paged_attention.plan` gives it (by
+   `paged_attention.launches_by_route`), every C=256 chunk on a
+   tensor-core route: "mma" for bf16 q, the split-TF32 kernel ("tf32")
+   for f32 q, dense and int8 pools;
 4. flash kernels: forward (O and L), dQ and dK/dV against the plain
    versions computed in f32 on the same inputs (the backward's include
    the O and L the forward kernel gave), f32 and bf16, causal and not,
@@ -149,6 +157,17 @@ Phases, each of which makes the script exit non-zero when it fails:
    the int8 kernel must have launched at C=1 (draft steps), C=5 (verify)
    and at a prefill chunk width, the dense kernel and the plain version
    not at all; `prefix_hit_tokens_pct` > 0, `spec_tokens_per_step` > 1;
+   then path 1f: path 1's network with f32 parameters and no
+   `compute_dtype` (`MultiLayerNetwork`'s default) behind path 1's engine
+   (with `logprobs=1`) and traffic, after a warm-up, twice
+   (`SERVE_F32_REPEATS`; tokens/s); counts set to 0 before and read
+   after: every C=256 launch on the split-TF32 chunk kernel ("tf32" in
+   `paged_attention.launches_by_route`), every decode launch on
+   "scalar", nothing else, no call of a plain version; greedy tokens
+   identical across the runs; the first generated token of a 4096-token
+   prompt with its log-probability within `PATH1F_LOGPROB_ATOL` (1e-4)
+   of the log of `net.output`'s last-position probability on the card;
+   one traced batch (top kernels); its launches go into row 1's f32 rows;
 9. train (main path 2): the full-width bf16 `gpt_long` network (vocab 256,
    d_model 1024, 8 heads of 128, 8 layers, max_length 4096,
    attention_block_size 512, Adam 3e-4, f32 masters) fed B=8 x T=4096
@@ -185,13 +204,14 @@ Phases, each of which makes the script exit non-zero when it fails:
    backward on the forward kernel's own stash), every output held row by
    row (`lstm.error_in_tolerances`: 1e-4 f32, 2^-6 bf16, of the row's
    largest |ref|), and the forward without the stash beside it (h_out,
-   hT, cT); the cooperative bf16 forward at B = 1, 31, 32, 33, 100, H =
-   1024 and 196, masked and not, forward and reverse (`lstm_coop_cases`),
-   each also run twice with bit-identical outputs (with and without the
-   stash, and the backward on its stash) and every forward launch on
-   "cooperative", and on inputs whose rows 8-15 of every 16 repeat rows
-   0-7 (B = 64, where its warpgroups split K, and 128; T=50): the
-   repeated rows bit-identical; the f32 kernels (split TF32, two forward
+   hT, cT); the cooperative bf16 forward and backward at B = 1, 31, 32,
+   33, 100, 128, H = 1024 and 196, masked and not, forward and reverse
+   (`lstm_coop_cases`), each also run twice with bit-identical outputs
+   (the forward with and without the stash, the backward on its stash)
+   and every launch of both on "cooperative", and on inputs whose rows
+   8-15 of every 16 repeat rows 0-7 (B = 64, where their warpgroups split
+   K, and 128; T=50; the forward's inputs and the backward's cotangents):
+   the repeated rows bit-identical; the f32 kernels (split TF32, two forward
    passes a block at H=2048) run twice with bit-identical outputs, and the
    split-TF32
    forward and backward on one step whose product cancels (partial sums
@@ -263,16 +283,18 @@ Phases, each of which makes the script exit non-zero when it fails:
 17. LSTM timing: rows 5-8 at main path 4's shape (T=64, B=2048, H=1024,
    unmasked), main path 4b's window (T=24, B=8192, H=256, unmasked and
    masked) and main path 4s's window (T=50, B=32, H=1024: the cooperative
-   forward with and without the stash, the cluster backward) and its
+   forward with and without the stash, the cooperative backward) and its
    `output` (T=1000, B=32: the forward without the stash), bf16, the
    same way, beside their plain versions, the bound (2*T*B*H*4H flops;
    each input read and each output written once) and cuDNN's LSTM as
    yardstick (`torch.nn.LSTM`: no peepholes, its own input GEMM; forward
    minus one input matmul, and fwd+bwd minus fwd), with each launch plan;
-   the two bf16 forward routes at their boundary (T=64, H=1024, B=128
-   cooperative with and without the stash and masked, B=129 and 256
-   clusters), the cooperative rows beside the time of the mma.sync
-   kernel they replaced (`LSTM_COOP_MMA_MS`); the f32 kernels (split TF32) at T=8, B=2048,
+   the two bf16 routes of each pass at their boundary (T=64, H=1024,
+   B=128 cooperative: the forward with and without the stash, both
+   passes masked and not; B=129 clusters, both passes; B=256 the cluster
+   forward), the cooperative rows beside the time of the kernel they
+   replaced where PERF.md has it (`LSTM_COOP_MMA_MS`,
+   `LSTM_BWD_CLUSTER_MS`); the f32 kernels (split TF32) at T=8, B=2048,
    H=1024, at path
    4f's shape (T=64, with its launch counts) and masked at path 4b's
    window, against cuDNN in f32 (TF32 off), bound 3 x flops / 495
@@ -291,8 +313,8 @@ Phases, each of which makes the script exit non-zero when it fails:
    warm-up fit, 5 timed fits (median wall and its spread, samples/s,
    loss (finite), peak device memory); counts set to 0 before the first
    and read after it: 40 unmasked
-   forward launches, all on "cooperative", and 40 unmasked backward
-   launches on "bf16 clusters", nothing masked, no plain call; then one
+   forward launches and 40 unmasked backward launches, all on
+   "cooperative", nothing masked, no plain call; then one
    `output` of the batch from the network (its f32 masters, as the JAX
    package's `output` runs: 2 forward launches without the stash on "tf32
    clusters") and one from a bf16 copy of it (the same weights, `dtype=
@@ -1039,7 +1061,8 @@ def paged_cases(torch):
     """The kernel checks: (name, keywords of `paged_inputs`). Dense pools
     at the serving widths and at the ragged row tiles; int8 pools at the
     decode, verify and chunk widths, MHA and GQA; both at head dims 64 and
-    256 and pages of 1, 2, 256 and 512 positions."""
+    256 and pages of 1, 2, 64, 256 and 512 positions; f32 q also on a
+    chunk with sharp scores."""
     base = dict(H=8, hd=128, page=128, n_pages=34)
     decode_pos = [0, 1, 127, 128, 1000, 2047, 4222, 4351]
     verify_pos = [0, 1, 125, 128, 1000, 2047, 4222, 4347]
@@ -1067,6 +1090,8 @@ def paged_cases(torch):
             positions=[0, 300, 1500, 2047], inactive=(1,))),
         ("hd=128 page=512 chunk C=256 GQA", dict(
             S=1, C=256, Hkv=2, page=512, n_pages=5, positions=[1800])),
+        ("hd=128 page=64 chunk C=256 GQA", dict(
+            S=1, C=256, Hkv=2, page=64, n_pages=68, positions=[3000])),
         ("hd=128 page=512 decode", dict(
             S=4, C=1, Hkv=8, page=512, n_pages=5,
             positions=[0, 511, 512, 2000])),
@@ -1090,10 +1115,18 @@ def paged_cases(torch):
             S=4, C=1, Hkv=8, n_pages=12, positions=[5, 300, 900, 1400],
             q_scale=16.0)),
     ]
+    # the f32 chunk kernel (split TF32) on sharp scores over few keys: one
+    # TF32 pass in either product lands outside the f32 tolerance here,
+    # while a chunk over thousands of keys averages it away
+    f32_only = [
+        ("chunk C=256 GQA sharp (q x4)", dict(
+            S=1, C=256, Hkv=2, n_pages=8, positions=[600], q_scale=4.0)),
+    ]
     cases = []
     for int8 in (False, True):
         for dtype in (torch.float32, torch.bfloat16):
-            for name, kw in shapes + (int8_only if int8 else []):
+            for name, kw in shapes + (int8_only if int8 else []) \
+                    + (f32_only if dtype == torch.float32 else []):
                 cases.append((f"{'int8 ' if int8 else ''}{name}",
                               dict(base, **dict(kw, dtype=dtype, int8=int8))))
     return cases
@@ -1102,11 +1135,18 @@ def paged_cases(torch):
 def paged_case_error(torch, pa, kw, seed):
     """One kernel call against the plain version: (largest absolute
     error, largest error in units of atol + rtol * |ref| with the
-    dtype's tolerance, whether finite and every inactive lane zero)."""
+    dtype's tolerance, whether finite and every inactive lane zero).
+    The call must take `paged_route(pa, kw)`, by the launch counts."""
     inp = paged_inputs(torch, seed=seed, **kw)
+    before = dict(pa.paged_attention.launches_by_route)
     out = pa.paged_attention(inp["q"], inp["k_pool"], inp["v_pool"],
                              inp["page_table"], inp["positions"],
                              active=inp["active"], **scale_kw(inp))
+    key = (kw["C"], paged_route(torch, pa, kw))
+    if pa.paged_attention.launches_by_route.get(key, 0) \
+            != before.get(key, 0) + 1:
+        raise AssertionError(f"paged call at {kw} not launched on {key}: "
+                             f"{pa.paged_attention.launches_by_route}")
     ref = plain_f32(pa, inp)
     torch.cuda.synchronize()
     t = pa.TOLERANCE[kw["dtype"]]
@@ -1117,14 +1157,30 @@ def paged_case_error(torch, pa, kw, seed):
             clean)
 
 
+def paged_route(torch, pa, kw) -> str:
+    """The route `plan` gives a case of `paged_inputs` keywords: a C=256
+    chunk on pages of 64 or more must get a tensor-core route, "mma"
+    (bf16 q) or "tf32" (f32 q)."""
+    bf16 = kw["dtype"] == torch.bfloat16
+    route = pa.plan(bf16, kw.get("int8", False), kw["S"], kw["C"], kw["H"],
+                    kw["Hkv"], kw["hd"], kw["page"], kw["n_pages"],
+                    torch.cuda.get_device_properties(0)
+                    .multi_processor_count).route
+    if kw["C"] == 256 and kw["page"] >= 64 \
+            and route != ("mma" if bf16 else "tf32"):
+        raise AssertionError(f"a C=256 chunk planned on {route}: {kw}")
+    return route
+
+
 def phase_kernels(torch, pa):
-    """Kernels against plain at the serving shapes."""
+    """Kernels against plain at the serving shapes, each call on the
+    route its plan gives (f32 chunks: the split-TF32 kernel)."""
     for i, (name, kw) in enumerate(paged_cases(torch)):
         err, units, clean = paged_case_error(torch, pa, kw, seed=100 + i)
         ok = clean and units <= 1.0
         log(f"  {name:<30} q {str(kw['dtype'])[6:]:<9} max_abs_err={err:.3e} "
             f"({units:.3f} of tolerance {pa.TOLERANCE[kw['dtype']]}) "
-            f"{'ok' if ok else 'FAIL'}")
+            f"[{paged_route(torch, pa, kw)}] {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"kernel disagrees with plain: {name} "
                                  f"{kw['dtype']} max_abs_err={err}")
@@ -1368,6 +1424,111 @@ def phase_serve_tier(torch, M, pa, card):
     del eng
     torch.cuda.empty_cache()
     return launches
+
+
+# path 1f: path 1's GPT with f32 parameters and no compute dtype
+# (`MultiLayerNetwork`'s default, the precision of a reloaded candidate
+# and of every replica process), behind path 1's engine and traffic
+SERVE_F32_REPEATS = 2
+# The first generated token's log-probability on the engine (the prompt
+# prefilled in 256-token chunks through the split-TF32 chunk kernel)
+# against the log of `net.output`'s last-position probability on the
+# same prompt (the f32 flash forward, also split TF32), both on the card
+# in f32 with TF32 off for the GEMMs: f32-accurate products in both, the
+# f32 sums in other orders through 8 layers. A logit that moved by one
+# TF32 pass (~5e-4 relative per product) would be off by 1e-3 or more
+# (the CPU emulation in `tests/test_torch_paged_attention.py` puts one
+# pass at 8x the kernels' 2e-4 on sharp scores); 1e-4 absolute keeps a
+# tenfold margin over that and above the f32 order effects.
+PATH1F_LOGPROB_ATOL = 1e-4
+
+
+def phase_serve_f32(torch, M, pa, card):
+    """Path 1f: the full-width 8-layer GPT of path 1 (vocab 256, d_model
+    1024, 8 heads of 128) in f32 (no `compute_dtype`) behind path 1's
+    engine (8 slots, pages of 128, prefill chunks of 256, `logprobs=1`),
+    path 1's six requests (`path1_requests`) after a warm-up,
+    `SERVE_F32_REPEATS` times; counts set to 0 before the runs and read
+    after: every C=256 launch on "tf32", every decode launch on "scalar",
+    no other key, no call of a plain version; greedy tokens identical
+    across the runs; the first generated token of a 4096-token prompt
+    with its log-probability within `PATH1F_LOGPROB_ATOL` of the log of
+    `net.output`'s last-position probability; one traced batch. Returns
+    {"paged": launches by (C, pools), "tok_s": generated tokens/s}."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+
+    conf = M["gpt_configuration"](**SERVE, seed=11)
+    net = M["MultiLayerNetwork"](conf, dtype=torch.float32, device="cuda")
+    net.init()
+    if net.compute_dtype is not None:
+        raise AssertionError(f"path 1f: compute dtype {net.compute_dtype}")
+    eng = M["DecodeEngine"](net, n_slots=8, page_size=128, prefill_chunk=256,
+                            prompt_buckets=(128,), max_len=4224, logprobs=1,
+                            device="cuda")
+    V = SERVE["vocab_size"]
+    prompts, n_tok = path1_requests(np)
+    long = max(range(len(prompts)), key=lambda i: len(prompts[i]))
+    runs, walls, lps = [], [], []
+    try:
+        eng.generate(prompts[0][:16], 4)  # warm-up: cuBLAS handles, caching
+        torch.cuda.synchronize()
+        pa.reset_counts()
+        fa.reset_counts()
+        for _ in range(SERVE_F32_REPEATS):
+            t0 = time.perf_counter()
+            reqs = [eng.submit(p, n, logprobs=int(i == long))
+                    for i, (p, n) in enumerate(zip(prompts, n_tok))]
+            runs.append([r.result(timeout=900) for r in reqs])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            lps.append(reqs[long].logprob_values[0])
+        by_route = dict(pa.paged_attention.launches_by_route)
+        launches = dict(pa.paged_attention.launches_by)
+        plain = (pa.paged_attention_plain.calls,
+                 fa.flash_attention_plain_fwd.calls)
+        trace = traced_batch(torch, eng, prompts, n_tok)
+    finally:
+        eng.shutdown()
+    for o, n in zip(runs[0], n_tok):
+        if o.shape != (n,) or o.min() < 0 or o.max() >= V:
+            raise AssertionError(f"path 1f: bad output tokens {o.shape} "
+                                 f"for n={n}")
+    same = all(np.array_equal(a, b) for run in runs[1:]
+               for a, b in zip(runs[0], run))
+    with torch.no_grad():
+        probs = net.output(prompts[long][None].astype(np.int32))
+    tok = int(runs[0][long][0])
+    want = math.log(float(probs[0, -1, tok]))
+    diff = max(abs(lp["logprob"] - want) for lp in lps)
+    toks = int(sum(n_tok))
+    wall = sorted(walls)[len(walls) // 2]
+    log(f"  {len(prompts)} requests (prompts {[len(p) for p in prompts]}, "
+        f"outputs {n_tok}), {SERVE_F32_REPEATS} runs: wall s "
+        f"{[round(w, 4) for w in walls]}; median {toks / wall:.1f} generated "
+        f"tokens/s [{card}]")
+    log(f"  paged launches by (C, route): {by_route}, by (C, pools): "
+        f"{launches}; plain calls (paged, flash): {plain}; greedy tokens "
+        f"identical across the runs: {same}")
+    log(f"  first token of the {len(prompts[long])}-token prompt: {tok}, "
+        f"log-probability {[lp['logprob'] for lp in lps]} on the engine, "
+        f"{want!r} from net.output; largest difference {diff:.3e} "
+        f"(tolerance {PATH1F_LOGPROB_ATOL})")
+    log(f"  traced batch (torch.profiler, not in tokens/s): {trace}")
+    if set(by_route) != {(256, "tf32"), (1, "scalar")} or any(plain) \
+            or any(kind != "dense" for _, kind in launches):
+        raise AssertionError(f"path 1f: expected C=256 chunks on 'tf32' and "
+                             f"decode on 'scalar' only, no plain call: "
+                             f"{by_route}, {launches}, {plain}")
+    if not same:
+        raise AssertionError("path 1f: greedy tokens differ between runs")
+    if any(lp["token"] != tok for lp in lps) or diff > PATH1F_LOGPROB_ATOL:
+        raise AssertionError(f"path 1f: first-token log-probability {lps} "
+                             f"against {want} from net.output (token {tok})")
+    del eng, net
+    torch.cuda.empty_cache()
+    return {"paged": launches, "tok_s": toks / wall}
 
 
 def traced_batch(torch, eng, prompts, n_tok) -> str:
@@ -2384,6 +2545,9 @@ LSTM_4S_FITS = 5  # timed fits after the warm-up; the first is counted
 # 6; `chip_smoke.py --lstm-timing --package OLD` times an earlier package)
 LSTM_COOP_MMA_MS = {(64, 128, False, True): 1.1039,
                     (64, 128, False, False): 0.9858}
+# the bf16 cluster backward's time (PR 5's kernel) where the cooperative
+# backward took over its shapes (PERF.md, T, B, masked: ms)
+LSTM_BWD_CLUSTER_MS = {(50, 32, False): 2.3356}
 
 
 def lstm_inputs(torch, T, B, H, dtype, seed, masked):
@@ -2487,32 +2651,33 @@ def lstm_same_bits(torch, L, T, B, H, dtype, masked, reverse, seed):
 
 
 def lstm_mirror_units(torch, L, T, B, H, masked, seed):
-    """The bf16 forward (with its stash and without) on inputs whose rows
-    8-15 of every 16 repeat rows 0-7 (xw, h0, c0 and the mask): the
-    repeated rows must come out bit-identical, since every row's sums run
-    in one order. In the cooperative kernel at B <= 64 the two warpgroups
-    split K and each finishes one of the two rows of such a pair from
-    both partials, so a warpgroup that adds them in its own order shows
-    here, not against the tolerance. Also held to the plain version:
-    {output: error in tolerances, "mirror bits": 0, or inf when a pair
+    """The bf16 forward (with its stash and without) and the backward on
+    its stash, on inputs whose rows 8-15 of every 16 repeat rows 0-7 (xw,
+    h0, c0, the mask and the cotangents dh, dhT, dcT): the repeated rows
+    must come out bit-identical, since every row's sums run in one order.
+    In the cooperative kernels at B <= 64 the two warpgroups split K and
+    each finishes one of the two rows of such a pair from both partials,
+    so a warpgroup that adds them in its own order shows here, not
+    against the tolerance. Also held to the plain versions: {output:
+    error in tolerances, "mirror bits": 0, or inf when a pair
     differs}."""
     inp = lstm_inputs(torch, T, B, H, torch.bfloat16, seed, masked)
     src = torch.arange(B, device="cuda")
     src = torch.where(src % 16 >= 8, src - 8, src)
-    inp["xw"] = inp["xw"][:, src].contiguous()
-    inp["h0"], inp["c0"] = inp["h0"][src].contiguous(), inp["c0"][src].contiguous()
+    inp["xw"], inp["dh"] = (inp[k][:, src].contiguous() for k in ("xw", "dh"))
+    for k in ("h0", "c0", "dhT", "dcT"):
+        inp[k] = inp[k][src].contiguous()
     if masked:
         inp["mask"] = inp["mask"][:, src].contiguous()
-    got = L.lstm_fwd(inp["xw"], inp["rw"], inp["peep"], inp["h0"],
-                     inp["c0"], inp["mask"])
+    got, bwd = lstm_run(L, inp, False)
     lean = lstm_fwd_no_stash(L, inp, False)
-    ref = L.lstm_fwd_plain(inp["xw"], inp["rw"], inp["peep"], inp["h0"],
-                           inp["c0"], inp["mask"])
+    ref, rb = lstm_plain_ref(L, inp, False, got)
     torch.cuda.synchronize()
     units = {n: L.error_in_tolerances(a, b, torch.bfloat16)
-             for n, a, b in zip(LSTM_OUTS, got, ref) if a is not None}
+             for n, a, b in zip(LSTM_OUTS, list(got) + list(bwd),
+                                list(ref) + list(rb)) if a is not None}
     same = True
-    for t in list(got) + list(lean):
+    for t in list(got) + list(bwd) + list(lean):
         if t is not None:
             rows = t if t.dim() == 2 else t.transpose(0, 1)  # (B, ...)
             same &= torch.equal(rows, rows[src])
@@ -2613,15 +2778,17 @@ def lstm_cases(torch):
 
 
 def lstm_coop_cases():
-    """(T, B, H, masked, reverse) of the cooperative bf16 forward's small
+    """(T, B, H, masked, reverse) of the cooperative bf16 kernels' small
     batches: B = 1, 31, 32, 33 (the warpgroups split K at 64 rows or
     fewer; 31 and 33 are ragged in the 8-row boxes and the 16-row warp
-    tiles) and 100 (each warpgroup its own rows), at H = 1024 (128 blocks
-    in clusters of 2) and the ragged 196 (25 blocks of 8 units padded to
-    32, in clusters of 8), masked and not, forward and reverse; T = 20
-    walks the h ping-pong and the two xw buffers many times."""
+    tiles), 100 and 128 (each warpgroup its own rows), at H = 1024 (the
+    forward's 128 blocks of 8 units in clusters of 2, the backward's 64
+    of 16 in clusters of 8) and the ragged 196 (padded to 200: 25 forward
+    blocks padded to 32, 13 backward blocks, the last half idle, padded
+    to 16), masked and not, forward and reverse; T = 20 walks the h
+    ping-pong, the xw buffers and the backward's dz ring many times."""
     return [(20, B, H, masked, reverse) for H in (1024, 196)
-            for B in (1, 31, 32, 33, 100) for masked in (False, True)
+            for B in (1, 31, 32, 33, 100, 128) for masked in (False, True)
             for reverse in (False, True)]
 
 
@@ -2706,21 +2873,21 @@ def phase_lstm_kernels(torch, L, M):
     for T, B, H, masked, reverse in lstm_coop_cases():
         L.reset_counts()
         lstm_same_bits(torch, L, T, B, H, bf, masked, reverse, seed=41)
-        fwd = {r: n for (k, r), n in L.launches_by_route.items()
-               if k == "fwd"}
-        if set(fwd) != {"cooperative"}:
-            raise AssertionError(f"B={B} H={H}: forward launches by route "
-                                 f"{fwd}, all expected on 'cooperative'")
-    log(f"  bf16 cooperative forward: bits identical on rerun (with and "
-        f"without the stash, and the backward on its stash) and every "
-        f"forward launch on 'cooperative' at B = 1, 31, 32, 33, 100, H = "
-        f"1024 and 196, masked and not, forward and reverse "
-        f"({len(lstm_coop_cases())} cases)")
+        if set(r for _, r in L.launches_by_route) != {"cooperative"}:
+            raise AssertionError(f"B={B} H={H}: launches by route "
+                                 f"{L.launches_by_route}, all expected on "
+                                 "'cooperative' (forward and backward)")
+    log(f"  bf16 cooperative forward and backward: bits identical on rerun "
+        f"(the forward with and without the stash, the backward on its "
+        f"stash) and every launch of both on 'cooperative' at B = 1, 31, "
+        f"32, 33, 100, 128, H = 1024 and 196, masked and not, forward and "
+        f"reverse ({len(lstm_coop_cases())} cases)")
     for B in (64, 128):
         for masked in (False, True):
             units = lstm_mirror_units(torch, L, 50, B, 1024, masked, seed=43)
             worst = max(units.values())
-            log(f"  bf16 cooperative forward, rows 8-15 of every 16 "
+            log(f"  bf16 cooperative forward and backward, rows 8-15 of "
+                f"every 16 "
                 f"repeating rows 0-7, T=50 B={B} H=1024 "
                 f"{'masked' if masked else 'plain'}: repeated rows "
                 f"{'bit-identical' if units['mirror bits'] == 0 else 'DIFFER'}"
@@ -3125,9 +3292,8 @@ def phase_lstm_4s(torch, M, card):
     GravesLSTMCharModellingExample: B=32 sequences of T=1000, tBPTT 50,
     one-hot rows as features (path 4b's reason). A warm-up fit, then
     `LSTM_4S_FITS` timed fits (the median wall and the spread), the first
-    of them counted (20 windows: 40 unmasked forward launches on
-    "cooperative", 40 backward on "bf16 clusters", nothing masked, no
-    plain call), one
+    of them counted (20 windows: 40 unmasked forward launches and 40
+    backward, all on "cooperative", nothing masked, no plain call), one
     `output` of the batch from the network (in its f32 masters, as the
     JAX package's `output` runs: 2 forward launches without the stash on
     "tf32 clusters") and one from a bf16 copy of it (`dtype=bfloat16`, the
@@ -3188,7 +3354,7 @@ def phase_lstm_4s(torch, M, card):
     log(f"  traced fit (torch.profiler, not in the wall time): {trace}")
     n = 2 * n_win
     want = ({("fwd", False, False): n, ("bwd", False, False): n},
-            {("fwd", "cooperative"): n, ("bwd", "bf16 clusters"): n}, (0, 0))
+            {("fwd", "cooperative"): n, ("bwd", "cooperative"): n}, (0, 0))
     want_out = [({("fwd", False, False): 2}, {("fwd", route): 2}, (0, 0))
                 for route in ("tf32 clusters", "cooperative")]
     if fit != want or inf != want_out or not np.isfinite(loss) \
@@ -3265,18 +3431,19 @@ def phase_lstm_timing(torch, L, counts4, counts4b, counts4f):
     unmasked kernels at T=64, B=2048, H=1024; path 4b all four at a
     window of T=24, B=8192, H=256; path 4s the unmasked ones at a window
     of T=50, B=32, H=1024 (the cooperative forward, with the stash in
-    `fit` and without it in `output`, and the cluster backward; their
+    `fit` and without it in `output`, and the cooperative backward; their
     launch counts are filled in by `lstm_4s_launches` once phase 19 has
     run). Then the
-    two bf16 forward routes at their boundary (T=64, H=1024: the
-    cooperative kernel at B=128, with and without the stash and masked,
-    the cluster kernel at B=129 and 256), and the f32 kernels (split
+    two bf16 routes of each pass at their boundary (T=64, H=1024: the
+    cooperative kernels at B=128, the forward with and without the stash,
+    both masked and not, the cluster kernels at B=129, and the cluster
+    forward at 256), and the f32 kernels (split
     TF32) at T=8, B=2048, H=1024, at path 4f's shape (T=64, with its
     launch counts) and masked at path 4b's window; last bench_lstm's full
     sequence (T=64, B=8192, H=256: path 13c-13e's shape, their launch
     counts added by `par_launches` once phase 38 has run). The cooperative rows
-    print the replaced mma.sync kernel's time beside theirs
-    (`LSTM_COOP_MMA_MS`). An f32 row on the split-TF32 route is
+    print the replaced kernel's time beside theirs, where PERF.md has it
+    (`LSTM_COOP_MMA_MS`, `LSTM_BWD_CLUSTER_MS`). An f32 row on the split-TF32 route is
     bound by its three TF32 passes (3 x flops / 495 TFLOP/s) or its
     bytes; the f32-FMA bound (flops / 67 TFLOP/s) is logged beside it.
     Every row's outputs are held to the plain versions first, as in phase
@@ -3339,8 +3506,8 @@ def phase_lstm_timing(torch, L, counts4, counts4b, counts4f):
         f32 = dt == torch.float32
         if (T, B, H, f32) not in yard:
             yard[(T, B, H, f32)] = cudnn_lstm_ms(torch, T, B, H, f32)
-        kinds = ("fwd", "bwd") if B in (2048, 8192, LSTM_4S["B"], ETL["B"]) \
-            else ("fwd",)
+        kinds = ("fwd", "bwd") if B in (2048, 8192, LSTM_4S["B"], ETL["B"],
+                                        128, 129) else ("fwd",)
         for j, kind in enumerate(kinds):
             ms = time_ms(torch, fns[kind][0])
             plain_ms = time_ms(torch, fns[kind][1], iters=5, warmup=1)
@@ -10003,10 +10170,13 @@ def phases_38_39_alone(torch, M, cuda_build) -> int:
 
 
 def lstm_mma_note(key, kind) -> str:
-    """The replaced mma.sync kernel's time at a cooperative row's shape,
-    where PERF.md has it."""
-    ms = LSTM_COOP_MMA_MS.get(key) if kind == "fwd" else None
-    return "" if ms is None else f" (the mma.sync kernel it replaced: {ms} ms)"
+    """The replaced kernel's time at a cooperative row's shape, where
+    PERF.md has it: the mma.sync forward, the cluster backward."""
+    if kind == "fwd":
+        ms, what = LSTM_COOP_MMA_MS.get(key), "the mma.sync kernel"
+    else:
+        ms, what = LSTM_BWD_CLUSTER_MS.get(key[:3]), "the cluster backward"
+    return "" if ms is None else f" ({what} it replaced: {ms} ms)"
 
 
 def path5_alone(torch, M, cuda_build) -> int:
@@ -10036,6 +10206,36 @@ def flash_timing_alone(torch, fa, cuda_build) -> int:
     log(f"flash timing of {pkg} [{card}]")
     cuda_build.build(["flash_attention"])
     rows = f32_cluster_rows(torch, fa, {}, {})
+    print(json.dumps({"package": pkg, "card": card,
+                      "ms": {r["name"]: r["ms"] for r in rows}}), flush=True)
+    return 0
+
+
+def paged_f32_rows(torch, pa):
+    """Row 1's f32 chunk rows alone (launch counts 0: no main path runs):
+    the dense chunk at path 1's shapes (`WIRE_F32_ROWS`' chunk row) and
+    the int8 chunk at one 14a shard's shape (`P14_F32_ROWS`' chunk row),
+    each held to its plain version and timed beside it, SDPA and the
+    bound (`paged_row`)."""
+    int8 = {name: shape for name, kind, shape in P14_F32_ROWS
+            if kind == "int8" and shape["C"] == 256}
+    return [paged_row(torch, pa, name, "dense",
+                      dict(PAGED_SERVING, **PAGED_SHAPES[which]),
+                      torch.float32, 0)
+            for name, which in WIRE_F32_ROWS if which == "chunk"] + \
+        [paged_row(torch, pa, name, "int8", dict(P14_SHARD, **shape),
+                   torch.float32, 0) for name, shape in int8.items()]
+
+
+def paged_timing_alone(torch, pa, cuda_build) -> int:
+    """`--paged-timing`: row 1's f32 chunk rows (`paged_f32_rows`) alone,
+    on the package that was imported, then one JSON line of their kernel
+    times, `{"package": ..., "card": ..., "ms": {row: ms}}`."""
+    card = nvidia_smi_line()
+    pkg = os.path.dirname(os.path.dirname(os.path.abspath(pa.__file__)))
+    log(f"paged timing of {pkg} [{card}]")
+    cuda_build.build(["paged_attention"])
+    rows = paged_f32_rows(torch, pa)
     print(json.dumps({"package": pkg, "card": card,
                       "ms": {r["name"]: r["ms"] for r in rows}}), flush=True)
     return 0
@@ -11857,7 +12057,8 @@ def main(argv) -> int:
     17 alone on the package at DIR (default: the checkout's), for an A/B
     of the LSTM kernels against an earlier commit's package;
     `--flash-timing [--package DIR]` the same for phase 16's f32 flash
-    rows at head dims 256-512. `--path5`:
+    rows at head dims 256-512, `--paged-timing [--package DIR]` for row
+    1's f32 chunk rows. `--path5`:
     phase 21 alone. `--phases-22-23`: phases 22 and 23 alone.
     `--phases-24-26`: phases 24 to 26 alone. `--phases-27-29`: phases 27
     to 29 alone. `--phases-30-31`: phase 7 and phases 30 and 31 alone.
@@ -11899,6 +12100,8 @@ def main(argv) -> int:
         return lstm_timing_alone(torch, L, cuda_build)
     if "--flash-timing" in argv:
         return flash_timing_alone(torch, fa, cuda_build)
+    if "--paged-timing" in argv:
+        return paged_timing_alone(torch, pa, cuda_build)
     if "--path5" in argv:
         return path5_alone(torch, M, cuda_build)
     if "--phases-22-23" in argv:
@@ -11949,6 +12152,9 @@ def main(argv) -> int:
     log("[8/43] serving it with int8 KV, the prefix cache and "
         "self-speculation on shared-prefix traffic")
     launches.update(phase_serve_tier(torch, M, pa, card))
+    log("[8/43] path 1f: the same GPT in f32 (no compute dtype) behind "
+        "path 1's engine (the split-TF32 chunk kernel)")
+    path1f = phase_serve_f32(torch, M, pa, card)
     log("[9/43] training the 8-layer bf16 gpt_long GPT at full width")
     flash_counts = phase_train(torch, M, card, torch.bfloat16, TRAIN_B,
                                TRAIN_STEPS, 13, "wgmma")
@@ -12039,7 +12245,8 @@ def main(argv) -> int:
     # path 10's replicas decode in f32 pools: row 1's f32 rows; their f32
     # predict into the f32 forward row at T=4096
     wire = phases_32_33(torch, M, pa, card)
-    rows += wire_rows(torch, pa, wire_paged(wire))
+    rows += wire_rows(torch, pa, dict(wire_paged(wire),
+                                      **{"path 1f": path1f["paged"]}))
     serve5_launches(rows, {"paged": {}, "flash": wire["path 10"]["flash"]})
     log(f"  path 11: {json.dumps(phases_34_35(torch, M, card))}")
     log(f"  path 12: {json.dumps(phases_36_37(torch, M, card))}")

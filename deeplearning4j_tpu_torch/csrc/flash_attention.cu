@@ -2155,45 +2155,12 @@ __device__ __forceinline__ void sts128(float* p, float4 v) {
                : "memory");
 }
 
-struct TfA {  // an m16n8k8 A fragment, split
-  uint32_t big[4], small[4];
-};
-struct TfB {  // an m16n8k8 B fragment, split
-  uint32_t big[2], small[2];
-};
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a.b in split TF32, the small terms first
-__device__ __forceinline__ void mma3(float (&d)[4], const TfA& a,
-                                     const TfB& b) {
-  mma_tf32(d, a.small, b.big[0], b.big[1]);
-  mma_tf32(d, a.big, b.small[0], b.small[1]);
-  mma_tf32(d, a.big, b.big[0], b.big[1]);
-}
-
-// acc += t, then t = 0: the products of two k-steps (a score product) or
-// of a whole streamed tile (P V, dS K, P^T dO, dS^T Q) are summed on the
-// tensor cores into a fresh accumulator t and added to the running sum
-// here, an f32 add that rounds to nearest. The tensor cores truncate the
-// sums they accumulate, so a running sum chained through every k-step of
-// a row (48 mma a score at D = 128, 384 a row of O per 1024 keys) drifts
-// toward zero by up to an ulp a step; measured on the card, that was
-// several times the error of f32 FMAs and failed phase 6's training
-// parity.
-__device__ __forceinline__ void add_acc(float (&acc)[4], float (&t)[4]) {
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    acc[e] += t[e];
-    t[e] = 0.f;
-  }
-}
+// split-TF32 fragments and products on mma.sync m16n8k8 (sm90.cuh)
+using sm90::add_acc;
+using sm90::mma3;
+using sm90::mma_tf32;
+using sm90::TfA;
+using sm90::TfB;
 
 // A B operand value: split in registers, or (PRE) its two parts as stored
 // by split_tile.

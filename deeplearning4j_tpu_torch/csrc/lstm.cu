@@ -10,6 +10,7 @@
 //   <- _lstm_bwd_kernel (glue _bwd_call), and masked
 //      <- _lstm_bwd_kernel_masked (glue _bwd_call_masked):
 //        lstm_bwd_cluster_kernel<MASKED> (bf16),
+//        lstm_bwd_coop_kernel<MASKED, NB> (bf16, B <= 128, H <= 1024),
 //        lstm_bwd_tf32_kernel<MASKED> (f32).
 // Same contract. Forward, per step t (walked T-1..0 with `reverse`):
 //   z = xw[t] + h @ RW;  i = sig(zi + pI c);  f = sig(zf + pF c);
@@ -68,6 +69,11 @@
 // in global memory (every block resident, or the launch is refused with
 // cudaErrorCooperativeLaunchTooLarge; never a spin wait without that
 // guarantee).
+// The bf16 backward at the same batches takes the cooperative backward
+// (lstm_bwd_coop_kernel), the same skeleton transposed: each block keeps
+// RW's rows for its 16 units, dz[t] reaches every block by TMA multicast
+// after a step counter, and the product dz[t] . RW[units, :]^T on wgmma
+// m64n16k16 is the block's own next dh carry (its section says more).
 //
 // What bounds it on an H100: per step the work is 2*B*H*4H flops against
 // B*4H operand bytes in and B*(4H+2H) bytes of stash out; at the training
@@ -138,6 +144,7 @@ struct BwdArgs {
   void* dz;            // (T, B, 4H)
   void* dzbuf;         // (2, B, 4H): dz[t]'s TF32 planes (split-TF32 route)
   float* dhc0;         // (2, B, H)
+  unsigned* sync;      // the cooperative backward's step counter, 0 at launch
   int T, B, H, reverse;
 };
 
@@ -1866,25 +1873,423 @@ __global__ void __launch_bounds__(kCoopThreads, 1)
   sm90::cluster_sync();  // no block leaves while others may reach it
 }
 
+// ======================================== bf16 backward, small batches
+// The bf16 backward at B <= kCoopMaxB rows and H <= 1024
+// (lstm_bwd_coop_kernel, one cooperative launch), the transpose of the
+// cooperative forward above. The cluster backward gives a tile of 128
+// rows one cluster of H / 128 blocks, so at B = 32 eight SMs work and each
+// streams its 1 MB of RW from L2 every step for 32 live rows of 128.
+// Here every block keeps RW's rows for its 16 units (16 x 4H bf16: 128 KB
+// at H = 1024) in shared memory for the whole launch, and all blocks hold
+// the same (at most 128) rows. Each step s (forward step t):
+//  1. the cell phase: dz[t] of the block's units and the thread's rows
+//     from the stash (gates, c, c_prev, dh_out; loaded into registers
+//     while the previous step's product ran) and the f32 carries dh, dc
+//     (registers, the whole launch); dz[t] stored to the output (xw's
+//     type), fenced for the async proxy; the block arrives once on a step
+//     counter in global memory (flag_arrive);
+//  2. a producer warp waits until every block has arrived for step s
+//     (flag_wait: sound only because a cooperative launch makes every
+//     block resident; a grid that does not fit is refused at launch), then
+//     loads dz[t] through TMA into a ring of stages, each NB chunks of
+//     64 k (all rows of a chunk: 4 KB at 32 rows; NB = 4 at 32 rows or
+//     fewer, 2 at 64, 1 above: `bwd_coop_boxes`); block `rank` of a
+//     cluster loads the stages c with c % C == rank and multicasts them
+//     to the cluster, so the cluster reads dz[t] once from L2;
+//  3. two consumer warpgroups compute dh_prev[:, the block's units] =
+//     dz[t] . RW[units, :]^T on wgmma m64n16k16 (N = the 16 units, K = 4H),
+//     four independent accumulator chains, one per 16-wide k step of a
+//     chunk, one commit group of 4 NB wgmma a stage: above 64 rows
+//     warpgroup wg the rows 64 wg .. 64 wg + 63 over all of K; at 64 rows
+//     or fewer both hold the same rows and split K (warpgroup wg the
+//     stages c with c % 2 == wg), then hand each other
+//     the partials of the rows the other finishes through shared memory
+//     (the forward's `split`). The product for the thread's cells is the
+//     dh carry of its next cell phase (plus the masked select's bypass);
+//     at the last step it is dh0.
+// RW is read as it is stored ((H, 4H): unit n's row is K-major over 4H),
+// in boxes of 64 columns x 16 units; no arranged copy. Why 16 units a
+// block and not the forward's 8: every block takes all of dz[t] each step
+// (4H wide, 4x h), so the SM's inflow of dz is the same at any block
+// width, while 16 units halve the blocks (64 at H = 1024: clusters of 8
+// fit, against 2 at 128 blocks), the wgmma issued across the card, the
+// L2 reads of dz (one per cluster) and the arrivals on the counter; 32
+// units would need 256 KB for the RW slice. Why stages of several
+// chunks: a commit group and its wait cost about 600 SM cycles whatever
+// its size (chip_phase_profile.py on an H100: with one chunk a stage,
+// 18.7k cycles a step of 41k went to the product's 32 groups at B = 32,
+// and 17.5k to the waits for the chunks), so a stage of 4 chunks cut the
+// launch at T = 50, B = 32, H = 1024 from 1.22 to 0.57 ms; at 128 rows
+// the ring holds only 5 one-chunk stages.
+// What bounds it: per step 2 B H 4H flops (0.27 us at B = 32) against
+// the step's fixed costs: the counter's round trip through L2, the dz[t]
+// stores before it and the TMA loads after it (each SM takes all of
+// dz[t], 256 KB at B = 32).
+constexpr int kBcUnits = 16;                 // hidden units of a block
+constexpr int kBcChunks = 4 * kCoopMaxH / kChunk;  // RW slice: 64 chunks
+constexpr int kBcMaxStages = 32;
+constexpr int kBcRingBytes = 88 * 1024;      // dz[t] stages
+constexpr uint32_t kBcRwBox = kBcUnits * kChunk * 2;  // 2 KB
+
+struct BwdCoopSmem {
+  bf16 rw[kBcChunks][kBcUnits * kChunk];  // RW[units, chunk], swizzled
+  // dz[t] chunk rows, swizzled, stages of NB boxes of `rows` x 128
+  // bytes; a wgmma reads 64 rows (128 above 64) from a box's start, past
+  // the last box's rows into the ring's tail (rows that only feed
+  // discarded accumulator rows)
+  unsigned char ring[kBcRingBytes];
+  float xchg[2][4][128];  // B <= 64: warpgroup wg's partials of the other's rows
+  uint64_t full[kBcMaxStages], empty[kBcMaxStages], rw_full;
+};
+constexpr size_t kBcSmemBytes = sizeof(BwdCoopSmem) + 1024;  // + align
+
+struct BwdCoopArgs {
+  const bf16 *gates, *c, *dh_out, *dhT, *dcT, *mask, *peep, *c0;
+  bf16* dz;
+  float* dhc0;
+  unsigned* sync;
+  int T, B, H, reverse, cluster;
+  int rows;    // rows of a TMA box: B rounded up to 8
+  int split;   // B <= 64: the warpgroups split K
+  int stages;  // of the ring at this many rows
+};
+
+// dz loads from the output (4H, B, T) in boxes of 64 columns x `rows`;
+// RW (4H, H) in boxes of 64 columns x 16 units; both 128-byte swizzle
+struct BwdCoopMaps {
+  CUtensorMap dz, w;
+};
+
+// backward step s undoes forward step t; c_prev is c at t_prev, or c0
+// at the last backward step
+struct CoopStep {
+  int t, t_prev;
+  bool first;
+  __device__ CoopStep(const BwdCoopArgs& a, int s)
+      : t(a.reverse ? s : a.T - 1 - s),
+        t_prev(a.reverse ? s + 1 : a.T - 2 - s),
+        first(s == a.T - 1) {}
+};
+
+// Producer warp: per step, every stage (NB chunks of 64 k) armed in
+// order (its previous use released by the cluster, its bytes expected);
+// before the first stage this block loads, the wait for every block's
+// dz[t]. Chunks past 4H are loaded too: TMA fills them with zeros.
+template <int NB>
+__device__ void bwd_coop_producer(BwdCoopSmem& sm, const BwdCoopArgs& a,
+                                  const BwdCoopMaps& m, int nst) {
+  if (threadIdx.x % 32 != 0) return;
+  const int C = a.cluster, S = a.stages;
+  const int rank = (int)sm90::cluster_rank();
+  const uint16_t mask = (uint16_t)((1u << C) - 1);
+  const uint32_t cb = a.rows * kChunk * 2;  // bytes of a chunk's box
+  uint32_t q = 0;  // stages armed so far
+  for (int s = 0; s < a.T; ++s) {
+    const CoopStep sp(a, s);
+    bool published = false;
+    for (int c = 0; c < nst; ++c, ++q) {
+      const uint32_t st = q % S;
+      sm90::mbar_wait_cluster(&sm.empty[st], ((q / S) & 1) ^ 1);
+      sm90::mbar_expect_tx(&sm.full[st], NB * cb);
+      if (c % C != rank) continue;
+      if (!published) {  // every block arrived once for steps 0 .. s
+        sm90::flag_wait(a.sync, gridDim.x * (unsigned)(s + 1));
+        published = true;
+      }
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        unsigned char* dst = sm.ring + (st * NB + b) * cb;
+        const int k0 = (c * NB + b) * kChunk;
+        if (C == 1)
+          sm90::tma_load_3d(dst, &m.dz, &sm.full[st], k0, 0, sp.t);
+        else
+          sm90::tma_load_3d_multicast(dst, &m.dz, &sm.full[st], mask, k0, 0,
+                                      sp.t);
+      }
+    }
+  }
+}
+
+// The stash of one pair of cells (a row, units u and u + 1) for one cell
+// phase: the four gates, c_prev, dh_out and (unmasked) c_t, as stored.
+struct CellStash {
+  __nv_bfloat162 g[4], cp, dho, ct;
+};
+
+__device__ __forceinline__ __nv_bfloat162 ldg_pair(const bf16* p) {
+  return __ldg(reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// Consumer warpgroup wg. Thread (warp w, lane 4g + tq) holds the
+// accumulator's rows rb + 8 rr (rb = 64 wg + 16 w + g above 64 rows, 16 w
+// + g at 64 or fewer) and the block's units 8 j + 2 tq + e (j, e = 0, 1):
+// cell (rr, j, e) is accumulator element 4 j + 2 rr + e. It finishes the
+// cells of both rr above 64 rows, of rr = wg at 64 or fewer.
+template <bool MASKED, int NB>
+__device__ void bwd_coop_consumer(BwdCoopSmem& sm, const BwdCoopArgs& a,
+                                  int nst) {
+  const int tid = threadIdx.x, wg = tid / 128, wt = tid % 128;
+  const int l = tid % 32, g = l / 4, tq = l % 4, w = wt / 32;
+  const int H = a.H, B = a.B, C = a.cluster, S = a.stages;
+  const long long G = 4LL * H;
+  const bool split = a.split;
+  const int u0 = blockIdx.x * kBcUnits + 2 * tq;  // units u0 + 8 j (+ 1)
+  const int rb = (split ? 0 : 64 * wg) + 16 * w + g;
+  auto mine = [&](int rr) { return !split || rr == wg; };
+  // are the cells (rr, j, *) live? H is a multiple of 8: u + 1 < H too
+  auto live = [&](int rr, int j) {
+    return mine(rr) && rb + 8 * rr < B && u0 + 8 * j < H;
+  };
+  const bool releases = wt % 8 == 0 && wt / 8 < C;
+  const uint32_t cb = a.rows * kChunk * 2;  // bytes of a chunk's box
+  float pI[2][2] = {}, pF[2][2] = {}, pO[2][2] = {};
+  float dcc[2][2][2] = {}, dhc[2][2][2] = {}, byp[2][2][2] = {};
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int u = u0 + 8 * j;
+    if (u >= H) continue;
+    const float2 p0 = ld_pair(a.peep + u), p1 = ld_pair(a.peep + H + u),
+                 p2 = ld_pair(a.peep + 2 * H + u);
+    pI[j][0] = p0.x, pI[j][1] = p0.y, pF[j][0] = p1.x, pF[j][1] = p1.y;
+    pO[j][0] = p2.x, pO[j][1] = p2.y;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      if (!live(rr, j)) continue;
+      const long long o = (long long)(rb + 8 * rr) * H + u;
+      const float2 c2 = ld_pair(a.dcT + o);
+      dcc[rr][j][0] = c2.x, dcc[rr][j][1] = c2.y;
+      if (MASKED) {
+        const float2 h2 = ld_pair(a.dhT + o);
+        dhc[rr][j][0] = h2.x, dhc[rr][j][1] = h2.y;
+      }
+    }
+  }
+  CellStash cs[2][2];
+  float mv[2] = {1.f, 1.f};
+  // step s's stash into registers (rows past B and padded units: unread)
+  auto load_stash = [&](int s) {
+    const CoopStep sp(a, s);
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int r = rb + 8 * rr;
+      const long long row = (long long)sp.t * B + r;
+      if (MASKED && mine(rr) && r < B)
+        mv[rr] = __bfloat162float(a.mask[row]);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        if (!live(rr, j)) continue;
+        const int u = u0 + 8 * j;
+        const bf16* gt = a.gates + row * G + u;
+#pragma unroll
+        for (int q4 = 0; q4 < 4; ++q4) cs[rr][j].g[q4] = ldg_pair(gt + q4 * H);
+        cs[rr][j].cp = ldg_pair(
+            sp.first ? a.c0 + (long long)r * H + u
+                     : a.c + ((long long)sp.t_prev * B + r) * H + u);
+        cs[rr][j].dho = ldg_pair(a.dh_out + row * H + u);
+        if (!MASKED) cs[rr][j].ct = ldg_pair(a.c + row * H + u);
+      }
+    }
+  };
+  const char* a_base = reinterpret_cast<const char*>(sm.ring) +
+                       (split ? 0 : wg * 64 * kChunk * 2);
+  const char* w_base = reinterpret_cast<const char*>(sm.rw[0]);
+  const int cfirst = split ? wg : 0, cstep = split ? 2 : 1;
+  load_stash(0);
+  sm90::mbar_wait(&sm.rw_full, 0);
+  float acc[4][8];
+  uint32_t q0 = 0;  // stages of earlier steps
+  for (int s = 0; s < a.T; ++s) {
+    const CoopStep sp(a, s);
+    // ---- cell phase: dz[t] of the thread's cells
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int r = rb + 8 * rr;
+      const long long row = (long long)sp.t * B + r;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        if (!live(rr, j)) continue;
+        const int u = u0 + 8 * j;
+        const CellStash& st = cs[rr][j];
+        const float2 gi = __bfloat1622float2(st.g[0]),
+                     gf = __bfloat1622float2(st.g[1]),
+                     go = __bfloat1622float2(st.g[2]),
+                     gg = __bfloat1622float2(st.g[3]);
+        const float2 cp = __bfloat1622float2(st.cp);
+        const float2 dho = __bfloat1622float2(st.dho);
+        const float2 c_st = MASKED ? make_float2(0.f, 0.f)
+                                   : __bfloat1622float2(st.ct);
+        float dzv[4][2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float i = e ? gi.y : gi.x, f = e ? gf.y : gf.x;
+          const float o = e ? go.y : go.x, gv = e ? gg.y : gg.x;
+          const float c_prev = e ? cp.y : cp.x;
+          const float dcur = dcc[rr][j][e], dh = dhc[rr][j][e];
+          float dhn, dcn, c_t, byp_h = 0.f, byp_c = 0.f;
+          if (MASKED) {
+            const bool mp = mv[rr] > 0.f;
+            const float d_hsel = mv[rr] * (e ? dho.y : dho.x) + dh;
+            dhn = mp ? d_hsel : 0.f;
+            byp_h = mp ? 0.f : d_hsel;
+            dcn = mp ? dcur : 0.f;
+            byp_c = mp ? 0.f : dcur;
+            c_t = f * c_prev + i * gv;  // the candidate: the stash has c_sel
+          } else {
+            dhn = (e ? dho.y : dho.x) + dh;
+            dcn = dcur;
+            c_t = e ? c_st.y : c_st.x;
+          }
+          const float tc = tanhf(c_t);
+          const float dzo = dhn * tc * o * (1.f - o);
+          const float dct = dhn * o * (1.f - tc * tc) + dcn + dzo * pO[j][e];
+          const float dzg = dct * i * (1.f - gv * gv);
+          const float dzi = dct * gv * i * (1.f - i);
+          const float dzf = dct * c_prev * f * (1.f - f);
+          const float dc_prev =
+              dct * f + dzi * pI[j][e] + dzf * pF[j][e] + byp_c;
+          dzv[0][e] = dzi, dzv[1][e] = dzf, dzv[2][e] = dzo, dzv[3][e] = dzg;
+          dcc[rr][j][e] = dc_prev;
+          byp[rr][j][e] = byp_h;  // the product adds dz . RW^T to it
+          if (sp.first)
+            a.dhc0[(long long)B * H + (long long)r * H + u + e] = dc_prev;
+        }
+        bf16* dz = a.dz + row * G + u;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) st_pair(dz + k * H, dzv[k][0], dzv[k][1]);
+      }
+    }
+    // ---- dz[t] published: fenced for the TMA loads that read it, then
+    // the block arrives once on the step counter
+    sm90::fence_proxy_async();
+    sm90::named_bar_sync(1, kConsumers);
+    if (tid == 0) sm90::flag_arrive(a.sync);
+    if (s + 1 < a.T) load_stash(s + 1);  // in flight during the product
+    // ---- product: acc = dz[t][rows, the warpgroup's stages] . RW^T,
+    // one commit group of 4 NB wgmma a stage
+    int n = 0;
+    uint32_t held = 0;  // the warpgroup's previous stage
+    for (int c = cfirst; c < nst; c += cstep) {
+      const uint32_t q = q0 + c, st = q % S;
+      sm90::mbar_wait(&sm.full[st], (q / S) & 1);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+#pragma unroll
+        for (int kk = 0; kk < kChunk / 16; ++kk)
+          sm90::wgmma_m64n16_ss(
+              acc[kk],
+              sm90::desc_sw128(a_base + (st * NB + b) * cb + kk * 32),
+              sm90::desc_sw128(w_base + (c * NB + b) * sizeof(sm.rw[0]) +
+                               kk * 32),
+              n > 0 || b > 0);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<1>();  // the previous stage's products are done
+      sm90::mbar_arrive_cluster(&sm.empty[held], wt / 8, n > 0 && releases);
+      held = st;
+      ++n;
+    }
+    sm90::wgmma_wait<0>();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) sm90::fence_regs(acc[kk]);
+    q0 += nst;
+    float sum[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      sum[i] = (acc[0][i] + acc[1][i]) + (acc[2][i] + acc[3][i]);
+    sm90::mbar_arrive_cluster(&sm.empty[held], wt / 8, n > 0 && releases);
+    // this warpgroup's partial of accumulator element i (split K with
+    // one stage: warpgroup 1 has none)
+    auto part = [&](int i) { return n > 0 ? sum[i] : 0.f; };
+    float peer[4] = {};  // split K: the other warpgroup's partials
+    if (split) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)  // the rows rb + 8 (1 - wg)
+        sm.xchg[wg][i][wt] = part(4 * (i / 2) + (wg ? 0 : 2) + i % 2);
+      sm90::named_bar_sync(1, kConsumers);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) peer[i] = sm.xchg[1 - wg][i][wt];
+    }
+    // ---- the dh carry: the product, then + the bypass; dh0 at the end.
+    // Split K adds the two warpgroups' partials first (the same bits in
+    // either order).
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (!mine(rr)) continue;
+          const float p = part(4 * j + 2 * rr + e);
+          dhc[rr][j][e] = (split ? p + peer[2 * j + e] : p) + byp[rr][j][e];
+          if (sp.first && live(rr, j))
+            a.dhc0[(long long)(rb + 8 * rr) * H + u0 + 8 * j + e] =
+                dhc[rr][j][e];
+        }
+  }
+}
+
+template <bool MASKED, int NB>
+__global__ void __launch_bounds__(kCoopThreads, 1)
+    lstm_bwd_coop_kernel(const __grid_constant__ BwdCoopMaps maps,
+                         const BwdCoopArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  BwdCoopSmem& sm = *reinterpret_cast<BwdCoopSmem*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  // stages of NB chunks of 64 k a step; RW's chunks past 4H read as zeros
+  const int nst = ((4 * a.H + kChunk - 1) / kChunk + NB - 1) / NB;
+  const int nch = nst * NB;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < a.stages; ++s) {
+      sm90::mbar_init(&sm.full[s], 1);
+      // one arrival per consuming warpgroup of every block of the cluster
+      sm90::mbar_init(&sm.empty[s], (a.split ? 1 : 2) * a.cluster);
+    }
+    sm90::mbar_init(&sm.rw_full, 1);
+    sm90::mbar_fence_init();
+    // the block's rows of RW for the whole launch
+    sm90::mbar_expect_tx(&sm.rw_full, nch * kBcRwBox);
+    for (int c = 0; c < nch; ++c)
+      sm90::tma_load_2d(sm.rw[c], &maps.w, &sm.rw_full, c * kChunk,
+                        blockIdx.x * kBcUnits);
+  }
+  __syncthreads();
+  // every block's barriers are initialised before any multicast or remote
+  // arrival reaches them
+  sm90::cluster_sync();
+  if (threadIdx.x < kConsumers)
+    bwd_coop_consumer<MASKED, NB>(sm, a, nst);
+  else
+    bwd_coop_producer<NB>(sm, a, maps, nst);
+  sm90::cluster_sync();  // no block leaves while others may reach it
+}
+
 // ------------------------------------------------------------------ host
 // Routes: the cooperative bf16 forward (small batches), the bf16 cluster
-// forward, the split-TF32 cluster kernels (f32, both passes) and the bf16
-// cluster backward.
-enum Route { kCoop = 0, kFwdCluster = 1, kTf32 = 2, kBwdCluster = 3 };
+// forward, the split-TF32 cluster kernels (f32, both passes), the bf16
+// cluster backward and the cooperative bf16 backward (small batches).
+enum Route {
+  kCoop = 0,
+  kFwdCluster = 1,
+  kTf32 = 2,
+  kBwdCluster = 3,
+  kBwdCoop = 4
+};
 // The bf16 forward takes the cooperative kernel up to this many batch
 // rows at H <= 1024 (all of them in one row split, kCoopRows): the
 // cluster kernel's step costs about the same from 1 to 128 rows a cluster
 // (it streams all of RW through L2 every step), while the cooperative
 // blocks keep their slices of RW on chip. Measured on an H100 at H =
 // 1024, T = 64 (chip_smoke.py phase 17, PERF.md): the cooperative kernel
-// wins at 128 rows.
+// wins at 128 rows. The bf16 backward takes its cooperative kernel under
+// the same bounds.
 constexpr int kCoopMaxB = 128;
 static_assert(kCoopMaxB <= kCoopRows, "one row split holds every row");
 
 int route_of(int kind, int dtype, int B, int H) {
   if (dtype == 0) return kTf32;
-  if (kind == 1) return kBwdCluster;
-  return B <= kCoopMaxB && H <= 1024 ? kCoop : kFwdCluster;
+  const bool coop = B <= kCoopMaxB && H <= 1024;
+  if (kind == 1) return coop ? kBwdCoop : kBwdCluster;
+  return coop ? kCoop : kFwdCluster;
 }
 
 // A launch plan, as dl4j_lstm_plan reports it.
@@ -1910,14 +2315,16 @@ inline cudaLaunchConfig_t cluster_config(const Plan& p, int threads,
   return cfg;
 }
 
-// The cooperative forward: ceil(H / 8) blocks of 8 units, padded to a
-// whole number of clusters of C, C the largest of 8, 4, 2, 1 for which
-// the whole grid is co-resident; `active` blocks fit at once. When none
-// fits (C = 1), the plan keeps it and the launch is refused.
-int coop_plan(const void* kern, int B, int H, Plan* p) {
-  const int gu = (H + kCoopUnits - 1) / kCoopUnits;
+// A cooperative kernel (the forward: 8 units a block; the backward: 16):
+// ceil(H / units) blocks, padded to a whole number of clusters of C, C the
+// largest of 8, 4, 2, 1 for which the whole grid is co-resident; `active`
+// blocks fit at once. When none fits (C = 1), the plan keeps it and the
+// launch is refused.
+int coop_plan(const void* kern, int route, int units, size_t smem, int B,
+              int H, Plan* p) {
+  const int gu = (H + units - 1) / units;
   const int rows = ceil_to(B < kCoopRows ? B : kCoopRows, 8);
-  *p = Plan{kCoop, gu, 1, rows, 0, 1, kCoopUnits, kCoopSmemBytes};
+  *p = Plan{route, gu, 1, rows, 0, 1, units, smem};
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p->smem);
   if (e != cudaSuccess) return (int)e;
@@ -1975,6 +2382,22 @@ const void* fwd_kernel(int route, int H) {
                    : (const void*)lstm_fwd_cluster_kernel<64, MASKED, STASH>;
 }
 
+// Chunks of 64 k a stage of the cooperative backward's ring: 4 at 32
+// rows or fewer, 2 at 64 or fewer, 1 above (a stage of 16 KB at 128
+// rows already; the ring holds 5). A stage is one commit group of 4 NB
+// wgmma per warpgroup: at one chunk a stage each group cost ~600 cycles
+// (chip_phase_profile.py, PR 28), so fewer, larger groups a step where
+// the rows leave room.
+constexpr int bwd_coop_boxes(int B) { return B <= 32 ? 4 : B <= 64 ? 2 : 1; }
+
+template <bool MASKED>
+const void* bwd_coop_kernel(int B) {
+  const int nb = bwd_coop_boxes(B);
+  return nb == 4   ? (const void*)lstm_bwd_coop_kernel<MASKED, 4>
+         : nb == 2 ? (const void*)lstm_bwd_coop_kernel<MASKED, 2>
+                   : (const void*)lstm_bwd_coop_kernel<MASKED, 1>;
+}
+
 template <bool MASKED>
 const void* bwd_kernel(int route) {
   return route == kTf32 ? (const void*)lstm_bwd_tf32_kernel<MASKED>
@@ -1986,7 +2409,11 @@ template <bool MASKED, bool STASH>
 int make_plan(int kind, int dtype, int B, int H, Plan* p) {
   const int route = route_of(kind, dtype, B, H);
   if (route == kCoop)
-    return coop_plan(fwd_kernel<MASKED, STASH>(route, H), B, H, p);
+    return coop_plan(fwd_kernel<MASKED, STASH>(route, H), route, kCoopUnits,
+                     kCoopSmemBytes, B, H, p);
+  if (route == kBwdCoop)
+    return coop_plan(bwd_coop_kernel<MASKED>(B), route, kBcUnits,
+                     kBcSmemBytes, B, H, p);
   if (route == kTf32 && kind == 0)
     return cluster_plan(fwd_kernel<MASKED, STASH>(route, H), route,
                         kClusterThreads, kTfFwdSmemBytes, kTfFwdRows,
@@ -2010,7 +2437,8 @@ int make_plan(int kind, int dtype, int B, int H, Plan* p) {
 }
 
 int launch_ready(const Plan& p) {
-  if (p.route == kCoop) return 0;  // a grid too large is refused at launch
+  // a cooperative grid too large is refused at launch
+  if (p.route == kCoop || p.route == kBwdCoop) return 0;
   return p.active < 1 ? (int)cudaErrorInvalidConfiguration : 0;
 }
 
@@ -2224,12 +2652,76 @@ int launch_fwd(FwdArgs a, int dtype, const void* rwp, int Hk,
              : launch_fwd_cluster<64, MASKED, STASH>(a, p, rwp, Hk, st);
 }
 
+// The cooperative backward: one launch with the cooperative attribute
+// (and clusters of p.cluster blocks), refused when the grid is not
+// co-resident; tensor maps as BwdCoopMaps says; as many ring stages of
+// bwd_coop_boxes(B) chunks as the ring holds at p.rows rows (a wgmma
+// reads up to 128 rows, 16 KB, from a chunk's start: the last stage's
+// last chunk starts at least that far before the ring's end).
+template <bool MASKED>
+int launch_bwd_coop(const BwdArgs& a, const Plan& p, cudaStream_t st) {
+  BwdCoopMaps maps;
+  const cuuint64_t G = 4ull * a.H;
+  int rc;
+  {  // dz (4H, B, T): boxes of 64 columns x `rows` rows of one step
+    const cuuint64_t dims[3] = {G, (cuuint64_t)a.B, (cuuint64_t)a.T};
+    const cuuint64_t strides[2] = {G * 2, G * 2 * a.B};
+    const cuuint32_t box[3] = {kChunk, (cuuint32_t)p.rows, 1};
+    rc = sm90::make_map_bf16(&maps.dz, a.dz, 3, dims, strides, box);
+  }
+  if (rc) return rc;
+  {  // RW (4H, H): boxes of 64 columns x 16 units
+    const cuuint64_t dims[2] = {G, (cuuint64_t)a.H};
+    const cuuint64_t strides[1] = {G * 2};
+    const cuuint32_t box[2] = {kChunk, kBcUnits};
+    rc = sm90::make_map_bf16(&maps.w, a.rw, 2, dims, strides, box);
+  }
+  if (rc) return rc;
+  const int nb = bwd_coop_boxes(a.B);
+  const int cb = p.rows * kChunk * 2;  // bytes of a chunk's box
+  const int stages = (kBcRingBytes - 128 * kChunk * 2 + cb) / (nb * cb);
+  const BwdCoopArgs ca{static_cast<const bf16*>(a.gates),
+                       static_cast<const bf16*>(a.c),
+                       static_cast<const bf16*>(a.dh_out),
+                       static_cast<const bf16*>(a.dhT),
+                       static_cast<const bf16*>(a.dcT),
+                       static_cast<const bf16*>(a.mask),
+                       static_cast<const bf16*>(a.peep),
+                       static_cast<const bf16*>(a.c0),
+                       static_cast<bf16*>(a.dz),
+                       a.dhc0,
+                       a.sync,
+                       a.T,
+                       a.B,
+                       a.H,
+                       a.reverse,
+                       p.cluster,
+                       p.rows,
+                       a.B <= 64,
+                       stages < kBcMaxStages ? stages : kBcMaxStages};
+  cudaLaunchAttribute attr[2];
+  cudaLaunchConfig_t cfg = cluster_config(p, kCoopThreads, attr, st);
+  attr[1].id = cudaLaunchAttributeCooperative;
+  attr[1].val.cooperative = 1;
+  cfg.numAttrs = 2;
+  cudaError_t e =
+      nb == 4   ? cudaLaunchKernelEx(&cfg, lstm_bwd_coop_kernel<MASKED, 4>,
+                                     maps, ca)
+      : nb == 2 ? cudaLaunchKernelEx(&cfg, lstm_bwd_coop_kernel<MASKED, 2>,
+                                     maps, ca)
+                : cudaLaunchKernelEx(&cfg, lstm_bwd_coop_kernel<MASKED, 1>,
+                                     maps, ca);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 template <bool MASKED>
 int launch_bwd(const BwdArgs& a, int dtype, cudaStream_t st) {
   Plan p;
   int rc = make_plan<MASKED, true>(1, dtype, a.B, a.H, &p);
   if (rc == 0) rc = launch_ready(p);
   if (rc) return rc;
+  if (p.route == kBwdCoop) return launch_bwd_coop<MASKED>(a, p, st);
   cudaLaunchAttribute attr[1];
   const cuuint64_t G = 4ull * a.H;
   CUtensorMap tdz, trw;
@@ -2329,8 +2821,9 @@ extern "C" {
 // split-TF32 backward (f32) takes `rwp` (2, H, 4H), RW's two TF32 planes
 // (`_tf32_planes`), a scratch `dzbuf` (2, B, 4H), and reads the dc carry
 // from dhc0[1], which holds dcT at the launch; the other routes ignore all
-// three. The bf16 kernels take H a
-// multiple of 8 (the wrapper pads it). Each entry returns the cudaError_t
+// three. The cooperative bf16 backward (B <= 128, H <= 1024) takes `sync`,
+// its step counter, one zeroed unsigned (ignored by the other backward
+// routes). The bf16 kernels take H a multiple of 8 (the wrapper pads it). Each entry returns the cudaError_t
 // of its launch: a cooperative grid larger than the co-resident blocks
 // cudaErrorCooperativeLaunchTooLarge, a cluster kernel whose plan has no
 // cluster that fits cudaErrorInvalidConfiguration.
@@ -2357,11 +2850,12 @@ int dl4j_lstm_bwd(const void* gates, const void* c, const void* dh_out,
                   const void* dhT, const void* dcT, const void* mask,
                   const void* rw, const void* rwp, const void* peep,
                   const void* c0, void* dz, void* dzbuf, float* dhc0,
-                  int dtype, int T, int B, int H, int reverse, void* stream) {
+                  unsigned* sync, int dtype, int T, int B, int H, int reverse,
+                  void* stream) {
   BwdArgs a{};
   a.gates = gates, a.c = c, a.dh_out = dh_out, a.dhT = dhT, a.dcT = dcT;
   a.mask = mask, a.rw = rw, a.rwp = rwp, a.peep = peep, a.c0 = c0;
-  a.dz = dz, a.dzbuf = dzbuf, a.dhc0 = dhc0;
+  a.dz = dz, a.dzbuf = dzbuf, a.dhc0 = dhc0, a.sync = sync;
   a.T = T, a.B = B, a.H = H, a.reverse = reverse;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return mask ? launch_bwd<true>(a, dtype, st)
@@ -2370,7 +2864,8 @@ int dl4j_lstm_bwd(const void* gates, const void* c, const void* dh_out,
 
 // The launch plan of kernel `kind` (0 forward, 1 backward) at (dtype, B,
 // H), out[0..6]: {route (0 cooperative forward, 1 bf16 cluster forward, 2
-// split-TF32 clusters (f32), 3 bf16 cluster backward), blocks along x
+// split-TF32 clusters (f32), 3 bf16 cluster backward, 4 cooperative
+// backward), blocks along x
 // (the cooperative grid's blocks, or blocks per cluster), along y (1, or
 // row tiles), rows per box or tile, blocks that can be resident at once
 // (cooperative) or clusters that fit at once (0: refused), blocks per

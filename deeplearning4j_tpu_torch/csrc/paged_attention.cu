@@ -24,7 +24,8 @@
 // dequantize to exactly 0 under any scale.
 //
 // Design. The key axis is walked in slices of KS keys that never cross a
-// page (KS = min(page, 64), less where a slice of f32 would pass 32 KB), so
+// page (KS = min(page, 64), less where a slice of f32 would pass 32 KB;
+// 32 in the tf32 kernel), so
 // shared memory holds stages x (K slice + V slice), never a whole page,
 // at any page and head_dim. Each slot's slices are split into `splits`
 // contiguous ranges, one block each: a block writes its range's partial
@@ -32,7 +33,7 @@
 // acc = sum_p exp(m_p - M) acc_p and l = sum_p exp(m_p - M) l_p with
 // M = max_p m_p over the splits that saw a key (l_p > 0); with one split
 // the block writes the output itself. The wrapper picks the splits so
-// that enough blocks fill the card (ops/paged_attention.py::plan). Two
+// that enough blocks fill the card (ops/paged_attention.py::plan). Three
 // kernels walk the slices:
 //  - paged_attention_mma_kernel (bf16 q, page >= 64, wide tiles: the
 //    prefill chunks and wide GQA groups): 64-row query tiles of 4 warps,
@@ -43,8 +44,14 @@
 //    to the feed type. Dense slices are staged by cp.async, two stages;
 //    int8 slices are staged raw (two stages) and dequantized into one
 //    bf16 slice before the products;
-//  - paged_attention_kernel (f32, decode, verify, small pages): one block
-//    per tile of TR <= 16 rows; scalar f32 FMAs (TF32 stays off for f32);
+//  - paged_attention_tf32_kernel (f32 q, page >= 64, wide tiles: the f32
+//    prefill chunks): the mma kernel's tiles with QK^T and PV in split
+//    TF32 on mma.sync m16n8k8 (three TF32 products per f32 product, f32
+//    accuracy, the reference's HIGHEST precision), P kept f32, slices of
+//    32 keys staged f32 (int8 pools dequantized into an f32 slice); its
+//    section says more;
+//  - paged_attention_kernel (decode, verify, narrow tiles, small pages):
+//    one block per tile of TR <= 16 rows; scalar f32 FMAs;
 //    the query tile and the probabilities kept transposed so the inner
 //    loops read the TR rows with 16-byte shared loads; int8 elements
 //    dequantized where the loops read them.
@@ -57,7 +64,8 @@
 // card's ridge: bounded by the K/V bytes, which the split walk reads with
 // enough blocks in flight to cover HBM latency. At C = 256 each staged
 // slice serves 64 rows per tile, which puts the work near the ridge:
-// bounded by the tensor cores' rate at 64-row tiles of mma.sync.
+// bounded by the tensor cores' rate at 64-row tiles of mma.sync (in f32,
+// by their TF32 rate, three products per f32 product).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -65,6 +73,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -703,6 +713,284 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ====================================================== tf32 kernel
+// f32 q at page >= 64 with wide tiles (the f32 prefill chunks: f32 is
+// MultiLayerNetwork's default precision, and a reloaded candidate and
+// every replica process decode in it): QK^T and PV on the tensor cores in
+// split TF32, the counterpart of the reference's HIGHEST-precision f32
+// _dot. Each operand x is split into big = rna_tf32(x) and small =
+// rna_tf32(x - big) (sm90::split_tf32) as a warp reads it, and a.b ~
+// a_small.b_big + a_big.b_small + a_big.b_big (sm90::mma3, mma.sync
+// m16n8k8), accumulated in f32. The tensor cores truncate the sums they
+// accumulate, so a score sums two k-steps (16 dims) and P V a whole slice
+// (32 keys) on a fresh accumulator, each added to the running f32 sum
+// (sm90::add_acc), as the f32 flash kernels do. P stays f32 into its
+// product (split like any operand), as the reference feeds its f32 P.
+// The tile is the mma kernel's: 64 (c, g) rows of 4 warps (16 rows each,
+// the same online softmax), the split-key walk and paged_merge_kernel;
+// slices of 32 keys, staged f32 by cp.async in two stages (int8 pools:
+// raw int8 and scale rows in two stages, dequantized into one f32 slice
+// before the products, int8 -> f32 times the position's scale, which is
+// q's type already). Shared tiles are padded so that every fragment read
+// is free of bank conflicts: Q (64, HD + 4), K as the pool holds it (HD,
+// 32 + 8), V (32, HD + 8). The score product's B fragment takes the keys
+// of an 8-key tile in the order perm8 (lane group g reads key g / 2 + 4
+// (g % 2)), so the score accumulator's columns 2t and 2t + 1 hold keys t
+// and t + 4: P's A fragment for P V with the keys in order, no shuffle.
+// What bounds it: at path 1's chunk (C = 256, 8 heads of 128, 3840
+// positions) 3 x 4.2 GFLOP on the TF32 tensor cores (0.025 ms at 495
+// TFLOP/s); mma.sync from registers reaches part of that rate, and the
+// splits (cvt.rna is an instruction sequence on sm_90) and the scalar
+// fragment loads take instruction slots beside it.
+constexpr int kTfRows = 64;  // query rows of a tile
+constexpr int kTfKeys = 32;  // keys of a slice
+
+template <int HD, bool QUANT>
+struct TfSmem;
+template <int HD>
+struct TfSmem<HD, false> {
+  static constexpr int kLdq = HD + 4, kLdk = kTfKeys + 8, kLdv = HD + 8;
+  float q[kTfRows * kLdq];
+  float k[2][HD * kLdk];
+  float v[2][kTfKeys * kLdv];
+};
+template <int HD>
+struct TfSmem<HD, true> {
+  static constexpr int kLdq = HD + 4, kLdk = kTfKeys + 8, kLdv = HD + 8;
+  float q[kTfRows * kLdq];
+  float k[1][HD * kLdk];
+  float v[1][kTfKeys * kLdv];
+  int8_t rk[2][HD * kTfKeys];
+  int8_t rv[2][kTfKeys * HD];
+  float rks[2][kTfKeys];
+  float rvs[2][kTfKeys];
+};
+
+// The dequantization of a raw int8 slice into the f32 slice, 4 elements
+// a thread and step: int8 -> f32, times its position's scale.
+template <int HD>
+__device__ __forceinline__ void dequantize_f32(TfSmem<HD, true>& sm,
+                                               int buf) {
+  constexpr int kLdk = TfSmem<HD, true>::kLdk, kLdv = TfSmem<HD, true>::kLdv;
+  for (int i = threadIdx.x; i < HD * kTfKeys / 4; i += kThreads) {
+    const int e = 4 * i;
+    {  // K (HD, 32): 4 keys of one row d
+      const int d = e / kTfKeys, kk = e % kTfKeys;
+      const char4 x = *reinterpret_cast<const char4*>(&sm.rk[buf][e]);
+      const float* sc = sm.rks[buf] + kk;
+      *reinterpret_cast<float4*>(&sm.k[0][d * kLdk + kk]) =
+          make_float4((float)x.x * sc[0], (float)x.y * sc[1],
+                      (float)x.z * sc[2], (float)x.w * sc[3]);
+    }
+    {  // V (32, HD): 4 dims of one key row
+      const int kk = e / HD, d = e % HD;
+      const char4 x = *reinterpret_cast<const char4*>(&sm.rv[buf][e]);
+      const float sc = sm.rvs[buf][kk];
+      *reinterpret_cast<float4*>(&sm.v[0][kk * kLdv + d]) =
+          make_float4((float)x.x * sc, (float)x.y * sc, (float)x.z * sc,
+                      (float)x.w * sc);
+    }
+  }
+}
+
+__device__ __forceinline__ int perm8(int g) {
+  return (g >> 1) | ((g & 1) << 2);
+}
+
+// f32 q; TK the pools' element type (float or int8); HD the head_dim.
+// Warp w owns rows 16 w .. 16 w + 15 of the block's 64-row tile; lane
+// 4g + t holds rows g, g + 8; of each 8-key score tile the keys t and
+// t + 4 (columns 2t, 2t + 1), of each 8-wide output tile the columns 2t,
+// 2t + 1.
+template <typename TK, int HD>
+__global__ void __launch_bounds__(kThreads)
+    paged_attention_tf32_kernel(const Call c) {
+  constexpr bool kQuant = std::is_same<TK, int8_t>::value;
+  using Smem = TfSmem<HD, kQuant>;
+  constexpr int kLdq = Smem::kLdq, kLdk = Smem::kLdk, kLdv = Smem::kLdv;
+  constexpr int NO = HD / 8, NS = kTfKeys / 8;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  const int s = blockIdx.x, h = blockIdx.y;
+  const int G = c.H / c.Hkv, R = c.C * G;
+  const int r0 = (blockIdx.z % (gridDim.z / c.splits)) * kTfRows;
+  const int tr = min(kTfRows, R - r0);
+  const int warp = threadIdx.x / 32, l = threadIdx.x % 32;
+  const int g = l / 4, t = l % 4, wr = 16 * warp;
+  float* out = static_cast<float*>(c.out);
+  if (c.active != nullptr && c.active[s] == 0) {  // inactive lane: zeros
+    if (c.splits == 1)
+      for (int i = threadIdx.x; i < tr * HD; i += kThreads)
+        out[row_offset(c, s, h, r0 + i / HD) + i % HD] = 0.f;
+    return;  // with splits, the merge writes them
+  }
+  const int p0 = c.positions[s];
+  const Walk w(c, p0, r0 + tr - 1);
+  auto stage = [&](int j, int buf) {
+    if constexpr (kQuant)
+      stage_slice<int8_t>(c, s, h, j, sm.rk[buf], kTfKeys, sm.rv[buf], HD,
+                          sm.rks[buf], sm.rvs[buf]);
+    else
+      stage_slice<float>(c, s, h, j, sm.k[buf], kLdk, sm.v[buf], kLdv,
+                         nullptr, nullptr);
+    cp_async_commit();
+  };
+  if (w.j0 < w.j1) stage(w.j0, 0);
+  {  // the query tile; rows past the last are zero
+    const float* q = static_cast<const float*>(c.q);
+    for (int i = threadIdx.x; i < kTfRows * HD / 4; i += kThreads) {
+      const int rr = i / (HD / 4), x = i % (HD / 4);
+      float* dst = sm.q + rr * kLdq + 4 * x;
+      if (rr < tr)
+        cp_async16(dst, q + row_offset(c, s, h, r0 + rr) + 4 * x);
+      else
+        *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    cp_async_commit();
+  }
+  int limit[2];  // this thread's two rows: their query position limits
+#pragma unroll
+  for (int i = 0; i < 2; ++i) limit[i] = p0 + (r0 + wr + g + 8 * i) / G;
+  float o[NO][4], m[2] = {kNegInf, kNegInf}, lsum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NO; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  const float* qrow = sm.q + (wr + g) * kLdq + t;  // rows g and g + 8
+
+  for (int j = w.j0; j < w.j1; ++j) {
+    const int buf = (j - w.j0) & 1;
+    if (j + 1 < w.j1) {
+      stage(j + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // slice j (and the query tile) staged
+    if constexpr (kQuant) {
+      dequantize_f32<HD>(sm, buf);
+      __syncthreads();
+    }
+    const float* K = sm.k[kQuant ? 0 : buf];
+    const float* V = sm.v[kQuant ? 0 : buf];
+    // scores (16 x 32 per warp) = Q K, K stored (HD, 32); each 16 dims
+    // summed on a fresh accumulator
+    float sc[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
+#pragma unroll 2
+    for (int k0 = 0; k0 < HD; k0 += 16) {
+      sm90::TfA a[2];
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const float* p = qrow + k0 + 8 * x;
+        sm90::split_tf32(p[0], a[x].big[0], a[x].small[0]);
+        sm90::split_tf32(p[8 * kLdq], a[x].big[1], a[x].small[1]);
+        sm90::split_tf32(p[4], a[x].big[2], a[x].small[2]);
+        sm90::split_tf32(p[8 * kLdq + 4], a[x].big[3], a[x].small[3]);
+      }
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        float tacc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const float* p = K + (k0 + 8 * x + t) * kLdk + 8 * n + perm8(g);
+          sm90::TfB b;
+          sm90::split_tf32(p[0], b.big[0], b.small[0]);
+          sm90::split_tf32(p[4 * kLdk], b.big[1], b.small[1]);
+          sm90::mma3(tacc, a[x], b);
+        }
+        sm90::add_acc(sc[n], tacc);
+      }
+    }
+    const int key0 = j * kTfKeys;
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = key0 + 8 * n + t + 4 * (e & 1);
+        const float x = key <= limit[e >> 1] ? sc[n][e] * c.sm_scale : kNegInf;
+        sc[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float corr[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float m_new = fmaxf(m[i], quad_max(mx[i]));
+      corr[i] = expf(m[i] - m_new);
+      m[i] = m_new;
+      lsum[i] *= corr[i];
+    }
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // masked entries stay exactly 0, also on rows masked so far
+        const float x = sc[n][e];
+        const float p = x <= kNegInf * 0.5f ? 0.f : expf(x - m[e >> 1]);
+        sc[n][e] = p;
+        lsum[e >> 1] += p;
+      }
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] *= corr[e >> 1];
+    // acc += P V: P (16 x 32) from the score registers (keys t, t + 4 of
+    // each 8-key tile: the A fragment as it stands), split once; V stored
+    // (32, HD); each group of 4 output tiles sums the slice on fresh
+    // accumulators
+    sm90::TfA pa[NS];
+#pragma unroll
+    for (int kk = 0; kk < NS; ++kk) {
+      sm90::split_tf32(sc[kk][0], pa[kk].big[0], pa[kk].small[0]);
+      sm90::split_tf32(sc[kk][2], pa[kk].big[1], pa[kk].small[1]);
+      sm90::split_tf32(sc[kk][1], pa[kk].big[2], pa[kk].small[2]);
+      sm90::split_tf32(sc[kk][3], pa[kk].big[3], pa[kk].small[3]);
+    }
+#pragma unroll
+    for (int qd = 0; qd < NO / 4; ++qd) {
+      float tacc[4][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < NS; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float* p = V + (8 * kk + t) * kLdv + 8 * (4 * qd + i) + g;
+          sm90::TfB b;
+          sm90::split_tf32(p[0], b.big[0], b.small[0]);
+          sm90::split_tf32(p[4 * kLdv], b.big[1], b.small[1]);
+          sm90::mma3(tacc[i], pa[kk], b);
+        }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sm90::add_acc(o[4 * qd + i], tacc[i]);
+    }
+    __syncthreads();  // this slice's buffers are restaged two slices on
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) lsum[i] = quad_sum(lsum[i]);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int rr = wr + g + 8 * i;
+    if (rr >= tr) continue;
+    float* row;
+    float inv = 1.f;
+    if (c.splits == 1) {
+      inv = lsum[i] > 0.f ? 1.f / lsum[i] : 0.f;  // l == 0: 0
+      row = out + row_offset(c, s, h, r0 + rr) + 2 * t;
+    } else {
+      const size_t pr = part_row(c, s, h, r0 + rr);
+      row = c.part_acc + pr * HD + 2 * t;
+      if (t == 0) {
+        c.part_ml[2 * pr] = m[i];
+        c.part_ml[2 * pr + 1] = lsum[i];
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<float2*>(row + 8 * n) =
+          make_float2(o[n][2 * i] * inv, o[n][2 * i + 1] * inv);
+  }
+}
+
 // ====================================================== merge kernel
 // One warp per (slot, KV head, row): lane p < splits loads split p's
 // (m, l), the warp reduces M and L, and each lane combines the splits'
@@ -763,9 +1051,22 @@ size_t smem_mma(bool quant, int hd) {
   return 0;
 }
 
-// The shared memory of one block of `route` (0 scalar, 1 mma).
+size_t smem_tf32(bool quant, int hd) {
+  switch (hd) {
+    case 64:
+      return quant ? sizeof(TfSmem<64, true>) : sizeof(TfSmem<64, false>);
+    case 128:
+      return quant ? sizeof(TfSmem<128, true>) : sizeof(TfSmem<128, false>);
+    case 256:
+      return quant ? sizeof(TfSmem<256, true>) : sizeof(TfSmem<256, false>);
+  }
+  return 0;
+}
+
+// The shared memory of one block of `route` (0 scalar, 1 mma, 2 tf32).
 size_t smem_bytes(int route, size_t elem, bool quant, int tile, int hd,
                   int ks) {
+  if (route == 2) return smem_tf32(quant, hd);
   return route == 1 ? smem_mma(quant, hd)
                     : smem_scalar(elem, quant, tile, hd, ks);
 }
@@ -812,6 +1113,22 @@ int launch_mma(const Call& c, cudaStream_t st) {
   return (int)cudaErrorInvalidValue;
 }
 
+template <typename TK>
+int launch_tf32(const Call& c, cudaStream_t st) {
+  constexpr bool kQuant = std::is_same<TK, int8_t>::value;
+  const int rows = c.C * (c.H / c.Hkv);
+  const dim3 grid(c.S, c.Hkv, (rows + kTfRows - 1) / kTfRows * c.splits);
+  const size_t smem = smem_tf32(kQuant, c.hd);
+  switch (c.hd) {
+    case 64: return run(paged_attention_tf32_kernel<TK, 64>, smem, grid, c, st);
+    case 128:
+      return run(paged_attention_tf32_kernel<TK, 128>, smem, grid, c, st);
+    case 256:
+      return run(paged_attention_tf32_kernel<TK, 256>, smem, grid, c, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 template <typename T>
 int launch_merge(const Call& c, cudaStream_t st) {
   const long long rows = (long long)c.S * c.Hkv * c.C * (c.H / c.Hkv);
@@ -821,14 +1138,19 @@ int launch_merge(const Call& c, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-// route 1 (the mma kernel) takes bf16 q only (the wrapper's plan).
+// route 1 (the mma kernel) takes bf16 q only, route 2 (the tf32 kernel)
+// f32 q only (the wrapper's plan).
 template <typename T, typename TK>
 int dispatch(const Call& c, int route, cudaStream_t st) {
   int rc;
   if constexpr (std::is_same<T, bf16>::value)
-    rc = route == 1 ? launch_mma<TK>(c, st) : launch_scalar<T, TK>(c, st);
+    rc = route == 1   ? launch_mma<TK>(c, st)
+         : route == 2 ? (int)cudaErrorInvalidValue
+                      : launch_scalar<T, TK>(c, st);
   else
-    rc = route == 1 ? (int)cudaErrorInvalidValue : launch_scalar<T, TK>(c, st);
+    rc = route == 2   ? launch_tf32<TK>(c, st)
+         : route == 1 ? (int)cudaErrorInvalidValue
+                      : launch_scalar<T, TK>(c, st);
   if (rc == 0 && c.splits > 1) rc = launch_merge<T>(c, st);
   return rc;
 }
@@ -841,12 +1163,13 @@ extern "C" {
 // float32, 1 = bfloat16 (q and out); int8: pools of int8 with their f32
 // scale pools (P+1, Hkv, page), else pools of q's type and null scales.
 // route: 0 the scalar kernel, 1 the mma kernel (bf16 q, page >= 64, hd in
-// {64, 128, 256}); ks: keys per slice (a power of two dividing page; 64 for
-// route 1); splits: blocks per (slot, KV head, row tile) along the keys (at
+// {64, 128, 256}), 2 the tf32 kernel (f32 q, the same pages and hd); ks:
+// keys per slice (a power of two dividing page; 64 for route 1, 32 for
+// route 2); splits: blocks per (slot, KV head, row tile) along the keys (at
 // most 32), with part_acc (splits, S, Hkv, C*G, hd) and part_ml (splits,
 // S, Hkv, C*G, 2) f32 scratch when splits > 1; tile: (c, g) rows of a
-// scalar tile (1, 2, 4, 8 or 16; 64 for route 1). Returns the cudaError_t
-// of the launches.
+// scalar tile (1, 2, 4, 8 or 16; 64 for routes 1 and 2). Returns the
+// cudaError_t of the launches.
 int dl4j_paged_attention(const void* q, const void* k_pool,
                          const void* v_pool, const float* k_scale,
                          const float* v_scale, const int* page_table,

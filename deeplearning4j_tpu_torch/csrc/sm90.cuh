@@ -348,6 +348,48 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& big,
   small = tf32_rna_finite(x - __uint_as_float(big));
 }
 
+// Split-TF32 products on mma.sync m16n8k8 (register fragments): the f32
+// flash kernels and the f32 paged-attention chunk kernel.
+struct TfA {  // an m16n8k8 A fragment, split
+  uint32_t big[4], small[4];
+};
+struct TfB {  // an m16n8k8 B fragment, split
+  uint32_t big[2], small[2];
+};
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a.b in split TF32, the small terms first
+__device__ __forceinline__ void mma3(float (&d)[4], const TfA& a,
+                                     const TfB& b) {
+  mma_tf32(d, a.small, b.big[0], b.big[1]);
+  mma_tf32(d, a.big, b.small[0], b.small[1]);
+  mma_tf32(d, a.big, b.big[0], b.big[1]);
+}
+
+// acc += t, then t = 0: the products of a few k-steps (a score product
+// over two, or a whole streamed tile of P V) are summed on the tensor
+// cores into a fresh accumulator t and added to the running sum here, an
+// f32 add that rounds to nearest. The tensor cores truncate the
+// sums they accumulate, so a running sum chained through every k-step of
+// a row (48 mma a score at D = 128, 384 a row of O per 1024 keys) drifts
+// toward zero by up to an ulp a step; measured on the card, that was
+// several times the error of f32 FMAs and failed phase 6's training
+// parity.
+__device__ __forceinline__ void add_acc(float (&acc)[4], float (&t)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    acc[e] += t[e];
+    t[e] = 0.f;
+  }
+}
+
 // ----------------------------------------------------------------- wgmma
 // Descriptor of a tile written by TMA with a 128-byte swizzle: rows of
 // 128 bytes, 8-row groups 1024 bytes apart (SBO); `lbo` is the distance
@@ -501,6 +543,19 @@ __device__ __forceinline__ void wgmma_m64n128_rs_mn(float (&d)[64],
 
 #define SM90_R16 \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+
+// d (64 x 16, f32) (+)= A (64 x 16) . B^T, A and B K-major in shared
+// memory (B stored as 16 rows of k); d is zeroed first when !accumulate.
+// Accumulator layout as wgmma_m64n128_ss's, over 2 column blocks of 8.
+__device__ __forceinline__ void wgmma_m64n16_ss(float (&d)[8], uint64_t da,
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : SM90_D4(0), SM90_D4(4)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
 
 // d (64 x 32, f32) (+)= A (64 x 16) . B^T, A and B K-major in shared
 // memory (B stored as 32 rows of k); d is zeroed first when !accumulate.

@@ -13,10 +13,10 @@ in f32 in split TF32 (each operand split into two TF32 parts, three
 tensor-core passes, every 32-wide k chunk summed on a fresh accumulator
 and added in f32: f32 accuracy, the reference's HIGHEST precision,
 whatever `torch.backends.cuda.matmul.allow_tf32` says). The bf16
-forward at B <= 128 and H <= 1024 is one cooperative launch instead,
-whose blocks keep their slices of RW in shared memory for the whole
-launch and wait for each other's h_t on a counter in global memory
-(`plan` reports which route a call gets). The
+forward and backward at B <= 128 and H <= 1024 are one cooperative
+launch each instead, whose blocks keep their slices of RW in shared
+memory for the whole launch and wait for each other's h_t (dz[t]) on a
+counter in global memory (`plan` reports which route a call gets). The
 source's header says how each is laid out and what bounds it.
 
 `lstm_fused(x, W, RW, b, peephole, h0, c0, mask=, reverse=)` is the entry
@@ -234,8 +234,8 @@ def _library() -> ctypes.CDLL:
         lib.dl4j_lstm_fwd.argtypes = [vp, vp, ci, vp, vp, vp, vp, ci, ci, vp] \
             + [vp] * 6 + dims
         # gates, c, dh_out, dhT, dcT, mask, rw, rwp, peep, c0, dz, dzbuf,
-        # dhc0
-        lib.dl4j_lstm_bwd.argtypes = [vp] * 13 + dims
+        # dhc0, sync
+        lib.dl4j_lstm_bwd.argtypes = [vp] * 14 + dims
         lib.dl4j_lstm_fwd.restype = ci
         lib.dl4j_lstm_bwd.restype = ci
         lib.dl4j_lstm_plan.argtypes = [ci] * 5 + [ctypes.POINTER(ci)]
@@ -243,17 +243,19 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-ROUTES = ("cooperative", "bf16 clusters", "tf32 clusters", "bf16 clusters")
+ROUTES = ("cooperative", "bf16 clusters", "tf32 clusters", "bf16 clusters",
+          "cooperative")
 
 
 class LaunchPlan(NamedTuple):
     """A kernel's launch on the current card: `route` (one of ROUTES),
     `smem` bytes of dynamic shared memory per block, `gx` x `gy` blocks
-    (the grid's blocks x 1 for the cooperative kernel; blocks per cluster
-    x row tiles for the others), `rows` per TMA box of h (the batch
-    rounded up to 8; cooperative) or per tile, `active` blocks that can be
-    resident at once (cooperative) or clusters that fit at once (0:
-    refused), `cluster` blocks per cluster, `units` per block."""
+    (the grid's blocks x 1 for the cooperative kernels; blocks per
+    cluster x row tiles for the others), `rows` per TMA box of h or dz[t]
+    (the batch rounded up to 8; cooperative) or per tile, `active` blocks
+    that can be resident at once (cooperative) or clusters that fit at
+    once (0: refused), `cluster` blocks per cluster, `units` per block (8
+    in the cooperative forward, 16 in the cooperative backward)."""
     route: str
     smem: int
     gx: int
@@ -496,8 +498,11 @@ def lstm_bwd(gates, c_st, dh_out, dhT, dcT, rw, peep, c0, mask=None, *,
     lib, p = _check_cuda("bwd", ins, gates.dtype, B, H, masked)
     dz = torch.empty_like(gates)
     dhc0 = torch.empty((2, B, H), dtype=torch.float32, device=gates.device)
-    rwp = dzbuf = None
-    if p.route == "tf32 clusters":
+    rwp = dzbuf = sync = None
+    if p.route == "cooperative":
+        # the step counter the blocks wait on, zeroed
+        sync = torch.zeros(1, dtype=torch.int32, device=gates.device)
+    elif p.route == "tf32 clusters":
         # RW's TF32 planes, a scratch for dz[t]'s; the dc carry starts as dcT
         rwp = _tf32_planes(rw)
         dzbuf = torch.empty((2, B, G), dtype=gates.dtype, device=gates.device)
@@ -507,7 +512,7 @@ def lstm_bwd(gates, c_st, dh_out, dhT, dcT, rw, peep, c0, mask=None, *,
             gates.data_ptr(), c_st.data_ptr(), dh_out.data_ptr(), _ptr(dhT),
             dcT.data_ptr(), _ptr(mask), rw.data_ptr(), _ptr(rwp),
             peep.data_ptr(), c0.data_ptr(), dz.data_ptr(), _ptr(dzbuf),
-            dhc0.data_ptr(),
+            dhc0.data_ptr(), _ptr(sync),
             _DTYPE_CODE[gates.dtype], T, B, H, int(reverse),
             torch.cuda.current_stream(gates.device).cuda_stream)
     _raise_on(rc, "bwd", tuple(gates.shape), p)

@@ -6,9 +6,9 @@ TPU kernel `_paged_kernel` becomes `csrc/paged_attention.cu` (route:
 CUDA C++ for sm_90a, plain C interface, loaded with ctypes). The key axis
 is walked in slices that never cross a page, split over blocks, the
 partial results merged by a second kernel; a tensor-core kernel takes
-bf16 prefill chunks, a scalar one takes f32, decode and verify; both
-take dense pools of q's type and int8 pools with f32 scale pools (the
-quantized KV tier). The source's header says how they are laid out,
+bf16 prefill chunks, a split-TF32 tensor-core kernel f32 ones, a scalar
+one decode and verify; all take dense pools of q's type and int8 pools
+with f32 scale pools (the quantized KV tier). The source's header says how they are laid out,
 where the dequantization goes and what bounds them; `plan` says which
 kernel and split a call gets.
 
@@ -23,7 +23,8 @@ version and no switch to turn the kernel off.
 
 Each function keeps a plain integer count: `paged_attention.launches`
 (calls that launched the kernels; `launches_by` splits them by
-`(C, kind)`, the chunk width and "dense" or "int8") and
+`(C, kind)`, the chunk width and "dense" or "int8", `launches_by_route`
+by `(C, route)`, `plan`'s route) and
 `paged_attention_plain.calls`; `paged_attention.launches_by_slot` and
 `paged_attention_plain.calls_by_slot` split them by the SPMD slot that
 made the call (`parallel.spmd.current_slot()`, None outside a per-slot
@@ -62,6 +63,7 @@ TOLERANCE = {torch.float32: 2e-4, torch.bfloat16: 4e-3}
 _COUNT_LOCK = threading.Lock()
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_ROUTE_CODE = {"scalar": 0, "mma": 1, "tf32": 2}
 
 
 def paged_attention_plain(q, k_pool, v_pool, page_table, positions,
@@ -100,7 +102,8 @@ paged_attention_plain.calls_by_slot = {}
 
 
 class Plan(NamedTuple):
-    """How a call is launched: `route` "mma" (the tensor-core kernel) or
+    """How a call is launched: `route` "mma" (the bf16 tensor-core
+    kernel), "tf32" (the split-TF32 tensor-core kernel, f32 q) or
     "scalar"; `ks` keys per slice; `rows` query rows per tile; `tiles`
     row tiles per (slot, KV head); `splits` blocks that share a tile's
     keys, each a contiguous range of slices (1: no merge)."""
@@ -125,20 +128,25 @@ def _tile_rows(rows: int) -> int:
 def plan(bf16: bool, int8: bool, S: int, C: int, H: int, Hkv: int, hd: int,
          page: int, n_pages: int, sms: int) -> Plan:
     """The launch of one call on a card of `sms` SMs, from its arguments
-    alone. bf16 q with pages of at least 64 positions, hd in (64, 128,
-    256) and at least 32 (c, g) rows per KV head (prefill chunks, wide
-    GQA groups) take the tensor-core kernel in 64-row tiles and 64-key
-    slices; the rest the scalar kernel in tiles of up to 16 rows and
-    slices of min(page, 64) keys, fewer where a slice of K would pass 32
-    KB. The keys are split so that the grid holds about 2 (tensor-core)
-    or 8 (scalar) blocks per SM, each split at least 4 (tensor-core) or 2
+    alone. Pages of at least 64 positions, hd in (64, 128, 256) and at
+    least 32 (c, g) rows per KV head (prefill chunks, wide GQA groups)
+    take a tensor-core kernel in 64-row tiles, dense or int8 pools alike:
+    bf16 q the bf16 one ("mma") in 64-key slices, f32 q the split-TF32
+    one ("tf32") in 32-key slices (f32 slices of 32 keys keep two stages
+    of K and V with the query tile within the shared memory of one block,
+    216 KB at hd 256). The rest (decode, verify, narrow GQA groups, small
+    pages) take the scalar kernel in tiles of up to 16 rows and slices of
+    min(page, 64) keys, fewer where a slice of K would pass 32 KB. The
+    keys are split so that the grid holds about 2 (tensor-core) or 8
+    (scalar) blocks per SM, each split at least 4 (tensor-core) or 2
     (scalar) slices, at most 32 splits (one lane each in the merge): the
-    scalar kernel's tiles are short (decode, verify), and its blocks walk
-    their slices one after another."""
+    scalar kernel's tiles are short, and its blocks walk their slices one
+    after another."""
     rows = C * (H // Hkv)
     elem = 1 if int8 else 2 if bf16 else 4
-    if bf16 and page >= 64 and hd in (64, 128, 256) and rows >= 32:
-        route, ks, tr, per_sm, least = "mma", 64, 64, 2, 4
+    if page >= 64 and hd in (64, 128, 256) and rows >= 32:
+        route, ks, tr, per_sm, least = "mma" if bf16 else "tf32", \
+            64 if bf16 else 32, 64, 2, 4
     else:
         cap = 32768 // (hd * elem)
         route, ks, tr, per_sm, least = "scalar", min(
@@ -238,7 +246,7 @@ def paged_attention(q, k_pool, v_pool, page_table, positions, *,
     p = plan(q.dtype == torch.bfloat16, int8, S, C, H, Hkv, hd, page,
              n_pages, torch.cuda.get_device_properties(
                  q.device).multi_processor_count)
-    route = int(p.route == "mma")
+    route = _ROUTE_CODE[p.route]
     smem = lib.dl4j_paged_attention_smem_bytes(code, int(int8), route,
                                                p.rows, hd, p.ks)
     limit = smem_limit_bytes(q.device)
@@ -269,23 +277,27 @@ def paged_attention(q, k_pool, v_pool, page_table, positions, *,
                            f"{rc} (S={S}, C={C}, H={H}, Hkv={Hkv}, hd={hd}, "
                            f"page={page}, pools {k_pool.dtype}, {p}, "
                            f"smem={smem})")
-    _count_launch((C, "int8" if int8 else "dense"))
+    _count_launch((C, "int8" if int8 else "dense"), p.route)
     return out
 
 
 paged_attention.launches = 0
 paged_attention.launches_by = {}
+paged_attention.launches_by_route = {}
 paged_attention.launches_by_slot = {}
 
 
-def _count_launch(key) -> None:
+def _count_launch(key, route: Optional[str] = None) -> None:
     """One launch of the kernels at `key` = (C, "dense" or "int8"), in
-    the SPMD slot that made it."""
+    the SPMD slot that made it, and (where given) on `plan`'s `route`."""
     slot = current_slot()
     with _COUNT_LOCK:
         paged_attention.launches += 1
         paged_attention.launches_by[key] = \
             paged_attention.launches_by.get(key, 0) + 1
+        if route is not None:
+            by_route = paged_attention.launches_by_route
+            by_route[(key[0], route)] = by_route.get((key[0], route), 0) + 1
         by = paged_attention.launches_by_slot
         by[slot] = by.get(slot, 0) + 1
 
@@ -314,6 +326,7 @@ def reset_counts() -> None:
     with _COUNT_LOCK:
         paged_attention.launches = 0
         paged_attention.launches_by = {}
+        paged_attention.launches_by_route = {}
         paged_attention.launches_by_slot = {}
         paged_attention_plain.calls = 0
         paged_attention_plain.calls_by_slot = {}

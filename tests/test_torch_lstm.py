@@ -471,6 +471,56 @@ def test_f32_tolerance_accepts_split_tf32_and_rejects_one_pass(masked):
     assert min(worst[1]) > 1.0, worst
 
 
+@pytest.mark.parametrize("Bn", [1, 31, 32, 33])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_bf16_backward_matches_pallas_interpret_small_batches(Bn, masked,
+                                                             reverse):
+    """The batches whose rows the cooperative bf16 backward handles
+    differently (one row; 31, 32 and 33 rows: the warpgroups split K at
+    64 rows or fewer, and rows past B fill the 64-row tile): the plain
+    backward in bf16 on a bf16 stash equals the JAX package's
+    `_lstm_bwd_kernel` / `_lstm_bwd_kernel_masked` (interpret mode, the
+    batch as one block, reversed by flipping time as the JAX dispatch
+    does), dz and dh0/dc0 within `L.error_in_tolerances` (2^-6 of a row's
+    largest |ref|: both round dz to bf16 and sum in f32 in other
+    orders). T=4, H=128."""
+    from deeplearning4j_tpu.ops.pallas_lstm import _bwd_call, _bwd_call_masked
+
+    Tn, Hn = 4, 128
+    dt = torch.bfloat16
+    rng = np.random.default_rng(60 + Bn + 2 * masked + reverse)
+    r = lambda *s, sc=1.0: torch.from_numpy(
+        (rng.standard_normal(s) * sc).astype(np.float32)).to(dt)
+    xw, rw = r(Tn, Bn, 4 * Hn), r(Hn, 4 * Hn, sc=Hn ** -0.5)
+    peep, h0, c0 = r(3, Hn, sc=0.3), r(Bn, Hn, sc=0.5), r(Bn, Hn, sc=0.5)
+    dh, dhT, dcT = r(Tn, Bn, Hn), r(Bn, Hn), r(Bn, Hn)
+    mask = None
+    if masked:
+        lens = np.arange(Bn) % (Tn + 1)
+        mask = torch.from_numpy((np.arange(Tn)[:, None] < lens[None])
+                                .astype(np.float32)).to(dt)
+    st = L.lstm_fwd_plain(xw, rw, peep, h0, c0, mask, reverse=reverse)
+    c_st, gates = st[4], st[5]
+    dz, dhc0 = L.lstm_bwd_plain(gates, c_st, dh, dhT if masked else None,
+                                dcT, rw, peep, c0, mask, reverse=reverse)
+    flip = (lambda a: a.flip(0)) if reverse else (lambda a: a)
+    j = lambda a: jnp.asarray(a.float().numpy()).astype(jnp.bfloat16)
+    if masked:
+        m_slab = mask[:, :, None].expand(Tn, Bn, Hn)
+        jdz, jdhc0 = _bwd_call_masked(
+            j(flip(gates)), j(flip(c_st)), j(flip(dh)), j(dhT), j(dcT),
+            j(flip(m_slab)), j(rw), j(peep), j(c0), bb=Bn, interpret=True)
+    else:
+        jdz, jdhc0 = _bwd_call(j(flip(gates)), j(flip(c_st)), j(flip(dh)),
+                               j(dcT), j(rw), j(peep), j(c0), bb=Bn,
+                               interpret=True)
+    want_dz = flip(torch.from_numpy(np.array(jdz, np.float32)))
+    want_dhc0 = torch.from_numpy(np.array(jdhc0, np.float32))
+    assert L.error_in_tolerances(dz, want_dz, dt) <= 1.0
+    assert L.error_in_tolerances(dhc0, want_dhc0, dt) <= 1.0
+
+
 # ------------------------------------------------------------ on the card
 def _card():
     if not torch.cuda.is_available():
@@ -591,9 +641,14 @@ def test_bf16_backward_clusters_and_refusals():
     """The bf16 backward runs H=2048 as clusters of 16 blocks (on a stash
     the plain forward made on the card) and an odd H (195: the wrapper
     pads it to 200 with zero units, then cuts them off) within tolerance;
-    above 2048 both passes refuse before any launch, naming why (the four
-    gates of a unit in one thread's accumulator, 16 blocks of 128 units
-    the most a cluster holds)."""
+    at B <= 128 and H <= 1024 it takes the cooperative kernel (16 units a
+    block): B = 1, 31, 32, 33 (the warpgroups split K) and 128, H = 1024
+    and 200, masked and not, forward and reverse, every launch on
+    ("bwd", "cooperative"), held to the plain version and bit-identical on
+    a rerun; B = 129 on "bf16 clusters"; above 2048 both passes refuse
+    before any launch, naming why (the four gates of a unit in one
+    thread's accumulator, 16 blocks of 128 units the most a cluster
+    holds)."""
     _card()
     dt = torch.bfloat16
     g = torch.Generator(device="cuda").manual_seed(6)
@@ -614,6 +669,36 @@ def test_bf16_backward_clusters_and_refusals():
         torch.cuda.synchronize()
         for a, b in zip(got, want):
             assert L.error_in_tolerances(a, b, dt) <= 1.0
+    for Hn in (1024, 200):
+        assert L.plan("bwd", dt, False, 128, Hn).route == "cooperative"
+        assert L.plan("bwd", dt, True, 129, Hn).route == "bf16 clusters"
+        coop = L.plan("bwd", dt, True, 32, Hn)
+        assert coop.units == 16 and coop.gx * coop.gy <= coop.active
+        rw, peep = r(Hn, 4 * Hn, sc=Hn ** -0.5), r(3, Hn, sc=0.3)
+        for Bn in (1, 31, 32, 33, 128, 129):
+            Tn = 6
+            xw, h0, c0 = r(Tn, Bn, 4 * Hn), r(Bn, Hn), r(Bn, Hn)
+            dh, dhT, dcT = r(Tn, Bn, Hn), r(Bn, Hn), r(Bn, Hn)
+            mask = (torch.arange(Tn, device="cuda")[:, None]
+                    < torch.arange(1, Bn + 1, device="cuda")[None]
+                    % (Tn + 1)).to(dt)
+            for m in (None, mask):
+                for reverse in (False, True):
+                    st = L.lstm_fwd_plain(xw, rw, peep, h0, c0, m,
+                                          reverse=reverse)
+                    args = (st[5], st[4], dh, None if m is None else dhT,
+                            dcT, rw, peep, c0, m)
+                    L.reset_counts()
+                    runs = [L.lstm_bwd(*args, reverse=reverse)
+                            for _ in range(2)]
+                    want = L.lstm_bwd_plain(*args, reverse=reverse)
+                    torch.cuda.synchronize()
+                    route = "cooperative" if Bn <= 128 else "bf16 clusters"
+                    assert L.launches_by_route == {("bwd", route): 2}
+                    for a, b in zip(runs[0], want):
+                        assert L.error_in_tolerances(a, b, dt) <= 1.0
+                    for a, b in zip(*runs):
+                        assert torch.equal(a, b)
     L.reset_counts()
     args = stash_args(1, 8, 2176)
     with pytest.raises(ValueError, match="16 blocks of 128"):

@@ -28,6 +28,7 @@ from deeplearning4j_tpu.ops.pallas_paged_attention import (  # noqa: E402
     paged_attention as jax_paged_attention,
 )
 from deeplearning4j_tpu_torch.ops import paged_attention as pa  # noqa: E402
+from deeplearning4j_tpu_torch.ops.lstm import _tf32  # noqa: E402
 from deeplearning4j_tpu_torch.ops.attention import (  # noqa: E402
     cached_attention_chunk,
     cached_attention_step,
@@ -309,15 +310,27 @@ def test_split_walk_matches_plain_and_jax_kernel(page, ks, splits, tile):
     (True, True, 3, 1, 4, 2, 64, 1, 80),         # int8, page 1
     (True, False, 1, 256, 8, 2, 128, 512, 5),    # bf16, page 512, GQA
     (True, False, 1, 1, 1, 1, 128, 16, 512),     # one slot, one head
+    (False, False, 1, 256, 8, 8, 128, 128, 34),  # f32 serve prefill chunk
+    (False, True, 1, 256, 8, 8, 128, 128, 34),   # f32 q, int8 pools, chunk
+    (False, False, 1, 256, 8, 2, 128, 128, 34),  # f32 chunk, GQA
+    (False, True, 1, 256, 4, 2, 128, 512, 5),    # f32 q, int8, page 512, GQA
+    (False, False, 1, 256, 8, 2, 128, 512, 5),   # f32 chunk, page 512, GQA
+    (False, False, 1, 256, 8, 2, 128, 64, 68),   # f32 chunk, page 64, GQA
+    (False, False, 8, 1, 8, 8, 128, 128, 34),    # f32 decode: scalar
+    (False, False, 2, 5, 4, 4, 128, 128, 34),    # f32 verify C=5: scalar
+    (False, False, 1, 40, 4, 4, 128, 2, 60),     # f32 chunk, page 2: scalar
 ])
 def test_plan_covers_every_slice_once(bf16, int8, S, C, H, Hkv, hd, page,
                                       n_pages):
     """`plan` (the launch the wrapper gives the kernels): slices divide
     the page and fit the 32 KB staging budget, the splits' contiguous
     ranges cover every slice of a slot exactly once, tiles cover every
-    (c, g) row, the tensor-core route is taken only by bf16 q with pages
-    of at least 64 and tiles of 32 rows or more, and the merge's warp
-    holds every split's (m, l) (at most 32 splits)."""
+    (c, g) row, a tensor-core route is taken exactly when pages hold at
+    least 64 positions, hd is 64, 128 or 256 and a KV head has 32 (c, g)
+    rows or more ("mma" for bf16 q, "tf32" for f32 q, dense or int8
+    pools: prefill chunks at C=256; decode and verify stay "scalar"),
+    and the merge's warp holds every split's (m, l) (at most 32
+    splits)."""
     p = pa.plan(bf16, int8, S, C, H, Hkv, hd, page, n_pages, 132)
     elem = 1 if int8 else 2 if bf16 else 4
     assert page % p.ks == 0 and p.ks * hd * elem <= 32768
@@ -327,9 +340,74 @@ def test_plan_covers_every_slice_once(bf16, int8, S, C, H, Hkv, hd, page,
                for j in range(sp * per, min(total, sp * per + per))]
     assert covered == list(range(total))
     assert p.tiles * p.rows >= C * H // Hkv > (p.tiles - 1) * p.rows
-    assert (p.route == "mma") == (bf16 and page >= 64 and
-                                  C * H // Hkv >= 32)
+    wide = page >= 64 and hd in (64, 128, 256) and C * H // Hkv >= 32
+    assert p.route == (("mma" if bf16 else "tf32") if wide else "scalar")
+    assert (p.ks, p.rows) == {"mma": (64, 64), "tf32": (32, 64)}.get(
+        p.route, (p.ks, p.rows))
     assert 1 <= p.splits <= 32
+
+
+def _mm_tf32(a, b, passes, chunk):
+    """a @ b as the tf32 kernel forms it: operands rounded to TF32 (rna),
+    three products with their small parts (a_small b_big + a_big b_small
+    + a_big b_big) or one (big only), each `chunk`-wide run of the summed
+    axis summed apart (a fresh accumulator) and the runs added in f32."""
+    out = None
+    for k0 in range(0, a.shape[-1], chunk):
+        x, y = a[..., k0:k0 + chunk], b[..., k0:k0 + chunk, :]
+        xb, yb = _tf32(x), _tf32(y)
+        part = xb @ yb
+        if passes == 3:
+            part = (_tf32(x - xb) @ yb + xb @ _tf32(y - yb)) + part
+        out = part if out is None else out + part
+    return out
+
+
+def _tf32_chunk(q, k_pool, v_pool, pt, p0, passes):
+    """The f32 chunk with the tf32 kernel's products, emulated in torch:
+    scores over 16-dim runs, P V over 32-key runs (a slice), P in f32;
+    (c, g) rows per KV head as the kernel folds GQA."""
+    S, C, H, hd = q.shape
+    Hkv = k_pool.shape[1]
+    G = H // Hkv
+    kd, vd = paged_gather(k_pool, v_pool, pt)
+    qg = q.reshape(S, C, Hkv, G, hd).permute(0, 2, 1, 3, 4) \
+        .reshape(S, Hkv, C * G, hd)
+    sc = _mm_tf32(qg, kd, passes, 16) / np.sqrt(hd)
+    limit = (torch.from_numpy(p0).long()[:, None]
+             + torch.arange(C)[None]).repeat_interleave(G, dim=1)
+    keep = torch.arange(kd.shape[-1])[None, None, None, :] \
+        <= limit[:, None, :, None]
+    sc = torch.where(keep, sc, torch.full_like(sc, -1e30))
+    p = torch.where(keep, torch.exp(sc - sc.amax(-1, keepdim=True)),
+                    torch.zeros_like(sc))
+    out = _mm_tf32(p, vd, passes, 32) / p.sum(-1, keepdim=True)
+    return out.reshape(S, Hkv, C, G, hd).permute(0, 2, 1, 3, 4) \
+        .reshape(S, C, H, hd)
+
+
+def test_f32_tolerance_accepts_split_tf32_chunk_and_rejects_one_pass():
+    """The f32 check of the tf32 chunk kernel (atol = rtol =
+    TOLERANCE[float32] = 2e-4, as `chip_smoke.py` holds it) tells split
+    TF32 from one TF32 pass: the chunk's products emulated on the CPU
+    (C=64, 4 query heads on 2 KV heads, hd 128, pages of 64, scores of
+    std ~2) stay within 0.1 of the tolerance of the JAX kernel (interpret
+    mode) with three passes and land outside it with one."""
+    rng = np.random.default_rng(5)
+    S, C, H, Hkv, hd, page, n_pages = 1, 64, 4, 2, 128, 64, 6
+    q, k_pool, v_pool, pt = _inputs(rng, S, C, H, Hkv, hd, page, n_pages)
+    q = (2.0 * q).astype(np.float32)
+    p0 = np.array([250], np.int32)
+    ref = _jax_kernel(q, k_pool, v_pool, pt, p0)
+    t = pa.TOLERANCE[torch.float32]
+    units = {}
+    for passes in (3, 1):
+        got = _tf32_chunk(*(torch.from_numpy(a) for a in (q, k_pool, v_pool,
+                                                          pt)),
+                          p0, passes).numpy()
+        units[passes] = float((np.abs(got - ref) / (t + t * np.abs(ref)))
+                              .max())
+    assert units[3] <= 0.1 and units[1] > 1.0, units
 
 
 def _card():
@@ -441,3 +519,49 @@ def test_paged_attention_kernel_takes_any_page_and_head_dim(pools):
             torch.cuda.synchronize()
             assert pa.paged_attention.launches == launches + 1
             torch.testing.assert_close(got.float(), ref, atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pools", ["float32", "int8"])
+def test_f32_chunk_kernel_on_the_tf32_route(pools):
+    """The split-TF32 chunk kernel (f32 q, C=256 and C=64, MHA and GQA, pages
+    of 64, 128 and 512 positions, dense and int8 pools) against the plain
+    version in f32, atol = rtol = 2e-4; every launch on the "tf32"
+    route, a decode step of the same pools on "scalar"."""
+    _card()
+    rng = np.random.default_rng(31)
+    tol = pa.TOLERANCE[torch.float32]
+    for (C, H, Hkv, page, n_pages) in ((256, 8, 8, 128, 34),
+                                       (256, 8, 2, 64, 68),
+                                       (256, 8, 2, 512, 9),
+                                       (64, 4, 2, 128, 8)):
+        S, hd = 1, 128
+        P = S * n_pages
+        q = torch.from_numpy(rng.standard_normal((S, C, H, hd))
+                             .astype(np.float32)).cuda()
+        pt = torch.from_numpy(rng.permutation(np.arange(1, P + 1))
+                              .reshape(S, n_pages).astype(np.int32)).cuda()
+        pos = torch.tensor([n_pages * page - C - 7], dtype=torch.int32,
+                           device="cuda")
+        kshape, vshape = (P + 1, Hkv, hd, page), (P + 1, Hkv, page, hd)
+        if pools == "int8":
+            kp, vp = (torch.from_numpy(rng.integers(-127, 128, sh)
+                                       .astype(np.int8)).cuda()
+                      for sh in (kshape, vshape))
+            extra = {name: torch.from_numpy((0.005 + 0.015 * rng.random(
+                (P + 1, Hkv, page))).astype(np.float32)).cuda()
+                for name in ("k_scale", "v_scale")}
+        else:
+            kp, vp = (torch.from_numpy(rng.standard_normal(sh).astype(
+                np.float32)).cuda() for sh in (kshape, vshape))
+            extra = {}
+        pa.reset_counts()
+        got = pa.paged_attention(q, kp, vp, pt, pos, **extra)
+        step = pa.paged_attention(q[:, :1].contiguous(), kp, vp, pt, pos,
+                                  **extra)
+        ref = pa.paged_attention_plain(q, kp, vp, pt, pos, **extra)
+        torch.cuda.synchronize()
+        assert pa.paged_attention.launches_by_route == {
+            (C, "tf32"): 1, (1, "scalar"): 1}
+        assert step.shape == (S, 1, H, hd)
+        torch.testing.assert_close(got, ref, atol=tol, rtol=tol)
